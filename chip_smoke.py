@@ -10,10 +10,12 @@ Phases, each printed on its own line:
 1. the device: torch's name for it and ``nvidia-smi``'s name and power limit;
 2. the kernel build (every ``dora_tpu_torch/csrc/*.cu``, nvcc started once per
    source, all together), with its time;
-3. each of the four kernels of the paged serving path held against its plain
-   PyTorch version on the card, in bf16 at the Qwen2-1.5B shapes the serving
-   path gives it, with its time, the plain version's time, a library
-   yardstick's time and the least time the card could take (``bound_ms``);
+3. each of the five kernels of the paged serving paths held against its
+   plain PyTorch version on the card, in bf16 at the Qwen2-1.5B shapes the
+   serving paths give it (``mlp_step`` and ``lm_head_argmax`` also at the
+   80 rows of a speculative verify), with its time, the plain version's
+   time, a library yardstick's time and the least time the card could take
+   (``bound_ms``);
 4. the slice: a Qwen2-1.5B-shaped engine with seeded random int8 weights
    (16 slots, page 16, chunk 256, K = 8, max_seq 2048) serves 16 requests
    with prompts of 64..1000 tokens and 128 new tokens each; together they
@@ -23,7 +25,19 @@ Phases, each printed on its own line:
 5. two of those requests again through the plain versions on the card: the
    greedy tokens must agree, or part where both tokens are within NEAR_TIE
    of the top logit of the plain path run in f32; and the kernel path's
-   logits must be as close to that f32 reference as the bf16 plain path's.
+   logits must be as close to that f32 reference as the bf16 plain path's;
+6. speculation and the prefix cache at full width and depth: the engine as
+   ``llm_server.make_engine`` builds it with ``DORA_SPEC_K=4`` (prefix cache
+   on, K = 8, 16 slots, page 16, chunk 256, 512-page pool) serves 16 chat
+   requests that share one 512-token system prefix, each with its own tail
+   of 32..480 tokens, 128 new tokens each. Request 0 runs first until it has
+   its first token; the other 15 then find its prompt pages in the cache.
+   Every decode tick goes through ``attention_paged_spec_step``; the batch
+   decode kernel and the plain versions may not run;
+7. two of those requests again on the spec-off, cache-off engine on the
+   card: the tokens must agree, or part where the served token is within
+   NEAR_TIE of the f32 plain path's top logit and the reference's within
+   SPEC_REF_TIE.
 
 It prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -46,12 +60,14 @@ BF16_OPS_PER_S = 989e12    # dense bf16 tensor-core peak
 # intermediates (norm output, attention weights, K/V, activations) round at
 # the same points in both versions but from f32 sums taken in another order.
 REL_TOL = {
-    "mlp_step": 1e-2,                    # seen 3.0e-3 (16 rows), 2.6e-3 (256)
-    "lm_head_argmax": 3e-5,              # the max logits; seen 0, 9.2e-6 (256)
+    "mlp_step": 1e-2,                    # seen 3.0e-3 (16 rows), 2.7e-3 (80), 2.6e-3 (256)
+    "lm_head_argmax": 3e-5,              # the max logits; seen 0 (16, 80), 9.2e-6 (256)
     "attention_paged_batch_step": 3e-3,  # seen 9.2e-4
     "attention_paged_chunk_step": 1.3e-2,  # seen 4.3e-3
-    "pools": 3e-3,                       # K/V written; seen 0 and 7.8e-4
+    "attention_paged_spec_step": 6e-3,     # seen 2.1e-3
+    "pools": 3e-3,                       # K/V written; seen 0, 2.0e-4 and 7.8e-4
 }
+SPEC_K = 4         # drafts per verify in phase 6: m = 5 candidate rows a stream
 HEAD_TIE = 1e-3    # logits this close may pick either token (kernel check)
 # Served tokens (phase 5): where a served stream parts from the plain path,
 # both tokens must be within NEAR_TIE of the f32 plain path's top logit
@@ -60,6 +76,11 @@ HEAD_TIE = 1e-3    # logits this close may pick either token (kernel check)
 # reference as the bf16 plain path's.
 NEAR_TIE = 0.05
 RMS_MARGIN = 1.5
+# Phase 7 compares two bf16 kernel paths, the served spec + cache path and
+# the spec-off, cache-off one: the served token is held to NEAR_TIE, the
+# reference's to twice that, each path's own near-tie band (a reference
+# token seen 0.0525 below the f32 top where the served token was the top).
+SPEC_REF_TIE = 2 * NEAR_TIE
 
 
 class Failed(Exception):
@@ -96,6 +117,41 @@ def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / BF16_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+#: the kernels of the spec-off serving path (phase 4)
+SPEC_OFF_KERNELS = ("attention_paged_chunk_step", "attention_paged_batch_step", "mlp_step",
+                    "lm_head_argmax")
+
+
+class _PlainCalls:
+    """Counts every call of a plain version while it is installed."""
+
+    NAMES = tuple(f"{n}_plain" for n in SPEC_OFF_KERNELS) + ("attention_paged_spec_step_plain",)
+
+    def __init__(self, DB):
+        self.DB, self.n = DB, 0
+        self.saved = {name: getattr(DB, name) for name in self.NAMES}
+        for name, fn in self.saved.items():
+            setattr(DB, name, self._counting(fn))
+
+    def _counting(self, fn):
+        def run(*a, **k):
+            self.n += 1
+            return fn(*a, **k)
+        return run
+
+    def restore(self):
+        for name, fn in self.saved.items():
+            setattr(self.DB, name, fn)
+
+
+def _check_streams(out: dict, max_new: int, vocab: int) -> None:
+    for i, toks in out.items():
+        if len(toks) != max_new:
+            raise Failed(f"request {i} finished with {len(toks)} of {max_new} tokens")
+        if not all(0 <= t < vocab for t in toks):
+            raise Failed(f"request {i} emitted a token outside the vocab")
 
 
 def check_kernels(torch, DB, params, cfg, rng_seed: int) -> list[dict]:
@@ -144,8 +200,9 @@ def check_kernels(torch, DB, params, cfg, rng_seed: int) -> list[dict]:
     wh, sh = params["lm_head"]["int8"], params["lm_head"]["scale"]
     wh_bf = (wh.float() * sh).bfloat16()
 
-    # mlp_step: decode (16 rows) is the entry; prefill (256 rows) printed too.
-    for m in (slots, chunk):
+    # mlp_step: decode (16 rows) is the entry; spec verify (80 rows) and
+    # prefill (256 rows) printed too.
+    for m in (slots, slots * (SPEC_K + 1), chunk):
         x = rows(m)
         args = (x, blk["ffn_norm"], wgu, sgu, blk.get("b_gateup"), wd, sd)
         want = DB.mlp_step_plain(*args)
@@ -174,8 +231,8 @@ def check_kernels(torch, DB, params, cfg, rng_seed: int) -> list[dict]:
                   f"library_ms {_time_ms(torch, lib, 5):.4f} bound_ms {bound:.4f} ({by})",
                   flush=True)
 
-    # lm_head_argmax: tokens equal except at plain near-ties.
-    for m in (slots, chunk):
+    # lm_head_argmax: tokens equal except at plain near-ties; 16, 80, 256 rows.
+    for m in (slots, slots * (SPEC_K + 1), chunk):
         x = rows(m)
         args = (x, params["out_norm"], wh, sh)
         hn = DB._rms(x, params["out_norm"], cfg.norm_eps).to(torch.bfloat16)
@@ -305,13 +362,88 @@ def check_kernels(torch, DB, params, cfg, rng_seed: int) -> list[dict]:
            _time_ms(torch, lambda: DB.attention_paged_chunk_step(*cargs2, **kw)),
            _time_ms(torch, lambda: DB.attention_paged_chunk_step_plain(*cargs1, **kw), 5),
            _time_ms(torch, lib_chunk), nbytes, ops)
+
+    # spec verify: 16 streams x m candidate rows. Stream 0's rows straddle a
+    # page (14..18), stream 3 is frozen, contexts reach 990; streams past 512
+    # share the first 32 pages, as streams on a cached system prefix do.
+    m = SPEC_K + 1
+    bm = slots * m
+    positions = [int(p) for p in torch.linspace(14, 990, slots).round().tolist()]
+    positions[3] = 0
+    shared_n = 32
+    bt = torch.zeros((slots, cfg.max_seq // page), dtype=torch.int32)
+    nxt = 1 + shared_n
+    for b, p in enumerate(positions):
+        if p == 0:
+            continue
+        n = -(-(p + m) // page)
+        first = shared_n if p >= shared_n * page else 0
+        bt[b, :first] = torch.arange(1, 1 + first, dtype=torch.int32)
+        bt[b, first:n] = torch.arange(nxt, nxt + n - first, dtype=torch.int32)
+        nxt += n - first
+    if nxt > n_pool:
+        raise Failed("spec kernel check positions overflow the pool")
+    written = torch.zeros((n_pool, kv, page), dtype=torch.bool)
+    ctx_rows = torch.zeros((n_pool, page), dtype=torch.bool)
+    for b, p in enumerate(positions):
+        if p == 0:
+            continue
+        for r in range(p, p + m):
+            written[bt[b, r // page], :, r % page] = True
+        for r in range(p):
+            ctx_rows[bt[b, r // page], r % page] = True
+    written, bt = written.to(dev), bt.to(dev)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    flat = (pos[:, None] + torch.arange(m, dtype=torch.int32, device=dev)[None, :]).reshape(bm)
+    cr, sr = DB.rope_rows_at(cos_t, sin_t, flat)
+    x = rows(bm)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    skw = dict(kw, m=m)
+    sargs1 = (x, blk["attn_norm"], wqkv, sqkv, bqkv, cr, sr, k1, v1, wo, swo, pos, bt)
+    sargs2 = (x, blk["attn_norm"], wqkv, sqkv, bqkv, cr, sr, k2, v2, wo, swo, pos, bt)
+    want, _, _ = DB.attention_paged_spec_step_plain(*sargs1, **skw)
+    got, _, _ = DB.attention_paged_spec_step(*sargs2, **skw)
+    err, rel = _rel(got, want)
+    pools_agree("attention_paged_spec_step", k2[1:], k1[1:], v2[1:], v1[1:])
+    keep = ~written
+    keep[0] = False  # frozen streams race to write the null page
+    if not (torch.equal(k2[keep], kp[keep]) and torch.equal(v2[keep], vp[keep])):
+        raise Failed("attention_paged_spec_step changed pool rows it does not own")
+    n_written = int(written[1:, 0].sum())
+    print(f"kernel attention_paged_spec_step: {n_written} pool rows written per kv head "
+          f"(stream 0 across pages {int(bt[0, 0])} and {int(bt[0, 1])}), every other row "
+          f"of pages 1.. bit-unchanged", flush=True)
+    q_spec = torch.randn((slots, h, m, hd), generator=gen, device=dev).bfloat16()
+    kctx = kp[bt.long()].permute(0, 2, 1, 3, 4).reshape(slots, kv, maxp * page, hd)
+    vctx = vp[bt.long()].permute(0, 2, 1, 3, 4).reshape(slots, kv, maxp * page, hd)
+    kctx = kctx.repeat_interleave(h // kv, dim=1)
+    vctx = vctx.repeat_interleave(h // kv, dim=1)
+    smask = (torch.arange(maxp * page, device=dev)[None, None, :]
+             <= flat.reshape(slots, m)[:, :, None])[:, None]
+
+    def lib_spec():
+        return torch.nn.functional.scaled_dot_product_attention(q_spec, kctx, vctx,
+                                                                attn_mask=smask)
+
+    ctx = sum(positions)
+    nbytes = (bm * d * 2 * 2 + d * 4 + d * n_qkv + n_qkv * 8 + bm * hd * 8
+              + h * hd * d + d * 4 + slots * 4 + bt.numel() * 4
+              + int(ctx_rows.sum()) * kv * hd * 2 * 2 + bm * kv * hd * 2 * 2)
+    ops = (2 * bm * d * n_qkv + 2 * 2 * h * hd * (m * ctx + slots * m * (m + 1) // 2)
+           + 2 * bm * h * hd * d)
+    record("attention_paged_spec_step", "dora_tpu_torch/csrc/paged_attention.cu",
+           "dora_tpu/ops/decode_block.py:1927", err, rel,
+           _time_ms(torch, lambda: DB.attention_paged_spec_step(*sargs2, **skw)),
+           _time_ms(torch, lambda: DB.attention_paged_spec_step_plain(*sargs1, **skw), 5),
+           _time_ms(torch, lib_spec), nbytes, ops)
     return out
 
 
 def serve_slice(torch, DB, qwen2, serve_prompts, params, cfg, prompts, max_new):
     """Phase 4: the engine serves every prompt through the kernels."""
     engine = qwen2.make_paged_engine(params, cfg, max_slots=16, page_size=16,
-                                     chunk=256, window=8, device="cuda")
+                                     chunk=256, window=8, spec_k=0, prefix_cache=False,
+                                     device="cuda")
     need = sum(engine.pages_needed(len(p), max_new) for p in prompts)
     usable = engine.allocator.num_pages - 1
     print(f"slice: {len(prompts)} requests need {need} pages of {usable} usable", flush=True)
@@ -340,19 +472,7 @@ def serve_slice(torch, DB, qwen2, serve_prompts, params, cfg, prompts, max_new):
 
     engine.window_step, engine.submit, engine.step = timed_window, counted_submit, counted_step
 
-    plain_calls = {"n": 0}
-    plain_names = ("mlp_step_plain", "lm_head_argmax_plain",
-                   "attention_paged_batch_step_plain", "attention_paged_chunk_step_plain")
-    saved = {n: getattr(DB, n) for n in plain_names}
-
-    def counting(fn):
-        def run(*a, **k):
-            plain_calls["n"] += 1
-            return fn(*a, **k)
-        return run
-
-    for n in plain_names:
-        setattr(DB, n, counting(saved[n]))
+    plain_calls = _PlainCalls(DB)
     DB.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -362,18 +482,15 @@ def serve_slice(torch, DB, qwen2, serve_prompts, params, cfg, prompts, max_new):
     finally:
         wall = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in DB.KERNELS}
-        for n in plain_names:
-            setattr(DB, n, saved[n])
-    print(f"slice launches: {json.dumps(launches)}; plain calls {plain_calls['n']}", flush=True)
-    for i, toks in out.items():
-        if len(toks) != max_new:
-            raise Failed(f"request {i} finished with {len(toks)} of {max_new} tokens")
-        if not all(0 <= t < cfg.vocab for t in toks):
-            raise Failed(f"request {i} emitted a token outside the vocab")
-    if plain_calls["n"]:
-        raise Failed(f"{plain_calls['n']} plain-version call(s) ran on the main path")
-    if not all(n > 0 for n in launches.values()):
+        plain_calls.restore()
+    print(f"slice launches: {json.dumps(launches)}; plain calls {plain_calls.n}", flush=True)
+    _check_streams(out, max_new, cfg.vocab)
+    if plain_calls.n:
+        raise Failed(f"{plain_calls.n} plain-version call(s) ran on the main path")
+    if not all(launches[n] > 0 for n in SPEC_OFF_KERNELS):
         raise Failed(f"a kernel never launched on the main path: {launches}")
+    if launches["attention_paged_spec_step"]:
+        raise Failed("the spec kernel launched with speculation off")
     if max(admitted_at.values()) == 0:
         raise Failed("no request waited for pages")
     engine.check_invariants()
@@ -390,8 +507,80 @@ def serve_slice(torch, DB, qwen2, serve_prompts, params, cfg, prompts, max_new):
     return out, launches
 
 
-def check_plain_agreement(torch, DB, qwen2, L, serve_prompts, params, cfg, prompts,
-                          max_new, served, picks):
+class _Paths:
+    """Switches the fused passes between the kernels and the plain versions
+    and reads the logits of the next token after a prefix on either path."""
+
+    NAMES = SPEC_OFF_KERNELS + ("attention_paged_spec_step",)
+
+    def __init__(self, torch, DB, qwen2, L, serve_prompts, params, cfg):
+        self.torch, self.DB, self.qwen2, self.L = torch, DB, qwen2, L
+        self.serve_prompts, self.params, self.cfg = serve_prompts, params, cfg
+        self.saved = {n: getattr(DB, n) for n in self.NAMES}
+
+    def use(self, plain: bool) -> None:
+        for n in self.NAMES:
+            setattr(self.DB, n, getattr(self.DB, n + "_plain") if plain else self.saved[n])
+
+    def engine(self):
+        """The spec-off, cache-off engine of phase 4."""
+        return self.qwen2.make_paged_engine(self.params, self.cfg, max_slots=16, page_size=16,
+                                            chunk=256, window=8, spec_k=0, prefix_cache=False,
+                                            device="cuda")
+
+    def logits_after(self, prefix, mode: str):
+        """Logits of the next token after ``prefix`` (its final chunk's row)
+        on the kernel path, the plain path, or the plain path in f32. The
+        kernel path records inside the wrapper, which keeps counting its
+        launches."""
+        torch, DB, L = self.torch, self.DB, self.L
+        last_logits: list = [None]
+        bf16_dtype = L.compute_dtype
+        self.use(mode != "kernel")
+        if mode == "f32":
+            L.compute_dtype = lambda device: torch.float32
+        # the head the pass calls: the kernel inside its wrapper, or the plain twin
+        name = "_lm_head_argmax_kernel" if mode == "kernel" else "lm_head_argmax"
+        head = getattr(DB, name)
+
+        def recording(x, norm_w, w, s, *, eps=1e-6, return_val=False):
+            h = DB._rms(x, norm_w, eps).to(x.dtype)
+            last_logits[0] = DB._wdot(h, w, s)
+            return head(x, norm_w, w, s, eps=eps, return_val=return_val)
+
+        setattr(DB, name, recording)
+        try:
+            engine = self.engine()
+            self.serve_prompts(engine, [prefix], 1)
+        finally:
+            setattr(DB, name, head)
+            L.compute_dtype = bf16_dtype
+            self.use(plain=False)
+        return last_logits[0][(len(prefix) - 1) % engine.chunk].float()
+
+    def near_tie(self, what: str, prefix, a: int, b: int, b_bound: float = NEAR_TIE) -> None:
+        """Where a served stream (token ``a``) parts from a reference path
+        (token ``b``) after ``prefix``, ``a`` must be within NEAR_TIE of the
+        f32 plain path's top logit and ``b`` within ``b_bound``. The bf16
+        plain path's own deviations there are printed beside them."""
+        lf = self.logits_after(prefix, "f32")
+        lp = self.logits_after(prefix, "plain")
+        top = float(lf.max())
+        da, db = top - float(lf[a]), top - float(lf[b])
+        print(f"{what}: where they part the served token is {da:.4e} and the reference "
+              f"token {db:.4e} below the f32 maximum (bounds {NEAR_TIE} and {b_bound}; logit "
+              f"std {float(lf.std()):.3f}); bf16 plain path vs f32 there: max "
+              f"{float((lp - lf).abs().max()):.4e}, at the two tokens "
+              f"{float(lp[a] - lf[a]):+.4e} and {float(lp[b] - lf[b]):+.4e}", flush=True)
+        if not (da <= NEAR_TIE and db <= b_bound):
+            raise Failed(f"{what} parts away from a near-tie")
+
+
+def _first_parting(a, b, n: int) -> int:
+    return next((t for t in range(n) if a[t] != b[t]), n)
+
+
+def check_plain_agreement(paths, prompts, max_new, served, picks):
     """Phase 5: requests through the plain versions on the card.
 
     The served greedy tokens must equal the plain path's, or part where both
@@ -399,76 +588,148 @@ def check_plain_agreement(torch, DB, qwen2, L, serve_prompts, params, cfg, promp
     on the same prefix. That f32 run is the reference: the plain path in bf16
     shows how far bf16 rounding alone moves the logits, and the kernel path
     must stay as close to the reference as that (within RMS_MARGIN)."""
-    names = ("mlp_step", "lm_head_argmax", "attention_paged_batch_step",
-             "attention_paged_chunk_step")
-    saved = {n: getattr(DB, n) for n in names}
-    bf16_dtype = L.compute_dtype
-    last_logits: list = [None]
-
-    def use(plain: bool):
-        for n in names:
-            setattr(DB, n, getattr(DB, n + "_plain") if plain else saved[n])
-
-    def recording(head):
-        # f32 logits of the rows the head sees, then the head itself
-        def run(x, norm_w, w, s, *, eps=1e-6, return_val=False):
-            h = DB._rms(x, norm_w, eps).to(x.dtype)
-            last_logits[0] = DB._wdot(h, w, s)
-            return head(x, norm_w, w, s, eps=eps, return_val=return_val)
-        return run
-
-    def logits_after(prefix, mode: str):
-        """Logits of the next token after ``prefix`` (its final chunk's
-        row) on the kernel path, the plain path, or the plain path in f32.
-        The kernel path records inside the wrapper, which keeps counting
-        its launches."""
-        use(mode != "kernel")
-        if mode == "f32":
-            L.compute_dtype = lambda device: torch.float32
-        name = "_lm_head_argmax_kernel" if mode == "kernel" else "lm_head_argmax"
-        head = getattr(DB, name)
-        setattr(DB, name, recording(head))
-        try:
-            engine = qwen2.make_paged_engine(params, cfg, max_slots=16, page_size=16,
-                                             chunk=256, window=8, device="cuda")
-            serve_prompts(engine, [prefix], 1)
-        finally:
-            setattr(DB, name, head)
-            L.compute_dtype = bf16_dtype
-        return last_logits[0][(len(prefix) - 1) % engine.chunk].float()
-
     try:
-        use(plain=True)
-        engine = qwen2.make_paged_engine(params, cfg, max_slots=16, page_size=16,
-                                         chunk=256, window=8, device="cuda")
-        plain, _ = serve_prompts(engine, [prompts[i] for i in picks], max_new)
-        for j, i in enumerate(picks):
-            a, b = served[i], plain[j]
-            same = next((t for t in range(max_new) if a[t] != b[t]), max_new)
-            # Logits where the streams part (else before the last token).
-            at = min(same, max_new - 1)
-            prefix = prompts[i] + a[:at]
-            lk, lp, lf = (logits_after(prefix, m) for m in ("kernel", "plain", "f32"))
-            rms_k = float((lk - lf).pow(2).mean().sqrt())
-            rms_p = float((lp - lf).pow(2).mean().sqrt())
-            max_p = float((lp - lf).abs().max())
-            print(f"plain agreement: request {i}: first {same} of {max_new} greedy tokens "
-                  f"equal; logits after {len(prefix)} tokens vs the f32 plain path: "
-                  f"kernel path rms {rms_k:.4e}, bf16 plain path rms {rms_p:.4e} "
-                  f"(max {max_p:.4e}; logit std {float(lf.std()):.3f})", flush=True)
-            if not rms_k <= RMS_MARGIN * rms_p:
-                raise Failed(f"request {i}: the kernel path is further from the f32 "
-                             f"reference than bf16 rounding explains")
-            if same < max_new:
-                top = float(lf.max())
-                short = max(top - float(lf[a[same]]), top - float(lf[b[same]]))
-                print(f"plain agreement: request {i}: the two tokens where they part are "
-                      f"within {short:.4e} of the f32 maximum (near-tie bound {NEAR_TIE})",
-                      flush=True)
-                if not short <= NEAR_TIE:
-                    raise Failed(f"request {i} parts from the plain path away from a near-tie")
+        paths.use(plain=True)
+        plain, _ = paths.serve_prompts(paths.engine(), [prompts[i] for i in picks], max_new)
     finally:
-        use(plain=False)
+        paths.use(plain=False)
+    for j, i in enumerate(picks):
+        a, b = served[i], plain[j]
+        same = _first_parting(a, b, max_new)
+        # Logits where the streams part (else before the last token).
+        at = min(same, max_new - 1)
+        prefix = prompts[i] + a[:at]
+        lk, lp, lf = (paths.logits_after(prefix, m) for m in ("kernel", "plain", "f32"))
+        rms_k = float((lk - lf).pow(2).mean().sqrt())
+        rms_p = float((lp - lf).pow(2).mean().sqrt())
+        max_p = float((lp - lf).abs().max())
+        print(f"plain agreement: request {i}: first {same} of {max_new} greedy tokens "
+              f"equal; logits after {len(prefix)} tokens vs the f32 plain path: "
+              f"kernel path rms {rms_k:.4e}, bf16 plain path rms {rms_p:.4e} "
+              f"(max {max_p:.4e}; logit std {float(lf.std()):.3f})", flush=True)
+        if not rms_k <= RMS_MARGIN * rms_p:
+            raise Failed(f"request {i}: the kernel path is further from the f32 "
+                         f"reference than bf16 rounding explains")
+        if same < max_new:
+            paths.near_tie(f"plain agreement: request {i}", prefix, a[same], b[same])
+
+
+#: the front-door knobs phase 6 clears so that make_engine's defaults run
+FRONT_DOOR_KNOBS = ("DORA_BATCH_SLOTS", "DORA_PAGE_SIZE", "DORA_PREFILL_CHUNK",
+                    "DORA_MULTISTEP_K", "DORA_PREFIX_CACHE", "DORA_PREFIX_CACHE_PAGES",
+                    "DORA_SPEC_K", "DORA_SPEC_NGRAM", "DORA_PAGED_KV")
+
+
+def serve_spec_cache(torch, DB, vlm, make_engine, serve_prompts, params, cfg, seed: int,
+                     max_new: int):
+    """Phase 6: speculation and the prefix cache at full width and depth.
+    Returns (prompts, {request index: tokens}, launches)."""
+    import numpy as np
+
+    saved_env = {k: os.environ.pop(k, None) for k in FRONT_DOOR_KNOBS}
+    os.environ["DORA_SPEC_K"] = str(SPEC_K)
+    try:
+        engine = make_engine(params, cfg, device="cuda")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    got = (engine.spec_k, engine.window, engine.max_slots, engine.page_size, engine.chunk,
+           engine.allocator.num_pages, engine.prefix_cache is not None)
+    if got != (SPEC_K, 8, 16, 16, 256, 512, True):
+        raise Failed(f"make_engine built (spec_k, K, slots, page, chunk, pages, cache) = {got}")
+
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab, size=512).tolist()
+    tails = np.linspace(32, 480, 16).round().astype(int)
+    prompts = [system + rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in tails]
+    cold = sum(engine.pages_needed(len(p), max_new) for p in prompts)
+    shared = engine.pages_needed(len(prompts[0]), max_new) + sum(
+        engine.pages_needed(len(p), max_new, 512) - 32 for p in prompts[1:])
+    cold_chunks = sum(-(-len(p) // engine.chunk) for p in prompts)
+    print(f"spec phase: 16 requests of {len(prompts[0])}..{len(prompts[-1])} tokens need "
+          f"{cold} pages cold, {shared} sharing the 512-token prefix, of "
+          f"{engine.allocator.num_pages - 1} usable", flush=True)
+
+    window_s = []
+    per_pass = [0, 0]  # tokens emitted, verification passes of live streams
+    inner = engine.window_step
+
+    def watched_window(*a):
+        live = torch.nonzero(a[4]).flatten().tolist()
+        t = time.perf_counter()
+        res = inner(*a)
+        torch.cuda.synchronize()
+        window_s.append(time.perf_counter() - t)
+        mat = res[0].cpu().numpy()
+        for b in live:
+            n_emit, frozen = vlm.spec_window_row_stats(mat[b], engine.window, engine.spec_k + 1)
+            per_pass[0] += n_emit
+            per_pass[1] += engine.window if frozen is None else frozen + 1
+        return res
+
+    engine.window_step = watched_window
+    plain_calls = _PlainCalls(DB)
+    DB.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        engine.submit("first", prompts[0], max_new)
+        first: list[int] = []
+        while not first:
+            for rid, token, _done in engine.step():
+                first.append(token)
+        ttft0 = time.perf_counter() - t0
+        out, ttft = serve_prompts(engine, prompts[1:], max_new, others={"first": first})
+        torch.cuda.synchronize()
+    finally:
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in DB.KERNELS}
+        plain_calls.restore()
+    served = {0: first, **{i + 1: toks for i, toks in out.items()}}
+    pc = engine.prefix_cache
+    print(f"spec phase launches: {json.dumps(launches)}; plain calls {plain_calls.n}; "
+          f"prefix cache {json.dumps(pc.stats())}", flush=True)
+    _check_streams(served, max_new, cfg.vocab)
+    if plain_calls.n:
+        raise Failed(f"{plain_calls.n} plain-version call(s) ran on the spec path")
+    if not launches["attention_paged_spec_step"] > 0:
+        raise Failed("the spec kernel never launched with speculation on")
+    if launches["attention_paged_batch_step"]:
+        raise Failed("the batch decode kernel launched with speculation on")
+    if (pc.hits, pc.misses, pc.hit_tokens) != (15, 1, 15 * 512):
+        raise Failed(f"expected 15 hits of 512 tokens and 1 miss, got {pc.stats()}")
+    if not engine.chunks_run < cold_chunks:
+        raise Failed(f"{engine.chunks_run} prefill chunks ran, {cold_chunks} cold")
+    engine.check_invariants()
+    n_tok = sum(len(t) for t in served.values())
+    ttfts = sorted([ttft0, *ttft.values()])  # each from its own submit
+    print(f"spec phase: {n_tok} tokens in {wall:.3f} s; decode "
+          f"{(n_tok - len(prompts)) / sum(window_s):.1f} tokens/s over {len(window_s)} windows "
+          f"(K=8, spec_k={SPEC_K}, window mean {1e3 * sum(window_s) / len(window_s):.2f} ms, "
+          f"max {1e3 * max(window_s):.2f} ms); {per_pass[0] / per_pass[1]:.3f} tokens per "
+          f"stream per verification pass ({per_pass[0]} over {per_pass[1]}); TTFT p50 "
+          f"{ttfts[len(ttfts) // 2]:.3f} s max {ttfts[-1]:.3f} s (request 0 {ttft0:.3f} s); "
+          f"{engine.chunks_run} prefill chunks ({cold_chunks} cold); {pc.hits} hits, "
+          f"{pc.hit_tokens} hit tokens; end-to-end {n_tok / wall:.1f} tokens/s", flush=True)
+    return prompts, served, launches
+
+
+def check_spec_agreement(paths, prompts, max_new, served, picks):
+    """Phase 7: requests of phase 6 on the spec-off, cache-off kernel path.
+    Spec verification and shared-page prefill round in another order than
+    decode and cold prefill, so a parting is allowed only at a near-tie."""
+    ref, _ = paths.serve_prompts(paths.engine(), [prompts[i] for i in picks], max_new)
+    for j, i in enumerate(picks):
+        a, b = served[i], ref[j]
+        same = _first_parting(a, b, max_new)
+        print(f"spec agreement: request {i}: first {same} of {max_new} tokens equal to the "
+              f"spec-off, cache-off engine", flush=True)
+        if same < max_new:
+            paths.near_tie(f"spec agreement: request {i}", prompts[i] + a[:same], a[same],
+                           b[same], SPEC_REF_TIE)
 
 
 def main(argv=None) -> int:
@@ -488,8 +749,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, here)
     try:
         from dora_tpu_torch.models import layers as L
+        from dora_tpu_torch.models import vlm
         from dora_tpu_torch.models.hf import qwen2
-        from dora_tpu_torch.nodehub.llm_server import serve_prompts
+        from dora_tpu_torch.nodehub.llm_server import make_engine, serve_prompts
         from dora_tpu_torch.ops import _build
         from dora_tpu_torch.ops import decode_block as DB
     except ImportError as e:
@@ -508,9 +770,9 @@ def main(argv=None) -> int:
 
     try:
         t = time.perf_counter()
-        paths = _build.build()
-        print(f"build: {len(paths)} kernel libraries in {time.perf_counter() - t:.2f} s "
-              f"({', '.join(p.name for p in paths.values())})", flush=True)
+        libs = _build.build()
+        print(f"build: {len(libs)} kernel libraries in {time.perf_counter() - t:.2f} s "
+              f"({', '.join(p.name for p in libs.values())})", flush=True)
 
         cfg = qwen2.Qwen2Config.qwen2_1_5b(layers=args.layers, max_seq=2048)
         t = time.perf_counter()
@@ -530,8 +792,16 @@ def main(argv=None) -> int:
         for k in kernels:
             k["launches"] = launches[k["name"]]
 
-        check_plain_agreement(torch, DB, qwen2, L, serve_prompts, params, cfg, prompts,
-                              args.max_new, served, picks=(0, 1))
+        paths = _Paths(torch, DB, qwen2, L, serve_prompts, params, cfg)
+        check_plain_agreement(paths, prompts, args.max_new, served, picks=(0, 1))
+
+        spec_prompts, spec_served, spec_launches = serve_spec_cache(
+            torch, DB, vlm, make_engine, serve_prompts, params, cfg, args.seed + 2,
+            args.max_new)
+        for k in kernels:
+            if k["name"] == "attention_paged_spec_step":
+                k["launches"] = spec_launches[k["name"]]
+        check_spec_agreement(paths, spec_prompts, args.max_new, spec_served, picks=(1, 15))
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,7 +1,9 @@
 // Paged attention sublayers: replace the Pallas kernels
 // _attn_paged_batch_kernel / attention_paged_batch_step (decode: one row per
-// stream) and _attn_paged_chunk_kernel / attention_paged_chunk_step (prefill:
-// M rows of one stream) of dora_tpu/ops/decode_block.py, fp-KV form.
+// stream), _attn_paged_chunk_kernel / attention_paged_chunk_step (prefill:
+// M rows of one stream) and _attn_paged_spec_kernel /
+// attention_paged_spec_step (speculative verify: m candidate rows for each
+// of B streams) of dora_tpu/ops/decode_block.py, fp-KV form.
 //
 // Per row: RMSNorm -> int8 qkv + bias -> NeoX RoPE (full-width rows
 // cos_full = [cos, cos], sin_signed = [-sin, sin]) -> K/V written into the
@@ -9,16 +11,20 @@
 // paged context -> int8 wo -> + residual. Pools are [P, KV, page, hd] bf16;
 // page 0 is the null page.
 //
-// Bound: at decode width (16 rows) the wqkv + wo int8 stream (5.5 MB) plus
-// each stream's K/V pages (16 KB per page per layer); at prefill (256 rows)
-// the qkv/wo products (2.8 GFLOP).
+// Bound: at decode width (16 rows) and at spec width (16 streams x 5 rows)
+// the wqkv + wo int8 stream (5.5 MB) plus each stream's K/V pages (16 KB per
+// page per layer); at prefill (256 rows) the qkv/wo products (2.8 GFLOP).
 //
 // Design: the TPU kernels run as one sequential grid step carrying their
 // scratch; here the sublayer is five launches in stream order: RMSNorm; the
-// qkv product (K split over blocks, common.cuh); a per-row kernel that sums
-// the splits, adds the bias, rotates q and k and writes the row's K/V into its
-// page; the attention sweep, one block per (row band, kv head) walking the
-// pages through the block table; the wo product and its epilogue.
+// qkv product (K split over blocks, common.cuh), which reads the weights once
+// for all rows, so a spec verify of 80 rows streams them once as decode does;
+// a per-row kernel that sums the splits, adds the bias, rotates q and k and
+// writes the row's K/V into its page; the attention sweep, one block per (row
+// band or stream, kv head) walking the pages through the block table; the wo
+// product and its epilogue. The spec sweep puts all m x G query rows of a
+// (stream, kv head) in one block, so each context page is read once for
+// them.
 //
 // Numerics kept from the reference:
 // * decode sweeps the PRIOR context (idx < pos) from the pool in bf16 with q
@@ -27,6 +33,9 @@
 //   rounded to bf16 from the pool;
 // * prefill attends its own chunk from the bf16 values it wrote (the
 //   reference casts the chunk's K/V to the compute dtype too), causally, with
+//   the running max starting at -1e30;
+// * spec verify sweeps the prior context like decode but folds its m rows
+//   from bf16-rounded values, as its reference does (unlike decode), with
 //   the running max starting at -1e30;
 // * probabilities are rounded to bf16 before the P.V product, the softmax
 //   sums stay f32.
@@ -39,21 +48,29 @@ constexpr int MAXHEADS = 32;  // most q + k + v heads of one row
 constexpr int BQ = 4;         // prefill query rows per block
 constexpr int NQMAX = BQ * MAXG;
 constexpr int CT = 256;       // prefill sweep threads
+constexpr int SQ = 64;        // spec verify: most candidate rows x group heads
+constexpr int ST = 256;       // spec verify sweep threads
 
 // Sum the qkv splits, scale, add the bias, rotate q and k, store q (and the
-// current row's f32 K/V for the decode merge when k_out is given), and write
-// the row's K/V into pool page bt[i * bt_stride + pos / PAGE], row pos % PAGE.
-// Decode passes positions[] and the [B, max_pages] table; prefill passes
-// pos0 (row i sits at pos0 + i) and its one table row with bt_stride 0.
+// row's f32 K/V when k_out is given: the decode merge and the spec fold read
+// them from there), and write the row's K/V into the pool. Rows come in
+// streams of `per_stream` rows: row i belongs to stream sb = i / per_stream
+// and sits at position (positions ? positions[sb] : pos0) + i % per_stream,
+// written to page bt[sb * bt_stride + pos / PAGE], row pos % PAGE. Decode
+// passes positions[], one row per stream and the [B, max_pages] table;
+// prefill passes pos0, all M rows as one stream and its one table row; the
+// spec verify passes positions[] (each stream's chunk start), m rows per
+// stream and the [B, max_pages] table, so a stream's m rows may straddle a
+// page and each row routes through its own table entry.
 //
-// Frozen decode rows all sit at position 0 with a zeroed table row, so they
-// all write row 0 of null page 0 at once. That race is harmless: no live row
-// ever reads page 0.
+// Frozen decode and spec streams all sit at position 0 with a zeroed table
+// row, so they all write rows 0 .. per_stream - 1 of null page 0 at once.
+// That race is harmless: no live row ever reads page 0.
 static __global__ void __launch_bounds__(HD)
 qkv_rope_write(const float* __restrict__ P, int splits, int M,
                const float* __restrict__ s, const float* __restrict__ b,
                const float* __restrict__ cosr, const float* __restrict__ sinr,
-               const int* __restrict__ positions, int pos0,
+               const int* __restrict__ positions, int pos0, int per_stream,
                const int* __restrict__ bt, int bt_stride,
                bf16* __restrict__ k_pool, bf16* __restrict__ v_pool,
                float* __restrict__ q_out, float* __restrict__ k_out,
@@ -71,8 +88,9 @@ qkv_rope_write(const float* __restrict__ P, int splits, int M,
     __syncthreads();
     const float c = cosr[(size_t)i * HD + d], sn = sinr[(size_t)i * HD + d];
     const int partner = d < HD / 2 ? d + HD / 2 : d - HD / 2;
-    const int pos = positions ? positions[i] : pos0 + i;
-    const int pg = bt[(size_t)i * bt_stride + pos / PAGE];
+    const int sb = i / per_stream;
+    const int pos = (positions ? positions[sb] : pos0) + i % per_stream;
+    const int pg = bt[(size_t)sb * bt_stride + pos / PAGE];
     for (int h = 0; h < H; ++h)
         q_out[((size_t)i * H + h) * HD + d] = buf[h][d] * c + buf[h][partner] * sn;
     for (int g = 0; g < KV; ++g) {
@@ -272,6 +290,113 @@ paged_chunk_attn(const float* __restrict__ q_in, const bf16* __restrict__ k_pool
     }
 }
 
+// Spec verify: one block per (stream b, kv head g) holds the stream's m
+// candidate rows times the group's G query heads (NQ = m * G <= SQ rows,
+// ordered (candidate i, head h)). It sweeps the PRIOR context, pages 0 ..
+// ceil(pos / PAGE) - 1 through the stream's table with key idx < pos live
+// (pos is each stream's chunk start and need not be page-aligned; the rows
+// this call wrote sit at idx >= pos and stay masked), then folds the
+// stream's own m rows as one more online-softmax step, causally (candidate i
+// sees rows j <= i) and from the bf16-rounded K/V of the scratch rows, never
+// from the pool: frozen streams race on null page 0, and the reference folds
+// bf16 values (its k_s.astype(dtype)). Another stream's rows are never seen.
+static __global__ void __launch_bounds__(ST)
+paged_spec_attn(const float* __restrict__ q_in, const float* __restrict__ k_in,
+                const float* __restrict__ v_in, const bf16* __restrict__ k_pool,
+                const bf16* __restrict__ v_pool, const int* __restrict__ positions,
+                const int* __restrict__ bt, int max_pages, bf16* __restrict__ attn,
+                int m, int H, int KV, float scale) {
+    __shared__ bf16 qs[SQ][HD];
+    __shared__ float ks[PAGE][HD + 1];
+    __shared__ float vs[PAGE][HD];
+    __shared__ float sc[SQ][PAGE];
+    __shared__ float m_s[SQ], l_s[SQ], al_s[SQ];
+    constexpr int NACC = SQ * HD / ST;
+    constexpr int QSTEP = ST / HD;
+    const int tid = threadIdx.x, b = blockIdx.x, g = blockIdx.y;
+    const int G = H / KV, NQ = m * G;
+    const int pos = positions[b];
+    for (int idx = tid; idx < NQ * HD; idx += ST) {
+        int qv = idx / HD, e = idx % HD;
+        int i = qv / G, h = qv % G;
+        qs[qv][e] = __float2bfloat16(q_in[(((size_t)b * m + i) * H + g * G + h) * HD + e]);
+    }
+    if (tid < NQ) {
+        m_s[tid] = -1e30f;
+        l_s[tid] = 0.f;
+    }
+    const int d = tid % HD, qv0 = tid / HD;
+    float acc[NACC];
+#pragma unroll
+    for (int u = 0; u < NACC; ++u) acc[u] = 0.f;
+    __syncthreads();
+    const int npages = (pos + PAGE - 1) / PAGE;  // prior context only
+    for (int blk = 0; blk <= npages; ++blk) {    // step npages folds the chunk
+        const bool fold = blk == npages;
+        if (!fold) {
+            const int pg = bt[(size_t)b * max_pages + blk];
+            const bf16* kp = k_pool + ((size_t)pg * KV + g) * PAGE * HD;
+            const bf16* vp = v_pool + ((size_t)pg * KV + g) * PAGE * HD;
+            for (int idx = tid; idx < PAGE * HD; idx += ST) {
+                int j = idx / HD, e = idx % HD;
+                ks[j][e] = __bfloat162float(kp[idx]);
+                vs[j][e] = __bfloat162float(vp[idx]);
+            }
+        } else {
+            for (int idx = tid; idx < PAGE * HD; idx += ST) {
+                int j = idx / HD, e = idx % HD;
+                size_t off = (((size_t)b * m + j) * KV + g) * HD + e;
+                ks[j][e] = j < m ? bf16_round(k_in[off]) : 0.f;
+                vs[j][e] = j < m ? bf16_round(v_in[off]) : 0.f;
+            }
+        }
+        __syncthreads();
+        for (int t = tid; t < NQ * PAGE; t += ST) {
+            int qv = t / PAGE, j = t % PAGE;
+            bool live = fold ? (j <= qv / G) : (blk * PAGE + j < pos);
+            float sacc = 0.f;
+            for (int e = 0; e < HD; ++e) sacc += __bfloat162float(qs[qv][e]) * ks[j][e];
+            sc[qv][j] = live ? sacc * scale : -INFINITY;
+        }
+        __syncthreads();
+        if (tid < NQ) {
+            float mo = m_s[tid], mx = -INFINITY;
+            for (int j = 0; j < PAGE; ++j) mx = fmaxf(mx, sc[tid][j]);
+            float mn = fmaxf(mo, mx);
+            float al = expf(mo - mn);
+            float sum = 0.f;
+            for (int j = 0; j < PAGE; ++j) {
+                float p = expf(sc[tid][j] - mn);
+                sum += p;
+                sc[tid][j] = bf16_round(p);
+            }
+            l_s[tid] = l_s[tid] * al + sum;
+            m_s[tid] = mn;
+            al_s[tid] = al;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int u = 0; u < NACC; ++u) {
+            int qv = qv0 + QSTEP * u;
+            if (qv < NQ) {
+                float pv = 0.f;
+                for (int j = 0; j < PAGE; ++j) pv += sc[qv][j] * vs[j][d];
+                acc[u] = acc[u] * al_s[qv] + pv;
+            }
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int u = 0; u < NACC; ++u) {
+        int qv = qv0 + QSTEP * u;
+        if (qv < NQ) {
+            int i = qv / G, h = qv % G;
+            attn[(((size_t)b * m + i) * H + g * G + h) * HD + d] =
+                __float2bfloat16(acc[u] / l_s[qv]);
+        }
+    }
+}
+
 extern "C" int dora_gemm_splits(int M, int N, int K) {
     return gemm_splits(M, N, K);
 }
@@ -311,7 +436,7 @@ extern "C" int dora_attention_paged_batch_step(
     DORA_LAUNCH(qkv_rope_write, dim3(B), dim3(HD), stream,
                 (const float*)p, gemm_splits(B, N, D), B, (const float*)sqkv,
                 (const float*)bqkv, (const float*)cosr, (const float*)sinr,
-                (const int*)positions, 0, (const int*)block_tables, max_pages,
+                (const int*)positions, 0, 1, (const int*)block_tables, max_pages,
                 (bf16*)k_pool, (bf16*)v_pool, (float*)q, (float*)kcur,
                 (float*)vcur, H, KV);
     DORA_CHECK(err);
@@ -343,13 +468,48 @@ extern "C" int dora_attention_paged_chunk_step(
     DORA_LAUNCH(qkv_rope_write, dim3(M), dim3(HD), stream,
                 (const float*)p, gemm_splits(M, N, D), M, (const float*)sqkv,
                 (const float*)bqkv, (const float*)cosr, (const float*)sinr,
-                (const int*)nullptr, position, (const int*)block_table, 0,
+                (const int*)nullptr, position, M, (const int*)block_table, 0,
                 (bf16*)k_pool, (bf16*)v_pool, (float*)q, (float*)nullptr,
                 (float*)nullptr, H, KV);
     DORA_CHECK(err);
     DORA_LAUNCH(paged_chunk_attn, dim3((M + BQ - 1) / BQ, KV), dim3(CT), stream,
                 (const float*)q, (const bf16*)k_pool, (const bf16*)v_pool,
                 position, (const int*)block_table, (bf16*)attn, M, H, KV, scale);
+    DORA_CHECK(err);
+    out_projection(x, wo, swo, out, residual, M, D, H, p, attn, stream, err);
+    return err;
+}
+
+// Spec verify: B streams of m candidate rows each, x [B*m, D] stream-major;
+// stream b's rows sit at positions[b] .. positions[b] + m - 1 and route
+// through block_tables row b. The caller keeps positions[b] + m <= max_seq
+// (the engine's spec headroom); it is not checked here. Scratch as the
+// decode entry, for B*m rows.
+extern "C" int dora_attention_paged_spec_step(
+    const void* x, const void* norm_w, const void* wqkv, const void* sqkv,
+    const void* bqkv, const void* cosr, const void* sinr, void* k_pool,
+    void* v_pool, const void* wo, const void* swo, const void* positions,
+    const void* block_tables, void* out, int residual, int B, int m, int D,
+    int H, int KV, int max_pages, float eps, float scale, void* h, void* p,
+    void* q, void* kcur, void* vcur, void* attn, void* stream) {
+    int err = 0;
+    const int M = B * m;
+    const int N = (H + 2 * KV) * HD;
+    DORA_LAUNCH(rmsnorm_rows, dim3(M), dim3(256), stream,
+                (const bf16*)x, (const float*)norm_w, (bf16*)h, D, eps);
+    DORA_CHECK(err);
+    launch_gemm((const bf16*)h, (const int8_t*)wqkv, (float*)p, M, N, D, stream, err);
+    DORA_LAUNCH(qkv_rope_write, dim3(M), dim3(HD), stream,
+                (const float*)p, gemm_splits(M, N, D), M, (const float*)sqkv,
+                (const float*)bqkv, (const float*)cosr, (const float*)sinr,
+                (const int*)positions, 0, m, (const int*)block_tables, max_pages,
+                (bf16*)k_pool, (bf16*)v_pool, (float*)q, (float*)kcur,
+                (float*)vcur, H, KV);
+    DORA_CHECK(err);
+    DORA_LAUNCH(paged_spec_attn, dim3(B, KV), dim3(ST), stream,
+                (const float*)q, (const float*)kcur, (const float*)vcur,
+                (const bf16*)k_pool, (const bf16*)v_pool, (const int*)positions,
+                (const int*)block_tables, max_pages, (bf16*)attn, m, H, KV, scale);
     DORA_CHECK(err);
     out_projection(x, wo, swo, out, residual, M, D, H, p, attn, stream, err);
     return err;

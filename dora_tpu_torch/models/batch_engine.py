@@ -5,9 +5,12 @@ dora_tpu/models/batch_engine.py: the same scheduling (one prefill chunk for
 the stream at the head of the line, then one K-tick decode window per
 :meth:`PagedBatchEngine.step`), the same page grants, the null page 0, the
 block tables and the first token read from the final chunk at
-``true_len - 1 - base``. Not ported yet: speculative decoding, LoRA, the
-prefix cache, checkpoint/restore, preemption, window retuning and the
-tracer/metrics hooks.
+``true_len - 1 - base``; prompt-lookup speculation inside the window with
+its admission headroom and host history mirror; the shared-prefix cache
+(models/prefix_cache.py) with its refcount custody; window retuning
+(:meth:`PagedBatchEngine.set_window`). Not ported yet: LoRA,
+checkpoint/restore, preemption with prefix pins, and the tracer/metrics
+hooks.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from dora_tpu_torch._device import resolve_device
+from dora_tpu_torch.models.prefix_cache import PrefixCache
 
 
 class PageAllocator:
@@ -125,6 +129,8 @@ class _PagedSlot:
     prompt: list[int] | None  # pending prompt ids; None once decoding
     true_len: int
     chunk_base: int = 0
+    #: leading pages mapped from the prefix cache (refcount-shared)
+    shared: int = 0
 
 
 class PagedBatchEngine:
@@ -148,17 +154,29 @@ class PagedBatchEngine:
       * ``window_step(tokens, pools, positions, bts, active, emitted,
         max_new)`` -> (mat [B, K+1], tokens, positions, active, emitted,
         pools)
+      * ``window_factory(k, spec_k)`` -> a window step, for
+        :meth:`set_window` (None pins the window for life)
+
+    With ``spec_k > 0`` (models/vlm.make_paged_spec_window) the window also
+    takes and returns each stream's token history [B, max_seq + spec_k + 1]
+    and its length [B], and ``mat`` is the ragged [B, K*(spec_k+1) + 1]
+    emission matrix. Tokens are identical to ``spec_k = 0``. With
+    ``prefix_cache`` a new stream maps the cached pages of its longest
+    cached prompt prefix and its prefill starts there.
     """
 
     def __init__(self, *, init_pool, chunk_prefill, window_step,
                  max_slots: int = 16, max_seq: int, page_size: int,
                  chunk: int, num_pages: int, eos: int | None = None,
-                 window: int = 8, device=None):
-        if page_size % 8 or chunk % page_size or max_seq % chunk or window < 1:
+                 window: int = 8, spec_k: int = 0, spec_ngram: int = 2,
+                 window_factory=None, prefix_cache: bool = False,
+                 prefix_cache_pages: int = 0, device=None):
+        if (page_size % 8 or chunk % page_size or max_seq % chunk or window < 1
+                or spec_k < 0):
             raise ValueError(
                 f"page {page_size} (multiple of 8), chunk {chunk} (multiple "
                 f"of page), max_seq {max_seq} (multiple of chunk), window "
-                f"{window} (>= 1)"
+                f"{window} (>= 1), spec_k {spec_k} (>= 0)"
             )
         dev = resolve_device(device)
         self.device = dev
@@ -173,6 +191,26 @@ class PagedBatchEngine:
         self.max_pages = max_seq // page_size
         self.pools = init_pool(num_pages)
         self.allocator = PageAllocator(num_pages)
+        self.prefix_cache = (
+            PrefixCache(self.allocator, page_size, max_pages=prefix_cache_pages)
+            if prefix_cache else None
+        )
+        #: live speculation width (0 = the plain window); set_window can
+        #: pause it and resume the configured width _spec_cfg, which the
+        #: history mirror and the admission headroom follow, so pages stay
+        #: reserved for the verify tail while paused
+        self.spec_k = spec_k
+        self._spec_cfg = spec_k
+        self.spec_ngram = spec_ngram
+        self._window_factory = window_factory
+        self._window_cache = {(window, spec_k): window_step}
+        if spec_k:
+            # Host mirror of each stream's prompt + emissions; the device
+            # copy is rebuilt from it only when membership changes.
+            self._hist_buf = max_seq + spec_k + 1
+            self._hist: list[list[int]] = [[] for _ in range(max_slots)]
+            self._hist_dev = torch.zeros((max_slots, self._hist_buf), dtype=torch.int32, device=dev)
+            self._histlen_dev = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
         # Host block tables (the scheduler's source of truth) plus a device
         # DECODE view with non-decoding rows zeroed: a slot mid-prefill holds
         # real pages, and its masked decode row (pinned at position 0) must
@@ -215,32 +253,48 @@ class PagedBatchEngine:
     def free_pages(self) -> int:
         return self.allocator.free_pages
 
+    def spec_headroom(self) -> int:
+        """Rows a verification pass may write past ``prompt + max_new``:
+        the last verify starts at ``prompt + max_new - 1`` and writes
+        spec_k + 1 rows. 0 with speculation off. It follows the CONFIGURED
+        width, so a stream admitted while speculation is paused still owns
+        its verify tail when it resumes."""
+        return self._spec_cfg + 1 if self._spec_cfg else 0
+
     def fits(self, prompt_len: int, max_new: int) -> bool:
-        """Admissible EVER: the length fits the block table and the whole
-        pool could grant its pages."""
+        """Admissible EVER: the length (with the spec headroom) fits the
+        block table and the whole pool could grant its pages."""
         return (
-            prompt_len + max_new <= self.max_seq
+            prompt_len + max_new + self.spec_headroom() <= self.max_seq
             and self.pages_needed(prompt_len, max_new) <= self.allocator.num_pages - 1
         )
 
-    def pages_needed(self, prompt_len: int, max_new: int) -> int:
+    def pages_needed(self, prompt_len: int, max_new: int, cached: int = 0) -> int:
         """Pages a stream can touch end to end: the chunk-padded prefill
-        writes (whole pages) or prompt + max_new decode rows, whichever
-        reaches further."""
-        chunk_rows = -(-prompt_len // self.chunk) * self.chunk
-        rows = max(chunk_rows, prompt_len + max_new)
+        writes (whole pages) or prompt + max_new decode rows plus the spec
+        verify tail, whichever reaches further. With ``cached`` prompt
+        tokens mapped from the prefix cache, prefill starts there (a page
+        multiple); the count still includes the shared pages."""
+        chunk_rows = cached + -(-(prompt_len - cached) // self.chunk) * self.chunk
+        rows = max(chunk_rows, prompt_len + max_new + self.spec_headroom())
         return -(-rows // self.page_size)
 
     def can_admit(self, prompt_len: int, max_new: int) -> bool:
+        avail = self.free_pages
+        if self.prefix_cache is not None:
+            # Unpinned, unshared cached pages are free-in-waiting.
+            avail += self.prefix_cache.evictable_pages()
         return (
             self.free_slots > 0
             and self.fits(prompt_len, max_new)
-            and self.pages_needed(prompt_len, max_new) <= self.free_pages
+            and self.pages_needed(prompt_len, max_new) <= avail
         )
 
     def submit(self, request_id: str, prompt_ids, max_new: int) -> None:
-        """Admit a stream: grant its pages, write its block table and queue
-        its prefill. The first token comes from a later :meth:`step`."""
+        """Admit a stream: map its cached prefix pages (if any), grant the
+        rest fresh (evicting cached pages when the pool is short), write its
+        block table and queue its prefill. The first token comes from a
+        later :meth:`step`."""
         ids = [int(t) for t in prompt_ids]
         if not ids:
             raise ValueError("empty prompt")
@@ -251,39 +305,136 @@ class PagedBatchEngine:
                 f"({len(ids)}+{max_new}, max_seq {self.max_seq})"
             )
         b = self.slots.index(None)
-        pages = self.allocator.alloc(self.pages_needed(len(ids), max_new))
+        base0, shared = 0, []
+        if self.prefix_cache is not None:
+            base0, shared = self._prefix_grant(ids, max_new)
+        need = self.pages_needed(len(ids), max_new, base0) - len(shared)
+        if need > self.allocator.free_pages and self.prefix_cache is not None:
+            self.prefix_cache.evict(need - self.allocator.free_pages)
+        fresh = self.allocator.alloc(need)
+        if fresh is None:
+            if shared:
+                self.allocator.unref(shared)
+            raise RuntimeError(
+                f"cannot admit {request_id!r}: page pool exhausted "
+                f"({need} fresh needed, {self.free_pages} free)"
+            )
+        pages = shared + fresh
         self._bt[b, :] = 0
         self._bt[b, : len(pages)] = pages
         self.slots[b] = _PagedSlot(
             request_id, emitted=0, max_new=max_new, pages=pages, prompt=ids,
-            true_len=len(ids),
+            true_len=len(ids), chunk_base=base0, shared=len(shared),
         )
         self._decode[b] = False
         self._prefillq.append(b)
         self._bt_dirty = True
+        if self._spec_cfg:
+            self._hist[b] = list(ids)  # drafts look up the prompt too
+
+    def _prefix_grant(self, ids: list[int], max_new: int) -> tuple[int, list[int]]:
+        """The longest usable cached prefix of a new prompt, trimmed so that
+        (a) the final prompt token is prefilled again (the first token comes
+        off that chunk), (b) the chunk-padded prefill stays inside the block
+        table, and (c) the fresh pages still fit free + evictable pages.
+        Refs the shared pages into this stream's custody and returns
+        ``(divergence base, shared page ids)``. A trimmed boundary page is
+        prefilled again privately by the divergence chunk (the
+        copy-on-write boundary), never written in place."""
+        ps = self.page_size
+        cache = self.prefix_cache
+        matched, pages, mid_page = cache.lookup(ids)
+        cap = (len(ids) - 1) // ps * ps
+        lo = min(matched, cap)
+        while lo and lo + -(-(len(ids) - lo) // self.chunk) * self.chunk > self.max_seq:
+            lo -= ps
+        shared = pages[: lo // ps]
+        if shared:
+            self.allocator.ref(shared)
+        # The chunk overhang past a divergence that is not chunk-aligned can
+        # cost a page more than the no-cache grant: back off page by page
+        # until the grant can_admit promised still fits.
+        while shared:
+            need = self.pages_needed(len(ids), max_new, lo) - len(shared)
+            if need <= self.allocator.free_pages + cache.evictable_pages():
+                break
+            self.allocator.unref([shared.pop()])
+            lo -= ps
+        if not shared:
+            lo = 0
+        if lo:
+            cache.hits += 1
+            cache.hit_tokens += lo
+        else:
+            cache.misses += 1
+        if matched > lo or mid_page:
+            cache.cow_copies += 1
+        return lo, shared
 
     def _free_slot(self, b: int) -> None:
+        # unref, not free: leading pages may be shared with the prefix cache
+        # and other streams; a page returns when its last holder lets go.
         self.allocator.unref(self.slots[b].pages)
         self._bt[b, :] = 0
         self.slots[b] = None
         self._decode[b] = False
         self._bt_dirty = True
         self._members_dirty = True
+        if self._spec_cfg:
+            self._hist[b] = []
+
+    @property
+    def shared_pages(self) -> int:
+        """Pages mapped shared into live streams' block tables (the cache's
+        own holdings are ``prefix_cache.size``)."""
+        return sum(s.shared for s in self.slots if s is not None)
 
     def check_invariants(self) -> None:
-        """Allocator bookkeeping plus custody: every allocated page's
-        refcount equals the number of live slots holding it."""
+        """Allocator bookkeeping plus cross-custody: every allocated page's
+        refcount equals the number of holders that can name it (live slots'
+        grants and prefix-cache nodes), and nothing else holds pages."""
         self.allocator.check_invariants()
         held: Counter = Counter()
         for s in self.slots:
             if s is not None:
                 held.update(s.pages)
+        if self.prefix_cache is not None:
+            held.update(self.prefix_cache.pages())
         for p, n in held.items():
             rc = self.allocator.refcount(p)
             assert rc == n, f"page {p}: refcount {rc} != {n} holders"
         assert self.allocator.in_use == len(held), (
-            f"{self.allocator.in_use} pages in use but only {len(held)} held"
+            f"{self.allocator.in_use} pages in use but only {len(held)} held "
+            f"by slots and the cache"
         )
+
+    def set_window(self, k: int, *, spec_on: bool | None = None) -> bool:
+        """Re-select the window K and pause or resume speculation at a
+        window boundary (``spec_on`` None keeps the live setting). Windows
+        come from ``window_factory`` and are cached per (k, spec_k). Safe
+        mid-stream: the carried state is per-stream vectors, rebuilt on the
+        next step, and tokens are the same at every setting. Returns True
+        when the window changed."""
+        if k < 1:
+            raise ValueError(f"window K must be >= 1, got {k}")
+        if self._window_factory is None:
+            return False
+        if spec_on is None:
+            want_spec = self.spec_k
+        else:
+            want_spec = self._spec_cfg if spec_on else 0
+        if k == self.window and want_spec == self.spec_k:
+            return False
+        key = (k, want_spec)
+        fn = self._window_cache.get(key)
+        if fn is None:
+            fn = self._window_factory(k, want_spec)
+            self._window_cache[key] = fn
+        self.window_step = fn
+        self.window = k
+        self.spec_k = want_spec
+        self._members_dirty = True
+        return True
 
     # -- the interleaved step ------------------------------------------------
 
@@ -309,6 +460,13 @@ class PagedBatchEngine:
             self.dispatches += 1
             if s.chunk_base >= s.true_len:  # final chunk: the stream starts
                 self._prefillq.popleft()
+                if self.prefix_cache is not None:
+                    # The prompt's full pages never change again (decode
+                    # writes from true_len on): adopt them into the cache.
+                    n_full = s.true_len // self.page_size
+                    if n_full:
+                        self.prefix_cache.insert(
+                            s.prompt[: n_full * self.page_size], s.pages[:n_full])
                 s.prompt = None
                 token = int(greedy[s.true_len - 1 - base].item())
                 self.fetches += 1
@@ -319,6 +477,8 @@ class PagedBatchEngine:
                     self._free_slot(b)
                 else:
                     self._decode[b] = True
+                    if self._spec_cfg:
+                        self._hist[b].append(token)
                     self.tokens[b] = token
                     self.positions[b] = s.true_len
                     self._members_dirty = True
@@ -336,41 +496,66 @@ class PagedBatchEngine:
                     [s.max_new if ok else 0 for s, ok in zip(self.slots, live)],
                     dtype=torch.int32, device=dev,
                 )
+                if self.spec_k:
+                    # The history follows membership too: between
+                    # boundaries the window carries it and the host mirror
+                    # appends the same tokens the unpack emits.
+                    hist = np.zeros((self.max_slots, self._hist_buf), np.int32)
+                    hlen = np.zeros((self.max_slots,), np.int32)
+                    for i, ok in enumerate(live):
+                        if ok:
+                            row = self._hist[i][: self._hist_buf]
+                            hist[i, : len(row)] = row
+                            hlen[i] = len(row)
+                    self._hist_dev = torch.from_numpy(hist).to(dev)
+                    self._histlen_dev = torch.from_numpy(hlen).to(dev)
                 self._members_dirty = False
             if self._bt_dirty:
                 dec = self._bt * np.asarray(self._decode, np.int32)[:, None]
                 self._bt_dec = torch.from_numpy(dec).to(dev)
                 self._bt_dirty = False
-            (
-                mat,
-                self.tokens,
-                self.positions,
-                self._mask,
-                self._emitted_dev,
-                self.pools,
-            ) = self.window_step(
-                self.tokens, self.pools, self.positions, self._bt_dec,
-                self._mask, self._emitted_dev, self._maxnew_dev,
-            )
+            args = (self.tokens, self.pools, self.positions, self._bt_dec,
+                    self._mask, self._emitted_dev, self._maxnew_dev)
+            if self.spec_k:
+                (mat, self.tokens, self.positions, self._mask, self._emitted_dev,
+                 self.pools, self._hist_dev, self._histlen_dev) = self.window_step(
+                    *args, self._hist_dev, self._histlen_dev)
+            else:
+                (mat, self.tokens, self.positions, self._mask, self._emitted_dev,
+                 self.pools) = self.window_step(*args)
             self.dispatches += 1
-            host = mat.cpu().numpy()  # ONE [B, K+1] device->host copy
+            host = mat.cpu().numpy()  # ONE device->host copy per window
             self.fetches += 1
-            for b, slot in enumerate(self.slots):
-                if slot is None or not self._decode[b]:
-                    continue
-                # The host completion test mirrors the device's (same
-                # counter, cap and eos), so the first host-done token is
-                # where the device froze the row; later columns hold -1.
-                for j in range(self.window):
-                    token = int(host[b, j])
+            self._unpack(host, emitted)
+        return emitted
+
+    def _unpack(self, host, emitted) -> None:
+        """Unpack the window's [B, K*m + 1] matrix (m = spec_k + 1, so 1 for
+        the plain window) by replaying the device's walk: a -1 inside a
+        tick's m columns only pads past that tick's accepted length, so the
+        walk goes tick by tick and stops a stream only where the host's own
+        completion test (same counter, cap and eos) fires, which is where
+        the device froze it. Feeds the host history mirror, also while
+        speculation is paused."""
+        m = self.spec_k + 1
+        for b, slot in enumerate(self.slots):
+            if slot is None or not self._decode[b]:
+                continue
+            done = False
+            for t in range(self.window):
+                for i in range(m):
+                    token = int(host[b, t * m + i])
                     if token < 0:
                         break
                     slot.emitted += 1
+                    if self._spec_cfg:
+                        self._hist[b].append(token)
                     done = slot.emitted >= slot.max_new or (
                         self.eos is not None and token == self.eos
                     )
                     emitted.append((slot.request_id, token, done))
                     if done:
-                        self._free_slot(b)
                         break
-        return emitted
+                if done:
+                    self._free_slot(b)
+                    break

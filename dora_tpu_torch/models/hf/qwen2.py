@@ -1,13 +1,14 @@
 """Qwen2-family causal LM on the paged serving path, on torch tensors.
 
 Counterpart of the serving part of dora_tpu/models/hf/qwen2.py: the config,
-checkpoint loading and int8 decode quantization, the fused paged batch and
-chunk steps, the page pool and ``make_paged_engine``. ``params_from_jax``
-turns the JAX package's parameter tree into this package's, so the two can
-be held against each other on the same weights.
+checkpoint loading and int8 decode quantization, the fused paged batch,
+chunk and speculative-verify steps, the page pool and ``make_paged_engine``
+(speculation and the prefix cache included). ``params_from_jax`` turns the
+JAX package's parameter tree into this package's, so the two can be held
+against each other on the same weights.
 
 Not ported yet: the unfused ``forward``/``generate``, the dense batch engine,
-speculative decoding, int8 KV pools, LoRA and int4 weights.
+int8 KV pools, LoRA and int4 weights.
 """
 
 from __future__ import annotations
@@ -222,6 +223,31 @@ def fused_paged_batch_step(params, cfg, tokens, pools, positions,
     )
 
 
+def fused_paged_spec_step(params, cfg, chunks, pools, positions, block_tables,
+                          rope=None):
+    """Speculative verification pass for B streams over paged pools:
+    chunks [B, m] int32 holds each stream's last token and m-1 drafts at
+    positions ``positions[b]..positions[b]+m-1``; greedy[b, i] continues
+    stream b's prefix through candidate i. Returns (greedy [B, m], pools).
+    The spec window's inner step (models/vlm.make_paged_spec_window)."""
+    from dora_tpu_torch.models import vlm as _vlm
+    from dora_tpu_torch.ops import decode_block as DB
+
+    embed = params["embed"]
+    b, m = chunks.shape
+    cos_t, sin_t = rope if rope is not None else _rope(cfg, embed.device)
+    flat_pos = (positions[:, None] + torch.arange(m, dtype=positions.dtype,
+                                                  device=positions.device)[None, :])
+    cos_rows, sin_rows = DB.rope_rows_at(cos_t, sin_t, flat_pos.reshape(b * m))
+    x = embed[chunks.reshape(b * m).long()].to(L.compute_dtype(embed.device))
+    greedy, pools = _vlm.fused_paged_pass_spec(
+        params, x, pools, positions, block_tables, cos_rows, sin_rows,
+        heads=cfg.heads, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
+        layers=cfg.layers, m=m, eps=cfg.norm_eps,
+    )
+    return greedy.reshape(b, m), pools
+
+
 def fused_paged_chunk_step(params, cfg, chunk_ids, pools, position: int,
                            block_table, rope=None):
     """One prefill chunk into paged pools: chunk_ids [C] int32 at positions
@@ -269,12 +295,24 @@ def page_pool_bytes(cfg: Qwen2Config, page_size: int,
 def make_paged_engine(params, cfg: Qwen2Config, *, max_slots: int = 16,
                       eos: int | None = None, page_size: int = 16,
                       chunk: int | None = None, num_pages: int | None = None,
-                      window: int | None = None, device=None):
+                      window: int | None = None, spec_k: int | None = None,
+                      spec_ngram: int | None = None,
+                      prefix_cache: bool | None = None,
+                      prefix_cache_pages: int | None = None, device=None):
     """Paged-KV continuous-batching engine over ``quantize_decode`` params,
     on ``device`` (default cuda; the params move there). The pool defaults
     to the dense engine's 4-slot footprint (4 * max_seq rows per layer,
     null page included); ``window`` is the decode window K (default: env
-    ``DORA_MULTISTEP_K``, else 8)."""
+    ``DORA_MULTISTEP_K``, else 8).
+
+    ``spec_k`` (default: env ``DORA_SPEC_K``, else 0 = off) folds
+    prompt-lookup speculation into every window tick
+    (models/vlm.make_paged_spec_window), drafting by the trailing
+    ``spec_ngram`` (env ``DORA_SPEC_NGRAM``, default 2); tokens are those
+    of ``spec_k = 0``. ``prefix_cache`` (default: env ``DORA_PREFIX_CACHE``,
+    else off at this raw level; the serving front door turns it on) maps
+    cached prompt pages into new streams, capped at ``prefix_cache_pages``
+    (env ``DORA_PREFIX_CACHE_PAGES``, 0 = no cap)."""
     from dora_tpu_torch.models import vlm as _vlm
     from dora_tpu_torch.models.batch_engine import PagedBatchEngine
 
@@ -287,20 +325,40 @@ def make_paged_engine(params, cfg: Qwen2Config, *, max_slots: int = 16,
         num_pages = 4 * cfg.max_seq // page_size
     if window is None:
         window = int(os.environ.get("DORA_MULTISTEP_K", "8"))
+    if spec_k is None:
+        spec_k = int(os.environ.get("DORA_SPEC_K", "0"))
+    if spec_ngram is None:
+        spec_ngram = int(os.environ.get("DORA_SPEC_NGRAM", "2"))
+    if prefix_cache is None:
+        prefix_cache = os.environ.get("DORA_PREFIX_CACHE", "0") != "0"
+    if prefix_cache_pages is None:
+        prefix_cache_pages = int(os.environ.get("DORA_PREFIX_CACHE_PAGES", "0"))
     rope = _rope(cfg, dev)
 
     def batch_step(tokens, pools, positions, bts):
         return fused_paged_batch_step(params, cfg, tokens, pools, positions,
                                       bts, rope=rope)
 
+    def spec_step(chunks, pools, positions, bts):
+        return fused_paged_spec_step(params, cfg, chunks, pools, positions,
+                                     bts, rope=rope)
+
     def chunk_step(ids, pools, position, bt):
         return fused_paged_chunk_step(params, cfg, ids, pools, position, bt,
                                       rope=rope)
 
+    def window_factory(k, sk):
+        """(k, spec_k) -> window; the engine caches what it builds."""
+        if sk:
+            return _vlm.make_paged_spec_window(spec_step, k=k, spec_k=sk,
+                                               ngram=spec_ngram, eos=eos)
+        return _vlm.make_paged_window(batch_step, k=k, eos=eos)
+
     return PagedBatchEngine(
         init_pool=lambda n: init_page_pool(cfg, n, page_size, device=dev),
         chunk_prefill=chunk_step,
-        window_step=_vlm.make_paged_window(batch_step, k=window, eos=eos),
+        window_step=window_factory(window, spec_k),
+        window_factory=window_factory,
         window=window,
         max_slots=max_slots,
         max_seq=cfg.max_seq,
@@ -308,5 +366,9 @@ def make_paged_engine(params, cfg: Qwen2Config, *, max_slots: int = 16,
         chunk=chunk,
         num_pages=num_pages,
         eos=eos,
+        spec_k=spec_k,
+        spec_ngram=spec_ngram,
+        prefix_cache=prefix_cache,
+        prefix_cache_pages=prefix_cache_pages,
         device=dev,
     )

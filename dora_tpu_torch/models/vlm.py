@@ -2,10 +2,12 @@
 
 Counterpart of the paged serving part of dora_tpu/models/vlm.py
 (``_qw``, ``_fused_pass``, ``fused_paged_pass_batch``,
-``fused_paged_pass_chunk``, ``fused_batch_ready``, ``make_paged_window``).
-Each layer runs one attention kernel and ``mlp_step``; the pass ends in
-``lm_head_argmax`` (ops/decode_block.py). The vision tower, training and
-the dense and speculative passes are not ported yet.
+``fused_paged_pass_chunk``, ``fused_paged_pass_spec``, ``fused_batch_ready``,
+``make_paged_window``, ``make_paged_spec_window``, ``window_row_stats``,
+``spec_window_row_stats``). Each layer runs one attention kernel and
+``mlp_step``; the pass ends in ``lm_head_argmax`` (ops/decode_block.py).
+The vision tower, training, the dense and batch-1 passes and the int8-KV
+and LoRA forms are not ported yet.
 """
 
 from __future__ import annotations
@@ -102,6 +104,31 @@ def fused_paged_pass_chunk(params, x, pools, position, block_table,
     return _fused_pass(params, x, attn_apply, layers=layers, eps=eps)
 
 
+def fused_paged_pass_spec(params, x, pools, positions, block_tables,
+                          cos_rows, sin_rows, *, heads: int, kv_heads: int,
+                          head_dim: int, layers: int, m: int, eps: float = 1e-6):
+    """Speculative verification pass over paged KV pools: x [B*m, dim]
+    holds, stream-major, each stream's m candidate rows (last token + m-1
+    drafts) at positions ``positions[b]..positions[b]+m-1``. One weight
+    stream verifies all B*m rows; greedy[b*m + i] continues stream b's
+    prefix through candidate i. Returns (greedy [B*m], pools). fp KV only:
+    int8 pools (their ``ks``/``vs`` scale planes) wait for the int8-KV
+    slice."""
+
+    def attn_apply(i, x, blk, wqkv, sqkv, bqkv, wo, swo):
+        lp = pools[str(i)]
+        if "ks" in lp:
+            raise NotImplementedError("int8-KV pools are not ported yet")
+        x, kp, vp = DB.attention_paged_spec_step(
+            x, blk["attn_norm"], wqkv, sqkv, bqkv, cos_rows, sin_rows,
+            lp["k"], lp["v"], wo, swo, positions, block_tables,
+            heads=heads, kv_heads=kv_heads, head_dim=head_dim, m=m, eps=eps,
+        )
+        return x, {"k": kp, "v": vp}
+
+    return _fused_pass(params, x, attn_apply, layers=layers, eps=eps)
+
+
 def make_paged_window(step_fn, *, k: int, eos: int | None = None):
     """K-tick decode window over a paged batch step.
 
@@ -137,3 +164,116 @@ def make_paged_window(step_fn, *, k: int, eos: int | None = None):
         return mat, tokens, positions, active, emitted, pools
 
     return window
+
+
+def make_paged_spec_window(spec_step_fn, *, k: int, spec_k: int, ngram: int,
+                           eos: int | None = None):
+    """K-tick decode window with prompt-lookup speculation in every tick:
+    one call can emit up to ``k * (spec_k + 1)`` tokens per stream.
+
+    Each tick, for every stream at once and on the device: draft ``spec_k``
+    tokens from the stream's history (:func:`spec_decode.lookup`), verify
+    the (last token + drafts) chunk in one batched pass through
+    ``spec_step_fn``, accept the longest agreeing draft prefix plus the
+    bonus token, cut the emission at the first accepted candidate that
+    completes the stream (EOS or ``max_new``) and freeze it there
+    (:func:`freeze_inactive`), write the emitted tokens into the history
+    (keeping the old values past them) and advance the position by the
+    emitted count, so rejected tail rows in the pool are overwritten by the
+    next chunk before any sweep can attend them.
+
+    ``spec_step_fn(chunks [B, spec_k+1], pools, positions, bts) -> (greedy
+    [B, spec_k+1], pools)`` is the family's batched verification step.
+    Returns ``window(tokens, pools, positions, bts, active, emitted,
+    max_new, history, hist_len) -> (mat, tokens, positions, active,
+    emitted, pools, history, hist_len)``: ``mat`` is one [B, k*(spec_k+1)
+    + 1] int32 matrix, k tick-blocks of spec_k+1 token columns (``-1``
+    past a tick's emission and for frozen streams) and the final active
+    mask, which the host copies once per window."""
+    from dora_tpu_torch.models import spec_decode
+
+    m = spec_k + 1
+
+    def window(tokens, pools, positions, bts, active, emitted, max_new,
+               history, hist_len):
+        hbuf = history.shape[1]
+        nslots = tokens.shape[0]
+        dev = tokens.device
+        idx = torch.arange(m, device=dev)[None, :]
+        rows = torch.arange(nslots, device=dev)[:, None]
+        blocks = []
+        for _ in range(k):
+            alive = active.to(torch.int32)
+            pos_in, bts_in = DB.freeze_inactive(positions, bts, active)
+            draft = spec_decode.lookup(history, hist_len, hbuf, spec_k, ngram)
+            chunks = torch.cat([tokens[:, None], draft], dim=1)
+            greedy, pools = spec_step_fn(chunks, pools, pos_in, bts_in)
+            # accepted = the first disagreement (argmin of agree ++ [False])
+            agree = torch.cat([greedy[:, :spec_k] == draft,
+                               torch.zeros((nslots, 1), dtype=torch.bool, device=dev)],
+                              dim=1)
+            n_emit = torch.argmin(agree.to(torch.int32), dim=1) + 1
+            # Candidate i is the (emitted+i+1)-th token: the first accepted
+            # one that hits EOS or max_new ends the emission there.
+            stop = (emitted[:, None] + idx + 1) >= max_new[:, None]
+            if eos is not None:
+                stop = stop | (greedy == eos)
+            stop = stop & (idx < n_emit[:, None])
+            has_stop = stop.any(dim=1)
+            first_stop = torch.argmax(stop.to(torch.int32), dim=1)
+            e = torch.where(has_stop, first_stop + 1, n_emit).to(torch.int32) * alive
+            blocks.append(torch.where((idx < e[:, None]) & active[:, None], greedy,
+                                      torch.full_like(greedy, -1)))
+            last = greedy[rows[:, 0], (e.long() - 1).clamp_min(0)]
+            # A frozen row keeps its last real token; e is 0 there, so its
+            # position, count and history stay put too.
+            tokens = torch.where(active, last, tokens)
+            positions = pos_in + e
+            emitted = emitted + e
+            active = active & ~has_stop
+            # Commit: the e emitted candidates at hist_len, the rest kept.
+            cols = (hist_len.long()[:, None] + idx).clamp_max(hbuf - 1)
+            keep = history[rows, cols]
+            history = history.scatter(1, cols, torch.where(idx < e[:, None], greedy, keep))
+            hist_len = hist_len + e
+        mat = torch.cat([torch.cat(blocks, dim=1), active.to(torch.int32)[:, None]], dim=1)
+        return mat, tokens, positions, active, emitted, pools, history, hist_len
+
+    return window
+
+
+def window_row_stats(row, k: int) -> tuple[int, int | None]:
+    """One stream's row of the plain window's [B, k+1] matrix as
+    ``(emitted, frozen_at)``: its real tokens this window and the tick at
+    which the device froze it (None if it ran the whole window). Columns
+    past completion hold -1; column k is the final active flag."""
+    emitted = 0
+    for j in range(k):
+        if int(row[j]) < 0:
+            return emitted, j
+        emitted += 1
+    return emitted, (None if int(row[k]) else k)
+
+
+def spec_window_row_stats(row, k: int, m: int) -> tuple[int, int | None]:
+    """Ragged counterpart of :func:`window_row_stats` for the spec window's
+    [B, k*m + 1] matrix (m = spec_k + 1): ``(emitted, frozen_at)`` with
+    ``emitted`` the row's real tokens over all k tick-blocks and
+    ``frozen_at`` the last tick on which it emitted before the device froze
+    it (None if still active). A -1 inside a block only pads past that
+    tick's accepted length, so freezing is read from the final active
+    flag."""
+    emitted = 0
+    last_live = None
+    for t in range(k):
+        got = 0
+        for i in range(m):
+            if int(row[t * m + i]) < 0:
+                break
+            got += 1
+        if got:
+            last_live = t
+        emitted += got
+    if int(row[k * m]):
+        return emitted, None
+    return emitted, (last_live if last_live is not None else 0)

@@ -3,10 +3,11 @@
 Counterpart of ``make_engine`` and ``main`` of dora_tpu/nodehub/llm_server.py.
 ``make_engine`` reads the same knobs with the same meaning
 (``DORA_BATCH_SLOTS``, ``DORA_PAGE_SIZE``, ``DORA_PREFILL_CHUNK``,
-``DORA_MULTISTEP_K``); the prefix cache, which the JAX front door turns on,
-is not ported yet, so this engine runs without it. ``main`` answers a list
-of token-id prompts through ``submit``/``step``; wiring it into a dataflow
-node waits for a port of the node API.
+``DORA_MULTISTEP_K``, ``DORA_PREFIX_CACHE`` (on by default here),
+``DORA_PREFIX_CACHE_PAGES``, ``DORA_SPEC_K``, ``DORA_SPEC_NGRAM`` and
+``DORA_PAGED_KV``). ``main`` answers a list of token-id prompts through
+``submit``/``step``; wiring it into a dataflow node waits for a port of the
+node API.
 
 Usage::
 
@@ -31,9 +32,17 @@ from collections import deque
 
 
 def make_engine(params, cfg, eos=None, device=None):
-    """The paged serving engine from the env knobs."""
+    """The paged serving engine from the env knobs. The prefix cache is on
+    unless ``DORA_PREFIX_CACHE=0``; ``DORA_SPEC_K``/``DORA_SPEC_NGRAM``
+    reach the engine through ``make_paged_engine``. ``DORA_PAGED_KV=0``
+    asks for the dense engine, which is not ported yet, and raises."""
     from dora_tpu_torch.models.hf import qwen2
 
+    if os.environ.get("DORA_PAGED_KV", "1") == "0":
+        raise NotImplementedError(
+            "DORA_PAGED_KV=0 selects the dense batch engine, which "
+            "dora_tpu_torch does not port yet; unset it to serve paged"
+        )
     chunk_env = os.environ.get("DORA_PREFILL_CHUNK")
     return qwen2.make_paged_engine(
         params, cfg,
@@ -42,16 +51,20 @@ def make_engine(params, cfg, eos=None, device=None):
         page_size=int(os.environ.get("DORA_PAGE_SIZE", "16")),
         chunk=int(chunk_env) if chunk_env else None,
         window=int(os.environ.get("DORA_MULTISTEP_K", "8")),
+        prefix_cache=os.environ.get("DORA_PREFIX_CACHE", "1") != "0",
+        prefix_cache_pages=int(os.environ.get("DORA_PREFIX_CACHE_PAGES", "0")),
         device=device,
     )
 
 
-def serve_prompts(engine, prompts, max_new: int, on_token=None):
+def serve_prompts(engine, prompts, max_new: int, on_token=None, others=None):
     """Serve every prompt to completion, admitting in order: a request the
     engine cannot admit yet waits at the head of the line until slots and
     pages free up. Returns {request index: tokens} and per-request
     time-to-first-token seconds (from the start of the run).
-    ``on_token(index, token, done)`` sees every emission."""
+    ``on_token(index, token, done)`` sees every emission. Streams already
+    in the engine run on beside them; ``others`` maps each such request id
+    to the list their tokens are appended to."""
     waiting = deque(range(len(prompts)))
     for i in waiting:
         if not engine.fits(len(prompts[i]), max_new):
@@ -64,6 +77,9 @@ def serve_prompts(engine, prompts, max_new: int, on_token=None):
             i = waiting.popleft()
             engine.submit(str(i), prompts[i], max_new)
         for rid, token, done in engine.step():
+            if others is not None and rid in others:
+                others[rid].append(token)
+                continue
             i = int(rid)
             if not out[i]:
                 ttft[i] = time.perf_counter() - t0

@@ -1,7 +1,7 @@
 """The fused decode sublayers of the paged serving path, on torch tensors.
 
 Counterpart of dora_tpu/ops/decode_block.py (int8 weights, fp KV). Each of
-the four functions takes the arguments and returns the tuple of its Pallas
+the five functions takes the arguments and returns the tuple of its Pallas
 counterpart, and comes in two versions in this module:
 
 * a plain PyTorch version (``*_plain``) that repeats the reference math in
@@ -42,6 +42,8 @@ _SIGNATURES = {
             [_P] * 14 + [_I] * 6 + [_F] * 2 + [_P] * 7,
         "dora_attention_paged_chunk_step":
             [_P] * 11 + [_I] + [_P] * 2 + [_I] * 5 + [_F] * 2 + [_P] * 5,
+        "dora_attention_paged_spec_step":
+            [_P] * 14 + [_I] * 7 + [_F] * 2 + [_P] * 7,
     },
 }
 
@@ -50,6 +52,8 @@ KERNEL_HEAD_DIM = 128
 KERNEL_PAGE = 16
 KERNEL_MAX_GROUP = 8
 KERNEL_MAX_QKV_HEADS = 32
+#: the spec kernel holds m candidate rows x the group's heads in one block
+KERNEL_SPEC_MAX_ROWS = 64
 
 
 def _lib(name: str, lib=None):
@@ -532,6 +536,163 @@ attention_paged_chunk_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# paged attention, speculative verify: m candidate rows for each of B streams
+# ---------------------------------------------------------------------------
+
+
+def attention_paged_spec_step_plain(
+    x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool, wo, swo,
+    positions, block_tables, *, heads: int, kv_heads: int, head_dim: int,
+    m: int, eps: float = 1e-6, residual: bool = True,
+):
+    dtype = x.dtype
+    bm = x.shape[0]
+    b = bm // m
+    page = k_pool.shape[2]
+    group = heads // kv_heads
+    half = head_dim // 2
+    scale = 1.0 / (head_dim ** 0.5)
+    rows = m * group  # query rows per (stream, kv head), ordered (i, head)
+
+    h = _rms(x, norm_w, eps).to(dtype)
+    qkv = _wdot(h, wqkv, sqkv)
+    if bqkv is not None:
+        qkv = qkv + bqkv.float().reshape(1, -1)
+    q, k, v = _split_qkv(qkv, bm, heads, kv_heads, head_dim)
+    cos = cos_rows.float()[:, None, :]
+    sin = sin_rows.float()[:, None, :]
+    q = _rotate(q, cos, sin, half)
+    k = _rotate(k, cos, sin, half)
+
+    # Row i of stream b into page bt[b, (pos+i) // page], row (pos+i) % page:
+    # the m rows may straddle a page. Frozen streams (pos 0, zeroed table
+    # row) all land on rows 0..m-1 of null page 0; which one wins is
+    # irrelevant.
+    pos = positions.long()
+    bt = block_tables.long()
+    rpos = (pos[:, None] + torch.arange(m, device=pos.device)[None, :]).reshape(bm)
+    stream = torch.arange(b, device=pos.device).repeat_interleave(m)
+    cur = bt[stream, rpos // page]
+    k_pool[cur, :, rpos % page] = k.to(k_pool.dtype)
+    v_pool[cur, :, rpos % page] = v.to(v_pool.dtype)
+
+    # Keys: the prior context (idx < pos; the rows just written sit at
+    # idx >= pos and stay masked) from the pool, then the stream's own m
+    # rows causally, both in the compute dtype; never another stream's.
+    n_ctx = bt.shape[1] * page
+    ctx_k = k_pool[bt].permute(0, 2, 1, 3, 4).reshape(b, kv_heads, n_ctx, head_dim)
+    ctx_v = v_pool[bt].permute(0, 2, 1, 3, 4).reshape(b, kv_heads, n_ctx, head_dim)
+    own_k = k.reshape(b, m, kv_heads, head_dim).transpose(1, 2)
+    own_v = v.reshape(b, m, kv_heads, head_dim).transpose(1, 2)
+    keys = torch.cat([ctx_k.to(dtype), own_k.to(dtype)], dim=2).float()
+    vals = torch.cat([ctx_v.to(dtype), own_v.to(dtype)], dim=2).float()
+    qg = q.to(dtype).float().reshape(b, m, kv_heads, group, head_dim)
+    qg = qg.permute(0, 2, 1, 3, 4).reshape(b, kv_heads, rows, head_dim)
+    s = torch.einsum("bkrd,bksd->bkrs", qg, keys) * scale
+    live_ctx = torch.arange(n_ctx, device=x.device)[None, :] < pos[:, None]  # [B, n_ctx]
+    cand = torch.arange(rows, device=x.device) // group
+    causal = torch.arange(m, device=x.device)[None, :] <= cand[:, None]  # [rows, m]
+    live = torch.cat([live_ctx[:, None, :].expand(b, rows, n_ctx),
+                      causal[None].expand(b, rows, m)], dim=2)
+    s = s.masked_fill(~live[:, None], float("-inf"))
+    mx = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)  # the sweep starts at -1e30
+    p = torch.exp(s - mx)
+    attn = torch.einsum("bkrs,bksd->bkrd", p.to(dtype).float(), vals) / p.sum(dim=-1, keepdim=True)
+    attn = attn.reshape(b, kv_heads, m, group, head_dim).permute(0, 2, 1, 3, 4)
+    o = _wdot(attn.reshape(bm, heads * head_dim).to(dtype), wo, swo)
+    return _finish(x, o, residual), k_pool, v_pool
+
+
+def _attention_paged_spec_step_kernel(
+    x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool, wo, swo,
+    positions, block_tables, *, heads, kv_heads, head_dim, m, eps, residual,
+    lib=None,
+):
+    dev = x.device
+    bm, d = x.shape
+    n_pages, _, page, _ = k_pool.shape
+    n_qkv = (heads + 2 * kv_heads) * head_dim
+    _attn_shapes(heads, kv_heads, head_dim, page)
+    if not 1 <= m <= page:
+        raise ValueError(f"spec kernel takes 1 <= m <= page {page} candidate rows, got {m}")
+    if m * (heads // kv_heads) > KERNEL_SPEC_MAX_ROWS:
+        raise ValueError(f"spec kernel takes m * group <= {KERNEL_SPEC_MAX_ROWS}, "
+                         f"got {m} * {heads // kv_heads}")
+    if bm % m or positions.shape != (bm // m,):
+        raise ValueError(f"x has {bm} rows: expected m = {m} rows for each of the "
+                         f"{tuple(positions.shape)} positions")
+    b = bm // m
+    max_pages = block_tables.shape[-1]
+    _need(x, "x", torch.bfloat16, (bm, d), dev)
+    _int8_weight(wqkv, "wqkv", d, n_qkv, dev)
+    _int8_weight(wo, "wo", heads * head_dim, d, dev)
+    pool_shape = (n_pages, kv_heads, page, head_dim)
+    _need(k_pool, "k_pool", torch.bfloat16, pool_shape, dev)
+    _need(v_pool, "v_pool", torch.bfloat16, pool_shape, dev)
+    _need(positions, "positions", torch.int32, (b,), dev)
+    _need(block_tables, "block_tables", torch.int32, (b, max_pages), dev)
+    _need(cos_rows, "cos_rows", torch.float32, (bm, head_dim), dev)
+    _need(sin_rows, "sin_rows", torch.float32, (bm, head_dim), dev)
+    nw = _f32(norm_w, "norm_w", d, dev)
+    sq = _f32(sqkv, "sqkv", n_qkv, dev)
+    bq = _f32(bqkv, "bqkv", n_qkv, dev)
+    so = _f32(swo, "swo", d, dev)
+    lib = _lib("paged_attention", lib)
+    ws = max(
+        lib.dora_gemm_splits(bm, n_qkv, d) * bm * n_qkv,
+        lib.dora_gemm_splits(bm, d, heads * head_dim) * bm * d,
+    )
+    h = torch.empty((bm, d), dtype=torch.bfloat16, device=dev)
+    p = torch.empty((ws,), dtype=torch.float32, device=dev)
+    q = torch.empty((bm, heads, head_dim), dtype=torch.float32, device=dev)
+    kcur = torch.empty((bm, kv_heads, head_dim), dtype=torch.float32, device=dev)
+    vcur = torch.empty((bm, kv_heads, head_dim), dtype=torch.float32, device=dev)
+    attn = torch.empty((bm, heads * head_dim), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((bm, d), dtype=torch.bfloat16 if residual else torch.float32,
+                      device=dev)
+    rc = lib.dora_attention_paged_spec_step(
+        x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(),
+        bq.data_ptr() if bq is not None else None, cos_rows.data_ptr(),
+        sin_rows.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        wo.data_ptr(), so.data_ptr(), positions.data_ptr(),
+        block_tables.data_ptr(), out.data_ptr(), int(residual), b, m, d, heads,
+        kv_heads, max_pages, eps, 1.0 / (head_dim ** 0.5), h.data_ptr(),
+        p.data_ptr(), q.data_ptr(), kcur.data_ptr(), vcur.data_ptr(),
+        attn.data_ptr(), _build.stream_of(x),
+    )
+    attention_paged_spec_step.launches += 1
+    _build.check(rc, "attention_paged_spec_step")
+    return out, k_pool, v_pool
+
+
+def attention_paged_spec_step(
+    x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool, wo, swo,
+    positions, block_tables, *, heads: int, kv_heads: int, head_dim: int,
+    m: int, eps: float = 1e-6, residual: bool = True,
+):
+    """Paged attention sublayer for B speculative-verify chunks.
+
+    x [B*m, D]: stream b's m candidate rows (its last token and m-1 drafts),
+    stream-major, at positions ``positions[b]..positions[b]+m-1`` of its
+    paged context; cos/sin_rows [B*m, hd] rope rows at every flattened
+    position; block_tables [B, max_pages] int32 (0 = the null page). The
+    m rows' K/V land in the pools in place (they may straddle a page);
+    each row attends its stream's prior context and, causally, its own
+    chunk. Callers keep ``positions[b] + m <= max_seq`` (the engine's spec
+    headroom). Returns (x_out [B*m, D], k_pool, v_pool)."""
+    args = (x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool,
+            wo, swo, positions, block_tables)
+    kw = dict(heads=heads, kv_heads=kv_heads, head_dim=head_dim, m=m, eps=eps,
+              residual=residual)
+    if not x.is_cuda:
+        return attention_paged_spec_step_plain(*args, **kw)
+    return _attention_paged_spec_step_kernel(*args, **kw)
+
+
+attention_paged_spec_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # rope rows and the frozen-row view (shared by the fused steps)
 # ---------------------------------------------------------------------------
 
@@ -570,8 +731,8 @@ def rope_rows(cos_table, sin_table, position: int, length: int = 1):
 
 
 #: the kernel wrappers of the paged serving path, in the order a layer runs them
-KERNELS = (attention_paged_chunk_step, attention_paged_batch_step, mlp_step,
-           lm_head_argmax)
+KERNELS = (attention_paged_chunk_step, attention_paged_batch_step,
+           attention_paged_spec_step, mlp_step, lm_head_argmax)
 
 
 def reset_launches() -> None:

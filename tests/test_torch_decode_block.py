@@ -211,3 +211,78 @@ def test_rms_norm_matches_jax():
         TL.rms_norm(_t(x), _t(w)).numpy(),
         np.asarray(JL.rms_norm(jnp.asarray(x), jnp.asarray(w))), rtol=1e-6, atol=1e-6,
     )
+
+
+def test_attention_paged_spec_step_matches_pallas_and_dense_oracle():
+    """tests/test_ops.py's geometry: page 8, m 5, streams at positions 9
+    and 30, one whose 5 rows straddle a page (6), one frozen (0, zeroed
+    table row). The plain twin against the Pallas kernel (interpret mode)
+    and against the per-stream dense oracle that test builds
+    (attention_chunk_step on each stream's dense cache): output rows and
+    the written pool rows within the module's tolerance, every other row
+    of a live page bit-unchanged."""
+    rng = np.random.default_rng(3)
+    d, h, kv, hd, s, m, page, b = 64, 4, 2, 16, 64, 5, 8, 4
+    npages = s // page
+    positions = [9, 30, 6, 0]
+    frozen = [False, False, False, True]
+    (jqkv, jsqkv, jo, jso), (tqkv, tsqkv, to, tso), bqkv, nw = _attn_weights(rng, d, h, kv, hd)
+    x = rng.standard_normal((b * m, d)).astype(np.float32)
+    dense_k = [(rng.standard_normal((kv, s, hd)) * 0.1).astype(np.float32) for _ in range(b)]
+    dense_v = [(rng.standard_normal((kv, s, hd)) * 0.1).astype(np.float32) for _ in range(b)]
+    n_pool = 1 + b * npages
+    kp = np.zeros((n_pool, kv, page, hd), np.float32)
+    vp = np.zeros((n_pool, kv, page, hd), np.float32)
+    bt = np.zeros((b, npages), np.int32)
+    for i in range(b):
+        if frozen[i]:
+            continue
+        for j in range(npages):
+            bt[i, j] = 1 + i * npages + j
+            kp[bt[i, j]] = dense_k[i][:, j * page : (j + 1) * page]
+            vp[bt[i, j]] = dense_v[i][:, j * page : (j + 1) * page]
+    cos_t, sin_t = JL.rope_table(s, hd)
+    pos = np.asarray(positions, np.int32)
+    flat = (pos[:, None] + np.arange(m)[None, :]).reshape(b * m).astype(np.int32)
+    jc, js = JDB.rope_rows_at(cos_t, sin_t, jnp.asarray(flat))
+    tc, ts = TDB.rope_rows_at(_t(cos_t), _t(sin_t), _t(flat))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+    jx, jkp, jvp = JDB.attention_paged_spec_step(
+        jnp.asarray(x), jnp.asarray(nw), jqkv, jsqkv, jnp.asarray(bqkv), jc, js,
+        jnp.asarray(kp), jnp.asarray(vp), jo, jso, jnp.asarray(pos), jnp.asarray(bt),
+        heads=h, kv_heads=kv, head_dim=hd, m=m,
+    )
+    tkp, tvp = _t(kp), _t(vp)
+    tx, tkp2, _ = TDB.attention_paged_spec_step(
+        _t(x), _t(nw), tqkv, tsqkv, _t(bqkv), tc, ts, tkp, tvp, to, tso,
+        _t(pos), _t(bt), heads=h, kv_heads=kv, head_dim=hd, m=m,
+    )
+    assert tkp2 is tkp  # updated in place
+    _close(tx.numpy(), np.asarray(jx))
+    # page 0 takes the frozen stream's rows: its content is don't-care
+    _close(tkp[1:].numpy(), np.asarray(jkp)[1:])
+    _close(tvp[1:].numpy(), np.asarray(jvp)[1:])
+    written = np.zeros(kp.shape[:3], bool)
+    for i, p in enumerate(positions):
+        for r in range(p, p + m):
+            written[bt[i, r // page], :, r % page] = True
+    written[0] = True
+    assert written[bt[2, 0], :, 6:].all() and written[bt[2, 1], :, :3].all()  # the straddle
+    np.testing.assert_array_equal(tkp.numpy()[~written], kp[~written])
+    np.testing.assert_array_equal(tvp.numpy()[~written], vp[~written])
+
+    for i, p in enumerate(positions):
+        cr, sr = JDB.rope_rows(cos_t, sin_t, p, m)
+        ref_x, ref_k, ref_v = JDB.attention_chunk_step(
+            jnp.asarray(x[i * m : (i + 1) * m]), jnp.asarray(nw), jqkv, jsqkv,
+            jnp.asarray(bqkv), cr, sr, jnp.asarray(dense_k[i]), jnp.asarray(dense_v[i]),
+            jo, jso, p, heads=h, kv_heads=kv, head_dim=hd,
+        )
+        _close(tx[i * m : (i + 1) * m].numpy(), np.asarray(ref_x))
+        if frozen[i]:
+            continue
+        for r in range(p, p + m):
+            pg, off = bt[i, r // page], r % page
+            _close(tkp[pg, :, off].numpy(), np.asarray(ref_k)[:, r])
+            _close(tvp[pg, :, off].numpy(), np.asarray(ref_v)[:, r])

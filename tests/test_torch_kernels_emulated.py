@@ -161,3 +161,65 @@ def test_kernel_wrappers_refuse_shapes_the_kernels_do_not_take():
             x.float(), torch.ones(64), torch.zeros((64, 32), dtype=torch.int8),
             torch.ones(1, 32), None, torch.zeros((16, 64), dtype=torch.int8),
             torch.ones(1, 64), eps=1e-6, residual=True, lib=object())
+
+
+def test_paged_spec_kernel_matches_plain(libs):
+    """Four streams of m = 5 candidate rows: one straddling a page (14..18),
+    one frozen (position 0, zeroed table row), one past two pages (37) and
+    one at a page start (32). Outputs and written rows within tolerance,
+    every other row of the live pages exact."""
+    rng = np.random.default_rng(11)
+    h, kv, hd, page, maxp, d, m = 4, 2, 128, 16, 6, 64, 5
+    wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng, d, h, kv, hd)
+    positions = torch.tensor([14, 0, 37, 32], dtype=torch.int32)
+    b = positions.shape[0]
+    bt = torch.zeros((b, maxp), dtype=torch.int32)
+    for i in (0, 2, 3):
+        bt[i] = 1 + i * maxp + torch.arange(maxp, dtype=torch.int32)
+    n_pool = 1 + b * maxp
+    kp = _t(rng.standard_normal((n_pool, kv, page, hd)) * 0.5, BF)
+    vp = _t(rng.standard_normal((n_pool, kv, page, hd)) * 0.5, BF)
+    x = _t(rng.standard_normal((b * m, d)), BF)
+    flat = (positions[:, None] + torch.arange(m, dtype=torch.int32)[None, :]).reshape(-1)
+    cr, sr = DB.rope_rows_at(cos_t, sin_t, flat)
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd, m=m)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    want, _, _ = DB.attention_paged_spec_step_plain(
+        x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr, k1, v1,
+        wo["int8"], wo["scale"], positions, bt, **kw)
+    got, _, _ = DB._attention_paged_spec_step_kernel(
+        x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr, k2, v2,
+        wo["int8"], wo["scale"], positions, bt, eps=1e-6, residual=True,
+        lib=libs["paged_attention"], **kw)
+    assert _rel(got, want) <= 1e-2
+    assert _rel(k2[1:], k1[1:]) <= 1e-2 and _rel(v2[1:], v1[1:]) <= 1e-2
+    written = torch.zeros(kp.shape[:3], dtype=torch.bool)
+    for i, p in enumerate(positions.tolist()):
+        for r in range(p, p + m):
+            written[bt[i, r // page], :, r % page] = True
+    written[0] = True
+    assert int(written[1:].sum()) == 3 * m * kv
+    assert torch.equal(k2[~written], kp[~written])
+    assert torch.equal(v2[~written], vp[~written])
+
+
+def test_spec_wrapper_refuses_shapes_the_kernel_does_not_take():
+    x = torch.zeros((10, 64), dtype=BF)
+    pools = torch.zeros((3, 2, 16, 128), dtype=BF)
+    pos = torch.zeros((2,), dtype=torch.int32)
+    bt = torch.zeros((2, 4), dtype=torch.int32)
+
+    def call(x, pos, m, heads=4):
+        DB._attention_paged_spec_step_kernel(
+            x, None, None, None, None, None, None, pools, pools, None, None,
+            pos, bt, heads=heads, kv_heads=2, head_dim=128, m=m, eps=1e-6,
+            residual=True, lib=object())
+
+    with pytest.raises(ValueError, match="m <= page"):
+        call(torch.zeros((34, 64), dtype=BF), pos, 17)
+    with pytest.raises(ValueError, match="m \\* group"):
+        call(torch.zeros((20, 64), dtype=BF), pos, 10, heads=16)
+    with pytest.raises(ValueError, match="rows for each"):
+        call(x, torch.zeros((3,), dtype=torch.int32), 5)
+    with pytest.raises(ValueError, match="dtype"):
+        call(x.float(), pos, 5)

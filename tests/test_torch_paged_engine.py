@@ -258,3 +258,33 @@ def test_admission_math_matches_jax():
             assert t.pages_needed(n, new) == j.pages_needed(n, new), (n, new)
             assert t.fits(n, new) == j.fits(n, new), (n, new)
             assert t.can_admit(n, new) == j.can_admit(n, new), (n, new)
+
+
+def test_make_engine_reads_the_front_door_knobs(both, monkeypatch):
+    """As dora_tpu's make_engine: the prefix cache is on unless
+    DORA_PREFIX_CACHE=0 and DORA_PREFIX_CACHE_PAGES caps it; DORA_SPEC_K and
+    DORA_SPEC_NGRAM reach the engine. DORA_PAGED_KV=0 asks for the dense
+    engine, which the port does not have: it raises instead of serving
+    paged."""
+    from dora_tpu_torch.nodehub.llm_server import make_engine
+
+    _, _, tcfg, tparams = both
+    for key in ("DORA_PREFIX_CACHE", "DORA_PREFIX_CACHE_PAGES", "DORA_SPEC_K",
+                "DORA_SPEC_NGRAM", "DORA_PAGED_KV"):
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv("DORA_PAGE_SIZE", "8")
+    monkeypatch.setenv("DORA_PREFILL_CHUNK", "8")
+    eng = make_engine(tparams, tcfg, device="cpu")
+    assert eng.prefix_cache is not None and eng.prefix_cache.max_pages == 0
+    assert eng.spec_k == 0
+    monkeypatch.setenv("DORA_PREFIX_CACHE_PAGES", "8")
+    monkeypatch.setenv("DORA_SPEC_K", "3")
+    monkeypatch.setenv("DORA_SPEC_NGRAM", "3")
+    eng = make_engine(tparams, tcfg, device="cpu")
+    assert eng.prefix_cache.max_pages == 8
+    assert (eng.spec_k, eng.spec_ngram, eng.spec_headroom()) == (3, 3, 4)
+    monkeypatch.setenv("DORA_PREFIX_CACHE", "0")
+    assert make_engine(tparams, tcfg, device="cpu").prefix_cache is None
+    monkeypatch.setenv("DORA_PAGED_KV", "0")
+    with pytest.raises(NotImplementedError, match="dense batch engine"):
+        make_engine(tparams, tcfg, device="cpu")
