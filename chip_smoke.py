@@ -10,12 +10,16 @@ Phases, each printed on its own line:
 1. the device: torch's name for it and ``nvidia-smi``'s name and power limit;
 2. the kernel build (every ``dora_tpu_torch/csrc/*.cu``, nvcc started once per
    source, all together), with its time;
-3. each of the five kernels of the paged serving paths held against its
-   plain PyTorch version on the card, in bf16 at the Qwen2-1.5B shapes the
-   serving paths give it (``mlp_step`` and ``lm_head_argmax`` also at the
-   80 rows of a speculative verify), with its time, the plain version's
-   time, a library yardstick's time and the least time the card could take
-   (``bound_ms``);
+3. each of the nine kernels of the paged serving paths (the five fp-KV
+   ones, ``lora_gather_matmul`` and the int8-KV forms of the three
+   attention kernels) held against its plain PyTorch version on the card,
+   in bf16 at the Qwen2-1.5B shapes the serving paths give it (``mlp_step``,
+   ``lm_head_argmax`` and the LoRA kernel also at the 80 rows of a
+   speculative verify and the 256 of a prefill chunk), with its time, the
+   plain version's time, a library yardstick's time and the least time the
+   card could take (``bound_ms``); the int8 forms' written rows within 1 LSB
+   of the plain version's and every other value and scale bit-unchanged,
+   slot-0 LoRA rows exactly zero;
 4. the slice: a Qwen2-1.5B-shaped engine with seeded random int8 weights
    (16 slots, page 16, chunk 256, K = 8, max_seq 2048) serves 16 requests
    with prompts of 64..1000 tokens and 128 new tokens each; together they
@@ -37,7 +41,23 @@ Phases, each printed on its own line:
 7. two of those requests again on the spec-off, cache-off engine on the
    card: the tokens must agree, or part where the served token is within
    NEAR_TIE of the f32 plain path's top logit and the reference's within
-   SPEC_REF_TIE.
+   SPEC_REF_TIE;
+8. multi-tenant LoRA on int8 KV pages at full width and depth: four seeded
+   adapters t0..t3 (ranks 8, 16, 16, 32) written to a temporary catalog,
+   the engine as ``make_engine`` builds it with ``DORA_KV_INT8=1`` and
+   ``DORA_LORA_DIR`` (prefix cache on, K = 8, 16 slots, page 16, chunk 256,
+   992 int8 pages in the 512 fp pages' byte budget, 8 resident adapters),
+   16 requests in five groups (t0..t3 three each, base four) sharing one
+   256-token prefix with tails of 32..480 tokens, 128 new tokens each. The
+   first request of each group runs to its first token, then the other 11
+   come through ``serve_prompts(adapters=...)`` and must hit their own
+   tenant's prefix pages only (11 hits). The LoRA kernel and the int8-KV
+   batch and chunk forms must run, the fp forms and the plain versions
+   not. Then agreement: two tenants' first requests alone on a fresh engine,
+   the base group's on an engine without a catalog, two requests through
+   the plain versions (partings only at near-ties); and a short spec-on run
+   (``DORA_SPEC_K=4``, 32 new tokens) through the int8 spec form with the
+   LoRA kernel at 80 rows.
 
 It prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -51,6 +71,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -66,6 +87,11 @@ REL_TOL = {
     "attention_paged_chunk_step": 1.3e-2,  # seen 4.3e-3
     "attention_paged_spec_step": 6e-3,     # seen 2.1e-3
     "pools": 3e-3,                       # K/V written; seen 0, 2.0e-4 and 7.8e-4
+    "attention_paged_batch_step_int8kv": 3e-3,   # seen 9.5e-4
+    "attention_paged_chunk_step_int8kv": 1.3e-2,  # seen 4.1e-3
+    "attention_paged_spec_step_int8kv": 5e-3,     # seen 1.7e-3
+    "int8kv_scales": 1e-6,               # scales of the rows written; seen 1.6e-7 .. 2.4e-7
+    "lora_gather_matmul": 6e-3,          # seen 1.3e-4 (16 rows), 1.0e-3 (80), 1.9e-3 (256)
 }
 SPEC_K = 4         # drafts per verify in phase 6: m = 5 candidate rows a stream
 HEAD_TIE = 1e-3    # logits this close may pick either token (kernel check)
@@ -81,6 +107,14 @@ RMS_MARGIN = 1.5
 # reference's to twice that, each path's own near-tie band (a reference
 # token seen 0.0525 below the f32 top where the served token was the top).
 SPEC_REF_TIE = 2 * NEAR_TIE
+# Phase 8: seeded adapters t0..t3 at these ranks (the stack is rank 32 and
+# the smaller ones are zero-padded into it), normal with this std in both
+# factors: a residual row x gets a delta of norm about std^2 * sqrt(r * dim)
+# * |x|, 0.10 to 0.20 of |x| at dim 1536, in each of the 28 layers, so the
+# tenants' tokens part from the base model's.
+ADAPTER_RANKS = {"t0": 8, "t1": 16, "t2": 16, "t3": 32}
+ADAPTER_STD = 0.03
+TENANT_SPEC_MAX_NEW = 32  # phase 8's short spec-on run
 
 
 class Failed(Exception):
@@ -129,11 +163,12 @@ class _PlainCalls:
 
     NAMES = tuple(f"{n}_plain" for n in SPEC_OFF_KERNELS) + ("attention_paged_spec_step_plain",)
 
-    def __init__(self, DB):
-        self.DB, self.n = DB, 0
-        self.saved = {name: getattr(DB, name) for name in self.NAMES}
-        for name, fn in self.saved.items():
-            setattr(DB, name, self._counting(fn))
+    def __init__(self, DB, LO):
+        self.n = 0
+        self.saved = [(DB, name, getattr(DB, name)) for name in self.NAMES]
+        self.saved.append((LO, "lora_gather_matmul_plain", LO.lora_gather_matmul_plain))
+        for mod, name, fn in self.saved:
+            setattr(mod, name, self._counting(fn))
 
     def _counting(self, fn):
         def run(*a, **k):
@@ -142,8 +177,18 @@ class _PlainCalls:
         return run
 
     def restore(self):
-        for name, fn in self.saved.items():
-            setattr(self.DB, name, fn)
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _reset_launches(DB, LO) -> None:
+    DB.reset_launches()
+    LO.reset_launches()
+
+
+def _launches(DB, LO) -> dict:
+    """Every kernel's launches since _reset_launches, int8-KV forms apart."""
+    return {**DB.launch_counts(), "lora_gather_matmul": LO.lora_gather_matmul.launches}
 
 
 def _check_streams(out: dict, max_new: int, vocab: int) -> None:
@@ -154,7 +199,7 @@ def _check_streams(out: dict, max_new: int, vocab: int) -> None:
             raise Failed(f"request {i} emitted a token outside the vocab")
 
 
-def check_kernels(torch, DB, params, cfg, rng_seed: int) -> list[dict]:
+def check_kernels(torch, DB, qwen2, params, cfg, rng_seed: int) -> list[dict]:
     """Phase 3: every kernel against its plain version at serving shapes."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(rng_seed)
@@ -181,6 +226,57 @@ def check_kernels(torch, DB, params, cfg, rng_seed: int) -> list[dict]:
         _, rel_k = _rel(k_got, k_want)
         _, rel_v = _rel(v_got, v_want)
         agree("pools", max(rel_k, rel_v), f" written by {name} (k {rel_k:.3e} v {rel_v:.3e})")
+
+    # int8-KV forms: int8 pools of n_pool8 pages (the fp pool's byte budget at
+    # this width) with their scale planes, quantized from seeded normals.
+    n_pool8 = n_pool * qwen2.page_pool_bytes(cfg, page) // qwen2.page_pool_bytes(
+        cfg, page, kv_int8=True)
+    shape8 = (n_pool8, kv, page, hd)
+    kq8, ks8 = DB.kv_quant_rows(torch.randn(shape8, generator=gen, device=dev))
+    vq8, vs8 = DB.kv_quant_rows(torch.randn(shape8, generator=gen, device=dev))
+    pools8 = (kq8, vq8, ks8, vs8)
+
+    def fresh8():
+        return [t.clone() for t in pools8]
+
+    def int8_writes(name, got, want, written):
+        """Rows the int8 form wrote: within 1 LSB of the plain version's,
+        scales within REL_TOL["int8kv_scales"]; every other value and scale
+        of pages 1.. bit-unchanged (frozen streams race on the null page)."""
+        w = written.clone()
+        w[0] = False
+        keep = ~written
+        keep[0] = False
+        n_diff = n_bytes = 0
+        for qg, qw, q0 in zip(got[:2], want[:2], pools8[:2]):
+            step = (qg[w].int() - qw[w].int()).abs()
+            if int(step.max()) > 1:
+                raise Failed(f"{name}: written int8 rows more than 1 LSB from its plain version")
+            n_diff += int((step > 0).sum())
+            n_bytes += step.numel()
+            if not torch.equal(qg[keep], q0[keep]):
+                raise Failed(f"{name} changed int8 pool rows it does not own")
+        srel = 0.0
+        for sg, sw, s0 in zip(got[2:], want[2:], pools8[2:]):
+            srel = max(srel, _rel(sg[w], sw[w])[1])
+            if not torch.equal(sg[keep], s0[keep]):
+                raise Failed(f"{name} changed scale entries it does not own")
+        agree("int8kv_scales", srel, f" written by {name}")
+        print(f"kernel {name}: {int(w[:, 0].sum())} rows written per kv head; {n_diff} of "
+              f"{n_bytes} written int8 bytes 1 LSB from the plain version "
+              f"({n_diff / max(n_bytes, 1):.3%}); every unwritten value and scale of pages "
+              f"1.. bit-unchanged", flush=True)
+
+    def ctx8(table, n_keys=None):
+        """The dequantized context of int8 pools through ``table`` rows, as
+        the SDPA yardstick takes it ([rows, H, keys, hd])."""
+        t = table.long() if table.dim() == 2 else table.long()[None]
+        k = DB.kv_dequant(kq8[t], ks8[t], torch.bfloat16)
+        v = DB.kv_dequant(vq8[t], vs8[t], torch.bfloat16)
+        n = t.shape[1] * page
+        k = k.permute(0, 2, 1, 3, 4).reshape(t.shape[0], kv, n, hd)[:, :, :n_keys]
+        v = v.permute(0, 2, 1, 3, 4).reshape(t.shape[0], kv, n, hd)[:, :, :n_keys]
+        return k.repeat_interleave(h // kv, dim=1), v.repeat_interleave(h // kv, dim=1)
 
     def record(name, route_src, replaces, err, rel, ms, plain_ms, lib_ms, nbytes, ops):
         bound, by = _bound_ms(nbytes, ops)
@@ -328,6 +424,34 @@ def check_kernels(torch, DB, params, cfg, rng_seed: int) -> list[dict]:
            _time_ms(torch, lambda: DB.attention_paged_batch_step_plain(*bargs, **kw), 5),
            _time_ms(torch, lib_batch), nbytes, ops)
 
+    # batch, int8 KV: the same rows, positions and tables
+    written8 = torch.zeros((n_pool8, kv, page), dtype=torch.bool)
+    for b, p in enumerate(positions):
+        written8[int(bt[b, p // page]), :, p % page] = True
+    written8[0] = True
+    p1, p2 = fresh8(), fresh8()
+    b8 = [(x, blk["attn_norm"], wqkv, sqkv, bqkv, cr, sr, P[0], P[1], wo, swo, pos, bt,
+           P[2], P[3]) for P in (p1, p2)]
+    want, *pw = DB.attention_paged_batch_step_plain(*b8[0], **kw)
+    got, *pg = DB.attention_paged_batch_step(*b8[1], **kw)
+    err, rel = _rel(got, want)
+    int8_writes("attention_paged_batch_step_int8kv", pg, pw, written8.to(dev))
+    kctx8, vctx8 = ctx8(bt)
+
+    def lib_batch8():
+        return torch.nn.functional.scaled_dot_product_attention(q_sdpa, kctx8, vctx8,
+                                                                attn_mask=mask)
+
+    kv8_row = kv * (hd + 4) * 2  # one row of K and V in int8 plus their scales
+    nbytes8 = (slots * d * 2 * 2 + d * 4 + d * n_qkv + n_qkv * 8 + slots * hd * 8
+               + h * hd * d + d * 4 + slots * 4 + bt.numel() * 4
+               + ctx * kv8_row + slots * kv8_row)
+    record("attention_paged_batch_step_int8kv", "dora_tpu_torch/csrc/paged_attention.cu",
+           "dora_tpu/ops/decode_block.py:1163", err, rel,
+           _time_ms(torch, lambda: DB.attention_paged_batch_step(*b8[1], **kw)),
+           _time_ms(torch, lambda: DB.attention_paged_batch_step_plain(*b8[0], **kw), 5),
+           _time_ms(torch, lib_batch8), nbytes8, ops)
+
     # chunk: the third 256-row chunk of a prompt (position 512).
     position = 2 * chunk
     btr = torch.arange(1, cfg.max_seq // page + 1, dtype=torch.int32, device=dev)
@@ -362,6 +486,30 @@ def check_kernels(torch, DB, params, cfg, rng_seed: int) -> list[dict]:
            _time_ms(torch, lambda: DB.attention_paged_chunk_step(*cargs2, **kw)),
            _time_ms(torch, lambda: DB.attention_paged_chunk_step_plain(*cargs1, **kw), 5),
            _time_ms(torch, lib_chunk), nbytes, ops)
+
+    # chunk, int8 KV: the chunk's 16 pages and their scale rows written whole
+    written8 = torch.zeros((n_pool8, kv, page), dtype=torch.bool)
+    written8[btr[position // page : (position + chunk) // page].long().cpu()] = True
+    written8[0] = True
+    p1, p2 = fresh8(), fresh8()
+    c8 = [(x, blk["attn_norm"], wqkv, sqkv, bqkv, cr, sr, P[0], P[1], wo, swo, position, btr,
+           P[2], P[3]) for P in (p1, p2)]
+    want, *pw = DB.attention_paged_chunk_step_plain(*c8[0], **kw)
+    got, *pg = DB.attention_paged_chunk_step(*c8[1], **kw)
+    err, rel = _rel(got, want)
+    int8_writes("attention_paged_chunk_step_int8kv", pg, pw, written8.to(dev))
+    kc8, vc8 = ctx8(btr[: n_keys // page])
+
+    def lib_chunk8():
+        return torch.nn.functional.scaled_dot_product_attention(qc, kc8, vc8, attn_mask=cmask)
+
+    nbytes8 = (chunk * d * 2 * 2 + d * 4 + d * n_qkv + n_qkv * 8 + chunk * hd * 8
+               + h * hd * d + d * 4 + btr.numel() * 4 + (position + chunk) * kv8_row)
+    record("attention_paged_chunk_step_int8kv", "dora_tpu_torch/csrc/paged_attention.cu",
+           "dora_tpu/ops/decode_block.py:1505", err, rel,
+           _time_ms(torch, lambda: DB.attention_paged_chunk_step(*c8[1], **kw)),
+           _time_ms(torch, lambda: DB.attention_paged_chunk_step_plain(*c8[0], **kw), 5),
+           _time_ms(torch, lib_chunk8), nbytes8, ops)
 
     # spec verify: 16 streams x m candidate rows. Stream 0's rows straddle a
     # page (14..18), stream 3 is frozen, contexts reach 990; streams past 512
@@ -436,10 +584,88 @@ def check_kernels(torch, DB, params, cfg, rng_seed: int) -> list[dict]:
            _time_ms(torch, lambda: DB.attention_paged_spec_step(*sargs2, **skw)),
            _time_ms(torch, lambda: DB.attention_paged_spec_step_plain(*sargs1, **skw), 5),
            _time_ms(torch, lib_spec), nbytes, ops)
+
+    # spec verify, int8 KV: exactly m rows and m scales per (stream, kv head)
+    written8 = torch.zeros((n_pool8, kv, page), dtype=torch.bool)
+    written8[: written.shape[0]] = written.cpu()
+    p1, p2 = fresh8(), fresh8()
+    s8 = [(x, blk["attn_norm"], wqkv, sqkv, bqkv, cr, sr, P[0], P[1], wo, swo, pos, bt,
+           P[2], P[3]) for P in (p1, p2)]
+    want, *pw = DB.attention_paged_spec_step_plain(*s8[0], **skw)
+    got, *pg = DB.attention_paged_spec_step(*s8[1], **skw)
+    err, rel = _rel(got, want)
+    int8_writes("attention_paged_spec_step_int8kv", pg, pw, written8.to(dev))
+    ks_ctx, vs_ctx = ctx8(bt)
+
+    def lib_spec8():
+        return torch.nn.functional.scaled_dot_product_attention(q_spec, ks_ctx, vs_ctx,
+                                                                attn_mask=smask)
+
+    nbytes8 = (bm * d * 2 * 2 + d * 4 + d * n_qkv + n_qkv * 8 + bm * hd * 8
+               + h * hd * d + d * 4 + slots * 4 + bt.numel() * 4
+               + int(ctx_rows.sum()) * kv8_row + bm * kv8_row)
+    record("attention_paged_spec_step_int8kv", "dora_tpu_torch/csrc/paged_attention.cu",
+           "dora_tpu/ops/decode_block.py:1927", err, rel,
+           _time_ms(torch, lambda: DB.attention_paged_spec_step(*s8[1], **skw)),
+           _time_ms(torch, lambda: DB.attention_paged_spec_step_plain(*s8[0], **skw), 5),
+           _time_ms(torch, lib_spec8), nbytes8, ops)
     return out
 
 
-def serve_slice(torch, DB, qwen2, serve_prompts, params, cfg, prompts, max_new):
+def check_lora_kernel(torch, LO, cfg, rng_seed: int) -> dict:
+    """Phase 3, kernel 6: lora_gather_matmul against its plain version at 16
+    (decode), 80 (spec verify) and 256 (prefill chunk) rows, over a 9-slot
+    stack of rank 32 sliced per layer as the fused pass slices it; ids mixed,
+    with slot-0 rows and repeats. Returns the 16-row entry."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(rng_seed)
+    d, rank, slots = cfg.dim, 32, 9
+    a = (torch.randn((slots, 2, d, rank), generator=gen, device=dev) * ADAPTER_STD).bfloat16()
+    b = (torch.randn((slots, 2, rank, d), generator=gen, device=dev) * ADAPTER_STD).bfloat16()
+    a[0] = 0
+    b[0] = 0
+    a1, b1 = a[:, 1], b[:, 1]
+    entry = None
+    for m in (16, 80, 256):
+        x = (torch.randn((m, d), generator=gen, device=dev) * 0.5).bfloat16()
+        g = torch.randint(0, slots, (m,), generator=gen, device=dev, dtype=torch.int32)
+        g[:4] = torch.tensor([0, 0, 5, 5], dtype=torch.int32)
+        want = LO.lora_gather_matmul_plain(x, g, a1, b1)
+        got = LO.lora_gather_matmul(x, g, a1, b1)
+        err, rel = _rel(got, want)
+        base = g == 0
+        if got[base].float().abs().max().item() != 0.0:
+            raise Failed(f"lora_gather_matmul: slot-0 rows are not exactly zero at {m} rows")
+        tol = REL_TOL["lora_gather_matmul"]
+        if not rel <= tol:
+            raise Failed(f"lora_gather_matmul disagrees with its plain version at {m} rows: "
+                         f"rel {rel:.3e}")
+
+        def lib():
+            gl = g.long()
+            return torch.bmm(torch.bmm(x[:, None, :], a1[gl]), b1[gl])
+
+        distinct = int(torch.unique(g[g != 0]).numel())
+        nbytes = distinct * 2 * d * rank * 2 + m * d * 2 * 2 + m * 4
+        ops = 4 * m * d * rank
+        bound, by = _bound_ms(nbytes, ops)
+        ms = _time_ms(torch, lambda: LO.lora_gather_matmul(x, g, a1, b1))
+        plain_ms = _time_ms(torch, lambda: LO.lora_gather_matmul_plain(x, g, a1, b1), 5)
+        lib_ms = _time_ms(torch, lib)
+        print(f"kernel lora_gather_matmul at {m} rows ({distinct} distinct adapters, "
+              f"{int(base.sum())} slot-0 rows exactly zero): rel {rel:.3e} (tol {tol}) "
+              f"max_abs_err {err:.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+              f"{lib_ms:.4f} bound_ms {bound:.4f} ({by})", flush=True)
+        if m == 16:
+            entry = {"name": "lora_gather_matmul", "route": "cuda",
+                     "source": "dora_tpu_torch/csrc/lora.cu",
+                     "replaces": "dora_tpu/ops/lora.py:65", "launches": 0,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib_ms}
+    return entry
+
+
+def serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, max_new):
     """Phase 4: the engine serves every prompt through the kernels."""
     engine = qwen2.make_paged_engine(params, cfg, max_slots=16, page_size=16,
                                      chunk=256, window=8, spec_k=0, prefix_cache=False,
@@ -462,9 +688,9 @@ def serve_slice(torch, DB, qwen2, serve_prompts, params, cfg, prompts, max_new):
         window_s.append(time.perf_counter() - t)
         return res
 
-    def counted_submit(rid, ids, n):
+    def counted_submit(rid, ids, n, **kw):
         admitted_at[int(rid)] = steps[0]
-        return inner_submit(rid, ids, n)
+        return inner_submit(rid, ids, n, **kw)
 
     def counted_step():
         steps[0] += 1
@@ -472,8 +698,8 @@ def serve_slice(torch, DB, qwen2, serve_prompts, params, cfg, prompts, max_new):
 
     engine.window_step, engine.submit, engine.step = timed_window, counted_submit, counted_step
 
-    plain_calls = _PlainCalls(DB)
-    DB.reset_launches()
+    plain_calls = _PlainCalls(DB, LO)
+    _reset_launches(DB, LO)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
@@ -481,7 +707,7 @@ def serve_slice(torch, DB, qwen2, serve_prompts, params, cfg, prompts, max_new):
         torch.cuda.synchronize()
     finally:
         wall = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in DB.KERNELS}
+        launches = _launches(DB, LO)
         plain_calls.restore()
     print(f"slice launches: {json.dumps(launches)}; plain calls {plain_calls.n}", flush=True)
     _check_streams(out, max_new, cfg.vocab)
@@ -491,6 +717,8 @@ def serve_slice(torch, DB, qwen2, serve_prompts, params, cfg, prompts, max_new):
         raise Failed(f"a kernel never launched on the main path: {launches}")
     if launches["attention_paged_spec_step"]:
         raise Failed("the spec kernel launched with speculation off")
+    if any(launches[n] for n in launches if n.endswith("_int8kv") or n.startswith("lora")):
+        raise Failed(f"an int8-KV or LoRA kernel launched on the fp path: {launches}")
     if max(admitted_at.values()) == 0:
         raise Failed("no request waited for pages")
     engine.check_invariants()
@@ -513,14 +741,15 @@ class _Paths:
 
     NAMES = SPEC_OFF_KERNELS + ("attention_paged_spec_step",)
 
-    def __init__(self, torch, DB, qwen2, L, serve_prompts, params, cfg):
-        self.torch, self.DB, self.qwen2, self.L = torch, DB, qwen2, L
+    def __init__(self, torch, DB, LO, qwen2, L, serve_prompts, params, cfg):
+        self.torch, self.DB, self.LO, self.qwen2, self.L = torch, DB, LO, qwen2, L
         self.serve_prompts, self.params, self.cfg = serve_prompts, params, cfg
-        self.saved = {n: getattr(DB, n) for n in self.NAMES}
+        self.saved = [(DB, n, getattr(DB, n)) for n in self.NAMES]
+        self.saved.append((LO, "lora_gather_matmul", LO.lora_gather_matmul))
 
     def use(self, plain: bool) -> None:
-        for n in self.NAMES:
-            setattr(self.DB, n, getattr(self.DB, n + "_plain") if plain else self.saved[n])
+        for mod, n, fn in self.saved:
+            setattr(mod, n, getattr(mod, n + "_plain") if plain else fn)
 
     def engine(self):
         """The spec-off, cache-off engine of phase 4."""
@@ -528,12 +757,14 @@ class _Paths:
                                             chunk=256, window=8, spec_k=0, prefix_cache=False,
                                             device="cuda")
 
-    def logits_after(self, prefix, mode: str):
+    def logits_after(self, prefix, mode: str, engine=None, adapter=None):
         """Logits of the next token after ``prefix`` (its final chunk's row)
-        on the kernel path, the plain path, or the plain path in f32. The
-        kernel path records inside the wrapper, which keeps counting its
-        launches."""
+        on the kernel path, the plain path, or the plain path in f32, on a
+        fresh engine from ``engine`` (default :meth:`engine`), the request
+        served as ``adapter``'s tenant. The kernel path records inside the
+        wrapper, which keeps counting its launches."""
         torch, DB, L = self.torch, self.DB, self.L
+        engine = engine or self.engine
         last_logits: list = [None]
         bf16_dtype = L.compute_dtype
         self.use(mode != "kernel")
@@ -550,21 +781,22 @@ class _Paths:
 
         setattr(DB, name, recording)
         try:
-            engine = self.engine()
-            self.serve_prompts(engine, [prefix], 1)
+            eng = engine()
+            self.serve_prompts(eng, [prefix], 1, adapters=[adapter])
         finally:
             setattr(DB, name, head)
             L.compute_dtype = bf16_dtype
             self.use(plain=False)
-        return last_logits[0][(len(prefix) - 1) % engine.chunk].float()
+        return last_logits[0][(len(prefix) - 1) % eng.chunk].float()
 
-    def near_tie(self, what: str, prefix, a: int, b: int, b_bound: float = NEAR_TIE) -> None:
+    def near_tie(self, what: str, prefix, a: int, b: int, b_bound: float = NEAR_TIE,
+                 engine=None, adapter=None) -> None:
         """Where a served stream (token ``a``) parts from a reference path
         (token ``b``) after ``prefix``, ``a`` must be within NEAR_TIE of the
         f32 plain path's top logit and ``b`` within ``b_bound``. The bf16
         plain path's own deviations there are printed beside them."""
-        lf = self.logits_after(prefix, "f32")
-        lp = self.logits_after(prefix, "plain")
+        lf = self.logits_after(prefix, "f32", engine, adapter)
+        lp = self.logits_after(prefix, "plain", engine, adapter)
         top = float(lf.max())
         da, db = top - float(lf[a]), top - float(lf[b])
         print(f"{what}: where they part the served token is {da:.4e} and the reference "
@@ -574,6 +806,7 @@ class _Paths:
               f"{float(lp[a] - lf[a]):+.4e} and {float(lp[b] - lf[b]):+.4e}", flush=True)
         if not (da <= NEAR_TIE and db <= b_bound):
             raise Failed(f"{what} parts away from a near-tie")
+        return lf, lp
 
 
 def _first_parting(a, b, n: int) -> int:
@@ -614,28 +847,35 @@ def check_plain_agreement(paths, prompts, max_new, served, picks):
             paths.near_tie(f"plain agreement: request {i}", prefix, a[same], b[same])
 
 
-#: the front-door knobs phase 6 clears so that make_engine's defaults run
+#: the front-door knobs phases 6 and 8 clear so that make_engine's defaults run
 FRONT_DOOR_KNOBS = ("DORA_BATCH_SLOTS", "DORA_PAGE_SIZE", "DORA_PREFILL_CHUNK",
                     "DORA_MULTISTEP_K", "DORA_PREFIX_CACHE", "DORA_PREFIX_CACHE_PAGES",
-                    "DORA_SPEC_K", "DORA_SPEC_NGRAM", "DORA_PAGED_KV")
+                    "DORA_SPEC_K", "DORA_SPEC_NGRAM", "DORA_PAGED_KV", "DORA_KV_INT8",
+                    "DORA_LORA_DIR", "DORA_LORA_MAX_RESIDENT", "DORA_LORA_RANK")
 
 
-def serve_spec_cache(torch, DB, vlm, make_engine, serve_prompts, params, cfg, seed: int,
-                     max_new: int):
-    """Phase 6: speculation and the prefix cache at full width and depth.
-    Returns (prompts, {request index: tokens}, launches)."""
-    import numpy as np
-
+def front_door(make_engine, params, cfg, **env):
+    """``llm_server.make_engine`` on the card with only ``env`` of the
+    front-door knobs set, the caller's environment restored after."""
     saved_env = {k: os.environ.pop(k, None) for k in FRONT_DOOR_KNOBS}
-    os.environ["DORA_SPEC_K"] = str(SPEC_K)
+    os.environ.update(env)
     try:
-        engine = make_engine(params, cfg, device="cuda")
+        return make_engine(params, cfg, device="cuda")
     finally:
         for k, v in saved_env.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def serve_spec_cache(torch, DB, LO, vlm, make_engine, serve_prompts, params, cfg, seed: int,
+                     max_new: int):
+    """Phase 6: speculation and the prefix cache at full width and depth.
+    Returns (prompts, {request index: tokens}, launches)."""
+    import numpy as np
+
+    engine = front_door(make_engine, params, cfg, DORA_SPEC_K=str(SPEC_K))
     got = (engine.spec_k, engine.window, engine.max_slots, engine.page_size, engine.chunk,
            engine.allocator.num_pages, engine.prefix_cache is not None)
     if got != (SPEC_K, 8, 16, 16, 256, 512, True):
@@ -671,8 +911,8 @@ def serve_spec_cache(torch, DB, vlm, make_engine, serve_prompts, params, cfg, se
         return res
 
     engine.window_step = watched_window
-    plain_calls = _PlainCalls(DB)
-    DB.reset_launches()
+    plain_calls = _PlainCalls(DB, LO)
+    _reset_launches(DB, LO)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
@@ -686,7 +926,7 @@ def serve_spec_cache(torch, DB, vlm, make_engine, serve_prompts, params, cfg, se
         torch.cuda.synchronize()
     finally:
         wall = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in DB.KERNELS}
+        launches = _launches(DB, LO)
         plain_calls.restore()
     served = {0: first, **{i + 1: toks for i, toks in out.items()}}
     pc = engine.prefix_cache
@@ -732,6 +972,229 @@ def check_spec_agreement(paths, prompts, max_new, served, picks):
                            b[same], SPEC_REF_TIE)
 
 
+def write_adapters(cfg, root: str, seed: int) -> None:
+    """Seeded adapters t0..t3 as ``<name>.npz`` (per layer ``a_{i}`` [dim, r],
+    ``b_{i}`` [r, dim]), the layout make_lora_pool reads."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for name, rank in ADAPTER_RANKS.items():
+        np.savez(os.path.join(root, f"{name}.npz"), **{
+            f"{w}_{i}": (rng.standard_normal(shape) * ADAPTER_STD).astype(np.float32)
+            for i in range(cfg.layers)
+            for w, shape in (("a", (cfg.dim, rank)), ("b", (rank, cfg.dim)))
+        })
+
+
+#: phase 8's groups: three requests for each tenant, four for the base model
+TENANT_GROUPS = ["t0"] * 3 + ["t1"] * 3 + ["t2"] * 3 + ["t3"] * 3 + [None] * 4
+
+
+def serve_multi_tenant(torch, DB, LO, make_engine, serve_prompts, params, cfg,
+                       lora_dir: str, seed: int, max_new: int):
+    """Phase 8: multi-tenant LoRA on int8 KV pages at full width and depth.
+    Returns (engine factory, prompts, adapters, {request index: tokens},
+    launches)."""
+    import numpy as np
+
+    def build(**env):
+        return front_door(make_engine, params, cfg, DORA_KV_INT8="1", DORA_LORA_DIR=lora_dir,
+                          **env)
+
+    engine = build()
+    got = (engine.kv_dtype, engine.spec_k, engine.window, engine.max_slots, engine.page_size,
+           engine.chunk, engine.allocator.num_pages, engine.prefix_cache is not None,
+           engine.lora.max_resident, tuple(engine.lora.state()["a"].shape))
+    want = ("int8", 0, 8, 16, 16, 256, 992, True, 8, (9, cfg.layers, cfg.dim, 32))
+    if got != want:
+        raise Failed(f"make_engine built {got}, expected {want}")
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab, size=256).tolist()
+    tails = np.linspace(32, 480, len(TENANT_GROUPS)).round().astype(int)
+    prompts = [prefix + rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in tails]
+    firsts = [TENANT_GROUPS.index(g) for g in dict.fromkeys(TENANT_GROUPS)]
+    rest = [i for i in range(len(prompts)) if i not in firsts]
+    cold = sum(engine.pages_needed(len(p), max_new) for p in prompts)
+    print(f"tenant phase: {len(prompts)} requests of {len(prompts[0])}..{len(prompts[-1])} "
+          f"tokens, one 256-token prefix, groups t0..t3 x 3 and base x 4; {cold} pages cold of "
+          f"{engine.allocator.num_pages - 1} usable int8 pages (the fp pool holds 511)",
+          flush=True)
+
+    window_s = []
+    inner = engine.window_step
+
+    def timed_window(*a):
+        t = time.perf_counter()
+        res = inner(*a)
+        torch.cuda.synchronize()
+        window_s.append(time.perf_counter() - t)
+        return res
+
+    engine.window_step = timed_window
+    plain_calls = _PlainCalls(DB, LO)
+    _reset_launches(DB, LO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = {i: [] for i in firsts}
+    ttft = {}
+    try:
+        for i in firsts:
+            engine.submit(f"first{i}", prompts[i], max_new, adapter=TENANT_GROUPS[i])
+        while not all(served.values()):
+            for rid, token, _done in engine.step():
+                i = int(rid[len("first"):])
+                if not served[i]:
+                    ttft[i] = time.perf_counter() - t0
+                served[i].append(token)
+        t1 = time.perf_counter()
+        out, ttft_rest = serve_prompts(engine, [prompts[i] for i in rest], max_new,
+                                       others={f"first{i}": served[i] for i in firsts},
+                                       adapters=[TENANT_GROUPS[i] for i in rest])
+        torch.cuda.synchronize()
+    finally:
+        wall = time.perf_counter() - t0
+        launches = _launches(DB, LO)
+        plain_calls.restore()
+    for j, i in enumerate(rest):
+        served[i] = out[j]
+        ttft[i] = t1 - t0 + ttft_rest[j]
+    pc, pool = engine.prefix_cache, engine.lora
+    print(f"tenant phase launches: {json.dumps(launches)}; plain calls {plain_calls.n}; "
+          f"prefix cache {json.dumps(pc.stats())}; adapters {json.dumps(pool.stats())}",
+          flush=True)
+    _check_streams(served, max_new, cfg.vocab)
+    if plain_calls.n:
+        raise Failed(f"{plain_calls.n} plain-version call(s) ran on the tenant path")
+    need = ("lora_gather_matmul", "attention_paged_batch_step_int8kv",
+            "attention_paged_chunk_step_int8kv")
+    if not all(launches[n] > 0 for n in need):
+        raise Failed(f"a kernel of the tenant path never launched: {launches}")
+    banned = ("attention_paged_batch_step", "attention_paged_chunk_step",
+              "attention_paged_spec_step", "attention_paged_spec_step_int8kv")
+    if any(launches[n] for n in banned):
+        raise Failed(f"an fp-KV or spec kernel launched on the int8, spec-off path: {launches}")
+    if (pc.hits, pc.misses, pc.hit_tokens) != (11, 5, 11 * 256):
+        raise Failed(f"expected 11 same-tenant hits of 256 tokens and 5 misses, got {pc.stats()}")
+    engine.check_invariants()
+    pool.check_invariants()
+    n_tok = sum(len(t) for t in served.values())
+    ttfts = sorted(ttft.values())
+    print(f"tenant phase: {n_tok} tokens in {wall:.3f} s; decode "
+          f"{(n_tok - len(prompts)) / sum(window_s):.1f} tokens/s over {len(window_s)} windows "
+          f"(K=8, window mean {1e3 * sum(window_s) / len(window_s):.2f} ms, max "
+          f"{1e3 * max(window_s):.2f} ms); TTFT p50 {ttfts[len(ttfts) // 2]:.3f} s max "
+          f"{ttfts[-1]:.3f} s; {engine.chunks_run} prefill chunks; {pc.hits} hits, "
+          f"{pc.hit_tokens} hit tokens; pages in use at peak {engine.allocator.peak_in_use} of "
+          f"{engine.allocator.num_pages - 1} int8 (the fp pool holds 511); adapter loads "
+          f"{pool.loads}, resident {pool.resident}, evictions {pool.evictions}; end-to-end "
+          f"{n_tok / wall:.1f} tokens/s", flush=True)
+    return build, prompts, served, launches
+
+
+def check_tenant_agreement(paths, build, nocat, serve_prompts, prompts, max_new, served):
+    """Phase 8, agreement: (a) the first request of t0 and of t3, each alone on
+    a fresh engine of the phase's configuration, gives the tokens of the mixed
+    batch; (b) the base group's first request gives the tokens of an int8
+    engine with no catalog, where the two tenants' prompts run as base
+    requests too, for the share of tokens the adapters change; (c) t0's and
+    the base's first requests through the plain versions on the card part
+    from the served streams, if at all, only at a near-tie."""
+    first = {g: TENANT_GROUPS.index(g) for g in ("t0", "t3", None)}
+    for g in ("t0", "t3"):
+        i = first[g]
+        alone, _ = serve_prompts(build(), [prompts[i]], max_new, adapters=[g])
+        same = _first_parting(served[i], alone[0], max_new)
+        print(f"tenant agreement (a): request {i} ({g}) alone: first {same} of {max_new} "
+              f"tokens equal to the mixed batch"
+              + (" (identical)" if same == max_new else ""), flush=True)
+        if same < max_new:
+            paths.near_tie(f"tenant agreement (a): request {i}", prompts[i] + served[i][:same],
+                           served[i][same], alone[0][same], engine=build, adapter=g)
+    i = first[None]
+    base, _ = serve_prompts(nocat(), [prompts[i], prompts[first["t0"]], prompts[first["t3"]]],
+                            max_new)
+    same = _first_parting(served[i], base[0], max_new)
+    print(f"tenant agreement (b): base request {i} on an int8 engine with no catalog: first "
+          f"{same} of {max_new} tokens equal" + (" (identical)" if same == max_new else ""),
+          flush=True)
+    if same < max_new:
+        paths.near_tie(f"tenant agreement (b): request {i}", prompts[i] + served[i][:same],
+                       served[i][same], base[0][same], engine=build)
+    differ = sum(a != b for j, g in ((1, "t0"), (2, "t3"))
+                 for a, b in zip(served[first[g]], base[j]))
+    print(f"tenant agreement: the adapters change {differ} of {2 * max_new} tokens "
+          f"({differ / (2 * max_new):.1%}) of t0's and t3's first requests against the base "
+          f"model on the same prompts", flush=True)
+    if not differ:
+        raise Failed("the adapters never changed a token")
+    picks = (first["t0"], first[None])
+    try:
+        paths.use(plain=True)
+        plain, _ = serve_prompts(build(), [prompts[i] for i in picks], max_new,
+                                 adapters=[TENANT_GROUPS[i] for i in picks])
+    finally:
+        paths.use(plain=False)
+    for j, i in enumerate(picks):
+        same = _first_parting(served[i], plain[j], max_new)
+        print(f"tenant agreement (c): request {i} ({TENANT_GROUPS[i] or 'base'}) through the "
+              f"int8 plain versions: first {same} of {max_new} tokens equal", flush=True)
+        if same < max_new:
+            prefix = prompts[i] + served[i][:same]
+            lf, lp = paths.near_tie(f"tenant agreement (c): request {i}", prefix,
+                                    served[i][same], plain[j][same], SPEC_REF_TIE,
+                                    engine=build, adapter=TENANT_GROUPS[i])
+            lk = paths.logits_after(prefix, "kernel", build, TENANT_GROUPS[i])
+            rms_k = float((lk - lf).pow(2).mean().sqrt())
+            rms_p = float((lp - lf).pow(2).mean().sqrt())
+            print(f"tenant agreement (c): request {i}: logits there vs the f32 plain path: "
+                  f"kernel path rms {rms_k:.4e}, bf16 plain path rms {rms_p:.4e}", flush=True)
+            if not rms_k <= RMS_MARGIN * rms_p:
+                raise Failed(f"request {i}: the kernel path is further from the f32 "
+                             f"reference than bf16 rounding explains")
+
+
+def serve_tenant_spec(torch, DB, LO, build, serve_prompts, prompts, max_new: int,
+                      vocab: int):
+    """Phase 8, spec on: four requests of t1, t2 and the base model on the
+    same configuration with DORA_SPEC_K=4: the int8 spec form and the LoRA
+    kernel at 80 rows run through the served path."""
+    engine = build(DORA_SPEC_K=str(SPEC_K))
+    picks = [TENANT_GROUPS.index("t1"), TENANT_GROUPS.index("t2"), TENANT_GROUPS.index(None),
+             TENANT_GROUPS.index("t1") + 1]
+    rows = set()
+    kernel = LO._lora_gather_matmul_kernel  # the wrapper counts its launches
+
+    def watched(x, *a, **k):
+        rows.add(x.shape[0])
+        return kernel(x, *a, **k)
+
+    plain_calls = _PlainCalls(DB, LO)
+    _reset_launches(DB, LO)
+    LO._lora_gather_matmul_kernel = watched
+    try:
+        out, _ = serve_prompts(engine, [prompts[i] for i in picks], max_new,
+                               adapters=[TENANT_GROUPS[i] for i in picks])
+        torch.cuda.synchronize()
+    finally:
+        LO._lora_gather_matmul_kernel = kernel
+        launches = _launches(DB, LO)
+        plain_calls.restore()
+    print(f"tenant spec run: launches {json.dumps(launches)}; LoRA rows per call "
+          f"{sorted(rows)}; plain calls {plain_calls.n}", flush=True)
+    _check_streams(out, max_new, vocab)
+    if plain_calls.n:
+        raise Failed(f"{plain_calls.n} plain-version call(s) ran on the tenant spec path")
+    if not (launches["attention_paged_spec_step_int8kv"] > 0 and launches["lora_gather_matmul"] > 0
+            and 16 * (SPEC_K + 1) in rows):
+        raise Failed("the int8 spec form or the LoRA kernel at 80 rows never ran")
+    if launches["attention_paged_batch_step_int8kv"] or launches["attention_paged_spec_step"]:
+        raise Failed(f"a decode kernel other than the int8 spec form ran: {launches}")
+    engine.check_invariants()
+    engine.lora.check_invariants()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch/CUDA port")
     ap.add_argument("--layers", type=int, default=28, help="model depth (width stays)")
@@ -754,6 +1217,7 @@ def main(argv=None) -> int:
         from dora_tpu_torch.nodehub.llm_server import make_engine, serve_prompts
         from dora_tpu_torch.ops import _build
         from dora_tpu_torch.ops import decode_block as DB
+        from dora_tpu_torch.ops import lora as LO
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 1
@@ -782,26 +1246,46 @@ def main(argv=None) -> int:
         print(f"weights: Qwen2-1.5B width, {cfg.layers} layers, seeded random "
               f"(std 0.02) int8 in {time.perf_counter() - t:.2f} s", flush=True)
 
-        kernels = check_kernels(torch, DB, params, cfg, args.seed + 1)
+        kernels = check_kernels(torch, DB, qwen2, params, cfg, args.seed + 1)
+        kernels.insert(2, check_lora_kernel(torch, LO, cfg, args.seed + 3))
+        by_name = {k["name"]: k for k in kernels}
 
         rng = np.random.default_rng(args.seed)
         lengths = np.linspace(64, 1000, args.requests).round().astype(int)
         prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in lengths]
-        served, launches = serve_slice(torch, DB, qwen2, serve_prompts, params, cfg,
+        served, launches = serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg,
                                        prompts, args.max_new)
-        for k in kernels:
-            k["launches"] = launches[k["name"]]
+        for n in SPEC_OFF_KERNELS:
+            by_name[n]["launches"] = launches[n]
 
-        paths = _Paths(torch, DB, qwen2, L, serve_prompts, params, cfg)
+        paths = _Paths(torch, DB, LO, qwen2, L, serve_prompts, params, cfg)
         check_plain_agreement(paths, prompts, args.max_new, served, picks=(0, 1))
 
         spec_prompts, spec_served, spec_launches = serve_spec_cache(
-            torch, DB, vlm, make_engine, serve_prompts, params, cfg, args.seed + 2,
+            torch, DB, LO, vlm, make_engine, serve_prompts, params, cfg, args.seed + 2,
             args.max_new)
-        for k in kernels:
-            if k["name"] == "attention_paged_spec_step":
-                k["launches"] = spec_launches[k["name"]]
+        by_name["attention_paged_spec_step"]["launches"] = spec_launches[
+            "attention_paged_spec_step"]
         check_spec_agreement(paths, spec_prompts, args.max_new, spec_served, picks=(1, 15))
+
+        scratch = os.path.join(here, "_scratch")
+        os.makedirs(scratch, exist_ok=True)
+        with tempfile.TemporaryDirectory(prefix="adapters-", dir=scratch) as lora_dir:
+            write_adapters(cfg, lora_dir, args.seed + 4)
+            build, t_prompts, t_served, t_launches = serve_multi_tenant(
+                torch, DB, LO, make_engine, serve_prompts, params, cfg, lora_dir,
+                args.seed + 5, args.max_new)
+            for n in ("lora_gather_matmul", "attention_paged_batch_step_int8kv",
+                      "attention_paged_chunk_step_int8kv"):
+                by_name[n]["launches"] = t_launches[n]
+            check_tenant_agreement(
+                paths, build,
+                lambda: front_door(make_engine, params, cfg, DORA_KV_INT8="1"),
+                serve_prompts, t_prompts, args.max_new, t_served)
+            ts_launches = serve_tenant_spec(torch, DB, LO, build, serve_prompts, t_prompts,
+                                            TENANT_SPEC_MAX_NEW, cfg.vocab)
+            by_name["attention_paged_spec_step_int8kv"]["launches"] = ts_launches[
+                "attention_paged_spec_step_int8kv"]
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -55,6 +55,20 @@ static __device__ float block_sum(float v, float* red) {
     return r;
 }
 
+// Maximum of v over a block of NT threads through shared scratch red[NT].
+template <int NT>
+static __device__ float block_max(float v, float* red) {
+    red[threadIdx.x] = v;
+    __syncthreads();
+    for (int s = NT / 2; s > 0; s >>= 1) {
+        if ((int)threadIdx.x < s) red[threadIdx.x] = fmaxf(red[threadIdx.x], red[threadIdx.x + s]);
+        __syncthreads();
+    }
+    float r = red[0];
+    __syncthreads();
+    return r;
+}
+
 // h[m] = bf16(x[m] * rsqrt(mean(x[m]^2) + eps) * w), statistics in f32
 // (dora_tpu/ops/decode_block.py:_rms followed by .astype(dtype)).
 // One block of 256 threads per row.

@@ -3,17 +3,22 @@
 // stream), _attn_paged_chunk_kernel / attention_paged_chunk_step (prefill:
 // M rows of one stream) and _attn_paged_spec_kernel /
 // attention_paged_spec_step (speculative verify: m candidate rows for each
-// of B streams) of dora_tpu/ops/decode_block.py, fp-KV form.
+// of B streams) of dora_tpu/ops/decode_block.py, in their fp-KV and int8-KV
+// forms (one template flag, Q8, on the same kernels).
 //
 // Per row: RMSNorm -> int8 qkv + bias -> NeoX RoPE (full-width rows
 // cos_full = [cos, cos], sin_signed = [-sin, sin]) -> K/V written into the
 // pool page the block table names -> online-softmax GQA attention over the
-// paged context -> int8 wo -> + residual. Pools are [P, KV, page, hd] bf16;
-// page 0 is the null page.
+// paged context -> int8 wo -> + residual. Pools are [P, KV, page, hd] bf16,
+// or int8 with f32 scale planes [P, KV, page] beside them (int8 KV); page 0
+// is the null page.
 //
 // Bound: at decode width (16 rows) and at spec width (16 streams x 5 rows)
 // the wqkv + wo int8 stream (5.5 MB) plus each stream's K/V pages (16 KB per
-// page per layer); at prefill (256 rows) the qkv/wo products (2.8 GFLOP).
+// page per layer in bf16, 8 KB + 256 B of scales in int8); at prefill (256
+// rows) the qkv/wo products (2.8 GFLOP). int8 KV halves the context bytes,
+// which matter only at long contexts; the kernels do not exploit it yet
+// (each page is dequantized into the same f32 shared tiles as bf16 pages).
 //
 // Design: the TPU kernels run as one sequential grid step carrying their
 // scratch; here the sublayer is five launches in stream order: RMSNorm; the
@@ -39,6 +44,16 @@
 //   the running max starting at -1e30;
 // * probabilities are rounded to bf16 before the P.V product, the softmax
 //   sums stay f32.
+//
+// int8 KV (decode_block.kv_quant_rows / kv_dequant): each written row is
+// quantized per (row, kv head) in registers before the pool write, scale =
+// max(amax / 127, 1e-8) and q = clamp(rint(x / scale), -127, 127) with the
+// IEEE divide, and the scale lands in the parallel plane under the same page
+// id; the sweeps dequantize each page as bf16(q * scale). What the reference
+// folds from registers never goes through int8: decode folds its current row
+// from f32, prefill and spec verify fold their own chunk rows from the
+// bf16-rounded f32 scratch (prefill reads its own pages from the pool in the
+// fp form only, where they hold exactly those bf16 values).
 #include "common.cuh"
 
 constexpr int HD = 128;       // head_dim the kernels take
@@ -64,18 +79,42 @@ constexpr int ST = 256;       // spec verify sweep threads
 // page and each row routes through its own table entry.
 //
 // Frozen decode and spec streams all sit at position 0 with a zeroed table
-// row, so they all write rows 0 .. per_stream - 1 of null page 0 at once.
-// That race is harmless: no live row ever reads page 0.
+// row, so they all write rows 0 .. per_stream - 1 of null page 0 at once (in
+// int8 KV their scales too). That race is harmless: no live row ever reads
+// page 0.
+static __device__ __forceinline__ float kv_row_scale(float v, float* red) {
+    return fmaxf(block_max<HD>(fabsf(v), red) / 127.f, 1e-8f);
+}
+
+static __device__ __forceinline__ int8_t kv_quant(float v, float scale) {
+    return (int8_t)fminf(fmaxf(rintf(v / scale), -127.f), 127.f);
+}
+
+// One pool value of row `row` = (page * KV + kv head) * PAGE + in-page row,
+// in the compute dtype's values (bf16, widened to f32).
+template <bool Q8>
+static __device__ __forceinline__ float kv_load(const void* __restrict__ pool,
+                                                const float* __restrict__ scale,
+                                                size_t row, int e) {
+    if constexpr (Q8)
+        return bf16_round((float)((const int8_t*)pool)[row * HD + e] * scale[row]);
+    else
+        return __bfloat162float(((const bf16*)pool)[row * HD + e]);
+}
+
+template <bool Q8>
 static __global__ void __launch_bounds__(HD)
 qkv_rope_write(const float* __restrict__ P, int splits, int M,
                const float* __restrict__ s, const float* __restrict__ b,
                const float* __restrict__ cosr, const float* __restrict__ sinr,
                const int* __restrict__ positions, int pos0, int per_stream,
                const int* __restrict__ bt, int bt_stride,
-               bf16* __restrict__ k_pool, bf16* __restrict__ v_pool,
+               void* __restrict__ k_pool, void* __restrict__ v_pool,
+               float* __restrict__ k_scale, float* __restrict__ v_scale,
                float* __restrict__ q_out, float* __restrict__ k_out,
                float* __restrict__ v_out, int H, int KV) {
     __shared__ float buf[MAXHEADS][HD];
+    __shared__ float red[HD];
     const int i = blockIdx.x, d = threadIdx.x;
     const int nh = H + 2 * KV;
     const size_t N = (size_t)nh * HD;
@@ -100,18 +139,30 @@ qkv_rope_write(const float* __restrict__ P, int splits, int M,
             k_out[((size_t)i * KV + g) * HD + d] = kr;
             v_out[((size_t)i * KV + g) * HD + d] = vv;
         }
-        size_t off = (((size_t)pg * KV + g) * PAGE + pos % PAGE) * HD + d;
-        k_pool[off] = __float2bfloat16(kr);
-        v_pool[off] = __float2bfloat16(vv);
+        const size_t row = ((size_t)pg * KV + g) * PAGE + pos % PAGE;
+        if constexpr (Q8) {
+            const float sk = kv_row_scale(kr, red), sv = kv_row_scale(vv, red);
+            ((int8_t*)k_pool)[row * HD + d] = kv_quant(kr, sk);
+            ((int8_t*)v_pool)[row * HD + d] = kv_quant(vv, sv);
+            if (d == 0) {
+                k_scale[row] = sk;
+                v_scale[row] = sv;
+            }
+        } else {
+            ((bf16*)k_pool)[row * HD + d] = __float2bfloat16(kr);
+            ((bf16*)v_pool)[row * HD + d] = __float2bfloat16(vv);
+        }
     }
 }
 
 // Decode: one block per (stream b, kv head g), thread d owns dimension d of
 // the group's G query heads.
+template <bool Q8>
 static __global__ void __launch_bounds__(HD)
 paged_decode_attn(const float* __restrict__ q_in, const float* __restrict__ k_in,
-                  const float* __restrict__ v_in, const bf16* __restrict__ k_pool,
-                  const bf16* __restrict__ v_pool, const int* __restrict__ positions,
+                  const float* __restrict__ v_in, const void* __restrict__ k_pool,
+                  const void* __restrict__ v_pool, const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale, const int* __restrict__ positions,
                   const int* __restrict__ bt, int max_pages, bf16* __restrict__ attn,
                   int H, int KV, float scale) {
     __shared__ float qs[MAXG][HD];
@@ -141,11 +192,10 @@ paged_decode_attn(const float* __restrict__ q_in, const float* __restrict__ k_in
     const int nblocks = (pos + PAGE - 1) / PAGE;  // prior context, partial page included
     for (int blk = 0; blk < nblocks; ++blk) {
         const int pg = bt[(size_t)b * max_pages + blk];
-        const bf16* kp = k_pool + ((size_t)pg * KV + g) * PAGE * HD;
-        const bf16* vp = v_pool + ((size_t)pg * KV + g) * PAGE * HD;
+        const size_t row0 = ((size_t)pg * KV + g) * PAGE;
         for (int j = 0; j < PAGE; ++j) {
-            ks[j][d] = __bfloat162float(kp[j * HD + d]);
-            vs[j][d] = __bfloat162float(vp[j * HD + d]);
+            ks[j][d] = kv_load<Q8>(k_pool, k_scale, row0 + j, d);
+            vs[j][d] = kv_load<Q8>(v_pool, v_scale, row0 + j, d);
         }
         __syncthreads();
         for (int t = d; t < G * PAGE; t += HD) {
@@ -201,10 +251,15 @@ paged_decode_attn(const float* __restrict__ q_in, const float* __restrict__ k_in
 
 // Prefill: one block per (BQ query rows, kv head g) walks the slot's pages
 // up to its last row's position, its own chunk pages included (causal mask
-// key <= pos0 + i).
+// key <= pos0 + i). The prior pages come from the pool; the chunk's own pages
+// too in the fp form, from the f32 scratch rows k_in/v_in rounded to bf16 in
+// the int8 form (the pool holds them quantized).
+template <bool Q8>
 static __global__ void __launch_bounds__(CT)
-paged_chunk_attn(const float* __restrict__ q_in, const bf16* __restrict__ k_pool,
-                 const bf16* __restrict__ v_pool, int pos0,
+paged_chunk_attn(const float* __restrict__ q_in, const float* __restrict__ k_in,
+                 const float* __restrict__ v_in, const void* __restrict__ k_pool,
+                 const void* __restrict__ v_pool, const float* __restrict__ k_scale,
+                 const float* __restrict__ v_scale, int pos0,
                  const int* __restrict__ bt, bf16* __restrict__ attn,
                  int M, int H, int KV, float scale) {
     __shared__ bf16 qs[NQMAX][HD];
@@ -235,12 +290,18 @@ paged_chunk_attn(const float* __restrict__ q_in, const bf16* __restrict__ k_pool
     const int npages = (pos0 + i_last) / PAGE + 1;
     for (int blk = 0; blk < npages; ++blk) {
         const int pg = bt[blk];
-        const bf16* kp = k_pool + ((size_t)pg * KV + g) * PAGE * HD;
-        const bf16* vp = v_pool + ((size_t)pg * KV + g) * PAGE * HD;
+        const size_t row0 = ((size_t)pg * KV + g) * PAGE;
+        const bool own = Q8 && blk * PAGE >= pos0;  // a page of this chunk
         for (int idx = tid; idx < PAGE * HD; idx += CT) {
             int j = idx / HD, e = idx % HD;
-            ks[j][e] = __bfloat162float(kp[idx]);
-            vs[j][e] = __bfloat162float(vp[idx]);
+            if (own) {
+                size_t off = ((size_t)(blk * PAGE + j - pos0) * KV + g) * HD + e;
+                ks[j][e] = bf16_round(k_in[off]);
+                vs[j][e] = bf16_round(v_in[off]);
+            } else {
+                ks[j][e] = kv_load<Q8>(k_pool, k_scale, row0 + j, e);
+                vs[j][e] = kv_load<Q8>(v_pool, v_scale, row0 + j, e);
+            }
         }
         __syncthreads();
         for (int t = tid; t < NQ * PAGE; t += CT) {
@@ -300,10 +361,12 @@ paged_chunk_attn(const float* __restrict__ q_in, const bf16* __restrict__ k_pool
 // sees rows j <= i) and from the bf16-rounded K/V of the scratch rows, never
 // from the pool: frozen streams race on null page 0, and the reference folds
 // bf16 values (its k_s.astype(dtype)). Another stream's rows are never seen.
+template <bool Q8>
 static __global__ void __launch_bounds__(ST)
 paged_spec_attn(const float* __restrict__ q_in, const float* __restrict__ k_in,
-                const float* __restrict__ v_in, const bf16* __restrict__ k_pool,
-                const bf16* __restrict__ v_pool, const int* __restrict__ positions,
+                const float* __restrict__ v_in, const void* __restrict__ k_pool,
+                const void* __restrict__ v_pool, const float* __restrict__ k_scale,
+                const float* __restrict__ v_scale, const int* __restrict__ positions,
                 const int* __restrict__ bt, int max_pages, bf16* __restrict__ attn,
                 int m, int H, int KV, float scale) {
     __shared__ bf16 qs[SQ][HD];
@@ -335,12 +398,11 @@ paged_spec_attn(const float* __restrict__ q_in, const float* __restrict__ k_in,
         const bool fold = blk == npages;
         if (!fold) {
             const int pg = bt[(size_t)b * max_pages + blk];
-            const bf16* kp = k_pool + ((size_t)pg * KV + g) * PAGE * HD;
-            const bf16* vp = v_pool + ((size_t)pg * KV + g) * PAGE * HD;
+            const size_t row0 = ((size_t)pg * KV + g) * PAGE;
             for (int idx = tid; idx < PAGE * HD; idx += ST) {
                 int j = idx / HD, e = idx % HD;
-                ks[j][e] = __bfloat162float(kp[idx]);
-                vs[j][e] = __bfloat162float(vp[idx]);
+                ks[j][e] = kv_load<Q8>(k_pool, k_scale, row0 + j, e);
+                vs[j][e] = kv_load<Q8>(v_pool, v_scale, row0 + j, e);
             }
         } else {
             for (int idx = tid; idx < PAGE * HD; idx += ST) {
@@ -414,70 +476,144 @@ static void out_projection(const void* x, const void* wo, const void* swo,
                     residual ? nullptr : (float*)out, stream, err);
 }
 
-// x [B, D] bf16; norm_w [D] f32; wqkv int8 [D, (H+2KV)*HD]; sqkv f32;
-// bqkv f32 or null; cos/sin [B, HD] f32; pools bf16 [P, KV, PAGE, HD]
-// (updated in place); wo int8 [H*HD, D]; swo [D] f32; positions [B] int32;
-// block_tables [B, max_pages] int32. out [B, D] bf16 (residual) or f32.
-// Scratch: h bf16 [B, D]; p f32 (max of the two products' splits*M*N);
-// q f32 [B, H, HD]; kcur, vcur f32 [B, KV, HD]; attn bf16 [B, H*HD].
-extern "C" int dora_attention_paged_batch_step(
-    const void* x, const void* norm_w, const void* wqkv, const void* sqkv,
-    const void* bqkv, const void* cosr, const void* sinr, void* k_pool,
-    void* v_pool, const void* wo, const void* swo, const void* positions,
-    const void* block_tables, void* out, int residual, int B, int D, int H,
-    int KV, int max_pages, float eps, float scale, void* h, void* p, void* q,
-    void* kcur, void* vcur, void* attn, void* stream) {
-    int err = 0;
+
+// The front of every entry point: RMSNorm, the qkv product, and the per-row
+// kernel that rotates q and k and writes the rows' K/V (quantized in the
+// int8 form) into their pages. Rows come in streams of `per_stream` rows at
+// (positions ? positions[sb] : pos0) + i % per_stream (see qkv_rope_write).
+template <bool Q8>
+static void project_and_write(const void* x, const void* norm_w, const void* wqkv,
+                              const void* sqkv, const void* bqkv, const void* cosr,
+                              const void* sinr, void* k_pool, void* v_pool,
+                              void* k_scale, void* v_scale, const void* positions,
+                              int pos0, int per_stream, const void* bt, int bt_stride,
+                              int M, int D, int H, int KV, float eps, void* h,
+                              void* p, void* q, void* kcur, void* vcur, void* stream,
+                              int& err) {
     const int N = (H + 2 * KV) * HD;
-    DORA_LAUNCH(rmsnorm_rows, dim3(B), dim3(256), stream,
+    DORA_LAUNCH(rmsnorm_rows, dim3(M), dim3(256), stream,
                 (const bf16*)x, (const float*)norm_w, (bf16*)h, D, eps);
     DORA_CHECK(err);
-    launch_gemm((const bf16*)h, (const int8_t*)wqkv, (float*)p, B, N, D, stream, err);
-    DORA_LAUNCH(qkv_rope_write, dim3(B), dim3(HD), stream,
-                (const float*)p, gemm_splits(B, N, D), B, (const float*)sqkv,
+    launch_gemm((const bf16*)h, (const int8_t*)wqkv, (float*)p, M, N, D, stream, err);
+    auto kern = qkv_rope_write<Q8>;
+    DORA_LAUNCH(kern, dim3(M), dim3(HD), stream,
+                (const float*)p, gemm_splits(M, N, D), M, (const float*)sqkv,
                 (const float*)bqkv, (const float*)cosr, (const float*)sinr,
-                (const int*)positions, 0, 1, (const int*)block_tables, max_pages,
-                (bf16*)k_pool, (bf16*)v_pool, (float*)q, (float*)kcur,
-                (float*)vcur, H, KV);
+                (const int*)positions, pos0, per_stream, (const int*)bt, bt_stride,
+                k_pool, v_pool, (float*)k_scale, (float*)v_scale, (float*)q,
+                (float*)kcur, (float*)vcur, H, KV);
     DORA_CHECK(err);
-    DORA_LAUNCH(paged_decode_attn, dim3(B, KV), dim3(HD), stream,
+}
+
+template <bool Q8>
+static int batch_step(const void* x, const void* norm_w, const void* wqkv,
+                      const void* sqkv, const void* bqkv, const void* cosr,
+                      const void* sinr, void* k_pool, void* v_pool, void* k_scale,
+                      void* v_scale, const void* wo, const void* swo,
+                      const void* positions, const void* block_tables, void* out,
+                      int residual, int B, int D, int H, int KV, int max_pages,
+                      float eps, float scale, void* h, void* p, void* q, void* kcur,
+                      void* vcur, void* attn, void* stream) {
+    int err = 0;
+    project_and_write<Q8>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool,
+                          k_scale, v_scale, positions, 0, 1, block_tables, max_pages,
+                          B, D, H, KV, eps, h, p, q, kcur, vcur, stream, err);
+    auto kern = paged_decode_attn<Q8>;
+    DORA_LAUNCH(kern, dim3(B, KV), dim3(HD), stream,
                 (const float*)q, (const float*)kcur, (const float*)vcur,
-                (const bf16*)k_pool, (const bf16*)v_pool, (const int*)positions,
+                (const void*)k_pool, (const void*)v_pool, (const float*)k_scale,
+                (const float*)v_scale, (const int*)positions,
                 (const int*)block_tables, max_pages, (bf16*)attn, H, KV, scale);
     DORA_CHECK(err);
     out_projection(x, wo, swo, out, residual, B, D, H, p, attn, stream, err);
     return err;
 }
 
-// As above for M rows of one stream at positions position..position+M-1;
-// block_table [max_pages] int32 is that stream's row. Scratch as above
-// without kcur/vcur.
-extern "C" int dora_attention_paged_chunk_step(
-    const void* x, const void* norm_w, const void* wqkv, const void* sqkv,
-    const void* bqkv, const void* cosr, const void* sinr, void* k_pool,
-    void* v_pool, const void* wo, const void* swo, int position,
-    const void* block_table, void* out, int residual, int M, int D, int H,
-    int KV, float eps, float scale, void* h, void* p, void* q, void* attn,
-    void* stream) {
+template <bool Q8>
+static int chunk_step(const void* x, const void* norm_w, const void* wqkv,
+                      const void* sqkv, const void* bqkv, const void* cosr,
+                      const void* sinr, void* k_pool, void* v_pool, void* k_scale,
+                      void* v_scale, const void* wo, const void* swo, int position,
+                      const void* block_table, void* out, int residual, int M, int D,
+                      int H, int KV, float eps, float scale, void* h, void* p,
+                      void* q, void* kcur, void* vcur, void* attn, void* stream) {
     int err = 0;
-    const int N = (H + 2 * KV) * HD;
-    DORA_LAUNCH(rmsnorm_rows, dim3(M), dim3(256), stream,
-                (const bf16*)x, (const float*)norm_w, (bf16*)h, D, eps);
-    DORA_CHECK(err);
-    launch_gemm((const bf16*)h, (const int8_t*)wqkv, (float*)p, M, N, D, stream, err);
-    DORA_LAUNCH(qkv_rope_write, dim3(M), dim3(HD), stream,
-                (const float*)p, gemm_splits(M, N, D), M, (const float*)sqkv,
-                (const float*)bqkv, (const float*)cosr, (const float*)sinr,
-                (const int*)nullptr, position, M, (const int*)block_table, 0,
-                (bf16*)k_pool, (bf16*)v_pool, (float*)q, (float*)nullptr,
-                (float*)nullptr, H, KV);
-    DORA_CHECK(err);
-    DORA_LAUNCH(paged_chunk_attn, dim3((M + BQ - 1) / BQ, KV), dim3(CT), stream,
-                (const float*)q, (const bf16*)k_pool, (const bf16*)v_pool,
-                position, (const int*)block_table, (bf16*)attn, M, H, KV, scale);
+    project_and_write<Q8>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool,
+                          k_scale, v_scale, nullptr, position, M, block_table, 0,
+                          M, D, H, KV, eps, h, p, q, kcur, vcur, stream, err);
+    auto kern = paged_chunk_attn<Q8>;
+    DORA_LAUNCH(kern, dim3((M + BQ - 1) / BQ, KV), dim3(CT), stream,
+                (const float*)q, (const float*)kcur, (const float*)vcur,
+                (const void*)k_pool, (const void*)v_pool, (const float*)k_scale,
+                (const float*)v_scale, position, (const int*)block_table,
+                (bf16*)attn, M, H, KV, scale);
     DORA_CHECK(err);
     out_projection(x, wo, swo, out, residual, M, D, H, p, attn, stream, err);
     return err;
+}
+
+template <bool Q8>
+static int spec_step(const void* x, const void* norm_w, const void* wqkv,
+                     const void* sqkv, const void* bqkv, const void* cosr,
+                     const void* sinr, void* k_pool, void* v_pool, void* k_scale,
+                     void* v_scale, const void* wo, const void* swo,
+                     const void* positions, const void* block_tables, void* out,
+                     int residual, int B, int m, int D, int H, int KV, int max_pages,
+                     float eps, float scale, void* h, void* p, void* q, void* kcur,
+                     void* vcur, void* attn, void* stream) {
+    int err = 0;
+    const int M = B * m;
+    project_and_write<Q8>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool,
+                          k_scale, v_scale, positions, 0, m, block_tables, max_pages,
+                          M, D, H, KV, eps, h, p, q, kcur, vcur, stream, err);
+    auto kern = paged_spec_attn<Q8>;
+    DORA_LAUNCH(kern, dim3(B, KV), dim3(ST), stream,
+                (const float*)q, (const float*)kcur, (const float*)vcur,
+                (const void*)k_pool, (const void*)v_pool, (const float*)k_scale,
+                (const float*)v_scale, (const int*)positions,
+                (const int*)block_tables, max_pages, (bf16*)attn, m, H, KV, scale);
+    DORA_CHECK(err);
+    out_projection(x, wo, swo, out, residual, M, D, H, p, attn, stream, err);
+    return err;
+}
+
+// Every entry takes the pools and, for int8 KV, their f32 scale planes
+// k_scale / v_scale [P, KV, PAGE] (null for bf16 pools, which selects the fp
+// form). Pools and planes are updated in place.
+//
+// x [B, D] bf16; norm_w [D] f32; wqkv int8 [D, (H+2KV)*HD]; sqkv f32;
+// bqkv f32 or null; cos/sin [B, HD] f32; pools bf16 or int8 [P, KV, PAGE, HD];
+// wo int8 [H*HD, D]; swo [D] f32; positions [B] int32; block_tables
+// [B, max_pages] int32. out [B, D] bf16 (residual) or f32.
+// Scratch: h bf16 [B, D]; p f32 (max of the two products' splits*M*N);
+// q f32 [B, H, HD]; kcur, vcur f32 [B, KV, HD]; attn bf16 [B, H*HD].
+extern "C" int dora_attention_paged_batch_step(
+    const void* x, const void* norm_w, const void* wqkv, const void* sqkv,
+    const void* bqkv, const void* cosr, const void* sinr, void* k_pool,
+    void* v_pool, void* k_scale, void* v_scale, const void* wo, const void* swo,
+    const void* positions, const void* block_tables, void* out, int residual,
+    int B, int D, int H, int KV, int max_pages, float eps, float scale, void* h,
+    void* p, void* q, void* kcur, void* vcur, void* attn, void* stream) {
+    auto run = k_scale ? batch_step<true> : batch_step<false>;
+    return run(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool, k_scale,
+               v_scale, wo, swo, positions, block_tables, out, residual, B, D, H,
+               KV, max_pages, eps, scale, h, p, q, kcur, vcur, attn, stream);
+}
+
+// As above for M rows of one stream at positions position..position+M-1;
+// block_table [max_pages] int32 is that stream's row. Scratch as above; kcur
+// and vcur [M, KV, HD] are needed in the int8 form only (null in fp).
+extern "C" int dora_attention_paged_chunk_step(
+    const void* x, const void* norm_w, const void* wqkv, const void* sqkv,
+    const void* bqkv, const void* cosr, const void* sinr, void* k_pool,
+    void* v_pool, void* k_scale, void* v_scale, const void* wo, const void* swo,
+    int position, const void* block_table, void* out, int residual, int M, int D,
+    int H, int KV, float eps, float scale, void* h, void* p, void* q, void* kcur,
+    void* vcur, void* attn, void* stream) {
+    auto run = k_scale ? chunk_step<true> : chunk_step<false>;
+    return run(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool, k_scale,
+               v_scale, wo, swo, position, block_table, out, residual, M, D, H, KV,
+               eps, scale, h, p, q, kcur, vcur, attn, stream);
 }
 
 // Spec verify: B streams of m candidate rows each, x [B*m, D] stream-major;
@@ -488,29 +624,12 @@ extern "C" int dora_attention_paged_chunk_step(
 extern "C" int dora_attention_paged_spec_step(
     const void* x, const void* norm_w, const void* wqkv, const void* sqkv,
     const void* bqkv, const void* cosr, const void* sinr, void* k_pool,
-    void* v_pool, const void* wo, const void* swo, const void* positions,
-    const void* block_tables, void* out, int residual, int B, int m, int D,
-    int H, int KV, int max_pages, float eps, float scale, void* h, void* p,
-    void* q, void* kcur, void* vcur, void* attn, void* stream) {
-    int err = 0;
-    const int M = B * m;
-    const int N = (H + 2 * KV) * HD;
-    DORA_LAUNCH(rmsnorm_rows, dim3(M), dim3(256), stream,
-                (const bf16*)x, (const float*)norm_w, (bf16*)h, D, eps);
-    DORA_CHECK(err);
-    launch_gemm((const bf16*)h, (const int8_t*)wqkv, (float*)p, M, N, D, stream, err);
-    DORA_LAUNCH(qkv_rope_write, dim3(M), dim3(HD), stream,
-                (const float*)p, gemm_splits(M, N, D), M, (const float*)sqkv,
-                (const float*)bqkv, (const float*)cosr, (const float*)sinr,
-                (const int*)positions, 0, m, (const int*)block_tables, max_pages,
-                (bf16*)k_pool, (bf16*)v_pool, (float*)q, (float*)kcur,
-                (float*)vcur, H, KV);
-    DORA_CHECK(err);
-    DORA_LAUNCH(paged_spec_attn, dim3(B, KV), dim3(ST), stream,
-                (const float*)q, (const float*)kcur, (const float*)vcur,
-                (const bf16*)k_pool, (const bf16*)v_pool, (const int*)positions,
-                (const int*)block_tables, max_pages, (bf16*)attn, m, H, KV, scale);
-    DORA_CHECK(err);
-    out_projection(x, wo, swo, out, residual, M, D, H, p, attn, stream, err);
-    return err;
+    void* v_pool, void* k_scale, void* v_scale, const void* wo, const void* swo,
+    const void* positions, const void* block_tables, void* out, int residual,
+    int B, int m, int D, int H, int KV, int max_pages, float eps, float scale,
+    void* h, void* p, void* q, void* kcur, void* vcur, void* attn, void* stream) {
+    auto run = k_scale ? spec_step<true> : spec_step<false>;
+    return run(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool, k_scale,
+               v_scale, wo, swo, positions, block_tables, out, residual, B, m, D, H,
+               KV, max_pages, eps, scale, h, p, q, kcur, vcur, attn, stream);
 }

@@ -8,9 +8,12 @@ block tables and the first token read from the final chunk at
 ``true_len - 1 - base``; prompt-lookup speculation inside the window with
 its admission headroom and host history mirror; the shared-prefix cache
 (models/prefix_cache.py) with its refcount custody; window retuning
-(:meth:`PagedBatchEngine.set_window`). Not ported yet: LoRA,
-checkpoint/restore, preemption with prefix pins, and the tracer/metrics
-hooks.
+(:meth:`PagedBatchEngine.set_window`); multi-tenant LoRA (a stream's
+adapter pinned resident in models/lora_pool.AdapterPool for its life, its
+slot id carried to every pass, the prefix cache keyed on (adapter,
+tokens)); int8 KV pools (their scale planes ride in the pools dict). Not
+ported yet: checkpoint/restore, preemption with prefix pins, and the
+tracer/metrics hooks.
 """
 
 from __future__ import annotations
@@ -131,6 +134,10 @@ class _PagedSlot:
     chunk_base: int = 0
     #: leading pages mapped from the prefix cache (refcount-shared)
     shared: int = 0
+    #: LoRA tenant name (None = base model) and its resident slot, pinned
+    #: for the stream's life so the device adapter vector cannot go stale
+    adapter: str | None = None
+    adapter_idx: int = 0
 
 
 class PagedBatchEngine:
@@ -157,6 +164,11 @@ class PagedBatchEngine:
       * ``window_factory(k, spec_k)`` -> a window step, for
         :meth:`set_window` (None pins the window for life)
 
+    With a ``lora_pool`` (models/lora_pool.AdapterPool) ``chunk_prefill``
+    also takes the stream's adapter slot and the resident stack, and the
+    window the per-slot adapter vector [B] and the stack, as trailing
+    operands.
+
     With ``spec_k > 0`` (models/vlm.make_paged_spec_window) the window also
     takes and returns each stream's token history [B, max_seq + spec_k + 1]
     and its length [B], and ``mat`` is the ragged [B, K*(spec_k+1) + 1]
@@ -170,7 +182,7 @@ class PagedBatchEngine:
                  chunk: int, num_pages: int, eos: int | None = None,
                  window: int = 8, spec_k: int = 0, spec_ngram: int = 2,
                  window_factory=None, prefix_cache: bool = False,
-                 prefix_cache_pages: int = 0, device=None):
+                 prefix_cache_pages: int = 0, lora_pool=None, device=None):
         if (page_size % 8 or chunk % page_size or max_seq % chunk or window < 1
                 or spec_k < 0):
             raise ValueError(
@@ -190,6 +202,9 @@ class PagedBatchEngine:
         self.window = window
         self.max_pages = max_seq // page_size
         self.pools = init_pool(num_pages)
+        first = self.pools.get("0") if isinstance(self.pools, dict) else None
+        #: "int8" when the pools carry scale planes, else "fp"
+        self.kv_dtype = "int8" if isinstance(first, dict) and "ks" in first else "fp"
         self.allocator = PageAllocator(num_pages)
         self.prefix_cache = (
             PrefixCache(self.allocator, page_size, max_pages=prefix_cache_pages)
@@ -228,6 +243,10 @@ class PagedBatchEngine:
         # the host slots only when membership changes.
         self._emitted_dev = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
         self._maxnew_dev = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
+        #: multi-tenant LoRA: the resident-adapter pool and the per-slot
+        #: adapter slot vector handed to every window (None = no adapters)
+        self.lora = lora_pool
+        self._adapter_dev = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
         self._members_dirty = True
         #: prefill chunks run
         self.chunks_run = 0
@@ -261,9 +280,13 @@ class PagedBatchEngine:
         its verify tail when it resumes."""
         return self._spec_cfg + 1 if self._spec_cfg else 0
 
-    def fits(self, prompt_len: int, max_new: int) -> bool:
+    def fits(self, prompt_len: int, max_new: int,
+             adapter: str | None = None) -> bool:
         """Admissible EVER: the length (with the spec headroom) fits the
-        block table and the whole pool could grant its pages."""
+        block table, the whole pool could grant its pages, and a named
+        adapter is one this engine can make resident."""
+        if adapter and (self.lora is None or not self.lora.has(adapter)):
+            return False
         return (
             prompt_len + max_new + self.spec_headroom() <= self.max_seq
             and self.pages_needed(prompt_len, max_new) <= self.allocator.num_pages - 1
@@ -279,35 +302,64 @@ class PagedBatchEngine:
         rows = max(chunk_rows, prompt_len + max_new + self.spec_headroom())
         return -(-rows // self.page_size)
 
-    def can_admit(self, prompt_len: int, max_new: int) -> bool:
+    def can_admit(self, prompt_len: int, max_new: int,
+                  adapter: str | None = None) -> bool:
         avail = self.free_pages
         if self.prefix_cache is not None:
             # Unpinned, unshared cached pages are free-in-waiting.
             avail += self.prefix_cache.evictable_pages()
+        if adapter and (self.lora is None or not self.lora.fits(adapter)):
+            # Adapter residency is admission state like pages: with every
+            # resident slot pinned by live streams the tenant waits.
+            return False
         return (
             self.free_slots > 0
-            and self.fits(prompt_len, max_new)
+            and self.fits(prompt_len, max_new, adapter)
             and self.pages_needed(prompt_len, max_new) <= avail
         )
 
-    def submit(self, request_id: str, prompt_ids, max_new: int) -> None:
-        """Admit a stream: map its cached prefix pages (if any), grant the
-        rest fresh (evicting cached pages when the pool is short), write its
-        block table and queue its prefill. The first token comes from a
-        later :meth:`step`."""
+    def admit_blocker(self, prompt_len: int, max_new: int,
+                      adapter: str | None = None) -> str | None:
+        """Why :meth:`can_admit` says no: ``"adapter_residency"`` where all
+        else admits but the tenant's adapter cannot evict a pinned resident,
+        ``"capacity"`` for slots, pages or length, None when admissible."""
+        if self.can_admit(prompt_len, max_new, adapter):
+            return None
+        if (adapter and self.lora is not None and self.lora.has(adapter)
+                and not self.lora.fits(adapter)
+                and self.can_admit(prompt_len, max_new, None)):
+            return "adapter_residency"
+        return "capacity"
+
+    def submit(self, request_id: str, prompt_ids, max_new: int,
+               adapter: str | None = None) -> None:
+        """Admit a stream: pin its adapter resident (``adapter`` names the
+        LoRA tenant, None the base model), map its cached prefix pages (if
+        any), grant the rest fresh (evicting cached pages when the pool is
+        short), write its block table and queue its prefill. The first token
+        comes from a later :meth:`step`."""
         ids = [int(t) for t in prompt_ids]
         if not ids:
             raise ValueError("empty prompt")
-        if not self.can_admit(len(ids), max_new):
+        if not self.can_admit(len(ids), max_new, adapter):
             raise RuntimeError(
                 f"cannot admit: {self.free_slots} slots, {self.free_pages} "
                 f"pages free vs {self.pages_needed(len(ids), max_new)} needed "
-                f"({len(ids)}+{max_new}, max_seq {self.max_seq})"
+                f"({len(ids)}+{max_new}, max_seq {self.max_seq}"
+                + (f", adapter {adapter!r}" if adapter else "") + ")"
             )
+        aidx = 0
+        if adapter:
+            aidx = self.lora.acquire(adapter)
+            if aidx is None:
+                raise RuntimeError(
+                    f"cannot admit {request_id!r}: adapter pool full of pinned "
+                    f"adapters ({adapter!r} not resident)"
+                )
         b = self.slots.index(None)
         base0, shared = 0, []
         if self.prefix_cache is not None:
-            base0, shared = self._prefix_grant(ids, max_new)
+            base0, shared = self._prefix_grant(ids, max_new, adapter)
         need = self.pages_needed(len(ids), max_new, base0) - len(shared)
         if need > self.allocator.free_pages and self.prefix_cache is not None:
             self.prefix_cache.evict(need - self.allocator.free_pages)
@@ -315,6 +367,8 @@ class PagedBatchEngine:
         if fresh is None:
             if shared:
                 self.allocator.unref(shared)
+            if adapter:
+                self.lora.release(adapter)
             raise RuntimeError(
                 f"cannot admit {request_id!r}: page pool exhausted "
                 f"({need} fresh needed, {self.free_pages} free)"
@@ -325,6 +379,7 @@ class PagedBatchEngine:
         self.slots[b] = _PagedSlot(
             request_id, emitted=0, max_new=max_new, pages=pages, prompt=ids,
             true_len=len(ids), chunk_base=base0, shared=len(shared),
+            adapter=adapter, adapter_idx=aidx,
         )
         self._decode[b] = False
         self._prefillq.append(b)
@@ -332,7 +387,8 @@ class PagedBatchEngine:
         if self._spec_cfg:
             self._hist[b] = list(ids)  # drafts look up the prompt too
 
-    def _prefix_grant(self, ids: list[int], max_new: int) -> tuple[int, list[int]]:
+    def _prefix_grant(self, ids: list[int], max_new: int,
+                      adapter: str | None = None) -> tuple[int, list[int]]:
         """The longest usable cached prefix of a new prompt, trimmed so that
         (a) the final prompt token is prefilled again (the first token comes
         off that chunk), (b) the chunk-padded prefill stays inside the block
@@ -340,10 +396,11 @@ class PagedBatchEngine:
         Refs the shared pages into this stream's custody and returns
         ``(divergence base, shared page ids)``. A trimmed boundary page is
         prefilled again privately by the divergence chunk (the
-        copy-on-write boundary), never written in place."""
+        copy-on-write boundary), never written in place. The lookup walks the
+        stream's own adapter tree: tenants never map each other's KV."""
         ps = self.page_size
         cache = self.prefix_cache
-        matched, pages, mid_page = cache.lookup(ids)
+        matched, pages, mid_page = cache.lookup(ids, adapter)
         cap = (len(ids) - 1) // ps * ps
         lo = min(matched, cap)
         while lo and lo + -(-(len(ids) - lo) // self.chunk) * self.chunk > self.max_seq:
@@ -375,6 +432,9 @@ class PagedBatchEngine:
         # unref, not free: leading pages may be shared with the prefix cache
         # and other streams; a page returns when its last holder lets go.
         self.allocator.unref(self.slots[b].pages)
+        if self.lora is not None and self.slots[b].adapter:
+            # Drop the stream's residency pin; the adapter stays warm.
+            self.lora.release(self.slots[b].adapter)
         self._bt[b, :] = 0
         self.slots[b] = None
         self._decode[b] = False
@@ -388,6 +448,11 @@ class PagedBatchEngine:
         """Pages mapped shared into live streams' block tables (the cache's
         own holdings are ``prefix_cache.size``)."""
         return sum(s.shared for s in self.slots if s is not None)
+
+    def kv_pool_bytes(self) -> int:
+        """Device bytes of the KV pools, scale planes included."""
+        return sum(t.numel() * t.element_size()
+                   for lp in self.pools.values() for t in lp.values())
 
     def check_invariants(self) -> None:
         """Allocator bookkeeping plus cross-custody: every allocated page's
@@ -451,9 +516,10 @@ class PagedBatchEngine:
             base = s.chunk_base
             piece = s.prompt[base : base + self.chunk]
             piece = piece + [0] * (self.chunk - len(piece))
+            extra = (s.adapter_idx, self.lora.state()) if self.lora is not None else ()
             greedy, self.pools = self.chunk_prefill(
                 torch.tensor(piece, dtype=torch.int32, device=dev), self.pools,
-                base, torch.from_numpy(self._bt[b].copy()).to(dev),
+                base, torch.from_numpy(self._bt[b].copy()).to(dev), *extra,
             )
             s.chunk_base = base + self.chunk
             self.chunks_run += 1
@@ -466,7 +532,8 @@ class PagedBatchEngine:
                     n_full = s.true_len // self.page_size
                     if n_full:
                         self.prefix_cache.insert(
-                            s.prompt[: n_full * self.page_size], s.pages[:n_full])
+                            s.prompt[: n_full * self.page_size], s.pages[:n_full],
+                            s.adapter)
                 s.prompt = None
                 token = int(greedy[s.true_len - 1 - base].item())
                 self.fetches += 1
@@ -496,6 +563,13 @@ class PagedBatchEngine:
                     [s.max_new if ok else 0 for s, ok in zip(self.slots, live)],
                     dtype=torch.int32, device=dev,
                 )
+                if self.lora is not None:
+                    # A stream's slot is pinned for its life: the vector
+                    # changes only with membership.
+                    self._adapter_dev = torch.tensor(
+                        [s.adapter_idx if ok else 0 for s, ok in zip(self.slots, live)],
+                        dtype=torch.int32, device=dev,
+                    )
                 if self.spec_k:
                     # The history follows membership too: between
                     # boundaries the window carries it and the host mirror
@@ -516,13 +590,14 @@ class PagedBatchEngine:
                 self._bt_dirty = False
             args = (self.tokens, self.pools, self.positions, self._bt_dec,
                     self._mask, self._emitted_dev, self._maxnew_dev)
+            extra = (self._adapter_dev, self.lora.state()) if self.lora is not None else ()
             if self.spec_k:
                 (mat, self.tokens, self.positions, self._mask, self._emitted_dev,
                  self.pools, self._hist_dev, self._histlen_dev) = self.window_step(
-                    *args, self._hist_dev, self._histlen_dev)
+                    *args, self._hist_dev, self._histlen_dev, *extra)
             else:
                 (mat, self.tokens, self.positions, self._mask, self._emitted_dev,
-                 self.pools) = self.window_step(*args)
+                 self.pools) = self.window_step(*args, *extra)
             self.dispatches += 1
             host = mat.cpu().numpy()  # ONE device->host copy per window
             self.fetches += 1

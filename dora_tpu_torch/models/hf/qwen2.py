@@ -2,13 +2,15 @@
 
 Counterpart of the serving part of dora_tpu/models/hf/qwen2.py: the config,
 checkpoint loading and int8 decode quantization, the fused paged batch,
-chunk and speculative-verify steps, the page pool and ``make_paged_engine``
-(speculation and the prefix cache included). ``params_from_jax`` turns the
-JAX package's parameter tree into this package's, so the two can be held
-against each other on the same weights.
+chunk and speculative-verify steps (with multi-tenant LoRA deltas), the page
+pool (fp or int8 KV), the adapter catalog ``make_lora_pool`` and
+``make_paged_engine`` (speculation, the prefix cache, int8 KV and LoRA
+included). ``params_from_jax`` turns the JAX package's parameter tree into
+this package's, so the two can be held against each other on the same
+weights.
 
-Not ported yet: the unfused ``forward``/``generate``, the dense batch engine,
-int8 KV pools, LoRA and int4 weights.
+Not ported yet: the unfused ``forward``/``generate``, the dense batch engine
+and int4 weights (``quantize_decode`` refuses the int4 knobs).
 """
 
 from __future__ import annotations
@@ -171,8 +173,22 @@ def quantize_decode(params, cfg: Qwen2Config) -> dict:
     """Quantize the decode path (blocks + head) into the int8 fused kernel
     layout; a tied head is quantized from the embedding transpose, and the
     embedding itself stays float for the gather. int8 only, without the
-    bf16 sidecar (see ops/int8_matmul.py)."""
+    bf16 sidecar (see ops/int8_matmul.py).
+
+    The JAX package's ``DORA_WEIGHT_BITS`` (4 or 8) and ``DORA_INT4_DECODE``
+    pick int4 on 4; int4 is not ported, so those settings raise here rather
+    than quietly serve int8, and any other ``DORA_WEIGHT_BITS`` raises as
+    there."""
     from dora_tpu_torch.ops.int8_matmul import quantize_int8, quantize_tree
+
+    bits = os.environ.get("DORA_WEIGHT_BITS", "")
+    if bits and bits not in ("4", "8"):
+        raise ValueError(f"DORA_WEIGHT_BITS must be 4 or 8, got {bits!r}")
+    if os.environ.get("DORA_INT4_DECODE") or bits == "4":
+        raise NotImplementedError(
+            "int4 decode weights (DORA_INT4_DECODE / DORA_WEIGHT_BITS=4) are "
+            "not ported to dora_tpu_torch yet; unset them to serve int8"
+        )
 
     out = dict(params)
     out["blocks"] = quantize_tree(params["blocks"])
@@ -204,11 +220,13 @@ def _rope(cfg: Qwen2Config, device):
 
 
 def fused_paged_batch_step(params, cfg, tokens, pools, positions,
-                           block_tables, rope=None):
+                           block_tables, rope=None, lora=None):
     """One fused decode step for B independent streams over paged pools.
     tokens/positions [B] int32; block_tables [B, max_pages] int32 (0 = the
-    null page); ``rope`` the (cos, sin) tables, made here when None.
-    Returns (greedy [B], pools)."""
+    null page); ``rope`` the (cos, sin) tables, made here when None;
+    ``lora`` is ``(adapters [B], a_stack [S, L, dim, r], b_stack [S, L, r,
+    dim])``, each row's adapter delta (slot 0 = base). Returns
+    (greedy [B], pools)."""
     from dora_tpu_torch.models import vlm as _vlm
     from dora_tpu_torch.ops import decode_block as DB
 
@@ -219,17 +237,19 @@ def fused_paged_batch_step(params, cfg, tokens, pools, positions,
     return _vlm.fused_paged_pass_batch(
         params, x, pools, positions, block_tables, cos_rows, sin_rows,
         heads=cfg.heads, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
-        layers=cfg.layers, eps=cfg.norm_eps,
+        layers=cfg.layers, eps=cfg.norm_eps, lora=lora,
     )
 
 
 def fused_paged_spec_step(params, cfg, chunks, pools, positions, block_tables,
-                          rope=None):
+                          rope=None, lora=None):
     """Speculative verification pass for B streams over paged pools:
     chunks [B, m] int32 holds each stream's last token and m-1 drafts at
     positions ``positions[b]..positions[b]+m-1``; greedy[b, i] continues
     stream b's prefix through candidate i. Returns (greedy [B, m], pools).
-    The spec window's inner step (models/vlm.make_paged_spec_window)."""
+    The spec window's inner step (models/vlm.make_paged_spec_window).
+    ``lora`` as in :func:`fused_paged_batch_step`, one adapter per stream:
+    every candidate row of a stream gathers that stream's adapter."""
     from dora_tpu_torch.models import vlm as _vlm
     from dora_tpu_torch.ops import decode_block as DB
 
@@ -240,56 +260,127 @@ def fused_paged_spec_step(params, cfg, chunks, pools, positions, block_tables,
                                                   device=positions.device)[None, :])
     cos_rows, sin_rows = DB.rope_rows_at(cos_t, sin_t, flat_pos.reshape(b * m))
     x = embed[chunks.reshape(b * m).long()].to(L.compute_dtype(embed.device))
+    if lora is not None:
+        groups, a_stack, b_stack = lora
+        lora = (groups.repeat_interleave(m), a_stack, b_stack)
     greedy, pools = _vlm.fused_paged_pass_spec(
         params, x, pools, positions, block_tables, cos_rows, sin_rows,
         heads=cfg.heads, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
-        layers=cfg.layers, m=m, eps=cfg.norm_eps,
+        layers=cfg.layers, m=m, eps=cfg.norm_eps, lora=lora,
     )
     return greedy.reshape(b, m), pools
 
 
 def fused_paged_chunk_step(params, cfg, chunk_ids, pools, position: int,
-                           block_table, rope=None):
+                           block_table, rope=None, lora=None):
     """One prefill chunk into paged pools: chunk_ids [C] int32 at positions
     ``position..position+C-1`` (page multiples; the tail chunk is
     right-padded and its pad rows are overwritten by decode before any row
-    attends them). Returns (greedy [C], pools)."""
+    attends them). ``lora`` is ``(adapter, a_stack, b_stack)`` with the
+    prompt's one adapter slot, broadcast to the C rows. Returns
+    (greedy [C], pools)."""
     from dora_tpu_torch.models import vlm as _vlm
     from dora_tpu_torch.ops import decode_block as DB
 
     embed = params["embed"]
     cos_t, sin_t = rope if rope is not None else _rope(cfg, embed.device)
-    cos_rows, sin_rows = DB.rope_rows(cos_t, sin_t, position, chunk_ids.shape[0])
+    c = chunk_ids.shape[0]
+    cos_rows, sin_rows = DB.rope_rows(cos_t, sin_t, position, c)
     x = embed[chunk_ids.long()].to(L.compute_dtype(embed.device))
+    if lora is not None:
+        adapter, a_stack, b_stack = lora
+        groups = torch.full((c,), int(adapter), dtype=torch.int32, device=x.device)
+        lora = (groups, a_stack, b_stack)
     return _vlm.fused_paged_pass_chunk(
         params, x, pools, position, block_table, cos_rows, sin_rows,
         heads=cfg.heads, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
-        layers=cfg.layers, eps=cfg.norm_eps,
+        layers=cfg.layers, eps=cfg.norm_eps, lora=lora,
     )
 
 
 def init_page_pool(cfg: Qwen2Config, num_pages: int, page_size: int,
-                   dtype=None, device=None):
+                   dtype=None, device=None, kv_int8: bool = False):
     """Per-layer paged KV pools {layer: {k/v: [P, KV, page, hd]}}, zeroed,
     in the compute dtype of ``device`` (default cuda). Page 0 is the null
-    page."""
+    page. ``kv_int8`` makes the value pools int8 and adds ``ks``/``vs``
+    [P, KV, page] f32 scale planes (one scale per page row per kv head) in
+    the same per-layer dict, so whatever moves a layer's pools moves values
+    and scales together."""
     dev = resolve_device(device)
-    dtype = dtype or L.compute_dtype(dev)
+    dtype = torch.int8 if kv_int8 else (dtype or L.compute_dtype(dev))
     shape = (num_pages, cfg.kv_heads, page_size, cfg.head_dim)
-    return {
+    pools = {
         str(i): {
             "k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev),
         }
         for i in range(cfg.layers)
     }
+    if kv_int8:
+        for lp in pools.values():
+            lp["ks"] = torch.zeros(shape[:3], dtype=torch.float32, device=dev)
+            lp["vs"] = torch.zeros(shape[:3], dtype=torch.float32, device=dev)
+    return pools
 
 
 def page_pool_bytes(cfg: Qwen2Config, page_size: int,
-                    dtype: torch.dtype = torch.bfloat16) -> int:
-    """Bytes of one page of one layer's K+V."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return 2 * cfg.kv_heads * page_size * cfg.head_dim * itemsize
+                    dtype: torch.dtype = torch.bfloat16,
+                    kv_int8: bool = False) -> int:
+    """Bytes of one page of one layer's K+V in ``dtype``, or with
+    ``kv_int8`` its int8 values plus their f32 scale planes: the unit the
+    int8 pool is sized in."""
+    values = 2 * cfg.kv_heads * page_size * cfg.head_dim
+    if kv_int8:
+        return values + 2 * cfg.kv_heads * page_size * 4
+    return values * torch.empty((), dtype=dtype).element_size()
+
+
+def make_lora_pool(cfg: Qwen2Config, lora_dir, *, max_resident: int = 8,
+                   rank: int | None = None, device=None):
+    """Adapter catalog + resident pool for multi-tenant LoRA serving
+    (models/lora_pool.AdapterPool) on ``device`` (default cuda).
+    ``lora_dir`` holds one ``<name>.npz`` per servable adapter with
+    per-layer keys ``a_{i}`` [dim, r] / ``b_{i}`` [r, dim]; the file stem is
+    the tenant name requests route on. The resident stack is homogeneous in
+    rank: ``rank`` defaults to the largest in the catalog and smaller
+    adapters are zero-padded into it (zero rows and columns add exactly
+    zero), so admission never changes the stack's shape. The stack per
+    slot is ``{"a": [L, dim, r], "b": [L, r, dim]}`` in the compute dtype."""
+    from dora_tpu_torch.models.lora_pool import AdapterPool
+
+    dev = resolve_device(device)
+    files = {
+        f[: -len(".npz")]: os.path.join(lora_dir, f)
+        for f in sorted(os.listdir(lora_dir))
+        if f.endswith(".npz")
+    }
+    if not files:
+        raise ValueError(f"DORA_LORA_DIR {lora_dir!r} has no .npz adapters")
+    if rank is None:
+        rank = 1
+        for path in files.values():
+            with np.load(path) as z:
+                rank = max(rank, z["a_0"].shape[-1])
+    dtype = L.compute_dtype(dev)
+    template = {
+        "a": torch.zeros((cfg.layers, cfg.dim, rank), dtype=dtype, device=dev),
+        "b": torch.zeros((cfg.layers, rank, cfg.dim), dtype=dtype, device=dev),
+    }
+
+    def loader(name):
+        with np.load(files[name]) as z:
+            a = np.stack([z[f"a_{i}"] for i in range(cfg.layers)])
+            b = np.stack([z[f"b_{i}"] for i in range(cfg.layers)])
+        r = a.shape[-1]
+        if r > rank:
+            raise ValueError(f"adapter {name!r} has rank {r} > the stack's {rank}")
+        a = np.pad(a, ((0, 0), (0, 0), (0, rank - r)))
+        b = np.pad(b, ((0, 0), (0, rank - r), (0, 0)))
+        return {"a": torch.from_numpy(a).to(dev, dtype),
+                "b": torch.from_numpy(b).to(dev, dtype)}
+
+    return AdapterPool(loader, template, max_resident=max_resident,
+                       known=set(files))
 
 
 def make_paged_engine(params, cfg: Qwen2Config, *, max_slots: int = 16,
@@ -298,7 +389,9 @@ def make_paged_engine(params, cfg: Qwen2Config, *, max_slots: int = 16,
                       window: int | None = None, spec_k: int | None = None,
                       spec_ngram: int | None = None,
                       prefix_cache: bool | None = None,
-                      prefix_cache_pages: int | None = None, device=None):
+                      prefix_cache_pages: int | None = None,
+                      kv_int8: bool | None = None, lora_dir: str | None = None,
+                      lora_max_resident: int | None = None, device=None):
     """Paged-KV continuous-batching engine over ``quantize_decode`` params,
     on ``device`` (default cuda; the params move there). The pool defaults
     to the dense engine's 4-slot footprint (4 * max_seq rows per layer,
@@ -312,7 +405,16 @@ def make_paged_engine(params, cfg: Qwen2Config, *, max_slots: int = 16,
     of ``spec_k = 0``. ``prefix_cache`` (default: env ``DORA_PREFIX_CACHE``,
     else off at this raw level; the serving front door turns it on) maps
     cached prompt pages into new streams, capped at ``prefix_cache_pages``
-    (env ``DORA_PREFIX_CACHE_PAGES``, 0 = no cap)."""
+    (env ``DORA_PREFIX_CACHE_PAGES``, 0 = no cap).
+
+    ``kv_int8`` (default: env ``DORA_KV_INT8``, else off) keeps KV pages in
+    int8 with per-row f32 scales, and the default pool then holds as many
+    int8 pages as fit the fp pool's byte budget. ``lora_dir`` (default: env
+    ``DORA_LORA_DIR``) turns on multi-tenant LoRA: a resident-adapter pool
+    (:func:`make_lora_pool`, ``lora_max_resident`` slots, env
+    ``DORA_LORA_MAX_RESIDENT``, default 8; stack rank from env
+    ``DORA_LORA_RANK``, else the catalog's largest), and every pass adds
+    each stream's adapter delta."""
     from dora_tpu_torch.models import vlm as _vlm
     from dora_tpu_torch.models.batch_engine import PagedBatchEngine
 
@@ -321,8 +423,14 @@ def make_paged_engine(params, cfg: Qwen2Config, *, max_slots: int = 16,
     dev = resolve_device(device)
     params = _to(params, dev)
     chunk = chunk or min(256, cfg.max_seq)
+    if kv_int8 is None:
+        kv_int8 = os.environ.get("DORA_KV_INT8", "0") != "0"
     if num_pages is None:
         num_pages = 4 * cfg.max_seq // page_size
+        if kv_int8:
+            # The fp default's byte budget, in int8 pages (scales included).
+            budget = num_pages * page_pool_bytes(cfg, page_size, L.compute_dtype(dev))
+            num_pages = budget // page_pool_bytes(cfg, page_size, kv_int8=True)
     if window is None:
         window = int(os.environ.get("DORA_MULTISTEP_K", "8"))
     if spec_k is None:
@@ -333,29 +441,47 @@ def make_paged_engine(params, cfg: Qwen2Config, *, max_slots: int = 16,
         prefix_cache = os.environ.get("DORA_PREFIX_CACHE", "0") != "0"
     if prefix_cache_pages is None:
         prefix_cache_pages = int(os.environ.get("DORA_PREFIX_CACHE_PAGES", "0"))
+    if lora_dir is None:
+        lora_dir = os.environ.get("DORA_LORA_DIR") or None
+    lora_pool = None
+    if lora_dir:
+        if lora_max_resident is None:
+            lora_max_resident = int(os.environ.get("DORA_LORA_MAX_RESIDENT", "8"))
+        rank_env = os.environ.get("DORA_LORA_RANK")
+        lora_pool = make_lora_pool(cfg, lora_dir, max_resident=lora_max_resident,
+                                   rank=int(rank_env) if rank_env else None,
+                                   device=dev)
     rope = _rope(cfg, dev)
 
-    def batch_step(tokens, pools, positions, bts):
+    # With an adapter pool every step takes the stream's adapter slot(s) and
+    # the resident stack as trailing operands.
+    def _lora(adapters, ls):
+        return (adapters, ls["a"], ls["b"])
+
+    def batch_step(tokens, pools, positions, bts, *lora):
         return fused_paged_batch_step(params, cfg, tokens, pools, positions,
-                                      bts, rope=rope)
+                                      bts, rope=rope, lora=_lora(*lora) if lora else None)
 
-    def spec_step(chunks, pools, positions, bts):
+    def spec_step(chunks, pools, positions, bts, *lora):
         return fused_paged_spec_step(params, cfg, chunks, pools, positions,
-                                     bts, rope=rope)
+                                     bts, rope=rope, lora=_lora(*lora) if lora else None)
 
-    def chunk_step(ids, pools, position, bt):
+    def chunk_step(ids, pools, position, bt, *lora):
         return fused_paged_chunk_step(params, cfg, ids, pools, position, bt,
-                                      rope=rope)
+                                      rope=rope, lora=_lora(*lora) if lora else None)
 
     def window_factory(k, sk):
         """(k, spec_k) -> window; the engine caches what it builds."""
         if sk:
             return _vlm.make_paged_spec_window(spec_step, k=k, spec_k=sk,
-                                               ngram=spec_ngram, eos=eos)
-        return _vlm.make_paged_window(batch_step, k=k, eos=eos)
+                                               ngram=spec_ngram, eos=eos,
+                                               lora=lora_pool is not None)
+        return _vlm.make_paged_window(batch_step, k=k, eos=eos,
+                                      lora=lora_pool is not None)
 
     return PagedBatchEngine(
-        init_pool=lambda n: init_page_pool(cfg, n, page_size, device=dev),
+        init_pool=lambda n: init_page_pool(cfg, n, page_size, device=dev,
+                                           kv_int8=kv_int8),
         chunk_prefill=chunk_step,
         window_step=window_factory(window, spec_k),
         window_factory=window_factory,
@@ -370,5 +496,6 @@ def make_paged_engine(params, cfg: Qwen2Config, *, max_slots: int = 16,
         spec_ngram=spec_ngram,
         prefix_cache=prefix_cache,
         prefix_cache_pages=prefix_cache_pages,
+        lora_pool=lora_pool,
         device=dev,
     )

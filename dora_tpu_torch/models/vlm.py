@@ -5,9 +5,11 @@ Counterpart of the paged serving part of dora_tpu/models/vlm.py
 ``fused_paged_pass_chunk``, ``fused_paged_pass_spec``, ``fused_batch_ready``,
 ``make_paged_window``, ``make_paged_spec_window``, ``window_row_stats``,
 ``spec_window_row_stats``). Each layer runs one attention kernel and
-``mlp_step``; the pass ends in ``lm_head_argmax`` (ops/decode_block.py).
-The vision tower, training, the dense and batch-1 passes and the int8-KV
-and LoRA forms are not ported yet.
+``mlp_step``, then, with multi-tenant LoRA, ``lora_gather_matmul``; the
+pass ends in ``lm_head_argmax`` (ops/decode_block.py, ops/lora.py). Pools
+hold fp pages, or int8 pages with their ``ks``/``vs`` scale planes, which
+select the kernels' int8-KV forms. The vision tower, training and the dense
+and batch-1 passes are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from dora_tpu_torch.ops import decode_block as DB
+from dora_tpu_torch.ops import lora as LO
 
 
 def _qw(d: dict):
@@ -44,11 +47,16 @@ def fused_batch_ready(params) -> bool:
     )
 
 
-def _fused_pass(params, x, attn_apply, *, layers: int, eps: float):
+def _fused_pass(params, x, attn_apply, *, layers: int, eps: float, lora=None):
     """Shared skeleton of the fused passes: per layer ``attn_apply(i, x,
     blk, wqkv, sqkv, bqkv, wo, swo) -> (x, pools entry)`` then the MLP
     kernel; then the streamed lm_head argmax. Absent biases stay None (the
-    kernels skip them; the reference adds zeros)."""
+    kernels skip them; the reference adds zeros).
+
+    ``lora`` is ``(groups [R], a_stack [S, L, D, r], b_stack [S, L, r, D])``:
+    after each layer's MLP every row adds its adapter's rank-r delta,
+    gathered by id (slot 0 the all-zeros base) and rounded to x's dtype
+    before the add."""
     new_pools = {}
     for i in range(layers):
         blk = params["blocks"][str(i)]
@@ -61,75 +69,95 @@ def _fused_pass(params, x, attn_apply, *, layers: int, eps: float):
         wd, sd = _qw(blk["w_down"])
         x = DB.mlp_step(x, blk["ffn_norm"], wgu, sgu, blk.get("b_gateup"), wd,
                         sd, eps=eps)
+        if lora is not None:
+            groups, a_stack, b_stack = lora
+            x = x + LO.lora_gather_matmul(x, groups, a_stack[:, i],
+                                          b_stack[:, i]).to(x.dtype)
     wh, sh = _qw(params["lm_head"])
     greedy = DB.lm_head_argmax(x, params["out_norm"], wh, sh, eps=eps)
     return greedy, new_pools
 
 
+def _pool_args(lp):
+    """A layer's pools as the attention wrappers take them: k and v, then
+    the scale planes of an int8 pool (None for fp)."""
+    return lp["k"], lp["v"], lp.get("ks"), lp.get("vs")
+
+
+def _pool_entry(out):
+    """The (x, pools) of an attention wrapper's 3- or 5-tuple."""
+    if len(out) == 5:
+        x, kp, vp, ks, vs = out
+        return x, {"k": kp, "v": vp, "ks": ks, "vs": vs}
+    x, kp, vp = out
+    return x, {"k": kp, "v": vp}
+
+
 def fused_paged_pass_batch(params, x, pools, positions, block_tables,
                            cos_rows, sin_rows, *, heads: int, kv_heads: int,
-                           head_dim: int, layers: int, eps: float = 1e-6):
+                           head_dim: int, layers: int, eps: float = 1e-6,
+                           lora=None):
     """Batched fused pass over paged KV pools ``{layer: {k, v}}`` of
-    [P, KV, page, hd] blocks; each row's context streams through its
-    ``block_tables`` row. Returns (greedy [B], pools)."""
+    [P, KV, page, hd] blocks (int8 pools add their ``ks``/``vs`` [P, KV,
+    page] scale planes); each row's context streams through its
+    ``block_tables`` row. ``lora`` as in :func:`_fused_pass`. Returns
+    (greedy [B], pools)."""
 
     def attn_apply(i, x, blk, wqkv, sqkv, bqkv, wo, swo):
-        lp = pools[str(i)]
-        x, kp, vp = DB.attention_paged_batch_step(
+        kp, vp, ks, vs = _pool_args(pools[str(i)])
+        return _pool_entry(DB.attention_paged_batch_step(
             x, blk["attn_norm"], wqkv, sqkv, bqkv, cos_rows, sin_rows,
-            lp["k"], lp["v"], wo, swo, positions, block_tables,
+            kp, vp, wo, swo, positions, block_tables, ks, vs,
             heads=heads, kv_heads=kv_heads, head_dim=head_dim, eps=eps,
-        )
-        return x, {"k": kp, "v": vp}
+        ))
 
-    return _fused_pass(params, x, attn_apply, layers=layers, eps=eps)
+    return _fused_pass(params, x, attn_apply, layers=layers, eps=eps, lora=lora)
 
 
 def fused_paged_pass_chunk(params, x, pools, position, block_table,
                            cos_rows, sin_rows, *, heads: int, kv_heads: int,
-                           head_dim: int, layers: int, eps: float = 1e-6):
+                           head_dim: int, layers: int, eps: float = 1e-6,
+                           lora=None):
     """One prefill chunk x [M, dim] at positions ``position..position+M-1``
-    (page multiples) through the fused kernels into paged pools. Returns
-    (greedy [M], pools); greedy[i] continues the prefix through row i."""
+    (page multiples) through the fused kernels into paged pools (fp or
+    int8). Returns (greedy [M], pools); greedy[i] continues the prefix
+    through row i."""
 
     def attn_apply(i, x, blk, wqkv, sqkv, bqkv, wo, swo):
-        lp = pools[str(i)]
-        x, kp, vp = DB.attention_paged_chunk_step(
+        kp, vp, ks, vs = _pool_args(pools[str(i)])
+        return _pool_entry(DB.attention_paged_chunk_step(
             x, blk["attn_norm"], wqkv, sqkv, bqkv, cos_rows, sin_rows,
-            lp["k"], lp["v"], wo, swo, position, block_table,
+            kp, vp, wo, swo, position, block_table, ks, vs,
             heads=heads, kv_heads=kv_heads, head_dim=head_dim, eps=eps,
-        )
-        return x, {"k": kp, "v": vp}
+        ))
 
-    return _fused_pass(params, x, attn_apply, layers=layers, eps=eps)
+    return _fused_pass(params, x, attn_apply, layers=layers, eps=eps, lora=lora)
 
 
 def fused_paged_pass_spec(params, x, pools, positions, block_tables,
                           cos_rows, sin_rows, *, heads: int, kv_heads: int,
-                          head_dim: int, layers: int, m: int, eps: float = 1e-6):
-    """Speculative verification pass over paged KV pools: x [B*m, dim]
-    holds, stream-major, each stream's m candidate rows (last token + m-1
-    drafts) at positions ``positions[b]..positions[b]+m-1``. One weight
-    stream verifies all B*m rows; greedy[b*m + i] continues stream b's
-    prefix through candidate i. Returns (greedy [B*m], pools). fp KV only:
-    int8 pools (their ``ks``/``vs`` scale planes) wait for the int8-KV
-    slice."""
+                          head_dim: int, layers: int, m: int, eps: float = 1e-6,
+                          lora=None):
+    """Speculative verification pass over paged KV pools (fp or int8): x
+    [B*m, dim] holds, stream-major, each stream's m candidate rows (last
+    token + m-1 drafts) at positions ``positions[b]..positions[b]+m-1``.
+    One weight stream verifies all B*m rows; greedy[b*m + i] continues
+    stream b's prefix through candidate i. ``lora`` groups are per row
+    (B*m). Returns (greedy [B*m], pools)."""
 
     def attn_apply(i, x, blk, wqkv, sqkv, bqkv, wo, swo):
-        lp = pools[str(i)]
-        if "ks" in lp:
-            raise NotImplementedError("int8-KV pools are not ported yet")
-        x, kp, vp = DB.attention_paged_spec_step(
+        kp, vp, ks, vs = _pool_args(pools[str(i)])
+        return _pool_entry(DB.attention_paged_spec_step(
             x, blk["attn_norm"], wqkv, sqkv, bqkv, cos_rows, sin_rows,
-            lp["k"], lp["v"], wo, swo, positions, block_tables,
+            kp, vp, wo, swo, positions, block_tables, ks, vs,
             heads=heads, kv_heads=kv_heads, head_dim=head_dim, m=m, eps=eps,
-        )
-        return x, {"k": kp, "v": vp}
+        ))
 
-    return _fused_pass(params, x, attn_apply, layers=layers, eps=eps)
+    return _fused_pass(params, x, attn_apply, layers=layers, eps=eps, lora=lora)
 
 
-def make_paged_window(step_fn, *, k: int, eos: int | None = None):
+def make_paged_window(step_fn, *, k: int, eos: int | None = None,
+                      lora: bool = False):
     """K-tick decode window over a paged batch step.
 
     ``window(tokens, pools, positions, bts, active, emitted, max_new) ->
@@ -141,14 +169,21 @@ def make_paged_window(step_fn, *, k: int, eos: int | None = None):
     holds the k emitted-token columns (-1 where a row was already frozen)
     and the final active mask as its last column: the host copies it once
     per window. ``step_fn(tokens, pools, positions, bts) -> (greedy [B],
-    pools)`` is the family's batched paged step."""
+    pools)`` is the family's batched paged step.
 
-    def window(tokens, pools, positions, bts, active, emitted, max_new):
+    With ``lora=True`` the window takes two more trailing operands, the
+    per-row adapter slots ``adapters [B]`` and the resident adapter stack,
+    and calls ``step_fn(tokens, pools, positions, bts, adapters,
+    lora_state)``."""
+
+    def window(tokens, pools, positions, bts, active, emitted, max_new,
+               adapters=None, lora_state=None):
+        extra = (adapters, lora_state) if lora else ()
         cols = []
         for _ in range(k):
             alive = active.to(torch.int32)
             pos_in, bts_in = DB.freeze_inactive(positions, bts, active)
-            nxt, pools = step_fn(tokens, pools, pos_in, bts_in)
+            nxt, pools = step_fn(tokens, pools, pos_in, bts_in, *extra)
             cols.append(torch.where(active, nxt, torch.full_like(nxt, -1)))
             emitted = emitted + alive
             done = emitted >= max_new
@@ -167,7 +202,7 @@ def make_paged_window(step_fn, *, k: int, eos: int | None = None):
 
 
 def make_paged_spec_window(spec_step_fn, *, k: int, spec_k: int, ngram: int,
-                           eos: int | None = None):
+                           eos: int | None = None, lora: bool = False):
     """K-tick decode window with prompt-lookup speculation in every tick:
     one call can emit up to ``k * (spec_k + 1)`` tokens per stream.
 
@@ -189,13 +224,19 @@ def make_paged_spec_window(spec_step_fn, *, k: int, spec_k: int, ngram: int,
     emitted, pools, history, hist_len)``: ``mat`` is one [B, k*(spec_k+1)
     + 1] int32 matrix, k tick-blocks of spec_k+1 token columns (``-1``
     past a tick's emission and for frozen streams) and the final active
-    mask, which the host copies once per window."""
+    mask, which the host copies once per window.
+
+    With ``lora=True`` the window takes the same two trailing operands as
+    :func:`make_paged_window` and the verification pass is called as
+    ``spec_step_fn(chunks, pools, positions, bts, adapters, lora_state)``:
+    drafts and verify read the stream's own adapter."""
     from dora_tpu_torch.models import spec_decode
 
     m = spec_k + 1
 
     def window(tokens, pools, positions, bts, active, emitted, max_new,
-               history, hist_len):
+               history, hist_len, adapters=None, lora_state=None):
+        extra = (adapters, lora_state) if lora else ()
         hbuf = history.shape[1]
         nslots = tokens.shape[0]
         dev = tokens.device
@@ -207,7 +248,7 @@ def make_paged_spec_window(spec_step_fn, *, k: int, spec_k: int, ngram: int,
             pos_in, bts_in = DB.freeze_inactive(positions, bts, active)
             draft = spec_decode.lookup(history, hist_len, hbuf, spec_k, ngram)
             chunks = torch.cat([tokens[:, None], draft], dim=1)
-            greedy, pools = spec_step_fn(chunks, pools, pos_in, bts_in)
+            greedy, pools = spec_step_fn(chunks, pools, pos_in, bts_in, *extra)
             # accepted = the first disagreement (argmin of agree ++ [False])
             agree = torch.cat([greedy[:, :spec_k] == draft,
                                torch.zeros((nslots, 1), dtype=torch.bool, device=dev)],

@@ -4,7 +4,10 @@ Counterpart of ``make_engine`` and ``main`` of dora_tpu/nodehub/llm_server.py.
 ``make_engine`` reads the same knobs with the same meaning
 (``DORA_BATCH_SLOTS``, ``DORA_PAGE_SIZE``, ``DORA_PREFILL_CHUNK``,
 ``DORA_MULTISTEP_K``, ``DORA_PREFIX_CACHE`` (on by default here),
-``DORA_PREFIX_CACHE_PAGES``, ``DORA_SPEC_K``, ``DORA_SPEC_NGRAM`` and
+``DORA_PREFIX_CACHE_PAGES``, ``DORA_SPEC_K``, ``DORA_SPEC_NGRAM``,
+``DORA_KV_INT8`` (int8 KV pages in the fp pool's byte budget),
+``DORA_LORA_DIR`` / ``DORA_LORA_MAX_RESIDENT`` / ``DORA_LORA_RANK``
+(multi-tenant LoRA from a catalog of ``<tenant>.npz`` adapters) and
 ``DORA_PAGED_KV``). ``main`` answers a list of token-id prompts through
 ``submit``/``step``; wiring it into a dataflow node waits for a port of the
 node API.
@@ -33,9 +36,11 @@ from collections import deque
 
 def make_engine(params, cfg, eos=None, device=None):
     """The paged serving engine from the env knobs. The prefix cache is on
-    unless ``DORA_PREFIX_CACHE=0``; ``DORA_SPEC_K``/``DORA_SPEC_NGRAM``
-    reach the engine through ``make_paged_engine``. ``DORA_PAGED_KV=0``
-    asks for the dense engine, which is not ported yet, and raises."""
+    unless ``DORA_PREFIX_CACHE=0``; ``DORA_SPEC_K``/``DORA_SPEC_NGRAM``,
+    ``DORA_KV_INT8`` and the LoRA knobs (``DORA_LORA_DIR``,
+    ``DORA_LORA_MAX_RESIDENT``, ``DORA_LORA_RANK``) reach the engine through
+    ``make_paged_engine``. ``DORA_PAGED_KV=0`` asks for the dense engine,
+    which is not ported yet, and raises."""
     from dora_tpu_torch.models.hf import qwen2
 
     if os.environ.get("DORA_PAGED_KV", "1") == "0":
@@ -57,25 +62,33 @@ def make_engine(params, cfg, eos=None, device=None):
     )
 
 
-def serve_prompts(engine, prompts, max_new: int, on_token=None, others=None):
+def serve_prompts(engine, prompts, max_new: int, on_token=None, others=None,
+                  adapters=None):
     """Serve every prompt to completion, admitting in order: a request the
-    engine cannot admit yet waits at the head of the line until slots and
-    pages free up. Returns {request index: tokens} and per-request
-    time-to-first-token seconds (from the start of the run).
-    ``on_token(index, token, done)`` sees every emission. Streams already
-    in the engine run on beside them; ``others`` maps each such request id
-    to the list their tokens are appended to."""
+    engine cannot admit yet waits at the head of the line until slots,
+    pages and its adapter's residency free up. Returns {request index:
+    tokens} and per-request time-to-first-token seconds (from the start of
+    the run). ``on_token(index, token, done)`` sees every emission. Streams
+    already in the engine run on beside them; ``others`` maps each such
+    request id to the list their tokens are appended to. ``adapters``
+    names each request's LoRA tenant (None = the base model), as the JAX
+    server routes a request's ``model`` field."""
+    adapters = list(adapters) if adapters is not None else [None] * len(prompts)
+    if len(adapters) != len(prompts):
+        raise ValueError(f"{len(adapters)} adapters for {len(prompts)} prompts")
     waiting = deque(range(len(prompts)))
     for i in waiting:
-        if not engine.fits(len(prompts[i]), max_new):
-            raise ValueError(f"request {i} can never fit ({len(prompts[i])}+{max_new})")
+        if not engine.fits(len(prompts[i]), max_new, adapters[i]):
+            raise ValueError(f"request {i} can never fit ({len(prompts[i])}+{max_new}"
+                             + (f", adapter {adapters[i]!r}" if adapters[i] else "") + ")")
     out: dict[int, list[int]] = {i: [] for i in range(len(prompts))}
     ttft: dict[int, float] = {}
     t0 = time.perf_counter()
     while waiting or engine.active:
-        while waiting and engine.can_admit(len(prompts[waiting[0]]), max_new):
+        while waiting and engine.can_admit(len(prompts[waiting[0]]), max_new,
+                                           adapters[waiting[0]]):
             i = waiting.popleft()
-            engine.submit(str(i), prompts[i], max_new)
+            engine.submit(str(i), prompts[i], max_new, adapter=adapters[i])
         for rid, token, done in engine.step():
             if others is not None and rid in others:
                 others[rid].append(token)

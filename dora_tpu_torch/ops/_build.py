@@ -31,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 #: one shared library per kernel family
-SOURCES = ("mlp", "lm_head", "paged_attention")
+SOURCES = ("mlp", "lm_head", "paged_attention", "lora")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +44,7 @@ HOST_FLAGS = (
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 _LOADED: dict[tuple[str, str], ctypes.CDLL] = {}

@@ -1,8 +1,9 @@
 """The fused decode sublayers of the paged serving path, on torch tensors.
 
-Counterpart of dora_tpu/ops/decode_block.py (int8 weights, fp KV). Each of
-the five functions takes the arguments and returns the tuple of its Pallas
-counterpart, and comes in two versions in this module:
+Counterpart of dora_tpu/ops/decode_block.py (int8 weights; fp or int8 KV
+pages, with the KV number format ``kv_quant_rows`` / ``kv_dequant``). Each
+of the five functions takes the arguments and returns the tuple of its
+Pallas counterpart, and comes in two versions in this module:
 
 * a plain PyTorch version (``*_plain``) that repeats the reference math in
   the tensors' dtype, with f32 accumulators. The CPU path runs it, and the
@@ -12,7 +13,10 @@ counterpart, and comes in two versions in this module:
   kernel does not take raises.
 
 Each public wrapper counts its kernel launches in a plain ``launches``
-attribute, so a run can show that the main path went through the kernel.
+attribute (the attention wrappers their int8-KV form apart, in
+``launches_int8kv``), so a run can show that the main path went through the
+kernel. On host tensors (the emulated build) the kernel wrappers check every
+index operand before launching.
 
 Pools are updated IN PLACE on both paths (the JAX package donates them to
 the same effect) and returned, so callers keep the reference's
@@ -39,11 +43,11 @@ _SIGNATURES = {
     "paged_attention": {
         "dora_gemm_splits": [_I, _I, _I],
         "dora_attention_paged_batch_step":
-            [_P] * 14 + [_I] * 6 + [_F] * 2 + [_P] * 7,
+            [_P] * 16 + [_I] * 6 + [_F] * 2 + [_P] * 7,
         "dora_attention_paged_chunk_step":
-            [_P] * 11 + [_I] + [_P] * 2 + [_I] * 5 + [_F] * 2 + [_P] * 5,
+            [_P] * 13 + [_I] + [_P] * 2 + [_I] * 5 + [_F] * 2 + [_P] * 7,
         "dora_attention_paged_spec_step":
-            [_P] * 14 + [_I] * 7 + [_F] * 2 + [_P] * 7,
+            [_P] * 16 + [_I] * 7 + [_F] * 2 + [_P] * 7,
     },
 }
 
@@ -210,7 +214,6 @@ def mlp_step(x, norm_w, w_gateup, s_gateup, b_gateup, w_down, s_down,
                             s_down, eps=eps, residual=residual)
 
 
-mlp_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +267,96 @@ def lm_head_argmax(x, norm_w, w, s, *, eps: float = 1e-6,
     return _lm_head_argmax_kernel(x, norm_w, w, s, eps=eps, return_val=return_val)
 
 
-lm_head_argmax.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int8 KV pages: the number format and the pool access shared by the twins
+# ---------------------------------------------------------------------------
+
+
+def kv_quant_rows(x: torch.Tensor):
+    """Symmetric int8 row quantization over the last axis (the KV-page
+    number format of decode_block.kv_quant_rows): ``scale = max(amax / 127,
+    1e-8)`` per row, ``q = clip(round(x / scale), -127, 127)`` with round
+    half to even. Returns (q int8, scale f32 shaped like x minus its last
+    axis)."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+def kv_dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Inverse of :func:`kv_quant_rows` at the sweep's read edge: ``q * scale``
+    in f32, then cast to the compute dtype."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def _kv_rows(pool, scale, idx, dtype):
+    """Pool pages ``idx`` in the compute dtype: fp pools cast, int8 pools
+    dequantized through their scale planes."""
+    if scale is None:
+        return pool[idx].to(dtype)
+    return kv_dequant(pool[idx], scale[idx], dtype)
+
+
+def _kv_store(pool, scale, index, rows) -> None:
+    """Write the f32 rows [..., hd] at ``index`` of the pool, quantized with
+    their scales into the parallel plane when the pool is int8."""
+    if scale is None:
+        pool[index] = rows.to(pool.dtype)
+    else:
+        q, sc = kv_quant_rows(rows)
+        pool[index] = q
+        scale[index] = sc
+
+
+def _pools_out(out, k_pool, v_pool, k_scale, v_scale):
+    if k_scale is None:
+        return out, k_pool, v_pool
+    return out, k_pool, v_pool, k_scale, v_scale
+
+
+def _kv_mode(k_pool, k_scale, v_scale) -> bool:
+    """True for the int8-KV form; the scale planes come both or neither."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come both or neither")
+    if k_scale is not None and k_pool.dtype != torch.int8:
+        raise ValueError(f"the int8-KV form needs int8 pools, got {k_pool.dtype}")
+    return k_scale is not None
+
+
+def _need_pools(k_pool, v_pool, k_scale, v_scale, kv_heads, head_dim, dev):
+    """The kernels take bf16 pools, or int8 pools with f32 [P, KV, page]
+    scale planes."""
+    n_pages, _, page, _ = k_pool.shape
+    shape = (n_pages, kv_heads, page, head_dim)
+    dtype = torch.int8 if k_scale is not None else torch.bfloat16
+    _need(k_pool, "k_pool", dtype, shape, dev)
+    _need(v_pool, "v_pool", dtype, shape, dev)
+    if k_scale is not None:
+        _need(k_scale, "k_scale", torch.float32, shape[:3], dev)
+        _need(v_scale, "v_scale", torch.float32, shape[:3], dev)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _check_host_indices(positions, rows: int, block_tables, n_pages: int,
+                        page: int) -> None:
+    """The index operands of a kernel call on host tensors (the emulated
+    build), checked before launching: every block-table entry names a pool
+    page, and each stream's ``rows`` rows from its position stay inside its
+    table. On the card these are the caller's contract."""
+    bt = block_tables
+    if bt.numel() and (int(bt.min()) < 0 or int(bt.max()) >= n_pages):
+        raise ValueError(f"block table entries must lie in [0, {n_pages})")
+    reach = bt.shape[-1] * page
+    pos = positions.reshape(-1).long()
+    if pos.numel() and (int(pos.min()) < 0 or int(pos.max()) + rows > reach):
+        raise ValueError(f"positions + {rows} rows must stay inside the "
+                         f"{bt.shape[-1]} x {page} rows of the block table")
 
 
 # ---------------------------------------------------------------------------
@@ -274,8 +366,8 @@ lm_head_argmax.launches = 0
 
 def attention_paged_batch_step_plain(
     x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool, wo, swo,
-    positions, block_tables, *, heads: int, kv_heads: int, head_dim: int,
-    eps: float = 1e-6, residual: bool = True,
+    positions, block_tables, k_scale=None, v_scale=None, *, heads: int,
+    kv_heads: int, head_dim: int, eps: float = 1e-6, residual: bool = True,
 ):
     dtype = x.dtype
     b = x.shape[0]
@@ -283,6 +375,7 @@ def attention_paged_batch_step_plain(
     group = heads // kv_heads
     half = head_dim // 2
     scale = 1.0 / (head_dim ** 0.5)
+    _kv_mode(k_pool, k_scale, v_scale)
 
     h = _rms(x, norm_w, eps).to(dtype)
     qkv = _wdot(h, wqkv, sqkv)
@@ -294,60 +387,63 @@ def attention_paged_batch_step_plain(
     q = _rotate(q, cos, sin, half)
     k = _rotate(k, cos, sin, half)
 
-    # The row's K/V into page bt[b, pos // page], row pos % page. Frozen
-    # rows all land on row 0 of null page 0; which one wins is irrelevant.
+    # The row's K/V (quantized, for int8 pools) into page bt[b, pos // page],
+    # row pos % page. Frozen rows all land on row 0 of null page 0; which one
+    # wins is irrelevant.
     pos = positions.long()
     bt = block_tables.long()
     cur = bt[torch.arange(b, device=bt.device), pos // page]
-    k_pool[cur, :, pos % page] = k.to(k_pool.dtype)
-    v_pool[cur, :, pos % page] = v.to(v_pool.dtype)
+    _kv_store(k_pool, k_scale, (cur, slice(None), pos % page), k)
+    _kv_store(v_pool, v_scale, (cur, slice(None), pos % page), v)
 
     # Prior context (idx < pos) from the pool in the compute dtype.
     n_ctx = bt.shape[1] * page
-    ctx_k = k_pool[bt].permute(0, 2, 1, 3, 4).reshape(b, kv_heads, n_ctx, head_dim)
-    ctx_v = v_pool[bt].permute(0, 2, 1, 3, 4).reshape(b, kv_heads, n_ctx, head_dim)
+    ctx_k = _kv_rows(k_pool, k_scale, bt, dtype).permute(0, 2, 1, 3, 4).reshape(
+        b, kv_heads, n_ctx, head_dim)
+    ctx_v = _kv_rows(v_pool, v_scale, bt, dtype).permute(0, 2, 1, 3, 4).reshape(
+        b, kv_heads, n_ctx, head_dim)
     qg = q.reshape(b, kv_heads, group, head_dim)
-    s = torch.einsum(
-        "bkgd,bksd->bkgs", qg.to(dtype).float(), ctx_k.to(dtype).float()
-    ) * scale
+    s = torch.einsum("bkgd,bksd->bkgs", qg.to(dtype).float(), ctx_k.float()) * scale
     live = torch.arange(n_ctx, device=x.device)[None, :] < pos[:, None]
     s = s.masked_fill(~live[:, None, None, :], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)  # -inf for a row with no prior context
     p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
     l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bkgs,bksd->bkgd", p.to(dtype).float(), ctx_v.to(dtype).float())
+    acc = torch.einsum("bkgs,bksd->bkgd", p.to(dtype).float(), ctx_v.float())
 
-    # Fold in the current position from f32 (the reference's exact merge).
+    # Fold in the current position from f32 (the reference's exact merge),
+    # never from the pool row just written.
     s_new = (qg * k[:, :, None, :]).sum(dim=-1, keepdim=True) * scale
     m2 = torch.maximum(m, s_new)
     alpha = torch.exp(m - m2)
     w_new = torch.exp(s_new - m2)
     attn = (acc * alpha + w_new * v[:, :, None, :]) / (l * alpha + w_new)
     o = _wdot(attn.reshape(b, heads * head_dim).to(dtype), wo, swo)
-    return _finish(x, o, residual), k_pool, v_pool
+    return _pools_out(_finish(x, o, residual), k_pool, v_pool, k_scale, v_scale)
 
 
 def _attention_paged_batch_step_kernel(
     x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool, wo, swo,
-    positions, block_tables, *, heads, kv_heads, head_dim, eps, residual,
-    lib=None,
+    positions, block_tables, k_scale=None, v_scale=None, *, heads, kv_heads,
+    head_dim, eps, residual, lib=None,
 ):
     dev = x.device
     b, d = x.shape
     n_pages, _, page, _ = k_pool.shape
     n_qkv = (heads + 2 * kv_heads) * head_dim
     max_pages = block_tables.shape[1]
+    q8 = _kv_mode(k_pool, k_scale, v_scale)
     _attn_shapes(heads, kv_heads, head_dim, page)
     _need(x, "x", torch.bfloat16, (b, d), dev)
     _int8_weight(wqkv, "wqkv", d, n_qkv, dev)
     _int8_weight(wo, "wo", heads * head_dim, d, dev)
-    pool_shape = (n_pages, kv_heads, page, head_dim)
-    _need(k_pool, "k_pool", torch.bfloat16, pool_shape, dev)
-    _need(v_pool, "v_pool", torch.bfloat16, pool_shape, dev)
+    _need_pools(k_pool, v_pool, k_scale, v_scale, kv_heads, head_dim, dev)
     _need(positions, "positions", torch.int32, (b,), dev)
     _need(block_tables, "block_tables", torch.int32, (b, max_pages), dev)
     _need(cos_rows, "cos_rows", torch.float32, (b, head_dim), dev)
     _need(sin_rows, "sin_rows", torch.float32, (b, head_dim), dev)
+    if not x.is_cuda:
+        _check_host_indices(positions, 1, block_tables, n_pages, page)
     nw = _f32(norm_w, "norm_w", d, dev)
     sq = _f32(sqkv, "sqkv", n_qkv, dev)
     bq = _f32(bqkv, "bqkv", n_qkv, dev)
@@ -366,24 +462,23 @@ def _attention_paged_batch_step_kernel(
     out = torch.empty((b, d), dtype=torch.bfloat16 if residual else torch.float32,
                       device=dev)
     rc = lib.dora_attention_paged_batch_step(
-        x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(),
-        bq.data_ptr() if bq is not None else None, cos_rows.data_ptr(),
-        sin_rows.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        wo.data_ptr(), so.data_ptr(), positions.data_ptr(),
-        block_tables.data_ptr(), out.data_ptr(), int(residual), b, d, heads,
-        kv_heads, max_pages, eps, 1.0 / (head_dim ** 0.5), h.data_ptr(),
-        p.data_ptr(), q.data_ptr(), kcur.data_ptr(), vcur.data_ptr(),
-        attn.data_ptr(), _build.stream_of(x),
+        x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(), _ptr(bq),
+        cos_rows.data_ptr(), sin_rows.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), wo.data_ptr(),
+        so.data_ptr(), positions.data_ptr(), block_tables.data_ptr(),
+        out.data_ptr(), int(residual), b, d, heads, kv_heads, max_pages, eps,
+        1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(),
+        kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), _build.stream_of(x),
     )
-    attention_paged_batch_step.launches += 1
+    _count(attention_paged_batch_step, q8)
     _build.check(rc, "attention_paged_batch_step")
-    return out, k_pool, v_pool
+    return _pools_out(out, k_pool, v_pool, k_scale, v_scale)
 
 
 def attention_paged_batch_step(
     x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool, wo, swo,
-    positions, block_tables, *, heads: int, kv_heads: int, head_dim: int,
-    eps: float = 1e-6, residual: bool = True,
+    positions, block_tables, k_scale=None, v_scale=None, *, heads: int,
+    kv_heads: int, head_dim: int, eps: float = 1e-6, residual: bool = True,
 ):
     """Paged decode attention sublayer for B independent streams.
 
@@ -391,17 +486,20 @@ def attention_paged_batch_step(
     ``positions[b]`` inside page ``block_tables[b, positions[b] // page]``
     (page 0 is the null page); block_tables [B, max_pages] int32;
     cos/sin_rows [B, hd] f32 full-width rope rows. Returns
-    (x_out [B, D], k_pool, v_pool)."""
+    (x_out [B, D], k_pool, v_pool).
+
+    ``k_scale``/``v_scale`` (both or neither) select the int8-KV form: the
+    pools are int8 and the scales parallel f32 [P, KV, page] planes under
+    the same page ids; rows quantize on write (:func:`kv_quant_rows`) and
+    dequantize in the sweep (:func:`kv_dequant`), and the return is
+    (x_out, k_pool, v_pool, k_scale, v_scale)."""
     args = (x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool,
-            wo, swo, positions, block_tables)
+            wo, swo, positions, block_tables, k_scale, v_scale)
     kw = dict(heads=heads, kv_heads=kv_heads, head_dim=head_dim, eps=eps,
               residual=residual)
     if not x.is_cuda:
         return attention_paged_batch_step_plain(*args, **kw)
     return _attention_paged_batch_step_kernel(*args, **kw)
-
-
-attention_paged_batch_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -411,8 +509,8 @@ attention_paged_batch_step.launches = 0
 
 def attention_paged_chunk_step_plain(
     x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool, wo, swo,
-    position, block_table, *, heads: int, kv_heads: int, head_dim: int,
-    eps: float = 1e-6, residual: bool = True,
+    position, block_table, k_scale=None, v_scale=None, *, heads: int,
+    kv_heads: int, head_dim: int, eps: float = 1e-6, residual: bool = True,
 ):
     dtype = x.dtype
     m = x.shape[0]
@@ -421,6 +519,7 @@ def attention_paged_chunk_step_plain(
     half = head_dim // 2
     scale = 1.0 / (head_dim ** 0.5)
     pos = int(position)
+    _kv_mode(k_pool, k_scale, v_scale)
 
     h = _rms(x, norm_w, eps).to(dtype)
     qkv = _wdot(h, wqkv, sqkv)
@@ -432,19 +531,25 @@ def attention_paged_chunk_step_plain(
     q = _rotate(q, cos, sin, half)
     k = _rotate(k, cos, sin, half)
 
-    # The chunk's K/V land as whole pages (pos and M are page multiples).
+    # The chunk's K/V land as whole pages (pos and M are page multiples), so
+    # int8 pools get whole scale rows too.
     bt = block_table.long()
     n_chunk = m // page
     pages = bt[pos // page : pos // page + n_chunk]
-    k_pool[pages] = k.reshape(n_chunk, page, kv_heads, head_dim).transpose(1, 2).to(k_pool.dtype)
-    v_pool[pages] = v.reshape(n_chunk, page, kv_heads, head_dim).transpose(1, 2).to(v_pool.dtype)
+    _kv_store(k_pool, k_scale, pages,
+              k.reshape(n_chunk, page, kv_heads, head_dim).transpose(1, 2))
+    _kv_store(v_pool, v_scale, pages,
+              v.reshape(n_chunk, page, kv_heads, head_dim).transpose(1, 2))
 
-    # Keys: the prior pages (all live), then the chunk itself, causally.
+    # Keys: the prior pages (all live) from the pool, then the chunk itself
+    # from f32 cast to the compute dtype (never its quantized rows), causally.
     prior = bt[: pos // page]
-    prior_k = k_pool[prior].transpose(0, 1).reshape(kv_heads, pos, head_dim)
-    prior_v = v_pool[prior].transpose(0, 1).reshape(kv_heads, pos, head_dim)
-    keys = torch.cat([prior_k.to(dtype), k.transpose(0, 1).to(dtype)], dim=1).float()
-    vals = torch.cat([prior_v.to(dtype), v.transpose(0, 1).to(dtype)], dim=1).float()
+    prior_k = _kv_rows(k_pool, k_scale, prior, dtype).transpose(0, 1).reshape(
+        kv_heads, pos, head_dim)
+    prior_v = _kv_rows(v_pool, v_scale, prior, dtype).transpose(0, 1).reshape(
+        kv_heads, pos, head_dim)
+    keys = torch.cat([prior_k, k.transpose(0, 1).to(dtype)], dim=1).float()
+    vals = torch.cat([prior_v, v.transpose(0, 1).to(dtype)], dim=1).float()
     qg = q.to(dtype).float().reshape(m, kv_heads, group, head_dim).transpose(0, 1)
     s = torch.einsum("kmgd,ksd->kmgs", qg, keys) * scale
     kidx = torch.arange(pos + m, device=x.device)
@@ -455,19 +560,20 @@ def attention_paged_chunk_step_plain(
     attn = torch.einsum("kmgs,ksd->kmgd", p.to(dtype).float(), vals) / p.sum(dim=-1, keepdim=True)
     attn = attn.transpose(0, 1).reshape(m, heads * head_dim)
     o = _wdot(attn.to(dtype), wo, swo)
-    return _finish(x, o, residual), k_pool, v_pool
+    return _pools_out(_finish(x, o, residual), k_pool, v_pool, k_scale, v_scale)
 
 
 def _attention_paged_chunk_step_kernel(
     x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool, wo, swo,
-    position, block_table, *, heads, kv_heads, head_dim, eps, residual,
-    lib=None,
+    position, block_table, k_scale=None, v_scale=None, *, heads, kv_heads,
+    head_dim, eps, residual, lib=None,
 ):
     dev = x.device
     m, d = x.shape
     n_pages, _, page, _ = k_pool.shape
     n_qkv = (heads + 2 * kv_heads) * head_dim
     pos = int(position)
+    q8 = _kv_mode(k_pool, k_scale, v_scale)
     _attn_shapes(heads, kv_heads, head_dim, page)
     if pos % page or m % page:
         raise ValueError(f"chunk position {pos} and rows {m} must be multiples of page {page}")
@@ -476,12 +582,12 @@ def _attention_paged_chunk_step_kernel(
     _need(x, "x", torch.bfloat16, (m, d), dev)
     _int8_weight(wqkv, "wqkv", d, n_qkv, dev)
     _int8_weight(wo, "wo", heads * head_dim, d, dev)
-    pool_shape = (n_pages, kv_heads, page, head_dim)
-    _need(k_pool, "k_pool", torch.bfloat16, pool_shape, dev)
-    _need(v_pool, "v_pool", torch.bfloat16, pool_shape, dev)
+    _need_pools(k_pool, v_pool, k_scale, v_scale, kv_heads, head_dim, dev)
     _need(block_table, "block_table", torch.int32, (block_table.shape[-1],), dev)
     _need(cos_rows, "cos_rows", torch.float32, (m, head_dim), dev)
     _need(sin_rows, "sin_rows", torch.float32, (m, head_dim), dev)
+    if not x.is_cuda:
+        _check_host_indices(torch.tensor([pos]), m, block_table, n_pages, page)
     nw = _f32(norm_w, "norm_w", d, dev)
     sq = _f32(sqkv, "sqkv", n_qkv, dev)
     bq = _f32(bqkv, "bqkv", n_qkv, dev)
@@ -494,27 +600,32 @@ def _attention_paged_chunk_step_kernel(
     h = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
     p = torch.empty((ws,), dtype=torch.float32, device=dev)
     q = torch.empty((m, heads, head_dim), dtype=torch.float32, device=dev)
+    # the int8 form folds the chunk's own rows from f32 scratch
+    kcur = vcur = None
+    if q8:
+        kcur = torch.empty((m, kv_heads, head_dim), dtype=torch.float32, device=dev)
+        vcur = torch.empty((m, kv_heads, head_dim), dtype=torch.float32, device=dev)
     attn = torch.empty((m, heads * head_dim), dtype=torch.bfloat16, device=dev)
     out = torch.empty((m, d), dtype=torch.bfloat16 if residual else torch.float32,
                       device=dev)
     rc = lib.dora_attention_paged_chunk_step(
-        x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(),
-        bq.data_ptr() if bq is not None else None, cos_rows.data_ptr(),
-        sin_rows.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        wo.data_ptr(), so.data_ptr(), pos, block_table.data_ptr(),
-        out.data_ptr(), int(residual), m, d, heads, kv_heads, eps,
-        1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(),
+        x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(), _ptr(bq),
+        cos_rows.data_ptr(), sin_rows.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), wo.data_ptr(),
+        so.data_ptr(), pos, block_table.data_ptr(), out.data_ptr(),
+        int(residual), m, d, heads, kv_heads, eps, 1.0 / (head_dim ** 0.5),
+        h.data_ptr(), p.data_ptr(), q.data_ptr(), _ptr(kcur), _ptr(vcur),
         attn.data_ptr(), _build.stream_of(x),
     )
-    attention_paged_chunk_step.launches += 1
+    _count(attention_paged_chunk_step, q8)
     _build.check(rc, "attention_paged_chunk_step")
-    return out, k_pool, v_pool
+    return _pools_out(out, k_pool, v_pool, k_scale, v_scale)
 
 
 def attention_paged_chunk_step(
     x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool, wo, swo,
-    position, block_table, *, heads: int, kv_heads: int, head_dim: int,
-    eps: float = 1e-6, residual: bool = True,
+    position, block_table, k_scale=None, v_scale=None, *, heads: int,
+    kv_heads: int, head_dim: int, eps: float = 1e-6, residual: bool = True,
 ):
     """Paged attention sublayer for one prefill chunk.
 
@@ -522,17 +633,17 @@ def attention_paged_chunk_step(
     (``position`` and M multiples of the page size); block_table
     [max_pages] int32 of this stream. The chunk's K/V land as whole pool
     pages (in place); rows attend the prior pages and the chunk causally.
-    Returns (x_out [M, D], k_pool, v_pool)."""
+    Returns (x_out [M, D], k_pool, v_pool); with ``k_scale``/``v_scale``
+    the int8-KV form (see :func:`attention_paged_batch_step`), whose
+    within-chunk fold uses the chunk's fp values, returning
+    (x_out, k_pool, v_pool, k_scale, v_scale)."""
     args = (x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool,
-            wo, swo, position, block_table)
+            wo, swo, position, block_table, k_scale, v_scale)
     kw = dict(heads=heads, kv_heads=kv_heads, head_dim=head_dim, eps=eps,
               residual=residual)
     if not x.is_cuda:
         return attention_paged_chunk_step_plain(*args, **kw)
     return _attention_paged_chunk_step_kernel(*args, **kw)
-
-
-attention_paged_chunk_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -542,8 +653,9 @@ attention_paged_chunk_step.launches = 0
 
 def attention_paged_spec_step_plain(
     x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool, wo, swo,
-    positions, block_tables, *, heads: int, kv_heads: int, head_dim: int,
-    m: int, eps: float = 1e-6, residual: bool = True,
+    positions, block_tables, k_scale=None, v_scale=None, *, heads: int,
+    kv_heads: int, head_dim: int, m: int, eps: float = 1e-6,
+    residual: bool = True,
 ):
     dtype = x.dtype
     bm = x.shape[0]
@@ -553,6 +665,7 @@ def attention_paged_spec_step_plain(
     half = head_dim // 2
     scale = 1.0 / (head_dim ** 0.5)
     rows = m * group  # query rows per (stream, kv head), ordered (i, head)
+    _kv_mode(k_pool, k_scale, v_scale)
 
     h = _rms(x, norm_w, eps).to(dtype)
     qkv = _wdot(h, wqkv, sqkv)
@@ -565,27 +678,30 @@ def attention_paged_spec_step_plain(
     k = _rotate(k, cos, sin, half)
 
     # Row i of stream b into page bt[b, (pos+i) // page], row (pos+i) % page:
-    # the m rows may straddle a page. Frozen streams (pos 0, zeroed table
-    # row) all land on rows 0..m-1 of null page 0; which one wins is
-    # irrelevant.
+    # the m rows may straddle a page, and for int8 pools each writes its own
+    # scale entry. Frozen streams (pos 0, zeroed table row) all land on rows
+    # 0..m-1 of null page 0; which one wins is irrelevant.
     pos = positions.long()
     bt = block_tables.long()
     rpos = (pos[:, None] + torch.arange(m, device=pos.device)[None, :]).reshape(bm)
     stream = torch.arange(b, device=pos.device).repeat_interleave(m)
     cur = bt[stream, rpos // page]
-    k_pool[cur, :, rpos % page] = k.to(k_pool.dtype)
-    v_pool[cur, :, rpos % page] = v.to(v_pool.dtype)
+    _kv_store(k_pool, k_scale, (cur, slice(None), rpos % page), k)
+    _kv_store(v_pool, v_scale, (cur, slice(None), rpos % page), v)
 
     # Keys: the prior context (idx < pos; the rows just written sit at
     # idx >= pos and stay masked) from the pool, then the stream's own m
-    # rows causally, both in the compute dtype; never another stream's.
+    # rows causally from f32 cast to the compute dtype (never their
+    # quantized rows); never another stream's.
     n_ctx = bt.shape[1] * page
-    ctx_k = k_pool[bt].permute(0, 2, 1, 3, 4).reshape(b, kv_heads, n_ctx, head_dim)
-    ctx_v = v_pool[bt].permute(0, 2, 1, 3, 4).reshape(b, kv_heads, n_ctx, head_dim)
+    ctx_k = _kv_rows(k_pool, k_scale, bt, dtype).permute(0, 2, 1, 3, 4).reshape(
+        b, kv_heads, n_ctx, head_dim)
+    ctx_v = _kv_rows(v_pool, v_scale, bt, dtype).permute(0, 2, 1, 3, 4).reshape(
+        b, kv_heads, n_ctx, head_dim)
     own_k = k.reshape(b, m, kv_heads, head_dim).transpose(1, 2)
     own_v = v.reshape(b, m, kv_heads, head_dim).transpose(1, 2)
-    keys = torch.cat([ctx_k.to(dtype), own_k.to(dtype)], dim=2).float()
-    vals = torch.cat([ctx_v.to(dtype), own_v.to(dtype)], dim=2).float()
+    keys = torch.cat([ctx_k, own_k.to(dtype)], dim=2).float()
+    vals = torch.cat([ctx_v, own_v.to(dtype)], dim=2).float()
     qg = q.to(dtype).float().reshape(b, m, kv_heads, group, head_dim)
     qg = qg.permute(0, 2, 1, 3, 4).reshape(b, kv_heads, rows, head_dim)
     s = torch.einsum("bkrd,bksd->bkrs", qg, keys) * scale
@@ -600,18 +716,19 @@ def attention_paged_spec_step_plain(
     attn = torch.einsum("bkrs,bksd->bkrd", p.to(dtype).float(), vals) / p.sum(dim=-1, keepdim=True)
     attn = attn.reshape(b, kv_heads, m, group, head_dim).permute(0, 2, 1, 3, 4)
     o = _wdot(attn.reshape(bm, heads * head_dim).to(dtype), wo, swo)
-    return _finish(x, o, residual), k_pool, v_pool
+    return _pools_out(_finish(x, o, residual), k_pool, v_pool, k_scale, v_scale)
 
 
 def _attention_paged_spec_step_kernel(
     x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool, wo, swo,
-    positions, block_tables, *, heads, kv_heads, head_dim, m, eps, residual,
-    lib=None,
+    positions, block_tables, k_scale=None, v_scale=None, *, heads, kv_heads,
+    head_dim, m, eps, residual, lib=None,
 ):
     dev = x.device
     bm, d = x.shape
     n_pages, _, page, _ = k_pool.shape
     n_qkv = (heads + 2 * kv_heads) * head_dim
+    q8 = _kv_mode(k_pool, k_scale, v_scale)
     _attn_shapes(heads, kv_heads, head_dim, page)
     if not 1 <= m <= page:
         raise ValueError(f"spec kernel takes 1 <= m <= page {page} candidate rows, got {m}")
@@ -626,13 +743,13 @@ def _attention_paged_spec_step_kernel(
     _need(x, "x", torch.bfloat16, (bm, d), dev)
     _int8_weight(wqkv, "wqkv", d, n_qkv, dev)
     _int8_weight(wo, "wo", heads * head_dim, d, dev)
-    pool_shape = (n_pages, kv_heads, page, head_dim)
-    _need(k_pool, "k_pool", torch.bfloat16, pool_shape, dev)
-    _need(v_pool, "v_pool", torch.bfloat16, pool_shape, dev)
+    _need_pools(k_pool, v_pool, k_scale, v_scale, kv_heads, head_dim, dev)
     _need(positions, "positions", torch.int32, (b,), dev)
     _need(block_tables, "block_tables", torch.int32, (b, max_pages), dev)
     _need(cos_rows, "cos_rows", torch.float32, (bm, head_dim), dev)
     _need(sin_rows, "sin_rows", torch.float32, (bm, head_dim), dev)
+    if not x.is_cuda:
+        _check_host_indices(positions, m, block_tables, n_pages, page)
     nw = _f32(norm_w, "norm_w", d, dev)
     sq = _f32(sqkv, "sqkv", n_qkv, dev)
     bq = _f32(bqkv, "bqkv", n_qkv, dev)
@@ -651,24 +768,24 @@ def _attention_paged_spec_step_kernel(
     out = torch.empty((bm, d), dtype=torch.bfloat16 if residual else torch.float32,
                       device=dev)
     rc = lib.dora_attention_paged_spec_step(
-        x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(),
-        bq.data_ptr() if bq is not None else None, cos_rows.data_ptr(),
-        sin_rows.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        wo.data_ptr(), so.data_ptr(), positions.data_ptr(),
-        block_tables.data_ptr(), out.data_ptr(), int(residual), b, m, d, heads,
-        kv_heads, max_pages, eps, 1.0 / (head_dim ** 0.5), h.data_ptr(),
-        p.data_ptr(), q.data_ptr(), kcur.data_ptr(), vcur.data_ptr(),
-        attn.data_ptr(), _build.stream_of(x),
+        x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(), _ptr(bq),
+        cos_rows.data_ptr(), sin_rows.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), wo.data_ptr(),
+        so.data_ptr(), positions.data_ptr(), block_tables.data_ptr(),
+        out.data_ptr(), int(residual), b, m, d, heads, kv_heads, max_pages, eps,
+        1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(),
+        kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), _build.stream_of(x),
     )
-    attention_paged_spec_step.launches += 1
+    _count(attention_paged_spec_step, q8)
     _build.check(rc, "attention_paged_spec_step")
-    return out, k_pool, v_pool
+    return _pools_out(out, k_pool, v_pool, k_scale, v_scale)
 
 
 def attention_paged_spec_step(
     x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool, wo, swo,
-    positions, block_tables, *, heads: int, kv_heads: int, head_dim: int,
-    m: int, eps: float = 1e-6, residual: bool = True,
+    positions, block_tables, k_scale=None, v_scale=None, *, heads: int,
+    kv_heads: int, head_dim: int, m: int, eps: float = 1e-6,
+    residual: bool = True,
 ):
     """Paged attention sublayer for B speculative-verify chunks.
 
@@ -679,17 +796,18 @@ def attention_paged_spec_step(
     m rows' K/V land in the pools in place (they may straddle a page);
     each row attends its stream's prior context and, causally, its own
     chunk. Callers keep ``positions[b] + m <= max_seq`` (the engine's spec
-    headroom). Returns (x_out [B*m, D], k_pool, v_pool)."""
+    headroom). Returns (x_out [B*m, D], k_pool, v_pool); with
+    ``k_scale``/``v_scale`` the int8-KV form (see
+    :func:`attention_paged_batch_step`), which writes exactly the m value
+    rows and m scale entries of each (stream, kv head), returning
+    (x_out, k_pool, v_pool, k_scale, v_scale)."""
     args = (x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_pool, v_pool,
-            wo, swo, positions, block_tables)
+            wo, swo, positions, block_tables, k_scale, v_scale)
     kw = dict(heads=heads, kv_heads=kv_heads, head_dim=head_dim, m=m, eps=eps,
               residual=residual)
     if not x.is_cuda:
         return attention_paged_spec_step_plain(*args, **kw)
     return _attention_paged_spec_step_kernel(*args, **kw)
-
-
-attention_paged_spec_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -733,8 +851,32 @@ def rope_rows(cos_table, sin_table, position: int, length: int = 1):
 #: the kernel wrappers of the paged serving path, in the order a layer runs them
 KERNELS = (attention_paged_chunk_step, attention_paged_batch_step,
            attention_paged_spec_step, mlp_step, lm_head_argmax)
+#: the wrappers that also launch an int8-KV form, counted apart as
+#: ``launches_int8kv`` (``launches`` counts their fp form)
+KV_INT8_KERNELS = (attention_paged_chunk_step, attention_paged_batch_step,
+                   attention_paged_spec_step)
+
+
+def _count(fn, int8kv: bool) -> None:
+    if int8kv:
+        fn.launches_int8kv += 1
+    else:
+        fn.launches += 1
 
 
 def reset_launches() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in KV_INT8_KERNELS:
+        fn.launches_int8kv = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches per kernel since :func:`reset_launches`, the int8-KV forms
+    as ``<name>_int8kv``."""
+    counts = {fn.__name__: fn.launches for fn in KERNELS}
+    counts.update({f"{fn.__name__}_int8kv": fn.launches_int8kv for fn in KV_INT8_KERNELS})
+    return counts
+
+
+reset_launches()

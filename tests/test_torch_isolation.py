@@ -19,7 +19,8 @@ def test_port_imports_no_jax_and_no_dora_tpu():
         "names = [m.name for m in pkgutil.walk_packages(dora_tpu_torch.__path__, 'dora_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dora_tpu'))\n"
-        "assert len(names) >= 12, names\n"
+        "assert len(names) >= 14, names\n"
+        "assert {'dora_tpu_torch.ops.lora', 'dora_tpu_torch.models.lora_pool'} <= set(names)\n"
         "print(len(names), bad)\n"
         "assert not bad, bad\n"
     )

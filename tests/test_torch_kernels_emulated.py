@@ -1,20 +1,42 @@
 """The CUDA kernels' sources, built for the host (csrc/emu/: one OS thread
 per CUDA thread, blocks in turn) and held against their plain PyTorch
 versions on the CPU, in bf16 at small sizes with the kernels' own head_dim
-128 and page 16.
+128 and page 16: the four kernels of the fp serving path, the speculative
+verify kernel, the int8-KV forms of the three attention kernels and the LoRA
+gather-matmul.
 
 This checks the kernels' indexing, masking and reductions without a card;
 it says nothing of how they compile or run on one (chip_smoke.py does).
-Tolerance: the largest error at most 1e-2 of the output's largest
-magnitude, the bf16 rounding of the kernels' bf16 intermediates and
-outputs (the kernel rounds softmax weights against the running max, the
-plain version against the final max); argmax tokens exact; untouched pool
-rows exact.
+
+Every launch of an emulated library runs in a child process (one per
+module, restarted after a failure), never in the test process: an index
+that runs out of bounds in hand-written C++ is a segfault, and a fault or a
+hang there becomes a failed test that names the signal, within
+CHILD_TIMEOUT_S, instead of taking the test worker down. The libraries are
+compiled in the test process (no code of theirs runs there); the plain
+versions run there too.
+
+Tolerances: the largest error at most 1e-2 of the output's largest
+magnitude, the bf16 rounding of the kernels' bf16 intermediates and outputs
+(the kernel rounds softmax weights against the running max, the plain
+version against the final max); argmax tokens exact; untouched pool rows
+and scale entries exact. int8 rows the kernels write: every byte within one
+step (1 LSB) of the plain version's, whose f32 K/V differ from the kernel's
+by summation order only, the share of differing bytes printed; their scales
+within 1e-5 relative. LoRA rows of slot 0 exactly zero.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
+import select
 import shutil
+import signal
+import struct
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -22,19 +44,150 @@ import torch
 
 from dora_tpu_torch.ops import _build
 from dora_tpu_torch.ops import decode_block as DB
+from dora_tpu_torch.ops import lora as LO
 from dora_tpu_torch.ops.int8_matmul import quantize_int8
 
 BF = torch.bfloat16
+CHILD_TIMEOUT_S = 60
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_WORKER_FLAG = "--emulated-kernel-worker"
+
+#: kernel name -> (module, wrapper that launches it, library)
+_KERNELS = {
+    "mlp_step": (DB, "_mlp_step_kernel", "mlp"),
+    "lm_head_argmax": (DB, "_lm_head_argmax_kernel", "lm_head"),
+    "attention_paged_batch_step": (DB, "_attention_paged_batch_step_kernel", "paged_attention"),
+    "attention_paged_chunk_step": (DB, "_attention_paged_chunk_step_kernel", "paged_attention"),
+    "attention_paged_spec_step": (DB, "_attention_paged_spec_step_kernel", "paged_attention"),
+    "lora_gather_matmul": (LO, "_lora_gather_matmul_kernel", "lora"),
+}
+_SIGNATURES = {**DB._SIGNATURES, **LO._SIGNATURES}
+
+
+# ---------------------------------------------------------------------------
+# the child process that runs the emulated kernels
+# ---------------------------------------------------------------------------
+
+
+def _run_job(job):
+    name, args, kw = job
+    if name == "__signal__":  # the harness's own check: die as a fault would
+        os.kill(os.getpid(), args[0])
+    if name == "__sleep__":
+        time.sleep(args[0])
+        return None
+    module, fn, lib = _KERNELS[name]
+    lib = _build.library(lib, _SIGNATURES[lib], compiler="host")
+    return getattr(module, fn)(*args, lib=lib, **kw)
+
+
+def _worker() -> None:
+    """Child main loop: length-prefixed pickled jobs on stdin, results (or
+    the exception raised) on the original stdout; anything printed goes to
+    stderr."""
+    out = os.fdopen(os.dup(1), "wb")
+    os.dup2(2, 1)
+    inp = sys.stdin.buffer
+    while True:
+        head = inp.read(8)
+        if len(head) < 8:
+            return
+        job = pickle.loads(inp.read(struct.unpack("<Q", head)[0]))
+        try:
+            res = (True, _run_job(job))
+        except Exception as e:  # returned to the test, which re-raises it
+            res = (False, e)
+        body = pickle.dumps(res)
+        out.write(struct.pack("<Q", len(body)) + body)
+        out.flush()
+
+
+class _Child:
+    """Runs jobs in one child process; a child that dies or overruns its
+    time fails the calling test with the cause, and the next call starts a
+    fresh child."""
+
+    def __init__(self):
+        self.proc = None
+
+    def _start(self):
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (_REPO, env.get("PYTHONPATH")) if p)
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), _WORKER_FLAG],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, cwd=_REPO, env=env,
+            bufsize=0,
+        )
+
+    def close(self):
+        if self.proc is not None:
+            self.proc.kill()
+            self.proc.wait()
+            self.proc = None
+
+    def _read(self, n: int, deadline: float) -> bytes:
+        fd = self.proc.stdout.fileno()
+        buf = bytearray()
+        while len(buf) < n:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError
+            ready, _, _ = select.select([fd], [], [], left)
+            if ready:
+                chunk = os.read(fd, n - len(buf))
+                if not chunk:
+                    raise EOFError
+                buf += chunk
+        return bytes(buf)
+
+    def call(self, name: str, *args, timeout: float = CHILD_TIMEOUT_S, **kw):
+        """Run kernel ``name``'s wrapper in the child on ``args`` (host
+        tensors, returned with the in-place updates the kernel made)."""
+        if self.proc is None or self.proc.poll() is not None:
+            self._start()
+        body = pickle.dumps((name, args, kw))
+        deadline = time.monotonic() + timeout
+        try:
+            self.proc.stdin.write(struct.pack("<Q", len(body)) + body)
+            self.proc.stdin.flush()
+            n = struct.unpack("<Q", self._read(8, deadline))[0]
+            ok, res = pickle.loads(self._read(n, deadline))
+        except (EOFError, BrokenPipeError):
+            rc = self.proc.wait()
+            self.proc = None
+            cause = f"signal {signal.Signals(-rc).name}" if rc < 0 else f"exit code {rc}"
+            pytest.fail(f"emulated {name} killed its child process: {cause}")
+        except TimeoutError:
+            self.close()
+            pytest.fail(f"emulated {name} hung: no result within {timeout} s")
+        if not ok:
+            raise res
+        return res
 
 
 @pytest.fixture(scope="module")
-def libs():
+def emu():
     if shutil.which("g++") is None and shutil.which("c++") is None:
         pytest.skip("no host C++ compiler for the emulated kernel build")
-    return {
-        n: _build.library(n, DB._SIGNATURES[n], compiler="host")
-        for n in _build.SOURCES
-    }
+    _build.build(_build.SOURCES, compiler="host")  # compile only; nothing runs here
+    child = _Child()
+    yield child
+    child.close()
+
+
+def test_child_faults_and_hangs_fail_the_test_not_the_worker(emu):
+    """A segfault in the child is a failed test naming SIGSEGV, a hang one
+    naming the time limit, and the next call gets a fresh child."""
+    with pytest.raises(pytest.fail.Exception, match="SIGSEGV"):
+        emu.call("__signal__", signal.SIGSEGV)
+    with pytest.raises(pytest.fail.Exception, match="hung"):
+        emu.call("__sleep__", 30, timeout=1)
+    assert emu.call("__sleep__", 0) is None
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
 
 
 def _t(a, dtype=torch.float32):
@@ -44,36 +197,6 @@ def _t(a, dtype=torch.float32):
 def _rel(got, want) -> float:
     got, want = got.float(), want.float()
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
-
-
-@pytest.mark.parametrize("m,bias,residual", [(3, True, True), (20, False, False)])
-def test_mlp_kernel_matches_plain(libs, m, bias, residual):
-    rng = np.random.default_rng(m)
-    d, f = 96, 80
-    x = _t(rng.standard_normal((m, d)), BF)
-    nw = _t(rng.standard_normal(d))
-    wgu = quantize_int8(_t(rng.standard_normal((d, 2 * f))))
-    wd = quantize_int8(_t(rng.standard_normal((f, d))))
-    b = _t(rng.standard_normal(2 * f)) if bias else None
-    args = (x, nw, wgu["int8"], wgu["scale"], b, wd["int8"], wd["scale"])
-    want = DB.mlp_step_plain(*args, residual=residual)
-    got = DB._mlp_step_kernel(*args, eps=1e-6, residual=residual, lib=libs["mlp"])
-    assert got.dtype == want.dtype
-    assert _rel(got, want) <= 1e-2
-
-
-@pytest.mark.parametrize("m,vocab", [(3, 300), (20, 1000)])
-def test_lm_head_kernel_matches_plain(libs, m, vocab):
-    rng = np.random.default_rng(vocab)
-    d = 96
-    x = _t(rng.standard_normal((m, d)), BF)
-    nw = _t(rng.standard_normal(d))
-    wh = quantize_int8(_t(rng.standard_normal((d, vocab))))
-    ti, tv = DB.lm_head_argmax_plain(x, nw, wh["int8"], wh["scale"], return_val=True)
-    gi, gv = DB._lm_head_argmax_kernel(x, nw, wh["int8"], wh["scale"], eps=1e-6,
-                                       return_val=True, lib=libs["lm_head"])
-    assert torch.equal(gi, ti)
-    assert _rel(gv, tv) <= 1e-2
 
 
 def _attn_setup(rng, d=64, h=4, kv=2, hd=128):
@@ -86,65 +209,136 @@ def _attn_setup(rng, d=64, h=4, kv=2, hd=128):
     return wqkv, wo, bqkv, nw, torch.cos(freqs), torch.sin(freqs)
 
 
-def test_paged_batch_kernel_matches_plain(libs):
-    """Rows mid-page, at a page start, frozen (position 0, zeroed table
-    row) and past three pages."""
-    rng = np.random.default_rng(0)
-    h, kv, hd, page, maxp, d = 4, 2, 128, 16, 6, 64
-    wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng, d, h, kv, hd)
+def _int8_pools(rng, shape):
+    """int8 K and V pools with their scale planes, quantized through the
+    port's number format from seeded normals."""
+    kq, ks = DB.kv_quant_rows(_t(rng.standard_normal(shape) * 0.5))
+    vq, vs = DB.kv_quant_rows(_t(rng.standard_normal(shape) * 0.5))
+    return kq, vq, ks, vs
+
+
+def _check_int8_writes(got, want, before, written, what):
+    """int8 pools the kernel wrote (got) against the plain version's (want):
+    written rows within 1 LSB and their scales within 1e-5 relative; every
+    other value and scale entry bit-unchanged from ``before``. Page 0 (the
+    null page) is left out."""
+    kg, vg, ksg, vsg = got
+    kw, vw, ksw, vsw = want
+    k0, v0, ks0, vs0 = before
+    w = written.clone()
+    w[0] = False
+    keep = ~written
+    keep[0] = False
+    diff = 0
+    for qg, qw, q0 in ((kg, kw, k0), (vg, vw, v0)):
+        step = (qg[w].int() - qw[w].int()).abs()
+        assert int(step.max()) <= 1, f"{what}: written int8 rows more than 1 LSB apart"
+        diff += int((step > 0).sum())
+        assert torch.equal(qg[keep], q0[keep]), f"{what}: unwritten values changed"
+    for sg, sw, s0 in ((ksg, ksw, ks0), (vsg, vsw, vs0)):
+        assert _rel(sg[w], sw[w]) <= 1e-5, f"{what}: written scales disagree"
+        assert torch.equal(sg[keep], s0[keep]), f"{what}: unwritten scales changed"
+    n = 2 * int(w.sum()) * kg.shape[-1]
+    print(f"{what}: {diff} of {n} written int8 bytes differ by 1 LSB ({diff / n:.2%})")
+
+
+# ---------------------------------------------------------------------------
+# the fp serving path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,bias,residual", [(3, True, True), (20, False, False)])
+def test_mlp_kernel_matches_plain(emu, m, bias, residual):
+    rng = np.random.default_rng(m)
+    d, f = 96, 80
+    x = _t(rng.standard_normal((m, d)), BF)
+    nw = _t(rng.standard_normal(d))
+    wgu = quantize_int8(_t(rng.standard_normal((d, 2 * f))))
+    wd = quantize_int8(_t(rng.standard_normal((f, d))))
+    b = _t(rng.standard_normal(2 * f)) if bias else None
+    args = (x, nw, wgu["int8"], wgu["scale"], b, wd["int8"], wd["scale"])
+    want = DB.mlp_step_plain(*args, residual=residual)
+    got = emu.call("mlp_step", *args, eps=1e-6, residual=residual)
+    assert got.dtype == want.dtype
+    assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("m,vocab", [(3, 300), (20, 1000)])
+def test_lm_head_kernel_matches_plain(emu, m, vocab):
+    rng = np.random.default_rng(vocab)
+    d = 96
+    x = _t(rng.standard_normal((m, d)), BF)
+    nw = _t(rng.standard_normal(d))
+    wh = quantize_int8(_t(rng.standard_normal((d, vocab))))
+    ti, tv = DB.lm_head_argmax_plain(x, nw, wh["int8"], wh["scale"], return_val=True)
+    gi, gv = emu.call("lm_head_argmax", x, nw, wh["int8"], wh["scale"], eps=1e-6,
+                      return_val=True)
+    assert torch.equal(gi, ti)
+    assert _rel(gv, tv) <= 1e-2
+
+
+def _batch_case(rng, h=4, kv=2, hd=128, page=16, maxp=6, d=64):
+    """Rows mid-page, at a page start, frozen (position 0, zeroed table row)
+    and past three pages."""
     positions = torch.tensor([17, 32, 0, 5, 50], dtype=torch.int32)
     b = positions.shape[0]
     bt = torch.zeros((b, maxp), dtype=torch.int32)
     for i in (0, 1, 3, 4):
         bt[i] = 1 + i * maxp + torch.arange(maxp, dtype=torch.int32)
     n_pool = 1 + b * maxp
-    kp = _t(rng.standard_normal((n_pool, kv, page, hd)) * 0.5, BF)
-    vp = _t(rng.standard_normal((n_pool, kv, page, hd)) * 0.5, BF)
+    wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng, d, h, kv, hd)
     x = _t(rng.standard_normal((b, d)), BF)
     cr, sr = DB.rope_rows_at(cos_t, sin_t, positions)
-    kw = dict(heads=h, kv_heads=kv, head_dim=hd)
-    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
-    want, _, _ = DB.attention_paged_batch_step_plain(
-        x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr, k1, v1,
-        wo["int8"], wo["scale"], positions, bt, **kw)
-    got, _, _ = DB._attention_paged_batch_step_kernel(
-        x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr, k2, v2,
-        wo["int8"], wo["scale"], positions, bt, eps=1e-6, residual=True,
-        lib=libs["paged_attention"], **kw)
-    assert _rel(got, want) <= 1e-2
-    assert _rel(k2[1:], k1[1:]) <= 1e-2 and _rel(v2[1:], v1[1:]) <= 1e-2
-    written = torch.zeros(kp.shape[:3], dtype=torch.bool)
+    written = torch.zeros((n_pool, kv, page), dtype=torch.bool)
     for i, p in enumerate(positions.tolist()):
         written[bt[i, p // page], :, p % page] = True
     written[0] = True
+    head = (x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr)
+    return head, (wo["int8"], wo["scale"], positions, bt), (n_pool, kv, page, hd), written
+
+
+def test_paged_batch_kernel_matches_plain(emu):
+    rng = np.random.default_rng(0)
+    head, tail, shape, written = _batch_case(rng)
+    kp = _t(rng.standard_normal(shape) * 0.5, BF)
+    vp = _t(rng.standard_normal(shape) * 0.5, BF)
+    kw = dict(heads=4, kv_heads=2, head_dim=128)
+    want, k1, v1 = DB.attention_paged_batch_step_plain(
+        *head, kp.clone(), vp.clone(), *tail, **kw)
+    got, k2, v2 = emu.call("attention_paged_batch_step", *head, kp.clone(), vp.clone(),
+                           *tail, eps=1e-6, residual=True, **kw)
+    assert _rel(got, want) <= 1e-2
+    assert _rel(k2[1:], k1[1:]) <= 1e-2 and _rel(v2[1:], v1[1:]) <= 1e-2
     assert torch.equal(k2[~written], kp[~written])
     assert torch.equal(v2[~written], vp[~written])
 
 
-@pytest.mark.parametrize("position", (0, 48))
-def test_paged_chunk_kernel_matches_plain(libs, position):
-    rng = np.random.default_rng(position + 1)
-    h, kv, hd, page, maxp, d, m = 4, 2, 128, 16, 6, 64, 32
+def _chunk_case(rng, position, h=4, kv=2, hd=128, page=16, maxp=6, d=64, m=32):
     wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng, d, h, kv, hd)
     n_pool = 10
     bt = torch.from_numpy((1 + rng.permutation(n_pool - 1)[:maxp]).astype(np.int32))
-    kp = _t(rng.standard_normal((n_pool, kv, page, hd)) * 0.5, BF)
-    vp = _t(rng.standard_normal((n_pool, kv, page, hd)) * 0.5, BF)
     x = _t(rng.standard_normal((m, d)), BF)
     cr, sr = DB.rope_rows(cos_t, sin_t, position, m)
-    kw = dict(heads=h, kv_heads=kv, head_dim=hd)
-    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
-    want, _, _ = DB.attention_paged_chunk_step_plain(
-        x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr, k1, v1,
-        wo["int8"], wo["scale"], position, bt, **kw)
-    got, _, _ = DB._attention_paged_chunk_step_kernel(
-        x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr, k2, v2,
-        wo["int8"], wo["scale"], position, bt, eps=1e-6, residual=True,
-        lib=libs["paged_attention"], **kw)
+    written = torch.zeros((n_pool, kv, page), dtype=torch.bool)
+    written[bt[position // page : position // page + m // page].long()] = True
+    head = (x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr)
+    return head, (wo["int8"], wo["scale"], position, bt), (n_pool, kv, page, hd), written
+
+
+@pytest.mark.parametrize("position", (0, 48))
+def test_paged_chunk_kernel_matches_plain(emu, position):
+    rng = np.random.default_rng(position + 1)
+    head, tail, shape, written = _chunk_case(rng, position)
+    kp = _t(rng.standard_normal(shape) * 0.5, BF)
+    vp = _t(rng.standard_normal(shape) * 0.5, BF)
+    kw = dict(heads=4, kv_heads=2, head_dim=128)
+    want, k1, v1 = DB.attention_paged_chunk_step_plain(
+        *head, kp.clone(), vp.clone(), *tail, **kw)
+    got, k2, v2 = emu.call("attention_paged_chunk_step", *head, kp.clone(), vp.clone(),
+                           *tail, eps=1e-6, residual=True, **kw)
     assert _rel(got, want) <= 1e-2
     assert _rel(k2, k1) <= 1e-2 and _rel(v2, v1) <= 1e-2
-    chunk = set(bt[position // page : position // page + m // page].tolist())
-    others = [p for p in range(n_pool) if p not in chunk]
+    others = ~written[:, 0, 0]
     assert torch.equal(k2[others], kp[others])
 
 
@@ -163,13 +357,10 @@ def test_kernel_wrappers_refuse_shapes_the_kernels_do_not_take():
             torch.ones(1, 64), eps=1e-6, residual=True, lib=object())
 
 
-def test_paged_spec_kernel_matches_plain(libs):
+def _spec_case(rng, m=5, h=4, kv=2, hd=128, page=16, maxp=6, d=64):
     """Four streams of m = 5 candidate rows: one straddling a page (14..18),
     one frozen (position 0, zeroed table row), one past two pages (37) and
-    one at a page start (32). Outputs and written rows within tolerance,
-    every other row of the live pages exact."""
-    rng = np.random.default_rng(11)
-    h, kv, hd, page, maxp, d, m = 4, 2, 128, 16, 6, 64, 5
+    one at a page start (32)."""
     wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng, d, h, kv, hd)
     positions = torch.tensor([14, 0, 37, 32], dtype=torch.int32)
     b = positions.shape[0]
@@ -177,28 +368,33 @@ def test_paged_spec_kernel_matches_plain(libs):
     for i in (0, 2, 3):
         bt[i] = 1 + i * maxp + torch.arange(maxp, dtype=torch.int32)
     n_pool = 1 + b * maxp
-    kp = _t(rng.standard_normal((n_pool, kv, page, hd)) * 0.5, BF)
-    vp = _t(rng.standard_normal((n_pool, kv, page, hd)) * 0.5, BF)
     x = _t(rng.standard_normal((b * m, d)), BF)
     flat = (positions[:, None] + torch.arange(m, dtype=torch.int32)[None, :]).reshape(-1)
     cr, sr = DB.rope_rows_at(cos_t, sin_t, flat)
-    kw = dict(heads=h, kv_heads=kv, head_dim=hd, m=m)
-    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
-    want, _, _ = DB.attention_paged_spec_step_plain(
-        x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr, k1, v1,
-        wo["int8"], wo["scale"], positions, bt, **kw)
-    got, _, _ = DB._attention_paged_spec_step_kernel(
-        x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr, k2, v2,
-        wo["int8"], wo["scale"], positions, bt, eps=1e-6, residual=True,
-        lib=libs["paged_attention"], **kw)
-    assert _rel(got, want) <= 1e-2
-    assert _rel(k2[1:], k1[1:]) <= 1e-2 and _rel(v2[1:], v1[1:]) <= 1e-2
-    written = torch.zeros(kp.shape[:3], dtype=torch.bool)
+    written = torch.zeros((n_pool, kv, page), dtype=torch.bool)
     for i, p in enumerate(positions.tolist()):
         for r in range(p, p + m):
             written[bt[i, r // page], :, r % page] = True
     written[0] = True
     assert int(written[1:].sum()) == 3 * m * kv
+    head = (x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr)
+    return head, (wo["int8"], wo["scale"], positions, bt), (n_pool, kv, page, hd), written
+
+
+def test_paged_spec_kernel_matches_plain(emu):
+    """Outputs and written rows within tolerance, every other row of the
+    live pages exact."""
+    rng = np.random.default_rng(11)
+    head, tail, shape, written = _spec_case(rng)
+    kp = _t(rng.standard_normal(shape) * 0.5, BF)
+    vp = _t(rng.standard_normal(shape) * 0.5, BF)
+    kw = dict(heads=4, kv_heads=2, head_dim=128, m=5)
+    want, k1, v1 = DB.attention_paged_spec_step_plain(
+        *head, kp.clone(), vp.clone(), *tail, **kw)
+    got, k2, v2 = emu.call("attention_paged_spec_step", *head, kp.clone(), vp.clone(),
+                           *tail, eps=1e-6, residual=True, **kw)
+    assert _rel(got, want) <= 1e-2
+    assert _rel(k2[1:], k1[1:]) <= 1e-2 and _rel(v2[1:], v1[1:]) <= 1e-2
     assert torch.equal(k2[~written], kp[~written])
     assert torch.equal(v2[~written], vp[~written])
 
@@ -223,3 +419,123 @@ def test_spec_wrapper_refuses_shapes_the_kernel_does_not_take():
         call(x, torch.zeros((3,), dtype=torch.int32), 5)
     with pytest.raises(ValueError, match="dtype"):
         call(x.float(), pos, 5)
+
+
+# ---------------------------------------------------------------------------
+# int8 KV pages
+# ---------------------------------------------------------------------------
+
+
+def test_paged_batch_int8kv_kernel_matches_plain(emu):
+    rng = np.random.default_rng(20)
+    head, tail, shape, written = _batch_case(rng)
+    pools = _int8_pools(rng, shape)
+    kw = dict(heads=4, kv_heads=2, head_dim=128)
+    want, *pw = DB.attention_paged_batch_step_plain(
+        *head, pools[0].clone(), pools[1].clone(), *tail, pools[2].clone(),
+        pools[3].clone(), **kw)
+    got, *pg = emu.call("attention_paged_batch_step", *head, pools[0].clone(),
+                        pools[1].clone(), *tail, pools[2].clone(), pools[3].clone(),
+                        eps=1e-6, residual=True, **kw)
+    assert _rel(got, want) <= 1e-2
+    _check_int8_writes(pg, pw, pools, written, "batch int8 KV")
+
+
+@pytest.mark.parametrize("position", (0, 48))
+def test_paged_chunk_int8kv_kernel_matches_plain(emu, position):
+    """The chunk writes whole pages and scale rows; the prior pages are
+    dequantized, the chunk's own rows fold from fp."""
+    rng = np.random.default_rng(position + 21)
+    head, tail, shape, written = _chunk_case(rng, position)
+    pools = _int8_pools(rng, shape)
+    kw = dict(heads=4, kv_heads=2, head_dim=128)
+    want, *pw = DB.attention_paged_chunk_step_plain(
+        *head, pools[0].clone(), pools[1].clone(), *tail, pools[2].clone(),
+        pools[3].clone(), **kw)
+    got, *pg = emu.call("attention_paged_chunk_step", *head, pools[0].clone(),
+                        pools[1].clone(), *tail, pools[2].clone(), pools[3].clone(),
+                        eps=1e-6, residual=True, **kw)
+    assert _rel(got, want) <= 1e-2
+    _check_int8_writes(pg, pw, pools, written, f"chunk int8 KV at {position}")
+
+
+def test_paged_spec_int8kv_kernel_matches_plain(emu):
+    """Exactly m value rows and m scale entries per (live stream, kv head)
+    are written, one stream's straddling a page."""
+    rng = np.random.default_rng(22)
+    head, tail, shape, written = _spec_case(rng)
+    pools = _int8_pools(rng, shape)
+    kw = dict(heads=4, kv_heads=2, head_dim=128, m=5)
+    want, *pw = DB.attention_paged_spec_step_plain(
+        *head, pools[0].clone(), pools[1].clone(), *tail, pools[2].clone(),
+        pools[3].clone(), **kw)
+    got, *pg = emu.call("attention_paged_spec_step", *head, pools[0].clone(),
+                        pools[1].clone(), *tail, pools[2].clone(), pools[3].clone(),
+                        eps=1e-6, residual=True, **kw)
+    assert _rel(got, want) <= 1e-2
+    _check_int8_writes(pg, pw, pools, written, "spec int8 KV")
+
+
+# ---------------------------------------------------------------------------
+# LoRA gather-matmul
+# ---------------------------------------------------------------------------
+
+
+def _lora_case(rng, rows, d=96, rank=12, slots=5, layers=3, layer=1):
+    """A [slots, layers, ...] resident stack (slot 0 zero) and one layer's
+    strided slice of it, as the fused pass hands it over; ids mixed, with
+    slot-0 rows and repeats."""
+    a = _t(rng.standard_normal((slots, layers, d, rank)) * 0.3, BF)
+    b = _t(rng.standard_normal((slots, layers, rank, d)) * 0.3, BF)
+    a[0] = 0
+    b[0] = 0
+    groups = torch.from_numpy(rng.integers(0, slots, size=rows).astype(np.int32))
+    groups[:2] = torch.tensor([0, 3], dtype=torch.int32)
+    x = _t(rng.standard_normal((rows, d)), BF)
+    return x, groups, a[:, layer], b[:, layer]
+
+
+@pytest.mark.parametrize("rows", (7, 33))
+def test_lora_kernel_matches_plain(emu, rows):
+    rng = np.random.default_rng(rows)
+    x, groups, a, b = _lora_case(rng, rows)
+    want = LO.lora_gather_matmul_plain(x, groups, a, b)
+    got = emu.call("lora_gather_matmul", x, groups, a, b)
+    assert got.dtype == BF and got.shape == want.shape
+    assert _rel(got, want) <= 1e-2
+    base = groups == 0
+    assert bool(base.any()) and not got[base].float().any()
+
+
+def test_host_wrappers_check_index_operands():
+    """Out-of-range block-table entries, positions whose rows run past the
+    table and adapter ids past the stack raise before any launch."""
+    rng = np.random.default_rng(5)
+    head, (wo, swo, positions, bt), shape, _ = _batch_case(rng)
+    kp = torch.zeros(shape, dtype=BF)
+    kw = dict(heads=4, kv_heads=2, head_dim=128, eps=1e-6, residual=True, lib=object())
+    bad_bt = bt.clone()
+    bad_bt[1, 2] = shape[0]
+    with pytest.raises(ValueError, match="block table entries"):
+        DB._attention_paged_batch_step_kernel(*head, kp, kp, wo, swo, positions, bad_bt, **kw)
+    far = positions.clone()
+    far[0] = bt.shape[1] * 16
+    with pytest.raises(ValueError, match="inside"):
+        DB._attention_paged_batch_step_kernel(*head, kp, kp, wo, swo, far, bt, **kw)
+    shead, (wo, swo, spos, sbt), sshape, _ = _spec_case(rng)
+    sp = torch.zeros(sshape, dtype=BF)
+    spos = spos.clone()
+    spos[2] = sbt.shape[1] * 16 - 4  # 5 rows from here run past the table
+    with pytest.raises(ValueError, match="inside"):
+        DB._attention_paged_spec_step_kernel(*shead, sp, sp, wo, swo, spos, sbt,
+                                             m=5, **kw)
+    x, groups, a, b = _lora_case(rng, 4)
+    groups[3] = a.shape[0]
+    with pytest.raises(ValueError, match="adapter ids"):
+        LO._lora_gather_matmul_kernel(x, groups, a, b, lib=object())
+    with pytest.raises(ValueError, match="adapter ids"):
+        LO.lora_gather_matmul(x, groups, a, b)
+
+
+if __name__ == "__main__" and sys.argv[1:] == [_WORKER_FLAG]:
+    _worker()
