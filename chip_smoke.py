@@ -57,7 +57,30 @@ Phases, each printed on its own line:
    the base group's on an engine without a catalog, two requests through
    the plain versions (partings only at near-ties); and a short spec-on run
    (``DORA_SPEC_K=4``, 32 new tokens) through the int8 spec form with the
-   LoRA kernel at 80 rows.
+   LoRA kernel at 80 rows;
+9. the dense batch engine at full width and depth: ``make_engine`` with
+   ``DORA_PAGED_KV=0`` (4 slots, max_seq 2048) serves 12 requests of 8..1000
+   tokens, three of them <= 32 tokens so that ``int8_matmul`` runs their
+   whole prefill, 128 new tokens each, through ``serve_prompts``, so that
+   later requests join mid-flight. ``int8_matmul``, ``attention_batch_step``,
+   ``mlp_step`` and ``lm_head_argmax`` must run, the paged kernels and every
+   plain version not; decode tokens/s, step time and TTFT are printed;
+10. batch-1 decode: ``qwen2.generate`` on two of phase 9's prompts (128 new
+   tokens) through ``attention_step``, then ``spec_decode.run_loop`` with
+   ``verify`` over ``qwen2.fused_step`` (k = 4) through
+   ``attention_chunk_step``; the dense engine's streams, ``generate``'s and
+   ``run_loop``'s must agree or part at near-ties of the f32 plain version
+   of this path (its prefill takes the bf16 sidecars, not the paged path's
+   int8 weights): the served token within NEAR_TIE, the other within
+   SPEC_REF_TIE, as in phases 7 and 8.
+
+Phase 3 also holds the four kernels of phases 9 and 10 against their plain
+versions at Qwen2-1.5B shapes: ``int8_matmul`` at 1 row on the head, 16 on
+``wqkv`` and 256 on ``w_down``; ``attention_batch_step`` on 4 planes of 2048
+rows (positions 0 .. 2047), ``attention_step`` at 1500 and
+``attention_chunk_step`` on 5 rows ending on row 2047, every cache row from
+the written ones on NaN first: outputs finite, unwritten cache values
+bit-unchanged, and each also with ``residual=False``.
 
 It prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -92,6 +115,10 @@ REL_TOL = {
     "attention_paged_spec_step_int8kv": 5e-3,     # seen 1.7e-3
     "int8kv_scales": 1e-6,               # scales of the rows written; seen 1.6e-7 .. 2.4e-7
     "lora_gather_matmul": 6e-3,          # seen 1.3e-4 (16 rows), 1.0e-3 (80), 1.9e-3 (256)
+    "int8_matmul": 5e-3,                 # seen 1.1e-3 (head), 4.7e-6 (16 rows), 1.6e-3 (256)
+    "attention_batch_step": 3e-3,        # seen 2.2e-4
+    "attention_step": 1.2e-2,            # seen 4.0e-3: one bf16 step of its one row's largest output
+    "attention_chunk_step": 1.3e-2,      # seen 3.6e-3 (2.9e-3 residual=False)
 }
 SPEC_K = 4         # drafts per verify in phase 6: m = 5 candidate rows a stream
 HEAD_TIE = 1e-3    # logits this close may pick either token (kernel check)
@@ -115,6 +142,10 @@ SPEC_REF_TIE = 2 * NEAR_TIE
 ADAPTER_RANKS = {"t0": 8, "t1": 16, "t2": 16, "t3": 32}
 ADAPTER_STD = 0.03
 TENANT_SPEC_MAX_NEW = 32  # phase 8's short spec-on run
+# Phase 9: prompt lengths (three <= 32 tokens: their prefill runs in
+# int8_matmul); phase 10 takes two of them.
+DENSE_LENGTHS = (8, 20, 32, 100, 212, 325, 438, 550, 662, 775, 888, 1000)
+BATCH1_PICKS = (1, 11)
 
 
 class Failed(Exception):
@@ -161,12 +192,17 @@ SPEC_OFF_KERNELS = ("attention_paged_chunk_step", "attention_paged_batch_step", 
 class _PlainCalls:
     """Counts every call of a plain version while it is installed."""
 
-    NAMES = tuple(f"{n}_plain" for n in SPEC_OFF_KERNELS) + ("attention_paged_spec_step_plain",)
+    NAMES = tuple(f"{n}_plain" for n in SPEC_OFF_KERNELS) + (
+        "attention_paged_spec_step_plain", "attention_batch_step_plain",
+        "attention_step_plain", "attention_chunk_step_plain")
 
     def __init__(self, DB, LO):
+        from dora_tpu_torch.ops import int8_matmul as IM
+
         self.n = 0
         self.saved = [(DB, name, getattr(DB, name)) for name in self.NAMES]
         self.saved.append((LO, "lora_gather_matmul_plain", LO.lora_gather_matmul_plain))
+        self.saved.append((IM, "int8_matmul_plain", IM.int8_matmul_plain))
         for mod, name, fn in self.saved:
             setattr(mod, name, self._counting(fn))
 
@@ -182,13 +218,19 @@ class _PlainCalls:
 
 
 def _reset_launches(DB, LO) -> None:
+    from dora_tpu_torch.ops import int8_matmul as IM
+
     DB.reset_launches()
     LO.reset_launches()
+    IM.reset_launches()
 
 
 def _launches(DB, LO) -> dict:
     """Every kernel's launches since _reset_launches, int8-KV forms apart."""
-    return {**DB.launch_counts(), "lora_gather_matmul": LO.lora_gather_matmul.launches}
+    from dora_tpu_torch.ops import int8_matmul as IM
+
+    return {**DB.launch_counts(), "lora_gather_matmul": LO.lora_gather_matmul.launches,
+            "int8_matmul": IM.int8_matmul.launches}
 
 
 def _check_streams(out: dict, max_new: int, vocab: int) -> None:
@@ -736,16 +778,19 @@ def serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, max_n
 
 
 class _Paths:
-    """Switches the fused passes between the kernels and the plain versions
-    and reads the logits of the next token after a prefix on either path."""
+    """Switches the model between the kernels and the plain versions and
+    reads the logits of a next token off the head on the kernel path, the
+    plain path, or the plain path in f32 (the reference)."""
 
-    NAMES = SPEC_OFF_KERNELS + ("attention_paged_spec_step",)
+    NAMES = SPEC_OFF_KERNELS + ("attention_paged_spec_step", "attention_batch_step",
+                                "attention_step", "attention_chunk_step")
 
-    def __init__(self, torch, DB, LO, qwen2, L, serve_prompts, params, cfg):
-        self.torch, self.DB, self.LO, self.qwen2, self.L = torch, DB, LO, qwen2, L
+    def __init__(self, torch, DB, LO, IM, qwen2, L, serve_prompts, params, cfg):
+        self.torch, self.DB, self.IM, self.qwen2, self.L = torch, DB, IM, qwen2, L
         self.serve_prompts, self.params, self.cfg = serve_prompts, params, cfg
         self.saved = [(DB, n, getattr(DB, n)) for n in self.NAMES]
         self.saved.append((LO, "lora_gather_matmul", LO.lora_gather_matmul))
+        self.saved.append((IM, "int8_matmul", IM.int8_matmul))
 
     def use(self, plain: bool) -> None:
         for mod, n, fn in self.saved:
@@ -757,56 +802,94 @@ class _Paths:
                                             chunk=256, window=8, spec_k=0, prefix_cache=False,
                                             device="cuda")
 
-    def logits_after(self, prefix, mode: str, engine=None, adapter=None):
-        """Logits of the next token after ``prefix`` (its final chunk's row)
-        on the kernel path, the plain path, or the plain path in f32, on a
-        fresh engine from ``engine`` (default :meth:`engine`), the request
-        served as ``adapter``'s tenant. The kernel path records inside the
-        wrapper, which keeps counting its launches."""
-        torch, DB, L = self.torch, self.DB, self.L
-        engine = engine or self.engine
-        last_logits: list = [None]
+    def logits_of(self, run, mode: str):
+        """The logits [rows, vocab] of the last head that ``run()`` calls on
+        the ``mode`` path ("kernel", "plain" or "f32"): a fused pass's
+        ``lm_head_argmax`` or the unfused prefill's ``int8_matmul`` on the
+        vocabulary. The kernel path records inside the wrappers, which keep
+        counting their launches."""
+        torch, DB, IM, L = self.torch, self.DB, self.IM, self.L
+        last: list = [None]
         bf16_dtype = L.compute_dtype
-        self.use(mode != "kernel")
-        if mode == "f32":
-            L.compute_dtype = lambda device: torch.float32
-        # the head the pass calls: the kernel inside its wrapper, or the plain twin
-        name = "_lm_head_argmax_kernel" if mode == "kernel" else "lm_head_argmax"
-        head = getattr(DB, name)
+        plain = mode != "kernel"
+        self.use(plain)
+        head_name = "lm_head_argmax" if plain else "_lm_head_argmax_kernel"
+        matmul_name = "int8_matmul" if plain else "_int8_matmul_kernel"
+        head, matmul = getattr(DB, head_name), getattr(IM, matmul_name)
 
-        def recording(x, norm_w, w, s, *, eps=1e-6, return_val=False):
-            h = DB._rms(x, norm_w, eps).to(x.dtype)
-            last_logits[0] = DB._wdot(h, w, s)
+        def head_rec(x, norm_w, w, s, *, eps=1e-6, return_val=False):
+            last[0] = DB._wdot(DB._rms(x, norm_w, eps).to(x.dtype), w, s)
             return head(x, norm_w, w, s, eps=eps, return_val=return_val)
 
-        setattr(DB, name, recording)
+        def matmul_rec(x, q, s, **k):
+            out = matmul(x, q, s, **k)
+            if q.shape[1] == self.cfg.vocab:
+                last[0] = out.reshape(-1, q.shape[1])
+            return out
+
+        setattr(DB, head_name, head_rec)
+        setattr(IM, matmul_name, matmul_rec)
+        if mode == "f32":
+            L.compute_dtype = lambda device: torch.float32
         try:
-            eng = engine()
-            self.serve_prompts(eng, [prefix], 1, adapters=[adapter])
+            run()
         finally:
-            setattr(DB, name, head)
+            setattr(DB, head_name, head)
+            setattr(IM, matmul_name, matmul)
             L.compute_dtype = bf16_dtype
             self.use(plain=False)
-        return last_logits[0][(len(prefix) - 1) % eng.chunk].float()
+        return last[0].float()
 
-    def near_tie(self, what: str, prefix, a: int, b: int, b_bound: float = NEAR_TIE,
-                 engine=None, adapter=None) -> None:
-        """Where a served stream (token ``a``) parts from a reference path
-        (token ``b``) after ``prefix``, ``a`` must be within NEAR_TIE of the
-        f32 plain path's top logit and ``b`` within ``b_bound``. The bf16
-        plain path's own deviations there are printed beside them."""
-        lf = self.logits_after(prefix, "f32", engine, adapter)
-        lp = self.logits_after(prefix, "plain", engine, adapter)
+    def after(self, prefix, engine=None, adapter=None):
+        """``mode -> logits`` of the next token after ``prefix`` (its final
+        chunk's row) on a fresh paged engine from ``engine`` (default
+        :meth:`engine`), the request served as ``adapter``'s tenant."""
+        made: list = [None]
+
+        def run():
+            made[0] = (engine or self.engine)()
+            self.serve_prompts(made[0], [prefix], 1, adapters=[adapter])
+
+        return lambda mode: self.logits_of(run, mode)[(len(prefix) - 1) % made[0].chunk]
+
+    def check(self, what: str, logits, parting=None, b_bound: float = NEAR_TIE,
+              rms: bool = True) -> None:
+        """At one point of a served stream, ``logits(mode)`` reading its next
+        token's logits on each path. With ``rms``, the kernel path's logits
+        may be at most RMS_MARGIN times as far (RMS) from the f32 plain
+        path's as the bf16 plain path's. Where the served stream parts from
+        another path, ``parting`` = (a, b), the served token ``a`` must be
+        within NEAR_TIE of the f32 top logit and the other path's ``b``
+        within ``b_bound``; the bf16 plain path's own deviations there are
+        printed beside them."""
+        lf, lp = logits("f32"), logits("plain")
+        std = float(lf.std())
+        if rms:
+            lk = logits("kernel")
+            rms_k = float((lk - lf).pow(2).mean().sqrt())
+            rms_p = float((lp - lf).pow(2).mean().sqrt())
+            print(f"{what}: logits vs the f32 plain path: kernel path rms {rms_k:.4e} (max "
+                  f"{float((lk - lf).abs().max()):.4e}), bf16 plain path rms {rms_p:.4e} (max "
+                  f"{float((lp - lf).abs().max()):.4e}; logit std {std:.3f})", flush=True)
+            if not rms_k <= RMS_MARGIN * rms_p:
+                raise Failed(f"{what}: the kernel path is further from the f32 reference than "
+                             f"bf16 rounding explains")
+        if parting is None:
+            return
+        a, b = parting
         top = float(lf.max())
         da, db = top - float(lf[a]), top - float(lf[b])
-        print(f"{what}: where they part the served token is {da:.4e} and the reference "
-              f"token {db:.4e} below the f32 maximum (bounds {NEAR_TIE} and {b_bound}; logit "
-              f"std {float(lf.std()):.3f}); bf16 plain path vs f32 there: max "
+        plain_top = int(lp.argmax())
+        print(f"{what}: where they part the served token is {da:.4e} and the other "
+              f"{db:.4e} below the f32 maximum (bounds {NEAR_TIE} and {b_bound}; logit std "
+              f"{std:.3f}); bf16 plain path vs f32 there: max "
               f"{float((lp - lf).abs().max()):.4e}, at the two tokens "
-              f"{float(lp[a] - lf[a]):+.4e} and {float(lp[b] - lf[b]):+.4e}", flush=True)
+              f"{float(lp[a] - lf[a]):+.4e} and {float(lp[b] - lf[b]):+.4e}; the bf16 plain "
+              f"path's top token is "
+              f"{'the served one' if plain_top == a else 'the other' if plain_top == b else plain_top}",
+              flush=True)
         if not (da <= NEAR_TIE and db <= b_bound):
             raise Failed(f"{what} parts away from a near-tie")
-        return lf, lp
 
 
 def _first_parting(a, b, n: int) -> int:
@@ -832,19 +915,10 @@ def check_plain_agreement(paths, prompts, max_new, served, picks):
         # Logits where the streams part (else before the last token).
         at = min(same, max_new - 1)
         prefix = prompts[i] + a[:at]
-        lk, lp, lf = (paths.logits_after(prefix, m) for m in ("kernel", "plain", "f32"))
-        rms_k = float((lk - lf).pow(2).mean().sqrt())
-        rms_p = float((lp - lf).pow(2).mean().sqrt())
-        max_p = float((lp - lf).abs().max())
         print(f"plain agreement: request {i}: first {same} of {max_new} greedy tokens "
-              f"equal; logits after {len(prefix)} tokens vs the f32 plain path: "
-              f"kernel path rms {rms_k:.4e}, bf16 plain path rms {rms_p:.4e} "
-              f"(max {max_p:.4e}; logit std {float(lf.std()):.3f})", flush=True)
-        if not rms_k <= RMS_MARGIN * rms_p:
-            raise Failed(f"request {i}: the kernel path is further from the f32 "
-                         f"reference than bf16 rounding explains")
-        if same < max_new:
-            paths.near_tie(f"plain agreement: request {i}", prefix, a[same], b[same])
+              f"equal", flush=True)
+        paths.check(f"plain agreement: request {i}, after {len(prefix)} tokens",
+                    paths.after(prefix), (a[same], b[same]) if same < max_new else None)
 
 
 #: the front-door knobs phases 6 and 8 clear so that make_engine's defaults run
@@ -968,8 +1042,8 @@ def check_spec_agreement(paths, prompts, max_new, served, picks):
         print(f"spec agreement: request {i}: first {same} of {max_new} tokens equal to the "
               f"spec-off, cache-off engine", flush=True)
         if same < max_new:
-            paths.near_tie(f"spec agreement: request {i}", prompts[i] + a[:same], a[same],
-                           b[same], SPEC_REF_TIE)
+            paths.check(f"spec agreement: request {i}", paths.after(prompts[i] + a[:same]),
+                        (a[same], b[same]), SPEC_REF_TIE, rms=False)
 
 
 def write_adapters(cfg, root: str, seed: int) -> None:
@@ -1109,8 +1183,9 @@ def check_tenant_agreement(paths, build, nocat, serve_prompts, prompts, max_new,
               f"tokens equal to the mixed batch"
               + (" (identical)" if same == max_new else ""), flush=True)
         if same < max_new:
-            paths.near_tie(f"tenant agreement (a): request {i}", prompts[i] + served[i][:same],
-                           served[i][same], alone[0][same], engine=build, adapter=g)
+            paths.check(f"tenant agreement (a): request {i}",
+                        paths.after(prompts[i] + served[i][:same], build, g),
+                        (served[i][same], alone[0][same]), rms=False)
     i = first[None]
     base, _ = serve_prompts(nocat(), [prompts[i], prompts[first["t0"]], prompts[first["t3"]]],
                             max_new)
@@ -1119,8 +1194,9 @@ def check_tenant_agreement(paths, build, nocat, serve_prompts, prompts, max_new,
           f"{same} of {max_new} tokens equal" + (" (identical)" if same == max_new else ""),
           flush=True)
     if same < max_new:
-        paths.near_tie(f"tenant agreement (b): request {i}", prompts[i] + served[i][:same],
-                       served[i][same], base[0][same], engine=build)
+        paths.check(f"tenant agreement (b): request {i}",
+                    paths.after(prompts[i] + served[i][:same], build),
+                    (served[i][same], base[0][same]), rms=False)
     differ = sum(a != b for j, g in ((1, "t0"), (2, "t3"))
                  for a, b in zip(served[first[g]], base[j]))
     print(f"tenant agreement: the adapters change {differ} of {2 * max_new} tokens "
@@ -1140,18 +1216,9 @@ def check_tenant_agreement(paths, build, nocat, serve_prompts, prompts, max_new,
         print(f"tenant agreement (c): request {i} ({TENANT_GROUPS[i] or 'base'}) through the "
               f"int8 plain versions: first {same} of {max_new} tokens equal", flush=True)
         if same < max_new:
-            prefix = prompts[i] + served[i][:same]
-            lf, lp = paths.near_tie(f"tenant agreement (c): request {i}", prefix,
-                                    served[i][same], plain[j][same], SPEC_REF_TIE,
-                                    engine=build, adapter=TENANT_GROUPS[i])
-            lk = paths.logits_after(prefix, "kernel", build, TENANT_GROUPS[i])
-            rms_k = float((lk - lf).pow(2).mean().sqrt())
-            rms_p = float((lp - lf).pow(2).mean().sqrt())
-            print(f"tenant agreement (c): request {i}: logits there vs the f32 plain path: "
-                  f"kernel path rms {rms_k:.4e}, bf16 plain path rms {rms_p:.4e}", flush=True)
-            if not rms_k <= RMS_MARGIN * rms_p:
-                raise Failed(f"request {i}: the kernel path is further from the f32 "
-                             f"reference than bf16 rounding explains")
+            paths.check(f"tenant agreement (c): request {i}",
+                        paths.after(prompts[i] + served[i][:same], build, TENANT_GROUPS[i]),
+                        (served[i][same], plain[j][same]), SPEC_REF_TIE)
 
 
 def serve_tenant_spec(torch, DB, LO, build, serve_prompts, prompts, max_new: int,
@@ -1195,6 +1262,436 @@ def serve_tenant_spec(torch, DB, LO, build, serve_prompts, prompts, max_new: int
     return launches
 
 
+def check_dense_kernels(torch, DB, IM, params, cfg, rng_seed: int) -> list[dict]:
+    """Phase 3, kernels 7-10: ``int8_matmul`` and the dense-cache attention
+    kernels against their plain versions at Qwen2-1.5B shapes. Every cache
+    row from the written ones on starts as NaN: outputs must be finite, the
+    written rows agree, every other cache value is bit-unchanged."""
+    from dora_tpu_torch.models.layers import rope_table
+
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(rng_seed)
+    blk = params["blocks"]["0"]
+    d, hd, h, kv = cfg.dim, cfg.head_dim, cfg.heads, cfg.kv_heads
+    n_qkv = (h + 2 * kv) * hd
+    seq = cfg.max_seq
+    out = []
+
+    def check(name, rel, what=""):
+        tol = REL_TOL[name]
+        print(f"kernel {name}{what}: rel {rel:.3e} (tol {tol})", flush=True)
+        if not rel <= tol:
+            raise Failed(f"{name}{what} disagrees with its plain version: rel {rel:.3e}")
+
+    def report(name, source, replaces, err, ms, plain_ms, lib_ms, nbytes, ops, what=""):
+        bound, by = _bound_ms(nbytes, ops)
+        print(f"kernel {name}{what}: max_abs_err {err:.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"library_ms {lib_ms:.4f} bound_ms {bound:.4f} ({by})", flush=True)
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+    # int8_matmul: the prefill head on one row (the entry), a short prompt's
+    # wqkv on 16 rows, w_down on 256 rows (the DORA_INT8_PURE prefill).
+    for what, m, w in (("head", 1, params["lm_head"]), ("wqkv", 16, blk["wqkv"]),
+                       ("w_down", 256, blk["w_down"])):
+        q, sc = w["int8"], w["scale"]
+        k, n = q.shape
+        x = (torch.randn((m, k), generator=gen, device=dev) * 0.5).bfloat16()
+        want = IM.int8_matmul_plain(x, q, sc)
+        got = IM.int8_matmul(x, q, sc)
+        err, rel = _rel(got, want)
+        where = f" at {m} row(s) on {what} ({k} x {n})"
+        check("int8_matmul", rel, where)
+        w_bf = (q.float() * sc).bfloat16()
+        entry = report("int8_matmul", "dora_tpu_torch/csrc/int8_matmul.cu",
+                       "dora_tpu/ops/int8_matmul.py:148", err,
+                       _time_ms(torch, lambda: IM.int8_matmul(x, q, sc)),
+                       _time_ms(torch, lambda: IM.int8_matmul_plain(x, q, sc), 5),
+                       _time_ms(torch, lambda: torch.matmul(x, w_bf)),
+                       m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n, where)
+        del w_bf
+        if what == "head":
+            out.append(entry)
+
+    cos_t, sin_t = rope_table(seq, hd, base=cfg.rope_theta, device=dev)
+    wqkv, sqkv = blk["wqkv"]["int8"], blk["wqkv"]["scale"]
+    wo, swo = blk["wo"]["int8"], blk["wo"]["scale"]
+    bqkv = blk.get("bqkv")
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd, eps=cfg.norm_eps)
+
+    def caches(live):
+        """bf16 caches [planes, KV, S, hd] of seeded normals, plane b's rows
+        from live[b] on NaN; and a NaN-free copy for the SDPA yardstick."""
+        k = torch.randn((len(live), kv, seq, hd), generator=gen, device=dev).bfloat16()
+        v = torch.randn((len(live), kv, seq, hd), generator=gen, device=dev).bfloat16()
+        for b, n in enumerate(live):
+            k[b, :, n:] = float("nan")
+            v[b, :, n:] = float("nan")
+        return k, v
+
+    def held(name, kernel, plain, pre, kc, vc, post, written, residual=True):
+        """Kernel against plain on clones of the caches; returns (err, rel)."""
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        want = plain(*pre, k1, v1, *post, **kw, residual=residual)[0]
+        got = kernel(*pre, k2, v2, *post, **kw, residual=residual)[0]
+        what = "" if residual else " (residual=False)"
+        if not bool(torch.isfinite(got.float()).all()):
+            raise Failed(f"{name}{what}: the output is not finite (a NaN row was read)")
+        err, rel = _rel(got, want)
+        check(name, rel, what)
+        rel_k, rel_v = _rel(k2[written], k1[written])[1], _rel(v2[written], v1[written])[1]
+        check("pools", max(rel_k, rel_v), f" written by {name}{what}")
+        for c2, c0 in ((k2, kc), (v2, vc)):
+            if not torch.equal(c2.view(torch.int16)[~written], c0.view(torch.int16)[~written]):
+                raise Failed(f"{name}{what} changed cache values it does not own")
+        print(f"kernel {name}{what}: {int(written.sum()) // kv} row(s) per kv head written, "
+              f"every other value (NaN from the written rows on) bit-unchanged", flush=True)
+        return err, rel
+
+    def sdpa(q, kc, vc, mask):
+        kk = torch.nan_to_num(kc).repeat_interleave(h // kv, dim=1)
+        vv = torch.nan_to_num(vc).repeat_interleave(h // kv, dim=1)
+        return lambda: torch.nn.functional.scaled_dot_product_attention(q, kk, vv, attn_mask=mask)
+
+    def attn_bytes(rows, planes, ctx_rows, written_rows):
+        return (rows * d * 2 * 2 + d * 4 + d * n_qkv + n_qkv * 8 + rows * hd * 8 + h * hd * d
+                + d * 4 + planes * 4 + ctx_rows * kv * hd * 2 * 2 + written_rows * kv * hd * 2 * 2)
+
+    def attn_ops(rows, keys):
+        return 2 * rows * d * n_qkv + 2 * 2 * h * hd * keys + 2 * rows * h * hd * d
+
+    def embedded(m):
+        tok = torch.randint(0, cfg.vocab, (m,), generator=gen, device=dev)
+        return params["embed"][tok].bfloat16()
+
+    # attention_batch_step: the dense engine's 4 planes, rows at 0 .. 2047.
+    positions = [0, 700, 1500, seq - 1]
+    b = len(positions)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    kc, vc = caches(positions)
+    x = embedded(b)
+    cr, sr = DB.rope_rows_at(cos_t, sin_t, pos)
+    pre = (x, blk["attn_norm"], wqkv, sqkv, bqkv, cr, sr)
+    post = (wo, swo, pos)
+    written = torch.zeros((b, kv, seq), dtype=torch.bool, device=dev)
+    written[torch.arange(b, device=dev), :, pos.long()] = True
+    err, _ = held("attention_batch_step", DB.attention_batch_step,
+                  DB.attention_batch_step_plain, pre, kc, vc, post, written)
+    held("attention_batch_step", DB.attention_batch_step, DB.attention_batch_step_plain,
+         pre, kc, vc, post, written, residual=False)
+    k2, v2 = kc.clone(), vc.clone()
+    lib = sdpa(torch.randn((b, h, 1, hd), generator=gen, device=dev).bfloat16(), kc, vc,
+               (torch.arange(seq, device=dev)[None, :] <= pos[:, None])[:, None, None, :])
+    out.append(report(
+        "attention_batch_step", "dora_tpu_torch/csrc/paged_attention.cu",
+        "dora_tpu/ops/decode_block.py:824", err,
+        _time_ms(torch, lambda: DB.attention_batch_step(*pre, k2, v2, *post, **kw)),
+        _time_ms(torch, lambda: DB.attention_batch_step_plain(*pre, k2, v2, *post, **kw), 5),
+        _time_ms(torch, lib), attn_bytes(b, b, sum(positions), b),
+        attn_ops(b, sum(positions) + b)))
+
+    # attention_step: one row at 1500 of a [KV, S, hd] plane.
+    position = 1500
+    kc, vc = caches([position])
+    kc, vc = kc[0], vc[0]
+    x = embedded(1)
+    cr, sr = DB.rope_rows(cos_t, sin_t, position)
+    pre = (x, blk["attn_norm"], wqkv, sqkv, bqkv, cr, sr)
+    post = (wo, swo, position)
+    written = torch.zeros((kv, seq), dtype=torch.bool, device=dev)
+    written[:, position] = True
+    err, _ = held("attention_step", DB.attention_step, DB.attention_step_plain, pre, kc, vc,
+                  post, written)
+    held("attention_step", DB.attention_step, DB.attention_step_plain, pre, kc, vc, post,
+         written, residual=False)
+    k2, v2 = kc.clone(), vc.clone()
+    lib = sdpa(torch.randn((1, h, 1, hd), generator=gen, device=dev).bfloat16(), kc[None],
+               vc[None], (torch.arange(seq, device=dev) <= position)[None, None, None, :])
+    out.append(report(
+        "attention_step", "dora_tpu_torch/csrc/paged_attention.cu",
+        "dora_tpu/ops/decode_block.py:309", err,
+        _time_ms(torch, lambda: DB.attention_step(*pre, k2, v2, *post, **kw)),
+        _time_ms(torch, lambda: DB.attention_step_plain(*pre, k2, v2, *post, **kw), 5),
+        _time_ms(torch, lib), attn_bytes(1, 0, position, 1), attn_ops(1, position + 1)))
+
+    # attention_chunk_step: a k = 4 verify's 5 rows ending on the last row.
+    m = SPEC_K + 1
+    position = seq - m
+    kc, vc = caches([position])
+    kc, vc = kc[0], vc[0]
+    x = embedded(m)
+    cr, sr = DB.rope_rows(cos_t, sin_t, position, m)
+    pre = (x, blk["attn_norm"], wqkv, sqkv, bqkv, cr, sr)
+    post = (wo, swo, position)
+    written = torch.zeros((kv, seq), dtype=torch.bool, device=dev)
+    written[:, position:] = True
+    err, _ = held("attention_chunk_step", DB.attention_chunk_step,
+                  DB.attention_chunk_step_plain, pre, kc, vc, post, written)
+    held("attention_chunk_step", DB.attention_chunk_step, DB.attention_chunk_step_plain, pre,
+         kc, vc, post, written, residual=False)
+    k2, v2 = kc.clone(), vc.clone()
+    cmask = (torch.arange(seq, device=dev)[None, :]
+             <= position + torch.arange(m, device=dev)[:, None])
+    lib = sdpa(torch.randn((1, h, m, hd), generator=gen, device=dev).bfloat16(), kc[None],
+               vc[None], cmask)
+    out.append(report(
+        "attention_chunk_step", "dora_tpu_torch/csrc/paged_attention.cu",
+        "dora_tpu/ops/decode_block.py:574", err,
+        _time_ms(torch, lambda: DB.attention_chunk_step(*pre, k2, v2, *post, **kw)),
+        _time_ms(torch, lambda: DB.attention_chunk_step_plain(*pre, k2, v2, *post, **kw), 5),
+        _time_ms(torch, lib), attn_bytes(m, 0, position, m),
+        attn_ops(m, m * position + m * (m + 1) // 2)))
+
+    # Times at the main path's own positions, for PERF.md's step times
+    # (kernel time x launches): kernel 8 at the middle step (prompt + 63) of
+    # each of phase 9's three waves of four slots, kernels 9 and 10 at the
+    # middle pass (prompt + 64) of phase 10's streams; beside each, mlp_step
+    # and lm_head_argmax at the pass's rows.
+    ffn = (blk["ffn_norm"], blk["w_gateup"]["int8"], blk["w_gateup"]["scale"],
+           blk.get("b_gateup"), blk["w_down"]["int8"], blk["w_down"]["scale"])
+    head = (params["out_norm"], params["lm_head"]["int8"], params["lm_head"]["scale"])
+
+    def pass_ms(what, attention, rows):
+        x = embedded(rows)
+        a_ms = _time_ms(torch, attention)
+        m_ms = _time_ms(torch, lambda: DB.mlp_step(x, *ffn, eps=cfg.norm_eps))
+        h_ms = _time_ms(torch, lambda: DB.lm_head_argmax(x, *head, eps=cfg.norm_eps))
+        print(f"path times, {what}: attention {a_ms:.4f} ms, mlp_step {m_ms:.4f} ms, "
+              f"lm_head_argmax {h_ms:.4f} ms at {rows} row(s); a pass's kernels, "
+              f"{cfg.layers} x (attention + mlp_step) + head: "
+              f"{cfg.layers * (a_ms + m_ms) + h_ms:.3f} ms", flush=True)
+
+    for w in range(0, len(DENSE_LENGTHS), 4):
+        live = [n + 63 for n in DENSE_LENGTHS[w:w + 4]]
+        pos = torch.tensor(live, dtype=torch.int32, device=dev)
+        kc, vc = caches(live)
+        cr, sr = DB.rope_rows_at(cos_t, sin_t, pos)
+        args = (embedded(len(live)), blk["attn_norm"], wqkv, sqkv, bqkv, cr, sr, kc, vc, wo,
+                swo, pos)
+        pass_ms(f"dense step at rows {live}", lambda: DB.attention_batch_step(*args, **kw),
+                len(live))
+    for i in BATCH1_PICKS:
+        position = DENSE_LENGTHS[i] + 64
+        for rows, attention in ((1, DB.attention_step), (SPEC_K + 1, DB.attention_chunk_step)):
+            kc, vc = caches([position])
+            cr, sr = DB.rope_rows(cos_t, sin_t, position, rows)
+            args = (embedded(rows), blk["attn_norm"], wqkv, sqkv, bqkv, cr, sr, kc[0], vc[0],
+                    wo, swo, position)
+            pass_ms(f"batch-1 {attention.__name__} at row {position}",
+                    lambda: attention(*args, **kw), rows)
+    return out
+
+
+#: the kernels of the dense engine's path (phase 9)
+DENSE_KERNELS = ("int8_matmul", "attention_batch_step", "mlp_step", "lm_head_argmax")
+
+
+def serve_dense(torch, DB, LO, IM, make_engine, serve_prompts, params, cfg, prompts,
+                max_new):
+    """Phase 9: the dense batch engine as ``make_engine`` builds it with
+    ``DORA_PAGED_KV=0``, serving every prompt through ``serve_prompts``."""
+    from collections import Counter
+
+    engine = front_door(make_engine, params, cfg, DORA_PAGED_KV="0")
+    got = (type(engine).__name__, engine.max_slots, engine.max_seq)
+    if got != ("BatchEngine", 4, cfg.max_seq):
+        raise Failed(f"make_engine with DORA_PAGED_KV=0 built (kind, slots, max_seq) = {got}")
+    print(f"dense phase: {len(prompts)} requests of {min(map(len, prompts))}.."
+          f"{max(map(len, prompts))} tokens, {max_new} new tokens each, on "
+          f"{engine.max_slots} dense slots", flush=True)
+
+    step_s = []
+    inner_step, inner_submit = engine.batch_step, engine.submit
+    joined = [0]  # submits while other streams were decoding
+    products = Counter()  # (rows, N) of every int8_matmul launch
+    kernel = IM._int8_matmul_kernel
+
+    def timed_step(*a):
+        t = time.perf_counter()
+        res = inner_step(*a)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return res
+
+    def counted_submit(rid, ids, n):
+        joined[0] += engine.active > 0
+        return inner_submit(rid, ids, n)
+
+    def watched(x, q, s, **k):
+        products[(x.numel() // x.shape[-1], q.shape[1])] += 1
+        return kernel(x, q, s, **k)
+
+    engine.batch_step, engine.submit = timed_step, counted_submit
+    plain_calls = _PlainCalls(DB, LO)
+    _reset_launches(DB, LO)
+    IM._int8_matmul_kernel = watched
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out, ttft = serve_prompts(engine, prompts, max_new)
+        torch.cuda.synchronize()
+    finally:
+        wall = time.perf_counter() - t0
+        IM._int8_matmul_kernel = kernel
+        launches = _launches(DB, LO)
+        plain_calls.restore()
+    print(f"dense phase launches: {json.dumps(launches)}; plain calls {plain_calls.n}; "
+          f"int8_matmul (rows, N): {json.dumps({f'{r}x{n}': c for (r, n), c in sorted(products.items())})}",
+          flush=True)
+    _check_streams(out, max_new, cfg.vocab)
+    if plain_calls.n:
+        raise Failed(f"{plain_calls.n} plain-version call(s) ran on the dense path")
+    if not all(launches[n] > 0 for n in DENSE_KERNELS):
+        raise Failed(f"a kernel of the dense path never launched: {launches}")
+    stray = [n for n, c in launches.items() if c and n not in DENSE_KERNELS]
+    if stray:
+        raise Failed(f"kernels off the dense path launched: {stray}")
+    if not joined[0]:
+        raise Failed("no request joined while others were decoding")
+    # every prefill reads its first token off the head on one row; prompts
+    # of <= 32 tokens run all their products in int8_matmul (buckets 8, 32)
+    n_qkv = (cfg.heads + 2 * cfg.kv_heads) * cfg.head_dim
+    short = Counter(8 if len(p) <= 8 else 16 if len(p) <= 16 else 32
+                    for p in prompts if len(p) <= 32)
+    want = {(1, cfg.vocab): len(prompts)}
+    for rows, n in short.items():
+        for width in (n_qkv, cfg.dim, 2 * cfg.ffn):
+            want[(rows, width)] = want.get((rows, width), 0) + cfg.layers * n * (
+                2 if width == cfg.dim else 1)
+    if dict(products) != want:
+        raise Failed(f"int8_matmul ran {dict(products)}, expected {want}")
+    n_tok = sum(len(t) for t in out.values())
+    ttfts = sorted(ttft.values())
+    print(f"dense phase: {n_tok} tokens in {wall:.3f} s; decode "
+          f"{(n_tok - len(prompts)) / sum(step_s):.1f} tokens/s over {len(step_s)} steps "
+          f"(step mean {1e3 * sum(step_s) / len(step_s):.2f} ms, max {1e3 * max(step_s):.2f} "
+          f"ms); TTFT p50 {ttfts[len(ttfts) // 2]:.3f} s max {ttfts[-1]:.3f} s; "
+          f"{joined[0]} request(s) joined mid-flight; {engine.dispatches} dispatches, "
+          f"{engine.fetches} fetches; end-to-end {n_tok / wall:.1f} tokens/s", flush=True)
+    return out, launches
+
+
+def batch1(torch, DB, LO, qwen2, spec_decode, L, paths, params, cfg, prompts, max_new,
+           dense_out):
+    """Phase 10: batch-1 ``generate`` and ``run_loop`` (k = 4) on phase 9's
+    prompts BATCH1_PICKS. Each stream is held to its own path's plain
+    versions where it parts from the dense engine's stream (else before the
+    last token): the prompt through the unfused prefill (the bf16 sidecars
+    above 32 rows, so not the paged path's int8 model), then ``generate``'s
+    tokens through one-row steps, or ``run_loop``'s verify passes replayed
+    through k + 1-row chunks. Returns the launches of the last generate and
+    run_loop."""
+    dev = params["embed"].device
+    rope = L.rope_table(cfg.max_seq, cfg.head_dim, base=cfg.rope_theta, device=dev)
+    paged = tuple(n for n in DB.launch_counts() if n.startswith("attention_paged"))
+
+    def run(what, fn, need, banned):
+        plain_calls = _PlainCalls(DB, LO)
+        _reset_launches(DB, LO)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+        finally:
+            wall = time.perf_counter() - t0
+            launches = _launches(DB, LO)
+            plain_calls.restore()
+        print(f"batch-1 {what}: launches {json.dumps({n: c for n, c in launches.items() if c})}; "
+              f"plain calls {plain_calls.n}", flush=True)
+        if plain_calls.n:
+            raise Failed(f"{plain_calls.n} plain-version call(s) ran in {what}")
+        if not launches[need] > 0 or any(launches[n] for n in banned):
+            raise Failed(f"{what}: {need} must run and {banned} must not: {launches}")
+        return res, wall, launches
+
+    for i in BATCH1_PICKS:
+        ids = prompts[i]
+        t = len(ids)
+
+        def prefill():
+            return qwen2.prefill_padded(
+                params, cfg, torch.tensor([ids], dtype=torch.int32, device=dev), t)
+
+        gen, wall, gen_launches = run(
+            f"generate, request {i} ({t} tokens)",
+            lambda: qwen2.generate(params, cfg, torch.tensor([ids], device=dev), max_new),
+            "attention_step", ("attention_batch_step", "attention_chunk_step") + paged)
+        gen = gen[0].tolist()
+        _check_streams({i: gen}, max_new, cfg.vocab)
+        print(f"batch-1 generate, request {i}: {max_new} tokens in {wall:.3f} s with the "
+              f"prompt ({(max_new - 1) / wall:.1f} decode steps/s)", flush=True)
+
+        spec_decode.check_headroom(t, max_new, cfg.max_seq, "prompt", SPEC_K)
+        body = spec_decode.fitting_body_passes(t, max_new, cfg.max_seq, SPEC_K)
+        verified = []  # (chunk, n_emitted) of every verify pass, for the replay
+
+        def speculate():
+            first, caches, _ = prefill()
+            history = torch.zeros(cfg.max_seq, dtype=torch.int32, device=dev)
+            history[:t] = torch.tensor(ids, dtype=torch.int32, device=dev)
+            history[t] = first[0]
+
+            def verify(chunk, n_emitted, caches):
+                verified.append((chunk.clone(), n_emitted))
+                return qwen2.fused_step(params, cfg, chunk, caches, t + n_emitted - 1, rope)
+
+            return spec_decode.run_loop(
+                caches=caches, history=history, hist_len=t + 1, first=first[0],
+                max_new_tokens=max_new, seq=cfg.max_seq, verify=verify, k=SPEC_K,
+                return_stats=True, body=body)
+
+        (spec, passes, full), wall, spec_launches = run(
+            f"run_loop, request {i}", speculate, "attention_chunk_step",
+            ("attention_batch_step",) + paged)
+        spec = spec[0].tolist()
+        _check_streams({i: spec}, max_new, cfg.vocab)
+        print(f"batch-1 run_loop, request {i}: {max_new} tokens in {wall:.3f} s; {passes} "
+              f"model passes ({full} full k+1 passes, body {body}); "
+              f"{(max_new - 1) / max(passes - 1, 1):.3f} tokens per verify pass; "
+              f"{spec_launches['attention_chunk_step'] // cfg.layers} chunk passes launched "
+              f"(overshoot included)", flush=True)
+
+        def stepped(at):
+            """generate's path to the logits of token ``at``: its tokens
+            before it through one-row steps (kernel 9)."""
+            def go():
+                _, caches, _ = prefill()
+                for j, tok in enumerate(gen[:at]):
+                    chunk = torch.tensor([[tok]], dtype=torch.int32, device=dev)
+                    _, caches = qwen2.fused_step(params, cfg, chunk, caches, t + j, rope)
+            return lambda mode: paths.logits_of(go, mode)[-1]
+
+        def replayed(at):
+            """run_loop's path to the logits of token ``at``: its verify
+            passes up to the one that emitted it (kernel 10), that pass's
+            row for it."""
+            upto = [(c, e) for c, e in verified if e <= at]
+
+            def go():
+                _, caches, _ = prefill()
+                for c, e in upto:
+                    _, caches = qwen2.fused_step(params, cfg, c, caches, t + e - 1, rope)
+            row = at - upto[-1][1] if upto else -1
+            return lambda mode: paths.logits_of(go, mode)[row]
+
+        # The served (dense) token is held to NEAR_TIE; generate's too (kernel
+        # 9 folds its row from f32 as kernel 8 does), run_loop's to
+        # SPEC_REF_TIE: kernel 10 folds its chunk from bf16 rows, as its
+        # reference does, so its path ranks near-ties in its own order.
+        for label, b, path, b_bound in (("generate", gen, stepped, NEAR_TIE),
+                                        ("run_loop", spec, replayed, SPEC_REF_TIE)):
+            a = dense_out[i]
+            same = _first_parting(a, b, max_new)
+            at = min(same, max_new - 1)
+            print(f"batch-1 agreement, request {i}, dense engine vs {label}: first {same} of "
+                  f"{max_new} tokens equal", flush=True)
+            paths.check(f"batch-1 agreement, request {i}, {label}, token {at}", path(at),
+                        (a[same], b[same]) if same < max_new else None, b_bound)
+    return gen_launches, spec_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch/CUDA port")
     ap.add_argument("--layers", type=int, default=28, help="model depth (width stays)")
@@ -1212,11 +1709,12 @@ def main(argv=None) -> int:
     sys.path.insert(0, here)
     try:
         from dora_tpu_torch.models import layers as L
-        from dora_tpu_torch.models import vlm
+        from dora_tpu_torch.models import spec_decode, vlm
         from dora_tpu_torch.models.hf import qwen2
         from dora_tpu_torch.nodehub.llm_server import make_engine, serve_prompts
         from dora_tpu_torch.ops import _build
         from dora_tpu_torch.ops import decode_block as DB
+        from dora_tpu_torch.ops import int8_matmul as IM
         from dora_tpu_torch.ops import lora as LO
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
@@ -1248,6 +1746,7 @@ def main(argv=None) -> int:
 
         kernels = check_kernels(torch, DB, qwen2, params, cfg, args.seed + 1)
         kernels.insert(2, check_lora_kernel(torch, LO, cfg, args.seed + 3))
+        kernels += check_dense_kernels(torch, DB, IM, params, cfg, args.seed + 6)
         by_name = {k["name"]: k for k in kernels}
 
         rng = np.random.default_rng(args.seed)
@@ -1258,7 +1757,7 @@ def main(argv=None) -> int:
         for n in SPEC_OFF_KERNELS:
             by_name[n]["launches"] = launches[n]
 
-        paths = _Paths(torch, DB, LO, qwen2, L, serve_prompts, params, cfg)
+        paths = _Paths(torch, DB, LO, IM, qwen2, L, serve_prompts, params, cfg)
         check_plain_agreement(paths, prompts, args.max_new, served, picks=(0, 1))
 
         spec_prompts, spec_served, spec_launches = serve_spec_cache(
@@ -1286,6 +1785,17 @@ def main(argv=None) -> int:
                                             TENANT_SPEC_MAX_NEW, cfg.vocab)
             by_name["attention_paged_spec_step_int8kv"]["launches"] = ts_launches[
                 "attention_paged_spec_step_int8kv"]
+
+        d_rng = np.random.default_rng(args.seed + 7)
+        d_prompts = [d_rng.integers(0, cfg.vocab, size=n).tolist() for n in DENSE_LENGTHS]
+        d_served, d_launches = serve_dense(torch, DB, LO, IM, make_engine, serve_prompts,
+                                           params, cfg, d_prompts, args.max_new)
+        for n in ("int8_matmul", "attention_batch_step"):
+            by_name[n]["launches"] = d_launches[n]
+        g_launches, s_launches = batch1(torch, DB, LO, qwen2, spec_decode, L, paths, params,
+                                        cfg, d_prompts, args.max_new, d_served)
+        by_name["attention_step"]["launches"] = g_launches["attention_step"]
+        by_name["attention_chunk_step"]["launches"] = s_launches["attention_chunk_step"]
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,49 +1,70 @@
-// Paged attention sublayers: replace the Pallas kernels
+// Attention sublayers over a KV cache: replace the Pallas kernels of
+// dora_tpu/ops/decode_block.py, in two cache layouts.
+//
+// Paged pools [P, KV, page, hd] through block tables, in their fp-KV and
+// int8-KV forms (one template flag, Q8, on the same kernels):
 // _attn_paged_batch_kernel / attention_paged_batch_step (decode: one row per
-// stream), _attn_paged_chunk_kernel / attention_paged_chunk_step (prefill:
-// M rows of one stream) and _attn_paged_spec_kernel /
-// attention_paged_spec_step (speculative verify: m candidate rows for each
-// of B streams) of dora_tpu/ops/decode_block.py, in their fp-KV and int8-KV
-// forms (one template flag, Q8, on the same kernels).
+// stream), _attn_paged_chunk_kernel / attention_paged_chunk_step (prefill: M
+// rows of one stream) and _attn_paged_spec_kernel / attention_paged_spec_step
+// (speculative verify: m candidate rows for each of B streams).
+//
+// Dense caches, one [KV, S, hd] plane per stream ([B, KV, S, hd], or
+// [KV, S, hd] for batch 1), bf16: _attn_batch_kernel / attention_batch_step
+// (the dense engine's decode: B rows, row b at positions[b] of plane b),
+// _attn_kernel / attention_step (batch-1 decode: one row at `position`) and
+// _attn_chunk_kernel / attention_chunk_step (batch-1 speculative verify: M
+// rows at position..position+M-1).
+//
+// The two layouts share every kernel below through a row-addressing template
+// parameter (PagedRows, DenseRows): where row `pos` of stream sb's kv head g
+// lives. A dense plane is not a pool of pages (KV sits between the stream and
+// the row), so it is addressed as itself, never through a made-up table.
+// Decode runs decode_sweep, batch-1 verify spec_sweep with one stream;
+// prefill (paged only) its own sweep.
 //
 // Per row: RMSNorm -> int8 qkv + bias -> NeoX RoPE (full-width rows
-// cos_full = [cos, cos], sin_signed = [-sin, sin]) -> K/V written into the
-// pool page the block table names -> online-softmax GQA attention over the
-// paged context -> int8 wo -> + residual. Pools are [P, KV, page, hd] bf16,
-// or int8 with f32 scale planes [P, KV, page] beside them (int8 KV); page 0
-// is the null page.
+// cos_full = [cos, cos], sin_signed = [-sin, sin]) -> K/V written at the
+// row's place in the cache -> online-softmax GQA attention over the prior
+// context -> int8 wo -> + residual. In the paged pools page 0 is the null
+// page; int8 pools carry f32 scale planes [P, KV, page] beside them.
 //
 // Bound: at decode width (16 rows) and at spec width (16 streams x 5 rows)
-// the wqkv + wo int8 stream (5.5 MB) plus each stream's K/V pages (16 KB per
-// page per layer in bf16, 8 KB + 256 B of scales in int8); at prefill (256
-// rows) the qkv/wo products (2.8 GFLOP). int8 KV halves the context bytes,
-// which matter only at long contexts; the kernels do not exploit it yet
-// (each page is dequantized into the same f32 shared tiles as bf16 pages).
+// the wqkv + wo int8 stream (5.5 MB) plus each stream's K/V rows (4 KB per
+// row per layer in bf16: a 2048-row plane is 8 MB per layer, of which a
+// stream reads only its rows < pos; int8 pages 2 KB + 16 B of scales); at
+// prefill (256 rows) the qkv/wo products (2.8 GFLOP). int8 KV halves the
+// context bytes, which matter only at long contexts; the kernels do not
+// exploit it yet (each page is dequantized into the same f32 shared tiles as
+// bf16 pages).
 //
 // Design: the TPU kernels run as one sequential grid step carrying their
 // scratch; here the sublayer is five launches in stream order: RMSNorm; the
 // qkv product (K split over blocks, common.cuh), which reads the weights once
 // for all rows, so a spec verify of 80 rows streams them once as decode does;
 // a per-row kernel that sums the splits, adds the bias, rotates q and k and
-// writes the row's K/V into its page; the attention sweep, one block per (row
-// band or stream, kv head) walking the pages through the block table; the wo
-// product and its epilogue. The spec sweep puts all m x G query rows of a
-// (stream, kv head) in one block, so each context page is read once for
+// writes the row's K/V at its place (exactly the new rows: the TPU kernels'
+// 8-row read-modify-write is not repeated); the attention sweep, one block
+// per (row band or stream, kv head) walking the context 16 rows at a time;
+// the wo product and its epilogue. The spec sweep puts all m x G query rows
+// of a (stream, kv head) in one block, so each context tile is read once for
 // them.
 //
 // Numerics kept from the reference:
-// * decode sweeps the PRIOR context (idx < pos) from the pool in bf16 with q
-//   rounded to bf16, then folds the current row's K/V from f32 (the TPU
-//   kernel's in-register merge), so the current row is never read back
-//   rounded to bf16 from the pool;
-// * prefill attends its own chunk from the bf16 values it wrote (the
+// * decode (paged and dense, batch and batch 1) sweeps the PRIOR context
+//   (idx < pos) from the cache in bf16 with q rounded to bf16, then folds the
+//   current row's K/V from f32 (the TPU kernel's in-register merge), so the
+//   current row is never read back rounded to bf16 from the cache;
+// * paged prefill attends its own chunk from the bf16 values it wrote (the
 //   reference casts the chunk's K/V to the compute dtype too), causally, with
 //   the running max starting at -1e30;
-// * spec verify sweeps the prior context like decode but folds its m rows
-//   from bf16-rounded values, as its reference does (unlike decode), with
-//   the running max starting at -1e30;
+// * spec verify (paged, and the dense batch-1 chunk) sweeps the prior context
+//   like decode but folds its m rows from bf16-rounded values, as its
+//   reference does (unlike decode), with the running max starting at -1e30;
 // * probabilities are rounded to bf16 before the P.V product, the softmax
-//   sums stay f32.
+//   sums stay f32;
+// * the decode and spec sweeps never read a cache row at or past the
+//   stream's position: those rows load as zeros (a dense plane's rows past
+//   the written ones may hold anything, NaN included).
 //
 // int8 KV (decode_block.kv_quant_rows / kv_dequant): each written row is
 // quantized per (row, kv head) in registers before the pool write, scale =
@@ -66,22 +87,46 @@ constexpr int CT = 256;       // prefill sweep threads
 constexpr int SQ = 64;        // spec verify: most candidate rows x group heads
 constexpr int ST = 256;       // spec verify sweep threads
 
+// Where row `pos` of stream sb's kv head g lives, as a row index of the
+// cache's [rows, HD] view. Rows pos .. pos + PAGE - 1 from a multiple of
+// PAGE are consecutive in both layouts (a page; a stretch of the plane).
+
+// Paged pools [P, KV, PAGE, HD]: page bt[sb * stride + pos / PAGE]. Decode
+// and spec verify pass the [B, max_pages] table (stride max_pages), prefill
+// its one table row (stride 0).
+struct PagedRows {
+    const int* bt;
+    int stride;
+    __device__ __forceinline__ size_t row(int sb, int g, int pos, int KV) const {
+        return ((size_t)bt[(size_t)sb * stride + pos / PAGE] * KV + g) * PAGE + pos % PAGE;
+    }
+};
+
+// Dense caches [B, KV, S, HD]: stream sb's own plane (B = 1 for the batch-1
+// entries, whose caches are [KV, S, HD]).
+struct DenseRows {
+    int S;
+    __device__ __forceinline__ size_t row(int sb, int g, int pos, int KV) const {
+        return ((size_t)sb * KV + g) * S + pos;
+    }
+};
+
 // Sum the qkv splits, scale, add the bias, rotate q and k, store q (and the
 // row's f32 K/V when k_out is given: the decode merge and the spec fold read
-// them from there), and write the row's K/V into the pool. Rows come in
+// them from there), and write the row's K/V into the cache. Rows come in
 // streams of `per_stream` rows: row i belongs to stream sb = i / per_stream
 // and sits at position (positions ? positions[sb] : pos0) + i % per_stream,
-// written to page bt[sb * bt_stride + pos / PAGE], row pos % PAGE. Decode
-// passes positions[], one row per stream and the [B, max_pages] table;
-// prefill passes pos0, all M rows as one stream and its one table row; the
-// spec verify passes positions[] (each stream's chunk start), m rows per
-// stream and the [B, max_pages] table, so a stream's m rows may straddle a
-// page and each row routes through its own table entry.
+// written to rows.row(sb, g, pos). Decode passes positions[] and one row per
+// stream (batch 1: pos0); paged prefill passes pos0 and all M rows as one
+// stream; the spec verify passes positions[] (each stream's chunk start; the
+// dense batch-1 chunk: pos0) and m rows per stream, so a stream's m rows may
+// straddle a page and each row routes through its own table entry. Exactly
+// the new rows are written.
 //
-// Frozen decode and spec streams all sit at position 0 with a zeroed table
-// row, so they all write rows 0 .. per_stream - 1 of null page 0 at once (in
-// int8 KV their scales too). That race is harmless: no live row ever reads
-// page 0.
+// Frozen paged decode and spec streams all sit at position 0 with a zeroed
+// table row, so they all write rows 0 .. per_stream - 1 of null page 0 at
+// once (in int8 KV their scales too). That race is harmless: no live row
+// ever reads page 0. Idle dense rows write row 0 of their own plane.
 static __device__ __forceinline__ float kv_row_scale(float v, float* red) {
     return fmaxf(block_max<HD>(fabsf(v), red) / 127.f, 1e-8f);
 }
@@ -102,14 +147,13 @@ static __device__ __forceinline__ float kv_load(const void* __restrict__ pool,
         return __bfloat162float(((const bf16*)pool)[row * HD + e]);
 }
 
-template <bool Q8>
+template <bool Q8, class Rows>
 static __global__ void __launch_bounds__(HD)
 qkv_rope_write(const float* __restrict__ P, int splits, int M,
                const float* __restrict__ s, const float* __restrict__ b,
                const float* __restrict__ cosr, const float* __restrict__ sinr,
                const int* __restrict__ positions, int pos0, int per_stream,
-               const int* __restrict__ bt, int bt_stride,
-               void* __restrict__ k_pool, void* __restrict__ v_pool,
+               Rows rows, void* __restrict__ k_pool, void* __restrict__ v_pool,
                float* __restrict__ k_scale, float* __restrict__ v_scale,
                float* __restrict__ q_out, float* __restrict__ k_out,
                float* __restrict__ v_out, int H, int KV) {
@@ -129,7 +173,6 @@ qkv_rope_write(const float* __restrict__ P, int splits, int M,
     const int partner = d < HD / 2 ? d + HD / 2 : d - HD / 2;
     const int sb = i / per_stream;
     const int pos = (positions ? positions[sb] : pos0) + i % per_stream;
-    const int pg = bt[(size_t)sb * bt_stride + pos / PAGE];
     for (int h = 0; h < H; ++h)
         q_out[((size_t)i * H + h) * HD + d] = buf[h][d] * c + buf[h][partner] * sn;
     for (int g = 0; g < KV; ++g) {
@@ -139,7 +182,7 @@ qkv_rope_write(const float* __restrict__ P, int splits, int M,
             k_out[((size_t)i * KV + g) * HD + d] = kr;
             v_out[((size_t)i * KV + g) * HD + d] = vv;
         }
-        const size_t row = ((size_t)pg * KV + g) * PAGE + pos % PAGE;
+        const size_t row = rows.row(sb, g, pos, KV);
         if constexpr (Q8) {
             const float sk = kv_row_scale(kr, red), sv = kv_row_scale(vv, red);
             ((int8_t*)k_pool)[row * HD + d] = kv_quant(kr, sk);
@@ -156,15 +199,15 @@ qkv_rope_write(const float* __restrict__ P, int splits, int M,
 }
 
 // Decode: one block per (stream b, kv head g), thread d owns dimension d of
-// the group's G query heads.
-template <bool Q8>
+// the group's G query heads. Stream b sits at positions[b] (batch 1: pos0)
+// and sweeps its rows 0 .. pos - 1, 16 at a time.
+template <bool Q8, class Rows>
 static __global__ void __launch_bounds__(HD)
-paged_decode_attn(const float* __restrict__ q_in, const float* __restrict__ k_in,
-                  const float* __restrict__ v_in, const void* __restrict__ k_pool,
-                  const void* __restrict__ v_pool, const float* __restrict__ k_scale,
-                  const float* __restrict__ v_scale, const int* __restrict__ positions,
-                  const int* __restrict__ bt, int max_pages, bf16* __restrict__ attn,
-                  int H, int KV, float scale) {
+decode_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
+             const float* __restrict__ v_in, const void* __restrict__ k_pool,
+             const void* __restrict__ v_pool, const float* __restrict__ k_scale,
+             const float* __restrict__ v_scale, const int* __restrict__ positions,
+             int pos0, Rows rows, bf16* __restrict__ attn, int H, int KV, float scale) {
     __shared__ float qs[MAXG][HD];
     __shared__ float ks[PAGE][HD + 1];
     __shared__ float vs[PAGE][HD];
@@ -173,7 +216,7 @@ paged_decode_attn(const float* __restrict__ q_in, const float* __restrict__ k_in
     __shared__ float red[HD];
     const int b = blockIdx.x, g = blockIdx.y, d = threadIdx.x;
     const int G = H / KV;
-    const int pos = positions[b];
+    const int pos = positions ? positions[b] : pos0;
     float qf[MAXG], acc[MAXG];
 #pragma unroll
     for (int h = 0; h < MAXG; ++h) {
@@ -189,13 +232,13 @@ paged_decode_attn(const float* __restrict__ q_in, const float* __restrict__ k_in
         l_s[d] = 0.f;
     }
     __syncthreads();
-    const int nblocks = (pos + PAGE - 1) / PAGE;  // prior context, partial page included
+    const int nblocks = (pos + PAGE - 1) / PAGE;  // prior context, partial tile included
     for (int blk = 0; blk < nblocks; ++blk) {
-        const int pg = bt[(size_t)b * max_pages + blk];
-        const size_t row0 = ((size_t)pg * KV + g) * PAGE;
-        for (int j = 0; j < PAGE; ++j) {
-            ks[j][d] = kv_load<Q8>(k_pool, k_scale, row0 + j, d);
-            vs[j][d] = kv_load<Q8>(v_pool, v_scale, row0 + j, d);
+        const size_t row0 = rows.row(b, g, blk * PAGE, KV);
+        for (int j = 0; j < PAGE; ++j) {  // rows >= pos are never read
+            const bool live = blk * PAGE + j < pos;
+            ks[j][d] = live ? kv_load<Q8>(k_pool, k_scale, row0 + j, d) : 0.f;
+            vs[j][d] = live ? kv_load<Q8>(v_pool, v_scale, row0 + j, d) : 0.f;
         }
         __syncthreads();
         for (int t = d; t < G * PAGE; t += HD) {
@@ -353,22 +396,23 @@ paged_chunk_attn(const float* __restrict__ q_in, const float* __restrict__ k_in,
 
 // Spec verify: one block per (stream b, kv head g) holds the stream's m
 // candidate rows times the group's G query heads (NQ = m * G <= SQ rows,
-// ordered (candidate i, head h)). It sweeps the PRIOR context, pages 0 ..
-// ceil(pos / PAGE) - 1 through the stream's table with key idx < pos live
-// (pos is each stream's chunk start and need not be page-aligned; the rows
-// this call wrote sit at idx >= pos and stay masked), then folds the
-// stream's own m rows as one more online-softmax step, causally (candidate i
-// sees rows j <= i) and from the bf16-rounded K/V of the scratch rows, never
-// from the pool: frozen streams race on null page 0, and the reference folds
-// bf16 values (its k_s.astype(dtype)). Another stream's rows are never seen.
-template <bool Q8>
+// ordered (candidate i, head h)). It sweeps the PRIOR context, rows 0 ..
+// pos - 1 in tiles of 16 with key idx < pos live (pos is each stream's chunk
+// start, positions[b], or pos0 for the dense batch-1 chunk, and need not be
+// a multiple of 16; the rows this call wrote sit at idx >= pos and are not
+// read), then folds the stream's own m rows as one more online-softmax step,
+// causally (candidate i sees rows j <= i) and from the bf16-rounded K/V of
+// the scratch rows, never from the cache: frozen streams race on null page
+// 0, and the reference folds bf16 values (its k_s.astype(dtype) /
+// k_m.astype(dtype)). Another stream's rows are never seen.
+template <bool Q8, class Rows>
 static __global__ void __launch_bounds__(ST)
-paged_spec_attn(const float* __restrict__ q_in, const float* __restrict__ k_in,
-                const float* __restrict__ v_in, const void* __restrict__ k_pool,
-                const void* __restrict__ v_pool, const float* __restrict__ k_scale,
-                const float* __restrict__ v_scale, const int* __restrict__ positions,
-                const int* __restrict__ bt, int max_pages, bf16* __restrict__ attn,
-                int m, int H, int KV, float scale) {
+spec_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
+           const float* __restrict__ v_in, const void* __restrict__ k_pool,
+           const void* __restrict__ v_pool, const float* __restrict__ k_scale,
+           const float* __restrict__ v_scale, const int* __restrict__ positions,
+           int pos0, Rows rows, bf16* __restrict__ attn, int m, int H, int KV,
+           float scale) {
     __shared__ bf16 qs[SQ][HD];
     __shared__ float ks[PAGE][HD + 1];
     __shared__ float vs[PAGE][HD];
@@ -378,7 +422,7 @@ paged_spec_attn(const float* __restrict__ q_in, const float* __restrict__ k_in,
     constexpr int QSTEP = ST / HD;
     const int tid = threadIdx.x, b = blockIdx.x, g = blockIdx.y;
     const int G = H / KV, NQ = m * G;
-    const int pos = positions[b];
+    const int pos = positions ? positions[b] : pos0;
     for (int idx = tid; idx < NQ * HD; idx += ST) {
         int qv = idx / HD, e = idx % HD;
         int i = qv / G, h = qv % G;
@@ -397,12 +441,12 @@ paged_spec_attn(const float* __restrict__ q_in, const float* __restrict__ k_in,
     for (int blk = 0; blk <= npages; ++blk) {    // step npages folds the chunk
         const bool fold = blk == npages;
         if (!fold) {
-            const int pg = bt[(size_t)b * max_pages + blk];
-            const size_t row0 = ((size_t)pg * KV + g) * PAGE;
+            const size_t row0 = rows.row(b, g, blk * PAGE, KV);
             for (int idx = tid; idx < PAGE * HD; idx += ST) {
                 int j = idx / HD, e = idx % HD;
-                ks[j][e] = kv_load<Q8>(k_pool, k_scale, row0 + j, e);
-                vs[j][e] = kv_load<Q8>(v_pool, v_scale, row0 + j, e);
+                const bool live = blk * PAGE + j < pos;  // rows >= pos are never read
+                ks[j][e] = live ? kv_load<Q8>(k_pool, k_scale, row0 + j, e) : 0.f;
+                vs[j][e] = live ? kv_load<Q8>(v_pool, v_scale, row0 + j, e) : 0.f;
             }
         } else {
             for (int idx = tid; idx < PAGE * HD; idx += ST) {
@@ -463,7 +507,7 @@ extern "C" int dora_gemm_splits(int M, int N, int K) {
     return gemm_splits(M, N, K);
 }
 
-// Shared tail of both entry points: wo product, scale, residual.
+// Shared tail of every entry point: wo product, scale, residual.
 static void out_projection(const void* x, const void* wo, const void* swo,
                            void* out, int residual, int M, int D, int H,
                            void* p, void* attn, void* stream, int& err) {
@@ -479,51 +523,52 @@ static void out_projection(const void* x, const void* wo, const void* swo,
 
 // The front of every entry point: RMSNorm, the qkv product, and the per-row
 // kernel that rotates q and k and writes the rows' K/V (quantized in the
-// int8 form) into their pages. Rows come in streams of `per_stream` rows at
+// int8 form) at their places. Rows come in streams of `per_stream` rows at
 // (positions ? positions[sb] : pos0) + i % per_stream (see qkv_rope_write).
-template <bool Q8>
+template <bool Q8, class Rows>
 static void project_and_write(const void* x, const void* norm_w, const void* wqkv,
                               const void* sqkv, const void* bqkv, const void* cosr,
                               const void* sinr, void* k_pool, void* v_pool,
                               void* k_scale, void* v_scale, const void* positions,
-                              int pos0, int per_stream, const void* bt, int bt_stride,
-                              int M, int D, int H, int KV, float eps, void* h,
-                              void* p, void* q, void* kcur, void* vcur, void* stream,
-                              int& err) {
+                              int pos0, int per_stream, Rows rows, int M, int D,
+                              int H, int KV, float eps, void* h, void* p, void* q,
+                              void* kcur, void* vcur, void* stream, int& err) {
     const int N = (H + 2 * KV) * HD;
     DORA_LAUNCH(rmsnorm_rows, dim3(M), dim3(256), stream,
                 (const bf16*)x, (const float*)norm_w, (bf16*)h, D, eps);
     DORA_CHECK(err);
     launch_gemm((const bf16*)h, (const int8_t*)wqkv, (float*)p, M, N, D, stream, err);
-    auto kern = qkv_rope_write<Q8>;
+    auto kern = qkv_rope_write<Q8, Rows>;
     DORA_LAUNCH(kern, dim3(M), dim3(HD), stream,
                 (const float*)p, gemm_splits(M, N, D), M, (const float*)sqkv,
                 (const float*)bqkv, (const float*)cosr, (const float*)sinr,
-                (const int*)positions, pos0, per_stream, (const int*)bt, bt_stride,
+                (const int*)positions, pos0, per_stream, rows,
                 k_pool, v_pool, (float*)k_scale, (float*)v_scale, (float*)q,
                 (float*)kcur, (float*)vcur, H, KV);
     DORA_CHECK(err);
 }
 
-template <bool Q8>
-static int batch_step(const void* x, const void* norm_w, const void* wqkv,
-                      const void* sqkv, const void* bqkv, const void* cosr,
-                      const void* sinr, void* k_pool, void* v_pool, void* k_scale,
-                      void* v_scale, const void* wo, const void* swo,
-                      const void* positions, const void* block_tables, void* out,
-                      int residual, int B, int D, int H, int KV, int max_pages,
-                      float eps, float scale, void* h, void* p, void* q, void* kcur,
-                      void* vcur, void* attn, void* stream) {
+// Decode: B rows, row b of stream b at positions[b] (null: every row at
+// pos0, batch 1).
+template <bool Q8, class Rows>
+static int decode_step(const void* x, const void* norm_w, const void* wqkv,
+                       const void* sqkv, const void* bqkv, const void* cosr,
+                       const void* sinr, void* k_pool, void* v_pool, void* k_scale,
+                       void* v_scale, const void* wo, const void* swo,
+                       const void* positions, int pos0, Rows rows, void* out,
+                       int residual, int B, int D, int H, int KV, float eps,
+                       float scale, void* h, void* p, void* q, void* kcur, void* vcur,
+                       void* attn, void* stream) {
     int err = 0;
     project_and_write<Q8>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool,
-                          k_scale, v_scale, positions, 0, 1, block_tables, max_pages,
-                          B, D, H, KV, eps, h, p, q, kcur, vcur, stream, err);
-    auto kern = paged_decode_attn<Q8>;
+                          k_scale, v_scale, positions, pos0, 1, rows, B, D, H, KV,
+                          eps, h, p, q, kcur, vcur, stream, err);
+    auto kern = decode_sweep<Q8, Rows>;
     DORA_LAUNCH(kern, dim3(B, KV), dim3(HD), stream,
                 (const float*)q, (const float*)kcur, (const float*)vcur,
                 (const void*)k_pool, (const void*)v_pool, (const float*)k_scale,
-                (const float*)v_scale, (const int*)positions,
-                (const int*)block_tables, max_pages, (bf16*)attn, H, KV, scale);
+                (const float*)v_scale, (const int*)positions, pos0, rows,
+                (bf16*)attn, H, KV, scale);
     DORA_CHECK(err);
     out_projection(x, wo, swo, out, residual, B, D, H, p, attn, stream, err);
     return err;
@@ -539,8 +584,9 @@ static int chunk_step(const void* x, const void* norm_w, const void* wqkv,
                       void* q, void* kcur, void* vcur, void* attn, void* stream) {
     int err = 0;
     project_and_write<Q8>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool,
-                          k_scale, v_scale, nullptr, position, M, block_table, 0,
-                          M, D, H, KV, eps, h, p, q, kcur, vcur, stream, err);
+                          k_scale, v_scale, nullptr, position, M,
+                          PagedRows{(const int*)block_table, 0}, M, D, H, KV, eps, h,
+                          p, q, kcur, vcur, stream, err);
     auto kern = paged_chunk_attn<Q8>;
     DORA_LAUNCH(kern, dim3((M + BQ - 1) / BQ, KV), dim3(CT), stream,
                 (const float*)q, (const float*)kcur, (const float*)vcur,
@@ -552,32 +598,34 @@ static int chunk_step(const void* x, const void* norm_w, const void* wqkv,
     return err;
 }
 
-template <bool Q8>
+// Spec verify: B streams of m rows, stream b's from positions[b] (null: one
+// stream from pos0, the dense batch-1 chunk).
+template <bool Q8, class Rows>
 static int spec_step(const void* x, const void* norm_w, const void* wqkv,
                      const void* sqkv, const void* bqkv, const void* cosr,
                      const void* sinr, void* k_pool, void* v_pool, void* k_scale,
                      void* v_scale, const void* wo, const void* swo,
-                     const void* positions, const void* block_tables, void* out,
-                     int residual, int B, int m, int D, int H, int KV, int max_pages,
-                     float eps, float scale, void* h, void* p, void* q, void* kcur,
-                     void* vcur, void* attn, void* stream) {
+                     const void* positions, int pos0, Rows rows, void* out,
+                     int residual, int B, int m, int D, int H, int KV, float eps,
+                     float scale, void* h, void* p, void* q, void* kcur, void* vcur,
+                     void* attn, void* stream) {
     int err = 0;
     const int M = B * m;
     project_and_write<Q8>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool,
-                          k_scale, v_scale, positions, 0, m, block_tables, max_pages,
-                          M, D, H, KV, eps, h, p, q, kcur, vcur, stream, err);
-    auto kern = paged_spec_attn<Q8>;
+                          k_scale, v_scale, positions, pos0, m, rows, M, D, H, KV,
+                          eps, h, p, q, kcur, vcur, stream, err);
+    auto kern = spec_sweep<Q8, Rows>;
     DORA_LAUNCH(kern, dim3(B, KV), dim3(ST), stream,
                 (const float*)q, (const float*)kcur, (const float*)vcur,
                 (const void*)k_pool, (const void*)v_pool, (const float*)k_scale,
-                (const float*)v_scale, (const int*)positions,
-                (const int*)block_tables, max_pages, (bf16*)attn, m, H, KV, scale);
+                (const float*)v_scale, (const int*)positions, pos0, rows,
+                (bf16*)attn, m, H, KV, scale);
     DORA_CHECK(err);
     out_projection(x, wo, swo, out, residual, M, D, H, p, attn, stream, err);
     return err;
 }
 
-// Every entry takes the pools and, for int8 KV, their f32 scale planes
+// Every paged entry takes the pools and, for int8 KV, their f32 scale planes
 // k_scale / v_scale [P, KV, PAGE] (null for bf16 pools, which selects the fp
 // form). Pools and planes are updated in place.
 //
@@ -594,10 +642,11 @@ extern "C" int dora_attention_paged_batch_step(
     const void* positions, const void* block_tables, void* out, int residual,
     int B, int D, int H, int KV, int max_pages, float eps, float scale, void* h,
     void* p, void* q, void* kcur, void* vcur, void* attn, void* stream) {
-    auto run = k_scale ? batch_step<true> : batch_step<false>;
+    auto run = k_scale ? decode_step<true, PagedRows> : decode_step<false, PagedRows>;
     return run(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool, k_scale,
-               v_scale, wo, swo, positions, block_tables, out, residual, B, D, H,
-               KV, max_pages, eps, scale, h, p, q, kcur, vcur, attn, stream);
+               v_scale, wo, swo, positions, 0,
+               PagedRows{(const int*)block_tables, max_pages}, out, residual, B, D,
+               H, KV, eps, scale, h, p, q, kcur, vcur, attn, stream);
 }
 
 // As above for M rows of one stream at positions position..position+M-1;
@@ -628,8 +677,43 @@ extern "C" int dora_attention_paged_spec_step(
     const void* positions, const void* block_tables, void* out, int residual,
     int B, int m, int D, int H, int KV, int max_pages, float eps, float scale,
     void* h, void* p, void* q, void* kcur, void* vcur, void* attn, void* stream) {
-    auto run = k_scale ? spec_step<true> : spec_step<false>;
+    auto run = k_scale ? spec_step<true, PagedRows> : spec_step<false, PagedRows>;
     return run(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool, k_scale,
-               v_scale, wo, swo, positions, block_tables, out, residual, B, m, D, H,
-               KV, max_pages, eps, scale, h, p, q, kcur, vcur, attn, stream);
+               v_scale, wo, swo, positions, 0,
+               PagedRows{(const int*)block_tables, max_pages}, out, residual, B, m,
+               D, H, KV, eps, scale, h, p, q, kcur, vcur, attn, stream);
+}
+
+// Dense decode (attention_batch_step, and attention_step with B = 1): bf16
+// caches [B, KV, S, HD], row b written at and attending below positions[b]
+// (positions null: the one row at `position`). The caller keeps every
+// position in [0, S); it is checked on the host only. Other arguments and
+// scratch as the paged decode entry.
+extern "C" int dora_attention_dense_step(
+    const void* x, const void* norm_w, const void* wqkv, const void* sqkv,
+    const void* bqkv, const void* cosr, const void* sinr, void* k_cache,
+    void* v_cache, const void* wo, const void* swo, const void* positions,
+    int position, void* out, int residual, int B, int D, int H, int KV, int S,
+    float eps, float scale, void* h, void* p, void* q, void* kcur, void* vcur,
+    void* attn, void* stream) {
+    return decode_step<false, DenseRows>(
+        x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_cache, v_cache, nullptr, nullptr,
+        wo, swo, positions, position, DenseRows{S}, out, residual, B, D, H, KV, eps,
+        scale, h, p, q, kcur, vcur, attn, stream);
+}
+
+// Dense batch-1 chunk (attention_chunk_step): M rows at position ..
+// position + M - 1 of bf16 caches [KV, S, HD]; position + M <= S (the
+// speculation headroom, checked by the wrapper). Scratch as the spec entry
+// for M rows.
+extern "C" int dora_attention_dense_chunk_step(
+    const void* x, const void* norm_w, const void* wqkv, const void* sqkv,
+    const void* bqkv, const void* cosr, const void* sinr, void* k_cache,
+    void* v_cache, const void* wo, const void* swo, int position, void* out,
+    int residual, int M, int D, int H, int KV, int S, float eps, float scale,
+    void* h, void* p, void* q, void* kcur, void* vcur, void* attn, void* stream) {
+    return spec_step<false, DenseRows>(
+        x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_cache, v_cache, nullptr, nullptr,
+        wo, swo, nullptr, position, DenseRows{S}, out, residual, 1, M, D, H, KV, eps,
+        scale, h, p, q, kcur, vcur, attn, stream);
 }

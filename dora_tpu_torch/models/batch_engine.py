@@ -1,7 +1,17 @@
-"""Continuous batching over a paged KV pool, on torch tensors.
+"""Continuous batching, on torch tensors: dense slots and a paged KV pool.
 
-Counterpart of ``PageAllocator`` and ``PagedBatchEngine`` of
-dora_tpu/models/batch_engine.py: the same scheduling (one prefill chunk for
+Counterpart of ``BatchEngine`` (with ``_Slot`` and ``_bucket``),
+``PageAllocator`` and ``PagedBatchEngine`` of
+dora_tpu/models/batch_engine.py.
+
+``BatchEngine`` is the dense engine: every slot owns a [KV, max_seq, hd]
+plane per layer; ``submit`` prefills a prompt (right-padded to a
+power-of-two bucket) into a free slot and returns its first token at once;
+``step`` advances every active slot one token with one batched fused pass,
+so new requests join mid-flight. Idle slots ride along pinned at position
+0. Its tracer and serving-metrics hooks stay None (not ported yet).
+
+``PagedBatchEngine``: the same scheduling (one prefill chunk for
 the stream at the head of the line, then one K-tick decode window per
 :meth:`PagedBatchEngine.step`), the same page grants, the null page 0, the
 block tables and the first token read from the final chunk at
@@ -26,6 +36,152 @@ import torch
 
 from dora_tpu_torch._device import resolve_device
 from dora_tpu_torch.models.prefix_cache import PrefixCache
+
+
+@dataclass
+class _Slot:
+    request_id: str
+    emitted: int
+    max_new: int
+
+
+def _bucket(n: int, cap: int) -> int:
+    """Smallest power of two >= n (min 8), capped at the cache length."""
+    b = 8
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
+class BatchEngine:
+    """Dense continuous batching over the family's closures:
+    ``init_caches(n)`` -> the [n, ...] cache tree; ``prefill(ids [1, TB],
+    true_len)`` -> (first [1] int32, one-slot caches, position);
+    ``batch_step(tokens [B], caches, positions [B])`` -> (greedy [B],
+    caches) (models/hf/qwen2.make_batch_engine)."""
+
+    def __init__(self, *, init_caches, prefill, batch_step, max_slots: int = 4,
+                 max_seq: int, eos: int | None = None, device=None):
+        self.device = resolve_device(device)
+        self.max_slots = max_slots
+        self.max_seq = max_seq
+        self.eos = eos
+        self.prefill = prefill
+        self.batch_step = batch_step
+        self.caches = init_caches(max_slots)
+        self.tokens = torch.zeros((max_slots,), dtype=torch.int32, device=self.device)
+        self.positions = torch.zeros((max_slots,), dtype=torch.int32, device=self.device)
+        self.slots: list[_Slot | None] = [None] * max_slots
+        # Active-slot mask, rebuilt only when slot membership changes.
+        self._mask = torch.zeros((max_slots,), dtype=torch.bool, device=self.device)
+        self._imask = self._mask.to(torch.int32)
+        self._members_dirty = True
+        #: device passes launched / device-to-host token fetches (the paged
+        #: engine's fields, so a server reads either engine alike)
+        self.dispatches = 0
+        self.fetches = 0
+        #: observability hooks of the serving node (a tracer and serving
+        #: metrics); not ported yet, they stay None
+        self.tracer = None
+        self.serving_metrics = None
+        #: request_id -> seconds its first token waited host-side before the
+        #: engine call returned: always empty here, since submit returns the
+        #: first token synchronously; kept so a server reads either engine
+        self.emit_lag_s: dict[str, float] = {}
+
+    # -- admission -----------------------------------------------------------
+
+    @property
+    def free_slots(self) -> int:
+        return sum(s is None for s in self.slots)
+
+    @property
+    def active(self) -> int:
+        return self.max_slots - self.free_slots
+
+    def fits(self, prompt_len: int, max_new: int) -> bool:
+        """Length admissibility alone (a request that never fits must be
+        rejected up front, not parked in a backlog)."""
+        return prompt_len + max_new <= self.max_seq
+
+    def can_admit(self, prompt_len: int, max_new: int) -> bool:
+        return self.free_slots > 0 and self.fits(prompt_len, max_new)
+
+    def _insert(self, sub, first, pos: int, b: int) -> None:
+        """Copy a prefilled one-slot cache tree, its first token and its
+        position into slot b, in place."""
+        for layer, entry in sub.items():
+            for key, one in entry.items():
+                self.caches[layer][key][b : b + 1].copy_(one)
+        self.tokens[b : b + 1].copy_(first)
+        self.positions[b] = pos
+
+    def submit(self, request_id: str, prompt_ids, max_new: int) -> tuple[int, bool]:
+        """Prefill ``prompt_ids`` into a free slot; returns ``(first_token,
+        done)``: the first generated token is emitted by this call (the
+        steps emit the rest), and ``done`` is True when the stream completed
+        at it (max_new == 1, or the first token is EOS). Raises if no slot
+        is free or the request does not fit."""
+        ids = list(prompt_ids)
+        if not self.can_admit(len(ids), max_new):
+            raise RuntimeError(
+                f"cannot admit: {self.free_slots} slots free, "
+                f"{len(ids)}+{max_new} vs max_seq {self.max_seq}"
+            )
+        b = self.slots.index(None)
+        tb = _bucket(len(ids), self.max_seq)
+        padded = torch.tensor([ids + [0] * (tb - len(ids))], dtype=torch.int32,
+                              device=self.device)
+        first, caches_1, pos = self.prefill(padded, len(ids))
+        self._insert(caches_1, first, pos, b)
+        self.dispatches += 1
+        token = int(first[0])
+        self.fetches += 1
+        done = (self.eos is not None and token == self.eos) or max_new <= 1
+        if not done:
+            self.slots[b] = _Slot(request_id, emitted=1, max_new=max_new)
+        # Even an instantly done submit moved this slot's position off 0.
+        self._members_dirty = True
+        return token, done
+
+    # -- the batched step ----------------------------------------------------
+
+    def step(self) -> list[tuple[str, int, bool]]:
+        """One batched fused pass: every active slot advances one token.
+        Returns [(request_id, token, done)] for the active slots (empty when
+        idle). Slots free as they finish; a submit between steps joins the
+        next pass."""
+        if self.active == 0:
+            return []
+        # Idle slots pin at position 0, so their row's write never walks
+        # toward the end of their plane. The mask and the pin run only when
+        # membership changed; in steady state active rows advance by a
+        # masked increment.
+        if self._members_dirty:
+            self._mask = torch.tensor([s is not None for s in self.slots],
+                                      dtype=torch.bool, device=self.device)
+            self._imask = self._mask.to(torch.int32)
+            self.positions = torch.where(self._mask, self.positions,
+                                         torch.zeros_like(self.positions))
+            self._members_dirty = False
+        nxt, self.caches = self.batch_step(self.tokens, self.caches, self.positions)
+        self.dispatches += 1
+        self.tokens = nxt
+        self.positions = self.positions + self._imask
+        host = nxt.cpu().numpy()  # ONE device-to-host copy for all slots
+        self.fetches += 1
+        emitted = []
+        for b, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            token = int(host[b])
+            slot.emitted += 1
+            done = slot.emitted >= slot.max_new or (self.eos is not None and token == self.eos)
+            emitted.append((slot.request_id, token, done))
+            if done:
+                self.slots[b] = None
+                self._members_dirty = True
+        return emitted
 
 
 class PageAllocator:

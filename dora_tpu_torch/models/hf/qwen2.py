@@ -1,16 +1,20 @@
-"""Qwen2-family causal LM on the paged serving path, on torch tensors.
+"""Qwen2-family causal LM, on torch tensors.
 
-Counterpart of the serving part of dora_tpu/models/hf/qwen2.py: the config,
-checkpoint loading and int8 decode quantization, the fused paged batch,
-chunk and speculative-verify steps (with multi-tenant LoRA deltas), the page
-pool (fp or int8 KV), the adapter catalog ``make_lora_pool`` and
+Counterpart of dora_tpu/models/hf/qwen2.py: the config, checkpoint loading
+and int8 decode quantization (with the bf16 sidecar unless
+``DORA_INT8_PURE``); the unfused model (``_lm``, ``forward``,
+``prefill_padded``) over models/layers.py; batch-1 greedy ``generate`` and
+its fused step ``fused_step`` (one row, or a speculative verify's W rows,
+over dense caches from ``init_cache``); the dense continuous-batching
+engine ``make_batch_engine`` over ``fused_batch_step``; the fused paged
+batch, chunk and speculative-verify steps (with multi-tenant LoRA deltas),
+the page pool (fp or int8 KV), the adapter catalog ``make_lora_pool`` and
 ``make_paged_engine`` (speculation, the prefix cache, int8 KV and LoRA
 included). ``params_from_jax`` turns the JAX package's parameter tree into
 this package's, so the two can be held against each other on the same
 weights.
 
-Not ported yet: the unfused ``forward``/``generate``, the dense batch engine
-and int4 weights (``quantize_decode`` refuses the int4 knobs).
+Not ported yet: int4 weights (``quantize_decode`` refuses the int4 knobs).
 """
 
 from __future__ import annotations
@@ -172,8 +176,9 @@ def random_params(cfg: Qwen2Config, *, seed: int = 0, std: float = 0.02,
 def quantize_decode(params, cfg: Qwen2Config) -> dict:
     """Quantize the decode path (blocks + head) into the int8 fused kernel
     layout; a tied head is quantized from the embedding transpose, and the
-    embedding itself stays float for the gather. int8 only, without the
-    bf16 sidecar (see ops/int8_matmul.py).
+    embedding itself stays float for the gather. Each weight keeps its bf16
+    sidecar for the large-M unfused products (prefill) unless
+    ``DORA_INT8_PURE`` is set, as in the JAX package.
 
     The JAX package's ``DORA_WEIGHT_BITS`` (4 or 8) and ``DORA_INT4_DECODE``
     pick int4 on 4; int4 is not ported, so those settings raise here rather
@@ -190,26 +195,29 @@ def quantize_decode(params, cfg: Qwen2Config) -> dict:
             "not ported to dora_tpu_torch yet; unset them to serve int8"
         )
 
+    keep_bf16 = not os.environ.get("DORA_INT8_PURE")
     out = dict(params)
-    out["blocks"] = quantize_tree(params["blocks"])
+    out["blocks"] = quantize_tree(params["blocks"], keep_bf16=keep_bf16)
     head = params.get("lm_head")
     if cfg.tie_embeddings or head is None:
         head = params["embed"].T
-    out["lm_head"] = quantize_int8(head)
+    out["lm_head"] = quantize_int8(head, keep_bf16)
     return out
 
 
 def params_from_jax(tree, device=None) -> dict:
     """The JAX package's parameter tree (arrays or numpy arrays, quantized
-    dicts included) as this package's tensors on ``device`` (default cuda).
-    The ``bf16`` sidecar of quantized dicts is dropped: the fused path never
-    reads it."""
+    dicts and their ``bf16`` sidecars included) as this package's tensors on
+    ``device`` (default cuda), bit for bit."""
     dev = resolve_device(device)
 
     def conv(v):
         if isinstance(v, dict):
-            return {k: conv(x) for k, x in v.items() if k != "bf16"}
-        return torch.from_numpy(np.array(v)).to(dev)
+            return {k: conv(x) for k, x in v.items()}
+        a = np.array(v)
+        if a.dtype.name == "bfloat16":  # numpy's bf16 extension type: move the bits
+            return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+        return torch.from_numpy(a).to(dev)
 
     return conv(tree)
 
@@ -217,6 +225,210 @@ def params_from_jax(tree, device=None) -> dict:
 def _rope(cfg: Qwen2Config, device):
     return L.rope_table(cfg.max_seq, cfg.head_dim, base=cfg.rope_theta,
                         device=device)
+
+
+# ---------------------------------------------------------------------------
+# the unfused model, batch-1 decode and the dense batch engine
+# ---------------------------------------------------------------------------
+
+
+def _head(params, cfg: Qwen2Config, dtype):
+    head = params.get("lm_head")
+    if isinstance(head, dict):  # quantized (quantize_decode)
+        return head
+    if cfg.tie_embeddings or head is None:
+        return params["embed"].to(dtype).T
+    return head.to(dtype)
+
+
+def _head_logits(h, head):
+    """h @ head in f32 logits, for a float head or a quantized head dict
+    (whose one-row products take the int8 kernel, models/layers.matmul)."""
+    if isinstance(head, dict):
+        return L.matmul(h, head).float()
+    return (h @ head).float()
+
+
+def _lm(params, cfg: Qwen2Config, h, positions, mask, caches=None,
+        cache_index: int | None = None, rope=None):
+    """The unfused blocks over h [B, T, dim], then the final norm. With
+    ``caches`` ({layer: {k, v}} [B, KV, S, hd]) each layer writes its rows at
+    ``cache_index`` in place. Returns (h, caches or {})."""
+    rope = rope if rope is not None else _rope(cfg, h.device)
+    new_caches = {}
+    for i in range(cfg.layers):
+        h, new_cache = L.block_forward(
+            params["blocks"][str(i)], h, cfg.heads, n_kv_heads=cfg.kv_heads,
+            rope=rope, positions=positions, mask=mask,
+            cache=None if caches is None else caches[str(i)],
+            cache_index=cache_index, norm_eps=cfg.norm_eps,
+        )
+        if new_cache is not None:
+            new_caches[str(i)] = new_cache
+    return L.rms_norm(h, params["out_norm"], cfg.norm_eps), new_caches
+
+
+def forward(params, cfg: Qwen2Config, tokens):
+    """tokens [B, T] int -> logits [B, T, vocab] f32 (causal, no cache)."""
+    embed = params["embed"]
+    dev = embed.device
+    dtype = L.compute_dtype(dev)
+    b, t = tokens.shape
+    h = embed[tokens.long().to(dev)].to(dtype)
+    positions = torch.arange(t, device=dev).expand(b, t)
+    h, _ = _lm(params, cfg, h, positions, L.causal_mask(t, t, device=dev))
+    return _head_logits(h, _head(params, cfg, dtype))
+
+
+def init_cache(cfg: Qwen2Config, batch: int, dtype=None, device=None):
+    """Dense KV caches {layer: {k/v: [batch, KV, max_seq, hd]}}, zeroed, in
+    the compute dtype of ``device`` (default cuda)."""
+    dev = resolve_device(device)
+    dtype = dtype or L.compute_dtype(dev)
+    shape = (batch, cfg.kv_heads, cfg.max_seq, cfg.head_dim)
+    return {
+        str(i): {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        for i in range(cfg.layers)
+    }
+
+
+def _prefill(params, cfg: Qwen2Config, prompt_ids, rope=None):
+    """The unfused prompt pass of ``generate`` and ``prefill_padded``: the
+    T prompt rows into fresh caches at 0 (each attending the rows before it
+    among the first T). Returns (h [B, T, dim], caches)."""
+    embed = params["embed"]
+    dev = embed.device
+    b, t = prompt_ids.shape
+    h = embed[prompt_ids.long().to(dev)].to(L.compute_dtype(dev))
+    positions = torch.arange(t, device=dev).expand(b, t)
+    mask = L.causal_mask(t, cfg.max_seq, device=dev) & (
+        torch.arange(cfg.max_seq, device=dev)[None, None, None, :] < t)
+    caches = init_cache(cfg, b, device=dev)
+    return _lm(params, cfg, h, positions, mask, caches=caches, cache_index=0, rope=rope)
+
+
+def prefill_padded(params, cfg: Qwen2Config, prompt_ids, true_len: int, rope=None):
+    """Prefill for the batching engine: ``prompt_ids`` [1, TB] is the prompt
+    RIGHT-padded to a bucket length. Pad rows sit after the real tokens, so
+    no real token attends one; the first generated token reads the hidden
+    state at ``true_len - 1``; pad cache rows sit at >= true_len and decode
+    overwrites each before it becomes attendable. Returns (first [1] int32,
+    caches [1, ...], position = true_len)."""
+    dtype = L.compute_dtype(params["embed"].device)
+    h, caches = _prefill(params, cfg, prompt_ids, rope)
+    last = h[:, int(true_len) - 1]
+    first = torch.argmax(_head_logits(last, _head(params, cfg, dtype)), dim=-1)
+    return first.to(torch.int32), caches, int(true_len)
+
+
+def fused_step(params, cfg: Qwen2Config, tokens, caches, position: int, rope=None):
+    """Standard-RoPE fused decode pass: tokens [1, W] at cache and rope
+    positions ``position..position+W-1`` (W = 1: ``attention_step``; W > 1,
+    a speculative verify: ``attention_chunk_step``). Returns (greedy [W]
+    int32, caches), greedy[i] continuing the prefix through token i. Gate
+    with models/vlm.fused_decode_ready."""
+    from dora_tpu_torch.models import vlm as _vlm
+    from dora_tpu_torch.ops import decode_block as DB
+
+    embed = params["embed"]
+    cos_t, sin_t = rope if rope is not None else _rope(cfg, embed.device)
+    w = tokens.shape[1]
+    cos_rows, sin_rows = DB.rope_rows(cos_t, sin_t, position, w)
+    x = embed[tokens[0].long()].to(L.compute_dtype(embed.device))  # [W, dim]
+    return _vlm.fused_decode_pass(
+        params, x, caches, position, cos_rows, sin_rows, heads=cfg.heads,
+        kv_heads=cfg.kv_heads, head_dim=cfg.head_dim, layers=cfg.layers,
+        eps=cfg.norm_eps,
+    )
+
+
+def fused_batch_step(params, cfg: Qwen2Config, tokens, caches, positions, rope=None):
+    """One fused decode step for B independent sequences over dense caches
+    [B, KV, S, hd] per layer (standard RoPE at each row's own position).
+    tokens/positions [B] int32. Returns (greedy [B] int32, caches): the
+    dense engine's inner step."""
+    from dora_tpu_torch.models import vlm as _vlm
+    from dora_tpu_torch.ops import decode_block as DB
+
+    embed = params["embed"]
+    cos_t, sin_t = rope if rope is not None else _rope(cfg, embed.device)
+    cos_rows, sin_rows = DB.rope_rows_at(cos_t, sin_t, positions)
+    x = embed[tokens.long()].to(L.compute_dtype(embed.device))  # [B, dim]
+    return _vlm.fused_decode_pass_batch(
+        params, x, caches, positions, cos_rows, sin_rows, heads=cfg.heads,
+        kv_heads=cfg.kv_heads, head_dim=cfg.head_dim, layers=cfg.layers,
+        eps=cfg.norm_eps,
+    )
+
+
+def generate(params, cfg: Qwen2Config, prompt_ids, max_new_tokens: int):
+    """Greedy generation of ``max_new_tokens`` per row, as a host loop of
+    steps. prompt_ids [B, T]; returns [B, max_new_tokens] int32. The prompt
+    runs unfused; each decode step runs the fused batch-1 pass when
+    models/vlm.fused_decode_ready allows (B = 1, the quantized layout,
+    ``DORA_FUSED_DECODE`` not 0), else the unfused blocks over one row."""
+    from dora_tpu_torch.models import vlm as _vlm
+
+    b, t = prompt_ids.shape
+    if t + max_new_tokens > cfg.max_seq:
+        # Out-of-bounds cache rows would be silently clamped, corrupting the
+        # KV cache: fail loudly instead (the JAX package's message).
+        raise ValueError(
+            f"prompt ({t}) + max_new_tokens ({max_new_tokens}) exceeds "
+            f"max_seq ({cfg.max_seq}); reload with a larger max_seq"
+        )
+    embed = params["embed"]
+    dev = embed.device
+    dtype = L.compute_dtype(dev)
+    head = _head(params, cfg, dtype)
+    rope = _rope(cfg, dev)
+    h, caches = _prefill(params, cfg, prompt_ids, rope)
+    token = torch.argmax(_head_logits(h[:, -1], head), dim=-1).to(torch.int32)
+    use_fused = _vlm.fused_decode_ready(params, b)
+    out = [token]
+    # Token j + 1 comes from the step at position t + j; the last token
+    # needs no step after it.
+    for position in range(t, t + max_new_tokens - 1):
+        if use_fused:
+            token, caches = fused_step(params, cfg, token[:, None], caches, position, rope)
+        else:
+            h = embed[token.long()].to(dtype)[:, None, :]
+            mask = (torch.arange(cfg.max_seq, device=dev) <= position)[None, None, None, :]
+            h, caches = _lm(params, cfg, h, torch.full((b, 1), position, device=dev), mask,
+                            caches=caches, cache_index=position, rope=rope)
+            token = torch.argmax(_head_logits(h[:, -1], head), dim=-1).to(torch.int32)
+        out.append(token)
+    return torch.stack(out, dim=1)
+
+
+def make_batch_engine(params, cfg: Qwen2Config, *, max_slots: int = 4,
+                      eos: int | None = None, device=None):
+    """Dense continuous-batching engine (models/batch_engine.BatchEngine) on
+    ``device`` (default cuda; the params move there): every slot owns a
+    [KV, max_seq, hd] plane per layer, prompts prefill unfused into a
+    bucket-padded one-slot cache, and each step is one ``fused_batch_step``
+    over all slots. Needs ``quantize_decode`` params and the fused tier
+    (models/vlm.fused_batch_ready: ``DORA_FUSED_DECODE=0`` refuses)."""
+    from dora_tpu_torch.models import vlm as _vlm
+    from dora_tpu_torch.models.batch_engine import BatchEngine
+
+    if not _vlm.fused_batch_ready(params):
+        raise ValueError("batch engine needs quantize_decode params and the fused "
+                         "decode tier (DORA_FUSED_DECODE not 0)")
+    dev = resolve_device(device)
+    params = _to(params, dev)
+    rope = _rope(cfg, dev)
+    return BatchEngine(
+        init_caches=lambda n: init_cache(cfg, n, device=dev),
+        prefill=lambda ids, true_len: prefill_padded(params, cfg, ids, true_len, rope),
+        batch_step=lambda tokens, caches, positions: fused_batch_step(
+            params, cfg, tokens, caches, positions, rope),
+        max_slots=max_slots,
+        max_seq=cfg.max_seq,
+        eos=eos,
+        device=dev,
+    )
 
 
 def fused_paged_batch_step(params, cfg, tokens, pools, positions,

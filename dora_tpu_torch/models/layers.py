@@ -1,17 +1,34 @@
-"""Transformer primitives the serving path needs, on torch tensors.
+"""Transformer primitives, on torch tensors.
 
 Counterpart of the matching functions of dora_tpu/models/layers.py:
 ``compute_dtype`` (bf16 on the card, f32 on the CPU), the f32 rotary
-tables and RMSNorm with f32 statistics.
+tables, RMSNorm with f32 statistics, and the unfused pre-norm block
+(``block_forward`` = ``attention_sublayer`` + ``mlp_sublayer``, the
+RMSNorm + SwiGLU layout of Qwen2) over plain or quantized weights, which
+prefill and the unfused decode run. ``matmul`` keeps the JAX dispatch
+rule: a quantized weight goes through the int8 kernel
+(ops/int8_matmul.py) for M <= 32 rows, or when it has no ``bf16``
+sidecar, and through a plain bf16 product of the sidecar above that. Attention is the reference's einsum with an f32
+softmax, rounded where the reference rounds (no fused SDPA). The ring,
+ulysses and flash variants and the LayerNorm / GELU layouts (ViT,
+Whisper) are not ported: their arguments raise.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from dora_tpu_torch._device import compute_dtype, resolve_device
 
-__all__ = ["compute_dtype", "rms_norm", "rope_table"]
+__all__ = [
+    "apply_rope", "attention", "attention_sublayer", "block_forward", "causal_mask",
+    "compute_dtype", "dense", "matmul", "mlp_sublayer", "rms_norm", "rope_table",
+]
+
+#: quantized products with more rows than this take the bf16 sidecar
+MATVEC_MAX_ROWS = 32
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -19,6 +36,39 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     xf = x.float()
     xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * weight.float()).to(dtype)
+
+
+def _not_ported(norm="rms", mlp="swiglu", **variants) -> None:
+    if norm != "rms" or mlp != "swiglu" or any(v is not None for v in variants.values()):
+        raise NotImplementedError(
+            "only the RMSNorm + SwiGLU block with dense attention is ported "
+            f"(got norm={norm!r}, mlp={mlp!r}, {variants})")
+
+
+def matmul(x, w):
+    """``x @ w`` for a float weight or a quantized dict {"int8", "scale"[,
+    "bf16"]}: M <= 32 rows (decode, short prompts, the head on one row), or
+    no sidecar, take the int8 kernel; larger M the plain product of the bf16
+    sidecar in x's dtype."""
+    if isinstance(w, dict):
+        if "int8" not in w:
+            raise NotImplementedError(f"quantized weight {sorted(w)}: only int8 is ported")
+        m = math.prod(x.shape[:-1])
+        if m > MATVEC_MAX_ROWS and "bf16" in w:
+            return x @ w["bf16"].to(x.dtype)
+        from dora_tpu_torch.ops.int8_matmul import int8_matmul
+
+        return int8_matmul(x, w["int8"], w["scale"])
+    return x @ w.to(x.dtype)
+
+
+def dense(x, params, w: str, b: str):
+    """x @ params[w] (+ params[b] when the checkpoint has the bias)."""
+    out = matmul(x, params[w])
+    bias = params.get(b)
+    if bias is not None:
+        out = out + bias.to(x.dtype)
+    return out
 
 
 def rope_table(max_len: int, head_dim: int, base: float = 10000.0,
@@ -31,3 +81,118 @@ def rope_table(max_len: int, head_dim: int, base: float = 10000.0,
     t = torch.arange(max_len, dtype=torch.float32, device=device)
     freqs = torch.outer(t, inv_freq)
     return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rope(x, cos, sin, positions):
+    """NeoX rotary. x [B, H, T, D]; positions [B, T] absolute positions into
+    the (cos, sin) tables; computed in f32, returned in x's dtype."""
+    idx = positions.long()
+    c = cos[idx][:, None].float()  # [B, 1, T, D/2]
+    s = sin[idx][:, None].float()
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def attention(q, k, v, mask=None):
+    """Dense attention, [B, H, T, D]: scores in q's dtype, then an f32
+    softmax (masked entries at f32's lowest value) cast back to q's dtype
+    before the product with v, as the reference rounds."""
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k).float() / math.sqrt(q.shape[-1])
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def causal_mask(tq: int, tk: int, offset: int = 0, device=None):
+    """[1, 1, tq, tk] bool mask; ``offset`` cached tokens come before q."""
+    device = resolve_device(device)
+    qi = torch.arange(tq, device=device)[:, None] + offset
+    ki = torch.arange(tk, device=device)[None, :]
+    return (qi >= ki)[None, None]
+
+
+def block_forward(params: dict, x, n_heads: int, *, n_kv_heads: int | None = None,
+                  rope: tuple | None = None, positions=None, mask=None,
+                  cache: dict | None = None, cache_index: int | None = None,
+                  norm: str = "rms", mlp: str = "swiglu", norm_eps: float = 1e-6,
+                  head_dim: int | None = None, mesh=None, ring_axis=None, flash=None,
+                  sp_impl=None):
+    """One pre-norm block. Returns (y, new_cache). With ``cache`` k/v are
+    written at ``cache_index`` (in place) and attention runs against the
+    whole cache under ``mask``."""
+    x, new_cache = attention_sublayer(
+        params, x, n_heads, n_kv_heads=n_kv_heads, rope=rope, positions=positions,
+        mask=mask, cache=cache, cache_index=cache_index, norm=norm, norm_eps=norm_eps,
+        head_dim=head_dim, mesh=mesh, ring_axis=ring_axis, flash=flash, sp_impl=sp_impl,
+    )
+    x = mlp_sublayer(params, x, norm=norm, mlp=mlp, norm_eps=norm_eps)
+    return x, new_cache
+
+
+def attention_sublayer(params, x, n_heads, *, n_kv_heads=None, rope=None,
+                       positions=None, mask=None, cache=None, cache_index=None,
+                       norm="rms", norm_eps=1e-6, head_dim=None, mesh=None,
+                       ring_axis=None, flash=None, sp_impl=None):
+    """Pre-norm self-attention with residual. Returns (y, new_cache).
+
+    ``rope=(cos, sin)`` position-indexed tables with ``positions`` [B, T]
+    (default 0..T-1). With ``cache`` ({"k", "v"} [B, KV, S, hd]) the rows'
+    K/V are written at ``cache_index`` in place (the start clamped so they
+    fit, as ``dynamic_update_slice`` clamps) and attention runs over the
+    whole cache; the cache is returned as new_cache."""
+    _not_ported(norm, mesh=mesh, ring_axis=ring_axis, flash=flash, sp_impl=sp_impl)
+    b, t, dim = x.shape
+    n_kv = n_kv_heads or n_heads
+    head_dim = head_dim or dim // n_heads
+    dtype = x.dtype
+
+    h = rms_norm(x, params["attn_norm"], norm_eps)
+    if "wqkv" in params:
+        qkv = dense(h, params, "wqkv", "bqkv")
+        q, k, v = qkv.split([n_heads * head_dim, n_kv * head_dim, n_kv * head_dim], dim=-1)
+    else:
+        q = dense(h, params, "wq", "bq")
+        k = dense(h, params, "wk", "bk")
+        v = dense(h, params, "wv", "bv")
+    q = q.reshape(b, t, n_heads, head_dim).transpose(1, 2)  # [B, H, T, D]
+    k = k.reshape(b, t, n_kv, head_dim).transpose(1, 2)
+    v = v.reshape(b, t, n_kv, head_dim).transpose(1, 2)
+
+    if rope is not None:
+        cos, sin = rope
+        if positions is None:
+            positions = torch.arange(t, device=x.device).expand(b, t)
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
+
+    new_cache = None
+    if cache is not None:
+        kc, vc = cache["k"], cache["v"]
+        start = max(0, min(int(cache_index), kc.shape[2] - t))
+        kc[:, :, start : start + t] = k.to(kc.dtype)
+        vc[:, :, start : start + t] = v.to(vc.dtype)
+        k, v = kc, vc
+        new_cache = {"k": kc, "v": vc}
+
+    if n_kv != n_heads:  # grouped-query: repeat kv heads
+        rep = n_heads // n_kv
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+
+    out = attention(q, k.to(dtype), v.to(dtype), mask)
+    out = out.transpose(1, 2).reshape(b, t, n_heads * head_dim)
+    return x + dense(out, params, "wo", "bo"), new_cache
+
+
+def mlp_sublayer(params, x, *, norm="rms", mlp="swiglu", norm_eps=1e-6):
+    """Pre-norm SwiGLU feed-forward with residual."""
+    _not_ported(norm, mlp)
+    h = rms_norm(x, params["ffn_norm"], norm_eps)
+    if "w_gateup" in params:  # decode-fused (see quantize_tree)
+        gate, up = dense(h, params, "w_gateup", "b_gateup").chunk(2, dim=-1)
+        gate = torch.nn.functional.silu(gate)
+    else:
+        gate = torch.nn.functional.silu(dense(h, params, "w_gate", "b_gate"))
+        up = dense(h, params, "w_up", "b_up")
+    return x + dense(gate * up, params, "w_down", "b_down")

@@ -1,18 +1,23 @@
-"""The fused paged decode passes and the K-tick decode window.
+"""The fused decode passes and the K-tick decode window.
 
-Counterpart of the paged serving part of dora_tpu/models/vlm.py
-(``_qw``, ``_fused_pass``, ``fused_paged_pass_batch``,
-``fused_paged_pass_chunk``, ``fused_paged_pass_spec``, ``fused_batch_ready``,
-``make_paged_window``, ``make_paged_spec_window``, ``window_row_stats``,
-``spec_window_row_stats``). Each layer runs one attention kernel and
-``mlp_step``, then, with multi-tenant LoRA, ``lora_gather_matmul``; the
-pass ends in ``lm_head_argmax`` (ops/decode_block.py, ops/lora.py). Pools
-hold fp pages, or int8 pages with their ``ks``/``vs`` scale planes, which
-select the kernels' int8-KV forms. The vision tower, training and the dense
-and batch-1 passes are not ported yet.
+Counterpart of the fused-tier part of dora_tpu/models/vlm.py (``_qw``,
+``_fused_pass``, ``fused_decode_ready``, ``fused_batch_ready``, the
+dense-cache passes ``fused_decode_pass`` (batch 1: one row, or a
+speculative verify's rows) and ``fused_decode_pass_batch`` (the dense
+engine), the paged ``fused_paged_pass_batch``, ``fused_paged_pass_chunk``,
+``fused_paged_pass_spec``, ``make_paged_window``, ``make_paged_spec_window``,
+``window_row_stats``, ``spec_window_row_stats``). Each layer runs one
+attention kernel and ``mlp_step``, then, with multi-tenant LoRA,
+``lora_gather_matmul``; the pass ends in ``lm_head_argmax``
+(ops/decode_block.py, ops/lora.py). Pools hold fp pages, or int8 pages with
+their ``ks``/``vs`` scale planes, which select the kernels' int8-KV forms.
+The vision tower, training and the ``VLMConfig`` decode functions
+(``decode_step_fused`` and the rest) are not ported yet.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -25,10 +30,15 @@ def _qw(d: dict):
     return d["int8"], d["scale"]
 
 
-def fused_batch_ready(params) -> bool:
-    """True when params hold the int8 fused layout of ``quantize_decode``
-    (wqkv / w_gateup / wo / w_down / lm_head) and no output-projection
-    biases, which the fused passes need."""
+def fused_decode_ready(params, batch: int = 1) -> bool:
+    """True when a decode step can run the fused tier: batch 1, params in
+    the int8 fused layout of ``quantize_decode`` (wqkv / w_gateup / wo /
+    w_down / lm_head) and no output-projection biases. Opt-out:
+    ``DORA_FUSED_DECODE=0`` (or empty), as in the JAX package."""
+    if os.environ.get("DORA_FUSED_DECODE", "1") in ("", "0"):
+        return False
+    if batch != 1:
+        return False
     blk = params.get("blocks", {}).get("0")
     if blk is None:
         return False
@@ -45,6 +55,12 @@ def fused_batch_ready(params) -> bool:
         and "bo" not in blk
         and "b_down" not in blk
     )
+
+
+def fused_batch_ready(params) -> bool:
+    """True when the batched fused tier can serve (the dense and paged
+    engines): :func:`fused_decode_ready` without its batch-1 gate."""
+    return fused_decode_ready(params, 1)
 
 
 def _fused_pass(params, x, attn_apply, *, layers: int, eps: float, lora=None):
@@ -76,6 +92,48 @@ def _fused_pass(params, x, attn_apply, *, layers: int, eps: float, lora=None):
     wh, sh = _qw(params["lm_head"])
     greedy = DB.lm_head_argmax(x, params["out_norm"], wh, sh, eps=eps)
     return greedy, new_pools
+
+
+def fused_decode_pass(params, x, caches, position: int, cos_rows, sin_rows, *,
+                      heads: int, kv_heads: int, head_dim: int, layers: int,
+                      eps: float = 1e-6):
+    """Batch-1 fused pass over dense caches {layer: {k, v}} [1, KV, S, hd]:
+    x [M, dim] holds the embedded tokens at positions ``position..position+
+    M-1`` with their rope rows. One row runs ``attention_step``, more rows
+    (a speculative verify) ``attention_chunk_step``. Returns (greedy [M],
+    caches), greedy[i] continuing the prefix through row i; the caches are
+    updated in place."""
+    attn = DB.attention_step if x.shape[0] == 1 else DB.attention_chunk_step
+
+    def attn_apply(i, x, blk, wqkv, sqkv, bqkv, wo, swo):
+        kc = caches[str(i)]["k"][0]  # [KV, S, hd], a view of the cache
+        vc = caches[str(i)]["v"][0]
+        x, kc, vc = attn(
+            x, blk["attn_norm"], wqkv, sqkv, bqkv, cos_rows, sin_rows, kc, vc,
+            wo, swo, position, heads=heads, kv_heads=kv_heads, head_dim=head_dim,
+            eps=eps,
+        )
+        return x, {"k": kc[None], "v": vc[None]}
+
+    return _fused_pass(params, x, attn_apply, layers=layers, eps=eps)
+
+
+def fused_decode_pass_batch(params, x, caches, positions, cos_rows, sin_rows, *,
+                            heads: int, kv_heads: int, head_dim: int, layers: int,
+                            eps: float = 1e-6):
+    """Batched fused pass over dense caches {layer: {k, v}} [B, KV, S, hd]:
+    row b (x [B, dim]) at ``positions[b]`` of plane b, through
+    ``attention_batch_step``. Returns (greedy [B], caches)."""
+
+    def attn_apply(i, x, blk, wqkv, sqkv, bqkv, wo, swo):
+        x, kc, vc = DB.attention_batch_step(
+            x, blk["attn_norm"], wqkv, sqkv, bqkv, cos_rows, sin_rows,
+            caches[str(i)]["k"], caches[str(i)]["v"], wo, swo, positions,
+            heads=heads, kv_heads=kv_heads, head_dim=head_dim, eps=eps,
+        )
+        return x, {"k": kc, "v": vc}
+
+    return _fused_pass(params, x, attn_apply, layers=layers, eps=eps)
 
 
 def _pool_args(lp):

@@ -1,14 +1,14 @@
-"""LLM serving entry of the port: build the paged engine and answer prompts.
+"""LLM serving entry of the port: build the engine and answer prompts.
 
 Counterpart of ``make_engine`` and ``main`` of dora_tpu/nodehub/llm_server.py.
 ``make_engine`` reads the same knobs with the same meaning
-(``DORA_BATCH_SLOTS``, ``DORA_PAGE_SIZE``, ``DORA_PREFILL_CHUNK``,
+(``DORA_PAGED_KV`` (0: the dense batch engine, whose ``DORA_BATCH_SLOTS``
+defaults to 4), ``DORA_BATCH_SLOTS``, ``DORA_PAGE_SIZE``, ``DORA_PREFILL_CHUNK``,
 ``DORA_MULTISTEP_K``, ``DORA_PREFIX_CACHE`` (on by default here),
 ``DORA_PREFIX_CACHE_PAGES``, ``DORA_SPEC_K``, ``DORA_SPEC_NGRAM``,
 ``DORA_KV_INT8`` (int8 KV pages in the fp pool's byte budget),
 ``DORA_LORA_DIR`` / ``DORA_LORA_MAX_RESIDENT`` / ``DORA_LORA_RANK``
-(multi-tenant LoRA from a catalog of ``<tenant>.npz`` adapters) and
-``DORA_PAGED_KV``). ``main`` answers a list of token-id prompts through
+(multi-tenant LoRA from a catalog of ``<tenant>.npz`` adapters)). ``main`` answers a list of token-id prompts through
 ``submit``/``step``; wiring it into a dataflow node waits for a port of the
 node API.
 
@@ -35,23 +35,24 @@ from collections import deque
 
 
 def make_engine(params, cfg, eos=None, device=None):
-    """The paged serving engine from the env knobs. The prefix cache is on
-    unless ``DORA_PREFIX_CACHE=0``; ``DORA_SPEC_K``/``DORA_SPEC_NGRAM``,
-    ``DORA_KV_INT8`` and the LoRA knobs (``DORA_LORA_DIR``,
-    ``DORA_LORA_MAX_RESIDENT``, ``DORA_LORA_RANK``) reach the engine through
-    ``make_paged_engine``. ``DORA_PAGED_KV=0`` asks for the dense engine,
-    which is not ported yet, and raises."""
+    """The serving engine from the env knobs: paged by default, the dense
+    batch engine (``qwen2.make_batch_engine``, ``DORA_BATCH_SLOTS`` slots,
+    default 4) with ``DORA_PAGED_KV=0``. On the paged engine the prefix
+    cache is on unless ``DORA_PREFIX_CACHE=0``; ``DORA_SPEC_K`` /
+    ``DORA_SPEC_NGRAM``, ``DORA_KV_INT8`` and the LoRA knobs
+    (``DORA_LORA_DIR``, ``DORA_LORA_MAX_RESIDENT``, ``DORA_LORA_RANK``)
+    reach it through ``make_paged_engine``."""
     from dora_tpu_torch.models.hf import qwen2
 
-    if os.environ.get("DORA_PAGED_KV", "1") == "0":
-        raise NotImplementedError(
-            "DORA_PAGED_KV=0 selects the dense batch engine, which "
-            "dora_tpu_torch does not port yet; unset it to serve paged"
-        )
+    paged = os.environ.get("DORA_PAGED_KV", "1") != "0"
+    slots = int(os.environ.get("DORA_BATCH_SLOTS", "16" if paged else "4"))
+    if not paged:
+        return qwen2.make_batch_engine(params, cfg, max_slots=slots, eos=eos,
+                                       device=device)
     chunk_env = os.environ.get("DORA_PREFILL_CHUNK")
     return qwen2.make_paged_engine(
         params, cfg,
-        max_slots=int(os.environ.get("DORA_BATCH_SLOTS", "16")),
+        max_slots=slots,
         eos=eos,
         page_size=int(os.environ.get("DORA_PAGE_SIZE", "16")),
         chunk=int(chunk_env) if chunk_env else None,
@@ -64,41 +65,54 @@ def make_engine(params, cfg, eos=None, device=None):
 
 def serve_prompts(engine, prompts, max_new: int, on_token=None, others=None,
                   adapters=None):
-    """Serve every prompt to completion, admitting in order: a request the
-    engine cannot admit yet waits at the head of the line until slots,
-    pages and its adapter's residency free up. Returns {request index:
-    tokens} and per-request time-to-first-token seconds (from the start of
-    the run). ``on_token(index, token, done)`` sees every emission. Streams
-    already in the engine run on beside them; ``others`` maps each such
-    request id to the list their tokens are appended to. ``adapters``
-    names each request's LoRA tenant (None = the base model), as the JAX
-    server routes a request's ``model`` field."""
+    """Serve every prompt to completion on either engine, admitting in
+    order: a request the engine cannot admit yet waits at the head of the
+    line until slots, pages and its adapter's residency free up. Returns
+    {request index: tokens} and per-request time-to-first-token seconds
+    (from the start of the run). ``on_token(index, token, done)`` sees every
+    emission. Streams already in the engine run on beside them; ``others``
+    maps each such request id to the list their tokens are appended to.
+    ``adapters`` names each request's LoRA tenant (None = the base model),
+    as the JAX server routes a request's ``model`` field; it reaches the
+    engine only where one is set (the dense engine takes none). A submit
+    that returns a token (the dense engine's synchronous first token) is
+    emitted at once, as the JAX server does."""
     adapters = list(adapters) if adapters is not None else [None] * len(prompts)
     if len(adapters) != len(prompts):
         raise ValueError(f"{len(adapters)} adapters for {len(prompts)} prompts")
+
+    def tenant(i):
+        return {"adapter": adapters[i]} if adapters[i] else {}
+
     waiting = deque(range(len(prompts)))
     for i in waiting:
-        if not engine.fits(len(prompts[i]), max_new, adapters[i]):
+        if not engine.fits(len(prompts[i]), max_new, **tenant(i)):
             raise ValueError(f"request {i} can never fit ({len(prompts[i])}+{max_new}"
                              + (f", adapter {adapters[i]!r}" if adapters[i] else "") + ")")
     out: dict[int, list[int]] = {i: [] for i in range(len(prompts))}
     ttft: dict[int, float] = {}
     t0 = time.perf_counter()
+
+    def emit(rid: str, token: int, done: bool) -> None:
+        if others is not None and rid in others:
+            others[rid].append(token)
+            return
+        i = int(rid)
+        if not out[i]:
+            ttft[i] = time.perf_counter() - t0
+        out[i].append(token)
+        if on_token is not None:
+            on_token(i, token, done)
+
     while waiting or engine.active:
         while waiting and engine.can_admit(len(prompts[waiting[0]]), max_new,
-                                           adapters[waiting[0]]):
+                                           **tenant(waiting[0])):
             i = waiting.popleft()
-            engine.submit(str(i), prompts[i], max_new, adapter=adapters[i])
+            first = engine.submit(str(i), prompts[i], max_new, **tenant(i))
+            if first is not None:  # dense engine: the first token is synchronous
+                emit(str(i), *first)
         for rid, token, done in engine.step():
-            if others is not None and rid in others:
-                others[rid].append(token)
-                continue
-            i = int(rid)
-            if not out[i]:
-                ttft[i] = time.perf_counter() - t0
-            out[i].append(token)
-            if on_token is not None:
-                on_token(i, token, done)
+            emit(rid, token, done)
     return out, ttft
 
 

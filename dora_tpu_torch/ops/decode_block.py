@@ -1,9 +1,13 @@
-"""The fused decode sublayers of the paged serving path, on torch tensors.
+"""The fused decode sublayers, on torch tensors.
 
-Counterpart of dora_tpu/ops/decode_block.py (int8 weights; fp or int8 KV
-pages, with the KV number format ``kv_quant_rows`` / ``kv_dequant``). Each
-of the five functions takes the arguments and returns the tuple of its
-Pallas counterpart, and comes in two versions in this module:
+Counterpart of dora_tpu/ops/decode_block.py (int8 weights): the sublayers of
+the paged serving path (fp or int8 KV pages, with the KV number format
+``kv_quant_rows`` / ``kv_dequant``) and of the dense caches (the dense
+batch engine's ``attention_batch_step``, batch-1 decode's
+``attention_step`` and its speculative verify's ``attention_chunk_step``,
+bf16 [B, KV, S, hd] planes). Each of the eight functions takes the
+arguments and returns the tuple of its Pallas counterpart, and comes in two
+versions in this module:
 
 * a plain PyTorch version (``*_plain``) that repeats the reference math in
   the tensors' dtype, with f32 accumulators. The CPU path runs it, and the
@@ -18,9 +22,10 @@ attribute (the attention wrappers their int8-KV form apart, in
 kernel. On host tensors (the emulated build) the kernel wrappers check every
 index operand before launching.
 
-Pools are updated IN PLACE on both paths (the JAX package donates them to
-the same effect) and returned, so callers keep the reference's
-``(x_out, k_pool, v_pool)`` contract.
+Pools and caches are updated IN PLACE on both paths (the JAX package
+donates them, or aliases them to its outputs, to the same effect) and
+returned, so callers keep the reference's ``(x_out, k_pool, v_pool)``
+contract.
 """
 
 from __future__ import annotations
@@ -48,6 +53,10 @@ _SIGNATURES = {
             [_P] * 13 + [_I] + [_P] * 2 + [_I] * 5 + [_F] * 2 + [_P] * 7,
         "dora_attention_paged_spec_step":
             [_P] * 16 + [_I] * 7 + [_F] * 2 + [_P] * 7,
+        "dora_attention_dense_step":
+            [_P] * 12 + [_I] + [_P] + [_I] * 6 + [_F] * 2 + [_P] * 7,
+        "dora_attention_dense_chunk_step":
+            [_P] * 11 + [_I] + [_P] + [_I] * 6 + [_F] * 2 + [_P] * 7,
     },
 }
 
@@ -56,7 +65,8 @@ KERNEL_HEAD_DIM = 128
 KERNEL_PAGE = 16
 KERNEL_MAX_GROUP = 8
 KERNEL_MAX_QKV_HEADS = 32
-#: the spec kernel holds m candidate rows x the group's heads in one block
+#: the spec kernel (and the dense chunk kernel, which shares its sweep) holds
+#: m candidate rows x the group's heads in one block
 KERNEL_SPEC_MAX_ROWS = 64
 
 
@@ -106,6 +116,85 @@ def _finish(x, o, residual: bool):
     return o
 
 
+def _project(x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, heads: int,
+             kv_heads: int, head_dim: int, eps: float):
+    """RMSNorm -> int8 qkv (+ bias) -> rope of x's rows: q [rows, H, hd] and
+    k, v [rows, KV, hd] in f32."""
+    h = _rms(x, norm_w, eps).to(x.dtype)
+    qkv = _wdot(h, wqkv, sqkv)
+    if bqkv is not None:
+        qkv = qkv + bqkv.float().reshape(1, -1)
+    q, k, v = _split_qkv(qkv, x.shape[0], heads, kv_heads, head_dim)
+    cos = cos_rows.float()[:, None, :]
+    sin = sin_rows.float()[:, None, :]
+    half = head_dim // 2
+    return _rotate(q, cos, sin, half), _rotate(k, cos, sin, half), v
+
+
+def _live_context(ctx, live):
+    """The context [B, KV, n, hd] in f32 with every row that is not ``live``
+    [B, n] zeroed: those rows are never read (past a stream's position a
+    dense cache may hold anything, NaN included)."""
+    return ctx.float().masked_fill(~live[:, None, :, None], 0.0)
+
+
+def _decode_attend(q, k, v, ctx_k, ctx_v, live, dtype):
+    """Decode attention of B rows: q [B, H, hd] and the current row's k, v
+    [B, KV, hd] in f32; ctx_k, ctx_v [B, KV, n, hd] the prior context in the
+    compute dtype, of which the keys ``live`` [B, n] (idx < pos) count. The
+    context is swept in the compute dtype, then the current row is folded in
+    from f32 (the reference's exact merge), never from the cache row just
+    written. Returns [B, H*hd] f32."""
+    b, kv_heads, head_dim = k.shape
+    scale = 1.0 / (head_dim ** 0.5)
+    qg = q.reshape(b, kv_heads, -1, head_dim)
+    s = torch.einsum("bkgd,bksd->bkgs", qg.to(dtype).float(),
+                     _live_context(ctx_k, live)) * scale
+    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)  # -inf for a row with no prior context
+    p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bkgs,bksd->bkgd", p.to(dtype).float(), _live_context(ctx_v, live))
+    s_new = (qg * k[:, :, None, :]).sum(dim=-1, keepdim=True) * scale
+    m2 = torch.maximum(m, s_new)
+    alpha = torch.exp(m - m2)
+    w_new = torch.exp(s_new - m2)
+    attn = (acc * alpha + w_new * v[:, :, None, :]) / (l * alpha + w_new)
+    return attn.reshape(b, -1)
+
+
+def _verify_attend(q, k, v, ctx_k, ctx_v, live, dtype):
+    """Attention of B streams' m rows each (a speculative verify, or a
+    prefill chunk with B = 1): q [B, m, H, hd] and the rows' own k, v
+    [B, m, KV, hd] in f32; ctx_k, ctx_v [B, KV, n, hd] the prior context in
+    the compute dtype, of which the keys ``live`` [B, n] count. Row i sees
+    the live context and, causally, own rows j <= i, folded from f32 cast to
+    the compute dtype (never their cache rows); the running max starts at
+    -1e30, as the sweeps' does. Returns [B*m, H*hd] f32."""
+    b, m, kv_heads, head_dim = k.shape
+    heads = q.shape[2]
+    group = heads // kv_heads
+    rows = m * group  # query rows per (stream, kv head), ordered (i, head)
+    scale = 1.0 / (head_dim ** 0.5)
+    dev = q.device
+    keys = torch.cat([_live_context(ctx_k, live), k.transpose(1, 2).to(dtype).float()], dim=2)
+    vals = torch.cat([_live_context(ctx_v, live), v.transpose(1, 2).to(dtype).float()], dim=2)
+    qg = q.to(dtype).float().reshape(b, m, kv_heads, group, head_dim)
+    qg = qg.permute(0, 2, 1, 3, 4).reshape(b, kv_heads, rows, head_dim)
+    s = torch.einsum("bkrd,bksd->bkrs", qg, keys) * scale
+    cand = torch.arange(rows, device=dev) // group
+    causal = torch.arange(m, device=dev)[None, :] <= cand[:, None]  # [rows, m]
+    n_ctx = ctx_k.shape[2]
+    live_all = torch.cat([live[:, None, :].expand(b, rows, n_ctx),
+                          causal[None].expand(b, rows, m)], dim=2)
+    s = s.masked_fill(~live_all[:, None], float("-inf"))
+    mx = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)  # the sweep starts at -1e30
+    p = torch.exp(s - mx)
+    attn = torch.einsum("bkrs,bksd->bkrd", p.to(dtype).float(), vals) / p.sum(dim=-1, keepdim=True)
+    attn = attn.reshape(b, kv_heads, m, group, head_dim).permute(0, 2, 1, 3, 4)
+    return attn.reshape(b * m, heads * head_dim)
+
+
 # ---------------------------------------------------------------------------
 # argument checks for the kernels
 # ---------------------------------------------------------------------------
@@ -137,7 +226,7 @@ def _int8_weight(w: torch.Tensor, name: str, k: int, n: int, device) -> None:
         raise ValueError(f"{name}: the kernel reads 16-byte rows; the weight must be 16-byte aligned")
 
 
-def _attn_shapes(heads: int, kv_heads: int, head_dim: int, page: int) -> None:
+def _attn_shapes(heads: int, kv_heads: int, head_dim: int, page: int = KERNEL_PAGE) -> None:
     if head_dim != KERNEL_HEAD_DIM or page != KERNEL_PAGE:
         raise ValueError(
             f"attention kernels take head_dim {KERNEL_HEAD_DIM} and page "
@@ -343,6 +432,23 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+def _scratch(rows: int, d: int, heads: int, kv_heads: int, head_dim: int, lib, dev):
+    """The scratch a dense or paged entry takes for ``rows`` rows: (h, p, q,
+    kcur, vcur, attn)."""
+    n_qkv = (heads + 2 * kv_heads) * head_dim
+    ws = max(
+        lib.dora_gemm_splits(rows, n_qkv, d) * rows * n_qkv,
+        lib.dora_gemm_splits(rows, d, heads * head_dim) * rows * d,
+    )
+    f32, bf = torch.float32, torch.bfloat16
+    return (torch.empty((rows, d), dtype=bf, device=dev),
+            torch.empty((ws,), dtype=f32, device=dev),
+            torch.empty((rows, heads, head_dim), dtype=f32, device=dev),
+            torch.empty((rows, kv_heads, head_dim), dtype=f32, device=dev),
+            torch.empty((rows, kv_heads, head_dim), dtype=f32, device=dev),
+            torch.empty((rows, heads * head_dim), dtype=bf, device=dev))
+
+
 def _check_host_indices(positions, rows: int, block_tables, n_pages: int,
                         page: int) -> None:
     """The index operands of a kernel call on host tensors (the emulated
@@ -372,20 +478,9 @@ def attention_paged_batch_step_plain(
     dtype = x.dtype
     b = x.shape[0]
     page = k_pool.shape[2]
-    group = heads // kv_heads
-    half = head_dim // 2
-    scale = 1.0 / (head_dim ** 0.5)
     _kv_mode(k_pool, k_scale, v_scale)
-
-    h = _rms(x, norm_w, eps).to(dtype)
-    qkv = _wdot(h, wqkv, sqkv)
-    if bqkv is not None:
-        qkv = qkv + bqkv.float().reshape(1, -1)
-    q, k, v = _split_qkv(qkv, b, heads, kv_heads, head_dim)
-    cos = cos_rows.float()[:, None, :]
-    sin = sin_rows.float()[:, None, :]
-    q = _rotate(q, cos, sin, half)
-    k = _rotate(k, cos, sin, half)
+    q, k, v = _project(x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, heads,
+                       kv_heads, head_dim, eps)
 
     # The row's K/V (quantized, for int8 pools) into page bt[b, pos // page],
     # row pos % page. Frozen rows all land on row 0 of null page 0; which one
@@ -402,23 +497,9 @@ def attention_paged_batch_step_plain(
         b, kv_heads, n_ctx, head_dim)
     ctx_v = _kv_rows(v_pool, v_scale, bt, dtype).permute(0, 2, 1, 3, 4).reshape(
         b, kv_heads, n_ctx, head_dim)
-    qg = q.reshape(b, kv_heads, group, head_dim)
-    s = torch.einsum("bkgd,bksd->bkgs", qg.to(dtype).float(), ctx_k.float()) * scale
     live = torch.arange(n_ctx, device=x.device)[None, :] < pos[:, None]
-    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)  # -inf for a row with no prior context
-    p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bkgs,bksd->bkgd", p.to(dtype).float(), ctx_v.float())
-
-    # Fold in the current position from f32 (the reference's exact merge),
-    # never from the pool row just written.
-    s_new = (qg * k[:, :, None, :]).sum(dim=-1, keepdim=True) * scale
-    m2 = torch.maximum(m, s_new)
-    alpha = torch.exp(m - m2)
-    w_new = torch.exp(s_new - m2)
-    attn = (acc * alpha + w_new * v[:, :, None, :]) / (l * alpha + w_new)
-    o = _wdot(attn.reshape(b, heads * head_dim).to(dtype), wo, swo)
+    attn = _decode_attend(q, k, v, ctx_k, ctx_v, live, dtype)
+    o = _wdot(attn.to(dtype), wo, swo)
     return _pools_out(_finish(x, o, residual), k_pool, v_pool, k_scale, v_scale)
 
 
@@ -449,16 +530,7 @@ def _attention_paged_batch_step_kernel(
     bq = _f32(bqkv, "bqkv", n_qkv, dev)
     so = _f32(swo, "swo", d, dev)
     lib = _lib("paged_attention", lib)
-    ws = max(
-        lib.dora_gemm_splits(b, n_qkv, d) * b * n_qkv,
-        lib.dora_gemm_splits(b, d, heads * head_dim) * b * d,
-    )
-    h = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
-    p = torch.empty((ws,), dtype=torch.float32, device=dev)
-    q = torch.empty((b, heads, head_dim), dtype=torch.float32, device=dev)
-    kcur = torch.empty((b, kv_heads, head_dim), dtype=torch.float32, device=dev)
-    vcur = torch.empty((b, kv_heads, head_dim), dtype=torch.float32, device=dev)
-    attn = torch.empty((b, heads * head_dim), dtype=torch.bfloat16, device=dev)
+    h, p, q, kcur, vcur, attn = _scratch(b, d, heads, kv_heads, head_dim, lib, dev)
     out = torch.empty((b, d), dtype=torch.bfloat16 if residual else torch.float32,
                       device=dev)
     rc = lib.dora_attention_paged_batch_step(
@@ -515,21 +587,10 @@ def attention_paged_chunk_step_plain(
     dtype = x.dtype
     m = x.shape[0]
     page = k_pool.shape[2]
-    group = heads // kv_heads
-    half = head_dim // 2
-    scale = 1.0 / (head_dim ** 0.5)
     pos = int(position)
     _kv_mode(k_pool, k_scale, v_scale)
-
-    h = _rms(x, norm_w, eps).to(dtype)
-    qkv = _wdot(h, wqkv, sqkv)
-    if bqkv is not None:
-        qkv = qkv + bqkv.float().reshape(1, -1)
-    q, k, v = _split_qkv(qkv, m, heads, kv_heads, head_dim)
-    cos = cos_rows.float()[:, None, :]
-    sin = sin_rows.float()[:, None, :]
-    q = _rotate(q, cos, sin, half)
-    k = _rotate(k, cos, sin, half)
+    q, k, v = _project(x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, heads,
+                       kv_heads, head_dim, eps)
 
     # The chunk's K/V land as whole pages (pos and M are page multiples), so
     # int8 pools get whole scale rows too.
@@ -545,20 +606,11 @@ def attention_paged_chunk_step_plain(
     # from f32 cast to the compute dtype (never its quantized rows), causally.
     prior = bt[: pos // page]
     prior_k = _kv_rows(k_pool, k_scale, prior, dtype).transpose(0, 1).reshape(
-        kv_heads, pos, head_dim)
+        1, kv_heads, pos, head_dim)
     prior_v = _kv_rows(v_pool, v_scale, prior, dtype).transpose(0, 1).reshape(
-        kv_heads, pos, head_dim)
-    keys = torch.cat([prior_k, k.transpose(0, 1).to(dtype)], dim=1).float()
-    vals = torch.cat([prior_v, v.transpose(0, 1).to(dtype)], dim=1).float()
-    qg = q.to(dtype).float().reshape(m, kv_heads, group, head_dim).transpose(0, 1)
-    s = torch.einsum("kmgd,ksd->kmgs", qg, keys) * scale
-    kidx = torch.arange(pos + m, device=x.device)
-    live = kidx[None, :] <= pos + torch.arange(m, device=x.device)[:, None]
-    s = s.masked_fill(~live[None, :, None, :], float("-inf"))
-    mx = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)  # the sweep starts at -1e30
-    p = torch.exp(s - mx)
-    attn = torch.einsum("kmgs,ksd->kmgd", p.to(dtype).float(), vals) / p.sum(dim=-1, keepdim=True)
-    attn = attn.transpose(0, 1).reshape(m, heads * head_dim)
+        1, kv_heads, pos, head_dim)
+    live = torch.ones((1, pos), dtype=torch.bool, device=x.device)
+    attn = _verify_attend(q[None], k[None], v[None], prior_k, prior_v, live, dtype)
     o = _wdot(attn.to(dtype), wo, swo)
     return _pools_out(_finish(x, o, residual), k_pool, v_pool, k_scale, v_scale)
 
@@ -661,21 +713,9 @@ def attention_paged_spec_step_plain(
     bm = x.shape[0]
     b = bm // m
     page = k_pool.shape[2]
-    group = heads // kv_heads
-    half = head_dim // 2
-    scale = 1.0 / (head_dim ** 0.5)
-    rows = m * group  # query rows per (stream, kv head), ordered (i, head)
     _kv_mode(k_pool, k_scale, v_scale)
-
-    h = _rms(x, norm_w, eps).to(dtype)
-    qkv = _wdot(h, wqkv, sqkv)
-    if bqkv is not None:
-        qkv = qkv + bqkv.float().reshape(1, -1)
-    q, k, v = _split_qkv(qkv, bm, heads, kv_heads, head_dim)
-    cos = cos_rows.float()[:, None, :]
-    sin = sin_rows.float()[:, None, :]
-    q = _rotate(q, cos, sin, half)
-    k = _rotate(k, cos, sin, half)
+    q, k, v = _project(x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, heads,
+                       kv_heads, head_dim, eps)
 
     # Row i of stream b into page bt[b, (pos+i) // page], row (pos+i) % page:
     # the m rows may straddle a page, and for int8 pools each writes its own
@@ -698,24 +738,11 @@ def attention_paged_spec_step_plain(
         b, kv_heads, n_ctx, head_dim)
     ctx_v = _kv_rows(v_pool, v_scale, bt, dtype).permute(0, 2, 1, 3, 4).reshape(
         b, kv_heads, n_ctx, head_dim)
-    own_k = k.reshape(b, m, kv_heads, head_dim).transpose(1, 2)
-    own_v = v.reshape(b, m, kv_heads, head_dim).transpose(1, 2)
-    keys = torch.cat([ctx_k, own_k.to(dtype)], dim=2).float()
-    vals = torch.cat([ctx_v, own_v.to(dtype)], dim=2).float()
-    qg = q.to(dtype).float().reshape(b, m, kv_heads, group, head_dim)
-    qg = qg.permute(0, 2, 1, 3, 4).reshape(b, kv_heads, rows, head_dim)
-    s = torch.einsum("bkrd,bksd->bkrs", qg, keys) * scale
-    live_ctx = torch.arange(n_ctx, device=x.device)[None, :] < pos[:, None]  # [B, n_ctx]
-    cand = torch.arange(rows, device=x.device) // group
-    causal = torch.arange(m, device=x.device)[None, :] <= cand[:, None]  # [rows, m]
-    live = torch.cat([live_ctx[:, None, :].expand(b, rows, n_ctx),
-                      causal[None].expand(b, rows, m)], dim=2)
-    s = s.masked_fill(~live[:, None], float("-inf"))
-    mx = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)  # the sweep starts at -1e30
-    p = torch.exp(s - mx)
-    attn = torch.einsum("bkrs,bksd->bkrd", p.to(dtype).float(), vals) / p.sum(dim=-1, keepdim=True)
-    attn = attn.reshape(b, kv_heads, m, group, head_dim).permute(0, 2, 1, 3, 4)
-    o = _wdot(attn.reshape(bm, heads * head_dim).to(dtype), wo, swo)
+    live = torch.arange(n_ctx, device=x.device)[None, :] < pos[:, None]  # [B, n_ctx]
+    attn = _verify_attend(q.reshape(b, m, heads, head_dim),
+                          k.reshape(b, m, kv_heads, head_dim),
+                          v.reshape(b, m, kv_heads, head_dim), ctx_k, ctx_v, live, dtype)
+    o = _wdot(attn.to(dtype), wo, swo)
     return _pools_out(_finish(x, o, residual), k_pool, v_pool, k_scale, v_scale)
 
 
@@ -755,16 +782,7 @@ def _attention_paged_spec_step_kernel(
     bq = _f32(bqkv, "bqkv", n_qkv, dev)
     so = _f32(swo, "swo", d, dev)
     lib = _lib("paged_attention", lib)
-    ws = max(
-        lib.dora_gemm_splits(bm, n_qkv, d) * bm * n_qkv,
-        lib.dora_gemm_splits(bm, d, heads * head_dim) * bm * d,
-    )
-    h = torch.empty((bm, d), dtype=torch.bfloat16, device=dev)
-    p = torch.empty((ws,), dtype=torch.float32, device=dev)
-    q = torch.empty((bm, heads, head_dim), dtype=torch.float32, device=dev)
-    kcur = torch.empty((bm, kv_heads, head_dim), dtype=torch.float32, device=dev)
-    vcur = torch.empty((bm, kv_heads, head_dim), dtype=torch.float32, device=dev)
-    attn = torch.empty((bm, heads * head_dim), dtype=torch.bfloat16, device=dev)
+    h, p, q, kcur, vcur, attn = _scratch(bm, d, heads, kv_heads, head_dim, lib, dev)
     out = torch.empty((bm, d), dtype=torch.bfloat16 if residual else torch.float32,
                       device=dev)
     rc = lib.dora_attention_paged_spec_step(
@@ -811,6 +829,262 @@ def attention_paged_spec_step(
 
 
 # ---------------------------------------------------------------------------
+# dense caches: the batch engine's decode, batch-1 decode and its verify
+# ---------------------------------------------------------------------------
+
+
+def _check_dense_positions(positions, rows: int, seq: int) -> None:
+    """Every stream's ``rows`` rows from its position lie inside its
+    ``seq``-row cache plane: 0 <= position and position + rows <= seq. Host
+    positions are checked before every launch; device positions (the dense
+    engine's) only on host tensors (the emulated build), since reading them
+    back would stall the stream: on the card they are the caller's
+    contract."""
+    pos = positions.reshape(-1).long()
+    if pos.numel() and (int(pos.min()) < 0 or int(pos.max()) + rows > seq):
+        raise ValueError(f"positions must lie in [0, {seq - rows}]: {rows} row(s) from "
+                         f"each must fit the {seq}-row cache")
+
+
+def _dense_kernel_args(x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_cache,
+                       v_cache, wo, swo, *, heads, kv_heads, head_dim, streams: int):
+    """The checks every dense wrapper makes before launching (bf16 caches
+    [streams, KV, S, hd] or, batch 1, [KV, S, hd]) and the f32 vectors it
+    passes. Returns (rows, width, S, norm_w, sqkv, bqkv, swo)."""
+    dev = x.device
+    rows, d = x.shape
+    n_qkv = (heads + 2 * kv_heads) * head_dim
+    seq = k_cache.shape[-2]
+    _attn_shapes(heads, kv_heads, head_dim)
+    _need(x, "x", torch.bfloat16, (rows, d), dev)
+    _int8_weight(wqkv, "wqkv", d, n_qkv, dev)
+    _int8_weight(wo, "wo", heads * head_dim, d, dev)
+    shape = (kv_heads, seq, head_dim) if k_cache.dim() == 3 else (streams, kv_heads, seq, head_dim)
+    _need(k_cache, "k_cache", torch.bfloat16, shape, dev)
+    _need(v_cache, "v_cache", torch.bfloat16, shape, dev)
+    _need(cos_rows, "cos_rows", torch.float32, (rows, head_dim), dev)
+    _need(sin_rows, "sin_rows", torch.float32, (rows, head_dim), dev)
+    return (rows, d, seq, _f32(norm_w, "norm_w", d, dev), _f32(sqkv, "sqkv", n_qkv, dev),
+            _f32(bqkv, "bqkv", n_qkv, dev), _f32(swo, "swo", d, dev))
+
+
+def attention_batch_step_plain(
+    x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_caches, v_caches, wo, swo,
+    positions, *, heads: int, kv_heads: int, head_dim: int, eps: float = 1e-6,
+    residual: bool = True,
+):
+    dtype = x.dtype
+    b = x.shape[0]
+    q, k, v = _project(x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, heads,
+                       kv_heads, head_dim, eps)
+    # Row b's K/V into plane b at positions[b]; then its prior rows (idx <
+    # pos) in the compute dtype, and the row itself folded from f32.
+    pos = positions.long()
+    planes = torch.arange(b, device=pos.device)
+    k_caches[planes, :, pos] = k.to(k_caches.dtype)
+    v_caches[planes, :, pos] = v.to(v_caches.dtype)
+    live = torch.arange(k_caches.shape[2], device=pos.device)[None, :] < pos[:, None]
+    attn = _decode_attend(q, k, v, k_caches.to(dtype), v_caches.to(dtype), live, dtype)
+    return _finish(x, _wdot(attn.to(dtype), wo, swo), residual), k_caches, v_caches
+
+
+def _attention_batch_step_kernel(
+    x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_caches, v_caches, wo, swo,
+    positions, *, heads, kv_heads, head_dim, eps, residual, lib=None,
+):
+    dev = x.device
+    b = x.shape[0]
+    if k_caches.dim() != 4:
+        raise ValueError(f"k_caches must be [B, KV, S, hd], got {tuple(k_caches.shape)}")
+    rows, d, seq, nw, sq, bq, so = _dense_kernel_args(
+        x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_caches, v_caches, wo, swo,
+        heads=heads, kv_heads=kv_heads, head_dim=head_dim, streams=b)
+    _need(positions, "positions", torch.int32, (b,), dev)
+    if not x.is_cuda:
+        _check_dense_positions(positions, 1, seq)
+    lib = _lib("paged_attention", lib)
+    h, p, q, kcur, vcur, attn = _scratch(b, d, heads, kv_heads, head_dim, lib, dev)
+    out = torch.empty((b, d), dtype=torch.bfloat16 if residual else torch.float32,
+                      device=dev)
+    rc = lib.dora_attention_dense_step(
+        x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(), _ptr(bq),
+        cos_rows.data_ptr(), sin_rows.data_ptr(), k_caches.data_ptr(),
+        v_caches.data_ptr(), wo.data_ptr(), so.data_ptr(), positions.data_ptr(), 0,
+        out.data_ptr(), int(residual), b, d, heads, kv_heads, seq, eps,
+        1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(),
+        kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), _build.stream_of(x),
+    )
+    _count(attention_batch_step, False)
+    _build.check(rc, "attention_batch_step")
+    return out, k_caches, v_caches
+
+
+def attention_batch_step(
+    x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_caches, v_caches, wo, swo,
+    positions, *, heads: int, kv_heads: int, head_dim: int, eps: float = 1e-6,
+    residual: bool = True,
+):
+    """Fused decode attention for B independent sequences over dense caches.
+
+    x [B, D]; caches [B, KV, S, hd], updated in place: row b's K/V at
+    ``positions[b]`` of plane b, which must lie in [0, S) (checked on host
+    tensors); cos/sin_rows [B, hd] f32 rope rows at each row's position. Row
+    b attends its own plane's rows < positions[b] and itself; nothing crosses
+    rows, so an idle slot pinned at position 0 only attends itself. Returns
+    (x_out [B, D], k_caches, v_caches); x_out is the raw f32 delta with
+    ``residual=False``."""
+    args = (x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_caches, v_caches,
+            wo, swo, positions)
+    kw = dict(heads=heads, kv_heads=kv_heads, head_dim=head_dim, eps=eps,
+              residual=residual)
+    if not x.is_cuda:
+        return attention_batch_step_plain(*args, **kw)
+    return _attention_batch_step_kernel(*args, **kw)
+
+
+def attention_step_plain(
+    x, norm_w, wqkv, sqkv, bqkv, cos_full, sin_signed, k_cache, v_cache, wo, swo,
+    position, *, heads: int, kv_heads: int, head_dim: int, eps: float = 1e-6,
+    residual: bool = True,
+):
+    pos = torch.tensor([int(position)], dtype=torch.int32, device=x.device)
+    out, _, _ = attention_batch_step_plain(
+        x, norm_w, wqkv, sqkv, bqkv, cos_full, sin_signed, k_cache[None],
+        v_cache[None], wo, swo, pos, heads=heads, kv_heads=kv_heads,
+        head_dim=head_dim, eps=eps, residual=residual)
+    return out, k_cache, v_cache
+
+
+def _attention_step_kernel(
+    x, norm_w, wqkv, sqkv, bqkv, cos_full, sin_signed, k_cache, v_cache, wo, swo,
+    position, *, heads, kv_heads, head_dim, eps, residual, lib=None,
+):
+    dev = x.device
+    if x.shape[0] != 1 or k_cache.dim() != 3:
+        raise ValueError(f"attention_step takes one row and [KV, S, hd] caches, got x "
+                         f"{tuple(x.shape)} and {tuple(k_cache.shape)}")
+    rows, d, seq, nw, sq, bq, so = _dense_kernel_args(
+        x, norm_w, wqkv, sqkv, bqkv, cos_full, sin_signed, k_cache, v_cache, wo, swo,
+        heads=heads, kv_heads=kv_heads, head_dim=head_dim, streams=1)
+    pos = int(position)
+    _check_dense_positions(torch.tensor([pos]), 1, seq)
+    lib = _lib("paged_attention", lib)
+    h, p, q, kcur, vcur, attn = _scratch(1, d, heads, kv_heads, head_dim, lib, dev)
+    out = torch.empty((1, d), dtype=torch.bfloat16 if residual else torch.float32,
+                      device=dev)
+    rc = lib.dora_attention_dense_step(
+        x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(), _ptr(bq),
+        cos_full.data_ptr(), sin_signed.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), wo.data_ptr(), so.data_ptr(), None, pos,
+        out.data_ptr(), int(residual), 1, d, heads, kv_heads, seq, eps,
+        1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(),
+        kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), _build.stream_of(x),
+    )
+    _count(attention_step, False)
+    _build.check(rc, "attention_step")
+    return out, k_cache, v_cache
+
+
+def attention_step(
+    x, norm_w, wqkv, sqkv, bqkv, cos_full, sin_signed, k_cache, v_cache, wo, swo,
+    position, *, heads: int, kv_heads: int, head_dim: int, eps: float = 1e-6,
+    residual: bool = True,
+):
+    """One fused batch-1 decode attention sublayer.
+
+    x [1, D]; caches [KV, S, hd], updated in place at ``position`` (a host
+    int in [0, S), checked); cos_full / sin_signed [1, hd] f32 rope rows at
+    that position. Returns (x_out [1, D], k_cache, v_cache); x_out is the
+    raw f32 delta with ``residual=False``."""
+    args = (x, norm_w, wqkv, sqkv, bqkv, cos_full, sin_signed, k_cache, v_cache,
+            wo, swo, position)
+    kw = dict(heads=heads, kv_heads=kv_heads, head_dim=head_dim, eps=eps,
+              residual=residual)
+    if not x.is_cuda:
+        return attention_step_plain(*args, **kw)
+    return _attention_step_kernel(*args, **kw)
+
+
+def attention_chunk_step_plain(
+    x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_cache, v_cache, wo, swo,
+    position, *, heads: int, kv_heads: int, head_dim: int, eps: float = 1e-6,
+    residual: bool = True,
+):
+    dtype = x.dtype
+    m = x.shape[0]
+    pos = int(position)
+    q, k, v = _project(x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, heads,
+                       kv_heads, head_dim, eps)
+    # Exactly the M rows pos..pos+M-1; then the prior rows (idx < pos) in the
+    # compute dtype, and the chunk causally from bf16 of its f32 rows.
+    k_cache[:, pos : pos + m] = k.transpose(0, 1).to(k_cache.dtype)
+    v_cache[:, pos : pos + m] = v.transpose(0, 1).to(v_cache.dtype)
+    live = torch.arange(k_cache.shape[1], device=x.device)[None, :] < pos
+    attn = _verify_attend(q[None], k[None], v[None], k_cache[None].to(dtype),
+                          v_cache[None].to(dtype), live, dtype)
+    return _finish(x, _wdot(attn.to(dtype), wo, swo), residual), k_cache, v_cache
+
+
+def _attention_chunk_step_kernel(
+    x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_cache, v_cache, wo, swo,
+    position, *, heads, kv_heads, head_dim, eps, residual, lib=None,
+):
+    dev = x.device
+    m = x.shape[0]
+    if k_cache.dim() != 3:
+        raise ValueError(f"attention_chunk_step takes [KV, S, hd] caches, got "
+                         f"{tuple(k_cache.shape)}")
+    if not 1 <= m <= KERNEL_PAGE:
+        raise ValueError(f"chunk kernel takes 1 <= M <= {KERNEL_PAGE} rows, got {m}")
+    if m * (heads // max(kv_heads, 1)) > KERNEL_SPEC_MAX_ROWS:
+        raise ValueError(f"chunk kernel takes M * group <= {KERNEL_SPEC_MAX_ROWS}, "
+                         f"got {m} * {heads // kv_heads}")
+    rows, d, seq, nw, sq, bq, so = _dense_kernel_args(
+        x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_cache, v_cache, wo, swo,
+        heads=heads, kv_heads=kv_heads, head_dim=head_dim, streams=1)
+    pos = int(position)
+    _check_dense_positions(torch.tensor([pos]), m, seq)
+    lib = _lib("paged_attention", lib)
+    h, p, q, kcur, vcur, attn = _scratch(m, d, heads, kv_heads, head_dim, lib, dev)
+    out = torch.empty((m, d), dtype=torch.bfloat16 if residual else torch.float32,
+                      device=dev)
+    rc = lib.dora_attention_dense_chunk_step(
+        x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(), _ptr(bq),
+        cos_rows.data_ptr(), sin_rows.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), wo.data_ptr(), so.data_ptr(), pos, out.data_ptr(),
+        int(residual), m, d, heads, kv_heads, seq, eps, 1.0 / (head_dim ** 0.5),
+        h.data_ptr(), p.data_ptr(), q.data_ptr(), kcur.data_ptr(), vcur.data_ptr(),
+        attn.data_ptr(), _build.stream_of(x),
+    )
+    _count(attention_chunk_step, False)
+    _build.check(rc, "attention_chunk_step")
+    return out, k_cache, v_cache
+
+
+def attention_chunk_step(
+    x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_cache, v_cache, wo, swo,
+    position, *, heads: int, kv_heads: int, head_dim: int, eps: float = 1e-6,
+    residual: bool = True,
+):
+    """M-row fused attention sublayer of one stream (speculative verify).
+
+    x [M, D]: the chunk's rows at positions ``position..position+M-1``
+    (``position`` a host int; ``position + M <= S`` is checked, the
+    speculation headroom contract); cos/sin_rows [M, hd] f32 rope rows.
+    Exactly those M rows of the caches [KV, S, hd] are written, in place;
+    each row attends the rows < position and, causally, the chunk. Returns
+    (x_out [M, D], k_cache, v_cache); x_out is the raw f32 delta with
+    ``residual=False``."""
+    args = (x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_cache, v_cache,
+            wo, swo, position)
+    kw = dict(heads=heads, kv_heads=kv_heads, head_dim=head_dim, eps=eps,
+              residual=residual)
+    if not x.is_cuda:
+        return attention_chunk_step_plain(*args, **kw)
+    return _attention_chunk_step_kernel(*args, **kw)
+
+
+# ---------------------------------------------------------------------------
 # rope rows and the frozen-row view (shared by the fused steps)
 # ---------------------------------------------------------------------------
 
@@ -848,9 +1122,12 @@ def rope_rows(cos_table, sin_table, position: int, length: int = 1):
     )
 
 
-#: the kernel wrappers of the paged serving path, in the order a layer runs them
+#: the kernel wrappers of this module: the paged serving path's in the order a
+#: layer runs them, then the dense caches' (dense engine, batch-1 decode and
+#: its verify)
 KERNELS = (attention_paged_chunk_step, attention_paged_batch_step,
-           attention_paged_spec_step, mlp_step, lm_head_argmax)
+           attention_paged_spec_step, mlp_step, lm_head_argmax,
+           attention_batch_step, attention_step, attention_chunk_step)
 #: the wrappers that also launch an int8-KV form, counted apart as
 #: ``launches_int8kv`` (``launches`` counts their fp form)
 KV_INT8_KERNELS = (attention_paged_chunk_step, attention_paged_batch_step,

@@ -2,8 +2,9 @@
 per CUDA thread, blocks in turn) and held against their plain PyTorch
 versions on the CPU, in bf16 at small sizes with the kernels' own head_dim
 128 and page 16: the four kernels of the fp serving path, the speculative
-verify kernel, the int8-KV forms of the three attention kernels and the LoRA
-gather-matmul.
+verify kernel, the int8-KV forms of the three attention kernels, the LoRA
+gather-matmul, the int8 product and the three attention kernels over dense
+caches (the dense engine's decode, batch-1 decode and its verify).
 
 This checks the kernels' indexing, masking and reductions without a card;
 it says nothing of how they compile or run on one (chip_smoke.py does).
@@ -23,7 +24,11 @@ version against the final max); argmax tokens exact; untouched pool rows
 and scale entries exact. int8 rows the kernels write: every byte within one
 step (1 LSB) of the plain version's, whose f32 K/V differ from the kernel's
 by summation order only, the share of differing bytes printed; their scales
-within 1e-5 relative. LoRA rows of slot 0 exactly zero.
+within 1e-5 relative. LoRA rows of slot 0 exactly zero. The int8 product
+within 1e-2 of its largest magnitude (its bf16 output). Dense caches: every
+row at or past the written ones starts as NaN, the outputs must be finite,
+the written rows within 1e-2 of the plain version's and every other cache
+value bit-unchanged.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import torch
 
 from dora_tpu_torch.ops import _build
 from dora_tpu_torch.ops import decode_block as DB
+from dora_tpu_torch.ops import int8_matmul as IM
 from dora_tpu_torch.ops import lora as LO
 from dora_tpu_torch.ops.int8_matmul import quantize_int8
 
@@ -60,8 +66,12 @@ _KERNELS = {
     "attention_paged_chunk_step": (DB, "_attention_paged_chunk_step_kernel", "paged_attention"),
     "attention_paged_spec_step": (DB, "_attention_paged_spec_step_kernel", "paged_attention"),
     "lora_gather_matmul": (LO, "_lora_gather_matmul_kernel", "lora"),
+    "int8_matmul": (IM, "_int8_matmul_kernel", "int8_matmul"),
+    "attention_batch_step": (DB, "_attention_batch_step_kernel", "paged_attention"),
+    "attention_step": (DB, "_attention_step_kernel", "paged_attention"),
+    "attention_chunk_step": (DB, "_attention_chunk_step_kernel", "paged_attention"),
 }
-_SIGNATURES = {**DB._SIGNATURES, **LO._SIGNATURES}
+_SIGNATURES = {**DB._SIGNATURES, **LO._SIGNATURES, **IM._SIGNATURES}
 
 
 # ---------------------------------------------------------------------------
@@ -535,6 +545,173 @@ def test_host_wrappers_check_index_operands():
         LO._lora_gather_matmul_kernel(x, groups, a, b, lib=object())
     with pytest.raises(ValueError, match="adapter ids"):
         LO.lora_gather_matmul(x, groups, a, b)
+
+
+# ---------------------------------------------------------------------------
+# the int8 product and the dense caches
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 37, 53), (20, 100, 130), (64, 129, 256)])
+def test_int8_matmul_kernel_matches_plain(emu, m, k, n):
+    """Odd and even K and N (the 16-byte weight rows and the ragged edge),
+    one and four 16-row bands."""
+    rng = np.random.default_rng(m + k)
+    x = _t(rng.standard_normal((m, k)), BF)
+    w = quantize_int8(_t(rng.standard_normal((k, n))))
+    want = IM.int8_matmul_plain(x, w["int8"], w["scale"])
+    got = emu.call("int8_matmul", x, w["int8"], w["scale"])
+    assert got.dtype == BF and got.shape == want.shape
+    assert _rel(got, want) <= 1e-2
+
+
+SEQ = 48  # dense cache rows: three 16-row tiles
+
+
+def _bits(t):
+    return t.view(torch.int16)
+
+
+def _dense_check(got, want, caches_got, caches_want, before, written):
+    """Finite outputs within tolerance; written cache rows within tolerance
+    (NaN elsewhere), every other cache value bit-unchanged."""
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel(got, want) <= 1e-2
+    for g, w, b in zip(caches_got, caches_want, before):
+        assert _rel(g[written], w[written]) <= 1e-2
+        assert torch.equal(_bits(g)[~written], _bits(b)[~written])
+
+
+def _nan_caches(rng, shape, live):
+    """bf16 caches [B, KV, S, hd] (or one plane [KV, S, hd]) of seeded
+    normals whose rows from ``live[b]`` on are NaN in plane b."""
+    k = _t(rng.standard_normal(shape) * 0.5, BF)
+    v = _t(rng.standard_normal(shape) * 0.5, BF)
+    planes = (k, v) if k.dim() == 4 else (k[None], v[None])
+    for b, n in enumerate(torch.as_tensor(live).reshape(-1).tolist()):
+        for c in planes:
+            c[b, :, n:] = float("nan")
+    return k, v
+
+
+@pytest.mark.parametrize("residual", (True, False))
+def test_dense_batch_kernel_matches_plain(emu, residual):
+    """Four planes: an idle row pinned at 0, rows mid-tile, at a tile start
+    and on the last row of the plane."""
+    rng = np.random.default_rng(30)
+    wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng)
+    positions = torch.tensor([0, 17, 32, SEQ - 1], dtype=torch.int32)
+    b = positions.shape[0]
+    x = _t(rng.standard_normal((b, 64)), BF)
+    kc, vc = _nan_caches(rng, (b, 2, SEQ, 128), positions + 1)
+    cr, sr = DB.rope_rows_at(cos_t, sin_t, positions)
+    args = (x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr)
+    tail = (wo["int8"], wo["scale"], positions)
+    kw = dict(heads=4, kv_heads=2, head_dim=128, residual=residual)
+    want, k1, v1 = DB.attention_batch_step_plain(*args, kc.clone(), vc.clone(), *tail, **kw)
+    got, k2, v2 = emu.call("attention_batch_step", *args, kc.clone(), vc.clone(), *tail,
+                           eps=1e-6, **kw)
+    written = torch.zeros((b, 2, SEQ), dtype=torch.bool)
+    written[torch.arange(b), :, positions.long()] = True
+    _dense_check(got, want, (k2, v2), (k1, v1), (kc, vc), written)
+
+
+@pytest.mark.parametrize("position,residual", [(0, True), (30, False), (SEQ - 1, True)])
+def test_dense_step_kernel_matches_plain(emu, position, residual):
+    rng = np.random.default_rng(31 + position)
+    wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng)
+    x = _t(rng.standard_normal((1, 64)), BF)
+    kc, vc = _nan_caches(rng, (2, SEQ, 128), position + 1)
+    cr, sr = DB.rope_rows(cos_t, sin_t, position)
+    args = (x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr)
+    kw = dict(heads=4, kv_heads=2, head_dim=128, residual=residual)
+    want, k1, v1 = DB.attention_step_plain(*args, kc.clone(), vc.clone(), wo["int8"],
+                                           wo["scale"], position, **kw)
+    got, k2, v2 = emu.call("attention_step", *args, kc.clone(), vc.clone(), wo["int8"],
+                           wo["scale"], position, eps=1e-6, **kw)
+    written = torch.zeros((2, SEQ), dtype=torch.bool)
+    written[:, position] = True
+    _dense_check(got, want, (k2, v2), (k1, v1), (kc, vc), written)
+
+
+@pytest.mark.parametrize("position,residual", [(0, True), (21, False), (SEQ - 5, True)])
+def test_dense_chunk_kernel_matches_plain(emu, position, residual):
+    """M = 5 rows from the cache start, across a tile boundary, and ending
+    on the last row."""
+    m = 5
+    rng = np.random.default_rng(40 + position)
+    wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng)
+    x = _t(rng.standard_normal((m, 64)), BF)
+    kc, vc = _nan_caches(rng, (2, SEQ, 128), position)
+    cr, sr = DB.rope_rows(cos_t, sin_t, position, m)
+    args = (x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr)
+    kw = dict(heads=4, kv_heads=2, head_dim=128, residual=residual)
+    want, k1, v1 = DB.attention_chunk_step_plain(*args, kc.clone(), vc.clone(), wo["int8"],
+                                                 wo["scale"], position, **kw)
+    got, k2, v2 = emu.call("attention_chunk_step", *args, kc.clone(), vc.clone(), wo["int8"],
+                           wo["scale"], position, eps=1e-6, **kw)
+    written = torch.zeros((2, SEQ), dtype=torch.bool)
+    written[:, position : position + m] = True
+    _dense_check(got, want, (k2, v2), (k1, v1), (kc, vc), written)
+
+
+def test_dense_wrappers_check_positions_and_refuse_shapes():
+    """Positions outside the cache plane, a chunk running past it, and
+    shapes or types the kernels do not take raise before any launch."""
+    rng = np.random.default_rng(50)
+    wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng)
+    kw = dict(heads=4, kv_heads=2, head_dim=128, eps=1e-6, residual=True, lib=object())
+    caches = torch.zeros((2, 2, SEQ, 128), dtype=BF)
+    plane = torch.zeros((2, SEQ, 128), dtype=BF)
+
+    def batch(positions, kc=caches):
+        x = torch.zeros((2, 64), dtype=BF)
+        cr, sr = DB.rope_rows_at(cos_t, sin_t, positions.clamp(0, 127))
+        DB._attention_batch_step_kernel(x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr,
+                                        kc, kc, wo["int8"], wo["scale"], positions, **kw)
+
+    def step(position, x=None, kc=plane):
+        x = torch.zeros((1, 64), dtype=BF) if x is None else x
+        cr, sr = DB.rope_rows(cos_t, sin_t, max(position, 0), x.shape[0])
+        DB._attention_step_kernel(x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr, kc, kc,
+                                  wo["int8"], wo["scale"], position, **kw)
+
+    def chunk(position, m=5, heads=4):
+        x = torch.zeros((m, 64), dtype=BF)
+        cr, sr = DB.rope_rows(cos_t, sin_t, max(position, 0), m)
+        DB._attention_chunk_step_kernel(x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr,
+                                        plane, plane, wo["int8"], wo["scale"], position,
+                                        **dict(kw, heads=heads))
+
+    for bad in ([0, SEQ], [-1, 3]):
+        with pytest.raises(ValueError, match="positions must lie"):
+            batch(torch.tensor(bad, dtype=torch.int32))
+    for bad in (SEQ, -1):
+        with pytest.raises(ValueError, match="positions must lie"):
+            step(bad)
+    with pytest.raises(ValueError, match="positions must lie"):
+        chunk(SEQ - 4)
+    with pytest.raises(ValueError, match="M <= 16"):
+        chunk(0, m=17)
+    with pytest.raises(ValueError, match="M \\* group"):
+        chunk(0, m=12, heads=12)
+    with pytest.raises(ValueError, match="one row"):
+        step(3, x=torch.zeros((2, 64), dtype=BF))
+    with pytest.raises(ValueError, match="dtype"):
+        step(3, kc=plane.float())
+    with pytest.raises(ValueError, match="shape"):
+        batch(torch.zeros((2,), dtype=torch.int32), kc=torch.zeros((3, 2, SEQ, 128), dtype=BF))
+    with pytest.raises(ValueError, match="head_dim 128"):
+        DB._attention_step_kernel(torch.zeros((1, 64), dtype=BF), nw, None, None, None, None,
+                                  None, plane, plane, None, None, 0,
+                                  **dict(kw, head_dim=64))
+    x = torch.zeros((4, 32), dtype=BF)
+    w = quantize_int8(_t(rng.standard_normal((32, 48))))
+    with pytest.raises(ValueError, match="dtype"):
+        IM._int8_matmul_kernel(x.float(), w["int8"], w["scale"], lib=object())
+    with pytest.raises(ValueError, match="shape"):
+        IM._int8_matmul_kernel(torch.zeros((4, 33), dtype=BF), w["int8"], w["scale"],
+                               lib=object())
 
 
 if __name__ == "__main__" and sys.argv[1:] == [_WORKER_FLAG]:

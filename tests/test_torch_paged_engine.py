@@ -263,14 +263,14 @@ def test_admission_math_matches_jax():
 def test_make_engine_reads_the_front_door_knobs(both, monkeypatch):
     """As dora_tpu's make_engine: the prefix cache is on unless
     DORA_PREFIX_CACHE=0 and DORA_PREFIX_CACHE_PAGES caps it; DORA_SPEC_K and
-    DORA_SPEC_NGRAM reach the engine. DORA_PAGED_KV=0 asks for the dense
-    engine, which the port does not have: it raises instead of serving
-    paged."""
+    DORA_SPEC_NGRAM reach the engine. DORA_PAGED_KV=0 builds the dense
+    batch engine (4 slots by default), as there."""
+    from dora_tpu_torch.models.batch_engine import BatchEngine
     from dora_tpu_torch.nodehub.llm_server import make_engine
 
     _, _, tcfg, tparams = both
     for key in ("DORA_PREFIX_CACHE", "DORA_PREFIX_CACHE_PAGES", "DORA_SPEC_K",
-                "DORA_SPEC_NGRAM", "DORA_PAGED_KV"):
+                "DORA_SPEC_NGRAM", "DORA_PAGED_KV", "DORA_BATCH_SLOTS"):
         monkeypatch.delenv(key, raising=False)
     monkeypatch.setenv("DORA_PAGE_SIZE", "8")
     monkeypatch.setenv("DORA_PREFILL_CHUNK", "8")
@@ -286,5 +286,5 @@ def test_make_engine_reads_the_front_door_knobs(both, monkeypatch):
     monkeypatch.setenv("DORA_PREFIX_CACHE", "0")
     assert make_engine(tparams, tcfg, device="cpu").prefix_cache is None
     monkeypatch.setenv("DORA_PAGED_KV", "0")
-    with pytest.raises(NotImplementedError, match="dense batch engine"):
-        make_engine(tparams, tcfg, device="cpu")
+    dense = make_engine(tparams, tcfg, device="cpu")
+    assert isinstance(dense, BatchEngine) and dense.max_slots == 4

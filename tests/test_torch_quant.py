@@ -59,7 +59,8 @@ def test_quantize_tree_fused_layout_is_byte_identical():
         keep_bf16=False,
     )
     t = T.quantize_tree(
-        {k: {n: torch.from_numpy(a) for n, a in b.items()} for k, b in tree.items()}
+        {k: {n: torch.from_numpy(a) for n, a in b.items()} for k, b in tree.items()},
+        keep_bf16=False,
     )
     for layer in ("0", "1"):
         assert set(t[layer]) == set(j[layer])
