@@ -8,8 +8,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases, each printed on its own line:
 
 1. the device: torch's name for it and ``nvidia-smi``'s name and power limit;
-2. the kernel build (every ``dora_tpu_torch/csrc/*.cu``, nvcc started once per
-   source, all together), with its time;
+2. the kernel build (the six ``dora_tpu_torch/csrc/*.cu``, nvcc started once
+   per source, all together), with its time;
 3. each of the nine kernels of the paged serving paths (the five fp-KV
    ones, ``lora_gather_matmul`` and the int8-KV forms of the three
    attention kernels) held against its plain PyTorch version on the card,
@@ -72,7 +72,21 @@ Phases, each printed on its own line:
    ``run_loop``'s must agree or part at near-ties of the f32 plain version
    of this path (its prefill takes the bf16 sidecars, not the paged path's
    int8 weights): the served token within NEAR_TIE, the other within
-   SPEC_REF_TIE, as in phases 7 and 8.
+   SPEC_REF_TIE, as in phases 7 and 8;
+11. the self-contained VLM at ``VLMConfig.bench_2b``, full width and depth
+   (a 32-layer ViT 1280 wide, 16 heads of 80 over the 256 patches of a
+   224 x 224 image; a Qwen2-1.5B-shaped LM), seeded random weights with the
+   LM blocks and head in int8 (``vlm.quantize_decode``), one seeded image
+   and a 16-token prompt: ``encode_image`` through ``flash_attention``
+   (once per vision layer) held against the dense einsum
+   (``DORA_FLASH_ATTENTION=0``) and both against the f32 plain path; then
+   ``vlm.generate`` (``int8_matmul`` on the prefill's head, then
+   ``attention_step``, ``mlp_step`` and ``lm_head_argmax`` a step) and
+   ``vlm.generate_speculative`` (k = 4: ``attention_chunk_step`` a verify
+   pass) of 128 tokens, each held to the f32 plain path's stream by the
+   near-tie rule (NEAR_TIE for generate, SPEC_REF_TIE for the verify path),
+   with the exact launches of each run; ViT ms per image, TTFT, decode
+   tokens/s and passes per token are printed.
 
 Phase 3 also holds the four kernels of phases 9 and 10 against their plain
 versions at Qwen2-1.5B shapes: ``int8_matmul`` at 1 row on the head, 16 on
@@ -80,7 +94,13 @@ versions at Qwen2-1.5B shapes: ``int8_matmul`` at 1 row on the head, 16 on
 rows (positions 0 .. 2047), ``attention_step`` at 1500 and
 ``attention_chunk_step`` on 5 rows ending on row 2047, every cache row from
 the written ones on NaN first: outputs finite, unwritten cache values
-bit-unchanged, and each also with ``residual=False``.
+bit-unchanged, and each also with ``residual=False``. It holds
+``flash_attention`` (phase 11's kernel) at the ViT's (1, 16, 256, 80),
+full, and at (1, 12, 2048, 128), causal; and the attention kernels again
+at the widened shapes, one layer of seeded weights each: head_dim 64 at
+Qwen2-0.5B's 14 / 2 heads, Qwen2-7B's 28 / 4 heads, page 32, and a
+``DORA_SPEC_K=10`` verify at Qwen2-1.5B's group of 6 (66 rows), with the
+LoRA kernel at rank 256.
 
 It prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -90,6 +110,7 @@ that line; so does a machine without CUDA or a directory without the port.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -119,6 +140,7 @@ REL_TOL = {
     "attention_batch_step": 3e-3,        # seen 2.2e-4
     "attention_step": 1.2e-2,            # seen 4.0e-3: one bf16 step of its one row's largest output
     "attention_chunk_step": 1.3e-2,      # seen 3.6e-3 (2.9e-3 residual=False)
+    "flash_attention": 6e-3,             # the bf16 output's rounding; seen 1.4e-3 (ViT), 5.9e-4 (causal 2048)
 }
 SPEC_K = 4         # drafts per verify in phase 6: m = 5 candidate rows a stream
 HEAD_TIE = 1e-3    # logits this close may pick either token (kernel check)
@@ -197,12 +219,14 @@ class _PlainCalls:
         "attention_step_plain", "attention_chunk_step_plain")
 
     def __init__(self, DB, LO):
+        from dora_tpu_torch.ops import flash_attention as FA
         from dora_tpu_torch.ops import int8_matmul as IM
 
         self.n = 0
         self.saved = [(DB, name, getattr(DB, name)) for name in self.NAMES]
         self.saved.append((LO, "lora_gather_matmul_plain", LO.lora_gather_matmul_plain))
         self.saved.append((IM, "int8_matmul_plain", IM.int8_matmul_plain))
+        self.saved.append((FA, "flash_attention_plain", FA.flash_attention_plain))
         for mod, name, fn in self.saved:
             setattr(mod, name, self._counting(fn))
 
@@ -218,19 +242,23 @@ class _PlainCalls:
 
 
 def _reset_launches(DB, LO) -> None:
+    from dora_tpu_torch.ops import flash_attention as FA
     from dora_tpu_torch.ops import int8_matmul as IM
 
     DB.reset_launches()
     LO.reset_launches()
     IM.reset_launches()
+    FA.reset_launches()
 
 
 def _launches(DB, LO) -> dict:
     """Every kernel's launches since _reset_launches, int8-KV forms apart."""
+    from dora_tpu_torch.ops import flash_attention as FA
     from dora_tpu_torch.ops import int8_matmul as IM
 
     return {**DB.launch_counts(), "lora_gather_matmul": LO.lora_gather_matmul.launches,
-            "int8_matmul": IM.int8_matmul.launches}
+            "int8_matmul": IM.int8_matmul.launches,
+            "flash_attention": FA.flash_attention.launches}
 
 
 def _check_streams(out: dict, max_new: int, vocab: int) -> None:
@@ -786,11 +814,14 @@ class _Paths:
                                 "attention_step", "attention_chunk_step")
 
     def __init__(self, torch, DB, LO, IM, qwen2, L, serve_prompts, params, cfg):
+        from dora_tpu_torch.ops import flash_attention as FA
+
         self.torch, self.DB, self.IM, self.qwen2, self.L = torch, DB, IM, qwen2, L
         self.serve_prompts, self.params, self.cfg = serve_prompts, params, cfg
         self.saved = [(DB, n, getattr(DB, n)) for n in self.NAMES]
         self.saved.append((LO, "lora_gather_matmul", LO.lora_gather_matmul))
         self.saved.append((IM, "int8_matmul", IM.int8_matmul))
+        self.saved.append((FA, "flash_attention", FA.flash_attention))
 
     def use(self, plain: bool) -> None:
         for mod, n, fn in self.saved:
@@ -802,42 +833,54 @@ class _Paths:
                                             chunk=256, window=8, spec_k=0, prefix_cache=False,
                                             device="cuda")
 
+    def run(self, fn, mode: str):
+        """``fn()`` on the ``mode`` path: "kernel", "plain" (the plain
+        versions in bf16) or "f32" (the plain versions in f32)."""
+        torch, L = self.torch, self.L
+        bf16_dtype = L.compute_dtype
+        self.use(mode != "kernel")
+        if mode == "f32":
+            L.compute_dtype = lambda device: torch.float32
+        try:
+            return fn()
+        finally:
+            L.compute_dtype = bf16_dtype
+            self.use(plain=False)
+
     def logits_of(self, run, mode: str):
         """The logits [rows, vocab] of the last head that ``run()`` calls on
         the ``mode`` path ("kernel", "plain" or "f32"): a fused pass's
         ``lm_head_argmax`` or the unfused prefill's ``int8_matmul`` on the
         vocabulary. The kernel path records inside the wrappers, which keep
         counting their launches."""
-        torch, DB, IM, L = self.torch, self.DB, self.IM, self.L
+        DB, IM = self.DB, self.IM
         last: list = [None]
-        bf16_dtype = L.compute_dtype
         plain = mode != "kernel"
-        self.use(plain)
         head_name = "lm_head_argmax" if plain else "_lm_head_argmax_kernel"
         matmul_name = "int8_matmul" if plain else "_int8_matmul_kernel"
-        head, matmul = getattr(DB, head_name), getattr(IM, matmul_name)
 
-        def head_rec(x, norm_w, w, s, *, eps=1e-6, return_val=False):
-            last[0] = DB._wdot(DB._rms(x, norm_w, eps).to(x.dtype), w, s)
-            return head(x, norm_w, w, s, eps=eps, return_val=return_val)
+        def recorded():
+            head, matmul = getattr(DB, head_name), getattr(IM, matmul_name)
 
-        def matmul_rec(x, q, s, **k):
-            out = matmul(x, q, s, **k)
-            if q.shape[1] == self.cfg.vocab:
-                last[0] = out.reshape(-1, q.shape[1])
-            return out
+            def head_rec(x, norm_w, w, s, *, eps=1e-6, return_val=False):
+                last[0] = DB._wdot(DB._rms(x, norm_w, eps).to(x.dtype), w, s)
+                return head(x, norm_w, w, s, eps=eps, return_val=return_val)
 
-        setattr(DB, head_name, head_rec)
-        setattr(IM, matmul_name, matmul_rec)
-        if mode == "f32":
-            L.compute_dtype = lambda device: torch.float32
-        try:
-            run()
-        finally:
-            setattr(DB, head_name, head)
-            setattr(IM, matmul_name, matmul)
-            L.compute_dtype = bf16_dtype
-            self.use(plain=False)
+            def matmul_rec(x, q, s, **k):
+                out = matmul(x, q, s, **k)
+                if q.shape[1] == self.cfg.vocab:
+                    last[0] = out.reshape(-1, q.shape[1])
+                return out
+
+            setattr(DB, head_name, head_rec)
+            setattr(IM, matmul_name, matmul_rec)
+            try:
+                run()
+            finally:
+                setattr(DB, head_name, head)
+                setattr(IM, matmul_name, matmul)
+
+        self.run(recorded, mode)
         return last[0].float()
 
     def after(self, prefix, engine=None, adapter=None):
@@ -928,19 +971,30 @@ FRONT_DOOR_KNOBS = ("DORA_BATCH_SLOTS", "DORA_PAGE_SIZE", "DORA_PREFILL_CHUNK",
                     "DORA_LORA_DIR", "DORA_LORA_MAX_RESIDENT", "DORA_LORA_RANK")
 
 
-def front_door(make_engine, params, cfg, **env):
-    """``llm_server.make_engine`` on the card with only ``env`` of the
-    front-door knobs set, the caller's environment restored after."""
-    saved_env = {k: os.environ.pop(k, None) for k in FRONT_DOOR_KNOBS}
-    os.environ.update(env)
+@contextlib.contextmanager
+def _env(**env):
+    """The environment with ``env`` set (None: unset), restored after."""
+    saved = {k: os.environ.get(k) for k in env}
     try:
-        return make_engine(params, cfg, device="cuda")
-    finally:
-        for k, v in saved_env.items():
+        for k, v in env.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def front_door(make_engine, params, cfg, **env):
+    """``llm_server.make_engine`` on the card with only ``env`` of the
+    front-door knobs set, the caller's environment restored after."""
+    with _env(**{**dict.fromkeys(FRONT_DOOR_KNOBS), **env}):
+        return make_engine(params, cfg, device="cuda")
 
 
 def serve_spec_cache(torch, DB, LO, vlm, make_engine, serve_prompts, params, cfg, seed: int,
@@ -1692,6 +1746,430 @@ def batch1(torch, DB, LO, qwen2, spec_decode, L, paths, params, cfg, prompts, ma
     return gen_launches, spec_launches
 
 
+def check_flash_kernel(torch, FA, rng_seed: int, dev: str = "cuda") -> dict:
+    """Phase 3, kernel 11: ``flash_attention`` against its plain version at
+    the bench_2b ViT's shape (1, 16, 256, 80), full, in the layout the
+    vision tower hands it ([B, T, H, D] projections seen as [B, H, T, D]),
+    and at (1, 12, 2048, 128), causal (the LM's heads over a full context).
+    Returns the ViT entry."""
+    gen = torch.Generator(device=dev).manual_seed(rng_seed)
+    entry = None
+    for (b, h, t, d), causal in (((1, 16, 256, 80), False), ((1, 12, 2048, 128), True)):
+        q, k, v = (torch.randn((b, t, h, d), generator=gen, device=dev).bfloat16().transpose(1, 2)
+                   for _ in range(3))
+        want = FA.flash_attention_plain(q, k, v, causal)
+        got = FA.flash_attention(q, k, v, causal)
+        err, rel = _rel(got, want)
+        tol = REL_TOL["flash_attention"]
+        what = f" at {(b, h, t, d)}{' causal' if causal else ''}"
+        if not rel <= tol:
+            raise Failed(f"flash_attention{what} disagrees with its plain version: rel {rel:.3e}")
+
+        def lib():
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+        keys = t * (t + 1) // 2 if causal else t * t  # (query, key) pairs computed
+        bound, by = _bound_ms(4 * b * h * t * d * 2, 4 * b * h * keys * d)
+        ms = _time_ms(torch, lambda: FA.flash_attention(q, k, v, causal))
+        plain_ms = _time_ms(torch, lambda: FA.flash_attention_plain(q, k, v, causal), 5)
+        lib_ms = _time_ms(torch, lib)
+        print(f"kernel flash_attention{what}: rel {rel:.3e} (tol {tol}) max_abs_err {err:.3e} "
+              f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms "
+              f"{bound:.4f} ({by})", flush=True)
+        if not causal:
+            entry = {"name": "flash_attention", "route": "cuda",
+                     "source": "dora_tpu_torch/csrc/flash_attention.cu",
+                     "replaces": "dora_tpu/ops/flash_attention.py:125", "launches": 0,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib_ms}
+    return entry
+
+
+#: phase 3's widened shapes: model widths (their config.json) with one layer
+#: of seeded weights each
+WIDTHS = {
+    "Qwen2-0.5B": dict(dim=896, heads=14, kv_heads=2, ffn=4864),
+    "Qwen2-1.5B": dict(dim=1536, heads=12, kv_heads=2, ffn=8960),
+    "Qwen2-7B": dict(dim=3584, heads=28, kv_heads=4, ffn=18944),
+}
+#: (width, page, m) -> the attention kernels run there: head_dim 64 at
+#: 14 / 2 heads (group 7), 36 q + k + v heads, page 32, and a k = 10 verify
+#: of m x group = 11 x 6 = 66 rows
+WIDE_CASES = (
+    ("Qwen2-0.5B", 16, 5, ("batch", "batch_int8kv", "chunk", "spec", "dense_batch",
+                           "dense_step", "dense_chunk")),
+    ("Qwen2-7B", 16, 5, ("batch", "chunk", "spec", "dense_batch", "dense_step",
+                         "dense_chunk")),
+    ("Qwen2-1.5B", 32, 5, ("batch", "chunk", "spec")),
+    ("Qwen2-1.5B", 16, 11, ("spec", "dense_chunk")),
+)
+
+
+def check_widened_kernels(torch, DB, LO, qwen2, rng_seed: int, dev: str = "cuda") -> list[str]:
+    """Phase 3, the widened shapes: the attention kernels (fp KV; the
+    int8-KV batch form at head_dim 64) at WIDE_CASES, one layer of seeded
+    int8 weights at each width, against their plain versions; the LoRA
+    kernel at rank 256. Each prints its time, the plain version's, the
+    library yardstick's (SDPA over the same context; torch.bmm) and the
+    bound. Returns the printed lines."""
+    from dora_tpu_torch.models.layers import rope_table
+
+    gen = torch.Generator(device=dev).manual_seed(rng_seed)
+    seq, slots, chunk = 2048, 16, 256
+    lines = []
+
+    def report(name, what, got, want, ms, plain_ms, lib_ms, nbytes, ops):
+        err, rel = _rel(got, want)
+        tol = REL_TOL[name]
+        bound, by = _bound_ms(nbytes, ops)
+        line = (f"widened {name} {what}: rel {rel:.3e} (tol {tol}) max_abs_err {err:.3e} ms "
+                f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms "
+                f"{bound:.4f} ({by})")
+        print(line, flush=True)
+        lines.append(line)
+        if not rel <= tol:
+            raise Failed(f"{name} {what} disagrees with its plain version: rel {rel:.3e}")
+
+    for width, page, m, kinds in WIDE_CASES:
+        cfg = qwen2.Qwen2Config(vocab=4096, layers=1, rope_theta=1e6, norm_eps=1e-6,
+                                tie_embeddings=False, max_seq=seq, **WIDTHS[width])
+        params = qwen2.quantize_decode(
+            qwen2.random_params(cfg, seed=rng_seed, std=0.02, device=dev), cfg)
+        blk = params["blocks"]["0"]
+        d, h, kv, hd = cfg.dim, cfg.heads, cfg.kv_heads, cfg.head_dim
+        n_qkv = (h + 2 * kv) * hd
+        cos_t, sin_t = rope_table(seq, hd, base=cfg.rope_theta, device=dev)
+        w = (blk["attn_norm"], blk["wqkv"]["int8"], blk["wqkv"]["scale"], blk.get("bqkv"))
+        wo = (blk["wo"]["int8"], blk["wo"]["scale"])
+        kw = dict(heads=h, kv_heads=kv, head_dim=hd, eps=cfg.norm_eps)
+        tag = f"at {width} (head_dim {hd}, {h}/{kv} heads), page {page}"
+        weight_bytes = d * 4 + d * n_qkv + n_qkv * 8 + h * hd * d + d * 4
+
+        def rows(n):
+            tok = torch.randint(0, cfg.vocab, (n,), generator=gen, device=dev)
+            return params["embed"][tok].bfloat16()
+
+        def sdpa(q, kctx, vctx, mask):
+            kk = torch.nan_to_num(kctx).repeat_interleave(h // kv, dim=1)
+            vv = torch.nan_to_num(vctx).repeat_interleave(h // kv, dim=1)
+            return lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kk, vv, attn_mask=mask)
+
+        def held(name, what, kernel, plain, args, kwargs, lib, nbytes, ops):
+            fresh = lambda: [a.clone() if isinstance(a, torch.Tensor) and a.dim() >= 3  # noqa: E731
+                             else a for a in args]
+            want = plain(*fresh(), **kwargs)[0]
+            got = kernel(*fresh(), **kwargs)[0]
+            keep = fresh()
+            report(name, what, got, want, _time_ms(torch, lambda: kernel(*keep, **kwargs)),
+                   _time_ms(torch, lambda: plain(*keep, **kwargs), 3),
+                   _time_ms(torch, lib), nbytes, ops)
+
+        # Paged pools with streams at serving positions; one stream frozen.
+        n_pool = 4 * seq // page
+        shape = (n_pool, kv, page, hd)
+        kp = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        vp = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        positions = [int(p) for p in torch.linspace(30, 940, slots).round().tolist()]
+        positions[3] = 0
+        bt = torch.zeros((slots, seq // page), dtype=torch.int32)
+        nxt = 1
+        for b, p in enumerate(positions):
+            if p:
+                n = -(-(p + m) // page)
+                bt[b, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
+                nxt += n
+        bt = bt.to(dev)
+        pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+        ctx = sum(positions)
+        maxp = bt.shape[1]
+        kctx = kp[bt.long()].permute(0, 2, 1, 3, 4).reshape(slots, kv, maxp * page, hd)
+        vctx = vp[bt.long()].permute(0, 2, 1, 3, 4).reshape(slots, kv, maxp * page, hd)
+        for kind in kinds:
+            if kind in ("batch", "batch_int8kv"):
+                x = rows(slots)
+                cr, sr = DB.rope_rows_at(cos_t, sin_t, pos)
+                pools = [kp, vp]
+                kv_row = kv * hd * 2 * 2
+                if kind == "batch_int8kv":
+                    kq, ks = DB.kv_quant_rows(kp.float())
+                    vq, vs = DB.kv_quant_rows(vp.float())
+                    pools = [kq, vq]
+                    kv_row = kv * (hd + 4) * 2
+                args = [x, *w, cr, sr, *pools, *wo, pos, bt]
+                if kind == "batch_int8kv":
+                    args += [ks, vs]
+                mask = (torch.arange(maxp * page, device=dev)[None, :] <= pos[:, None])
+                held("attention_paged_batch_step" + ("_int8kv" if kind != "batch" else ""),
+                     tag, DB.attention_paged_batch_step, DB.attention_paged_batch_step_plain,
+                     args, kw,
+                     sdpa(torch.randn((slots, h, 1, hd), generator=gen, device=dev).bfloat16(),
+                          kctx, vctx, mask[:, None, None, :]),
+                     slots * d * 2 * 2 + weight_bytes + slots * hd * 8 + slots * 4
+                     + bt.numel() * 4 + (ctx + slots) * kv_row,
+                     2 * slots * d * n_qkv + 4 * h * hd * (ctx + slots) + 2 * slots * h * hd * d)
+            elif kind == "chunk":
+                position = 2 * chunk
+                btr = torch.arange(1, seq // page + 1, dtype=torch.int32, device=dev)
+                x = rows(chunk)
+                cr, sr = DB.rope_rows(cos_t, sin_t, position, chunk)
+                n_keys = position + chunk
+                kc = kp[btr[: n_keys // page].long()].permute(1, 0, 2, 3).reshape(1, kv, n_keys, hd)
+                vc = vp[btr[: n_keys // page].long()].permute(1, 0, 2, 3).reshape(1, kv, n_keys, hd)
+                cmask = (torch.arange(n_keys, device=dev)[None, :]
+                         <= position + torch.arange(chunk, device=dev)[:, None])
+                causal_keys = chunk * position + chunk * (chunk + 1) // 2
+                held("attention_paged_chunk_step", f"{tag}, 256 rows at 512", DB.attention_paged_chunk_step,
+                     DB.attention_paged_chunk_step_plain,
+                     [x, *w, cr, sr, kp, vp, *wo, position, btr], kw,
+                     sdpa(torch.randn((1, h, chunk, hd), generator=gen, device=dev).bfloat16(),
+                          kc, vc, cmask),
+                     chunk * d * 2 * 2 + weight_bytes + chunk * hd * 8 + btr.numel() * 4
+                     + n_keys * kv * hd * 2 * 2,
+                     2 * chunk * d * n_qkv + 4 * h * hd * causal_keys + 2 * chunk * h * hd * d)
+            elif kind == "spec":
+                bm = slots * m
+                flat = (pos[:, None] + torch.arange(m, dtype=torch.int32, device=dev)[None, :])
+                cr, sr = DB.rope_rows_at(cos_t, sin_t, flat.reshape(bm))
+                smask = (torch.arange(maxp * page, device=dev)[None, None, :]
+                         <= flat[:, :, None])[:, None]
+                held("attention_paged_spec_step", f"{tag}, {slots} x {m} rows (m x group "
+                     f"{m * (h // kv)})", DB.attention_paged_spec_step,
+                     DB.attention_paged_spec_step_plain,
+                     [rows(bm), *w, cr, sr, kp, vp, *wo, pos, bt], dict(kw, m=m),
+                     sdpa(torch.randn((slots, h, m, hd), generator=gen, device=dev).bfloat16(),
+                          kctx, vctx, smask),
+                     bm * d * 2 * 2 + weight_bytes + bm * hd * 8 + slots * 4 + bt.numel() * 4
+                     + (ctx + bm) * kv * hd * 2 * 2,
+                     2 * bm * d * n_qkv + 4 * h * hd * (m * ctx + slots * m * (m + 1) // 2)
+                     + 2 * bm * h * hd * d)
+            else:  # the dense caches: 4 planes, one row at 1500, m rows ending at 2047
+                if kind == "dense_batch":
+                    live = [0, 700, 1500, seq - 1]
+                    rows_n, ctx_rows, keys = len(live), sum(live), sum(live) + len(live)
+                    dpos = torch.tensor(live, dtype=torch.int32, device=dev)
+                    cr, sr = DB.rope_rows_at(cos_t, sin_t, dpos)
+                    where, qrows, planes = dpos, 1, len(live)
+                    mask = (torch.arange(seq, device=dev)[None, :] <= dpos[:, None])[:, None, None, :]
+                    kernel, plain = DB.attention_batch_step, DB.attention_batch_step_plain
+                    what = "4 planes at 0..2047"
+                else:
+                    rows_n = 1 if kind == "dense_step" else m
+                    position = 1500 if kind == "dense_step" else seq - m
+                    live, ctx_rows = [position], position
+                    keys = rows_n * position + rows_n * (rows_n + 1) // 2
+                    cr, sr = DB.rope_rows(cos_t, sin_t, position, rows_n)
+                    where, qrows, planes = position, rows_n, 0
+                    mask = (torch.arange(seq, device=dev)[None, :]
+                            <= position + torch.arange(rows_n, device=dev)[:, None])
+                    kernel, plain = ((DB.attention_step, DB.attention_step_plain)
+                                     if kind == "dense_step"
+                                     else (DB.attention_chunk_step, DB.attention_chunk_step_plain))
+                    what = f"{rows_n} row(s) at {position}" + (
+                        f" (m x group {m * (h // kv)})" if rows_n > 1 else "")
+                kc = torch.randn((len(live), kv, seq, hd), generator=gen, device=dev).bfloat16()
+                vc = torch.randn((len(live), kv, seq, hd), generator=gen, device=dev).bfloat16()
+                for b, n in enumerate(live):
+                    kc[b, :, n:] = float("nan")
+                    vc[b, :, n:] = float("nan")
+                q = torch.randn((len(live), h, qrows, hd), generator=gen, device=dev).bfloat16()
+                lib = sdpa(q, kc, vc, mask)
+                if kind != "dense_batch":
+                    kc, vc = kc[0], vc[0]
+                held(kernel.__name__, f"at {width} (head_dim {hd}, {h}/{kv} heads), {what}",
+                     kernel, plain, [rows(rows_n), *w, cr, sr, kc, vc, *wo, where], kw, lib,
+                     rows_n * d * 2 * 2 + weight_bytes + rows_n * hd * 8 + planes * 4
+                     + (ctx_rows + rows_n) * kv * hd * 2 * 2,
+                     2 * rows_n * d * n_qkv + 4 * h * hd * keys + 2 * rows_n * h * hd * d)
+        del params, kp, vp, kctx, vctx
+
+    # LoRA at rank 256, Qwen2-1.5B width, 16 rows over a 9-slot stack.
+    d, rank, nslots, rows_n = 1536, 256, 9, 16
+    a = (torch.randn((nslots, d, rank), generator=gen, device=dev) * ADAPTER_STD).bfloat16()
+    b = (torch.randn((nslots, rank, d), generator=gen, device=dev) * ADAPTER_STD).bfloat16()
+    a[0] = 0
+    b[0] = 0
+    x = (torch.randn((rows_n, d), generator=gen, device=dev) * 0.5).bfloat16()
+    g = torch.randint(0, nslots, (rows_n,), generator=gen, device=dev, dtype=torch.int32)
+    g[:2] = 0
+    got, want = LO.lora_gather_matmul(x, g, a, b), LO.lora_gather_matmul_plain(x, g, a, b)
+    if got[g == 0].float().abs().max().item() != 0.0:
+        raise Failed("lora_gather_matmul at rank 256: slot-0 rows are not exactly zero")
+    distinct = int(torch.unique(g[g != 0]).numel())
+    gl = g.long()
+    report("lora_gather_matmul", f"at rank 256, {rows_n} rows ({distinct} distinct adapters)",
+           got, want, _time_ms(torch, lambda: LO.lora_gather_matmul(x, g, a, b)),
+           _time_ms(torch, lambda: LO.lora_gather_matmul_plain(x, g, a, b), 5),
+           _time_ms(torch, lambda: torch.bmm(torch.bmm(x[:, None, :], a[gl]), b[gl])),
+           distinct * 2 * d * rank * 2 + rows_n * d * 2 * 2 + rows_n * 4, 4 * rows_n * d * rank)
+    return lines
+
+
+#: phase 11's prompt: text tokens after the image's patches
+VLM_PROMPT = 16
+#: the kernels the VLM's greedy generate runs (phase 11)
+VLM_KERNELS = ("flash_attention", "int8_matmul", "attention_step", "mlp_step",
+               "lm_head_argmax")
+
+
+def serve_vlm(torch, DB, LO, vlm, paths, params, cfg, seed: int, max_new: int) -> dict:
+    """Phase 11: the self-contained VLM at ``cfg`` (bench_2b) on seeded
+    random weights: its vision tower against the dense einsum and an f32
+    reference, then ``generate`` and ``generate_speculative`` (k = 4) of
+    ``max_new`` tokens, each held to the f32 plain path by the near-tie
+    rule. Returns the launches of ``generate``."""
+    import numpy as np
+
+    from dora_tpu_torch.ops import flash_attention as FA
+
+    dev = params["embed"].device
+    rng = np.random.default_rng(seed)
+    image = torch.from_numpy(
+        rng.uniform(size=(1, cfg.image_size, cfg.image_size, 3)).astype(np.float32)).to(dev)
+    prompt = torch.from_numpy(
+        rng.integers(0, cfg.vocab, size=(1, VLM_PROMPT)).astype(np.int32)).to(dev)
+    position = cfg.n_patches + VLM_PROMPT
+
+    def rms(a):
+        return float(a.float().pow(2).mean().sqrt())
+
+    # The vision tower: flash attention (the card's default) against the
+    # dense einsum (DORA_FLASH_ATTENTION=0) and both against the f32 plain
+    # path; the flash output may be at most RMS_MARGIN times as far from f32.
+    with _env(DORA_FLASH_ATTENTION=None):
+        FA.reset_launches()
+        flash_img = vlm.encode_image(params, cfg, image)
+        torch.cuda.synchronize()
+        per_image = FA.flash_attention.launches
+        vit_ms = _time_ms(torch, lambda: vlm.encode_image(params, cfg, image), 5)
+    with _env(DORA_FLASH_ATTENTION="0"):
+        dense_img = vlm.encode_image(params, cfg, image)
+        dense_ms = _time_ms(torch, lambda: vlm.encode_image(params, cfg, image), 5)
+        ref_img = paths.run(lambda: vlm.encode_image(params, cfg, image), "f32").float()
+    r_flash, r_dense = rms(flash_img - ref_img), rms(dense_img - ref_img)
+    print(f"vlm phase: encode_image {tuple(flash_img.shape)}: flash_attention launches "
+          f"{per_image} per image; flash vs dense einsum rms {rms(flash_img - dense_img):.4e} "
+          f"({rms(flash_img - dense_img) / rms(dense_img):.3e} of the output's rms "
+          f"{rms(dense_img):.4e}); vs the f32 plain path: flash {r_flash:.4e}, dense {r_dense:.4e}; "
+          f"ViT {vit_ms:.3f} ms per image with flash, {dense_ms:.3f} ms dense", flush=True)
+    if per_image != cfg.vision_layers:
+        raise Failed(f"encode_image launched flash_attention {per_image} times, not once per "
+                     f"vision layer ({cfg.vision_layers})")
+    if not r_flash <= max(RMS_MARGIN * r_dense, 1e-5 * rms(ref_img)):  # 1e-5: f32 rounding
+        raise Failed("the vision tower's flash path is further from the f32 reference than "
+                     "the dense einsum's bf16 rounding explains")
+
+    def run(what, fn, want):
+        """``fn()`` on the kernel path with every count at 0 first; the
+        launches must be exactly ``want(n)`` for n fused passes (every
+        other kernel 0)."""
+        plain_calls = _PlainCalls(DB, LO)
+        _reset_launches(DB, LO)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+        finally:
+            wall = time.perf_counter() - t0
+            launches = _launches(DB, LO)
+            plain_calls.restore()
+        got = {n: c for n, c in launches.items() if c}
+        print(f"vlm {what}: launches {json.dumps(got)}; plain calls {plain_calls.n}", flush=True)
+        if plain_calls.n:
+            raise Failed(f"{plain_calls.n} plain-version call(s) ran in vlm {what}")
+        n = got.get("lm_head_argmax", 0)
+        want = {"flash_attention": cfg.vision_layers, "int8_matmul": 1, want: cfg.layers * n,
+                "mlp_step": cfg.layers * n, "lm_head_argmax": n}
+        if got != want or not n:
+            raise Failed(f"vlm {what} launched {got}, expected {want} with passes")
+        return res, wall, launches
+
+    ttft = []
+    real_prefill, real_chunk = vlm.prefill, vlm.decode_chunk_fused
+
+    def timed_prefill(*a, **k):
+        out = real_prefill(*a, **k)
+        torch.cuda.synchronize()
+        ttft.append(time.perf_counter() - t_call[0])
+        return out
+
+    verified = []  # (chunk, cache position) of every verify pass, for the replay
+
+    def recorded(p, c, tokens, caches, pos, rope=None):
+        verified.append((tokens.clone(), pos))
+        return real_chunk(p, c, tokens, caches, pos, rope)
+
+    steps = max_new - 1
+    t_call = [0.0]
+    vlm.prefill = timed_prefill
+    try:
+        t_call[0] = time.perf_counter()
+        gen, wall, g_launches = run(
+            "generate", lambda: vlm.generate(params, cfg, image, prompt, max_new),
+            "attention_step")
+        vlm.decode_chunk_fused = recorded
+        t_call[0] = time.perf_counter()
+        (spec, passes), s_wall, s_launches = run(
+            "generate_speculative",
+            lambda: vlm.generate_speculative(params, cfg, image, prompt, max_new, k=SPEC_K),
+            "attention_chunk_step")
+    finally:
+        vlm.prefill, vlm.decode_chunk_fused = real_prefill, real_chunk
+    if g_launches["lm_head_argmax"] != steps or s_launches["lm_head_argmax"] != len(verified):
+        raise Failed("the fused passes do not match the steps and verify passes run")
+    gen, spec = gen[0].tolist(), spec[0].tolist()
+    _check_streams({"generate": gen, "generate_speculative": spec}, max_new, cfg.vocab)
+    print(f"vlm phase: TTFT {ttft[0]:.3f} s (prefill of {position} rows, ViT included); "
+          f"generate {max_new} tokens in {wall:.3f} s, decode {steps / (wall - ttft[0]):.1f} "
+          f"tokens/s ({1e3 * (wall - ttft[0]) / steps:.2f} ms a step); generate_speculative "
+          f"{max_new} tokens in {s_wall:.3f} s, TTFT {ttft[1]:.3f} s, {passes} model passes "
+          f"({passes / max_new:.3f} passes per token, {steps / max(passes - 1, 1):.3f} tokens "
+          f"per verify pass; {len(verified)} verify passes launched, overshoot included), "
+          f"decode {steps / (s_wall - ttft[1]):.1f} tokens/s", flush=True)
+
+    ref = paths.run(lambda: vlm.generate(params, cfg, image, prompt, max_new), "f32")[0].tolist()
+
+    def stepped(at):
+        """generate's path to the logits of token ``at``: its tokens before
+        it through one-row steps (kernel 9)."""
+        def go():
+            _, caches, _ = vlm.prefill(params, cfg, image, prompt)
+            for j, tok in enumerate(gen[:at]):
+                token = torch.tensor([tok], dtype=torch.int32, device=dev)
+                _, caches = vlm.decode_step_fused(params, cfg, token, caches, position + j)
+        return lambda mode: paths.logits_of(go, mode)[-1]
+
+    def replayed(at):
+        """generate_speculative's path to the logits of token ``at``: its
+        verify passes up to the one that emitted it (kernel 10), that
+        pass's row for it."""
+        upto = [(c, p) for c, p in verified if p - position + 1 <= at]
+
+        def go():
+            _, caches, _ = vlm.prefill(params, cfg, image, prompt)
+            for c, p in upto:
+                _, caches = vlm.decode_chunk_fused(params, cfg, c, caches, p)
+        row = at - (upto[-1][1] - position + 1) if upto else -1
+        return lambda mode: paths.logits_of(go, mode)[row]
+
+    same = _first_parting(gen, spec, max_new)
+    print(f"vlm agreement: generate and generate_speculative: first {same} of {max_new} "
+          f"tokens equal", flush=True)
+    # generate's token is held to NEAR_TIE of the f32 top; the verify path's
+    # to SPEC_REF_TIE (kernel 10 folds its rows from bf16, as its reference
+    # does), as phases 7, 8c and 10 hold theirs.
+    for label, stream, path, bound in (("generate", gen, stepped, NEAR_TIE),
+                                       ("generate_speculative", spec, replayed, SPEC_REF_TIE)):
+        same = _first_parting(stream, ref, max_new)
+        at = min(same, max_new - 1)
+        print(f"vlm agreement: {label} vs the f32 plain path: first {same} of {max_new} "
+              f"tokens equal", flush=True)
+        paths.check(f"vlm agreement, {label}, token {at}", path(at),
+                    (ref[same], stream[same]) if same < max_new else None, bound)
+    return g_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch/CUDA port")
     ap.add_argument("--layers", type=int, default=28, help="model depth (width stays)")
@@ -1714,6 +2192,7 @@ def main(argv=None) -> int:
         from dora_tpu_torch.nodehub.llm_server import make_engine, serve_prompts
         from dora_tpu_torch.ops import _build
         from dora_tpu_torch.ops import decode_block as DB
+        from dora_tpu_torch.ops import flash_attention as FA
         from dora_tpu_torch.ops import int8_matmul as IM
         from dora_tpu_torch.ops import lora as LO
     except ImportError as e:
@@ -1747,6 +2226,8 @@ def main(argv=None) -> int:
         kernels = check_kernels(torch, DB, qwen2, params, cfg, args.seed + 1)
         kernels.insert(2, check_lora_kernel(torch, LO, cfg, args.seed + 3))
         kernels += check_dense_kernels(torch, DB, IM, params, cfg, args.seed + 6)
+        kernels.append(check_flash_kernel(torch, FA, args.seed + 8))
+        check_widened_kernels(torch, DB, LO, qwen2, args.seed + 9)
         by_name = {k["name"]: k for k in kernels}
 
         rng = np.random.default_rng(args.seed)
@@ -1796,6 +2277,20 @@ def main(argv=None) -> int:
                                         cfg, d_prompts, args.max_new, d_served)
         by_name["attention_step"]["launches"] = g_launches["attention_step"]
         by_name["attention_chunk_step"]["launches"] = s_launches["attention_chunk_step"]
+
+        vcfg = vlm.VLMConfig.bench_2b()
+        t = time.perf_counter()
+        vparams = vlm.init_params(vcfg, seed=args.seed + 10, device="cuda")
+        n_params = vlm.param_count(vparams)
+        vparams = vlm.quantize_decode(vparams)
+        torch.cuda.synchronize()
+        print(f"vlm weights: bench_2b ({n_params / 1e9:.3f} B parameters: ViT "
+              f"{vcfg.vision_layers} x {vcfg.vision_dim}, LM {vcfg.layers} x {vcfg.dim}), seeded "
+              f"random, LM blocks and head int8 in {time.perf_counter() - t:.2f} s", flush=True)
+        vpaths = _Paths(torch, DB, LO, IM, qwen2, L, serve_prompts, vparams, vcfg)
+        v_launches = serve_vlm(torch, DB, LO, vlm, vpaths, vparams, vcfg, args.seed + 11,
+                               args.max_new)
+        by_name["flash_attention"]["launches"] = v_launches["flash_attention"]
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

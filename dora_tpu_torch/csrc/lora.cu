@@ -13,8 +13,10 @@
 //
 // Design (simple first): one block of 256 threads per row. The row of x is
 // staged in shared memory as f32; t = x @ A[g] is taken by (d-slice, column)
-// thread pairs, whose partial sums are added in a fixed order, and kept in
-// shared memory in f32, unrounded, as the reference keeps it; then each
+// thread pairs (256 / r slices of D; at the largest rank, 256, one thread
+// per column over all of D), whose partial sums are added in a fixed order,
+// and kept in shared memory in f32, unrounded, as the reference keeps it;
+// then each
 // thread produces output columns n, tid + 256, ... from t and B[g]. Slot 0 is
 // the all-zeros base adapter by contract: its rows skip the slab reads and
 // write exact zeros, which is what the reference's product of zeros gives.
@@ -27,7 +29,7 @@
 
 constexpr int LT = 256;        // threads per row
 constexpr int LMAXD = 8192;    // most model width the kernel takes (ops/lora.py KERNEL_MAX_DIM)
-constexpr int LMAXR = 128;     // most adapter rank the kernel takes (KERNEL_MAX_RANK)
+constexpr int LMAXR = 256;     // most adapter rank the kernel takes (KERNEL_MAX_RANK)
 
 static __global__ void __launch_bounds__(LT)
 lora_gather_rows(const bf16* __restrict__ x, const int* __restrict__ groups,

@@ -35,6 +35,7 @@ from dora_tpu_torch.models.hf.loader import (
     read_config,
     read_safetensors,
 )
+from dora_tpu_torch.ops import lora as LO
 
 
 @dataclass(frozen=True)
@@ -173,6 +174,21 @@ def random_params(cfg: Qwen2Config, *, seed: int = 0, std: float = 0.02,
     return params
 
 
+def refuse_int4_knobs() -> None:
+    """``DORA_WEIGHT_BITS`` (4 or 8) and ``DORA_INT4_DECODE`` pick int4 on 4
+    in the JAX package; int4 is not ported, so those settings raise rather
+    than quietly serve int8, and any other ``DORA_WEIGHT_BITS`` raises as
+    there."""
+    bits = os.environ.get("DORA_WEIGHT_BITS", "")
+    if bits and bits not in ("4", "8"):
+        raise ValueError(f"DORA_WEIGHT_BITS must be 4 or 8, got {bits!r}")
+    if os.environ.get("DORA_INT4_DECODE") or bits == "4":
+        raise NotImplementedError(
+            "int4 decode weights (DORA_INT4_DECODE / DORA_WEIGHT_BITS=4) are "
+            "not ported to dora_tpu_torch yet; unset them to serve int8"
+        )
+
+
 def quantize_decode(params, cfg: Qwen2Config) -> dict:
     """Quantize the decode path (blocks + head) into the int8 fused kernel
     layout; a tied head is quantized from the embedding transpose, and the
@@ -186,15 +202,7 @@ def quantize_decode(params, cfg: Qwen2Config) -> dict:
     there."""
     from dora_tpu_torch.ops.int8_matmul import quantize_int8, quantize_tree
 
-    bits = os.environ.get("DORA_WEIGHT_BITS", "")
-    if bits and bits not in ("4", "8"):
-        raise ValueError(f"DORA_WEIGHT_BITS must be 4 or 8, got {bits!r}")
-    if os.environ.get("DORA_INT4_DECODE") or bits == "4":
-        raise NotImplementedError(
-            "int4 decode weights (DORA_INT4_DECODE / DORA_WEIGHT_BITS=4) are "
-            "not ported to dora_tpu_torch yet; unset them to serve int8"
-        )
-
+    refuse_int4_knobs()
     keep_bf16 = not os.environ.get("DORA_INT8_PURE")
     out = dict(params)
     out["blocks"] = quantize_tree(params["blocks"], keep_bf16=keep_bf16)
@@ -380,12 +388,15 @@ def generate(params, cfg: Qwen2Config, prompt_ids, max_new_tokens: int):
         )
     embed = params["embed"]
     dev = embed.device
+    use_fused = _vlm.fused_decode_ready(params, b)
+    if use_fused:
+        _vlm.refuse_unkernelled("qwen2.generate", dev, heads=cfg.heads,
+                                kv_heads=cfg.kv_heads, head_dim=cfg.head_dim)
     dtype = L.compute_dtype(dev)
     head = _head(params, cfg, dtype)
     rope = _rope(cfg, dev)
     h, caches = _prefill(params, cfg, prompt_ids, rope)
     token = torch.argmax(_head_logits(h[:, -1], head), dim=-1).to(torch.int32)
-    use_fused = _vlm.fused_decode_ready(params, b)
     out = [token]
     # Token j + 1 comes from the step at position t + j; the last token
     # needs no step after it.
@@ -416,6 +427,8 @@ def make_batch_engine(params, cfg: Qwen2Config, *, max_slots: int = 4,
     if not _vlm.fused_batch_ready(params):
         raise ValueError("batch engine needs quantize_decode params and the fused "
                          "decode tier (DORA_FUSED_DECODE not 0)")
+    _vlm.refuse_unkernelled("make_batch_engine", device, heads=cfg.heads,
+                            kv_heads=cfg.kv_heads, head_dim=cfg.head_dim)
     dev = resolve_device(device)
     params = _to(params, dev)
     rope = _rope(cfg, dev)
@@ -558,9 +571,9 @@ def make_lora_pool(cfg: Qwen2Config, lora_dir, *, max_resident: int = 8,
     adapters are zero-padded into it (zero rows and columns add exactly
     zero), so admission never changes the stack's shape. The stack per
     slot is ``{"a": [L, dim, r], "b": [L, r, dim]}`` in the compute dtype."""
+    from dora_tpu_torch.models import vlm as _vlm
     from dora_tpu_torch.models.lora_pool import AdapterPool
 
-    dev = resolve_device(device)
     files = {
         f[: -len(".npz")]: os.path.join(lora_dir, f)
         for f in sorted(os.listdir(lora_dir))
@@ -573,6 +586,11 @@ def make_lora_pool(cfg: Qwen2Config, lora_dir, *, max_resident: int = 8,
         for path in files.values():
             with np.load(path) as z:
                 rank = max(rank, z["a_0"].shape[-1])
+    if _vlm.on_card(device):
+        limits = LO.kernel_shape_limits(rank, cfg.dim)
+        if limits:
+            raise ValueError("make_lora_pool: " + "; ".join(limits))
+    dev = resolve_device(device)
     dtype = L.compute_dtype(dev)
     template = {
         "a": torch.zeros((cfg.layers, cfg.dim, rank), dtype=dtype, device=dev),
@@ -632,6 +650,8 @@ def make_paged_engine(params, cfg: Qwen2Config, *, max_slots: int = 16,
 
     if not _vlm.fused_batch_ready(params):
         raise ValueError("paged engine needs quantize_decode params")
+    _vlm.refuse_unkernelled("make_paged_engine", device, heads=cfg.heads,
+                            kv_heads=cfg.kv_heads, head_dim=cfg.head_dim, page=page_size)
     dev = resolve_device(device)
     params = _to(params, dev)
     chunk = chunk or min(256, cfg.max_seq)

@@ -9,14 +9,19 @@ prefill and the unfused decode run. ``matmul`` keeps the JAX dispatch
 rule: a quantized weight goes through the int8 kernel
 (ops/int8_matmul.py) for M <= 32 rows, or when it has no ``bf16``
 sidecar, and through a plain bf16 product of the sidecar above that. Attention is the reference's einsum with an f32
-softmax, rounded where the reference rounds (no fused SDPA). The ring,
-ulysses and flash variants and the LayerNorm / GELU layouts (ViT,
-Whisper) are not ported: their arguments raise.
+softmax, rounded where the reference rounds (no fused SDPA), or, for the
+no-cache self-attention paths that ask for it (``flash="full"`` /
+``"causal"``), flash attention (ops/flash_attention.py: the hand-written
+kernel on the card), which ``use_flash`` turns on by default on the card
+(``DORA_FLASH_ATTENTION`` overrides it either way). The ring and ulysses
+variants and the LayerNorm / GELU layouts (ViT, Whisper) are not ported:
+their arguments raise.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -25,6 +30,7 @@ from dora_tpu_torch._device import compute_dtype, resolve_device
 __all__ = [
     "apply_rope", "attention", "attention_sublayer", "block_forward", "causal_mask",
     "compute_dtype", "dense", "matmul", "mlp_sublayer", "rms_norm", "rope_table",
+    "use_flash",
 ]
 
 #: quantized products with more rows than this take the bf16 sidecar
@@ -41,7 +47,7 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
 def _not_ported(norm="rms", mlp="swiglu", **variants) -> None:
     if norm != "rms" or mlp != "swiglu" or any(v is not None for v in variants.values()):
         raise NotImplementedError(
-            "only the RMSNorm + SwiGLU block with dense attention is ported "
+            "only the RMSNorm + SwiGLU block with dense or flash attention is ported "
             f"(got norm={norm!r}, mlp={mlp!r}, {variants})")
 
 
@@ -104,6 +110,18 @@ def attention(q, k, v, mask=None):
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
+def use_flash(device) -> bool:
+    """Flash attention for the no-cache self-attention paths: on by default
+    on the card (the port's counterpart of the JAX package's "on for TPU"),
+    off on the CPU, where the plain twin would only repeat the dense
+    einsum's work. ``DORA_FLASH_ATTENTION=1``/``0`` overrides it either way
+    (an empty value is off), as in dora_tpu/models/layers.py."""
+    v = os.environ.get("DORA_FLASH_ATTENTION")
+    if v is not None:
+        return v not in ("", "0")
+    return torch.device(device).type == "cuda"
+
+
 def causal_mask(tq: int, tk: int, offset: int = 0, device=None):
     """[1, 1, tq, tk] bool mask; ``offset`` cached tokens come before q."""
     device = resolve_device(device)
@@ -140,8 +158,12 @@ def attention_sublayer(params, x, n_heads, *, n_kv_heads=None, rope=None,
     (default 0..T-1). With ``cache`` ({"k", "v"} [B, KV, S, hd]) the rows'
     K/V are written at ``cache_index`` in place (the start clamped so they
     fit, as ``dynamic_update_slice`` clamps) and attention runs over the
-    whole cache; the cache is returned as new_cache."""
-    _not_ported(norm, mesh=mesh, ring_axis=ring_axis, flash=flash, sp_impl=sp_impl)
+    whole cache; the cache is returned as new_cache. ``flash`` ("full" or
+    "causal") runs the no-cache path through ops/flash_attention.py instead
+    of the einsum under ``mask``: only valid where the mask the caller would
+    pass is exactly that pattern (with a cache it is ignored, as in the
+    reference)."""
+    _not_ported(norm, mesh=mesh, ring_axis=ring_axis, sp_impl=sp_impl)
     b, t, dim = x.shape
     n_kv = n_kv_heads or n_heads
     head_dim = head_dim or dim // n_heads
@@ -180,7 +202,12 @@ def attention_sublayer(params, x, n_heads, *, n_kv_heads=None, rope=None,
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
 
-    out = attention(q, k.to(dtype), v.to(dtype), mask)
+    if flash is not None and cache is None:
+        from dora_tpu_torch.ops.flash_attention import flash_attention
+
+        out = flash_attention(q, k.to(dtype), v.to(dtype), causal=flash == "causal")
+    else:
+        out = attention(q, k.to(dtype), v.to(dtype), mask)
     out = out.transpose(1, 2).reshape(b, t, n_heads * head_dim)
     return x + dense(out, params, "wo", "bo"), new_cache
 

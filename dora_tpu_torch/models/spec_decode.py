@@ -2,7 +2,8 @@
 
 Counterpart of dora_tpu/models/spec_decode.py: the constants, ``lookup``,
 ``spec_headroom``, ``body_passes``, ``fitting_body_passes``,
-``check_headroom`` and the batch-1 loop ``run_loop``. Drafts are the
+``check_headroom``, the serving gates ``fits`` and ``gate_speculation``
+(``DORA_SPEC_DECODE``) and the batch-1 loop ``run_loop``. Drafts are the
 continuation of the most recent earlier occurrence of a stream's trailing
 ngram (no draft model); a verification pass over the last token and its
 drafts costs one weight stream, and every emitted token is an argmax of the
@@ -17,14 +18,16 @@ decides the acceptance, with the JAX loop's pass counting, body fusion
 
 from __future__ import annotations
 
+import logging
 import os
 
 import numpy as np
 import torch
 
-#: default draft length / lookup ngram
+#: default draft length / lookup ngram; headroom every gate must check
 SPEC_K = 4
 SPEC_NGRAM = 2
+SPEC_HEADROOM = SPEC_K + 1  # single-pass slack; gates use spec_headroom()
 
 #: Adaptive gating: below an acceptance EMA of ADAPT_THRESHOLD the loop takes
 #: single-token passes, drifting back up by ADAPT_RECOVER per plain pass until
@@ -71,6 +74,29 @@ def check_headroom(context_len: int, max_new_tokens: int, max_seq: int, what: st
             f"+ speculation headroom ({headroom}) exceeds max_seq "
             f"({max_seq})"
         )
+
+
+def fits(context_len: int, max_new_tokens: int, max_seq: int, k: int = SPEC_K) -> bool:
+    """Gate helper for serving paths that degrade instead of raising."""
+    return context_len + max_new_tokens + spec_headroom(k) <= max_seq
+
+
+def gate_speculation(context_len: int, max_new_tokens: int, max_seq: int,
+                     batch_ok: bool = True) -> bool:
+    """The serving-path ``DORA_SPEC_DECODE`` gate: True when the env asks
+    for speculation and the constraints (batch 1, k + 1 headroom within
+    max_seq) allow it; otherwise it warns and the caller serves plain
+    greedy."""
+    if not os.environ.get("DORA_SPEC_DECODE"):
+        return False
+    if batch_ok and fits(context_len, max_new_tokens, max_seq):
+        return True
+    logging.getLogger(__name__).warning(
+        "DORA_SPEC_DECODE disabled: needs batch-1 and %d tokens of "
+        "context within max_seq (%d); serving vanilla greedy",
+        context_len + max_new_tokens + spec_headroom(), max_seq,
+    )
+    return False
 
 
 def lookup(history: torch.Tensor, hist_len: torch.Tensor, seq: int, k: int,

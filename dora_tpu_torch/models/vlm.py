@@ -1,28 +1,454 @@
-"""The fused decode passes and the K-tick decode window.
+"""The self-contained vision-language model, the fused decode passes and the
+K-tick decode window.
 
-Counterpart of the fused-tier part of dora_tpu/models/vlm.py (``_qw``,
-``_fused_pass``, ``fused_decode_ready``, ``fused_batch_ready``, the
-dense-cache passes ``fused_decode_pass`` (batch 1: one row, or a
-speculative verify's rows) and ``fused_decode_pass_batch`` (the dense
-engine), the paged ``fused_paged_pass_batch``, ``fused_paged_pass_chunk``,
-``fused_paged_pass_spec``, ``make_paged_window``, ``make_paged_spec_window``,
-``window_row_stats``, ``spec_window_row_stats``). Each layer runs one
-attention kernel and ``mlp_step``, then, with multi-tenant LoRA,
-``lora_gather_matmul``; the pass ends in ``lm_head_argmax``
-(ops/decode_block.py, ops/lora.py). Pools hold fp pages, or int8 pages with
-their ``ks``/``vs`` scale planes, which select the kernels' int8-KV forms.
-The vision tower, training and the ``VLMConfig`` decode functions
-(``decode_step_fused`` and the rest) are not ported yet.
+Counterpart of dora_tpu/models/vlm.py. The model (``VLMConfig`` with its
+``tiny`` and ``bench_2b`` shapes, ``init_params``, ``param_count``,
+``quantize_decode``, ``params_from_jax``): a ViT patch encoder
+(``patchify``, ``encode_image``: non-causal pre-norm blocks over patch
+embeddings with learned positions, whose attention is flash attention on
+the card, ``layers.use_flash``) projected to the LM width and prefixed to
+the prompt, then a causal LM (RoPE, GQA, SwiGLU; ``_lm_forward``,
+``init_cache``, ``prefill``, ``decode_step``). Greedy ``generate`` is a host
+loop of decode steps, each the fused batch-1 pass (``decode_step_fused``,
+``decode_chunk_fused``: ``attention_step`` or ``attention_chunk_step`` and
+``mlp_step`` per layer, then ``lm_head_argmax``) when
+``fused_decode_ready`` allows, else the unfused blocks;
+``generate_speculative`` runs prompt-lookup speculation over
+``spec_decode.run_loop``; ``decode_batch_fused`` steps B independent rows.
+
+The fused tier (``_qw``, ``_fused_pass``, ``fused_decode_ready``,
+``fused_batch_ready``, the dense-cache passes ``fused_decode_pass`` (batch
+1: one row, or a speculative verify's rows) and ``fused_decode_pass_batch``
+(the dense engine), the paged ``fused_paged_pass_batch``,
+``fused_paged_pass_chunk``, ``fused_paged_pass_spec``, ``make_paged_window``,
+``make_paged_spec_window``, ``window_row_stats``,
+``spec_window_row_stats``): each layer runs one attention kernel and
+``mlp_step``, then, with multi-tenant LoRA, ``lora_gather_matmul``; the pass
+ends in ``lm_head_argmax`` (ops/decode_block.py, ops/lora.py). Pools hold
+fp pages, or int8 pages with their ``ks``/``vs`` scale planes, which select
+the kernels' int8-KV forms. ``refuse_unkernelled`` is the engine factories'
+check that a model's shapes are ones the attention kernels take.
+
+Not ported yet: training (``loss_fn``, ``make_train_step``) and the
+tensor-parallel ``generate_tp``.
 """
 
 from __future__ import annotations
 
+import math
 import os
+from dataclasses import dataclass
 
 import torch
 
+from dora_tpu_torch._device import resolve_device
+from dora_tpu_torch.models import layers as L
+# params_from_jax: the generic tree conversion, re-exported for the VLM's tree
+from dora_tpu_torch.models.hf.qwen2 import params_from_jax, refuse_int4_knobs  # noqa: F401
 from dora_tpu_torch.ops import decode_block as DB
+from dora_tpu_torch.ops import flash_attention as FA
 from dora_tpu_torch.ops import lora as LO
+
+
+@dataclass(frozen=True)
+class VLMConfig:
+    # vision tower
+    image_size: int = 224
+    patch_size: int = 16
+    vision_dim: int = 256
+    vision_layers: int = 4
+    vision_heads: int = 4
+    vision_ffn: int = 1024
+    # language model
+    vocab: int = 32000
+    dim: int = 512
+    layers: int = 6
+    heads: int = 8
+    kv_heads: int = 4
+    ffn: int = 1408
+    max_seq: int = 1024
+
+    @property
+    def n_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.heads
+
+    @property
+    def vision_head_dim(self) -> int:
+        return self.vision_dim // self.vision_heads
+
+    @classmethod
+    def tiny(cls) -> "VLMConfig":
+        """Test-size config: runs in seconds on the CPU."""
+        return cls(
+            image_size=32, patch_size=8, vision_dim=32, vision_layers=2,
+            vision_heads=2, vision_ffn=64, vocab=256, dim=64, layers=2,
+            heads=4, kv_heads=2, ffn=128, max_seq=64,
+        )
+
+    @classmethod
+    def bench_2b(cls) -> "VLMConfig":
+        """Qwen2-VL-2B-shaped config: a 32-layer ViT 1280 wide (16 heads of
+        80 over 256 patches of a 224 x 224 image) and a Qwen2-1.5B-shaped
+        LM."""
+        return cls(
+            image_size=224, patch_size=14, vision_dim=1280, vision_layers=32,
+            vision_heads=16, vision_ffn=5120, vocab=151936, dim=1536,
+            layers=28, heads=12, kv_heads=2, ffn=8960, max_seq=2048,
+        )
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: VLMConfig, *, seed: int = 0, device=None) -> dict:
+    """Seeded random f32 parameters on ``device`` (default cuda), with the
+    JAX package's shapes and distributions: dense weights uniform in
+    +-1/sqrt(d_in), the embedding and the vision positions normal x 0.02,
+    norm weights one. The numbers come from a ``torch.Generator``, so they
+    are not the JAX package's (``params_from_jax`` carries those over)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def dense(d_in, d_out):
+        scale = 1.0 / math.sqrt(d_in)
+        w = torch.rand((d_in, d_out), generator=gen, device=dev)
+        return w * (2 * scale) - scale
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev) * 0.02
+
+    def ones(n):
+        return torch.ones((n,), device=dev)
+
+    def block(dim, heads, ffn, kv_heads):
+        hd = dim // heads
+        return {
+            "attn_norm": ones(dim),
+            "wq": dense(dim, heads * hd),
+            "wk": dense(dim, kv_heads * hd),
+            "wv": dense(dim, kv_heads * hd),
+            "wo": dense(heads * hd, dim),
+            "ffn_norm": ones(dim),
+            "w_gate": dense(dim, ffn),
+            "w_up": dense(dim, ffn),
+            "w_down": dense(ffn, dim),
+        }
+
+    patch_dim = cfg.patch_size * cfg.patch_size * 3
+    vision = {
+        "patch_proj": dense(patch_dim, cfg.vision_dim),
+        "pos_embed": normal(cfg.n_patches, cfg.vision_dim),
+        "blocks": {
+            str(i): block(cfg.vision_dim, cfg.vision_heads, cfg.vision_ffn,
+                          cfg.vision_heads)
+            for i in range(cfg.vision_layers)
+        },
+        "out_norm": ones(cfg.vision_dim),
+        "project": dense(cfg.vision_dim, cfg.dim),
+    }
+    return {
+        "vision": vision,
+        "embed": normal(cfg.vocab, cfg.dim),
+        "blocks": {
+            str(i): block(cfg.dim, cfg.heads, cfg.ffn, cfg.kv_heads)
+            for i in range(cfg.layers)
+        },
+        "out_norm": ones(cfg.dim),
+        "lm_head": dense(cfg.dim, cfg.vocab),
+    }
+
+
+def param_count(params) -> int:
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    return params.numel()
+
+
+def quantize_decode(params) -> dict:
+    """Quantize the decode-path weights (LM blocks and lm_head) into the
+    int8 fused layout, each with its bf16 sidecar for the large-M products
+    unless ``DORA_INT8_PURE``. The vision tower and the embedding stay
+    float: they run once per image in prefill. int4 (``DORA_INT4_DECODE``,
+    ``DORA_WEIGHT_BITS=4``) is not ported and raises, as in
+    models/hf/qwen2.quantize_decode."""
+    from dora_tpu_torch.ops.int8_matmul import quantize_tree
+
+    refuse_int4_knobs()
+    keep_bf16 = not os.environ.get("DORA_INT8_PURE")
+    out = dict(params)
+    out["blocks"] = quantize_tree(params["blocks"], keep_bf16=keep_bf16)
+    out["lm_head"] = quantize_tree({"lm_head": params["lm_head"]},
+                                   keep_bf16=keep_bf16)["lm_head"]
+    return out
+
+
+def on_card(device) -> bool:
+    """True when ``device`` (None: the default, cuda) is a CUDA device."""
+    return torch.device("cuda" if device is None else device).type == "cuda"
+
+
+def refuse_unkernelled(what: str, device, *, heads: int, kv_heads: int,
+                       head_dim: int, page: int | None = None) -> None:
+    """On the card, raise before serving when a model's attention shapes
+    (and a paged pool of ``page`` rows) are ones the attention kernels do
+    not take, naming each limit (ops/decode_block.kernel_shape_limits); the
+    CPU's plain versions take every shape."""
+    if on_card(device):
+        DB.refuse_kernel_shapes(what, heads, kv_heads, head_dim, page)
+
+
+# ---------------------------------------------------------------------------
+# vision tower
+# ---------------------------------------------------------------------------
+
+
+def patchify(images, patch: int):
+    """[B, H, W, 3] -> [B, n_patches, patch*patch*3]."""
+    b, h, w, c = images.shape
+    gh, gw = h // patch, w // patch
+    x = images.reshape(b, gh, patch, gw, patch, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, gh * gw, patch * patch * c)
+
+
+def encode_image(params, cfg: VLMConfig, images):
+    """[B, H, W, 3] float -> [B, n_patches, dim] image tokens (LM width), in
+    the compute dtype of the parameters' device. The vision blocks attend
+    through flash attention when ``layers.use_flash`` is on (the card's
+    default), else through the dense einsum."""
+    dev = params["embed"].device
+    dtype = L.compute_dtype(dev)
+    vp = params["vision"]
+    x = patchify(images.to(dev, dtype), cfg.patch_size)
+    x = x @ vp["patch_proj"].to(dtype)
+    x = x + vp["pos_embed"].to(dtype)[None]
+    flash = "full" if L.use_flash(dev) else None
+    for i in range(cfg.vision_layers):
+        x, _ = L.block_forward(vp["blocks"][str(i)], x, cfg.vision_heads, mask=None,
+                               flash=flash)
+    x = L.rms_norm(x, vp["out_norm"])
+    return x @ vp["project"].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# language model
+# ---------------------------------------------------------------------------
+
+
+def _rope(cfg: VLMConfig, device):
+    return L.rope_table(cfg.max_seq, cfg.head_dim, device=device)
+
+
+def _lm_forward(params, cfg: VLMConfig, h, positions, mask, caches=None,
+                cache_index=None, flash=None, rope=None):
+    """The LM blocks over h [B, T, dim], then the final norm. With
+    ``caches`` each layer writes its rows at ``cache_index`` in place.
+    Returns (h, caches or {})."""
+    rope = rope if rope is not None else _rope(cfg, h.device)
+    new_caches = {}
+    for i in range(cfg.layers):
+        h, new_cache = L.block_forward(
+            params["blocks"][str(i)], h, cfg.heads, n_kv_heads=cfg.kv_heads,
+            rope=rope, positions=positions, mask=mask,
+            cache=None if caches is None else caches[str(i)],
+            cache_index=cache_index, flash=flash,
+        )
+        if new_cache is not None:
+            new_caches[str(i)] = new_cache
+    return L.rms_norm(h, params["out_norm"]), new_caches
+
+
+def init_cache(cfg: VLMConfig, batch: int, dtype=None, device=None):
+    """Dense KV caches {layer: {k/v: [batch, KV, max_seq, hd]}}, zeroed, in
+    the compute dtype of ``device`` (default cuda)."""
+    dev = resolve_device(device)
+    dtype = dtype or L.compute_dtype(dev)
+    shape = (batch, cfg.kv_heads, cfg.max_seq, cfg.head_dim)
+    return {
+        str(i): {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        for i in range(cfg.layers)
+    }
+
+
+def _embed(params, ids):
+    embed = params["embed"]
+    return embed[ids.long().to(embed.device)].to(L.compute_dtype(embed.device))
+
+
+def prefill(params, cfg: VLMConfig, images, prompt_ids, rope=None):
+    """Encode image + prompt and fill fresh KV caches. Returns
+    (last_logits [B, vocab] f32, caches, next_position)."""
+    dev = params["embed"].device
+    b = prompt_ids.shape[0]
+    img_tokens = encode_image(params, cfg, images)  # [B, P, dim]
+    h = torch.cat([img_tokens, _embed(params, prompt_ids)], dim=1)
+    t = h.shape[1]
+    positions = torch.arange(t, device=dev).expand(b, t)
+    mask = L.causal_mask(t, cfg.max_seq, device=dev) & (
+        torch.arange(cfg.max_seq, device=dev)[None, None, None, :] < t)
+    caches = init_cache(cfg, b, device=dev)
+    h, caches = _lm_forward(params, cfg, h, positions, mask, caches=caches,
+                            cache_index=0, rope=rope)
+    logits = L.matmul(h[:, -1], params["lm_head"]).float()
+    return logits, caches, t
+
+
+def decode_step(params, cfg: VLMConfig, token, caches, position: int, rope=None):
+    """One unfused greedy decode step. token [B] int32 at cache position
+    ``position``. Returns (logits [B, vocab] f32, caches)."""
+    dev = params["embed"].device
+    b = token.shape[0]
+    h = _embed(params, token)[:, None, :]  # [B, 1, dim]
+    positions = torch.full((b, 1), int(position), device=dev)
+    mask = (torch.arange(cfg.max_seq, device=dev) <= position)[None, None, None, :]
+    h, caches = _lm_forward(params, cfg, h, positions, mask, caches=caches,
+                            cache_index=position, rope=rope)
+    return L.matmul(h[:, -1], params["lm_head"]).float(), caches
+
+
+def decode_step_fused(params, cfg: VLMConfig, token, caches, position: int, rope=None):
+    """One greedy decode step through the fused kernels (two per layer and
+    the head), caches updated in place. Requires :func:`fused_decode_ready`.
+    token [1] int32. Returns (next_token [1] int32, caches)."""
+    return decode_chunk_fused(params, cfg, token[:, None], caches, position, rope)
+
+
+def decode_chunk_fused(params, cfg: VLMConfig, tokens, caches, position: int, rope=None):
+    """M-row fused greedy pass: tokens [1, M] at positions
+    ``position..position+M-1`` (the speculative-verify shape: one weight
+    stream serves all rows). Returns (greedy [M] int32, greedy[i]
+    continuing the prefix through row i, and the caches, updated in place).
+    The caller keeps ``position + M <= max_seq``."""
+    cos_t, sin_t = rope if rope is not None else _rope(cfg, params["embed"].device)
+    m = tokens.shape[1]
+    cos_rows, sin_rows = DB.rope_rows(cos_t, sin_t, position, m)
+    return fused_decode_pass(
+        params, _embed(params, tokens[0]), caches, position, cos_rows, sin_rows,
+        heads=cfg.heads, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
+        layers=cfg.layers,
+    )
+
+
+def _refuse_for_generation(what: str, params, cfg: VLMConfig, fused: bool) -> None:
+    """On the card, refuse before any work a model whose shapes a kernel of
+    this generation would refuse: the vision tower's flash attention (when
+    ``use_flash``) and the fused decode tier's attention kernels."""
+    dev = params["embed"].device
+    if not on_card(dev):
+        return
+    limits = FA.kernel_shape_limits(cfg.vision_head_dim) if L.use_flash(dev) else []
+    if fused:
+        limits += DB.kernel_shape_limits(cfg.heads, cfg.kv_heads, cfg.head_dim)
+    if limits:
+        raise ValueError(f"{what}: " + "; ".join(limits))
+
+
+def generate(params, cfg: VLMConfig, images, prompt_ids, max_new_tokens: int):
+    """Greedy generation of ``max_new_tokens`` per row, as a host loop of
+    decode steps (the JAX package scans). Returns [B, max_new_tokens]
+    int32. Each step is the fused batch-1 pass when
+    :func:`fused_decode_ready` allows (B = 1, the quantized layout,
+    ``DORA_FUSED_DECODE`` not 0), else the unfused blocks."""
+    b, t = prompt_ids.shape
+    if cfg.n_patches + t + max_new_tokens > cfg.max_seq:
+        raise ValueError(
+            f"image ({cfg.n_patches}) + prompt ({t}) + max_new_tokens "
+            f"({max_new_tokens}) exceeds max_seq ({cfg.max_seq})")
+    use_fused = fused_decode_ready(params, b)
+    _refuse_for_generation("vlm.generate", params, cfg, use_fused)
+    rope = _rope(cfg, params["embed"].device)
+    logits, caches, position = prefill(params, cfg, images, prompt_ids, rope)
+    token = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = [token]
+    # Token j + 1 comes from the step at position + j; the last token needs
+    # no step after it.
+    for pos in range(position, position + max_new_tokens - 1):
+        if use_fused:
+            token, caches = decode_step_fused(params, cfg, token, caches, pos, rope)
+        else:
+            logits, caches = decode_step(params, cfg, token, caches, pos, rope)
+            token = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(token)
+    return torch.stack(out, dim=1)
+
+
+def decode_batch_fused(params, cfg: VLMConfig, tokens, caches, positions, rope=None):
+    """One greedy decode step for B independent rows: tokens and positions
+    [B] int32 (each row's own cache position), caches the [B, KV, S, hd]
+    per-layer tree. One LM weight stream serves all B rows
+    (``attention_batch_step``). Returns (greedy [B], caches)."""
+    cos_t, sin_t = rope if rope is not None else _rope(cfg, params["embed"].device)
+    cos_rows, sin_rows = DB.rope_rows_at(cos_t, sin_t, positions)
+    return fused_decode_pass_batch(
+        params, _embed(params, tokens), caches, positions, cos_rows, sin_rows,
+        heads=cfg.heads, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
+        layers=cfg.layers,
+    )
+
+
+def generate_speculative(params, cfg: VLMConfig, images, prompt_ids,
+                         max_new_tokens: int, k: int = 4, ngram: int = 2):
+    """Greedy generation with prompt-lookup speculation: the tokens of
+    :func:`generate`, up to ``k + 1`` of them per model pass. Drafts are the
+    continuation of the most recent earlier occurrence of the trailing
+    ``ngram`` in the prompt text and the generated tokens; each pass
+    verifies the last token and its drafts in one weight stream (the fused
+    ``attention_chunk_step`` tier when :func:`fused_decode_ready`, else the
+    unfused blocks), and rejected rows of the cache are overwritten by the
+    next pass before they become attendable. Batch 1. Returns (tokens
+    [1, max_new_tokens] int32, model passes)."""
+    from dora_tpu_torch.models import spec_decode
+
+    if prompt_ids.shape[0] != 1:
+        raise ValueError("speculative decode is batch-1")
+    t_prompt = prompt_ids.shape[1]
+    seq = cfg.max_seq
+    # Exactness guard: the loop must never hit the context limit with tokens
+    # still owed. Context = image patches + prompt text.
+    spec_decode.check_headroom(cfg.n_patches + t_prompt, max_new_tokens, seq, "prompt", k)
+    use_fused = fused_decode_ready(params)
+    _refuse_for_generation("vlm.generate_speculative", params, cfg, use_fused)
+    dev = params["embed"].device
+    rope = _rope(cfg, dev)
+    logits, caches, position = prefill(params, cfg, images, prompt_ids, rope)
+    first = torch.argmax(logits, dim=-1).to(torch.int32)  # [1]
+    # Rolling token history for the lookup (prompt text + generated).
+    history = torch.zeros((seq,), dtype=torch.int32, device=dev)
+    history[:t_prompt] = prompt_ids[0].to(dev, torch.int32)
+    history[t_prompt] = first[0]
+
+    def verify(chunk, n_emitted, caches):
+        # generated token j lives at cache position `position + j`;
+        # chunk[0, 0] is generated index n_emitted - 1.
+        cache_index = position + n_emitted - 1
+        if use_fused:
+            return decode_chunk_fused(params, cfg, chunk, caches, cache_index, rope)
+        chunk_pos = cache_index + torch.arange(chunk.shape[1], device=dev)
+        mask = (torch.arange(seq, device=dev)[None, None, None, :]
+                <= chunk_pos[None, None, :, None])
+        h, new_caches = _lm_forward(params, cfg, _embed(params, chunk), chunk_pos[None],
+                                    mask, caches=caches, cache_index=cache_index, rope=rope)
+        greedy = torch.argmax(L.matmul(h[0], params["lm_head"]).float(), dim=-1)
+        return greedy.to(torch.int32), new_caches
+
+    return spec_decode.run_loop(
+        caches=caches, history=history, hist_len=t_prompt + 1, first=first[0],
+        max_new_tokens=max_new_tokens, seq=seq, verify=verify, k=k, ngram=ngram,
+        body=spec_decode.fitting_body_passes(cfg.n_patches + t_prompt, max_new_tokens,
+                                             seq, k),
+    )
+
+
+# ---------------------------------------------------------------------------
+# the fused tier
+# ---------------------------------------------------------------------------
 
 
 def _qw(d: dict):

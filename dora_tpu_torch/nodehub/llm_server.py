@@ -21,7 +21,10 @@ Usage::
 ``prompts.json`` is a JSON list of token-id lists. Weights come from the
 checkpoint directory in ``DORA_HF_CHECKPOINT`` (``DORA_MAX_SEQ`` caps the
 context), or are seeded random at a named config with ``--random-config``.
-One JSON line per request goes to stdout.
+With a checkpoint, a stream ends at the tokenizer's end-of-turn token (the
+first of :data:`EOS_NAMES` among its added tokens, as the JAX server picks
+it) or at ``--max-new``; seeded random weights have no tokenizer and run to
+``--max-new``. One JSON line per request goes to stdout.
 """
 
 from __future__ import annotations
@@ -32,6 +35,19 @@ import os
 import sys
 import time
 from collections import deque
+
+
+#: end-of-turn tokens a checkpoint's tokenizer may carry, in the order of
+#: preference of dora_tpu/nodehub/llm_server.py's main
+EOS_NAMES = ("<|im_end|>", "<|endoftext|>", "</s>", "<|eot_id|>")
+
+
+def eos_token(tok) -> int | None:
+    """The id of the first of :data:`EOS_NAMES` among the added tokens of
+    ``tok`` (a models/tokenizer.BPETokenizer, or None: no tokenizer)."""
+    if tok is None:
+        return None
+    return next((tok.added[name] for name in EOS_NAMES if name in tok.added), None)
 
 
 def make_engine(params, cfg, eos=None, device=None):
@@ -131,19 +147,23 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     max_seq = int(os.environ.get("DORA_MAX_SEQ", "2048"))
+    eos = None
     if args.random_config:
         cfg = qwen2.CONFIGS[args.random_config](max_seq=max_seq)
         params = qwen2.random_params(cfg, seed=args.seed, device=args.device)
     else:
+        from dora_tpu_torch.nodehub.ops import _hf_tokenizer
+
         path = os.environ.get("DORA_HF_CHECKPOINT")
         if not path:
             ap.error("set DORA_HF_CHECKPOINT or pass --random-config")
         cfg, params = qwen2.load(path, max_seq=max_seq, device=args.device)
+        eos = eos_token(_hf_tokenizer(path))
     params = qwen2.quantize_decode(params, cfg)
 
     with open(args.prompts) as f:
         prompts = [[int(t) for t in p] for p in json.load(f)]
-    engine = make_engine(params, cfg, device=args.device)
+    engine = make_engine(params, cfg, eos=eos, device=args.device)
     out, ttft = serve_prompts(engine, prompts, args.max_new)
     for i in range(len(prompts)):
         print(json.dumps({"id": i, "ttft_s": ttft.get(i), "tokens": out[i]}))

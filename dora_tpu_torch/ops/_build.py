@@ -31,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 #: one shared library per kernel family
-SOURCES = ("mlp", "lm_head", "paged_attention", "lora", "int8_matmul")
+SOURCES = ("mlp", "lm_head", "paged_attention", "lora", "int8_matmul", "flash_attention")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -48,26 +48,24 @@ _SIGNATURES = {
     "paged_attention": {
         "dora_gemm_splits": [_I, _I, _I],
         "dora_attention_paged_batch_step":
-            [_P] * 16 + [_I] * 6 + [_F] * 2 + [_P] * 7,
+            [_P] * 16 + [_I] * 8 + [_F] * 2 + [_P] * 7,
         "dora_attention_paged_chunk_step":
-            [_P] * 13 + [_I] + [_P] * 2 + [_I] * 5 + [_F] * 2 + [_P] * 7,
+            [_P] * 13 + [_I] + [_P] * 2 + [_I] * 7 + [_F] * 2 + [_P] * 7,
         "dora_attention_paged_spec_step":
-            [_P] * 16 + [_I] * 7 + [_F] * 2 + [_P] * 7,
+            [_P] * 16 + [_I] * 9 + [_F] * 2 + [_P] * 7,
         "dora_attention_dense_step":
-            [_P] * 12 + [_I] + [_P] + [_I] * 6 + [_F] * 2 + [_P] * 7,
+            [_P] * 12 + [_I] + [_P] + [_I] * 7 + [_F] * 2 + [_P] * 7,
         "dora_attention_dense_chunk_step":
-            [_P] * 11 + [_I] + [_P] + [_I] * 6 + [_F] * 2 + [_P] * 7,
+            [_P] * 11 + [_I] + [_P] + [_I] * 7 + [_F] * 2 + [_P] * 7,
     },
 }
 
-#: shapes the attention kernels are written for
-KERNEL_HEAD_DIM = 128
-KERNEL_PAGE = 16
-KERNEL_MAX_GROUP = 8
-KERNEL_MAX_QKV_HEADS = 32
-#: the spec kernel (and the dense chunk kernel, which shares its sweep) holds
-#: m candidate rows x the group's heads in one block
-KERNEL_SPEC_MAX_ROWS = 64
+#: head_dims the attention kernels are built for (csrc/paged_attention.cu
+#: instantiates each); any other is refused
+KERNEL_HEAD_DIMS = (64, 128)
+#: the sweeps step 16 rows at a time inside one page, so pool pages are
+#: multiples of this
+KERNEL_PAGE_MULTIPLE = 16
 
 
 def _lib(name: str, lib=None):
@@ -226,16 +224,33 @@ def _int8_weight(w: torch.Tensor, name: str, k: int, n: int, device) -> None:
         raise ValueError(f"{name}: the kernel reads 16-byte rows; the weight must be 16-byte aligned")
 
 
-def _attn_shapes(heads: int, kv_heads: int, head_dim: int, page: int = KERNEL_PAGE) -> None:
-    if head_dim != KERNEL_HEAD_DIM or page != KERNEL_PAGE:
-        raise ValueError(
-            f"attention kernels take head_dim {KERNEL_HEAD_DIM} and page "
-            f"{KERNEL_PAGE}, got {head_dim} and {page}"
-        )
-    if heads % kv_heads or heads // kv_heads > KERNEL_MAX_GROUP:
-        raise ValueError(f"attention kernels take groups <= {KERNEL_MAX_GROUP}, got {heads}/{kv_heads}")
-    if heads + 2 * kv_heads > KERNEL_MAX_QKV_HEADS:
-        raise ValueError(f"attention kernels take <= {KERNEL_MAX_QKV_HEADS} q+k+v heads")
+def kernel_shape_limits(heads: int, kv_heads: int, head_dim: int,
+                        page: int | None = None) -> list[str]:
+    """The limits of the attention kernels that a model of these shapes (and
+    a paged pool of ``page`` rows) runs into, each named; empty when the
+    kernels take it. The engine factories refuse a model with any of them on
+    the card before serving, and every kernel wrapper raises on them."""
+    out = []
+    if head_dim not in KERNEL_HEAD_DIMS:
+        out.append(f"head_dim {head_dim}: the attention kernels take head_dim "
+                   f"{' or '.join(map(str, KERNEL_HEAD_DIMS))}")
+    if kv_heads < 1 or heads % kv_heads:
+        out.append(f"{heads} query heads over {kv_heads} kv heads: the attention kernels "
+                   f"take whole groups")
+    if page is not None and (page < 1 or page % KERNEL_PAGE_MULTIPLE):
+        out.append(f"page {page}: the paged attention kernels take pages that are "
+                   f"multiples of {KERNEL_PAGE_MULTIPLE}")
+    return out
+
+
+def refuse_kernel_shapes(what: str, heads: int, kv_heads: int, head_dim: int,
+                         page: int | None = None) -> None:
+    """Raise, naming each limit, if ``what`` would launch an attention kernel
+    at a shape it does not take."""
+    limits = kernel_shape_limits(heads, kv_heads, head_dim, page)
+    if limits:
+        raise ValueError(f"{what}: " + "; ".join(limits))
+
 
 
 # ---------------------------------------------------------------------------
@@ -514,7 +529,7 @@ def _attention_paged_batch_step_kernel(
     n_qkv = (heads + 2 * kv_heads) * head_dim
     max_pages = block_tables.shape[1]
     q8 = _kv_mode(k_pool, k_scale, v_scale)
-    _attn_shapes(heads, kv_heads, head_dim, page)
+    refuse_kernel_shapes("attention kernel", heads, kv_heads, head_dim, page)
     _need(x, "x", torch.bfloat16, (b, d), dev)
     _int8_weight(wqkv, "wqkv", d, n_qkv, dev)
     _int8_weight(wo, "wo", heads * head_dim, d, dev)
@@ -538,9 +553,10 @@ def _attention_paged_batch_step_kernel(
         cos_rows.data_ptr(), sin_rows.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), wo.data_ptr(),
         so.data_ptr(), positions.data_ptr(), block_tables.data_ptr(),
-        out.data_ptr(), int(residual), b, d, heads, kv_heads, max_pages, eps,
-        1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(),
-        kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), _build.stream_of(x),
+        out.data_ptr(), int(residual), b, d, heads, kv_heads, head_dim, page,
+        max_pages, eps, 1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(),
+        q.data_ptr(), kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(),
+        _build.stream_of(x),
     )
     _count(attention_paged_batch_step, q8)
     _build.check(rc, "attention_paged_batch_step")
@@ -626,7 +642,7 @@ def _attention_paged_chunk_step_kernel(
     n_qkv = (heads + 2 * kv_heads) * head_dim
     pos = int(position)
     q8 = _kv_mode(k_pool, k_scale, v_scale)
-    _attn_shapes(heads, kv_heads, head_dim, page)
+    refuse_kernel_shapes("attention kernel", heads, kv_heads, head_dim, page)
     if pos % page or m % page:
         raise ValueError(f"chunk position {pos} and rows {m} must be multiples of page {page}")
     if pos + m > block_table.shape[0] * page:
@@ -665,9 +681,9 @@ def _attention_paged_chunk_step_kernel(
         cos_rows.data_ptr(), sin_rows.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), wo.data_ptr(),
         so.data_ptr(), pos, block_table.data_ptr(), out.data_ptr(),
-        int(residual), m, d, heads, kv_heads, eps, 1.0 / (head_dim ** 0.5),
-        h.data_ptr(), p.data_ptr(), q.data_ptr(), _ptr(kcur), _ptr(vcur),
-        attn.data_ptr(), _build.stream_of(x),
+        int(residual), m, d, heads, kv_heads, head_dim, page, eps,
+        1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(), _ptr(kcur),
+        _ptr(vcur), attn.data_ptr(), _build.stream_of(x),
     )
     _count(attention_paged_chunk_step, q8)
     _build.check(rc, "attention_paged_chunk_step")
@@ -756,12 +772,9 @@ def _attention_paged_spec_step_kernel(
     n_pages, _, page, _ = k_pool.shape
     n_qkv = (heads + 2 * kv_heads) * head_dim
     q8 = _kv_mode(k_pool, k_scale, v_scale)
-    _attn_shapes(heads, kv_heads, head_dim, page)
-    if not 1 <= m <= page:
-        raise ValueError(f"spec kernel takes 1 <= m <= page {page} candidate rows, got {m}")
-    if m * (heads // kv_heads) > KERNEL_SPEC_MAX_ROWS:
-        raise ValueError(f"spec kernel takes m * group <= {KERNEL_SPEC_MAX_ROWS}, "
-                         f"got {m} * {heads // kv_heads}")
+    refuse_kernel_shapes("attention kernel", heads, kv_heads, head_dim, page)
+    if m < 1:
+        raise ValueError(f"spec kernel takes m >= 1 candidate rows, got {m}")
     if bm % m or positions.shape != (bm // m,):
         raise ValueError(f"x has {bm} rows: expected m = {m} rows for each of the "
                          f"{tuple(positions.shape)} positions")
@@ -790,9 +803,10 @@ def _attention_paged_spec_step_kernel(
         cos_rows.data_ptr(), sin_rows.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), wo.data_ptr(),
         so.data_ptr(), positions.data_ptr(), block_tables.data_ptr(),
-        out.data_ptr(), int(residual), b, m, d, heads, kv_heads, max_pages, eps,
-        1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(),
-        kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), _build.stream_of(x),
+        out.data_ptr(), int(residual), b, m, d, heads, kv_heads, head_dim, page,
+        max_pages, eps, 1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(),
+        q.data_ptr(), kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(),
+        _build.stream_of(x),
     )
     _count(attention_paged_spec_step, q8)
     _build.check(rc, "attention_paged_spec_step")
@@ -855,7 +869,7 @@ def _dense_kernel_args(x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_cache,
     rows, d = x.shape
     n_qkv = (heads + 2 * kv_heads) * head_dim
     seq = k_cache.shape[-2]
-    _attn_shapes(heads, kv_heads, head_dim)
+    refuse_kernel_shapes("attention kernel", heads, kv_heads, head_dim)
     _need(x, "x", torch.bfloat16, (rows, d), dev)
     _int8_weight(wqkv, "wqkv", d, n_qkv, dev)
     _int8_weight(wo, "wo", heads * head_dim, d, dev)
@@ -910,7 +924,7 @@ def _attention_batch_step_kernel(
         x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(), _ptr(bq),
         cos_rows.data_ptr(), sin_rows.data_ptr(), k_caches.data_ptr(),
         v_caches.data_ptr(), wo.data_ptr(), so.data_ptr(), positions.data_ptr(), 0,
-        out.data_ptr(), int(residual), b, d, heads, kv_heads, seq, eps,
+        out.data_ptr(), int(residual), b, d, heads, kv_heads, head_dim, seq, eps,
         1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(),
         kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), _build.stream_of(x),
     )
@@ -976,7 +990,7 @@ def _attention_step_kernel(
         x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(), _ptr(bq),
         cos_full.data_ptr(), sin_signed.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), wo.data_ptr(), so.data_ptr(), None, pos,
-        out.data_ptr(), int(residual), 1, d, heads, kv_heads, seq, eps,
+        out.data_ptr(), int(residual), 1, d, heads, kv_heads, head_dim, seq, eps,
         1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(),
         kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), _build.stream_of(x),
     )
@@ -1034,11 +1048,8 @@ def _attention_chunk_step_kernel(
     if k_cache.dim() != 3:
         raise ValueError(f"attention_chunk_step takes [KV, S, hd] caches, got "
                          f"{tuple(k_cache.shape)}")
-    if not 1 <= m <= KERNEL_PAGE:
-        raise ValueError(f"chunk kernel takes 1 <= M <= {KERNEL_PAGE} rows, got {m}")
-    if m * (heads // max(kv_heads, 1)) > KERNEL_SPEC_MAX_ROWS:
-        raise ValueError(f"chunk kernel takes M * group <= {KERNEL_SPEC_MAX_ROWS}, "
-                         f"got {m} * {heads // kv_heads}")
+    if m < 1:
+        raise ValueError(f"chunk kernel takes M >= 1 rows, got {m}")
     rows, d, seq, nw, sq, bq, so = _dense_kernel_args(
         x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_cache, v_cache, wo, swo,
         heads=heads, kv_heads=kv_heads, head_dim=head_dim, streams=1)
@@ -1052,7 +1063,7 @@ def _attention_chunk_step_kernel(
         x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(), _ptr(bq),
         cos_rows.data_ptr(), sin_rows.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), wo.data_ptr(), so.data_ptr(), pos, out.data_ptr(),
-        int(residual), m, d, heads, kv_heads, seq, eps, 1.0 / (head_dim ** 0.5),
+        int(residual), m, d, heads, kv_heads, head_dim, seq, eps, 1.0 / (head_dim ** 0.5),
         h.data_ptr(), p.data_ptr(), q.data_ptr(), kcur.data_ptr(), vcur.data_ptr(),
         attn.data_ptr(), _build.stream_of(x),
     )

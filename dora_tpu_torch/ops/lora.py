@@ -32,8 +32,20 @@ _SIGNATURES = {
 }
 
 #: what the kernel takes (csrc/lora.cu: LMAXR, LMAXD)
-KERNEL_MAX_RANK = 128
+KERNEL_MAX_RANK = 256
 KERNEL_MAX_DIM = 8192
+
+
+def kernel_shape_limits(rank: int, dim: int) -> list[str]:
+    """The kernel's limits that adapters of ``rank`` on a model of width
+    ``dim`` run into, each named; empty when the kernel takes them. The
+    engine factory refuses such a catalog on the card before serving."""
+    out = []
+    if not 1 <= rank <= KERNEL_MAX_RANK:
+        out.append(f"LoRA rank {rank}: the lora kernel takes rank 1..{KERNEL_MAX_RANK}")
+    if dim > KERNEL_MAX_DIM:
+        out.append(f"model width {dim}: the lora kernel takes width <= {KERNEL_MAX_DIM}")
+    return out
 
 
 def _check_groups(groups: torch.Tensor, slots: int) -> None:
@@ -83,9 +95,9 @@ def _lora_gather_matmul_kernel(x, groups, a_stack, b_stack, lib=None):
         raise ValueError("x, groups and the stacks must lie on one device")
     if b_stack.shape[0] != slots:
         raise ValueError(f"A has {slots} slots, B {b_stack.shape[0]}")
-    if not 1 <= rank <= KERNEL_MAX_RANK or d > KERNEL_MAX_DIM:
-        raise ValueError(f"lora kernel takes rank 1..{KERNEL_MAX_RANK} and width <= "
-                         f"{KERNEL_MAX_DIM}, got {rank} and {d}")
+    limits = kernel_shape_limits(rank, d)
+    if limits:
+        raise ValueError("lora kernel: " + "; ".join(limits))
     a_slot = _slab_stride(a_stack, "a_stack", (d, rank))
     b_slot = _slab_stride(b_stack, "b_stack", (rank, n))
     if not x.is_cuda:

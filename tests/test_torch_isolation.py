@@ -19,13 +19,21 @@ def test_port_imports_no_jax_and_no_dora_tpu():
         "names = [m.name for m in pkgutil.walk_packages(dora_tpu_torch.__path__, 'dora_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dora_tpu'))\n"
-        "assert len(names) >= 18, names\n"
+        "assert len(names) >= 21, names\n"
         "assert {'dora_tpu_torch.ops.lora', 'dora_tpu_torch.models.lora_pool',\n"
-        "        'dora_tpu_torch.models.spec_decode', 'dora_tpu_torch.ops.int8_matmul'} <= set(names)\n"
+        "        'dora_tpu_torch.models.spec_decode', 'dora_tpu_torch.ops.int8_matmul',\n"
+        "        'dora_tpu_torch.models.tokenizer', 'dora_tpu_torch.nodehub.ops',\n"
+        "        'dora_tpu_torch.ops.flash_attention'} <= set(names)\n"
+        "from dora_tpu_torch.models import tokenizer, vlm\n"
+        "from dora_tpu_torch.nodehub import ops\n"
+        "from dora_tpu_torch.ops import flash_attention\n"
+        "assert callable(tokenizer.BPETokenizer) and callable(ops._hf_tokenizer)\n"
+        "assert callable(flash_attention.flash_attention) and callable(vlm.generate_speculative)\n"
         "from dora_tpu_torch.models import spec_decode, batch_engine\n"
         "from dora_tpu_torch.ops import int8_matmul, decode_block\n"
         "assert all(callable(getattr(spec_decode, f)) for f in ('run_loop', 'body_passes',\n"
-        "           'fitting_body_passes', 'check_headroom', 'spec_headroom', 'lookup'))\n"
+        "           'fitting_body_passes', 'check_headroom', 'spec_headroom', 'lookup',\n"
+        "           'fits', 'gate_speculation'))\n"
         "assert callable(batch_engine.BatchEngine) and callable(int8_matmul.int8_matmul)\n"
         "assert callable(decode_block.attention_chunk_step)\n"
         "print(len(names), bad)\n"

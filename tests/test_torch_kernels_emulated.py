@@ -1,10 +1,16 @@
 """The CUDA kernels' sources, built for the host (csrc/emu/: one OS thread
 per CUDA thread, blocks in turn) and held against their plain PyTorch
-versions on the CPU, in bf16 at small sizes with the kernels' own head_dim
-128 and page 16: the four kernels of the fp serving path, the speculative
-verify kernel, the int8-KV forms of the three attention kernels, the LoRA
-gather-matmul, the int8 product and the three attention kernels over dense
-caches (the dense engine's decode, batch-1 decode and its verify).
+versions on the CPU, in bf16 at small sizes: the four kernels of the fp
+serving path, the speculative verify kernel, the int8-KV forms of the three
+attention kernels, the LoRA gather-matmul, the int8 product, the three
+attention kernels over dense caches (the dense engine's decode, batch-1
+decode and its verify) and flash attention. The attention kernels run at
+head_dim 128 and page 16, and again at the widened shapes: head_dim 64 at
+Qwen2-0.5B's 14 / 2 heads, page 32, Qwen2-7B's 28 / 4 heads (36 q + k + v
+heads), a group of 10 (two head tiles), and verify chunks of m x group =
+66 rows (two row tiles) and of 20 rows (two fold tiles); the LoRA kernel
+also at rank 256; flash attention at D 16 and 80, full and causal, with T
+off its tiles and transposed (strided) inputs.
 
 This checks the kernels' indexing, masking and reductions without a card;
 it says nothing of how they compile or run on one (chip_smoke.py does).
@@ -49,6 +55,7 @@ import torch
 
 from dora_tpu_torch.ops import _build
 from dora_tpu_torch.ops import decode_block as DB
+from dora_tpu_torch.ops import flash_attention as FA
 from dora_tpu_torch.ops import int8_matmul as IM
 from dora_tpu_torch.ops import lora as LO
 from dora_tpu_torch.ops.int8_matmul import quantize_int8
@@ -70,8 +77,9 @@ _KERNELS = {
     "attention_batch_step": (DB, "_attention_batch_step_kernel", "paged_attention"),
     "attention_step": (DB, "_attention_step_kernel", "paged_attention"),
     "attention_chunk_step": (DB, "_attention_chunk_step_kernel", "paged_attention"),
+    "flash_attention": (FA, "_flash_attention_kernel", "flash_attention"),
 }
-_SIGNATURES = {**DB._SIGNATURES, **LO._SIGNATURES, **IM._SIGNATURES}
+_SIGNATURES = {**DB._SIGNATURES, **LO._SIGNATURES, **IM._SIGNATURES, **FA._SIGNATURES}
 
 
 # ---------------------------------------------------------------------------
@@ -354,7 +362,8 @@ def test_paged_chunk_kernel_matches_plain(emu, position):
 
 def test_kernel_wrappers_refuse_shapes_the_kernels_do_not_take():
     x = torch.zeros((2, 64), dtype=BF)
-    with pytest.raises(ValueError, match="head_dim 128 and page 16"):
+    with pytest.raises(ValueError, match="head_dim 16: .* take head_dim 64 or 128; "
+                                         "page 8: .* multiples of 16"):
         DB._attention_paged_batch_step_kernel(
             x, None, None, None, None, None, None,
             torch.zeros((3, 2, 8, 16), dtype=BF), None, None, None, None,
@@ -410,25 +419,144 @@ def test_paged_spec_kernel_matches_plain(emu):
 
 
 def test_spec_wrapper_refuses_shapes_the_kernel_does_not_take():
+    """Pages that are not multiples of the 16-row sweep tile, groups that do
+    not divide the query heads, rows that are not m per stream and other
+    dtypes raise; any m and any m x group run (the sweep tiles both)."""
     x = torch.zeros((10, 64), dtype=BF)
     pools = torch.zeros((3, 2, 16, 128), dtype=BF)
     pos = torch.zeros((2,), dtype=torch.int32)
     bt = torch.zeros((2, 4), dtype=torch.int32)
 
-    def call(x, pos, m, heads=4):
+    def call(x, pos, m, heads=4, pools=pools):
         DB._attention_paged_spec_step_kernel(
             x, None, None, None, None, None, None, pools, pools, None, None,
             pos, bt, heads=heads, kv_heads=2, head_dim=128, m=m, eps=1e-6,
             residual=True, lib=object())
 
-    with pytest.raises(ValueError, match="m <= page"):
-        call(torch.zeros((34, 64), dtype=BF), pos, 17)
-    with pytest.raises(ValueError, match="m \\* group"):
-        call(torch.zeros((20, 64), dtype=BF), pos, 10, heads=16)
+    with pytest.raises(ValueError, match="page 24: .* multiples of 16"):
+        call(torch.zeros((34, 64), dtype=BF), pos, 17,
+             pools=torch.zeros((3, 2, 24, 128), dtype=BF))
+    with pytest.raises(ValueError, match="5 query heads over 2 kv heads: .* whole groups"):
+        call(torch.zeros((20, 64), dtype=BF), pos, 10, heads=5)
     with pytest.raises(ValueError, match="rows for each"):
         call(x, torch.zeros((3,), dtype=torch.int32), 5)
     with pytest.raises(ValueError, match="dtype"):
         call(x.float(), pos, 5)
+
+
+# ---------------------------------------------------------------------------
+# the widened shapes: head_dim 64, page 32, many heads, long verify chunks
+# ---------------------------------------------------------------------------
+
+#: case -> (heads, kv_heads, head_dim, page)
+WIDE = {
+    "qwen2_0_5b_hd64": (14, 2, 64, 16),
+    "page32": (4, 2, 128, 32),
+    "qwen2_7b_36_heads": (28, 4, 128, 16),
+    "group10_hd64": (20, 2, 64, 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_widened_paged_batch_kernel_matches_plain(emu, case):
+    h, kv, hd, page = WIDE[case]
+    rng = np.random.default_rng(60)
+    head, tail, shape, written = _batch_case(rng, h=h, kv=kv, hd=hd, page=page)
+    kp = _t(rng.standard_normal(shape) * 0.5, BF)
+    vp = _t(rng.standard_normal(shape) * 0.5, BF)
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd)
+    want, k1, v1 = DB.attention_paged_batch_step_plain(
+        *head, kp.clone(), vp.clone(), *tail, **kw)
+    got, k2, v2 = emu.call("attention_paged_batch_step", *head, kp.clone(), vp.clone(),
+                           *tail, eps=1e-6, residual=True, **kw)
+    assert _rel(got, want) <= 1e-2
+    assert _rel(k2[1:], k1[1:]) <= 1e-2 and _rel(v2[1:], v1[1:]) <= 1e-2
+    assert torch.equal(k2[~written], kp[~written])
+    assert torch.equal(v2[~written], vp[~written])
+
+
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_widened_paged_chunk_kernel_matches_plain(emu, case):
+    """A 32-row chunk after two pages of prior context."""
+    h, kv, hd, page = WIDE[case]
+    rng = np.random.default_rng(61)
+    position = 2 * page
+    head, tail, shape, written = _chunk_case(rng, position, h=h, kv=kv, hd=hd, page=page)
+    kp = _t(rng.standard_normal(shape) * 0.5, BF)
+    vp = _t(rng.standard_normal(shape) * 0.5, BF)
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd)
+    want, k1, v1 = DB.attention_paged_chunk_step_plain(
+        *head, kp.clone(), vp.clone(), *tail, **kw)
+    got, k2, v2 = emu.call("attention_paged_chunk_step", *head, kp.clone(), vp.clone(),
+                           *tail, eps=1e-6, residual=True, **kw)
+    assert _rel(got, want) <= 1e-2
+    assert _rel(k2, k1) <= 1e-2 and _rel(v2, v1) <= 1e-2
+    others = ~written[:, 0, 0]
+    assert torch.equal(k2[others], kp[others])
+
+
+#: case -> (heads, kv_heads, head_dim, page, m)
+WIDE_SPEC = {
+    **{c: (*shape, 5) for c, shape in WIDE.items()},
+    "m11_group6_66_rows": (12, 2, 128, 16, 11),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_SPEC))
+def test_widened_paged_spec_kernel_matches_plain(emu, case):
+    h, kv, hd, page, m = WIDE_SPEC[case]
+    rng = np.random.default_rng(62)
+    head, tail, shape, written = _spec_case(rng, m=m, h=h, kv=kv, hd=hd, page=page)
+    kp = _t(rng.standard_normal(shape) * 0.5, BF)
+    vp = _t(rng.standard_normal(shape) * 0.5, BF)
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd, m=m)
+    want, k1, v1 = DB.attention_paged_spec_step_plain(
+        *head, kp.clone(), vp.clone(), *tail, **kw)
+    got, k2, v2 = emu.call("attention_paged_spec_step", *head, kp.clone(), vp.clone(),
+                           *tail, eps=1e-6, residual=True, **kw)
+    assert _rel(got, want) <= 1e-2
+    assert _rel(k2[1:], k1[1:]) <= 1e-2 and _rel(v2[1:], v1[1:]) <= 1e-2
+    assert torch.equal(k2[~written], kp[~written])
+    assert torch.equal(v2[~written], vp[~written])
+
+
+@pytest.mark.parametrize("case", ("qwen2_0_5b_hd64", "page32"))
+def test_widened_int8kv_kernels_match_plain(emu, case):
+    """The int8-KV forms of the batch, chunk and spec kernels at head_dim 64
+    (the row scales reduce over 64 threads) and at page 32."""
+    h, kv, hd, page = WIDE[case]
+    rng = np.random.default_rng(63)
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd)
+    head, tail, shape, written = _batch_case(rng, h=h, kv=kv, hd=hd, page=page)
+    pools = _int8_pools(rng, shape)
+    want, *pw = DB.attention_paged_batch_step_plain(
+        *head, pools[0].clone(), pools[1].clone(), *tail, pools[2].clone(),
+        pools[3].clone(), **kw)
+    got, *pg = emu.call("attention_paged_batch_step", *head, pools[0].clone(),
+                        pools[1].clone(), *tail, pools[2].clone(), pools[3].clone(),
+                        eps=1e-6, residual=True, **kw)
+    assert _rel(got, want) <= 1e-2
+    _check_int8_writes(pg, pw, pools, written, f"batch int8 KV, {case}")
+    head, tail, shape, written = _chunk_case(rng, 2 * page, h=h, kv=kv, hd=hd, page=page)
+    pools = _int8_pools(rng, shape)
+    want, *pw = DB.attention_paged_chunk_step_plain(
+        *head, pools[0].clone(), pools[1].clone(), *tail, pools[2].clone(),
+        pools[3].clone(), **kw)
+    got, *pg = emu.call("attention_paged_chunk_step", *head, pools[0].clone(),
+                        pools[1].clone(), *tail, pools[2].clone(), pools[3].clone(),
+                        eps=1e-6, residual=True, **kw)
+    assert _rel(got, want) <= 1e-2
+    _check_int8_writes(pg, pw, pools, written, f"chunk int8 KV, {case}")
+    head, tail, shape, written = _spec_case(rng, h=h, kv=kv, hd=hd, page=page)
+    pools = _int8_pools(rng, shape)
+    want, *pw = DB.attention_paged_spec_step_plain(
+        *head, pools[0].clone(), pools[1].clone(), *tail, pools[2].clone(),
+        pools[3].clone(), m=5, **kw)
+    got, *pg = emu.call("attention_paged_spec_step", *head, pools[0].clone(),
+                        pools[1].clone(), *tail, pools[2].clone(), pools[3].clone(),
+                        eps=1e-6, residual=True, m=5, **kw)
+    assert _rel(got, want) <= 1e-2
+    _check_int8_writes(pg, pw, pools, written, f"spec int8 KV, {case}")
 
 
 # ---------------------------------------------------------------------------
@@ -515,6 +643,19 @@ def test_lora_kernel_matches_plain(emu, rows):
     assert _rel(got, want) <= 1e-2
     base = groups == 0
     assert bool(base.any()) and not got[base].float().any()
+
+
+def test_lora_kernel_matches_plain_at_rank_256(emu):
+    """The largest rank the kernel takes: one thread per column of t."""
+    rng = np.random.default_rng(256)
+    x, groups, a, b = _lora_case(rng, 9, rank=256)
+    want = LO.lora_gather_matmul_plain(x, groups, a, b)
+    got = emu.call("lora_gather_matmul", x, groups, a, b)
+    assert _rel(got, want) <= 1e-2
+    base = groups == 0
+    assert bool(base.any()) and not got[base].float().any()
+    with pytest.raises(ValueError, match="LoRA rank 257: .* rank 1..256"):
+        LO._lora_gather_matmul_kernel(*_lora_case(rng, 2, rank=257), lib=object())
 
 
 def test_host_wrappers_check_index_operands():
@@ -655,6 +796,87 @@ def test_dense_chunk_kernel_matches_plain(emu, position, residual):
     _dense_check(got, want, (k2, v2), (k1, v1), (kc, vc), written)
 
 
+#: case -> (kernel, heads, kv_heads, head_dim, rows, position)
+WIDE_DENSE = {
+    "chunk_m11_group6_66_rows": ("attention_chunk_step", 12, 2, 128, 11, 21),
+    "chunk_m20_hd64_two_fold_tiles": ("attention_chunk_step", 4, 2, 64, 20, 9),
+    "step_hd64_group7": ("attention_step", 14, 2, 64, 1, 30),
+    "batch_36_heads": ("attention_batch_step", 28, 4, 128, 4, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_DENSE))
+def test_widened_dense_kernels_match_plain(emu, case):
+    name, h, kv, hd, m, position = WIDE_DENSE[case]
+    rng = np.random.default_rng(70)
+    wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng, h=h, kv=kv, hd=hd)
+    x = _t(rng.standard_normal((m, 64)), BF)
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd, residual=True)
+    if name == "attention_batch_step":
+        positions = torch.tensor([0, 17, 32, SEQ - 1], dtype=torch.int32)
+        kc, vc = _nan_caches(rng, (m, kv, SEQ, hd), positions + 1)
+        cr, sr = DB.rope_rows_at(cos_t, sin_t, positions)
+        where = positions
+        written = torch.zeros((m, kv, SEQ), dtype=torch.bool)
+        written[torch.arange(m), :, positions.long()] = True
+    else:
+        kc, vc = _nan_caches(rng, (kv, SEQ, hd), position + (m == 1))
+        cr, sr = DB.rope_rows(cos_t, sin_t, position, m)
+        where = position
+        written = torch.zeros((kv, SEQ), dtype=torch.bool)
+        written[:, position : position + m] = True
+    args = (x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr)
+    plain = getattr(DB, f"{name}_plain")
+    want, k1, v1 = plain(*args, kc.clone(), vc.clone(), wo["int8"], wo["scale"], where, **kw)
+    got, k2, v2 = emu.call(name, *args, kc.clone(), vc.clone(), wo["int8"], wo["scale"],
+                           where, eps=1e-6, **kw)
+    _dense_check(got, want, (k2, v2), (k1, v1), (kc, vc), written)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d,t,causal,strided", [
+    (16, 37, False, False), (16, 37, True, True), (80, 50, False, True),
+    (80, 50, True, False)])
+def test_flash_kernel_matches_plain(emu, d, t, causal, strided):
+    """T off the 16-row q tile and the 32-row K tile; strided inputs are
+    [B, T, H, D] projections seen as [B, H, T, D] (the vision tower's), and
+    the output keeps q's layout."""
+    rng = np.random.default_rng(d + t)
+    b, h = 2, 3
+
+    def make():
+        a = rng.standard_normal((b, t, h, d) if strided else (b, h, t, d))
+        a = _t(a, BF)
+        return a.transpose(1, 2) if strided else a
+
+    q, k, v = make(), make(), make()
+    want = FA.flash_attention_plain(q, k, v, causal)
+    got = emu.call("flash_attention", q, k, v, causal=causal)
+    assert got.dtype == BF and got.shape == (b, h, t, d) and got.stride() == q.stride()
+    assert _rel(got, want) <= 1e-2
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
+    q = torch.zeros((1, 2, 8, 16), dtype=BF)
+    with pytest.raises(ValueError, match="dtype"):
+        FA._flash_attention_kernel(q.float(), q.float(), q.float(), lib=object())
+    odd = torch.zeros((1, 2, 8, 12), dtype=BF)
+    with pytest.raises(ValueError, match="head_dim 12: .* multiples of 8 up to 128"):
+        FA._flash_attention_kernel(odd, odd, odd, lib=object())
+    wide = torch.zeros((1, 2, 8, 136), dtype=BF)
+    with pytest.raises(ValueError, match="head_dim 136"):
+        FA._flash_attention_kernel(wide, wide, wide, lib=object())
+    with pytest.raises(ValueError, match="shape"):
+        FA._flash_attention_kernel(q, q[:, :1], q, lib=object())
+    with pytest.raises(ValueError, match="D contiguous"):
+        FA._flash_attention_kernel(q.transpose(2, 3), q.transpose(2, 3), q.transpose(2, 3),
+                                   lib=object())
+
+
 def test_dense_wrappers_check_positions_and_refuse_shapes():
     """Positions outside the cache plane, a chunk running past it, and
     shapes or types the kernels do not take raise before any launch."""
@@ -691,20 +913,20 @@ def test_dense_wrappers_check_positions_and_refuse_shapes():
             step(bad)
     with pytest.raises(ValueError, match="positions must lie"):
         chunk(SEQ - 4)
-    with pytest.raises(ValueError, match="M <= 16"):
-        chunk(0, m=17)
-    with pytest.raises(ValueError, match="M \\* group"):
-        chunk(0, m=12, heads=12)
+    with pytest.raises(ValueError, match="M >= 1"):
+        chunk(0, m=0)
+    with pytest.raises(ValueError, match="5 query heads over 2 kv heads: .* whole groups"):
+        chunk(0, m=12, heads=5)
     with pytest.raises(ValueError, match="one row"):
         step(3, x=torch.zeros((2, 64), dtype=BF))
     with pytest.raises(ValueError, match="dtype"):
         step(3, kc=plane.float())
     with pytest.raises(ValueError, match="shape"):
         batch(torch.zeros((2,), dtype=torch.int32), kc=torch.zeros((3, 2, SEQ, 128), dtype=BF))
-    with pytest.raises(ValueError, match="head_dim 128"):
+    with pytest.raises(ValueError, match="head_dim 80: .* take head_dim 64 or 128"):
         DB._attention_step_kernel(torch.zeros((1, 64), dtype=BF), nw, None, None, None, None,
                                   None, plane, plane, None, None, 0,
-                                  **dict(kw, head_dim=64))
+                                  **dict(kw, head_dim=80))
     x = torch.zeros((4, 32), dtype=BF)
     w = quantize_int8(_t(rng.standard_normal((32, 48))))
     with pytest.raises(ValueError, match="dtype"):
