@@ -100,7 +100,19 @@ full, and at (1, 12, 2048, 128), causal; and the attention kernels again
 at the widened shapes, one layer of seeded weights each: head_dim 64 at
 Qwen2-0.5B's 14 / 2 heads, Qwen2-7B's 28 / 4 heads, page 32, and a
 ``DORA_SPEC_K=10`` verify at Qwen2-1.5B's group of 6 (66 rows), with the
-LoRA kernel at rank 256.
+LoRA kernel at rank 256. It checks the tensor-core helper of kernels 4 and
+10 (one m16n8k16 tile, fragments built by the sweeps' layout) against
+``torch.matmul``, and times the attention sublayers of kernels 3-5 and 8-10
+launch by launch (``sublayer`` lines: each launch's device time from
+``torch.profiler``, their sum, the wrapper's time on CUDA events and on the
+host, SDPA alone and the library chain of RMSNorm, cuBLAS products on the
+dequantized weights and SDPA).
+
+``fidelity`` lines hold kernels 4 and 10 and their plain versions to an
+f32 reference on phase 4's prompts. ``--kernels-only`` stops after phase
+3, ``--breakdown`` runs only the ``sublayer`` and ``fidelity`` lines and
+``--paths`` only phases 4, 9 and 10 (prefill chunk, window, step and
+``run_loop`` pass times), all without the result line.
 
 It prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -139,7 +151,7 @@ REL_TOL = {
     "int8_matmul": 5e-3,                 # seen 1.1e-3 (head), 4.7e-6 (16 rows), 1.6e-3 (256)
     "attention_batch_step": 3e-3,        # seen 2.2e-4
     "attention_step": 1.2e-2,            # seen 4.0e-3: one bf16 step of its one row's largest output
-    "attention_chunk_step": 1.3e-2,      # seen 3.6e-3 (2.9e-3 residual=False)
+    "attention_chunk_step": 1.3e-2,      # seen 3.6e-3 (3.2e-4 residual=False)
     "flash_attention": 6e-3,             # the bf16 output's rounding; seen 1.4e-3 (ViT), 5.9e-4 (causal 2048)
 }
 SPEC_K = 4         # drafts per verify in phase 6: m = 5 candidate rows a stream
@@ -746,16 +758,25 @@ def serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, max_n
     if need <= usable:
         raise Failed("the prompts fit the pool at once; the run would not wait for pages")
 
-    window_s = []
+    window_s, chunk_s = [], []
     steps = [0]
     admitted_at = {}
     inner_window, inner_submit, inner_step = engine.window_step, engine.submit, engine.step
+    inner_chunk = engine.chunk_prefill
 
     def timed_window(*a):
         t = time.perf_counter()
         res = inner_window(*a)
         torch.cuda.synchronize()
         window_s.append(time.perf_counter() - t)
+        return res
+
+    def timed_chunk(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = inner_chunk(*a)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t)
         return res
 
     def counted_submit(rid, ids, n, **kw):
@@ -767,6 +788,7 @@ def serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, max_n
         return inner_step()
 
     engine.window_step, engine.submit, engine.step = timed_window, counted_submit, counted_step
+    engine.chunk_prefill = timed_chunk
 
     plain_calls = _PlainCalls(DB, LO)
     _reset_launches(DB, LO)
@@ -799,7 +821,9 @@ def serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, max_n
           f"tokens/s over {len(window_s)} windows (K=8, window mean "
           f"{1e3 * sum(window_s) / len(window_s):.2f} ms, max {1e3 * max(window_s):.2f} ms); "
           f"end-to-end {n_tok / wall:.1f} tokens/s; TTFT p50 {ttfts[len(ttfts) // 2]:.3f} s "
-          f"max {ttfts[-1]:.3f} s; {engine.chunks_run} prefill chunks; "
+          f"max {ttfts[-1]:.3f} s; {engine.chunks_run} prefill chunks of 256 rows (mean "
+          f"{1e3 * sum(chunk_s) / len(chunk_s):.2f} ms, median "
+          f"{1e3 * sorted(chunk_s)[len(chunk_s) // 2]:.2f} ms); "
           f"{sum(1 for s in admitted_at.values() if s > 0)} request(s) waited for pages",
           flush=True)
     return out, launches
@@ -1702,7 +1726,8 @@ def batch1(torch, DB, LO, qwen2, spec_decode, L, paths, params, cfg, prompts, ma
         spec = spec[0].tolist()
         _check_streams({i: spec}, max_new, cfg.vocab)
         print(f"batch-1 run_loop, request {i}: {max_new} tokens in {wall:.3f} s; {passes} "
-              f"model passes ({full} full k+1 passes, body {body}); "
+              f"model passes ({1e3 * wall / passes:.2f} ms a pass; {full} full k+1 passes, "
+              f"body {body}); "
               f"{(max_new - 1) / max(passes - 1, 1):.3f} tokens per verify pass; "
               f"{spec_launches['attention_chunk_step'] // cfg.layers} chunk passes launched "
               f"(overshoot included)", flush=True)
@@ -1744,6 +1769,289 @@ def batch1(torch, DB, LO, qwen2, spec_decode, L, paths, params, cfg, prompts, ma
             paths.check(f"batch-1 agreement, request {i}, {label}, token {at}", path(at),
                         (a[same], b[same]) if same < max_new else None, b_bound)
     return gen_launches, spec_launches
+
+
+def check_mma_tile(torch, DB, rng_seed: int) -> None:
+    """Phase 3: the tensor-core helper of kernels 4 and 10 on one 16 x 16 by
+    16 x 8 bf16 tile, fragments built by the sweeps' layout, against
+    torch.matmul in f32 (exact bf16 products, f32 sums: 1e-5 of the largest
+    magnitude)."""
+    gen = torch.Generator(device="cuda").manual_seed(rng_seed)
+    a = (torch.randn((16, 16), generator=gen, device="cuda") * 4).bfloat16()
+    b = torch.randn((16, 8), generator=gen, device="cuda").bfloat16()
+    got = DB.mma_tile(a, b)
+    torch.cuda.synchronize()
+    err, rel = _rel(got, a.float() @ b.float())
+    print(f"mma tile (m16n8k16 bf16, the sweeps' fragment layout): rel {rel:.3e} (tol 1e-5)",
+          flush=True)
+    if not rel <= 1e-5:
+        raise Failed(f"the mma fragment layout disagrees with torch.matmul: rel {rel:.3e}")
+
+
+def _device_launches(torch, fn, iters: int = 10):
+    """The device time of each kernel one call of ``fn`` launches, in launch
+    order, averaged over ``iters`` calls, from ``torch.profiler``'s kernel
+    records: [(kernel name, ms)], or None when the profiler saw no kernel or
+    the calls launched different numbers of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    if not kern or len(kern) % iters:
+        return None
+    per = len(kern) // iters
+    out = []
+    for j in range(per):
+        name = kern[j].name.split("(")[0].replace("void ", "")
+        us = sum(kern[i * per + j].time_range.elapsed_us() for i in range(iters)) / iters
+        out.append((name, us / 1e3))
+    return out
+
+
+def _host_ms(torch, fn, iters: int = 20) -> float:
+    """Host time of one call of ``fn``: the wrapper's checks, allocations
+    and launches, without waiting for the card."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t) / iters * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def sublayer_breakdown(torch, DB, params, cfg, rng_seed: int) -> None:
+    """Phase 3, the attention sublayers launch by launch: for kernels 3-5 and
+    8-10 at the shapes the paths give them (kernel 4 at 256 rows from 0 and
+    512, fp and int8 KV; kernel 10's 5 rows at 84, 1064 and 2043), the device
+    time of each launch (RMSNorm, qkv product, rope-and-write, the sweep and
+    its combine, wo product, epilogue), their sum, the wrapper's time on CUDA
+    events, its host time, SDPA alone and the library chain (RMSNorm, cuBLAS
+    qkv on the dequantized bf16 weights, SDPA, cuBLAS wo)."""
+    from dora_tpu_torch.models.layers import rope_table
+
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(rng_seed)
+    blk = params["blocks"]["0"]
+    d, hd, h, kv = cfg.dim, cfg.head_dim, cfg.heads, cfg.kv_heads
+    seq, page, slots, chunk, m = cfg.max_seq, 16, 16, 256, SPEC_K + 1
+    cos_t, sin_t = rope_table(seq, hd, base=cfg.rope_theta, device=dev)
+    nw, wqkv, sqkv, bqkv = (blk["attn_norm"], blk["wqkv"]["int8"], blk["wqkv"]["scale"],
+                            blk.get("bqkv"))
+    wo, swo = blk["wo"]["int8"], blk["wo"]["scale"]
+    wqkv_bf = (wqkv.float() * sqkv).bfloat16()
+    wo_bf = (wo.float() * swo).bfloat16()
+    bq_bf = bqkv.bfloat16() if bqkv is not None else None
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd, eps=cfg.norm_eps)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def rows(n):
+        tok = torch.randint(0, cfg.vocab, (n,), generator=gen, device=dev)
+        return params["embed"][tok].bfloat16()
+
+    def rms(x):
+        if hasattr(torch.nn.functional, "rms_norm"):
+            return torch.nn.functional.rms_norm(x, (d,), nw.bfloat16(), cfg.norm_eps)
+        xf = x.float()
+        return (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + cfg.norm_eps) * nw).bfloat16()
+
+    def line(what, call, x, q, kk, vv, mask):
+        """q [B, H, L, hd] and the context kk, vv [B, H, n, hd] for SDPA;
+        x the sublayer's B * L rows for the chain's products."""
+        kk = torch.nan_to_num(kk).repeat_interleave(h // kv, dim=1)
+        vv = torch.nan_to_num(vv).repeat_interleave(h // kv, dim=1)
+
+        def chain():
+            qkv = torch.matmul(rms(x), wqkv_bf)
+            if bq_bf is not None:
+                qkv = qkv + bq_bf
+            o = sdpa(q, kk, vv, attn_mask=mask)
+            return torch.matmul(o.transpose(1, 2).reshape(x.shape[0], h * hd), wo_bf)
+
+        launches = _device_launches(torch, call)
+        parts = ("not measured (the profiler saw no kernel)" if launches is None else
+                 ", ".join(f"{n} {ms:.4f}" for n, ms in launches)
+                 + f"; device sum {sum(ms for _, ms in launches):.4f}")
+        sdpa_ms = _time_ms(torch, lambda: sdpa(q, kk, vv, attn_mask=mask))
+        print(f"sublayer {what}: {parts}; wrapper {_time_ms(torch, call):.4f} ms, host "
+              f"{_host_ms(torch, call):.4f} ms; SDPA {sdpa_ms:.4f} ms, library chain "
+              f"{_time_ms(torch, chain):.4f} ms", flush=True)
+
+    # kernel 3: 16 decode rows at 30..940, one frozen (as check_kernels)
+    n_pool = 4 * seq // page
+    shape = (n_pool, kv, page, hd)
+    kp = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    vp = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    kq8, ks8 = DB.kv_quant_rows(kp.float())
+    vq8, vs8 = DB.kv_quant_rows(vp.float())
+    maxp = seq // page
+    positions = [int(p) for p in torch.linspace(30, 940, slots).round().tolist()]
+    positions[3] = 0
+    bt = torch.zeros((slots, maxp), dtype=torch.int32)
+    nxt = 1
+    for b, p in enumerate(positions):
+        if p:
+            n = -(-(p + m) // page)
+            bt[b, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
+            nxt += n
+    bt = bt.to(dev)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    kctx = kp[bt.long()].permute(0, 2, 1, 3, 4).reshape(slots, kv, maxp * page, hd)
+    vctx = vp[bt.long()].permute(0, 2, 1, 3, 4).reshape(slots, kv, maxp * page, hd)
+    keys = torch.arange(maxp * page, device=dev)
+    x = rows(slots)
+    cr, sr = DB.rope_rows_at(cos_t, sin_t, pos)
+    args = (x, nw, wqkv, sqkv, bqkv, cr, sr, kp.clone(), vp.clone(), wo, swo, pos, bt)
+    line("attention_paged_batch_step, 16 rows at 30..940",
+         lambda: DB.attention_paged_batch_step(*args, **kw), x,
+         torch.randn((slots, h, 1, hd), generator=gen, device=dev).bfloat16(), kctx, vctx,
+         (keys[None, :] <= pos[:, None])[:, None, None, :])
+
+    # kernel 4: 256 rows from 0 and from 512, fp and int8 KV
+    btr = torch.arange(1, maxp + 1, dtype=torch.int32, device=dev)
+    for position in (0, 2 * chunk):
+        x = rows(chunk)
+        cr, sr = DB.rope_rows(cos_t, sin_t, position, chunk)
+        n_keys = position + chunk
+        kc = kp[btr[: n_keys // page].long()].permute(1, 0, 2, 3).reshape(1, kv, n_keys, hd)
+        vc = vp[btr[: n_keys // page].long()].permute(1, 0, 2, 3).reshape(1, kv, n_keys, hd)
+        cmask = (torch.arange(n_keys, device=dev)[None, :]
+                 <= position + torch.arange(chunk, device=dev)[:, None])
+        qc = torch.randn((1, h, chunk, hd), generator=gen, device=dev).bfloat16()
+        fp = (x, nw, wqkv, sqkv, bqkv, cr, sr, kp.clone(), vp.clone(), wo, swo, position, btr)
+        q8 = (x, nw, wqkv, sqkv, bqkv, cr, sr, kq8.clone(), vq8.clone(), wo, swo, position,
+              btr, ks8.clone(), vs8.clone())
+        for form, cargs in (("fp KV", fp), ("int8 KV", q8)):
+            line(f"attention_paged_chunk_step, {form}, 256 rows at {position}",
+                 lambda: DB.attention_paged_chunk_step(*cargs, **kw), x, qc, kc, vc, cmask)
+
+    # kernel 5: 16 streams x 5 rows at 30..940
+    flat = (pos[:, None] + torch.arange(m, dtype=torch.int32, device=dev)[None, :])
+    cr, sr = DB.rope_rows_at(cos_t, sin_t, flat.reshape(-1))
+    x = rows(slots * m)
+    sargs = (x, nw, wqkv, sqkv, bqkv, cr, sr, kp.clone(), vp.clone(), wo, swo, pos, bt)
+    line("attention_paged_spec_step, 16 x 5 rows at 30..940",
+         lambda: DB.attention_paged_spec_step(*sargs, m=m, **kw), x,
+         torch.randn((slots, h, m, hd), generator=gen, device=dev).bfloat16(), kctx, vctx,
+         (keys[None, None, :] <= flat[:, :, None])[:, None])
+    del kp, vp, kq8, vq8, kctx, vctx
+
+    def nan_planes(live):
+        k = torch.randn((len(live), kv, seq, hd), generator=gen, device=dev).bfloat16()
+        v = torch.randn((len(live), kv, seq, hd), generator=gen, device=dev).bfloat16()
+        for b, n in enumerate(live):
+            k[b, :, n:] = float("nan")
+            v[b, :, n:] = float("nan")
+        return k, v
+
+    # kernel 8: 4 planes at 0, 700, 1500, 2047
+    live = [0, 700, 1500, seq - 1]
+    dpos = torch.tensor(live, dtype=torch.int32, device=dev)
+    kc, vc = nan_planes(live)
+    x = rows(len(live))
+    cr, sr = DB.rope_rows_at(cos_t, sin_t, dpos)
+    dargs = (x, nw, wqkv, sqkv, bqkv, cr, sr, kc.clone(), vc.clone(), wo, swo, dpos)
+    skeys = torch.arange(seq, device=dev)
+    line("attention_batch_step, 4 planes at 0..2047",
+         lambda: DB.attention_batch_step(*dargs, **kw), x,
+         torch.randn((len(live), h, 1, hd), generator=gen, device=dev).bfloat16(), kc, vc,
+         (skeys[None, :] <= dpos[:, None])[:, None, None, :])
+
+    # kernel 9 at 1500; kernel 10's 5 rows at 84, 1064 and 2043
+    for n_rows, position in ((1, 1500), (m, 84), (m, 1064), (m, seq - m)):
+        kc, vc = nan_planes([position])
+        x = rows(n_rows)
+        cr, sr = DB.rope_rows(cos_t, sin_t, position, n_rows)
+        pargs = (x, nw, wqkv, sqkv, bqkv, cr, sr, kc[0].clone(), vc[0].clone(), wo, swo,
+                 position)
+        fn = DB.attention_step if n_rows == 1 else DB.attention_chunk_step
+        line(f"{fn.__name__}, {n_rows} row(s) at {position}", lambda: fn(*pargs, **kw), x,
+             torch.randn((1, h, n_rows, hd), generator=gen, device=dev).bfloat16(), kc, vc,
+             skeys[None, :] <= position + torch.arange(n_rows, device=dev)[:, None])
+
+
+def sweep_fidelity(torch, DB, params, cfg, prompts, rng_seed: int) -> None:
+    """Phase 3: kernels 4 and 10 against an f32 reference (their plain
+    versions run on f32 rows), beside the bf16 plain versions, as rel-rms of
+    the attention delta (residual=False): kernel 4 on the embedded rows of
+    three of phase 4's prompts (256-row chunks from 0 and from 512 over a
+    seeded pool), kernel 10 on 5 rows at 84, 1064 and 2043 over seeded
+    planes, in every ninth layer's weights. A kernel as close to f32 as its
+    plain version but far from the plain version rounds elsewhere."""
+    from dora_tpu_torch.models.layers import rope_table
+
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(rng_seed)
+    h, kv, hd, seq, page = cfg.heads, cfg.kv_heads, cfg.head_dim, cfg.max_seq, 16
+    cos_t, sin_t = rope_table(seq, hd, base=cfg.rope_theta, device=dev)
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd, eps=cfg.norm_eps, residual=False)
+    layers = range(0, cfg.layers, 9)
+
+    def rel(a, b, n):
+        return float((a - b)[:n].pow(2).mean().sqrt() / b[:n].pow(2).mean().sqrt())
+
+    def report(what, errs):
+        e = torch.tensor(errs, dtype=torch.float64)
+        print(f"fidelity {what}: rel-rms vs f32, kernel {e[:, 0].mean():.4e} (max "
+              f"{e[:, 0].max():.4e}), bf16 plain {e[:, 1].mean():.4e} (max {e[:, 1].max():.4e}); "
+              f"kernel vs plain {e[:, 2].mean():.4e}", flush=True)
+
+    def three(kernel, plain, args, n):
+        got = kernel(*args(False), **kw)[0]
+        want = plain(*args(False), **kw)[0]
+        ref = plain(*args(True), **kw)[0]
+        return rel(got, ref, n), rel(want, ref, n), rel(got, want, n)
+
+    btr = torch.arange(1, seq // page + 1, dtype=torch.int32, device=dev)
+    for position in (0, 512):
+        errs = []
+        for req in (0, 1, 5):
+            toks = prompts[req][:256]
+            n = len(toks)
+            x = params["embed"][torch.tensor(toks + [0] * (256 - n), device=dev)].bfloat16()
+            cr, sr = DB.rope_rows(cos_t, sin_t, position, 256)
+            for layer in layers:
+                blk = params["blocks"][str(layer)]
+                shape = (4 * seq // page, kv, page, hd)
+                kp = torch.randn(shape, generator=gen, device=dev).bfloat16()
+                vp = torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+                def args(f32):
+                    return ((x.float() if f32 else x), blk["attn_norm"], blk["wqkv"]["int8"],
+                            blk["wqkv"]["scale"], blk.get("bqkv"), cr, sr, kp.clone(),
+                            vp.clone(), blk["wo"]["int8"], blk["wo"]["scale"], position, btr)
+
+                errs.append(three(DB.attention_paged_chunk_step,
+                                  DB.attention_paged_chunk_step_plain, args, n))
+        report(f"attention_paged_chunk_step, 256-row chunks of 3 prompts at {position}", errs)
+    for position in (84, 1064, seq - SPEC_K - 1):
+        errs = []
+        for layer in layers:
+            blk = params["blocks"][str(layer)]
+            kc = torch.randn((kv, seq, hd), generator=gen, device=dev).bfloat16()
+            vc = torch.randn((kv, seq, hd), generator=gen, device=dev).bfloat16()
+            kc[:, position:] = float("nan")
+            vc[:, position:] = float("nan")
+            tok = torch.randint(0, cfg.vocab, (SPEC_K + 1,), generator=gen, device=dev)
+            x = params["embed"][tok].bfloat16()
+            cr, sr = DB.rope_rows(cos_t, sin_t, position, SPEC_K + 1)
+
+            def args(f32):
+                return ((x.float() if f32 else x), blk["attn_norm"], blk["wqkv"]["int8"],
+                        blk["wqkv"]["scale"], blk.get("bqkv"), cr, sr, kc.clone(), vc.clone(),
+                        blk["wo"]["int8"], blk["wo"]["scale"], position)
+
+            errs.append(three(DB.attention_chunk_step, DB.attention_chunk_step_plain, args,
+                              SPEC_K + 1))
+        report(f"attention_chunk_step, 5 rows at {position}", errs)
 
 
 def check_flash_kernel(torch, FA, rng_seed: int, dev: str = "cuda") -> dict:
@@ -2176,6 +2484,14 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--breakdown", action="store_true",
+                    help="build, then only time the attention sublayers launch by launch "
+                         "and hold kernels 4 and 10 to f32 (prints no result line)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build, then only phase 3's kernel checks (prints no result line)")
+    ap.add_argument("--paths", action="store_true",
+                    help="build, then only phases 4, 9 and 10, for their times (prints no "
+                         "result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2223,16 +2539,35 @@ def main(argv=None) -> int:
         print(f"weights: Qwen2-1.5B width, {cfg.layers} layers, seeded random "
               f"(std 0.02) int8 in {time.perf_counter() - t:.2f} s", flush=True)
 
+        rng = np.random.default_rng(args.seed)
+        lengths = np.linspace(64, 1000, args.requests).round().astype(int)
+        prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in lengths]
+        d_rng = np.random.default_rng(args.seed + 7)
+        d_prompts = [d_rng.integers(0, cfg.vocab, size=n).tolist() for n in DENSE_LENGTHS]
+        if args.breakdown:
+            sublayer_breakdown(torch, DB, params, cfg, args.seed + 12)
+            sweep_fidelity(torch, DB, params, cfg, prompts, args.seed + 14)
+            return 0
+        if args.paths:  # phases 4, 9 and 10 alone: the paths' times
+            serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, args.max_new)
+            d_served, _ = serve_dense(torch, DB, LO, IM, make_engine, serve_prompts, params,
+                                      cfg, d_prompts, args.max_new)
+            batch1(torch, DB, LO, qwen2, spec_decode, L,
+                   _Paths(torch, DB, LO, IM, qwen2, L, serve_prompts, params, cfg), params,
+                   cfg, d_prompts, args.max_new, d_served)
+            return 0
         kernels = check_kernels(torch, DB, qwen2, params, cfg, args.seed + 1)
         kernels.insert(2, check_lora_kernel(torch, LO, cfg, args.seed + 3))
         kernels += check_dense_kernels(torch, DB, IM, params, cfg, args.seed + 6)
         kernels.append(check_flash_kernel(torch, FA, args.seed + 8))
+        check_mma_tile(torch, DB, args.seed + 13)
         check_widened_kernels(torch, DB, LO, qwen2, args.seed + 9)
+        sublayer_breakdown(torch, DB, params, cfg, args.seed + 12)
+        sweep_fidelity(torch, DB, params, cfg, prompts, args.seed + 14)
+        if args.kernels_only:
+            return 0
         by_name = {k["name"]: k for k in kernels}
 
-        rng = np.random.default_rng(args.seed)
-        lengths = np.linspace(64, 1000, args.requests).round().astype(int)
-        prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist() for n in lengths]
         served, launches = serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg,
                                        prompts, args.max_new)
         for n in SPEC_OFF_KERNELS:
@@ -2267,8 +2602,6 @@ def main(argv=None) -> int:
             by_name["attention_paged_spec_step_int8kv"]["launches"] = ts_launches[
                 "attention_paged_spec_step_int8kv"]
 
-        d_rng = np.random.default_rng(args.seed + 7)
-        d_prompts = [d_rng.integers(0, cfg.vocab, size=n).tolist() for n in DENSE_LENGTHS]
         d_served, d_launches = serve_dense(torch, DB, LO, IM, make_engine, serve_prompts,
                                            params, cfg, d_prompts, args.max_new)
         for n in ("int8_matmul", "attention_batch_step"):

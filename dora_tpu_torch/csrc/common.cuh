@@ -10,11 +10,16 @@
 // preferred_element_type=f32 dots hold, up to summation order.
 //
 // Every kernel keeps its __syncthreads() uniform across the block (no early
-// return), and uses shared memory rather than warp shuffles for reductions.
+// return). Reductions over a block go through shared memory; the
+// tensor-core sweeps of paged_attention.cu reduce over a warp's quad with
+// shuffles and call the PTX-level operations only through the inline
+// helpers at the end of this file (mma, shuffle, cp.async), which the
+// emulated build (csrc/emu/) runs on the host.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -25,9 +30,15 @@ typedef __nv_bfloat16 bf16;
 // (csrc/emu/): each block runs as one OS thread per CUDA thread.
 #define DORA_LAUNCH(kern, grid, block, stream, ...) \
     dora_emu_launch(grid, block, [&] { kern(__VA_ARGS__); })
+#define DORA_LAUNCH_SMEM(kern, grid, block, smem, stream, ...) \
+    dora_emu_launch(grid, block, [&] { kern(__VA_ARGS__); }, smem)
+#define DORA_DYNAMIC_SMEM(name) unsigned char* name = dora_emu_smem
 #else
 #define DORA_LAUNCH(kern, grid, block, stream, ...) \
     kern<<<grid, block, 0, (cudaStream_t)(stream)>>>(__VA_ARGS__)
+#define DORA_LAUNCH_SMEM(kern, grid, block, smem, stream, ...) \
+    kern<<<grid, block, smem, (cudaStream_t)(stream)>>>(__VA_ARGS__)
+#define DORA_DYNAMIC_SMEM(name) extern __shared__ __align__(16) unsigned char name[]
 #endif
 
 // Record the first launch error of a C entry point and return it.
@@ -250,4 +261,82 @@ static inline void launch_epilogue(const float* P, int splits, int M, int N,
     DORA_LAUNCH(epilogue_linear, grid, dim3(256), stream,
                 P, splits, M, N, s, b, res, out_bf, out_f);
     DORA_CHECK(err);
+}
+
+// ---------------------------------------------------------------------------
+// Warp-level operations of the tensor-core sweeps
+// ---------------------------------------------------------------------------
+
+// Allow `bytes` of dynamic shared memory to `kern`: above the default 48 KB
+// a kernel must ask first. Returns the call's cudaError_t (0 below 48 KB).
+template <class K>
+static inline int allow_dynamic_smem(K kern, size_t bytes) {
+    if (bytes <= 48 * 1024) return 0;
+    return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)bytes);
+}
+
+// Two bf16 in one 32-bit register, the lower index in the lower half (the
+// fragment format of mma_bf16_16816).
+static __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+    return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    return pack_bf16(__float2bfloat16(lo), __float2bfloat16(hi));
+}
+
+// D = A B + D on the tensor cores, one 16 x 8 x 16 tile per warp:
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32. With g = lane / 4
+// and t = lane % 4, each lane holds A rows g and g + 8 at columns 2t, 2t + 1
+// (a[0], a[1]) and 2t + 8, 2t + 9 (a[2], a[3]) as (row g, row g + 8) pairs;
+// B rows (k) 2t, 2t + 1 (b[0]) and 2t + 8, 2t + 9 (b[1]) of column n = g;
+// D rows g (d[0], d[1]) and g + 8 (d[2], d[3]) at columns 2t, 2t + 1.
+static __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                                      const uint32_t (&b)[2]) {
+#ifdef DORA_EMULATE
+    dora_emu_mma_bf16_16816(d, a, b);
+#else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+#endif
+}
+
+// v from the lane whose index differs from this one's in the bits of `mask`
+// (every lane of the warp takes part).
+static __device__ __forceinline__ float shfl_xor(float v, int mask) {
+    return __shfl_xor_sync(0xffffffffu, v, mask);
+}
+
+// Copy 16 bytes from device memory to shared memory without passing
+// through registers; a row that is not `live` reads nothing and lands as
+// zeros (src-size 0), whatever lies at src.
+static __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+#ifdef DORA_EMULATE
+    if (live) memcpy(dst, src, 16);
+    else memset(dst, 0, 16);
+#else
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(src), "r"(live ? 16 : 0) : "memory");
+#endif
+}
+
+// Close the group of copies issued since the last commit.
+static __device__ __forceinline__ void cp_async_commit() {
+#ifndef DORA_EMULATE
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Wait until at most N committed groups are in flight (the caller then
+// syncs the block before reading what the others copied).
+template <int N>
+static __device__ __forceinline__ void cp_async_wait() {
+#ifndef DORA_EMULATE
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+#endif
 }

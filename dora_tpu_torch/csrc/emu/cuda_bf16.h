@@ -28,3 +28,5 @@ inline float __bfloat162float(__nv_bfloat16 b) {
     std::memcpy(&f, &u, 4);
     return f;
 }
+
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.x; }

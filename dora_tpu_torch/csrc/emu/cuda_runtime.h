@@ -3,9 +3,14 @@
 // host compiler with -DDORA_EMULATE, so their indexing and arithmetic can be
 // checked against the plain PyTorch versions on a machine without a card.
 // Each block runs in turn; each of its threads is one OS thread, and
-// __syncthreads() is a barrier over them. __shared__ arrays become statics,
-// which is sound because only one block runs at a time. It checks nothing
-// that is particular to the card (memory model, launch limits, speed).
+// __syncthreads() is a barrier over them. __shared__ arrays become statics
+// and dynamic shared memory one buffer per block, which is sound because
+// only one block runs at a time. Warp collectives (__shfl_xor_sync and the
+// m16n8k16 bf16 mma of common.cuh) meet at a barrier of the warp's 32
+// threads and trade values through the warp's exchange buffers; the mma
+// computes each lane's C elements from the fragments of all 32 lanes by the
+// PTX ISA's layout. It checks nothing that is particular to the card
+// (memory model, launch limits, speed).
 #pragma once
 
 #include <algorithm>
@@ -14,6 +19,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -34,17 +40,97 @@ inline thread_local dim3 blockIdx;
 inline dim3 blockDim;
 inline dim3 gridDim;
 inline std::barrier<>* dora_emu_barrier = nullptr;
+inline unsigned char* dora_emu_smem = nullptr;  // the block's dynamic shared memory
 
 inline void __syncthreads() { dora_emu_barrier->arrive_and_wait(); }
+
+// One warp's meeting place: a barrier over its threads and the values they
+// trade, in two buffers used by turns: a lane writes its value for the
+// warp's k-th collective into buffer k % 2, meets the others, and reads;
+// it writes that buffer again only at collective k + 2, after every lane
+// has met at k + 1 and so has read what it needed of k.
+struct DoraEmuWarp {
+    std::barrier<> bar;
+    uint64_t x[2][32];
+    uint32_t a[2][32][4];
+    uint32_t b[2][32][2];
+    explicit DoraEmuWarp(std::ptrdiff_t n) : bar(n) {}
+};
+inline thread_local DoraEmuWarp* dora_emu_warp = nullptr;
+inline thread_local unsigned dora_emu_lane = 0;
+inline thread_local unsigned dora_emu_turn = 0;  // this lane's collectives, mod 2
+
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+    static_assert(sizeof(T) <= sizeof(uint64_t), "one register");
+    DoraEmuWarp* w = dora_emu_warp;
+    const unsigned k = dora_emu_turn ^= 1;
+    uint64_t bits = 0;
+    std::memcpy(&bits, &v, sizeof(T));
+    w->x[k][dora_emu_lane] = bits;
+    w->bar.arrive_and_wait();
+    bits = w->x[k][dora_emu_lane ^ (unsigned)lane_mask];
+    T r;
+    std::memcpy(&r, &bits, sizeof(T));
+    return r;
+}
+
+inline float dora_emu_bf16_half(uint32_t reg, int hi) {
+    uint32_t u = hi ? (reg & 0xffff0000u) : (reg << 16);
+    float f;
+    std::memcpy(&f, &u, 4);
+    return f;
+}
+
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, D = A B + C. With
+// g = lane / 4 and t = lane % 4: A (16 x 16) a[0] holds (g, 2t..2t+1), a[1]
+// (g+8, 2t..), a[2] (g, 2t+8..), a[3] (g+8, 2t+8..); B (16 x 8) b[0] holds
+// (k 2t..2t+1, n g), b[1] (k 2t+8.., n g); C and D d[0..1] (g, 2t..2t+1),
+// d[2..3] (g+8, 2t..); the lower half of each register is the lower index.
+inline void dora_emu_mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+    DoraEmuWarp* w = dora_emu_warp;
+    const unsigned l = dora_emu_lane, k = dora_emu_turn ^= 1;
+    for (int i = 0; i < 4; ++i) w->a[k][l][i] = a[i];
+    w->b[k][l][0] = b[0];
+    w->b[k][l][1] = b[1];
+    w->bar.arrive_and_wait();
+    const int g = (int)l / 4, t = (int)l % 4;
+    for (int c = 0; c < 4; ++c) {
+        const int row = g + (c >= 2 ? 8 : 0), col = 2 * t + (c & 1);
+        float sum = 0.f;
+        for (int kk = 0; kk < 16; ++kk) {
+            const int kl = (kk % 8) / 2, half = kk & 1;
+            const float av = dora_emu_bf16_half(
+                w->a[k][(row % 8) * 4 + kl][(row >= 8 ? 1 : 0) + (kk >= 8 ? 2 : 0)], half);
+            const float bv = dora_emu_bf16_half(w->b[k][col * 4 + kl][kk >= 8 ? 1 : 0], half);
+            sum += av * bv;
+        }
+        d[c] += sum;
+    }
+}
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr cudaError_t cudaSuccess = 0;
+constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 
 struct int4 {
     int x, y, z, w;
 };
+struct uint4 {
+    unsigned x, y, z, w;
+};
+struct float2 {
+    float x, y;
+};
+struct float4 {
+    float x, y, z, w;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
 
 using std::max;
 using std::min;
@@ -52,15 +138,20 @@ using std::min;
 inline float rsqrtf(float v) { return 1.0f / std::sqrt(v); }
 
 template <class F>
-void dora_emu_launch(dim3 grid, dim3 block, F&& body) {
+void dora_emu_launch(dim3 grid, dim3 block, F&& body, size_t smem = 0) {
     const unsigned nt = block.x * block.y * block.z;
     blockDim = block;
     gridDim = grid;
+    std::vector<uint4> dyn((smem + sizeof(uint4) - 1) / sizeof(uint4) + 1);
+    dora_emu_smem = reinterpret_cast<unsigned char*>(dyn.data());
     for (unsigned bz = 0; bz < grid.z; ++bz)
         for (unsigned by = 0; by < grid.y; ++by)
             for (unsigned bx = 0; bx < grid.x; ++bx) {
                 std::barrier<> bar(nt);
                 dora_emu_barrier = &bar;
+                std::vector<std::unique_ptr<DoraEmuWarp>> warps;
+                for (unsigned w = 0; w * 32 < nt; ++w)
+                    warps.push_back(std::make_unique<DoraEmuWarp>(std::min(32u, nt - w * 32)));
                 std::vector<std::thread> threads;
                 threads.reserve(nt);
                 for (unsigned t = 0; t < nt; ++t)
@@ -68,6 +159,8 @@ void dora_emu_launch(dim3 grid, dim3 block, F&& body) {
                         threadIdx = dim3(t % block.x, (t / block.x) % block.y,
                                          t / (block.x * block.y));
                         blockIdx = dim3(bx, by, bz);
+                        dora_emu_warp = warps[t / 32].get();
+                        dora_emu_lane = t % 32;
                         body();
                     });
                 for (auto& th : threads) th.join();

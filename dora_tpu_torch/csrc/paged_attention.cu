@@ -20,17 +20,19 @@
 // 16-row sweep tile (16, 32, ...); any number of query and kv heads with
 // whole groups (heads % kv_heads == 0); any number of candidate rows. The
 // per-block shared arrays do not grow with these: the per-row kernel walks
-// the q, k and v heads one at a time, the decode and prefill sweeps take
-// the group's query heads MAXG at a time (grid z), and the verify sweep its
-// m x group query rows SQ at a time (grid z), folding its own rows 16 at a
-// time.
+// the q, k and v heads one at a time, the decode sweep takes the group's
+// query heads MAXG at a time (grid z), the paged verify sweep its m x group
+// query rows SQ at a time (grid z), folding its own rows 16 at a time, and
+// the tensor-core sweep of the prefill and the dense verify 16 packed query
+// rows a warp, up to MAXW warps a block (grid z).
 //
 // The two layouts share every kernel below through a row-addressing template
 // parameter (PagedRows, DenseRows): where row `pos` of stream sb's kv head g
 // lives. A dense plane is not a pool of pages (KV sits between the stream and
 // the row), so it is addressed as itself, never through a made-up table.
-// Decode runs decode_sweep, batch-1 verify spec_sweep with one stream;
-// prefill (paged only) its own sweep.
+// Decode runs decode_sweep, the paged verify spec_sweep; the paged prefill
+// and the dense batch-1 verify run the tensor-core sweep tc_sweep (over
+// split keys, then chunk_combine).
 //
 // Per row: RMSNorm -> int8 qkv + bias -> NeoX RoPE (full-width rows
 // cos_full = [cos, cos], sin_signed = [-sin, sin]) -> K/V written at the
@@ -45,7 +47,7 @@
 // pages 2 KB + 16 B of scales); at prefill (256 rows) the qkv/wo products
 // (2.8 GFLOP). int8 KV halves the context bytes, which matter only at long
 // contexts; the kernels do not exploit it yet (each page is dequantized into
-// the same f32 shared tiles as bf16 pages).
+// the same shared tiles as bf16 pages).
 //
 // Design: the TPU kernels run as one sequential grid step carrying their
 // scratch; here the sublayer is five launches in stream order: RMSNorm; the
@@ -53,11 +55,15 @@
 // for all rows, so a spec verify of 80 rows streams them once as decode does;
 // a per-row kernel that sums the splits, adds the bias, rotates q and k and
 // writes the row's K/V at its place (exactly the new rows: the TPU kernels'
-// 8-row read-modify-write is not repeated); the attention sweep, one block
-// per (row band or stream, kv head, head or row tile) walking the context 16
-// rows at a time; the wo product and its epilogue. The spec sweep puts up to
-// SQ of the m x G query rows of a (stream, kv head) in one block, so each
-// context tile is read once for them.
+// 8-row read-modify-write is not repeated); the attention sweep; the wo
+// product and its epilogue. The decode and paged verify sweeps run one block
+// per (stream, kv head, head or row tile) walking the context 16 rows at a
+// time in f32 FMAs (the verify block holds up to SQ of the m x G query rows
+// of a (stream, kv head), so each context tile is read once for them). The
+// prefill and the dense verify sweep on the tensor cores (tc_sweep, below),
+// one block per (key split, kv head, tile of packed query rows), in two
+// passes (the rows' maxima, then the sums), and an eighth launch sums the
+// splits.
 //
 // Numerics kept from the reference:
 // * decode (paged and dense, batch and batch 1) sweeps the PRIOR context
@@ -65,16 +71,18 @@
 //   current row's K/V from f32 (the TPU kernel's in-register merge), so the
 //   current row is never read back rounded to bf16 from the cache;
 // * paged prefill attends its own chunk from the bf16 values it wrote (the
-//   reference casts the chunk's K/V to the compute dtype too), causally, with
-//   the running max starting at -1e30;
+//   reference casts the chunk's K/V to the compute dtype too), causally;
 // * spec verify (paged, and the dense batch-1 chunk) sweeps the prior context
 //   like decode but folds its m rows from bf16-rounded values, as its
-//   reference does (unlike decode), with the running max starting at -1e30;
+//   reference does (unlike decode); the paged one with the running max
+//   starting at -1e30, the dense one (on the tensor cores, as the prefill)
+//   with every row's final maximum (from -1e30) taken before any
+//   probability is rounded, as the plain version takes it;
 // * probabilities are rounded to bf16 before the P.V product, the softmax
 //   sums stay f32;
-// * the decode and spec sweeps never read a cache row at or past the
-//   stream's position: those rows load as zeros (a dense plane's rows past
-//   the written ones may hold anything, NaN included).
+// * no sweep reads a cache row at or past the stream's position: those rows
+//   load as zeros (a dense plane's rows past the written ones may hold
+//   anything, NaN included).
 //
 // int8 KV (decode_block.kv_quant_rows / kv_dequant): each written row is
 // quantized per (row, kv head) in registers before the pool write, scale =
@@ -88,10 +96,7 @@
 #include "common.cuh"
 
 constexpr int TILE = 16;      // context rows per sweep step (divides the page)
-constexpr int MAXG = 8;       // query heads of one kv head per decode / prefill block
-constexpr int BQ = 4;         // prefill query rows per block
-constexpr int NQMAX = BQ * MAXG;
-constexpr int CT = 256;       // prefill sweep threads
+constexpr int MAXG = 8;       // query heads of one kv head per decode block
 constexpr int SQ = 64;        // spec verify: candidate rows x group heads per block
 constexpr int ST = 256;       // spec verify sweep threads
 
@@ -127,9 +132,9 @@ struct DenseRows {
 // streams of `per_stream` rows: row i belongs to stream sb = i / per_stream
 // and sits at position (positions ? positions[sb] : pos0) + i % per_stream,
 // written to rows.row(sb, g, pos). Decode passes positions[] and one row per
-// stream (batch 1: pos0); paged prefill passes pos0 and all M rows as one
-// stream; the spec verify passes positions[] (each stream's chunk start; the
-// dense batch-1 chunk: pos0) and m rows per stream, so a stream's m rows may
+// stream (batch 1: pos0); the prefill and the dense batch-1 verify pass pos0
+// and all M rows as one stream; the paged verify passes positions[] (each
+// stream's chunk start) and m rows per stream, so a stream's m rows may
 // straddle a page and each row routes through its own table entry. Exactly
 // the new rows are written. The H + 2 KV heads go through one at a time
 // (thread d owns dimension d; the rotation reads the partner dimension
@@ -146,6 +151,28 @@ static __device__ __forceinline__ float kv_row_scale(float v, float* red) {
 
 static __device__ __forceinline__ int8_t kv_quant(float v, float scale) {
     return (int8_t)fminf(fmaxf(rintf(v / scale), -127.f), 127.f);
+}
+
+// Eight f32 values as bf16 in one 16-byte word (the tensor-core sweep's
+// own chunk rows), and eight int8 values times their row's scale as
+// bf16(q * scale), as kv_load dequantizes.
+static __device__ __forceinline__ uint4 bf16x8(const float* __restrict__ f) {
+    const float4 a = *(const float4*)f, b = *(const float4*)(f + 4);
+    uint4 r;
+    r.x = pack_bf16(a.x, a.y);
+    r.y = pack_bf16(a.z, a.w);
+    r.z = pack_bf16(b.x, b.y);
+    r.w = pack_bf16(b.z, b.w);
+    return r;
+}
+
+static __device__ __forceinline__ uint4 widen8(const int8_t* q, float sc) {
+    uint4 r;
+    r.x = pack_bf16((float)q[0] * sc, (float)q[1] * sc);
+    r.y = pack_bf16((float)q[2] * sc, (float)q[3] * sc);
+    r.z = pack_bf16((float)q[4] * sc, (float)q[5] * sc);
+    r.w = pack_bf16((float)q[6] * sc, (float)q[7] * sc);
+    return r;
 }
 
 // One pool value of row `row` = (page * KV + kv head) * page + in-page row,
@@ -303,107 +330,353 @@ decode_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
     }
 }
 
-// Prefill: one block per (BQ query rows, kv head g, tile of up to MAXG of
-// the group's query heads) walks the slot's rows up to its last row's
-// position, TILE at a time, its own chunk rows included (causal mask key <=
-// pos0 + i). The prior rows come from the pool; the chunk's own rows too in
-// the fp form, from the f32 scratch rows k_in/v_in rounded to bf16 in the
-// int8 form (the pool holds them quantized). pos0 is a multiple of the page,
-// hence of TILE, so a tile is either prior context or the chunk's own.
+// ---------------------------------------------------------------------------
+// The tensor-core sweep of kernels 4 and 10: many query rows against a
+// stretch of context
+// ---------------------------------------------------------------------------
+//
+// The query rows of one kv head g are (row i, group head h) pairs packed as
+// r = i * G + h (NQ = rows x G of them). A block of nw warps holds 16 nw of
+// them, z-th tile (grid z), a warp 16: its A fragments of q (rounded to
+// bf16) stay in registers for the whole sweep. The block walks key tiles of
+// KT keys [t0, t1) (grid x: one split of the keys) through shared memory,
+// double-buffered: tile t + 1 is copied with cp.async while the warps
+// compute on tile t. Per tile and warp, S = q K^T and O += P V run on
+// mma.sync m16n8k16 (bf16 in, f32 accumulators); each lane holds two query
+// rows (g, g + 8) of the warp's 16.
+//
+// Two passes over the same grid. The first (MAXPASS) computes S only and
+// writes each split's row maxima, reduced over the 4 lanes of a quad with
+// shuffles; the second takes every row's maximum over all splits, M (from
+// -1e30: a row that sees no key keeps it), and accumulates p = exp(s - M)
+// into l (f32, unrounded) and p rounded to bf16 into O += P V, writing its
+// split's (l, O) [splits, KV, NQ(, HD)]; chunk_combine sums the splits in
+// index order and writes bf16(O / l). Every p is rounded against the row's
+// final maximum, where the plain version (_verify_attend) rounds it: the
+// online form (a running maximum, rescaled) rounds each tile's p against a
+// different maximum, whose bf16 errors are as large as the plain version's
+// but independent of them. Scores are f32 x scale, q and K/V bf16.
+//
+// Row i sees keys < lim0 + i * lim_step: the causal chunk, lim0 = pos0 + 1
+// and lim_step = 1, over the prior context and the chunk's own rows; a warp
+// skips a tile all of whose keys its rows cannot see, and a block the tiles
+// past its last row's limit. Keys at or past the block's limit are never
+// read: cp.async zero-fills them (src-size 0), so a dense plane's NaN rows
+// past the chunk never reach P V (NaN x 0 is NaN). Keys >= own0 (the dense
+// verify's own rows, and the prefill's in the int8 form) come from the f32
+// scratch k_in / v_in rounded to bf16, never from the cache; the fp prefill
+// reads its own rows from the pool, which holds exactly those bf16 values.
+// Pages are gathered row by row through the table (a page of one kv head
+// is page x HD contiguous values). The int8 form copies int8 rows and their
+// scales into a staging buffer and widens them in shared memory to
+// bf16(q * scale), as kv_load does.
+//
+// Why mma.sync and not wgmma + TMA: the dense verify does ~30 query rows of
+// work per K/V row read (~60 FLOP a byte, far under the card's ~295), so it
+// is bound by bytes and latency, which the split keys and the
+// double-buffered copies address; the prefill's sweep is ~1 GFLOP at 256
+// rows, a few microseconds on mma.sync. Neither needs the 64-row warpgroup
+// tiles.
+constexpr int KT = 32;    // keys per tile
+constexpr int KPAD = 8;   // bf16 padding of a shared K/V row: rows 272 B apart hit other banks
+constexpr int MAXW = 8;   // warps per sweep block (16 query rows each)
+constexpr int SMS = 132;  // the H100's SMs: sweep grids aim at two blocks an SM
+
 template <bool Q8, int HD>
-static __global__ void __launch_bounds__(CT)
-paged_chunk_attn(const float* __restrict__ q_in, const float* __restrict__ k_in,
-                 const float* __restrict__ v_in, const void* __restrict__ k_pool,
-                 const void* __restrict__ v_pool, const float* __restrict__ k_scale,
-                 const float* __restrict__ v_scale, int pos0, PagedRows rows,
-                 bf16* __restrict__ attn, int M, int H, int KV, float scale) {
-    __shared__ bf16 qs[NQMAX][HD];
-    __shared__ float ks[TILE][HD + 1];
-    __shared__ float vs[TILE][HD];
-    __shared__ float sc[NQMAX][TILE];
-    __shared__ float m_s[NQMAX], l_s[NQMAX], al_s[NQMAX];
-    constexpr int NACC = NQMAX * HD / CT;
-    constexpr int QSTEP = CT / HD;
-    const int tid = threadIdx.x, g = blockIdx.y, i0 = blockIdx.x * BQ;
-    const int G = H / KV, h0 = g * G + blockIdx.z * MAXG;
-    const int Gt = min(MAXG, G - (int)blockIdx.z * MAXG), NQ = BQ * Gt;
-    for (int idx = tid; idx < NQ * HD; idx += CT) {
-        int qv = idx / HD, e = idx % HD;
-        int i = i0 + qv / Gt, h = qv % Gt;
-        qs[qv][e] = __float2bfloat16(
-            i < M ? q_in[((size_t)i * H + h0 + h) * HD + e] : 0.f);
-    }
-    if (tid < NQ) {
-        m_s[tid] = -1e30f;
-        l_s[tid] = 0.f;
-    }
-    const int d = tid % HD, qv0 = tid / HD;
-    float acc[NACC];
+struct SweepSmem {
+    static constexpr int LD = HD + KPAD;
+    static constexpr size_t TILE_BF = (size_t)KT * LD;  // bf16 values of one tile
+    static constexpr size_t bytes = 4 * TILE_BF * sizeof(bf16) +
+                                    (Q8 ? 4 * (size_t)KT * HD + 4 * KT * sizeof(float) : 0);
+    bf16* kb;     // [2][KT][LD]
+    bf16* vb;     // [2][KT][LD]
+    int8_t* k8;   // [2][KT][HD], int8 form only
+    int8_t* v8;
+    float* ks;    // [2][KT]
+    float* vs;
+    __device__ explicit SweepSmem(unsigned char* p)
+        : kb((bf16*)p), vb((bf16*)p + 2 * TILE_BF),
+          k8((int8_t*)(p + 4 * TILE_BF * sizeof(bf16))),
+          v8(k8 + 2 * KT * HD),
+          ks((float*)(v8 + 2 * KT * HD)),
+          vs(ks + 2 * KT) {}
+};
+
+// part: the row maxima [splits, KV, NQ] (written by the first pass, read by
+// the second), then l [splits, KV, NQ] and O [splits, KV, NQ, HD].
+template <bool Q8, bool MAXPASS, class Rows, int HD>
+static __global__ void __launch_bounds__(MAXW * 32)
+tc_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
+         const float* __restrict__ v_in, const void* __restrict__ k_pool,
+         const void* __restrict__ v_pool, const float* __restrict__ k_scale,
+         const float* __restrict__ v_scale, Rows rows, int H, int KV, float scale,
+         int NQ, int lim0, int lim_step, int own0, int ntiles, int per_split,
+         float* __restrict__ part) {
+    DORA_DYNAMIC_SMEM(smem_raw);
+    using Sm = SweepSmem<Q8, HD>;
+    constexpr int LD = Sm::LD, CH = HD / 8;  // 16-byte chunks of a bf16 row
+    const Sm sm(smem_raw);
+    const int tid = threadIdx.x, nthreads = blockDim.x;
+    const int warp = tid / 32, lane = tid % 32, gq = lane / 4, t4 = lane % 4;
+    const int g = blockIdx.y, G = H / KV;
+    const int r0 = blockIdx.z * nthreads / 2;  // 16 rows a warp: nthreads / 2 a block
+    const int rw = r0 + warp * 16;             // this warp's first row
+    const int rlast = min(r0 + nthreads / 2, NQ) - 1;
+    const int maxlim = lim0 + (rlast / G) * lim_step;  // keys this block may read
+    const bool wactive = rw < NQ;
+    const int wlim = wactive ? lim0 + (min(rw + 15, NQ - 1) / G) * lim_step : 0;
+    const size_t S = gridDim.x, n_ml = S * KV * NQ;
+
+    // this lane's two query rows and what each may see
+    const int ra = rw + gq, rb = rw + gq + 8;
+    const int lima = ra < NQ ? lim0 + (ra / G) * lim_step : 0;
+    const int limb = rb < NQ ? lim0 + (rb / G) * lim_step : 0;
+    auto qrow = [&](int r) -> const float* {
+        return r < NQ ? q_in + ((size_t)(r / G) * H + g * G + r % G) * HD : nullptr;
+    };
+    const float* qa_row = qrow(ra);
+    const float* qb_row = qrow(rb);
+    uint32_t qa[HD / 16][4];
 #pragma unroll
-    for (int u = 0; u < NACC; ++u) acc[u] = 0.f;
-    __syncthreads();
-    const int i_last = min(i0 + BQ, M) - 1;
-    const int ntiles = (pos0 + i_last) / TILE + 1;
-    for (int blk = 0; blk < ntiles; ++blk) {
-        const size_t row0 = rows.row(0, g, blk * TILE, KV);
-        const bool own = Q8 && blk * TILE >= pos0;  // a tile of this chunk
-        for (int idx = tid; idx < TILE * HD; idx += CT) {
-            int j = idx / HD, e = idx % HD;
-            if (own) {
-                size_t off = ((size_t)(blk * TILE + j - pos0) * KV + g) * HD + e;
-                ks[j][e] = bf16_round(k_in[off]);
-                vs[j][e] = bf16_round(v_in[off]);
+    for (int k = 0; k < HD / 16; ++k) {
+        const int c = k * 16 + 2 * t4;
+        qa[k][0] = qa_row ? pack_bf16(qa_row[c], qa_row[c + 1]) : 0u;
+        qa[k][1] = qb_row ? pack_bf16(qb_row[c], qb_row[c + 1]) : 0u;
+        qa[k][2] = qa_row ? pack_bf16(qa_row[c + 8], qa_row[c + 9]) : 0u;
+        qa[k][3] = qb_row ? pack_bf16(qb_row[c + 8], qb_row[c + 9]) : 0u;
+    }
+    // the rows' maxima: this split's (first pass) or over every split's
+    float ma = -1e30f, mb = -1e30f;
+    if constexpr (!MAXPASS) {
+        for (size_t z = 0; z < S; ++z) {
+            if (ra < NQ) ma = fmaxf(ma, part[(z * KV + g) * NQ + ra]);
+            if (rb < NQ) mb = fmaxf(mb, part[(z * KV + g) * NQ + rb]);
+        }
+    }
+    float o[MAXPASS ? 1 : HD / 8][4];
+#pragma unroll
+    for (int j = 0; j < (MAXPASS ? 1 : HD / 8); ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    float la = 0.f, lb = 0.f;
+
+    const int t0 = blockIdx.x * per_split;
+    const int t1 = min(min(ntiles, t0 + per_split), (maxlim + KT - 1) / KT);
+
+    // Issue the copies of tile t into buffer `slot` (K only in the first pass).
+    auto load = [&](int t, int slot) {
+        const int key0 = t * KT;
+        bf16* kd = sm.kb + slot * Sm::TILE_BF;
+        bf16* vd = sm.vb + slot * Sm::TILE_BF;
+        for (int idx = tid; idx < KT * CH; idx += nthreads) {
+            const int j = idx / CH, c = idx % CH, key = key0 + j;
+            const bool live = key < maxlim;
+            if (live && key >= own0) {  // the chunk's own row, from f32
+                const size_t off = ((size_t)(key - own0) * KV + g) * HD + c * 8;
+                *(uint4*)(kd + j * LD + c * 8) = bf16x8(k_in + off);
+                if (!MAXPASS) *(uint4*)(vd + j * LD + c * 8) = bf16x8(v_in + off);
+            } else if (Q8) {
+                if (c < HD / 16) {  // 16 int8 values a chunk
+                    const size_t row = live ? rows.row(0, g, key, KV) : 0;
+                    const size_t so = (size_t)(slot * KT + j) * HD + c * 16;
+                    cp_async16(sm.k8 + so, (const int8_t*)k_pool + row * HD + c * 16, live);
+                    if (!MAXPASS)
+                        cp_async16(sm.v8 + so, (const int8_t*)v_pool + row * HD + c * 16, live);
+                }
             } else {
-                ks[j][e] = kv_load<Q8, HD>(k_pool, k_scale, row0 + j, e);
-                vs[j][e] = kv_load<Q8, HD>(v_pool, v_scale, row0 + j, e);
+                const size_t row = live ? rows.row(0, g, key, KV) : 0;
+                cp_async16(kd + j * LD + c * 8, (const bf16*)k_pool + row * HD + c * 8, live);
+                if (!MAXPASS)
+                    cp_async16(vd + j * LD + c * 8, (const bf16*)v_pool + row * HD + c * 8, live);
             }
         }
-        __syncthreads();
-        for (int t = tid; t < NQ * TILE; t += CT) {
-            int qv = t / TILE, j = t % TILE;
-            int i = i0 + qv / Gt;
-            float sacc = 0.f;
-            for (int e = 0; e < HD; ++e) sacc += __bfloat162float(qs[qv][e]) * ks[j][e];
-            sc[qv][j] = (blk * TILE + j <= pos0 + i) ? sacc * scale : -INFINITY;
-        }
-        __syncthreads();
-        if (tid < NQ) {
-            float mo = m_s[tid], mx = -INFINITY;
-            for (int j = 0; j < TILE; ++j) mx = fmaxf(mx, sc[tid][j]);
-            float mn = fmaxf(mo, mx);
-            float al = expf(mo - mn);
-            float sum = 0.f;
-            for (int j = 0; j < TILE; ++j) {
-                float p = expf(sc[tid][j] - mn);
-                sum += p;
-                sc[tid][j] = bf16_round(p);
+        if constexpr (Q8) {
+            for (int j = tid; j < KT; j += nthreads) {
+                const int key = key0 + j;
+                const bool live = key < maxlim && key < own0;
+                const size_t row = live ? rows.row(0, g, key, KV) : 0;
+                sm.ks[slot * KT + j] = live ? k_scale[row] : 0.f;
+                if (!MAXPASS) sm.vs[slot * KT + j] = live ? v_scale[row] : 0.f;
             }
-            l_s[tid] = l_s[tid] * al + sum;
-            m_s[tid] = mn;
-            al_s[tid] = al;
         }
+    };
+
+    if (t0 < t1) load(t0, 0);
+    cp_async_commit();
+    for (int t = t0; t < t1; ++t) {
+        const int slot = (t - t0) & 1, key0 = t * KT;
+        if (t + 1 < t1) load(t + 1, slot ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
         __syncthreads();
+        const bf16* kt = sm.kb + slot * Sm::TILE_BF;
+        const bf16* vt = sm.vb + slot * Sm::TILE_BF;
+        if constexpr (Q8) {  // widen the int8 rows, 8 values a step: bf16(q * scale)
+            bf16* kd = sm.kb + slot * Sm::TILE_BF;
+            bf16* vd = sm.vb + slot * Sm::TILE_BF;
+            for (int idx = tid; idx < KT * CH; idx += nthreads) {
+                const int j = idx / CH, c = idx % CH, key = key0 + j;
+                if (key >= own0 && key < maxlim) continue;  // own rows are bf16 already
+                const size_t so = (size_t)(slot * KT + j) * HD + c * 8;
+                *(uint4*)(kd + j * LD + c * 8) = widen8(sm.k8 + so, sm.ks[slot * KT + j]);
+                if (!MAXPASS)
+                    *(uint4*)(vd + j * LD + c * 8) = widen8(sm.v8 + so, sm.vs[slot * KT + j]);
+            }
+            __syncthreads();
+        }
+        if (wactive && key0 < wlim) {  // uniform over the warp
+            float s[KT / 8][4];
 #pragma unroll
-        for (int u = 0; u < NACC; ++u) {
-            int qv = qv0 + QSTEP * u;
-            if (qv < NQ) {
-                float pv = 0.f;
-                for (int j = 0; j < TILE; ++j) pv += sc[qv][j] * vs[j][d];
-                acc[u] = acc[u] * al_s[qv] + pv;
+            for (int n = 0; n < KT / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+            for (int k = 0; k < HD / 16; ++k) {
+#pragma unroll
+                for (int n = 0; n < KT / 8; ++n) {
+                    const bf16* kr = kt + (n * 8 + gq) * LD + k * 16 + 2 * t4;
+                    const uint32_t b[2] = {*(const uint32_t*)kr, *(const uint32_t*)(kr + 8)};
+                    mma_bf16_16816(s[n], qa[k], b);
+                }
+            }
+#pragma unroll
+            for (int n = 0; n < KT / 8; ++n) {
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    const int key = key0 + n * 8 + 2 * t4 + (c & 1);
+                    const bool see = key < (c < 2 ? lima : limb);
+                    s[n][c] = see ? s[n][c] * scale : -INFINITY;
+                }
+            }
+            if constexpr (MAXPASS) {
+#pragma unroll
+                for (int n = 0; n < KT / 8; ++n) {
+                    ma = fmaxf(ma, fmaxf(s[n][0], s[n][1]));
+                    mb = fmaxf(mb, fmaxf(s[n][2], s[n][3]));
+                }
+            } else {
+                uint32_t pa[KT / 16][4];
+#pragma unroll
+                for (int n = 0; n < KT / 8; ++n) {
+                    const float p0 = expf(s[n][0] - ma), p1 = expf(s[n][1] - ma);
+                    const float p2 = expf(s[n][2] - mb), p3 = expf(s[n][3] - mb);
+                    la += p0 + p1;
+                    lb += p2 + p3;
+                    pa[n / 2][(n & 1) * 2] = pack_bf16(p0, p1);      // row g
+                    pa[n / 2][(n & 1) * 2 + 1] = pack_bf16(p2, p3);  // row g + 8
+                }
+#pragma unroll
+                for (int kk = 0; kk < KT / 16; ++kk) {
+                    const bf16* v0 = vt + (kk * 16 + 2 * t4) * LD + gq;
+#pragma unroll
+                    for (int j = 0; j < HD / 8; ++j) {
+                        const bf16* vr = v0 + j * 8;
+                        const uint32_t b[2] = {pack_bf16(vr[0], vr[LD]),
+                                               pack_bf16(vr[8 * LD], vr[9 * LD])};
+                        mma_bf16_16816(o[j], pa[kk], b);
+                    }
+                }
             }
         }
-        __syncthreads();
+        __syncthreads();  // the next iteration's copies overwrite this buffer
     }
+
+    if (!wactive) return;  // no barrier below
+    for (int half = 0; half < 2; ++half) {
+        const int r = half ? rb : ra;
+        float v = half ? (MAXPASS ? mb : lb) : (MAXPASS ? ma : la);
+        v = MAXPASS ? fmaxf(v, shfl_xor(v, 1)) : v + shfl_xor(v, 1);
+        v = MAXPASS ? fmaxf(v, shfl_xor(v, 2)) : v + shfl_xor(v, 2);
+        if (r >= NQ) continue;
+        const size_t base = ((size_t)blockIdx.x * KV + g) * NQ + r;
+        if (t4 == 0) part[(MAXPASS ? 0 : n_ml) + base] = v;
+        if constexpr (!MAXPASS) {
+            float* acc = part + 2 * n_ml + base * HD + 2 * t4;
 #pragma unroll
-    for (int u = 0; u < NACC; ++u) {
-        int qv = qv0 + QSTEP * u;
-        if (qv < NQ) {
-            int i = i0 + qv / Gt, h = qv % Gt;
-            if (i < M)
-                attn[((size_t)i * H + h0 + h) * HD + d] =
-                    __float2bfloat16(acc[u] / l_s[qv]);
+            for (int j = 0; j < HD / 8; ++j)
+                *(float2*)(acc + j * 8) = make_float2(o[j][2 * half], o[j][2 * half + 1]);
         }
     }
+}
+
+// The sweep's last launch: one warp per (rows_per_block query rows, kv head
+// g), each lane V = HD / 32 neighbouring dimensions. Sums the second pass's
+// splits of l and O in index order 0 .. splits - 1 (the result does not
+// depend on scheduling) and writes bf16(O / l) for query head g * G + r % G
+// of row r / G.
+template <int HD>
+static __global__ void __launch_bounds__(32)
+chunk_combine(const float* __restrict__ part, int splits, int rows_per_block,
+              bf16* __restrict__ attn, int NQ, int H, int KV) {
+    constexpr int V = HD / 32;
+    const int g = blockIdx.y, G = H / KV, d0 = threadIdx.x * V;
+    const size_t n_ml = (size_t)splits * KV * NQ;
+    const int r1 = min(NQ, (int)(blockIdx.x + 1) * rows_per_block);
+    for (int r = blockIdx.x * rows_per_block; r < r1; ++r) {
+        float l = 0.f, acc[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[e] = 0.f;
+        for (int z = 0; z < splits; ++z) {
+            const size_t base = ((size_t)z * KV + g) * NQ + r;
+            const float* a = part + 2 * n_ml + base * HD + d0;
+            l += part[n_ml + base];
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[e] += a[e];
+        }
+        bf16* out = attn + ((size_t)(r / G) * H + g * G + r % G) * HD + d0;
+#pragma unroll
+        for (int e = 0; e < V; ++e) out[e] = __float2bfloat16(acc[e] / l);
+    }
+}
+
+// A sweep's launch shape for NQ packed query rows per kv head over `ctx`
+// keys: warps per block (16 rows each, at most `maxw`), row tiles (grid z),
+// and key splits (grid x) of per_split tiles: about 264 / (KV x row tiles)
+// of them (two blocks an SM), each at least 2 tiles deep, none empty.
+struct SweepShape {
+    int nw, row_tiles, ntiles, splits, per_split;
+    SweepShape(int NQ, int KV, int ctx, int maxw) {
+        nw = max(1, min(maxw, (NQ + 15) / 16));
+        row_tiles = (NQ + 16 * nw - 1) / (16 * nw);
+        ntiles = (ctx + KT - 1) / KT;
+        const int blocks = KV * row_tiles;
+        const int s = max(1, min((2 * SMS + blocks - 1) / blocks, ntiles / 2));
+        per_split = max(1, (ntiles + s - 1) / s);
+        splits = max(1, (ntiles + per_split - 1) / per_split);
+    }
+};
+// Warps a block: the dense verify holds all of its few rows in one block;
+// the prefill takes 4 (3 blocks an SM fit in registers), so 4 warps share
+// each K/V tile.
+constexpr int VERIFY_WARPS = MAXW;
+constexpr int PREFILL_WARPS = 4;
+
+// The two passes of the sweep over `shape`'s grid into the partials `part`,
+// then the combine into attn. Row i of rows_n sees keys < pos0 + i + 1.
+template <bool Q8, class Rows, int HD>
+static void launch_sweep(const SweepShape& shape, const void* q, const void* kcur,
+                         const void* vcur, const void* k_pool, const void* v_pool,
+                         const void* k_scale, const void* v_scale, Rows rows, int rows_n,
+                         int H, int KV, float scale, int pos0, int own0, void* attn,
+                         void* part, void* stream, int& err) {
+    auto first = tc_sweep<Q8, true, Rows, HD>;
+    auto second = tc_sweep<Q8, false, Rows, HD>;
+    constexpr size_t smem = SweepSmem<Q8, HD>::bytes;
+    static const int attr = allow_dynamic_smem(first, smem) | allow_dynamic_smem(second, smem);
+    if (attr) {
+        if (!err) err = attr;
+        return;
+    }
+    const int NQ = rows_n * (H / KV);
+    const dim3 grid(shape.splits, KV, shape.row_tiles), block(32 * shape.nw);
+    for (auto kern : {first, second}) {
+        DORA_LAUNCH_SMEM(kern, grid, block, smem, stream, (const float*)q, (const float*)kcur,
+                         (const float*)vcur, k_pool, v_pool, (const float*)k_scale,
+                         (const float*)v_scale, rows, H, KV, scale, NQ, pos0 + 1, 1, own0,
+                         shape.ntiles, shape.per_split, (float*)part);
+        DORA_CHECK(err);
+    }
+    // two warps an SM, up to 16 rows each
+    const int per = max(1, min(16, NQ * KV / (2 * SMS)));
+    DORA_LAUNCH(chunk_combine<HD>, dim3((NQ + per - 1) / per, KV), dim3(32), stream,
+                (const float*)part, shape.splits, per, (bf16*)attn, NQ, H, KV);
+    DORA_CHECK(err);
 }
 
 // Spec verify: one block per (stream b, kv head g, tile z of SQ query
@@ -411,22 +684,20 @@ paged_chunk_attn(const float* __restrict__ q_in, const float* __restrict__ k_in,
 // ordered (candidate i, head h), r = i * G + h, and block z holds rows z*SQ
 // .. z*SQ + SQ - 1 of them. It sweeps the PRIOR context, rows 0 .. pos - 1
 // in tiles of TILE with key idx < pos live (pos is each stream's chunk
-// start, positions[b], or pos0 for the dense batch-1 chunk, and need not be
-// a multiple of TILE; the rows this call wrote sit at idx >= pos and are not
-// read), then folds the stream's own m rows, TILE at a time, as more
-// online-softmax steps, causally (candidate i sees rows j <= i) and from the
-// bf16-rounded K/V of the scratch rows, never from the cache: frozen streams
-// race on null page 0, and the reference folds bf16 values (its
-// k_s.astype(dtype) / k_m.astype(dtype)). Another stream's rows are never
-// seen.
+// start, positions[b], and need not be a multiple of TILE; the rows this
+// call wrote sit at idx >= pos and are not read), then folds the stream's
+// own m rows, TILE at a time, as more online-softmax steps, causally
+// (candidate i sees rows j <= i) and from the bf16-rounded K/V of the
+// scratch rows, never from the cache: frozen streams race on null page 0,
+// and the reference folds bf16 values (its k_s.astype(dtype) /
+// k_m.astype(dtype)). Another stream's rows are never seen.
 template <bool Q8, class Rows, int HD>
 static __global__ void __launch_bounds__(ST)
 spec_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
            const float* __restrict__ v_in, const void* __restrict__ k_pool,
            const void* __restrict__ v_pool, const float* __restrict__ k_scale,
            const float* __restrict__ v_scale, const int* __restrict__ positions,
-           int pos0, Rows rows, bf16* __restrict__ attn, int m, int H, int KV,
-           float scale) {
+           Rows rows, bf16* __restrict__ attn, int m, int H, int KV, float scale) {
     __shared__ bf16 qs[SQ][HD];
     __shared__ float ks[TILE][HD + 1];
     __shared__ float vs[TILE][HD];
@@ -437,7 +708,7 @@ spec_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
     const int tid = threadIdx.x, b = blockIdx.x, g = blockIdx.y;
     const int G = H / KV, r0 = blockIdx.z * SQ;
     const int NQ = min(SQ, m * G - r0);  // this block's query rows
-    const int pos = positions ? positions[b] : pos0;
+    const int pos = positions[b];
     for (int idx = tid; idx < NQ * HD; idx += ST) {
         int qv = idx / HD, e = idx % HD;
         int i = (r0 + qv) / G, h = (r0 + qv) % G;
@@ -595,6 +866,19 @@ static int decode_step(const void* x, const void* norm_w, const void* wqkv,
     return err;
 }
 
+// Prefill: M rows of one stream at pos0 .. pos0 + M - 1 (pos0 and M
+// multiples of the page). The sweep holds the chunk's M x G query rows of a
+// kv head in tiles of 64 (4 warps sharing each K/V tile) and splits the keys
+// [0, pos0 + M) over grid x so the grid holds about two blocks an SM (6
+// splits of 4 tiles at 256 rows of 12 / 2 heads from 512); a block walks
+// only the tiles its last row sees, causally (row i sees keys <= pos0 + i):
+// the prior pages from the pool, its own chunk from the pool in the fp form
+// (the bf16 values just written) and from the f32 scratch rounded to bf16 in
+// the int8 form. The combine sums the splits.
+static inline SweepShape prefill_shape(int M, int H, int KV, int position) {
+    return SweepShape(M * (H / KV), KV, position + M, PREFILL_WARPS);
+}
+
 template <bool Q8, int HD>
 static int chunk_step(const void* x, const void* norm_w, const void* wqkv,
                       const void* sqkv, const void* bqkv, const void* cosr,
@@ -602,44 +886,70 @@ static int chunk_step(const void* x, const void* norm_w, const void* wqkv,
                       void* v_scale, const void* wo, const void* swo, int position,
                       PagedRows rows, void* out, int residual, int M, int D, int H,
                       int KV, float eps, float scale, void* h, void* p, void* q,
-                      void* kcur, void* vcur, void* attn, void* stream) {
+                      void* kcur, void* vcur, void* attn, void* part, void* stream) {
     int err = 0;
     project_and_write<Q8, PagedRows, HD>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr,
                                          k_pool, v_pool, k_scale, v_scale, nullptr,
                                          position, M, rows, M, D, H, KV, eps, h, p, q,
                                          kcur, vcur, stream, err);
-    auto kern = paged_chunk_attn<Q8, HD>;
-    DORA_LAUNCH(kern, dim3((M + BQ - 1) / BQ, KV, group_tiles(H, KV)), dim3(CT), stream,
-                (const float*)q, (const float*)kcur, (const float*)vcur,
-                (const void*)k_pool, (const void*)v_pool, (const float*)k_scale,
-                (const float*)v_scale, position, rows, (bf16*)attn, M, H, KV, scale);
-    DORA_CHECK(err);
+    launch_sweep<Q8, PagedRows, HD>(prefill_shape(M, H, KV, position), q, kcur, vcur, k_pool,
+                                    v_pool, k_scale, v_scale, rows, M, H, KV, scale, position,
+                                    Q8 ? position : INT_MAX, attn, part, stream, err);
     out_projection(x, wo, swo, out, residual, M, D, H, HD, p, attn, stream, err);
     return err;
 }
 
-// Spec verify: B streams of m rows, stream b's from positions[b] (null: one
-// stream from pos0, the dense batch-1 chunk).
+// Dense verify (kernel 10): M rows of one stream at pos0 .. pos0 + M - 1 of
+// [KV, S, HD] planes. One row tile holds the M x G query rows of a kv head
+// (up to 128); the sweep splits the keys [0, pos0 + M) over grid x (32
+// splits of 2 tiles at 2043): the prior context from the cache, the M own
+// rows causally from bf16 of the f32 scratch, never from the cache.
+static inline SweepShape verify_shape(int M, int H, int KV, int position) {
+    return SweepShape(M * (H / KV), KV, position + M, VERIFY_WARPS);
+}
+
+template <int HD>
+static int dense_chunk_step(const void* x, const void* norm_w, const void* wqkv,
+                            const void* sqkv, const void* bqkv, const void* cosr,
+                            const void* sinr, void* k_cache, void* v_cache, const void* wo,
+                            const void* swo, int position, void* out, int residual, int M,
+                            int D, int H, int KV, int S, float eps, float scale, void* h,
+                            void* p, void* q, void* kcur, void* vcur, void* attn, void* part,
+                            void* stream) {
+    int err = 0;
+    const DenseRows rows{S};
+    project_and_write<false, DenseRows, HD>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr,
+                                            k_cache, v_cache, nullptr, nullptr, nullptr,
+                                            position, M, rows, M, D, H, KV, eps, h, p, q,
+                                            kcur, vcur, stream, err);
+    launch_sweep<false, DenseRows, HD>(verify_shape(M, H, KV, position), q, kcur, vcur,
+                                       k_cache, v_cache, nullptr, nullptr, rows, M, H, KV,
+                                       scale, position, position, attn, part, stream, err);
+    out_projection(x, wo, swo, out, residual, M, D, H, HD, p, attn, stream, err);
+    return err;
+}
+
+// Paged spec verify: B streams of m rows, stream b's from positions[b].
 template <bool Q8, class Rows, int HD>
 static int spec_step(const void* x, const void* norm_w, const void* wqkv,
                      const void* sqkv, const void* bqkv, const void* cosr,
                      const void* sinr, void* k_pool, void* v_pool, void* k_scale,
                      void* v_scale, const void* wo, const void* swo,
-                     const void* positions, int pos0, Rows rows, void* out,
+                     const void* positions, Rows rows, void* out,
                      int residual, int B, int m, int D, int H, int KV, float eps,
                      float scale, void* h, void* p, void* q, void* kcur, void* vcur,
                      void* attn, void* stream) {
     int err = 0;
     const int M = B * m;
     project_and_write<Q8, Rows, HD>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool,
-                                    v_pool, k_scale, v_scale, positions, pos0, m, rows,
+                                    v_pool, k_scale, v_scale, positions, 0, m, rows,
                                     M, D, H, KV, eps, h, p, q, kcur, vcur, stream, err);
     auto kern = spec_sweep<Q8, Rows, HD>;
     const int row_tiles = (m * (H / KV) + SQ - 1) / SQ;
     DORA_LAUNCH(kern, dim3(B, KV, row_tiles), dim3(ST), stream,
                 (const float*)q, (const float*)kcur, (const float*)vcur,
                 (const void*)k_pool, (const void*)v_pool, (const float*)k_scale,
-                (const float*)v_scale, (const int*)positions, pos0, rows,
+                (const float*)v_scale, (const int*)positions, rows,
                 (bf16*)attn, m, H, KV, scale);
     DORA_CHECK(err);
     out_projection(x, wo, swo, out, residual, M, D, H, HD, p, attn, stream, err);
@@ -686,19 +996,29 @@ extern "C" int dora_attention_paged_batch_step(
 // As above for M rows of one stream at positions position..position+M-1
 // (position and M multiples of the page); block_table [max_pages] int32 is
 // that stream's row. Scratch as above; kcur and vcur [M, KV, hd] are needed
-// in the int8 form only (null in fp).
+// in the int8 form only (null in fp); part f32 [splits, KV, M * H / KV,
+// hd + 2] for the sweep's partials, splits = dora_sweep_splits(0, M, H, KV,
+// position).
 extern "C" int dora_attention_paged_chunk_step(
     const void* x, const void* norm_w, const void* wqkv, const void* sqkv,
     const void* bqkv, const void* cosr, const void* sinr, void* k_pool,
     void* v_pool, void* k_scale, void* v_scale, const void* wo, const void* swo,
     int position, const void* block_table, void* out, int residual, int M, int D,
     int H, int KV, int hd, int page, float eps, float scale, void* h, void* p,
-    void* q, void* kcur, void* vcur, void* attn, void* stream) {
+    void* q, void* kcur, void* vcur, void* attn, void* part, void* stream) {
     const PagedRows rows{(const int*)block_table, 0, page};
     DORA_BY_HEAD_DIM(hd, (k_scale ? chunk_step<true, HD> : chunk_step<false, HD>)(
         x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool, k_scale, v_scale,
         wo, swo, position, rows, out, residual, M, D, H, KV, eps, scale, h, p, q,
-        kcur, vcur, attn, stream));
+        kcur, vcur, attn, part, stream));
+}
+
+// The context splits of a tensor-core sweep, hence its partials' size: the
+// prefill's (dense 0) or the dense verify's (dense 1) at M rows from
+// `position`.
+extern "C" int dora_sweep_splits(int dense, int M, int H, int KV, int position) {
+    return (dense ? verify_shape(M, H, KV, position) : prefill_shape(M, H, KV, position))
+        .splits;
 }
 
 // Spec verify: B streams of m candidate rows each, x [B*m, D] stream-major;
@@ -718,8 +1038,8 @@ extern "C" int dora_attention_paged_spec_step(
     DORA_BY_HEAD_DIM(hd, (k_scale ? spec_step<true, PagedRows, HD>
                                   : spec_step<false, PagedRows, HD>)(
         x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool, k_scale, v_scale,
-        wo, swo, positions, 0, rows, out, residual, B, m, D, H, KV, eps, scale, h, p,
-        q, kcur, vcur, attn, stream));
+        wo, swo, positions, rows, out, residual, B, m, D, H, KV, eps, scale, h, p, q,
+        kcur, vcur, attn, stream));
 }
 
 // Dense decode (attention_batch_step, and attention_step with B = 1): bf16
@@ -743,16 +1063,45 @@ extern "C" int dora_attention_dense_step(
 // Dense batch-1 chunk (attention_chunk_step): M rows at position ..
 // position + M - 1 of bf16 caches [KV, S, hd]; position + M <= S (the
 // speculation headroom, checked by the wrapper). Scratch as the spec entry
-// for M rows.
+// for M rows, and part as the prefill entry's (dora_sweep_splits(1, ...)).
 extern "C" int dora_attention_dense_chunk_step(
     const void* x, const void* norm_w, const void* wqkv, const void* sqkv,
     const void* bqkv, const void* cosr, const void* sinr, void* k_cache,
     void* v_cache, const void* wo, const void* swo, int position, void* out,
     int residual, int M, int D, int H, int KV, int hd, int S, float eps,
     float scale, void* h, void* p, void* q, void* kcur, void* vcur, void* attn,
-    void* stream) {
-    DORA_BY_HEAD_DIM(hd, (spec_step<false, DenseRows, HD>(
-        x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_cache, v_cache, nullptr, nullptr,
-        wo, swo, nullptr, position, DenseRows{S}, out, residual, 1, M, D, H, KV, eps,
-        scale, h, p, q, kcur, vcur, attn, stream)));
+    void* part, void* stream) {
+    DORA_BY_HEAD_DIM(hd, (dense_chunk_step<HD>(
+        x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_cache, v_cache, wo, swo, position,
+        out, residual, M, D, H, KV, S, eps, scale, h, p, q, kcur, vcur, attn, part,
+        stream)));
+}
+
+// One 16 x 8 x 16 tile through mma_bf16_16816 (one warp): D = A B for bf16
+// A [16, 16] and B [16, 8] (k-major), f32 D [16, 8]; every lane builds its
+// fragments by the layout the sweep uses. Checks that layout against a
+// plain product, on the card and in the emulated build.
+static __global__ void __launch_bounds__(32)
+mma_tile(const bf16* __restrict__ A, const bf16* __restrict__ B, float* __restrict__ D) {
+    const int lane = threadIdx.x, g = lane / 4, t = lane % 4;
+    const uint32_t a[4] = {pack_bf16(A[g * 16 + 2 * t], A[g * 16 + 2 * t + 1]),
+                           pack_bf16(A[(g + 8) * 16 + 2 * t], A[(g + 8) * 16 + 2 * t + 1]),
+                           pack_bf16(A[g * 16 + 2 * t + 8], A[g * 16 + 2 * t + 9]),
+                           pack_bf16(A[(g + 8) * 16 + 2 * t + 8], A[(g + 8) * 16 + 2 * t + 9])};
+    const uint32_t b[2] = {pack_bf16(B[2 * t * 8 + g], B[(2 * t + 1) * 8 + g]),
+                           pack_bf16(B[(2 * t + 8) * 8 + g], B[(2 * t + 9) * 8 + g])};
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_bf16_16816(d, a, b);
+    D[g * 8 + 2 * t] = d[0];
+    D[g * 8 + 2 * t + 1] = d[1];
+    D[(g + 8) * 8 + 2 * t] = d[2];
+    D[(g + 8) * 8 + 2 * t + 1] = d[3];
+}
+
+extern "C" int dora_mma_tile(const void* A, const void* B, void* D, void* stream) {
+    int err = 0;
+    DORA_LAUNCH(mma_tile, dim3(1), dim3(32), stream, (const bf16*)A, (const bf16*)B,
+                (float*)D);
+    DORA_CHECK(err);
+    return err;
 }

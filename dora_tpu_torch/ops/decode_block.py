@@ -50,13 +50,15 @@ _SIGNATURES = {
         "dora_attention_paged_batch_step":
             [_P] * 16 + [_I] * 8 + [_F] * 2 + [_P] * 7,
         "dora_attention_paged_chunk_step":
-            [_P] * 13 + [_I] + [_P] * 2 + [_I] * 7 + [_F] * 2 + [_P] * 7,
+            [_P] * 13 + [_I] + [_P] * 2 + [_I] * 7 + [_F] * 2 + [_P] * 8,
         "dora_attention_paged_spec_step":
             [_P] * 16 + [_I] * 9 + [_F] * 2 + [_P] * 7,
         "dora_attention_dense_step":
             [_P] * 12 + [_I] + [_P] + [_I] * 7 + [_F] * 2 + [_P] * 7,
         "dora_attention_dense_chunk_step":
-            [_P] * 11 + [_I] + [_P] + [_I] * 7 + [_F] * 2 + [_P] * 7,
+            [_P] * 11 + [_I] + [_P] + [_I] * 7 + [_F] * 2 + [_P] * 8,
+        "dora_sweep_splits": [_I] * 5,
+        "dora_mma_tile": [_P] * 4,
     },
 }
 
@@ -220,8 +222,12 @@ def _f32(t: torch.Tensor | None, name: str, n: int, device):
 
 def _int8_weight(w: torch.Tensor, name: str, k: int, n: int, device) -> None:
     _need(w, name, torch.int8, (k, n), device)
-    if w.data_ptr() % 16:
-        raise ValueError(f"{name}: the kernel reads 16-byte rows; the weight must be 16-byte aligned")
+    _aligned16(w, name)
+
+
+def _aligned16(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads 16-byte rows; it must be 16-byte aligned")
 
 
 def kernel_shape_limits(heads: int, kv_heads: int, head_dim: int,
@@ -464,6 +470,15 @@ def _scratch(rows: int, d: int, heads: int, kv_heads: int, head_dim: int, lib, d
             torch.empty((rows, heads * head_dim), dtype=bf, device=dev))
 
 
+def _sweep_partials(lib, dense: int, rows: int, heads: int, kv_heads: int, head_dim: int,
+                    position: int, dev):
+    """Scratch for the tensor-core sweep's context splits (kernels 4 and 10):
+    each split's (m, l, acc) for the rows x heads query rows, f32."""
+    splits = lib.dora_sweep_splits(dense, rows, heads, kv_heads, position)
+    return torch.empty((splits * rows * heads * (head_dim + 2),), dtype=torch.float32,
+                       device=dev)
+
+
 def _check_host_indices(positions, rows: int, block_tables, n_pages: int,
                         page: int) -> None:
     """The index operands of a kernel call on host tensors (the emulated
@@ -652,6 +667,8 @@ def _attention_paged_chunk_step_kernel(
     _int8_weight(wo, "wo", heads * head_dim, d, dev)
     _need_pools(k_pool, v_pool, k_scale, v_scale, kv_heads, head_dim, dev)
     _need(block_table, "block_table", torch.int32, (block_table.shape[-1],), dev)
+    _aligned16(k_pool, "k_pool")
+    _aligned16(v_pool, "v_pool")
     _need(cos_rows, "cos_rows", torch.float32, (m, head_dim), dev)
     _need(sin_rows, "sin_rows", torch.float32, (m, head_dim), dev)
     if not x.is_cuda:
@@ -674,6 +691,7 @@ def _attention_paged_chunk_step_kernel(
         kcur = torch.empty((m, kv_heads, head_dim), dtype=torch.float32, device=dev)
         vcur = torch.empty((m, kv_heads, head_dim), dtype=torch.float32, device=dev)
     attn = torch.empty((m, heads * head_dim), dtype=torch.bfloat16, device=dev)
+    part = _sweep_partials(lib, 0, m, heads, kv_heads, head_dim, pos, dev)
     out = torch.empty((m, d), dtype=torch.bfloat16 if residual else torch.float32,
                       device=dev)
     rc = lib.dora_attention_paged_chunk_step(
@@ -683,7 +701,7 @@ def _attention_paged_chunk_step_kernel(
         so.data_ptr(), pos, block_table.data_ptr(), out.data_ptr(),
         int(residual), m, d, heads, kv_heads, head_dim, page, eps,
         1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(), _ptr(kcur),
-        _ptr(vcur), attn.data_ptr(), _build.stream_of(x),
+        _ptr(vcur), attn.data_ptr(), part.data_ptr(), _build.stream_of(x),
     )
     _count(attention_paged_chunk_step, q8)
     _build.check(rc, "attention_paged_chunk_step")
@@ -1055,8 +1073,11 @@ def _attention_chunk_step_kernel(
         heads=heads, kv_heads=kv_heads, head_dim=head_dim, streams=1)
     pos = int(position)
     _check_dense_positions(torch.tensor([pos]), m, seq)
+    _aligned16(k_cache, "k_cache")
+    _aligned16(v_cache, "v_cache")
     lib = _lib("paged_attention", lib)
     h, p, q, kcur, vcur, attn = _scratch(m, d, heads, kv_heads, head_dim, lib, dev)
+    part = _sweep_partials(lib, 1, m, heads, kv_heads, head_dim, pos, dev)
     out = torch.empty((m, d), dtype=torch.bfloat16 if residual else torch.float32,
                       device=dev)
     rc = lib.dora_attention_dense_chunk_step(
@@ -1065,7 +1086,7 @@ def _attention_chunk_step_kernel(
         v_cache.data_ptr(), wo.data_ptr(), so.data_ptr(), pos, out.data_ptr(),
         int(residual), m, d, heads, kv_heads, head_dim, seq, eps, 1.0 / (head_dim ** 0.5),
         h.data_ptr(), p.data_ptr(), q.data_ptr(), kcur.data_ptr(), vcur.data_ptr(),
-        attn.data_ptr(), _build.stream_of(x),
+        attn.data_ptr(), part.data_ptr(), _build.stream_of(x),
     )
     _count(attention_chunk_step, False)
     _build.check(rc, "attention_chunk_step")
@@ -1131,6 +1152,22 @@ def rope_rows(cos_table, sin_table, position: int, length: int = 1):
         torch.cat([cos, cos], dim=-1).float(),
         torch.cat([-sin, sin], dim=-1).float(),
     )
+
+
+def mma_tile(a: torch.Tensor, b: torch.Tensor, lib=None) -> torch.Tensor:
+    """``a @ b`` in f32 for bf16 a [16, 16] and b [16, 8], through the
+    tensor-core helper the attention sweeps use (one m16n8k16 mma, every
+    lane's fragments built by the sweeps' layout). A check of that layout,
+    not a kernel of any path: the card and the emulated build run it
+    against ``torch.matmul``."""
+    dev = a.device
+    _need(a, "a", torch.bfloat16, (16, 16), dev)
+    _need(b, "b", torch.bfloat16, (16, 8), dev)
+    d = torch.empty((16, 8), dtype=torch.float32, device=dev)
+    lib = _lib("paged_attention", lib)
+    _build.check(lib.dora_mma_tile(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                                   _build.stream_of(a)), "mma_tile")
+    return d
 
 
 #: the kernel wrappers of this module: the paged serving path's in the order a

@@ -10,7 +10,12 @@ Qwen2-0.5B's 14 / 2 heads, page 32, Qwen2-7B's 28 / 4 heads (36 q + k + v
 heads), a group of 10 (two head tiles), and verify chunks of m x group =
 66 rows (two row tiles) and of 20 rows (two fold tiles); the LoRA kernel
 also at rank 256; flash attention at D 16 and 80, full and causal, with T
-off its tiles and transposed (strided) inputs.
+off its tiles and transposed (strided) inputs. The tensor-core sweeps of
+the prefill chunk and the dense verify run on the emulated warp
+collectives (shuffles, the m16n8k16 mma, cp.async): the mma alone on one
+tile against torch.matmul, the dense verify over 3+ context splits with
+m x group of 20, 35 and 66 rows, the prefill at groups 6 and 7 (head_dim
+128 and 64) from position 0 and from a later page, fp and int8 KV.
 
 This checks the kernels' indexing, masking and reductions without a card;
 it says nothing of how they compile or run on one (chip_smoke.py does).
@@ -78,6 +83,7 @@ _KERNELS = {
     "attention_step": (DB, "_attention_step_kernel", "paged_attention"),
     "attention_chunk_step": (DB, "_attention_chunk_step_kernel", "paged_attention"),
     "flash_attention": (FA, "_flash_attention_kernel", "flash_attention"),
+    "mma_tile": (DB, "mma_tile", "paged_attention"),
 }
 _SIGNATURES = {**DB._SIGNATURES, **LO._SIGNATURES, **IM._SIGNATURES, **FA._SIGNATURES}
 
@@ -94,6 +100,9 @@ def _run_job(job):
     if name == "__sleep__":
         time.sleep(args[0])
         return None
+    if name == "sweep_splits":  # the context splits kernel 4 (0) or 10 (1) takes
+        lib = _build.library("paged_attention", _SIGNATURES["paged_attention"], compiler="host")
+        return lib.dora_sweep_splits(*args)
     module, fn, lib = _KERNELS[name]
     lib = _build.library(lib, _SIGNATURES[lib], compiler="host")
     return getattr(module, fn)(*args, lib=lib, **kw)
@@ -333,7 +342,7 @@ def test_paged_batch_kernel_matches_plain(emu):
 
 def _chunk_case(rng, position, h=4, kv=2, hd=128, page=16, maxp=6, d=64, m=32):
     wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng, d, h, kv, hd)
-    n_pool = 10
+    n_pool = maxp + 4
     bt = torch.from_numpy((1 + rng.permutation(n_pool - 1)[:maxp]).astype(np.int32))
     x = _t(rng.standard_normal((m, d)), BF)
     cr, sr = DB.rope_rows(cos_t, sin_t, position, m)
@@ -831,6 +840,98 @@ def test_widened_dense_kernels_match_plain(emu, case):
     got, k2, v2 = emu.call(name, *args, kc.clone(), vc.clone(), wo["int8"], wo["scale"],
                            where, eps=1e-6, **kw)
     _dense_check(got, want, (k2, v2), (k1, v1), (kc, vc), written)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core sweeps of kernels 4 and 10
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", (0, 1))
+def test_emulated_mma_tile_matches_matmul(emu, seed):
+    """The emulated m16n8k16 mma, fed fragments by the sweeps' layout, is
+    the plain product of one 16 x 16 by 16 x 8 bf16 tile (f32 sums of exact
+    bf16 products: within 1e-5 of the largest magnitude)."""
+    rng = np.random.default_rng(seed)
+    a = _t(rng.standard_normal((16, 16)) * 4, BF)
+    b = _t(rng.standard_normal((16, 8)), BF)
+    got = emu.call("mma_tile", a, b)
+    want = torch.matmul(a.float(), b.float())
+    assert got.dtype == torch.float32 and got.shape == (16, 8)
+    assert _rel(got, want) <= 1e-5
+
+
+LONG_SEQ = 256  # dense planes long enough for several 32-key context splits
+
+#: case -> (heads, kv_heads, head_dim, rows, position): m x group of 20, 66
+#: and 35 query rows, positions off the 32-key tile, 3 or 4 context splits
+SPLIT_DENSE = {
+    "m10_group2_20_rows": (4, 2, 128, 10, 201),
+    "m11_group6_66_rows_hd64": (12, 2, 64, 11, 197),
+    "m5_group7_hd64": (14, 2, 64, 5, 250),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_DENSE))
+def test_dense_chunk_kernel_splits_the_context(emu, case):
+    """Kernel 10 over a context split 3+ ways, every row from the position
+    on NaN: finite outputs within tolerance of the plain version, written
+    rows within tolerance, everything else bit-unchanged."""
+    h, kv, hd, m, position = SPLIT_DENSE[case]
+    assert emu.call("sweep_splits", 1, m, h, kv, position) >= 3
+    rng = np.random.default_rng(80 + m)
+    wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng, h=h, kv=kv, hd=hd)
+    inv = 1.0 / 10000.0 ** (torch.arange(0, hd, 2, dtype=torch.float32) / hd)
+    freqs = torch.outer(torch.arange(LONG_SEQ, dtype=torch.float32), inv)
+    cos_t, sin_t = torch.cos(freqs), torch.sin(freqs)
+    x = _t(rng.standard_normal((m, 64)), BF)
+    kc, vc = _nan_caches(rng, (kv, LONG_SEQ, hd), position)
+    cr, sr = DB.rope_rows(cos_t, sin_t, position, m)
+    args = (x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr)
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd, residual=True)
+    want, k1, v1 = DB.attention_chunk_step_plain(*args, kc.clone(), vc.clone(), wo["int8"],
+                                                 wo["scale"], position, **kw)
+    got, k2, v2 = emu.call("attention_chunk_step", *args, kc.clone(), vc.clone(), wo["int8"],
+                           wo["scale"], position, eps=1e-6, **kw)
+    written = torch.zeros((kv, LONG_SEQ), dtype=torch.bool)
+    written[:, position : position + m] = True
+    _dense_check(got, want, (k2, v2), (k1, v1), (kc, vc), written)
+
+
+@pytest.mark.parametrize("group,hd", [(6, 128), (7, 64)])
+@pytest.mark.parametrize("position", (0, 144))
+@pytest.mark.parametrize("int8kv", (False, True))
+def test_paged_chunk_sweep_groups_and_forms(emu, group, hd, position, int8kv):
+    """Kernel 4 at Qwen2-1.5B's group of 6 (head_dim 128) and Qwen2-0.5B's
+    7 (head_dim 64), from position 0 and from a later page (the own chunk
+    starts inside a 32-key tile, the keys split 3 ways), fp and int8 KV."""
+    h, kv = 2 * group, 2
+    rng = np.random.default_rng(90 + group + position + int8kv)
+    if position:
+        assert emu.call("sweep_splits", 0, 32, h, kv, position) == 3
+    head, tail, shape, written = _chunk_case(rng, position, h=h, kv=kv, hd=hd, maxp=12)
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd)
+    if int8kv:
+        pools = _int8_pools(rng, shape)
+        want, *pw = DB.attention_paged_chunk_step_plain(
+            *head, pools[0].clone(), pools[1].clone(), *tail, pools[2].clone(),
+            pools[3].clone(), **kw)
+        got, *pg = emu.call("attention_paged_chunk_step", *head, pools[0].clone(),
+                            pools[1].clone(), *tail, pools[2].clone(), pools[3].clone(),
+                            eps=1e-6, residual=True, **kw)
+        assert _rel(got, want) <= 1e-2
+        _check_int8_writes(pg, pw, pools, written, f"chunk int8 KV, group {group}")
+        return
+    kp = _t(rng.standard_normal(shape) * 0.5, BF)
+    vp = _t(rng.standard_normal(shape) * 0.5, BF)
+    want, k1, v1 = DB.attention_paged_chunk_step_plain(
+        *head, kp.clone(), vp.clone(), *tail, **kw)
+    got, k2, v2 = emu.call("attention_paged_chunk_step", *head, kp.clone(), vp.clone(),
+                           *tail, eps=1e-6, residual=True, **kw)
+    assert _rel(got, want) <= 1e-2
+    assert _rel(k2, k1) <= 1e-2 and _rel(v2, v1) <= 1e-2
+    others = ~written[:, 0, 0]
+    assert torch.equal(k2[others], kp[others])
 
 
 # ---------------------------------------------------------------------------
