@@ -13,9 +13,10 @@ Phases, each printed on its own line:
 3. each of the nine kernels of the paged serving paths (the five fp-KV
    ones, ``lora_gather_matmul`` and the int8-KV forms of the three
    attention kernels) held against its plain PyTorch version on the card,
-   in bf16 at the Qwen2-1.5B shapes the serving paths give it (``mlp_step``,
-   ``lm_head_argmax`` and the LoRA kernel also at the 80 rows of a
-   speculative verify and the 256 of a prefill chunk), with its time, the
+   in bf16 at the Qwen2-1.5B shapes the serving paths give it (``mlp_step``
+   and ``lm_head_argmax`` also at the 1 row of batch-1 decode, and with the
+   LoRA kernel at the 80 rows of a speculative verify and the 256 of a
+   prefill chunk), with its time, the
    plain version's time, a library yardstick's time and the least time the
    card could take (``bound_ms``); the int8 forms' written rows within 1 LSB
    of the plain version's and every other value and scale bit-unchanged,
@@ -101,18 +102,24 @@ at the widened shapes, one layer of seeded weights each: head_dim 64 at
 Qwen2-0.5B's 14 / 2 heads, Qwen2-7B's 28 / 4 heads, page 32, and a
 ``DORA_SPEC_K=10`` verify at Qwen2-1.5B's group of 6 (66 rows), with the
 LoRA kernel at rank 256. It checks the tensor-core helper of kernels 4 and
-10 (one m16n8k16 tile, fragments built by the sweeps' layout) against
-``torch.matmul``, and times the attention sublayers of kernels 3-5 and 8-10
-launch by launch (``sublayer`` lines: each launch's device time from
-``torch.profiler``, their sum, the wrapper's time on CUDA events and on the
-host, SDPA alone and the library chain of RMSNorm, cuBLAS products on the
-dequantized weights and SDPA).
+10 (one m16n8k16 tile, fragments built by the sweeps' layout) and the
+fragment path of kernels 1 and 2's int8-weight product (one 16 x 16 bf16
+tile by a 16 x 16 int8 tile: ldmatrix, ldmatrix.trans of the int8 bytes,
+their widening, the mma) against ``torch.matmul``; it times kernels 1 and 2
+launch by launch at 1, 16, 80 and 256 rows (``breakdown`` lines: each
+launch's device time from ``torch.profiler``, their sum, the wrapper on
+CUDA events and on the host, the library products and chain, the bound),
+and the attention sublayers of kernels 3-5 and 8-10 the same way
+(``sublayer`` lines, with SDPA alone and the library chain of RMSNorm,
+cuBLAS products on the dequantized weights and SDPA).
 
 ``fidelity`` lines hold kernels 4 and 10 and their plain versions to an
 f32 reference on phase 4's prompts. ``--kernels-only`` stops after phase
-3, ``--breakdown`` runs only the ``sublayer`` and ``fidelity`` lines and
-``--paths`` only phases 4, 9 and 10 (prefill chunk, window, step and
-``run_loop`` pass times), all without the result line.
+3, ``--breakdown`` runs only the ``breakdown``, ``sublayer`` and
+``fidelity`` lines and ``--paths`` only phases 4, 9 and 10 and the VLM's
+``generate`` (prefill chunk, window, dense step, ``run_loop`` pass and
+VLM step times), all without the result line; either runs as well on a
+parent tree with this script copied beside it.
 
 It prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -137,8 +144,8 @@ BF16_OPS_PER_S = 989e12    # dense bf16 tensor-core peak
 # intermediates (norm output, attention weights, K/V, activations) round at
 # the same points in both versions but from f32 sums taken in another order.
 REL_TOL = {
-    "mlp_step": 1e-2,                    # seen 3.0e-3 (16 rows), 2.7e-3 (80), 2.6e-3 (256)
-    "lm_head_argmax": 3e-5,              # the max logits; seen 0 (16, 80), 9.2e-6 (256)
+    "mlp_step": 1e-2,                    # seen 8.2e-4 (1 row), 5.3e-3 (16), 2.6e-3 (80), 2.3e-3 (256)
+    "lm_head_argmax": 3e-5,              # the max logits; seen 1.3e-7 (1), 6.1e-7 (16), 7.1e-7 (80), 1.1e-6 (256)
     "attention_paged_batch_step": 3e-3,  # seen 9.2e-4
     "attention_paged_chunk_step": 1.3e-2,  # seen 4.3e-3
     "attention_paged_spec_step": 6e-3,     # seen 2.1e-3
@@ -378,9 +385,9 @@ def check_kernels(torch, DB, qwen2, params, cfg, rng_seed: int) -> list[dict]:
     wh, sh = params["lm_head"]["int8"], params["lm_head"]["scale"]
     wh_bf = (wh.float() * sh).bfloat16()
 
-    # mlp_step: decode (16 rows) is the entry; spec verify (80 rows) and
-    # prefill (256 rows) printed too.
-    for m in (slots, slots * (SPEC_K + 1), chunk):
+    # mlp_step: decode (16 rows) is the entry; batch 1 (1 row), spec verify
+    # (80 rows) and prefill (256 rows) printed too.
+    for m in (1, slots, slots * (SPEC_K + 1), chunk):
         x = rows(m)
         args = (x, blk["ffn_norm"], wgu, sgu, blk.get("b_gateup"), wd, sd)
         want = DB.mlp_step_plain(*args)
@@ -409,8 +416,8 @@ def check_kernels(torch, DB, qwen2, params, cfg, rng_seed: int) -> list[dict]:
                   f"library_ms {_time_ms(torch, lib, 5):.4f} bound_ms {bound:.4f} ({by})",
                   flush=True)
 
-    # lm_head_argmax: tokens equal except at plain near-ties; 16, 80, 256 rows.
-    for m in (slots, slots * (SPEC_K + 1), chunk):
+    # lm_head_argmax: tokens equal except at plain near-ties; 1, 16, 80, 256 rows.
+    for m in (1, slots, slots * (SPEC_K + 1), chunk):
         x = rows(m)
         args = (x, params["out_norm"], wh, sh)
         hn = DB._rms(x, params["out_norm"], cfg.norm_eps).to(torch.bfloat16)
@@ -1788,6 +1795,24 @@ def check_mma_tile(torch, DB, rng_seed: int) -> None:
         raise Failed(f"the mma fragment layout disagrees with torch.matmul: rel {rel:.3e}")
 
 
+def check_tc_tile(torch, DB, rng_seed: int) -> None:
+    """Phase 3: the fragment path of kernels 1 and 2's tensor-core product
+    (int8 widened to bf16, ldmatrix plain and transposed, two m16n8k16 mma)
+    on one 16 x 16 bf16 tile by a 16 x 16 int8 tile over the full int8
+    range, against torch.matmul in f32 (exact products, f32 sums: 1e-5)."""
+    gen = torch.Generator(device="cuda").manual_seed(rng_seed)
+    a = (torch.randn((16, 16), generator=gen, device="cuda") * 4).bfloat16()
+    w = torch.randint(-128, 128, (16, 16), generator=gen, device="cuda").to(torch.int8)
+    got = DB.tc_tile(a, w)
+    torch.cuda.synchronize()
+    err, rel = _rel(got, a.float() @ w.float())
+    print(f"tc tile (int8 widened, ldmatrix, m16n8k16 bf16): rel {rel:.3e} (tol 1e-5)",
+          flush=True)
+    if not rel <= 1e-5:
+        raise Failed(f"the int8 product's fragment path disagrees with torch.matmul: "
+                     f"rel {rel:.3e}")
+
+
 def _device_launches(torch, fn, iters: int = 10):
     """The device time of each kernel one call of ``fn`` launches, in launch
     order, averaged over ``iters`` calls, from ``torch.profiler``'s kernel
@@ -1976,6 +2001,115 @@ def sublayer_breakdown(torch, DB, params, cfg, rng_seed: int) -> None:
         line(f"{fn.__name__}, {n_rows} row(s) at {position}", lambda: fn(*pargs, **kw), x,
              torch.randn((1, h, n_rows, hd), generator=gen, device=dev).bfloat16(), kc, vc,
              skeys[None, :] <= position + torch.arange(n_rows, device=dev)[:, None])
+
+
+BREAKDOWN_ROWS = (1, 16, 80, 256)  # batch 1, a decode tick, a verify, a prefill chunk
+
+
+def ffn_head_breakdown(torch, DB, params, cfg, rng_seed: int) -> None:
+    """Kernels 1 and 2 launch by launch at 1, 16, 80 and 256 rows of layer
+    0 and the head: the device time of each launch from ``torch.profiler``
+    (RMSNorm, the products, their epilogues), their sum, the wrapper on
+    CUDA events and its host time, beside the bound and two yardsticks the
+    port never calls: the library products alone (cuBLAS on the dequantized
+    bf16 weights; for the head with its argmax, as phase 3 times them) and
+    the library chain (RMSNorm, the products, SwiGLU and the residual; the
+    head's RMSNorm, product and argmax)."""
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(rng_seed)
+    blk = params["blocks"]["0"]
+    d, f, vocab, eps = cfg.dim, cfg.ffn, cfg.vocab, cfg.norm_eps
+    ffn = (blk["ffn_norm"], blk["w_gateup"]["int8"], blk["w_gateup"]["scale"],
+           blk.get("b_gateup"), blk["w_down"]["int8"], blk["w_down"]["scale"])
+    wgu_bf = (ffn[1].float() * ffn[2]).bfloat16()
+    bgu_bf = ffn[3].bfloat16() if ffn[3] is not None else None
+    wd_bf = (ffn[4].float() * ffn[5]).bfloat16()
+    head = (params["out_norm"], params["lm_head"]["int8"], params["lm_head"]["scale"])
+    wh_bf = (head[1].float() * head[2]).bfloat16()
+
+    def rms(x, w):
+        xf = x.float()
+        return (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps) * w).bfloat16()
+
+    def ffn_chain(x):
+        gu = torch.matmul(rms(x, ffn[0]), wgu_bf)
+        if bgu_bf is not None:
+            gu = gu + bgu_bf
+        return x + torch.matmul(torch.nn.functional.silu(gu[:, :f]) * gu[:, f:], wd_bf)
+
+    def line(what, call, products, chain, nbytes, ops):
+        launches = _device_launches(torch, call)
+        parts = ("not measured (the profiler saw no kernel)" if launches is None else
+                 ", ".join(f"{n} {ms:.4f}" for n, ms in launches)
+                 + f"; device sum {sum(ms for _, ms in launches):.4f}")
+        bound, by = _bound_ms(nbytes, ops)
+        print(f"breakdown {what}: {parts}; wrapper {_time_ms(torch, call):.4f} ms, host "
+              f"{_host_ms(torch, call):.4f} ms; library products {_time_ms(torch, products):.4f}"
+              f" ms, library chain {_time_ms(torch, chain):.4f} ms; bound {bound:.4f} ms ({by})",
+              flush=True)
+
+    for m in BREAKDOWN_ROWS:
+        tok = torch.randint(0, vocab, (m,), generator=gen, device=dev)
+        x = params["embed"][tok].bfloat16()
+        hx = rms(x, ffn[0])
+        line(f"mlp_step, {m} row(s)", lambda: DB.mlp_step(x, *ffn, eps=eps),
+             lambda: torch.matmul(torch.matmul(hx, wgu_bf)[:, :f], wd_bf),
+             lambda: ffn_chain(x),
+             m * d * 2 * 2 + d * 4 + d * 2 * f + 2 * f * 4 + f * d + d * 4,
+             2 * m * d * 2 * f + 2 * m * f * d)
+        hn = rms(x, head[0])
+        line(f"lm_head_argmax, {m} row(s)", lambda: DB.lm_head_argmax(x, *head, eps=eps),
+             lambda: torch.matmul(hn, wh_bf).argmax(dim=-1),
+             lambda: torch.matmul(rms(x, head[0]), wh_bf).argmax(dim=-1),
+             m * d * 2 + d * 4 + d * vocab + vocab * 4 + m * 4, 2 * m * d * vocab)
+
+
+def ffn_fidelity(torch, DB, params, cfg, prompts) -> None:
+    """Kernel 1 against an f32 reference (its plain version on f32 rows),
+    beside the bf16 plain version, as rel-rms of the delta (residual=False)
+    on the embedded rows of three of phase 4's prompts, 16 (decode) and 256
+    (prefill) at a time, in every ninth layer's weights; kernel 2's winning
+    logits against an f64 product, beside the plain version's f32 ones."""
+    dev = params["embed"].device
+    for m in (16, 256):
+        errs = []
+        for req in (0, 1, 5):
+            toks = (prompts[req] * (m // len(prompts[req]) + 1))[:m]
+            x = params["embed"][torch.tensor(toks, device=dev)].bfloat16()
+            for layer in range(0, cfg.layers, 9):
+                blk = params["blocks"][str(layer)]
+                w = (blk["ffn_norm"], blk["w_gateup"]["int8"], blk["w_gateup"]["scale"],
+                     blk.get("b_gateup"), blk["w_down"]["int8"], blk["w_down"]["scale"])
+                kw = dict(eps=cfg.norm_eps, residual=False)
+                got = DB.mlp_step(x, *w, **kw)
+                want = DB.mlp_step_plain(x, *w, **kw)
+                ref = DB.mlp_step_plain(x.float(), *w, **kw)
+
+                def rel(a, b):
+                    return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+                errs.append((rel(got, ref), rel(want, ref), rel(got, want)))
+        e = torch.tensor(errs, dtype=torch.float64)
+        print(f"fidelity mlp_step, {m} rows of 3 prompts: rel-rms vs f32, kernel "
+              f"{e[:, 0].mean():.4e} (max {e[:, 0].max():.4e}), bf16 plain {e[:, 1].mean():.4e} "
+              f"(max {e[:, 1].max():.4e}); kernel vs plain {e[:, 2].mean():.4e}", flush=True)
+    # Kernel 2's f32 sums: each row's winning logit against the f64 product of
+    # the same bf16 rows and int8 head, beside the plain version's f32 one.
+    head = (params["out_norm"], params["lm_head"]["int8"], params["lm_head"]["scale"])
+    for m in (16, 256):
+        toks = (prompts[0] * (m // len(prompts[0]) + 1))[:m]
+        x = params["embed"][torch.tensor(toks, device=dev)].bfloat16()
+        h = DB._rms(x, head[0], cfg.norm_eps).to(torch.bfloat16)
+        ref = (h.double() @ head[1].double()) * head[2].double()
+        gi, gv = DB.lm_head_argmax(x, *head, eps=cfg.norm_eps, return_val=True)
+        pv, pi = DB._wdot(h, head[1], head[2]).max(dim=-1)
+        ek = ((gv.double() - ref.gather(1, gi.long()[:, None])[:, 0]).abs()
+              / ref.gather(1, gi.long()[:, None])[:, 0].abs())
+        ep = ((pv.double() - ref.gather(1, pi[:, None])[:, 0]).abs()
+              / ref.gather(1, pi[:, None])[:, 0].abs())
+        print(f"fidelity lm_head_argmax, {m} rows: the winning logit's rel error vs f64, kernel "
+              f"mean {ek.mean():.3e} (max {ek.max():.3e}), plain f32 mean {ep.mean():.3e} (max "
+              f"{ep.max():.3e}); {int((gi.long() == pi).sum())} of {m} tokens equal", flush=True)
 
 
 def sweep_fidelity(torch, DB, params, cfg, prompts, rng_seed: int) -> None:
@@ -2320,6 +2454,47 @@ VLM_KERNELS = ("flash_attention", "int8_matmul", "attention_step", "mlp_step",
                "lm_head_argmax")
 
 
+def vlm_step_times(torch, vlm, seed: int, max_new: int) -> None:
+    """``--paths``: the VLM's ``generate`` at bench_2b on seeded random
+    weights (one image, a 16-token prompt, ``max_new`` tokens), twice: its
+    TTFT and its decode step time (``attention_step``, ``mlp_step`` and the
+    head a step). The second run is the one printed."""
+    import numpy as np
+
+    cfg = vlm.VLMConfig.bench_2b()
+    params = vlm.quantize_decode(vlm.init_params(cfg, seed=seed, device="cuda"))
+    rng = np.random.default_rng(seed)
+    image = torch.from_numpy(
+        rng.uniform(size=(1, cfg.image_size, cfg.image_size, 3)).astype(np.float32)).cuda()
+    prompt = torch.from_numpy(
+        rng.integers(0, cfg.vocab, size=(1, VLM_PROMPT)).astype(np.int32)).cuda()
+    real_prefill = vlm.prefill
+    t_pre = []
+
+    def timed_prefill(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_prefill(*a, **k)
+        torch.cuda.synchronize()
+        t_pre.append(time.perf_counter() - t)
+        return out
+
+    vlm.prefill = timed_prefill
+    try:
+        for _ in range(2):
+            t_pre.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vlm.generate(params, cfg, image, prompt, max_new)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        vlm.prefill = real_prefill
+    steps = max_new - 1
+    print(f"path times, vlm generate at bench_2b: prefill (ViT included) {1e3 * t_pre[0]:.2f} "
+          f"ms; {steps} decode steps {1e3 * (wall - t_pre[0]) / steps:.3f} ms a step", flush=True)
+
+
 def serve_vlm(torch, DB, LO, vlm, paths, params, cfg, seed: int, max_new: int) -> dict:
     """Phase 11: the self-contained VLM at ``cfg`` (bench_2b) on seeded
     random weights: its vision tower against the dense einsum and an f32
@@ -2485,13 +2660,14 @@ def main(argv=None) -> int:
     ap.add_argument("--max-new", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--breakdown", action="store_true",
-                    help="build, then only time the attention sublayers launch by launch "
-                         "and hold kernels 4 and 10 to f32 (prints no result line)")
+                    help="build, then only time kernels 1 and 2 and the attention sublayers "
+                         "launch by launch and hold kernels 4 and 10 to f32 (prints no "
+                         "result line)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build, then only phase 3's kernel checks (prints no result line)")
     ap.add_argument("--paths", action="store_true",
-                    help="build, then only phases 4, 9 and 10, for their times (prints no "
-                         "result line)")
+                    help="build, then only phases 4, 9 and 10 and the VLM's generate, for "
+                         "their times (prints no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2545,23 +2721,30 @@ def main(argv=None) -> int:
         d_rng = np.random.default_rng(args.seed + 7)
         d_prompts = [d_rng.integers(0, cfg.vocab, size=n).tolist() for n in DENSE_LENGTHS]
         if args.breakdown:
+            ffn_head_breakdown(torch, DB, params, cfg, args.seed + 15)
+            ffn_fidelity(torch, DB, params, cfg, prompts)
             sublayer_breakdown(torch, DB, params, cfg, args.seed + 12)
             sweep_fidelity(torch, DB, params, cfg, prompts, args.seed + 14)
             return 0
-        if args.paths:  # phases 4, 9 and 10 alone: the paths' times
+        if args.paths:  # phases 4, 9 and 10 and the VLM's generate alone: the paths' times
             serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, args.max_new)
             d_served, _ = serve_dense(torch, DB, LO, IM, make_engine, serve_prompts, params,
                                       cfg, d_prompts, args.max_new)
             batch1(torch, DB, LO, qwen2, spec_decode, L,
                    _Paths(torch, DB, LO, IM, qwen2, L, serve_prompts, params, cfg), params,
                    cfg, d_prompts, args.max_new, d_served)
+            del params
+            vlm_step_times(torch, vlm, args.seed + 10, args.max_new)
             return 0
         kernels = check_kernels(torch, DB, qwen2, params, cfg, args.seed + 1)
         kernels.insert(2, check_lora_kernel(torch, LO, cfg, args.seed + 3))
         kernels += check_dense_kernels(torch, DB, IM, params, cfg, args.seed + 6)
         kernels.append(check_flash_kernel(torch, FA, args.seed + 8))
         check_mma_tile(torch, DB, args.seed + 13)
+        check_tc_tile(torch, DB, args.seed + 16)
         check_widened_kernels(torch, DB, LO, qwen2, args.seed + 9)
+        ffn_head_breakdown(torch, DB, params, cfg, args.seed + 15)
+        ffn_fidelity(torch, DB, params, cfg, prompts)
         sublayer_breakdown(torch, DB, params, cfg, args.seed + 12)
         sweep_fidelity(torch, DB, params, cfg, prompts, args.seed + 14)
         if args.kernels_only:

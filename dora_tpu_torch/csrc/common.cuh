@@ -1,6 +1,8 @@
 // Building blocks shared by the decode kernels (mlp.cu, lm_head.cu,
-// paged_attention.cu): RMSNorm, the int8-weight product with an f32
-// accumulator, and the epilogues that apply the per-column scale.
+// paged_attention.cu, int8_matmul.cu): RMSNorm, the int8-weight products
+// with f32 accumulators (the SIMT launch_gemm, and the tensor-core
+// tc_tile_product of kernels 1 and 2), and the epilogues that apply the
+// per-column scale.
 //
 // Number format (dora_tpu/ops/int8_matmul.py): weights are int8 [K, N] with
 // one f32 scale per output column. The scale commutes with the product, so
@@ -13,8 +15,8 @@
 // return). Reductions over a block go through shared memory; the
 // tensor-core sweeps of paged_attention.cu reduce over a warp's quad with
 // shuffles and call the PTX-level operations only through the inline
-// helpers at the end of this file (mma, shuffle, cp.async), which the
-// emulated build (csrc/emu/) runs on the host.
+// helpers near the end of this file (mma, shuffle, cp.async, ldmatrix),
+// which the emulated build (csrc/emu/) runs on the host.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -339,4 +341,332 @@ static __device__ __forceinline__ void cp_async_wait() {
 #ifndef DORA_EMULATE
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 #endif
+}
+
+
+static __device__ __forceinline__ int shfl_xor(int v, int mask) {
+    return __shfl_xor_sync(0xffffffffu, v, mask);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, one register each, in the
+// fragment layout of mma_bf16_16816: lane l gives the address of row l % 8 of
+// matrix l / 8 (16 bytes, 16-byte aligned); of matrix i a lane gets r[i] =
+// row g = lane / 4, columns 2t, 2t + 1 (t = lane % 4), or with TRANS column
+// g, rows 2t, 2t + 1; the lower index in the lower half.
+// ldmatrix.sync.aligned.m8n8.x4(.trans).shared.b16.
+template <bool TRANS>
+static __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+#ifdef DORA_EMULATE
+    dora_emu_ldmatrix_x4(r, row, TRANS);
+#else
+    const unsigned s = (unsigned)__cvta_generic_to_shared(row);
+    if (TRANS)
+        asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s) : "memory");
+    else
+        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s) : "memory");
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core int8-weight product (mlp.cu, lm_head.cu)
+// ---------------------------------------------------------------------------
+//
+// acc = A[m0.., kbeg..kend) @ W[kbeg..kend), cols) for bf16 activations A
+// [M, K] and int8 weights W [K, ldw] (row-major), on mma.sync.m16n8k16 bf16
+// with f32 accumulators. Each stage of BK k goes to shared memory
+// through cp.async into a ring of STAGES stages, one barrier a stage: the A
+// rows as bf16, the weight rows as int8 (16-byte copies; rows past M, k past
+// kend and columns past the panel land as zeros; where the 16-byte chunks of
+// a row are not aligned, element by element). The warps read A with
+// ldmatrix, and the int8 weights with ldmatrix.trans as if they were 16-bit:
+// a lane gets, of an 8 x 16-byte block, k rows 2t and 2t + 1 of the byte
+// pair (2g, 2g + 1): the two k of the B register of columns 2g and 2g + 1.
+// It widens them to bf16 in registers (exact: |q| <= 127). So one mma takes
+// the even columns of a 16-column group and a second the odd ones; a lane's
+// accumulators hold columns 4t .. 4t + 3 of the group. Every product is the
+// one the SIMT product and the TPU kernel form. The mma's own accumulation
+// truncates; summed over a whole K that put the head's logits several times
+// further from f64 than an f32 product (PERF.md), so each stage's mma sums start
+// from zero and are added to the running sums in f32, rounded to nearest:
+// only the order of the f32 sums differs.
+//
+// A block is WM x WN warps; warp (wm, wn) owns MT 16-row tiles and NT / 2
+// 16-column groups (NT mma column tiles of 8): half of its groups in the
+// block's first BN / 2 columns and the same ones in the second half, so that
+// with two panels (gate | up) one thread holds g and u of the same column.
+constexpr int TC_SPLIT_K = 128;     // the least K of one split
+constexpr int TC_DECODE_ROWS = 64;  // up to here a product is bound by its weight bytes
+constexpr int TC_SMS = 132;         // H100 SXM
+
+template <int MT_, int NT_, int WM_, int WN_, int STAGES_, int MIN_BLOCKS_, int BK_ = 32>
+struct TcCfg {
+    static constexpr int MT = MT_, NT = NT_, WM = WM_, WN = WN_, STAGES = STAGES_, BK = BK_;
+    static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
+    static constexpr int BM = 16 * MT * WM, BN = 8 * NT * WN, THREADS = 32 * WM * WN;
+    static constexpr int LDA = BK + 8;  // bf16 a row of an A stage (conflict-free ldmatrix)
+    static constexpr int LDR = BN + 16; // bytes a row of an int8 weight stage
+    static constexpr size_t A_BYTES = (size_t)STAGES * BM * LDA * 2;
+    static constexpr size_t SMEM = A_BYTES + (size_t)STAGES * BK * LDR;
+    static_assert(NT % 4 == 0, "16-column groups in both halves");
+    static_assert(BK % 32 == 0 && TC_SPLIT_K % BK == 0, "whole k steps in a split");
+};
+
+// Decode: all rows in one band (16, 32 or 64), 128 columns over 4 warps; a
+// deep ring and as many blocks an SM as shared memory allows, for weight
+// bytes in flight (stages and depth as measured best on an H100, PERF.md).
+template <int MT>
+using TcDecode = TcCfg<MT, 4, 1, 4, MT == 1 ? 6 : 8, MT == 4 ? 2 : 3, MT == 1 ? 64 : 32>;
+// Prefill: 128 x 128 tiles, 2 x 4 warps of 64 x 32, 64 k a stage.
+using TcPrefill = TcCfg<4, 4, 2, 4, 3, 2, 64>;
+
+// The block's BN logical columns over the weight columns: `half` of them in
+// each panel (BN, or BN / 2 with two), from column col0 of the panel; panel p
+// starts at weight column p * stride; a panel is `width` columns wide.
+struct TcCols {
+    int half, col0, width, stride;
+    __device__ int phys(int j) const { return (j / half) * stride + col0 + j % half; }
+    __device__ bool live(int j) const { return col0 + j % half < width; }
+};
+
+// The block-tile column of warp wn's 16-column group q.
+template <class T>
+static __device__ __forceinline__ int tc_group(int wn, int q) {
+    constexpr int H = T::NT / 4;  // groups a warp owns in each half
+    return (q < H ? 0 : T::BN / 2) + (wn * H + q % H) * 16;
+}
+
+// The block-tile column of accumulator c of mma column tile j for lane
+// quarter t (the even mma of a group takes its even columns).
+template <class T>
+static __device__ __forceinline__ int tc_col(int wn, int j, int t, int c) {
+    return tc_group<T>(wn, j / 2) + 4 * t + 2 * (c & 1) + (j & 1);
+}
+
+// The int8 word ldmatrix.trans gives a lane (bytes: k 2t of columns 2g and
+// 2g + 1, then k 2t + 1 of the same) as the mma's B registers of column 2g
+// (even) and 2g + 1 (odd): bf16, the lower k in the lower half. q + 128 under
+// the exponent byte 0x4B is the f32 2^23 + (q + 128), exact; minus 2^23 + 128
+// leaves q, whose bf16 is the f32's upper half.
+static __device__ __forceinline__ void widen_i8_cols(uint32_t w, uint32_t& even, uint32_t& odd) {
+    const uint32_t u = w ^ 0x80808080u;
+    uint32_t f[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+        f[b] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | b)) -
+                               8388736.f);
+    even = __byte_perm(f[0], f[2], 0x7632u);
+    odd = __byte_perm(f[1], f[3], 0x7632u);
+}
+
+template <class T>
+static __device__ __forceinline__ void tc_load_stage(
+    const bf16* __restrict__ A, const int8_t* __restrict__ W, int M, int K, int ldw,
+    const TcCols& cols, int m0, int k0, int kend, bool a_vec, bool w_vec,
+    bf16* __restrict__ As, int8_t* __restrict__ Rs) {
+    for (int c = threadIdx.x; c < T::BM * (T::BK / 8); c += T::THREADS) {
+        const int r = c / (T::BK / 8), kk = (c % (T::BK / 8)) * 8;
+        const int m = m0 + r, k = k0 + kk;
+        bf16* dst = As + r * T::LDA + kk;
+        const bool live = m < M && k < kend;
+        if (a_vec) {
+            cp_async16(dst, live ? A + (size_t)m * K + k : A, live);
+        } else {
+            for (int e = 0; e < 8; ++e)
+                dst[e] = (m < M && k + e < kend) ? A[(size_t)m * K + k + e] : __float2bfloat16(0.f);
+        }
+    }
+    for (int c = threadIdx.x; c < T::BK * (T::BN / 16); c += T::THREADS) {
+        const int kk = c / (T::BN / 16), j = (c % (T::BN / 16)) * 16;
+        const int k = k0 + kk;
+        int8_t* dst = Rs + kk * T::LDR + j;
+        if (k >= kend || !cols.live(j)) {
+            cp_async16(dst, W, false);
+        } else if (w_vec && cols.live(j + 15)) {
+            cp_async16(dst, W + (size_t)k * ldw + cols.phys(j), true);
+        } else {
+            for (int e = 0; e < 16; ++e)
+                dst[e] = cols.live(j + e) ? W[(size_t)k * ldw + cols.phys(j + e)] : (int8_t)0;
+        }
+    }
+}
+
+// acc[i][j][c] of warp (wm, wn) = the block tile's row wm*MT*16 + 16i + g
+// (+ 8 for c >= 2), column tc_col(wn, j, t, c), g = lane / 4, t = lane % 4,
+// summed over k in [kbeg, kend). smem holds T::SMEM bytes.
+template <class T>
+static __device__ __forceinline__ void tc_tile_product(
+    const bf16* __restrict__ A, const int8_t* __restrict__ W, int M, int K, int ldw,
+    const TcCols& cols, int m0, int kbeg, int kend, unsigned char* smem,
+    float (&acc)[T::MT][T::NT][4]) {
+    bf16* As = reinterpret_cast<bf16*>(smem);
+    int8_t* Rs = reinterpret_cast<int8_t*>(smem + T::A_BYTES);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int wm = warp / T::WN, wn = warp % T::WN;
+    const bool a_vec = K % 8 == 0 && ((uintptr_t)A & 15) == 0;
+    const bool w_vec = ldw % 16 == 0 && (cols.half == T::BN || cols.stride % 16 == 0) &&
+                       ((uintptr_t)W & 15) == 0;
+#pragma unroll
+    for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+    const int ntiles = (kend - kbeg + T::BK - 1) / T::BK;
+    for (int kt = 0; kt < T::STAGES - 1; ++kt) {
+        if (kt < ntiles)
+            tc_load_stage<T>(A, W, M, K, ldw, cols, m0, kbeg + kt * T::BK, kend, a_vec, w_vec,
+                             As + (size_t)kt * T::BM * T::LDA, Rs + (size_t)kt * T::BK * T::LDR);
+        cp_async_commit();
+    }
+    // Lane l's ldmatrix rows: A rows (l % 8) + 8 * (l / 8 % 2) at k 8 * (l / 16);
+    // weight rows k (l % 8) + 8 * (l / 8 % 2) of group pair member l / 16.
+    const int lr = lane % 8 + 8 * (lane / 8 % 2), lh = lane / 16;
+    for (int kt = 0; kt < ntiles; ++kt) {
+        cp_async_wait<T::STAGES - 2>();
+        __syncthreads();  // stage kt landed; every warp is done with stage kt - 1
+        {
+            const int nk = kt + T::STAGES - 1, s = nk % T::STAGES;
+            if (nk < ntiles)
+                tc_load_stage<T>(A, W, M, K, ldw, cols, m0, kbeg + nk * T::BK, kend, a_vec,
+                                 w_vec, As + (size_t)s * T::BM * T::LDA,
+                                 Rs + (size_t)s * T::BK * T::LDR);
+            cp_async_commit();
+        }
+        const bf16* Ak = As + (size_t)(kt % T::STAGES) * T::BM * T::LDA;
+        const int8_t* Rk = Rs + (size_t)(kt % T::STAGES) * T::BK * T::LDR;
+        // The stage's weights, widened: the B registers of every k step and
+        // column tile (two 16-column groups a ldmatrix: matrices 0-1, 2-3).
+        uint32_t b[T::BK / 16][T::NT][2];
+#pragma unroll
+        for (int ks = 0; ks < T::BK / 16; ++ks)
+#pragma unroll
+            for (int q = 0; q < T::NT / 2; q += 2) {
+                uint32_t r[4];
+                ldmatrix_x4<true>(r, Rk + (ks * 16 + lr) * T::LDR + tc_group<T>(wn, q + lh));
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    widen_i8_cols(r[2 * h], b[ks][2 * (q + h)][0], b[ks][2 * (q + h) + 1][0]);
+                    widen_i8_cols(r[2 * h + 1], b[ks][2 * (q + h)][1],
+                                  b[ks][2 * (q + h) + 1][1]);
+                }
+            }
+        // Row tile by row tile, the stage's sums go to a fresh accumulator and
+        // are added to acc in f32 (round to nearest): the mma's own
+        // accumulation truncates, and over a whole K that drifts from the f32
+        // sums of the plain version.
+#pragma unroll
+        for (int i = 0; i < T::MT; ++i) {
+            float part[T::NT][4];
+#pragma unroll
+            for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) part[j][c] = 0.f;
+#pragma unroll
+            for (int ks = 0; ks < T::BK / 16; ++ks) {
+                uint32_t a[4];
+                ldmatrix_x4<false>(a, Ak + ((wm * T::MT + i) * 16 + lr) * T::LDA + ks * 16 +
+                                          8 * lh);
+#pragma unroll
+                for (int j = 0; j < T::NT; ++j) mma_bf16_16816(part[j], a, b[ks][j]);
+            }
+#pragma unroll
+            for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) acc[i][j][c] += part[j][c];
+        }
+    }
+}
+
+// K splits of a tensor-core product whose grid has `blocks` (column tiles x
+// row bands) before splitting, `want` blocks to fill the card. Each split is
+// at least TC_SPLIT_K deep and a whole number of bk steps; the splits are
+// summed in a fixed order by the caller's epilogue.
+static inline int tc_kchunk(int blocks, int K, int want, int bk) {
+    int splits = (want + blocks - 1) / blocks;
+    const int max_splits = K / TC_SPLIT_K;
+    if (splits > max_splits) splits = max_splits;
+    if (splits < 1) splits = 1;
+    const int chunk = (K + splits - 1) / splits;
+    return (chunk + bk - 1) / bk * bk;
+}
+
+// The K chunk of configuration T for an M x N x K product: split until the
+// grid fills every block the card holds at once (decode: to stream the
+// weights through every SM; prefill: where the grid is small).
+template <class T>
+static inline int tc_chunk(int M, int N, int K) {
+    const int blocks = ((N + T::BN - 1) / T::BN) * ((M + T::BM - 1) / T::BM);
+    return tc_kchunk(blocks, K, T::MIN_BLOCKS * TC_SMS, T::BK);
+}
+
+// f(C{}) for the configuration C that takes M rows: a decode band that
+// holds them all (16, 32 or 64), else Prefill's 128-row bands.
+template <class Prefill = TcPrefill, class F>
+static inline auto tc_by_band(int M, F&& f) {
+    if (M <= 16) return f(TcDecode<1>{});
+    if (M <= 32) return f(TcDecode<2>{});
+    if (M <= TC_DECODE_ROWS) return f(TcDecode<4>{});
+    return f(Prefill{});
+}
+
+// Dynamic shared memory for kern, asked for once per instantiation.
+template <class T, class Kern>
+static inline int tc_allow(Kern kern) {
+    static const int err = allow_dynamic_smem(kern, T::SMEM);
+    return err;
+}
+
+// P[z, m, n] = the z-th K split of A @ W over all N columns of W [K, N].
+template <class T>
+static __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
+tc_gemm_partial(const bf16* __restrict__ A, const int8_t* __restrict__ W,
+                float* __restrict__ P, int M, int N, int K, int kchunk) {
+    DORA_DYNAMIC_SMEM(smem);
+    const TcCols cols{T::BN, (int)blockIdx.x * T::BN, N, 0};
+    const int m0 = blockIdx.y * T::BM, kbeg = blockIdx.z * kchunk;
+    float acc[T::MT][T::NT][4];
+    tc_tile_product<T>(A, W, M, K, N, cols, m0, kbeg, min(K, kbeg + kchunk), smem, acc);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int wm = warp / T::WN, wn = warp % T::WN;
+#pragma unroll
+    for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const int m = m0 + (wm * T::MT + i) * 16 + g + (c >= 2 ? 8 : 0);
+                const int jj = tc_col<T>(wn, j, t, c);
+                if (m < M && cols.live(jj))
+                    P[((size_t)blockIdx.z * M + m) * N + cols.phys(jj)] = acc[i][j][c];
+            }
+}
+
+template <class T>
+static inline int tc_launch_partial(const bf16* A, const int8_t* W, float* P, int M, int N,
+                                    int K, void* stream) {
+    const int chunk = tc_chunk<T>(M, N, K);
+    auto kern = tc_gemm_partial<T>;
+    int err = tc_allow<T>(kern);
+    if (err) return err;
+    dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, (K + chunk - 1) / chunk);
+    DORA_LAUNCH_SMEM(kern, grid, dim3(T::THREADS), T::SMEM, stream, A, W, P, M, N, K, chunk);
+    DORA_CHECK(err);
+    return err;
+}
+
+// The product by the configuration for M rows.
+static inline int tc_gemm(const bf16* A, const int8_t* W, float* P, int M, int N, int K,
+                          void* stream) {
+    return tc_by_band(M, [&](auto c) {
+        return tc_launch_partial<decltype(c)>(A, W, P, M, N, K, stream);
+    });
+}
+
+// The number of K splits tc_gemm takes for an M x N x K product.
+static inline int tc_splits(int M, int N, int K) {
+    const int chunk = tc_by_band(M, [&](auto c) { return tc_chunk<decltype(c)>(M, N, K); });
+    return (K + chunk - 1) / chunk;
 }

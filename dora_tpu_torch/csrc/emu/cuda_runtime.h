@@ -5,11 +5,12 @@
 // Each block runs in turn; each of its threads is one OS thread, and
 // __syncthreads() is a barrier over them. __shared__ arrays become statics
 // and dynamic shared memory one buffer per block, which is sound because
-// only one block runs at a time. Warp collectives (__shfl_xor_sync and the
-// m16n8k16 bf16 mma of common.cuh) meet at a barrier of the warp's 32
-// threads and trade values through the warp's exchange buffers; the mma
-// computes each lane's C elements from the fragments of all 32 lanes by the
-// PTX ISA's layout. It checks nothing that is particular to the card
+// only one block runs at a time. Warp collectives (__shfl_xor_sync, and the
+// m16n8k16 bf16 mma and ldmatrix of common.cuh) meet at a barrier of the
+// warp's 32 threads and trade values through the warp's exchange buffers;
+// the mma computes each lane's C elements from the fragments of all 32
+// lanes, and ldmatrix each lane's registers from the row addresses of all
+// 32, by the PTX ISA's layouts. It checks nothing that is particular to the card
 // (memory model, launch limits, speed).
 #pragma once
 
@@ -110,6 +111,30 @@ inline void dora_emu_mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
     }
 }
 
+// ldmatrix.sync.aligned.m8n8.x4(.trans).shared.b16: lane l gives the address
+// of row l % 8 of matrix l / 8; of matrix i a lane gets r[i] = row g, columns
+// 2t, 2t + 1, or with trans column g, rows 2t, 2t + 1 (g = lane / 4, t =
+// lane % 4), the lower index in the lower half.
+inline void dora_emu_ldmatrix_x4(uint32_t (&r)[4], const void* row, bool trans) {
+    DoraEmuWarp* w = dora_emu_warp;
+    const unsigned l = dora_emu_lane, k = dora_emu_turn ^= 1;
+    w->x[k][l] = (uint64_t)(uintptr_t)row;
+    w->bar.arrive_and_wait();
+    const int g = (int)l / 4, t = (int)l % 4;
+    for (int i = 0; i < 4; ++i) {
+        uint16_t lo, hi;
+        if (trans) {
+            lo = reinterpret_cast<const uint16_t*>((uintptr_t)w->x[k][8 * i + 2 * t])[g];
+            hi = reinterpret_cast<const uint16_t*>((uintptr_t)w->x[k][8 * i + 2 * t + 1])[g];
+        } else {
+            const uint16_t* p = reinterpret_cast<const uint16_t*>((uintptr_t)w->x[k][8 * i + g]);
+            lo = p[2 * t];
+            hi = p[2 * t + 1];
+        }
+        r[i] = (uint32_t)lo | ((uint32_t)hi << 16);
+    }
+}
+
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr cudaError_t cudaSuccess = 0;
@@ -136,6 +161,23 @@ using std::max;
 using std::min;
 
 inline float rsqrtf(float v) { return 1.0f / std::sqrt(v); }
+inline float __uint_as_float(unsigned u) {
+    float f;
+    std::memcpy(&f, &u, 4);
+    return f;
+}
+// __byte_perm without the sign-replicating selectors (bit 3 of a nibble).
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+    const uint64_t v = ((uint64_t)y << 32) | x;
+    unsigned r = 0;
+    for (int i = 0; i < 4; ++i) r |= (unsigned)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+    return r;
+}
+inline unsigned __float_as_uint(float f) {
+    unsigned u;
+    std::memcpy(&u, &f, 4);
+    return u;
+}
 
 template <class F>
 void dora_emu_launch(dim3 grid, dim3 block, F&& body, size_t smem = 0) {

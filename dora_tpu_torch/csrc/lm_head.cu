@@ -4,66 +4,105 @@
 //   idx[m] = argmax_v (rms(x[m]).astype(bf16) @ q_head)[v] * s[v]
 //
 // Bound: the int8 head, 1536 x 151936 = 233 MB at Qwen2-1.5B width, read once
-// per call; the [M, V] logits are never written to device memory.
+// per call while rows are few; at 256 rows the product is 120 GFLOP and the
+// call is bound by operations. The [M, V] logits never reach device memory.
 //
 // Design: the TPU kernel walks the vocab tile by tile and keeps a running
 // (max, index) in scratch across grid steps. Here every block owns one
-// 128-column vocab tile for a band of rows, computes its logits in registers
-// and writes one (max, index) pair per (row, tile); a second pass reduces the
-// pairs of a row. Both passes order equal values by index, so the smallest
+// 128-column vocab tile for a band of rows, computes its logits on the
+// tensor cores (tc_tile_product, common.cuh) and reduces them in registers
+// to one (max, index) pair per (row, tile); a second pass reduces the pairs
+// of a row. The head is streamed from HBM once per call at every M: up to 64
+// rows one band holds them all; above, the grid's fastest dimension is the
+// band, so the bands of one vocab tile are scheduled together and the second
+// reads the tile from L2. Every comparison orders equal values by index (the
+// quad's shuffles, the warps' shared pairs, the row's tiles), so the smallest
 // index among the maxima wins, as jnp.argmax's first-index rule does (the TPU
 // kernel gets the same result from a strict > across tiles). Columns at or
 // past the vocab size never compete (the TPU kernel's -inf tail).
 #include "common.cuh"
-#include <limits.h>
 
 static __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
     return v > bv || (v == bv && i < bi);
 }
 
-template <int TM>
-static __global__ void __launch_bounds__(256)
+constexpr int HEAD_BN = TcPrefill::BN;
+static_assert(TcDecode<1>::BN == HEAD_BN, "one vocab tile width for every band");
+
+// Grid (bands, vocab tiles): the best (logit, index) of each row of the band
+// over the tile's columns.
+template <class T>
+static __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
 head_tiles(const bf16* __restrict__ H, const int8_t* __restrict__ W,
            const float* __restrict__ s, float* __restrict__ tile_val,
            int* __restrict__ tile_idx, int M, int V, int D, int ntiles) {
-    constexpr int BM = 16 * TM, TN = GEMM_TN;
-    __shared__ float As[GEMM_BK][BM + 1];
-    __shared__ float Ws[GEMM_BK][GEMM_BN];
-    __shared__ float rv[BM][16];
-    __shared__ int ri[BM][16];
-    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-    const int n0 = blockIdx.x * GEMM_BN, m0 = blockIdx.y * BM;
-    float acc[TM][TN];
-    int8_tile_product<TM>(H, W, M, V, D, m0, n0, 0, D, As, Ws, acc);
-    // Per thread: best of its TN columns for each of its rows.
+    DORA_DYNAMIC_SMEM(smem);
+    __shared__ float rv[T::BM][T::WN];
+    __shared__ int ri[T::BM][T::WN];
+    const int tile = blockIdx.y, m0 = blockIdx.x * T::BM;
+    const TcCols cols{T::BN, tile * T::BN, V, 0};
+    float acc[T::MT][T::NT][4];
+    tc_tile_product<T>(H, W, M, D, V, cols, m0, 0, D, smem, acc);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int wm = warp / T::WN, wn = warp % T::WN;
+    // Per lane: the best of its columns (4t .. 4t + 3 of each of the warp's
+    // 16-column groups) in each of its rows (g and g + 8 of every 16-row
+    // tile); then across the quad, whose four lanes hold the warp's other
+    // columns of the same rows.
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        float bv = -INFINITY;
-        int bi = INT_MAX;
+    for (int i = 0; i < T::MT; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            int n = n0 + tx + 16 * j;
-            if (n < V) {
-                float v = acc[i][j] * s[n];
-                if (better(v, n, bv, bi)) { bv = v; bi = n; }
+        for (int hh = 0; hh < 2; ++hh) {
+            float bv = -INFINITY;
+            int bi = INT_MAX;
+#pragma unroll
+            for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int n = tile * T::BN + tc_col<T>(wn, j, t, 2 * hh + e);
+                    if (n < V) {
+                        const float v = acc[i][j][2 * hh + e] * s[n];
+                        if (better(v, n, bv, bi)) { bv = v; bi = n; }
+                    }
+                }
+#pragma unroll
+            for (int mask = 1; mask <= 2; mask <<= 1) {
+                const float ov = shfl_xor(bv, mask);
+                const int oi = shfl_xor(bi, mask);
+                if (better(ov, oi, bv, bi)) { bv = ov; bi = oi; }
+            }
+            if (t == 0) {
+                const int r = (wm * T::MT + i) * 16 + g + 8 * hh;
+                rv[r][wn] = bv;
+                ri[r][wn] = bi;
             }
         }
-        rv[ty * TM + i][tx] = bv;
-        ri[ty * TM + i][tx] = bi;
-    }
     __syncthreads();
-    // Per row of the band: best of the 16 column groups.
-    if (tid < BM) {
-        int m = m0 + tid;
-        float bv = rv[tid][0];
-        int bi = ri[tid][0];
-        for (int t = 1; t < 16; ++t)
-            if (better(rv[tid][t], ri[tid][t], bv, bi)) { bv = rv[tid][t]; bi = ri[tid][t]; }
+    // Per row of the band: best of the warps that share it.
+    if ((int)threadIdx.x < T::BM) {
+        const int r = threadIdx.x, m = m0 + r;
+        float bv = rv[r][0];
+        int bi = ri[r][0];
+        for (int w = 1; w < T::WN; ++w)
+            if (better(rv[r][w], ri[r][w], bv, bi)) { bv = rv[r][w]; bi = ri[r][w]; }
         if (m < M) {
-            tile_val[(size_t)m * ntiles + blockIdx.x] = bv;
-            tile_idx[(size_t)m * ntiles + blockIdx.x] = bi;
+            tile_val[(size_t)m * ntiles + tile] = bv;
+            tile_idx[(size_t)m * ntiles + tile] = bi;
         }
     }
+}
+
+template <class T>
+static inline int launch_head(const bf16* H, const int8_t* W, const float* s, float* tile_val,
+                              int* tile_idx, int M, int V, int D, int ntiles, void* stream) {
+    auto kern = head_tiles<T>;
+    int err = tc_allow<T>(kern);
+    if (err) return err;
+    dim3 grid((M + T::BM - 1) / T::BM, ntiles);
+    DORA_LAUNCH_SMEM(kern, grid, dim3(T::THREADS), T::SMEM, stream, H, W, s, tile_val,
+                     tile_idx, M, V, D, ntiles);
+    DORA_CHECK(err);
+    return err;
 }
 
 // One block per row: the best (max, first index) pair over the row's tiles.
@@ -96,7 +135,7 @@ head_reduce(const float* __restrict__ tile_val, const int* __restrict__ tile_idx
     }
 }
 
-extern "C" int dora_head_tiles(int V) { return (V + GEMM_BN - 1) / GEMM_BN; }
+extern "C" int dora_head_tiles(int V) { return (V + HEAD_BN - 1) / HEAD_BN; }
 
 // x [M, D] bf16; norm_w [D] f32; w int8 [D, V]; s [V] f32.
 // out_idx [M] int32; out_val [M] f32. Scratch: h bf16 [M, D];
@@ -107,24 +146,19 @@ extern "C" int dora_lm_head_argmax(const void* x, const void* norm_w,
                                    void* h, void* tile_val, void* tile_idx,
                                    void* stream) {
     int err = 0;
-    int ntiles = dora_head_tiles(V);
+    const int ntiles = dora_head_tiles(V);
     DORA_LAUNCH(rmsnorm_rows, dim3(M), dim3(256), stream,
                 (const bf16*)x, (const float*)norm_w, (bf16*)h, D, eps);
     DORA_CHECK(err);
-    int tm = gemm_tm(M);
-    dim3 grid(ntiles, (M + 16 * tm - 1) / (16 * tm));
-    if (tm == 1) {
-        auto kern = head_tiles<1>;
-        DORA_LAUNCH(kern, grid, dim3(256), stream, (const bf16*)h,
-                    (const int8_t*)w, (const float*)s, (float*)tile_val,
-                    (int*)tile_idx, M, V, D, ntiles);
-    } else {
-        auto kern = head_tiles<4>;
-        DORA_LAUNCH(kern, grid, dim3(256), stream, (const bf16*)h,
-                    (const int8_t*)w, (const float*)s, (float*)tile_val,
-                    (int*)tile_idx, M, V, D, ntiles);
-    }
-    DORA_CHECK(err);
+    const bf16* H = (const bf16*)h;
+    const int8_t* Wq = (const int8_t*)w;
+    const float* sv = (const float*)s;
+    float* tv = (float*)tile_val;
+    int* ti = (int*)tile_idx;
+    const int e = tc_by_band(M, [&](auto c) {
+        return launch_head<decltype(c)>(H, Wq, sv, tv, ti, M, V, D, ntiles, stream);
+    });
+    if (!err) err = e;
     DORA_LAUNCH(head_reduce, dim3(M), dim3(256), stream,
                 (const float*)tile_val, (const int*)tile_idx, ntiles,
                 (int*)out_idx, (float*)out_val);

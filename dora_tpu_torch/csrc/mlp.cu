@@ -4,21 +4,29 @@
 //   out = x + ((silu(g) * u).astype(bf16) @ q_down) * s_down
 //   [g | u] = rms(x).astype(bf16) @ q_gateup * s_gateup + b_gateup
 //
-// Bound: the weight stream. At Qwen2-1.5B width one call reads the int8
-// gate/up panel (1536 x 17920) and down panel (8960 x 1536), 41.3 MB, against
-// a few hundred KB of activations at M = 16; at M = 256 (prefill) the
-// products reach 21 GFLOP and the call becomes bound by operations.
+// Bound: the weight stream while rows are few. At Qwen2-1.5B width one call
+// reads the int8 gate/up panel (1536 x 17920) and down panel (8960 x 1536),
+// 41.3 MB, against a few hundred KB of activations at M = 16; at M = 256
+// (prefill) the products reach 21 GFLOP and the call is bound by operations.
 //
 // Design: the TPU kernel sweeps the ffn in tiles and carries one f32
 // accumulator from grid step to grid step. Hopper blocks run in no order, so
-// the sweep is split into launches: RMSNorm rows; the gate/up product with K
-// split across blocks; an epilogue that sums the splits, applies scale and
-// bias and writes silu(g) * u as bf16 (the cast before down is part of the
-// reference math); the down product; an epilogue that applies s_down once
-// and adds the residual in f32.
+// the sweep is split into launches: RMSNorm rows; the gate/up product; the
+// down product; an epilogue that sums the down product's K splits in order,
+// applies s_down once and adds the residual in f32. Both products run on the
+// tensor cores (tc_tile_product, common.cuh): bf16 rows times int8 weights
+// widened to bf16 in shared memory, f32 sums.
+//
+// Above 64 rows (prefill), and wherever K is too short to split, one block
+// owns gate columns [n0, n0 + W) and up columns [F + n0, F + n0 + W), applies
+// scale and bias in f32 and writes bf16(silu(g) * u) straight from its
+// accumulators: no f32 partials of the [M, 2F] product reach device memory.
+// Decode splits K to stream the weights through every SM; its partials are
+// summed in a fixed order by silu_mul. The cast before down is part of the
+// reference math.
 #include "common.cuh"
 
-// a[m, f] = bf16(silu(g) * u) with g, u from the split partials of the fused
+// a[m, f] = bf16(silu(g) * u) with g, u from the split partials of the
 // [M, 2F] gate/up product.
 static __global__ void __launch_bounds__(256)
 silu_mul(const float* __restrict__ P, int splits, int M, int F,
@@ -40,15 +48,116 @@ silu_mul(const float* __restrict__ P, int splits, int M, int F,
     a[idx] = __float2bfloat16(silu * u);
 }
 
-extern "C" int dora_gemm_splits(int M, int N, int K) {
-    return gemm_splits(M, N, K);
+// The gate/up product over all of K with the SwiGLU in its epilogue: the
+// block's first BN / 2 columns are gate columns n0.., the second BN / 2 the
+// matching up columns F + n0.., so each thread holds g and u of its columns.
+template <class T>
+static __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
+gateup_swiglu(const bf16* __restrict__ h, const int8_t* __restrict__ w,
+              const float* __restrict__ s, const float* __restrict__ b,
+              bf16* __restrict__ a, int M, int D, int F) {
+    DORA_DYNAMIC_SMEM(smem);
+    const TcCols cols{T::BN / 2, (int)blockIdx.x * (T::BN / 2), F, F};
+    const int m0 = blockIdx.y * T::BM;
+    float acc[T::MT][T::NT][4];
+    tc_tile_product<T>(h, w, M, D, 2 * F, cols, m0, 0, D, smem, acc);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int wm = warp / T::WN, wn = warp % T::WN;
+#pragma unroll
+    for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < T::NT / 2; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const int m = m0 + (wm * T::MT + i) * 16 + g + (c >= 2 ? 8 : 0);
+                const int f = cols.col0 + tc_col<T>(wn, j, t, c);
+                if (m >= M || f >= F) continue;
+                const float gv = acc[i][j][c] * s[f] + (b ? b[f] : 0.f);
+                const float uv = acc[i][j + T::NT / 2][c] * s[F + f] + (b ? b[F + f] : 0.f);
+                a[(size_t)m * F + f] = __float2bfloat16(gv / (1.f + expf(-gv)) * uv);
+            }
+}
+
+// The gate/up product of a prefill band: 80 gate and 80 up columns a block
+// over 2 x 5 warps, so that Qwen2-1.5B's 8960 / 80 = 112 column tiles of two
+// 128-row bands fill the card's 264 block slots in one round (64 + 64
+// columns make 280 blocks and a second round of 16); 32 k a stage, which
+// leaves the 320 threads the fewest spilled registers.
+using TcSwiglu = TcCfg<4, 4, 2, 5, 4, 2, 32>;
+
+template <class T>
+static inline int launch_swiglu(const bf16* h, const int8_t* w, const float* s,
+                                const float* b, bf16* a, int M, int D, int F, void* stream) {
+    auto kern = gateup_swiglu<T>;
+    int err = tc_allow<T>(kern);
+    if (err) return err;
+    dim3 grid((F + T::BN / 2 - 1) / (T::BN / 2), (M + T::BM - 1) / T::BM);
+    DORA_LAUNCH_SMEM(kern, grid, dim3(T::THREADS), T::SMEM, stream, h, w, s, b, a, M, D, F);
+    DORA_CHECK(err);
+    return err;
+}
+
+// One 16 x 16 x 16 tile through the product's fragment path (one warp): A
+// bf16 [16, 16] and W int8 [16, 16] in shared memory, A read with ldmatrix,
+// W with ldmatrix.trans as 16-bit pairs and widened by widen_i8_cols, one
+// mma for the even columns and one for the odd: D f32 [16, 16] = A @ W.
+// Checks that path against a plain product, on the card and in the emulated
+// build.
+static __global__ void __launch_bounds__(32)
+tc_tile(const bf16* __restrict__ A, const int8_t* __restrict__ W, float* __restrict__ D) {
+    DORA_DYNAMIC_SMEM(smem);
+    constexpr int LD = 24;  // bf16 an A row: 48 bytes, 16-byte aligned
+    bf16* As = reinterpret_cast<bf16*>(smem);
+    int8_t* Rs = reinterpret_cast<int8_t*>(As + 16 * LD);  // 16-byte rows
+    const int lane = threadIdx.x, g = lane / 4, t = lane % 4;
+    for (int i = lane; i < 256; i += 32) {
+        As[(i / 16) * LD + i % 16] = A[i];
+        Rs[i] = W[i];
+    }
+    __syncthreads();
+    const int lr = lane % 8 + 8 * (lane / 8 % 2), lh = lane / 16;
+    uint32_t a[4], r[4], even[2], odd[2];
+    ldmatrix_x4<false>(a, As + lr * LD + 8 * lh);
+    ldmatrix_x4<true>(r, Rs + lr * 16);
+    widen_i8_cols(r[0], even[0], odd[0]);
+    widen_i8_cols(r[1], even[1], odd[1]);
+    float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    mma_bf16_16816(d[0], a, even);
+    mma_bf16_16816(d[1], a, odd);
+    for (int p = 0; p < 2; ++p)
+        for (int c = 0; c < 4; ++c)
+            D[(g + (c >= 2 ? 8 : 0)) * 16 + 4 * t + 2 * (c & 1) + p] = d[p][c];
+}
+
+extern "C" int dora_tc_tile(const void* A, const void* W, void* D, void* stream) {
+    int err = 0;
+    DORA_LAUNCH_SMEM(tc_tile, dim3(1), dim3(32), 16 * 24 * 2 + 256, stream,
+                     (const bf16*)A, (const int8_t*)W, (float*)D);
+    DORA_CHECK(err);
+    return err;
+}
+
+// K splits of the gate/up (which 0; 1 = fused SwiGLU, no partials) and down
+// (which 1) products at M rows. A prefill band runs the gate/up product
+// whole; decode splits it as tc_gemm does.
+extern "C" int dora_mlp_splits(int M, int D, int F, int which) {
+    if (which == 0) return M > TC_DECODE_ROWS ? 1 : tc_splits(M, 2 * F, D);
+    return tc_splits(M, D, F);
+}
+
+// f32 elements of the partials scratch dora_mlp_step needs (-1 past int).
+extern "C" int dora_mlp_scratch(int M, int D, int F) {
+    const long long gu = dora_mlp_splits(M, D, F, 0);
+    long long need = gu > 1 ? gu * M * 2 * F : 0;
+    const long long dn = (long long)dora_mlp_splits(M, D, F, 1) * M * D;
+    if (dn > need) need = dn;
+    return need > INT_MAX ? -1 : (int)need;
 }
 
 // x [M, D] bf16; norm_w [D] f32; w_gu int8 [D, 2F]; s_gu [2F] f32;
 // b_gu [2F] f32 or null; w_down int8 [F, D]; s_down [D] f32.
 // out [M, D]: bf16 (x + delta) when residual, else f32 delta.
-// Scratch: h bf16 [M, D]; a bf16 [M, F]; p f32 of
-// max(splits(M, 2F, D) * M * 2F, splits(M, D, F) * M * D).
+// Scratch: h bf16 [M, D]; a bf16 [M, F]; p f32 of dora_mlp_scratch(M, D, F).
 extern "C" int dora_mlp_step(const void* x, const void* norm_w, const void* w_gu,
                              const void* s_gu, const void* b_gu,
                              const void* w_down, const void* s_down, void* out,
@@ -58,20 +167,25 @@ extern "C" int dora_mlp_step(const void* x, const void* norm_w, const void* w_gu
     DORA_LAUNCH(rmsnorm_rows, dim3(M), dim3(256), stream,
                 (const bf16*)x, (const float*)norm_w, (bf16*)h, D, eps);
     DORA_CHECK(err);
-    launch_gemm((const bf16*)h, (const int8_t*)w_gu, (float*)p, M, 2 * F, D,
-                stream, err);
-    int splits = gemm_splits(M, 2 * F, D);
-    size_t total = (size_t)M * F;
-    DORA_LAUNCH(silu_mul, dim3((unsigned)((total + 255) / 256)), dim3(256),
-                stream, (const float*)p, splits, M, F, (const float*)s_gu,
-                (const float*)b_gu, (bf16*)a);
-    DORA_CHECK(err);
-    launch_gemm((const bf16*)a, (const int8_t*)w_down, (float*)p, M, D, F,
-                stream, err);
-    launch_epilogue((const float*)p, gemm_splits(M, D, F), M, D,
-                    (const float*)s_down, nullptr,
-                    residual ? (const bf16*)x : nullptr,
-                    residual ? (bf16*)out : nullptr,
+    auto keep = [&](int e) { if (!err) err = e; };
+    const bf16* hb = (const bf16*)h;
+    const float *sg = (const float*)s_gu, *bg = (const float*)b_gu;
+    const int gu = dora_mlp_splits(M, D, F, 0);
+    if (gu == 1) {
+        keep(tc_by_band<TcSwiglu>(M, [&](auto c) {
+            return launch_swiglu<decltype(c)>(hb, (const int8_t*)w_gu, sg, bg, (bf16*)a, M, D,
+                                              F, stream);
+        }));
+    } else {
+        keep(tc_gemm(hb, (const int8_t*)w_gu, (float*)p, M, 2 * F, D, stream));
+        size_t total = (size_t)M * F;
+        DORA_LAUNCH(silu_mul, dim3((unsigned)((total + 255) / 256)), dim3(256), stream,
+                    (const float*)p, gu, M, F, sg, bg, (bf16*)a);
+        DORA_CHECK(err);
+    }
+    keep(tc_gemm((const bf16*)a, (const int8_t*)w_down, (float*)p, M, D, F, stream));
+    launch_epilogue((const float*)p, tc_splits(M, D, F), M, D, (const float*)s_down, nullptr,
+                    residual ? (const bf16*)x : nullptr, residual ? (bf16*)out : nullptr,
                     residual ? nullptr : (float*)out, stream, err);
     return err;
 }

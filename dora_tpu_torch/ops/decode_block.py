@@ -38,7 +38,9 @@ _P, _I, _F = _build.P, _build.I, _build.F
 
 _SIGNATURES = {
     "mlp": {
-        "dora_gemm_splits": [_I, _I, _I],
+        "dora_mlp_splits": [_I] * 4,
+        "dora_mlp_scratch": [_I] * 3,
+        "dora_tc_tile": [_P] * 4,
         "dora_mlp_step": [_P] * 8 + [_I] * 4 + [_F] + [_P] * 4,
     },
     "lm_head": {
@@ -290,13 +292,13 @@ def _mlp_step_kernel(x, norm_w, w_gateup, s_gateup, b_gateup, w_down, s_down,
     bgu = _f32(b_gateup, "b_gateup", 2 * f, dev)
     sd = _f32(s_down, "s_down", d, dev)
     lib = _lib("mlp", lib)
-    ws = max(
-        lib.dora_gemm_splits(m, 2 * f, d) * m * 2 * f,
-        lib.dora_gemm_splits(m, d, f) * m * d,
-    )
+    ws = lib.dora_mlp_scratch(m, d, f)
+    if ws < 0:
+        raise ValueError(f"mlp_step: {m} rows of width {d} / ffn {f} overflow the kernel's "
+                         f"scratch index")
     h = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
     a = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
-    p = torch.empty((ws,), dtype=torch.float32, device=dev)
+    p = torch.empty((max(ws, 1),), dtype=torch.float32, device=dev)
     out = torch.empty((m, d), dtype=torch.bfloat16 if residual else torch.float32,
                       device=dev)
     rc = lib.dora_mlp_step(
@@ -1167,6 +1169,23 @@ def mma_tile(a: torch.Tensor, b: torch.Tensor, lib=None) -> torch.Tensor:
     lib = _lib("paged_attention", lib)
     _build.check(lib.dora_mma_tile(a.data_ptr(), b.data_ptr(), d.data_ptr(),
                                    _build.stream_of(a)), "mma_tile")
+    return d
+
+
+def tc_tile(a: torch.Tensor, w: torch.Tensor, lib=None) -> torch.Tensor:
+    """``a @ w`` in f32 for bf16 a [16, 16] and int8 w [16, 16], through the
+    fragment path of the tensor-core int8 product of kernels 1 and 2
+    (``ldmatrix`` of a, ``ldmatrix.trans`` of w's bytes as 16-bit pairs,
+    ``widen_i8_cols``, an m16n8k16 mma for the even columns and one for the
+    odd). A check of that path, not a kernel of any path: the card and the
+    emulated build run it against ``torch.matmul``."""
+    dev = a.device
+    _need(a, "a", torch.bfloat16, (16, 16), dev)
+    _need(w, "w", torch.int8, (16, 16), dev)
+    d = torch.empty((16, 16), dtype=torch.float32, device=dev)
+    lib = _lib("mlp", lib)
+    _build.check(lib.dora_tc_tile(a.data_ptr(), w.data_ptr(), d.data_ptr(),
+                                  _build.stream_of(a)), "tc_tile")
     return d
 
 

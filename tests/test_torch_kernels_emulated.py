@@ -15,7 +15,13 @@ the prefill chunk and the dense verify run on the emulated warp
 collectives (shuffles, the m16n8k16 mma, cp.async): the mma alone on one
 tile against torch.matmul, the dense verify over 3+ context splits with
 m x group of 20, 35 and 66 rows, the prefill at groups 6 and 7 (head_dim
-128 and 64) from position 0 and from a later page, fp and int8 KV.
+128 and 64) from position 0 and from a later page, fp and int8 KV. The
+tensor-core int8 product of mlp_step and lm_head_argmax (ldmatrix of the
+int8 bytes, widened in registers, the mma) runs in every band: one tile
+against torch.matmul; mlp_step split and fused (the splits each case takes
+asserted), with K off the K tile and unaligned weight rows; the head at
+16-, 32-, 64- and 128-row bands, and with exact ties across lanes, warps
+and vocab tiles, where the smaller index must win.
 
 This checks the kernels' indexing, masking and reductions without a card;
 it says nothing of how they compile or run on one (chip_smoke.py does).
@@ -84,6 +90,7 @@ _KERNELS = {
     "attention_chunk_step": (DB, "_attention_chunk_step_kernel", "paged_attention"),
     "flash_attention": (FA, "_flash_attention_kernel", "flash_attention"),
     "mma_tile": (DB, "mma_tile", "paged_attention"),
+    "tc_tile": (DB, "tc_tile", "mlp"),
 }
 _SIGNATURES = {**DB._SIGNATURES, **LO._SIGNATURES, **IM._SIGNATURES, **FA._SIGNATURES}
 
@@ -103,6 +110,9 @@ def _run_job(job):
     if name == "sweep_splits":  # the context splits kernel 4 (0) or 10 (1) takes
         lib = _build.library("paged_attention", _SIGNATURES["paged_attention"], compiler="host")
         return lib.dora_sweep_splits(*args)
+    if name == "mlp_splits":  # the K splits of mlp_step's gate/up and down products
+        lib = _build.library("mlp", _SIGNATURES["mlp"], compiler="host")
+        return tuple(lib.dora_mlp_splits(*args, which) for which in (0, 1))
     module, fn, lib = _KERNELS[name]
     lib = _build.library(lib, _SIGNATURES[lib], compiler="host")
     return getattr(module, fn)(*args, lib=lib, **kw)
@@ -697,6 +707,103 @@ def test_host_wrappers_check_index_operands():
         LO.lora_gather_matmul(x, groups, a, b)
 
 
+#: (m, d, f, bias, residual) -> K splits of (gate/up, down): the decode
+#: bands of 16, 32 and 64 rows split both products (K 264 and 300, neither
+#: a multiple of the 32-deep K tile; d 264 and f 300 not multiples of 16, so
+#: every weight row is copied element by element); above 64 rows the
+#: gate/up product runs whole with the SwiGLU in its epilogue, on unaligned
+#: (f 300) and aligned (f 80, cp.async) weights, in one band and in two
+MLP_PATHS = {
+    (1, 264, 300, True, True): (2, 2),
+    (16, 264, 300, False, False): (2, 2),
+    (37, 264, 300, True, False): (2, 2),
+    (70, 96, 300, True, True): (1, 2),
+    (70, 96, 80, False, False): (1, 1),
+    (16, 96, 80, True, True): (1, 1),
+    (140, 96, 80, True, False): (1, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MLP_PATHS), ids=lambda c: "m{}_d{}_f{}_b{}_r{}".format(*c))
+def test_mlp_tensor_core_paths_match_plain(emu, case):
+    """The tensor-core products of mlp_step on every path: split K with the
+    partials summed by silu_mul and the epilogue, and the fused SwiGLU; the
+    splits each case takes are asserted first."""
+    m, d, f, bias, residual = case
+    assert emu.call("mlp_splits", m, d, f) == MLP_PATHS[case]
+    rng = np.random.default_rng(m + d + f)
+    x = _t(rng.standard_normal((m, d)), BF)
+    nw = _t(rng.standard_normal(d))
+    wgu = quantize_int8(_t(rng.standard_normal((d, 2 * f))))
+    wd = quantize_int8(_t(rng.standard_normal((f, d))))
+    b = _t(rng.standard_normal(2 * f)) if bias else None
+    args = (x, nw, wgu["int8"], wgu["scale"], b, wd["int8"], wd["scale"])
+    want = DB.mlp_step_plain(*args, residual=residual)
+    got = emu.call("mlp_step", *args, eps=1e-6, residual=residual)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("m", (1, 16, 37, 70, 140))
+@pytest.mark.parametrize("vocab", (300, 1000))
+def test_lm_head_tensor_core_bands_match_plain(emu, m, vocab):
+    """lm_head_argmax in one band of 16, 32 or 64 rows and in one and two
+    128-row bands above: tokens exactly the plain version's, the max logits
+    within 1e-2."""
+    rng = np.random.default_rng(m * vocab)
+    d = 96
+    x = _t(rng.standard_normal((m, d)), BF)
+    nw = _t(rng.standard_normal(d))
+    wh = quantize_int8(_t(rng.standard_normal((d, vocab))))
+    ti, tv = DB.lm_head_argmax_plain(x, nw, wh["int8"], wh["scale"], return_val=True)
+    gi, gv = emu.call("lm_head_argmax", x, nw, wh["int8"], wh["scale"], eps=1e-6,
+                      return_val=True)
+    assert torch.equal(gi, ti)
+    assert _rel(gv, tv) <= 1e-2
+
+
+#: column offsets of a duplicated winner: the same lane (1, 2; a lane holds
+#: 4 neighbouring columns of a 16-column group), the next lanes of the quad
+#: (4, 8), another warp (16), the warp's other half (64), another vocab tile
+#: (128, 130)
+TIE_OFFSETS = (1, 2, 4, 8, 16, 64, 128, 130)
+
+
+@pytest.mark.parametrize("m", (16, 70))
+def test_lm_head_ties_pick_the_first_index(emu, m):
+    """Each row's winning column is copied, weights and scale, to another
+    column at one of TIE_OFFSETS, above or below it, and both are made the
+    clear maximum (scale x 4): the logits tie exactly, and the kernel must
+    pick the smaller index, as the plain version's torch.max does, whichever
+    lane, warp or vocab tile holds it."""
+    rng = np.random.default_rng(7 + m)
+    d, vocab = 96, 1000
+    x = _t(rng.standard_normal((m, d)), BF)
+    nw = _t(rng.standard_normal(d))
+    wh = quantize_int8(_t(rng.standard_normal((d, vocab))))
+    q, s = wh["int8"].clone(), wh["scale"].clone()
+    h = DB._rms(x, nw, 1e-6).to(BF)
+    win = ((h.double() @ q.double()) * s.double()).argmax(dim=-1).tolist()
+    ties, used = {}, set()
+    for r, j in enumerate(win):
+        off = TIE_OFFSETS[r % len(TIE_OFFSETS)]
+        p = j - off if (r // len(TIE_OFFSETS)) % 2 and j - off >= 0 else j + off
+        if p >= vocab or p < 0 or {j, p} & used:
+            continue
+        used |= {j, p}
+        q[:, p] = q[:, j]
+        s[0, j] *= 4
+        s[0, p] = s[0, j]
+        ties[r] = min(j, p)
+    assert len(ties) >= m // 2
+    ti, tv = DB.lm_head_argmax_plain(x, nw, q, s, return_val=True)
+    for r, first in ties.items():
+        assert int(ti[r]) == first, f"row {r}: the plain version does not see the tie"
+    gi, gv = emu.call("lm_head_argmax", x, nw, q, s, eps=1e-6, return_val=True)
+    assert torch.equal(gi, ti)
+    assert _rel(gv, tv) <= 1e-2
+
+
 # ---------------------------------------------------------------------------
 # the int8 product and the dense caches
 # ---------------------------------------------------------------------------
@@ -858,6 +965,22 @@ def test_emulated_mma_tile_matches_matmul(emu, seed):
     got = emu.call("mma_tile", a, b)
     want = torch.matmul(a.float(), b.float())
     assert got.dtype == torch.float32 and got.shape == (16, 8)
+    assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("seed", (0, 1))
+def test_emulated_tc_tile_matches_matmul(emu, seed):
+    """The fragment path of kernels 1 and 2's product (the emulated ldmatrix
+    of the bf16 tile, ldmatrix.trans of the int8 tile's byte pairs, their
+    widening to bf16 and the even / odd column mma) is the plain product of
+    one 16 x 16 bf16 tile by a 16 x 16 int8 tile over the full int8 range
+    (exact products, f32 sums: within 1e-5)."""
+    rng = np.random.default_rng(seed)
+    a = _t(rng.standard_normal((16, 16)) * 4, BF)
+    w = torch.from_numpy(rng.integers(-128, 128, size=(16, 16)).astype(np.int8))
+    got = emu.call("tc_tile", a, w)
+    want = torch.matmul(a.float(), w.float())
+    assert got.dtype == torch.float32 and got.shape == (16, 16)
     assert _rel(got, want) <= 1e-5
 
 
