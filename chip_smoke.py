@@ -90,36 +90,41 @@ Phases, each printed on its own line:
    tokens/s and passes per token are printed.
 
 Phase 3 also holds the four kernels of phases 9 and 10 against their plain
-versions at Qwen2-1.5B shapes: ``int8_matmul`` at 1 row on the head, 16 on
-``wqkv`` and 256 on ``w_down``; ``attention_batch_step`` on 4 planes of 2048
-rows (positions 0 .. 2047), ``attention_step`` at 1500 and
+versions at Qwen2-1.5B shapes: ``int8_matmul`` at INT8_SHAPES (1 row on
+the head; ``wqkv``, ``wo``, ``w_gateup`` and ``w_down`` at 16 and 32
+rows; ``w_gateup`` and ``w_down`` at 256); ``attention_batch_step`` on 4
+planes of 2048 rows (positions 0 .. 2047), ``attention_step`` at 1500 and
 ``attention_chunk_step`` on 5 rows ending on row 2047, every cache row from
 the written ones on NaN first: outputs finite, unwritten cache values
 bit-unchanged, and each also with ``residual=False``. It holds
 ``flash_attention`` (phase 11's kernel) at the ViT's (1, 16, 256, 80),
-full, and at (1, 12, 2048, 128), causal; and the attention kernels again
-at the widened shapes, one layer of seeded weights each: head_dim 64 at
+full, and at (1, 12, 2048, 128) and (1, 14, 2048, 64), causal; and the
+attention kernels again at the widened shapes, one layer of seeded
+weights each: head_dim 64 at
 Qwen2-0.5B's 14 / 2 heads, Qwen2-7B's 28 / 4 heads, page 32, and a
 ``DORA_SPEC_K=10`` verify at Qwen2-1.5B's group of 6 (66 rows), with the
 LoRA kernel at rank 256. It checks the tensor-core helper of kernels 4 and
 10 (one m16n8k16 tile, fragments built by the sweeps' layout) and the
 fragment path of kernels 1 and 2's int8-weight product (one 16 x 16 bf16
 tile by a 16 x 16 int8 tile: ldmatrix, ldmatrix.trans of the int8 bytes,
-their widening, the mma) against ``torch.matmul``; it times kernels 1 and 2
-launch by launch at 1, 16, 80 and 256 rows (``breakdown`` lines: each
-launch's device time from ``torch.profiler``, their sum, the wrapper on
+their widening, the mma) against ``torch.matmul``; it times kernels 7 and
+11 at those shapes and kernels 1 and 2 at 1, 16, 80 and 256 rows, launch
+by launch (``breakdown`` lines: each launch's device time from
+``torch.profiler``, their sum, the wrapper on
 CUDA events and on the host, the library products and chain, the bound),
 and the attention sublayers of kernels 3-5 and 8-10 the same way
 (``sublayer`` lines, with SDPA alone and the library chain of RMSNorm,
 cuBLAS products on the dequantized weights and SDPA).
 
 ``fidelity`` lines hold kernels 4 and 10 and their plain versions to an
-f32 reference on phase 4's prompts. ``--kernels-only`` stops after phase
-3, ``--breakdown`` runs only the ``breakdown``, ``sublayer`` and
-``fidelity`` lines and ``--paths`` only phases 4, 9 and 10 and the VLM's
-``generate`` (prefill chunk, window, dense step, ``run_loop`` pass and
-VLM step times), all without the result line; either runs as well on a
-parent tree with this script copied beside it.
+f32 reference on phase 4's prompts, and kernel 11 and its plain version
+to f64 at the ViT's shape and causal over 2048 rows. ``--kernels-only``
+stops after phase 3, ``--breakdown`` runs only the ``breakdown``,
+``sublayer`` and ``fidelity`` lines and ``--paths`` only phases 4, 9 and
+10 and the VLM's ``generate`` (prefill chunk, window, dense step and its
+short prompts' TTFT, batch-1 prefill, ``run_loop`` pass, VLM step and ViT
+times), all without the result line; either runs as well on a parent tree
+with this script copied beside it.
 
 It prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -187,6 +192,19 @@ TENANT_SPEC_MAX_NEW = 32  # phase 8's short spec-on run
 # int8_matmul); phase 10 takes two of them.
 DENSE_LENGTHS = (8, 20, 32, 100, 212, 325, 438, 550, 662, 775, 888, 1000)
 BATCH1_PICKS = (1, 11)
+# Kernel 7 (int8_matmul) at the shapes the paths give it: the head on the
+# one row of a dense or VLM prefill; the four block products at the 16 and
+# 32 rows of a short prompt (layers.matmul sends <= 32 rows to the kernel);
+# w_gateup and w_down at 256 rows (a DORA_INT8_PURE prefill chunk).
+INT8_SHAPES = (("lm_head", 1),
+               *((w, m) for m in (16, 32) for w in ("wqkv", "wo", "w_gateup", "w_down")),
+               ("w_gateup", 256), ("w_down", 256))
+# Kernel 11 (flash_attention): the bench_2b ViT's (B, H, T, D), full, and
+# causal self-attention over 2048 rows at Qwen2-1.5B's 12 heads of 128 and
+# Qwen2-0.5B's 14 of 64 (a training loss); all in the vision tower's layout,
+# [B, T, H, D] projections seen as [B, H, T, D].
+FLASH_SHAPES = (((1, 16, 256, 80), False), ((1, 12, 2048, 128), True),
+                ((1, 14, 2048, 64), True))
 
 
 class Failed(Exception):
@@ -1376,27 +1394,25 @@ def check_dense_kernels(torch, DB, IM, params, cfg, rng_seed: int) -> list[dict]
                 "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
 
-    # int8_matmul: the prefill head on one row (the entry), a short prompt's
-    # wqkv on 16 rows, w_down on 256 rows (the DORA_INT8_PURE prefill).
-    for what, m, w in (("head", 1, params["lm_head"]), ("wqkv", 16, blk["wqkv"]),
-                       ("w_down", 256, blk["w_down"])):
-        q, sc = w["int8"], w["scale"]
+    # int8_matmul at every shape of INT8_SHAPES; the head on one row is the entry.
+    for name, m in INT8_SHAPES:
+        q, sc = _int8_operands(params, name)
         k, n = q.shape
         x = (torch.randn((m, k), generator=gen, device=dev) * 0.5).bfloat16()
         want = IM.int8_matmul_plain(x, q, sc)
         got = IM.int8_matmul(x, q, sc)
         err, rel = _rel(got, want)
-        where = f" at {m} row(s) on {what} ({k} x {n})"
+        where = f" at {m} row(s) on {name} ({k} x {n})"
         check("int8_matmul", rel, where)
         w_bf = (q.float() * sc).bfloat16()
         entry = report("int8_matmul", "dora_tpu_torch/csrc/int8_matmul.cu",
                        "dora_tpu/ops/int8_matmul.py:148", err,
                        _time_ms(torch, lambda: IM.int8_matmul(x, q, sc)),
                        _time_ms(torch, lambda: IM.int8_matmul_plain(x, q, sc), 5),
-                       _time_ms(torch, lambda: torch.matmul(x, w_bf)),
-                       m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n, where)
+                       _time_ms(torch, lambda: torch.matmul(x, w_bf)), *_int8_cost(m, k, n),
+                       where)
         del w_bf
-        if what == "head":
+        if name == "lm_head":
             out.append(entry)
 
     cos_t, sin_t = rope_table(seq, hd, base=cfg.rope_theta, device=dev)
@@ -1653,7 +1669,10 @@ def serve_dense(torch, DB, LO, IM, make_engine, serve_prompts, params, cfg, prom
           f"(step mean {1e3 * sum(step_s) / len(step_s):.2f} ms, max {1e3 * max(step_s):.2f} "
           f"ms); TTFT p50 {ttfts[len(ttfts) // 2]:.3f} s max {ttfts[-1]:.3f} s; "
           f"{joined[0]} request(s) joined mid-flight; {engine.dispatches} dispatches, "
-          f"{engine.fetches} fetches; end-to-end {n_tok / wall:.1f} tokens/s", flush=True)
+          f"{engine.fetches} fetches; end-to-end {n_tok / wall:.1f} tokens/s; TTFT of the "
+          f"<= 32-token prompts (their prefill in int8_matmul): "
+          f"{', '.join(f'{len(prompts[i])} tokens {ttft[i]:.4f} s' for i in sorted(ttft) if len(prompts[i]) <= 32)}",
+          flush=True)
     return out, launches
 
 
@@ -1705,8 +1724,16 @@ def batch1(torch, DB, LO, qwen2, spec_decode, L, paths, params, cfg, prompts, ma
             "attention_step", ("attention_batch_step", "attention_chunk_step") + paged)
         gen = gen[0].tolist()
         _check_streams({i: gen}, max_new, cfg.vocab)
+        pre_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            pre_ms.append(1e3 * (time.perf_counter() - t0))
         print(f"batch-1 generate, request {i}: {max_new} tokens in {wall:.3f} s with the "
-              f"prompt ({(max_new - 1) / wall:.1f} decode steps/s)", flush=True)
+              f"prompt ({(max_new - 1) / wall:.1f} decode steps/s); its prefill (TTFT) "
+              f"{sorted(pre_ms)[2]:.3f} ms, the median of 5", flush=True)
 
         spec_decode.check_headroom(t, max_new, cfg.max_seq, "prompt", SPEC_K)
         body = spec_decode.fitting_body_passes(t, max_new, cfg.max_seq, SPEC_K)
@@ -1813,11 +1840,9 @@ def check_tc_tile(torch, DB, rng_seed: int) -> None:
                      f"rel {rel:.3e}")
 
 
-def _device_launches(torch, fn, iters: int = 10):
-    """The device time of each kernel one call of ``fn`` launches, in launch
-    order, averaged over ``iters`` calls, from ``torch.profiler``'s kernel
-    records: [(kernel name, ms)], or None when the profiler saw no kernel or
-    the calls launched different numbers of them."""
+def _device_kernels(torch, fn, iters: int):
+    """Every kernel ``iters`` calls of ``fn`` launch, from ``torch.profiler``'s
+    records, in launch order: [(kernel name, us)]."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1829,15 +1854,30 @@ def _device_launches(torch, fn, iters: int = 10):
         torch.cuda.synchronize()
     kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                   key=lambda e: e.time_range.start)
+    return [(e.name.split("(")[0].replace("void ", ""), e.time_range.elapsed_us())
+            for e in kern]
+
+
+def _device_launches(torch, fn, iters: int = 10):
+    """The device time of each kernel one call of ``fn`` launches, in launch
+    order, averaged over ``iters`` calls: [(kernel name, ms)], or None when
+    the profiler saw no kernel or the calls launched different numbers of
+    them."""
+    kern = _device_kernels(torch, fn, iters)
     if not kern or len(kern) % iters:
         return None
     per = len(kern) // iters
-    out = []
-    for j in range(per):
-        name = kern[j].name.split("(")[0].replace("void ", "")
-        us = sum(kern[i * per + j].time_range.elapsed_us() for i in range(iters)) / iters
-        out.append((name, us / 1e3))
-    return out
+    return [(kern[j][0], sum(kern[i * per + j][1] for i in range(iters)) / iters / 1e3)
+            for j in range(per)]
+
+
+def _launch_parts(torch, fn) -> str:
+    """Each kernel ``fn`` launches with its device ms, and their sum."""
+    launches = _device_launches(torch, fn)
+    if launches is None:
+        return "not measured (the profiler saw no kernel)"
+    return (", ".join(f"{n} {ms:.4f}" for n, ms in launches)
+            + f"; device sum {sum(ms for _, ms in launches):.4f}")
 
 
 def _host_ms(torch, fn, iters: int = 20) -> float:
@@ -1901,10 +1941,7 @@ def sublayer_breakdown(torch, DB, params, cfg, rng_seed: int) -> None:
             o = sdpa(q, kk, vv, attn_mask=mask)
             return torch.matmul(o.transpose(1, 2).reshape(x.shape[0], h * hd), wo_bf)
 
-        launches = _device_launches(torch, call)
-        parts = ("not measured (the profiler saw no kernel)" if launches is None else
-                 ", ".join(f"{n} {ms:.4f}" for n, ms in launches)
-                 + f"; device sum {sum(ms for _, ms in launches):.4f}")
+        parts = _launch_parts(torch, call)
         sdpa_ms = _time_ms(torch, lambda: sdpa(q, kk, vv, attn_mask=mask))
         print(f"sublayer {what}: {parts}; wrapper {_time_ms(torch, call):.4f} ms, host "
               f"{_host_ms(torch, call):.4f} ms; SDPA {sdpa_ms:.4f} ms, library chain "
@@ -2038,10 +2075,7 @@ def ffn_head_breakdown(torch, DB, params, cfg, rng_seed: int) -> None:
         return x + torch.matmul(torch.nn.functional.silu(gu[:, :f]) * gu[:, f:], wd_bf)
 
     def line(what, call, products, chain, nbytes, ops):
-        launches = _device_launches(torch, call)
-        parts = ("not measured (the profiler saw no kernel)" if launches is None else
-                 ", ".join(f"{n} {ms:.4f}" for n, ms in launches)
-                 + f"; device sum {sum(ms for _, ms in launches):.4f}")
+        parts = _launch_parts(torch, call)
         bound, by = _bound_ms(nbytes, ops)
         print(f"breakdown {what}: {parts}; wrapper {_time_ms(torch, call):.4f} ms, host "
               f"{_host_ms(torch, call):.4f} ms; library products {_time_ms(torch, products):.4f}"
@@ -2188,30 +2222,65 @@ def sweep_fidelity(torch, DB, params, cfg, prompts, rng_seed: int) -> None:
         report(f"attention_chunk_step, 5 rows at {position}", errs)
 
 
+def _int8_operands(params, name):
+    """The int8 weight and scale of ``name``: the head, or layer 0's block
+    product."""
+    w = params["lm_head"] if name == "lm_head" else params["blocks"]["0"][name]
+    return w["int8"], w["scale"]
+
+
+def _int8_cost(m: int, k: int, n: int) -> tuple[int, int]:
+    """Kernel 7's (bytes, operations) on an m x k x n product: x, q and the
+    scale read once, the bf16 output written once."""
+    return m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n
+
+
+def _flash_inputs(torch, gen, shape):
+    """Seeded q, k, v of ``shape`` (B, H, T, D) in bf16, each a [B, T, H, D]
+    tensor seen as [B, H, T, D] (the vision tower's projections)."""
+    b, h, t, d = shape
+    return tuple(torch.randn((b, t, h, d), generator=gen, device=gen.device).bfloat16()
+                 .transpose(1, 2) for _ in range(3))
+
+
+def _flash_cost(shape, causal: bool) -> tuple[int, int]:
+    """Kernel 11's (bytes, operations): q, k, v read and out written once;
+    the two products over the (query, key) pairs that count."""
+    b, h, t, d = shape
+    keys = t * (t + 1) // 2 if causal else t * t
+    return 4 * b * h * t * d * 2, 4 * b * h * keys * d
+
+
+def _attention_f64(torch, q, k, v, causal: bool):
+    """Softmax attention over [B, H, T, D] in f64: the fidelity reference."""
+    t, d = q.shape[-2], q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) / d ** 0.5
+    if causal:
+        s = s.masked_fill(~torch.ones((t, t), dtype=torch.bool, device=q.device).tril(),
+                          float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v.double())
+
+
 def check_flash_kernel(torch, FA, rng_seed: int, dev: str = "cuda") -> dict:
     """Phase 3, kernel 11: ``flash_attention`` against its plain version at
-    the bench_2b ViT's shape (1, 16, 256, 80), full, in the layout the
-    vision tower hands it ([B, T, H, D] projections seen as [B, H, T, D]),
-    and at (1, 12, 2048, 128), causal (the LM's heads over a full context).
+    every shape of FLASH_SHAPES, in the layout the vision tower hands it.
     Returns the ViT entry."""
     gen = torch.Generator(device=dev).manual_seed(rng_seed)
     entry = None
-    for (b, h, t, d), causal in (((1, 16, 256, 80), False), ((1, 12, 2048, 128), True)):
-        q, k, v = (torch.randn((b, t, h, d), generator=gen, device=dev).bfloat16().transpose(1, 2)
-                   for _ in range(3))
+    for shape, causal in FLASH_SHAPES:
+        q, k, v = _flash_inputs(torch, gen, shape)
         want = FA.flash_attention_plain(q, k, v, causal)
         got = FA.flash_attention(q, k, v, causal)
         err, rel = _rel(got, want)
         tol = REL_TOL["flash_attention"]
-        what = f" at {(b, h, t, d)}{' causal' if causal else ''}"
+        what = f" at {shape}{' causal' if causal else ''}"
         if not rel <= tol:
             raise Failed(f"flash_attention{what} disagrees with its plain version: rel {rel:.3e}")
 
         def lib():
             return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
-        keys = t * (t + 1) // 2 if causal else t * t  # (query, key) pairs computed
-        bound, by = _bound_ms(4 * b * h * t * d * 2, 4 * b * h * keys * d)
+        bound, by = _bound_ms(*_flash_cost(shape, causal))
         ms = _time_ms(torch, lambda: FA.flash_attention(q, k, v, causal))
         plain_ms = _time_ms(torch, lambda: FA.flash_attention_plain(q, k, v, causal), 5)
         lib_ms = _time_ms(torch, lib)
@@ -2225,6 +2294,71 @@ def check_flash_kernel(torch, FA, rng_seed: int, dev: str = "cuda") -> dict:
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": by, "library_ms": lib_ms}
     return entry
+
+
+def int8_flash_breakdown(torch, IM, FA, params, rng_seed: int) -> None:
+    """Kernels 7 and 11 launch by launch: ``int8_matmul`` at every shape of
+    INT8_SHAPES (its product and, where K is split, its epilogue) beside
+    cuBLAS on the dequantized bf16 weight, and ``flash_attention`` at every
+    shape of FLASH_SHAPES beside SDPA on the same tensors: the device time
+    of each launch from ``torch.profiler``, their sum, the wrapper on CUDA
+    events and its host time, and the bound. The yardsticks are never
+    called by the port."""
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(rng_seed)
+    for name, m in INT8_SHAPES:
+        q, sc = _int8_operands(params, name)
+        k, n = q.shape
+        x = (torch.randn((m, k), generator=gen, device=dev) * 0.5).bfloat16()
+        w_bf = (q.float() * sc).bfloat16()
+
+        def call():
+            return IM.int8_matmul(x, q, sc)
+
+        def cublas():
+            return torch.matmul(x, w_bf)
+
+        bound, by = _bound_ms(*_int8_cost(m, k, n))
+        print(f"breakdown int8_matmul, {m} row(s) on {name} ({k} x {n}): "
+              f"{_launch_parts(torch, call)}; wrapper {_time_ms(torch, call):.4f} ms, host "
+              f"{_host_ms(torch, call):.4f} ms; cuBLAS on the dequantized weight "
+              f"{_time_ms(torch, cublas):.4f} ms (device: {_launch_parts(torch, cublas)}); "
+              f"bound {bound:.4f} ms ({by})", flush=True)
+        del w_bf
+    for shape, causal in FLASH_SHAPES:
+        q, k, v = _flash_inputs(torch, gen, shape)
+
+        def call():
+            return FA.flash_attention(q, k, v, causal)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+        bound, by = _bound_ms(*_flash_cost(shape, causal))
+        print(f"breakdown flash_attention at {shape}{' causal' if causal else ''}: "
+              f"{_launch_parts(torch, call)}; wrapper {_time_ms(torch, call):.4f} ms, host "
+              f"{_host_ms(torch, call):.4f} ms; SDPA {_time_ms(torch, sdpa):.4f} ms (device: "
+              f"{_launch_parts(torch, sdpa)}); bound {bound:.4f} ms ({by})", flush=True)
+
+
+def flash_fidelity(torch, FA, rng_seed: int) -> None:
+    """Kernel 11 and its plain version (both bf16 out) against softmax
+    attention in f64 on the same bf16 inputs, as rel-rms, at the ViT's shape
+    and at causal 2048: a kernel that rounded its probabilities to bf16
+    would sit further from f64 than the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(rng_seed)
+    for shape, causal in FLASH_SHAPES[:2]:
+        q, k, v = _flash_inputs(torch, gen, shape)
+        ref = _attention_f64(torch, q, k, v, causal)
+        got = FA.flash_attention(q, k, v, causal).double()
+        plain = FA.flash_attention_plain(q, k, v, causal).double()
+
+        def rel(a, b):
+            return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+        print(f"fidelity flash_attention at {shape}{' causal' if causal else ''}: rel-rms vs "
+              f"f64, kernel {rel(got, ref):.4e}, bf16 plain {rel(plain, ref):.4e}; kernel vs "
+              f"plain {rel(got, plain):.4e}", flush=True)
 
 
 #: phase 3's widened shapes: model widths (their config.json) with one layer
@@ -2491,8 +2625,24 @@ def vlm_step_times(torch, vlm, seed: int, max_new: int) -> None:
     finally:
         vlm.prefill = real_prefill
     steps = max_new - 1
+    vit_ms = _time_ms(torch, lambda: vlm.encode_image(params, cfg, image), 5)
     print(f"path times, vlm generate at bench_2b: prefill (ViT included) {1e3 * t_pre[0]:.2f} "
-          f"ms; {steps} decode steps {1e3 * (wall - t_pre[0]) / steps:.3f} ms a step", flush=True)
+          f"ms; {steps} decode steps {1e3 * (wall - t_pre[0]) / steps:.3f} ms a step; ViT "
+          f"{vit_ms:.3f} ms per image, {_vit_device(torch, vlm, params, cfg, image)}",
+          flush=True)
+
+
+def _vit_device(torch, vlm, params, cfg, image, iters: int = 3) -> str:
+    """The device time of one ``encode_image`` (every kernel it launches,
+    from ``torch.profiler``, averaged over ``iters`` calls) and, of it,
+    flash_attention's."""
+    kern = _device_kernels(torch, lambda: vlm.encode_image(params, cfg, image), iters)
+    if not kern:
+        return "device time not measured (the profiler saw no kernel)"
+    flash = [us for n, us in kern if n.startswith("flash_fwd")]
+    return (f"device: {len(kern) / iters:.0f} kernels {sum(us for _, us in kern) / iters / 1e3:.3f}"
+            f" ms, of them {len(flash) / iters:.0f} flash_attention "
+            f"{sum(flash) / iters / 1e3:.3f} ms")
 
 
 def serve_vlm(torch, DB, LO, vlm, paths, params, cfg, seed: int, max_new: int) -> dict:
@@ -2525,6 +2675,7 @@ def serve_vlm(torch, DB, LO, vlm, paths, params, cfg, seed: int, max_new: int) -
         torch.cuda.synchronize()
         per_image = FA.flash_attention.launches
         vit_ms = _time_ms(torch, lambda: vlm.encode_image(params, cfg, image), 5)
+        vit_device = _vit_device(torch, vlm, params, cfg, image)
     with _env(DORA_FLASH_ATTENTION="0"):
         dense_img = vlm.encode_image(params, cfg, image)
         dense_ms = _time_ms(torch, lambda: vlm.encode_image(params, cfg, image), 5)
@@ -2534,7 +2685,8 @@ def serve_vlm(torch, DB, LO, vlm, paths, params, cfg, seed: int, max_new: int) -
           f"{per_image} per image; flash vs dense einsum rms {rms(flash_img - dense_img):.4e} "
           f"({rms(flash_img - dense_img) / rms(dense_img):.3e} of the output's rms "
           f"{rms(dense_img):.4e}); vs the f32 plain path: flash {r_flash:.4e}, dense {r_dense:.4e}; "
-          f"ViT {vit_ms:.3f} ms per image with flash, {dense_ms:.3f} ms dense", flush=True)
+          f"ViT {vit_ms:.3f} ms per image with flash ({vit_device}), {dense_ms:.3f} ms dense",
+          flush=True)
     if per_image != cfg.vision_layers:
         raise Failed(f"encode_image launched flash_attention {per_image} times, not once per "
                      f"vision layer ({cfg.vision_layers})")
@@ -2660,9 +2812,9 @@ def main(argv=None) -> int:
     ap.add_argument("--max-new", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--breakdown", action="store_true",
-                    help="build, then only time kernels 1 and 2 and the attention sublayers "
-                         "launch by launch and hold kernels 4 and 10 to f32 (prints no "
-                         "result line)")
+                    help="build, then only time kernels 1, 2, 7 and 11 and the attention "
+                         "sublayers launch by launch and hold kernels 4, 10 and 11 to their "
+                         "references (prints no result line)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build, then only phase 3's kernel checks (prints no result line)")
     ap.add_argument("--paths", action="store_true",
@@ -2721,6 +2873,8 @@ def main(argv=None) -> int:
         d_rng = np.random.default_rng(args.seed + 7)
         d_prompts = [d_rng.integers(0, cfg.vocab, size=n).tolist() for n in DENSE_LENGTHS]
         if args.breakdown:
+            int8_flash_breakdown(torch, IM, FA, params, args.seed + 17)
+            flash_fidelity(torch, FA, args.seed + 18)
             ffn_head_breakdown(torch, DB, params, cfg, args.seed + 15)
             ffn_fidelity(torch, DB, params, cfg, prompts)
             sublayer_breakdown(torch, DB, params, cfg, args.seed + 12)
@@ -2743,6 +2897,8 @@ def main(argv=None) -> int:
         check_mma_tile(torch, DB, args.seed + 13)
         check_tc_tile(torch, DB, args.seed + 16)
         check_widened_kernels(torch, DB, LO, qwen2, args.seed + 9)
+        int8_flash_breakdown(torch, IM, FA, params, args.seed + 17)
+        flash_fidelity(torch, FA, args.seed + 18)
         ffn_head_breakdown(torch, DB, params, cfg, args.seed + 15)
         ffn_fidelity(torch, DB, params, cfg, prompts)
         sublayer_breakdown(torch, DB, params, cfg, args.seed + 12)

@@ -1,8 +1,9 @@
-// Building blocks shared by the decode kernels (mlp.cu, lm_head.cu,
-// paged_attention.cu, int8_matmul.cu): RMSNorm, the int8-weight products
-// with f32 accumulators (the SIMT launch_gemm, and the tensor-core
-// tc_tile_product of kernels 1 and 2), and the epilogues that apply the
-// per-column scale.
+// Building blocks shared by the kernels (mlp.cu, lm_head.cu,
+// paged_attention.cu, int8_matmul.cu, flash_attention.cu): RMSNorm, the
+// int8-weight products with f32 accumulators (the SIMT launch_gemm of the
+// attention sublayers, and the tensor-core tc_tile_product of kernels 1, 2
+// and 7), the epilogues that apply the per-column scale, and the warp-level
+// operations of the tensor-core kernels.
 //
 // Number format (dora_tpu/ops/int8_matmul.py): weights are int8 [K, N] with
 // one f32 scale per output column. The scale commutes with the product, so
@@ -370,7 +371,7 @@ static __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void*
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core int8-weight product (mlp.cu, lm_head.cu)
+// Tensor-core int8-weight product (mlp.cu, lm_head.cu, int8_matmul.cu)
 // ---------------------------------------------------------------------------
 //
 // acc = A[m0.., kbeg..kend) @ W[kbeg..kend), cols) for bf16 activations A
@@ -619,11 +620,14 @@ static inline int tc_allow(Kern kern) {
     return err;
 }
 
-// P[z, m, n] = the z-th K split of A @ W over all N columns of W [K, N].
+// P[z, m, n] = the z-th K split of A @ W over all N columns of W [K, N]; or,
+// where out is given (a grid of one split), out[m, n] = bf16(acc * s[n])
+// straight from the accumulators, so no f32 partial reaches memory.
 template <class T>
 static __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
 tc_gemm_partial(const bf16* __restrict__ A, const int8_t* __restrict__ W,
-                float* __restrict__ P, int M, int N, int K, int kchunk) {
+                float* __restrict__ P, const float* __restrict__ s, bf16* __restrict__ out,
+                int M, int N, int K, int kchunk) {
     DORA_DYNAMIC_SMEM(smem);
     const TcCols cols{T::BN, (int)blockIdx.x * T::BN, N, 0};
     const int m0 = blockIdx.y * T::BM, kbeg = blockIdx.z * kchunk;
@@ -639,29 +643,35 @@ tc_gemm_partial(const bf16* __restrict__ A, const int8_t* __restrict__ W,
             for (int c = 0; c < 4; ++c) {
                 const int m = m0 + (wm * T::MT + i) * 16 + g + (c >= 2 ? 8 : 0);
                 const int jj = tc_col<T>(wn, j, t, c);
-                if (m < M && cols.live(jj))
-                    P[((size_t)blockIdx.z * M + m) * N + cols.phys(jj)] = acc[i][j][c];
+                if (m >= M || !cols.live(jj)) continue;
+                const int n = cols.phys(jj);
+                if (out)
+                    out[(size_t)m * N + n] = __float2bfloat16(acc[i][j][c] * s[n]);
+                else
+                    P[((size_t)blockIdx.z * M + m) * N + n] = acc[i][j][c];
             }
 }
 
 template <class T>
-static inline int tc_launch_partial(const bf16* A, const int8_t* W, float* P, int M, int N,
-                                    int K, void* stream) {
+static inline int tc_launch_partial(const bf16* A, const int8_t* W, float* P, const float* s,
+                                    bf16* out, int M, int N, int K, void* stream) {
     const int chunk = tc_chunk<T>(M, N, K);
     auto kern = tc_gemm_partial<T>;
     int err = tc_allow<T>(kern);
     if (err) return err;
     dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, (K + chunk - 1) / chunk);
-    DORA_LAUNCH_SMEM(kern, grid, dim3(T::THREADS), T::SMEM, stream, A, W, P, M, N, K, chunk);
+    DORA_LAUNCH_SMEM(kern, grid, dim3(T::THREADS), T::SMEM, stream, A, W, P, s, out, M, N, K,
+                     chunk);
     DORA_CHECK(err);
     return err;
 }
 
-// The product by the configuration for M rows.
+// The product by the configuration for M rows: f32 partials of its K splits
+// into P; or, with one split and out given, bf16(acc * s) into out.
 static inline int tc_gemm(const bf16* A, const int8_t* W, float* P, int M, int N, int K,
-                          void* stream) {
+                          void* stream, const float* s = nullptr, bf16* out = nullptr) {
     return tc_by_band(M, [&](auto c) {
-        return tc_launch_partial<decltype(c)>(A, W, P, M, N, K, stream);
+        return tc_launch_partial<decltype(c)>(A, W, P, s, out, M, N, K, stream);
     });
 }
 

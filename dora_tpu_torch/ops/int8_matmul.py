@@ -13,9 +13,11 @@ JAX package's.
 ``int8_matmul`` comes in two versions, as the kernels of
 ops/decode_block.py do: :func:`int8_matmul_plain` (plain PyTorch, f32
 accumulation; the CPU path and the card's oracle) and the hand-written CUDA
-kernel of ``csrc/int8_matmul.cu``, which :func:`int8_matmul` launches for
-CUDA tensors (counted in its ``launches``). Nothing falls back: a CUDA
-tensor the kernel does not take raises.
+kernel of ``csrc/int8_matmul.cu`` (the tensor-core int8-weight product of
+kernels 1 and 2, whose K splits the library reports), which
+:func:`int8_matmul` launches for CUDA tensors (counted in its
+``launches``). Nothing falls back: a CUDA tensor the kernel does not take
+raises.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from dora_tpu_torch.ops import _build
 
 _SIGNATURES = {
     "int8_matmul": {
-        "dora_gemm_splits": [_build.I] * 3,
+        "dora_int8_matmul_splits": [_build.I] * 3,
         "dora_int8_matmul": [_build.P] * 4 + [_build.I] * 3 + [_build.P] * 2,
     },
 }
@@ -148,10 +150,12 @@ def _int8_matmul_kernel(x, q, scale, lib=None):
         return out.reshape(*lead, n)
     lib = lib if lib is not None else _build.library("int8_matmul",
                                                      _SIGNATURES["int8_matmul"])
-    p = torch.empty((lib.dora_gemm_splits(m, n, k) * m * n,), dtype=torch.float32,
-                    device=dev)
+    # f32 partials only where K is split; one split writes bf16 directly
+    splits = lib.dora_int8_matmul_splits(m, n, k)
+    p = torch.empty((splits * m * n,), dtype=torch.float32, device=dev) if splits > 1 else None
     rc = lib.dora_int8_matmul(x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-                              m, n, k, p.data_ptr(), _build.stream_of(x))
+                              m, n, k, None if p is None else p.data_ptr(),
+                              _build.stream_of(x))
     int8_matmul.launches += 1
     _build.check(rc, "int8_matmul")
     return out.reshape(*lead, n)

@@ -9,8 +9,9 @@ head_dim 128 and page 16, and again at the widened shapes: head_dim 64 at
 Qwen2-0.5B's 14 / 2 heads, page 32, Qwen2-7B's 28 / 4 heads (36 q + k + v
 heads), a group of 10 (two head tiles), and verify chunks of m x group =
 66 rows (two row tiles) and of 20 rows (two fold tiles); the LoRA kernel
-also at rank 256; flash attention at D 16 and 80, full and causal, with T
-off its tiles and transposed (strided) inputs. The tensor-core sweeps of
+also at rank 256; flash attention at D 16, 40, 80 and 128, full and
+causal, T of 1 and off its tiles, transposed (strided) and unaligned
+inputs. The tensor-core sweeps of
 the prefill chunk and the dense verify run on the emulated warp
 collectives (shuffles, the m16n8k16 mma, cp.async): the mma alone on one
 tile against torch.matmul, the dense verify over 3+ context splits with
@@ -21,7 +22,10 @@ int8 bytes, widened in registers, the mma) runs in every band: one tile
 against torch.matmul; mlp_step split and fused (the splits each case takes
 asserted), with K off the K tile and unaligned weight rows; the head at
 16-, 32-, 64- and 128-row bands, and with exact ties across lanes, warps
-and vocab tiles, where the smaller index must win.
+and vocab tiles, where the smaller index must win. The int8 product
+(kernel 7) runs on the same tensor-core product, K split and whole, in
+every band. Flash attention runs its scores and P.V on the emulated mma,
+P kept in the accumulators' registers.
 
 This checks the kernels' indexing, masking and reductions without a card;
 it says nothing of how they compile or run on one (chip_smoke.py does).
@@ -113,6 +117,9 @@ def _run_job(job):
     if name == "mlp_splits":  # the K splits of mlp_step's gate/up and down products
         lib = _build.library("mlp", _SIGNATURES["mlp"], compiler="host")
         return tuple(lib.dora_mlp_splits(*args, which) for which in (0, 1))
+    if name == "int8_matmul_splits":  # the K splits kernel 7 takes (1: fused epilogue)
+        lib = _build.library("int8_matmul", _SIGNATURES["int8_matmul"], compiler="host")
+        return lib.dora_int8_matmul_splits(*args)
     module, fn, lib = _KERNELS[name]
     lib = _build.library(lib, _SIGNATURES[lib], compiler="host")
     return getattr(module, fn)(*args, lib=lib, **kw)
@@ -809,10 +816,28 @@ def test_lm_head_ties_pick_the_first_index(emu, m):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 37, 53), (20, 100, 130), (64, 129, 256)])
+#: (m, k, n) -> the K splits kernel 7 takes: the decode bands of 16, 32 and
+#: 64 rows and a 128-row prefill band, each split (partials summed by the
+#: epilogue) and whole (the scale applied and bf16 written by the product);
+#: odd K and N, and N off the 16-byte weight chunks (copied element by
+#: element)
+INT8_SPLITS = {
+    (1, 37, 53): 1,
+    (20, 100, 130): 1,
+    (64, 129, 256): 1,
+    (16, 300, 200): 2,
+    (32, 264, 96): 2,
+    (65, 256, 96): 2,
+    (65, 100, 300): 1,
+}
+
+
+@pytest.mark.parametrize("m,k,n", sorted(INT8_SPLITS))
 def test_int8_matmul_kernel_matches_plain(emu, m, k, n):
     """Odd and even K and N (the 16-byte weight rows and the ragged edge),
-    one and four 16-row bands."""
+    every band, K split and whole: the splits each case takes are asserted
+    first."""
+    assert emu.call("int8_matmul_splits", m, n, k) == INT8_SPLITS[(m, k, n)]
     rng = np.random.default_rng(m + k)
     x = _t(rng.standard_normal((m, k)), BF)
     w = quantize_int8(_t(rng.standard_normal((k, n))))
@@ -1062,17 +1087,30 @@ def test_paged_chunk_sweep_groups_and_forms(emu, group, hd, position, int8kv):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("d,t,causal,strided", [
+#: (d, t, causal, strided): D 16 to 128, D 40 not a multiple of 16 (the
+#: shared tiles zero-fill each row up to 48); T of 1 and T off the 64-row q
+#: tile and the 64-key tile (warps whose rows all lie past T); "unaligned"
+#: inputs start 8 bytes past a 16-byte boundary (element loads)
+FLASH_CASES = (
     (16, 37, False, False), (16, 37, True, True), (80, 50, False, True),
-    (80, 50, True, False)])
+    (80, 50, True, False), (40, 1, False, False), (40, 1, True, True),
+    (40, 70, True, True), (128, 70, False, False), (128, 100, True, False),
+    (80, 33, True, "unaligned"),
+)
+
+
+@pytest.mark.parametrize("d,t,causal,strided", FLASH_CASES)
 def test_flash_kernel_matches_plain(emu, d, t, causal, strided):
-    """T off the 16-row q tile and the 32-row K tile; strided inputs are
-    [B, T, H, D] projections seen as [B, H, T, D] (the vision tower's), and
-    the output keeps q's layout."""
+    """The tensor-core flash kernel at every case of FLASH_CASES; strided
+    inputs are [B, T, H, D] projections seen as [B, H, T, D] (the vision
+    tower's), and the output keeps q's layout."""
     rng = np.random.default_rng(d + t)
     b, h = 2, 3
 
     def make():
+        if strided == "unaligned":
+            a = _t(rng.standard_normal(b * h * t * d + 4), BF)
+            return a[4:].view(b, h, t, d)
         a = rng.standard_normal((b, t, h, d) if strided else (b, h, t, d))
         a = _t(a, BF)
         return a.transpose(1, 2) if strided else a
