@@ -113,18 +113,20 @@ by launch (``breakdown`` lines: each launch's device time from
 ``torch.profiler``, their sum, the wrapper on
 CUDA events and on the host, the library products and chain, the bound),
 and the attention sublayers of kernels 3-5 and 8-10 the same way
-(``sublayer`` lines, with SDPA alone and the library chain of RMSNorm,
-cuBLAS products on the dequantized weights and SDPA).
+(``sublayer`` lines, with SDPA alone, the library chain of RMSNorm,
+cuBLAS products on the dequantized weights and SDPA, and the bound).
 
-``fidelity`` lines hold kernels 4 and 10 and their plain versions to an
-f32 reference on phase 4's prompts, and kernel 11 and its plain version
-to f64 at the ViT's shape and causal over 2048 rows. ``--kernels-only``
-stops after phase 3, ``--breakdown`` runs only the ``breakdown``,
-``sublayer`` and ``fidelity`` lines and ``--paths`` only phases 4, 9 and
-10 and the VLM's ``generate`` (prefill chunk, window, dense step and its
-short prompts' TTFT, batch-1 prefill, ``run_loop`` pass, VLM step and ViT
-times), all without the result line; either runs as well on a parent tree
-with this script copied beside it.
+``fidelity`` lines hold the tensor-core sweeps' kernels 4, 5, 8 and 10
+and their plain versions to an f32 reference (kernel 4 on phase 4's
+prompts; kernels 5 and 8 must sit within RMS_MARGIN of their plain
+versions' distance), and kernel 11 and its plain version to f64 at the
+ViT's shape and causal over 2048 rows. ``--kernels-only`` stops after
+phase 3, ``--breakdown`` runs only the ``breakdown``, ``sublayer`` and
+``fidelity`` lines and ``--paths`` only phases 4, 6, 9 and 10 and the
+VLM's ``generate`` (prefill chunk, window, spec-on window, dense step and
+its short prompts' TTFT, batch-1 prefill, ``run_loop`` pass, VLM step and
+ViT times), all without the result line; either runs as well on a parent
+tree with this script copied beside it.
 
 It prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -153,16 +155,16 @@ REL_TOL = {
     "lm_head_argmax": 3e-5,              # the max logits; seen 1.3e-7 (1), 6.1e-7 (16), 7.1e-7 (80), 1.1e-6 (256)
     "attention_paged_batch_step": 3e-3,  # seen 9.2e-4
     "attention_paged_chunk_step": 1.3e-2,  # seen 4.3e-3
-    "attention_paged_spec_step": 6e-3,     # seen 2.1e-3
+    "attention_paged_spec_step": 6e-3,     # seen 3.3e-4; 1.5e-3 (Qwen2-7B), 1.7e-3 (m = 11)
     "pools": 3e-3,                       # K/V written; seen 0, 2.0e-4 and 7.8e-4
     "attention_paged_batch_step_int8kv": 3e-3,   # seen 9.5e-4
     "attention_paged_chunk_step_int8kv": 1.3e-2,  # seen 4.1e-3
-    "attention_paged_spec_step_int8kv": 5e-3,     # seen 1.7e-3
+    "attention_paged_spec_step_int8kv": 5e-3,     # seen 3.3e-4
     "int8kv_scales": 1e-6,               # scales of the rows written; seen 1.6e-7 .. 2.4e-7
     "lora_gather_matmul": 6e-3,          # seen 1.3e-4 (16 rows), 1.0e-3 (80), 1.9e-3 (256)
     "int8_matmul": 5e-3,                 # seen 1.1e-3 (head), 4.7e-6 (16 rows), 1.6e-3 (256)
-    "attention_batch_step": 3e-3,        # seen 2.2e-4
-    "attention_step": 1.2e-2,            # seen 4.0e-3: one bf16 step of its one row's largest output
+    "attention_batch_step": 3e-3,        # seen 5.5e-5; 2.1e-4 (Qwen2-7B)
+    "attention_step": 1.2e-2,            # seen 4.1e-3: one bf16 step of its one row's largest output
     "attention_chunk_step": 1.3e-2,      # seen 3.6e-3 (3.2e-4 residual=False)
     "flash_attention": 6e-3,             # the bf16 output's rounding; seen 1.4e-3 (ViT), 5.9e-4 (causal 2048)
 }
@@ -1790,7 +1792,7 @@ def batch1(torch, DB, LO, qwen2, spec_decode, L, paths, params, cfg, prompts, ma
             return lambda mode: paths.logits_of(go, mode)[row]
 
         # The served (dense) token is held to NEAR_TIE; generate's too (kernel
-        # 9 folds its row from f32 as kernel 8 does), run_loop's to
+        # 9 runs kernel 8's sweep and folds its row from f32 as it does), run_loop's to
         # SPEC_REF_TIE: kernel 10 folds its chunk from bf16 rows, as its
         # reference does, so its path ranks near-ties in its own order.
         for label, b, path, b_bound in (("generate", gen, stepped, NEAR_TIE),
@@ -1917,10 +1919,24 @@ def sublayer_breakdown(torch, DB, params, cfg, rng_seed: int) -> None:
     bq_bf = bqkv.bfloat16() if bqkv is not None else None
     kw = dict(heads=h, kv_heads=kv, head_dim=hd, eps=cfg.norm_eps)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_qkv = (h + 2 * kv) * hd
+    kv_row = kv * hd * 2 * 2    # one row of K and V in bf16
+    kv8_row = kv * (hd + 4) * 2  # in int8, with their scales
 
     def rows(n):
         tok = torch.randint(0, cfg.vocab, (n,), generator=gen, device=dev)
         return params["embed"][tok].bfloat16()
+
+    def cost(n, ctx_rows, attended, index_bytes, row_bytes=kv_row):
+        """The bound of a sublayer over n rows, as phase 3 counts it: x in and
+        out, the int8 weights with their f32 vectors, the rope rows, the
+        index operands, ctx_rows context rows of K and V read once and the n
+        rows' own written; the two products and attended (query row, key)
+        pairs of q.k and p.v."""
+        nbytes = (n * d * 2 * 2 + d * 4 + d * n_qkv + n_qkv * 8 + n * hd * 8 + h * hd * d
+                  + d * 4 + index_bytes + ctx_rows * row_bytes + n * row_bytes)
+        ops = 2 * n * d * n_qkv + 2 * 2 * h * hd * attended + 2 * n * h * hd * d
+        return _bound_ms(nbytes, ops)
 
     def rms(x):
         if hasattr(torch.nn.functional, "rms_norm"):
@@ -1928,9 +1944,10 @@ def sublayer_breakdown(torch, DB, params, cfg, rng_seed: int) -> None:
         xf = x.float()
         return (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + cfg.norm_eps) * nw).bfloat16()
 
-    def line(what, call, x, q, kk, vv, mask):
+    def line(what, call, x, q, kk, vv, mask, bound):
         """q [B, H, L, hd] and the context kk, vv [B, H, n, hd] for SDPA;
-        x the sublayer's B * L rows for the chain's products."""
+        x the sublayer's B * L rows for the chain's products; bound (ms,
+        by) from cost()."""
         kk = torch.nan_to_num(kk).repeat_interleave(h // kv, dim=1)
         vv = torch.nan_to_num(vv).repeat_interleave(h // kv, dim=1)
 
@@ -1945,7 +1962,8 @@ def sublayer_breakdown(torch, DB, params, cfg, rng_seed: int) -> None:
         sdpa_ms = _time_ms(torch, lambda: sdpa(q, kk, vv, attn_mask=mask))
         print(f"sublayer {what}: {parts}; wrapper {_time_ms(torch, call):.4f} ms, host "
               f"{_host_ms(torch, call):.4f} ms; SDPA {sdpa_ms:.4f} ms, library chain "
-              f"{_time_ms(torch, chain):.4f} ms", flush=True)
+              f"{_time_ms(torch, chain):.4f} ms; bound {bound[0]:.4f} ms ({bound[1]})",
+              flush=True)
 
     # kernel 3: 16 decode rows at 30..940, one frozen (as check_kernels)
     n_pool = 4 * seq // page
@@ -1972,10 +1990,12 @@ def sublayer_breakdown(torch, DB, params, cfg, rng_seed: int) -> None:
     x = rows(slots)
     cr, sr = DB.rope_rows_at(cos_t, sin_t, pos)
     args = (x, nw, wqkv, sqkv, bqkv, cr, sr, kp.clone(), vp.clone(), wo, swo, pos, bt)
+    ctx = sum(positions)
     line("attention_paged_batch_step, 16 rows at 30..940",
          lambda: DB.attention_paged_batch_step(*args, **kw), x,
          torch.randn((slots, h, 1, hd), generator=gen, device=dev).bfloat16(), kctx, vctx,
-         (keys[None, :] <= pos[:, None])[:, None, None, :])
+         (keys[None, :] <= pos[:, None])[:, None, None, :],
+         cost(slots, ctx, ctx + slots, slots * 4 + bt.numel() * 4))
 
     # kernel 4: 256 rows from 0 and from 512, fp and int8 KV
     btr = torch.arange(1, maxp + 1, dtype=torch.int32, device=dev)
@@ -1991,9 +2011,11 @@ def sublayer_breakdown(torch, DB, params, cfg, rng_seed: int) -> None:
         fp = (x, nw, wqkv, sqkv, bqkv, cr, sr, kp.clone(), vp.clone(), wo, swo, position, btr)
         q8 = (x, nw, wqkv, sqkv, bqkv, cr, sr, kq8.clone(), vq8.clone(), wo, swo, position,
               btr, ks8.clone(), vs8.clone())
-        for form, cargs in (("fp KV", fp), ("int8 KV", q8)):
+        causal = chunk * position + chunk * (chunk + 1) // 2
+        for form, cargs, row_bytes in (("fp KV", fp, kv_row), ("int8 KV", q8, kv8_row)):
             line(f"attention_paged_chunk_step, {form}, 256 rows at {position}",
-                 lambda: DB.attention_paged_chunk_step(*cargs, **kw), x, qc, kc, vc, cmask)
+                 lambda: DB.attention_paged_chunk_step(*cargs, **kw), x, qc, kc, vc, cmask,
+                 cost(chunk, position, causal, btr.numel() * 4, row_bytes))
 
     # kernel 5: 16 streams x 5 rows at 30..940
     flat = (pos[:, None] + torch.arange(m, dtype=torch.int32, device=dev)[None, :])
@@ -2003,7 +2025,8 @@ def sublayer_breakdown(torch, DB, params, cfg, rng_seed: int) -> None:
     line("attention_paged_spec_step, 16 x 5 rows at 30..940",
          lambda: DB.attention_paged_spec_step(*sargs, m=m, **kw), x,
          torch.randn((slots, h, m, hd), generator=gen, device=dev).bfloat16(), kctx, vctx,
-         (keys[None, None, :] <= flat[:, :, None])[:, None])
+         (keys[None, None, :] <= flat[:, :, None])[:, None],
+         cost(slots * m, ctx, m * ctx + slots * m * (m + 1) // 2, slots * 4 + bt.numel() * 4))
     del kp, vp, kq8, vq8, kctx, vctx
 
     def nan_planes(live):
@@ -2025,7 +2048,8 @@ def sublayer_breakdown(torch, DB, params, cfg, rng_seed: int) -> None:
     line("attention_batch_step, 4 planes at 0..2047",
          lambda: DB.attention_batch_step(*dargs, **kw), x,
          torch.randn((len(live), h, 1, hd), generator=gen, device=dev).bfloat16(), kc, vc,
-         (skeys[None, :] <= dpos[:, None])[:, None, None, :])
+         (skeys[None, :] <= dpos[:, None])[:, None, None, :],
+         cost(len(live), sum(live), sum(live) + len(live), len(live) * 4))
 
     # kernel 9 at 1500; kernel 10's 5 rows at 84, 1064 and 2043
     for n_rows, position in ((1, 1500), (m, 84), (m, 1064), (m, seq - m)):
@@ -2037,7 +2061,8 @@ def sublayer_breakdown(torch, DB, params, cfg, rng_seed: int) -> None:
         fn = DB.attention_step if n_rows == 1 else DB.attention_chunk_step
         line(f"{fn.__name__}, {n_rows} row(s) at {position}", lambda: fn(*pargs, **kw), x,
              torch.randn((1, h, n_rows, hd), generator=gen, device=dev).bfloat16(), kc, vc,
-             skeys[None, :] <= position + torch.arange(n_rows, device=dev)[:, None])
+             skeys[None, :] <= position + torch.arange(n_rows, device=dev)[:, None],
+             cost(n_rows, position, n_rows * position + n_rows * (n_rows + 1) // 2, 0))
 
 
 BREAKDOWN_ROWS = (1, 16, 80, 256)  # batch 1, a decode tick, a verify, a prefill chunk
@@ -2147,13 +2172,18 @@ def ffn_fidelity(torch, DB, params, cfg, prompts) -> None:
 
 
 def sweep_fidelity(torch, DB, params, cfg, prompts, rng_seed: int) -> None:
-    """Phase 3: kernels 4 and 10 against an f32 reference (their plain
-    versions run on f32 rows), beside the bf16 plain versions, as rel-rms of
-    the attention delta (residual=False): kernel 4 on the embedded rows of
-    three of phase 4's prompts (256-row chunks from 0 and from 512 over a
-    seeded pool), kernel 10 on 5 rows at 84, 1064 and 2043 over seeded
-    planes, in every ninth layer's weights. A kernel as close to f32 as its
-    plain version but far from the plain version rounds elsewhere."""
+    """Phase 3: the tensor-core sweeps' kernels 4, 5 and 8-10 against an
+    f32 reference (their plain versions run on f32 rows), beside the bf16
+    plain versions, as rel-rms of the attention delta (residual=False):
+    kernel 4 on the embedded rows of three of phase 4's prompts (256-row
+    chunks from 0 and from 512 over a seeded pool), kernel 10 on 5 rows at
+    84, 1064 and 2043 over seeded planes, kernel 5 on 16 streams x 5 rows at
+    30..940 (one frozen) over a seeded pool, kernel 8 on 4 planes at 0, 700,
+    1500 and 2047 and kernel 9 on one row at 1500, NaN from each position
+    on, in every ninth layer's weights. A kernel as close to f32 as its
+    plain version but far from the plain version rounds elsewhere; kernels
+    5, 8 and 9 fail the phase when they sit more than RMS_MARGIN times as
+    far from f32 as their plain versions."""
     from dora_tpu_torch.models.layers import rope_table
 
     dev = params["embed"].device
@@ -2166,16 +2196,19 @@ def sweep_fidelity(torch, DB, params, cfg, prompts, rng_seed: int) -> None:
     def rel(a, b, n):
         return float((a - b)[:n].pow(2).mean().sqrt() / b[:n].pow(2).mean().sqrt())
 
-    def report(what, errs):
+    def report(what, errs, hold=False):
         e = torch.tensor(errs, dtype=torch.float64)
         print(f"fidelity {what}: rel-rms vs f32, kernel {e[:, 0].mean():.4e} (max "
               f"{e[:, 0].max():.4e}), bf16 plain {e[:, 1].mean():.4e} (max {e[:, 1].max():.4e}); "
               f"kernel vs plain {e[:, 2].mean():.4e}", flush=True)
+        if hold and not e[:, 0].mean() <= RMS_MARGIN * e[:, 1].mean():
+            raise Failed(f"{what}: the kernel sits {e[:, 0].mean():.4e} from f32, more than "
+                         f"{RMS_MARGIN} x the bf16 plain version's {e[:, 1].mean():.4e}")
 
-    def three(kernel, plain, args, n):
-        got = kernel(*args(False), **kw)[0]
-        want = plain(*args(False), **kw)[0]
-        ref = plain(*args(True), **kw)[0]
+    def three(kernel, plain, args, n, **extra):
+        got = kernel(*args(False), **kw, **extra)[0]
+        want = plain(*args(False), **kw, **extra)[0]
+        ref = plain(*args(True), **kw, **extra)[0]
         return rel(got, ref, n), rel(want, ref, n), rel(got, want, n)
 
     btr = torch.arange(1, seq // page + 1, dtype=torch.int32, device=dev)
@@ -2220,6 +2253,83 @@ def sweep_fidelity(torch, DB, params, cfg, prompts, rng_seed: int) -> None:
             errs.append(three(DB.attention_chunk_step, DB.attention_chunk_step_plain, args,
                               SPEC_K + 1))
         report(f"attention_chunk_step, 5 rows at {position}", errs)
+
+    # kernel 5: 16 streams x 5 rows at 30..940, stream 3 frozen (the sublayer's)
+    m, slots, maxp = SPEC_K + 1, 16, seq // page
+    positions = [int(p) for p in torch.linspace(30, 940, slots).round().tolist()]
+    positions[3] = 0
+    bt = torch.zeros((slots, maxp), dtype=torch.int32)
+    nxt = 1
+    for b, p in enumerate(positions):
+        if p:
+            n = -(-(p + m) // page)
+            bt[b, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
+            nxt += n
+    bt = bt.to(dev)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    flat = (pos[:, None] + torch.arange(m, dtype=torch.int32, device=dev)[None, :]).reshape(-1)
+    cr, sr = DB.rope_rows_at(cos_t, sin_t, flat)
+    errs = []
+    for layer in layers:
+        blk = params["blocks"][str(layer)]
+        shape = (4 * seq // page, kv, page, hd)
+        kp = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        vp = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        tok = torch.randint(0, cfg.vocab, (slots * m,), generator=gen, device=dev)
+        x = params["embed"][tok].bfloat16()
+
+        def args(f32):
+            return ((x.float() if f32 else x), blk["attn_norm"], blk["wqkv"]["int8"],
+                    blk["wqkv"]["scale"], blk.get("bqkv"), cr, sr, kp.clone(), vp.clone(),
+                    blk["wo"]["int8"], blk["wo"]["scale"], pos, bt)
+
+        errs.append(three(DB.attention_paged_spec_step, DB.attention_paged_spec_step_plain,
+                          args, slots * m, m=m))
+    report("attention_paged_spec_step, 16 x 5 rows at 30..940", errs, hold=True)
+
+    # kernel 8: 4 planes at 0, 700, 1500 and 2047, NaN from each position on
+    live = [0, 700, 1500, seq - 1]
+    dpos = torch.tensor(live, dtype=torch.int32, device=dev)
+    cr, sr = DB.rope_rows_at(cos_t, sin_t, dpos)
+    errs = []
+    for layer in layers:
+        blk = params["blocks"][str(layer)]
+        kc = torch.randn((len(live), kv, seq, hd), generator=gen, device=dev).bfloat16()
+        vc = torch.randn((len(live), kv, seq, hd), generator=gen, device=dev).bfloat16()
+        for b, n in enumerate(live):
+            kc[b, :, n:] = float("nan")
+            vc[b, :, n:] = float("nan")
+        tok = torch.randint(0, cfg.vocab, (len(live),), generator=gen, device=dev)
+        x = params["embed"][tok].bfloat16()
+
+        def args(f32):
+            return ((x.float() if f32 else x), blk["attn_norm"], blk["wqkv"]["int8"],
+                    blk["wqkv"]["scale"], blk.get("bqkv"), cr, sr, kc.clone(), vc.clone(),
+                    blk["wo"]["int8"], blk["wo"]["scale"], dpos)
+
+        errs.append(three(DB.attention_batch_step, DB.attention_batch_step_plain, args,
+                          len(live)))
+    report("attention_batch_step, 4 planes at 0..2047", errs, hold=True)
+
+    # kernel 9: one row at 1500, NaN from there on
+    cr, sr = DB.rope_rows(cos_t, sin_t, 1500)
+    errs = []
+    for layer in layers:
+        blk = params["blocks"][str(layer)]
+        kc = torch.randn((kv, seq, hd), generator=gen, device=dev).bfloat16()
+        vc = torch.randn((kv, seq, hd), generator=gen, device=dev).bfloat16()
+        kc[:, 1500:] = float("nan")
+        vc[:, 1500:] = float("nan")
+        tok = torch.randint(0, cfg.vocab, (1,), generator=gen, device=dev)
+        x = params["embed"][tok].bfloat16()
+
+        def args(f32):
+            return ((x.float() if f32 else x), blk["attn_norm"], blk["wqkv"]["int8"],
+                    blk["wqkv"]["scale"], blk.get("bqkv"), cr, sr, kc.clone(), vc.clone(),
+                    blk["wo"]["int8"], blk["wo"]["scale"], 1500)
+
+        errs.append(three(DB.attention_step, DB.attention_step_plain, args, 1))
+    report("attention_step, 1 row at 1500", errs, hold=True)
 
 
 def _int8_operands(params, name):
@@ -2813,12 +2923,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--breakdown", action="store_true",
                     help="build, then only time kernels 1, 2, 7 and 11 and the attention "
-                         "sublayers launch by launch and hold kernels 4, 10 and 11 to their "
-                         "references (prints no result line)")
+                         "sublayers launch by launch and hold kernels 4, 5, 8, 10 and 11 to "
+                         "their references (prints no result line)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build, then only phase 3's kernel checks (prints no result line)")
     ap.add_argument("--paths", action="store_true",
-                    help="build, then only phases 4, 9 and 10 and the VLM's generate, for "
+                    help="build, then only phases 4, 6, 9 and 10 and the VLM's generate, for "
                          "their times (prints no result line)")
     args = ap.parse_args(argv)
 
@@ -2880,8 +2990,10 @@ def main(argv=None) -> int:
             sublayer_breakdown(torch, DB, params, cfg, args.seed + 12)
             sweep_fidelity(torch, DB, params, cfg, prompts, args.seed + 14)
             return 0
-        if args.paths:  # phases 4, 9 and 10 and the VLM's generate alone: the paths' times
+        if args.paths:  # phases 4, 6, 9 and 10 and the VLM's generate alone: the paths' times
             serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, args.max_new)
+            serve_spec_cache(torch, DB, LO, vlm, make_engine, serve_prompts, params, cfg,
+                             args.seed + 2, args.max_new)
             d_served, _ = serve_dense(torch, DB, LO, IM, make_engine, serve_prompts, params,
                                       cfg, d_prompts, args.max_new)
             batch1(torch, DB, LO, qwen2, spec_decode, L,

@@ -20,19 +20,27 @@
 // 16-row sweep tile (16, 32, ...); any number of query and kv heads with
 // whole groups (heads % kv_heads == 0); any number of candidate rows. The
 // per-block shared arrays do not grow with these: the per-row kernel walks
-// the q, k and v heads one at a time, the decode sweep takes the group's
-// query heads MAXG at a time (grid z), the paged verify sweep its m x group
-// query rows SQ at a time (grid z), folding its own rows 16 at a time, and
-// the tensor-core sweep of the prefill and the dense verify 16 packed query
+// the q, k and v heads one at a time, decode_sweep takes the group's query
+// heads MAXG at a time (grid z), and the tensor-core sweep 16 packed query
 // rows a warp, up to MAXW warps a block (grid z).
 //
 // The two layouts share every kernel below through a row-addressing template
 // parameter (PagedRows, DenseRows): where row `pos` of stream sb's kv head g
 // lives. A dense plane is not a pool of pages (KV sits between the stream and
 // the row), so it is addressed as itself, never through a made-up table.
-// Decode runs decode_sweep, the paged verify spec_sweep; the paged prefill
-// and the dense batch-1 verify run the tensor-core sweep tc_sweep (over
-// split keys, then chunk_combine).
+// Which sweep each kernel runs:
+// * the tensor-core sweep tc_sweep over keys split across the card, then
+//   sweep_combine: the paged prefill (kernel 4) and the dense batch-1 verify
+//   (kernel 10), one stream each; the paged spec verify (kernel 5), the
+//   dense batch decode (kernel 8) and the dense batch-1 decode (kernel 9),
+//   B streams in one launch, each block reading its stream's position on
+//   the device. Kernels 8 and 9 share one entry and run the same
+//   arithmetic for a row, so the dense engine and batch-1 decode keep
+//   agreeing token for token;
+// * decode_sweep, one block per (stream, kv head) walking its whole context:
+//   the paged batch decode (kernel 3). decode_step routes a decode onto
+//   tc_sweep when it is given partials, so moving it needs only its
+//   wrapper.
 //
 // Per row: RMSNorm -> int8 qkv + bias -> NeoX RoPE (full-width rows
 // cos_full = [cos, cos], sin_signed = [-sin, sin]) -> K/V written at the
@@ -56,14 +64,12 @@
 // a per-row kernel that sums the splits, adds the bias, rotates q and k and
 // writes the row's K/V at its place (exactly the new rows: the TPU kernels'
 // 8-row read-modify-write is not repeated); the attention sweep; the wo
-// product and its epilogue. The decode and paged verify sweeps run one block
-// per (stream, kv head, head or row tile) walking the context 16 rows at a
-// time in f32 FMAs (the verify block holds up to SQ of the m x G query rows
-// of a (stream, kv head), so each context tile is read once for them). The
-// prefill and the dense verify sweep on the tensor cores (tc_sweep, below),
-// one block per (key split, kv head, tile of packed query rows), in two
-// passes (the rows' maxima, then the sums), and an eighth launch sums the
-// splits.
+// product and its epilogue. decode_sweep runs one block per (stream, kv
+// head, head tile) walking the context 16 rows at a time in f32 FMAs. The
+// tensor-core sweep (tc_sweep, below) runs one block per (key split, kv
+// head, stream and tile of its packed query rows), in two passes (the rows'
+// maxima, then the sums), and an eighth launch sums the splits (and, for a
+// decode, folds each row's own key).
 //
 // Numerics kept from the reference:
 // * decode (paged and dense, batch and batch 1) sweeps the PRIOR context
@@ -74,12 +80,14 @@
 //   reference casts the chunk's K/V to the compute dtype too), causally;
 // * spec verify (paged, and the dense batch-1 chunk) sweeps the prior context
 //   like decode but folds its m rows from bf16-rounded values, as its
-//   reference does (unlike decode); the paged one with the running max
-//   starting at -1e30, the dense one (on the tensor cores, as the prefill)
-//   with every row's final maximum (from -1e30) taken before any
-//   probability is rounded, as the plain version takes it;
+//   reference does (unlike decode);
 // * probabilities are rounded to bf16 before the P.V product, the softmax
-//   sums stay f32;
+//   sums stay f32. Where they round: the tensor-core sweep (kernels 4, 5 and
+//   8-10) against each row's final maximum over all its keys (from -1e30;
+//   a decode row's over its prior context, as _decode_attend takes it),
+//   taken by a first pass before any probability is rounded, as the plain
+//   versions round; decode_sweep (kernel 3) against a running maximum,
+//   rescaled tile by tile;
 // * no sweep reads a cache row at or past the stream's position: those rows
 //   load as zeros (a dense plane's rows past the written ones may hold
 //   anything, NaN included).
@@ -95,10 +103,8 @@
 // fp form only, where they hold exactly those bf16 values).
 #include "common.cuh"
 
-constexpr int TILE = 16;      // context rows per sweep step (divides the page)
-constexpr int MAXG = 8;       // query heads of one kv head per decode block
-constexpr int SQ = 64;        // spec verify: candidate rows x group heads per block
-constexpr int ST = 256;       // spec verify sweep threads
+constexpr int TILE = 16;      // context rows per decode_sweep step (divides the page)
+constexpr int MAXG = 8;       // query heads of one kv head per decode_sweep block
 
 // Where row `pos` of stream sb's kv head g lives, as a row index of the
 // cache's [rows, HD] view. Rows pos .. pos + TILE - 1 from a multiple of
@@ -107,7 +113,7 @@ constexpr int ST = 256;       // spec verify sweep threads
 
 // Paged pools [P, KV, page, HD]: page bt[sb * stride + pos / page]. Decode
 // and spec verify pass the [B, max_pages] table (stride max_pages), prefill
-// its one table row (stride 0).
+// its one table row (stride 0, so any sb reads it).
 struct PagedRows {
     const int* bt;
     int stride;
@@ -234,10 +240,10 @@ qkv_rope_write(const float* __restrict__ P, int splits, int M,
     }
 }
 
-// Decode: one block per (stream b, kv head g, tile of up to MAXG of the
-// group's query heads), thread d owns dimension d of the tile's heads.
-// Stream b sits at positions[b] (batch 1: pos0) and sweeps its rows 0 ..
-// pos - 1, TILE at a time.
+// decode_sweep (kernel 3): one block per (stream b, kv head g, tile
+// of up to MAXG of the group's query heads), thread d owns dimension d of
+// the tile's heads. Stream b sits at positions[b] (batch 1: pos0) and sweeps
+// its rows 0 .. pos - 1, TILE at a time, with an online softmax.
 template <bool Q8, class Rows, int HD>
 static __global__ void __launch_bounds__(HD)
 decode_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
@@ -331,52 +337,67 @@ decode_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core sweep of kernels 4 and 10: many query rows against a
-// stretch of context
+// The tensor-core sweep of kernels 4, 5 and 8-10: the query rows of B
+// streams against each stream's stretch of context
 // ---------------------------------------------------------------------------
 //
-// The query rows of one kv head g are (row i, group head h) pairs packed as
-// r = i * G + h (NQ = rows x G of them). A block of nw warps holds 16 nw of
-// them, z-th tile (grid z), a warp 16: its A fragments of q (rounded to
-// bf16) stay in registers for the whole sweep. The block walks key tiles of
-// KT keys [t0, t1) (grid x: one split of the keys) through shared memory,
-// double-buffered: tile t + 1 is copied with cp.async while the warps
-// compute on tile t. Per tile and warp, S = q K^T and O += P V run on
-// mma.sync m16n8k16 (bf16 in, f32 accumulators); each lane holds two query
-// rows (g, g + 8) of the warp's 16.
+// A stream's query rows for kv head g are (row i, group head h) pairs packed
+// as r = i * G + h (NQ = m x G of them for m rows a stream); over all B
+// streams they are R = sb * NQ + r, and since NQ = m x G, R / G = sb * m + i
+// is the row's index in q_in and attn. A block of nw warps holds 16 nw rows
+// of ONE stream (grid z = B x row tiles: stream sb = z / row_tiles), a warp
+// 16: its A fragments of q (rounded to bf16) stay in registers for the whole
+// sweep. The block walks key tiles of KT keys [t0, t1) (grid x: one split of
+// its stream's keys) through shared memory, double-buffered: tile t + 1 is
+// copied with cp.async while the warps compute on tile t. Per tile and warp,
+// S = q K^T and O += P V run on mma.sync m16n8k16 (bf16 in, f32
+// accumulators); each lane holds two query rows (g, g + 8) of the warp's 16.
+//
+// Positions stay on the device: each block reads its stream's position and
+// derives what it sees (below) and its split's tiles. The host fixes the
+// number of splits from B, KV, the row tiles and the widest context a stream
+// can have (max_pages x page, or S); a block cuts its own stream's key tiles
+// into that many near-even ranges, so a short stream leaves its last splits
+// empty (maximum -1e30, l 0, O 0) and the grid never depends on positions.
 //
 // Two passes over the same grid. The first (MAXPASS) computes S only and
 // writes each split's row maxima, reduced over the 4 lanes of a quad with
 // shuffles; the second takes every row's maximum over all splits, M (from
 // -1e30: a row that sees no key keeps it), and accumulates p = exp(s - M)
 // into l (f32, unrounded) and p rounded to bf16 into O += P V, writing its
-// split's (l, O) [splits, KV, NQ(, HD)]; chunk_combine sums the splits in
-// index order and writes bf16(O / l). Every p is rounded against the row's
-// final maximum, where the plain version (_verify_attend) rounds it: the
-// online form (a running maximum, rescaled) rounds each tile's p against a
-// different maximum, whose bf16 errors are as large as the plain version's
-// but independent of them. Scores are f32 x scale, q and K/V bf16.
+// split's (l, O) [splits, KV, B x NQ(, HD)]; sweep_combine sums the splits
+// in index order and writes bf16(O / l). Every p is rounded against the
+// row's final maximum, where the plain versions (_verify_attend,
+// _decode_attend) round it: the online form (a running maximum, rescaled)
+// rounds each tile's p against a different maximum, whose bf16 errors are
+// as large as the plain version's but independent of them. Scores are f32 x
+// scale, q and K/V bf16.
 //
-// Row i sees keys < lim0 + i * lim_step: the causal chunk, lim0 = pos0 + 1
-// and lim_step = 1, over the prior context and the chunk's own rows; a warp
-// skips a tile all of whose keys its rows cannot see, and a block the tiles
-// past its last row's limit. Keys at or past the block's limit are never
-// read: cp.async zero-fills them (src-size 0), so a dense plane's NaN rows
-// past the chunk never reach P V (NaN x 0 is NaN). Keys >= own0 (the dense
-// verify's own rows, and the prefill's in the int8 form) come from the f32
-// scratch k_in / v_in rounded to bf16, never from the cache; the fp prefill
-// reads its own rows from the pool, which holds exactly those bf16 values.
-// Pages are gathered row by row through the table (a page of one kv head
-// is page x HD contiguous values). The int8 form copies int8 rows and their
-// scales into a staging buffer and widens them in shared memory to
-// bf16(q * scale), as kv_load does.
+// Row i of stream sb at pos sees keys < pos + inc + i (SweepRows): the
+// causal chunk (inc 1) of the prefill, the dense verify and the paged spec
+// verify, over the prior context and the chunk's own rows; or a decode row's
+// prior context alone (inc 0, one row a stream), whose own key the combine
+// folds from f32 (FOLD). A warp skips a tile all of whose keys its rows
+// cannot see, and a block the tiles past its last row's limit. Keys at or
+// past the block's limit are never read: cp.async zero-fills them (src-size
+// 0), so a dense plane's NaN rows past the position never reach P V (NaN x 0
+// is NaN). With `own`, keys >= pos (the verify chunks' own rows, and the
+// prefill's in the int8 form) come from the f32 scratch k_in / v_in rounded
+// to bf16, never from the cache: frozen spec streams race on null page 0,
+// and the references fold bf16 of their f32 rows; the fp prefill reads its
+// own rows from the pool, which holds exactly those bf16 values. Context
+// rows are gathered row by row through the stream's table (a page of one kv
+// head is page x HD contiguous values), so a stream's rows may straddle
+// pages. The int8 form copies int8 rows and their scales into a staging
+// buffer and widens them in shared memory to bf16(q * scale), as kv_load
+// does.
 //
 // Why mma.sync and not wgmma + TMA: the dense verify does ~30 query rows of
-// work per K/V row read (~60 FLOP a byte, far under the card's ~295), so it
-// is bound by bytes and latency, which the split keys and the
-// double-buffered copies address; the prefill's sweep is ~1 GFLOP at 256
-// rows, a few microseconds on mma.sync. Neither needs the 64-row warpgroup
-// tiles.
+// work per K/V row read (~60 FLOP a byte, far under the card's ~295), the
+// spec verify 30 per stream and decode 6, so they are bound by bytes and
+// latency, which the split keys and the double-buffered copies address; the
+// prefill's sweep is ~1 GFLOP at 256 rows, a few microseconds on mma.sync.
+// None needs the 64-row warpgroup tiles.
 constexpr int KT = 32;    // keys per tile
 constexpr int KPAD = 8;   // bf16 padding of a shared K/V row: rows 272 B apart hit other banks
 constexpr int MAXW = 8;   // warps per sweep block (16 query rows each)
@@ -402,37 +423,54 @@ struct SweepSmem {
           vs(ks + 2 * KT) {}
 };
 
-// part: the row maxima [splits, KV, NQ] (written by the first pass, read by
-// the second), then l [splits, KV, NQ] and O [splits, KV, NQ, HD].
+// The query rows of a sweep: m rows a stream, stream sb's first at
+// positions[sb] (null: every stream at pos0, batch 1), read on the device.
+// Row i sees keys < pos + inc + i; with own, keys >= pos come from the f32
+// scratch rows [B * m, KV, HD]. Grid z holds row_tiles tiles a stream.
+struct SweepRows {
+    const int* positions;
+    int pos0, m, inc, own, row_tiles;
+    __device__ __forceinline__ int pos(int sb) const { return positions ? positions[sb] : pos0; }
+};
+
+// part: the row maxima [splits, KV, B x NQ] (written by the first pass,
+// read by the second and by a FOLD combine), then l [splits, KV, B x NQ]
+// and O [splits, KV, B x NQ, HD].
 template <bool Q8, bool MAXPASS, class Rows, int HD>
 static __global__ void __launch_bounds__(MAXW * 32)
 tc_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
          const float* __restrict__ v_in, const void* __restrict__ k_pool,
          const void* __restrict__ v_pool, const float* __restrict__ k_scale,
-         const float* __restrict__ v_scale, Rows rows, int H, int KV, float scale,
-         int NQ, int lim0, int lim_step, int own0, int ntiles, int per_split,
-         float* __restrict__ part) {
+         const float* __restrict__ v_scale, Rows rows, SweepRows sr, int H, int KV,
+         float scale, float* __restrict__ part) {
     DORA_DYNAMIC_SMEM(smem_raw);
     using Sm = SweepSmem<Q8, HD>;
     constexpr int LD = Sm::LD, CH = HD / 8;  // 16-byte chunks of a bf16 row
     const Sm sm(smem_raw);
     const int tid = threadIdx.x, nthreads = blockDim.x;
     const int warp = tid / 32, lane = tid % 32, gq = lane / 4, t4 = lane % 4;
-    const int g = blockIdx.y, G = H / KV;
-    const int r0 = blockIdx.z * nthreads / 2;  // 16 rows a warp: nthreads / 2 a block
+    const int g = blockIdx.y, G = H / KV, NQ = sr.m * G;
+    const int sb = blockIdx.z / sr.row_tiles;  // this block's stream
+    const int r0 = (blockIdx.z % sr.row_tiles) * nthreads / 2;  // 16 rows a warp
+    const int pos = sr.pos(sb);
+    const int lim0 = pos + sr.inc;             // row r sees keys < lim0 + r / G
+    const int own0 = sr.own ? pos : INT_MAX;
     const int rw = r0 + warp * 16;             // this warp's first row
     const int rlast = min(r0 + nthreads / 2, NQ) - 1;
-    const int maxlim = lim0 + (rlast / G) * lim_step;  // keys this block may read
+    const int maxlim = lim0 + rlast / G;       // keys this block may read
     const bool wactive = rw < NQ;
-    const int wlim = wactive ? lim0 + (min(rw + 15, NQ - 1) / G) * lim_step : 0;
-    const size_t S = gridDim.x, n_ml = S * KV * NQ;
+    const int wlim = wactive ? lim0 + min(rw + 15, NQ - 1) / G : 0;
+    const int S = gridDim.x;
+    const size_t NQT = (size_t)(gridDim.z / sr.row_tiles) * NQ;  // rows of all streams
+    const size_t n_ml = (size_t)S * KV * NQT, R0 = (size_t)sb * NQ;
 
     // this lane's two query rows and what each may see
     const int ra = rw + gq, rb = rw + gq + 8;
-    const int lima = ra < NQ ? lim0 + (ra / G) * lim_step : 0;
-    const int limb = rb < NQ ? lim0 + (rb / G) * lim_step : 0;
+    const int lima = ra < NQ ? lim0 + ra / G : 0;
+    const int limb = rb < NQ ? lim0 + rb / G : 0;
     auto qrow = [&](int r) -> const float* {
-        return r < NQ ? q_in + ((size_t)(r / G) * H + g * G + r % G) * HD : nullptr;
+        const size_t R = R0 + r;
+        return r < NQ ? q_in + ((R / G) * H + g * G + R % G) * HD : nullptr;
     };
     const float* qa_row = qrow(ra);
     const float* qb_row = qrow(rb);
@@ -448,9 +486,10 @@ tc_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
     // the rows' maxima: this split's (first pass) or over every split's
     float ma = -1e30f, mb = -1e30f;
     if constexpr (!MAXPASS) {
-        for (size_t z = 0; z < S; ++z) {
-            if (ra < NQ) ma = fmaxf(ma, part[(z * KV + g) * NQ + ra]);
-            if (rb < NQ) mb = fmaxf(mb, part[(z * KV + g) * NQ + rb]);
+        for (int z = 0; z < S; ++z) {
+            const size_t zb = ((size_t)z * KV + g) * NQT + R0;
+            if (ra < NQ) ma = fmaxf(ma, part[zb + ra]);
+            if (rb < NQ) mb = fmaxf(mb, part[zb + rb]);
         }
     }
     float o[MAXPASS ? 1 : HD / 8][4];
@@ -458,8 +497,12 @@ tc_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
     for (int j = 0; j < (MAXPASS ? 1 : HD / 8); ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
     float la = 0.f, lb = 0.f;
 
-    const int t0 = blockIdx.x * per_split;
-    const int t1 = min(min(ntiles, t0 + per_split), (maxlim + KT - 1) / KT);
+    // this split's tiles: the stream's key tiles (up to its last row's
+    // limit) in S near-even ranges, cut at the block's own last limit
+    const int ntiles = (lim0 + sr.m - 1 + KT - 1) / KT;
+    const int per = (ntiles + S - 1) / S;
+    const int t0 = blockIdx.x * per;
+    const int t1 = min(min(ntiles, t0 + per), (maxlim + KT - 1) / KT);
 
     // Issue the copies of tile t into buffer `slot` (K only in the first pass).
     auto load = [&](int t, int slot) {
@@ -470,19 +513,19 @@ tc_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
             const int j = idx / CH, c = idx % CH, key = key0 + j;
             const bool live = key < maxlim;
             if (live && key >= own0) {  // the chunk's own row, from f32
-                const size_t off = ((size_t)(key - own0) * KV + g) * HD + c * 8;
+                const size_t off = ((size_t)(sb * sr.m + key - pos) * KV + g) * HD + c * 8;
                 *(uint4*)(kd + j * LD + c * 8) = bf16x8(k_in + off);
                 if (!MAXPASS) *(uint4*)(vd + j * LD + c * 8) = bf16x8(v_in + off);
             } else if (Q8) {
                 if (c < HD / 16) {  // 16 int8 values a chunk
-                    const size_t row = live ? rows.row(0, g, key, KV) : 0;
+                    const size_t row = live ? rows.row(sb, g, key, KV) : 0;
                     const size_t so = (size_t)(slot * KT + j) * HD + c * 16;
                     cp_async16(sm.k8 + so, (const int8_t*)k_pool + row * HD + c * 16, live);
                     if (!MAXPASS)
                         cp_async16(sm.v8 + so, (const int8_t*)v_pool + row * HD + c * 16, live);
                 }
             } else {
-                const size_t row = live ? rows.row(0, g, key, KV) : 0;
+                const size_t row = live ? rows.row(sb, g, key, KV) : 0;
                 cp_async16(kd + j * LD + c * 8, (const bf16*)k_pool + row * HD + c * 8, live);
                 if (!MAXPASS)
                     cp_async16(vd + j * LD + c * 8, (const bf16*)v_pool + row * HD + c * 8, live);
@@ -492,7 +535,7 @@ tc_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
             for (int j = tid; j < KT; j += nthreads) {
                 const int key = key0 + j;
                 const bool live = key < maxlim && key < own0;
-                const size_t row = live ? rows.row(0, g, key, KV) : 0;
+                const size_t row = live ? rows.row(sb, g, key, KV) : 0;
                 sm.ks[slot * KT + j] = live ? k_scale[row] : 0.f;
                 if (!MAXPASS) sm.vs[slot * KT + j] = live ? v_scale[row] : 0.f;
             }
@@ -584,7 +627,7 @@ tc_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
         v = MAXPASS ? fmaxf(v, shfl_xor(v, 1)) : v + shfl_xor(v, 1);
         v = MAXPASS ? fmaxf(v, shfl_xor(v, 2)) : v + shfl_xor(v, 2);
         if (r >= NQ) continue;
-        const size_t base = ((size_t)blockIdx.x * KV + g) * NQ + r;
+        const size_t base = ((size_t)blockIdx.x * KV + g) * NQT + R0 + r;
         if (t4 == 0) part[(MAXPASS ? 0 : n_ml) + base] = v;
         if constexpr (!MAXPASS) {
             float* acc = part + 2 * n_ml + base * HD + 2 * t4;
@@ -595,66 +638,98 @@ tc_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
     }
 }
 
-// The sweep's last launch: one warp per (rows_per_block query rows, kv head
-// g), each lane V = HD / 32 neighbouring dimensions. Sums the second pass's
-// splits of l and O in index order 0 .. splits - 1 (the result does not
-// depend on scheduling) and writes bf16(O / l) for query head g * G + r % G
-// of row r / G.
-template <int HD>
+// The sweep's last launch: one warp per (rows_per_block packed rows R of
+// all streams, kv head g), each lane V = HD / 32 neighbouring dimensions.
+// Sums the second pass's splits of l and O in index order 0 .. splits - 1
+// (the result does not depend on scheduling) and writes bf16(O / l) for
+// query head g * G + R % G of row R / G. FOLD (decode, one row a stream)
+// first folds each row's own key in from f32, the exact merge of the
+// decode reference: s = q . k x scale of the f32 scratch rows, against the
+// row's maximum over every split's (the first pass's, -1e30 for a row with
+// no context, which then yields v).
+template <int HD, bool FOLD>
 static __global__ void __launch_bounds__(32)
-chunk_combine(const float* __restrict__ part, int splits, int rows_per_block,
-              bf16* __restrict__ attn, int NQ, int H, int KV) {
+sweep_combine(const float* __restrict__ part, int splits, int rows_per_block,
+              bf16* __restrict__ attn, int NQT, int H, int KV,
+              const float* __restrict__ q_in, const float* __restrict__ k_in,
+              const float* __restrict__ v_in, float scale) {
     constexpr int V = HD / 32;
     const int g = blockIdx.y, G = H / KV, d0 = threadIdx.x * V;
-    const size_t n_ml = (size_t)splits * KV * NQ;
-    const int r1 = min(NQ, (int)(blockIdx.x + 1) * rows_per_block);
-    for (int r = blockIdx.x * rows_per_block; r < r1; ++r) {
-        float l = 0.f, acc[V];
+    const size_t n_ml = (size_t)splits * KV * NQT;
+    const int r1 = min(NQT, (int)(blockIdx.x + 1) * rows_per_block);
+    for (int r = blockIdx.x * rows_per_block; r < r1; ++r) {  // uniform over the warp
+        float l = 0.f, mx = -1e30f, acc[V];
 #pragma unroll
         for (int e = 0; e < V; ++e) acc[e] = 0.f;
         for (int z = 0; z < splits; ++z) {
-            const size_t base = ((size_t)z * KV + g) * NQ + r;
+            const size_t base = ((size_t)z * KV + g) * NQT + r;
             const float* a = part + 2 * n_ml + base * HD + d0;
             l += part[n_ml + base];
+            if (FOLD) mx = fmaxf(mx, part[base]);
 #pragma unroll
             for (int e = 0; e < V; ++e) acc[e] += a[e];
         }
-        bf16* out = attn + ((size_t)(r / G) * H + g * G + r % G) * HD + d0;
+        const size_t row = (size_t)(r / G) * H + g * G + r % G;
+        bf16* out = attn + row * HD + d0;
+        if constexpr (FOLD) {
+            const size_t kvr = ((size_t)(r / G) * KV + g) * HD + d0;
+            float s = 0.f;
 #pragma unroll
-        for (int e = 0; e < V; ++e) out[e] = __float2bfloat16(acc[e] / l);
+            for (int e = 0; e < V; ++e) s += q_in[row * HD + d0 + e] * k_in[kvr + e];
+            for (int mask = 16; mask; mask >>= 1) s += shfl_xor(s, mask);
+            s *= scale;
+            const float m2 = fmaxf(mx, s), al = expf(mx - m2), w = expf(s - m2);
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+                out[e] = __float2bfloat16((acc[e] * al + w * v_in[kvr + e]) / (l * al + w));
+        } else {
+#pragma unroll
+            for (int e = 0; e < V; ++e) out[e] = __float2bfloat16(acc[e] / l);
+        }
     }
 }
 
-// A sweep's launch shape for NQ packed query rows per kv head over `ctx`
-// keys: warps per block (16 rows each, at most `maxw`), row tiles (grid z),
-// and key splits (grid x) of per_split tiles: about 264 / (KV x row tiles)
-// of them (two blocks an SM), each at least 2 tiles deep, none empty.
+// A sweep's launch shape for B streams of NQ packed query rows per kv head
+// over at most `ctx` keys each: warps per block (16 rows each, at most
+// `maxw`), row tiles a stream (grid z: B x row tiles), and key splits (grid
+// x): about 264 / (B x KV x row tiles) of them (two blocks an SM), none
+// shorter than 2 tiles of the widest context. Nothing here depends on
+// where the streams are: each block cuts its own stream's keys.
 struct SweepShape {
-    int nw, row_tiles, ntiles, splits, per_split;
-    SweepShape(int NQ, int KV, int ctx, int maxw) {
+    int nw, row_tiles, splits;
+    SweepShape(int B, int NQ, int KV, int ctx, int maxw) {
         nw = max(1, min(maxw, (NQ + 15) / 16));
         row_tiles = (NQ + 16 * nw - 1) / (16 * nw);
-        ntiles = (ctx + KT - 1) / KT;
-        const int blocks = KV * row_tiles;
+        const int ntiles = (ctx + KT - 1) / KT;
+        const int blocks = B * KV * row_tiles;
         const int s = max(1, min((2 * SMS + blocks - 1) / blocks, ntiles / 2));
-        per_split = max(1, (ntiles + s - 1) / s);
-        splits = max(1, (ntiles + per_split - 1) / per_split);
+        const int per = max(1, (ntiles + s - 1) / s);
+        splits = max(1, (ntiles + per - 1) / per);
     }
 };
-// Warps a block: the dense verify holds all of its few rows in one block;
-// the prefill takes 4 (3 blocks an SM fit in registers), so 4 warps share
-// each K/V tile.
+// Warps a block: the verify chunks and decode hold all of a stream's few
+// rows in one block; the prefill takes 4 (3 blocks an SM fit in registers),
+// so 4 warps share each K/V tile.
 constexpr int VERIFY_WARPS = MAXW;
 constexpr int PREFILL_WARPS = 4;
 
+// The multi-stream sweep's shape: B streams of m rows (the spec verify's m,
+// decode's 1) over at most `ctx` keys a stream (the table's max_pages x
+// page, or S), all of a stream's m x G query rows of a kv head in one block.
+static inline SweepShape stream_shape(int B, int m, int H, int KV, int ctx) {
+    return SweepShape(B, m * (H / KV), KV, ctx, VERIFY_WARPS);
+}
+
 // The two passes of the sweep over `shape`'s grid into the partials `part`,
-// then the combine into attn. Row i of rows_n sees keys < pos0 + i + 1.
-template <bool Q8, class Rows, int HD>
+// then the combine into attn (FOLD: with each decode row's own key). B
+// streams of m rows from positions[sb] (null: pos0); row i sees keys < pos +
+// inc + i, keys >= pos from the scratch rows kcur / vcur with `own`.
+template <bool Q8, bool FOLD, class Rows, int HD>
 static void launch_sweep(const SweepShape& shape, const void* q, const void* kcur,
                          const void* vcur, const void* k_pool, const void* v_pool,
-                         const void* k_scale, const void* v_scale, Rows rows, int rows_n,
-                         int H, int KV, float scale, int pos0, int own0, void* attn,
-                         void* part, void* stream, int& err) {
+                         const void* k_scale, const void* v_scale, Rows rows, int B, int m,
+                         const void* positions, int pos0, int inc, int own, int H, int KV,
+                         float scale, void* attn, void* part, void* stream, int& err) {
     auto first = tc_sweep<Q8, true, Rows, HD>;
     auto second = tc_sweep<Q8, false, Rows, HD>;
     constexpr size_t smem = SweepSmem<Q8, HD>::bytes;
@@ -663,132 +738,22 @@ static void launch_sweep(const SweepShape& shape, const void* q, const void* kcu
         if (!err) err = attr;
         return;
     }
-    const int NQ = rows_n * (H / KV);
-    const dim3 grid(shape.splits, KV, shape.row_tiles), block(32 * shape.nw);
+    const SweepRows sr{(const int*)positions, pos0, m, inc, own, shape.row_tiles};
+    const dim3 grid(shape.splits, KV, B * shape.row_tiles), block(32 * shape.nw);
     for (auto kern : {first, second}) {
         DORA_LAUNCH_SMEM(kern, grid, block, smem, stream, (const float*)q, (const float*)kcur,
                          (const float*)vcur, k_pool, v_pool, (const float*)k_scale,
-                         (const float*)v_scale, rows, H, KV, scale, NQ, pos0 + 1, 1, own0,
-                         shape.ntiles, shape.per_split, (float*)part);
+                         (const float*)v_scale, rows, sr, H, KV, scale, (float*)part);
         DORA_CHECK(err);
     }
     // two warps an SM, up to 16 rows each
-    const int per = max(1, min(16, NQ * KV / (2 * SMS)));
-    DORA_LAUNCH(chunk_combine<HD>, dim3((NQ + per - 1) / per, KV), dim3(32), stream,
-                (const float*)part, shape.splits, per, (bf16*)attn, NQ, H, KV);
+    const int NQT = B * m * (H / KV);
+    const int per = max(1, min(16, NQT * KV / (2 * SMS)));
+    auto comb = sweep_combine<HD, FOLD>;
+    DORA_LAUNCH(comb, dim3((NQT + per - 1) / per, KV), dim3(32), stream,
+                (const float*)part, shape.splits, per, (bf16*)attn, NQT, H, KV,
+                (const float*)q, (const float*)kcur, (const float*)vcur, scale);
     DORA_CHECK(err);
-}
-
-// Spec verify: one block per (stream b, kv head g, tile z of SQ query
-// rows). The stream's m candidate rows times the group's G query heads are
-// ordered (candidate i, head h), r = i * G + h, and block z holds rows z*SQ
-// .. z*SQ + SQ - 1 of them. It sweeps the PRIOR context, rows 0 .. pos - 1
-// in tiles of TILE with key idx < pos live (pos is each stream's chunk
-// start, positions[b], and need not be a multiple of TILE; the rows this
-// call wrote sit at idx >= pos and are not read), then folds the stream's
-// own m rows, TILE at a time, as more online-softmax steps, causally
-// (candidate i sees rows j <= i) and from the bf16-rounded K/V of the
-// scratch rows, never from the cache: frozen streams race on null page 0,
-// and the reference folds bf16 values (its k_s.astype(dtype) /
-// k_m.astype(dtype)). Another stream's rows are never seen.
-template <bool Q8, class Rows, int HD>
-static __global__ void __launch_bounds__(ST)
-spec_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
-           const float* __restrict__ v_in, const void* __restrict__ k_pool,
-           const void* __restrict__ v_pool, const float* __restrict__ k_scale,
-           const float* __restrict__ v_scale, const int* __restrict__ positions,
-           Rows rows, bf16* __restrict__ attn, int m, int H, int KV, float scale) {
-    __shared__ bf16 qs[SQ][HD];
-    __shared__ float ks[TILE][HD + 1];
-    __shared__ float vs[TILE][HD];
-    __shared__ float sc[SQ][TILE];
-    __shared__ float m_s[SQ], l_s[SQ], al_s[SQ];
-    constexpr int NACC = SQ * HD / ST;
-    constexpr int QSTEP = ST / HD;
-    const int tid = threadIdx.x, b = blockIdx.x, g = blockIdx.y;
-    const int G = H / KV, r0 = blockIdx.z * SQ;
-    const int NQ = min(SQ, m * G - r0);  // this block's query rows
-    const int pos = positions[b];
-    for (int idx = tid; idx < NQ * HD; idx += ST) {
-        int qv = idx / HD, e = idx % HD;
-        int i = (r0 + qv) / G, h = (r0 + qv) % G;
-        qs[qv][e] = __float2bfloat16(q_in[(((size_t)b * m + i) * H + g * G + h) * HD + e]);
-    }
-    if (tid < NQ) {
-        m_s[tid] = -1e30f;
-        l_s[tid] = 0.f;
-    }
-    const int d = tid % HD, qv0 = tid / HD;
-    float acc[NACC];
-#pragma unroll
-    for (int u = 0; u < NACC; ++u) acc[u] = 0.f;
-    __syncthreads();
-    const int ntiles = (pos + TILE - 1) / TILE;  // prior context
-    const int nfold = (m + TILE - 1) / TILE;     // the stream's own rows
-    for (int blk = 0; blk < ntiles + nfold; ++blk) {
-        const bool fold = blk >= ntiles;
-        const int j0 = (blk - ntiles) * TILE;  // first own row of a fold step
-        if (!fold) {
-            const size_t row0 = rows.row(b, g, blk * TILE, KV);
-            for (int idx = tid; idx < TILE * HD; idx += ST) {
-                int j = idx / HD, e = idx % HD;
-                const bool live = blk * TILE + j < pos;  // rows >= pos are never read
-                ks[j][e] = live ? kv_load<Q8, HD>(k_pool, k_scale, row0 + j, e) : 0.f;
-                vs[j][e] = live ? kv_load<Q8, HD>(v_pool, v_scale, row0 + j, e) : 0.f;
-            }
-        } else {
-            for (int idx = tid; idx < TILE * HD; idx += ST) {
-                int j = idx / HD, e = idx % HD;
-                size_t off = (((size_t)b * m + j0 + j) * KV + g) * HD + e;
-                ks[j][e] = j0 + j < m ? bf16_round(k_in[off]) : 0.f;
-                vs[j][e] = j0 + j < m ? bf16_round(v_in[off]) : 0.f;
-            }
-        }
-        __syncthreads();
-        for (int t = tid; t < NQ * TILE; t += ST) {
-            int qv = t / TILE, j = t % TILE;
-            bool live = fold ? (j0 + j <= (r0 + qv) / G) : (blk * TILE + j < pos);
-            float sacc = 0.f;
-            for (int e = 0; e < HD; ++e) sacc += __bfloat162float(qs[qv][e]) * ks[j][e];
-            sc[qv][j] = live ? sacc * scale : -INFINITY;
-        }
-        __syncthreads();
-        if (tid < NQ) {
-            float mo = m_s[tid], mx = -INFINITY;
-            for (int j = 0; j < TILE; ++j) mx = fmaxf(mx, sc[tid][j]);
-            float mn = fmaxf(mo, mx);
-            float al = expf(mo - mn);
-            float sum = 0.f;
-            for (int j = 0; j < TILE; ++j) {
-                float p = expf(sc[tid][j] - mn);
-                sum += p;
-                sc[tid][j] = bf16_round(p);
-            }
-            l_s[tid] = l_s[tid] * al + sum;
-            m_s[tid] = mn;
-            al_s[tid] = al;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int u = 0; u < NACC; ++u) {
-            int qv = qv0 + QSTEP * u;
-            if (qv < NQ) {
-                float pv = 0.f;
-                for (int j = 0; j < TILE; ++j) pv += sc[qv][j] * vs[j][d];
-                acc[u] = acc[u] * al_s[qv] + pv;
-            }
-        }
-        __syncthreads();
-    }
-#pragma unroll
-    for (int u = 0; u < NACC; ++u) {
-        int qv = qv0 + QSTEP * u;
-        if (qv < NQ) {
-            int i = (r0 + qv) / G, h = (r0 + qv) % G;
-            attn[(((size_t)b * m + i) * H + g * G + h) * HD + d] =
-                __float2bfloat16(acc[u] / l_s[qv]);
-        }
-    }
 }
 
 extern "C" int dora_gemm_splits(int M, int N, int K) {
@@ -841,27 +806,39 @@ static void project_and_write(const void* x, const void* norm_w, const void* wqk
 }
 
 // Decode: B rows, row b of stream b at positions[b] (null: every row at
-// pos0, batch 1).
+// pos0, batch 1). With partials `part` the rows sweep their prior context on
+// the tensor cores over split keys (one query row a stream: its G heads
+// pack into one warp's 16 rows), positions read on the device, and the
+// combine folds each row's own key from f32; the split count comes from B,
+// KV and `ctx`, the widest context a stream can have (the table's max_pages
+// x page, or S). Without, decode_sweep walks each (stream, kv head) in one
+// block.
 template <bool Q8, class Rows, int HD>
 static int decode_step(const void* x, const void* norm_w, const void* wqkv,
                        const void* sqkv, const void* bqkv, const void* cosr,
                        const void* sinr, void* k_pool, void* v_pool, void* k_scale,
                        void* v_scale, const void* wo, const void* swo,
-                       const void* positions, int pos0, Rows rows, void* out,
+                       const void* positions, int pos0, Rows rows, int ctx, void* out,
                        int residual, int B, int D, int H, int KV, float eps,
                        float scale, void* h, void* p, void* q, void* kcur, void* vcur,
-                       void* attn, void* stream) {
+                       void* attn, void* part, void* stream) {
     int err = 0;
     project_and_write<Q8, Rows, HD>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool,
                                     v_pool, k_scale, v_scale, positions, pos0, 1, rows,
                                     B, D, H, KV, eps, h, p, q, kcur, vcur, stream, err);
-    auto kern = decode_sweep<Q8, Rows, HD>;
-    DORA_LAUNCH(kern, dim3(B, KV, group_tiles(H, KV)), dim3(HD), stream,
-                (const float*)q, (const float*)kcur, (const float*)vcur,
-                (const void*)k_pool, (const void*)v_pool, (const float*)k_scale,
-                (const float*)v_scale, (const int*)positions, pos0, rows,
-                (bf16*)attn, H, KV, scale);
-    DORA_CHECK(err);
+    if (part) {
+        launch_sweep<Q8, true, Rows, HD>(stream_shape(B, 1, H, KV, ctx), q, kcur, vcur, k_pool,
+                                         v_pool, k_scale, v_scale, rows, B, 1, positions,
+                                         pos0, 0, 0, H, KV, scale, attn, part, stream, err);
+    } else {
+        auto kern = decode_sweep<Q8, Rows, HD>;
+        DORA_LAUNCH(kern, dim3(B, KV, group_tiles(H, KV)), dim3(HD), stream,
+                    (const float*)q, (const float*)kcur, (const float*)vcur,
+                    (const void*)k_pool, (const void*)v_pool, (const float*)k_scale,
+                    (const float*)v_scale, (const int*)positions, pos0, rows,
+                    (bf16*)attn, H, KV, scale);
+        DORA_CHECK(err);
+    }
     out_projection(x, wo, swo, out, residual, B, D, H, HD, p, attn, stream, err);
     return err;
 }
@@ -876,7 +853,7 @@ static int decode_step(const void* x, const void* norm_w, const void* wqkv,
 // (the bf16 values just written) and from the f32 scratch rounded to bf16 in
 // the int8 form. The combine sums the splits.
 static inline SweepShape prefill_shape(int M, int H, int KV, int position) {
-    return SweepShape(M * (H / KV), KV, position + M, PREFILL_WARPS);
+    return SweepShape(1, M * (H / KV), KV, position + M, PREFILL_WARPS);
 }
 
 template <bool Q8, int HD>
@@ -892,9 +869,10 @@ static int chunk_step(const void* x, const void* norm_w, const void* wqkv,
                                          k_pool, v_pool, k_scale, v_scale, nullptr,
                                          position, M, rows, M, D, H, KV, eps, h, p, q,
                                          kcur, vcur, stream, err);
-    launch_sweep<Q8, PagedRows, HD>(prefill_shape(M, H, KV, position), q, kcur, vcur, k_pool,
-                                    v_pool, k_scale, v_scale, rows, M, H, KV, scale, position,
-                                    Q8 ? position : INT_MAX, attn, part, stream, err);
+    launch_sweep<Q8, false, PagedRows, HD>(prefill_shape(M, H, KV, position), q, kcur, vcur,
+                                           k_pool, v_pool, k_scale, v_scale, rows, 1, M,
+                                           nullptr, position, 1, Q8, H, KV, scale, attn, part,
+                                           stream, err);
     out_projection(x, wo, swo, out, residual, M, D, H, HD, p, attn, stream, err);
     return err;
 }
@@ -905,7 +883,7 @@ static int chunk_step(const void* x, const void* norm_w, const void* wqkv,
 // splits of 2 tiles at 2043): the prior context from the cache, the M own
 // rows causally from bf16 of the f32 scratch, never from the cache.
 static inline SweepShape verify_shape(int M, int H, int KV, int position) {
-    return SweepShape(M * (H / KV), KV, position + M, VERIFY_WARPS);
+    return SweepShape(1, M * (H / KV), KV, position + M, VERIFY_WARPS);
 }
 
 template <int HD>
@@ -922,36 +900,39 @@ static int dense_chunk_step(const void* x, const void* norm_w, const void* wqkv,
                                             k_cache, v_cache, nullptr, nullptr, nullptr,
                                             position, M, rows, M, D, H, KV, eps, h, p, q,
                                             kcur, vcur, stream, err);
-    launch_sweep<false, DenseRows, HD>(verify_shape(M, H, KV, position), q, kcur, vcur,
-                                       k_cache, v_cache, nullptr, nullptr, rows, M, H, KV,
-                                       scale, position, position, attn, part, stream, err);
+    launch_sweep<false, false, DenseRows, HD>(verify_shape(M, H, KV, position), q, kcur, vcur,
+                                              k_cache, v_cache, nullptr, nullptr, rows, 1, M,
+                                              nullptr, position, 1, 1, H, KV, scale, attn,
+                                              part, stream, err);
     out_projection(x, wo, swo, out, residual, M, D, H, HD, p, attn, stream, err);
     return err;
 }
 
-// Paged spec verify: B streams of m rows, stream b's from positions[b].
-template <bool Q8, class Rows, int HD>
+// Paged spec verify (kernel 5): B streams of m rows, stream b's from
+// positions[b], read on the device. One row tile a stream holds its m x G
+// query rows of a kv head (30 at Qwen2-1.5B's m = 5: two warps); the keys of
+// the widest table, max_pages x page, set the splits (8 at 16 streams of
+// 2048 rows), and each block cuts its own stream's keys [0, pos + m) into
+// them: the prior context through the stream's table row, its m own rows
+// causally from bf16 of the f32 scratch, never from the pool.
+
+template <bool Q8, int HD>
 static int spec_step(const void* x, const void* norm_w, const void* wqkv,
                      const void* sqkv, const void* bqkv, const void* cosr,
                      const void* sinr, void* k_pool, void* v_pool, void* k_scale,
                      void* v_scale, const void* wo, const void* swo,
-                     const void* positions, Rows rows, void* out,
+                     const void* positions, PagedRows rows, int ctx, void* out,
                      int residual, int B, int m, int D, int H, int KV, float eps,
                      float scale, void* h, void* p, void* q, void* kcur, void* vcur,
-                     void* attn, void* stream) {
+                     void* attn, void* part, void* stream) {
     int err = 0;
     const int M = B * m;
-    project_and_write<Q8, Rows, HD>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool,
-                                    v_pool, k_scale, v_scale, positions, 0, m, rows,
-                                    M, D, H, KV, eps, h, p, q, kcur, vcur, stream, err);
-    auto kern = spec_sweep<Q8, Rows, HD>;
-    const int row_tiles = (m * (H / KV) + SQ - 1) / SQ;
-    DORA_LAUNCH(kern, dim3(B, KV, row_tiles), dim3(ST), stream,
-                (const float*)q, (const float*)kcur, (const float*)vcur,
-                (const void*)k_pool, (const void*)v_pool, (const float*)k_scale,
-                (const float*)v_scale, (const int*)positions, rows,
-                (bf16*)attn, m, H, KV, scale);
-    DORA_CHECK(err);
+    project_and_write<Q8, PagedRows, HD>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool,
+                                         v_pool, k_scale, v_scale, positions, 0, m, rows,
+                                         M, D, H, KV, eps, h, p, q, kcur, vcur, stream, err);
+    launch_sweep<Q8, false, PagedRows, HD>(stream_shape(B, m, H, KV, ctx), q, kcur, vcur, k_pool,
+                                           v_pool, k_scale, v_scale, rows, B, m, positions, 0,
+                                           1, 1, H, KV, scale, attn, part, stream, err);
     out_projection(x, wo, swo, out, residual, M, D, H, HD, p, attn, stream, err);
     return err;
 }
@@ -989,8 +970,8 @@ extern "C" int dora_attention_paged_batch_step(
     DORA_BY_HEAD_DIM(hd, (k_scale ? decode_step<true, PagedRows, HD>
                                   : decode_step<false, PagedRows, HD>)(
         x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool, k_scale, v_scale,
-        wo, swo, positions, 0, rows, out, residual, B, D, H, KV, eps, scale, h, p, q,
-        kcur, vcur, attn, stream));
+        wo, swo, positions, 0, rows, max_pages * page, out, residual, B, D, H, KV, eps, scale,
+        h, p, q, kcur, vcur, attn, nullptr, stream));
 }
 
 // As above for M rows of one stream at positions position..position+M-1
@@ -1021,11 +1002,20 @@ extern "C" int dora_sweep_splits(int dense, int M, int H, int KV, int position) 
         .splits;
 }
 
+// The context splits of the multi-stream sweep of B streams of `rows` rows
+// each (the spec verify's m, decode's 1) over at most `ctx` keys a stream:
+// the partials take splits x B x rows x H x (hd + 2) floats.
+extern "C" int dora_batch_sweep_splits(int B, int rows, int H, int KV, int ctx) {
+    return stream_shape(B, rows, H, KV, ctx).splits;
+}
+
 // Spec verify: B streams of m candidate rows each, x [B*m, D] stream-major;
 // stream b's rows sit at positions[b] .. positions[b] + m - 1 and route
 // through block_tables row b. The caller keeps positions[b] + m <= max_seq
 // (the engine's spec headroom); it is not checked here. Scratch as the
-// decode entry, for B*m rows.
+// decode entry, for B*m rows; part f32 [splits, B * m * H, hd + 2] for the
+// sweep's partials, splits = dora_batch_sweep_splits(B, m, H, KV,
+// max_pages * page).
 extern "C" int dora_attention_paged_spec_step(
     const void* x, const void* norm_w, const void* wqkv, const void* sqkv,
     const void* bqkv, const void* cosr, const void* sinr, void* k_pool,
@@ -1033,31 +1023,31 @@ extern "C" int dora_attention_paged_spec_step(
     const void* positions, const void* block_tables, void* out, int residual,
     int B, int m, int D, int H, int KV, int hd, int page, int max_pages, float eps,
     float scale, void* h, void* p, void* q, void* kcur, void* vcur, void* attn,
-    void* stream) {
+    void* part, void* stream) {
     const PagedRows rows{(const int*)block_tables, max_pages, page};
-    DORA_BY_HEAD_DIM(hd, (k_scale ? spec_step<true, PagedRows, HD>
-                                  : spec_step<false, PagedRows, HD>)(
+    DORA_BY_HEAD_DIM(hd, (k_scale ? spec_step<true, HD> : spec_step<false, HD>)(
         x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool, k_scale, v_scale,
-        wo, swo, positions, rows, out, residual, B, m, D, H, KV, eps, scale, h, p, q,
-        kcur, vcur, attn, stream));
+        wo, swo, positions, rows, max_pages * page, out, residual, B, m, D, H, KV, eps,
+        scale, h, p, q, kcur, vcur, attn, part, stream));
 }
 
 // Dense decode (attention_batch_step, and attention_step with B = 1): bf16
 // caches [B, KV, S, hd], row b written at and attending below positions[b]
 // (positions null: the one row at `position`). The caller keeps every
 // position in [0, S); it is checked on the host only. Other arguments and
-// scratch as the paged decode entry.
+// scratch as the paged decode entry; part f32 [splits, B * H, hd + 2] for
+// the sweep's partials, splits = dora_batch_sweep_splits(B, 1, H, KV, S).
 extern "C" int dora_attention_dense_step(
     const void* x, const void* norm_w, const void* wqkv, const void* sqkv,
     const void* bqkv, const void* cosr, const void* sinr, void* k_cache,
     void* v_cache, const void* wo, const void* swo, const void* positions,
     int position, void* out, int residual, int B, int D, int H, int KV, int hd,
     int S, float eps, float scale, void* h, void* p, void* q, void* kcur,
-    void* vcur, void* attn, void* stream) {
+    void* vcur, void* attn, void* part, void* stream) {
     DORA_BY_HEAD_DIM(hd, (decode_step<false, DenseRows, HD>(
         x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_cache, v_cache, nullptr, nullptr,
-        wo, swo, positions, position, DenseRows{S}, out, residual, B, D, H, KV, eps,
-        scale, h, p, q, kcur, vcur, attn, stream)));
+        wo, swo, positions, position, DenseRows{S}, S, out, residual, B, D, H, KV, eps,
+        scale, h, p, q, kcur, vcur, attn, part, stream)));
 }
 
 // Dense batch-1 chunk (attention_chunk_step): M rows at position ..

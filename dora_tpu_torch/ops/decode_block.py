@@ -54,12 +54,13 @@ _SIGNATURES = {
         "dora_attention_paged_chunk_step":
             [_P] * 13 + [_I] + [_P] * 2 + [_I] * 7 + [_F] * 2 + [_P] * 8,
         "dora_attention_paged_spec_step":
-            [_P] * 16 + [_I] * 9 + [_F] * 2 + [_P] * 7,
+            [_P] * 16 + [_I] * 9 + [_F] * 2 + [_P] * 8,
         "dora_attention_dense_step":
-            [_P] * 12 + [_I] + [_P] + [_I] * 7 + [_F] * 2 + [_P] * 7,
+            [_P] * 12 + [_I] + [_P] + [_I] * 7 + [_F] * 2 + [_P] * 8,
         "dora_attention_dense_chunk_step":
             [_P] * 11 + [_I] + [_P] + [_I] * 7 + [_F] * 2 + [_P] * 8,
         "dora_sweep_splits": [_I] * 5,
+        "dora_batch_sweep_splits": [_I] * 5,
         "dora_mma_tile": [_P] * 4,
     },
 }
@@ -171,8 +172,9 @@ def _verify_attend(q, k, v, ctx_k, ctx_v, live, dtype):
     [B, m, KV, hd] in f32; ctx_k, ctx_v [B, KV, n, hd] the prior context in
     the compute dtype, of which the keys ``live`` [B, n] count. Row i sees
     the live context and, causally, own rows j <= i, folded from f32 cast to
-    the compute dtype (never their cache rows); the running max starts at
-    -1e30, as the sweeps' does. Returns [B*m, H*hd] f32."""
+    the compute dtype (never their cache rows); each row's maximum is
+    clamped at -1e30, where the tensor-core sweep's starts. Returns
+    [B*m, H*hd] f32."""
     b, m, kv_heads, head_dim = k.shape
     heads = q.shape[2]
     group = heads // kv_heads
@@ -472,11 +474,10 @@ def _scratch(rows: int, d: int, heads: int, kv_heads: int, head_dim: int, lib, d
             torch.empty((rows, heads * head_dim), dtype=bf, device=dev))
 
 
-def _sweep_partials(lib, dense: int, rows: int, heads: int, kv_heads: int, head_dim: int,
-                    position: int, dev):
-    """Scratch for the tensor-core sweep's context splits (kernels 4 and 10):
-    each split's (m, l, acc) for the rows x heads query rows, f32."""
-    splits = lib.dora_sweep_splits(dense, rows, heads, kv_heads, position)
+def _sweep_partials(splits: int, rows: int, heads: int, head_dim: int, dev):
+    """Scratch for the tensor-core sweep's context splits (kernels 4, 5 and
+    8-10): each split's (m, l, acc) for the rows x heads query rows of all
+    its streams, f32."""
     return torch.empty((splits * rows * heads * (head_dim + 2),), dtype=torch.float32,
                        device=dev)
 
@@ -693,7 +694,8 @@ def _attention_paged_chunk_step_kernel(
         kcur = torch.empty((m, kv_heads, head_dim), dtype=torch.float32, device=dev)
         vcur = torch.empty((m, kv_heads, head_dim), dtype=torch.float32, device=dev)
     attn = torch.empty((m, heads * head_dim), dtype=torch.bfloat16, device=dev)
-    part = _sweep_partials(lib, 0, m, heads, kv_heads, head_dim, pos, dev)
+    part = _sweep_partials(lib.dora_sweep_splits(0, m, heads, kv_heads, pos), m, heads,
+                           head_dim, dev)
     out = torch.empty((m, d), dtype=torch.bfloat16 if residual else torch.float32,
                       device=dev)
     rc = lib.dora_attention_paged_chunk_step(
@@ -804,6 +806,8 @@ def _attention_paged_spec_step_kernel(
     _int8_weight(wqkv, "wqkv", d, n_qkv, dev)
     _int8_weight(wo, "wo", heads * head_dim, d, dev)
     _need_pools(k_pool, v_pool, k_scale, v_scale, kv_heads, head_dim, dev)
+    _aligned16(k_pool, "k_pool")
+    _aligned16(v_pool, "v_pool")
     _need(positions, "positions", torch.int32, (b,), dev)
     _need(block_tables, "block_tables", torch.int32, (b, max_pages), dev)
     _need(cos_rows, "cos_rows", torch.float32, (bm, head_dim), dev)
@@ -816,6 +820,9 @@ def _attention_paged_spec_step_kernel(
     so = _f32(swo, "swo", d, dev)
     lib = _lib("paged_attention", lib)
     h, p, q, kcur, vcur, attn = _scratch(bm, d, heads, kv_heads, head_dim, lib, dev)
+    # the sweep's splits follow the table's width, never the positions
+    part = _sweep_partials(lib.dora_batch_sweep_splits(b, m, heads, kv_heads, max_pages * page),
+                           bm, heads, head_dim, dev)
     out = torch.empty((bm, d), dtype=torch.bfloat16 if residual else torch.float32,
                       device=dev)
     rc = lib.dora_attention_paged_spec_step(
@@ -825,7 +832,7 @@ def _attention_paged_spec_step_kernel(
         so.data_ptr(), positions.data_ptr(), block_tables.data_ptr(),
         out.data_ptr(), int(residual), b, m, d, heads, kv_heads, head_dim, page,
         max_pages, eps, 1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(),
-        q.data_ptr(), kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(),
+        q.data_ptr(), kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), part.data_ptr(),
         _build.stream_of(x),
     )
     _count(attention_paged_spec_step, q8)
@@ -896,6 +903,8 @@ def _dense_kernel_args(x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_cache,
     shape = (kv_heads, seq, head_dim) if k_cache.dim() == 3 else (streams, kv_heads, seq, head_dim)
     _need(k_cache, "k_cache", torch.bfloat16, shape, dev)
     _need(v_cache, "v_cache", torch.bfloat16, shape, dev)
+    _aligned16(k_cache, "k_cache")
+    _aligned16(v_cache, "v_cache")
     _need(cos_rows, "cos_rows", torch.float32, (rows, head_dim), dev)
     _need(sin_rows, "sin_rows", torch.float32, (rows, head_dim), dev)
     return (rows, d, seq, _f32(norm_w, "norm_w", d, dev), _f32(sqkv, "sqkv", n_qkv, dev),
@@ -938,6 +947,9 @@ def _attention_batch_step_kernel(
         _check_dense_positions(positions, 1, seq)
     lib = _lib("paged_attention", lib)
     h, p, q, kcur, vcur, attn = _scratch(b, d, heads, kv_heads, head_dim, lib, dev)
+    # the sweep's splits follow the planes' length, never the positions
+    part = _sweep_partials(lib.dora_batch_sweep_splits(b, 1, heads, kv_heads, seq), b, heads,
+                           head_dim, dev)
     out = torch.empty((b, d), dtype=torch.bfloat16 if residual else torch.float32,
                       device=dev)
     rc = lib.dora_attention_dense_step(
@@ -946,7 +958,8 @@ def _attention_batch_step_kernel(
         v_caches.data_ptr(), wo.data_ptr(), so.data_ptr(), positions.data_ptr(), 0,
         out.data_ptr(), int(residual), b, d, heads, kv_heads, head_dim, seq, eps,
         1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(),
-        kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), _build.stream_of(x),
+        kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), part.data_ptr(),
+        _build.stream_of(x),
     )
     _count(attention_batch_step, False)
     _build.check(rc, "attention_batch_step")
@@ -1004,6 +1017,8 @@ def _attention_step_kernel(
     _check_dense_positions(torch.tensor([pos]), 1, seq)
     lib = _lib("paged_attention", lib)
     h, p, q, kcur, vcur, attn = _scratch(1, d, heads, kv_heads, head_dim, lib, dev)
+    part = _sweep_partials(lib.dora_batch_sweep_splits(1, 1, heads, kv_heads, seq), 1, heads,
+                           head_dim, dev)
     out = torch.empty((1, d), dtype=torch.bfloat16 if residual else torch.float32,
                       device=dev)
     rc = lib.dora_attention_dense_step(
@@ -1012,7 +1027,8 @@ def _attention_step_kernel(
         v_cache.data_ptr(), wo.data_ptr(), so.data_ptr(), None, pos,
         out.data_ptr(), int(residual), 1, d, heads, kv_heads, head_dim, seq, eps,
         1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(),
-        kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), _build.stream_of(x),
+        kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), part.data_ptr(),
+        _build.stream_of(x),
     )
     _count(attention_step, False)
     _build.check(rc, "attention_step")
@@ -1075,11 +1091,10 @@ def _attention_chunk_step_kernel(
         heads=heads, kv_heads=kv_heads, head_dim=head_dim, streams=1)
     pos = int(position)
     _check_dense_positions(torch.tensor([pos]), m, seq)
-    _aligned16(k_cache, "k_cache")
-    _aligned16(v_cache, "v_cache")
     lib = _lib("paged_attention", lib)
     h, p, q, kcur, vcur, attn = _scratch(m, d, heads, kv_heads, head_dim, lib, dev)
-    part = _sweep_partials(lib, 1, m, heads, kv_heads, head_dim, pos, dev)
+    part = _sweep_partials(lib.dora_sweep_splits(1, m, heads, kv_heads, pos), m, heads,
+                           head_dim, dev)
     out = torch.empty((m, d), dtype=torch.bfloat16 if residual else torch.float32,
                       device=dev)
     rc = lib.dora_attention_dense_chunk_step(

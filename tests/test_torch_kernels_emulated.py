@@ -12,11 +12,16 @@ heads), a group of 10 (two head tiles), and verify chunks of m x group =
 also at rank 256; flash attention at D 16, 40, 80 and 128, full and
 causal, T of 1 and off its tiles, transposed (strided) and unaligned
 inputs. The tensor-core sweeps of
-the prefill chunk and the dense verify run on the emulated warp
-collectives (shuffles, the m16n8k16 mma, cp.async): the mma alone on one
-tile against torch.matmul, the dense verify over 3+ context splits with
-m x group of 20, 35 and 66 rows, the prefill at groups 6 and 7 (head_dim
-128 and 64) from position 0 and from a later page, fp and int8 KV. The
+the prefill chunk, the dense verify, the paged spec verify and dense
+decode run on the emulated warp collectives (shuffles, the m16n8k16 mma,
+cp.async): the mma alone on one tile against torch.matmul, the dense
+verify over 3+ context splits with m x group of 20, 35 and 66 rows, the
+prefill at groups 6 and 7 (head_dim 128 and 64) from position 0 and from a
+later page, fp and int8 KV; the spec verify over 3+ splits of streams at
+different positions (page-straddling rows, a frozen stream, fp and int8
+KV, head_dim 64, 28 / 4 heads, page 32, m = 11), the dense batch decode
+over 3+ splits of planes from position 0 to S - 1 and batch-1 decode on the
+same sweep. The
 tensor-core int8 product of mlp_step and lm_head_argmax (ldmatrix of the
 int8 bytes, widened in registers, the mma) runs in every band: one tile
 against torch.matmul; mlp_step split and fused (the splits each case takes
@@ -40,7 +45,7 @@ versions run there too.
 
 Tolerances: the largest error at most 1e-2 of the output's largest
 magnitude, the bf16 rounding of the kernels' bf16 intermediates and outputs
-(the kernel rounds softmax weights against the running max, the plain
+(kernel 3 rounds softmax weights against the running max, the plain
 version against the final max); argmax tokens exact; untouched pool rows
 and scale entries exact. int8 rows the kernels write: every byte within one
 step (1 LSB) of the plain version's, whose f32 K/V differ from the kernel's
@@ -114,6 +119,9 @@ def _run_job(job):
     if name == "sweep_splits":  # the context splits kernel 4 (0) or 10 (1) takes
         lib = _build.library("paged_attention", _SIGNATURES["paged_attention"], compiler="host")
         return lib.dora_sweep_splits(*args)
+    if name == "batch_sweep_splits":  # the context splits of kernels 5 and 8 (B streams)
+        lib = _build.library("paged_attention", _SIGNATURES["paged_attention"], compiler="host")
+        return lib.dora_batch_sweep_splits(*args)
     if name == "mlp_splits":  # the K splits of mlp_step's gate/up and down products
         lib = _build.library("mlp", _SIGNATURES["mlp"], compiler="host")
         return tuple(lib.dora_mlp_splits(*args, which) for which in (0, 1))
@@ -243,13 +251,13 @@ def _rel(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
-def _attn_setup(rng, d=64, h=4, kv=2, hd=128):
+def _attn_setup(rng, d=64, h=4, kv=2, hd=128, seq=128):
     wqkv = quantize_int8(_t(rng.standard_normal((d, (h + 2 * kv) * hd))))
     wo = quantize_int8(_t(rng.standard_normal((h * hd, d))))
     bqkv = _t(rng.standard_normal((h + 2 * kv) * hd))
     nw = _t(rng.standard_normal(d))
     inv = 1.0 / 10000.0 ** (torch.arange(0, hd, 2, dtype=torch.float32) / hd)
-    freqs = torch.outer(torch.arange(128, dtype=torch.float32), inv)
+    freqs = torch.outer(torch.arange(seq, dtype=torch.float32), inv)
     return wqkv, wo, bqkv, nw, torch.cos(freqs), torch.sin(freqs)
 
 
@@ -402,15 +410,17 @@ def test_kernel_wrappers_refuse_shapes_the_kernels_do_not_take():
             torch.ones(1, 64), eps=1e-6, residual=True, lib=object())
 
 
-def _spec_case(rng, m=5, h=4, kv=2, hd=128, page=16, maxp=6, d=64):
-    """Four streams of m = 5 candidate rows: one straddling a page (14..18),
-    one frozen (position 0, zeroed table row), one past two pages (37) and
-    one at a page start (32)."""
-    wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng, d, h, kv, hd)
-    positions = torch.tensor([14, 0, 37, 32], dtype=torch.int32)
+def _spec_case(rng, m=5, h=4, kv=2, hd=128, page=16, maxp=6, d=64, positions=(14, 0, 37, 32)):
+    """Streams of m candidate rows; by default four of m = 5: one straddling
+    a page (14..18), one frozen (position 0, zeroed table row), one past two
+    pages (37) and one at a page start (32). Frozen streams get a zeroed
+    table row, the others pages of their own."""
+    wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng, d, h, kv, hd, seq=maxp * page)
+    positions = torch.tensor(positions, dtype=torch.int32)
     b = positions.shape[0]
     bt = torch.zeros((b, maxp), dtype=torch.int32)
-    for i in (0, 2, 3):
+    live = [i for i, p in enumerate(positions.tolist()) if p]
+    for i in live:
         bt[i] = 1 + i * maxp + torch.arange(maxp, dtype=torch.int32)
     n_pool = 1 + b * maxp
     x = _t(rng.standard_normal((b * m, d)), BF)
@@ -421,7 +431,7 @@ def _spec_case(rng, m=5, h=4, kv=2, hd=128, page=16, maxp=6, d=64):
         for r in range(p, p + m):
             written[bt[i, r // page], :, r % page] = True
     written[0] = True
-    assert int(written[1:].sum()) == 3 * m * kv
+    assert int(written[1:].sum()) == len(live) * m * kv
     head = (x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr)
     return head, (wo["int8"], wo["scale"], positions, bt), (n_pool, kv, page, hd), written
 
@@ -1043,6 +1053,155 @@ def test_dense_chunk_kernel_splits_the_context(emu, case):
                            wo["scale"], position, eps=1e-6, **kw)
     written = torch.zeros((kv, LONG_SEQ), dtype=torch.bool)
     written[:, position : position + m] = True
+    _dense_check(got, want, (k2, v2), (k1, v1), (kc, vc), written)
+
+
+#: case -> (heads, kv_heads, head_dim, page, m, int8 KV): Qwen2-1.5B's group
+#: of 6 at head_dim 128, Qwen2-0.5B's 7 at 64, Qwen2-7B's 28 / 4 heads, page
+#: 32, and an m = 11 verify (66 rows: five warps), fp and int8 KV
+SPLIT_SPEC = {
+    "group6_hd128": (12, 2, 128, 16, 5, False),
+    "group6_hd128_int8kv": (12, 2, 128, 16, 5, True),
+    "group7_hd64": (14, 2, 64, 16, 5, False),
+    "group7_hd64_int8kv": (14, 2, 64, 16, 5, True),
+    "qwen2_7b_28_4": (28, 4, 128, 16, 5, False),
+    "page32_int8kv": (4, 2, 128, 32, 5, True),
+    "m11_group6_66_rows": (12, 2, 128, 16, 11, False),
+}
+#: five streams over tables of LONG_SEQ rows: 30 straddles a page of 16 and
+#: of 32 (its keys fill two tiles, leaving later splits empty), one is
+#: frozen (position 0, zeroed table row), 156 straddles again, 240 reaches
+#: the table's last tile, 77 straddles a page of 16 at m = 11
+SPLIT_SPEC_POSITIONS = (30, 0, 156, 240, 77)
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_SPEC))
+def test_spec_kernel_streams_split_the_context(emu, case):
+    """Kernel 5 over streams at different positions whose keys are split 3+
+    ways across the grid: outputs within tolerance of the plain version,
+    written rows within tolerance (int8: 1 LSB), every other row and scale
+    of the live pages unchanged."""
+    h, kv, hd, page, m, int8kv = SPLIT_SPEC[case]
+    maxp = LONG_SEQ // page
+    b = len(SPLIT_SPEC_POSITIONS)
+    assert emu.call("batch_sweep_splits", b, m, h, kv, LONG_SEQ) >= 3
+    rng = np.random.default_rng(100 + h + hd + page + m + int8kv)
+    head, tail, shape, written = _spec_case(rng, m=m, h=h, kv=kv, hd=hd, page=page, maxp=maxp,
+                                            positions=SPLIT_SPEC_POSITIONS)
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd, m=m)
+    if int8kv:
+        pools = _int8_pools(rng, shape)
+        want, *pw = DB.attention_paged_spec_step_plain(
+            *head, pools[0].clone(), pools[1].clone(), *tail, pools[2].clone(),
+            pools[3].clone(), **kw)
+        got, *pg = emu.call("attention_paged_spec_step", *head, pools[0].clone(),
+                            pools[1].clone(), *tail, pools[2].clone(), pools[3].clone(),
+                            eps=1e-6, residual=True, **kw)
+        assert bool(torch.isfinite(got.float()).all())
+        assert _rel(got, want) <= 1e-2
+        _check_int8_writes(pg, pw, pools, written, f"spec int8 KV over splits, {case}")
+        return
+    kp = _t(rng.standard_normal(shape) * 0.5, BF)
+    vp = _t(rng.standard_normal(shape) * 0.5, BF)
+    want, k1, v1 = DB.attention_paged_spec_step_plain(*head, kp.clone(), vp.clone(), *tail, **kw)
+    got, k2, v2 = emu.call("attention_paged_spec_step", *head, kp.clone(), vp.clone(), *tail,
+                           eps=1e-6, residual=True, **kw)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel(got, want) <= 1e-2
+    assert _rel(k2[1:], k1[1:]) <= 1e-2 and _rel(v2[1:], v1[1:]) <= 1e-2
+    assert torch.equal(k2[~written], kp[~written])
+    assert torch.equal(v2[~written], vp[~written])
+
+
+#: case -> (heads, kv_heads, head_dim)
+SPLIT_BATCH = {
+    "group2_hd128": (4, 2, 128),
+    "group6_hd128": (12, 2, 128),
+    "group7_hd64": (14, 2, 64),
+    "batch_28_4_heads": (28, 4, 128),
+}
+
+
+@pytest.mark.parametrize("residual", (True, False))
+@pytest.mark.parametrize("case", sorted(SPLIT_BATCH))
+def test_dense_batch_kernel_streams_split_the_context(emu, case, residual):
+    """Kernel 8 over planes of LONG_SEQ rows whose keys are split 3+ ways: an
+    idle plane at position 0 (no context: its row attends itself) beside one
+    at the last row, S - 1, and two between, every row from each plane's
+    position on NaN before the call. Finite outputs within tolerance of the
+    plain version, written rows within tolerance, everything else
+    bit-unchanged."""
+    h, kv, hd = SPLIT_BATCH[case]
+    positions = torch.tensor([0, LONG_SEQ - 1, 97, 180], dtype=torch.int32)
+    b = positions.shape[0]
+    assert emu.call("batch_sweep_splits", b, 1, h, kv, LONG_SEQ) >= 3
+    rng = np.random.default_rng(110 + h + hd + residual)
+    wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng, h=h, kv=kv, hd=hd, seq=LONG_SEQ)
+    x = _t(rng.standard_normal((b, 64)), BF)
+    kc, vc = _nan_caches(rng, (b, kv, LONG_SEQ, hd), positions)
+    cr, sr = DB.rope_rows_at(cos_t, sin_t, positions)
+    args = (x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr)
+    tail = (wo["int8"], wo["scale"], positions)
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd, residual=residual)
+    want, k1, v1 = DB.attention_batch_step_plain(*args, kc.clone(), vc.clone(), *tail, **kw)
+    got, k2, v2 = emu.call("attention_batch_step", *args, kc.clone(), vc.clone(), *tail,
+                           eps=1e-6, **kw)
+    written = torch.zeros((b, kv, LONG_SEQ), dtype=torch.bool)
+    written[torch.arange(b), :, positions.long()] = True
+    _dense_check(got, want, (k2, v2), (k1, v1), (kc, vc), written)
+
+
+@pytest.mark.parametrize("kernel", ("attention_paged_spec_step", "attention_batch_step",
+                                    "attention_step"))
+def test_sweep_wrappers_refuse_unaligned_caches(kernel):
+    """The tensor-core sweep copies K/V rows 16 bytes at a time (cp.async):
+    a pool or cache that does not start on a 16-byte boundary is refused
+    before any launch, as kernels 4 and 10 refuse theirs."""
+    rng = np.random.default_rng(130)
+    kw = dict(heads=4, kv_heads=2, head_dim=128, eps=1e-6, residual=True, lib=object())
+
+    def unaligned(shape):
+        return torch.zeros(int(np.prod(shape)) + 1, dtype=BF)[1:].view(shape)
+
+    if kernel == "attention_paged_spec_step":
+        head, (wo, swo, pos, bt), shape, _ = _spec_case(rng)
+        with pytest.raises(ValueError, match="k_pool: .* 16-byte aligned"):
+            DB._attention_paged_spec_step_kernel(*head, unaligned(shape), unaligned(shape), wo,
+                                                 swo, pos, bt, m=5, **kw)
+        return
+    wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng)
+    b = 2 if kernel == "attention_batch_step" else 1
+    shape = (b, 2, SEQ, 128) if b == 2 else (2, SEQ, 128)
+    x = torch.zeros((b, 64), dtype=BF)
+    cr, sr = DB.rope_rows(cos_t, sin_t, 3, b)
+    where = torch.tensor([3, 5], dtype=torch.int32) if b == 2 else 3
+    with pytest.raises(ValueError, match="k_cache: .* 16-byte aligned"):
+        getattr(DB, f"_{kernel}_kernel")(x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr,
+                                         unaligned(shape), unaligned(shape), wo["int8"],
+                                         wo["scale"], where, **kw)
+
+
+@pytest.mark.parametrize("position", (0, 97, LONG_SEQ - 1))
+@pytest.mark.parametrize("case", ("group2_hd128", "group7_hd64"))
+def test_dense_step_kernel_splits_the_context(emu, case, position):
+    """Kernel 9 (batch-1 decode, one plane, its position a host int) on the
+    same sweep as kernel 8, over a LONG_SEQ plane whose keys split 3+ ways:
+    no context, mid-plane and the last row, NaN from the position on."""
+    h, kv, hd = SPLIT_BATCH[case]
+    assert emu.call("batch_sweep_splits", 1, 1, h, kv, LONG_SEQ) >= 3
+    rng = np.random.default_rng(120 + h + position)
+    wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng, h=h, kv=kv, hd=hd, seq=LONG_SEQ)
+    x = _t(rng.standard_normal((1, 64)), BF)
+    kc, vc = _nan_caches(rng, (kv, LONG_SEQ, hd), position)
+    cr, sr = DB.rope_rows(cos_t, sin_t, position)
+    args = (x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr)
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd, residual=True)
+    want, k1, v1 = DB.attention_step_plain(*args, kc.clone(), vc.clone(), wo["int8"],
+                                           wo["scale"], position, **kw)
+    got, k2, v2 = emu.call("attention_step", *args, kc.clone(), vc.clone(), wo["int8"],
+                           wo["scale"], position, eps=1e-6, **kw)
+    written = torch.zeros((kv, LONG_SEQ), dtype=torch.bool)
+    written[:, position] = True
     _dense_check(got, want, (k2, v2), (k1, v1), (kc, vc), written)
 
 
