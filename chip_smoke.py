@@ -20,7 +20,11 @@ Phases, each printed on its own line:
    plain version's time, a library yardstick's time and the least time the
    card could take (``bound_ms``); the int8 forms' written rows within 1 LSB
    of the plain version's and every other value and scale bit-unchanged,
-   slot-0 LoRA rows exactly zero;
+   slot-0 LoRA rows exactly zero. The LoRA kernel also runs its grouped
+   design's edges (256 rows on one adapter, 16 rows on 16 adapters, 16 rows
+   all on slot 0, ranks 12 and 256), each line with its device time, the
+   bound, and beside the batched-product yardstick one cuBLAS pair per
+   distinct adapter, summed as device time;
 4. the slice: a Qwen2-1.5B-shaped engine with seeded random int8 weights
    (16 slots, page 16, chunk 256, K = 8, max_seq 2048) serves 16 requests
    with prompts of 64..1000 tokens and 128 new tokens each; together they
@@ -116,17 +120,17 @@ and the attention sublayers of kernels 3-5 and 8-10 the same way
 (``sublayer`` lines, with SDPA alone, the library chain of RMSNorm,
 cuBLAS products on the dequantized weights and SDPA, and the bound).
 
-``fidelity`` lines hold the tensor-core sweeps' kernels 4, 5, 8 and 10
+``fidelity`` lines hold the tensor-core sweeps' kernels 3-5 and 8-10
 and their plain versions to an f32 reference (kernel 4 on phase 4's
-prompts; kernels 5 and 8 must sit within RMS_MARGIN of their plain
-versions' distance), and kernel 11 and its plain version to f64 at the
-ViT's shape and causal over 2048 rows. ``--kernels-only`` stops after
-phase 3, ``--breakdown`` runs only the ``breakdown``, ``sublayer`` and
-``fidelity`` lines and ``--paths`` only phases 4, 6, 9 and 10 and the
-VLM's ``generate`` (prefill chunk, window, spec-on window, dense step and
-its short prompts' TTFT, batch-1 prefill, ``run_loop`` pass, VLM step and
-ViT times), all without the result line; either runs as well on a parent
-tree with this script copied beside it.
+prompts; kernel 3 in both KV forms; each must sit within RMS_MARGIN of its
+plain version's distance), and kernel 11 and its plain version to f64 at
+the ViT's shape and causal over 2048 rows. ``--kernels-only`` stops after
+phase 3, ``--breakdown`` runs only kernel 6's lines and the ``breakdown``,
+``sublayer`` and ``fidelity`` lines and ``--paths`` only phases 4, 6, 9
+and 10 and the VLM's ``generate`` (prefill chunk, window, spec-on window,
+dense step and its short prompts' TTFT, batch-1 prefill, ``run_loop``
+pass, VLM step and ViT times), all without the result line; either runs
+as well on a parent tree with this script copied beside it.
 
 It prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -721,56 +725,106 @@ def check_kernels(torch, DB, qwen2, params, cfg, rng_seed: int) -> list[dict]:
     return out
 
 
+def _lora_yardsticks(torch, x, g, a, b):
+    """The library's two yardsticks of kernel 6 on the same inputs: one call
+    of batched products over each row's gathered slabs, and one cuBLAS pair
+    per distinct adapter over its rows (gathered beforehand), whose device
+    time is summed (the like-for-like yardstick of the grouped kernel).
+    Returns (gathered ms, grouped device ms or None)."""
+    gl = g.long()
+    per = [(x[g == u], a[u], b[u]) for u in torch.unique(g[g != 0]).tolist()]
+
+    def grouped():
+        for xu, au, bu in per:
+            torch.matmul(torch.matmul(xu, au), bu)
+
+    launches = _device_launches(torch, grouped) if per else []
+    return (_time_ms(torch, lambda: torch.bmm(torch.bmm(x[:, None, :], a[gl]), b[gl])),
+            None if launches is None else sum(ms for _, ms in launches))
+
+
+def _lora_case(torch, LO, what, x, g, a, b, tol_what=""):
+    """Kernel 6 on one case against its plain version: slot-0 rows exactly
+    zero, within REL_TOL; prints the isolated and device times, the plain
+    version's, both library yardsticks and the bound. Returns the numbers."""
+    want = LO.lora_gather_matmul_plain(x, g, a, b)
+    got = LO.lora_gather_matmul(x, g, a, b)
+    err, rel = _rel(got, want)
+    base = g == 0
+    if bool(base.any()) and got[base].float().abs().max().item() != 0.0:
+        raise Failed(f"lora_gather_matmul: slot-0 rows are not exactly zero {what}")
+    tol = REL_TOL["lora_gather_matmul"]
+    if not rel <= tol:
+        raise Failed(f"lora_gather_matmul disagrees with its plain version {what}: "
+                     f"rel {rel:.3e}")
+    m, d = x.shape
+    rank = a.shape[-1]
+    distinct = int(torch.unique(g[g != 0]).numel())
+    nbytes = distinct * 2 * d * rank * 2 + m * d * 2 * 2 + m * 4
+    ops = 4 * int((~base).sum()) * d * rank
+    bound, by = _bound_ms(nbytes, ops)
+    ms = _time_ms(torch, lambda: LO.lora_gather_matmul(x, g, a, b))
+    plain_ms = _time_ms(torch, lambda: LO.lora_gather_matmul_plain(x, g, a, b), 5)
+    lib_ms, grouped_ms = _lora_yardsticks(torch, x, g, a, b)
+    parts = _launch_parts(torch, lambda: LO.lora_gather_matmul(x, g, a, b))
+    grouped = "not measured" if grouped_ms is None else f"{grouped_ms:.4f}"
+    print(f"kernel lora_gather_matmul {what} ({distinct} distinct adapters, "
+          f"{int(base.sum())} slot-0 rows exactly zero): rel {rel:.3e} (tol {tol}) "
+          f"max_abs_err {err:.3e} ms {ms:.4f} (device: {parts}) plain_ms {plain_ms:.4f} "
+          f"library_ms {lib_ms:.4f} grouped library device ms {grouped} bound_ms "
+          f"{bound:.4f} ({by})", flush=True)
+    return err, ms, plain_ms, lib_ms, bound, by
+
+
 def check_lora_kernel(torch, LO, cfg, rng_seed: int) -> dict:
     """Phase 3, kernel 6: lora_gather_matmul against its plain version at 16
     (decode), 80 (spec verify) and 256 (prefill chunk) rows, over a 9-slot
     stack of rank 32 sliced per layer as the fused pass slices it; ids mixed,
-    with slot-0 rows and repeats. Returns the 16-row entry."""
+    with slot-0 rows and repeats. Then the grouped design's edges at
+    Qwen2-1.5B width: 256 rows on one adapter, 16 rows each on its own
+    adapter (a 17-slot stack), 16 rows all on slot 0 (exactly zero), and
+    ranks 12 (not a multiple of 16) and 256 (the largest) at 16 rows.
+    Returns the 16-row entry."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(rng_seed)
-    d, rank, slots = cfg.dim, 32, 9
-    a = (torch.randn((slots, 2, d, rank), generator=gen, device=dev) * ADAPTER_STD).bfloat16()
-    b = (torch.randn((slots, 2, rank, d), generator=gen, device=dev) * ADAPTER_STD).bfloat16()
-    a[0] = 0
-    b[0] = 0
-    a1, b1 = a[:, 1], b[:, 1]
+    d = cfg.dim
+
+    def stack(slots, rank):
+        a = (torch.randn((slots, 2, d, rank), generator=gen, device=dev) * ADAPTER_STD).bfloat16()
+        b = (torch.randn((slots, 2, rank, d), generator=gen, device=dev) * ADAPTER_STD).bfloat16()
+        a[0] = 0
+        b[0] = 0
+        return a[:, 1], b[:, 1]
+
+    def xs(m):
+        return (torch.randn((m, d), generator=gen, device=dev) * 0.5).bfloat16()
+
+    a1, b1 = stack(9, 32)
     entry = None
     for m in (16, 80, 256):
-        x = (torch.randn((m, d), generator=gen, device=dev) * 0.5).bfloat16()
-        g = torch.randint(0, slots, (m,), generator=gen, device=dev, dtype=torch.int32)
+        x = xs(m)
+        g = torch.randint(0, 9, (m,), generator=gen, device=dev, dtype=torch.int32)
         g[:4] = torch.tensor([0, 0, 5, 5], dtype=torch.int32)
-        want = LO.lora_gather_matmul_plain(x, g, a1, b1)
-        got = LO.lora_gather_matmul(x, g, a1, b1)
-        err, rel = _rel(got, want)
-        base = g == 0
-        if got[base].float().abs().max().item() != 0.0:
-            raise Failed(f"lora_gather_matmul: slot-0 rows are not exactly zero at {m} rows")
-        tol = REL_TOL["lora_gather_matmul"]
-        if not rel <= tol:
-            raise Failed(f"lora_gather_matmul disagrees with its plain version at {m} rows: "
-                         f"rel {rel:.3e}")
-
-        def lib():
-            gl = g.long()
-            return torch.bmm(torch.bmm(x[:, None, :], a1[gl]), b1[gl])
-
-        distinct = int(torch.unique(g[g != 0]).numel())
-        nbytes = distinct * 2 * d * rank * 2 + m * d * 2 * 2 + m * 4
-        ops = 4 * m * d * rank
-        bound, by = _bound_ms(nbytes, ops)
-        ms = _time_ms(torch, lambda: LO.lora_gather_matmul(x, g, a1, b1))
-        plain_ms = _time_ms(torch, lambda: LO.lora_gather_matmul_plain(x, g, a1, b1), 5)
-        lib_ms = _time_ms(torch, lib)
-        print(f"kernel lora_gather_matmul at {m} rows ({distinct} distinct adapters, "
-              f"{int(base.sum())} slot-0 rows exactly zero): rel {rel:.3e} (tol {tol}) "
-              f"max_abs_err {err:.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-              f"{lib_ms:.4f} bound_ms {bound:.4f} ({by})", flush=True)
+        err, ms, plain_ms, lib_ms, bound, by = _lora_case(torch, LO, f"at {m} rows", x, g,
+                                                          a1, b1)
         if m == 16:
             entry = {"name": "lora_gather_matmul", "route": "cuda",
                      "source": "dora_tpu_torch/csrc/lora.cu",
                      "replaces": "dora_tpu/ops/lora.py:65", "launches": 0,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": by, "library_ms": lib_ms}
+    one = torch.full((256,), 7, dtype=torch.int32, device=dev)
+    _lora_case(torch, LO, "at 256 rows on one adapter", xs(256), one, a1, b1)
+    a17, b17 = stack(17, 32)
+    distinct = (torch.randperm(16, generator=gen, device=dev) + 1).to(torch.int32)
+    _lora_case(torch, LO, "at 16 rows on 16 adapters", xs(16), distinct, a17, b17)
+    base = torch.zeros((16,), dtype=torch.int32, device=dev)
+    _lora_case(torch, LO, "at 16 rows all on slot 0", xs(16), base, a1, b1)
+    for rank in (12, 256):
+        ar, br = stack(9, rank)
+        g = torch.randint(0, 9, (16,), generator=gen, device=dev, dtype=torch.int32)
+        g[:2] = 0
+        _lora_case(torch, LO, f"at rank {rank}, 16 rows", xs(16), g, ar, br)
     return entry
 
 
@@ -1964,6 +2018,7 @@ def sublayer_breakdown(torch, DB, params, cfg, rng_seed: int) -> None:
               f"{_host_ms(torch, call):.4f} ms; SDPA {sdpa_ms:.4f} ms, library chain "
               f"{_time_ms(torch, chain):.4f} ms; bound {bound[0]:.4f} ms ({bound[1]})",
               flush=True)
+        return parts
 
     # kernel 3: 16 decode rows at 30..940, one frozen (as check_kernels)
     n_pool = 4 * seq // page
@@ -1989,13 +2044,19 @@ def sublayer_breakdown(torch, DB, params, cfg, rng_seed: int) -> None:
     keys = torch.arange(maxp * page, device=dev)
     x = rows(slots)
     cr, sr = DB.rope_rows_at(cos_t, sin_t, pos)
-    args = (x, nw, wqkv, sqkv, bqkv, cr, sr, kp.clone(), vp.clone(), wo, swo, pos, bt)
     ctx = sum(positions)
-    line("attention_paged_batch_step, 16 rows at 30..940",
-         lambda: DB.attention_paged_batch_step(*args, **kw), x,
-         torch.randn((slots, h, 1, hd), generator=gen, device=dev).bfloat16(), kctx, vctx,
-         (keys[None, :] <= pos[:, None])[:, None, None, :],
-         cost(slots, ctx, ctx + slots, slots * 4 + bt.numel() * 4))
+    q1 = torch.randn((slots, h, 1, hd), generator=gen, device=dev).bfloat16()
+    fp = (x, nw, wqkv, sqkv, bqkv, cr, sr, kp.clone(), vp.clone(), wo, swo, pos, bt)
+    q8 = (x, nw, wqkv, sqkv, bqkv, cr, sr, kq8.clone(), vq8.clone(), wo, swo, pos, bt,
+          ks8.clone(), vs8.clone())
+    for form, bargs, row_bytes in (("fp KV", fp, kv_row), ("int8 KV", q8, kv8_row)):
+        parts = line(f"attention_paged_batch_step, {form}, 16 rows at 30..940",
+                     lambda: DB.attention_paged_batch_step(*bargs, **kw), x, q1, kctx, vctx,
+                     (keys[None, :] <= pos[:, None])[:, None, None, :],
+                     cost(slots, ctx, ctx + slots, slots * 4 + bt.numel() * 4, row_bytes))
+        if "not measured" not in parts and not ("tc_sweep" in parts and "sweep_combine" in parts):
+            raise Failed(f"attention_paged_batch_step ({form}) did not sweep on tc_sweep and "
+                         f"sweep_combine: {parts}")
 
     # kernel 4: 256 rows from 0 and from 512, fp and int8 KV
     btr = torch.arange(1, maxp + 1, dtype=torch.int32, device=dev)
@@ -2172,18 +2233,19 @@ def ffn_fidelity(torch, DB, params, cfg, prompts) -> None:
 
 
 def sweep_fidelity(torch, DB, params, cfg, prompts, rng_seed: int) -> None:
-    """Phase 3: the tensor-core sweeps' kernels 4, 5 and 8-10 against an
-    f32 reference (their plain versions run on f32 rows), beside the bf16
-    plain versions, as rel-rms of the attention delta (residual=False):
-    kernel 4 on the embedded rows of three of phase 4's prompts (256-row
-    chunks from 0 and from 512 over a seeded pool), kernel 10 on 5 rows at
-    84, 1064 and 2043 over seeded planes, kernel 5 on 16 streams x 5 rows at
-    30..940 (one frozen) over a seeded pool, kernel 8 on 4 planes at 0, 700,
-    1500 and 2047 and kernel 9 on one row at 1500, NaN from each position
-    on, in every ninth layer's weights. A kernel as close to f32 as its
-    plain version but far from the plain version rounds elsewhere; kernels
-    5, 8 and 9 fail the phase when they sit more than RMS_MARGIN times as
-    far from f32 as their plain versions."""
+    """Phase 3: the tensor-core sweeps' kernels 3-5 and 8-10 against an f32
+    reference (their plain versions run on f32 rows), beside the bf16 plain
+    versions, as rel-rms of the attention delta (residual=False): kernel 4
+    on the embedded rows of three of phase 4's prompts (256-row chunks from
+    0 and from 512 over a seeded pool), kernel 10 on 5 rows at 84, 1064 and
+    2043 over seeded planes, kernel 5 on 16 streams x 5 rows at 30..940 (one
+    frozen) over a seeded pool, kernel 3 on 16 decode rows at the same
+    positions, fp and int8 KV, kernel 8 on 4 planes at 0, 700, 1500 and 2047
+    and kernel 9 on one row at 1500, NaN from each position on, in every
+    ninth layer's weights. A kernel as close to f32 as its plain version but
+    far from the plain version rounds elsewhere; each case fails the phase
+    when its kernel sits more than RMS_MARGIN times as far from f32 as its
+    plain version."""
     from dora_tpu_torch.models.layers import rope_table
 
     dev = params["embed"].device
@@ -2232,7 +2294,8 @@ def sweep_fidelity(torch, DB, params, cfg, prompts, rng_seed: int) -> None:
 
                 errs.append(three(DB.attention_paged_chunk_step,
                                   DB.attention_paged_chunk_step_plain, args, n))
-        report(f"attention_paged_chunk_step, 256-row chunks of 3 prompts at {position}", errs)
+        report(f"attention_paged_chunk_step, 256-row chunks of 3 prompts at {position}", errs,
+               hold=True)
     for position in (84, 1064, seq - SPEC_K - 1):
         errs = []
         for layer in layers:
@@ -2252,7 +2315,7 @@ def sweep_fidelity(torch, DB, params, cfg, prompts, rng_seed: int) -> None:
 
             errs.append(three(DB.attention_chunk_step, DB.attention_chunk_step_plain, args,
                               SPEC_K + 1))
-        report(f"attention_chunk_step, 5 rows at {position}", errs)
+        report(f"attention_chunk_step, 5 rows at {position}", errs, hold=True)
 
     # kernel 5: 16 streams x 5 rows at 30..940, stream 3 frozen (the sublayer's)
     m, slots, maxp = SPEC_K + 1, 16, seq // page
@@ -2286,6 +2349,33 @@ def sweep_fidelity(torch, DB, params, cfg, prompts, rng_seed: int) -> None:
         errs.append(three(DB.attention_paged_spec_step, DB.attention_paged_spec_step_plain,
                           args, slots * m, m=m))
     report("attention_paged_spec_step, 16 x 5 rows at 30..940", errs, hold=True)
+
+    # kernel 3: 16 decode rows at the same positions and tables, fp and int8 KV
+    cr, sr = DB.rope_rows_at(cos_t, sin_t, pos)
+    for form in ("fp KV", "int8 KV"):
+        errs = []
+        for layer in layers:
+            blk = params["blocks"][str(layer)]
+            shape = (4 * seq // page, kv, page, hd)
+            kp = torch.randn(shape, generator=gen, device=dev)
+            vp = torch.randn(shape, generator=gen, device=dev)
+            if form == "fp KV":
+                pools = (kp.bfloat16(), vp.bfloat16())
+            else:
+                (kq, ks), (vq, vs) = DB.kv_quant_rows(kp), DB.kv_quant_rows(vp)
+                pools = (kq, vq, ks, vs)
+            tok = torch.randint(0, cfg.vocab, (slots,), generator=gen, device=dev)
+            x = params["embed"][tok].bfloat16()
+
+            def args(f32):
+                p = [t.clone() for t in pools]
+                return ((x.float() if f32 else x), blk["attn_norm"], blk["wqkv"]["int8"],
+                        blk["wqkv"]["scale"], blk.get("bqkv"), cr, sr, p[0], p[1],
+                        blk["wo"]["int8"], blk["wo"]["scale"], pos, bt, *p[2:])
+
+            errs.append(three(DB.attention_paged_batch_step, DB.attention_paged_batch_step_plain,
+                              args, slots))
+        report(f"attention_paged_batch_step, {form}, 16 rows at 30..940", errs, hold=True)
 
     # kernel 8: 4 planes at 0, 700, 1500 and 2047, NaN from each position on
     live = [0, 700, 1500, seq - 1]
@@ -2922,9 +3012,9 @@ def main(argv=None) -> int:
     ap.add_argument("--max-new", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--breakdown", action="store_true",
-                    help="build, then only time kernels 1, 2, 7 and 11 and the attention "
-                         "sublayers launch by launch and hold kernels 4, 5, 8, 10 and 11 to "
-                         "their references (prints no result line)")
+                    help="build, then only time kernels 1, 2, 6, 7 and 11 and the attention "
+                         "sublayers launch by launch and hold kernels 3-6 and 8-11 to their "
+                         "references (prints no result line)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build, then only phase 3's kernel checks (prints no result line)")
     ap.add_argument("--paths", action="store_true",
@@ -2983,6 +3073,7 @@ def main(argv=None) -> int:
         d_rng = np.random.default_rng(args.seed + 7)
         d_prompts = [d_rng.integers(0, cfg.vocab, size=n).tolist() for n in DENSE_LENGTHS]
         if args.breakdown:
+            check_lora_kernel(torch, LO, cfg, args.seed + 3)
             int8_flash_breakdown(torch, IM, FA, params, args.seed + 17)
             flash_fidelity(torch, FA, args.seed + 18)
             ffn_head_breakdown(torch, DB, params, cfg, args.seed + 15)

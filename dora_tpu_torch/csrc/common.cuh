@@ -1,5 +1,5 @@
 // Building blocks shared by the kernels (mlp.cu, lm_head.cu,
-// paged_attention.cu, int8_matmul.cu, flash_attention.cu): RMSNorm, the
+// paged_attention.cu, int8_matmul.cu, flash_attention.cu, lora.cu): RMSNorm, the
 // int8-weight products with f32 accumulators (the SIMT launch_gemm of the
 // attention sublayers, and the tensor-core tc_tile_product of kernels 1, 2
 // and 7), the epilogues that apply the per-column scale, and the warp-level
@@ -16,7 +16,8 @@
 // return). Reductions over a block go through shared memory; the
 // tensor-core sweeps of paged_attention.cu reduce over a warp's quad with
 // shuffles and call the PTX-level operations only through the inline
-// helpers near the end of this file (mma, shuffle, cp.async, ldmatrix),
+// helpers near the end of this file (mma, shuffle, ballot, cp.async,
+// ldmatrix),
 // which the emulated build (csrc/emu/) runs on the host.
 #pragma once
 
@@ -50,10 +51,6 @@ typedef __nv_bfloat16 bf16;
         cudaError_t e_ = cudaGetLastError();             \
         if (e_ != cudaSuccess && (err) == 0) (err) = (int)e_; \
     } while (0)
-
-static __device__ __forceinline__ float bf16_round(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-}
 
 // Sum of v over a block of NT threads through shared scratch red[NT].
 template <int NT>
@@ -347,6 +344,15 @@ static __device__ __forceinline__ void cp_async_wait() {
 
 static __device__ __forceinline__ int shfl_xor(int v, int mask) {
     return __shfl_xor_sync(0xffffffffu, v, mask);
+}
+
+// One bit a lane, set where the lane's p holds (every lane takes part).
+static __device__ __forceinline__ unsigned warp_ballot(bool p) {
+#ifdef DORA_EMULATE
+    return dora_emu_ballot(p);
+#else
+    return __ballot_sync(0xffffffffu, p);
+#endif
 }
 
 // Four 8 x 8 bf16 matrices from shared memory, one register each, in the

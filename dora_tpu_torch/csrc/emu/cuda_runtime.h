@@ -5,9 +5,10 @@
 // Each block runs in turn; each of its threads is one OS thread, and
 // __syncthreads() is a barrier over them. __shared__ arrays become statics
 // and dynamic shared memory one buffer per block, which is sound because
-// only one block runs at a time. Warp collectives (__shfl_xor_sync, and the
-// m16n8k16 bf16 mma and ldmatrix of common.cuh) meet at a barrier of the
-// warp's 32 threads and trade values through the warp's exchange buffers;
+// only one block runs at a time. Warp collectives (__shfl_xor_sync, the
+// ballot, and the m16n8k16 bf16 mma and ldmatrix of common.cuh) meet at a
+// barrier of the warp's 32 threads and trade values through the warp's
+// exchange buffers;
 // the mma computes each lane's C elements from the fragments of all 32
 // lanes, and ldmatrix each lane's registers from the row addresses of all
 // 32, by the PTX ISA's layouts. It checks nothing that is particular to the card
@@ -75,6 +76,19 @@ inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
     std::memcpy(&r, &bits, sizeof(T));
     return r;
 }
+
+// __ballot_sync over the whole warp: bit l set where lane l's p holds.
+inline unsigned dora_emu_ballot(bool p) {
+    DoraEmuWarp* w = dora_emu_warp;
+    const unsigned k = dora_emu_turn ^= 1;
+    w->x[k][dora_emu_lane] = p ? 1u : 0u;
+    w->bar.arrive_and_wait();
+    unsigned m = 0;
+    for (unsigned l = 0; l < 32; ++l) m |= (unsigned)(w->x[k][l] & 1u) << l;
+    return m;
+}
+
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
 
 inline float dora_emu_bf16_half(uint32_t reg, int hi) {
     uint32_t u = hi ? (reg & 0xffff0000u) : (reg << 16);

@@ -16,31 +16,27 @@
 // rows at position..position+M-1).
 //
 // Shapes: head_dim 64 or 128 (a template parameter, HD: Qwen2-0.5B's 64,
-// the larger Qwen2 models' 128); any page size that is a multiple of the
-// 16-row sweep tile (16, 32, ...); any number of query and kv heads with
+// the larger Qwen2 models' 128); any page size that is a multiple of 16
+// (16, 32, ...); any number of query and kv heads with
 // whole groups (heads % kv_heads == 0); any number of candidate rows. The
 // per-block shared arrays do not grow with these: the per-row kernel walks
-// the q, k and v heads one at a time, decode_sweep takes the group's query
-// heads MAXG at a time (grid z), and the tensor-core sweep 16 packed query
-// rows a warp, up to MAXW warps a block (grid z).
+// the q, k and v heads one at a time, and the tensor-core sweep takes 16
+// packed query rows a warp, up to MAXW warps a block (grid z).
 //
 // The two layouts share every kernel below through a row-addressing template
 // parameter (PagedRows, DenseRows): where row `pos` of stream sb's kv head g
 // lives. A dense plane is not a pool of pages (KV sits between the stream and
 // the row), so it is addressed as itself, never through a made-up table.
-// Which sweep each kernel runs:
-// * the tensor-core sweep tc_sweep over keys split across the card, then
-//   sweep_combine: the paged prefill (kernel 4) and the dense batch-1 verify
-//   (kernel 10), one stream each; the paged spec verify (kernel 5), the
-//   dense batch decode (kernel 8) and the dense batch-1 decode (kernel 9),
-//   B streams in one launch, each block reading its stream's position on
-//   the device. Kernels 8 and 9 share one entry and run the same
-//   arithmetic for a row, so the dense engine and batch-1 decode keep
-//   agreeing token for token;
-// * decode_sweep, one block per (stream, kv head) walking its whole context:
-//   the paged batch decode (kernel 3). decode_step routes a decode onto
-//   tc_sweep when it is given partials, so moving it needs only its
-//   wrapper.
+// Every kernel runs one sweep: the tensor-core sweep tc_sweep over keys
+// split across the card, then sweep_combine. The paged prefill (kernel 4)
+// and the dense batch-1 verify (kernel 10) take one stream each; the paged
+// spec verify (kernel 5), the paged batch decode (kernel 3), the dense batch
+// decode (kernel 8) and the dense batch-1 decode (kernel 9) take B streams
+// in one launch, each block reading its stream's position on the device.
+// The three decode kernels share decode_step and run the same arithmetic for
+// a row in either layout, so the dense engine and batch-1 decode keep
+// agreeing token for token, and the paged decode rounds where its plain
+// version does.
 //
 // Per row: RMSNorm -> int8 qkv + bias -> NeoX RoPE (full-width rows
 // cos_full = [cos, cos], sin_signed = [-sin, sin]) -> K/V written at the
@@ -64,12 +60,10 @@
 // a per-row kernel that sums the splits, adds the bias, rotates q and k and
 // writes the row's K/V at its place (exactly the new rows: the TPU kernels'
 // 8-row read-modify-write is not repeated); the attention sweep; the wo
-// product and its epilogue. decode_sweep runs one block per (stream, kv
-// head, head tile) walking the context 16 rows at a time in f32 FMAs. The
-// tensor-core sweep (tc_sweep, below) runs one block per (key split, kv
-// head, stream and tile of its packed query rows), in two passes (the rows'
-// maxima, then the sums), and an eighth launch sums the splits (and, for a
-// decode, folds each row's own key).
+// product and its epilogue. The tensor-core sweep (tc_sweep, below) runs
+// one block per (key split, kv head, stream and tile of its packed query
+// rows), in two passes (the rows' maxima, then the sums), and an eighth
+// launch sums the splits (and, for a decode, folds each row's own key).
 //
 // Numerics kept from the reference:
 // * decode (paged and dense, batch and batch 1) sweeps the PRIOR context
@@ -82,12 +76,10 @@
 //   like decode but folds its m rows from bf16-rounded values, as its
 //   reference does (unlike decode);
 // * probabilities are rounded to bf16 before the P.V product, the softmax
-//   sums stay f32. Where they round: the tensor-core sweep (kernels 4, 5 and
-//   8-10) against each row's final maximum over all its keys (from -1e30;
-//   a decode row's over its prior context, as _decode_attend takes it),
-//   taken by a first pass before any probability is rounded, as the plain
-//   versions round; decode_sweep (kernel 3) against a running maximum,
-//   rescaled tile by tile;
+//   sums stay f32. Every sweep rounds them against each row's final maximum
+//   over all its keys (from -1e30; a decode row's over its prior context, as
+//   _decode_attend takes it), taken by a first pass before any probability
+//   is rounded, as the plain versions round;
 // * no sweep reads a cache row at or past the stream's position: those rows
 //   load as zeros (a dense plane's rows past the written ones may hold
 //   anything, NaN included).
@@ -103,18 +95,14 @@
 // fp form only, where they hold exactly those bf16 values).
 #include "common.cuh"
 
-constexpr int TILE = 16;      // context rows per decode_sweep step (divides the page)
-constexpr int MAXG = 8;       // query heads of one kv head per decode_sweep block
-
 // Where row `pos` of stream sb's kv head g lives, as a row index of the
-// cache's [rows, HD] view. Rows pos .. pos + TILE - 1 from a multiple of
-// TILE are consecutive in both layouts (inside one page; a stretch of the
-// plane).
+// cache's [rows, HD] view.
 
 // Paged pools [P, KV, page, HD]: page bt[sb * stride + pos / page]. Decode
 // and spec verify pass the [B, max_pages] table (stride max_pages), prefill
 // its one table row (stride 0, so any sb reads it).
 struct PagedRows {
+    static constexpr bool indirect = true;  // a row costs a block-table read
     const int* bt;
     int stride;
     int page;
@@ -126,6 +114,7 @@ struct PagedRows {
 // Dense caches [B, KV, S, HD]: stream sb's own plane (B = 1 for the batch-1
 // entries, whose caches are [KV, S, HD]).
 struct DenseRows {
+    static constexpr bool indirect = false;
     int S;
     __device__ __forceinline__ size_t row(int sb, int g, int pos, int KV) const {
         return ((size_t)sb * KV + g) * S + pos;
@@ -161,7 +150,7 @@ static __device__ __forceinline__ int8_t kv_quant(float v, float scale) {
 
 // Eight f32 values as bf16 in one 16-byte word (the tensor-core sweep's
 // own chunk rows), and eight int8 values times their row's scale as
-// bf16(q * scale), as kv_load dequantizes.
+// bf16(q * scale), as decode_block.kv_dequant dequantizes.
 static __device__ __forceinline__ uint4 bf16x8(const float* __restrict__ f) {
     const float4 a = *(const float4*)f, b = *(const float4*)(f + 4);
     uint4 r;
@@ -179,18 +168,6 @@ static __device__ __forceinline__ uint4 widen8(const int8_t* q, float sc) {
     r.z = pack_bf16((float)q[4] * sc, (float)q[5] * sc);
     r.w = pack_bf16((float)q[6] * sc, (float)q[7] * sc);
     return r;
-}
-
-// One pool value of row `row` = (page * KV + kv head) * page + in-page row,
-// in the compute dtype's values (bf16, widened to f32).
-template <bool Q8, int HD>
-static __device__ __forceinline__ float kv_load(const void* __restrict__ pool,
-                                                const float* __restrict__ scale,
-                                                size_t row, int e) {
-    if constexpr (Q8)
-        return bf16_round((float)((const int8_t*)pool)[row * HD + e] * scale[row]);
-    else
-        return __bfloat162float(((const bf16*)pool)[row * HD + e]);
 }
 
 template <bool Q8, class Rows, int HD>
@@ -240,104 +217,8 @@ qkv_rope_write(const float* __restrict__ P, int splits, int M,
     }
 }
 
-// decode_sweep (kernel 3): one block per (stream b, kv head g, tile
-// of up to MAXG of the group's query heads), thread d owns dimension d of
-// the tile's heads. Stream b sits at positions[b] (batch 1: pos0) and sweeps
-// its rows 0 .. pos - 1, TILE at a time, with an online softmax.
-template <bool Q8, class Rows, int HD>
-static __global__ void __launch_bounds__(HD)
-decode_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
-             const float* __restrict__ v_in, const void* __restrict__ k_pool,
-             const void* __restrict__ v_pool, const float* __restrict__ k_scale,
-             const float* __restrict__ v_scale, const int* __restrict__ positions,
-             int pos0, Rows rows, bf16* __restrict__ attn, int H, int KV, float scale) {
-    __shared__ float qs[MAXG][HD];
-    __shared__ float ks[TILE][HD + 1];
-    __shared__ float vs[TILE][HD];
-    __shared__ float sc[MAXG][TILE];
-    __shared__ float m_s[MAXG], l_s[MAXG], al_s[MAXG];
-    __shared__ float red[HD];
-    const int b = blockIdx.x, g = blockIdx.y, d = threadIdx.x;
-    const int G = H / KV, h0 = g * G + blockIdx.z * MAXG;
-    const int Gt = min(MAXG, G - (int)blockIdx.z * MAXG);  // this block's heads
-    const int pos = positions ? positions[b] : pos0;
-    float qf[MAXG], acc[MAXG];
-#pragma unroll
-    for (int h = 0; h < MAXG; ++h) {
-        qf[h] = 0.f;
-        acc[h] = 0.f;
-        if (h < Gt) {
-            qf[h] = q_in[((size_t)b * H + h0 + h) * HD + d];
-            qs[h][d] = bf16_round(qf[h]);
-        }
-    }
-    if (d < MAXG) {
-        m_s[d] = -INFINITY;
-        l_s[d] = 0.f;
-    }
-    __syncthreads();
-    const int nblocks = (pos + TILE - 1) / TILE;  // prior context, partial tile included
-    for (int blk = 0; blk < nblocks; ++blk) {
-        const size_t row0 = rows.row(b, g, blk * TILE, KV);
-        for (int j = 0; j < TILE; ++j) {  // rows >= pos are never read
-            const bool live = blk * TILE + j < pos;
-            ks[j][d] = live ? kv_load<Q8, HD>(k_pool, k_scale, row0 + j, d) : 0.f;
-            vs[j][d] = live ? kv_load<Q8, HD>(v_pool, v_scale, row0 + j, d) : 0.f;
-        }
-        __syncthreads();
-        for (int t = d; t < Gt * TILE; t += HD) {
-            int h = t / TILE, j = t % TILE;
-            float sacc = 0.f;
-            for (int e = 0; e < HD; ++e) sacc += qs[h][e] * ks[j][e];
-            sc[h][j] = (blk * TILE + j < pos) ? sacc * scale : -INFINITY;
-        }
-        __syncthreads();
-        if (d < Gt) {
-            float mo = m_s[d], mx = -INFINITY;
-            for (int j = 0; j < TILE; ++j) mx = fmaxf(mx, sc[d][j]);
-            float mn = fmaxf(mo, mx);
-            float al = expf(mo - mn);
-            float sum = 0.f;
-            for (int j = 0; j < TILE; ++j) {
-                float p = expf(sc[d][j] - mn);
-                sum += p;
-                sc[d][j] = bf16_round(p);
-            }
-            l_s[d] = l_s[d] * al + sum;
-            m_s[d] = mn;
-            al_s[d] = al;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int h = 0; h < MAXG; ++h) {
-            if (h < Gt) {
-                float pv = 0.f;
-                for (int j = 0; j < TILE; ++j) pv += sc[h][j] * vs[j][d];
-                acc[h] = acc[h] * al_s[h] + pv;
-            }
-        }
-        __syncthreads();
-    }
-    // Fold in the current position from f32 (the exact merge).
-    const float kc = k_in[((size_t)b * KV + g) * HD + d];
-    const float vc = v_in[((size_t)b * KV + g) * HD + d];
-#pragma unroll
-    for (int h = 0; h < MAXG; ++h) {
-        if (h < Gt) {  // Gt is the same for the whole block
-            float snew = block_sum<HD>(qf[h] * kc, red) * scale;
-            float mf = m_s[h], lf = l_s[h];
-            float m2 = fmaxf(mf, snew);
-            float al = expf(mf - m2);
-            float w = expf(snew - m2);
-            float l2 = lf * al + w;
-            attn[((size_t)b * H + h0 + h) * HD + d] =
-                __float2bfloat16((acc[h] * al + w * vc) / l2);
-        }
-    }
-}
-
 // ---------------------------------------------------------------------------
-// The tensor-core sweep of kernels 4, 5 and 8-10: the query rows of B
+// The tensor-core sweep of kernels 3-5 and 8-10: the query rows of B
 // streams against each stream's stretch of context
 // ---------------------------------------------------------------------------
 //
@@ -389,8 +270,8 @@ decode_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
 // rows are gathered row by row through the stream's table (a page of one kv
 // head is page x HD contiguous values), so a stream's rows may straddle
 // pages. The int8 form copies int8 rows and their scales into a staging
-// buffer and widens them in shared memory to bf16(q * scale), as kv_load
-// does.
+// buffer and widens them in shared memory to bf16(q * scale), as
+// decode_block.kv_dequant does.
 //
 // Why mma.sync and not wgmma + TMA: the dense verify does ~30 query rows of
 // work per K/V row read (~60 FLOP a byte, far under the card's ~295), the
@@ -505,10 +386,25 @@ tc_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
     const int t1 = min(min(ntiles, t0 + per), (maxlim + KT - 1) / KT);
 
     // Issue the copies of tile t into buffer `slot` (K only in the first pass).
+    // Through a block table the tile's cache rows are resolved first, one key
+    // a thread, so no copy waits on a table read (cp.async orders the reads
+    // around it); a dense plane's rows are arithmetic.
+    __shared__ size_t krow[Rows::indirect ? 2 : 1][KT];
+    auto cache_row = [&](int slot, int j, int key) -> size_t {
+        if constexpr (Rows::indirect) return krow[slot][j];
+        return key < maxlim && key < own0 ? rows.row(sb, g, key, KV) : 0;
+    };
     auto load = [&](int t, int slot) {
         const int key0 = t * KT;
         bf16* kd = sm.kb + slot * Sm::TILE_BF;
         bf16* vd = sm.vb + slot * Sm::TILE_BF;
+        if constexpr (Rows::indirect) {
+            for (int j = tid; j < KT; j += nthreads) {
+                const int key = key0 + j;
+                krow[slot][j] = key < maxlim && key < own0 ? rows.row(sb, g, key, KV) : 0;
+            }
+            __syncthreads();  // load is called uniformly over the block
+        }
         for (int idx = tid; idx < KT * CH; idx += nthreads) {
             const int j = idx / CH, c = idx % CH, key = key0 + j;
             const bool live = key < maxlim;
@@ -518,14 +414,14 @@ tc_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
                 if (!MAXPASS) *(uint4*)(vd + j * LD + c * 8) = bf16x8(v_in + off);
             } else if (Q8) {
                 if (c < HD / 16) {  // 16 int8 values a chunk
-                    const size_t row = live ? rows.row(sb, g, key, KV) : 0;
+                    const size_t row = cache_row(slot, j, key);
                     const size_t so = (size_t)(slot * KT + j) * HD + c * 16;
                     cp_async16(sm.k8 + so, (const int8_t*)k_pool + row * HD + c * 16, live);
                     if (!MAXPASS)
                         cp_async16(sm.v8 + so, (const int8_t*)v_pool + row * HD + c * 16, live);
                 }
             } else {
-                const size_t row = live ? rows.row(sb, g, key, KV) : 0;
+                const size_t row = cache_row(slot, j, key);
                 cp_async16(kd + j * LD + c * 8, (const bf16*)k_pool + row * HD + c * 8, live);
                 if (!MAXPASS)
                     cp_async16(vd + j * LD + c * 8, (const bf16*)v_pool + row * HD + c * 8, live);
@@ -535,7 +431,7 @@ tc_sweep(const float* __restrict__ q_in, const float* __restrict__ k_in,
             for (int j = tid; j < KT; j += nthreads) {
                 const int key = key0 + j;
                 const bool live = key < maxlim && key < own0;
-                const size_t row = live ? rows.row(sb, g, key, KV) : 0;
+                const size_t row = cache_row(slot, j, key);
                 sm.ks[slot * KT + j] = live ? k_scale[row] : 0.f;
                 if (!MAXPASS) sm.vs[slot * KT + j] = live ? v_scale[row] : 0.f;
             }
@@ -760,10 +656,6 @@ extern "C" int dora_gemm_splits(int M, int N, int K) {
     return gemm_splits(M, N, K);
 }
 
-static inline int group_tiles(int H, int KV) {
-    return (H / KV + MAXG - 1) / MAXG;
-}
-
 // Shared tail of every entry point: wo product, scale, residual.
 static void out_projection(const void* x, const void* wo, const void* swo,
                            void* out, int residual, int M, int D, int H, int hd,
@@ -805,14 +697,13 @@ static void project_and_write(const void* x, const void* norm_w, const void* wqk
     DORA_CHECK(err);
 }
 
-// Decode: B rows, row b of stream b at positions[b] (null: every row at
-// pos0, batch 1). With partials `part` the rows sweep their prior context on
+// Decode (kernels 3, 8 and 9): B rows, row b of stream b at positions[b]
+// (null: every row at pos0, batch 1). The rows sweep their prior context on
 // the tensor cores over split keys (one query row a stream: its G heads
-// pack into one warp's 16 rows), positions read on the device, and the
-// combine folds each row's own key from f32; the split count comes from B,
-// KV and `ctx`, the widest context a stream can have (the table's max_pages
-// x page, or S). Without, decode_sweep walks each (stream, kv head) in one
-// block.
+// pack into one warp's 16 rows) into the partials `part`, positions read on
+// the device, and the combine folds each row's own key from f32; the split
+// count comes from B, KV and `ctx`, the widest context a stream can have
+// (the table's max_pages x page, or S).
 template <bool Q8, class Rows, int HD>
 static int decode_step(const void* x, const void* norm_w, const void* wqkv,
                        const void* sqkv, const void* bqkv, const void* cosr,
@@ -826,19 +717,9 @@ static int decode_step(const void* x, const void* norm_w, const void* wqkv,
     project_and_write<Q8, Rows, HD>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool,
                                     v_pool, k_scale, v_scale, positions, pos0, 1, rows,
                                     B, D, H, KV, eps, h, p, q, kcur, vcur, stream, err);
-    if (part) {
-        launch_sweep<Q8, true, Rows, HD>(stream_shape(B, 1, H, KV, ctx), q, kcur, vcur, k_pool,
-                                         v_pool, k_scale, v_scale, rows, B, 1, positions,
-                                         pos0, 0, 0, H, KV, scale, attn, part, stream, err);
-    } else {
-        auto kern = decode_sweep<Q8, Rows, HD>;
-        DORA_LAUNCH(kern, dim3(B, KV, group_tiles(H, KV)), dim3(HD), stream,
-                    (const float*)q, (const float*)kcur, (const float*)vcur,
-                    (const void*)k_pool, (const void*)v_pool, (const float*)k_scale,
-                    (const float*)v_scale, (const int*)positions, pos0, rows,
-                    (bf16*)attn, H, KV, scale);
-        DORA_CHECK(err);
-    }
+    launch_sweep<Q8, true, Rows, HD>(stream_shape(B, 1, H, KV, ctx), q, kcur, vcur, k_pool,
+                                     v_pool, k_scale, v_scale, rows, B, 1, positions, pos0, 0,
+                                     0, H, KV, scale, attn, part, stream, err);
     out_projection(x, wo, swo, out, residual, B, D, H, HD, p, attn, stream, err);
     return err;
 }
@@ -957,7 +838,9 @@ static int spec_step(const void* x, const void* norm_w, const void* wqkv,
 // wo int8 [H*hd, D]; swo [D] f32; positions [B] int32; block_tables
 // [B, max_pages] int32. out [B, D] bf16 (residual) or f32.
 // Scratch: h bf16 [B, D]; p f32 (max of the two products' splits*M*N);
-// q f32 [B, H, hd]; kcur, vcur f32 [B, KV, hd]; attn bf16 [B, H*hd].
+// q f32 [B, H, hd]; kcur, vcur f32 [B, KV, hd]; attn bf16 [B, H*hd]; part
+// f32 [splits, B * H, hd + 2] for the sweep's partials, splits =
+// dora_batch_sweep_splits(B, 1, H, KV, max_pages * page).
 extern "C" int dora_attention_paged_batch_step(
     const void* x, const void* norm_w, const void* wqkv, const void* sqkv,
     const void* bqkv, const void* cosr, const void* sinr, void* k_pool,
@@ -965,13 +848,13 @@ extern "C" int dora_attention_paged_batch_step(
     const void* positions, const void* block_tables, void* out, int residual,
     int B, int D, int H, int KV, int hd, int page, int max_pages, float eps,
     float scale, void* h, void* p, void* q, void* kcur, void* vcur, void* attn,
-    void* stream) {
+    void* part, void* stream) {
     const PagedRows rows{(const int*)block_tables, max_pages, page};
     DORA_BY_HEAD_DIM(hd, (k_scale ? decode_step<true, PagedRows, HD>
                                   : decode_step<false, PagedRows, HD>)(
         x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool, k_scale, v_scale,
         wo, swo, positions, 0, rows, max_pages * page, out, residual, B, D, H, KV, eps, scale,
-        h, p, q, kcur, vcur, attn, nullptr, stream));
+        h, p, q, kcur, vcur, attn, part, stream));
 }
 
 // As above for M rows of one stream at positions position..position+M-1

@@ -343,7 +343,9 @@ def fused_step(params, cfg: Qwen2Config, tokens, caches, position: int, rope=Non
     cos_t, sin_t = rope if rope is not None else _rope(cfg, embed.device)
     w = tokens.shape[1]
     cos_rows, sin_rows = DB.rope_rows(cos_t, sin_t, position, w)
-    x = embed[tokens[0].long()].to(L.compute_dtype(embed.device))  # [W, dim]
+    # ids past the vocab (DORA_SPEC_WORST_CASE drafts) clamp, as JAX's gather does
+    ids = tokens[0].long().clamp(0, embed.shape[0] - 1)
+    x = embed[ids].to(L.compute_dtype(embed.device))  # [W, dim]
     return _vlm.fused_decode_pass(
         params, x, caches, position, cos_rows, sin_rows, heads=cfg.heads,
         kv_heads=cfg.kv_heads, head_dim=cfg.head_dim, layers=cfg.layers,

@@ -151,12 +151,16 @@ def run_loop(*, caches, history, hist_len, first, max_new_tokens: int, seq: int,
     ``body`` passes run per loop iteration (default :func:`body_passes`),
     and ``adaptive`` (default: ``DORA_SPEC_ADAPTIVE``, off) switches to
     single-token passes while the acceptance EMA is below
-    ADAPT_THRESHOLD. Returns (tokens [1, max_new_tokens] int32,
+    ADAPT_THRESHOLD. ``DORA_SPEC_WORST_CASE`` (any non-empty value, read
+    per call) drafts ``last + 1 + i`` in place of the lookup, as the JAX
+    loop does to measure the adversarial floor. Returns (tokens [1,
+    max_new_tokens] int32,
     model_passes); with ``return_stats`` also the number of full k + 1
     passes. Like the JAX loop's, ``model_passes`` starts at 1 and counts
     only passes that still owed tokens."""
     if adaptive is None:
         adaptive = os.environ.get("DORA_SPEC_ADAPTIVE", "0") not in ("", "0")
+    worst_case = bool(os.environ.get("DORA_SPEC_WORST_CASE"))
     ppb = body_passes() if body is None else max(1, body)
     dev = history.device
     hist = history.to("cpu", torch.int32).clone()
@@ -187,8 +191,11 @@ def run_loop(*, caches, history, hist_len, first, max_new_tokens: int, seq: int,
         for _ in range(ppb):
             last = out[n_emitted - 1]
             if not adaptive or ema >= f32(ADAPT_THRESHOLD):
-                draft = lookup(hist[None], torch.tensor([hist_len]), seq, k,
-                               ngram)[0].tolist()
+                if worst_case:
+                    draft = [last + 1 + i for i in range(k)]
+                else:
+                    draft = lookup(hist[None], torch.tensor([hist_len]), seq, k,
+                                   ngram)[0].tolist()
                 chunk = torch.tensor([[last, *draft]], dtype=torch.int32, device=dev)
                 greedy, caches = verify(chunk, n_emitted, caches)
                 greedy = greedy.reshape(-1).tolist()

@@ -278,8 +278,12 @@ def init_cache(cfg: VLMConfig, batch: int, dtype=None, device=None):
 
 
 def _embed(params, ids):
+    """Embedding rows of ``ids``; an id past the vocab takes the last row,
+    as the JAX package's gather clamps (``DORA_SPEC_WORST_CASE`` drafts
+    such ids, and only the discarded rows of a verify see them)."""
     embed = params["embed"]
-    return embed[ids.long().to(embed.device)].to(L.compute_dtype(embed.device))
+    ids = ids.long().to(embed.device).clamp(0, embed.shape[0] - 1)
+    return embed[ids].to(L.compute_dtype(embed.device))
 
 
 def prefill(params, cfg: VLMConfig, images, prompt_ids, rope=None):

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "paged_attention": {
         "dora_gemm_splits": [_I, _I, _I],
         "dora_attention_paged_batch_step":
-            [_P] * 16 + [_I] * 8 + [_F] * 2 + [_P] * 7,
+            [_P] * 16 + [_I] * 8 + [_F] * 2 + [_P] * 8,
         "dora_attention_paged_chunk_step":
             [_P] * 13 + [_I] + [_P] * 2 + [_I] * 7 + [_F] * 2 + [_P] * 8,
         "dora_attention_paged_spec_step":
@@ -475,7 +475,7 @@ def _scratch(rows: int, d: int, heads: int, kv_heads: int, head_dim: int, lib, d
 
 
 def _sweep_partials(splits: int, rows: int, heads: int, head_dim: int, dev):
-    """Scratch for the tensor-core sweep's context splits (kernels 4, 5 and
+    """Scratch for the tensor-core sweep's context splits (kernels 3-5 and
     8-10): each split's (m, l, acc) for the rows x heads query rows of all
     its streams, f32."""
     return torch.empty((splits * rows * heads * (head_dim + 2),), dtype=torch.float32,
@@ -552,6 +552,8 @@ def _attention_paged_batch_step_kernel(
     _int8_weight(wqkv, "wqkv", d, n_qkv, dev)
     _int8_weight(wo, "wo", heads * head_dim, d, dev)
     _need_pools(k_pool, v_pool, k_scale, v_scale, kv_heads, head_dim, dev)
+    _aligned16(k_pool, "k_pool")
+    _aligned16(v_pool, "v_pool")
     _need(positions, "positions", torch.int32, (b,), dev)
     _need(block_tables, "block_tables", torch.int32, (b, max_pages), dev)
     _need(cos_rows, "cos_rows", torch.float32, (b, head_dim), dev)
@@ -564,6 +566,9 @@ def _attention_paged_batch_step_kernel(
     so = _f32(swo, "swo", d, dev)
     lib = _lib("paged_attention", lib)
     h, p, q, kcur, vcur, attn = _scratch(b, d, heads, kv_heads, head_dim, lib, dev)
+    # the sweep's splits follow the table's width, never the positions
+    part = _sweep_partials(lib.dora_batch_sweep_splits(b, 1, heads, kv_heads, max_pages * page),
+                           b, heads, head_dim, dev)
     out = torch.empty((b, d), dtype=torch.bfloat16 if residual else torch.float32,
                       device=dev)
     rc = lib.dora_attention_paged_batch_step(
@@ -573,7 +578,7 @@ def _attention_paged_batch_step_kernel(
         so.data_ptr(), positions.data_ptr(), block_tables.data_ptr(),
         out.data_ptr(), int(residual), b, d, heads, kv_heads, head_dim, page,
         max_pages, eps, 1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(),
-        q.data_ptr(), kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(),
+        q.data_ptr(), kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), part.data_ptr(),
         _build.stream_of(x),
     )
     _count(attention_paged_batch_step, q8)

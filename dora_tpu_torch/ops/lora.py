@@ -12,10 +12,11 @@ and get an exactly zero delta.
 
 Two versions, as in ops/decode_block.py: :func:`lora_gather_matmul_plain`
 (plain PyTorch, f32 products; the CPU path and the card's oracle) and the
-hand-written CUDA kernel of ``csrc/lora.cu``, which
+hand-written CUDA kernel of ``csrc/lora.cu`` (rows grouped by adapter on
+the device, both products on the tensor cores, two launches), which
 :func:`lora_gather_matmul` launches for CUDA tensors (counted in its
-``launches``). Nothing falls back: a CUDA tensor the kernel does not take
-raises.
+``launches``, once a call). Nothing falls back: a CUDA tensor the kernel
+does not take raises.
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ from dora_tpu_torch.ops import _build
 
 _SIGNATURES = {
     "lora": {
-        "dora_lora_gather_matmul": [_build.P] * 4 + [_build.L] * 2 + [_build.P]
-        + [_build.I] * 4 + [_build.P],
+        "dora_lora_splits": [_build.I] * 4,
+        "dora_lora_gather_matmul": [_build.P] * 4 + [_build.L] * 2 + [_build.P] * 2
+        + [_build.I] * 5 + [_build.P],
     },
 }
 
@@ -106,9 +108,13 @@ def _lora_gather_matmul_kernel(x, groups, a_stack, b_stack, lib=None):
     y = torch.empty((rows, n), dtype=torch.bfloat16, device=dev)
     if rows == 0:
         return y
+    # the first product's D splits, each row's f32 t partials summed by the second
+    part = torch.empty((lib.dora_lora_splits(d, slots, rank, rows) * rows * rank,),
+                       dtype=torch.float32, device=dev)
     rc = lib.dora_lora_gather_matmul(
         x.data_ptr(), groups.data_ptr(), a_stack.data_ptr(), b_stack.data_ptr(),
-        a_slot, b_slot, y.data_ptr(), rows, d, rank, n, _build.stream_of(x),
+        a_slot, b_slot, y.data_ptr(), part.data_ptr(), rows, d, rank, n, slots,
+        _build.stream_of(x),
     )
     lora_gather_matmul.launches += 1
     _build.check(rc, "lora_gather_matmul")

@@ -262,3 +262,25 @@ def test_run_loop_matches_jax(models, body, adaptive):
     assert got == want
     assert got[1] < 16  # some pass emitted more than one token
     assert got[0] == tq.generate(tqparams, tcfg, torch.tensor([ids]), 16).tolist()
+
+
+@pytest.mark.parametrize("body", [1, 4])
+def test_run_loop_worst_case_matches_jax(models, monkeypatch, body):
+    """DORA_SPEC_WORST_CASE set: both loops draft last + 1 + i (ids past the
+    vocab clamp in both embeddings), so nearly every draft is rejected.
+    Tokens, model passes and full k + 1 passes equal the JAX loop's, traced
+    with the knob set (its pass count parts from the lookup's), and the
+    tokens are still ``generate``'s."""
+    from dora_tpu_torch.models.hf import qwen2 as tq
+
+    cfg, _, qparams, tcfg, _, tqparams = models
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, cfg.vocab, size=5).tolist() * 3
+    lookup = _spec_run("jax", qparams, cfg, ids, 16, body, False)
+    monkeypatch.setenv("DORA_SPEC_WORST_CASE", "1")
+    want = _spec_run("jax", qparams, cfg, ids, 16, body, False)
+    got = _spec_run("port", tqparams, tcfg, ids, 16, body, False)
+    assert got == want
+    assert want[1] > 16 // 2 and want[1] > lookup[1]  # drafts rejected
+    assert got[2] == got[1] - 1  # every counted pass is a full k + 1 pass
+    assert got[0] == tq.generate(tqparams, tcfg, torch.tensor([ids]), 16).tolist()

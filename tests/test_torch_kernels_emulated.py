@@ -8,19 +8,22 @@ decode and its verify) and flash attention. The attention kernels run at
 head_dim 128 and page 16, and again at the widened shapes: head_dim 64 at
 Qwen2-0.5B's 14 / 2 heads, page 32, Qwen2-7B's 28 / 4 heads (36 q + k + v
 heads), a group of 10 (two head tiles), and verify chunks of m x group =
-66 rows (two row tiles) and of 20 rows (two fold tiles); the LoRA kernel
-also at rank 256; flash attention at D 16, 40, 80 and 128, full and
-causal, T of 1 and off its tiles, transposed (strided) and unaligned
-inputs. The tensor-core sweeps of
-the prefill chunk, the dense verify, the paged spec verify and dense
-decode run on the emulated warp collectives (shuffles, the m16n8k16 mma,
-cp.async): the mma alone on one tile against torch.matmul, the dense
+66 rows (two row tiles) and of 20 rows (two fold tiles); the LoRA kernel,
+rows grouped by adapter with warp ballots and both products on the
+emulated mma, over one adapter, distinct adapters, all slot 0, no rows,
+ranks 1 to 256 and widths off 16; flash attention at D 16, 40, 80 and
+128, full and causal, T of 1 and off its tiles, transposed (strided) and
+unaligned inputs. The tensor-core sweeps of every attention kernel run on
+the emulated warp collectives (shuffles, the m16n8k16 mma, cp.async): the
+mma alone on one tile against torch.matmul, the dense
 verify over 3+ context splits with m x group of 20, 35 and 66 rows, the
 prefill at groups 6 and 7 (head_dim 128 and 64) from position 0 and from a
 later page, fp and int8 KV; the spec verify over 3+ splits of streams at
 different positions (page-straddling rows, a frozen stream, fp and int8
-KV, head_dim 64, 28 / 4 heads, page 32, m = 11), the dense batch decode
-over 3+ splits of planes from position 0 to S - 1 and batch-1 decode on the
+KV, head_dim 64, 28 / 4 heads, page 32, m = 11), the paged batch decode
+over 3+ splits of streams beside a frozen one and a live one at 0 (fp and
+int8 KV, head_dim 64, 28 / 4 heads, page 32), the dense batch decode over
+3+ splits of planes from position 0 to S - 1 and batch-1 decode on the
 same sweep. The
 tensor-core int8 product of mlp_step and lm_head_argmax (ldmatrix of the
 int8 bytes, widened in registers, the mma) runs in every band: one tile
@@ -45,9 +48,8 @@ versions run there too.
 
 Tolerances: the largest error at most 1e-2 of the output's largest
 magnitude, the bf16 rounding of the kernels' bf16 intermediates and outputs
-(kernel 3 rounds softmax weights against the running max, the plain
-version against the final max); argmax tokens exact; untouched pool rows
-and scale entries exact. int8 rows the kernels write: every byte within one
+(the LoRA kernel's t also as hi + lo bf16); argmax tokens exact; untouched
+pool rows and scale entries exact. int8 rows the kernels write: every byte within one
 step (1 LSB) of the plain version's, whose f32 K/V differ from the kernel's
 by summation order only, the share of differing bytes printed; their scales
 within 1e-5 relative. LoRA rows of slot 0 exactly zero. The int8 product
@@ -125,6 +127,9 @@ def _run_job(job):
     if name == "mlp_splits":  # the K splits of mlp_step's gate/up and down products
         lib = _build.library("mlp", _SIGNATURES["mlp"], compiler="host")
         return tuple(lib.dora_mlp_splits(*args, which) for which in (0, 1))
+    if name == "lora_splits":  # the D splits of the LoRA kernel's first product
+        lib = _build.library("lora", _SIGNATURES["lora"], compiler="host")
+        return lib.dora_lora_splits(*args)
     if name == "int8_matmul_splits":  # the K splits kernel 7 takes (1: fused epilogue)
         lib = _build.library("int8_matmul", _SIGNATURES["int8_matmul"], compiler="host")
         return lib.dora_int8_matmul_splits(*args)
@@ -655,34 +660,76 @@ def test_paged_spec_int8kv_kernel_matches_plain(emu):
 # ---------------------------------------------------------------------------
 
 
-def _lora_case(rng, rows, d=96, rank=12, slots=5, layers=3, layer=1):
+def _lora_case(rng, rows, d=96, rank=12, slots=5, layers=3, layer=1, ids="mixed"):
     """A [slots, layers, ...] resident stack (slot 0 zero) and one layer's
-    strided slice of it, as the fused pass hands it over; ids mixed, with
-    slot-0 rows and repeats."""
+    strided slice of it, as the fused pass hands it over. ids "mixed":
+    random, with slot-0 rows and repeats; "one": every row on the last
+    slot; "distinct": row i on slot i + 1 (slots = rows + 1); "base": every
+    row on slot 0."""
+    if ids == "distinct":
+        slots = rows + 1
     a = _t(rng.standard_normal((slots, layers, d, rank)) * 0.3, BF)
     b = _t(rng.standard_normal((slots, layers, rank, d)) * 0.3, BF)
     a[0] = 0
     b[0] = 0
-    groups = torch.from_numpy(rng.integers(0, slots, size=rows).astype(np.int32))
-    groups[:2] = torch.tensor([0, 3], dtype=torch.int32)
+    if ids == "mixed":
+        groups = rng.integers(0, slots, size=rows).astype(np.int32)
+        groups[:2] = [0, 3][:rows]
+    elif ids == "one":
+        groups = np.full(rows, slots - 1, np.int32)
+    elif ids == "distinct":
+        groups = rng.permutation(rows).astype(np.int32) + 1
+    else:
+        groups = np.zeros(rows, np.int32)
     x = _t(rng.standard_normal((rows, d)), BF)
-    return x, groups, a[:, layer], b[:, layer]
+    return x, torch.from_numpy(groups), a[:, layer], b[:, layer]
 
 
-@pytest.mark.parametrize("rows", (7, 33))
+#: (rows, width, rank, ids) -> D splits: the two mixed batches of 7 and 33
+#: rows first (their test ids unchanged); 80 rows on one adapter (two
+#: 64-row windows of the slot's rows) over 96-deep splits (two mma stages
+#: each) and a last one 28 deep; every row its own adapter over 23 splits;
+#: every row on slot 0; no rows; ranks 1, 24 (16-byte rows, padded to 32;
+#: a last split 8 deep) and 256 over 70 rows; widths 100 (rows of x and B
+#: copied element by element, D and N off the 64-column tiles) and 88
+#: (16-byte rows)
+LORA_CASES = {
+    "7": ((7, 96, 12, "mixed"), 3),
+    "33": ((33, 96, 12, "mixed"), 3),
+    "one_adapter_80_rows": ((80, 700, 12, "one"), 8),
+    "distinct_adapters": ((9, 1100, 12, "distinct"), 23),
+    "all_base": ((12, 96, 12, "base"), 3),
+    "no_rows": ((0, 96, 12, "mixed"), 3),
+    "rank1": ((7, 96, 1, "mixed"), 3),
+    "rank24": ((21, 1000, 24, "mixed"), 32),
+    "rank256_70_rows": ((70, 96, 256, "mixed"), 3),
+    "width100": ((19, 100, 12, "mixed"), 4),
+    "width88_one_adapter": ((40, 88, 16, "one"), 3),
+}
+
+
+@pytest.mark.parametrize("rows", sorted(LORA_CASES))
 def test_lora_kernel_matches_plain(emu, rows):
-    rng = np.random.default_rng(rows)
-    x, groups, a, b = _lora_case(rng, rows)
+    """The grouped tensor-core kernel against the plain version (1e-2 of the
+    largest magnitude: bf16 of f32 sums taken in another order, t fed as hi
+    + lo bf16); every slot-0 row exactly zero, with the D splits the case
+    takes asserted."""
+    (n, d, rank, ids), splits = LORA_CASES[rows]
+    rng = np.random.default_rng(n + d + rank)
+    x, groups, a, b = _lora_case(rng, n, d=d, rank=rank, ids=ids)
+    assert emu.call("lora_splits", d, a.shape[0], rank, n) == splits
     want = LO.lora_gather_matmul_plain(x, groups, a, b)
     got = emu.call("lora_gather_matmul", x, groups, a, b)
-    assert got.dtype == BF and got.shape == want.shape
-    assert _rel(got, want) <= 1e-2
+    assert got.dtype == BF and got.shape == want.shape == (n, d)
+    if n:
+        assert _rel(got, want) <= 1e-2
     base = groups == 0
-    assert bool(base.any()) and not got[base].float().any()
+    assert bool(base.any()) == (ids in ("mixed", "base") and n > 0)
+    assert not got[base].float().any()
 
 
 def test_lora_kernel_matches_plain_at_rank_256(emu):
-    """The largest rank the kernel takes: one thread per column of t."""
+    """The largest rank the kernel takes: 16 column groups of t a block."""
     rng = np.random.default_rng(256)
     x, groups, a, b = _lora_case(rng, 9, rank=256)
     want = LO.lora_gather_matmul_plain(x, groups, a, b)
@@ -1113,6 +1160,81 @@ def test_spec_kernel_streams_split_the_context(emu, case):
     assert torch.equal(v2[~written], vp[~written])
 
 
+#: case -> (heads, kv_heads, head_dim, page, int8 KV): kernel 3 at the group
+#: of 6 at head_dim 128, Qwen2-0.5B's 7 at 64, Qwen2-7B's 28 / 4 heads and
+#: page 32, fp and int8 KV
+SPLIT_PAGED_BATCH = {
+    "group6_hd128": (12, 2, 128, 16, False),
+    "group6_hd128_int8kv": (12, 2, 128, 16, True),
+    "group7_hd64": (14, 2, 64, 16, False),
+    "group7_hd64_int8kv": (14, 2, 64, 16, True),
+    "qwen2_7b_28_4": (28, 4, 128, 16, False),
+    "page32": (4, 2, 128, 32, False),
+    "page32_int8kv": (4, 2, 128, 32, True),
+}
+#: six streams over tables of LONG_SEQ rows: 30 and 157 mid-page (their
+#: context straddles pages and fills a few tiles, leaving later splits
+#: empty), a frozen stream (position 0, zeroed table row), a live stream at
+#: position 0 (its own page, no context: its row attends itself), the
+#: table's last row and 77
+SPLIT_PAGED_BATCH_POSITIONS = (30, 0, 0, 157, LONG_SEQ - 1, 77)
+SPLIT_PAGED_BATCH_FROZEN = 1
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_PAGED_BATCH))
+def test_paged_batch_kernel_streams_split_the_context(emu, case):
+    """Kernel 3 on the multi-stream sweep, keys split 3+ ways: outputs finite
+    and within tolerance of the plain version, written rows within tolerance
+    (int8: 1 LSB), every other row and scale of pages 1.. unchanged; the
+    frozen stream never reads null page 0, which the frozen and live rows
+    race to write."""
+    h, kv, hd, page, int8kv = SPLIT_PAGED_BATCH[case]
+    positions = torch.tensor(SPLIT_PAGED_BATCH_POSITIONS, dtype=torch.int32)
+    b, maxp = positions.shape[0], LONG_SEQ // page
+    assert emu.call("batch_sweep_splits", b, 1, h, kv, LONG_SEQ) >= 3
+    rng = np.random.default_rng(140 + h + hd + page + int8kv)
+    wqkv, wo, bqkv, nw, cos_t, sin_t = _attn_setup(rng, h=h, kv=kv, hd=hd, seq=LONG_SEQ)
+    bt = torch.zeros((b, maxp), dtype=torch.int32)
+    for i in range(b):
+        if i != SPLIT_PAGED_BATCH_FROZEN:
+            bt[i] = 1 + i * maxp + torch.arange(maxp, dtype=torch.int32)
+    n_pool = 1 + b * maxp
+    shape = (n_pool, kv, page, hd)
+    written = torch.zeros(shape[:3], dtype=torch.bool)
+    for i, p in enumerate(positions.tolist()):
+        written[bt[i, p // page], :, p % page] = True
+    written[0] = True
+    x = _t(rng.standard_normal((b, 64)), BF)
+    cr, sr = DB.rope_rows_at(cos_t, sin_t, positions)
+    head = (x, nw, wqkv["int8"], wqkv["scale"], bqkv, cr, sr)
+    tail = (wo["int8"], wo["scale"], positions, bt)
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd)
+    if int8kv:
+        pools = _int8_pools(rng, shape)
+        want, *pw = DB.attention_paged_batch_step_plain(
+            *head, pools[0].clone(), pools[1].clone(), *tail, pools[2].clone(),
+            pools[3].clone(), **kw)
+        got, *pg = emu.call("attention_paged_batch_step", *head, pools[0].clone(),
+                            pools[1].clone(), *tail, pools[2].clone(), pools[3].clone(),
+                            eps=1e-6, residual=True, **kw)
+        assert bool(torch.isfinite(got.float()).all())
+        assert _rel(got, want) <= 1e-2
+        _check_int8_writes(pg, pw, pools, written, f"batch int8 KV over splits, {case}")
+        return
+    kp = _t(rng.standard_normal(shape) * 0.5, BF)
+    vp = _t(rng.standard_normal(shape) * 0.5, BF)
+    kp[0] = vp[0] = float("nan")  # a frozen stream that read null page 0 would turn NaN
+    want, k1, v1 = DB.attention_paged_batch_step_plain(*head, kp.clone(), vp.clone(), *tail,
+                                                       **kw)
+    got, k2, v2 = emu.call("attention_paged_batch_step", *head, kp.clone(), vp.clone(), *tail,
+                           eps=1e-6, residual=True, **kw)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel(got, want) <= 1e-2
+    assert _rel(k2[1:], k1[1:]) <= 1e-2 and _rel(v2[1:], v1[1:]) <= 1e-2
+    assert torch.equal(k2[~written], kp[~written])
+    assert torch.equal(v2[~written], vp[~written])
+
+
 #: case -> (heads, kv_heads, head_dim)
 SPLIT_BATCH = {
     "group2_hd128": (4, 2, 128),
@@ -1152,7 +1274,7 @@ def test_dense_batch_kernel_streams_split_the_context(emu, case, residual):
 
 
 @pytest.mark.parametrize("kernel", ("attention_paged_spec_step", "attention_batch_step",
-                                    "attention_step"))
+                                    "attention_step", "attention_paged_batch_step"))
 def test_sweep_wrappers_refuse_unaligned_caches(kernel):
     """The tensor-core sweep copies K/V rows 16 bytes at a time (cp.async):
     a pool or cache that does not start on a 16-byte boundary is refused
@@ -1163,6 +1285,12 @@ def test_sweep_wrappers_refuse_unaligned_caches(kernel):
     def unaligned(shape):
         return torch.zeros(int(np.prod(shape)) + 1, dtype=BF)[1:].view(shape)
 
+    if kernel == "attention_paged_batch_step":
+        head, (wo, swo, pos, bt), shape, _ = _batch_case(rng)
+        with pytest.raises(ValueError, match="k_pool: .* 16-byte aligned"):
+            DB._attention_paged_batch_step_kernel(*head, unaligned(shape), unaligned(shape), wo,
+                                                  swo, pos, bt, **kw)
+        return
     if kernel == "attention_paged_spec_step":
         head, (wo, swo, pos, bt), shape, _ = _spec_case(rng)
         with pytest.raises(ValueError, match="k_pool: .* 16-byte aligned"):

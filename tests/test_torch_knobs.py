@@ -3,8 +3,9 @@ knobs reach the engine with the JAX package's meaning, and the int4 knobs,
 whose path is not ported, raise instead of serving int8. ``DORA_PAGED_KV=0``
 builds the dense engine, ``DORA_INT8_PURE`` drops the bf16 sidecars,
 ``DORA_FUSED_DECODE=0`` sends decode down the unfused blocks (and the dense
-engine refuses it), and ``DORA_SPEC_BODY`` / ``DORA_SPEC_ADAPTIVE`` reach
-``run_loop``, each with the JAX package's meaning."""
+engine refuses it), and ``DORA_SPEC_BODY`` / ``DORA_SPEC_ADAPTIVE`` /
+``DORA_SPEC_WORST_CASE`` reach ``run_loop``, each with the JAX package's
+meaning."""
 
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ def clean_env(monkeypatch):
               "DORA_LORA_MAX_RESIDENT", "DORA_LORA_RANK", "DORA_PAGED_KV", "DORA_SPEC_K",
               "DORA_PREFIX_CACHE", "DORA_MULTISTEP_K", "DORA_BATCH_SLOTS", "DORA_PAGE_SIZE",
               "DORA_PREFILL_CHUNK", "DORA_PREFIX_CACHE_PAGES", "DORA_INT8_PURE",
-              "DORA_FUSED_DECODE", "DORA_SPEC_BODY", "DORA_SPEC_ADAPTIVE"):
+              "DORA_FUSED_DECODE", "DORA_SPEC_BODY", "DORA_SPEC_ADAPTIVE",
+              "DORA_SPEC_WORST_CASE"):
         monkeypatch.delenv(k, raising=False)
     return monkeypatch
 
@@ -152,8 +154,8 @@ def test_fused_decode_0_takes_the_unfused_path(clean_env, monkeypatch):
 
 
 def _spec_calls(**env):
-    """run_loop over a verify that never agrees with a draft (greedy =
-    chunk + 1): the widths of its verify calls and its pass counts."""
+    """run_loop over a verify that never agrees with a lookup draft (greedy
+    = chunk + 1): the widths of its verify calls and its pass counts."""
     from dora_tpu_torch.models import spec_decode as SD
 
     widths = []
@@ -190,3 +192,17 @@ def test_spec_body_and_adaptive_reach_run_loop(clean_env):
     assert SD.fitting_body_passes(10, 30, 64) == 4 and SD.fitting_body_passes(10, 40, 64) == 2
     with pytest.raises(ValueError, match="speculation headroom"):
         SD.check_headroom(40, 20, 64, "prompt")
+
+
+@pytest.mark.parametrize("value", ["1", "0", "yes"])
+def test_spec_worst_case_replaces_the_lookup(clean_env, value):
+    """DORA_SPEC_WORST_CASE, any non-empty value as in the JAX loop (even
+    "0"), drafts last + 1 + i in place of the n-gram lookup. Over the
+    verify whose greedy is chunk + 1 that run is exactly what it
+    continues: one pass of 4 accepted drafts and a bonus token emits all 5,
+    where the lookup's drafts take 5 passes. An empty value is off."""
+    assert _spec_calls() == ([5] * 8, 6, 5)
+    clean_env.setenv("DORA_SPEC_WORST_CASE", value)
+    assert _spec_calls() == ([5] * 4, 2, 1)
+    clean_env.setenv("DORA_SPEC_WORST_CASE", "")
+    assert _spec_calls() == ([5] * 8, 6, 5)

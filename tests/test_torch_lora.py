@@ -2,9 +2,11 @@
 
 * ``lora_gather_matmul_plain`` against the JAX package's eager oracle
   ``lora_gather_matmul_ref`` in f32, within 1e-5 relative plus 1e-6 of the
-  largest magnitude (two products summed in another order); slot-0 rows
-  exactly zero. (The Pallas kernel itself is not the oracle: it differs
-  from ``lora_gather_matmul_ref`` bit for bit, tests/test_lora.py:54.)
+  largest magnitude (two products summed in another order), also on the
+  shapes the grouped kernel takes apart (one adapter, distinct adapters,
+  all slot 0, ranks 1 / 12 / 256, width 100); slot-0 rows exactly zero.
+  (The Pallas kernel itself is not the oracle: it differs from
+  ``lora_gather_matmul_ref`` bit for bit, tests/test_lora.py:54.)
 * ``AdapterPool`` against the JAX pool on identical operation sequences:
   slots, refcounts, LRU eviction, loads, evictions, stats and the stack's
   contents;
@@ -55,6 +57,50 @@ def test_plain_matches_the_eager_oracle_and_base_rows_are_zero():
     sliced = LO.lora_gather_matmul(torch.from_numpy(x), torch.from_numpy(groups),
                                    a4[:, 0], b4[:, 0])
     assert torch.equal(sliced, got)
+
+
+#: (rows, width, rank, slots, ids): the shapes the grouped kernel takes apart
+#: (tests/test_torch_kernels_emulated.py): one adapter for every row, every
+#: row its own adapter, every row on slot 0, ranks 1, 12 and 256, a width
+#: off 16 (the oracle takes no empty batch: no rows is held to the plain
+#: version there)
+GROUPED = {
+    "one_adapter": (80, 96, 12, 5, "one"),
+    "distinct": (9, 96, 12, 10, "distinct"),
+    "all_base": (12, 96, 12, 5, "base"),
+    "rank1": (7, 96, 1, 5, "mixed"),
+    "rank12": (33, 96, 12, 5, "mixed"),
+    "rank256": (70, 96, 256, 5, "mixed"),
+    "width100": (19, 100, 12, 5, "mixed"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUPED))
+def test_plain_matches_the_eager_oracle_on_grouped_shapes(case):
+    """The port's twin against ``lora_gather_matmul_ref`` on inputs made from
+    one numpy seed, in f32, within 1e-5 relative plus 1e-6 of the largest
+    magnitude (two products summed in another order); slot-0 rows exactly
+    zero."""
+    from dora_tpu.ops.lora import lora_gather_matmul_ref
+
+    rows, dim, rank, slots, ids = GROUPED[case]
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(rows, dim)).astype(np.float32)
+    a = (rng.normal(size=(slots, dim, rank)) * 0.3).astype(np.float32)
+    b = (rng.normal(size=(slots, rank, dim)) * 0.3).astype(np.float32)
+    a[0] = 0.0
+    b[0] = 0.0
+    groups = {"one": np.full(rows, slots - 1), "distinct": rng.permutation(rows) + 1,
+              "base": np.zeros(rows), "mixed": rng.integers(0, slots, size=rows)}[ids]
+    groups = groups.astype(np.int32)
+    want = np.asarray(lora_gather_matmul_ref(jnp.asarray(x), jnp.asarray(groups),
+                                             jnp.asarray(a), jnp.asarray(b)))
+    got = LO.lora_gather_matmul(torch.from_numpy(x), torch.from_numpy(groups),
+                                torch.from_numpy(a), torch.from_numpy(b))
+    assert got.shape == want.shape == (rows, dim)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-6 * float(np.abs(want).max()))
+    assert not got[torch.from_numpy(groups) == 0].any()
 
 
 # ---------------------------------------------------------------------------
