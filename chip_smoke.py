@@ -129,8 +129,25 @@ phase 3, ``--breakdown`` runs only kernel 6's lines and the ``breakdown``,
 ``sublayer`` and ``fidelity`` lines and ``--paths`` only phases 4, 6, 9
 and 10 and the VLM's ``generate`` (prefill chunk, window, spec-on window,
 dense step and its short prompts' TTFT, batch-1 prefill, ``run_loop``
-pass, VLM step and ViT times), all without the result line; either runs
-as well on a parent tree with this script copied beside it.
+pass, VLM step and ViT times; the windows and the dense step graphed and
+eager), all without the result line.
+
+Phases 4, 6, 8 and 9 build their engines through the normal factories,
+so each decode window (the dense step) is one CUDA-graph replay, and each
+then serves its requests again on a ``graphs=False`` engine: every graphed
+stream must equal its eager stream token for token, or the run fails
+naming the phase, the stream and the token. The wrappers count a graph's
+launches once per replay, so launch counts are those that ran. Each of
+those phases also prints a ``graph`` line (captures at warmup, and after
+three new prompt lengths and a set_window round trip K 8 -> 4 -> 8; the
+run fails if the count grew) and a ``paths`` line (window, prefill chunk
+and TTFT times, graphed against eager); phases 4, 6 and 9 ``trace`` lines
+(one window, or dense step, with every slot decoding, graphed and eager:
+wall ms, the kernels' summed device ms from ``torch.profiler``, the device
+busy share as the union of kernel intervals over the wall, and the launch
+count); phase 4 the ``device plane`` line (the engine's host dispatch /
+device compute / fetch split, useful over dispatched FLOPs,
+``DeviceMonitor.memory()`` and the MFU its peak implies).
 
 It prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -310,6 +327,193 @@ def _check_streams(out: dict, max_new: int, vocab: int) -> None:
             raise Failed(f"request {i} finished with {len(toks)} of {max_new} tokens")
         if not all(0 <= t < vocab for t in toks):
             raise Failed(f"request {i} emitted a token outside the vocab")
+
+
+#: the ``trace`` lines' window: every slot decodes a prompt of TRACE_PROMPT
+#: tokens toward TRACE_MAX_NEW new ones
+TRACE_PROMPT = 64
+TRACE_MAX_NEW = 400
+
+
+def _same_streams(what: str, graphed: dict, eager: dict, n: int) -> None:
+    """Each graphed stream equals its graphs=False stream over the first n
+    tokens; the first difference fails the run, naming the stream and the
+    token index."""
+    for i in sorted(eager):
+        t = _first_parting(graphed[i], eager[i], n)
+        if t < n:
+            raise Failed(f"{what}: graphed stream {i} differs from its graphs=False stream at "
+                         f"token {t} ({graphed[i][t]} against {eager[i][t]})")
+    print(f"{what}: all {len(eager)} graphed streams equal their graphs=False streams token "
+          f"for token ({n} tokens each)", flush=True)
+
+
+def _timed(torch, engine) -> dict:
+    """Host times, each ending in a sync, of every decode window (the dense
+    engine's step) and every prefill chunk the engine runs from now on."""
+    times = {"window": [], "chunk": []}
+
+    def timing(fn, key):
+        def run(*a):
+            if key == "chunk":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*a)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t)
+            return res
+        return run
+
+    if hasattr(engine, "window_step"):
+        engine.window_step = timing(engine.window_step, "window")
+        engine.chunk_prefill = timing(engine.chunk_prefill, "chunk")
+    else:
+        engine.runner = timing(engine.runner, "window")
+    return times
+
+
+def _ms(xs) -> str:
+    if not xs:
+        return "none"
+    return f"mean {1e3 * sum(xs) / len(xs):.3f} median {1e3 * sorted(xs)[len(xs) // 2]:.3f}"
+
+
+def path_line(what: str, graphed: dict, eager: dict, ttft_g, ttft_e) -> None:
+    """The ``paths`` line: a phase's window (or step), prefill chunk and
+    TTFT times, graphed against graphs=False, from one call."""
+    tg, te = sorted(ttft_g), sorted(ttft_e)
+    print(f"paths {what}: window ms graphed {_ms(graphed['window'])}, eager "
+          f"{_ms(eager['window'])}; prefill chunk ms graphed {_ms(graphed['chunk'])}, eager "
+          f"{_ms(eager['chunk'])}; TTFT p50 s graphed {tg[len(tg) // 2]:.4f}, eager "
+          f"{te[len(te) // 2]:.4f}", flush=True)
+
+
+def graph_check(engine, serve_prompts, vocab: int, seed: int, what: str) -> None:
+    """The ``graph`` line of a graphed engine after its phase's run: the
+    captures at warmup (that run, plus one short run at K = 4 on a paged
+    engine), then after serving three new prompt lengths and a set_window
+    round trip K 8 -> 4 -> 8 (used keys), with each runner's replays and
+    launches per replay. Fails unless the second count equals the first."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    paged = hasattr(engine, "set_window")
+
+    def run(lengths):
+        serve_prompts(engine, [rng.integers(0, vocab, size=n).tolist() for n in lengths], 16)
+
+    if paged:
+        k = engine.window
+        engine.set_window(4)
+        run((40, 300))
+        engine.set_window(k)
+    warm = engine.graph_captures
+    run((33, 129, 517))
+    if paged:
+        engine.set_window(4)
+        run((71,))
+        engine.set_window(k)
+        run((250,))
+    after = engine.graph_captures
+    runners = engine._window_cache if paged else {"step": engine._runner}
+    per = "; ".join(f"{key}: {r.replays} replays, per replay {json.dumps(r.launches)}"
+                    for key, r in runners.items())
+    print(f"graph {what}: captures {warm} at warmup, {after} after 3 new prompt lengths"
+          + (" and a set_window round trip" if paged else "") + f"; {per}", flush=True)
+    if after != warm:
+        raise Failed(f"graph {what}: {after - warm} capture(s) after warmup")
+
+
+def _union_us(spans) -> float:
+    """The length of the union of sorted (start, end) intervals."""
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+def trace_window(torch, engine, vocab: int, seed: int, what: str, traces: int = 3) -> None:
+    """The ``trace`` line of one decode window (the dense engine's step)
+    with every slot decoding: ``traces`` consecutive windows, each traced
+    alone with ``torch.profiler`` (CUDA activity), then one untraced. The
+    profiler now and then drops kernel records, so the line gives the traced
+    window that saw the most launches: its wall ms (and the untraced one's),
+    its kernels' summed device ms, the device busy share (the union of
+    kernel intervals over the wall) and the launch count, with every traced
+    window's count beside it."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(seed)
+    for i in range(engine.max_slots):
+        engine.submit(f"trace{i}", rng.integers(0, vocab, size=TRACE_PROMPT).tolist(),
+                      TRACE_MAX_NEW)
+    while getattr(engine, "prefilling", 0):
+        engine.step()
+    engine.step()  # the membership settles
+    seen = []
+    for _ in range(traces):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            engine.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and not e.name.startswith(("Memcpy", "Memset")))
+        seen.append((len(spans), wall, spans))
+    t = time.perf_counter()
+    engine.step()
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t
+    if engine.active != engine.max_slots:
+        raise Failed(f"trace {what}: a traced stream finished during the trace")
+    n, wall, spans = max(seen, key=lambda x: x[0])
+    head = (f"trace {what}: wall {1e3 * wall:.3f} ms traced ({1e3 * untraced:.3f} ms the "
+            f"next, untraced)")
+    if not spans:
+        print(f"{head}; device time not measured (the profiler saw no kernel)", flush=True)
+        return
+    busy = _union_us(spans)
+    # The profiler adds its own host time to every launch of the traced
+    # window, so the busy share is given over both walls.
+    print(f"{head}; device {sum(e - s for s, e in spans) / 1e3:.3f} ms in {n} kernel launches "
+          f"(traced windows saw {[x[0] for x in seen]}); busy share {busy / (wall * 1e6):.3f} "
+          f"of the traced wall, {busy / (untraced * 1e6):.3f} of the untraced one "
+          f"({busy / 1e3:.3f} ms of kernel intervals' union)", flush=True)
+
+
+def device_plane_line(engine, wall: float, n_tok: int) -> None:
+    """The ``device plane`` line of a paged engine after a run of ``wall``
+    seconds that emitted ``n_tok`` tokens: the engine's time split and FLOPs
+    ledger, ``DeviceMonitor.memory()`` and the MFU that
+    ``device_peak_flops`` implies."""
+    from dora_tpu_torch.profiling import DeviceMonitor
+
+    d, u, peak = engine.dispatched_flops, engine.useful_flops, engine.device_peak_flops
+    if not (engine.device_monitor and d and engine.device_compute_ns):
+        raise Failed("the device plane recorded nothing on the monitored engine")
+    if peak:
+        source = ("the H100 SXM data sheet's dense bf16" if peak == 989e12
+                  else "DORA_DEVICE_PEAK_FLOPS")
+        mfu = (f"MFU {u / wall / peak:.4%} over the run's wall, "
+               f"{u / (engine.device_compute_ns / 1e9) / peak:.4%} over device_compute_ns, at a "
+               f"peak of {peak:.4g} FLOP/s ({source})")
+    else:
+        mfu = "MFU not measured (no peak known for this card)"
+    print(f"device plane: a run of {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} "
+          f"tokens/s, no timing wrapper); host_dispatch_ns {engine.host_dispatch_ns}, "
+          f"device_compute_ns "
+          f"{engine.device_compute_ns}, device_fetch_ns {engine.device_fetch_ns}; useful_flops "
+          f"{u} / dispatched_flops {d} = {u / d:.4f}; memory "
+          f"{json.dumps(DeviceMonitor('cuda').memory())}; {mfu}", flush=True)
 
 
 def check_kernels(torch, DB, qwen2, params, cfg, rng_seed: int) -> list[dict]:
@@ -828,37 +1032,31 @@ def check_lora_kernel(torch, LO, cfg, rng_seed: int) -> dict:
     return entry
 
 
-def serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, max_new):
-    """Phase 4: the engine serves every prompt through the kernels."""
-    engine = qwen2.make_paged_engine(params, cfg, max_slots=16, page_size=16,
-                                     chunk=256, window=8, spec_k=0, prefix_cache=False,
-                                     device="cuda")
+def serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, max_new,
+                seed: int):
+    """Phase 4: the engine serves every prompt through the kernels, each
+    window one CUDA-graph replay; then its graph, device plane, graphs=False
+    reference, paths and trace lines."""
+
+    def build(graphs=None):
+        return qwen2.make_paged_engine(params, cfg, max_slots=16, page_size=16, chunk=256,
+                                       window=8, spec_k=0, prefix_cache=False, device="cuda",
+                                       graphs=graphs)
+
+    engine = build()
+    if not engine.graphs:
+        raise Failed("phase 4's engine runs its windows eagerly")
     need = sum(engine.pages_needed(len(p), max_new) for p in prompts)
     usable = engine.allocator.num_pages - 1
     print(f"slice: {len(prompts)} requests need {need} pages of {usable} usable", flush=True)
     if need <= usable:
         raise Failed("the prompts fit the pool at once; the run would not wait for pages")
 
-    window_s, chunk_s = [], []
     steps = [0]
     admitted_at = {}
-    inner_window, inner_submit, inner_step = engine.window_step, engine.submit, engine.step
-    inner_chunk = engine.chunk_prefill
-
-    def timed_window(*a):
-        t = time.perf_counter()
-        res = inner_window(*a)
-        torch.cuda.synchronize()
-        window_s.append(time.perf_counter() - t)
-        return res
-
-    def timed_chunk(*a):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = inner_chunk(*a)
-        torch.cuda.synchronize()
-        chunk_s.append(time.perf_counter() - t)
-        return res
+    inner_window, inner_chunk = engine.window_step, engine.chunk_prefill
+    times = _timed(torch, engine)
+    inner_submit, inner_step = engine.submit, engine.step
 
     def counted_submit(rid, ids, n, **kw):
         admitted_at[int(rid)] = steps[0]
@@ -868,8 +1066,7 @@ def serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, max_n
         steps[0] += 1
         return inner_step()
 
-    engine.window_step, engine.submit, engine.step = timed_window, counted_submit, counted_step
-    engine.chunk_prefill = timed_chunk
+    engine.submit, engine.step = counted_submit, counted_step
 
     plain_calls = _PlainCalls(DB, LO)
     _reset_launches(DB, LO)
@@ -882,6 +1079,9 @@ def serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, max_n
         wall = time.perf_counter() - t0
         launches = _launches(DB, LO)
         plain_calls.restore()
+    engine.submit, engine.step = inner_submit, inner_step
+    engine.window_step, engine.chunk_prefill = inner_window, inner_chunk
+    times = {k: list(v) for k, v in times.items()}  # the served run's alone
     print(f"slice launches: {json.dumps(launches)}; plain calls {plain_calls.n}", flush=True)
     _check_streams(out, max_new, cfg.vocab)
     if plain_calls.n:
@@ -895,6 +1095,7 @@ def serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, max_n
     if max(admitted_at.values()) == 0:
         raise Failed("no request waited for pages")
     engine.check_invariants()
+    window_s, chunk_s = times["window"], times["chunk"]
     n_tok = sum(len(t) for t in out.values())
     decode_tokens = n_tok - len(prompts)
     ttfts = sorted(ttft.values())
@@ -907,6 +1108,28 @@ def serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, max_n
           f"{1e3 * sorted(chunk_s)[len(chunk_s) // 2]:.2f} ms); "
           f"{sum(1 for s in admitted_at.values() if s > 0)} request(s) waited for pages",
           flush=True)
+    # The device plane from a second run of the same requests on this
+    # engine with no timing wrapper: the wrappers' syncs would land in its
+    # dispatch time.
+    for name in ("host_dispatch_ns", "device_compute_ns", "device_fetch_ns",
+                 "dispatched_flops", "useful_flops"):
+        setattr(engine, name, 0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    again, _ = serve_prompts(engine, prompts, max_new)
+    torch.cuda.synchronize()
+    _same_streams("slice, served again on the same graphs", out, again, max_new)
+    device_plane_line(engine, time.perf_counter() - t, n_tok)
+    graph_check(engine, serve_prompts, cfg.vocab, seed, "slice")
+
+    ref = build(graphs=False)
+    ref_times = _timed(torch, ref)
+    ref_out, ref_ttft = serve_prompts(ref, prompts, max_new)
+    _same_streams("slice", out, ref_out, max_new)
+    path_line("slice (phase 4, K = 8, spec off)", times, ref_times, ttft.values(),
+              ref_ttft.values())
+    trace_window(torch, engine, cfg.vocab, seed + 1, "spec-off window (K = 8), graphed")
+    trace_window(torch, ref, cfg.vocab, seed + 1, "spec-off window (K = 8), eager")
     return out, launches
 
 
@@ -933,10 +1156,11 @@ class _Paths:
             setattr(mod, n, getattr(mod, n + "_plain") if plain else fn)
 
     def engine(self):
-        """The spec-off, cache-off engine of phase 4."""
+        """The spec-off, cache-off engine of phase 4, eager: the plain and f32
+        paths swap the wrappers a captured graph would not call again."""
         return self.qwen2.make_paged_engine(self.params, self.cfg, max_slots=16, page_size=16,
                                             chunk=256, window=8, spec_k=0, prefix_cache=False,
-                                            device="cuda")
+                                            device="cuda", graphs=False)
 
     def run(self, fn, mode: str):
         """``fn()`` on the ``mode`` path: "kernel", "plain" (the plain
@@ -1095,20 +1319,25 @@ def _env(**env):
                 os.environ[k] = v
 
 
-def front_door(make_engine, params, cfg, **env):
+def front_door(make_engine, params, cfg, graphs=None, **env):
     """``llm_server.make_engine`` on the card with only ``env`` of the
-    front-door knobs set, the caller's environment restored after."""
+    front-door knobs set, the caller's environment restored after; its
+    windows (or dense step) CUDA graphs unless ``graphs`` is False."""
     with _env(**{**dict.fromkeys(FRONT_DOOR_KNOBS), **env}):
-        return make_engine(params, cfg, device="cuda")
+        return make_engine(params, cfg, device="cuda", graphs=graphs)
 
 
 def serve_spec_cache(torch, DB, LO, vlm, make_engine, serve_prompts, params, cfg, seed: int,
                      max_new: int):
-    """Phase 6: speculation and the prefix cache at full width and depth.
-    Returns (prompts, {request index: tokens}, launches)."""
+    """Phase 6: speculation and the prefix cache at full width and depth,
+    each window one CUDA-graph replay; then its graph, graphs=False
+    reference, paths and trace lines. Returns (prompts, {request index:
+    tokens}, launches)."""
     import numpy as np
 
     engine = front_door(make_engine, params, cfg, DORA_SPEC_K=str(SPEC_K))
+    if not engine.graphs:
+        raise Failed("phase 6's engine runs its windows eagerly")
     got = (engine.spec_k, engine.window, engine.max_slots, engine.page_size, engine.chunk,
            engine.allocator.num_pages, engine.prefix_cache is not None)
     if got != (SPEC_K, 8, 16, 16, 256, 512, True):
@@ -1126,16 +1355,14 @@ def serve_spec_cache(torch, DB, LO, vlm, make_engine, serve_prompts, params, cfg
           f"{cold} pages cold, {shared} sharing the 512-token prefix, of "
           f"{engine.allocator.num_pages - 1} usable", flush=True)
 
-    window_s = []
     per_pass = [0, 0]  # tokens emitted, verification passes of live streams
+    times = _timed(torch, engine)
+    window_s = times["window"]
     inner = engine.window_step
 
     def watched_window(*a):
-        live = torch.nonzero(a[4]).flatten().tolist()
-        t = time.perf_counter()
+        live = torch.nonzero(a[4]).flatten().tolist()  # before the window moves it
         res = inner(*a)
-        torch.cuda.synchronize()
-        window_s.append(time.perf_counter() - t)
         mat = res[0].cpu().numpy()
         for b in live:
             n_emit, frozen = vlm.spec_window_row_stats(mat[b], engine.window, engine.spec_k + 1)
@@ -1143,12 +1370,10 @@ def serve_spec_cache(torch, DB, LO, vlm, make_engine, serve_prompts, params, cfg
             per_pass[1] += engine.window if frozen is None else frozen + 1
         return res
 
-    engine.window_step = watched_window
-    plain_calls = _PlainCalls(DB, LO)
-    _reset_launches(DB, LO)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
+    def drive(engine):
+        """Request 0 alone to its first token, then the other 15 beside it:
+        {request index: tokens} and each request's TTFT from its submit."""
+        t0 = time.perf_counter()
         engine.submit("first", prompts[0], max_new)
         first: list[int] = []
         while not first:
@@ -1157,11 +1382,20 @@ def serve_spec_cache(torch, DB, LO, vlm, make_engine, serve_prompts, params, cfg
         ttft0 = time.perf_counter() - t0
         out, ttft = serve_prompts(engine, prompts[1:], max_new, others={"first": first})
         torch.cuda.synchronize()
+        return {0: first, **{i + 1: toks for i, toks in out.items()}}, [ttft0, *ttft.values()]
+
+    engine.window_step = watched_window
+    plain_calls = _PlainCalls(DB, LO)
+    _reset_launches(DB, LO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        served, ttfts = drive(engine)
     finally:
         wall = time.perf_counter() - t0
         launches = _launches(DB, LO)
         plain_calls.restore()
-    served = {0: first, **{i + 1: toks for i, toks in out.items()}}
+    times = {k: list(v) for k, v in times.items()}  # the served run's alone
     pc = engine.prefix_cache
     print(f"spec phase launches: {json.dumps(launches)}; plain calls {plain_calls.n}; "
           f"prefix cache {json.dumps(pc.stats())}", flush=True)
@@ -1178,7 +1412,7 @@ def serve_spec_cache(torch, DB, LO, vlm, make_engine, serve_prompts, params, cfg
         raise Failed(f"{engine.chunks_run} prefill chunks ran, {cold_chunks} cold")
     engine.check_invariants()
     n_tok = sum(len(t) for t in served.values())
-    ttfts = sorted([ttft0, *ttft.values()])  # each from its own submit
+    ttft0, ttfts = ttfts[0], sorted(ttfts)  # each from its own submit
     print(f"spec phase: {n_tok} tokens in {wall:.3f} s; decode "
           f"{(n_tok - len(prompts)) / sum(window_s):.1f} tokens/s over {len(window_s)} windows "
           f"(K=8, spec_k={SPEC_K}, window mean {1e3 * sum(window_s) / len(window_s):.2f} ms, "
@@ -1187,6 +1421,16 @@ def serve_spec_cache(torch, DB, LO, vlm, make_engine, serve_prompts, params, cfg
           f"{ttfts[len(ttfts) // 2]:.3f} s max {ttfts[-1]:.3f} s (request 0 {ttft0:.3f} s); "
           f"{engine.chunks_run} prefill chunks ({cold_chunks} cold); {pc.hits} hits, "
           f"{pc.hit_tokens} hit tokens; end-to-end {n_tok / wall:.1f} tokens/s", flush=True)
+    graph_check(engine, serve_prompts, cfg.vocab, seed + 1, "spec phase")
+
+    ref = front_door(make_engine, params, cfg, graphs=False, DORA_SPEC_K=str(SPEC_K))
+    ref_times = _timed(torch, ref)
+    ref_served, ref_ttfts = drive(ref)
+    _same_streams("spec phase", served, ref_served, max_new)
+    path_line("spec phase (phase 6, K = 8, spec_k = 4)", times, ref_times, ttfts, ref_ttfts)
+    trace_window(torch, engine, cfg.vocab, seed + 2, "spec-on window (K = 8, spec_k = 4), "
+                 "graphed")
+    trace_window(torch, ref, cfg.vocab, seed + 2, "spec-on window (K = 8, spec_k = 4), eager")
     return prompts, served, launches
 
 
@@ -1230,11 +1474,13 @@ def serve_multi_tenant(torch, DB, LO, make_engine, serve_prompts, params, cfg,
     launches)."""
     import numpy as np
 
-    def build(**env):
-        return front_door(make_engine, params, cfg, DORA_KV_INT8="1", DORA_LORA_DIR=lora_dir,
-                          **env)
+    def build(graphs=None, **env):
+        return front_door(make_engine, params, cfg, graphs=graphs, DORA_KV_INT8="1",
+                          DORA_LORA_DIR=lora_dir, **env)
 
     engine = build()
+    if not engine.graphs:
+        raise Failed("phase 8's engine runs its windows eagerly")
     got = (engine.kv_dtype, engine.spec_k, engine.window, engine.max_slots, engine.page_size,
            engine.chunk, engine.allocator.num_pages, engine.prefix_cache is not None,
            engine.lora.max_resident, tuple(engine.lora.state()["a"].shape))
@@ -1254,24 +1500,12 @@ def serve_multi_tenant(torch, DB, LO, make_engine, serve_prompts, params, cfg,
           f"{engine.allocator.num_pages - 1} usable int8 pages (the fp pool holds 511)",
           flush=True)
 
-    window_s = []
-    inner = engine.window_step
-
-    def timed_window(*a):
-        t = time.perf_counter()
-        res = inner(*a)
-        torch.cuda.synchronize()
-        window_s.append(time.perf_counter() - t)
-        return res
-
-    engine.window_step = timed_window
-    plain_calls = _PlainCalls(DB, LO)
-    _reset_launches(DB, LO)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    served = {i: [] for i in firsts}
-    ttft = {}
-    try:
+    def drive(engine):
+        """The first request of each group to its first token, then the
+        other 11 beside them: {request index: tokens} and TTFTs."""
+        t0 = time.perf_counter()
+        served = {i: [] for i in firsts}
+        ttft = {}
         for i in firsts:
             engine.submit(f"first{i}", prompts[i], max_new, adapter=TENANT_GROUPS[i])
         while not all(served.values()):
@@ -1285,13 +1519,24 @@ def serve_multi_tenant(torch, DB, LO, make_engine, serve_prompts, params, cfg,
                                        others={f"first{i}": served[i] for i in firsts},
                                        adapters=[TENANT_GROUPS[i] for i in rest])
         torch.cuda.synchronize()
+        for j, i in enumerate(rest):
+            served[i] = out[j]
+            ttft[i] = t1 - t0 + ttft_rest[j]
+        return served, ttft
+
+    times = _timed(torch, engine)
+    window_s = times["window"]
+    plain_calls = _PlainCalls(DB, LO)
+    _reset_launches(DB, LO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        served, ttft = drive(engine)
     finally:
         wall = time.perf_counter() - t0
         launches = _launches(DB, LO)
         plain_calls.restore()
-    for j, i in enumerate(rest):
-        served[i] = out[j]
-        ttft[i] = t1 - t0 + ttft_rest[j]
+    times = {k: list(v) for k, v in times.items()}  # the served run's alone
     pc, pool = engine.prefix_cache, engine.lora
     print(f"tenant phase launches: {json.dumps(launches)}; plain calls {plain_calls.n}; "
           f"prefix cache {json.dumps(pc.stats())}; adapters {json.dumps(pool.stats())}",
@@ -1322,6 +1567,14 @@ def serve_multi_tenant(torch, DB, LO, make_engine, serve_prompts, params, cfg,
           f"{engine.allocator.num_pages - 1} int8 (the fp pool holds 511); adapter loads "
           f"{pool.loads}, resident {pool.resident}, evictions {pool.evictions}; end-to-end "
           f"{n_tok / wall:.1f} tokens/s", flush=True)
+    graph_check(engine, serve_prompts, cfg.vocab, seed + 1, "tenant phase")
+
+    ref = build(graphs=False)
+    ref_times = _timed(torch, ref)
+    ref_served, ref_ttft = drive(ref)
+    _same_streams("tenant phase", served, ref_served, max_new)
+    path_line("tenant phase (phase 8, K = 8, int8 KV, LoRA)", times, ref_times, ttft.values(),
+              ref_ttft.values())
     return build, prompts, served, launches
 
 
@@ -1332,7 +1585,13 @@ def check_tenant_agreement(paths, build, nocat, serve_prompts, prompts, max_new,
     engine with no catalog, where the two tenants' prompts run as base
     requests too, for the share of tokens the adapters change; (c) t0's and
     the base's first requests through the plain versions on the card part
-    from the served streams, if at all, only at a near-tie."""
+    from the served streams, if at all, only at a near-tie. The engines of
+    (a) and (b) are graphed; those that read logits or run the plain versions
+    are not."""
+
+    def eager():
+        return build(graphs=False)
+
     first = {g: TENANT_GROUPS.index(g) for g in ("t0", "t3", None)}
     for g in ("t0", "t3"):
         i = first[g]
@@ -1343,7 +1602,7 @@ def check_tenant_agreement(paths, build, nocat, serve_prompts, prompts, max_new,
               + (" (identical)" if same == max_new else ""), flush=True)
         if same < max_new:
             paths.check(f"tenant agreement (a): request {i}",
-                        paths.after(prompts[i] + served[i][:same], build, g),
+                        paths.after(prompts[i] + served[i][:same], eager, g),
                         (served[i][same], alone[0][same]), rms=False)
     i = first[None]
     base, _ = serve_prompts(nocat(), [prompts[i], prompts[first["t0"]], prompts[first["t3"]]],
@@ -1354,7 +1613,7 @@ def check_tenant_agreement(paths, build, nocat, serve_prompts, prompts, max_new,
           flush=True)
     if same < max_new:
         paths.check(f"tenant agreement (b): request {i}",
-                    paths.after(prompts[i] + served[i][:same], build),
+                    paths.after(prompts[i] + served[i][:same], eager),
                     (served[i][same], base[0][same]), rms=False)
     differ = sum(a != b for j, g in ((1, "t0"), (2, "t3"))
                  for a, b in zip(served[first[g]], base[j]))
@@ -1366,7 +1625,7 @@ def check_tenant_agreement(paths, build, nocat, serve_prompts, prompts, max_new,
     picks = (first["t0"], first[None])
     try:
         paths.use(plain=True)
-        plain, _ = serve_prompts(build(), [prompts[i] for i in picks], max_new,
+        plain, _ = serve_prompts(eager(), [prompts[i] for i in picks], max_new,
                                  adapters=[TENANT_GROUPS[i] for i in picks])
     finally:
         paths.use(plain=False)
@@ -1376,7 +1635,7 @@ def check_tenant_agreement(paths, build, nocat, serve_prompts, prompts, max_new,
               f"int8 plain versions: first {same} of {max_new} tokens equal", flush=True)
         if same < max_new:
             paths.check(f"tenant agreement (c): request {i}",
-                        paths.after(prompts[i] + served[i][:same], build, TENANT_GROUPS[i]),
+                        paths.after(prompts[i] + served[i][:same], eager, TENANT_GROUPS[i]),
                         (served[i][same], plain[j][same]), SPEC_REF_TIE)
 
 
@@ -1645,12 +1904,16 @@ DENSE_KERNELS = ("int8_matmul", "attention_batch_step", "mlp_step", "lm_head_arg
 
 
 def serve_dense(torch, DB, LO, IM, make_engine, serve_prompts, params, cfg, prompts,
-                max_new):
+                max_new, seed: int):
     """Phase 9: the dense batch engine as ``make_engine`` builds it with
-    ``DORA_PAGED_KV=0``, serving every prompt through ``serve_prompts``."""
+    ``DORA_PAGED_KV=0``, serving every prompt through ``serve_prompts``, each
+    step one CUDA-graph replay; then its graph, graphs=False reference, paths
+    and trace lines."""
     from collections import Counter
 
     engine = front_door(make_engine, params, cfg, DORA_PAGED_KV="0")
+    if not engine.graphs:
+        raise Failed("phase 9's engine runs its steps eagerly")
     got = (type(engine).__name__, engine.max_slots, engine.max_seq)
     if got != ("BatchEngine", 4, cfg.max_seq):
         raise Failed(f"make_engine with DORA_PAGED_KV=0 built (kind, slots, max_seq) = {got}")
@@ -1658,18 +1921,12 @@ def serve_dense(torch, DB, LO, IM, make_engine, serve_prompts, params, cfg, prom
           f"{max(map(len, prompts))} tokens, {max_new} new tokens each, on "
           f"{engine.max_slots} dense slots", flush=True)
 
-    step_s = []
-    inner_step, inner_submit = engine.batch_step, engine.submit
+    times = _timed(torch, engine)
+    step_s = times["window"]
+    inner_submit = engine.submit
     joined = [0]  # submits while other streams were decoding
     products = Counter()  # (rows, N) of every int8_matmul launch
     kernel = IM._int8_matmul_kernel
-
-    def timed_step(*a):
-        t = time.perf_counter()
-        res = inner_step(*a)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t)
-        return res
 
     def counted_submit(rid, ids, n):
         joined[0] += engine.active > 0
@@ -1679,7 +1936,7 @@ def serve_dense(torch, DB, LO, IM, make_engine, serve_prompts, params, cfg, prom
         products[(x.numel() // x.shape[-1], q.shape[1])] += 1
         return kernel(x, q, s, **k)
 
-    engine.batch_step, engine.submit = timed_step, counted_submit
+    engine.submit = counted_submit
     plain_calls = _PlainCalls(DB, LO)
     _reset_launches(DB, LO)
     IM._int8_matmul_kernel = watched
@@ -1693,6 +1950,8 @@ def serve_dense(torch, DB, LO, IM, make_engine, serve_prompts, params, cfg, prom
         IM._int8_matmul_kernel = kernel
         launches = _launches(DB, LO)
         plain_calls.restore()
+    engine.submit = inner_submit
+    times = {k: list(v) for k, v in times.items()}  # the served run's alone
     print(f"dense phase launches: {json.dumps(launches)}; plain calls {plain_calls.n}; "
           f"int8_matmul (rows, N): {json.dumps({f'{r}x{n}': c for (r, n), c in sorted(products.items())})}",
           flush=True)
@@ -1729,6 +1988,16 @@ def serve_dense(torch, DB, LO, IM, make_engine, serve_prompts, params, cfg, prom
           f"<= 32-token prompts (their prefill in int8_matmul): "
           f"{', '.join(f'{len(prompts[i])} tokens {ttft[i]:.4f} s' for i in sorted(ttft) if len(prompts[i]) <= 32)}",
           flush=True)
+    graph_check(engine, serve_prompts, cfg.vocab, seed, "dense phase")
+
+    ref = front_door(make_engine, params, cfg, graphs=False, DORA_PAGED_KV="0")
+    ref_times = _timed(torch, ref)
+    ref_out, ref_ttft = serve_prompts(ref, prompts, max_new)
+    _same_streams("dense phase", out, ref_out, max_new)
+    path_line("dense phase (phase 9, 4 slots; window = one step)", times, ref_times,
+              ttft.values(), ref_ttft.values())
+    trace_window(torch, engine, cfg.vocab, seed + 1, "dense step (4 slots), graphed")
+    trace_window(torch, ref, cfg.vocab, seed + 1, "dense step (4 slots), eager")
     return out, launches
 
 
@@ -3082,11 +3351,12 @@ def main(argv=None) -> int:
             sweep_fidelity(torch, DB, params, cfg, prompts, args.seed + 14)
             return 0
         if args.paths:  # phases 4, 6, 9 and 10 and the VLM's generate alone: the paths' times
-            serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, args.max_new)
+            serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, args.max_new,
+                        args.seed + 20)
             serve_spec_cache(torch, DB, LO, vlm, make_engine, serve_prompts, params, cfg,
                              args.seed + 2, args.max_new)
             d_served, _ = serve_dense(torch, DB, LO, IM, make_engine, serve_prompts, params,
-                                      cfg, d_prompts, args.max_new)
+                                      cfg, d_prompts, args.max_new, args.seed + 22)
             batch1(torch, DB, LO, qwen2, spec_decode, L,
                    _Paths(torch, DB, LO, IM, qwen2, L, serve_prompts, params, cfg), params,
                    cfg, d_prompts, args.max_new, d_served)
@@ -3111,7 +3381,7 @@ def main(argv=None) -> int:
         by_name = {k["name"]: k for k in kernels}
 
         served, launches = serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg,
-                                       prompts, args.max_new)
+                                       prompts, args.max_new, args.seed + 20)
         for n in SPEC_OFF_KERNELS:
             by_name[n]["launches"] = launches[n]
 
@@ -3145,7 +3415,8 @@ def main(argv=None) -> int:
                 "attention_paged_spec_step_int8kv"]
 
         d_served, d_launches = serve_dense(torch, DB, LO, IM, make_engine, serve_prompts,
-                                           params, cfg, d_prompts, args.max_new)
+                                           params, cfg, d_prompts, args.max_new,
+                                           args.seed + 22)
         for n in ("int8_matmul", "attention_batch_step"):
             by_name[n]["launches"] = d_launches[n]
         g_launches, s_launches = batch1(torch, DB, LO, qwen2, spec_decode, L, paths, params,

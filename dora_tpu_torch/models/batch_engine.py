@@ -11,6 +11,23 @@ power-of-two bucket) into a free slot and returns its first token at once;
 so new requests join mid-flight. Idle slots ride along pinned at position
 0. Its tracer and serving-metrics hooks stay None (not ported yet).
 
+Both engines run their decode dispatch through models/vlm.GraphedWindow:
+with ``graphs`` (None, the default, means on for a CUDA device; True on the
+CPU raises) each window (one per (K, spec_k)) and the dense step is ONE
+CUDA-graph replay over the engine's static buffers, which the engine
+therefore updates in place and never rebinds; ``graph_captures`` counts the
+captures, the counterpart of the reference's compile guard. With
+``graphs=False`` (always on the CPU) the same runner runs the body eagerly
+over the same buffers. The prefill (the paged chunk, the dense submit) is
+eager either way.
+
+The device plane (dora_tpu_torch/profiling.py) is the JAX paged engine's:
+with ``DORA_DEVICE_MONITOR`` on (the default) each window's and each
+chunk's wall time splits into host dispatch / device compute / fetch (a
+CUDA event recorded after the dispatch and synchronized before the
+device-to-host read), and the FLOPs ledger counts dispatched and useful
+(emitted) work from the factories' ``flops_per_token``.
+
 ``PagedBatchEngine``: the same scheduling (one prefill chunk for
 the stream at the head of the line, then one K-tick decode window per
 :meth:`PagedBatchEngine.step`), the same page grants, the null page 0, the
@@ -28,12 +45,14 @@ tracer/metrics hooks.
 
 from __future__ import annotations
 
+import time
 from collections import Counter, deque
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from dora_tpu_torch import profiling
 from dora_tpu_torch._device import resolve_device
 from dora_tpu_torch.models.prefix_cache import PrefixCache
 
@@ -45,6 +64,56 @@ class _Slot:
     max_new: int
 
 
+class _DevicePlane:
+    """The device-plane counters both engines keep (the JAX paged engine's
+    attributes, dora_tpu/models/batch_engine.py), fed by their step path."""
+
+    def _init_device_plane(self, device) -> None:
+        #: device utilization plane (dora_tpu_torch.profiling): when the
+        #: monitor is on, the step path splits each dispatch's wall time
+        #: into host dispatch / device compute / device fetch and keeps an
+        #: analytic FLOPs ledger
+        self.device_monitor = profiling.monitor_enabled()
+        self.host_dispatch_ns = 0
+        self.device_compute_ns = 0
+        self.device_fetch_ns = 0
+        #: FLOPs dispatched (every active row x K x (spec_k+1)) vs useful
+        #: (emitted tokens only): the gap is frozen rows plus speculation's
+        #: rejected tails
+        self.dispatched_flops = 0
+        self.useful_flops = 0
+        #: analytic per-token forward FLOPs (0 = model unknown: the ledger
+        #: stays zero) and the device's peak FLOP/s for MFU's denominator;
+        #: set by the engine factories
+        self.flops_per_token = 0
+        self.device_peak_flops = 0.0
+        self._done = torch.cuda.Event() if device.type == "cuda" else None
+
+    def _fetch(self, t_dispatch: float | None, fetch):
+        """``fetch()``, the device-to-host read of what was dispatched
+        since ``t_dispatch`` (None: dispatch time counted already). With the
+        monitor on, the wall time splits at an event recorded after the
+        dispatch and synchronized (never the whole device; the CPU computed
+        it already) into host dispatch, device compute and fetch."""
+        if not self.device_monitor:
+            return fetch()
+        t_fetch = time.perf_counter()
+        if t_dispatch is not None:
+            self.host_dispatch_ns += _ns(t_fetch - t_dispatch)
+        if self._done is not None:
+            self._done.record()
+            self._done.synchronize()
+        t_ready = time.perf_counter()
+        self.device_compute_ns += _ns(t_ready - t_fetch)
+        out = fetch()
+        self.device_fetch_ns += _ns(time.perf_counter() - t_ready)
+        return out
+
+
+def _ns(seconds: float) -> int:
+    return int(seconds * 1e9)
+
+
 def _bucket(n: int, cap: int) -> int:
     """Smallest power of two >= n (min 8), capped at the cache length."""
     b = 8
@@ -53,15 +122,21 @@ def _bucket(n: int, cap: int) -> int:
     return min(b, cap)
 
 
-class BatchEngine:
+class BatchEngine(_DevicePlane):
     """Dense continuous batching over the family's closures:
     ``init_caches(n)`` -> the [n, ...] cache tree; ``prefill(ids [1, TB],
     true_len)`` -> (first [1] int32, one-slot caches, position);
     ``batch_step(tokens [B], caches, positions [B])`` -> (greedy [B],
-    caches) (models/hf/qwen2.make_batch_engine)."""
+    caches) (models/hf/qwen2.make_batch_engine). A step is one call of the
+    engine's runner (models/vlm.GraphedWindow, a CUDA graph with
+    ``graphs``): ``batch_step``, then tokens and the live slots' positions
+    advance in place."""
 
     def __init__(self, *, init_caches, prefill, batch_step, max_slots: int = 4,
-                 max_seq: int, eos: int | None = None, device=None):
+                 max_seq: int, eos: int | None = None, device=None,
+                 graphs: bool | None = None):
+        from dora_tpu_torch.models.vlm import GraphedWindow, use_graphs
+
         self.device = resolve_device(device)
         self.max_slots = max_slots
         self.max_seq = max_seq
@@ -72,10 +147,17 @@ class BatchEngine:
         self.tokens = torch.zeros((max_slots,), dtype=torch.int32, device=self.device)
         self.positions = torch.zeros((max_slots,), dtype=torch.int32, device=self.device)
         self.slots: list[_Slot | None] = [None] * max_slots
-        # Active-slot mask, rebuilt only when slot membership changes.
+        # Active-slot mask, rewritten in place only when slot membership
+        # changes (the step's graph reads these buffers).
         self._mask = torch.zeros((max_slots,), dtype=torch.bool, device=self.device)
-        self._imask = self._mask.to(torch.int32)
+        self._imask = torch.zeros((max_slots,), dtype=torch.int32, device=self.device)
         self._members_dirty = True
+        self.graphs = use_graphs(graphs, self.device)
+        #: what a step calls (a caller may wrap it); ``_runner`` stays the
+        #: runner itself
+        self.runner = self._runner = GraphedWindow(self._step_body, carry=(0, 1, 2),
+                                                   graph=self.graphs)
+        self._init_device_plane(self.device)
         #: device passes launched / device-to-host token fetches (the paged
         #: engine's fields, so a server reads either engine alike)
         self.dispatches = 0
@@ -130,13 +212,17 @@ class BatchEngine:
             )
         b = self.slots.index(None)
         tb = _bucket(len(ids), self.max_seq)
+        t0 = time.perf_counter()
         padded = torch.tensor([ids + [0] * (tb - len(ids))], dtype=torch.int32,
                               device=self.device)
         first, caches_1, pos = self.prefill(padded, len(ids))
         self._insert(caches_1, first, pos, b)
         self.dispatches += 1
-        token = int(first[0])
+        token = self._fetch(t0, lambda: int(first[0]))
         self.fetches += 1
+        if self.device_monitor:
+            self.dispatched_flops += tb * self.flops_per_token
+            self.useful_flops += len(ids) * self.flops_per_token
         done = (self.eos is not None and token == self.eos) or max_new <= 1
         if not done:
             self.slots[b] = _Slot(request_id, emitted=1, max_new=max_new)
@@ -145,6 +231,18 @@ class BatchEngine:
         return token, done
 
     # -- the batched step ----------------------------------------------------
+
+    @property
+    def graph_captures(self) -> int:
+        """Bindings of the step's runner: its one CUDA-graph capture with
+        ``graphs`` (else its first step). Stays 1 after the first step."""
+        return self._runner.captures
+
+    def _step_body(self, tokens, caches, positions, imask):
+        """The step the runner replays: every slot's next token, and the
+        live slots' positions one further."""
+        nxt, caches = self.batch_step(tokens, caches, positions)
+        return nxt, nxt, caches, positions + imask
 
     def step(self) -> list[tuple[str, int, bool]]:
         """One batched fused pass: every active slot advances one token.
@@ -158,18 +256,18 @@ class BatchEngine:
         # membership changed; in steady state active rows advance by a
         # masked increment.
         if self._members_dirty:
-            self._mask = torch.tensor([s is not None for s in self.slots],
-                                      dtype=torch.bool, device=self.device)
-            self._imask = self._mask.to(torch.int32)
-            self.positions = torch.where(self._mask, self.positions,
-                                         torch.zeros_like(self.positions))
+            self._mask.copy_(torch.tensor([s is not None for s in self.slots]))
+            self._imask.copy_(self._mask)
+            self.positions.mul_(self._imask)
             self._members_dirty = False
-        nxt, self.caches = self.batch_step(self.tokens, self.caches, self.positions)
+        t0 = time.perf_counter()
+        nxt = self.runner(self.tokens, self.caches, self.positions, self._imask)[0]
         self.dispatches += 1
-        self.tokens = nxt
-        self.positions = self.positions + self._imask
-        host = nxt.cpu().numpy()  # ONE device-to-host copy for all slots
+        # ONE device-to-host copy for all slots
+        host = self._fetch(t0, lambda: nxt.cpu().numpy())
         self.fetches += 1
+        if self.device_monitor:
+            self.dispatched_flops += self.active * self.flops_per_token
         emitted = []
         for b, slot in enumerate(self.slots):
             if slot is None:
@@ -181,6 +279,8 @@ class BatchEngine:
             if done:
                 self.slots[b] = None
                 self._members_dirty = True
+        if self.device_monitor:
+            self.useful_flops += len(emitted) * self.flops_per_token
         return emitted
 
 
@@ -296,7 +396,7 @@ class _PagedSlot:
     adapter_idx: int = 0
 
 
-class PagedBatchEngine:
+class PagedBatchEngine(_DevicePlane):
     """Continuous batching over a paged KV pool with chunked prefill.
 
     KV lives in a fixed pool of page-size blocks; each slot holds a block
@@ -331,6 +431,10 @@ class PagedBatchEngine:
     emission matrix. Tokens are identical to ``spec_k = 0``. With
     ``prefix_cache`` a new stream maps the cached pages of its longest
     cached prompt prefix and its prefill starts there.
+
+    Every window runs through a models/vlm.GraphedWindow runner (one per
+    (K, spec_k), cached), which ``graphs`` makes one CUDA-graph replay; its
+    carried operands are this engine's buffers, updated in place.
     """
 
     def __init__(self, *, init_pool, chunk_prefill, window_step,
@@ -338,7 +442,10 @@ class PagedBatchEngine:
                  chunk: int, num_pages: int, eos: int | None = None,
                  window: int = 8, spec_k: int = 0, spec_ngram: int = 2,
                  window_factory=None, prefix_cache: bool = False,
-                 prefix_cache_pages: int = 0, lora_pool=None, device=None):
+                 prefix_cache_pages: int = 0, lora_pool=None, device=None,
+                 graphs: bool | None = None):
+        from dora_tpu_torch.models.vlm import use_graphs
+
         if (page_size % 8 or chunk % page_size or max_seq % chunk or window < 1
                 or spec_k < 0):
             raise ValueError(
@@ -348,13 +455,14 @@ class PagedBatchEngine:
             )
         dev = resolve_device(device)
         self.device = dev
+        self.graphs = use_graphs(graphs, dev)
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.page_size = page_size
         self.chunk = chunk
         self.eos = eos
         self.chunk_prefill = chunk_prefill
-        self.window_step = window_step
+        self.window_step = self._wrap(window_step, spec_k)
         self.window = window
         self.max_pages = max_seq // page_size
         self.pools = init_pool(num_pages)
@@ -374,10 +482,10 @@ class PagedBatchEngine:
         self._spec_cfg = spec_k
         self.spec_ngram = spec_ngram
         self._window_factory = window_factory
-        self._window_cache = {(window, spec_k): window_step}
+        self._window_cache = {(window, spec_k): self.window_step}
         if spec_k:
             # Host mirror of each stream's prompt + emissions; the device
-            # copy is rebuilt from it only when membership changes.
+            # copy is rewritten from it only when membership changes.
             self._hist_buf = max_seq + spec_k + 1
             self._hist: list[list[int]] = [[] for _ in range(max_slots)]
             self._hist_dev = torch.zeros((max_slots, self._hist_buf), dtype=torch.int32, device=dev)
@@ -395,8 +503,9 @@ class PagedBatchEngine:
         self._decode = [False] * max_slots
         self._prefillq: deque[int] = deque()
         self._mask = torch.zeros((max_slots,), dtype=torch.bool, device=dev)
-        # Per-slot device vectors carried through the window, rebuilt from
-        # the host slots only when membership changes.
+        # Per-slot device vectors carried through the window, rewritten in
+        # place from the host slots only when membership changes (the
+        # window's graph reads these very buffers).
         self._emitted_dev = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
         self._maxnew_dev = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
         #: multi-tenant LoRA: the resident-adapter pool and the per-slot
@@ -409,6 +518,7 @@ class PagedBatchEngine:
         #: host->device program dispatches / device->host token copies
         self.dispatches = 0
         self.fetches = 0
+        self._init_device_plane(dev)
 
     # -- admission -----------------------------------------------------------
 
@@ -629,6 +739,23 @@ class PagedBatchEngine:
             f"by slots and the cache"
         )
 
+    def _wrap(self, window, spec_k: int):
+        """A window of the factory in its runner (None stays None)."""
+        from dora_tpu_torch.models.vlm import SPEC_WINDOW_CARRY, WINDOW_CARRY, GraphedWindow
+
+        if window is None:
+            return None
+        return GraphedWindow(window, carry=SPEC_WINDOW_CARRY if spec_k else WINDOW_CARRY,
+                             graph=self.graphs)
+
+    @property
+    def graph_captures(self) -> int:
+        """Windows bound to this engine's buffers: one CUDA-graph capture
+        per (K, spec_k) runner with ``graphs`` (else each runner's first
+        call). Steady-state serving adds none: the counterpart of the
+        reference's one-compile-per-window guard."""
+        return sum(w.captures for w in self._window_cache.values() if w is not None)
+
     def set_window(self, k: int, *, spec_on: bool | None = None) -> bool:
         """Re-select the window K and pause or resume speculation at a
         window boundary (``spec_on`` None keeps the live setting). Windows
@@ -649,7 +776,7 @@ class PagedBatchEngine:
         key = (k, want_spec)
         fn = self._window_cache.get(key)
         if fn is None:
-            fn = self._window_factory(k, want_spec)
+            fn = self._wrap(self._window_factory(k, want_spec), want_spec)
             self._window_cache[key] = fn
         self.window_step = fn
         self.window = k
@@ -667,6 +794,7 @@ class PagedBatchEngine:
         emitted: list[tuple[str, int, bool]] = []
 
         if self._prefillq:
+            t_chunk = time.perf_counter()
             b = self._prefillq[0]
             s = self.slots[b]
             base = s.chunk_base
@@ -677,9 +805,14 @@ class PagedBatchEngine:
                 torch.tensor(piece, dtype=torch.int32, device=dev), self.pools,
                 base, torch.from_numpy(self._bt[b].copy()).to(dev), *extra,
             )
+            t_disp = time.perf_counter()
             s.chunk_base = base + self.chunk
             self.chunks_run += 1
             self.dispatches += 1
+            if self.device_monitor:
+                self.host_dispatch_ns += _ns(t_disp - t_chunk)
+                self.dispatched_flops += self.chunk * self.flops_per_token
+                self.useful_flops += min(self.chunk, s.true_len - base) * self.flops_per_token
             if s.chunk_base >= s.true_len:  # final chunk: the stream starts
                 self._prefillq.popleft()
                 if self.prefix_cache is not None:
@@ -691,7 +824,9 @@ class PagedBatchEngine:
                             s.prompt[: n_full * self.page_size], s.pages[:n_full],
                             s.adapter)
                 s.prompt = None
-                token = int(greedy[s.true_len - 1 - base].item())
+                # Non-final chunks stay async (their device time shows in
+                # the next wait); the final one waits for its first token.
+                token = self._fetch(None, lambda: int(greedy[s.true_len - 1 - base].item()))
                 self.fetches += 1
                 s.emitted = 1
                 done = (self.eos is not None and token == self.eos) or s.max_new <= 1
@@ -710,22 +845,19 @@ class PagedBatchEngine:
         if any(self._decode):
             if self._members_dirty:
                 live = [s is not None and self._decode[i] for i, s in enumerate(self.slots)]
-                self._mask = torch.tensor(self._decode, dtype=torch.bool, device=dev)
-                self._emitted_dev = torch.tensor(
+                self._mask.copy_(torch.tensor(self._decode))
+                self._emitted_dev.copy_(torch.tensor(
                     [s.emitted if ok else 0 for s, ok in zip(self.slots, live)],
-                    dtype=torch.int32, device=dev,
-                )
-                self._maxnew_dev = torch.tensor(
+                    dtype=torch.int32))
+                self._maxnew_dev.copy_(torch.tensor(
                     [s.max_new if ok else 0 for s, ok in zip(self.slots, live)],
-                    dtype=torch.int32, device=dev,
-                )
+                    dtype=torch.int32))
                 if self.lora is not None:
                     # A stream's slot is pinned for its life: the vector
                     # changes only with membership.
-                    self._adapter_dev = torch.tensor(
+                    self._adapter_dev.copy_(torch.tensor(
                         [s.adapter_idx if ok else 0 for s, ok in zip(self.slots, live)],
-                        dtype=torch.int32, device=dev,
-                    )
+                        dtype=torch.int32))
                 if self.spec_k:
                     # The history follows membership too: between
                     # boundaries the window carries it and the host mirror
@@ -737,27 +869,37 @@ class PagedBatchEngine:
                             row = self._hist[i][: self._hist_buf]
                             hist[i, : len(row)] = row
                             hlen[i] = len(row)
-                    self._hist_dev = torch.from_numpy(hist).to(dev)
-                    self._histlen_dev = torch.from_numpy(hlen).to(dev)
+                    self._hist_dev.copy_(torch.from_numpy(hist))
+                    self._histlen_dev.copy_(torch.from_numpy(hlen))
                 self._members_dirty = False
             if self._bt_dirty:
                 dec = self._bt * np.asarray(self._decode, np.int32)[:, None]
-                self._bt_dec = torch.from_numpy(dec).to(dev)
+                self._bt_dec.copy_(torch.from_numpy(dec))
                 self._bt_dirty = False
             args = (self.tokens, self.pools, self.positions, self._bt_dec,
                     self._mask, self._emitted_dev, self._maxnew_dev)
-            extra = (self._adapter_dev, self.lora.state()) if self.lora is not None else ()
             if self.spec_k:
-                (mat, self.tokens, self.positions, self._mask, self._emitted_dev,
-                 self.pools, self._hist_dev, self._histlen_dev) = self.window_step(
-                    *args, self._hist_dev, self._histlen_dev, *extra)
-            else:
-                (mat, self.tokens, self.positions, self._mask, self._emitted_dev,
-                 self.pools) = self.window_step(*args, *extra)
+                args += (self._hist_dev, self._histlen_dev)
+            if self.lora is not None:
+                args += (self._adapter_dev, self.lora.state())
+            t_win = time.perf_counter()
+            # The runner carries tokens, positions, the mask, the counts and
+            # the history forward in these buffers; only mat is new.
+            mat = self.window_step(*args)[0]
             self.dispatches += 1
-            host = mat.cpu().numpy()  # ONE device->host copy per window
+            # ONE device->host copy per window, before any other replay can
+            # overwrite mat
+            host = self._fetch(t_win, lambda: mat.cpu().numpy())
             self.fetches += 1
+            if self.device_monitor:
+                self.dispatched_flops += profiling.window_flops(
+                    flops_per_token=self.flops_per_token, active=sum(self._decode),
+                    k=self.window, spec_k=self.spec_k)
+            n_before = len(emitted)
             self._unpack(host, emitted)
+            if self.device_monitor:
+                # useful work = the tokens this window emitted
+                self.useful_flops += (len(emitted) - n_before) * self.flops_per_token
         return emitted
 
     def _unpack(self, host, emitted) -> None:

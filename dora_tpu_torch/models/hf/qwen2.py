@@ -416,13 +416,18 @@ def generate(params, cfg: Qwen2Config, prompt_ids, max_new_tokens: int):
 
 
 def make_batch_engine(params, cfg: Qwen2Config, *, max_slots: int = 4,
-                      eos: int | None = None, device=None):
+                      eos: int | None = None, device=None,
+                      graphs: bool | None = None):
     """Dense continuous-batching engine (models/batch_engine.BatchEngine) on
     ``device`` (default cuda; the params move there): every slot owns a
     [KV, max_seq, hd] plane per layer, prompts prefill unfused into a
     bucket-padded one-slot cache, and each step is one ``fused_batch_step``
     over all slots. Needs ``quantize_decode`` params and the fused tier
-    (models/vlm.fused_batch_ready: ``DORA_FUSED_DECODE=0`` refuses)."""
+    (models/vlm.fused_batch_ready: ``DORA_FUSED_DECODE=0`` refuses).
+    ``graphs`` (default: on for a CUDA device; True on the CPU raises) runs
+    each step as one CUDA-graph replay (models/vlm.GraphedWindow); False is
+    the eager step."""
+    from dora_tpu_torch import profiling
     from dora_tpu_torch.models import vlm as _vlm
     from dora_tpu_torch.models.batch_engine import BatchEngine
 
@@ -434,7 +439,7 @@ def make_batch_engine(params, cfg: Qwen2Config, *, max_slots: int = 4,
     dev = resolve_device(device)
     params = _to(params, dev)
     rope = _rope(cfg, dev)
-    return BatchEngine(
+    engine = BatchEngine(
         init_caches=lambda n: init_cache(cfg, n, device=dev),
         prefill=lambda ids, true_len: prefill_padded(params, cfg, ids, true_len, rope),
         batch_step=lambda tokens, caches, positions: fused_batch_step(
@@ -443,7 +448,11 @@ def make_batch_engine(params, cfg: Qwen2Config, *, max_slots: int = 4,
         max_seq=cfg.max_seq,
         eos=eos,
         device=dev,
+        graphs=graphs,
     )
+    engine.flops_per_token = profiling.flops_per_token_config(cfg)
+    engine.device_peak_flops = profiling.detect_peak_flops(dev)
+    return engine
 
 
 def fused_paged_batch_step(params, cfg, tokens, pools, positions,
@@ -489,7 +498,9 @@ def fused_paged_spec_step(params, cfg, chunks, pools, positions, block_tables,
     x = embed[chunks.reshape(b * m).long()].to(L.compute_dtype(embed.device))
     if lora is not None:
         groups, a_stack, b_stack = lora
-        lora = (groups.repeat_interleave(m), a_stack, b_stack)
+        # each stream's id for its m rows (an expand: no host sync, so the
+        # pass stays capturable in a CUDA graph)
+        lora = (groups[:, None].expand(b, m).reshape(b * m), a_stack, b_stack)
     greedy, pools = _vlm.fused_paged_pass_spec(
         params, x, pools, positions, block_tables, cos_rows, sin_rows,
         heads=cfg.heads, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
@@ -623,7 +634,8 @@ def make_paged_engine(params, cfg: Qwen2Config, *, max_slots: int = 16,
                       prefix_cache: bool | None = None,
                       prefix_cache_pages: int | None = None,
                       kv_int8: bool | None = None, lora_dir: str | None = None,
-                      lora_max_resident: int | None = None, device=None):
+                      lora_max_resident: int | None = None, device=None,
+                      graphs: bool | None = None):
     """Paged-KV continuous-batching engine over ``quantize_decode`` params,
     on ``device`` (default cuda; the params move there). The pool defaults
     to the dense engine's 4-slot footprint (4 * max_seq rows per layer,
@@ -646,7 +658,13 @@ def make_paged_engine(params, cfg: Qwen2Config, *, max_slots: int = 16,
     (:func:`make_lora_pool`, ``lora_max_resident`` slots, env
     ``DORA_LORA_MAX_RESIDENT``, default 8; stack rank from env
     ``DORA_LORA_RANK``, else the catalog's largest), and every pass adds
-    each stream's adapter delta."""
+    each stream's adapter delta.
+
+    ``graphs`` (default: on for a CUDA device; True on the CPU raises) runs
+    each decode window as one CUDA-graph replay, captured once per (K,
+    spec_k) (models/vlm.GraphedWindow); False is the eager window. The
+    prefill chunk is eager either way."""
+    from dora_tpu_torch import profiling
     from dora_tpu_torch.models import vlm as _vlm
     from dora_tpu_torch.models.batch_engine import PagedBatchEngine
 
@@ -713,7 +731,7 @@ def make_paged_engine(params, cfg: Qwen2Config, *, max_slots: int = 16,
         return _vlm.make_paged_window(batch_step, k=k, eos=eos,
                                       lora=lora_pool is not None)
 
-    return PagedBatchEngine(
+    engine = PagedBatchEngine(
         init_pool=lambda n: init_page_pool(cfg, n, page_size, device=dev,
                                            kv_int8=kv_int8),
         chunk_prefill=chunk_step,
@@ -732,4 +750,8 @@ def make_paged_engine(params, cfg: Qwen2Config, *, max_slots: int = 16,
         prefix_cache_pages=prefix_cache_pages,
         lora_pool=lora_pool,
         device=dev,
+        graphs=graphs,
     )
+    engine.flops_per_token = profiling.flops_per_token_config(cfg)
+    engine.device_peak_flops = profiling.detect_peak_flops(dev)
+    return engine

@@ -28,6 +28,9 @@ ends in ``lm_head_argmax`` (ops/decode_block.py, ops/lora.py). Pools hold
 fp pages, or int8 pages with their ``ks``/``vs`` scale planes, which select
 the kernels' int8-KV forms. ``refuse_unkernelled`` is the engine factories'
 check that a model's shapes are ones the attention kernels take.
+``GraphedWindow`` runs a window, or the dense engine's step, as one
+CUDA-graph replay over static buffers (``use_graphs`` resolves an engine's
+``graphs`` argument).
 
 Not ported yet: training (``loss_fn``, ``make_train_step``) and the
 tensor-parallel ``generate_tp``.
@@ -769,6 +772,153 @@ def make_paged_spec_window(spec_step_fn, *, k: int, spec_k: int, ngram: int,
         return mat, tokens, positions, active, emitted, pools, history, hist_len
 
     return window
+
+
+#: where each carried return of a window goes back in: the argument index of
+#: ``tokens, positions, active, emitted, pools`` (:func:`make_paged_window`'s
+#: returns after ``mat``), then ``history, hist_len`` (the spec window's)
+WINDOW_CARRY = (0, 2, 4, 5, 1)
+SPEC_WINDOW_CARRY = WINDOW_CARRY + (7, 8)
+
+
+def use_graphs(graphs: bool | None, device) -> bool:
+    """An engine's ``graphs`` argument resolved for ``device``: None means
+    on for a CUDA device, True on the CPU raises (there is no graph to
+    capture), False is the eager path."""
+    cuda = torch.device(device).type == "cuda"
+    if graphs is None:
+        return cuda
+    if graphs and not cuda:
+        raise ValueError(f"graphs=True needs a CUDA device, not {device}")
+    return bool(graphs)
+
+
+def _leaves(x):
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _leaves(v)]
+    return [] if x is None else [x]
+
+
+def _layout(args):
+    """What a graph is bound to: each argument's tensors by address, shape
+    and dtype."""
+    return [[(t.data_ptr(), tuple(t.shape), t.dtype) for t in _leaves(a)] for a in args]
+
+
+def _counters():
+    """(function, attribute) of every launch counter a decode pass bumps."""
+    return ([(fn, "launches") for fn in DB.KERNELS]
+            + [(fn, "launches_int8kv") for fn in DB.KV_INT8_KERNELS]
+            + [(LO.lora_gather_matmul, "launches")])
+
+
+class GraphedWindow:
+    """A decode window, or the dense engine's step, run as ONE CUDA graph
+    replay over static buffers: the port's counterpart of the jitted
+    ``lax.scan`` window with donated pools.
+
+    ``fn(*args) -> (out, *results)`` is the eager body (a window of
+    :func:`make_paged_window` or :func:`make_paged_spec_window`, their LoRA
+    forms included); ``carry[i]`` is the argument that ``results[i]``
+    continues (:data:`WINDOW_CARRY`, :data:`SPEC_WINDOW_CARRY`). The first
+    call binds the runner to its arguments, which become its static buffers:
+    the carried vectors, the block tables, the pools and the LoRA stack.
+    Every later call must pass the SAME tensors (same address, shape and
+    dtype) and raises otherwise: a caller updates them in place
+    (``copy_``), never rebinds them. The body ends by copying each carried
+    result into its argument, so one call continues from the last as the
+    scan carry does; pools (and the LoRA stack) are read and written in
+    place, and a returned pool tensor that is not the one passed in raises.
+    A call returns ``out`` and the static buffers in ``results``' order.
+
+    With ``graph=True`` (a CUDA device) the first call is the warm-up: it
+    runs the body eagerly on a side stream (the kernels' one-time
+    ``cudaFuncSetAttribute`` calls happen there, outside capture) and its
+    result is that call's answer; then the body is captured once with
+    ``torch.cuda.graph`` into a private memory pool, and every later call
+    is one ``replay``. ``out`` of a replay lives in the graph's pool and
+    the next replay overwrites it, so copy it out first. A capture that
+    fails raises; nothing falls back to the eager body. The kernels'
+    wrappers count launches while their Python runs, so the capture's
+    counts are taken back and recorded per replay in ``launches``, and each
+    replay adds them to the counters: every counter stays the number of
+    launches that ran. With ``graph=False`` (the CPU, or a caller who asks
+    for the eager path) every call runs the body eagerly through the same
+    static buffers and the same identity checks."""
+
+    def __init__(self, fn, *, carry: tuple[int, ...], graph: bool):
+        self.fn = fn
+        self.carry = carry
+        self.graph = graph
+        #: bindings of the static buffers: one CUDA-graph capture each with
+        #: graph=True, else the first call
+        self.captures = 0
+        #: replays of the captured graph
+        self.replays = 0
+        #: kernel launches of one replay, by counter name
+        self.launches: dict[str, int] = {}
+        self._credits: list[tuple] = []
+        self._args = None
+        self._layout = None
+        self._graph = None
+        self._out = None
+
+    def __call__(self, *args):
+        if self._args is None:
+            self._args, self._layout = args, _layout(args)
+            if not self.graph:
+                self.captures += 1
+        elif _layout(args) != self._layout:
+            bad = next(i for i, (a, b) in enumerate(zip(_layout(args), self._layout))
+                       if a != b)
+            raise ValueError(
+                f"window argument {bad} is not the static buffer this window was "
+                f"bound to: update it in place (copy_), never rebind it")
+        if not self.graph:
+            return self._run()
+        if self._graph is None:
+            return self._capture()
+        self._graph.replay()
+        self.replays += 1
+        for fn, attr, n in self._credits:
+            setattr(fn, attr, getattr(fn, attr) + n)
+        return self._out
+
+    def _run(self):
+        out, *results = self.fn(*self._args)
+        for j, res in zip(self.carry, results):
+            arg = self._args[j]
+            if isinstance(arg, torch.Tensor):
+                if res is not arg:
+                    arg.copy_(res)
+            elif [t.data_ptr() for t in _leaves(res)] != [t.data_ptr() for t in _leaves(arg)]:
+                raise RuntimeError(
+                    f"window result {j} returned pool tensors other than the ones passed "
+                    f"in: pools are updated in place")
+        return (out, *(self._args[j] for j in self.carry))
+
+    def _capture(self):
+        device = _leaves(self._args[0])[0].device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            first = self._run()
+        torch.cuda.current_stream(device).wait_stream(side)
+        before = [(fn, attr, getattr(fn, attr)) for fn, attr in _counters()]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                self._out = self._run()
+        finally:
+            # the capture launched nothing: take its counts back
+            self._credits = [(fn, attr, getattr(fn, attr) - n) for fn, attr, n in before
+                             if getattr(fn, attr) != n]
+            for fn, attr, n in before:
+                setattr(fn, attr, n)
+        self.launches = {f"{fn.__name__}.{attr}": n for fn, attr, n in self._credits}
+        self._graph = graph
+        self.captures += 1
+        return first
 
 
 def window_row_stats(row, k: int) -> tuple[int, int | None]:

@@ -50,21 +50,23 @@ def eos_token(tok) -> int | None:
     return next((tok.added[name] for name in EOS_NAMES if name in tok.added), None)
 
 
-def make_engine(params, cfg, eos=None, device=None):
+def make_engine(params, cfg, eos=None, device=None, graphs: bool | None = None):
     """The serving engine from the env knobs: paged by default, the dense
     batch engine (``qwen2.make_batch_engine``, ``DORA_BATCH_SLOTS`` slots,
     default 4) with ``DORA_PAGED_KV=0``. On the paged engine the prefix
     cache is on unless ``DORA_PREFIX_CACHE=0``; ``DORA_SPEC_K`` /
     ``DORA_SPEC_NGRAM``, ``DORA_KV_INT8`` and the LoRA knobs
     (``DORA_LORA_DIR``, ``DORA_LORA_MAX_RESIDENT``, ``DORA_LORA_RANK``)
-    reach it through ``make_paged_engine``."""
+    reach it through ``make_paged_engine``. ``graphs`` reaches either
+    factory: None runs the decode windows (or the dense step) as CUDA-graph
+    replays on a CUDA device, False eagerly."""
     from dora_tpu_torch.models.hf import qwen2
 
     paged = os.environ.get("DORA_PAGED_KV", "1") != "0"
     slots = int(os.environ.get("DORA_BATCH_SLOTS", "16" if paged else "4"))
     if not paged:
         return qwen2.make_batch_engine(params, cfg, max_slots=slots, eos=eos,
-                                       device=device)
+                                       device=device, graphs=graphs)
     chunk_env = os.environ.get("DORA_PREFILL_CHUNK")
     return qwen2.make_paged_engine(
         params, cfg,
@@ -76,6 +78,7 @@ def make_engine(params, cfg, eos=None, device=None):
         prefix_cache=os.environ.get("DORA_PREFIX_CACHE", "1") != "0",
         prefix_cache_pages=int(os.environ.get("DORA_PREFIX_CACHE_PAGES", "0")),
         device=device,
+        graphs=graphs,
     )
 
 

@@ -172,8 +172,10 @@ def test_port_spec_engine_matches_jax(both, jax_spec_streams, spec_k, window):
     passes = []  # (tokens emitted, verification passes) per live row per window
 
     def watched(*args):
+        # the window carries the mask forward in place: read it before
+        active = args[4].clone()
         out = inner(*args)
-        active, mat = args[4], out[0]
+        mat = out[0]
         for b in torch.nonzero(active).flatten().tolist():
             n_emit, frozen = vlm.spec_window_row_stats(mat[b].tolist(), window, spec_k + 1)
             passes.append((n_emit, window if frozen is None else frozen + 1))
