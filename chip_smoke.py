@@ -91,10 +91,29 @@ Phases, each printed on its own line:
    pass) of 128 tokens, each held to the f32 plain path's stream by the
    near-tie rule (NEAR_TIE for generate, SPEC_REF_TIE for the verify path),
    with the exact launches of each run; ViT ms per image, TTFT, decode
-   tokens/s and passes per token are printed.
+   tokens/s and passes per token are printed;
+12. int4 weights: phase 4's seeded model quantized under
+   ``DORA_WEIGHT_BITS=4`` (groups of 128) serves phase 4's 16 requests
+   through ``make_engine`` from the front door (prefix cache on), each
+   window one CUDA-graph replay, through the int4 forms of kernels 1-4 alone
+   (no int8 kernel, no plain version); every stream equals its
+   ``graphs=False`` stream, captures do not grow (``graph`` line), two
+   requests are held to the f32 plain path as in phase 5 (the bf16 plain
+   stream's token within SPEC_REF_TIE), and ``paths``
+   lines set its window and chunk ms against phase 4's int8 ones. Then, at
+   INT4_SHORT_NEW new tokens: ``DORA_SPEC_K=4`` (kernel 5's int4 form; two
+   requests held to the spec-off engine as in phase 7), the dense engine
+   (kernel 8's; graphed against eager, its graph line, its step ms against
+   phase 9's) and phase 10 on int4 (``generate`` through kernel 9's,
+   ``run_loop`` through kernel 10's).
 
-Phase 3 also holds the four kernels of phases 9 and 10 against their plain
-versions at Qwen2-1.5B shapes: ``int8_matmul`` at INT8_SHAPES (1 row on
+Phase 3 also holds the int4 forms of kernels 1-5 and 8-10 against their
+plain versions on phase 12's int4 weights at the main paths' shapes (with
+their times, the cuBLAS yardstick on the dequantized weights or the chain of
+RMSNorm, cuBLAS qkv, SDPA and cuBLAS wo, and the bound at the int4 bytes),
+and the int4 product's fragment path on one tile (``tc_tile4``); and the
+four kernels of phases 9 and 10 against their plain versions at Qwen2-1.5B
+shapes: ``int8_matmul`` at INT8_SHAPES (1 row on
 the head; ``wqkv``, ``wo``, ``w_gateup`` and ``w_down`` at 16 and 32
 rows; ``w_gateup`` and ``w_down`` at 256); ``attention_batch_step`` on 4
 planes of 2048 rows (positions 0 .. 2047), ``attention_step`` at 1500 and
@@ -127,7 +146,7 @@ plain version's distance), and kernel 11 and its plain version to f64 at
 the ViT's shape and causal over 2048 rows. ``--kernels-only`` stops after
 phase 3, ``--breakdown`` runs only kernel 6's lines and the ``breakdown``,
 ``sublayer`` and ``fidelity`` lines and ``--paths`` only phases 4, 6, 9
-and 10 and the VLM's ``generate`` (prefill chunk, window, spec-on window,
+and 10, phase 12's main path and the VLM's ``generate`` (prefill chunk, window, spec-on window,
 dense step and its short prompts' TTFT, batch-1 prefill, ``run_loop``
 pass, VLM step and ViT times; the windows and the dense step graphed and
 eager), all without the result line.
@@ -188,6 +207,15 @@ REL_TOL = {
     "attention_step": 1.2e-2,            # seen 4.1e-3: one bf16 step of its one row's largest output
     "attention_chunk_step": 1.3e-2,      # seen 3.6e-3 (3.2e-4 residual=False)
     "flash_attention": 6e-3,             # the bf16 output's rounding; seen 1.4e-3 (ViT), 5.9e-4 (causal 2048)
+    # int4 weights (phase 3 on phase 12's weights)
+    "mlp_step_int4": 8e-3,                   # seen 0 (1 row), 2.6e-3 (16), 2.4e-3 (80), 2.3e-3 (256)
+    "lm_head_argmax_int4": 1e-6,             # seen 6.4e-8 (1), 5.9e-8 (16), 2.4e-7 (256)
+    "attention_paged_batch_step_int4": 1.2e-3,   # seen 4.0e-4
+    "attention_paged_chunk_step_int4": 1.4e-2,   # seen 4.7e-3
+    "attention_paged_spec_step_int4": 1.2e-3,    # seen 4.1e-4
+    "attention_batch_step_int4": 8e-4,           # seen 2.4e-4
+    "attention_step_int4": 1.2e-2,           # seen 0; one bf16 step of its row, as attention_step
+    "attention_chunk_step_int4": 1.2e-2,     # seen 4.0e-3
 }
 SPEC_K = 4         # drafts per verify in phase 6: m = 5 candidate rows a stream
 HEAD_TIE = 1e-3    # logits this close may pick either token (kernel check)
@@ -1036,7 +1064,8 @@ def serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, max_n
                 seed: int):
     """Phase 4: the engine serves every prompt through the kernels, each
     window one CUDA-graph replay; then its graph, device plane, graphs=False
-    reference, paths and trace lines."""
+    reference, paths and trace lines. Returns (streams, launches, the served
+    run's window and chunk times)."""
 
     def build(graphs=None):
         return qwen2.make_paged_engine(params, cfg, max_slots=16, page_size=16, chunk=256,
@@ -1130,7 +1159,7 @@ def serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, max_n
               ref_ttft.values())
     trace_window(torch, engine, cfg.vocab, seed + 1, "spec-off window (K = 8), graphed")
     trace_window(torch, ref, cfg.vocab, seed + 1, "spec-off window (K = 8), eager")
-    return out, launches
+    return out, launches, times
 
 
 class _Paths:
@@ -1179,9 +1208,10 @@ class _Paths:
     def logits_of(self, run, mode: str):
         """The logits [rows, vocab] of the last head that ``run()`` calls on
         the ``mode`` path ("kernel", "plain" or "f32"): a fused pass's
-        ``lm_head_argmax`` or the unfused prefill's ``int8_matmul`` on the
-        vocabulary. The kernel path records inside the wrappers, which keep
-        counting their launches."""
+        ``lm_head_argmax``, or the unfused prefill's ``int8_matmul`` on the
+        vocabulary (an int4 head: its ``layers.matmul`` product of the
+        dequantized head). The kernel path records inside the wrappers, which
+        keep counting their launches."""
         DB, IM = self.DB, self.IM
         last: list = [None]
         plain = mode != "kernel"
@@ -1190,6 +1220,13 @@ class _Paths:
 
         def recorded():
             head, matmul = getattr(DB, head_name), getattr(IM, matmul_name)
+            layers_matmul = self.L.matmul
+
+            def layers_rec(x, w):
+                out = layers_matmul(x, w)
+                if isinstance(w, dict) and "int4" in w and w["int4"].shape[1] == self.cfg.vocab:
+                    last[0] = out.reshape(-1, self.cfg.vocab)
+                return out
 
             def head_rec(x, norm_w, w, s, *, eps=1e-6, return_val=False):
                 last[0] = DB._wdot(DB._rms(x, norm_w, eps).to(x.dtype), w, s)
@@ -1203,11 +1240,13 @@ class _Paths:
 
             setattr(DB, head_name, head_rec)
             setattr(IM, matmul_name, matmul_rec)
+            self.L.matmul = layers_rec
             try:
                 run()
             finally:
                 setattr(DB, head_name, head)
                 setattr(IM, matmul_name, matmul)
+                self.L.matmul = layers_matmul
 
         self.run(recorded, mode)
         return last[0].float()
@@ -1268,14 +1307,15 @@ def _first_parting(a, b, n: int) -> int:
     return next((t for t in range(n) if a[t] != b[t]), n)
 
 
-def check_plain_agreement(paths, prompts, max_new, served, picks):
+def check_plain_agreement(paths, prompts, max_new, served, picks, b_bound=NEAR_TIE):
     """Phase 5: requests through the plain versions on the card.
 
     The served greedy tokens must equal the plain path's, or part where both
     tokens are within NEAR_TIE of the top logit of the plain path run in f32
-    on the same prefix. That f32 run is the reference: the plain path in bf16
-    shows how far bf16 rounding alone moves the logits, and the kernel path
-    must stay as close to the reference as that (within RMS_MARGIN)."""
+    on the same prefix (the plain path's within ``b_bound``). That f32 run is
+    the reference: the plain path in bf16 shows how far bf16 rounding alone
+    moves the logits, and the kernel path must stay as close to the
+    reference as that (within RMS_MARGIN)."""
     try:
         paths.use(plain=True)
         plain, _ = paths.serve_prompts(paths.engine(), [prompts[i] for i in picks], max_new)
@@ -1290,7 +1330,8 @@ def check_plain_agreement(paths, prompts, max_new, served, picks):
         print(f"plain agreement: request {i}: first {same} of {max_new} greedy tokens "
               f"equal", flush=True)
         paths.check(f"plain agreement: request {i}, after {len(prefix)} tokens",
-                    paths.after(prefix), (a[same], b[same]) if same < max_new else None)
+                    paths.after(prefix), (a[same], b[same]) if same < max_new else None,
+                    b_bound)
 
 
 #: the front-door knobs phases 6 and 8 clear so that make_engine's defaults run
@@ -1908,7 +1949,8 @@ def serve_dense(torch, DB, LO, IM, make_engine, serve_prompts, params, cfg, prom
     """Phase 9: the dense batch engine as ``make_engine`` builds it with
     ``DORA_PAGED_KV=0``, serving every prompt through ``serve_prompts``, each
     step one CUDA-graph replay; then its graph, graphs=False reference, paths
-    and trace lines."""
+    and trace lines. Returns (streams, launches, the served run's step
+    times)."""
     from collections import Counter
 
     engine = front_door(make_engine, params, cfg, DORA_PAGED_KV="0")
@@ -1998,11 +2040,11 @@ def serve_dense(torch, DB, LO, IM, make_engine, serve_prompts, params, cfg, prom
               ttft.values(), ref_ttft.values())
     trace_window(torch, engine, cfg.vocab, seed + 1, "dense step (4 slots), graphed")
     trace_window(torch, ref, cfg.vocab, seed + 1, "dense step (4 slots), eager")
-    return out, launches
+    return out, launches, times
 
 
 def batch1(torch, DB, LO, qwen2, spec_decode, L, paths, params, cfg, prompts, max_new,
-           dense_out):
+           dense_out, form: str = ""):
     """Phase 10: batch-1 ``generate`` and ``run_loop`` (k = 4) on phase 9's
     prompts BATCH1_PICKS. Each stream is held to its own path's plain
     versions where it parts from the dense engine's stream (else before the
@@ -2010,10 +2052,17 @@ def batch1(torch, DB, LO, qwen2, spec_decode, L, paths, params, cfg, prompts, ma
     above 32 rows, so not the paged path's int8 model), then ``generate``'s
     tokens through one-row steps, or ``run_loop``'s verify passes replayed
     through k + 1-row chunks. Returns the launches of the last generate and
-    run_loop."""
+    run_loop. ``form`` "_int4": params in int4, whose kernels count their
+    launches under ``<name>_int4`` (phase 12)."""
     dev = params["embed"].device
     rope = L.rope_table(cfg.max_seq, cfg.head_dim, base=cfg.rope_theta, device=dev)
-    paged = tuple(n for n in DB.launch_counts() if n.startswith("attention_paged"))
+
+    def others(need, *allowed):
+        """Every attention kernel's counters but ``need`` and ``allowed`` (in
+        this weight form): the paged ones, the dense engine's and the other
+        weight form's."""
+        ok = {need, *(n + form for n in allowed)}
+        return tuple(n for n in DB.launch_counts() if n.startswith("attention") and n not in ok)
 
     def run(what, fn, need, banned):
         plain_calls = _PlainCalls(DB, LO)
@@ -2046,7 +2095,7 @@ def batch1(torch, DB, LO, qwen2, spec_decode, L, paths, params, cfg, prompts, ma
         gen, wall, gen_launches = run(
             f"generate, request {i} ({t} tokens)",
             lambda: qwen2.generate(params, cfg, torch.tensor([ids], device=dev), max_new),
-            "attention_step", ("attention_batch_step", "attention_chunk_step") + paged)
+            "attention_step" + form, others("attention_step" + form))
         gen = gen[0].tolist()
         _check_streams({i: gen}, max_new, cfg.vocab)
         pre_ms = []
@@ -2080,15 +2129,15 @@ def batch1(torch, DB, LO, qwen2, spec_decode, L, paths, params, cfg, prompts, ma
                 return_stats=True, body=body)
 
         (spec, passes, full), wall, spec_launches = run(
-            f"run_loop, request {i}", speculate, "attention_chunk_step",
-            ("attention_batch_step",) + paged)
+            f"run_loop, request {i}", speculate, "attention_chunk_step" + form,
+            others("attention_chunk_step" + form, "attention_step"))
         spec = spec[0].tolist()
         _check_streams({i: spec}, max_new, cfg.vocab)
         print(f"batch-1 run_loop, request {i}: {max_new} tokens in {wall:.3f} s; {passes} "
               f"model passes ({1e3 * wall / passes:.2f} ms a pass; {full} full k+1 passes, "
               f"body {body}); "
               f"{(max_new - 1) / max(passes - 1, 1):.3f} tokens per verify pass; "
-              f"{spec_launches['attention_chunk_step'] // cfg.layers} chunk passes launched "
+              f"{spec_launches['attention_chunk_step' + form] // cfg.layers} chunk passes launched "
               f"(overshoot included)", flush=True)
 
         def stepped(at):
@@ -3274,6 +3323,442 @@ def serve_vlm(torch, DB, LO, vlm, paths, params, cfg, seed: int, max_new: int) -
     return g_launches
 
 
+# ---------------------------------------------------------------------------
+# int4 weights: phase 3's int4 forms and phase 12
+# ---------------------------------------------------------------------------
+
+#: phase 12's spec-on, dense and batch-1 runs: new tokens a stream
+INT4_SHORT_NEW = 32
+#: the int4 forms of phase 12's main path (spec off, prefix cache on)
+INT4_MAIN_KERNELS = tuple(f"{n}_int4" for n in SPEC_OFF_KERNELS)
+
+
+def int4_params(torch, qwen2, cfg, seed: int):
+    """Phase 3's and phase 12's model: the seeded random weights of phase 4,
+    quantized by ``quantize_decode`` under ``DORA_WEIGHT_BITS=4``."""
+    with _env(DORA_WEIGHT_BITS="4", DORA_INT4_DECODE=None, DORA_INT8_PURE=None):
+        params = qwen2.quantize_decode(
+            qwen2.random_params(cfg, seed=seed, std=0.02, device="cuda"), cfg)
+    torch.cuda.synchronize()
+    return params
+
+
+def _deq(torch, w):
+    """An int4 weight dict dequantized to bf16 [K, N]: the yardstick's
+    operand."""
+    from dora_tpu_torch.ops.int4 import dequantize_int4
+
+    return dequantize_int4(w, torch.bfloat16)
+
+
+def _int4_bytes(w) -> int:
+    """An int4 weight's bytes: the packed nibbles and the f32 group scales."""
+    return w["int4"].numel() + w["gscale"].numel() * 4
+
+
+def _device_pair(torch, a, b):
+    """The summed device ms of the kernels one call of ``a`` and one of ``b``
+    launch, two forms of one kernel that launch as many kernels a call. The
+    profiler now and then drops a kernel's records: a form that shows fewer
+    launches than the other, or none, is not measured (None)."""
+    seen = [_device_launches(torch, f) for f in (a, b)]
+    n = max(len(x or ()) for x in seen)
+    return tuple(sum(ms for _, ms in x) if x and len(x) == n else None for x in seen)
+
+
+def _dev(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def check_int4_kernels(torch, DB, params, params8, cfg, rng_seed: int) -> list[dict]:
+    """Phase 3, int4 weights: the int4 form of kernels 1-5 and 8-10 against
+    their plain versions on Qwen2-1.5B's layer 0 quantized to int4 (groups of
+    128), at the main paths' shapes: ``mlp_step`` and ``lm_head_argmax`` at
+    16 rows (and 1, 80 and 256 printed), kernel 3 on 16 streams at 30..940
+    (one frozen), kernel 4 on a 256-row chunk at 512, kernel 5 on 16 x 5
+    rows at 14..990, kernel 8 on 4 planes at 0, 700, 1500 and 2047, kernel 9
+    at 1500 and kernel 10 on 5 rows ending on 2047, all fp KV. Each line:
+    rel within REL_TOL["<name>_int4"] (the head's tokens equal but at
+    near-ties), the device time, the plain version's, the yardstick (cuBLAS
+    on the dequantized bf16 weights: the two products of the MLP, the head's
+    product and argmax; for an attention sublayer the chain of RMSNorm, the
+    qkv product, SDPA over the same context and the wo product) and the
+    bound at the int4 weight bytes; at the entry shapes also the summed
+    device time of its launches (``torch.profiler``) beside the int8 form's
+    on ``params8``'s weights and the same inputs."""
+    from dora_tpu_torch.models.layers import rope_table
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(rng_seed)
+    blk = params["blocks"]["0"]
+    d, hd, h, kv, f = cfg.dim, cfg.head_dim, cfg.heads, cfg.kv_heads, cfg.ffn
+    n_qkv = (h + 2 * kv) * hd
+    seq, page, slots, chunk, m = cfg.max_seq, 16, 16, 256, SPEC_K + 1
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+
+    def rows(n):
+        tok = torch.randint(0, cfg.vocab, (n,), generator=gen, device=dev)
+        return params["embed"][tok].to(torch.bfloat16)
+
+    def agree(name, rel, what=""):
+        tol = REL_TOL[name]
+        print(f"kernel {name}{what}: rel {rel:.3e} (tol {tol})", flush=True)
+        if not rel <= tol:
+            raise Failed(f"{name}{what} disagrees with its plain version: rel {rel:.3e}")
+
+    def record(name, source, replaces, err, rel, kernel, plain, lib, nbytes, ops, what="",
+               int8=None):
+        bound, by = _bound_ms(nbytes, ops)
+        ms, plain_ms, lib_ms = (_time_ms(torch, kernel), _time_ms(torch, plain, 5),
+                                _time_ms(torch, lib))
+        print(f"kernel {name}{what}: max_abs_err {err:.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"library_ms {lib_ms:.4f} bound_ms {bound:.4f} ({by})", flush=True)
+        if int8 is not None:
+            d4, d8 = _device_pair(torch, kernel, int8)
+            print(f"kernel {name}{what}: device ms int4 {_dev(d4)}, int8 {_dev(d8)} on the same "
+                  f"inputs (torch.profiler, a call's launches summed)", flush=True)
+        agree(name, rel, what)
+        if not what:
+            out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
+
+    blk8 = params8["blocks"]["0"]
+    wgu, wd, wh = blk["w_gateup"], blk["w_down"], params["lm_head"]
+    ffn8 = (blk8["w_gateup"]["int8"], blk8["w_gateup"]["scale"], blk.get("b_gateup"),
+            blk8["w_down"]["int8"], blk8["w_down"]["scale"])
+    head8 = (params8["lm_head"]["int8"], params8["lm_head"]["scale"])
+    wgu_bf, wd_bf, wh_bf = _deq(torch, wgu), _deq(torch, wd), _deq(torch, wh)
+    for n in (slots, 1, slots * m, chunk):  # the entry first
+        x = rows(n)
+        args = (x, blk["ffn_norm"], wgu["int4"], wgu["gscale"], blk.get("b_gateup"),
+                wd["int4"], wd["gscale"])
+        err, rel = _rel(DB.mlp_step(*args), DB.mlp_step_plain(*args))
+        record("mlp_step_int4", "dora_tpu_torch/csrc/mlp.cu",
+               "dora_tpu/ops/decode_block.py:2130", err, rel, lambda: DB.mlp_step(*args),
+               lambda: DB.mlp_step_plain(*args),
+               lambda: torch.matmul(torch.matmul(x, wgu_bf)[:, :f], wd_bf),
+               n * d * 2 * 2 + d * 4 + _int4_bytes(wgu) + _int4_bytes(wd),
+               2 * n * d * 2 * f + 2 * n * f * d, "" if n == slots else f" at {n} rows",
+               (lambda: DB.mlp_step(x, blk["ffn_norm"], *ffn8)) if n in (slots, chunk) else None)
+    for n in (slots, 1, chunk):
+        x = rows(n)
+        args = (x, params["out_norm"], wh["int4"], wh["gscale"])
+        hn = DB._rms(x, params["out_norm"], cfg.norm_eps).to(torch.bfloat16)
+        logits = DB._wdot(hn, wh["int4"], wh["gscale"])
+        top2 = logits.topk(2, dim=-1).values
+        want_i, want_v = DB.lm_head_argmax_plain(*args, return_val=True)
+        got_i, got_v = DB.lm_head_argmax(*args, return_val=True)
+        if bool(((got_i != want_i) & (top2[:, 0] - top2[:, 1] >= HEAD_TIE)).any()):
+            raise Failed(f"lm_head_argmax_int4 picks other tokens than its plain version away "
+                         f"from ties at {n} rows")
+        err, rel = _rel(got_v, want_v)
+        record("lm_head_argmax_int4", "dora_tpu_torch/csrc/lm_head.cu",
+               "dora_tpu/ops/decode_block.py:2228", err, rel, lambda: DB.lm_head_argmax(*args),
+               lambda: DB.lm_head_argmax_plain(*args),
+               lambda: torch.matmul(hn, wh_bf).argmax(dim=-1),
+               n * d * 2 + d * 4 + _int4_bytes(wh) + n * 4, 2 * n * d * cfg.vocab,
+               "" if n == slots else f" at {n} rows",
+               (lambda: DB.lm_head_argmax(x, params["out_norm"], *head8))
+               if n in (slots, chunk) else None)
+    del wgu_bf, wd_bf, wh_bf
+
+    cos_t, sin_t = rope_table(seq, hd, base=cfg.rope_theta, device=dev)
+    wqkv, wo, bqkv = blk["wqkv"], blk["wo"], blk.get("bqkv")
+    wqkv_bf, wo_bf = _deq(torch, wqkv), _deq(torch, wo)
+    w4 = (wqkv["int4"], wqkv["gscale"], bqkv)
+    o4 = (wo["int4"], wo["gscale"])
+    w8 = (blk8["wqkv"]["int8"], blk8["wqkv"]["scale"], bqkv)
+    o8 = (blk8["wo"]["int8"], blk8["wo"]["scale"])
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd, eps=cfg.norm_eps)
+    weight_bytes = _int4_bytes(wqkv) + _int4_bytes(wo) + d * 4 + n_qkv * 4 + d * 4
+    kv_row = kv * hd * 2 * 2  # one row of K and V in bf16
+
+    def chain(x, kctx, vctx, mask):
+        """RMSNorm, cuBLAS qkv on the dequantized weights, SDPA over the
+        context [rows, H, keys, hd] (q seeded), cuBLAS wo."""
+        q = torch.randn((kctx.shape[0], h, mask.shape[-2], hd), generator=gen,
+                        device=dev).bfloat16()
+
+        def run():
+            hn = DB._rms(x, blk["attn_norm"], cfg.norm_eps).to(torch.bfloat16)
+            torch.matmul(hn, wqkv_bf)
+            a = sdpa(q, kctx, vctx, attn_mask=mask)
+            return torch.matmul(a.transpose(1, 2).reshape(x.shape[0], h * hd), wo_bf)
+        return run
+
+    def sublayer(name, replaces, kernel, plain, pre, pools, post, kwx, lib, n, ctx_rows,
+                 index_bytes, attended):
+        """Kernel against plain on clones of the pools or caches."""
+        p1 = [t.clone() for t in pools]
+        p2 = [t.clone() for t in pools]
+        want = plain(*pre, *p1, *post, **kwx)[0]
+        got = kernel(*pre, *p2, *post, **kwx)[0]
+        if not bool(torch.isfinite(got.float()).all()):
+            raise Failed(f"{name}: the output is not finite")
+        err, rel = _rel(got, want)
+        # a paged pool's page 0 is left out: frozen rows race to write it
+        skip = 1 if "paged" in name else 0
+        _, rel_k = _rel(p2[0][skip:], p1[0][skip:])
+        _, rel_v = _rel(p2[1][skip:], p1[1][skip:])
+        agree("pools", max(rel_k, rel_v), f" written by {name}")
+        nbytes = (n * d * 2 * 2 + weight_bytes + n * hd * 8 + index_bytes
+                  + ctx_rows * kv_row + n * kv_row)
+        ops = 2 * n * d * n_qkv + 2 * 2 * h * hd * attended + 2 * n * h * hd * d
+        # the int8 form: the same rows, pools and indices on params8's weights
+        pre8 = (pre[0], pre[1], *w8, *pre[5:])
+        post8 = (*o8, *post[2:])
+        record(name, "dora_tpu_torch/csrc/paged_attention.cu", replaces, err, rel,
+               lambda: kernel(*pre, *p2, *post, **kwx), lambda: plain(*pre, *p1, *post, **kwx),
+               lib, nbytes, ops, int8=lambda: kernel(*pre8, *p2, *post8, **kwx))
+
+    def ctx_of(pool, table):
+        """A pool's pages through ``table`` rows as [rows, H, keys, hd]."""
+        c = pool[table.long()].permute(0, 2, 1, 3, 4)
+        c = c.reshape(table.shape[0], kv, table.shape[1] * page, hd)
+        return c.repeat_interleave(h // kv, dim=1)
+
+    n_pool = 4 * seq // page
+    kp = torch.randn((n_pool, kv, page, hd), generator=gen, device=dev).bfloat16()
+    vp = torch.randn((n_pool, kv, page, hd), generator=gen, device=dev).bfloat16()
+    maxp = seq // page
+
+    def tables(positions, extra):
+        bt = torch.zeros((len(positions), maxp), dtype=torch.int32)
+        nxt = 1
+        for b, p in enumerate(positions):
+            if p:
+                n = -(-(p + extra) // page)
+                bt[b, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
+                nxt += n
+        if nxt > n_pool:
+            raise Failed("int4 kernel check positions overflow the pool")
+        return bt.to(dev)
+
+    # kernel 3: 16 streams, one frozen
+    positions = [int(p) for p in torch.linspace(30, 940, slots).round().tolist()]
+    positions[3] = 0
+    bt = tables(positions, 1)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    x = rows(slots)
+    cr, sr = DB.rope_rows_at(cos_t, sin_t, pos)
+    mask = (torch.arange(maxp * page, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
+    sublayer("attention_paged_batch_step_int4", "dora_tpu/ops/decode_block.py:1163",
+             DB.attention_paged_batch_step, DB.attention_paged_batch_step_plain,
+             (x, blk["attn_norm"], *w4, cr, sr), (kp, vp), (*o4, pos, bt), kw,
+             chain(x, ctx_of(kp, bt), ctx_of(vp, bt), mask), slots, sum(positions),
+             slots * 4 + bt.numel() * 4, sum(positions) + slots)
+
+    # kernel 4: the third 256-row chunk of a prompt
+    position = 2 * chunk
+    btr = torch.arange(1, maxp + 1, dtype=torch.int32, device=dev)
+    x = rows(chunk)
+    cr, sr = DB.rope_rows(cos_t, sin_t, position, chunk)
+    n_keys = position + chunk
+    cmask = (torch.arange(n_keys, device=dev)[None, :]
+             <= position + torch.arange(chunk, device=dev)[:, None])
+    sublayer("attention_paged_chunk_step_int4", "dora_tpu/ops/decode_block.py:1505",
+             DB.attention_paged_chunk_step, DB.attention_paged_chunk_step_plain,
+             (x, blk["attn_norm"], *w4, cr, sr), (kp, vp), (*o4, position, btr), kw,
+             chain(x, ctx_of(kp, btr[None, : n_keys // page]),
+                   ctx_of(vp, btr[None, : n_keys // page]), cmask),
+             chunk, position, btr.numel() * 4, chunk * position + chunk * (chunk + 1) // 2)
+
+    # kernel 5: 16 streams x 5 candidate rows, one frozen
+    positions = [int(p) for p in torch.linspace(14, 990, slots).round().tolist()]
+    positions[3] = 0
+    bt = tables(positions, m)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    flat = (pos[:, None] + torch.arange(m, dtype=torch.int32, device=dev)[None, :]).reshape(-1)
+    x = rows(slots * m)
+    cr, sr = DB.rope_rows_at(cos_t, sin_t, flat)
+    smask = (torch.arange(maxp * page, device=dev)[None, None, :]
+             <= flat.reshape(slots, m)[:, :, None])[:, None]
+    sublayer("attention_paged_spec_step_int4", "dora_tpu/ops/decode_block.py:1927",
+             DB.attention_paged_spec_step, DB.attention_paged_spec_step_plain,
+             (x, blk["attn_norm"], *w4, cr, sr), (kp, vp), (*o4, pos, bt), dict(kw, m=m),
+             chain(x, ctx_of(kp, bt), ctx_of(vp, bt), smask), slots * m, sum(positions),
+             slots * 4 + bt.numel() * 4, m * sum(positions) + slots * m * (m + 1) // 2)
+
+    # kernels 8-10 over dense bf16 caches
+    def caches(planes):
+        return (torch.randn((planes, kv, seq, hd), generator=gen, device=dev).bfloat16(),
+                torch.randn((planes, kv, seq, hd), generator=gen, device=dev).bfloat16())
+
+    def full(c):
+        return c.repeat_interleave(h // kv, dim=1)
+
+    positions = [0, 700, 1500, seq - 1]
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    kc, vc = caches(len(positions))
+    x = rows(len(positions))
+    cr, sr = DB.rope_rows_at(cos_t, sin_t, pos)
+    mask = (torch.arange(seq, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
+    sublayer("attention_batch_step_int4", "dora_tpu/ops/decode_block.py:824",
+             DB.attention_batch_step, DB.attention_batch_step_plain,
+             (x, blk["attn_norm"], *w4, cr, sr), (kc, vc), (*o4, pos), kw,
+             chain(x, full(kc), full(vc), mask), len(positions), sum(positions),
+             len(positions) * 4, sum(positions) + len(positions))
+    position = 1500
+    kc, vc = caches(1)
+    x = rows(1)
+    cr, sr = DB.rope_rows(cos_t, sin_t, position)
+    mask = (torch.arange(seq, device=dev) <= position)[None, None, None, :]
+    sublayer("attention_step_int4", "dora_tpu/ops/decode_block.py:309",
+             DB.attention_step, DB.attention_step_plain, (x, blk["attn_norm"], *w4, cr, sr),
+             (kc[0], vc[0]), (*o4, position), kw, chain(x, full(kc), full(vc), mask), 1,
+             position, 0, position + 1)
+    position = seq - m
+    kc, vc = caches(1)
+    x = rows(m)
+    cr, sr = DB.rope_rows(cos_t, sin_t, position, m)
+    mask = (torch.arange(seq, device=dev)[None, :]
+            <= position + torch.arange(m, device=dev)[:, None])
+    sublayer("attention_chunk_step_int4", "dora_tpu/ops/decode_block.py:574",
+             DB.attention_chunk_step, DB.attention_chunk_step_plain,
+             (x, blk["attn_norm"], *w4, cr, sr), (kc[0], vc[0]), (*o4, position), kw,
+             chain(x, full(kc), full(vc), mask), m, position, 0,
+             m * position + m * (m + 1) // 2)
+    return out
+
+
+def check_tc_tile4(torch, DB, rng_seed: int) -> None:
+    """Phase 3: the fragment path of the int4 product (one ldmatrix.trans of
+    a 32-row group's packed bytes, both nibbles widened to bf16 q, two k
+    steps of the even / odd mma) on a 16 x 32 bf16 tile by every byte value,
+    against torch.matmul on the unpacked q in f32 (exact: 1e-5)."""
+    gen = torch.Generator(device="cuda").manual_seed(rng_seed)
+    a = (torch.randn((16, 32), generator=gen, device="cuda") * 4).bfloat16()
+    w = torch.randint(0, 256, (16, 16), generator=gen, device="cuda").to(torch.uint8)
+    q = torch.cat([(w & 15).float() - 8, (w >> 4).float() - 8])
+    got = DB.tc_tile4(a, w)
+    torch.cuda.synchronize()
+    _, rel = _rel(got, a.float() @ q)
+    print(f"tc tile int4 (nibbles widened, ldmatrix, m16n8k16 bf16): rel {rel:.3e} (tol 1e-5)",
+          flush=True)
+    if not rel <= 1e-5:
+        raise Failed(f"the int4 product's fragment path disagrees with torch.matmul: "
+                     f"rel {rel:.3e}")
+
+
+def _served_run(torch, DB, LO, engine, serve_prompts, prompts, max_new):
+    """Serve ``prompts`` on ``engine`` with every kernel's launches counted
+    and every plain-version call counted. Returns (streams, TTFTs, wall s,
+    launches, plain calls)."""
+    plain_calls = _PlainCalls(DB, LO)
+    _reset_launches(DB, LO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out, ttft = serve_prompts(engine, prompts, max_new)
+        torch.cuda.synchronize()
+    finally:
+        wall = time.perf_counter() - t0
+        launches = _launches(DB, LO)
+        plain_calls.restore()
+    return out, ttft, wall, launches, plain_calls.n
+
+
+def _only(what: str, launches: dict, plain: int, need) -> None:
+    """``need`` launched, nothing else did and no plain version ran."""
+    print(f"{what} launches: {json.dumps({n: c for n, c in launches.items() if c})}; plain "
+          f"calls {plain}", flush=True)
+    if plain:
+        raise Failed(f"{plain} plain-version call(s) ran in {what}")
+    stray = [n for n, c in launches.items() if c and n not in need]
+    if stray or not all(launches[n] > 0 for n in need):
+        raise Failed(f"{what}: {list(need)} must launch and nothing else; launched {launches}")
+
+
+def serve_int4(torch, DB, LO, make_engine, serve_prompts, params, cfg, prompts, max_new,
+               seed: int, int8_times: dict):
+    """Phase 12, the main path on int4 weights: ``make_engine`` from the
+    front door (16 slots, page 16, chunk 256, K = 8, prefix cache on) over
+    ``int4_params`` serves phase 4's requests, each window one CUDA-graph
+    replay, through the int4 forms of kernels 1-4 alone; its graph line,
+    the same requests on a graphs=False engine (token for token), and the
+    ``paths`` lines: graphed against eager, and int4 against phase 4's int8
+    run. Returns (streams, launches)."""
+    engine = front_door(make_engine, params, cfg)
+    if not engine.graphs:
+        raise Failed("phase 12's engine runs its windows eagerly")
+    times = _timed(torch, engine)
+    out, ttft, wall, launches, plain = _served_run(torch, DB, LO, engine, serve_prompts,
+                                                   prompts, max_new)
+    times = {k: list(v) for k, v in times.items()}  # the served run's alone
+    _only("int4 phase", launches, plain, INT4_MAIN_KERNELS)
+    _check_streams(out, max_new, cfg.vocab)
+    engine.check_invariants()
+    n_tok = sum(len(t) for t in out.values())
+    ttfts = sorted(ttft.values())
+    print(f"int4 phase: {len(prompts)} requests of {len(prompts[0])}..{len(prompts[-1])} "
+          f"tokens, {n_tok} tokens in {wall:.3f} s; decode "
+          f"{(n_tok - len(prompts)) / sum(times['window']):.1f} tokens/s over "
+          f"{len(times['window'])} windows; TTFT p50 {ttfts[len(ttfts) // 2]:.3f} s max "
+          f"{ttfts[-1]:.3f} s", flush=True)
+    graph_check(engine, serve_prompts, cfg.vocab, seed, "int4 phase")
+    ref = front_door(make_engine, params, cfg, graphs=False)
+    ref_times = _timed(torch, ref)
+    ref_out, ref_ttft = serve_prompts(ref, prompts, max_new)
+    _same_streams("int4 phase", out, ref_out, max_new)
+    path_line("int4 phase (phase 12, K = 8, spec off)", times, ref_times, ttft.values(),
+              ref_ttft.values())
+    print(f"paths int4 against int8, graphed (phase 12 against phase 4, the same requests): "
+          f"window ms int4 {_ms(times['window'])}, int8 {_ms(int8_times['window'])}; prefill "
+          f"chunk ms int4 {_ms(times['chunk'])}, int8 {_ms(int8_times['chunk'])}", flush=True)
+    return out, launches
+
+
+def serve_int4_others(torch, DB, LO, qwen2, spec_decode, L, make_engine, serve_prompts, paths,
+                      params, cfg, prompts, d_prompts, seed: int, dense_times: dict) -> dict:
+    """Phase 12 at INT4_SHORT_NEW new tokens: speculation (``DORA_SPEC_K=4``,
+    kernel 5's int4 form on every tick; two requests held to the spec-off
+    engine as phase 7 holds them), the dense engine (``DORA_PAGED_KV=0``,
+    kernel 8's; graphed against eager, its graph line, step ms against
+    phase 9's int8 steps) and batch 1 (phase 10 on int4: ``generate``
+    through kernel 9's, ``run_loop`` through kernel 10's). Returns each int4
+    form's launches."""
+    n = INT4_SHORT_NEW
+    spec = front_door(make_engine, params, cfg, DORA_SPEC_K=str(SPEC_K))
+    out, _, wall, launches, plain = _served_run(torch, DB, LO, spec, serve_prompts, prompts, n)
+    _only("int4 spec phase", launches, plain,
+          ("attention_paged_chunk_step_int4", "attention_paged_spec_step_int4",
+           "mlp_step_int4", "lm_head_argmax_int4"))
+    _check_streams(out, n, cfg.vocab)
+    print(f"int4 spec phase: {sum(len(t) for t in out.values())} tokens in {wall:.3f} s",
+          flush=True)
+    check_spec_agreement(paths, prompts, n, out, picks=(1, 15))
+    got = dict(launches)
+
+    dense = front_door(make_engine, params, cfg, DORA_PAGED_KV="0")
+    times = _timed(torch, dense)
+    d_out, _, wall, launches, plain = _served_run(torch, DB, LO, dense, serve_prompts,
+                                                  d_prompts, n)
+    times = {k: list(v) for k, v in times.items()}
+    # prompts of <= 32 tokens prefill through the dequantized products
+    # (layers.matmul), as the JAX package's XLA does: no int8_matmul
+    _only("int4 dense phase", launches, plain,
+          ("attention_batch_step_int4", "mlp_step_int4", "lm_head_argmax_int4"))
+    _check_streams(d_out, n, cfg.vocab)
+    got["attention_batch_step_int4"] = launches["attention_batch_step_int4"]
+    graph_check(dense, serve_prompts, cfg.vocab, seed, "int4 dense phase")
+    ref = front_door(make_engine, params, cfg, graphs=False, DORA_PAGED_KV="0")
+    ref_times = _timed(torch, ref)
+    ref_out, _ = serve_prompts(ref, d_prompts, n)
+    _same_streams("int4 dense phase", d_out, ref_out, n)
+    print(f"paths int4 against int8, dense step ms graphed (phase 12 against phase 9): int4 "
+          f"{_ms(times['window'])} (eager {_ms(ref_times['window'])}), int8 "
+          f"{_ms(dense_times['window'])}; int4 dense decode "
+          f"{(sum(len(t) for t in d_out.values()) - len(d_prompts)) / sum(times['window']):.1f} "
+          f"tokens/s", flush=True)
+
+    g_launches, s_launches = batch1(torch, DB, LO, qwen2, spec_decode, L, paths, params, cfg,
+                                    d_prompts, n, d_out, form="_int4")
+    got["attention_step_int4"] = g_launches["attention_step_int4"]
+    got["attention_chunk_step_int4"] = s_launches["attention_chunk_step_int4"]
+    return got
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch/CUDA port")
     ap.add_argument("--layers", type=int, default=28, help="model depth (width stays)")
@@ -3287,8 +3772,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="build, then only phase 3's kernel checks (prints no result line)")
     ap.add_argument("--paths", action="store_true",
-                    help="build, then only phases 4, 6, 9 and 10 and the VLM's generate, for "
-                         "their times (prints no result line)")
+                    help="build, then only phases 4, 6, 9 and 10, phase 12's main path and the "
+                         "VLM's generate, for their times (prints no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3335,6 +3820,11 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         print(f"weights: Qwen2-1.5B width, {cfg.layers} layers, seeded random "
               f"(std 0.02) int8 in {time.perf_counter() - t:.2f} s", flush=True)
+        t = time.perf_counter()
+        params4 = int4_params(torch, qwen2, cfg, args.seed)
+        print(f"weights: the same, int4 (DORA_WEIGHT_BITS=4, groups of "
+              f"{DB.weight_groups(params4)['blocks/0/wqkv']}) in {time.perf_counter() - t:.2f} s",
+              flush=True)
 
         rng = np.random.default_rng(args.seed)
         lengths = np.linspace(64, 1000, args.requests).round().astype(int)
@@ -3350,13 +3840,15 @@ def main(argv=None) -> int:
             sublayer_breakdown(torch, DB, params, cfg, args.seed + 12)
             sweep_fidelity(torch, DB, params, cfg, prompts, args.seed + 14)
             return 0
-        if args.paths:  # phases 4, 6, 9 and 10 and the VLM's generate alone: the paths' times
-            serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg, prompts, args.max_new,
-                        args.seed + 20)
+        if args.paths:  # phases 4, 6, 9, 10 and 12's main path and the VLM's generate alone
+            _, _, slice_times = serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg,
+                                            prompts, args.max_new, args.seed + 20)
+            serve_int4(torch, DB, LO, make_engine, serve_prompts, params4, cfg, prompts,
+                       args.max_new, args.seed + 25, slice_times)
             serve_spec_cache(torch, DB, LO, vlm, make_engine, serve_prompts, params, cfg,
                              args.seed + 2, args.max_new)
-            d_served, _ = serve_dense(torch, DB, LO, IM, make_engine, serve_prompts, params,
-                                      cfg, d_prompts, args.max_new, args.seed + 22)
+            d_served, _, _ = serve_dense(torch, DB, LO, IM, make_engine, serve_prompts, params,
+                                         cfg, d_prompts, args.max_new, args.seed + 22)
             batch1(torch, DB, LO, qwen2, spec_decode, L,
                    _Paths(torch, DB, LO, IM, qwen2, L, serve_prompts, params, cfg), params,
                    cfg, d_prompts, args.max_new, d_served)
@@ -3367,8 +3859,10 @@ def main(argv=None) -> int:
         kernels.insert(2, check_lora_kernel(torch, LO, cfg, args.seed + 3))
         kernels += check_dense_kernels(torch, DB, IM, params, cfg, args.seed + 6)
         kernels.append(check_flash_kernel(torch, FA, args.seed + 8))
+        kernels += check_int4_kernels(torch, DB, params4, params, cfg, args.seed + 23)
         check_mma_tile(torch, DB, args.seed + 13)
         check_tc_tile(torch, DB, args.seed + 16)
+        check_tc_tile4(torch, DB, args.seed + 24)
         check_widened_kernels(torch, DB, LO, qwen2, args.seed + 9)
         int8_flash_breakdown(torch, IM, FA, params, args.seed + 17)
         flash_fidelity(torch, FA, args.seed + 18)
@@ -3380,8 +3874,9 @@ def main(argv=None) -> int:
             return 0
         by_name = {k["name"]: k for k in kernels}
 
-        served, launches = serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg,
-                                       prompts, args.max_new, args.seed + 20)
+        served, launches, slice_times = serve_slice(torch, DB, LO, qwen2, serve_prompts,
+                                                    params, cfg, prompts, args.max_new,
+                                                    args.seed + 20)
         for n in SPEC_OFF_KERNELS:
             by_name[n]["launches"] = launches[n]
 
@@ -3414,9 +3909,9 @@ def main(argv=None) -> int:
             by_name["attention_paged_spec_step_int8kv"]["launches"] = ts_launches[
                 "attention_paged_spec_step_int8kv"]
 
-        d_served, d_launches = serve_dense(torch, DB, LO, IM, make_engine, serve_prompts,
-                                           params, cfg, d_prompts, args.max_new,
-                                           args.seed + 22)
+        d_served, d_launches, dense_times = serve_dense(torch, DB, LO, IM, make_engine,
+                                                        serve_prompts, params, cfg, d_prompts,
+                                                        args.max_new, args.seed + 22)
         for n in ("int8_matmul", "attention_batch_step"):
             by_name[n]["launches"] = d_launches[n]
         g_launches, s_launches = batch1(torch, DB, LO, qwen2, spec_decode, L, paths, params,
@@ -3437,6 +3932,27 @@ def main(argv=None) -> int:
         v_launches = serve_vlm(torch, DB, LO, vlm, vpaths, vparams, vcfg, args.seed + 11,
                                args.max_new)
         by_name["flash_attention"]["launches"] = v_launches["flash_attention"]
+        del vparams, vpaths
+
+        i_served, i_launches = serve_int4(torch, DB, LO, make_engine, serve_prompts, params4,
+                                          cfg, prompts, args.max_new, args.seed + 25,
+                                          slice_times)
+        for n in INT4_MAIN_KERNELS:
+            by_name[n]["launches"] = i_launches[n]
+        paths4 = _Paths(torch, DB, LO, IM, qwen2, L, serve_prompts, params4, cfg)
+        # The served token is held to NEAR_TIE; the bf16 plain stream's to
+        # SPEC_REF_TIE, as phases 7, 8c and 10 hold a reference path's: its
+        # decode steps round in their own order (seen 0.051 below the f32 top
+        # where the served token was the top, the plain path's own prefill
+        # of the same prefix picking the served token).
+        check_plain_agreement(paths4, prompts, args.max_new, i_served, picks=(0, 1),
+                              b_bound=SPEC_REF_TIE)
+        o_launches = serve_int4_others(torch, DB, LO, qwen2, spec_decode, L, make_engine,
+                                       serve_prompts, paths4, params4, cfg, prompts, d_prompts,
+                                       args.seed + 26, dense_times)
+        for n in ("attention_paged_spec_step_int4", "attention_batch_step_int4",
+                  "attention_step_int4", "attention_chunk_step_int4"):
+            by_name[n]["launches"] = o_launches[n]
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

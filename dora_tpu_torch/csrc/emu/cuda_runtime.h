@@ -2,8 +2,9 @@
 // (ops/_build.py, compiler="host"): the same sources compiled by a C++20
 // host compiler with -DDORA_EMULATE, so their indexing and arithmetic can be
 // checked against the plain PyTorch versions on a machine without a card.
-// Each block runs in turn; each of its threads is one OS thread, and
-// __syncthreads() is a barrier over them. __shared__ arrays become statics
+// Each block runs in turn; each of its threads is one OS thread (the same
+// threads for every block of a launch), and __syncthreads() is a barrier
+// over them. __shared__ arrays become statics
 // and dynamic shared memory one buffer per block, which is sound because
 // only one block runs at a time. Warp collectives (__shfl_xor_sync, the
 // ballot, and the m16n8k16 bf16 mma and ldmatrix of common.cuh) meet at a
@@ -193,6 +194,10 @@ inline unsigned __float_as_uint(float f) {
     return u;
 }
 
+// The launch: one OS thread per thread of a block, made once and run over
+// every block in turn; a block ends for all of them (a barrier of its own,
+// apart from __syncthreads') before any starts the next, so the next block
+// finds the shared arrays and the warps' exchange buffers free.
 template <class F>
 void dora_emu_launch(dim3 grid, dim3 block, F&& body, size_t smem = 0) {
     const unsigned nt = block.x * block.y * block.z;
@@ -200,25 +205,26 @@ void dora_emu_launch(dim3 grid, dim3 block, F&& body, size_t smem = 0) {
     gridDim = grid;
     std::vector<uint4> dyn((smem + sizeof(uint4) - 1) / sizeof(uint4) + 1);
     dora_emu_smem = reinterpret_cast<unsigned char*>(dyn.data());
-    for (unsigned bz = 0; bz < grid.z; ++bz)
-        for (unsigned by = 0; by < grid.y; ++by)
-            for (unsigned bx = 0; bx < grid.x; ++bx) {
-                std::barrier<> bar(nt);
-                dora_emu_barrier = &bar;
-                std::vector<std::unique_ptr<DoraEmuWarp>> warps;
-                for (unsigned w = 0; w * 32 < nt; ++w)
-                    warps.push_back(std::make_unique<DoraEmuWarp>(std::min(32u, nt - w * 32)));
-                std::vector<std::thread> threads;
-                threads.reserve(nt);
-                for (unsigned t = 0; t < nt; ++t)
-                    threads.emplace_back([&, t] {
-                        threadIdx = dim3(t % block.x, (t / block.x) % block.y,
-                                         t / (block.x * block.y));
+    std::barrier<> bar(nt), block_end(nt);
+    dora_emu_barrier = &bar;
+    std::vector<std::unique_ptr<DoraEmuWarp>> warps;
+    for (unsigned w = 0; w * 32 < nt; ++w)
+        warps.push_back(std::make_unique<DoraEmuWarp>(std::min(32u, nt - w * 32)));
+    std::vector<std::thread> threads;
+    threads.reserve(nt);
+    for (unsigned t = 0; t < nt; ++t)
+        threads.emplace_back([&, t] {
+            threadIdx = dim3(t % block.x, (t / block.x) % block.y, t / (block.x * block.y));
+            dora_emu_warp = warps[t / 32].get();
+            dora_emu_lane = t % 32;
+            for (unsigned bz = 0; bz < grid.z; ++bz)
+                for (unsigned by = 0; by < grid.y; ++by)
+                    for (unsigned bx = 0; bx < grid.x; ++bx) {
                         blockIdx = dim3(bx, by, bz);
-                        dora_emu_warp = warps[t / 32].get();
-                        dora_emu_lane = t % 32;
+                        dora_emu_turn = 0;
                         body();
-                    });
-                for (auto& th : threads) th.join();
-            }
+                        block_end.arrive_and_wait();
+                    }
+        });
+    for (auto& th : threads) th.join();
 }

@@ -3,6 +3,11 @@
 //
 //   idx[m] = argmax_v (rms(x[m]).astype(bf16) @ q_head)[v] * s[v]
 //
+// int4 weights (the TPU kernel's branch on w.dtype == uint8): the packed head
+// [D/2, V] with group scales [D/G, V], 117 MB + 7.3 MB at that width, through
+// the int4 form of the same product (TcInt4, common.cuh), whose sums come
+// scaled, over the full D with no split.
+//
 // Bound: the int8 head, 1536 x 151936 = 233 MB at Qwen2-1.5B width, read once
 // per call while rows are few; at 256 rows the product is 120 GFLOP and the
 // call is bound by operations. The [M, V] logits never reach device memory.
@@ -27,22 +32,23 @@ static __device__ __forceinline__ bool better(float v, int i, float bv, int bi) 
 }
 
 constexpr int HEAD_BN = TcPrefill::BN;
-static_assert(TcDecode<1>::BN == HEAD_BN, "one vocab tile width for every band");
+static_assert(TcDecode<1>::BN == HEAD_BN && TcDecode4<1>::BN == HEAD_BN,
+              "one vocab tile width for every band");
 
 // Grid (bands, vocab tiles): the best (logit, index) of each row of the band
-// over the tile's columns.
-template <class T>
+// over the tile's columns (s null: the sums are scaled already).
+template <class T, class Fmt>
 static __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
-head_tiles(const bf16* __restrict__ H, const int8_t* __restrict__ W,
-           const float* __restrict__ s, float* __restrict__ tile_val,
-           int* __restrict__ tile_idx, int M, int V, int D, int ntiles) {
+head_tiles(const bf16* __restrict__ H, QWeight W, const float* __restrict__ s,
+           float* __restrict__ tile_val, int* __restrict__ tile_idx, int M, int V, int D,
+           int ntiles) {
     DORA_DYNAMIC_SMEM(smem);
     __shared__ float rv[T::BM][T::WN];
     __shared__ int ri[T::BM][T::WN];
     const int tile = blockIdx.y, m0 = blockIdx.x * T::BM;
     const TcCols cols{T::BN, tile * T::BN, V, 0};
     float acc[T::MT][T::NT][4];
-    tc_tile_product<T>(H, W, M, D, V, cols, m0, 0, D, smem, acc);
+    tc_tile_product<T, Fmt>(H, W, M, D, V, cols, m0, 0, D, smem, acc);
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
     const int wm = warp / T::WN, wn = warp % T::WN;
     // Per lane: the best of its columns (4t .. 4t + 3 of each of the warp's
@@ -61,7 +67,7 @@ head_tiles(const bf16* __restrict__ H, const int8_t* __restrict__ W,
                 for (int e = 0; e < 2; ++e) {
                     const int n = tile * T::BN + tc_col<T>(wn, j, t, 2 * hh + e);
                     if (n < V) {
-                        const float v = acc[i][j][2 * hh + e] * s[n];
+                        const float v = col_scale(s, n, acc[i][j][2 * hh + e]);
                         if (better(v, n, bv, bi)) { bv = v; bi = n; }
                     }
                 }
@@ -92,11 +98,13 @@ head_tiles(const bf16* __restrict__ H, const int8_t* __restrict__ W,
     }
 }
 
-template <class T>
-static inline int launch_head(const bf16* H, const int8_t* W, const float* s, float* tile_val,
+template <class T, class Fmt>
+static inline int launch_head(const bf16* H, const QWeight& W, const float* s, float* tile_val,
                               int* tile_idx, int M, int V, int D, int ntiles, void* stream) {
-    auto kern = head_tiles<T>;
-    int err = tc_allow<T>(kern);
+    int err = tc_takes<T>(W, D);
+    if (err) return err;
+    auto kern = head_tiles<T, Fmt>;
+    err = tc_allow<T, Fmt>(kern);
     if (err) return err;
     dim3 grid((M + T::BM - 1) / T::BM, ntiles);
     DORA_LAUNCH_SMEM(kern, grid, dim3(T::THREADS), T::SMEM, stream, H, W, s, tile_val,
@@ -137,12 +145,13 @@ head_reduce(const float* __restrict__ tile_val, const int* __restrict__ tile_idx
 
 extern "C" int dora_head_tiles(int V) { return (V + HEAD_BN - 1) / HEAD_BN; }
 
-// x [M, D] bf16; norm_w [D] f32; w int8 [D, V]; s [V] f32.
+// x [M, D] bf16; norm_w [D] f32; w int8 [D, V] with s [V] f32 (G 0), or
+// int4 [D/2, V] with group scales s [D/G, V] f32 (G a multiple of TC_MAX_BK).
 // out_idx [M] int32; out_val [M] f32. Scratch: h bf16 [M, D];
 // tile_val f32 / tile_idx int32 [M, dora_head_tiles(V)].
 extern "C" int dora_lm_head_argmax(const void* x, const void* norm_w,
                                    const void* w, const void* s, void* out_idx,
-                                   void* out_val, int M, int D, int V, float eps,
+                                   void* out_val, int M, int D, int V, int G, float eps,
                                    void* h, void* tile_val, void* tile_idx,
                                    void* stream) {
     int err = 0;
@@ -151,12 +160,15 @@ extern "C" int dora_lm_head_argmax(const void* x, const void* norm_w,
                 (const bf16*)x, (const float*)norm_w, (bf16*)h, D, eps);
     DORA_CHECK(err);
     const bf16* H = (const bf16*)h;
-    const int8_t* Wq = (const int8_t*)w;
-    const float* sv = (const float*)s;
+    const QWeight Wq = G ? QWeight(w, (const float*)s, G) : QWeight((const int8_t*)w);
+    const float* sv = G ? nullptr : (const float*)s;
     float* tv = (float*)tile_val;
     int* ti = (int*)tile_idx;
-    const int e = tc_by_band(M, [&](auto c) {
-        return launch_head<decltype(c)>(H, Wq, sv, tv, ti, M, V, D, ntiles, stream);
+    const int e = tc_by_format(Wq, [&](auto f) {
+        return tc_band<decltype(f)>(M, [&](auto c) {
+            return launch_head<decltype(c), decltype(f)>(H, Wq, sv, tv, ti, M, V, D, ntiles,
+                                                         stream);
+        });
     });
     if (!err) err = e;
     DORA_LAUNCH(head_reduce, dim3(M), dim3(256), stream,

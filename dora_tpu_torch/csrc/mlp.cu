@@ -9,6 +9,12 @@
 // 41.3 MB, against a few hundred KB of activations at M = 16; at M = 256
 // (prefill) the products reach 21 GFLOP and the call is bound by operations.
 //
+// int4 weights (the TPU kernel's branch on w_gateup.dtype == uint8): packed
+// w_gateup [D/2, 2F] with group scales [D/G, 2F], w_down [F/2, D] with
+// [F/G, D], half the bytes (20.6 MB at Qwen2-1.5B width). The same launches
+// run the int4 form of the product (TcInt4, common.cuh), which applies the
+// group scales itself, so every epilogue's per-column scale is null.
+//
 // Design: the TPU kernel sweeps the ffn in tiles and carries one f32
 // accumulator from grid step to grid step. Hopper blocks run in no order, so
 // the sweep is split into launches: RMSNorm rows; the gate/up product; the
@@ -27,7 +33,7 @@
 #include "common.cuh"
 
 // a[m, f] = bf16(silu(g) * u) with g, u from the split partials of the
-// [M, 2F] gate/up product.
+// [M, 2F] gate/up product (s null: the partials are scaled already).
 static __global__ void __launch_bounds__(256)
 silu_mul(const float* __restrict__ P, int splits, int M, int F,
          const float* __restrict__ s, const float* __restrict__ b,
@@ -42,8 +48,8 @@ silu_mul(const float* __restrict__ P, int splits, int M, int F,
         g += pz[f];
         u += pz[F + f];
     }
-    g = g * s[f] + (b ? b[f] : 0.f);
-    u = u * s[F + f] + (b ? b[F + f] : 0.f);
+    g = col_scale(s, f, g) + (b ? b[f] : 0.f);
+    u = col_scale(s, F + f, u) + (b ? b[F + f] : 0.f);
     float silu = g / (1.f + expf(-g));
     a[idx] = __float2bfloat16(silu * u);
 }
@@ -51,16 +57,15 @@ silu_mul(const float* __restrict__ P, int splits, int M, int F,
 // The gate/up product over all of K with the SwiGLU in its epilogue: the
 // block's first BN / 2 columns are gate columns n0.., the second BN / 2 the
 // matching up columns F + n0.., so each thread holds g and u of its columns.
-template <class T>
+template <class T, class Fmt>
 static __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
-gateup_swiglu(const bf16* __restrict__ h, const int8_t* __restrict__ w,
-              const float* __restrict__ s, const float* __restrict__ b,
-              bf16* __restrict__ a, int M, int D, int F) {
+gateup_swiglu(const bf16* __restrict__ h, QWeight w, const float* __restrict__ s,
+              const float* __restrict__ b, bf16* __restrict__ a, int M, int D, int F) {
     DORA_DYNAMIC_SMEM(smem);
     const TcCols cols{T::BN / 2, (int)blockIdx.x * (T::BN / 2), F, F};
     const int m0 = blockIdx.y * T::BM;
     float acc[T::MT][T::NT][4];
-    tc_tile_product<T>(h, w, M, D, 2 * F, cols, m0, 0, D, smem, acc);
+    tc_tile_product<T, Fmt>(h, w, M, D, 2 * F, cols, m0, 0, D, smem, acc);
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
     const int wm = warp / T::WN, wn = warp % T::WN;
 #pragma unroll
@@ -72,8 +77,9 @@ gateup_swiglu(const bf16* __restrict__ h, const int8_t* __restrict__ w,
                 const int m = m0 + (wm * T::MT + i) * 16 + g + (c >= 2 ? 8 : 0);
                 const int f = cols.col0 + tc_col<T>(wn, j, t, c);
                 if (m >= M || f >= F) continue;
-                const float gv = acc[i][j][c] * s[f] + (b ? b[f] : 0.f);
-                const float uv = acc[i][j + T::NT / 2][c] * s[F + f] + (b ? b[F + f] : 0.f);
+                const float gv = col_scale(s, f, acc[i][j][c]) + (b ? b[f] : 0.f);
+                const float uv = col_scale(s, F + f, acc[i][j + T::NT / 2][c]) +
+                                 (b ? b[F + f] : 0.f);
                 a[(size_t)m * F + f] = __float2bfloat16(gv / (1.f + expf(-gv)) * uv);
             }
 }
@@ -85,11 +91,13 @@ gateup_swiglu(const bf16* __restrict__ h, const int8_t* __restrict__ w,
 // leaves the 320 threads the fewest spilled registers.
 using TcSwiglu = TcCfg<4, 4, 2, 5, 4, 2, 32>;
 
-template <class T>
-static inline int launch_swiglu(const bf16* h, const int8_t* w, const float* s,
+template <class T, class Fmt>
+static inline int launch_swiglu(const bf16* h, const QWeight& w, const float* s,
                                 const float* b, bf16* a, int M, int D, int F, void* stream) {
-    auto kern = gateup_swiglu<T>;
-    int err = tc_allow<T>(kern);
+    int err = tc_takes<T>(w, D);
+    if (err) return err;
+    auto kern = gateup_swiglu<T, Fmt>;
+    err = tc_allow<T, Fmt>(kern);
     if (err) return err;
     dim3 grid((F + T::BN / 2 - 1) / (T::BN / 2), (M + T::BM - 1) / T::BM);
     DORA_LAUNCH_SMEM(kern, grid, dim3(T::THREADS), T::SMEM, stream, h, w, s, b, a, M, D, F);
@@ -137,54 +145,108 @@ extern "C" int dora_tc_tile(const void* A, const void* W, void* D, void* stream)
     return err;
 }
 
+// The int4 form of tc_tile: A bf16 [16, 32] and W [16, 16] bytes, one group
+// of 32 rows packed as ops/int4.py packs it (the low nibble of byte [j, n] is
+// row j, the high nibble row 16 + j, each q + 8): one ldmatrix.trans of W
+// gives the B registers of both k steps through widen_u4_cols, and D f32
+// [16, 16] = A @ q, the product's fragment path for int4 weights.
+static __global__ void __launch_bounds__(32)
+tc_tile4(const bf16* __restrict__ A, const uint8_t* __restrict__ W, float* __restrict__ D) {
+    DORA_DYNAMIC_SMEM(smem);
+    constexpr int LD = 40;  // bf16 an A row: 80 bytes, 16-byte aligned
+    bf16* As = reinterpret_cast<bf16*>(smem);
+    int8_t* Rs = reinterpret_cast<int8_t*>(As + 16 * LD);  // 16-byte rows
+    const int lane = threadIdx.x, g = lane / 4, t = lane % 4;
+    for (int i = lane; i < 512; i += 32) As[(i / 32) * LD + i % 32] = A[i];
+    for (int i = lane; i < 256; i += 32) Rs[i] = (int8_t)W[i];
+    __syncthreads();
+    const int lr = lane % 8 + 8 * (lane / 8 % 2), lh = lane / 16;
+    uint32_t r[4], b[2][2][2];  // [k step][even, odd][register]
+    ldmatrix_x4<true>(r, Rs + lr * 16);
+    for (int v = 0; v < 2; ++v)
+        widen_u4_cols(r[v], b[0][0][v], b[0][1][v], b[1][0][v], b[1][1][v]);
+    float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int ks = 0; ks < 2; ++ks) {
+        uint32_t a[4];
+        ldmatrix_x4<false>(a, As + lr * LD + 16 * ks + 8 * lh);
+        mma_bf16_16816(d[0], a, b[ks][0]);
+        mma_bf16_16816(d[1], a, b[ks][1]);
+    }
+    for (int p = 0; p < 2; ++p)
+        for (int c = 0; c < 4; ++c)
+            D[(g + (c >= 2 ? 8 : 0)) * 16 + 4 * t + 2 * (c & 1) + p] = d[p][c];
+}
+
+extern "C" int dora_tc_tile4(const void* A, const void* W, void* D, void* stream) {
+    int err = 0;
+    DORA_LAUNCH_SMEM(tc_tile4, dim3(1), dim3(32), 16 * 40 * 2 + 256, stream,
+                     (const bf16*)A, (const uint8_t*)W, (float*)D);
+    DORA_CHECK(err);
+    return err;
+}
+
 // K splits of the gate/up (which 0; 1 = fused SwiGLU, no partials) and down
-// (which 1) products at M rows. A prefill band runs the gate/up product
-// whole; decode splits it as tc_gemm does.
-extern "C" int dora_mlp_splits(int M, int D, int F, int which) {
-    if (which == 0) return M > TC_DECODE_ROWS ? 1 : tc_splits(M, 2 * F, D);
-    return tc_splits(M, D, F);
+// (which 1) products at M rows, G the int4 group of that product's weight (0:
+// int8). A prefill band runs the gate/up product whole; decode splits it as
+// tc_gemm does.
+extern "C" int dora_mlp_splits(int M, int D, int F, int which, int G) {
+    if (which == 0) return M > TC_DECODE_ROWS ? 1 : tc_splits(M, 2 * F, D, G);
+    return tc_splits(M, D, F, G);
 }
 
 // f32 elements of the partials scratch dora_mlp_step needs (-1 past int).
-extern "C" int dora_mlp_scratch(int M, int D, int F) {
-    const long long gu = dora_mlp_splits(M, D, F, 0);
+extern "C" int dora_mlp_scratch(int M, int D, int F, int g_gu, int g_down) {
+    const long long gu = dora_mlp_splits(M, D, F, 0, g_gu);
     long long need = gu > 1 ? gu * M * 2 * F : 0;
-    const long long dn = (long long)dora_mlp_splits(M, D, F, 1) * M * D;
+    const long long dn = (long long)dora_mlp_splits(M, D, F, 1, g_down) * M * D;
     if (dn > need) need = dn;
     return need > INT_MAX ? -1 : (int)need;
 }
 
-// x [M, D] bf16; norm_w [D] f32; w_gu int8 [D, 2F]; s_gu [2F] f32;
-// b_gu [2F] f32 or null; w_down int8 [F, D]; s_down [D] f32.
+// x [M, D] bf16; norm_w [D] f32; b_gu [2F] f32 or null. Weights int8 with
+// per-column f32 scales (g_gu, g_down 0): w_gu [D, 2F] with s_gu [2F],
+// w_down [F, D] with s_down [D]; or int4 (g_gu, g_down their groups, each a
+// multiple of TC_MAX_BK): w_gu [D/2, 2F] with group scales s_gu [D/g_gu, 2F],
+// w_down [F/2, D] with s_down [F/g_down, D].
 // out [M, D]: bf16 (x + delta) when residual, else f32 delta.
-// Scratch: h bf16 [M, D]; a bf16 [M, F]; p f32 of dora_mlp_scratch(M, D, F).
+// Scratch: h bf16 [M, D]; a bf16 [M, F]; p f32 of dora_mlp_scratch(M, D, F,
+// g_gu, g_down).
 extern "C" int dora_mlp_step(const void* x, const void* norm_w, const void* w_gu,
                              const void* s_gu, const void* b_gu,
                              const void* w_down, const void* s_down, void* out,
-                             int residual, int M, int D, int F, float eps,
-                             void* h, void* a, void* p, void* stream) {
+                             int residual, int M, int D, int F, int g_gu, int g_down,
+                             float eps, void* h, void* a, void* p, void* stream) {
     int err = 0;
     DORA_LAUNCH(rmsnorm_rows, dim3(M), dim3(256), stream,
                 (const bf16*)x, (const float*)norm_w, (bf16*)h, D, eps);
     DORA_CHECK(err);
     auto keep = [&](int e) { if (!err) err = e; };
     const bf16* hb = (const bf16*)h;
-    const float *sg = (const float*)s_gu, *bg = (const float*)b_gu;
-    const int gu = dora_mlp_splits(M, D, F, 0);
+    // int4: the products apply the group scales, the epilogues none
+    const QWeight wg = g_gu ? QWeight(w_gu, (const float*)s_gu, g_gu)
+                            : QWeight((const int8_t*)w_gu);
+    const QWeight wd = g_down ? QWeight(w_down, (const float*)s_down, g_down)
+                              : QWeight((const int8_t*)w_down);
+    const float* sg = g_gu ? nullptr : (const float*)s_gu;
+    const float* sd = g_down ? nullptr : (const float*)s_down;
+    const float* bg = (const float*)b_gu;
+    const int gu = dora_mlp_splits(M, D, F, 0, g_gu);
     if (gu == 1) {
-        keep(tc_by_band<TcSwiglu>(M, [&](auto c) {
-            return launch_swiglu<decltype(c)>(hb, (const int8_t*)w_gu, sg, bg, (bf16*)a, M, D,
-                                              F, stream);
+        keep(tc_by_format(wg, [&](auto f) {
+            return tc_band<decltype(f), TcSwiglu>(M, [&](auto c) {
+                return launch_swiglu<decltype(c), decltype(f)>(hb, wg, sg, bg, (bf16*)a, M, D,
+                                                               F, stream);
+            });
         }));
     } else {
-        keep(tc_gemm(hb, (const int8_t*)w_gu, (float*)p, M, 2 * F, D, stream));
+        keep(tc_gemm(hb, wg, (float*)p, M, 2 * F, D, stream));
         size_t total = (size_t)M * F;
         DORA_LAUNCH(silu_mul, dim3((unsigned)((total + 255) / 256)), dim3(256), stream,
                     (const float*)p, gu, M, F, sg, bg, (bf16*)a);
         DORA_CHECK(err);
     }
-    keep(tc_gemm((const bf16*)a, (const int8_t*)w_down, (float*)p, M, D, F, stream));
-    launch_epilogue((const float*)p, tc_splits(M, D, F), M, D, (const float*)s_down, nullptr,
+    keep(tc_gemm((const bf16*)a, wd, (float*)p, M, D, F, stream));
+    launch_epilogue((const float*)p, tc_splits(M, D, F, g_down), M, D, sd, nullptr,
                     residual ? (const bf16*)x : nullptr, residual ? (bf16*)out : nullptr,
                     residual ? nullptr : (float*)out, stream, err);
     return err;

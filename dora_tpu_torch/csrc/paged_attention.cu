@@ -44,6 +44,14 @@
 // context -> int8 wo -> + residual. In the paged pools page 0 is the null
 // page; int8 pools carry f32 scale planes [P, KV, page] beside them.
 //
+// int4 weights (the TPU kernels' branch on wqkv.dtype == uint8): wqkv and wo
+// packed as dora_tpu/ops/int4.py packs them, with group scales, 2.75 MB at
+// Qwen2-1.5B against int8's 5.5. Their products run the int4 form of the
+// tensor-core product of kernels 1 and 2 (tc_gemm, common.cuh) into the same
+// partials, split as it splits them (dora_gemm_splits with the group), and
+// the per-row kernel and the epilogue take no per-column scale: the sums
+// come scaled. The int8 products stay on the SIMT launch_gemm.
+//
 // Bound: at decode width (16 rows) and at spec width (16 streams x 5 rows)
 // the wqkv + wo int8 stream (5.5 MB at Qwen2-1.5B) plus each stream's K/V
 // rows (4 KB per row per layer in bf16 at 2 kv heads of 128: a 2048-row
@@ -193,7 +201,7 @@ qkv_rope_write(const float* __restrict__ P, int splits, int M,
         const int col = h * HD + d;
         float acc = 0.f;
         for (int z = 0; z < splits; ++z) acc += P[((size_t)z * M + i) * N + col];
-        const float val = acc * s[col] + (b ? b[col] : 0.f);
+        const float val = col_scale(s, col, acc) + (b ? b[col] : 0.f);
         buf[d] = val;
         __syncthreads();
         const float rot = val * c + buf[partner] * sn;
@@ -652,18 +660,37 @@ static void launch_sweep(const SweepShape& shape, const void* q, const void* kcu
     DORA_CHECK(err);
 }
 
-extern "C" int dora_gemm_splits(int M, int N, int K) {
-    return gemm_splits(M, N, K);
+// The K splits of a weight product of the sublayers: the SIMT int8 product
+// (G 0), or the tensor-core int4 product of group G.
+extern "C" int dora_gemm_splits(int M, int N, int K, int G) {
+    return G ? tc_splits(M, N, K, G) : gemm_splits(M, N, K);
+}
+
+// One weight product of a sublayer into the partials p: int8 w (G 0) on the
+// SIMT launch_gemm, whose epilogue applies the per-column scale s; int4 (G
+// its group) on the tensor-core product, which applies the group scales s
+// itself. Returns the epilogue's scale (null for int4) and sets `splits`.
+static const float* weight_product(const bf16* A, const void* w, const void* s, int G,
+                                   float* p, int M, int N, int K, int& splits, void* stream,
+                                   int& err) {
+    splits = dora_gemm_splits(M, N, K, G);
+    if (!G) {
+        launch_gemm(A, (const int8_t*)w, p, M, N, K, stream, err);
+        return (const float*)s;
+    }
+    const int e = tc_gemm(A, QWeight(w, (const float*)s, G), p, M, N, K, stream);
+    if (!err) err = e;
+    return nullptr;
 }
 
 // Shared tail of every entry point: wo product, scale, residual.
-static void out_projection(const void* x, const void* wo, const void* swo,
+static void out_projection(const void* x, const void* wo, const void* swo, int g_o,
                            void* out, int residual, int M, int D, int H, int hd,
                            void* p, void* attn, void* stream, int& err) {
-    launch_gemm((const bf16*)attn, (const int8_t*)wo, (float*)p, M, D, H * hd,
-                stream, err);
-    launch_epilogue((const float*)p, gemm_splits(M, D, H * hd), M, D,
-                    (const float*)swo, nullptr,
+    int splits;
+    const float* s = weight_product((const bf16*)attn, wo, swo, g_o, (float*)p, M, D, H * hd,
+                                    splits, stream, err);
+    launch_epilogue((const float*)p, splits, M, D, s, nullptr,
                     residual ? (const bf16*)x : nullptr,
                     residual ? (bf16*)out : nullptr,
                     residual ? nullptr : (float*)out, stream, err);
@@ -676,7 +703,7 @@ static void out_projection(const void* x, const void* wo, const void* swo,
 // (positions ? positions[sb] : pos0) + i % per_stream (see qkv_rope_write).
 template <bool Q8, class Rows, int HD>
 static void project_and_write(const void* x, const void* norm_w, const void* wqkv,
-                              const void* sqkv, const void* bqkv, const void* cosr,
+                              const void* sqkv, int g_qkv, const void* bqkv, const void* cosr,
                               const void* sinr, void* k_pool, void* v_pool,
                               void* k_scale, void* v_scale, const void* positions,
                               int pos0, int per_stream, Rows rows, int M, int D,
@@ -686,10 +713,12 @@ static void project_and_write(const void* x, const void* norm_w, const void* wqk
     DORA_LAUNCH(rmsnorm_rows, dim3(M), dim3(256), stream,
                 (const bf16*)x, (const float*)norm_w, (bf16*)h, D, eps);
     DORA_CHECK(err);
-    launch_gemm((const bf16*)h, (const int8_t*)wqkv, (float*)p, M, N, D, stream, err);
+    int splits;
+    const float* s = weight_product((const bf16*)h, wqkv, sqkv, g_qkv, (float*)p, M, N, D,
+                                    splits, stream, err);
     auto kern = qkv_rope_write<Q8, Rows, HD>;
     DORA_LAUNCH(kern, dim3(M), dim3(HD), stream,
-                (const float*)p, gemm_splits(M, N, D), M, (const float*)sqkv,
+                (const float*)p, splits, M, s,
                 (const float*)bqkv, (const float*)cosr, (const float*)sinr,
                 (const int*)positions, pos0, per_stream, rows,
                 k_pool, v_pool, (float*)k_scale, (float*)v_scale, (float*)q,
@@ -708,19 +737,19 @@ template <bool Q8, class Rows, int HD>
 static int decode_step(const void* x, const void* norm_w, const void* wqkv,
                        const void* sqkv, const void* bqkv, const void* cosr,
                        const void* sinr, void* k_pool, void* v_pool, void* k_scale,
-                       void* v_scale, const void* wo, const void* swo,
-                       const void* positions, int pos0, Rows rows, int ctx, void* out,
+                       void* v_scale, const void* wo, const void* swo, int g_qkv,
+                       int g_o, const void* positions, int pos0, Rows rows, int ctx, void* out,
                        int residual, int B, int D, int H, int KV, float eps,
                        float scale, void* h, void* p, void* q, void* kcur, void* vcur,
                        void* attn, void* part, void* stream) {
     int err = 0;
-    project_and_write<Q8, Rows, HD>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool,
+    project_and_write<Q8, Rows, HD>(x, norm_w, wqkv, sqkv, g_qkv, bqkv, cosr, sinr, k_pool,
                                     v_pool, k_scale, v_scale, positions, pos0, 1, rows,
                                     B, D, H, KV, eps, h, p, q, kcur, vcur, stream, err);
     launch_sweep<Q8, true, Rows, HD>(stream_shape(B, 1, H, KV, ctx), q, kcur, vcur, k_pool,
                                      v_pool, k_scale, v_scale, rows, B, 1, positions, pos0, 0,
                                      0, H, KV, scale, attn, part, stream, err);
-    out_projection(x, wo, swo, out, residual, B, D, H, HD, p, attn, stream, err);
+    out_projection(x, wo, swo, g_o, out, residual, B, D, H, HD, p, attn, stream, err);
     return err;
 }
 
@@ -741,12 +770,12 @@ template <bool Q8, int HD>
 static int chunk_step(const void* x, const void* norm_w, const void* wqkv,
                       const void* sqkv, const void* bqkv, const void* cosr,
                       const void* sinr, void* k_pool, void* v_pool, void* k_scale,
-                      void* v_scale, const void* wo, const void* swo, int position,
-                      PagedRows rows, void* out, int residual, int M, int D, int H,
+                      void* v_scale, const void* wo, const void* swo, int g_qkv, int g_o,
+                      int position, PagedRows rows, void* out, int residual, int M, int D, int H,
                       int KV, float eps, float scale, void* h, void* p, void* q,
                       void* kcur, void* vcur, void* attn, void* part, void* stream) {
     int err = 0;
-    project_and_write<Q8, PagedRows, HD>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr,
+    project_and_write<Q8, PagedRows, HD>(x, norm_w, wqkv, sqkv, g_qkv, bqkv, cosr, sinr,
                                          k_pool, v_pool, k_scale, v_scale, nullptr,
                                          position, M, rows, M, D, H, KV, eps, h, p, q,
                                          kcur, vcur, stream, err);
@@ -754,7 +783,7 @@ static int chunk_step(const void* x, const void* norm_w, const void* wqkv,
                                            k_pool, v_pool, k_scale, v_scale, rows, 1, M,
                                            nullptr, position, 1, Q8, H, KV, scale, attn, part,
                                            stream, err);
-    out_projection(x, wo, swo, out, residual, M, D, H, HD, p, attn, stream, err);
+    out_projection(x, wo, swo, g_o, out, residual, M, D, H, HD, p, attn, stream, err);
     return err;
 }
 
@@ -771,13 +800,14 @@ template <int HD>
 static int dense_chunk_step(const void* x, const void* norm_w, const void* wqkv,
                             const void* sqkv, const void* bqkv, const void* cosr,
                             const void* sinr, void* k_cache, void* v_cache, const void* wo,
-                            const void* swo, int position, void* out, int residual, int M,
+                            const void* swo, int g_qkv, int g_o, int position, void* out,
+                            int residual, int M,
                             int D, int H, int KV, int S, float eps, float scale, void* h,
                             void* p, void* q, void* kcur, void* vcur, void* attn, void* part,
                             void* stream) {
     int err = 0;
     const DenseRows rows{S};
-    project_and_write<false, DenseRows, HD>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr,
+    project_and_write<false, DenseRows, HD>(x, norm_w, wqkv, sqkv, g_qkv, bqkv, cosr, sinr,
                                             k_cache, v_cache, nullptr, nullptr, nullptr,
                                             position, M, rows, M, D, H, KV, eps, h, p, q,
                                             kcur, vcur, stream, err);
@@ -785,7 +815,7 @@ static int dense_chunk_step(const void* x, const void* norm_w, const void* wqkv,
                                               k_cache, v_cache, nullptr, nullptr, rows, 1, M,
                                               nullptr, position, 1, 1, H, KV, scale, attn,
                                               part, stream, err);
-    out_projection(x, wo, swo, out, residual, M, D, H, HD, p, attn, stream, err);
+    out_projection(x, wo, swo, g_o, out, residual, M, D, H, HD, p, attn, stream, err);
     return err;
 }
 
@@ -801,20 +831,20 @@ template <bool Q8, int HD>
 static int spec_step(const void* x, const void* norm_w, const void* wqkv,
                      const void* sqkv, const void* bqkv, const void* cosr,
                      const void* sinr, void* k_pool, void* v_pool, void* k_scale,
-                     void* v_scale, const void* wo, const void* swo,
+                     void* v_scale, const void* wo, const void* swo, int g_qkv, int g_o,
                      const void* positions, PagedRows rows, int ctx, void* out,
                      int residual, int B, int m, int D, int H, int KV, float eps,
                      float scale, void* h, void* p, void* q, void* kcur, void* vcur,
                      void* attn, void* part, void* stream) {
     int err = 0;
     const int M = B * m;
-    project_and_write<Q8, PagedRows, HD>(x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool,
+    project_and_write<Q8, PagedRows, HD>(x, norm_w, wqkv, sqkv, g_qkv, bqkv, cosr, sinr, k_pool,
                                          v_pool, k_scale, v_scale, positions, 0, m, rows,
                                          M, D, H, KV, eps, h, p, q, kcur, vcur, stream, err);
     launch_sweep<Q8, false, PagedRows, HD>(stream_shape(B, m, H, KV, ctx), q, kcur, vcur, k_pool,
                                            v_pool, k_scale, v_scale, rows, B, m, positions, 0,
                                            1, 1, H, KV, scale, attn, part, stream, err);
-    out_projection(x, wo, swo, out, residual, M, D, H, HD, p, attn, stream, err);
+    out_projection(x, wo, swo, g_o, out, residual, M, D, H, HD, p, attn, stream, err);
     return err;
 }
 
@@ -833,11 +863,15 @@ static int spec_step(const void* x, const void* norm_w, const void* wqkv,
 // form). Pools and planes are updated in place. The page is a multiple of 16
 // (checked by the wrappers).
 //
-// x [B, D] bf16; norm_w [D] f32; wqkv int8 [D, (H+2KV)*hd]; sqkv f32;
-// bqkv f32 or null; cos/sin [B, hd] f32; pools bf16 or int8 [P, KV, page, hd];
-// wo int8 [H*hd, D]; swo [D] f32; positions [B] int32; block_tables
-// [B, max_pages] int32. out [B, D] bf16 (residual) or f32.
-// Scratch: h bf16 [B, D]; p f32 (max of the two products' splits*M*N);
+// x [B, D] bf16; norm_w [D] f32; wqkv int8 [D, (H+2KV)*hd] with sqkv f32
+// [(H+2KV)*hd]; bqkv f32 or null; cos/sin [B, hd] f32; pools bf16 or int8
+// [P, KV, page, hd]; wo int8 [H*hd, D] with swo [D] f32; positions [B] int32;
+// block_tables [B, max_pages] int32. out [B, D] bf16 (residual) or f32.
+// g_qkv and g_o select int4 weights (0: int8): wqkv [D/2, (H+2KV)*hd] with
+// group scales sqkv [D/g_qkv, (H+2KV)*hd], wo [H*hd/2, D] with swo
+// [H*hd/g_o, D], each group a multiple of TC_MAX_BK.
+// Scratch: h bf16 [B, D]; p f32 (max of the two products' splits*M*N, the
+// splits of dora_gemm_splits);
 // q f32 [B, H, hd]; kcur, vcur f32 [B, KV, hd]; attn bf16 [B, H*hd]; part
 // f32 [splits, B * H, hd + 2] for the sweep's partials, splits =
 // dora_batch_sweep_splits(B, 1, H, KV, max_pages * page).
@@ -846,14 +880,14 @@ extern "C" int dora_attention_paged_batch_step(
     const void* bqkv, const void* cosr, const void* sinr, void* k_pool,
     void* v_pool, void* k_scale, void* v_scale, const void* wo, const void* swo,
     const void* positions, const void* block_tables, void* out, int residual,
-    int B, int D, int H, int KV, int hd, int page, int max_pages, float eps,
-    float scale, void* h, void* p, void* q, void* kcur, void* vcur, void* attn,
+    int B, int D, int H, int KV, int hd, int page, int max_pages, int g_qkv, int g_o,
+    float eps, float scale, void* h, void* p, void* q, void* kcur, void* vcur, void* attn,
     void* part, void* stream) {
     const PagedRows rows{(const int*)block_tables, max_pages, page};
     DORA_BY_HEAD_DIM(hd, (k_scale ? decode_step<true, PagedRows, HD>
                                   : decode_step<false, PagedRows, HD>)(
         x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool, k_scale, v_scale,
-        wo, swo, positions, 0, rows, max_pages * page, out, residual, B, D, H, KV, eps, scale,
+        wo, swo, g_qkv, g_o, positions, 0, rows, max_pages * page, out, residual, B, D, H, KV, eps, scale,
         h, p, q, kcur, vcur, attn, part, stream));
 }
 
@@ -868,12 +902,12 @@ extern "C" int dora_attention_paged_chunk_step(
     const void* bqkv, const void* cosr, const void* sinr, void* k_pool,
     void* v_pool, void* k_scale, void* v_scale, const void* wo, const void* swo,
     int position, const void* block_table, void* out, int residual, int M, int D,
-    int H, int KV, int hd, int page, float eps, float scale, void* h, void* p,
-    void* q, void* kcur, void* vcur, void* attn, void* part, void* stream) {
+    int H, int KV, int hd, int page, int g_qkv, int g_o, float eps, float scale, void* h,
+    void* p, void* q, void* kcur, void* vcur, void* attn, void* part, void* stream) {
     const PagedRows rows{(const int*)block_table, 0, page};
     DORA_BY_HEAD_DIM(hd, (k_scale ? chunk_step<true, HD> : chunk_step<false, HD>)(
         x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool, k_scale, v_scale,
-        wo, swo, position, rows, out, residual, M, D, H, KV, eps, scale, h, p, q,
+        wo, swo, g_qkv, g_o, position, rows, out, residual, M, D, H, KV, eps, scale, h, p, q,
         kcur, vcur, attn, part, stream));
 }
 
@@ -904,13 +938,13 @@ extern "C" int dora_attention_paged_spec_step(
     const void* bqkv, const void* cosr, const void* sinr, void* k_pool,
     void* v_pool, void* k_scale, void* v_scale, const void* wo, const void* swo,
     const void* positions, const void* block_tables, void* out, int residual,
-    int B, int m, int D, int H, int KV, int hd, int page, int max_pages, float eps,
-    float scale, void* h, void* p, void* q, void* kcur, void* vcur, void* attn,
+    int B, int m, int D, int H, int KV, int hd, int page, int max_pages, int g_qkv, int g_o,
+    float eps, float scale, void* h, void* p, void* q, void* kcur, void* vcur, void* attn,
     void* part, void* stream) {
     const PagedRows rows{(const int*)block_tables, max_pages, page};
     DORA_BY_HEAD_DIM(hd, (k_scale ? spec_step<true, HD> : spec_step<false, HD>)(
         x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_pool, v_pool, k_scale, v_scale,
-        wo, swo, positions, rows, max_pages * page, out, residual, B, m, D, H, KV, eps,
+        wo, swo, g_qkv, g_o, positions, rows, max_pages * page, out, residual, B, m, D, H, KV, eps,
         scale, h, p, q, kcur, vcur, attn, part, stream));
 }
 
@@ -925,11 +959,11 @@ extern "C" int dora_attention_dense_step(
     const void* bqkv, const void* cosr, const void* sinr, void* k_cache,
     void* v_cache, const void* wo, const void* swo, const void* positions,
     int position, void* out, int residual, int B, int D, int H, int KV, int hd,
-    int S, float eps, float scale, void* h, void* p, void* q, void* kcur,
+    int S, int g_qkv, int g_o, float eps, float scale, void* h, void* p, void* q, void* kcur,
     void* vcur, void* attn, void* part, void* stream) {
     DORA_BY_HEAD_DIM(hd, (decode_step<false, DenseRows, HD>(
         x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_cache, v_cache, nullptr, nullptr,
-        wo, swo, positions, position, DenseRows{S}, S, out, residual, B, D, H, KV, eps,
+        wo, swo, g_qkv, g_o, positions, position, DenseRows{S}, S, out, residual, B, D, H, KV, eps,
         scale, h, p, q, kcur, vcur, attn, part, stream)));
 }
 
@@ -941,11 +975,12 @@ extern "C" int dora_attention_dense_chunk_step(
     const void* x, const void* norm_w, const void* wqkv, const void* sqkv,
     const void* bqkv, const void* cosr, const void* sinr, void* k_cache,
     void* v_cache, const void* wo, const void* swo, int position, void* out,
-    int residual, int M, int D, int H, int KV, int hd, int S, float eps,
-    float scale, void* h, void* p, void* q, void* kcur, void* vcur, void* attn,
+    int residual, int M, int D, int H, int KV, int hd, int S, int g_qkv, int g_o,
+    float eps, float scale, void* h, void* p, void* q, void* kcur, void* vcur, void* attn,
     void* part, void* stream) {
     DORA_BY_HEAD_DIM(hd, (dense_chunk_step<HD>(
-        x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_cache, v_cache, wo, swo, position,
+        x, norm_w, wqkv, sqkv, bqkv, cosr, sinr, k_cache, v_cache, wo, swo, g_qkv, g_o,
+        position,
         out, residual, M, D, H, KV, S, eps, scale, h, p, q, kcur, vcur, attn, part,
         stream)));
 }

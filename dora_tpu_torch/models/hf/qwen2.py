@@ -1,7 +1,7 @@
 """Qwen2-family causal LM, on torch tensors.
 
 Counterpart of dora_tpu/models/hf/qwen2.py: the config, checkpoint loading
-and int8 decode quantization (with the bf16 sidecar unless
+and int8 or int4 decode quantization (with the bf16 sidecar unless
 ``DORA_INT8_PURE``); the unfused model (``_lm``, ``forward``,
 ``prefill_padded``) over models/layers.py; batch-1 greedy ``generate`` and
 its fused step ``fused_step`` (one row, or a speculative verify's W rows,
@@ -12,9 +12,9 @@ the page pool (fp or int8 KV), the adapter catalog ``make_lora_pool`` and
 ``make_paged_engine`` (speculation, the prefix cache, int8 KV and LoRA
 included). ``params_from_jax`` turns the JAX package's parameter tree into
 this package's, so the two can be held against each other on the same
-weights.
-
-Not ported yet: int4 weights (``quantize_decode`` refuses the int4 knobs).
+weights. ``quantize_decode`` gives int8 weights, or the grouped int4 layout
+under ``DORA_INT4_DECODE`` / ``DORA_WEIGHT_BITS=4``, and every engine serves
+either.
 """
 
 from __future__ import annotations
@@ -174,42 +174,29 @@ def random_params(cfg: Qwen2Config, *, seed: int = 0, std: float = 0.02,
     return params
 
 
-def refuse_int4_knobs() -> None:
-    """``DORA_WEIGHT_BITS`` (4 or 8) and ``DORA_INT4_DECODE`` pick int4 on 4
-    in the JAX package; int4 is not ported, so those settings raise rather
-    than quietly serve int8, and any other ``DORA_WEIGHT_BITS`` raises as
-    there."""
+def quantize_decode(params, cfg: Qwen2Config) -> dict:
+    """Quantize the decode path (blocks + head) into the fused kernel layout;
+    a tied head is quantized from the embedding transpose, and the embedding
+    itself stays float for the gather. Each weight keeps its bf16 sidecar for
+    the large-M unfused products (prefill) unless ``DORA_INT8_PURE`` is set,
+    as in the JAX package. ``DORA_INT4_DECODE``, or ``DORA_WEIGHT_BITS=4``,
+    picks the grouped int4 layout (ops/int4.py) for every weight, the head
+    included; any ``DORA_WEIGHT_BITS`` other than 4 or 8 raises."""
+    from dora_tpu_torch.ops.int8_matmul import quantize_int8, quantize_tree
+
     bits = os.environ.get("DORA_WEIGHT_BITS", "")
     if bits and bits not in ("4", "8"):
         raise ValueError(f"DORA_WEIGHT_BITS must be 4 or 8, got {bits!r}")
+    quantizer = quantize_int8
     if os.environ.get("DORA_INT4_DECODE") or bits == "4":
-        raise NotImplementedError(
-            "int4 decode weights (DORA_INT4_DECODE / DORA_WEIGHT_BITS=4) are "
-            "not ported to dora_tpu_torch yet; unset them to serve int8"
-        )
-
-
-def quantize_decode(params, cfg: Qwen2Config) -> dict:
-    """Quantize the decode path (blocks + head) into the int8 fused kernel
-    layout; a tied head is quantized from the embedding transpose, and the
-    embedding itself stays float for the gather. Each weight keeps its bf16
-    sidecar for the large-M unfused products (prefill) unless
-    ``DORA_INT8_PURE`` is set, as in the JAX package.
-
-    The JAX package's ``DORA_WEIGHT_BITS`` (4 or 8) and ``DORA_INT4_DECODE``
-    pick int4 on 4; int4 is not ported, so those settings raise here rather
-    than quietly serve int8, and any other ``DORA_WEIGHT_BITS`` raises as
-    there."""
-    from dora_tpu_torch.ops.int8_matmul import quantize_int8, quantize_tree
-
-    refuse_int4_knobs()
+        from dora_tpu_torch.ops.int4 import quantize_int4 as quantizer
     keep_bf16 = not os.environ.get("DORA_INT8_PURE")
     out = dict(params)
-    out["blocks"] = quantize_tree(params["blocks"], keep_bf16=keep_bf16)
+    out["blocks"] = quantize_tree(params["blocks"], keep_bf16=keep_bf16, quantizer=quantizer)
     head = params.get("lm_head")
     if cfg.tie_embeddings or head is None:
         head = params["embed"].T
-    out["lm_head"] = quantize_int8(head, keep_bf16)
+    out["lm_head"] = quantizer(head, keep_bf16)
     return out
 
 
@@ -393,7 +380,7 @@ def generate(params, cfg: Qwen2Config, prompt_ids, max_new_tokens: int):
     use_fused = _vlm.fused_decode_ready(params, b)
     if use_fused:
         _vlm.refuse_unkernelled("qwen2.generate", dev, heads=cfg.heads,
-                                kv_heads=cfg.kv_heads, head_dim=cfg.head_dim)
+                                kv_heads=cfg.kv_heads, head_dim=cfg.head_dim, params=params)
     dtype = L.compute_dtype(dev)
     head = _head(params, cfg, dtype)
     rope = _rope(cfg, dev)
@@ -435,7 +422,7 @@ def make_batch_engine(params, cfg: Qwen2Config, *, max_slots: int = 4,
         raise ValueError("batch engine needs quantize_decode params and the fused "
                          "decode tier (DORA_FUSED_DECODE not 0)")
     _vlm.refuse_unkernelled("make_batch_engine", device, heads=cfg.heads,
-                            kv_heads=cfg.kv_heads, head_dim=cfg.head_dim)
+                            kv_heads=cfg.kv_heads, head_dim=cfg.head_dim, params=params)
     dev = resolve_device(device)
     params = _to(params, dev)
     rope = _rope(cfg, dev)
@@ -671,7 +658,8 @@ def make_paged_engine(params, cfg: Qwen2Config, *, max_slots: int = 16,
     if not _vlm.fused_batch_ready(params):
         raise ValueError("paged engine needs quantize_decode params")
     _vlm.refuse_unkernelled("make_paged_engine", device, heads=cfg.heads,
-                            kv_heads=cfg.kv_heads, head_dim=cfg.head_dim, page=page_size)
+                            kv_heads=cfg.kv_heads, head_dim=cfg.head_dim, page=page_size,
+                            params=params)
     dev = resolve_device(device)
     params = _to(params, dev)
     chunk = chunk or min(256, cfg.max_seq)

@@ -6,9 +6,10 @@ tables, RMSNorm with f32 statistics, and the unfused pre-norm block
 (``block_forward`` = ``attention_sublayer`` + ``mlp_sublayer``, the
 RMSNorm + SwiGLU layout of Qwen2) over plain or quantized weights, which
 prefill and the unfused decode run. ``matmul`` keeps the JAX dispatch
-rule: a quantized weight goes through the int8 kernel
-(ops/int8_matmul.py) for M <= 32 rows, or when it has no ``bf16``
-sidecar, and through a plain bf16 product of the sidecar above that. Attention is the reference's einsum with an f32
+rule: a quantized weight goes through a plain bf16 product of its ``bf16``
+sidecar above 32 rows, else an int8 weight through the int8 kernel
+(ops/int8_matmul.py) and an int4 weight through the product of its
+dequantized form (ops/int4.py). Attention is the reference's einsum with an f32
 softmax, rounded where the reference rounds (no fused SDPA), or, for the
 no-cache self-attention paths that ask for it (``flash="full"`` /
 ``"causal"``), flash attention (ops/flash_attention.py: the hand-written
@@ -53,15 +54,19 @@ def _not_ported(norm="rms", mlp="swiglu", **variants) -> None:
 
 def matmul(x, w):
     """``x @ w`` for a float weight or a quantized dict {"int8", "scale"[,
-    "bf16"]}: M <= 32 rows (decode, short prompts, the head on one row), or
-    no sidecar, take the int8 kernel; larger M the plain product of the bf16
-    sidecar in x's dtype."""
+    "bf16"]} or {"int4", "gscale"[, "bf16"]}: larger M than 32 rows with a
+    sidecar take the plain product of the bf16 sidecar in x's dtype; else
+    int8 takes the int8 kernel (decode, short prompts, the head on one row)
+    and int4 the product of its dequantized weight in x's dtype, as the JAX
+    package leaves it to XLA (the fused decode tier is int4's kernel path)."""
     if isinstance(w, dict):
-        if "int8" not in w:
-            raise NotImplementedError(f"quantized weight {sorted(w)}: only int8 is ported")
         m = math.prod(x.shape[:-1])
         if m > MATVEC_MAX_ROWS and "bf16" in w:
             return x @ w["bf16"].to(x.dtype)
+        if "int4" in w:
+            from dora_tpu_torch.ops.int4 import dequantize_int4
+
+            return x @ dequantize_int4(w, x.dtype)
         from dora_tpu_torch.ops.int8_matmul import int8_matmul
 
         return int8_matmul(x, w["int8"], w["scale"])

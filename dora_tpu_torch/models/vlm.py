@@ -47,7 +47,7 @@ import torch
 from dora_tpu_torch._device import resolve_device
 from dora_tpu_torch.models import layers as L
 # params_from_jax: the generic tree conversion, re-exported for the VLM's tree
-from dora_tpu_torch.models.hf.qwen2 import params_from_jax, refuse_int4_knobs  # noqa: F401
+from dora_tpu_torch.models.hf.qwen2 import params_from_jax  # noqa: F401
 from dora_tpu_torch.ops import decode_block as DB
 from dora_tpu_torch.ops import flash_attention as FA
 from dora_tpu_torch.ops import lora as LO
@@ -175,19 +175,21 @@ def param_count(params) -> int:
 
 def quantize_decode(params) -> dict:
     """Quantize the decode-path weights (LM blocks and lm_head) into the
-    int8 fused layout, each with its bf16 sidecar for the large-M products
+    int8 fused layout, or with ``DORA_INT4_DECODE`` the grouped int4 one
+    (ops/int4.py), each with its bf16 sidecar for the large-M products
     unless ``DORA_INT8_PURE``. The vision tower and the embedding stay
-    float: they run once per image in prefill. int4 (``DORA_INT4_DECODE``,
-    ``DORA_WEIGHT_BITS=4``) is not ported and raises, as in
-    models/hf/qwen2.quantize_decode."""
-    from dora_tpu_torch.ops.int8_matmul import quantize_tree
+    float: they run once per image in prefill. As in the JAX package, this
+    reads only those two knobs (``DORA_WEIGHT_BITS`` is the text model's)."""
+    from dora_tpu_torch.ops.int8_matmul import quantize_int8, quantize_tree
 
-    refuse_int4_knobs()
+    quantizer = quantize_int8
+    if os.environ.get("DORA_INT4_DECODE"):
+        from dora_tpu_torch.ops.int4 import quantize_int4 as quantizer
     keep_bf16 = not os.environ.get("DORA_INT8_PURE")
     out = dict(params)
-    out["blocks"] = quantize_tree(params["blocks"], keep_bf16=keep_bf16)
-    out["lm_head"] = quantize_tree({"lm_head": params["lm_head"]},
-                                   keep_bf16=keep_bf16)["lm_head"]
+    out["blocks"] = quantize_tree(params["blocks"], keep_bf16=keep_bf16, quantizer=quantizer)
+    out["lm_head"] = quantize_tree({"lm_head": params["lm_head"]}, keep_bf16=keep_bf16,
+                                   quantizer=quantizer)["lm_head"]
     return out
 
 
@@ -197,13 +199,18 @@ def on_card(device) -> bool:
 
 
 def refuse_unkernelled(what: str, device, *, heads: int, kv_heads: int,
-                       head_dim: int, page: int | None = None) -> None:
+                       head_dim: int, page: int | None = None, params=None) -> None:
     """On the card, raise before serving when a model's attention shapes
-    (and a paged pool of ``page`` rows) are ones the attention kernels do
-    not take, naming each limit (ops/decode_block.kernel_shape_limits); the
-    CPU's plain versions take every shape."""
+    (and a paged pool of ``page`` rows), or the groups of its int4 weights in
+    ``params``, are ones the kernels do not take, naming each limit
+    (ops/decode_block.kernel_shape_limits, int4_group_limits); the CPU's
+    plain versions take every shape."""
     if on_card(device):
-        DB.refuse_kernel_shapes(what, heads, kv_heads, head_dim, page)
+        limits = DB.kernel_shape_limits(heads, kv_heads, head_dim, page)
+        if params is not None:
+            limits += DB.int4_group_limits(DB.weight_groups(params))
+        if limits:
+            raise ValueError(f"{what}: " + "; ".join(limits))
 
 
 # ---------------------------------------------------------------------------
@@ -353,6 +360,7 @@ def _refuse_for_generation(what: str, params, cfg: VLMConfig, fused: bool) -> No
     limits = FA.kernel_shape_limits(cfg.vision_head_dim) if L.use_flash(dev) else []
     if fused:
         limits += DB.kernel_shape_limits(cfg.heads, cfg.kv_heads, cfg.head_dim)
+        limits += DB.int4_group_limits(DB.weight_groups(params))
     if limits:
         raise ValueError(f"{what}: " + "; ".join(limits))
 
@@ -459,14 +467,17 @@ def generate_speculative(params, cfg: VLMConfig, images, prompt_ids,
 
 
 def _qw(d: dict):
-    """Quantized dict -> (weights, scales) in the kernel layout."""
+    """Quantized dict -> (weights, scales) in the kernel layout: int8 with
+    its per-column scales, or int4 nibbles with their group scales."""
+    if "int4" in d:
+        return d["int4"], d["gscale"]
     return d["int8"], d["scale"]
 
 
 def fused_decode_ready(params, batch: int = 1) -> bool:
     """True when a decode step can run the fused tier: batch 1, params in
-    the int8 fused layout of ``quantize_decode`` (wqkv / w_gateup / wo /
-    w_down / lm_head) and no output-projection biases. Opt-out:
+    the fused layout of ``quantize_decode`` (wqkv / w_gateup / wo / w_down /
+    lm_head, int8 or int4) and no output-projection biases. Opt-out:
     ``DORA_FUSED_DECODE=0`` (or empty), as in the JAX package."""
     if os.environ.get("DORA_FUSED_DECODE", "1") in ("", "0"):
         return False
@@ -477,7 +488,7 @@ def fused_decode_ready(params, batch: int = 1) -> bool:
         return False
 
     def _q(x):
-        return isinstance(x, dict) and "int8" in x
+        return isinstance(x, dict) and ("int8" in x or "int4" in x)
 
     return (
         _q(blk.get("wqkv"))
@@ -809,6 +820,7 @@ def _counters():
     """(function, attribute) of every launch counter a decode pass bumps."""
     return ([(fn, "launches") for fn in DB.KERNELS]
             + [(fn, "launches_int8kv") for fn in DB.KV_INT8_KERNELS]
+            + [(fn, "launches_int4") for fn in DB.KERNELS]
             + [(LO.lora_gather_matmul, "launches")])
 
 

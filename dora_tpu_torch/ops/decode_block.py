@@ -1,6 +1,8 @@
 """The fused decode sublayers, on torch tensors.
 
-Counterpart of dora_tpu/ops/decode_block.py (int8 weights): the sublayers of
+Counterpart of dora_tpu/ops/decode_block.py (int8 weights with per-column
+scales, or int4 weights with group scales, ops/int4.py, chosen by the weight's
+dtype as there: uint8 is int4): the sublayers of
 the paged serving path (fp or int8 KV pages, with the KV number format
 ``kv_quant_rows`` / ``kv_dequant``) and of the dense caches (the dense
 batch engine's ``attention_batch_step``, batch-1 decode's
@@ -33,32 +35,34 @@ from __future__ import annotations
 import torch
 
 from dora_tpu_torch.ops import _build
+from dora_tpu_torch.ops.int4 import unpack_grouped
 
 _P, _I, _F = _build.P, _build.I, _build.F
 
 _SIGNATURES = {
     "mlp": {
-        "dora_mlp_splits": [_I] * 4,
-        "dora_mlp_scratch": [_I] * 3,
+        "dora_mlp_splits": [_I] * 5,
+        "dora_mlp_scratch": [_I] * 5,
         "dora_tc_tile": [_P] * 4,
-        "dora_mlp_step": [_P] * 8 + [_I] * 4 + [_F] + [_P] * 4,
+        "dora_tc_tile4": [_P] * 4,
+        "dora_mlp_step": [_P] * 8 + [_I] * 6 + [_F] + [_P] * 4,
     },
     "lm_head": {
         "dora_head_tiles": [_I],
-        "dora_lm_head_argmax": [_P] * 6 + [_I] * 3 + [_F] + [_P] * 4,
+        "dora_lm_head_argmax": [_P] * 6 + [_I] * 4 + [_F] + [_P] * 4,
     },
     "paged_attention": {
-        "dora_gemm_splits": [_I, _I, _I],
+        "dora_gemm_splits": [_I] * 4,
         "dora_attention_paged_batch_step":
-            [_P] * 16 + [_I] * 8 + [_F] * 2 + [_P] * 8,
+            [_P] * 16 + [_I] * 10 + [_F] * 2 + [_P] * 8,
         "dora_attention_paged_chunk_step":
-            [_P] * 13 + [_I] + [_P] * 2 + [_I] * 7 + [_F] * 2 + [_P] * 8,
+            [_P] * 13 + [_I] + [_P] * 2 + [_I] * 9 + [_F] * 2 + [_P] * 8,
         "dora_attention_paged_spec_step":
-            [_P] * 16 + [_I] * 9 + [_F] * 2 + [_P] * 8,
+            [_P] * 16 + [_I] * 11 + [_F] * 2 + [_P] * 8,
         "dora_attention_dense_step":
-            [_P] * 12 + [_I] + [_P] + [_I] * 7 + [_F] * 2 + [_P] * 8,
+            [_P] * 12 + [_I] + [_P] + [_I] * 9 + [_F] * 2 + [_P] * 8,
         "dora_attention_dense_chunk_step":
-            [_P] * 11 + [_I] + [_P] + [_I] * 7 + [_F] * 2 + [_P] * 8,
+            [_P] * 11 + [_I] + [_P] + [_I] * 9 + [_F] * 2 + [_P] * 8,
         "dora_sweep_splits": [_I] * 5,
         "dora_batch_sweep_splits": [_I] * 5,
         "dora_mma_tile": [_P] * 4,
@@ -71,6 +75,11 @@ KERNEL_HEAD_DIMS = (64, 128)
 #: the sweeps step 16 rows at a time inside one page, so pool pages are
 #: multiples of this
 KERNEL_PAGE_MULTIPLE = 16
+#: an int4 weight's group (K / gscale rows) is a whole number of the
+#: tensor-core product's deepest stage (csrc/common.cuh TC_MAX_BK: the int4
+#: decode bands' 128), so that no stage straddles two groups; every Qwen2
+#: width is a multiple of 128, whose group is 128
+KERNEL_INT4_GROUP_MULTIPLE = 128
 
 
 def _lib(name: str, lib=None):
@@ -90,10 +99,27 @@ def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _wdot(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """``x @ q`` in f32 for int8 q [K, N], per-column scale s [1, N] on the
-    accumulator. x holds compute-dtype values, exact in f32, so this is the
-    reference's preferred_element_type=f32 dot."""
-    return (x.float() @ q.float()) * s.float().reshape(1, -1)
+    """``x @ W`` in f32 for x [M, K]: int8 q [K, N] with the per-column scale
+    s [1, N] on the accumulator; or int4 (q uint8 [K/2, N], ops/int4.py's
+    packing) with group scales s [K/G, N], the reference's int4 arithmetic:
+    the biased nibbles (q + 8) of each group against x's columns of that
+    group, minus 8 * sum(x) per group, times the group's scales, summed over
+    the groups. x holds compute-dtype values, exact in f32, so these are the
+    reference's preferred_element_type=f32 dots."""
+    if q.dtype != torch.uint8:
+        return (x.float() @ q.float()) * s.float().reshape(1, -1)
+    m, k = x.shape
+    ng = s.shape[0]
+    q3 = unpack_grouped(q, ng, torch.float32, biased=True)  # [ng, G, N]
+    x3 = x.float().reshape(m, ng, k // ng).transpose(0, 1)  # [ng, M, G]
+    parts = torch.bmm(x3, q3)  # [ng, M, N]
+    xsum = x3.sum(dim=2)  # [ng, M]
+    return ((parts - 8.0 * xsum[:, :, None]) * s.float()[:, None, :]).sum(dim=0)
+
+
+def _k_of(w: torch.Tensor) -> int:
+    """The K of a weight: its rows, twice them for int4."""
+    return w.shape[0] * 2 if w.dtype == torch.uint8 else w.shape[0]
 
 
 def _rotate(x: torch.Tensor, cos_full: torch.Tensor, sin_signed: torch.Tensor,
@@ -121,7 +147,7 @@ def _finish(x, o, residual: bool):
 
 def _project(x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, heads: int,
              kv_heads: int, head_dim: int, eps: float):
-    """RMSNorm -> int8 qkv (+ bias) -> rope of x's rows: q [rows, H, hd] and
+    """RMSNorm -> quantized qkv (+ bias) -> rope of x's rows: q [rows, H, hd] and
     k, v [rows, KV, hd] in f32."""
     h = _rms(x, norm_w, eps).to(x.dtype)
     qkv = _wdot(h, wqkv, sqkv)
@@ -224,9 +250,29 @@ def _f32(t: torch.Tensor | None, name: str, n: int, device):
     return t
 
 
-def _int8_weight(w: torch.Tensor, name: str, k: int, n: int, device) -> None:
-    _need(w, name, torch.int8, (k, n), device)
+def _qweight(w: torch.Tensor, s: torch.Tensor, name: str, k: int, n: int, device):
+    """A weight operand as the kernels take it: int8 [K, N] with a per-column
+    scale [1, N] (or [N]), or int4 uint8 [K/2, N] with f32 group scales
+    [K/G, N], G a multiple of KERNEL_INT4_GROUP_MULTIPLE. Returns (the scale
+    as the kernel reads it, G; 0 for int8)."""
+    if w.dtype != torch.uint8:
+        _need(w, name, torch.int8, (k, n), device)
+        _aligned16(w, name)
+        if s.shape[-1] != n or s.numel() != n:
+            raise ValueError(f"{name}: int8 weights take one scale a column, [1, {n}]; got "
+                             f"{tuple(s.shape)}")
+        return _f32(s, f"{name} scale", n, device), 0
+    _need(w, name, torch.uint8, (k // 2, n), device)
     _aligned16(w, name)
+    ng = s.shape[0] if s.dim() == 2 else 0
+    if not ng or k % ng:
+        raise ValueError(f"{name}: int4 weights take group scales [K/G, {n}] with K = {k}; got "
+                         f"{tuple(s.shape)}")
+    _need(s, f"{name} gscale", torch.float32, (ng, n), device)
+    limits = int4_group_limits({name: k // ng})
+    if limits:
+        raise ValueError("; ".join(limits))
+    return s, k // ng
 
 
 def _aligned16(t: torch.Tensor, name: str) -> None:
@@ -253,6 +299,28 @@ def kernel_shape_limits(heads: int, kv_heads: int, head_dim: int,
     return out
 
 
+def int4_group_limits(groups: dict) -> list[str]:
+    """The limit of the int4 weight products that weights of these groups
+    ({name: G}) run into, each named; empty when the kernels take them."""
+    first: dict[int, str] = {}  # one line a group size, naming its first weight
+    for n, g in groups.items():
+        if g % KERNEL_INT4_GROUP_MULTIPLE:
+            first.setdefault(g, n)
+    return [f"int4 group {g} of {n}: the kernels take groups that are multiples of "
+            f"{KERNEL_INT4_GROUP_MULTIPLE}" for g, n in first.items()]
+
+
+def weight_groups(params: dict, prefix: str = "") -> dict:
+    """{path: G} of every int4 weight of a parameter tree."""
+    out = {}
+    for key, v in params.items():
+        if isinstance(v, dict) and "int4" in v:
+            out[prefix + key] = 2 * v["int4"].shape[0] // v["gscale"].shape[0]
+        elif isinstance(v, dict):
+            out.update(weight_groups(v, f"{prefix}{key}/"))
+    return out
+
+
 def refuse_kernel_shapes(what: str, heads: int, kv_heads: int, head_dim: int,
                          page: int | None = None) -> None:
     """Raise, naming each limit, if ``what`` would launch an attention kernel
@@ -271,7 +339,7 @@ def refuse_kernel_shapes(what: str, heads: int, kv_heads: int, head_dim: int,
 def mlp_step_plain(x, norm_w, w_gateup, s_gateup, b_gateup, w_down, s_down,
                    *, eps: float = 1e-6, residual: bool = True):
     dtype = x.dtype
-    f = w_down.shape[0]
+    f = _k_of(w_down)
     h = _rms(x, norm_w, eps).to(dtype)
     gu = _wdot(h, w_gateup, s_gateup)
     if b_gateup is not None:
@@ -285,16 +353,14 @@ def _mlp_step_kernel(x, norm_w, w_gateup, s_gateup, b_gateup, w_down, s_down,
                      *, eps: float, residual: bool, lib=None):
     dev = x.device
     m, d = x.shape
-    f = w_down.shape[0]
+    f = _k_of(w_down)
     _need(x, "x", torch.bfloat16, (m, d), dev)
-    _int8_weight(w_gateup, "w_gateup", d, 2 * f, dev)
-    _int8_weight(w_down, "w_down", f, d, dev)
+    sgu, g_gu = _qweight(w_gateup, s_gateup, "w_gateup", d, 2 * f, dev)
+    sd, g_d = _qweight(w_down, s_down, "w_down", f, d, dev)
     nw = _f32(norm_w, "norm_w", d, dev)
-    sgu = _f32(s_gateup, "s_gateup", 2 * f, dev)
     bgu = _f32(b_gateup, "b_gateup", 2 * f, dev)
-    sd = _f32(s_down, "s_down", d, dev)
     lib = _lib("mlp", lib)
-    ws = lib.dora_mlp_scratch(m, d, f)
+    ws = lib.dora_mlp_scratch(m, d, f, g_gu, g_d)
     if ws < 0:
         raise ValueError(f"mlp_step: {m} rows of width {d} / ffn {f} overflow the kernel's "
                          f"scratch index")
@@ -306,10 +372,10 @@ def _mlp_step_kernel(x, norm_w, w_gateup, s_gateup, b_gateup, w_down, s_down,
     rc = lib.dora_mlp_step(
         x.data_ptr(), nw.data_ptr(), w_gateup.data_ptr(), sgu.data_ptr(),
         bgu.data_ptr() if bgu is not None else None, w_down.data_ptr(),
-        sd.data_ptr(), out.data_ptr(), int(residual), m, d, f, eps,
+        sd.data_ptr(), out.data_ptr(), int(residual), m, d, f, g_gu, g_d, eps,
         h.data_ptr(), a.data_ptr(), p.data_ptr(), _build.stream_of(x),
     )
-    mlp_step.launches += 1
+    _count(mlp_step, False, bool(g_gu or g_d))
     _build.check(rc, "mlp_step")
     return out
 
@@ -319,8 +385,10 @@ def mlp_step(x, norm_w, w_gateup, s_gateup, b_gateup, w_down, s_down,
     """Fused SwiGLU sublayer: x + down(silu(gate)·up) of rms(x).
 
     w_gateup int8 [D, 2F] (gate | up) with scales [1, 2F]; w_down int8
-    [F, D] with scales [1, D]; b_gateup [2F] or None. x [M, D]. Returns
-    [M, D] in x.dtype, or the raw f32 delta when ``residual`` is False."""
+    [F, D] with scales [1, D]; or int4 (uint8, ops/int4.py): w_gateup
+    [D/2, 2F] with group scales [D/G, 2F], w_down [F/2, D] with [F/G, D].
+    b_gateup [2F] or None. x [M, D]. Returns [M, D] in x.dtype, or the raw
+    f32 delta when ``residual`` is False."""
     if not x.is_cuda:
         return mlp_step_plain(x, norm_w, w_gateup, s_gateup, b_gateup, w_down,
                               s_down, eps=eps, residual=residual)
@@ -349,9 +417,8 @@ def _lm_head_argmax_kernel(x, norm_w, w, s, *, eps: float, return_val: bool,
     m, d = x.shape
     vocab = w.shape[1]
     _need(x, "x", torch.bfloat16, (m, d), dev)
-    _int8_weight(w, "w", d, vocab, dev)
+    sv, g = _qweight(w, s, "w", d, vocab, dev)
     nw = _f32(norm_w, "norm_w", d, dev)
-    sv = _f32(s, "s", vocab, dev)
     lib = _lib("lm_head", lib)
     ntiles = lib.dora_head_tiles(vocab)
     h = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
@@ -361,10 +428,10 @@ def _lm_head_argmax_kernel(x, norm_w, w, s, *, eps: float, return_val: bool,
     val = torch.empty((m,), dtype=torch.float32, device=dev)
     rc = lib.dora_lm_head_argmax(
         x.data_ptr(), nw.data_ptr(), w.data_ptr(), sv.data_ptr(),
-        idx.data_ptr(), val.data_ptr(), m, d, vocab, eps, h.data_ptr(),
+        idx.data_ptr(), val.data_ptr(), m, d, vocab, g, eps, h.data_ptr(),
         tile_val.data_ptr(), tile_idx.data_ptr(), _build.stream_of(x),
     )
-    lm_head_argmax.launches += 1
+    _count(lm_head_argmax, False, bool(g))
     _build.check(rc, "lm_head_argmax")
     return (idx, val) if return_val else idx
 
@@ -373,7 +440,8 @@ def lm_head_argmax(x, norm_w, w, s, *, eps: float = 1e-6,
                    return_val: bool = False):
     """Greedy next-token ids of rms(x) @ head without materializing logits.
 
-    x [M, D]; w int8 [D, V] with scales [1, V]. Returns [M] int32 (the first
+    x [M, D]; w int8 [D, V] with scales [1, V], or int4 [D/2, V] with group
+    scales [D/G, V]. Returns [M] int32 (the first
     index among equal maxima), and the winning f32 logit [M] with
     ``return_val``."""
     if not x.is_cuda:
@@ -457,14 +525,21 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _scratch(rows: int, d: int, heads: int, kv_heads: int, head_dim: int, lib, dev):
+def _partials(rows: int, d: int, heads: int, kv_heads: int, head_dim: int, g_qkv: int,
+              g_o: int, lib) -> int:
+    """f32 elements of the weight products' partials for ``rows`` rows: the
+    larger of the qkv and wo products' splits x rows x width, each split as
+    its format's product splits it (G 0: int8)."""
+    n_qkv = (heads + 2 * kv_heads) * head_dim
+    return max(lib.dora_gemm_splits(rows, n_qkv, d, g_qkv) * rows * n_qkv,
+               lib.dora_gemm_splits(rows, d, heads * head_dim, g_o) * rows * d)
+
+
+def _scratch(rows: int, d: int, heads: int, kv_heads: int, head_dim: int, g_qkv: int,
+             g_o: int, lib, dev):
     """The scratch a dense or paged entry takes for ``rows`` rows: (h, p, q,
     kcur, vcur, attn)."""
-    n_qkv = (heads + 2 * kv_heads) * head_dim
-    ws = max(
-        lib.dora_gemm_splits(rows, n_qkv, d) * rows * n_qkv,
-        lib.dora_gemm_splits(rows, d, heads * head_dim) * rows * d,
-    )
+    ws = _partials(rows, d, heads, kv_heads, head_dim, g_qkv, g_o, lib)
     f32, bf = torch.float32, torch.bfloat16
     return (torch.empty((rows, d), dtype=bf, device=dev),
             torch.empty((ws,), dtype=f32, device=dev),
@@ -549,8 +624,8 @@ def _attention_paged_batch_step_kernel(
     q8 = _kv_mode(k_pool, k_scale, v_scale)
     refuse_kernel_shapes("attention kernel", heads, kv_heads, head_dim, page)
     _need(x, "x", torch.bfloat16, (b, d), dev)
-    _int8_weight(wqkv, "wqkv", d, n_qkv, dev)
-    _int8_weight(wo, "wo", heads * head_dim, d, dev)
+    sq, g_qkv = _qweight(wqkv, sqkv, "wqkv", d, n_qkv, dev)
+    so, g_o = _qweight(wo, swo, "wo", heads * head_dim, d, dev)
     _need_pools(k_pool, v_pool, k_scale, v_scale, kv_heads, head_dim, dev)
     _aligned16(k_pool, "k_pool")
     _aligned16(v_pool, "v_pool")
@@ -561,11 +636,9 @@ def _attention_paged_batch_step_kernel(
     if not x.is_cuda:
         _check_host_indices(positions, 1, block_tables, n_pages, page)
     nw = _f32(norm_w, "norm_w", d, dev)
-    sq = _f32(sqkv, "sqkv", n_qkv, dev)
     bq = _f32(bqkv, "bqkv", n_qkv, dev)
-    so = _f32(swo, "swo", d, dev)
     lib = _lib("paged_attention", lib)
-    h, p, q, kcur, vcur, attn = _scratch(b, d, heads, kv_heads, head_dim, lib, dev)
+    h, p, q, kcur, vcur, attn = _scratch(b, d, heads, kv_heads, head_dim, g_qkv, g_o, lib, dev)
     # the sweep's splits follow the table's width, never the positions
     part = _sweep_partials(lib.dora_batch_sweep_splits(b, 1, heads, kv_heads, max_pages * page),
                            b, heads, head_dim, dev)
@@ -577,11 +650,11 @@ def _attention_paged_batch_step_kernel(
         v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), wo.data_ptr(),
         so.data_ptr(), positions.data_ptr(), block_tables.data_ptr(),
         out.data_ptr(), int(residual), b, d, heads, kv_heads, head_dim, page,
-        max_pages, eps, 1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(),
+        max_pages, g_qkv, g_o, eps, 1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(),
         q.data_ptr(), kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), part.data_ptr(),
         _build.stream_of(x),
     )
-    _count(attention_paged_batch_step, q8)
+    _count(attention_paged_batch_step, q8, bool(g_qkv or g_o))
     _build.check(rc, "attention_paged_batch_step")
     return _pools_out(out, k_pool, v_pool, k_scale, v_scale)
 
@@ -671,8 +744,8 @@ def _attention_paged_chunk_step_kernel(
     if pos + m > block_table.shape[0] * page:
         raise ValueError(f"chunk {pos}+{m} runs past the block table")
     _need(x, "x", torch.bfloat16, (m, d), dev)
-    _int8_weight(wqkv, "wqkv", d, n_qkv, dev)
-    _int8_weight(wo, "wo", heads * head_dim, d, dev)
+    sq, g_qkv = _qweight(wqkv, sqkv, "wqkv", d, n_qkv, dev)
+    so, g_o = _qweight(wo, swo, "wo", heads * head_dim, d, dev)
     _need_pools(k_pool, v_pool, k_scale, v_scale, kv_heads, head_dim, dev)
     _need(block_table, "block_table", torch.int32, (block_table.shape[-1],), dev)
     _aligned16(k_pool, "k_pool")
@@ -682,14 +755,9 @@ def _attention_paged_chunk_step_kernel(
     if not x.is_cuda:
         _check_host_indices(torch.tensor([pos]), m, block_table, n_pages, page)
     nw = _f32(norm_w, "norm_w", d, dev)
-    sq = _f32(sqkv, "sqkv", n_qkv, dev)
     bq = _f32(bqkv, "bqkv", n_qkv, dev)
-    so = _f32(swo, "swo", d, dev)
     lib = _lib("paged_attention", lib)
-    ws = max(
-        lib.dora_gemm_splits(m, n_qkv, d) * m * n_qkv,
-        lib.dora_gemm_splits(m, d, heads * head_dim) * m * d,
-    )
+    ws = _partials(m, d, heads, kv_heads, head_dim, g_qkv, g_o, lib)
     h = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
     p = torch.empty((ws,), dtype=torch.float32, device=dev)
     q = torch.empty((m, heads, head_dim), dtype=torch.float32, device=dev)
@@ -708,11 +776,11 @@ def _attention_paged_chunk_step_kernel(
         cos_rows.data_ptr(), sin_rows.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), wo.data_ptr(),
         so.data_ptr(), pos, block_table.data_ptr(), out.data_ptr(),
-        int(residual), m, d, heads, kv_heads, head_dim, page, eps,
+        int(residual), m, d, heads, kv_heads, head_dim, page, g_qkv, g_o, eps,
         1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(), _ptr(kcur),
         _ptr(vcur), attn.data_ptr(), part.data_ptr(), _build.stream_of(x),
     )
-    _count(attention_paged_chunk_step, q8)
+    _count(attention_paged_chunk_step, q8, bool(g_qkv or g_o))
     _build.check(rc, "attention_paged_chunk_step")
     return _pools_out(out, k_pool, v_pool, k_scale, v_scale)
 
@@ -808,8 +876,8 @@ def _attention_paged_spec_step_kernel(
     b = bm // m
     max_pages = block_tables.shape[-1]
     _need(x, "x", torch.bfloat16, (bm, d), dev)
-    _int8_weight(wqkv, "wqkv", d, n_qkv, dev)
-    _int8_weight(wo, "wo", heads * head_dim, d, dev)
+    sq, g_qkv = _qweight(wqkv, sqkv, "wqkv", d, n_qkv, dev)
+    so, g_o = _qweight(wo, swo, "wo", heads * head_dim, d, dev)
     _need_pools(k_pool, v_pool, k_scale, v_scale, kv_heads, head_dim, dev)
     _aligned16(k_pool, "k_pool")
     _aligned16(v_pool, "v_pool")
@@ -820,11 +888,9 @@ def _attention_paged_spec_step_kernel(
     if not x.is_cuda:
         _check_host_indices(positions, m, block_tables, n_pages, page)
     nw = _f32(norm_w, "norm_w", d, dev)
-    sq = _f32(sqkv, "sqkv", n_qkv, dev)
     bq = _f32(bqkv, "bqkv", n_qkv, dev)
-    so = _f32(swo, "swo", d, dev)
     lib = _lib("paged_attention", lib)
-    h, p, q, kcur, vcur, attn = _scratch(bm, d, heads, kv_heads, head_dim, lib, dev)
+    h, p, q, kcur, vcur, attn = _scratch(bm, d, heads, kv_heads, head_dim, g_qkv, g_o, lib, dev)
     # the sweep's splits follow the table's width, never the positions
     part = _sweep_partials(lib.dora_batch_sweep_splits(b, m, heads, kv_heads, max_pages * page),
                            bm, heads, head_dim, dev)
@@ -836,11 +902,11 @@ def _attention_paged_spec_step_kernel(
         v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), wo.data_ptr(),
         so.data_ptr(), positions.data_ptr(), block_tables.data_ptr(),
         out.data_ptr(), int(residual), b, m, d, heads, kv_heads, head_dim, page,
-        max_pages, eps, 1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(),
+        max_pages, g_qkv, g_o, eps, 1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(),
         q.data_ptr(), kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), part.data_ptr(),
         _build.stream_of(x),
     )
-    _count(attention_paged_spec_step, q8)
+    _count(attention_paged_spec_step, q8, bool(g_qkv or g_o))
     _build.check(rc, "attention_paged_spec_step")
     return _pools_out(out, k_pool, v_pool, k_scale, v_scale)
 
@@ -896,15 +962,15 @@ def _dense_kernel_args(x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_cache,
                        v_cache, wo, swo, *, heads, kv_heads, head_dim, streams: int):
     """The checks every dense wrapper makes before launching (bf16 caches
     [streams, KV, S, hd] or, batch 1, [KV, S, hd]) and the f32 vectors it
-    passes. Returns (rows, width, S, norm_w, sqkv, bqkv, swo)."""
+    passes. Returns (rows, width, S, norm_w, sqkv, bqkv, swo, g_qkv, g_o)."""
     dev = x.device
     rows, d = x.shape
     n_qkv = (heads + 2 * kv_heads) * head_dim
     seq = k_cache.shape[-2]
     refuse_kernel_shapes("attention kernel", heads, kv_heads, head_dim)
     _need(x, "x", torch.bfloat16, (rows, d), dev)
-    _int8_weight(wqkv, "wqkv", d, n_qkv, dev)
-    _int8_weight(wo, "wo", heads * head_dim, d, dev)
+    sq, g_qkv = _qweight(wqkv, sqkv, "wqkv", d, n_qkv, dev)
+    so, g_o = _qweight(wo, swo, "wo", heads * head_dim, d, dev)
     shape = (kv_heads, seq, head_dim) if k_cache.dim() == 3 else (streams, kv_heads, seq, head_dim)
     _need(k_cache, "k_cache", torch.bfloat16, shape, dev)
     _need(v_cache, "v_cache", torch.bfloat16, shape, dev)
@@ -912,8 +978,8 @@ def _dense_kernel_args(x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_cache,
     _aligned16(v_cache, "v_cache")
     _need(cos_rows, "cos_rows", torch.float32, (rows, head_dim), dev)
     _need(sin_rows, "sin_rows", torch.float32, (rows, head_dim), dev)
-    return (rows, d, seq, _f32(norm_w, "norm_w", d, dev), _f32(sqkv, "sqkv", n_qkv, dev),
-            _f32(bqkv, "bqkv", n_qkv, dev), _f32(swo, "swo", d, dev))
+    return (rows, d, seq, _f32(norm_w, "norm_w", d, dev), sq, _f32(bqkv, "bqkv", n_qkv, dev),
+            so, g_qkv, g_o)
 
 
 def attention_batch_step_plain(
@@ -944,14 +1010,14 @@ def _attention_batch_step_kernel(
     b = x.shape[0]
     if k_caches.dim() != 4:
         raise ValueError(f"k_caches must be [B, KV, S, hd], got {tuple(k_caches.shape)}")
-    rows, d, seq, nw, sq, bq, so = _dense_kernel_args(
+    rows, d, seq, nw, sq, bq, so, g_qkv, g_o = _dense_kernel_args(
         x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_caches, v_caches, wo, swo,
         heads=heads, kv_heads=kv_heads, head_dim=head_dim, streams=b)
     _need(positions, "positions", torch.int32, (b,), dev)
     if not x.is_cuda:
         _check_dense_positions(positions, 1, seq)
     lib = _lib("paged_attention", lib)
-    h, p, q, kcur, vcur, attn = _scratch(b, d, heads, kv_heads, head_dim, lib, dev)
+    h, p, q, kcur, vcur, attn = _scratch(b, d, heads, kv_heads, head_dim, g_qkv, g_o, lib, dev)
     # the sweep's splits follow the planes' length, never the positions
     part = _sweep_partials(lib.dora_batch_sweep_splits(b, 1, heads, kv_heads, seq), b, heads,
                            head_dim, dev)
@@ -961,12 +1027,12 @@ def _attention_batch_step_kernel(
         x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(), _ptr(bq),
         cos_rows.data_ptr(), sin_rows.data_ptr(), k_caches.data_ptr(),
         v_caches.data_ptr(), wo.data_ptr(), so.data_ptr(), positions.data_ptr(), 0,
-        out.data_ptr(), int(residual), b, d, heads, kv_heads, head_dim, seq, eps,
+        out.data_ptr(), int(residual), b, d, heads, kv_heads, head_dim, seq, g_qkv, g_o, eps,
         1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(),
         kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), part.data_ptr(),
         _build.stream_of(x),
     )
-    _count(attention_batch_step, False)
+    _count(attention_batch_step, False, bool(g_qkv or g_o))
     _build.check(rc, "attention_batch_step")
     return out, k_caches, v_caches
 
@@ -1015,13 +1081,13 @@ def _attention_step_kernel(
     if x.shape[0] != 1 or k_cache.dim() != 3:
         raise ValueError(f"attention_step takes one row and [KV, S, hd] caches, got x "
                          f"{tuple(x.shape)} and {tuple(k_cache.shape)}")
-    rows, d, seq, nw, sq, bq, so = _dense_kernel_args(
+    rows, d, seq, nw, sq, bq, so, g_qkv, g_o = _dense_kernel_args(
         x, norm_w, wqkv, sqkv, bqkv, cos_full, sin_signed, k_cache, v_cache, wo, swo,
         heads=heads, kv_heads=kv_heads, head_dim=head_dim, streams=1)
     pos = int(position)
     _check_dense_positions(torch.tensor([pos]), 1, seq)
     lib = _lib("paged_attention", lib)
-    h, p, q, kcur, vcur, attn = _scratch(1, d, heads, kv_heads, head_dim, lib, dev)
+    h, p, q, kcur, vcur, attn = _scratch(1, d, heads, kv_heads, head_dim, g_qkv, g_o, lib, dev)
     part = _sweep_partials(lib.dora_batch_sweep_splits(1, 1, heads, kv_heads, seq), 1, heads,
                            head_dim, dev)
     out = torch.empty((1, d), dtype=torch.bfloat16 if residual else torch.float32,
@@ -1030,12 +1096,12 @@ def _attention_step_kernel(
         x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(), _ptr(bq),
         cos_full.data_ptr(), sin_signed.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), wo.data_ptr(), so.data_ptr(), None, pos,
-        out.data_ptr(), int(residual), 1, d, heads, kv_heads, head_dim, seq, eps,
+        out.data_ptr(), int(residual), 1, d, heads, kv_heads, head_dim, seq, g_qkv, g_o, eps,
         1.0 / (head_dim ** 0.5), h.data_ptr(), p.data_ptr(), q.data_ptr(),
         kcur.data_ptr(), vcur.data_ptr(), attn.data_ptr(), part.data_ptr(),
         _build.stream_of(x),
     )
-    _count(attention_step, False)
+    _count(attention_step, False, bool(g_qkv or g_o))
     _build.check(rc, "attention_step")
     return out, k_cache, v_cache
 
@@ -1091,13 +1157,13 @@ def _attention_chunk_step_kernel(
                          f"{tuple(k_cache.shape)}")
     if m < 1:
         raise ValueError(f"chunk kernel takes M >= 1 rows, got {m}")
-    rows, d, seq, nw, sq, bq, so = _dense_kernel_args(
+    rows, d, seq, nw, sq, bq, so, g_qkv, g_o = _dense_kernel_args(
         x, norm_w, wqkv, sqkv, bqkv, cos_rows, sin_rows, k_cache, v_cache, wo, swo,
         heads=heads, kv_heads=kv_heads, head_dim=head_dim, streams=1)
     pos = int(position)
     _check_dense_positions(torch.tensor([pos]), m, seq)
     lib = _lib("paged_attention", lib)
-    h, p, q, kcur, vcur, attn = _scratch(m, d, heads, kv_heads, head_dim, lib, dev)
+    h, p, q, kcur, vcur, attn = _scratch(m, d, heads, kv_heads, head_dim, g_qkv, g_o, lib, dev)
     part = _sweep_partials(lib.dora_sweep_splits(1, m, heads, kv_heads, pos), m, heads,
                            head_dim, dev)
     out = torch.empty((m, d), dtype=torch.bfloat16 if residual else torch.float32,
@@ -1106,11 +1172,12 @@ def _attention_chunk_step_kernel(
         x.data_ptr(), nw.data_ptr(), wqkv.data_ptr(), sq.data_ptr(), _ptr(bq),
         cos_rows.data_ptr(), sin_rows.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), wo.data_ptr(), so.data_ptr(), pos, out.data_ptr(),
-        int(residual), m, d, heads, kv_heads, head_dim, seq, eps, 1.0 / (head_dim ** 0.5),
+        int(residual), m, d, heads, kv_heads, head_dim, seq, g_qkv, g_o, eps,
+        1.0 / (head_dim ** 0.5),
         h.data_ptr(), p.data_ptr(), q.data_ptr(), kcur.data_ptr(), vcur.data_ptr(),
         attn.data_ptr(), part.data_ptr(), _build.stream_of(x),
     )
-    _count(attention_chunk_step, False)
+    _count(attention_chunk_step, False, bool(g_qkv or g_o))
     _build.check(rc, "attention_chunk_step")
     return out, k_cache, v_cache
 
@@ -1192,6 +1259,25 @@ def mma_tile(a: torch.Tensor, b: torch.Tensor, lib=None) -> torch.Tensor:
     return d
 
 
+def tc_tile4(a: torch.Tensor, w: torch.Tensor, lib=None) -> torch.Tensor:
+    """``a @ q`` in f32 for bf16 a [16, 32] and one 32-row group of int4
+    weights w, uint8 [16, 16] packed as ops/int4.py packs it (q = the low
+    nibble of row j for rows j < 16, the high nibble of row j - 16 after,
+    each minus 8), through the fragment path of the int4 tensor-core product
+    (one ``ldmatrix.trans`` of the packed bytes, ``widen_u4_cols``, two k
+    steps of an even and an odd mma). A check of that path, not a kernel of
+    any path: the card and the emulated build run it against
+    ``torch.matmul``."""
+    dev = a.device
+    _need(a, "a", torch.bfloat16, (16, 32), dev)
+    _need(w, "w", torch.uint8, (16, 16), dev)
+    d = torch.empty((16, 16), dtype=torch.float32, device=dev)
+    lib = _lib("mlp", lib)
+    _build.check(lib.dora_tc_tile4(a.data_ptr(), w.data_ptr(), d.data_ptr(),
+                                   _build.stream_of(a)), "tc_tile4")
+    return d
+
+
 def tc_tile(a: torch.Tensor, w: torch.Tensor, lib=None) -> torch.Tensor:
     """``a @ w`` in f32 for bf16 a [16, 16] and int8 w [16, 16], through the
     fragment path of the tensor-core int8 product of kernels 1 and 2
@@ -1216,13 +1302,17 @@ KERNELS = (attention_paged_chunk_step, attention_paged_batch_step,
            attention_paged_spec_step, mlp_step, lm_head_argmax,
            attention_batch_step, attention_step, attention_chunk_step)
 #: the wrappers that also launch an int8-KV form, counted apart as
-#: ``launches_int8kv`` (``launches`` counts their fp form)
+#: ``launches_int8kv`` (``launches`` counts their fp form); every wrapper's
+#: int4-weight launches (of either KV form) are counted apart as
+#: ``launches_int4``
 KV_INT8_KERNELS = (attention_paged_chunk_step, attention_paged_batch_step,
                    attention_paged_spec_step)
 
 
-def _count(fn, int8kv: bool) -> None:
-    if int8kv:
+def _count(fn, int8kv: bool, int4: bool = False) -> None:
+    if int4:
+        fn.launches_int4 += 1
+    elif int8kv:
         fn.launches_int8kv += 1
     else:
         fn.launches += 1
@@ -1231,15 +1321,18 @@ def _count(fn, int8kv: bool) -> None:
 def reset_launches() -> None:
     for fn in KERNELS:
         fn.launches = 0
+        fn.launches_int4 = 0
     for fn in KV_INT8_KERNELS:
         fn.launches_int8kv = 0
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches per kernel since :func:`reset_launches`, the int8-KV forms
-    as ``<name>_int8kv``."""
+    """Launches per kernel since :func:`reset_launches`: int8 weights under
+    the kernel's name (the int8-KV forms as ``<name>_int8kv``), int4 weights
+    as ``<name>_int4``."""
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     counts.update({f"{fn.__name__}_int8kv": fn.launches_int8kv for fn in KV_INT8_KERNELS})
+    counts.update({f"{fn.__name__}_int4": fn.launches_int4 for fn in KERNELS})
     return counts
 
 

@@ -66,11 +66,11 @@ def _fusable(params: dict, names) -> bool:
     )
 
 
-def _fuse(params, out, w_names, b_names, w_key, b_key, keep_bf16) -> None:
+def _fuse(params, out, w_names, b_names, w_key, b_key, keep_bf16, quantizer) -> None:
     """Concatenate the named projections along N into one quantized weight;
     biases concatenate with zero fill for absent segments."""
     ws = [params[n] for n in w_names]
-    out[w_key] = quantize_int8(torch.cat(ws, dim=1), keep_bf16)
+    out[w_key] = quantizer(torch.cat(ws, dim=1), keep_bf16)
     if any(b in params for b in b_names):
         out[b_key] = torch.cat(
             [
@@ -83,27 +83,29 @@ def _fuse(params, out, w_names, b_names, w_key, b_key, keep_bf16) -> None:
 
 
 def quantize_tree(params, names=DECODE_WEIGHTS, keep_bf16: bool = True,
-                  fuse: bool = True):
+                  fuse: bool = True, quantizer=quantize_int8):
     """Replace named 2-D float weight leaves with quantized dicts.
 
-    Walks nested dicts; already-quantized dicts pass through. With ``fuse``,
-    co-resident q/k/v and gate/up projections become ``wqkv`` (+ ``bqkv``)
-    and ``w_gateup`` (+ ``b_gateup``), in that concatenation order.
-    ``keep_bf16`` keeps each weight's bf16 sidecar (see
-    :func:`quantize_int8`), as the JAX package does by default."""
+    Walks nested dicts; already-quantized dicts (int8 or int4) pass through.
+    With ``fuse``, co-resident q/k/v and gate/up projections become ``wqkv``
+    (+ ``bqkv``) and ``w_gateup`` (+ ``b_gateup``), in that concatenation
+    order. ``keep_bf16`` keeps each weight's bf16 sidecar (see
+    :func:`quantize_int8`), as the JAX package does by default.
+    ``quantizer`` picks the weight format: :func:`quantize_int8`, or
+    ops/int4.quantize_int4."""
     if not isinstance(params, dict):
         return params
-    if "int8" in params:
+    if "int8" in params or "int4" in params:
         return params
     out: dict = {}
     skip: set[str] = set()
     if fuse and {"wq", "wk", "wv"} <= names and _fusable(params, ("wq", "wk", "wv")):
         _fuse(params, out, ("wq", "wk", "wv"), ("bq", "bk", "bv"), "wqkv", "bqkv",
-              keep_bf16)
+              keep_bf16, quantizer)
         skip |= {"wq", "wk", "wv", "bq", "bk", "bv"}
     if fuse and {"w_gate", "w_up"} <= names and _fusable(params, ("w_gate", "w_up")):
         _fuse(params, out, ("w_gate", "w_up"), ("b_gate", "b_up"),
-              "w_gateup", "b_gateup", keep_bf16)
+              "w_gateup", "b_gateup", keep_bf16, quantizer)
         skip |= {"w_gate", "w_up", "b_gate", "b_up"}
     for key, value in params.items():
         if key in skip:
@@ -114,9 +116,9 @@ def quantize_tree(params, names=DECODE_WEIGHTS, keep_bf16: bool = True,
             and value.ndim == 2
             and value.is_floating_point()
         ):
-            out[key] = quantize_int8(value, keep_bf16)
+            out[key] = quantizer(value, keep_bf16)
         else:
-            out[key] = quantize_tree(value, names, keep_bf16, fuse)
+            out[key] = quantize_tree(value, names, keep_bf16, fuse, quantizer)
     return out
 
 
@@ -135,7 +137,7 @@ def int8_matmul_plain(x, q, scale):
 
 
 def _int8_matmul_kernel(x, q, scale, lib=None):
-    from dora_tpu_torch.ops.decode_block import _f32, _int8_weight, _need
+    from dora_tpu_torch.ops.decode_block import _aligned16, _f32, _need
 
     dev = x.device
     *lead, k = x.shape
@@ -143,7 +145,8 @@ def _int8_matmul_kernel(x, q, scale, lib=None):
     x2 = x.reshape(-1, k).contiguous()  # a view of strided rows (h[:, -1]) packs
     m = x2.shape[0]
     _need(x2, "x", torch.bfloat16, (m, k), dev)
-    _int8_weight(q, "q", k, n, dev)
+    _need(q, "q", torch.int8, (k, n), dev)
+    _aligned16(q, "q")
     s = _f32(scale, "scale", n, dev)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     if m == 0:

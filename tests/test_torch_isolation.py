@@ -19,11 +19,12 @@ def test_port_imports_no_jax_and_no_dora_tpu():
         "names = [m.name for m in pkgutil.walk_packages(dora_tpu_torch.__path__, 'dora_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dora_tpu'))\n"
-        "assert len(names) >= 22, names\n"
+        "assert len(names) >= 23, names\n"
         "assert {'dora_tpu_torch.ops.lora', 'dora_tpu_torch.models.lora_pool',\n"
         "        'dora_tpu_torch.models.spec_decode', 'dora_tpu_torch.ops.int8_matmul',\n"
         "        'dora_tpu_torch.models.tokenizer', 'dora_tpu_torch.nodehub.ops',\n"
-        "        'dora_tpu_torch.ops.flash_attention', 'dora_tpu_torch.profiling'} <= set(names)\n"
+        "        'dora_tpu_torch.ops.flash_attention', 'dora_tpu_torch.profiling',\n"
+        "        'dora_tpu_torch.ops.int4'} <= set(names)\n"
         "from dora_tpu_torch.models import tokenizer, vlm\n"
         "from dora_tpu_torch.nodehub import ops\n"
         "from dora_tpu_torch.ops import flash_attention\n"

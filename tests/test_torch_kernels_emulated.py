@@ -102,6 +102,7 @@ _KERNELS = {
     "flash_attention": (FA, "_flash_attention_kernel", "flash_attention"),
     "mma_tile": (DB, "mma_tile", "paged_attention"),
     "tc_tile": (DB, "tc_tile", "mlp"),
+    "tc_tile4": (DB, "tc_tile4", "mlp"),
 }
 _SIGNATURES = {**DB._SIGNATURES, **LO._SIGNATURES, **IM._SIGNATURES, **FA._SIGNATURES}
 
@@ -126,7 +127,9 @@ def _run_job(job):
         return lib.dora_batch_sweep_splits(*args)
     if name == "mlp_splits":  # the K splits of mlp_step's gate/up and down products
         lib = _build.library("mlp", _SIGNATURES["mlp"], compiler="host")
-        return tuple(lib.dora_mlp_splits(*args, which) for which in (0, 1))
+        m, d, f, *groups = args  # the int4 groups of the two weights (none: int8)
+        g_gu, g_down = groups or (0, 0)
+        return (lib.dora_mlp_splits(m, d, f, 0, g_gu), lib.dora_mlp_splits(m, d, f, 1, g_down))
     if name == "lora_splits":  # the D splits of the LoRA kernel's first product
         lib = _build.library("lora", _SIGNATURES["lora"], compiler="host")
         return lib.dora_lora_splits(*args)
@@ -1484,6 +1487,109 @@ def test_dense_wrappers_check_positions_and_refuse_shapes():
         IM._int8_matmul_kernel(torch.zeros((4, 33), dtype=BF), w["int8"], w["scale"],
                                lib=object())
 
+
+
+# ---------------------------------------------------------------------------
+# int4 weights: the int4 form of the tensor-core product (kernels 1-5, 8-10)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", (0, 1))
+def test_emulated_tc_tile4_matches_matmul(emu, seed):
+    """The int4 fragment path (one ldmatrix.trans of a 32-row group's packed
+    bytes, the low and high nibbles widened to bf16 q by widen_u4_cols, two k
+    steps of the even / odd column mma) is the plain product of a 16 x 32 bf16
+    tile by the unpacked 32 x 16 q over every byte value (exact products, f32
+    sums: within 1e-5)."""
+    rng = np.random.default_rng(seed)
+    a = _t(rng.standard_normal((16, 32)) * 4, BF)
+    w = torch.from_numpy(rng.integers(0, 256, size=(16, 16)).astype(np.uint8))
+    q = torch.cat([(w & 15).float() - 8, (w >> 4).float() - 8])  # rows j, then 16 + j
+    got = emu.call("tc_tile4", a, w)
+    assert got.dtype == torch.float32 and got.shape == (16, 16)
+    assert _rel(got, torch.matmul(a.float(), q)) <= 1e-5
+
+
+def _int4(rng, k, n):
+    from dora_tpu_torch.ops.int4 import quantize_int4
+
+    return quantize_int4(_t(rng.standard_normal((k, n))))
+
+
+#: (m, d, f, bias, residual) -> K splits of (gate/up, down) on int4 weights
+#: (groups of 128; decode bands take TcDecode4's 128-deep stages): a 16-row
+#: band splits both products at whole groups; a 40-row band on K 128 runs
+#: the gate/up product whole with the SwiGLU in its epilogue; a prefill
+#: band of 70 rows (64-deep stages) runs it whole and splits the down
+#: product over four groups
+MLP_INT4_PATHS = {
+    (16, 256, 256, True, True): (2, 2),
+    (40, 128, 384, False, False): (1, 3),
+    (70, 256, 512, True, False): (1, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MLP_INT4_PATHS),
+                         ids=lambda c: "m{}_d{}_f{}_b{}_r{}".format(*c))
+def test_mlp_int4_paths_match_plain(emu, case):
+    """mlp_step on int4 weights (kernel 1's int4 branch): split at group
+    boundaries with the partials summed unscaled, and the fused SwiGLU; the
+    splits each case takes are asserted first."""
+    m, d, f, bias, residual = case
+    rng = np.random.default_rng(m + d + f)
+    wgu, wd = _int4(rng, d, 2 * f), _int4(rng, f, d)
+    groups = (d // wgu["gscale"].shape[0], f // wd["gscale"].shape[0])
+    assert emu.call("mlp_splits", m, d, f, *groups) == MLP_INT4_PATHS[case]
+    x = _t(rng.standard_normal((m, d)), BF)
+    nw = _t(rng.standard_normal(d))
+    b = _t(rng.standard_normal(2 * f)) if bias else None
+    args = (x, nw, wgu["int4"], wgu["gscale"], b, wd["int4"], wd["gscale"])
+    want = DB.mlp_step_plain(*args, residual=residual)
+    got = emu.call("mlp_step", *args, eps=1e-6, residual=residual)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("m,d", [(16, 256), (40, 128), (70, 384)])
+def test_lm_head_int4_matches_plain(emu, m, d):
+    """lm_head_argmax on an int4 head (kernel 2's int4 branch), groups of 128
+    over one to three of them, in decode bands of 16 and 64 rows and a
+    prefill band: tokens exactly the plain version's, the max logits within
+    1e-2."""
+    rng = np.random.default_rng(m * d)
+    x = _t(rng.standard_normal((m, d)), BF)
+    nw = _t(rng.standard_normal(d))
+    wh = _int4(rng, d, 300)
+    ti, tv = DB.lm_head_argmax_plain(x, nw, wh["int4"], wh["gscale"], return_val=True)
+    gi, gv = emu.call("lm_head_argmax", x, nw, wh["int4"], wh["gscale"], eps=1e-6,
+                      return_val=True)
+    assert torch.equal(gi, ti)
+    assert _rel(gv, tv) <= 1e-2
+
+
+def test_paged_batch_kernel_int4_matches_plain(emu):
+    """The paged batch decode (kernel 3) on int4 wqkv (K 256) and wo (K 512),
+    groups of 128: its qkv and wo products take the int4 tensor-core product
+    into the same partials; outputs and written rows within 1e-2, every other
+    pool row bit-unchanged."""
+    rng = np.random.default_rng(4)
+    d = 256
+    head, tail, shape, written = _batch_case(rng, d=d)
+    h, kv, hd = 4, 2, 128
+    wqkv, wo = _int4(rng, d, (h + 2 * kv) * hd), _int4(rng, h * hd, d)
+    head = (head[0], head[1], wqkv["int4"], wqkv["gscale"], *head[4:])
+    tail = (wo["int4"], wo["gscale"], *tail[2:])
+    kp = _t(rng.standard_normal(shape) * 0.5, BF)
+    vp = _t(rng.standard_normal(shape) * 0.5, BF)
+    kw = dict(heads=h, kv_heads=kv, head_dim=hd)
+    want, k1, v1 = DB.attention_paged_batch_step_plain(
+        *head, kp.clone(), vp.clone(), *tail, **kw)
+    got, k2, v2 = emu.call("attention_paged_batch_step", *head, kp.clone(), vp.clone(),
+                           *tail, eps=1e-6, residual=True, **kw)
+    assert _rel(got, want) <= 1e-2
+    assert _rel(k2[1:], k1[1:]) <= 1e-2 and _rel(v2[1:], v1[1:]) <= 1e-2
+    assert torch.equal(k2[~written], kp[~written])
+    assert torch.equal(v2[~written], vp[~written])
 
 if __name__ == "__main__" and sys.argv[1:] == [_WORKER_FLAG]:
     _worker()

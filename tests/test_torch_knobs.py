@@ -1,6 +1,7 @@
-"""No serving knob is quietly ignored by the port: the int8-KV and LoRA
-knobs reach the engine with the JAX package's meaning, and the int4 knobs,
-whose path is not ported, raise instead of serving int8. ``DORA_PAGED_KV=0``
+"""No serving knob is quietly ignored by the port: the int8-KV, LoRA and
+int4 knobs reach the engine with the JAX package's meaning (the text model
+reads ``DORA_INT4_DECODE`` and ``DORA_WEIGHT_BITS``, the VLM only
+``DORA_INT4_DECODE``). ``DORA_PAGED_KV=0``
 builds the dense engine, ``DORA_INT8_PURE`` drops the bf16 sidecars,
 ``DORA_FUSED_DECODE=0`` sends decode down the unfused blocks (and the dense
 engine refuses it), and ``DORA_SPEC_BODY`` / ``DORA_SPEC_ADAPTIVE`` /
@@ -35,15 +36,51 @@ def clean_env(monkeypatch):
     return monkeypatch
 
 
+def _same_tree(a, b, path=""):
+    if isinstance(a, dict):
+        assert set(a) == set(b), (path, set(a) ^ set(b))
+        for k in a:
+            _same_tree(a[k], b[k], f"{path}/{k}")
+    else:
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+
+
 @pytest.mark.parametrize("env", [{"DORA_INT4_DECODE": "1"}, {"DORA_WEIGHT_BITS": "4"}])
-def test_int4_knobs_raise_until_int4_is_ported(clean_env, env):
+def test_int4_knobs_pick_int4_as_in_jax(clean_env, env):
+    """Either knob quantizes every decode weight, the tied head included, to
+    int4, byte for byte the tree params_from_jax makes of the JAX package's."""
+    import jax
+    import jax.numpy as jnp
+
+    from dora_tpu.models.hf import qwen2 as jq
     from dora_tpu_torch.models.hf import qwen2 as tq
 
     cfg, params = _tiny()
     for k, v in env.items():
         clean_env.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="int4"):
-        tq.quantize_decode(params, cfg)
+    got = tq.quantize_decode(params, cfg)
+    want = jq.quantize_decode(jax.tree.map(lambda t: jnp.asarray(t.numpy()), params),
+                              jq.Qwen2Config(**cfg.__dict__))
+    for w in ("wqkv", "wo", "w_gateup", "w_down"):
+        assert set(got["blocks"]["0"][w]) == {"int4", "gscale", "bf16"}
+    assert got["lm_head"]["int4"].shape == (cfg.dim // 2, cfg.vocab)
+    _same_tree(got, tq.params_from_jax(want, device="cpu"))
+
+
+@pytest.mark.parametrize("bits", ["4", "6"])
+def test_vlm_reads_only_int4_decode_as_in_jax(clean_env, bits):
+    """``DORA_WEIGHT_BITS`` is the text model's knob: at 4 and at 6 both
+    packages' VLM ``quantize_decode`` give int8, the same bytes."""
+    import jax
+
+    from dora_tpu.models import vlm as jvlm
+    from dora_tpu_torch.models import vlm as tvlm
+
+    clean_env.setenv("DORA_WEIGHT_BITS", bits)
+    jparams = jvlm.init_params(jax.random.PRNGKey(0), jvlm.VLMConfig.tiny())
+    got = tvlm.quantize_decode(tvlm.params_from_jax(jparams, device="cpu"))
+    assert set(got["blocks"]["0"]["wqkv"]) == {"int8", "scale", "bf16"}
+    _same_tree(got, tvlm.params_from_jax(jvlm.quantize_decode(jparams), device="cpu"))
 
 
 def test_weight_bits_other_than_4_or_8_raise_as_in_jax(clean_env):
