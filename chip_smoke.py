@@ -105,7 +105,26 @@ Phases, each printed on its own line:
    requests held to the spec-off engine as in phase 7), the dense engine
    (kernel 8's; graphed against eager, its graph line, its step ms against
    phase 9's) and phase 10 on int4 (``generate`` through kernel 9's,
-   ``run_loop`` through kernel 10's).
+   ``run_loop`` through kernel 10's);
+13. the serving node: the port's ``serve()`` (nodehub/llm_server.py, the
+   dataflow node's loop) over an in-process scripted node (INPUT events in,
+   each held back until its gate opens; ``send_output`` calls captured;
+   no daemon) on the engine ``make_engine`` builds (graphed; 16 slots, page
+   16, chunk 256, K = 8, 512 pages, prefix cache on), phase 4's weights:
+   (a) phase 4's requests at once, default class, every stream equal to
+   phase 4's or parting at a near-tie (served token within NEAR_TIE of the
+   f32 plain path's top, phase 4's within SPEC_REF_TIE), one done chunk a
+   request with finish "length" and gapless seqs, kernels 1-4 launched and
+   no plain version (these are the launches of the ``kernels`` line),
+   TTFT, tokens/s and ``dispatch_gap`` from ServingMetrics, then a
+   ``graph`` line; (b) ``DORA_QOS_PREEMPT=1``, QOS_MAX_NEW new tokens: the
+   shorter half of the prompts as ``batch``, the longer half as
+   ``interactive`` once every batch stream decodes; at least one
+   preemption, every victim resumed (re-prefilling prompt + emitted) and
+   every stream held to phase 4's as in (a); (c) ``DORA_QOS_DEPTH_BATCH``
+   SHED_DEPTH under SHED_REQUESTS batch requests at once: sheds end in one
+   retriable empty ``overloaded`` chunk, the rest in full, none lost; no
+   capture after warmup.
 
 Phase 3 also holds the int4 forms of kernels 1-5 and 8-10 against their
 plain versions on phase 12's int4 weights at the main paths' shapes (with
@@ -125,8 +144,9 @@ full, and at (1, 12, 2048, 128) and (1, 14, 2048, 64), causal; and the
 attention kernels again at the widened shapes, one layer of seeded
 weights each: head_dim 64 at
 Qwen2-0.5B's 14 / 2 heads, Qwen2-7B's 28 / 4 heads, page 32, and a
-``DORA_SPEC_K=10`` verify at Qwen2-1.5B's group of 6 (66 rows), with the
-LoRA kernel at rank 256. It checks the tensor-core helper of kernels 4 and
+``DORA_SPEC_K=10`` verify at Qwen2-1.5B's group of 6 (66 rows), each beside
+SDPA alone and the library chain (RMSNorm, cuBLAS qkv and wo on the
+dequantized weights, SDPA), with the LoRA kernel at rank 256. It checks the tensor-core helper of kernels 4 and
 10 (one m16n8k16 tile, fragments built by the sweeps' layout) and the
 fragment path of kernels 1 and 2's int8-weight product (one 16 x 16 bf16
 tile by a 16 x 16 int8 tile: ldmatrix, ldmatrix.trans of the int8 bytes,
@@ -2904,20 +2924,24 @@ def check_widened_kernels(torch, DB, LO, qwen2, rng_seed: int, dev: str = "cuda"
     int8-KV batch form at head_dim 64) at WIDE_CASES, one layer of seeded
     int8 weights at each width, against their plain versions; the LoRA
     kernel at rank 256. Each prints its time, the plain version's, the
-    library yardstick's (SDPA over the same context; torch.bmm) and the
-    bound. Returns the printed lines."""
+    library yardstick's (SDPA over the same context; torch.bmm), for the
+    attention kernels the library chain's (RMSNorm, cuBLAS qkv on the
+    dequantized bf16 weights, SDPA, cuBLAS wo: the sublayer's function, as
+    the ``sublayer`` lines time it) and the bound. Returns the printed
+    lines."""
     from dora_tpu_torch.models.layers import rope_table
 
     gen = torch.Generator(device=dev).manual_seed(rng_seed)
     seq, slots, chunk = 2048, 16, 256
     lines = []
 
-    def report(name, what, got, want, ms, plain_ms, lib_ms, nbytes, ops):
+    def report(name, what, got, want, ms, plain_ms, lib_ms, nbytes, ops, chain_ms=None):
         err, rel = _rel(got, want)
         tol = REL_TOL[name]
         bound, by = _bound_ms(nbytes, ops)
+        chain = f" chain_ms {chain_ms:.4f}" if chain_ms is not None else ""
         line = (f"widened {name} {what}: rel {rel:.3e} (tol {tol}) max_abs_err {err:.3e} ms "
-                f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms "
+                f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f}{chain} bound_ms "
                 f"{bound:.4f} ({by})")
         print(line, flush=True)
         lines.append(line)
@@ -2938,16 +2962,42 @@ def check_widened_kernels(torch, DB, LO, qwen2, rng_seed: int, dev: str = "cuda"
         kw = dict(heads=h, kv_heads=kv, head_dim=hd, eps=cfg.norm_eps)
         tag = f"at {width} (head_dim {hd}, {h}/{kv} heads), page {page}"
         weight_bytes = d * 4 + d * n_qkv + n_qkv * 8 + h * hd * d + d * 4
+        # the chain's operands: the same weights dequantized to bf16
+        nw = blk["attn_norm"].bfloat16()
+        wqkv_bf = (blk["wqkv"]["int8"].float() * blk["wqkv"]["scale"]).bfloat16()
+        wo_bf = (blk["wo"]["int8"].float() * blk["wo"]["scale"]).bfloat16()
+        bq_bf = blk["bqkv"].bfloat16() if blk.get("bqkv") is not None else None
 
         def rows(n):
             tok = torch.randint(0, cfg.vocab, (n,), generator=gen, device=dev)
             return params["embed"][tok].bfloat16()
 
         def sdpa(q, kctx, vctx, mask):
+            """(SDPA over the context alone, x -> the library chain over x's
+            rows: RMSNorm, qkv, SDPA, wo)."""
             kk = torch.nan_to_num(kctx).repeat_interleave(h // kv, dim=1)
             vv = torch.nan_to_num(vctx).repeat_interleave(h // kv, dim=1)
-            return lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, kk, vv, attn_mask=mask)
+
+            def attend():
+                return torch.nn.functional.scaled_dot_product_attention(q, kk, vv,
+                                                                        attn_mask=mask)
+
+            def chain(x):
+                def run():
+                    if hasattr(torch.nn.functional, "rms_norm"):
+                        normed = torch.nn.functional.rms_norm(x, (d,), nw, cfg.norm_eps)
+                    else:
+                        xf = x.float()
+                        normed = (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True)
+                                                   + cfg.norm_eps) * nw).bfloat16()
+                    qkv = torch.matmul(normed, wqkv_bf)
+                    if bq_bf is not None:
+                        qkv = qkv + bq_bf
+                    o = attend()
+                    return torch.matmul(o.transpose(1, 2).reshape(x.shape[0], h * hd), wo_bf)
+                return run
+
+            return attend, chain
 
         def held(name, what, kernel, plain, args, kwargs, lib, nbytes, ops):
             fresh = lambda: [a.clone() if isinstance(a, torch.Tensor) and a.dim() >= 3  # noqa: E731
@@ -2955,9 +3005,10 @@ def check_widened_kernels(torch, DB, LO, qwen2, rng_seed: int, dev: str = "cuda"
             want = plain(*fresh(), **kwargs)[0]
             got = kernel(*fresh(), **kwargs)[0]
             keep = fresh()
+            attend, chain = lib
             report(name, what, got, want, _time_ms(torch, lambda: kernel(*keep, **kwargs)),
                    _time_ms(torch, lambda: plain(*keep, **kwargs), 3),
-                   _time_ms(torch, lib), nbytes, ops)
+                   _time_ms(torch, attend), nbytes, ops, _time_ms(torch, chain(args[0])))
 
         # Paged pools with streams at serving positions; one stream frozen.
         n_pool = 4 * seq // page
@@ -3759,6 +3810,300 @@ def serve_int4_others(torch, DB, LO, qwen2, spec_decode, L, make_engine, serve_p
     got["attention_chunk_step_int4"] = s_launches["attention_chunk_step_int4"]
     return got
 
+# ---------------------------------------------------------------------------
+# phase 13: the serving node, serve() over a scripted node
+# ---------------------------------------------------------------------------
+
+#: phase 13 (b) and (c): new tokens a request
+QOS_MAX_NEW = 32
+#: phase 13 (c): the batch class's depth bound and the requests sent at once
+SHED_DEPTH = 2
+SHED_REQUESTS = 24
+SHED_MAX_NEW = 8
+
+
+class _ScriptNode:
+    """Phase 13's node: INPUT events in order, each held back until its gate
+    (a predicate over this node) opens; every ``send_output`` captured with
+    its host time; the reports kept. The serving loop sees what a dataflow
+    node gives it, without a daemon."""
+
+    def __init__(self, events):
+        self._events = list(events)
+        self.stream_ended = False
+        self.sent: list[tuple[float, str, dict]] = []
+        self.arrived: dict[str, float] = {}
+        self.snapshots: list[dict] = []
+        self.digests: list = []
+        self.closed = False
+
+    def recv(self, timeout=None):
+        if self._events:
+            gate, event = self._events[0]
+            if gate is None or gate(self):
+                self._events.pop(0)
+                self.arrived[event["metadata"]["request_id"]] = time.perf_counter()
+                return event
+            return None
+        self.stream_ended = True
+        return None
+
+    def send_output(self, output_id, value, metadata=None):
+        if output_id != "response":
+            raise Failed(f"serve() sent on {output_id!r}")
+        self.sent.append((time.perf_counter(), value[0], dict(metadata or {})))
+
+    def report_serving(self, snapshot):
+        self.snapshots.append(snapshot)
+
+    def report_engine_state(self, digest):
+        self.digests.append(digest)
+
+    def report_profile(self, artifact, error=None):
+        pass
+
+    def close(self):
+        self.closed = True
+
+    def streams(self) -> dict:
+        """request id -> (tokens, seqs, final metadata, first-chunk time)."""
+        out: dict = {}
+        for t, text, meta in self.sent:
+            rid = meta["request_id"]
+            toks, seqs, _final, t0 = out.get(rid, ([], [], None, t))
+            if text:
+                toks.append(int(text))
+            seqs.append(meta["seq"])
+            out[rid] = (toks, seqs, meta if meta["done"] else None, t0)
+        return out
+
+
+def _request(rid: str, ids, max_new: int, qos: str | None = None) -> dict:
+    meta = {"request_id": rid, "max_new_tokens": max_new}
+    if qos:
+        meta["qos_class"] = qos
+    return {"type": "INPUT", "metadata": meta, "value": " ".join(map(str, ids)).encode()}
+
+
+def _serve_script(torch, DB, LO, engine, events, max_new: int):
+    """serve() over a _ScriptNode of ``events`` on ``engine``, every launch
+    counter zeroed just before and read just after, the plain versions
+    counted. Returns (node, metrics, launches, wall seconds)."""
+    from dora_tpu_torch.metrics import ServingMetrics
+    from dora_tpu_torch.nodehub.llm_server import serve
+
+    node = _ScriptNode(events)
+    metrics = ServingMetrics(engine="paged")
+    plain_calls = _PlainCalls(DB, LO)
+    _reset_launches(DB, LO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        serve(node, engine, metrics, encode=lambda text: [int(t) for t in text.split()],
+              decode_one=lambda tok: f" {tok}", max_new_cap=max_new)
+        torch.cuda.synchronize()
+    finally:
+        wall = time.perf_counter() - t0
+        launches = _launches(DB, LO)
+        plain_calls.restore()
+    if not node.closed:
+        raise Failed("serve() left its node open")
+    if plain_calls.n:
+        raise Failed(f"{plain_calls.n} plain-version call(s) ran under serve()")
+    return node, metrics, launches, wall
+
+
+def _check_chunks(what: str, node: _ScriptNode, rids, finish: dict) -> dict:
+    """Every request of ``rids`` ends in exactly one done chunk, its seqs run
+    0, 1, ... without a gap, and its finish is ``finish[rid]`` (a set);
+    returns node.streams()."""
+    streams = node.streams()
+    if set(streams) != set(rids):
+        raise Failed(f"{what}: chunks for {sorted(streams)} but requests {sorted(rids)}")
+    for rid in rids:
+        toks, seqs, final, _t = streams[rid]
+        dones = sum(1 for _t, _x, m in node.sent if m["request_id"] == rid and m["done"])
+        if dones != 1 or final is None:
+            raise Failed(f"{what}: request {rid} ended in {dones} done chunks")
+        if seqs != list(range(len(seqs))):
+            raise Failed(f"{what}: request {rid}'s seqs have a gap: {seqs[:8]}...")
+        if final["finish"] not in finish[rid]:
+            raise Failed(f"{what}: request {rid} finished {final['finish']!r}")
+    return streams
+
+
+def _hold_to_phase4(what: str, paths, prompt, got, want, n: int) -> int:
+    """A phase-13 stream against phase 4's for the same prompt over its
+    first n tokens: equal, or parting where the served token is within
+    NEAR_TIE of the f32 plain path's top and phase 4's within SPEC_REF_TIE
+    (two bf16 kernel paths). Returns the first parting (n if none)."""
+    t = _first_parting(got, want, n)
+    if t < n:
+        print(f"{what}: parts from phase 4's stream at token {t} ({got[t]} against "
+              f"{want[t]})", flush=True)
+        paths.check(f"{what}, token {t}", paths.after(prompt + got[:t]), (got[t], want[t]),
+                    SPEC_REF_TIE, rms=False)
+    return t
+
+
+def _pct(xs, p: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p / 100 * len(xs)))]
+
+
+def serve_node(torch, DB, LO, make_engine, serve_prompts, paths, params, cfg, prompts,
+               max_new: int, served: dict, seed: int) -> dict:
+    """Phase 13: the port's ``serve()`` on the engine ``make_engine`` builds
+    (graphed; 16 slots, page 16, chunk 256, K = 8, 511 pages, prefix cache
+    on), driven by a scripted node: (a) phase 4's requests, each stream held
+    to phase 4's; (b) preemption under ``DORA_QOS_PREEMPT=1``; (c) shedding
+    under ``DORA_QOS_DEPTH_BATCH``. Returns (a)'s launches."""
+    import numpy as np
+
+    from dora_tpu_torch.metrics import percentile_from_counts
+
+    engine = front_door(make_engine, params, cfg, DORA_BATCH_SLOTS="16", DORA_PAGE_SIZE="16",
+                        DORA_PREFILL_CHUNK="256", DORA_MULTISTEP_K="8")
+    if not engine.graphs or engine.prefix_cache is None or engine.allocator.num_pages != 512:
+        raise Failed("phase 13's engine is not make_engine's graphed, cached 512-page engine")
+
+    # (a) phase 4's requests, default class, all at once
+    rids = [f"a{i}" for i in range(len(prompts))]
+    with _env(DORA_QOS_PREEMPT=None, DORA_QOS_DEPTH_BATCH=None, DORA_FLEET_DIGEST_S="1"):
+        node, metrics, launches, wall = _serve_script(
+            torch, DB, LO, engine, [(None, _request(r, p, max_new)) for r, p in zip(rids, prompts)],
+            max_new)
+    print(f"serve (a) launches: {json.dumps(launches)}", flush=True)
+    if not all(launches[n] > 0 for n in SPEC_OFF_KERNELS):
+        raise Failed(f"serve (a): a kernel of the main path never launched: {launches}")
+    if any(launches[n] for n in launches if n not in SPEC_OFF_KERNELS):
+        raise Failed(f"serve (a): a kernel off the spec-off fp path launched: {launches}")
+    streams = _check_chunks("serve (a)", node, rids, dict.fromkeys(rids, {"length"}))
+    parted = 0
+    for i, rid in enumerate(rids):
+        toks = streams[rid][0]
+        if len(toks) != max_new:
+            raise Failed(f"serve (a): request {rid} has {len(toks)} of {max_new} tokens")
+        parted += _hold_to_phase4(f"serve (a): request {i}", paths, prompts[i], toks, served[i],
+                                  max_new) < max_new
+    ttft = [streams[r][3] - node.arrived[r] for r in rids]
+    gap = metrics.dispatch_gap.counts
+    snap = node.snapshots[-1]
+    print(f"serve (a): {len(rids)} requests, {metrics.decode_tokens} tokens in {wall:.3f} s "
+          f"({metrics.decode_tokens / wall:.1f} tokens/s end to end); {len(rids) - parted} "
+          f"streams equal phase 4's token for token, {parted} part at near-ties; TTFT p50 "
+          f"{_pct(ttft, 50):.4f} s max {max(ttft):.4f} s (metrics: p50 <= "
+          f"{percentile_from_counts(metrics.ttft.counts, 50) / 1e6:.4f} s, max bucket <= "
+          f"{percentile_from_counts(metrics.ttft.counts, 100) / 1e6:.4f} s); dispatch_gap "
+          f"p50 <= {percentile_from_counts(gap, 50)} us p99 <= "
+          f"{percentile_from_counts(gap, 99)} us over {metrics.dispatch_gap.count} gaps; "
+          f"{snap['host_dispatches']} dispatches, {snap['prefill_chunks']} prefill chunks, "
+          f"tokens per dispatch {snap['tokens_per_dispatch']}, compiles (graph captures) "
+          f"{snap['compiles']}; {len(node.snapshots)} metrics reports, {len(node.digests)} "
+          f"fleet digests", flush=True)
+    if snap["compiles"] != 1:
+        raise Failed(f"serve (a): {snap['compiles']} graph captures, want the K = 8 window's one")
+    graph_check(engine, serve_prompts, cfg.vocab, seed, "serve")
+    warm = engine.graph_captures
+
+    # (b) preemption: the shorter half of phase 4's prompts as batch
+    # requests; once the last of them decodes (every batch stream admitted,
+    # so the youngest, the first victim, holds emitted tokens), the longer
+    # half as interactive ones, whose grants the pool cannot cover. The
+    # schedule depends only on the chunks sent, so it is the same on every
+    # card (the stub engine at these shapes preempts the last two batch
+    # streams after 9 and 25 tokens).
+    engine.prefix_cache.flush()
+    qos_new = min(QOS_MAX_NEW, max_new)
+    half = len(prompts) // 2
+    brids = [f"b{i}" for i in range(half)]
+    irids = [f"i{i}" for i in range(half, len(prompts))]
+
+    def released(node):
+        return any(m["request_id"] == brids[-1] for _t, _x, m in node.sent)
+
+    events = [(None, _request(r, prompts[i], qos_new, "batch")) for i, r in enumerate(brids)]
+    events += [(released if j == 0 else None,
+                _request(r, prompts[half + j], qos_new, "interactive"))
+               for j, r in enumerate(irids)]
+    victims: list[tuple[str, int]] = []
+    inner_preempt = engine.preempt
+
+    def preempt(key):
+        meta = inner_preempt(key)
+        if meta is not None:
+            victims.append((key, meta["emitted"]))
+        return meta
+
+    engine.preempt = preempt
+    try:
+        with _env(DORA_QOS_PREEMPT="1", DORA_QOS_DEPTH_BATCH=None):
+            node, metrics, b_launches, wall = _serve_script(torch, DB, LO, engine, events,
+                                                            qos_new)
+    finally:
+        engine.preempt = inner_preempt
+    print(f"serve (b) launches: {json.dumps(b_launches)}", flush=True)
+    if not all(b_launches[n] > 0 for n in SPEC_OFF_KERNELS):
+        raise Failed(f"serve (b): a kernel of the main path never launched: {b_launches}")
+    streams = _check_chunks("serve (b)", node, brids + irids,
+                            dict.fromkeys(brids + irids, {"length"}))
+    if not victims or metrics.resumed != metrics.preempted or len(victims) != metrics.preempted:
+        raise Failed(f"serve (b): {len(victims)} victims, {metrics.preempted} preempted, "
+                     f"{metrics.resumed} resumed")
+    # engine keys are req-N in arrival order: req-(i + 1) carries request i
+    by_key = {f"req-{i + 1}": rid for i, rid in enumerate(brids + irids)}
+    print(f"serve (b): victims (request, tokens emitted when preempted): "
+          f"{[(by_key[k], n) for k, n in victims]}", flush=True)
+    parted = 0
+    for i, rid in enumerate(brids + irids):
+        toks = streams[rid][0]
+        if len(toks) != qos_new:
+            raise Failed(f"serve (b): request {rid} has {len(toks)} of {qos_new} tokens")
+        parted += _hold_to_phase4(f"serve (b): request {rid} (prompt {i})", paths, prompts[i],
+                                  toks, served[i], qos_new) < qos_new
+    t_in = [streams[r][3] - node.arrived[r] for r in irids]
+    t_b = [streams[r][3] - node.arrived[r] for r in brids]
+    print(f"serve (b): DORA_QOS_PREEMPT=1, {len(brids)} batch and {len(irids)} interactive "
+          f"requests of {qos_new} tokens: {metrics.preempted} preempted, "
+          f"{metrics.resumed} resumed; interactive TTFT p50 {_pct(t_in, 50):.4f} s max "
+          f"{max(t_in):.4f} s against batch p50 {_pct(t_b, 50):.4f} s max {max(t_b):.4f} s; "
+          f"{len(prompts) - parted} streams equal phase 4's first {qos_new} tokens, "
+          f"{parted} part at near-ties; {wall:.3f} s", flush=True)
+
+    # (c) shedding: a small batch depth bound under a burst
+    rng = np.random.default_rng(seed + 1)
+    extra = [rng.integers(0, cfg.vocab, size=n).tolist()
+             for n in np.linspace(32, 512, SHED_REQUESTS - len(prompts)).round().astype(int)]
+    crids = [f"c{i}" for i in range(SHED_REQUESTS)]
+    events = [(None, _request(r, p, SHED_MAX_NEW, "batch"))
+              for r, p in zip(crids, list(prompts) + extra)]
+    with _env(DORA_QOS_PREEMPT=None, DORA_QOS_DEPTH_BATCH=str(SHED_DEPTH)):
+        node, metrics, c_launches, wall = _serve_script(torch, DB, LO, engine, events,
+                                                        SHED_MAX_NEW)
+    streams = _check_chunks("serve (c)", node, crids,
+                            dict.fromkeys(crids, {"length", "overloaded"}))
+    shed = [r for r in crids if streams[r][2]["finish"] == "overloaded"]
+    if not shed or metrics.shed != len(shed):
+        raise Failed(f"serve (c): {len(shed)} overloaded chunks, {metrics.shed} shed")
+    for r in shed:
+        if streams[r][0] or streams[r][2].get("retry_after_ms", 0) < 100:
+            raise Failed(f"serve (c): shed request {r} is not a retriable empty chunk")
+    for r in set(crids) - set(shed):
+        if len(streams[r][0]) != SHED_MAX_NEW:
+            raise Failed(f"serve (c): request {r} has {len(streams[r][0])} tokens")
+    print(f"serve (c): DORA_QOS_DEPTH_BATCH={SHED_DEPTH}, {SHED_REQUESTS} batch requests at "
+          f"once: {len(shed)} shed with a retriable 'overloaded' chunk (retry_after_ms "
+          f"{streams[shed[0]][2]['retry_after_ms']}), {SHED_REQUESTS - len(shed)} served in "
+          f"full, none lost; launches {json.dumps({n: c_launches[n] for n in SPEC_OFF_KERNELS})}"
+          f"; {wall:.3f} s", flush=True)
+    engine.check_invariants()
+    print(f"graph serve: captures {engine.graph_captures} after (b) and (c), {warm} at warmup",
+          flush=True)
+    if engine.graph_captures != warm:
+        raise Failed(f"serve: {engine.graph_captures - warm} capture(s) after warmup")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch/CUDA port")
     ap.add_argument("--layers", type=int, default=28, help="model depth (width stays)")
@@ -3953,6 +4298,11 @@ def main(argv=None) -> int:
         for n in ("attention_paged_spec_step_int4", "attention_batch_step_int4",
                   "attention_step_int4", "attention_chunk_step_int4"):
             by_name[n]["launches"] = o_launches[n]
+        del paths4, params4
+        n_launches = serve_node(torch, DB, LO, make_engine, serve_prompts, paths, params, cfg,
+                                prompts, args.max_new, served, args.seed + 27)
+        for n in SPEC_OFF_KERNELS:  # the main path: serve() on make_engine's engine
+            by_name[n]["launches"] = n_launches[n]
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

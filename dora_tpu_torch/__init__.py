@@ -7,10 +7,23 @@ first use by ``ops/_build.py``). The module layout mirrors ``dora_tpu``
 (``ops/decode_block.py`` here is the counterpart of
 ``dora_tpu/ops/decode_block.py``, and so on).
 
+It also carries its own serving node (``nodehub/llm_server.py``): a dora
+node that the JAX package's daemon spawns and runs unchanged, speaking its
+wire byte for byte through the port's copies of the node API (``node/``),
+the message codec (``message/``), the clock, the framing and the
+shared-memory layer (``native.py`` over ``csrc/shmem.cpp``), with the
+trace, metrics and fleet planes the node reports through.
+
 Rules the package keeps:
 
 * it imports ``torch`` and ``numpy`` (``safetensors`` on the checkpoint
   path), never ``jax`` and never a module of ``dora_tpu``;
+* the node's wire adds host-only dependencies, each imported only where
+  the node talks to its daemon: ``msgpack`` in ``message/serde.py``'s
+  ``encode`` / ``decode``, ``pyarrow`` in ``node/arrow.py`` (loaded by
+  ``node/`` for Arrow payloads), and ``g++`` to build ``csrc/shmem.cpp``
+  into ``_build/`` at the first shared-memory use (``native.py``). The
+  serving loop, the engines and the metrics need none of them;
 * entry points take ``device=`` and default to ``"cuda"``; without a card
   they raise unless the caller asked for ``device="cpu"``
   (:func:`resolve_device`);
@@ -21,5 +34,9 @@ Rules the package keeps:
 from dora_tpu_torch._device import compute_dtype, resolve_device
 
 __version__ = "0.1.0"
+
+#: the node wire's protocol version, dora_tpu's: a daemon refuses a node
+#: registering with an incompatible one
+PROTOCOL_VERSION = "0.1.0"
 
 __all__ = ["compute_dtype", "resolve_device"]

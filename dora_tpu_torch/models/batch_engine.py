@@ -1,7 +1,7 @@
 """Continuous batching, on torch tensors: dense slots and a paged KV pool.
 
 Counterpart of ``BatchEngine`` (with ``_Slot`` and ``_bucket``),
-``PageAllocator`` and ``PagedBatchEngine`` of
+``PageAllocator``, ``PagedBatchEngine`` and ``make_stub_paged_engine`` of
 dora_tpu/models/batch_engine.py.
 
 ``BatchEngine`` is the dense engine: every slot owns a [KV, max_seq, hd]
@@ -9,7 +9,13 @@ plane per layer; ``submit`` prefills a prompt (right-padded to a
 power-of-two bucket) into a free slot and returns its first token at once;
 ``step`` advances every active slot one token with one batched fused pass,
 so new requests join mid-flight. Idle slots ride along pinned at position
-0. Its tracer and serving-metrics hooks stay None (not ported yet).
+0.
+
+Both engines carry the serving node's hooks (``tracer``, a
+telemetry.ServingTracer, and ``serving_metrics``, a metrics.ServingMetrics;
+None unless a server attaches them): request-lifecycle spans (admitted,
+prefill chunk, decode window, preempt) and the fetch-latency and
+page-grant histograms, where the JAX engines record them.
 
 Both engines run their decode dispatch through models/vlm.GraphedWindow:
 with ``graphs`` (None, the default, means on for a CUDA device; True on the
@@ -38,9 +44,12 @@ its admission headroom and host history mirror; the shared-prefix cache
 (:meth:`PagedBatchEngine.set_window`); multi-tenant LoRA (a stream's
 adapter pinned resident in models/lora_pool.AdapterPool for its life, its
 slot id carried to every pass, the prefix cache keyed on (adapter,
-tokens)); int8 KV pools (their scale planes ride in the pools dict). Not
-ported yet: checkpoint/restore, preemption with prefix pins, and the
-tracer/metrics hooks.
+tokens)); int8 KV pools (their scale planes ride in the pools dict);
+preemption (:meth:`PagedBatchEngine.preempt`) with the victim's cached
+prefix pinned while it waits (``prefix_pin`` / ``prefix_unpin``). Not
+ported yet: checkpoint, restore and migration
+(``checkpoint_state`` / ``restore_state`` / ``drain_streams`` /
+``admit_streams``).
 """
 
 from __future__ import annotations
@@ -88,26 +97,48 @@ class _DevicePlane:
         self.flops_per_token = 0
         self.device_peak_flops = 0.0
         self._done = torch.cuda.Event() if device.type == "cuda" else None
+        #: observability hooks the serving node attaches: ``tracer`` (a
+        #: telemetry.ServingTracer) and ``serving_metrics`` (a
+        #: metrics.ServingMetrics, for the fetch and grant histograms);
+        #: None elsewhere, one attribute check per hook site
+        self.tracer = None
+        self.serving_metrics = None
+        #: request_id -> seconds its first token waited host-side between
+        #: its fetch and the engine call returning; the server subtracts it
+        #: from the TTFT it measures (fed only while serving_metrics is on)
+        self.emit_lag_s: dict[str, float] = {}
 
-    def _fetch(self, t_dispatch: float | None, fetch):
-        """``fetch()``, the device-to-host read of what was dispatched
-        since ``t_dispatch`` (None: dispatch time counted already). With the
-        monitor on, the wall time splits at an event recorded after the
-        dispatch and synchronized (never the whole device; the CPU computed
-        it already) into host dispatch, device compute and fetch."""
-        if not self.device_monitor:
-            return fetch()
+    def _fetch(self, t_dispatch: float | None, fetch, what: str = "window"):
+        """``fetch()``, the blocking device-to-host read of what was
+        dispatched since ``t_dispatch`` (None: dispatch time counted
+        already), its wait observed in ``serving_metrics.fetch_latency``.
+        With the monitor on, the wall time splits at an event recorded after
+        the dispatch and synchronized (never the whole device; the CPU
+        computed it already) into host dispatch, device compute and fetch,
+        each also an ``s_dev_*`` span of ``what`` on an attached tracer."""
         t_fetch = time.perf_counter()
-        if t_dispatch is not None:
-            self.host_dispatch_ns += _ns(t_fetch - t_dispatch)
-        if self._done is not None:
-            self._done.record()
-            self._done.synchronize()
-        t_ready = time.perf_counter()
-        self.device_compute_ns += _ns(t_ready - t_fetch)
-        out = fetch()
-        self.device_fetch_ns += _ns(time.perf_counter() - t_ready)
+        if not self.device_monitor:
+            out = fetch()
+        else:
+            if t_dispatch is not None:
+                self.host_dispatch_ns += _ns(t_fetch - t_dispatch)
+                self._dev_span("s_dev_dispatch", what, t_fetch - t_dispatch)
+            if self._done is not None:
+                self._done.record()
+                self._done.synchronize()
+            t_ready = time.perf_counter()
+            self.device_compute_ns += _ns(t_ready - t_fetch)
+            self._dev_span("s_dev_compute", what, t_ready - t_fetch)
+            out = fetch()
+            self.device_fetch_ns += _ns(time.perf_counter() - t_ready)
+            self._dev_span("s_dev_fetch", what, time.perf_counter() - t_ready)
+        if self.serving_metrics is not None:
+            self.serving_metrics.fetch_latency.observe((time.perf_counter() - t_fetch) * 1e6)
         return out
+
+    def _dev_span(self, kind: str, what: str, seconds: float) -> None:
+        if self.tracer is not None:
+            self.tracer.span(kind, what, dur_ns=_ns(seconds))
 
 
 def _ns(seconds: float) -> int:
@@ -162,14 +193,6 @@ class BatchEngine(_DevicePlane):
         #: engine's fields, so a server reads either engine alike)
         self.dispatches = 0
         self.fetches = 0
-        #: observability hooks of the serving node (a tracer and serving
-        #: metrics); not ported yet, they stay None
-        self.tracer = None
-        self.serving_metrics = None
-        #: request_id -> seconds its first token waited host-side before the
-        #: engine call returned: always empty here, since submit returns the
-        #: first token synchronously; kept so a server reads either engine
-        self.emit_lag_s: dict[str, float] = {}
 
     # -- admission -----------------------------------------------------------
 
@@ -218,8 +241,13 @@ class BatchEngine(_DevicePlane):
         first, caches_1, pos = self.prefill(padded, len(ids))
         self._insert(caches_1, first, pos, b)
         self.dispatches += 1
-        token = self._fetch(t0, lambda: int(first[0]))
+        token = self._fetch(t0, lambda: int(first[0]), "prefill")
         self.fetches += 1
+        if self.tracer is not None:
+            # One span for grant and synchronous prefill: the dense engine
+            # has no chunked phase.
+            self.tracer.span("s_admitted", request_id, f"slot={b} bucket={tb}",
+                             dur_ns=_ns(time.perf_counter() - t0))
         if self.device_monitor:
             self.dispatched_flops += tb * self.flops_per_token
             self.useful_flops += len(ids) * self.flops_per_token
@@ -266,6 +294,7 @@ class BatchEngine(_DevicePlane):
         # ONE device-to-host copy for all slots
         host = self._fetch(t0, lambda: nxt.cpu().numpy())
         self.fetches += 1
+        step_ns = _ns(time.perf_counter() - t0)
         if self.device_monitor:
             self.dispatched_flops += self.active * self.flops_per_token
         emitted = []
@@ -275,6 +304,11 @@ class BatchEngine(_DevicePlane):
             token = int(host[b])
             slot.emitted += 1
             done = slot.emitted >= slot.max_new or (self.eos is not None and token == self.eos)
+            if self.tracer is not None:
+                # The dense step is a 1-tick window: the paged span's kind.
+                self.tracer.span("s_decode_window", slot.request_id,
+                                 f"K=1 emitted=1 frozen_at={1 if done else None}",
+                                 dur_ns=step_ns)
             emitted.append((slot.request_id, token, done))
             if done:
                 self.slots[b] = None
@@ -314,6 +348,17 @@ class PageAllocator:
     def in_use(self) -> int:
         """Pages currently granted (null page excluded)."""
         return self.num_pages - 1 - len(self._free)
+
+    def largest_contiguous_free(self) -> int:
+        """Longest run of adjacent free page ids: the fragmentation gauge
+        of the serving metrics (grants go through block tables, so it never
+        blocks one). O(free); read at report cadence."""
+        ids = sorted(self._free)
+        best = run = 1 if ids else 0
+        for prev, cur in zip(ids, ids[1:]):
+            run = run + 1 if cur == prev + 1 else 1
+            best = max(best, run)
+        return best
 
     def alloc(self, n: int) -> list[int] | None:
         if n > len(self._free):
@@ -652,6 +697,15 @@ class PagedBatchEngine(_DevicePlane):
         self._bt_dirty = True
         if self._spec_cfg:
             self._hist[b] = list(ids)  # drafts look up the prompt too
+        if self.serving_metrics is not None:
+            g = self.serving_metrics.grant_pages
+            g[len(pages)] = g.get(len(pages), 0) + 1
+        if self.tracer is not None:
+            if base0:
+                self.tracer.span("s_prefix_hit", request_id,
+                                 f"tokens={base0}/{len(ids)} pages={len(shared)}")
+            self.tracer.span("s_admitted", request_id, f"slot={b} pages={len(pages)}"
+                             + (f" shared={len(shared)}" if shared else ""))
 
     def _prefix_grant(self, ids: list[int], max_new: int,
                       adapter: str | None = None) -> tuple[int, list[int]]:
@@ -715,10 +769,72 @@ class PagedBatchEngine(_DevicePlane):
         own holdings are ``prefix_cache.size``)."""
         return sum(s.shared for s in self.slots if s is not None)
 
+    def prefix_pin(self, ids, adapter: str | None = None) -> int:
+        """Pin the cached path of ``ids`` against eviction: a preempted
+        victim's prefix waits for its resume on refcount custody, not slot
+        custody. No-op without a cache."""
+        if self.prefix_cache is None:
+            return 0
+        return self.prefix_cache.pin(ids, adapter)
+
+    def prefix_unpin(self, ids, adapter: str | None = None) -> None:
+        if self.prefix_cache is not None:
+            self.prefix_cache.unpin(ids, adapter)
+
+    def preempt(self, request_id: str) -> dict | None:
+        """Evict a live stream: its slot and its whole page grant are freed
+        (the grant is all-or-nothing, so the footprint is exact). Call
+        between steps, where host slots and device vectors agree: the freed
+        row's block table is zeroed and the window's membership is rebuilt
+        in its static buffers before the next window, so stale writes go to
+        the null page.
+
+        Returns ``{"emitted", "max_new", "pages", "was_decoding", "adapter"}``
+        for the caller's resume, or None if the id is not live. The engine
+        keeps no emitted tokens: the server re-submits prompt + emitted
+        with the remaining budget."""
+        b = next((i for i, s in enumerate(self.slots)
+                  if s is not None and s.request_id == request_id), None)
+        if b is None:
+            return None
+        s = self.slots[b]
+        if s.prompt is not None and b in self._prefillq:
+            self._prefillq.remove(b)  # still prefilling
+        meta = {"emitted": s.emitted, "max_new": s.max_new, "pages": len(s.pages),
+                "was_decoding": bool(self._decode[b]), "adapter": s.adapter}
+        self._free_slot(b)
+        if self.serving_metrics is not None:
+            self.serving_metrics.preempted += 1
+        if self.tracer is not None:
+            self.tracer.span("s_preempt", request_id,
+                             f"slot={b} pages={meta['pages']} emitted={meta['emitted']}")
+        return meta
+
     def kv_pool_bytes(self) -> int:
         """Device bytes of the KV pools, scale planes included."""
         return sum(t.numel() * t.element_size()
                    for lp in self.pools.values() for t in lp.values())
+
+    def kv_quant_error(self, sample_pages: int = 64) -> float | None:
+        """The int8 pools' quantization-error gauge: the mean relative
+        quantization step ``scale / (2 * rms(dequantized row) + eps)`` over up
+        to ``sample_pages`` allocated pages of layer 0 (the worst-case
+        rounding error as a share of the row's RMS). None on fp pools."""
+        if self.kv_dtype != "int8":
+            return None
+        held = sorted(p for p in self.allocator._ref if p)[:sample_pages]
+        if not held:
+            return 0.0
+        idx = torch.tensor(held, device=self.device)
+        lp = self.pools[next(iter(self.pools))]
+        errs = []
+        for name, sname in (("k", "ks"), ("v", "vs")):
+            q = lp[name][idx].float().cpu().numpy()    # [n, KV, page, hd]
+            sc = lp[sname][idx].float().cpu().numpy()  # [n, KV, page]
+            deq = q * sc[..., None]
+            rms = np.sqrt(np.mean(deq * deq, axis=-1))
+            errs.append(np.mean(sc / (2.0 * rms + 1e-8)))
+        return float(np.mean(errs))
 
     def check_invariants(self) -> None:
         """Allocator bookkeeping plus cross-custody: every allocated page's
@@ -792,6 +908,9 @@ class PagedBatchEngine(_DevicePlane):
         stream. Returns [(request_id, token, done)] in stream order."""
         dev = self.device
         emitted: list[tuple[str, int, bool]] = []
+        #: (request_id, fetch time) of a first token emitted this step: its
+        #: wait until step() returns is the TTFT lag
+        first_emit: tuple[str, float] | None = None
 
         if self._prefillq:
             t_chunk = time.perf_counter()
@@ -811,9 +930,11 @@ class PagedBatchEngine(_DevicePlane):
             self.dispatches += 1
             if self.device_monitor:
                 self.host_dispatch_ns += _ns(t_disp - t_chunk)
+                self._dev_span("s_dev_dispatch", "chunk", t_disp - t_chunk)
                 self.dispatched_flops += self.chunk * self.flops_per_token
                 self.useful_flops += min(self.chunk, s.true_len - base) * self.flops_per_token
-            if s.chunk_base >= s.true_len:  # final chunk: the stream starts
+            final_chunk = s.chunk_base >= s.true_len
+            if final_chunk:  # the stream starts
                 self._prefillq.popleft()
                 if self.prefix_cache is not None:
                     # The prompt's full pages never change again (decode
@@ -826,8 +947,11 @@ class PagedBatchEngine(_DevicePlane):
                 s.prompt = None
                 # Non-final chunks stay async (their device time shows in
                 # the next wait); the final one waits for its first token.
-                token = self._fetch(None, lambda: int(greedy[s.true_len - 1 - base].item()))
+                token = self._fetch(None, lambda: int(greedy[s.true_len - 1 - base].item()),
+                                    "chunk")
                 self.fetches += 1
+                if self.serving_metrics is not None:
+                    first_emit = (s.request_id, time.perf_counter())
                 s.emitted = 1
                 done = (self.eos is not None and token == self.eos) or s.max_new <= 1
                 emitted.append((s.request_id, token, done))
@@ -841,6 +965,13 @@ class PagedBatchEngine(_DevicePlane):
                     self.positions[b] = s.true_len
                     self._members_dirty = True
                     self._bt_dirty = True
+            if self.tracer is not None:
+                # A non-final chunk's span is its dispatch alone; the final
+                # one's includes the blocking first-token fetch.
+                self.tracer.span("s_prefill_chunk", s.request_id,
+                                 f"base={base} chunk={self.chunk}"
+                                 + (" final" if final_chunk else ""),
+                                 dur_ns=_ns(time.perf_counter() - t_chunk))
 
         if any(self._decode):
             if self._members_dirty:
@@ -891,16 +1022,38 @@ class PagedBatchEngine(_DevicePlane):
             # overwrite mat
             host = self._fetch(t_win, lambda: mat.cpu().numpy())
             self.fetches += 1
+            t_done = time.perf_counter()
             if self.device_monitor:
                 self.dispatched_flops += profiling.window_flops(
                     flops_per_token=self.flops_per_token, active=sum(self._decode),
                     k=self.window, spec_k=self.spec_k)
+            if self.tracer is not None:
+                self._window_spans(host, _ns(t_done - t_win))
             n_before = len(emitted)
             self._unpack(host, emitted)
             if self.device_monitor:
                 # useful work = the tokens this window emitted
                 self.useful_flops += (len(emitted) - n_before) * self.flops_per_token
+        if first_emit is not None:
+            key, t_first = first_emit
+            self.emit_lag_s[key] = time.perf_counter() - t_first
         return emitted
+
+    def _window_spans(self, host, win_ns: int) -> None:
+        """One ``s_decode_window`` span per decoding stream, before the
+        unpack frees finished slots; every row shares the window's time."""
+        from dora_tpu_torch.models.vlm import spec_window_row_stats, window_row_stats
+
+        for b, slot in enumerate(self.slots):
+            if slot is None or not self._decode[b]:
+                continue
+            if self.spec_k:
+                n_emit, frozen = spec_window_row_stats(host[b], self.window, self.spec_k + 1)
+            else:
+                n_emit, frozen = window_row_stats(host[b], self.window)
+            self.tracer.span("s_decode_window", slot.request_id,
+                             f"K={self.window} emitted={n_emit} frozen_at={frozen}",
+                             dur_ns=win_ns)
 
     def _unpack(self, host, emitted) -> None:
         """Unpack the window's [B, K*m + 1] matrix (m = spec_k + 1, so 1 for
@@ -909,17 +1062,22 @@ class PagedBatchEngine(_DevicePlane):
         walk goes tick by tick and stops a stream only where the host's own
         completion test (same counter, cap and eos) fires, which is where
         the device froze it. Feeds the host history mirror, also while
-        speculation is paused."""
+        speculation is paused, and with speculation on the draft counters of
+        the serving metrics (drafted = spec_k a live verify pass, accepted =
+        its emissions less the bonus token)."""
         m = self.spec_k + 1
+        sm = self.serving_metrics if self.spec_k else None
         for b, slot in enumerate(self.slots):
             if slot is None or not self._decode[b]:
                 continue
             done = False
             for t in range(self.window):
+                got = 0
                 for i in range(m):
                     token = int(host[b, t * m + i])
                     if token < 0:
                         break
+                    got += 1
                     slot.emitted += 1
                     if self._spec_cfg:
                         self._hist[b].append(token)
@@ -929,6 +1087,98 @@ class PagedBatchEngine(_DevicePlane):
                     emitted.append((slot.request_id, token, done))
                     if done:
                         break
+                if sm is not None and got:
+                    sm.spec_drafted += self.spec_k
+                    sm.spec_accepted += got - 1
+                    sm.spec_accept_len.observe(got)
                 if done:
                     self._free_slot(b)
                     break
+
+
+def make_stub_paged_engine(*, max_slots: int = 4, max_seq: int = 64, page_size: int = 8,
+                           chunk: int = 16, num_pages: int | None = None,
+                           eos: int | None = None, window: int = 1, vocab: int = 97,
+                           spec_k: int = 0, spec_ngram: int = 2, cycle: int | None = None,
+                           prefix_cache: bool = False, prefix_cache_pages: int = 0,
+                           flops_per_token: int = 1_000_000, peak_flops: float = 1e12,
+                           lora_max_resident: int = 0, device=None,
+                           graphs: bool | None = None) -> PagedBatchEngine:
+    """A weight-free :class:`PagedBatchEngine` over the real window machinery
+    (the counterpart of the JAX package's stub, which ``DORA_STUB_ENGINE=1``
+    serves): the decode window is ``vlm.make_paged_window`` (or, with
+    ``spec_k``, ``make_paged_spec_window``) with the model's batched step
+    replaced by the affine rule ``next = (7 * t + 3) % vocab``, which the
+    chunk-prefill stub applies too. Streams are deterministic and the same
+    at every window size and speculation width, and every scheduler path
+    (page grants, chunked prefill, freezing mid-window, preemption) is the
+    engine's own. ``cycle`` swaps in the period-``cycle`` rule ``(t + 1) %
+    cycle``, which prompt lookup predicts (acceptance near 1 after one
+    period; the affine rule keeps it near 0).
+
+    ``lora_max_resident > 0`` attaches an AdapterPool whose stub adapter is
+    an int32 shift derived from the tenant name, and the rule becomes
+    ``(rule(t) + shift) % vocab``: slot 0's zero shift keeps base streams
+    those of the pool-less stub, each tenant gets its own stream.
+    ``flops_per_token`` and ``peak_flops`` feed the device plane's ledger.
+    The pools are one int32 placeholder: the rule reads no KV."""
+    from dora_tpu_torch.models.lora_pool import AdapterPool
+    from dora_tpu_torch.models.vlm import make_paged_spec_window, make_paged_window
+
+    dev = resolve_device(device)
+    if num_pages is None:
+        num_pages = max_slots * (max_seq // page_size) + 1
+
+    if cycle is None:
+        def rule(t):
+            return (t * 7 + 3) % vocab
+    else:
+        def rule(t):
+            return (t + 1) % cycle
+
+    lora_pool = None
+    if lora_max_resident:
+        def stub_loader(name):
+            # The tenant name is the adapter: no weight files, and the same
+            # name resolves to the same shift in every process.
+            return torch.tensor((sum(ord(c) for c in name) * 131 + 17) % vocab,
+                                dtype=torch.int32, device=dev)
+
+        lora_pool = AdapterPool(stub_loader, torch.tensor(0, dtype=torch.int32, device=dev),
+                                max_resident=lora_max_resident)
+
+        def step_fn(tokens, pools, positions, bts, adapters, shifts):
+            return (rule(tokens) + shifts[adapters.long()]) % vocab, pools
+
+        def spec_step_fn(chunks, pools, positions, bts, adapters, shifts):
+            return (rule(chunks) + shifts[adapters.long()][:, None]) % vocab, pools
+
+        def chunk_fn(ids, pools, position, bt, adapter, shifts):
+            return (rule(ids) + shifts[adapter]) % vocab, pools
+    else:
+        def step_fn(tokens, pools, positions, bts):
+            return rule(tokens), pools
+
+        def spec_step_fn(chunks, pools, positions, bts):
+            return rule(chunks), pools
+
+        def chunk_fn(ids, pools, position, bt):
+            return rule(ids), pools
+
+    def window_factory(k, sk):
+        if sk:
+            return make_paged_spec_window(spec_step_fn, k=k, spec_k=sk, ngram=spec_ngram,
+                                          eos=eos, lora=lora_pool is not None)
+        return make_paged_window(step_fn, k=k, eos=eos, lora=lora_pool is not None)
+
+    engine = PagedBatchEngine(
+        init_pool=lambda n: {"0": {"null": torch.zeros((1,), dtype=torch.int32, device=dev)}},
+        chunk_prefill=chunk_fn, window_step=window_factory(window, spec_k),
+        window_factory=window_factory, max_slots=max_slots, max_seq=max_seq,
+        page_size=page_size, chunk=chunk, num_pages=num_pages, eos=eos, window=window,
+        spec_k=spec_k, spec_ngram=spec_ngram, prefix_cache=prefix_cache,
+        prefix_cache_pages=prefix_cache_pages, lora_pool=lora_pool, device=dev,
+        graphs=graphs)
+    engine.flops_per_token = flops_per_token
+    engine.device_peak_flops = peak_flops
+    return engine

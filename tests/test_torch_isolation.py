@@ -19,12 +19,19 @@ def test_port_imports_no_jax_and_no_dora_tpu():
         "names = [m.name for m in pkgutil.walk_packages(dora_tpu_torch.__path__, 'dora_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dora_tpu'))\n"
-        "assert len(names) >= 23, names\n"
+        "assert len(names) >= 40, names\n"
         "assert {'dora_tpu_torch.ops.lora', 'dora_tpu_torch.models.lora_pool',\n"
         "        'dora_tpu_torch.models.spec_decode', 'dora_tpu_torch.ops.int8_matmul',\n"
         "        'dora_tpu_torch.models.tokenizer', 'dora_tpu_torch.nodehub.ops',\n"
         "        'dora_tpu_torch.ops.flash_attention', 'dora_tpu_torch.profiling',\n"
-        "        'dora_tpu_torch.ops.int4'} <= set(names)\n"
+        "        'dora_tpu_torch.ops.int4', 'dora_tpu_torch.clock', 'dora_tpu_torch.native',\n"
+        "        'dora_tpu_torch.message.serde', 'dora_tpu_torch.message.common',\n"
+        "        'dora_tpu_torch.message.daemon_to_node', 'dora_tpu_torch.message.node_to_daemon',\n"
+        "        'dora_tpu_torch.transport.framing', 'dora_tpu_torch.core.topics',\n"
+        "        'dora_tpu_torch.telemetry', 'dora_tpu_torch.metrics',\n"
+        "        'dora_tpu_torch.metrics_history', 'dora_tpu_torch.fleet', 'dora_tpu_torch.node',\n"
+        "        'dora_tpu_torch.node.arrow', 'dora_tpu_torch.node.channels',\n"
+        "        'dora_tpu_torch.node.events'} <= set(names)\n"
         "from dora_tpu_torch.models import tokenizer, vlm\n"
         "from dora_tpu_torch.nodehub import ops\n"
         "from dora_tpu_torch.ops import flash_attention\n"
@@ -39,6 +46,45 @@ def test_port_imports_no_jax_and_no_dora_tpu():
         "assert callable(decode_block.attention_chunk_step)\n"
         "print(len(names), bad)\n"
         "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_serving_node_loads_no_wire_packages_until_it_talks():
+    """The serving loop, the admission queue, the engine, the metrics and
+    the fleet digest run without pyarrow and msgpack (the card's machine
+    need not have them): importing nodehub.llm_server and serving a
+    scripted node on the stub engine load neither; only the node's data
+    plane (dora_tpu_torch.node) does."""
+    code = (
+        "import sys\n"
+        "from dora_tpu_torch.nodehub import llm_server\n"
+        "from dora_tpu_torch.metrics import ServingMetrics\n"
+        "from dora_tpu_torch.models.batch_engine import make_stub_paged_engine\n"
+        "class N:\n"
+        "    stream_ended = False\n"
+        "    def __init__(self):\n"
+        "        self.events = [{'type': 'INPUT', 'metadata': {'request_id': 'a'}, 'value': b'hi'}]\n"
+        "        self.sent, self.digests = [], []\n"
+        "    def recv(self, timeout=None):\n"
+        "        if self.events:\n"
+        "            return self.events.pop()\n"
+        "        self.stream_ended = True\n"
+        "    def send_output(self, oid, value, meta): self.sent.append((value, meta))\n"
+        "    def report_serving(self, snap): pass\n"
+        "    def report_engine_state(self, digest): self.digests.append(digest)\n"
+        "    def close(self): pass\n"
+        "node = N()\n"
+        "llm_server.serve(node, make_stub_paged_engine(device='cpu'), ServingMetrics(),\n"
+        "                 encode=lambda t: [1, 2], decode_one=str, max_new_cap=4)\n"
+        "assert len(node.sent) == 4 and node.sent[-1][1]['done'] and node.digests\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('pyarrow', 'msgpack', 'jax', 'jaxlib', 'dora_tpu'))\n"
+        "assert not bad, bad\n"
+        "import dora_tpu_torch.node\n"
     )
     env = dict(os.environ, PYTHONPATH=_REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
@@ -61,6 +107,10 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         qwen2.params_from_jax({"embed": [[0.0]]})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         rope_table(64, 16)
+    from dora_tpu_torch.models.batch_engine import make_stub_paged_engine
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_stub_paged_engine()
     assert resolve_device("cpu") == torch.device("cpu")
     assert compute_dtype("cpu") == torch.float32
     assert compute_dtype("cuda") == torch.bfloat16
