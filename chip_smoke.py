@@ -124,7 +124,30 @@ Phases, each printed on its own line:
    every stream held to phase 4's as in (a); (c) ``DORA_QOS_DEPTH_BATCH``
    SHED_DEPTH under SHED_REQUESTS batch requests at once: sheds end in one
    retriable empty ``overloaded`` chunk, the rest in full, none lost; no
-   capture after warmup.
+   capture after warmup;
+14. the serving node's recovery, on make_engine's graphed engines (phase
+   13's and a fresh one) and phase 4's weights and requests: (a)
+   ``DORA_CHECKPOINT_DIR`` with ``DORA_CHECKPOINT_EVERY=8`` and
+   ``DORA_CHECKPOINT_PAGES=1``; the scripted node raises out of ``recv``
+   right after the second cadence checkpoint, whose snapshot must hold a
+   decoding, a mid-prefill and a parked stream (phase 4's page pressure at
+   128 new tokens gives all three); a fresh engine's ``serve()`` with no new
+   traffic restores it: restored_streams equal the snapshot's live
+   streams, the restored pools' per-layer checksums the saved ones', the
+   chunks of both runs, deduplicated by (request_id, seq), phase 4's
+   streams by the near-tie rule of phase 13 (a), kernels 1-4 launched (the
+   restored decoding streams read their restored pages through kernel 3,
+   the mid-prefill ones re-prefill through kernel 4), no plain version and
+   no capture after the fresh engine's first window; checkpoint and pool
+   write ms, state.json and pool bytes, restore ms and tokens/s against
+   phase 13 (a)'s are printed; (b) a MIGRATE once four streams have a token
+   drains phase 13's engine into a handoff file, which the fresh engine
+   (``DORA_MIGRATE_DIR``) admits: migrated_out = migrated_in = the drained
+   plus the parked streams, every stream's seqs gapless to its full length,
+   the parked and mid-prefill streams equal to phase 4's (near-tie rule);
+   the decoding ones continue without their KV pages (none are shipped, as
+   in the reference), so their agreement with phase 4's is only printed; no
+   capture on the target.
 
 Phase 3 also holds the int4 forms of kernels 1-5 and 8-10 against their
 plain versions on phase 12's int4 weights at the main paths' shapes (with
@@ -3842,7 +3865,8 @@ class _ScriptNode:
             gate, event = self._events[0]
             if gate is None or gate(self):
                 self._events.pop(0)
-                self.arrived[event["metadata"]["request_id"]] = time.perf_counter()
+                if event["type"] == "INPUT":
+                    self.arrived[event["metadata"]["request_id"]] = time.perf_counter()
                 return event
             return None
         self.stream_ended = True
@@ -3885,22 +3909,26 @@ def _request(rid: str, ids, max_new: int, qos: str | None = None) -> dict:
     return {"type": "INPUT", "metadata": meta, "value": " ".join(map(str, ids)).encode()}
 
 
-def _serve_script(torch, DB, LO, engine, events, max_new: int):
-    """serve() over a _ScriptNode of ``events`` on ``engine``, every launch
-    counter zeroed just before and read just after, the plain versions
-    counted. Returns (node, metrics, launches, wall seconds)."""
+def _serve_script(torch, DB, LO, engine, events, max_new: int, node=None):
+    """serve() over ``node`` (default a _ScriptNode of ``events``) on
+    ``engine``, every launch counter zeroed just before and read just after,
+    the plain versions counted; a _KillNode's kill ends the run as a kill -9
+    would. Returns (node, metrics, launches, wall seconds)."""
     from dora_tpu_torch.metrics import ServingMetrics
     from dora_tpu_torch.nodehub.llm_server import serve
 
-    node = _ScriptNode(events)
+    node = node if node is not None else _ScriptNode(events)
     metrics = ServingMetrics(engine="paged")
     plain_calls = _PlainCalls(DB, LO)
     _reset_launches(DB, LO)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        serve(node, engine, metrics, encode=lambda text: [int(t) for t in text.split()],
-              decode_one=lambda tok: f" {tok}", max_new_cap=max_new)
+        try:
+            serve(node, engine, metrics, encode=lambda text: [int(t) for t in text.split()],
+                  decode_one=lambda tok: f" {tok}", max_new_cap=max_new)
+        except _Killed:
+            pass
         torch.cuda.synchronize()
     finally:
         wall = time.perf_counter() - t0
@@ -3952,12 +3980,13 @@ def _pct(xs, p: float) -> float:
 
 
 def serve_node(torch, DB, LO, make_engine, serve_prompts, paths, params, cfg, prompts,
-               max_new: int, served: dict, seed: int) -> dict:
+               max_new: int, served: dict, seed: int):
     """Phase 13: the port's ``serve()`` on the engine ``make_engine`` builds
     (graphed; 16 slots, page 16, chunk 256, K = 8, 511 pages, prefix cache
     on), driven by a scripted node: (a) phase 4's requests, each stream held
     to phase 4's; (b) preemption under ``DORA_QOS_PREEMPT=1``; (c) shedding
-    under ``DORA_QOS_DEPTH_BATCH``. Returns (a)'s launches."""
+    under ``DORA_QOS_DEPTH_BATCH``. Returns (a)'s launches, the engine and
+    (a)'s end-to-end tokens/s."""
     import numpy as np
 
     from dora_tpu_torch.metrics import percentile_from_counts
@@ -3989,6 +4018,7 @@ def serve_node(torch, DB, LO, make_engine, serve_prompts, paths, params, cfg, pr
     ttft = [streams[r][3] - node.arrived[r] for r in rids]
     gap = metrics.dispatch_gap.counts
     snap = node.snapshots[-1]
+    rate_a = metrics.decode_tokens / wall
     print(f"serve (a): {len(rids)} requests, {metrics.decode_tokens} tokens in {wall:.3f} s "
           f"({metrics.decode_tokens / wall:.1f} tokens/s end to end); {len(rids) - parted} "
           f"streams equal phase 4's token for token, {parted} part at near-ties; TTFT p50 "
@@ -4101,7 +4131,298 @@ def serve_node(torch, DB, LO, make_engine, serve_prompts, paths, params, cfg, pr
           flush=True)
     if engine.graph_captures != warm:
         raise Failed(f"serve: {engine.graph_captures - warm} capture(s) after warmup")
-    return launches
+    return launches, engine, rate_a
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the serving node's recovery, checkpoint / restore and migration
+# ---------------------------------------------------------------------------
+
+#: phase 14 (a): serve() checkpoints every CKPT_EVERY steps and is killed
+#: right after its CKPT_KILL_AT-th cadence checkpoint
+CKPT_EVERY = 8
+CKPT_KILL_AT = 2
+#: phase 14 (b): the MIGRATE goes out once this many streams have a token
+MIGRATE_AFTER = 4
+
+
+class _Killed(Exception):
+    """A _KillNode's kill: out of ``recv``, as the process would die."""
+
+
+class _KillNode(_ScriptNode):
+    """Phase 14 (a)'s first node: a _ScriptNode whose ``recv`` raises once
+    ``killed()`` holds."""
+
+    def __init__(self, events, killed):
+        super().__init__(events)
+        self._killed = killed
+
+    def recv(self, timeout=None):
+        if self._killed():
+            raise _Killed("killed after the checkpoint")
+        return super().recv(timeout)
+
+
+class _TargetNode(_ScriptNode):
+    """A migration target's node: no inputs of its own, its stream open,
+    and STOP once every request of ``expected`` has its done chunk here."""
+
+    def __init__(self, expected):
+        super().__init__([])
+        self._expected = set(expected)
+
+    def recv(self, timeout=None):
+        done = {m["request_id"] for _t, _x, m in self.sent if m["done"]}
+        return {"type": "STOP"} if done >= self._expected else None
+
+
+def _merged(what: str, rids, max_new: int, *nodes) -> dict:
+    """request id -> tokens, from the chunks of ``nodes`` deduplicated by
+    (request_id, seq), the first kept (the consumers' rule for a replay);
+    every request's seqs run 0, 1, ... without a gap to one done chunk with
+    finish "length" after its max_new tokens."""
+    seen: dict = {}
+    for node in nodes:
+        for _t, text, meta in node.sent:
+            seen.setdefault((meta["request_id"], meta["seq"]), (text, meta))
+    out = {}
+    for rid in rids:
+        chunks = sorted((seq, tm) for (r, seq), tm in seen.items() if r == rid)
+        seqs = [seq for seq, _tm in chunks]
+        if seqs != list(range(len(seqs))):
+            raise Failed(f"{what}: request {rid}'s merged seqs have a gap: {seqs[:8]}...")
+        dones = [tm[1] for _seq, tm in chunks if tm[1]["done"]]
+        if len(dones) != 1 or not chunks[-1][1][1]["done"] or dones[0]["finish"] != "length":
+            raise Failed(f"{what}: request {rid} ends in {len(dones)} done chunks")
+        out[rid] = [int(tm[0]) for _seq, tm in chunks if tm[0]]
+        if len(out[rid]) != max_new:
+            raise Failed(f"{what}: request {rid} has {len(out[rid])} of {max_new} tokens")
+    return out
+
+
+def _pool_sums(torch, pools) -> list[int]:
+    """One checksum a layer of KV pools: their bytes, each times its index
+    mod 65521 plus 1, summed (a moved or changed byte changes it)."""
+    sums = []
+    for layer in sorted(pools, key=int):
+        total = 0
+        for t in pools[layer].values():
+            b = t.contiguous().view(torch.uint8).reshape(-1).to(torch.int64)
+            total += int((b * (torch.arange(b.numel(), device=b.device) % 65521 + 1)).sum())
+        sums.append(total)
+    return sums
+
+
+def _timed_method(engine, name: str, log: list, after=None):
+    """Wrap ``engine.<name>`` (an instance attribute over the method) to
+    append (seconds, result, after(*args)) to ``log`` at each call; undo
+    with ``delattr(engine, name)``."""
+    inner = getattr(engine, name)
+
+    def run(*args):
+        t = time.perf_counter()
+        res = inner(*args)
+        log.append((time.perf_counter() - t, res,
+                    after(*args) if after is not None else None))
+        return res
+
+    setattr(engine, name, run)
+
+
+def serve_recovery(torch, DB, LO, make_engine, paths, params, cfg, prompts, max_new: int,
+                   served: dict, engine, rate_13a: float, smi: str, scratch: str) -> None:
+    """Phase 14: the recovery half of ``serve()`` on make_engine's graphed
+    engines (16 slots, page 16, chunk 256, K = 8, 512 pages, prefix cache
+    on), phase 4's weights and requests.
+
+    (a) Kill and resume: ``DORA_CHECKPOINT_DIR`` (every CKPT_EVERY steps,
+    ``DORA_CHECKPOINT_PAGES=1``) on phase 13's engine; its node raises out
+    of ``recv`` right after the CKPT_KILL_AT-th cadence checkpoint, whose
+    snapshot must hold a decoding, a mid-prefill and a parked stream. A fresh
+    engine's ``serve()`` with no new traffic restores it: restored_streams
+    equal the snapshot's live streams, the restored pools' per-layer
+    checksums the saved ones', the merged chunks phase 4's streams (near-tie
+    rule), kernels 1-4 launched, no plain version, one capture (the K = 8
+    window's) and no more.
+
+    (b) Drain and migrate: phase 13's engine (drained) serves phase 4's
+    requests again and gets a MIGRATE once MIGRATE_AFTER streams have a
+    token; the fresh engine, with ``DORA_MIGRATE_DIR`` on the handoff
+    directory, finishes every stream. migrated_out = migrated_in = drained +
+    parked streams; every stream's merged seqs gapless to its full length;
+    the parked and mid-prefill streams equal phase 4's (near-tie rule); the
+    decoding ones continue without their KV pages (none are shipped), so
+    only how many still agree with phase 4's is printed; no capture on the
+    target."""
+    import signal
+
+    rids = [f"k{i}" for i in range(len(prompts))]
+    env = dict(DORA_QOS_PREEMPT=None, DORA_QOS_DEPTH_BATCH=None, DORA_FLEET_DIGEST_S="0",
+               DORA_CHECKPOINT_EVERY=str(CKPT_EVERY), DORA_CHECKPOINT_PAGES="1",
+               DORA_MIGRATE_DIR=None)
+    prev_term = signal.getsignal(signal.SIGTERM)
+    os.makedirs(scratch, exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="recovery-", dir=scratch) as root:
+            ckpt = os.path.join(root, "ckpt")
+            # (a) the checkpointing run, killed
+            engine.prefix_cache.flush()
+            warm = engine.graph_captures
+            snaps: list = []
+            saves: list = []
+            _timed_method(engine, "checkpoint_state", snaps)
+            _timed_method(engine, "save_pools", saves,
+                          after=lambda path: (_pool_sums(torch, engine.pools),
+                                              os.path.getsize(path)))
+            node = _KillNode([(None, _request(r, p, max_new)) for r, p in zip(rids, prompts)],
+                             lambda: len(snaps) >= CKPT_KILL_AT)
+            try:
+                with _env(DORA_CHECKPOINT_DIR=ckpt, **env):
+                    node1, m1, l1, wall1 = _serve_script(torch, DB, LO, engine, [], max_new,
+                                                         node=node)
+            finally:
+                del engine.checkpoint_state, engine.save_pools
+            if len(snaps) != CKPT_KILL_AT or len(saves) != CKPT_KILL_AT:
+                raise Failed(f"recover (a): {len(snaps)} checkpoints, {len(saves)} pool saves "
+                             f"before the kill")
+            with open(os.path.join(ckpt, "state.json")) as f:
+                state = json.load(f)
+            state_bytes = os.path.getsize(os.path.join(ckpt, "state.json"))
+            slots = state["engine"]["slots"]
+            decoding = [m for m in slots if m["decode"]]
+            prefill = [m for m in slots if not m["decode"]]
+            started = [m for m in prefill if m["chunk_base"] > 0]
+            if not decoding or not prefill or not state["backlog"]:
+                raise Failed(f"recover (a): the snapshot holds {len(decoding)} decoding, "
+                             f"{len(prefill)} mid-prefill and {len(state['backlog'])} parked "
+                             f"streams; want one of each")
+            print(f"recover (a) checkpoint: DORA_CHECKPOINT_EVERY={CKPT_EVERY}, killed after "
+                  f"cadence checkpoint {CKPT_KILL_AT} (step {CKPT_EVERY * CKPT_KILL_AT}): "
+                  f"{len(decoding)} decoding, {len(prefill)} mid-prefill ({len(started)} with "
+                  f"chunks done), {len(state['backlog'])} parked; {m1.decode_tokens} tokens sent; "
+                  f"checkpoint_state ms {_ms([t for t, _s, _a in snaps])}; state.json "
+                  f"{state_bytes} bytes; pools {saves[-1][2][1]} bytes, written in ms "
+                  f"{_ms([t for t, _r, _a in saves])}; {m1.decode_tokens / wall1:.1f} tokens/s "
+                  f"end to end over {wall1:.3f} s, checkpoints included, against phase 13 (a)'s "
+                  f"{rate_13a:.1f} [{smi}]", flush=True)
+            engine.drain_streams()  # the killed process's engine, cleaned for (b)
+
+            # (a) the resume: a fresh engine, no new traffic
+            fresh = front_door(make_engine, params, cfg, DORA_BATCH_SLOTS="16",
+                               DORA_PAGE_SIZE="16", DORA_PREFILL_CHUNK="256",
+                               DORA_MULTISTEP_K="8")
+            def addresses():
+                return {(i, n): t.data_ptr() for i, lp in fresh.pools.items()
+                        for n, t in lp.items()}
+
+            ptrs = addresses()
+            loads: list = []
+            restores: list = []
+            _timed_method(fresh, "restore_pools", loads,
+                          after=lambda path: (_pool_sums(torch, fresh.pools), addresses()))
+            _timed_method(fresh, "restore_state", restores)
+            try:
+                with _env(DORA_CHECKPOINT_DIR=ckpt, **env):
+                    node2, m2, l2, wall2 = _serve_script(torch, DB, LO, fresh, [], max_new)
+            finally:
+                del fresh.restore_pools, fresh.restore_state
+            print(f"recover (a) launches: {json.dumps(l2)}", flush=True)
+            if not all(l2[n] > 0 for n in SPEC_OFF_KERNELS):
+                raise Failed(f"recover (a): a kernel of the main path never launched: {l2}")
+            if len(loads) != 1 or loads[0][2][1] != ptrs or addresses() != ptrs:
+                raise Failed(f"recover (a): {len(loads)} pool restores; a pool tensor moved: "
+                             f"{loads[0][2][1] != ptrs if loads else None}, "
+                             f"{addresses() != ptrs}")
+            if loads[0][2][0] != saves[-1][2][0]:
+                bad = [i for i, (a, b) in enumerate(zip(loads[0][2][0], saves[-1][2][0]))
+                       if a != b]
+                raise Failed(f"recover (a): restored pools differ from the saved ones in "
+                             f"layers {bad}")
+            if m2.restored_streams != len(slots):
+                raise Failed(f"recover (a): {m2.restored_streams} streams restored, the "
+                             f"snapshot holds {len(slots)}")
+            got = _merged("recover (a)", rids, max_new, node1, node2)
+            parted = sum(_hold_to_phase4(f"recover (a): request {i}", paths, prompts[i],
+                                         got[r], served[i], max_new) < max_new
+                         for i, r in enumerate(rids))
+            if fresh.graph_captures != 1 or engine.graph_captures != warm:
+                raise Failed(f"recover (a): {fresh.graph_captures} captures on the fresh engine "
+                             f"(want the K = 8 window's one), {engine.graph_captures - warm} new "
+                             f"on phase 13's")
+            print(f"recover (a) resume: restore_pools ms {1e3 * loads[0][0]:.1f}, restore_state "
+                  f"ms {1e3 * restores[0][0]:.1f}; restored_streams {m2.restored_streams} of "
+                  f"{len(slots)} live + {len(state['backlog'])} parked re-queued; pool checksums "
+                  f"equal in all {len(saves[-1][2][0])} layers; {len(rids) - parted} merged "
+                  f"streams equal phase 4's token for token, {parted} part at near-ties; "
+                  f"{m2.decode_tokens} tokens in {wall2:.3f} s ({m2.decode_tokens / wall2:.1f} "
+                  f"tokens/s, restore, capture and {m2.checkpoints} checkpoints included); "
+                  f"both runs {(m1.decode_tokens + m2.decode_tokens) / (wall1 + wall2):.1f} "
+                  f"tokens/s against phase 13 (a)'s {rate_13a:.1f}; captures on the fresh "
+                  f"engine {fresh.graph_captures} [{smi}]", flush=True)
+
+            # (b) drain on phase 13's engine, migrate to the fresh one
+            handoff = os.path.join(root, "handoff")
+            engine.prefix_cache.flush()
+            fresh.prefix_cache.flush()  # admit_streams grants from free pages only
+            warm_b = fresh.graph_captures
+            mids = [f"m{i}" for i in range(len(prompts))]
+
+            def has_tokens(node):
+                return len({m["request_id"] for _t, _x, m in node.sent}) >= MIGRATE_AFTER
+
+            events = [(None, _request(r, p, max_new)) for r, p in zip(mids, prompts)]
+            events.append((has_tokens, {"type": "MIGRATE", "metadata": {"handoff_dir": handoff}}))
+            with _env(DORA_CHECKPOINT_DIR=None, **env):
+                node_a, ma, la, wall_a = _serve_script(torch, DB, LO, engine, events, max_new)
+            (fname,) = os.listdir(handoff)
+            handoff_bytes = os.path.getsize(os.path.join(handoff, fname))
+            with open(os.path.join(handoff, fname)) as f:
+                payload = json.load(f)
+            wire = payload["wire_ids"]
+            moved = {wire[m["request_id"]]: m for m in payload["engine"]["slots"]}
+            parked = [wire[e[0]] for e in payload["backlog"]]
+            finished = {m["request_id"] for _t, _x, m in node_a.sent if m["done"]}
+            with _env(DORA_CHECKPOINT_DIR=None, DORA_MIGRATE_DIR=handoff,
+                      **{k: v for k, v in env.items() if k != "DORA_MIGRATE_DIR"}):
+                node_b, mb, lb, wall_b = _serve_script(
+                    torch, DB, LO, fresh, [], max_new,
+                    node=_TargetNode(set(mids) - finished))
+            print(f"recover (b) launches on the target: {json.dumps(lb)}", flush=True)
+            if not all(lb[n] > 0 for n in SPEC_OFF_KERNELS):
+                raise Failed(f"recover (b): a kernel of the main path never launched: {lb}")
+            n_moved = len(moved) + len(parked)
+            if not (ma.migrated_out == mb.migrated_in == n_moved) or os.listdir(handoff):
+                raise Failed(f"recover (b): migrated_out {ma.migrated_out}, migrated_in "
+                             f"{mb.migrated_in}, {len(moved)} drained + {len(parked)} parked; "
+                             f"left in the handoff directory: {os.listdir(handoff)}")
+            got = _merged("recover (b)", mids, max_new, node_a, node_b)
+            exact = [r for r in mids if r in parked or (r in moved and not moved[r]["decode"])]
+            dec = [r for r in moved if moved[r]["decode"]]
+            parted = sum(_hold_to_phase4(f"recover (b): request {r}", paths,
+                                         prompts[mids.index(r)], got[r],
+                                         served[mids.index(r)], max_new) < max_new
+                         for r in exact)
+            agree = sum(_first_parting(got[r], served[mids.index(r)], max_new) == max_new
+                        for r in dec)
+            if fresh.graph_captures != warm_b:
+                raise Failed(f"recover (b): {fresh.graph_captures - warm_b} capture(s) on the "
+                             f"target after warmup")
+            print(f"recover (b): MIGRATE after {MIGRATE_AFTER} streams had a token: "
+                  f"{len(dec)} decoding + {len(moved) - len(dec)} mid-prefill drained, "
+                  f"{len(parked)} parked, {len(finished)} finished before; migrated_out "
+                  f"{ma.migrated_out} = migrated_in {mb.migrated_in}; handoff file "
+                  f"{handoff_bytes} bytes; drain run {wall_a:.3f} s, target run {wall_b:.3f} s "
+                  f"({mb.decode_tokens} tokens, {mb.decode_tokens / wall_b:.1f} tokens/s); every "
+                  f"stream gapless to {max_new} tokens; {len(exact) - parted} of {len(exact)} "
+                  f"parked or mid-prefill streams equal phase 4's token for token, {parted} "
+                  f"part at near-ties; {agree} of {len(dec)} decoding streams (continued "
+                  f"without their KV pages) still equal phase 4's; captures on the target "
+                  f"{fresh.graph_captures}, none after warmup [{smi}]", flush=True)
+            engine.check_invariants()
+            fresh.check_invariants()
+    finally:
+        signal.signal(signal.SIGTERM, prev_term)
 
 
 def main(argv=None) -> int:
@@ -4299,10 +4620,13 @@ def main(argv=None) -> int:
                   "attention_step_int4", "attention_chunk_step_int4"):
             by_name[n]["launches"] = o_launches[n]
         del paths4, params4
-        n_launches = serve_node(torch, DB, LO, make_engine, serve_prompts, paths, params, cfg,
-                                prompts, args.max_new, served, args.seed + 27)
+        n_launches, n_engine, rate_13a = serve_node(
+            torch, DB, LO, make_engine, serve_prompts, paths, params, cfg, prompts,
+            args.max_new, served, args.seed + 27)
         for n in SPEC_OFF_KERNELS:  # the main path: serve() on make_engine's engine
             by_name[n]["launches"] = n_launches[n]
+        serve_recovery(torch, DB, LO, make_engine, paths, params, cfg, prompts, args.max_new,
+                       served, n_engine, rate_13a, smi, os.path.join(here, "_scratch"))
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -36,7 +36,7 @@ typedef __nv_bfloat16 bf16;
 
 #ifdef DORA_EMULATE
 // Host build for checking the kernels' indexing on a machine without a card
-// (csrc/emu/): each block runs as one OS thread per CUDA thread.
+// (csrc/emu/): each block runs as one fiber per CUDA thread.
 #define DORA_LAUNCH(kern, grid, block, stream, ...) \
     dora_emu_launch(grid, block, [&] { kern(__VA_ARGS__); })
 #define DORA_LAUNCH_SMEM(kern, grid, block, smem, stream, ...) \

@@ -2,9 +2,12 @@
 // (ops/_build.py, compiler="host"): the same sources compiled by a C++20
 // host compiler with -DDORA_EMULATE, so their indexing and arithmetic can be
 // checked against the plain PyTorch versions on a machine without a card.
-// Each block runs in turn; each of its threads is one OS thread (the same
-// threads for every block of a launch), and __syncthreads() is a barrier
-// over them. __shared__ arrays become statics
+// Each block runs in turn, and each of its threads is a fiber (a context of
+// its own stack, ucontext) on the launching OS thread: a thread runs until it
+// waits at a barrier, then the next runnable one resumes, in a fixed round
+// robin, so a launch takes one core and its schedule is the same on a loaded
+// machine as on an idle one. __syncthreads() is a barrier over the block's
+// threads. __shared__ arrays become statics
 // and dynamic shared memory one buffer per block, which is sound because
 // only one block runs at a time. Warp collectives (__shfl_xor_sync, the
 // ballot, and the m16n8k16 bf16 mma and ldmatrix of common.cuh) meet at a
@@ -12,18 +15,22 @@
 // exchange buffers;
 // the mma computes each lane's C elements from the fragments of all 32
 // lanes, and ldmatrix each lane's registers from the row addresses of all
-// 32, by the PTX ISA's layouts. It checks nothing that is particular to the card
-// (memory model, launch limits, speed).
+// 32, by the PTX ISA's layouts. A barrier that some thread never reaches
+// (a hang on the card) aborts the process. It checks nothing that is
+// particular to the card (memory model, launch limits, speed).
 #pragma once
 
+#include <sys/mman.h>
+#include <ucontext.h>
+
 #include <algorithm>
-#include <barrier>
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
+#include <functional>
 #include <memory>
-#include <thread>
 #include <vector>
 
 #define __global__
@@ -38,12 +45,38 @@ struct dim3 {
     dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 
-inline thread_local dim3 threadIdx;
-inline thread_local dim3 blockIdx;
+// A barrier over n fibers: the last to arrive opens it (a new generation)
+// and runs on; the others yield to the scheduler until it is open.
+struct DoraEmuBarrier {
+    unsigned n, arrived = 0, gen = 0;
+    explicit DoraEmuBarrier(unsigned count) : n(count) {}
+    void arrive_and_wait();
+};
+
+struct DoraEmuWarp;
+
+// One CUDA thread: its context and what the kernel reads of it. The
+// scheduler loads a fiber's fields into the globals below before resuming
+// it and takes back what the fiber changes (its turn, its block) when it
+// yields.
+struct DoraEmuFiber {
+    ucontext_t ctx;
+    dim3 tid, bid;
+    DoraEmuWarp* warp = nullptr;
+    unsigned lane = 0, turn = 0;
+    const DoraEmuBarrier* wait = nullptr;  // the barrier it waits at, if any
+    unsigned wait_gen = 0;
+    bool done = false;
+};
+
+inline dim3 threadIdx;
+inline dim3 blockIdx;
 inline dim3 blockDim;
 inline dim3 gridDim;
-inline std::barrier<>* dora_emu_barrier = nullptr;
+inline DoraEmuBarrier* dora_emu_barrier = nullptr;
 inline unsigned char* dora_emu_smem = nullptr;  // the block's dynamic shared memory
+inline DoraEmuFiber* dora_emu_fiber = nullptr;  // the running thread
+inline ucontext_t dora_emu_sched;               // the launch's scheduler
 
 inline void __syncthreads() { dora_emu_barrier->arrive_and_wait(); }
 
@@ -53,15 +86,29 @@ inline void __syncthreads() { dora_emu_barrier->arrive_and_wait(); }
 // it writes that buffer again only at collective k + 2, after every lane
 // has met at k + 1 and so has read what it needed of k.
 struct DoraEmuWarp {
-    std::barrier<> bar;
+    DoraEmuBarrier bar;
     uint64_t x[2][32];
     uint32_t a[2][32][4];
     uint32_t b[2][32][2];
-    explicit DoraEmuWarp(std::ptrdiff_t n) : bar(n) {}
+    explicit DoraEmuWarp(unsigned n) : bar(n) {}
 };
-inline thread_local DoraEmuWarp* dora_emu_warp = nullptr;
-inline thread_local unsigned dora_emu_lane = 0;
-inline thread_local unsigned dora_emu_turn = 0;  // this lane's collectives, mod 2
+inline DoraEmuWarp* dora_emu_warp = nullptr;
+inline unsigned dora_emu_lane = 0;
+inline unsigned dora_emu_turn = 0;  // this lane's collectives, mod 2
+
+inline void DoraEmuBarrier::arrive_and_wait() {
+    if (++arrived == n) {
+        arrived = 0;
+        ++gen;
+        return;
+    }
+    DoraEmuFiber* f = dora_emu_fiber;
+    f->wait = this;
+    f->wait_gen = gen;
+    f->turn = dora_emu_turn;
+    f->bid = blockIdx;
+    swapcontext(&f->ctx, &dora_emu_sched);
+}
 
 template <class T>
 inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
@@ -194,10 +241,29 @@ inline unsigned __float_as_uint(float f) {
     return u;
 }
 
-// The launch: one OS thread per thread of a block, made once and run over
-// every block in turn; a block ends for all of them (a barrier of its own,
-// apart from __syncthreads') before any starts the next, so the next block
-// finds the shared arrays and the warps' exchange buffers free.
+// The launch: one fiber per thread of a block, made once and run over every
+// block in turn; a block ends for all of them (a barrier of its own, apart
+// from __syncthreads') before any starts the next, so the next block finds
+// the shared arrays and the warps' exchange buffers free.
+inline std::function<void()>* dora_emu_body = nullptr;
+inline DoraEmuBarrier* dora_emu_block_end = nullptr;
+
+inline void dora_emu_fiber_main() {
+    for (unsigned bz = 0; bz < gridDim.z; ++bz)
+        for (unsigned by = 0; by < gridDim.y; ++by)
+            for (unsigned bx = 0; bx < gridDim.x; ++bx) {
+                blockIdx = dim3(bx, by, bz);
+                dora_emu_turn = 0;
+                (*dora_emu_body)();
+                dora_emu_block_end->arrive_and_wait();
+            }
+    dora_emu_fiber->done = true;  // and back to the scheduler (uc_link)
+}
+
+// Each fiber's stack: ample for the kernels' register arrays; pages are
+// committed only where touched.
+constexpr size_t DORA_EMU_STACK = size_t(1) << 20;
+
 template <class F>
 void dora_emu_launch(dim3 grid, dim3 block, F&& body, size_t smem = 0) {
     const unsigned nt = block.x * block.y * block.z;
@@ -205,26 +271,48 @@ void dora_emu_launch(dim3 grid, dim3 block, F&& body, size_t smem = 0) {
     gridDim = grid;
     std::vector<uint4> dyn((smem + sizeof(uint4) - 1) / sizeof(uint4) + 1);
     dora_emu_smem = reinterpret_cast<unsigned char*>(dyn.data());
-    std::barrier<> bar(nt), block_end(nt);
+    DoraEmuBarrier bar(nt), block_end(nt);
     dora_emu_barrier = &bar;
+    dora_emu_block_end = &block_end;
+    std::function<void()> fn(body);
+    dora_emu_body = &fn;
     std::vector<std::unique_ptr<DoraEmuWarp>> warps;
     for (unsigned w = 0; w * 32 < nt; ++w)
         warps.push_back(std::make_unique<DoraEmuWarp>(std::min(32u, nt - w * 32)));
-    std::vector<std::thread> threads;
-    threads.reserve(nt);
-    for (unsigned t = 0; t < nt; ++t)
-        threads.emplace_back([&, t] {
-            threadIdx = dim3(t % block.x, (t / block.x) % block.y, t / (block.x * block.y));
-            dora_emu_warp = warps[t / 32].get();
-            dora_emu_lane = t % 32;
-            for (unsigned bz = 0; bz < grid.z; ++bz)
-                for (unsigned by = 0; by < grid.y; ++by)
-                    for (unsigned bx = 0; bx < grid.x; ++bx) {
-                        blockIdx = dim3(bx, by, bz);
-                        dora_emu_turn = 0;
-                        body();
-                        block_end.arrive_and_wait();
-                    }
-        });
-    for (auto& th : threads) th.join();
+    const size_t bytes = DORA_EMU_STACK * nt;
+    void* stacks = mmap(nullptr, bytes, PROT_READ | PROT_WRITE,
+                        MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    if (stacks == MAP_FAILED) abort();
+    std::vector<DoraEmuFiber> fibers(nt);
+    for (unsigned t = 0; t < nt; ++t) {
+        DoraEmuFiber& f = fibers[t];
+        f.tid = dim3(t % block.x, (t / block.x) % block.y, t / (block.x * block.y));
+        f.warp = warps[t / 32].get();
+        f.lane = t % 32;
+        getcontext(&f.ctx);
+        f.ctx.uc_stack.ss_sp = static_cast<char*>(stacks) + DORA_EMU_STACK * t;
+        f.ctx.uc_stack.ss_size = DORA_EMU_STACK;
+        f.ctx.uc_link = &dora_emu_sched;
+        makecontext(&f.ctx, dora_emu_fiber_main, 0);
+    }
+    // Round robin over the runnable fibers until all are done; a pass in
+    // which none can run is a deadlock.
+    for (unsigned live = nt; live;) {
+        bool ran = false;
+        for (DoraEmuFiber& f : fibers) {
+            if (f.done || (f.wait != nullptr && f.wait->gen == f.wait_gen)) continue;
+            f.wait = nullptr;
+            dora_emu_fiber = &f;
+            threadIdx = f.tid;
+            blockIdx = f.bid;
+            dora_emu_warp = f.warp;
+            dora_emu_lane = f.lane;
+            dora_emu_turn = f.turn;
+            swapcontext(&dora_emu_sched, &f.ctx);
+            ran = true;
+            live -= f.done;
+        }
+        if (!ran) abort();
+    }
+    munmap(stacks, bytes);
 }

@@ -46,10 +46,12 @@ adapter pinned resident in models/lora_pool.AdapterPool for its life, its
 slot id carried to every pass, the prefix cache keyed on (adapter,
 tokens)); int8 KV pools (their scale planes ride in the pools dict);
 preemption (:meth:`PagedBatchEngine.preempt`) with the victim's cached
-prefix pinned while it waits (``prefix_pin`` / ``prefix_unpin``). Not
-ported yet: checkpoint, restore and migration
-(``checkpoint_state`` / ``restore_state`` / ``drain_streams`` /
-``admit_streams``).
+prefix pinned while it waits (``prefix_pin`` / ``prefix_unpin``);
+checkpoint, restore and migration (``checkpoint_state`` / ``restore_state``
+/ ``drain_streams`` / ``admit_streams``, the same JSON as the JAX engine's,
+and ``save_pools`` / ``restore_pools`` over models/checkpoint.py). A
+restored stream's row of the static window buffers is rewritten before the
+next window, as a preempted one's is.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ import torch
 
 from dora_tpu_torch import profiling
 from dora_tpu_torch._device import resolve_device
+from dora_tpu_torch.models import checkpoint
 from dora_tpu_torch.models.prefix_cache import PrefixCache
 
 
@@ -368,6 +371,22 @@ class PageAllocator:
             self._ref[p] = 1
         self.peak_in_use = max(self.peak_in_use, self.in_use)
         return pages
+
+    def take(self, pages: list[int]) -> bool:
+        """Claim these page ids (a checkpoint restore, whose block tables
+        name physical pages). All-or-nothing like :meth:`alloc`; False on a
+        repeated id or a page that is not free (the restore ref-shares
+        those). The free list keeps its order, so later grants hand out the
+        JAX allocator's ids."""
+        free = set(self._free)
+        if len(set(pages)) != len(pages) or not all(p in free for p in pages):
+            return False
+        claim = set(pages)
+        self._free = [p for p in self._free if p not in claim]
+        for p in pages:
+            self._ref[p] = 1
+        self.peak_in_use = max(self.peak_in_use, self.in_use)
+        return True
 
     def refcount(self, page: int) -> int:
         """Current holder count for one page (0 = free)."""
@@ -809,6 +828,165 @@ class PagedBatchEngine(_DevicePlane):
             self.tracer.span("s_preempt", request_id,
                              f"slot={b} pages={meta['pages']} emitted={meta['emitted']}")
         return meta
+
+    # -- checkpoint / restore / migration ------------------------------------
+
+    def checkpoint_state(self) -> dict:
+        """JSON-able snapshot of every live stream (the JAX engine's format):
+        slot metadata, page grants, each slot's last token and position.
+        Call between steps: at a window boundary the carried ``tokens`` /
+        ``positions`` buffers agree with the host slots. Pool contents are
+        not included (:meth:`save_pools`)."""
+        toks = self.tokens.cpu().tolist()
+        pos = self.positions.cpu().tolist()
+        slots = []
+        for b, s in enumerate(self.slots):
+            if s is None:
+                continue
+            meta = {
+                "slot": b,
+                "request_id": s.request_id,
+                "emitted": s.emitted,
+                "max_new": s.max_new,
+                "pages": [int(p) for p in s.pages],
+                "shared": s.shared,
+                "prompt": list(s.prompt) if s.prompt is not None else None,
+                "true_len": s.true_len,
+                "chunk_base": s.chunk_base,
+                "decode": bool(self._decode[b]),
+                "last_token": int(toks[b]),
+                "position": int(pos[b]),
+            }
+            if s.adapter:
+                # The tenant's name, never its resident slot (slots are
+                # recycled and mean nothing to another engine).
+                meta["adapter"] = s.adapter
+            if self._spec_cfg:
+                # The draft-lookup history: tokens are exact without it, but
+                # with it a resume keeps the acceptance (and dispatches).
+                meta["history"] = [int(t) for t in self._hist[b]]
+            slots.append(meta)
+        return {"slots": slots, "kv_dtype": self.kv_dtype}
+
+    def restore_state(self, state: dict, *, pin_slots: bool = True) -> list[str]:
+        """Rebuild the live streams of :meth:`checkpoint_state`; returns the
+        restored request ids.
+
+        Decoding streams resume from ``(last_token, position)``: with
+        ``pin_slots`` on their exact slot and page ids (needed when the
+        pools were restored, since the block tables name physical pages; a
+        page several slots share is taken by the first and ref-shared by
+        the later ones), else on fresh slots and pages (migrate-in, which
+        ships no pools). Mid-prefill streams re-submit from scratch, which
+        is token-exact (they emitted nothing). A snapshot whose
+        ``kv_dtype`` (absent: "fp") is not this engine's raises. Each
+        restored row of the static window buffers is rewritten before the
+        next window (``tokens`` / ``positions`` here, the block table, mask,
+        counts, adapter vector and history through the dirty flags)."""
+        snap_dtype = state.get("kv_dtype", "fp")
+        if snap_dtype != self.kv_dtype:
+            raise ValueError(
+                f"checkpoint kv_dtype {snap_dtype!r} does not match engine "
+                f"kv_dtype {self.kv_dtype!r}: re-serve the snapshot on an "
+                f"engine built with the same DORA_KV_INT8 setting"
+            )
+        restored: list[str] = []
+        #: pages an earlier slot of this restore already claimed
+        claimed: set[int] = set()
+        # Decoding slots first: with pin_slots their index is fixed, and a
+        # prefill re-submit must not take it.
+        for meta in sorted(state.get("slots", []), key=lambda m: not m.get("decode")):
+            if not meta.get("decode"):
+                self.submit(meta["request_id"], meta["prompt"], meta["max_new"],
+                            adapter=meta.get("adapter"))
+                restored.append(meta["request_id"])
+                continue
+            # Re-pin the tenant resident before the slot exists, so the first
+            # window gathers its adapter.
+            adapter = meta.get("adapter")
+            if adapter and self.lora is None:
+                raise RuntimeError(
+                    f"cannot restore stream {meta['request_id']!r}: snapshot names "
+                    f"adapter {adapter!r} but this engine has no adapter pool"
+                )
+            aidx = self.lora.acquire(adapter) if self.lora is not None else 0
+            if aidx is None:
+                raise RuntimeError(
+                    f"cannot restore stream {meta['request_id']!r}: adapter "
+                    f"{adapter!r} cannot be made resident"
+                )
+            n_pages = len(meta["pages"])
+            if pin_slots:
+                b = meta["slot"]
+                pages = [int(p) for p in meta["pages"]]
+                fresh = [p for p in pages if p not in claimed]
+                if self.slots[b] is not None or not self.allocator.take(fresh):
+                    raise RuntimeError(
+                        f"cannot restore stream {meta['request_id']!r}: slot {b} "
+                        f"or its pages are busy"
+                    )
+                reshared = [p for p in pages if p in claimed]
+                if reshared:
+                    self.allocator.ref(reshared)
+                claimed.update(pages)
+            else:
+                if self.free_slots == 0:
+                    raise RuntimeError(
+                        f"no free slot for migrated stream {meta['request_id']!r}")
+                pages = self.allocator.alloc(n_pages)
+                if pages is None:
+                    raise RuntimeError(
+                        f"no pages for migrated stream {meta['request_id']!r}")
+                b = self.slots.index(None)
+            self._bt[b, :] = 0
+            self._bt[b, :n_pages] = pages
+            self.slots[b] = _PagedSlot(
+                meta["request_id"], emitted=meta["emitted"], max_new=meta["max_new"],
+                pages=pages, prompt=None, true_len=meta["true_len"],
+                chunk_base=meta["chunk_base"],
+                # Fresh pages on a migrate-in: sharing does not survive it.
+                shared=meta.get("shared", 0) if pin_slots else 0,
+                adapter=adapter, adapter_idx=aidx,
+            )
+            self._decode[b] = True
+            if self._spec_cfg:
+                # A spec-off snapshot carries no history: the last token (the
+                # lookup's fallback draft) keeps the resume exact, with cold
+                # acceptance.
+                self._hist[b] = [int(t) for t in meta.get("history") or [meta["last_token"]]]
+            self.tokens[b] = int(meta["last_token"])
+            self.positions[b] = int(meta["position"])
+            self._bt_dirty = True
+            self._members_dirty = True
+            restored.append(meta["request_id"])
+        return restored
+
+    def drain_streams(self) -> dict:
+        """Snapshot every live stream and free its slot and pages: the
+        migrate-out half of a live migration (call between steps; the
+        target takes the result in :meth:`admit_streams`)."""
+        state = self.checkpoint_state()
+        for b, s in enumerate(self.slots):
+            if s is not None:
+                self._free_slot(b)
+        self._prefillq.clear()
+        return state
+
+    def admit_streams(self, state: dict) -> list[str]:
+        """Admit streams drained from another engine (migrate-in) on fresh
+        slots and pages. No KV pages travel, so a decoding stream continues
+        exactly only where the step reads (token, position) alone."""
+        return self.restore_state(state, pin_slots=False)
+
+    def save_pools(self, path) -> None:
+        """Persist the KV pools (models/checkpoint.py), for engines whose
+        decode reads them."""
+        checkpoint.save(path, self.pools)
+
+    def restore_pools(self, path) -> None:
+        """Load saved KV pools into ``self.pools`` in place (the graphs hold
+        their addresses: the pools are never rebound)."""
+        checkpoint.restore(path, self.pools)
 
     def kv_pool_bytes(self) -> int:
         """Device bytes of the KV pools, scale planes included."""

@@ -361,7 +361,8 @@ def fused_batch_step(params, cfg: Qwen2Config, tokens, caches, positions, rope=N
 
 def generate(params, cfg: Qwen2Config, prompt_ids, max_new_tokens: int):
     """Greedy generation of ``max_new_tokens`` per row, as a host loop of
-    steps. prompt_ids [B, T]; returns [B, max_new_tokens] int32. The prompt
+    steps. prompt_ids [B, T]; returns [B, max_new_tokens] int32 ([B, 0] at 0,
+    as the JAX scan returns). The prompt
     runs unfused; each decode step runs the fused batch-1 pass when
     models/vlm.fused_decode_ready allows (B = 1, the quantized layout,
     ``DORA_FUSED_DECODE`` not 0), else the unfused blocks over one row."""
@@ -375,6 +376,9 @@ def generate(params, cfg: Qwen2Config, prompt_ids, max_new_tokens: int):
             f"prompt ({t}) + max_new_tokens ({max_new_tokens}) exceeds "
             f"max_seq ({cfg.max_seq}); reload with a larger max_seq"
         )
+    if max_new_tokens == 0:
+        # The JAX scan of length 0: no token, not even the prefill's.
+        return torch.zeros((b, 0), dtype=torch.int32, device=prompt_ids.device)
     embed = params["embed"]
     dev = embed.device
     use_fused = _vlm.fused_decode_ready(params, b)

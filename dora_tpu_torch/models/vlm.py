@@ -368,7 +368,7 @@ def _refuse_for_generation(what: str, params, cfg: VLMConfig, fused: bool) -> No
 def generate(params, cfg: VLMConfig, images, prompt_ids, max_new_tokens: int):
     """Greedy generation of ``max_new_tokens`` per row, as a host loop of
     decode steps (the JAX package scans). Returns [B, max_new_tokens]
-    int32. Each step is the fused batch-1 pass when
+    int32 ([B, 0] at 0, as the scan returns). Each step is the fused batch-1 pass when
     :func:`fused_decode_ready` allows (B = 1, the quantized layout,
     ``DORA_FUSED_DECODE`` not 0), else the unfused blocks."""
     b, t = prompt_ids.shape
@@ -376,6 +376,9 @@ def generate(params, cfg: VLMConfig, images, prompt_ids, max_new_tokens: int):
         raise ValueError(
             f"image ({cfg.n_patches}) + prompt ({t}) + max_new_tokens "
             f"({max_new_tokens}) exceeds max_seq ({cfg.max_seq})")
+    if max_new_tokens == 0:
+        # The JAX scan of length 0: no token, not even the prefill's.
+        return torch.zeros((b, 0), dtype=torch.int32, device=prompt_ids.device)
     use_fused = fused_decode_ready(params, b)
     _refuse_for_generation("vlm.generate", params, cfg, use_fused)
     rope = _rope(cfg, params["embed"].device)

@@ -34,12 +34,21 @@ kernels' plain versions)::
 
 The node needs ``DORA_HF_CHECKPOINT`` (a Qwen2-family safetensors
 directory) or ``DORA_STUB_ENGINE=1`` (the weight-free stub engine, tokens
-rendered as `` t<id>``). It refuses to start with ``DORA_CHECKPOINT_DIR``
-or ``DORA_MIGRATE_DIR`` set: checkpoint, restore and migration are not
-ported yet, and a ``MIGRATE`` event is ignored, as the JAX node ignores it
-on an engine without that surface. The node's wire needs msgpack and, for
-Arrow payloads, pyarrow: ``dora_tpu_torch.node`` imports them when the node
-runs, never this module.
+rendered as `` t<id>``). The node's wire needs msgpack and, for Arrow
+payloads, pyarrow: ``dora_tpu_torch.node`` imports them when the node runs,
+never this module.
+
+Recovery, on the paged engine, as in the JAX node: ``DORA_CHECKPOINT_DIR``
+(with ``DORA_CHECKPOINT_EVERY``, default every 8 steps, and
+``DORA_CHECKPOINT_PAGES=1`` to save the KV pools too) writes the live
+serving state to ``state.json`` atomically, at that cadence, on SIGTERM and
+at a clean exit, and restores it when the node starts again: mid-generation
+streams resume, and every chunk carries a ``seq`` so consumers drop the
+replayed ones. A ``MIGRATE`` event drains every stream (and the parked
+backlog) into a handoff file in its ``handoff_dir``; a node with
+``DORA_MIGRATE_DIR`` stays up past the end of its inputs and admits the
+handoff files that appear there. ``state.json`` and the handoff files are
+the JAX node's format; the pools file is the port's own.
 
 Without a dataflow, ``--prompts`` answers a JSON list of token-id lists
 through ``submit`` / ``step`` and prints one JSON line per request::
@@ -174,20 +183,6 @@ QOS_WEIGHTS = {"interactive": 8.0, "standard": 4.0, "batch": 1.0}
 #: request ``model`` values that mean the base model (no LoRA adapter); any
 #: other name is a tenant, resolved against the engine's adapter catalog
 BASE_MODEL_NAMES = ("", "dora-tpu", "base")
-
-#: knobs of the JAX node this port does not serve yet: the node refuses to
-#: start with one set rather than silently serving without it
-UNPORTED_KNOBS = ("DORA_CHECKPOINT_DIR", "DORA_MIGRATE_DIR")
-
-
-def refuse_unported_knobs() -> None:
-    """Raise if a knob of :data:`UNPORTED_KNOBS` is set."""
-    for knob in UNPORTED_KNOBS:
-        if os.environ.get(knob):
-            raise RuntimeError(
-                f"{knob} is set, but checkpoint, restore and migration are not ported yet to "
-                f"dora_tpu_torch's serving node; unset it, or serve with dora_tpu")
-
 
 class QosConfig:
     """Traffic-shaping knobs, from the descriptor's ``qos:`` block (the
@@ -370,20 +365,48 @@ class AdmissionQueue:
             else:
                 self._start(key, ids, max_new)
 
+    def pending(self) -> list[tuple[str, list[int], int, str, str | None]]:
+        """The parked requests in class-priority order, as checkpoints and
+        migration handoffs carry them (the wait start and the deadline are
+        this process's and are dropped)."""
+        return [(k, list(ids), mn, cls, ad)
+                for cls in QOS_CLASSES
+                for k, ids, mn, _t, _dl, ad in self._q[cls]]
+
+    def take_all(self) -> list[tuple[str, list[int], int, str, str | None]]:
+        """Empty the backlog without starting anything (a migrate-out: the
+        parked requests travel with the live streams)."""
+        out = self.pending()
+        for q in self._q.values():
+            q.clear()
+        self._stall_reasons.clear()
+        return out
+
 
 def _run_loop(node, engine, backlog, metrics, handle_input, emit, report,
-              clock=time.monotonic, handle_profile=None, on_engine_error=None,
+              clock=time.monotonic, on_tick=None, on_step=None, handle_migrate=None,
+              handle_profile=None, on_engine_error=None, keep_alive=False,
               fleet_tick=None) -> None:
     """The window-granular serving loop. Each iteration: take a burst of
     pending events, run one engine step (a prefill chunk and a K-tick
     window) and emit its tokens, then ALWAYS drain the backlog (capacity
     appears when a step frees slots or pages, and an idle engine must admit
     parked requests too). ``on_engine_error()`` fails the in-flight
-    requests before a step's exception propagates. A ``MIGRATE`` event is
-    ignored: the port's engines have no checkpoint surface to drain."""
+    requests before a step's exception propagates.
+
+    The recovery hooks, which :func:`serve` wires when the env asks for
+    them: ``on_tick()`` runs first in each iteration and returns True to
+    stop (the SIGTERM checkpoint); ``on_step()`` runs after a step's tokens
+    are emitted (the checkpoint cadence: never between a step and its
+    emits, where a snapshot would count tokens the wire never saw);
+    ``handle_migrate(event)`` drains the live streams on a ``MIGRATE`` at
+    this window boundary; ``keep_alive`` parks instead of returning when
+    the inputs end (a migration target waits for handoffs until STOP)."""
     last_step_end: float | None = None
     report_last = clock()
     while True:
+        if on_tick is not None and on_tick():
+            break
         # A burst of events before the next window (the first recv parks
         # when the engine is idle, the rest only poll): one recv per step
         # would queue an arrival burst upstream of the admission plane,
@@ -400,12 +423,18 @@ def _run_loop(node, engine, backlog, metrics, handle_input, emit, report,
                 break
             if event["type"] == "INPUT":
                 handle_input(event)
+            elif event["type"] == "MIGRATE" and handle_migrate is not None:
+                handle_migrate(event)
             elif event["type"] == "PROFILE" and handle_profile is not None:
                 handle_profile(event)
         if stop:
             break
         if event is None and node.stream_ended and engine.active == 0 and len(backlog) == 0:
-            break
+            if not keep_alive:
+                break
+            # The inputs are closed but handoffs may still come: do not spin
+            # (recv returns at once on a closed stream).
+            time.sleep(0.05)
         if engine.active:
             now = clock()
             if last_step_end is not None:
@@ -421,6 +450,8 @@ def _run_loop(node, engine, backlog, metrics, handle_input, emit, report,
             for key, token, done in stepped:
                 emit(key, token, done)
             last_step_end = clock()
+            if on_step is not None:
+                on_step()
         else:
             last_step_end = None  # a gap across idle is queue wait
         backlog.drain()
@@ -446,22 +477,32 @@ def serve(node, engine, metrics, *, encode, decode_one, eos=None, max_new_cap=32
     ``encode(text)`` turns a request into token ids, ``decode_one(token)`` a
     token into its text. A ``ServingTracer`` (``tracer``, default one) and
     ``metrics`` are attached to the engine, which records its lifecycle
-    spans and fetch and grant histograms through them. Raises at once when
-    a knob of :data:`UNPORTED_KNOBS` is set."""
+    spans and fetch and grant histograms through them.
+
+    Recovery (engines with ``checkpoint_state``, i.e. the paged one):
+    ``DORA_CHECKPOINT_DIR`` restores ``state.json`` at the start, writes it
+    every ``DORA_CHECKPOINT_EVERY`` steps (8; 0 = never), on SIGTERM (the
+    loop stops at its next tick) and at a clean exit, and drops a replayed
+    input whose wire ``request_id`` it already admitted;
+    ``DORA_CHECKPOINT_PAGES=1`` saves and restores the KV pools beside it
+    (best effort, as in the JAX node). A ``MIGRATE`` event drains the
+    streams into its ``handoff_dir``; ``DORA_MIGRATE_DIR`` keeps the loop up
+    past the end of the inputs and admits the handoffs found there."""
     from dora_tpu_torch import fleet, profiling, telemetry
     from dora_tpu_torch.metrics import percentile_from_counts
     from dora_tpu_torch.metrics_history import burn_window_complete
 
-    try:
-        refuse_unported_knobs()
-    except RuntimeError:
-        node.close()
-        raise
     if tracer is None:
         tracer = telemetry.ServingTracer()
     engine.tracer = tracer
     engine.serving_metrics = metrics
     paged = hasattr(engine, "free_pages")
+    # The recovery knobs; only an engine with the checkpoint surface (the
+    # paged one) uses them.
+    can_ckpt = hasattr(engine, "checkpoint_state")
+    ckpt_dir = os.environ.get("DORA_CHECKPOINT_DIR") if can_ckpt else None
+    ckpt_every = int(os.environ.get("DORA_CHECKPOINT_EVERY", "8") or 0)
+    migrate_dir = os.environ.get("DORA_MIGRATE_DIR") if can_ckpt else None
 
     # SLO targets (the descriptor's slo: block, DORA_SLO_* at spawn): the
     # daemon's history is the authoritative burn source; checking here too
@@ -501,8 +542,13 @@ def serve(node, engine, metrics, *, encode, decode_one, eos=None, max_new_cap=32
     #: engine key -> arrival time, pending its first token (TTFT)
     t_admitted: dict[str, float] = {}
     req_counter = [0]
-    #: engine key -> next chunk sequence number
+    #: engine key -> next chunk sequence number; a restored stream replays
+    #: chunks with the same (request_id, seq), so consumers drop them
     seqs: dict[str, int] = {}
+    #: wire request_ids already admitted (checkpoint mode): the daemon's
+    #: replay of an unacknowledged input must not start a restored stream
+    #: twice
+    seen_rids: dict[str, None] = {}
     #: keys whose backlog wait was attributed to adapter residency: the next
     #: wire chunk carries the tag
     stall_tags: dict[str, str] = {}
@@ -640,6 +686,13 @@ def serve(node, engine, metrics, *, encode, decode_one, eos=None, max_new_cap=32
     def handle_input(event) -> None:
         meta = event.get("metadata") or {}
         rid = meta.get("request_id")
+        if ckpt_dir and rid is not None:
+            if rid in seen_rids:
+                tracer.instant("s_reject", f"req:{rid}", "replay-dup")
+                return
+            seen_rids[rid] = None
+            while len(seen_rids) > 4096:
+                seen_rids.pop(next(iter(seen_rids)))
         value = event["value"]
         # An Arrow array (what the gateway sends) or raw bytes.
         text = (value.to_pylist()[0] if hasattr(value, "to_pylist")
@@ -920,23 +973,286 @@ def serve(node, engine, metrics, *, encode, decode_one, eos=None, max_new_cap=32
             pass  # metrics are best-effort: serving never blocks on them
         fleet_pub.tick(now)
 
+    # -- recovery: checkpoint and restore, drain and migrate, SIGTERM ------
+
+    def write_checkpoint(reason: str) -> None:
+        """Snapshot what a restarted node needs to resume mid-generation,
+        atomically (a temporary file, then a rename). Only at a window
+        boundary after the step's emits: a restore replays duplicates,
+        never leaves gaps."""
+        t0 = clock()
+        state = {
+            "engine": engine.checkpoint_state(),
+            "backlog": [[k, list(ids), mn, cls, ad] for k, ids, mn, cls, ad in backlog.pending()],
+            "wire_ids": dict(wire_ids),
+            "seqs": dict(seqs),
+            "ctxs": {k: tracer.context(k) for k in wire_ids},
+            "req_counter": req_counter[0],
+            "seen_rids": list(seen_rids),
+        }
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = os.path.join(ckpt_dir, "state.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(state, f)
+        os.replace(tmp, os.path.join(ckpt_dir, "state.json"))
+        if os.environ.get("DORA_CHECKPOINT_PAGES") == "1":
+            # The KV pools, for engines whose decode reads them. Best effort,
+            # as in the JAX node: failing to persist them must not stop
+            # serving.
+            try:
+                engine.save_pools(os.path.join(ckpt_dir, "pools"))
+            except Exception:
+                pass
+        metrics.checkpoints += 1
+        metrics.last_checkpoint_unix = time.time()
+        tracer.span("s_checkpoint", "(engine)",
+                    f"streams={len(state['engine']['slots'])} {reason}",
+                    dur_ns=int((clock() - t0) * 1e9))
+
+    def restore_checkpoint() -> None:
+        spath = os.path.join(ckpt_dir, "state.json")
+        if not os.path.exists(spath):
+            return
+        t0 = clock()
+        with open(spath) as f:
+            saved = json.load(f)
+        pools = os.path.join(ckpt_dir, "pools")
+        if os.environ.get("DORA_CHECKPOINT_PAGES") == "1" and os.path.isfile(pools):
+            try:
+                engine.restore_pools(pools)
+            except Exception:
+                pass  # best effort, as in the JAX node
+        req_counter[0] = int(saved.get("req_counter", 0))
+        wire_ids.update(saved.get("wire_ids") or {})
+        seqs.update({k: int(v) for k, v in (saved.get("seqs") or {}).items()})
+        for rid in saved.get("seen_rids") or []:
+            seen_rids[rid] = None
+        # The same context, so the same trace id: a resumed stream's spans
+        # continue its chain.
+        for k, ctx in (saved.get("ctxs") or {}).items():
+            tracer.begin(k, ctx or "")
+        restored = engine.restore_state(saved.get("engine") or {"slots": []})
+        for entry in saved.get("backlog") or []:
+            # [key, ids, max_new(, class(, adapter))]; the wait clock and any
+            # deadline start again.
+            backlog.push(entry[0], list(entry[1]), int(entry[2]),
+                         entry[3] if len(entry) > 3 else None,
+                         adapter=entry[4] if len(entry) > 4 else None)
+        metrics.restored_streams += len(restored)
+        tracer.span("s_restore", "(engine)", f"streams={len(restored)}",
+                    dur_ns=int((clock() - t0) * 1e9))
+
+    migrations = [0]
+
+    def handle_migrate(event) -> None:
+        """Drain every live stream and the parked backlog into a handoff
+        file that a peer's ``DORA_MIGRATE_DIR`` poll admits; at a window
+        boundary, so a client sees at most one window more of latency."""
+        handoff_dir = (event.get("metadata") or {}).get("handoff_dir", "")
+        if not handoff_dir:
+            return
+        t0 = clock()
+        state = engine.drain_streams()
+        parked = backlog.take_all()
+        keys = [m["request_id"] for m in state["slots"]] + [entry[0] for entry in parked]
+        payload = {
+            "engine": state,
+            "backlog": [[k, list(ids), mn, cls, ad] for k, ids, mn, cls, ad in parked],
+            "wire_ids": {k: wire_ids.get(k) for k in keys},
+            "seqs": {k: seqs.get(k, 0) for k in keys},
+            "ctxs": {k: tracer.context(k) for k in keys},
+        }
+        migrations[0] += 1
+        fname = f"streams-{os.getpid()}-{migrations[0]}.json"
+        os.makedirs(handoff_dir, exist_ok=True)
+        tmp = os.path.join(handoff_dir, fname + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(payload, f)
+        os.replace(tmp, os.path.join(handoff_dir, fname))
+        dur = int((clock() - t0) * 1e9)
+        for k in keys:
+            # The span before the release, so it carries the stream's trace
+            # id; no s_finish: the stream moved, it did not end.
+            tracer.span("s_migrate_out", k, f"dir={handoff_dir}", dur_ns=dur)
+            tracer.release(k)
+            wire_ids.pop(k, None)
+            seqs.pop(k, None)
+            t_admitted.pop(k, None)
+            _forget(k)
+        metrics.migrated_out += len(keys)
+
+    def _admit_handoff(payload: dict, src: str) -> None:
+        t0 = clock()
+        mapping: dict[str, str] = {}
+
+        def fresh(old: str) -> str:
+            # Another engine's req-N could collide with ours: every incoming
+            # stream gets a fresh local key; the wire id and seq travel as
+            # they are.
+            req_counter[0] += 1
+            mapping[old] = f"req-{req_counter[0]}"
+            return mapping[old]
+
+        state = payload.get("engine") or {"slots": []}
+        for m in state["slots"]:
+            m["request_id"] = fresh(m["request_id"])
+        parked = [(fresh(entry[0]), list(entry[1]), int(entry[2]),
+                   entry[3] if len(entry) > 3 else None,
+                   entry[4] if len(entry) > 4 else None)
+                  for entry in payload.get("backlog") or []]
+        src_wire = payload.get("wire_ids") or {}
+        src_seqs = payload.get("seqs") or {}
+        src_ctxs = payload.get("ctxs") or {}
+        for old, nk in mapping.items():
+            wire_ids[nk] = src_wire.get(old)
+            seqs[nk] = int(src_seqs.get(old, 0))
+            tracer.begin(nk, src_ctxs.get(old) or "")  # one trace across both engines
+        try:
+            engine.admit_streams(state)
+        except RuntimeError:
+            # Capacity went between the peek and the claim (local admissions
+            # came first). The restore is not transactional: roll back what
+            # it admitted, then close every handoff stream with a retriable
+            # "error".
+            fresh_keys = set(mapping.values())
+            for b, s in enumerate(engine.slots):
+                if s is not None and s.request_id in fresh_keys:
+                    if b in engine._prefillq:
+                        engine._prefillq.remove(b)
+                    engine._free_slot(b)
+            for nk in mapping.values():
+                metrics.rejected += 1
+                tracer.instant("s_reject", nk, f"migrate-in overflow {src}")
+                emit_text(nk, "", True, finish="error")
+            return
+        for nk, ids, mn, cls, ad in parked:
+            backlog.push(nk, ids, mn, cls, adapter=ad)
+        dur = int((clock() - t0) * 1e9)
+        for nk in mapping.values():
+            tracer.span("s_migrate_in", nk, f"from={src}", dur_ns=dur)
+        metrics.migrated_in += len(mapping)
+
+    def _handoff_fits(payload: dict) -> bool:
+        """Can this engine admit every stream of the handoff now? Decoding
+        streams take as many pages as their source granted; mid-prefill
+        ones re-submit through the admission arithmetic."""
+        metas = (payload.get("engine") or {}).get("slots") or []
+        if len(metas) > engine.free_slots:
+            return False
+
+        def servable(adapter) -> bool:
+            return not adapter or (engine.lora is not None and engine.lora.has(adapter))
+
+        pages = 0
+        for m in metas:
+            if not servable(m.get("adapter")):
+                return False  # left on disk for a peer that serves the tenant
+            if m.get("decode"):
+                n = len(m.get("pages") or ())
+                if n * engine.page_size > engine.max_seq:
+                    return False  # the block table is too short for it
+                pages += n
+            else:
+                plen, mn = len(m.get("prompt") or ()), int(m.get("max_new", 0))
+                if not engine.fits(plen, mn):
+                    return False
+                pages += engine.pages_needed(plen, mn)
+        if not all(servable(entry[4] if len(entry) > 4 else None)
+                   for entry in payload.get("backlog") or []):
+            return False
+        return pages <= engine.free_pages
+
+    def poll_migrate_in() -> None:
+        try:
+            names = sorted(os.listdir(migrate_dir))
+        except OSError:
+            return
+        for fname in names:
+            if not (fname.startswith("streams-") and fname.endswith(".json")):
+                continue
+            path = os.path.join(migrate_dir, fname)
+            # Peek before claiming: a handoff this engine cannot admit stays
+            # on disk for a bigger peer, or for a later poll. Handoff files
+            # are written once (a temporary file, then a rename), so what is
+            # peeked is what is claimed.
+            try:
+                with open(path) as f:
+                    payload = json.load(f)
+            except (OSError, ValueError):
+                continue
+            if not _handoff_fits(payload):
+                tracer.instant("s_migrate_defer", fname,
+                               f"free_slots={engine.free_slots} free_pages={engine.free_pages}")
+                continue
+            claimed = path + ".claimed"
+            try:
+                os.rename(path, claimed)  # the atomic claim
+            except OSError:
+                continue  # a peer claimed it first
+            _admit_handoff(payload, fname)
+            os.remove(claimed)
+
+    stop_now = [False]
+    step_count = [0]
+    engine_failed = [False]
+
+    def on_tick() -> bool:
+        if migrate_dir:
+            poll_migrate_in()
+        if stop_now[0]:
+            if ckpt_dir:
+                write_checkpoint("sigterm")
+            return True
+        return False
+
+    def on_step() -> None:
+        step_count[0] += 1
+        if ckpt_every > 0 and step_count[0] % ckpt_every == 0:
+            write_checkpoint("cadence")
+
     def on_engine_error() -> None:
         # A wedged engine must not leave streams dangling: every in-flight
         # request closes with a retriable "error" before the exception
         # propagates.
+        engine_failed[0] = True
         for key in list(wire_ids):
             try:
                 emit_text(key, "", True, finish="error")
             except Exception:
                 pass
 
+    if ckpt_dir:
+        import signal
+
+        def _term(signum, frame):
+            # Checkpoint and leave at the next tick, not mid-window.
+            stop_now[0] = True
+
+        try:
+            signal.signal(signal.SIGTERM, _term)
+        except ValueError:
+            pass  # not the main thread: the caller delivers no signals here
+        restore_checkpoint()
+
+    clean = False
     try:
         _run_loop(node, engine, backlog, metrics, handle_input, emit, report, clock=clock,
+                  on_tick=on_tick if (ckpt_dir or migrate_dir) else None,
+                  on_step=on_step if ckpt_dir else None,
+                  handle_migrate=handle_migrate if can_ckpt else None,
                   handle_profile=handle_profile, on_engine_error=on_engine_error,
+                  keep_alive=bool(migrate_dir),
                   fleet_tick=fleet_pub.tick if fleet_pub.enabled else None)
+        clean = True
     finally:
-        report(clock())
-        node.close()
+        try:
+            # Only a clean exit snapshots: after a crash the last cadence
+            # checkpoint is the state to trust.
+            if ckpt_dir and clean and not engine_failed[0]:
+                write_checkpoint("exit")
+        finally:
+            report(clock())
+            node.close()
 
 
 def _stub_main(device: str) -> None:
@@ -986,7 +1302,6 @@ def _serve_node(device: str) -> None:
     from dora_tpu_torch.node import Node
     from dora_tpu_torch.nodehub.ops import _hf_tokenizer
 
-    refuse_unported_knobs()
     path = os.environ.get("DORA_HF_CHECKPOINT")
     if not path:
         if os.environ.get("DORA_STUB_ENGINE", "") not in ("", "0"):

@@ -12,8 +12,8 @@ output; every C entry returns ``cudaGetLastError()`` of its launches and
 :func:`check` raises on a nonzero code.
 
 ``compiler="host"`` builds the same sources with the host C++ compiler
-against the stand-in headers of ``csrc/emu/`` (one OS thread per CUDA
-thread), so the kernels' indexing can be checked on a machine without a
+against the stand-in headers of ``csrc/emu/`` (one fiber per CUDA
+thread, on the launching OS thread), so the kernels' indexing can be checked on a machine without a
 card. Only the emulation checks use it.
 """
 

@@ -234,6 +234,17 @@ class ServingTracer:
             return
         self._flight.record("s_finish", f"{key} {reason}", ctx, 0)
 
+    def context(self, key: str) -> str:
+        """The request's serialized trace context ("" with tracing off or
+        for an unknown key): checkpoints and migration handoffs carry it,
+        so a resumed stream keeps its trace id."""
+        return self._ctx.get(key) or ""
+
+    def release(self, key: str) -> None:
+        """Drop a request's context without an ``s_finish``: a stream that
+        migrates away rather than finishing here."""
+        self._ctx.pop(key, None)
+
 
 def install_flight_dump() -> None:
     """``kill -USR2 <pid>`` dumps the ring to stderr (chains any earlier

@@ -197,7 +197,8 @@ def test_forward_matches_jax_and_transformers(tiny_qwen2, models):  # noqa: F811
 
 def test_generate_matches_jax(models):
     """Prompts of 3, 12 and 37 tokens (37 rows take the sidecar in the
-    prefill), 10 new tokens each, through the fused batch-1 pass."""
+    prefill), 10 new tokens each, through the fused batch-1 pass; and 0 new
+    tokens, where both return an empty [1, 0]."""
     from dora_tpu.models.hf import qwen2 as jq
     from dora_tpu_torch.models.hf import qwen2 as tq
     from dora_tpu_torch.ops import decode_block as TD
@@ -206,10 +207,13 @@ def test_generate_matches_jax(models):
     rng = np.random.default_rng(5)
     for n in (3, 12, 37):
         prompt = rng.integers(0, cfg.vocab, size=n).tolist()
-        want = np.asarray(jq.generate(qparams, cfg, jnp.asarray([prompt], jnp.int32), 10))
-        got = tq.generate(tqparams, tcfg, torch.tensor([prompt]), 10)
-        assert got.dtype == torch.int32
-        assert got.tolist() == want.tolist()
+        for max_new in (10, 0):
+            want = np.asarray(jq.generate(qparams, cfg, jnp.asarray([prompt], jnp.int32),
+                                          max_new))
+            got = tq.generate(tqparams, tcfg, torch.tensor([prompt]), max_new)
+            assert got.dtype == torch.int32
+            assert tuple(got.shape) == want.shape == (1, max_new)
+            assert got.tolist() == want.tolist()
     with pytest.raises(ValueError, match="exceeds max_seq"):
         tq.generate(tqparams, tcfg, torch.zeros((1, 60), dtype=torch.int32), 5)
     assert TD.launch_counts()["attention_step"] == 0  # CPU tensors ran the twins
@@ -262,6 +266,37 @@ def test_run_loop_matches_jax(models, body, adaptive):
     assert got == want
     assert got[1] < 16  # some pass emitted more than one token
     assert got[0] == tq.generate(tqparams, tcfg, torch.tensor([ids]), 16).tolist()
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("b", [1, 2])
+def test_generate_zero_new_tokens_matches_jax(models, quantized, b):
+    """``generate`` at max_new_tokens 0, fused (quantized, one row) and
+    unfused: an empty [B, 0] int32 on the prompt's device, as the JAX scan
+    of length 0 returns; the max_seq check still comes first."""
+    from dora_tpu.models.hf import qwen2 as jq
+    from dora_tpu_torch.models.hf import qwen2 as tq
+
+    cfg, params, qparams, tcfg, tparams, tqparams = models
+    jp, tp = (qparams, tqparams) if quantized else (params, tparams)
+    prompt = np.random.default_rng(6).integers(0, cfg.vocab, size=(b, 7)).astype(np.int32)
+    want = np.asarray(jq.generate(jp, cfg, jnp.asarray(prompt), 0))
+    got = tq.generate(tp, tcfg, torch.from_numpy(prompt), 0)
+    assert got.dtype == torch.int32 and got.device == torch.device("cpu")
+    assert tuple(got.shape) == want.shape == (b, 0)
+    with pytest.raises(ValueError, match="exceeds max_seq"):
+        tq.generate(tp, tcfg, torch.zeros((b, cfg.max_seq + 1), dtype=torch.int32), 0)
+
+
+@pytest.mark.parametrize("body", [1, 4])
+def test_run_loop_zero_new_tokens_matches_jax(models, body):
+    """``run_loop`` at max_new_tokens 0: no pass runs, the tokens are an
+    empty [1, 0] and the pass counts (1, 0) are the JAX loop's."""
+    cfg, _, qparams, tcfg, _, tqparams = models
+    ids = np.random.default_rng(2).integers(0, cfg.vocab, size=5).tolist() * 3
+    want = _spec_run("jax", qparams, cfg, ids, 0, body, False)
+    got = _spec_run("port", tqparams, tcfg, ids, 0, body, False)
+    assert got == want == ([[]], 1, 0)
 
 
 @pytest.mark.parametrize("body", [1, 4])

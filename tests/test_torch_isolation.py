@@ -31,7 +31,7 @@ def test_port_imports_no_jax_and_no_dora_tpu():
         "        'dora_tpu_torch.telemetry', 'dora_tpu_torch.metrics',\n"
         "        'dora_tpu_torch.metrics_history', 'dora_tpu_torch.fleet', 'dora_tpu_torch.node',\n"
         "        'dora_tpu_torch.node.arrow', 'dora_tpu_torch.node.channels',\n"
-        "        'dora_tpu_torch.node.events'} <= set(names)\n"
+        "        'dora_tpu_torch.node.events', 'dora_tpu_torch.models.checkpoint'} <= set(names)\n"
         "from dora_tpu_torch.models import tokenizer, vlm\n"
         "from dora_tpu_torch.nodehub import ops\n"
         "from dora_tpu_torch.ops import flash_attention\n"

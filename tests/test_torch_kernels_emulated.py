@@ -1,5 +1,5 @@
-"""The CUDA kernels' sources, built for the host (csrc/emu/: one OS thread
-per CUDA thread, blocks in turn) and held against their plain PyTorch
+"""The CUDA kernels' sources, built for the host (csrc/emu/: one fiber per
+CUDA thread on one OS thread, blocks in turn) and held against their plain PyTorch
 versions on the CPU, in bf16 at small sizes: the four kernels of the fp
 serving path, the speculative verify kernel, the int8-KV forms of the three
 attention kernels, the LoRA gather-matmul, the int8 product, the three
@@ -169,6 +169,9 @@ class _Child:
 
     def __init__(self):
         self.proc = None
+        #: seconds of each call that returned since the last read, the
+        #: child's start-up included where the call started it
+        self.times: list[float] = []
 
     def _start(self):
         env = dict(os.environ)
@@ -203,10 +206,11 @@ class _Child:
     def call(self, name: str, *args, timeout: float = CHILD_TIMEOUT_S, **kw):
         """Run kernel ``name``'s wrapper in the child on ``args`` (host
         tensors, returned with the in-place updates the kernel made)."""
+        t0 = time.monotonic()
         if self.proc is None or self.proc.poll() is not None:
             self._start()
         body = pickle.dumps((name, args, kw))
-        deadline = time.monotonic() + timeout
+        deadline = t0 + timeout
         try:
             self.proc.stdin.write(struct.pack("<Q", len(body)) + body)
             self.proc.stdin.flush()
@@ -220,6 +224,7 @@ class _Child:
         except TimeoutError:
             self.close()
             pytest.fail(f"emulated {name} hung: no result within {timeout} s")
+        self.times.append(time.monotonic() - t0)
         if not ok:
             raise res
         return res
@@ -233,6 +238,19 @@ def emu():
     child = _Child()
     yield child
     child.close()
+
+
+@pytest.fixture(autouse=True)
+def _slowest_call(request):
+    """Each test's slowest emulated call, as the ``emulated_call_s``
+    property of the junit report: its margin under CHILD_TIMEOUT_S in the
+    run that made the report."""
+    yield
+    if "emu" in request.fixturenames:
+        child = request.getfixturevalue("emu")
+        if child.times:
+            request.node.user_properties.append(("emulated_call_s", round(max(child.times), 3)))
+        child.times.clear()
 
 
 def test_child_faults_and_hangs_fail_the_test_not_the_worker(emu):

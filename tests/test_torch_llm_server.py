@@ -12,12 +12,15 @@ cache, speculation, fused windows), LoRA tenants, rejections, and the K
 autotuner's ``set_window`` mid-stream. Then the tiny random Qwen2: JAX
 ``serve`` on JAX ``make_engine`` against the port's on
 ``make_engine(device="cpu")``, preemption on, text per request equal. The
-knobs the port refuses stop ``serve`` and the node.
+recovery knobs serve as in JAX (their scenarios are
+tests/test_torch_serve_recovery.py's).
 """
 
 from __future__ import annotations
 
+import json
 import os
+import signal
 
 import pytest
 import torch
@@ -457,25 +460,54 @@ def test_allocator_largest_contiguous_free_matches_jax():
 
 
 # ---------------------------------------------------------------------------
-# the knobs the port refuses
+# the recovery knobs
 # ---------------------------------------------------------------------------
 
 
+def _all_done(rids):
+    return lambda sent: {m.get("request_id") for _o, _t, m in sent if m.get("done")} >= set(rids)
+
+
 @pytest.mark.parametrize("knob", ["DORA_CHECKPOINT_DIR", "DORA_MIGRATE_DIR"])
-def test_unported_knobs_refuse_to_serve(monkeypatch, tmp_path, knob):
+def test_recovery_knobs_serve_as_in_jax(monkeypatch, tmp_path, knob):
+    """With either recovery knob set the port's node serves (it refused to
+    start until checkpoint and migration were ported): the same chunks,
+    counters and files as the JAX node. A checkpoint directory gets the
+    JAX node's state.json at each cadence step and at the exit; a migrate
+    directory keeps the loop up past the inputs until STOP."""
+    from dora_tpu.metrics import ServingMetrics as JaxMetrics
+    from dora_tpu.models.batch_engine import make_stub_paged_engine as jax_stub
+    from dora_tpu.nodehub.llm_server import serve as jax_serve
     from dora_tpu_torch.metrics import ServingMetrics
     from dora_tpu_torch.models.batch_engine import make_stub_paged_engine
-    from dora_tpu_torch.nodehub import llm_server
+    from dora_tpu_torch.nodehub.llm_server import serve
 
-    monkeypatch.setenv(knob, str(tmp_path))
-    node = ScriptedNode([(None, _req("a", "a", 2))])
-    with pytest.raises(RuntimeError, match=f"{knob} is set.*not ported yet"):
-        llm_server.serve(node, make_stub_paged_engine(device="cpu"), ServingMetrics(),
-                         encode=lambda t: [1], decode_one=str)
-    assert node.closed and not node.sent
-    monkeypatch.setenv("DORA_STUB_ENGINE", "1")
-    with pytest.raises(RuntimeError, match=f"{knob} is set"):
-        llm_server.main(["--device", "cpu"])  # before any Node() is made
+    monkeypatch.setenv("DORA_FLEET_DIGEST_S", "0")
+    monkeypatch.setenv("DORA_CHECKPOINT_EVERY", "2")
+    events = [(None, _req("a", "abc", 7)), (None, _req("b", "de", 5)),
+              (_all_done("ab"), {"type": "STOP"})]
+    prev = signal.getsignal(signal.SIGTERM)
+    states = []
+    try:
+        for side, (serve_fn, stub, metrics_cls) in (
+                ("jax", (jax_serve, jax_stub, JaxMetrics)),
+                ("port", (serve, lambda **kw: make_stub_paged_engine(**kw, device="cpu"),
+                          ServingMetrics))):
+            monkeypatch.setenv(knob, str(tmp_path / side))
+            states.append(_stub_serve(serve_fn, metrics_cls, stub(max_slots=2, window=2),
+                                      events))
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    (jnode, jm), (tnode, tm) = states
+    assert tnode.sent == jnode.sent and len(tnode.sent) == 12
+    assert _comparable(tm.snapshot()) == _comparable(jm.snapshot())
+    if knob == "DORA_CHECKPOINT_DIR":
+        assert tm.checkpoints == jm.checkpoints >= 2
+        with open(tmp_path / "jax" / "state.json") as f, \
+                open(tmp_path / "port" / "state.json") as g:
+            assert json.load(g) == json.load(f)
+    else:
+        assert tm.checkpoints == 0 and not (tmp_path / "port").exists()  # polled, never written
 
 
 def test_node_needs_a_checkpoint_or_the_stub(monkeypatch):
@@ -488,26 +520,46 @@ def test_node_needs_a_checkpoint_or_the_stub(monkeypatch):
 
 
 def test_migrate_and_profile_events_on_the_port(monkeypatch, tmp_path):
-    """A MIGRATE event is ignored (no checkpoint surface); a PROFILE start /
-    stop pair reports the capture's artifact; streams are unaffected."""
+    """A MIGRATE event drains the live stream into a handoff file in its
+    ``handoff_dir`` (the JAX node's payload) and sends nothing more for it;
+    a PROFILE start / stop pair reports the capture's artifact."""
+    from dora_tpu.metrics import ServingMetrics as JaxMetrics
+    from dora_tpu.models.batch_engine import make_stub_paged_engine as jax_stub
+    from dora_tpu.nodehub.llm_server import serve as jax_serve
     from dora_tpu_torch.metrics import ServingMetrics
     from dora_tpu_torch.models.batch_engine import make_stub_paged_engine
     from dora_tpu_torch.nodehub.llm_server import serve
 
-    monkeypatch.setenv("DORA_PROFILE_DIR", str(tmp_path))
+    monkeypatch.setenv("DORA_PROFILE_DIR", str(tmp_path / "profiles"))
     reports = []
-    events = [(None, _req("a", "abc", 6)),
-              (None, {"type": "MIGRATE", "metadata": {"handoff_dir": str(tmp_path)}}),
-              (None, {"type": "PROFILE", "metadata": {"action": "start", "seconds": 60}}),
-              (None, {"type": "PROFILE", "metadata": {"action": "stop"}}),
-              (None, {"type": "PROFILE", "metadata": {"action": "stop"}})]
-    node = ScriptedNode(events)
+
+    def events(side):
+        return [(None, _req("a", "abc", 6)),
+                (after_first_token("a"),
+                 {"type": "MIGRATE", "metadata": {"handoff_dir": str(tmp_path / side)}}),
+                (None, {"type": "PROFILE", "metadata": {"action": "start", "seconds": 60}}),
+                (None, {"type": "PROFILE", "metadata": {"action": "stop"}}),
+                (None, {"type": "PROFILE", "metadata": {"action": "stop"}})]
+
+    jnode = ScriptedNode(events("jax"))
+    jm = JaxMetrics(engine="paged")
+    jax_serve(jnode, jax_stub(), jm, encode=lambda t: [1, 2, 3], decode_one=lambda t: f" t{t}",
+              clock=jnode.clock)
+    node = ScriptedNode(events("port"))
     node.report_profile = lambda artifact, error=None: reports.append((artifact, error))
-    serve(node, make_stub_paged_engine(device="cpu"), ServingMetrics(engine="paged"),
+    tm = ServingMetrics(engine="paged")
+    serve(node, make_stub_paged_engine(device="cpu"), tm,
           encode=lambda t: [1, 2, 3], decode_one=lambda t: f" t{t}", clock=node.clock)
-    assert [m["seq"] for _o, _t, m in node.sent] == list(range(6))
-    assert node.sent[-1][2]["finish"] == "length"
-    assert len(reports) == 2 and reports[0][0].startswith(str(tmp_path))
+    assert node.sent == jnode.sent
+    assert 0 < len(node.sent) < 6 and not any(m["done"] for _o, _t, m in node.sent)
+    assert tm.migrated_out == jm.migrated_out == 1
+    (jname,), (name,) = os.listdir(tmp_path / "jax"), os.listdir(tmp_path / "port")
+    assert name == f"streams-{os.getpid()}-1.json" == jname
+    with open(tmp_path / "jax" / jname) as f, open(tmp_path / "port" / name) as g:
+        payload = json.load(g)
+        assert payload == json.load(f)
+    assert payload["wire_ids"] == {"req-1": "a"} and payload["seqs"] == {"req-1": len(node.sent)}
+    assert len(reports) == 2 and reports[0][0].startswith(str(tmp_path / "profiles"))
     assert reports[1] == ("", "no capture active")
 
 

@@ -160,14 +160,18 @@ def test_decode_matches_prefill(tparams):
     np.testing.assert_allclose(_np(logits_b), _np(logits_c), atol=2e-4)
 
 
-@pytest.mark.parametrize("quantized,b", [(False, 2), (False, 1), (True, 1)])
-def test_generate_tokens_match_jax(jparams, tparams, jquant, tquant, quantized, b):
+@pytest.mark.parametrize("quantized,b,max_new", [
+    pytest.param(q, b, n, id=f"{q}-{b}" + ("" if n else "-zero"))
+    for n in (12, 0) for q, b in ((False, 2), (False, 1), (True, 1))])
+def test_generate_tokens_match_jax(jparams, tparams, jquant, tquant, quantized, b, max_new):
+    """Tokens equal the JAX package's; at 0 new tokens both are an empty
+    [B, 0] int32."""
     jp, tp = (jquant, tquant) if quantized else (jparams, tparams)
     assert tvlm.fused_decode_ready(tp, b) == (quantized and b == 1)
     (jimg, jids), (timg, tids) = _data(10 + b, b=b)
-    want = np.asarray(jvlm.generate(jp, CFG, jimg, jids, 12))
-    got = tvlm.generate(tp, TCFG, timg, tids, 12)
-    assert got.dtype == torch.int32 and got.shape == (b, 12)
+    want = np.asarray(jvlm.generate(jp, CFG, jimg, jids, max_new))
+    got = tvlm.generate(tp, TCFG, timg, tids, max_new)
+    assert got.dtype == torch.int32 and got.shape == want.shape == (b, max_new)
     np.testing.assert_array_equal(_np(got), want)
 
 
@@ -186,18 +190,22 @@ def test_decode_batch_fused_matches_jax(jquant, tquant):
     _close(tc["1"]["k"], jc["1"]["k"])
 
 
-@pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("seed", range(3))
-def test_generate_speculative_matches_jax(jparams, tparams, jquant, tquant, quantized, seed):
+@pytest.mark.parametrize("seed,quantized,max_new", [
+    pytest.param(seed, q, n, id=f"{seed}-{q}" + ("" if n else "-zero"))
+    for n in (16, 0) for seed in range(3 if n else 1) for q in (False, True)])
+def test_generate_speculative_matches_jax(jparams, tparams, jquant, tquant, quantized, seed,
+                                          max_new):
     """Tokens and model passes equal the JAX package's, and the tokens equal
-    plain greedy generation's."""
+    plain greedy generation's; at 0 new tokens an empty [1, 0] after the one
+    pass the JAX loop counts too."""
     jp, tp = (jquant, tquant) if quantized else (jparams, tparams)
     (jimg, jids), (timg, tids) = _data(100 + seed)
-    want, want_passes = jvlm.generate_speculative(jp, CFG, jimg, jids, 16)
-    got, passes = tvlm.generate_speculative(tp, TCFG, timg, tids, 16)
+    want, want_passes = jvlm.generate_speculative(jp, CFG, jimg, jids, max_new)
+    got, passes = tvlm.generate_speculative(tp, TCFG, timg, tids, max_new)
+    assert got.dtype == torch.int32 and got.shape == np.asarray(want).shape == (1, max_new)
     np.testing.assert_array_equal(_np(got), np.asarray(want))
     assert passes == int(want_passes)
-    np.testing.assert_array_equal(_np(got), _np(tvlm.generate(tp, TCFG, timg, tids, 16)))
+    np.testing.assert_array_equal(_np(got), _np(tvlm.generate(tp, TCFG, timg, tids, max_new)))
 
 
 def test_speculative_context_guard(tparams):
