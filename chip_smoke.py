@@ -147,7 +147,24 @@ Phases, each printed on its own line:
    the parked and mid-prefill streams equal to phase 4's (near-tie rule);
    the decoding ones continue without their KV pages (none are shipped, as
    in the reference), so their agreement with phase 4's is only printed; no
-   capture on the target.
+   capture on the target;
+15. the HF vision-language families at their published widths: Qwen2-VL-2B
+   (QWEN2_VL_2B, its config.json: a 32-layer vision tower 1280 wide, the
+   Qwen2-1.5B LM with M-RoPE and a tied head) and InternVL3-1B (INTERNVL3_1B:
+   a 24-layer InternViT 1024 wide, a 24-layer LM 896 wide, 14 / 2 heads of
+   64, vocab 151674), seeded random tensors under each checkpoint's names
+   through the port's ``map_params``, the LM int8 (``quantize_decode``).
+   For each: the vision tower on one seeded uint8 frame (448 x 448: 256
+   image tokens; 896 x 448: 2 x 1 tiles and the thumbnail, 768 image
+   tokens), its bf16 output within VIT_REL_RMS (relative RMS) of its f32
+   run; then ``make_serving_step`` of HF_VLM_MAX_NEW tokens, greedy
+   (``int8_matmul`` on the prefill's head, ``attention_step``, ``mlp_step``
+   and ``lm_head_argmax`` a step) and speculative (k = 4:
+   ``attention_chunk_step`` a verify pass), each with its exact launches
+   and no plain version; the greedy tokens held to the f32 plain path's,
+   the speculative ones to the greedy ones, by the near-tie rule (NEAR_TIE,
+   SPEC_REF_TIE), with the kernel path's logits within RMS_MARGIN; ViT ms,
+   TTFT, ms a decode token and tokens/s are printed.
 
 Phase 3 also holds the int4 forms of kernels 1-5 and 8-10 against their
 plain versions on phase 12's int4 weights at the main paths' shapes (with
@@ -188,11 +205,11 @@ prompts; kernel 3 in both KV forms; each must sit within RMS_MARGIN of its
 plain version's distance), and kernel 11 and its plain version to f64 at
 the ViT's shape and causal over 2048 rows. ``--kernels-only`` stops after
 phase 3, ``--breakdown`` runs only kernel 6's lines and the ``breakdown``,
-``sublayer`` and ``fidelity`` lines and ``--paths`` only phases 4, 6, 9
+``sublayer`` and ``fidelity`` lines, ``--paths`` only phases 4, 6, 9
 and 10, phase 12's main path and the VLM's ``generate`` (prefill chunk, window, spec-on window,
 dense step and its short prompts' TTFT, batch-1 prefill, ``run_loop``
 pass, VLM step and ViT times; the windows and the dense step graphed and
-eager), all without the result line.
+eager) and ``--hf-vlm`` only phase 15, all without the result line.
 
 Phases 4, 6, 8 and 9 build their engines through the normal factories,
 so each decode window (the dense step) is one CUDA-graph replay, and each
@@ -3398,6 +3415,403 @@ def serve_vlm(torch, DB, LO, vlm, paths, params, cfg, seed: int, max_new: int) -
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the HF vision-language families at their published widths
+# ---------------------------------------------------------------------------
+
+#: Qwen/Qwen2-VL-2B-Instruct's config.json (the keys its loader reads)
+QWEN2_VL_2B = {
+    "vocab_size": 151936, "hidden_size": 1536, "intermediate_size": 8960,
+    "num_hidden_layers": 28, "num_attention_heads": 12, "num_key_value_heads": 2,
+    "rope_theta": 1000000.0, "rms_norm_eps": 1e-6, "tie_word_embeddings": True,
+    "max_position_embeddings": 32768,
+    "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
+    "image_token_id": 151655, "video_token_id": 151656, "vision_start_token_id": 151652,
+    "vision_end_token_id": 151653,
+    "vision_config": {"depth": 32, "embed_dim": 1280, "num_heads": 16, "mlp_ratio": 4,
+                      "patch_size": 14, "temporal_patch_size": 2, "spatial_merge_size": 2,
+                      "in_chans": 3, "hidden_size": 1536},
+}
+#: OpenGVLab/InternVL3-1B-hf's config.json (InternViT-300M and a Qwen2.5-0.5B
+#: LM with its own head over the 151674-token vocabulary)
+INTERNVL3_1B = {
+    "downsample_ratio": 0.5, "image_token_id": 151667,
+    "text_config": {"vocab_size": 151674, "hidden_size": 896, "intermediate_size": 4864,
+                    "num_hidden_layers": 24, "num_attention_heads": 14,
+                    "num_key_value_heads": 2, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+                    "tie_word_embeddings": False, "max_position_embeddings": 32768},
+    "vision_config": {"hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 16,
+                      "intermediate_size": 4096, "image_size": [448, 448],
+                      "patch_size": [14, 14], "use_qk_norm": False, "layer_norm_eps": 1e-6,
+                      "attention_bias": True},
+}
+#: new tokens a serving step; text tokens after the image run
+HF_VLM_MAX_NEW = 64
+HF_VLM_PROMPT = 16
+#: the InternVL3 tokenizer's <img> and </img> around the image run
+INTERNVL_IMG_START, INTERNVL_IMG_END = 151665, 151666
+#: the vision tower's bf16 output against its f32 run on the card: relative
+#: RMS bound, about three times what torch's CPU bf16 products showed on these
+#: seeded towers (2.1e-2 for Qwen2-VL's 32 layers, 1.4e-2 for InternViT's
+#: 24): bf16 rounds every product, activation and residual of the tower
+VIT_REL_RMS = 0.06
+#: the kernels of both families' greedy serving step (phase 15); the
+#: speculative step runs attention_chunk_step in attention_step's place
+HF_VLM_KERNELS = ("int8_matmul", "attention_step", "mlp_step", "lm_head_argmax")
+
+
+def _qwen2_text_tensors(normal, ones, prefix: str, d: int, heads: int, kv: int, hd: int,
+                        ffn: int, vocab: int, layers: int) -> dict:
+    """A Qwen2 LM's checkpoint tensors under ``prefix`` (HF names and
+    [out, in] shapes, q/k/v biases)."""
+    t = {f"{prefix}embed_tokens.weight": normal(vocab, d), f"{prefix}norm.weight": ones(d)}
+    for i in range(layers):
+        p = f"{prefix}layers.{i}."
+        t.update({
+            p + "input_layernorm.weight": ones(d),
+            p + "self_attn.q_proj.weight": normal(heads * hd, d),
+            p + "self_attn.q_proj.bias": normal(heads * hd),
+            p + "self_attn.k_proj.weight": normal(kv * hd, d),
+            p + "self_attn.k_proj.bias": normal(kv * hd),
+            p + "self_attn.v_proj.weight": normal(kv * hd, d),
+            p + "self_attn.v_proj.bias": normal(kv * hd),
+            p + "self_attn.o_proj.weight": normal(d, heads * hd),
+            p + "post_attention_layernorm.weight": ones(d),
+            p + "mlp.gate_proj.weight": normal(ffn, d),
+            p + "mlp.up_proj.weight": normal(ffn, d),
+            p + "mlp.down_proj.weight": normal(d, ffn),
+        })
+    return t
+
+
+def hf_vlm_tensors(torch, family: str, cfg, seed: int, dev: str = "cuda") -> dict:
+    """Seeded random checkpoint tensors of ``family`` ("qwen2_vl" or
+    "internvl") at ``cfg``'s shapes, under the names and [out, in] layouts
+    that transformers writes (Qwen2-VL: ``model.*`` and ``visual.*``;
+    InternVL: ``language_model.*``, ``vision_tower.*``,
+    ``multi_modal_projector.*``): weights and biases normal (std 0.02),
+    norm weights one and biases zero, layer scales 0.1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device=dev) * 0.02
+
+    def ones(*shape):
+        return torch.ones(*shape, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(*shape, device=dev)
+
+    if family == "qwen2_vl":
+        v = cfg.vision
+        t = _qwen2_text_tensors(normal, ones, "model.", cfg.dim, cfg.heads, cfg.kv_heads,
+                                cfg.head_dim, cfg.ffn, cfg.vocab, cfg.layers)
+        if not cfg.tie_embeddings:
+            t["lm_head.weight"] = normal(cfg.vocab, cfg.dim)
+        e, f, m = v.embed_dim, int(v.embed_dim * v.mlp_ratio), v.merge_dim
+        t["visual.patch_embed.proj.weight"] = normal(e, v.in_channels, v.temporal_patch_size,
+                                                     v.patch_size, v.patch_size)
+        for i in range(v.depth):
+            p = f"visual.blocks.{i}."
+            t.update({p + "norm1.weight": ones(e), p + "norm1.bias": zeros(e),
+                      p + "attn.qkv.weight": normal(3 * e, e), p + "attn.qkv.bias": normal(3 * e),
+                      p + "attn.proj.weight": normal(e, e), p + "attn.proj.bias": normal(e),
+                      p + "norm2.weight": ones(e), p + "norm2.bias": zeros(e),
+                      p + "mlp.fc1.weight": normal(f, e), p + "mlp.fc1.bias": normal(f),
+                      p + "mlp.fc2.weight": normal(e, f), p + "mlp.fc2.bias": normal(e)})
+        t.update({"visual.merger.ln_q.weight": ones(e), "visual.merger.ln_q.bias": zeros(e),
+                  "visual.merger.mlp.0.weight": normal(m, m), "visual.merger.mlp.0.bias": normal(m),
+                  "visual.merger.mlp.2.weight": normal(v.out_dim, m),
+                  "visual.merger.mlp.2.bias": normal(v.out_dim)})
+        return t
+    tc, v = cfg.text, cfg.vision
+    t = _qwen2_text_tensors(normal, ones, "language_model.model.", tc.dim, tc.heads,
+                            tc.kv_heads, tc.head_dim, tc.ffn, tc.vocab, tc.layers)
+    t["language_model.lm_head.weight"] = normal(tc.vocab, tc.dim)
+    e, f = v.embed_dim, v.ffn
+    pre = "vision_tower.embeddings."
+    t.update({pre + "cls_token": normal(1, 1, e),
+              pre + "position_embeddings": normal(1, 1 + v.n_patches, e),
+              pre + "patch_embeddings.projection.weight": normal(e, 3, v.patch_size,
+                                                                 v.patch_size),
+              pre + "patch_embeddings.projection.bias": normal(e)})
+    for i in range(v.depth):
+        p = f"vision_tower.encoder.layer.{i}."
+        t.update({p + "layernorm_before.weight": ones(e), p + "layernorm_before.bias": zeros(e),
+                  p + "attention.q_proj.weight": normal(e, e), p + "attention.q_proj.bias": normal(e),
+                  p + "attention.k_proj.weight": normal(e, e), p + "attention.k_proj.bias": normal(e),
+                  p + "attention.v_proj.weight": normal(e, e), p + "attention.v_proj.bias": normal(e),
+                  p + "attention.projection_layer.weight": normal(e, e),
+                  p + "attention.projection_layer.bias": normal(e),
+                  p + "lambda_1": ones(e) * 0.1, p + "lambda_2": ones(e) * 0.1,
+                  p + "layernorm_after.weight": ones(e), p + "layernorm_after.bias": zeros(e),
+                  p + "mlp.fc1.weight": normal(f, e), p + "mlp.fc1.bias": normal(f),
+                  p + "mlp.fc2.weight": normal(e, f), p + "mlp.fc2.bias": normal(e)})
+    w = int(e / cfg.downsample_ratio ** 2)
+    t.update({"multi_modal_projector.layer_norm.weight": ones(w),
+              "multi_modal_projector.layer_norm.bias": zeros(w),
+              "multi_modal_projector.linear_1.weight": normal(tc.dim, w),
+              "multi_modal_projector.linear_1.bias": normal(tc.dim),
+              "multi_modal_projector.linear_2.weight": normal(tc.dim, tc.dim),
+              "multi_modal_projector.linear_2.bias": normal(tc.dim)})
+    return t
+
+
+def _numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    return tree.numel()
+
+
+def serve_hf_vlms(torch, DB, LO, IM, L, qwen2, serve_prompts, seed: int) -> None:
+    """Phase 15: Qwen2-VL-2B, then InternVL3-1B (:func:`serve_hf_vlm`)."""
+    for offset, family, hf_config in ((30, "qwen2_vl", QWEN2_VL_2B),
+                                      (31, "internvl", INTERNVL3_1B)):
+        serve_hf_vlm(torch, DB, LO, IM, L, qwen2, serve_prompts, family, hf_config,
+                     seed + offset, HF_VLM_MAX_NEW)
+        torch.cuda.empty_cache()
+
+
+class _HFVLM:
+    """One family's serving step on the card, with what phase 15 reads off
+    it: the vision tower alone (preprocessing included) and its prompt's
+    prefill and fused passes for the near-tie replays."""
+
+    def __init__(self, torch, family: str, hf_config: dict, seed: int, max_new: int,
+                 dev: str = "cuda"):
+        import numpy as np
+
+        from dora_tpu_torch.models.hf import internvl, qwen2, qwen2_vl
+
+        self.torch, self.family = torch, family
+        self.mod = qwen2_vl if family == "qwen2_vl" else internvl
+        config_cls = qwen2_vl.Qwen2VLConfig if family == "qwen2_vl" else internvl.InternVLConfig
+        cfg = config_cls.from_hf(hf_config, max_seq=2048)
+        self.cfg = cfg
+        self.text_cfg = cfg if family == "qwen2_vl" else cfg.text
+        t0 = time.perf_counter()
+        tensors = hf_vlm_tensors(torch, family, cfg, seed, dev)
+        self.n_params = sum(v.numel() for v in tensors.values())
+        params = self.mod.map_params(tensors, cfg)
+        del tensors
+        self.n_vision = _numel(params["vision"])
+        with _env(DORA_INT4_DECODE=None, DORA_WEIGHT_BITS=None, DORA_INT8_PURE=None):
+            self.params = self.mod.quantize_decode(params, cfg)
+        del params
+        torch.cuda.synchronize()
+        self.load_s = time.perf_counter() - t0
+        rng = np.random.default_rng(seed)
+        text = rng.integers(0, 151643, size=HF_VLM_PROMPT).tolist()
+        if family == "qwen2_vl":
+            h = w = 448
+            self.prompt = qwen2_vl.build_prompt_ids(cfg, text, h, w)
+            self.grid_thw = np.array([[1, h // cfg.vision.patch_size, w // cfg.vision.patch_size]])
+            pos, delta = qwen2_vl.rope_index(cfg, self.prompt, self.grid_thw)
+            self.pos, self.delta = torch.from_numpy(pos).to(dev), int(delta[0])
+            self.tables = qwen2_vl._vision_tables(cfg.vision, self.grid_thw, dev)
+            self.step = {spec: qwen2_vl.make_serving_step(cfg, self.prompt, h, w, max_new, spec)
+                         for spec in (False, True)}
+            self.fused_owner, self.fused_name = qwen2_vl, "_fused_pass"
+        else:
+            h, w = 448, 896
+            self.grid = internvl.tile_grid(w, h)
+            cols, rows, n_tiles = self.grid
+            self.prompt = internvl.build_prompt_ids(cfg, text, n_tiles, INTERNVL_IMG_START,
+                                                    INTERNVL_IMG_END)
+            self.delta = self.prompt.shape[1]
+            self.rope = qwen2._rope(cfg.text, dev)
+            self.step = {spec: internvl.make_serving_step(cfg, self.prompt, cols, rows, 448,
+                                                          max_new, spec)
+                         for spec in (False, True)}
+            self.fused_owner, self.fused_name = qwen2, "fused_step"
+        self.t = self.prompt.shape[1]
+        self.n_image = int((self.prompt == (cfg.image_token_id)).sum())
+        self.prompt_t = torch.from_numpy(self.prompt).to(dev)
+        self.frame = torch.from_numpy(rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)).to(dev)
+
+    def pixels(self):
+        """The frame through the family's preprocessing."""
+        m = self.mod
+        if self.family == "qwen2_vl":
+            return m.preprocess_image(self.frame, self.cfg.vision, 448, 448)
+        cols, rows, _ = self.grid
+        return m.preprocess_tiles(self.frame, cols, rows, 448)
+
+    def tower(self, pixels):
+        """The vision tower over preprocessed pixels: image tokens [N, dim]."""
+        if self.family == "qwen2_vl":
+            return self.mod._vision_forward(self.params, self.cfg.vision, pixels, *self.tables)
+        return self.mod.encode_images(self.params, self.cfg, pixels)
+
+    def prefill(self):
+        """The frame's image tokens and the prompt's prefill, as the serving
+        step runs them."""
+        feats = self.tower(self.pixels())
+        if self.family == "qwen2_vl":
+            return self.mod._prefill(self.params, self.cfg, self.prompt_t, feats, self.pos)
+        return self.mod._prefill(self.params, self.cfg, self.prompt_t, feats, self.rope)
+
+
+def serve_hf_vlm(torch, DB, LO, IM, L, qwen2, serve_prompts, family: str, hf_config: dict,
+                 seed: int, max_new: int, dev: str = "cuda") -> dict:
+    """Phase 15, one family: seeded random weights at the published shapes
+    under the checkpoint's tensor names through the port's ``map_params``,
+    int8 ``quantize_decode``; the vision tower's bf16 output against its f32
+    run; then ``make_serving_step`` on one seeded uint8 frame, greedy and
+    speculative (k = 4), each with its exact launches and no plain version;
+    greedy tokens held to the f32 plain path's, speculative ones to greedy's,
+    by the near-tie rule. Returns the greedy run's launches."""
+    vm = _HFVLM(torch, family, hf_config, seed, max_new, dev)
+    cfg, tc = vm.cfg, vm.text_cfg
+    name = "qwen2_vl" if family == "qwen2_vl" else "internvl"
+    vc = cfg.vision
+    print(f"hf vlm {name}: {vm.n_params / 1e9:.3f} B parameters (vision {vm.n_vision / 1e9:.3f} "
+          f"B: {vc.depth} x {vc.embed_dim}; LM {tc.layers} x {tc.dim}, {tc.heads} / "
+          f"{tc.kv_heads} heads of {tc.head_dim}, vocab {tc.vocab}), seeded random under the "
+          f"checkpoint's tensor names, mapped and LM int8 in {vm.load_s:.2f} s; frame "
+          f"{tuple(vm.frame.shape)} uint8, prompt {vm.t} tokens ({vm.n_image} image tokens, "
+          f"next M-RoPE / rope position {vm.delta})", flush=True)
+    paths = _Paths(torch, DB, LO, IM, qwen2, L, serve_prompts, vm.params, tc)
+
+    def rms(a):
+        return float(a.float().pow(2).mean().sqrt())
+
+    pixels = vm.pixels()
+    feats = vm.tower(pixels)
+    ref = paths.run(lambda: vm.tower(vm.pixels()), "f32").float()
+    rel = rms(feats - ref) / rms(ref)
+    vit_ms = _time_ms(torch, lambda: vm.tower(vm.pixels()), 5)
+    tower_ms = _time_ms(torch, lambda: vm.tower(pixels), 5)
+    print(f"hf vlm {name}: vision tower {tuple(pixels.shape)} -> {tuple(feats.shape)} "
+          f"{feats.dtype}: vs its f32 run rel rms {rel:.4e} (bound {VIT_REL_RMS}); ViT "
+          f"{vit_ms:.3f} ms per frame with preprocessing, {tower_ms:.3f} ms the tower alone",
+          flush=True)
+    if tuple(feats.shape) != (vm.n_image, tc.dim) or not bool(torch.isfinite(feats).all()):
+        raise Failed(f"hf vlm {name}: the tower gave {tuple(feats.shape)}, not {vm.n_image} "
+                     f"finite rows of {tc.dim}")
+    if not rel <= VIT_REL_RMS:
+        raise Failed(f"hf vlm {name}: the tower's bf16 output is {rel:.3e} (rel rms) from its "
+                     f"f32 run")
+
+    owner, fname = vm.fused_owner, vm.fused_name
+    real_fused, real_prefill = getattr(owner, fname), vm.mod._prefill
+    calls: list = []  # every fused pass's arguments, the caches' slot left empty
+    ttft: list = []
+    t_call = [0.0]
+
+    def recorded(*a):
+        calls.append((*a[:2], a[2].clone(), None, *a[4:]))
+        return real_fused(*a)
+
+    def timed_prefill(*a, **k):
+        out = real_prefill(*a, **k)
+        torch.cuda.synchronize()
+        ttft.append(time.perf_counter() - t_call[0])
+        return out
+
+    def run(what, spec):
+        plain_calls = _PlainCalls(DB, LO)
+        _reset_launches(DB, LO)
+        calls.clear()
+        torch.cuda.synchronize()
+        t_call[0] = time.perf_counter()
+        setattr(owner, fname, recorded)
+        vm.mod._prefill = timed_prefill
+        try:
+            tokens = vm.step[spec](vm.params, vm.frame)
+            torch.cuda.synchronize()
+        finally:
+            wall = time.perf_counter() - t_call[0]
+            setattr(owner, fname, real_fused)
+            vm.mod._prefill = real_prefill
+            launches = _launches(DB, LO)
+            plain_calls.restore()
+        got = {n: c for n, c in launches.items() if c}
+        print(f"hf vlm {name} {what}: launches {json.dumps(got)}; plain calls "
+              f"{plain_calls.n}", flush=True)
+        if plain_calls.n:
+            raise Failed(f"{plain_calls.n} plain-version call(s) ran in hf vlm {name} {what}")
+        n = len(calls)
+        attn = "attention_chunk_step" if spec else "attention_step"
+        want = {"int8_matmul": 1, attn: tc.layers * n, "mlp_step": tc.layers * n,
+                "lm_head_argmax": n}
+        if got != want or not n:
+            raise Failed(f"hf vlm {name} {what} launched {got}, expected {want} for {n} passes")
+        tokens = tokens[0].tolist()
+        _check_streams({what: tokens}, max_new, tc.vocab)
+        return tokens, wall, launches, list(calls)
+
+    # The first call pays for its shapes' first products and allocations:
+    # its TTFT is printed apart, and the runs below are warm.
+    torch.cuda.synchronize()
+    t_call[0] = time.perf_counter()
+    vm.mod._prefill = timed_prefill
+    try:
+        vm.step[False](vm.params, vm.frame)
+        torch.cuda.synchronize()
+    finally:
+        vm.mod._prefill = real_prefill
+    cold = time.perf_counter() - t_call[0]
+    cold_ttft = ttft.pop()
+    gen, wall, launches, gen_calls = run("greedy", False)
+    spec, s_wall, _, spec_calls = run("speculative", True)
+    steps = max_new - 1
+    print(f"hf vlm {name}: TTFT {ttft[0]:.3f} s (preprocessing, ViT and the {vm.t}-row "
+          f"prefill; the first call's {cold_ttft:.3f} s, its {max_new} tokens in {cold:.3f} s); "
+          f"greedy {max_new} tokens in {wall:.3f} s, decode "
+          f"{steps / (wall - ttft[0]):.1f} tokens/s ({1e3 * (wall - ttft[0]) / steps:.2f} ms a "
+          f"token); speculative {max_new} tokens in {s_wall:.3f} s, TTFT {ttft[1]:.3f} s, "
+          f"{len(spec_calls)} verify passes ({steps / len(spec_calls):.3f} tokens a pass, "
+          f"overshoot included), decode {steps / (s_wall - ttft[1]):.1f} tokens/s", flush=True)
+
+    # Where a decode token's time goes: the greedy run's middle pass,
+    # replayed at its row, on the device (torch.profiler), on the host (the
+    # time to issue it) and back to back; the tower's device time beside it.
+    _, caches = vm.prefill()
+    mid = gen_calls[len(gen_calls) // 2]
+
+    def one_step():
+        real_fused(*mid[:3], caches, *mid[4:])
+
+    def device_ms(fn):
+        kern = _device_kernels(torch, fn, 3)
+        if not kern:
+            return "not measured (the profiler saw no kernel)"
+        return f"{sum(us for _, us in kern) / 3e3:.3f} ms in {len(kern) // 3} kernels"
+
+    print(f"hf vlm {name}: a decode step at row {mid[4]}: device {device_ms(one_step)}; "
+          f"host {_host_ms(torch, one_step, 10):.3f} ms to issue it; "
+          f"{_time_ms(torch, one_step, 10):.3f} ms a step back to back; the tower: device "
+          f"{device_ms(lambda: vm.tower(pixels))} of its {tower_ms:.3f} ms", flush=True)
+    del caches
+
+    def replay(recorded_calls, at):
+        """``mode -> logits`` of generated token ``at`` on its run's path:
+        the prefill, then the recorded passes up to the one that gave it."""
+        upto = [c for c in recorded_calls if c[4] - vm.t + 1 <= at]
+        row = at - (upto[-1][4] - vm.t + 1) if upto else -1
+
+        def go():
+            _, caches = vm.prefill()
+            for c in upto:
+                _, caches = real_fused(*c[:3], caches, *c[4:])
+        return lambda mode: paths.logits_of(go, mode)[row]
+
+    ref_tokens = paths.run(lambda: vm.step[False](vm.params, vm.frame), "f32")[0].tolist()
+    # greedy against the f32 plain path (its token within NEAR_TIE), then
+    # speculative against greedy (the verify path's within SPEC_REF_TIE)
+    for label, stream, other, recorded_calls, bound in (
+            ("greedy vs the f32 plain path", gen, ref_tokens, gen_calls, NEAR_TIE),
+            ("speculative vs greedy", spec, gen, spec_calls, SPEC_REF_TIE)):
+        same = _first_parting(stream, other, max_new)
+        at = min(same, max_new - 1)
+        print(f"hf vlm {name} agreement, {label}: first {same} of {max_new} tokens equal",
+              flush=True)
+        paths.check(f"hf vlm {name} agreement, {label}, token {at}", replay(recorded_calls, at),
+                    (other[same], stream[same]) if same < max_new else None, bound)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # int4 weights: phase 3's int4 forms and phase 12
 # ---------------------------------------------------------------------------
 
@@ -4437,6 +4851,9 @@ def main(argv=None) -> int:
                          "references (prints no result line)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build, then only phase 3's kernel checks (prints no result line)")
+    ap.add_argument("--hf-vlm", action="store_true",
+                    help="build, then only phase 15: the HF vision-language families "
+                         "(prints no result line)")
     ap.add_argument("--paths", action="store_true",
                     help="build, then only phases 4, 6, 9 and 10, phase 12's main path and the "
                          "VLM's generate, for their times (prints no result line)")
@@ -4505,6 +4922,9 @@ def main(argv=None) -> int:
             ffn_fidelity(torch, DB, params, cfg, prompts)
             sublayer_breakdown(torch, DB, params, cfg, args.seed + 12)
             sweep_fidelity(torch, DB, params, cfg, prompts, args.seed + 14)
+            return 0
+        if args.hf_vlm:
+            serve_hf_vlms(torch, DB, LO, IM, L, qwen2, serve_prompts, args.seed)
             return 0
         if args.paths:  # phases 4, 6, 9, 10 and 12's main path and the VLM's generate alone
             _, _, slice_times = serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg,
@@ -4627,6 +5047,7 @@ def main(argv=None) -> int:
             by_name[n]["launches"] = n_launches[n]
         serve_recovery(torch, DB, LO, make_engine, paths, params, cfg, prompts, args.max_new,
                        served, n_engine, rate_13a, smi, os.path.join(here, "_scratch"))
+        serve_hf_vlms(torch, DB, LO, IM, L, qwen2, serve_prompts, args.seed)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

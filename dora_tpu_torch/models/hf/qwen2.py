@@ -129,13 +129,26 @@ def map_params(tensors: dict, cfg: Qwen2Config, prefix: str = "model.") -> dict:
         params["blocks"][str(i)] = block
     if not cfg.tie_embeddings and "lm_head.weight" in tensors:
         params["lm_head"] = linear(tensors, "lm_head.weight")
+    return _f32(params)
 
-    def f32(tree):
-        if isinstance(tree, dict):
-            return {k: f32(v) for k, v in tree.items()}
-        return tree.float().contiguous()
 
-    return f32(params)
+def _on(x, device) -> torch.Tensor:
+    """A numpy array or tensor as a tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def _host_ids(ids) -> np.ndarray:
+    """Token ids (a tensor, an array or nested lists) as a host array."""
+    return ids.cpu().numpy() if isinstance(ids, torch.Tensor) else np.asarray(ids)
+
+
+def _f32(tree):
+    """Every leaf of a checkpoint tree as a contiguous f32 tensor."""
+    if isinstance(tree, dict):
+        return {k: _f32(v) for k, v in tree.items()}
+    return tree.float().contiguous()
 
 
 def random_params(cfg: Qwen2Config, *, seed: int = 0, std: float = 0.02,
@@ -288,14 +301,17 @@ def init_cache(cfg: Qwen2Config, batch: int, dtype=None, device=None):
     }
 
 
-def _prefill(params, cfg: Qwen2Config, prompt_ids, rope=None):
+def _prefill(params, cfg: Qwen2Config, prompt_ids, rope=None, h=None):
     """The unfused prompt pass of ``generate`` and ``prefill_padded``: the
     T prompt rows into fresh caches at 0 (each attending the rows before it
-    among the first T). Returns (h [B, T, dim], caches)."""
+    among the first T). ``h`` [B, T, dim] is the embedded prompt when the
+    caller made it (image features scattered in), else the token
+    embeddings. Returns (h [B, T, dim], caches)."""
     embed = params["embed"]
     dev = embed.device
     b, t = prompt_ids.shape
-    h = embed[prompt_ids.long().to(dev)].to(L.compute_dtype(dev))
+    if h is None:
+        h = embed[prompt_ids.long().to(dev)].to(L.compute_dtype(dev))
     positions = torch.arange(t, device=dev).expand(b, t)
     mask = L.causal_mask(t, cfg.max_seq, device=dev) & (
         torch.arange(cfg.max_seq, device=dev)[None, None, None, :] < t)
@@ -359,6 +375,20 @@ def fused_batch_step(params, cfg: Qwen2Config, tokens, caches, positions, rope=N
     )
 
 
+def fused_gate(what: str, params, cfg, batch: int) -> bool:
+    """models/vlm.fused_decode_ready for a decode of ``batch`` rows; when it
+    holds, a model whose shapes the kernels do not take is refused
+    on the card, each limit named (models/vlm.refuse_unkernelled). ``cfg``
+    gives heads, kv_heads and head_dim (any Qwen2-class text config)."""
+    from dora_tpu_torch.models import vlm as _vlm
+
+    use_fused = _vlm.fused_decode_ready(params, batch)
+    if use_fused:
+        _vlm.refuse_unkernelled(what, params["embed"].device, heads=cfg.heads,
+                                kv_heads=cfg.kv_heads, head_dim=cfg.head_dim, params=params)
+    return use_fused
+
+
 def generate(params, cfg: Qwen2Config, prompt_ids, max_new_tokens: int):
     """Greedy generation of ``max_new_tokens`` per row, as a host loop of
     steps. prompt_ids [B, T]; returns [B, max_new_tokens] int32 ([B, 0] at 0,
@@ -366,8 +396,6 @@ def generate(params, cfg: Qwen2Config, prompt_ids, max_new_tokens: int):
     runs unfused; each decode step runs the fused batch-1 pass when
     models/vlm.fused_decode_ready allows (B = 1, the quantized layout,
     ``DORA_FUSED_DECODE`` not 0), else the unfused blocks over one row."""
-    from dora_tpu_torch.models import vlm as _vlm
-
     b, t = prompt_ids.shape
     if t + max_new_tokens > cfg.max_seq:
         # Out-of-bounds cache rows would be silently clamped, corrupting the
@@ -379,17 +407,25 @@ def generate(params, cfg: Qwen2Config, prompt_ids, max_new_tokens: int):
     if max_new_tokens == 0:
         # The JAX scan of length 0: no token, not even the prefill's.
         return torch.zeros((b, 0), dtype=torch.int32, device=prompt_ids.device)
-    embed = params["embed"]
-    dev = embed.device
-    use_fused = _vlm.fused_decode_ready(params, b)
-    if use_fused:
-        _vlm.refuse_unkernelled("qwen2.generate", dev, heads=cfg.heads,
-                                kv_heads=cfg.kv_heads, head_dim=cfg.head_dim, params=params)
-    dtype = L.compute_dtype(dev)
-    head = _head(params, cfg, dtype)
+    dev = params["embed"].device
+    use_fused = fused_gate("qwen2.generate", params, cfg, b)
     rope = _rope(cfg, dev)
     h, caches = _prefill(params, cfg, prompt_ids, rope)
+    head = _head(params, cfg, L.compute_dtype(dev))
     token = torch.argmax(_head_logits(h[:, -1], head), dim=-1).to(torch.int32)
+    return _greedy_steps(params, cfg, token, caches, t, max_new_tokens, use_fused, rope)
+
+
+def _greedy_steps(params, cfg: Qwen2Config, token, caches, t: int, max_new_tokens: int,
+                  use_fused: bool, rope):
+    """``generate``'s tokens from the prompt's greedy token [B] and its
+    caches over T = ``t`` rows: [B, max_new_tokens] int32, each later token
+    from one step (the fused batch-1 pass, or the unfused blocks)."""
+    embed = params["embed"]
+    dev = embed.device
+    dtype = L.compute_dtype(dev)
+    head = _head(params, cfg, dtype)
+    b = token.shape[0]
     out = [token]
     # Token j + 1 comes from the step at position t + j; the last token
     # needs no step after it.

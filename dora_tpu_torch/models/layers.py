@@ -2,21 +2,25 @@
 
 Counterpart of the matching functions of dora_tpu/models/layers.py:
 ``compute_dtype`` (bf16 on the card, f32 on the CPU), the f32 rotary
-tables, RMSNorm with f32 statistics, and the unfused pre-norm block
+tables (position-indexed, ``apply_rope``, or per token,
+``apply_rope_tables``: the M-RoPE and 2-D vision case), RMSNorm and
+LayerNorm with f32 statistics, and the unfused pre-norm block
 (``block_forward`` = ``attention_sublayer`` + ``mlp_sublayer``, the
 RMSNorm + SwiGLU layout of Qwen2) over plain or quantized weights, which
-prefill and the unfused decode run. ``matmul`` keeps the JAX dispatch
-rule: a quantized weight goes through a plain bf16 product of its ``bf16``
-sidecar above 32 rows, else an int8 weight through the int8 kernel
-(ops/int8_matmul.py) and an int4 weight through the product of its
-dequantized form (ops/int4.py). Attention is the reference's einsum with an f32
-softmax, rounded where the reference rounds (no fused SDPA), or, for the
-no-cache self-attention paths that ask for it (``flash="full"`` /
-``"causal"``), flash attention (ops/flash_attention.py: the hand-written
-kernel on the card), which ``use_flash`` turns on by default on the card
-(``DORA_FLASH_ATTENTION`` overrides it either way). The ring and ulysses
-variants and the LayerNorm / GELU layouts (ViT, Whisper) are not ported:
-their arguments raise.
+prefill and the unfused decode run; ``resize_image`` is the antialiased
+resampling of ``jax.image.resize`` that the HF vision preprocessing uses.
+``matmul`` keeps the JAX dispatch rule: a quantized weight goes through a
+plain bf16 product of its ``bf16`` sidecar above 32 rows, else an int8
+weight through the int8 kernel (ops/int8_matmul.py) and an int4 weight
+through the product of its dequantized form (ops/int4.py). Attention is the
+reference's einsum with an f32 softmax, rounded where the reference rounds
+(no fused SDPA), or, for the no-cache self-attention paths that ask for it
+(``flash="full"`` / ``"causal"``), flash attention (ops/flash_attention.py:
+the hand-written kernel on the card), which ``use_flash`` turns on by
+default on the card (``DORA_FLASH_ATTENTION`` overrides it either way). The
+ring and ulysses variants and the LayerNorm / GELU block layouts (ViT,
+Whisper) are not ported: their arguments raise (the HF vision towers call
+``layer_norm`` and their own MLPs directly).
 """
 
 from __future__ import annotations
@@ -29,9 +33,9 @@ import torch
 from dora_tpu_torch._device import compute_dtype, resolve_device
 
 __all__ = [
-    "apply_rope", "attention", "attention_sublayer", "block_forward", "causal_mask",
-    "compute_dtype", "dense", "matmul", "mlp_sublayer", "rms_norm", "rope_table",
-    "use_flash",
+    "apply_rope", "apply_rope_tables", "attention", "attention_sublayer", "block_forward",
+    "causal_mask", "compute_dtype", "dense", "layer_norm", "matmul", "mlp_sublayer",
+    "resize_image", "rms_norm", "rope_table", "use_flash",
 ]
 
 #: quantized products with more rows than this take the bf16 sidecar
@@ -43,6 +47,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     xf = x.float()
     xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * weight.float()).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis: f32 mean and variance, then
+    ``x * weight + bias`` in f32, cast back to x's dtype."""
+    dtype = x.dtype
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mean) ** 2, dim=-1, keepdim=True)
+    xf = (xf - mean) * torch.rsqrt(var + eps)
+    return (xf * weight.float() + bias.float()).to(dtype)
 
 
 def _not_ported(norm="rms", mlp="swiglu", **variants) -> None:
@@ -98,8 +114,17 @@ def apply_rope(x, cos, sin, positions):
     """NeoX rotary. x [B, H, T, D]; positions [B, T] absolute positions into
     the (cos, sin) tables; computed in f32, returned in x's dtype."""
     idx = positions.long()
-    c = cos[idx][:, None].float()  # [B, 1, T, D/2]
-    s = sin[idx][:, None].float()
+    return apply_rope_tables(x, cos[idx], sin[idx])
+
+
+def apply_rope_tables(x, cos, sin):
+    """NeoX rotary with per-token half-dim tables, [T, D/2] (shared by the
+    batch) or [B, T, D/2]. x [B, H, T, D]; computed in f32, returned in x's
+    dtype."""
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    c = cos[:, None].float()  # [B, 1, T, D/2]
+    s = sin[:, None].float()
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
@@ -113,6 +138,17 @@ def attention(q, k, v, mask=None):
         scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def resize_image(x: torch.Tensor, height: int, width: int, method: str) -> torch.Tensor:
+    """An [H, W, C] float image resized to [height, width, C] with
+    ``method`` "bilinear" or "bicubic", antialiased when it shrinks and with
+    half-pixel centres: the resampling of ``jax.image.resize`` (a cubic
+    kernel of a = -0.5, weights renormalized at the edges)."""
+    out = torch.nn.functional.interpolate(
+        x.permute(2, 0, 1)[None], size=(height, width), mode=method,
+        align_corners=False, antialias=True)
+    return out[0].permute(1, 2, 0)
 
 
 def use_flash(device) -> bool:
@@ -136,7 +172,8 @@ def causal_mask(tq: int, tk: int, offset: int = 0, device=None):
 
 
 def block_forward(params: dict, x, n_heads: int, *, n_kv_heads: int | None = None,
-                  rope: tuple | None = None, positions=None, mask=None,
+                  rope: tuple | None = None, positions=None,
+                  rope_tables: tuple | None = None, mask=None,
                   cache: dict | None = None, cache_index: int | None = None,
                   norm: str = "rms", mlp: str = "swiglu", norm_eps: float = 1e-6,
                   head_dim: int | None = None, mesh=None, ring_axis=None, flash=None,
@@ -146,28 +183,30 @@ def block_forward(params: dict, x, n_heads: int, *, n_kv_heads: int | None = Non
     whole cache under ``mask``."""
     x, new_cache = attention_sublayer(
         params, x, n_heads, n_kv_heads=n_kv_heads, rope=rope, positions=positions,
-        mask=mask, cache=cache, cache_index=cache_index, norm=norm, norm_eps=norm_eps,
-        head_dim=head_dim, mesh=mesh, ring_axis=ring_axis, flash=flash, sp_impl=sp_impl,
+        rope_tables=rope_tables, mask=mask, cache=cache, cache_index=cache_index, norm=norm,
+        norm_eps=norm_eps, head_dim=head_dim, mesh=mesh, ring_axis=ring_axis, flash=flash,
+        sp_impl=sp_impl,
     )
     x = mlp_sublayer(params, x, norm=norm, mlp=mlp, norm_eps=norm_eps)
     return x, new_cache
 
 
 def attention_sublayer(params, x, n_heads, *, n_kv_heads=None, rope=None,
-                       positions=None, mask=None, cache=None, cache_index=None,
-                       norm="rms", norm_eps=1e-6, head_dim=None, mesh=None,
+                       positions=None, rope_tables=None, mask=None, cache=None,
+                       cache_index=None, norm="rms", norm_eps=1e-6, head_dim=None, mesh=None,
                        ring_axis=None, flash=None, sp_impl=None):
     """Pre-norm self-attention with residual. Returns (y, new_cache).
 
     ``rope=(cos, sin)`` position-indexed tables with ``positions`` [B, T]
-    (default 0..T-1). With ``cache`` ({"k", "v"} [B, KV, S, hd]) the rows'
-    K/V are written at ``cache_index`` in place (the start clamped so they
-    fit, as ``dynamic_update_slice`` clamps) and attention runs over the
-    whole cache; the cache is returned as new_cache. ``flash`` ("full" or
-    "causal") runs the no-cache path through ops/flash_attention.py instead
-    of the einsum under ``mask``: only valid where the mask the caller would
-    pass is exactly that pattern (with a cache it is ignored, as in the
-    reference)."""
+    (default 0..T-1), or ``rope_tables=(cos, sin)`` per-token tables ([T,
+    D/2] or [B, T, D/2]: M-RoPE, the 2-D vision rotary). With ``cache``
+    ({"k", "v"} [B, KV, S, hd]) the rows' K/V are written at ``cache_index``
+    in place (the start clamped so they fit, as ``dynamic_update_slice``
+    clamps) and attention runs over the whole cache; the cache is returned
+    as new_cache. ``flash`` ("full" or "causal") runs the no-cache path
+    through ops/flash_attention.py instead of the einsum under ``mask``:
+    only valid where the mask the caller would pass is exactly that pattern
+    (with a cache it is ignored, as in the reference)."""
     _not_ported(norm, mesh=mesh, ring_axis=ring_axis, sp_impl=sp_impl)
     b, t, dim = x.shape
     n_kv = n_kv_heads or n_heads
@@ -192,6 +231,10 @@ def attention_sublayer(params, x, n_heads, *, n_kv_heads=None, rope=None,
             positions = torch.arange(t, device=x.device).expand(b, t)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
+    elif rope_tables is not None:
+        cos, sin = rope_tables
+        q = apply_rope_tables(q, cos, sin)
+        k = apply_rope_tables(k, cos, sin)
 
     new_cache = None
     if cache is not None:

@@ -31,7 +31,9 @@ def test_port_imports_no_jax_and_no_dora_tpu():
         "        'dora_tpu_torch.telemetry', 'dora_tpu_torch.metrics',\n"
         "        'dora_tpu_torch.metrics_history', 'dora_tpu_torch.fleet', 'dora_tpu_torch.node',\n"
         "        'dora_tpu_torch.node.arrow', 'dora_tpu_torch.node.channels',\n"
-        "        'dora_tpu_torch.node.events', 'dora_tpu_torch.models.checkpoint'} <= set(names)\n"
+        "        'dora_tpu_torch.node.events', 'dora_tpu_torch.models.checkpoint',\n"
+        "        'dora_tpu_torch.models.hf.qwen2_vl',\n"
+        "        'dora_tpu_torch.models.hf.internvl'} <= set(names)\n"
         "from dora_tpu_torch.models import tokenizer, vlm\n"
         "from dora_tpu_torch.nodehub import ops\n"
         "from dora_tpu_torch.ops import flash_attention\n"
@@ -44,6 +46,11 @@ def test_port_imports_no_jax_and_no_dora_tpu():
         "           'fits', 'gate_speculation'))\n"
         "assert callable(batch_engine.BatchEngine) and callable(int8_matmul.int8_matmul)\n"
         "assert callable(decode_block.attention_chunk_step)\n"
+        "from dora_tpu_torch.models.hf import internvl, qwen2_vl\n"
+        "assert all(callable(getattr(m, f)) for m in (qwen2_vl, internvl) for f in\n"
+        "           ('load', 'map_params', 'encode_images', 'forward', 'generate',\n"
+        "            'generate_speculative', 'quantize_decode', 'make_serving_step',\n"
+        "            'build_prompt_ids'))\n"
         "print(len(names), bad)\n"
         "assert not bad, bad\n"
     )
