@@ -164,7 +164,27 @@ Phases, each printed on its own line:
    and no plain version; the greedy tokens held to the f32 plain path's,
    the speculative ones to the greedy ones, by the near-tie rule (NEAR_TIE,
    SPEC_REF_TIE), with the kernel path's logits within RMS_MARGIN; ViT ms,
-   TTFT, ms a decode token and tokens/s are printed.
+   TTFT, ms a decode token and tokens/s are printed;
+16. the operator tier (``operators`` lines): the port's runtime loop
+   (``runtime.serve``) over scripted nodes, no daemon. (a) The speech node
+   of the speech-to-text example: ``vad`` = Wav2Vec2 at superb/wav2vec2-
+   base-superb-sd's widths (W2V2_SUPERB_SD) and ``asr`` = Whisper at
+   openai/whisper-large-v3-turbo's (WHISPER_TURBO), built by
+   ``nodehub.ops`` from seeded tensors under the checkpoints' names through
+   ``map_params``, over eight seeded utterances of 1-30 s, each sent to
+   both: every tick's tokens equal ``whisper.make_serving_step``'s on the
+   audio it sampled and its probability the VAD operator's, the tokens held
+   to the f32 plain path by the near-tie rule and the probability within
+   VAD_PROB_TOL of its f32 run, the pipelined run and ``DORA_FETCH_EVERY=4``
+   bit for bit the synchronous one's, none of the 11 kernels launched; the
+   tick wall p50 / p99, the seconds an utterance and the device busy share
+   (``profiling.start_capture``). (b) The VLM node of the VLM example:
+   ``make_vlm`` with ``DORA_MODEL_SIZE=bench`` and ``DORA_INT8_DECODE=1``,
+   eight seeded 224 x 224 frames in bursts between timer ticks: each tick
+   takes the latest frame, its tokens equal ``vlm.generate``'s, the launches
+   exact (kernels 11, 7, 9, 1, 2) with no plain version; frames a second
+   pipelined against synchronous; then ``DORA_SPEC_DECODE=1``: tokens equal
+   ``vlm.generate_speculative``'s, kernel 10 a verify pass.
 
 Phase 3 also holds the int4 forms of kernels 1-5 and 8-10 against their
 plain versions on phase 12's int4 weights at the main paths' shapes (with
@@ -209,7 +229,8 @@ phase 3, ``--breakdown`` runs only kernel 6's lines and the ``breakdown``,
 and 10, phase 12's main path and the VLM's ``generate`` (prefill chunk, window, spec-on window,
 dense step and its short prompts' TTFT, batch-1 prefill, ``run_loop``
 pass, VLM step and ViT times; the windows and the dense step graphed and
-eager) and ``--hf-vlm`` only phase 15, all without the result line.
+eager), ``--hf-vlm`` only phase 15 and ``--operators`` only phase 16, all
+without the result line.
 
 Phases 4, 6, 8 and 9 build their engines through the normal factories,
 so each decode window (the dense step) is one CUDA-graph replay, and each
@@ -4839,6 +4860,579 @@ def serve_recovery(torch, DB, LO, make_engine, paths, params, cfg, prompts, max_
         signal.signal(signal.SIGTERM, prev_term)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the operator tier, the port's runtime loop over scripted nodes
+# ---------------------------------------------------------------------------
+
+#: openai/whisper-large-v3-turbo's config.json (the keys WhisperConfig.from_hf
+#: reads): the model of the reference's dora-distil-whisper node
+WHISPER_TURBO = {
+    "vocab_size": 51866, "d_model": 1280, "encoder_layers": 32, "decoder_layers": 4,
+    "encoder_attention_heads": 20, "decoder_attention_heads": 20, "encoder_ffn_dim": 5120,
+    "decoder_ffn_dim": 5120, "num_mel_bins": 128, "max_source_positions": 1500,
+    "max_target_positions": 448, "decoder_start_token_id": 50258, "eos_token_id": 50257,
+}
+#: superb/wav2vec2-base-superb-sd's config.json (wav2vec2-base: a group-norm
+#: conv stack of seven 512-channel layers, 12 post-LN layers 768 wide)
+W2V2_SUPERB_SD = {
+    "hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12,
+    "intermediate_size": 3072, "conv_dim": [512] * 7, "conv_stride": [5, 2, 2, 2, 2, 2, 2],
+    "conv_kernel": [10, 3, 3, 3, 3, 2, 2], "num_conv_pos_embeddings": 128,
+    "num_conv_pos_embedding_groups": 16, "num_labels": 2, "layer_norm_eps": 1e-5,
+    "feat_extract_norm": "group", "conv_bias": False,
+}
+#: the speech node's utterances: seeded noise of 1 to 30 s at 16 kHz
+SPEECH_UTTERANCES = 8
+SPEECH_SECONDS = (1.0, 30.0)
+#: the VAD's bf16 speech probability against its f32 run on the card, as an
+#: absolute bound: bf16 rounds the conv stack's and the 12 layers' products
+#: (torch's bf16 on the CPU moved these seeded probabilities by < 6e-3)
+VAD_PROB_TOL = 0.02
+#: the VLM node's eight frames, and after which of them a timer tick comes
+#: (two, one, three and two frames between ticks)
+VLM_FRAMES = 8
+VLM_TICK_AFTER = (1, 2, 5, 7)
+#: the kernels the greedy VLM node runs (phase 11's), and the verify's
+OPERATOR_KERNELS = ("flash_attention", "int8_matmul", "attention_step", "mlp_step",
+                    "lm_head_argmax", "attention_chunk_step")
+
+
+def whisper_tensors(torch, cfg, seed: int, dev: str = "cuda") -> dict:
+    """Seeded random tensors of a WhisperForConditionalGeneration checkpoint
+    at ``cfg``'s shapes, under its names and layouts ([out, in] linears,
+    [out, in, k] convolutions, no k bias): weights and biases normal (std
+    0.02), norm weights one and biases zero."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device=dev) * 0.02
+
+    def ln(name, d):
+        return {name + ".weight": torch.ones(d, device=dev), name + ".bias": torch.zeros(d, device=dev)}
+
+    def attn(p, d):
+        t = {}
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            t[f"{p}{n}.weight"] = normal(d, d)
+            if n != "k_proj":
+                t[f"{p}{n}.bias"] = normal(d)
+        return t
+
+    def layer(p, d, f, cross: bool):
+        t = {**attn(p + "self_attn.", d), **ln(p + "self_attn_layer_norm", d),
+             **ln(p + "final_layer_norm", d), p + "fc1.weight": normal(f, d),
+             p + "fc1.bias": normal(f), p + "fc2.weight": normal(d, f), p + "fc2.bias": normal(d)}
+        if cross:
+            t.update({**attn(p + "encoder_attn.", d), **ln(p + "encoder_attn_layer_norm", d)})
+        return t
+
+    d, f = cfg.dim, cfg.ffn
+    t = {"model.encoder.conv1.weight": normal(d, cfg.n_mels, 3),
+         "model.encoder.conv1.bias": normal(d), "model.encoder.conv2.weight": normal(d, d, 3),
+         "model.encoder.conv2.bias": normal(d),
+         "model.encoder.embed_positions.weight": normal(cfg.max_source, d),
+         **ln("model.encoder.layer_norm", d),
+         "model.decoder.embed_tokens.weight": normal(cfg.vocab, d),
+         "model.decoder.embed_positions.weight": normal(cfg.max_target, d),
+         **ln("model.decoder.layer_norm", d)}
+    for i in range(cfg.enc_layers):
+        t.update(layer(f"model.encoder.layers.{i}.", d, f, False))
+    for i in range(cfg.dec_layers):
+        t.update(layer(f"model.decoder.layers.{i}.", d, f, True))
+    return t
+
+
+def wav2vec2_tensors(torch, cfg, seed: int, dev: str = "cuda") -> dict:
+    """Seeded random tensors of a Wav2Vec2ForAudioFrameClassification
+    checkpoint at ``cfg``'s shapes, under its names (bias-free convolutions,
+    the first one group-normed, the positional convolution weight-normed
+    as weight_g / weight_v): weights and biases normal (std 0.02), norm
+    weights one and biases zero, weight_g one."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device=dev) * 0.02
+
+    def ln(name, d):
+        return {name + ".weight": torch.ones(d, device=dev), name + ".bias": torch.zeros(d, device=dev)}
+
+    fe = "wav2vec2.feature_extractor.conv_layers."
+    t, c_in = {}, 1
+    for i, (c, k) in enumerate(zip(cfg.conv_dims, cfg.conv_kernels)):
+        t[f"{fe}{i}.conv.weight"] = normal(c, c_in, k)
+        c_in = c
+    t.update(ln(f"{fe}0.layer_norm", cfg.conv_dims[0]))
+    d, f, k = cfg.dim, cfg.ffn, cfg.pos_conv_kernel
+    enc = "wav2vec2.encoder."
+    t.update({**ln("wav2vec2.feature_projection.layer_norm", c_in),
+              "wav2vec2.feature_projection.projection.weight": normal(d, c_in),
+              "wav2vec2.feature_projection.projection.bias": normal(d),
+              enc + "pos_conv_embed.conv.weight_g": torch.ones(1, 1, k, device=dev),
+              enc + "pos_conv_embed.conv.weight_v": normal(d, d // cfg.pos_conv_groups, k),
+              enc + "pos_conv_embed.conv.bias": normal(d), **ln(enc + "layer_norm", d),
+              "classifier.weight": normal(cfg.num_labels, d),
+              "classifier.bias": normal(cfg.num_labels)})
+    for i in range(cfg.layers):
+        p = f"{enc}layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            t[f"{p}attention.{n}.weight"] = normal(d, d)
+            t[f"{p}attention.{n}.bias"] = normal(d)
+        t.update({**ln(p + "layer_norm", d), **ln(p + "final_layer_norm", d),
+                  p + "feed_forward.intermediate_dense.weight": normal(f, d),
+                  p + "feed_forward.intermediate_dense.bias": normal(f),
+                  p + "feed_forward.output_dense.weight": normal(d, f),
+                  p + "feed_forward.output_dense.bias": normal(d)})
+    return t
+
+
+class _OpNode:
+    """Phase 16's node: INPUT events in order, then the end of the stream;
+    every ``send_output`` captured as (output id, host copy, metadata), and
+    the runtime's ``wake`` calls counted. The operator runtime's loop sees
+    what a dataflow node gives it, without a daemon."""
+
+    def __init__(self, events):
+        import threading
+
+        self._events = list(events)
+        self.stream_ended = False
+        self.sent: list = []
+        self.wakes = 0
+        self._lock = threading.Lock()
+
+    def recv(self, timeout=None):
+        if self._events:
+            return self._events.pop(0)
+        self.stream_ended = True
+        return None
+
+    def wake(self):
+        with self._lock:
+            self.wakes += 1
+
+    def send_output(self, output_id, data, metadata=None):
+        import numpy as np
+
+        self.sent.append((output_id, np.array(data), dict(metadata or {})))
+
+
+def _event(event_id: str, value=None) -> dict:
+    return {"type": "INPUT", "id": event_id, "value": value, "metadata": {}}
+
+
+@contextlib.contextmanager
+def _prebuilt(operators: dict):
+    """The runtime's factory loader answering each source of ``operators``
+    with its operator, built from seeded weights (a node hosting two HF
+    families reads two checkpoints; DORA_HF_CHECKPOINT names one)."""
+    from dora_tpu_torch.tpu import fuse
+
+    real = fuse.load_torch_operator
+
+    def load(source, working_dir=None, device=None):
+        return operators[source] if source in operators else real(source, working_dir, device)
+
+    fuse.load_torch_operator = load
+    try:
+        yield
+    finally:
+        fuse.load_torch_operator = real
+
+
+def _f32(torch, L, fn):
+    """``fn()`` with the models' compute dtype f32 (the plain reference)."""
+    saved = L.compute_dtype
+    L.compute_dtype = lambda device: torch.float32
+    try:
+        return fn()
+    finally:
+        L.compute_dtype = saved
+
+
+def _run_node(torch, DB, LO, graph, events, depth=None, fetch_every=None, timed=False):
+    """The port's runtime loop (``runtime.serve``) over an _OpNode of
+    ``events`` on a fresh executor of ``graph``, every launch counter zeroed
+    just before and read just after, the plain versions counted. With
+    ``timed`` (synchronous only) each tick's wall is kept. Returns (node,
+    wall s, launches, plain calls, tick walls)."""
+    from dora_tpu_torch.runtime import serve
+    from dora_tpu_torch.tpu.fuse import FusedExecutor
+
+    node = _OpNode(events)
+    executor = FusedExecutor(graph, pipeline_depth=depth, fetch_every=fetch_every)
+    ticks: list = []
+    if timed:
+        real_tick = executor.tick
+
+        def tick():
+            t = time.perf_counter()
+            out = real_tick()
+            ticks.append(time.perf_counter() - t)
+            return out
+
+        executor.tick = tick
+    plain_calls = _PlainCalls(DB, LO)
+    _reset_launches(DB, LO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        serve(node, executor)
+        torch.cuda.synchronize()
+    finally:
+        wall = time.perf_counter() - t0
+        launches = _launches(DB, LO)
+        plain_calls.restore()
+    return node, wall, launches, plain_calls.n, ticks
+
+
+def _same_sends(what: str, a, b) -> None:
+    """Two runs' sends equal bit for bit, in order."""
+    if len(a) != len(b):
+        raise Failed(f"{what}: {len(a)} sends against {len(b)}")
+    for i, ((ka, va, ma), (kb, vb, mb)) in enumerate(zip(a, b)):
+        if ka != kb or ma != mb or va.dtype != vb.dtype or va.tobytes() != vb.tobytes():
+            raise Failed(f"{what}: send {i} ({ka}) differs")
+
+
+def _device_busy(torch, fn, out_dir: str) -> str:
+    """``fn()`` under ``profiling.start_capture`` / ``stop_capture``; the
+    busy share is the union of its kernels' intervals in the Chrome trace
+    over the wall."""
+    import shutil
+
+    from dora_tpu_torch import profiling
+
+    err = profiling.start_capture(out_dir)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        wall = time.perf_counter() - t
+        artifact = profiling.stop_capture(out_dir, err)
+    try:
+        with open(os.path.join(artifact, "trace.json")) as f:
+            events = json.load(f).get("traceEvents", [])
+    except (OSError, NotADirectoryError, ValueError):
+        events = []
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "kernel" and "dur" in e)
+    if not spans:
+        return f"busy share not measured (the capture saw no kernel; wall {wall:.3f} s)"
+    busy = _union_us(spans)
+    return (f"busy share {busy / (wall * 1e6):.3f} ({len(spans)} kernels, {busy / 1e3:.1f} ms "
+            f"of kernel intervals' union in a traced wall of {wall:.3f} s)")
+
+
+def serve_operators(torch, DB, LO, L, smi: str, seed: int, scratch: str, dev: str = "cuda",
+                    whisper_hf=WHISPER_TURBO, w2v_hf=W2V2_SUPERB_SD, vlm_size: str = "bench",
+                    seconds=SPEECH_SECONDS) -> dict:
+    """Phase 16: the speech node, then the VLM node (:func:`speech_node`,
+    :func:`vlm_node`). Returns the VLM node's launches (greedy run and the
+    speculative one's attention_chunk_step)."""
+    speech_node(torch, DB, LO, L, smi, seed, scratch, dev, whisper_hf, w2v_hf, seconds)
+    torch.cuda.empty_cache()
+    launches = vlm_node(torch, DB, LO, L, smi, seed + 1, dev, vlm_size)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def speech_node(torch, DB, LO, L, smi: str, seed: int, scratch: str, dev: str,
+                whisper_hf: dict, w2v_hf: dict, seconds) -> None:
+    """Phase 16 (a): the port's runtime node of the speech-to-text example,
+    ``vad`` (Wav2Vec2 at ``w2v_hf``) and ``asr`` (Whisper at ``whisper_hf``),
+    each built by ``nodehub.ops`` from seeded tensors under the checkpoint's
+    names through ``map_params``, over SPEECH_UTTERANCES utterances, each
+    sent to both operators: every tick's tokens equal
+    ``whisper.make_serving_step`` called directly on the audio the tick
+    sampled, and its probability the VAD operator's; the greedy tokens held
+    to the f32 plain path by the near-tie rule, the probability within
+    VAD_PROB_TOL of its f32 run; the pipelined run (the default depth) and
+    ``DORA_FETCH_EVERY=4`` equal the synchronous one bit for bit; no kernel
+    of the 11 and no plain version runs."""
+    import numpy as np
+
+    from dora_tpu_torch.core.descriptor import Descriptor
+    from dora_tpu_torch.models.hf import wav2vec2, whisper
+    from dora_tpu_torch.nodehub import ops
+    from dora_tpu_torch.tpu.fuse import FusedGraph
+
+    wcfg = whisper.WhisperConfig.from_hf(whisper_hf)
+    vcfg = wav2vec2.Wav2Vec2Config.from_hf(w2v_hf)
+    t = time.perf_counter()
+    tensors = whisper_tensors(torch, wcfg, seed, dev)
+    n_asr = sum(v.numel() for v in tensors.values())
+    wparams = whisper.map_params(tensors, wcfg)
+    tensors = wav2vec2_tensors(torch, vcfg, seed + 1, dev)
+    n_vad = sum(v.numel() for v in tensors.values())
+    vparams = wav2vec2.map_params(tensors, vcfg)
+    del tensors
+    torch.cuda.synchronize()
+    print(f"operators (a) weights: Whisper {wcfg.enc_layers} + {wcfg.dec_layers} layers x "
+          f"{wcfg.dim} ({n_asr / 1e6:.1f} M), Wav2Vec2 {vcfg.layers} x {vcfg.dim} "
+          f"({n_vad / 1e6:.1f} M), seeded random under the checkpoints' names, through "
+          f"map_params in {time.perf_counter() - t:.2f} s [{smi}]", flush=True)
+    with _env(DORA_MAX_NEW_TOKENS=None, DORA_SPEC_DECODE=None):
+        vad_op = ops.wav2vec2_operator(vcfg, vparams)
+        asr_op = ops.whisper_operator(wcfg, wparams)
+    max_new = 32  # whisper_operator's default
+    desc = Descriptor.parse({"nodes": [
+        {"id": "microphone", "path": "module:dora_tpu.nodehub.microphone",
+         "outputs": ["audio"]},
+        {"id": "speech", "path": "module:dora_tpu_torch.runtime",
+         "args": ("--operator vad=dora_tpu_torch.nodehub.ops:make_vad "
+                  "--operator asr=dora_tpu_torch.nodehub.ops:make_asr"),
+         "inputs": {"vad/audio": {"source": "microphone/audio", "queue_size": 1},
+                    "asr/audio": {"source": "microphone/audio", "queue_size": 1}},
+         "outputs": ["vad/prob", "asr/tokens"]},
+        {"id": "printer", "path": "module:dora_tpu.nodehub.terminal_print",
+         "inputs": {"prob": "speech/vad/prob", "tokens": "speech/asr/tokens"}}]})
+    with _prebuilt({"dora_tpu_torch.nodehub.ops:make_vad": vad_op,
+                    "dora_tpu_torch.nodehub.ops:make_asr": asr_op}):
+        graph = FusedGraph.build(desc.node("speech"), desc, device=dev)
+    if graph.topo != ["asr", "vad"] or graph.external_outputs != {"vad/prob", "asr/tokens"}:
+        raise Failed(f"the speech node's graph is {graph.topo}, out {graph.external_outputs}")
+
+    rng = np.random.default_rng(seed)
+    lengths = np.linspace(*seconds, SPEECH_UTTERANCES) * 16000
+    audio = [(rng.normal(size=int(n)) * rng.uniform(0.02, 0.3)).astype(np.float32)
+             for n in lengths]
+    events = [_event(f"{op}/audio", a) for a in audio for op in ("vad", "asr")]
+    # event k (from 1) ticks on utterance k // 2 (VAD) and (k - 1) // 2 (ASR)
+    sampled = [(k // 2, (k - 1) // 2) for k in range(1, len(events))]
+
+    serve = whisper.make_serving_step(wcfg, max_new)
+    on_dev = [torch.from_numpy(a).to(dev) for a in audio]
+    ref_tok = [serve(wparams, a)[0] for a in on_dev]
+    ref_prob = [vad_op.step(vparams, {"audio": a})[1]["prob"] for a in on_dev]
+    torch.cuda.synchronize()
+
+    node, wall, launches, n_plain, ticks = _run_node(torch, DB, LO, graph, events, depth=0,
+                                                     timed=True)
+    got = [(node.sent[2 * j], node.sent[2 * j + 1]) for j in range(len(node.sent) // 2)]
+    if len(got) != len(sampled) or any(a[0] != "asr/tokens" or b[0] != "vad/prob"
+                                       for a, b in got):
+        raise Failed(f"the speech node sent {[s[0] for s in node.sent]}")
+    for j, ((_, tok, tmeta), (_, prob, pmeta)) in enumerate(got):
+        v, a = sampled[j]
+        if not np.array_equal(tok, ref_tok[a].cpu().numpy()) or tmeta["dtype"] != "int32":
+            raise Failed(f"speech tick {j}: the runtime's tokens differ from make_serving_step's "
+                         f"on utterance {a}")
+        if not np.array_equal(prob, ref_prob[v].cpu().numpy()) or pmeta["dtype"] != "float32":
+            raise Failed(f"speech tick {j}: the runtime's probability differs from the VAD "
+                         f"operator's on utterance {v}")
+    busy = [n for n, c in launches.items() if c]
+    print(f"operators (a) speech node: {len(ticks)} ticks over {SPEECH_UTTERANCES} utterances "
+          f"of {seconds[0]:.0f}-{seconds[1]:.0f} s, each tick's tokens and probability equal to "
+          f"make_serving_step's and the VAD operator's called directly; launches of the 11 "
+          f"kernels {json.dumps({n: launches[n] for n in sorted(launches)})} (nonzero: "
+          f"{busy or 'none'}), plain calls {n_plain} [{smi}]", flush=True)
+    if busy or n_plain:
+        raise Failed("the speech node ran a kernel or a plain version of the 11")
+    ticks_ms = [1e3 * x for x in ticks]
+    print(f"operators (a) speech node, synchronous: wall {wall:.3f} s, "
+          f"{wall / SPEECH_UTTERANCES:.3f} s an utterance ({len(ticks)} ticks: ASR {max_new} "
+          f"tokens and VAD a tick); tick wall p50 {_pct(ticks_ms, 50):.1f} ms, p99 "
+          f"{_pct(ticks_ms, 99):.1f} ms, max {max(ticks_ms):.1f} ms [{smi}]", flush=True)
+
+    for what, depth, every in (("pipelined (default depth)", None, None),
+                               ("DORA_FETCH_EVERY=4", None, "4")):
+        with _env(DORA_PIPELINE_DEPTH=None, DORA_FETCH_EVERY=every):
+            pnode, pwall, _, _, _ = _run_node(torch, DB, LO, graph, events, depth, None)
+        _same_sends(f"speech node {what}", pnode.sent, node.sent)
+        print(f"operators (a) speech node, {what}: the same {len(pnode.sent)} sends bit for "
+              f"bit in tick order; wall {pwall:.3f} s against {wall:.3f} s synchronous; "
+              f"{pnode.wakes} wakes [{smi}]", flush=True)
+
+    # the near-tie rule against the f32 plain path, and the VAD's f32 run
+    feats = [whisper.log_mel_traced(a[None].float(), wcfg.n_mels,
+                                    n_samples=wcfg.max_source * 320) for a in on_dev]
+    parts, worst = [], 0.0
+    forced = torch.full((1, 1), wcfg.decoder_start_token, dtype=torch.int32, device=dev)
+    for u in range(SPEECH_UTTERANCES):
+        served = ref_tok[u].tolist()
+        ref32 = _f32(torch, L, lambda: serve(wparams, on_dev[u]))[0].tolist()
+        t_part = _first_parting(served, ref32, max_new)
+        parts.append(t_part)
+        if t_part < max_new:
+            ids = torch.cat([forced, torch.tensor([served[:t_part]], dtype=torch.int32,
+                                                  device=dev)], dim=1)
+            lf = _f32(torch, L, lambda: whisper.decoder_logits(
+                wparams, wcfg, whisper.encode(wparams, wcfg, feats[u]), ids))[0, -1]
+            top = float(lf.max())
+            da, db = top - float(lf[served[t_part]]), top - float(lf[ref32[t_part]])
+            print(f"operators (a) asr utterance {u}: parts from the f32 plain path at token "
+                  f"{t_part} ({served[t_part]} against {ref32[t_part]}): the served token "
+                  f"{da:.4e} and the f32 one {db:.4e} below the f32 maximum (bound {NEAR_TIE}) "
+                  f"[{smi}]", flush=True)
+            if not (da <= NEAR_TIE and db <= NEAR_TIE):
+                raise Failed(f"speech utterance {u} parts from the f32 path away from a near-tie")
+        p32 = _f32(torch, L, lambda: vad_op.step(vparams, {"audio": on_dev[u]})[1]["prob"])
+        worst = max(worst, float((ref_prob[u] - p32).abs().max()))
+    print(f"operators (a) agreement: ASR greedy against the f32 plain path, first parting at "
+          f"{parts} of {max_new}; VAD bf16 against f32: max |dprob| {worst:.3e} (bound "
+          f"{VAD_PROB_TOL}); probabilities {[round(float(p), 4) for p in ref_prob]} [{smi}]",
+          flush=True)
+    if worst > VAD_PROB_TOL:
+        raise Failed(f"the VAD's bf16 probability is {worst:.3e} from its f32 run")
+    long_utt = [_event("vad/audio", audio[-1]), _event("asr/audio", audio[-1])]
+    share = _device_busy(torch, lambda: _run_node(torch, DB, LO, graph, long_utt, depth=0),
+                         os.path.join(scratch, f"trace-speech-{os.getpid()}"))
+    print(f"operators (a) device plane: one tick on the {seconds[1]:.0f} s utterance under "
+          f"profiling.start_capture: {share} [{smi}]", flush=True)
+
+
+def vlm_node(torch, DB, LO, L, smi: str, seed: int, dev: str, size: str) -> dict:
+    """Phase 16 (b): the port's runtime node of the VLM example, ``op`` =
+    ``nodehub.ops.make_vlm`` under ``DORA_MODEL_SIZE=bench`` (bench_2b) and
+    ``DORA_INT8_DECODE=1``, its image input sampled latest-wins and ticked
+    by a timer: VLM_FRAMES seeded uint8 frames with ticks after
+    VLM_TICK_AFTER; every tick takes the latest frame and its tokens equal
+    ``vlm.generate`` on that frame; the launches exact (kernels 11, 7, 9, 1
+    and 2) with no plain version; then ``DORA_SPEC_DECODE=1`` through the
+    operator the factory makes under it: tokens equal ``vlm.generate_speculative``,
+    kernel 10 a verify pass; frames per second pipelined against
+    synchronous."""
+    import numpy as np
+
+    from dora_tpu_torch.core.descriptor import Descriptor
+    from dora_tpu_torch.models import tokenizer, vlm
+    from dora_tpu_torch.nodehub import ops
+    from dora_tpu_torch.tpu.fuse import FusedGraph
+
+    desc = Descriptor.parse({"nodes": [
+        {"id": "camera", "path": "module:dora_tpu.nodehub.camera", "outputs": ["image"]},
+        {"id": "vlm", "path": "module:dora_tpu_torch.runtime",
+         "args": "--operator op=dora_tpu_torch.nodehub.ops:make_vlm",
+         "inputs": {"op/image": {"source": "camera/image", "queue_size": 1},
+                    "op/tick": "dora/timer/millis/100"},
+         "outputs": ["op/tokens"]},
+        {"id": "printer", "path": "module:dora_tpu.nodehub.terminal_print",
+         "inputs": {"tokens": "vlm/op/tokens"}}]})
+    t = time.perf_counter()
+    knobs = dict(DORA_MODEL_SIZE=size, DORA_INT8_DECODE="1", DORA_INT4_DECODE=None,
+                 DORA_INT8_PURE=None, DORA_SPEC_DECODE=None, DORA_MAX_NEW_TOKENS=None,
+                 DORA_PROMPT=None, DORA_CHECKPOINT=None, DORA_HF_CHECKPOINT=None,
+                 DORA_PARAM_DTYPE=None, DORA_MESH=None)
+    with _env(**knobs):
+        graph = FusedGraph.build(desc.node("vlm"), desc, device=dev)
+    torch.cuda.synchronize()
+    cfg = vlm.VLMConfig.bench_2b() if size != "tiny" else vlm.VLMConfig.tiny()
+    params = graph.operators["op"].init_state
+    if graph.trigger_inputs != {"op/tick"} or graph.timer_inputs != {"op/tick"}:
+        raise Failed(f"the VLM node's triggers are {graph.trigger_inputs}")
+    print(f"operators (b) VLM node: make_vlm built {cfg.vision_layers}-layer ViT + "
+          f"{cfg.layers}-layer LM (DORA_MODEL_SIZE={size}, DORA_INT8_DECODE=1) in "
+          f"{time.perf_counter() - t:.2f} s [{smi}]", flush=True)
+    max_new = 16  # make_vlm's default
+    prompt = torch.tensor([[x % cfg.vocab for x in tokenizer.encode("describe")]],
+                          dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(seed)
+    frames = [rng.integers(0, 256, size=(cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+              for _ in range(VLM_FRAMES)]
+    events = []
+    for i, f in enumerate(frames):
+        events.append(_event("op/image", f))
+        if i in VLM_TICK_AFTER:
+            events.append(_event("op/tick"))
+    images = {i: (torch.from_numpy(frames[i]).to(dev).float() / 255.0)[None]
+              for i in VLM_TICK_AFTER}
+    ref = {i: vlm.generate(params, cfg, images[i], prompt, max_new)[0].cpu().numpy()
+           for i in VLM_TICK_AFTER}
+    if len({r.tobytes() for r in ref.values()}) < 2:
+        print("operators (b): every frame gives the same tokens; the latest-wins check rests "
+              "on the sampled frames' sums", flush=True)
+
+    sums = []
+    step = graph.operators["op"].step
+
+    def recording(state, inputs):
+        sums.append(int(inputs["image"].long().sum()))
+        return step(state, inputs)
+
+    graph.operators["op"].step = recording
+    try:
+        node, wall, launches, n_plain, ticks = _run_node(torch, DB, LO, graph, events, depth=0,
+                                                         timed=True)
+    finally:
+        graph.operators["op"].step = step
+    want_sums = [int(frames[i].astype(np.int64).sum()) for i in VLM_TICK_AFTER]
+    if sums != want_sums:
+        raise Failed(f"the VLM node's ticks sampled frame sums {sums}, not the latest frames' "
+                     f"{want_sums}")
+    for j, i in enumerate(VLM_TICK_AFTER):
+        if not np.array_equal(node.sent[j][1], ref[i]):
+            raise Failed(f"VLM tick {j}: tokens differ from vlm.generate on frame {i}")
+    n = len(VLM_TICK_AFTER)
+    steps = n * (max_new - 1)
+    # the prefill's head on one row; a prefill of at most 32 rows (not at
+    # bench_2b's 265) also takes the four fused weights of every layer
+    per_prefill = 1 + (4 * cfg.layers if cfg.n_patches + prompt.shape[1] <= L.MATVEC_MAX_ROWS
+                       else 0)
+    got = {k: c for k, c in launches.items() if c}
+    want = {"flash_attention": n * cfg.vision_layers, "int8_matmul": n * per_prefill,
+            "attention_step": cfg.layers * steps, "mlp_step": cfg.layers * steps,
+            "lm_head_argmax": steps}
+    print(f"operators (b) VLM node greedy: {n} ticks took frames {list(VLM_TICK_AFTER)} (the "
+          f"latest of each burst), tokens equal vlm.generate's; launches {json.dumps(got)}; "
+          f"plain calls {n_plain} [{smi}]", flush=True)
+    if got != want or n_plain:
+        raise Failed(f"the VLM node launched {got} with {n_plain} plain calls, expected {want}")
+
+    walls = {"synchronous": [wall], "pipelined": []}
+    for depth, what in ((None, "pipelined"), (None, "pipelined"), (0, "synchronous")):
+        with _env(DORA_PIPELINE_DEPTH=None, DORA_FETCH_EVERY=None):
+            pnode, pwall, _, _, _ = _run_node(torch, DB, LO, graph, events, depth, None)
+        _same_sends(f"VLM node {what}", pnode.sent, node.sent)
+        walls[what].append(pwall)
+    ticks_ms = [1e3 * x for x in ticks]
+    fps = {k: [round(n / w, 3) for w in v] for k, v in walls.items()}
+    print(f"operators (b) VLM node: frames per second (ticks a second) synchronous "
+          f"{fps['synchronous']}, pipelined (depth 4) {fps['pipelined']}, every run's tokens "
+          f"bit for bit the first's; tick wall p50 {_pct(ticks_ms, 50):.1f} ms, p99 "
+          f"{_pct(ticks_ms, 99):.1f} ms ({max_new} tokens a tick) [{smi}]", flush=True)
+
+    # DORA_SPEC_DECODE=1: the operator the factory builds under it
+    with _env(**{**knobs, "DORA_SPEC_DECODE": "1"}):
+        spec_op = ops.vlm_operator(cfg, params)
+    ref_spec = {i: vlm.generate_speculative(params, cfg, images[i], prompt, max_new)[0][0]
+                .cpu().numpy() for i in VLM_TICK_AFTER}
+    verify = [0]
+    real_chunk = vlm.decode_chunk_fused
+
+    def counted(*a, **k):
+        verify[0] += 1
+        return real_chunk(*a, **k)
+
+    greedy_op = graph.operators["op"]
+    graph.operators["op"] = spec_op
+    vlm.decode_chunk_fused = counted
+    try:
+        snode, swall, s_launches, s_plain, _ = _run_node(torch, DB, LO, graph, events, depth=0)
+    finally:
+        vlm.decode_chunk_fused = real_chunk
+        graph.operators["op"] = greedy_op
+    for j, i in enumerate(VLM_TICK_AFTER):
+        if not np.array_equal(snode.sent[j][1], ref_spec[i]):
+            raise Failed(f"VLM spec tick {j}: tokens differ from vlm.generate_speculative")
+    got = {k: c for k, c in s_launches.items() if c}
+    v = verify[0]
+    want = {"flash_attention": n * cfg.vision_layers, "int8_matmul": n * per_prefill,
+            "attention_chunk_step": cfg.layers * v, "mlp_step": cfg.layers * v,
+            "lm_head_argmax": v}
+    same = sum(int(np.array_equal(ref_spec[i], ref[i])) for i in VLM_TICK_AFTER)
+    print(f"operators (b) VLM node DORA_SPEC_DECODE=1: tokens equal vlm.generate_speculative's "
+          f"({same} of {n} ticks equal greedy's); {v} verify passes, {n * max_new / v:.3f} "
+          f"tokens a pass; launches {json.dumps(got)}; plain calls {s_plain}; wall {swall:.3f} s "
+          f"({n / swall:.3f} frames a second) [{smi}]", flush=True)
+    if got != want or s_plain:
+        raise Failed(f"the speculative VLM node launched {got}, expected {want}")
+    return {**launches, "attention_chunk_step": s_launches["attention_chunk_step"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch/CUDA port")
     ap.add_argument("--layers", type=int, default=28, help="model depth (width stays)")
@@ -4853,6 +5447,9 @@ def main(argv=None) -> int:
                     help="build, then only phase 3's kernel checks (prints no result line)")
     ap.add_argument("--hf-vlm", action="store_true",
                     help="build, then only phase 15: the HF vision-language families "
+                         "(prints no result line)")
+    ap.add_argument("--operators", action="store_true",
+                    help="build, then only phase 16: the operator tier's speech and VLM nodes "
                          "(prints no result line)")
     ap.add_argument("--paths", action="store_true",
                     help="build, then only phases 4, 6, 9 and 10, phase 12's main path and the "
@@ -4926,6 +5523,12 @@ def main(argv=None) -> int:
         if args.hf_vlm:
             serve_hf_vlms(torch, DB, LO, IM, L, qwen2, serve_prompts, args.seed)
             return 0
+        scratch = os.path.join(here, "_scratch")
+        os.makedirs(scratch, exist_ok=True)
+        if args.operators:
+            del params, params4
+            serve_operators(torch, DB, LO, L, smi, args.seed + 40, scratch)
+            return 0
         if args.paths:  # phases 4, 6, 9, 10 and 12's main path and the VLM's generate alone
             _, _, slice_times = serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg,
                                             prompts, args.max_new, args.seed + 20)
@@ -4976,8 +5579,6 @@ def main(argv=None) -> int:
             "attention_paged_spec_step"]
         check_spec_agreement(paths, spec_prompts, args.max_new, spec_served, picks=(1, 15))
 
-        scratch = os.path.join(here, "_scratch")
-        os.makedirs(scratch, exist_ok=True)
         with tempfile.TemporaryDirectory(prefix="adapters-", dir=scratch) as lora_dir:
             write_adapters(cfg, lora_dir, args.seed + 4)
             build, t_prompts, t_served, t_launches = serve_multi_tenant(
@@ -5048,6 +5649,8 @@ def main(argv=None) -> int:
         serve_recovery(torch, DB, LO, make_engine, paths, params, cfg, prompts, args.max_new,
                        served, n_engine, rate_13a, smi, os.path.join(here, "_scratch"))
         serve_hf_vlms(torch, DB, LO, IM, L, qwen2, serve_prompts, args.seed)
+        del paths, params
+        serve_operators(torch, DB, LO, L, smi, args.seed + 40, scratch)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

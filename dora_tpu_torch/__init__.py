@@ -12,7 +12,11 @@ node that the JAX package's daemon spawns and runs unchanged, speaking its
 wire byte for byte through the port's copies of the node API (``node/``),
 the message codec (``message/``), the clock, the framing and the
 shared-memory layer (``native.py`` over ``csrc/shmem.cpp``), with the
-trace, metrics and fleet planes the node reports through.
+trace, metrics and fleet planes the node reports through. Its operator
+tier (``runtime/``, ``tpu/``: a runtime node hosting torch operators, the
+counterpart of ``python -m dora_tpu.runtime``) runs the model-zoo factories
+of ``nodehub/ops.py`` (the VLMs, Whisper and the ASR, Wav2Vec2 and the VAD)
+as dataflow operators.
 
 Rules the package keeps:
 

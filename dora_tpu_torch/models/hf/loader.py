@@ -52,3 +52,12 @@ def maybe_bias(params: dict, key: str, tensors: dict, name: str) -> None:
     """Attach a bias parameter when the checkpoint has one."""
     if name in tensors:
         params[key] = tensors[name]
+
+
+def to_device(tree, device) -> dict:
+    """A parameter tree (nested dicts of tensors) as f32 on ``device``:
+    checkpoints saved in f16 or bf16 widen exactly; each model casts to its
+    compute dtype where it multiplies."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device=device, dtype=torch.float32)

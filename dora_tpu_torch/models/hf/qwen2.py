@@ -213,15 +213,18 @@ def quantize_decode(params, cfg: Qwen2Config) -> dict:
     return out
 
 
-def params_from_jax(tree, device=None) -> dict:
-    """The JAX package's parameter tree (arrays or numpy arrays, quantized
-    dicts and their ``bf16`` sidecars included) as this package's tensors on
-    ``device`` (default cuda), bit for bit."""
+def params_from_jax(tree, device=None):
+    """The JAX package's parameter tree (arrays or numpy arrays in dicts,
+    tuples and lists, quantized dicts and their ``bf16`` sidecars included,
+    e.g. the VAD's ``(params, h0)`` state) as this package's tensors on
+    ``device`` (default cuda), bit for bit, in the same containers."""
     dev = resolve_device(device)
 
     def conv(v):
         if isinstance(v, dict):
             return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, (tuple, list)):
+            return type(v)(conv(x) for x in v)
         a = np.array(v)
         if a.dtype.name == "bfloat16":  # numpy's bf16 extension type: move the bits
             return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)

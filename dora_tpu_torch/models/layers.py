@@ -17,10 +17,11 @@ reference's einsum with an f32 softmax, rounded where the reference rounds
 (no fused SDPA), or, for the no-cache self-attention paths that ask for it
 (``flash="full"`` / ``"causal"``), flash attention (ops/flash_attention.py:
 the hand-written kernel on the card), which ``use_flash`` turns on by
-default on the card (``DORA_FLASH_ATTENTION`` overrides it either way). The
-ring and ulysses variants and the LayerNorm / GELU block layouts (ViT,
-Whisper) are not ported: their arguments raise (the HF vision towers call
-``layer_norm`` and their own MLPs directly).
+default on the card (``DORA_FLASH_ATTENTION`` overrides it either way).
+The block takes both pre-norm layouts pretrained checkpoints use,
+``norm="rms"`` + ``mlp="swiglu"`` (Qwen2) and ``norm="ln"`` + ``mlp="gelu"``
+with full biases (ViT, Whisper). The ring and ulysses variants are not
+ported: their arguments raise.
 """
 
 from __future__ import annotations
@@ -61,11 +62,21 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (xf * weight.float() + bias.float()).to(dtype)
 
 
-def _not_ported(norm="rms", mlp="swiglu", **variants) -> None:
-    if norm != "rms" or mlp != "swiglu" or any(v is not None for v in variants.values()):
+def _not_ported(**variants) -> None:
+    if any(v is not None for v in variants.values()):
         raise NotImplementedError(
-            "only the RMSNorm + SwiGLU block with dense or flash attention is ported "
-            f"(got norm={norm!r}, mlp={mlp!r}, {variants})")
+            "the block runs dense or flash attention on one device; the mesh, ring and "
+            f"ulysses variants are not ported (got {variants})")
+
+
+def _norm(x, params, prefix: str, kind: str, eps: float):
+    """The block's pre-norm: RMSNorm (weight only) or, for ``kind`` "ln",
+    LayerNorm (weight and ``<prefix>_b`` bias)."""
+    if kind == "ln":
+        return layer_norm(x, params[prefix], params[prefix + "_b"], eps)
+    if kind != "rms":
+        raise ValueError(f"unknown norm {kind!r} (rms | ln)")
+    return rms_norm(x, params[prefix], eps)
 
 
 def matmul(x, w):
@@ -207,13 +218,13 @@ def attention_sublayer(params, x, n_heads, *, n_kv_heads=None, rope=None,
     through ops/flash_attention.py instead of the einsum under ``mask``:
     only valid where the mask the caller would pass is exactly that pattern
     (with a cache it is ignored, as in the reference)."""
-    _not_ported(norm, mesh=mesh, ring_axis=ring_axis, sp_impl=sp_impl)
+    _not_ported(mesh=mesh, ring_axis=ring_axis, sp_impl=sp_impl)
     b, t, dim = x.shape
     n_kv = n_kv_heads or n_heads
     head_dim = head_dim or dim // n_heads
     dtype = x.dtype
 
-    h = rms_norm(x, params["attn_norm"], norm_eps)
+    h = _norm(x, params, "attn_norm", norm, norm_eps)
     if "wqkv" in params:
         qkv = dense(h, params, "wqkv", "bqkv")
         q, k, v = qkv.split([n_heads * head_dim, n_kv * head_dim, n_kv * head_dim], dim=-1)
@@ -261,9 +272,14 @@ def attention_sublayer(params, x, n_heads, *, n_kv_heads=None, rope=None,
 
 
 def mlp_sublayer(params, x, *, norm="rms", mlp="swiglu", norm_eps=1e-6):
-    """Pre-norm SwiGLU feed-forward with residual."""
-    _not_ported(norm, mlp)
-    h = rms_norm(x, params["ffn_norm"], norm_eps)
+    """Pre-norm feed-forward with residual: SwiGLU, or for ``mlp`` "gelu"
+    the exact (erf) GELU between biased up and down projections."""
+    h = _norm(x, params, "ffn_norm", norm, norm_eps)
+    if mlp == "gelu":
+        up = torch.nn.functional.gelu(dense(h, params, "w_up", "b_up"))
+        return x + dense(up, params, "w_down", "b_down")
+    if mlp != "swiglu":
+        raise ValueError(f"unknown mlp {mlp!r} (swiglu | gelu)")
     if "w_gateup" in params:  # decode-fused (see quantize_tree)
         gate, up = dense(h, params, "w_gateup", "b_gateup").chunk(2, dim=-1)
         gate = torch.nn.functional.silu(gate)

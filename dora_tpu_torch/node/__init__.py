@@ -199,6 +199,11 @@ class Node:
 
     next = recv
 
+    def wake(self) -> None:
+        """Unpark a parked :meth:`recv` with a ``WAKE`` event (thread-safe;
+        the operator runtime's pipelined loop calls it when a fetch ends)."""
+        self._events.wake()
+
     @property
     def stream_ended(self) -> bool:
         return self._events.ended

@@ -1,12 +1,13 @@
 """Node-side events: the Event object and the thread that pumps the
 daemon's blocking NextEvent loop (dora_tpu/node/events.py, without the
-peer-to-peer edges and the runtime's wake-up).
+peer-to-peer edges).
 
 ``event["type"]`` is one of INPUT, INPUT_CLOSED, STOP, RELOAD, MIGRATE,
-PROFILE and ERROR; an input's ``value`` is an Arrow array (read without a
-copy, from shared memory when large) or, for raw payloads, bytes or a view
-of the mapped region. A shared-memory payload is acknowledged to its sender
-when the user drops the event."""
+PROFILE and ERROR, and WAKE for the operator runtime
+(:meth:`EventStream.wake`); an input's ``value`` is an Arrow array (read
+without a copy, from shared memory when large) or, for raw payloads, bytes
+or a view of the mapped region. A shared-memory payload is acknowledged to
+its sender when the user drops the event."""
 
 from __future__ import annotations
 
@@ -95,7 +96,11 @@ class EventStream:
         if not self._eos.is_set():
             return False
         with self._queue.mutex:
-            return all(item is None for item in self._queue.queue)
+            return all(item is None or item is self.WAKE for item in self._queue.queue)
+
+    #: queued by :meth:`wake`; surfaces from :meth:`recv` as a WAKE event,
+    #: which iteration skips (only the operator runtime's loop wakes itself)
+    WAKE = Event(type="WAKE")
 
     def recv(self, timeout: float | None = None) -> Event | None:
         """Next event; None when the stream ended or ``timeout`` expired."""
@@ -110,11 +115,22 @@ class EventStream:
             return None
         return item
 
+    def wake(self) -> None:
+        """Unpark a ``recv(None)`` parked on an empty queue (the operator
+        runtime's fetch-completion callback calls it from a worker thread).
+        Lossy by design: with the queue full, recv is not parked."""
+        try:
+            self._queue.put_nowait(self.WAKE)
+        except queue_mod.Full:
+            pass
+
     def __iter__(self):
         while True:
             event = self.recv()
             if event is None:
                 return
+            if event is self.WAKE:
+                continue
             yield event
 
     def close(self) -> None:

@@ -33,9 +33,14 @@ def test_port_imports_no_jax_and_no_dora_tpu():
         "        'dora_tpu_torch.node.arrow', 'dora_tpu_torch.node.channels',\n"
         "        'dora_tpu_torch.node.events', 'dora_tpu_torch.models.checkpoint',\n"
         "        'dora_tpu_torch.models.hf.qwen2_vl',\n"
-        "        'dora_tpu_torch.models.hf.internvl'} <= set(names)\n"
+        "        'dora_tpu_torch.models.hf.internvl', 'dora_tpu_torch.runtime',\n"
+        "        'dora_tpu_torch.tpu.api', 'dora_tpu_torch.tpu.bridge', 'dora_tpu_torch.tpu.fuse',\n"
+        "        'dora_tpu_torch.core.config', 'dora_tpu_torch.core.descriptor',\n"
+        "        'dora_tpu_torch.models.hf.whisper', 'dora_tpu_torch.models.asr',\n"
+        "        'dora_tpu_torch.models.hf.wav2vec2', 'dora_tpu_torch.models.vad'} <= set(names)\n"
         "from dora_tpu_torch.models import tokenizer, vlm\n"
         "from dora_tpu_torch.nodehub import ops\n"
+        "assert all(callable(getattr(ops, f)) for f in ('make_vlm', 'make_asr', 'make_vad'))\n"
         "from dora_tpu_torch.ops import flash_attention\n"
         "assert callable(tokenizer.BPETokenizer) and callable(ops._hf_tokenizer)\n"
         "assert callable(flash_attention.flash_attention) and callable(vlm.generate_speculative)\n"
