@@ -184,7 +184,29 @@ Phases, each printed on its own line:
    takes the latest frame, its tokens equal ``vlm.generate``'s, the launches
    exact (kernels 11, 7, 9, 1, 2) with no plain version; frames a second
    pipelined against synchronous; then ``DORA_SPEC_DECODE=1``: tokens equal
-   ``vlm.generate_speculative``'s, kernel 10 a verify pass.
+   ``vlm.generate_speculative``'s, kernel 10 a verify pass;
+17. the hub models (``hub`` lines), none of which reaches one of the 11
+   kernels (each run asserts no launch and no plain version): (a) the yolo
+   example's node, ``make_detector`` at ``DORA_MODEL_SIZE=bench`` (640 x
+   640) and then its YOLOS branch at hustvl/yolos-small's widths
+   (YOLOS_SMALL, 800 x 1333), each over eight seeded frames: every tick's
+   boxes, classes and scores equal to the operator's step called directly,
+   the pipelined run bit for bit the synchronous one, the classes of the
+   detections the f32 plain path keeps equal to the served bf16 ones but at
+   near-ties (f32 top two within NEAR_TIE), the heads' logits within
+   VIT_REL_RMS (rel RMS) of f32 as phase 15 holds a vision tower, the
+   scores' and boxes' errors stated; (b) the translation
+   example's nodes: ``make_translator`` into ``make_tts`` at
+   ``DORA_MODEL_SIZE=bench``, the port's Opus node
+   (``nodehub.translator.serve``) at Helsinki-NLP/opus-mt-en-de's widths
+   (OPUS_MT_EN_DE) greedy and speculative, and ``make_tts``'s VITS branch at
+   facebook/mms-tts-eng's (MMS_TTS_ENG, noise_scale 0), over eight seeded
+   sentences of 10-200 characters: ticks against direct calls, translator
+   tokens held to the f32 plain path by the near-tie rule, speculative
+   tokens equal to greedy ones, VITS's durations equal to the f32 plain
+   path's (and how many TF32 would move), the waveforms' rel RMS; tick
+   wall p50 / p99, frames or tokens a second, ms a sentence, audio seconds
+   a wall second and the device busy share.
 
 Phase 3 also holds the int4 forms of kernels 1-5 and 8-10 against their
 plain versions on phase 12's int4 weights at the main paths' shapes (with
@@ -229,7 +251,8 @@ phase 3, ``--breakdown`` runs only kernel 6's lines and the ``breakdown``,
 and 10, phase 12's main path and the VLM's ``generate`` (prefill chunk, window, spec-on window,
 dense step and its short prompts' TTFT, batch-1 prefill, ``run_loop``
 pass, VLM step and ViT times; the windows and the dense step graphed and
-eager), ``--hf-vlm`` only phase 15 and ``--operators`` only phase 16, all
+eager), ``--hf-vlm`` only phase 15, ``--operators`` only phase 16 and
+``--hub`` only phase 17, all
 without the result line.
 
 Phases 4, 6, 8 and 9 build their engines through the normal factories,
@@ -5015,6 +5038,9 @@ class _OpNode:
 
         self.sent.append((output_id, np.array(data), dict(metadata or {})))
 
+    def __iter__(self):  # a node loop that iterates (nodehub.translator.serve)
+        return iter(self.recv, None)
+
 
 def _event(event_id: str, value=None) -> dict:
     return {"type": "INPUT", "id": event_id, "value": value, "metadata": {}}
@@ -5433,6 +5459,877 @@ def vlm_node(torch, DB, LO, L, smi: str, seed: int, dev: str, size: str) -> dict
     return {**launches, "attention_chunk_step": s_launches["attention_chunk_step"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the hub models, the yolo and translation dataflows' nodes
+# ---------------------------------------------------------------------------
+
+#: hustvl/yolos-small's widths (DeiT-S; the keys YolosConfig.from_hf reads) at
+#: its 800 x 1333 input, without mid-position embeddings
+YOLOS_SMALL = {
+    "hidden_size": 384, "num_hidden_layers": 12, "num_attention_heads": 6,
+    "intermediate_size": 1536, "image_size": [800, 1333], "patch_size": 16,
+    "num_detection_tokens": 100, "num_labels": 91, "layer_norm_eps": 1e-12,
+    "use_mid_position_embeddings": False,
+}
+#: Helsinki-NLP/opus-mt-en-de's widths (the keys MarianConfig.from_hf reads)
+OPUS_MT_EN_DE = {
+    "vocab_size": 58101, "d_model": 512, "encoder_layers": 6, "decoder_layers": 6,
+    "encoder_attention_heads": 8, "encoder_ffn_dim": 2048, "max_position_embeddings": 512,
+    "pad_token_id": 58100, "eos_token_id": 0, "decoder_start_token_id": 58100,
+    "scale_embedding": True, "activation_function": "swish", "forced_eos_token_id": 0,
+}
+#: facebook/mms-tts-eng's widths: transformers.VitsConfig()'s defaults (the
+#: keys VitsConfig.from_hf reads)
+MMS_TTS_ENG = {
+    "vocab_size": 38, "hidden_size": 192, "num_hidden_layers": 6, "num_attention_heads": 2,
+    "ffn_dim": 768, "ffn_kernel_size": 3, "window_size": 4, "flow_size": 192,
+    "spectrogram_bins": 513, "duration_predictor_kernel_size": 3,
+    "duration_predictor_filter_channels": 256, "use_stochastic_duration_prediction": True,
+    "duration_predictor_num_flows": 4, "duration_predictor_flow_bins": 10,
+    "duration_predictor_tail_bound": 5.0, "depth_separable_num_layers": 3,
+    "depth_separable_channels": 2, "prior_encoder_num_flows": 4,
+    "prior_encoder_num_wavenet_layers": 4, "wavenet_kernel_size": 5,
+    "wavenet_dilation_rate": 1, "upsample_initial_channel": 512, "upsample_rates": [8, 8, 2, 2],
+    "upsample_kernel_sizes": [16, 16, 4, 4], "resblock_kernel_sizes": [3, 7, 11],
+    "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]], "leaky_relu_slope": 0.1,
+    "layer_norm_eps": 1e-5, "speaking_rate": 1.0, "noise_scale": 0.667,
+    "noise_scale_duration": 0.8, "num_speakers": 1, "speaker_embedding_size": 0,
+    "sampling_rate": 16000,
+}
+#: the detector nodes' frames, and the translation nodes' sentences (10 to
+#: 200 characters of HUB_WORDS, a few of them unknown to the fabricated
+#: sentencepiece model)
+HUB_FRAMES = 8
+HUB_SENTENCES = 8
+SENTENCE_CHARS = (10, 200)
+HUB_WORDS = ("the", "cat", "sat", "on", "a", "mat", "dog", "ran", "to", "green", "house",
+             "river", "city", "when", "we", "left", "in", "morning", "train", "was", "late",
+             "quickly", "zebra", "xylophone")
+#: the fabricated VITS vocabulary: pad 0, then these 37 characters
+VITS_CHARS = " abcdefghijklmnopqrstuvwxyz'-.,?!0123"
+#: YOLOS's class head at He scale (std sqrt(2 / dim)) and its last layer at
+#: this std, so that the seeded class probabilities spread: with every layer
+#: at 0.02 each slot's probabilities are near-ties of each other (~1 / 92)
+CLASS_HEAD_STD = 0.3
+#: the self-contained detector's seeded objectness and class logits sit near
+#: 0 (every score near the 0.25 threshold, every class a near-tie): its
+#: heads' output kernels' logit rows are scaled to this logit std on the
+#: first frame
+DETECT_LOGIT_STD = 2.0
+
+
+def _normal_gen(torch, seed: int, dev: str):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape, std=0.02):
+        return torch.randn(*shape, generator=gen, device=dev) * std
+
+    return normal
+
+
+def _ln_tensors(torch, name: str, d: int, dev: str) -> dict:
+    return {name + ".weight": torch.ones(d, device=dev), name + ".bias": torch.zeros(d, device=dev)}
+
+
+def yolos_tensors(torch, cfg, seed: int, dev: str = "cuda") -> dict:
+    """Seeded random tensors of a YolosForObjectDetection checkpoint at
+    ``cfg``'s shapes, under its names ([out, in] linears, the [dim, 3, ps,
+    ps] patch conv): normal (std 0.02), the class head as CLASS_HEAD_STD
+    says, norm weights one and biases zero."""
+    normal = _normal_gen(torch, seed, dev)
+    d, f = cfg.dim, cfg.ffn
+    emb = "vit.embeddings."
+    t = {emb + "cls_token": normal(1, 1, d), emb + "detection_tokens": normal(1, cfg.n_det, d),
+         emb + "position_embeddings": normal(1, 1 + cfg.n_patches + cfg.n_det, d),
+         emb + "patch_embeddings.projection.weight": normal(d, 3, cfg.patch_size,
+                                                            cfg.patch_size),
+         emb + "patch_embeddings.projection.bias": normal(d),
+         **_ln_tensors(torch, "vit.layernorm", d, dev)}
+    for i in range(cfg.layers):
+        p = f"vit.encoder.layer.{i}."
+        for n in ("query", "key", "value"):
+            t[f"{p}attention.attention.{n}.weight"] = normal(d, d)
+            t[f"{p}attention.attention.{n}.bias"] = normal(d)
+        t.update({p + "attention.output.dense.weight": normal(d, d),
+                  p + "attention.output.dense.bias": normal(d),
+                  p + "intermediate.dense.weight": normal(f, d),
+                  p + "intermediate.dense.bias": normal(f),
+                  p + "output.dense.weight": normal(d, f), p + "output.dense.bias": normal(d),
+                  **_ln_tensors(torch, p + "layernorm_before", d, dev),
+                  **_ln_tensors(torch, p + "layernorm_after", d, dev)})
+    if cfg.use_mid_pos:
+        t["vit.encoder.mid_position_embeddings"] = normal(cfg.layers - 1, 1,
+                                                          1 + cfg.n_patches + cfg.n_det, d)
+    he = (2 / d) ** 0.5
+    for head, stds in (("class_labels_classifier", (he, he, CLASS_HEAD_STD)),
+                       ("bbox_predictor", (0.02, 0.02, 0.02))):
+        for i, (o, std) in enumerate(zip((d, d, cfg.n_labels + 1 if stds[0] == he else 4),
+                                         stds)):
+            t[f"{head}.layers.{i}.weight"] = normal(o, d, std=std)
+            t[f"{head}.layers.{i}.bias"] = normal(o)
+    return t
+
+
+def marian_tensors(torch, cfg, seed: int, dev: str = "cuda") -> dict:
+    """Seeded random tensors of a MarianMTModel checkpoint at ``cfg``'s
+    shapes, under its names (the shared embedding, [out, in] linears): the
+    embedding normal (std 0.02), the linears at 1/sqrt(fan-in) (at 0.02
+    the scaled embedding of the start token dominates every layer's
+    output, and every source decodes to that token), norm weights one,
+    biases and final_logits_bias zero."""
+    normal = _normal_gen(torch, seed, dev)
+    d, f = cfg.dim, cfg.ffn
+
+    def zeros(n):
+        return torch.zeros(n, device=dev)
+
+    def attn(p):
+        t = {}
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            t[f"{p}{n}.weight"], t[f"{p}{n}.bias"] = normal(d, d, std=d ** -0.5), zeros(d)
+        return t
+
+    t = {"model.shared.weight": normal(cfg.vocab, d), "final_logits_bias": zeros((1, cfg.vocab))}
+    for side, n_layers in (("encoder", cfg.enc_layers), ("decoder", cfg.dec_layers)):
+        for i in range(n_layers):
+            p = f"model.{side}.layers.{i}."
+            t.update({**attn(p + "self_attn."),
+                      **_ln_tensors(torch, p + "self_attn_layer_norm", d, dev),
+                      p + "fc1.weight": normal(f, d, std=d ** -0.5), p + "fc1.bias": zeros(f),
+                      p + "fc2.weight": normal(d, f, std=f ** -0.5), p + "fc2.bias": zeros(d),
+                      **_ln_tensors(torch, p + "final_layer_norm", d, dev)})
+            if side == "decoder":
+                t.update({**attn(p + "encoder_attn."),
+                          **_ln_tensors(torch, p + "encoder_attn_layer_norm", d, dev)})
+    return t
+
+
+def vits_tensors(torch, cfg, seed: int, dev: str = "cuda") -> dict:
+    """Seeded random tensors of a VitsModel checkpoint (stochastic duration
+    predictor) at ``cfg``'s shapes, under its names: torch's [out, in, k]
+    convolutions and [in, out, k] transposed ones, the WaveNet layers
+    weight-normed as parametrizations (original0 one); weights and biases
+    normal (std 0.02) but the text encoder's at 1/sqrt(fan-in), the affine
+    flow's translate and log_scale zero, norm weights one."""
+    normal = _normal_gen(torch, seed, dev)
+    h, f, w = cfg.dim, cfg.ffn, cfg.window_size
+
+    def conv(name, c_out, c_in, k, bias=True, std=0.02):
+        t = {name + ".weight": normal(c_out, c_in, k, std=std)}
+        if bias:
+            t[name + ".bias"] = normal(c_out)
+        return t
+
+    def normed(name, c_out, c_in, k):
+        return {name + ".parametrizations.weight.original0": torch.ones(c_out, 1, 1, device=dev),
+                name + ".parametrizations.weight.original1": normal(c_out, c_in, k),
+                name + ".bias": normal(c_out)}
+
+    def dds(p):
+        t = {}
+        for j in range(cfg.depth_separable_layers):
+            t.update({**conv(f"{p}.convs_dilated.{j}", h, 1, cfg.duration_kernel),
+                      **conv(f"{p}.convs_pointwise.{j}", h, h, 1),
+                      **_ln_tensors(torch, f"{p}.norms_1.{j}", h, dev),
+                      **_ln_tensors(torch, f"{p}.norms_2.{j}", h, dev)})
+        return t
+
+    t = {"text_encoder.embed_tokens.weight": normal(cfg.vocab, h, std=h ** -0.5),
+         **conv("text_encoder.project", 2 * cfg.flow_size, h, 1)}
+    for i in range(cfg.layers):
+        p = f"text_encoder.encoder.layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            t[f"{p}attention.{n}.weight"] = normal(h, h, std=h ** -0.5)
+            t[f"{p}attention.{n}.bias"] = normal(h)
+        t.update({p + "attention.emb_rel_k": normal(1, 2 * w + 1, cfg.head_dim),
+                  p + "attention.emb_rel_v": normal(1, 2 * w + 1, cfg.head_dim),
+                  **_ln_tensors(torch, p + "layer_norm", h, dev),
+                  **_ln_tensors(torch, p + "final_layer_norm", h, dev),
+                  **conv(p + "feed_forward.conv_1", f, h, cfg.ffn_kernel,
+                         std=(h * cfg.ffn_kernel) ** -0.5),
+                  **conv(p + "feed_forward.conv_2", h, f, cfg.ffn_kernel,
+                         std=(f * cfg.ffn_kernel) ** -0.5)})
+    dp = "duration_predictor."
+    half = cfg.depth_separable_channels // 2
+    t.update({**conv(dp + "conv_pre", h, h, 1), **conv(dp + "conv_proj", h, h, 1),
+              **dds(dp + "conv_dds"),
+              dp + "flows.0.translate": torch.zeros(cfg.depth_separable_channels, 1, device=dev),
+              dp + "flows.0.log_scale": torch.zeros(cfg.depth_separable_channels, 1, device=dev)})
+    for i in range(1, cfg.duration_num_flows + 1):
+        fp = f"{dp}flows.{i}."
+        t.update({**conv(fp + "conv_pre", h, half, 1), **dds(fp + "conv_dds"),
+                  **conv(fp + "conv_proj", half * (3 * cfg.duration_flow_bins - 1), h, 1)})
+    for i in range(cfg.prior_num_flows):
+        fp = f"flow.flows.{i}."
+        t.update({**conv(fp + "conv_pre", h, cfg.flow_size // 2, 1),
+                  **conv(fp + "conv_post", cfg.flow_size // 2, h, 1)})
+        for j in range(cfg.prior_wavenet_layers):
+            res = 2 * h if j < cfg.prior_wavenet_layers - 1 else h
+            t.update({**normed(f"{fp}wavenet.in_layers.{j}", 2 * h, h, cfg.wavenet_kernel),
+                      **normed(f"{fp}wavenet.res_skip_layers.{j}", res, h, 1)})
+    ch = cfg.upsample_initial
+    t.update(conv("decoder.conv_pre", ch, cfg.flow_size, 7))
+    for i, k in enumerate(cfg.upsample_kernels):
+        t.update(conv(f"decoder.upsampler.{i}", ch, ch // 2, k))  # [in, out, k]
+        t[f"decoder.upsampler.{i}.bias"] = normal(ch // 2)
+        ch //= 2
+        for j, (rk, dil) in enumerate(zip(cfg.resblock_kernels, cfg.resblock_dilations)):
+            rp = f"decoder.resblocks.{i * len(cfg.resblock_kernels) + j}."
+            for d in range(len(dil)):
+                t.update({**conv(f"{rp}convs1.{d}", ch, ch, rk),
+                          **conv(f"{rp}convs2.{d}", ch, ch, rk)})
+    t.update(conv("decoder.conv_post", 1, ch, 7, bias=False))
+    return t
+
+
+def hub_sentences(seed: int, n: int = HUB_SENTENCES, chars=SENTENCE_CHARS) -> list[str]:
+    """``n`` seeded sentences of HUB_WORDS, their lengths spread over
+    ``chars``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for target in np.linspace(*chars, n).round().astype(int):
+        words: list = []
+        while len(" ".join(words)) < target:
+            words.append(str(rng.choice(HUB_WORDS)))
+        out.append(" ".join(words)[:target].rstrip() or "a")
+    return out
+
+
+def marian_tokenizer_dir(path: str, vocab_size: int) -> str:
+    """A fabricated Opus-MT tokenizer in ``path``: a unigram sentencepiece
+    model of HUB_WORDS (the last two left out: unknown) and the letters, and
+    a vocab.json that maps its pieces and ``w<i>`` fillers onto every id of
+    ``vocab_size`` (``</s>`` 0, ``<unk>`` 1, ``<pad>`` the last)."""
+    from dora_tpu_torch.models import spm
+
+    os.makedirs(path, exist_ok=True)
+    pieces = [("<unk>", 0.0, spm.TYPE_UNKNOWN), ("<s>", 0.0, spm.TYPE_CONTROL),
+              ("</s>", 0.0, spm.TYPE_CONTROL), (spm.WORD_BOUNDARY, -4.0, spm.TYPE_NORMAL)]
+    pieces += [(spm.WORD_BOUNDARY + w, -1.0 - 0.1 * i, spm.TYPE_NORMAL)
+               for i, w in enumerate(HUB_WORDS[:-2])]
+    pieces += [(c, -3.0 - 0.01 * i, spm.TYPE_NORMAL)
+               for i, c in enumerate("abcdefghijklmnopqrstuvw")]
+    with open(os.path.join(path, "source.spm"), "wb") as f:
+        f.write(spm.build_model_proto(pieces))
+    vocab = {"</s>": 0, "<unk>": 1, "<pad>": vocab_size - 1}
+    for i, (piece, _, _) in enumerate(pieces[3:]):
+        vocab[piece] = 2 + (i * 997) % (vocab_size - 3)
+    used = set(vocab.values())
+    vocab.update({f"w{i}": i for i in range(vocab_size) if i not in used})
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    return path
+
+
+def serve_hub(torch, DB, LO, L, smi: str, seed: int, scratch: str, dev: str = "cuda",
+              detector_size: str = "bench", translator_size: str = "bench",
+              yolos_hf=YOLOS_SMALL, opus_hf=OPUS_MT_EN_DE, vits_hf=MMS_TTS_ENG,
+              chars=SENTENCE_CHARS) -> None:
+    """Phase 17: the yolo dataflow's node (:func:`yolo_node`), then the
+    translation dataflow's nodes (:func:`translation_nodes`)."""
+    yolo_node(torch, DB, LO, L, smi, seed, scratch, dev, detector_size, yolos_hf)
+    torch.cuda.empty_cache()
+    translation_nodes(torch, DB, LO, L, smi, seed + 1, scratch, dev, translator_size, opus_hf,
+                      vits_hf, chars)
+    torch.cuda.empty_cache()
+
+
+def _no_kernels(what: str, launches: dict, n_plain: int) -> None:
+    """None of the 11 kernels and none of their plain versions ran."""
+    busy = {n: c for n, c in launches.items() if c}
+    if busy or n_plain:
+        raise Failed(f"{what} launched {busy} with {n_plain} plain calls; the hub models "
+                     "reach none of the 11 kernels")
+
+
+def _ticks_equal(what: str, node, per_tick: int, direct) -> None:
+    """Each tick's sends (``per_tick`` of them, the outputs' sorted ids)
+    equal ``direct(j)``, {output id: host array}, bit for bit."""
+    import numpy as np
+
+    if len(node.sent) % per_tick:
+        raise Failed(f"{what}: {len(node.sent)} sends")
+    for j in range(len(node.sent) // per_tick):
+        want = direct(j)
+        for out_id, data, meta in node.sent[j * per_tick:(j + 1) * per_tick]:
+            ref = want[out_id]
+            data = data.reshape([int(n) for n in meta["shape"]]) if "shape" in meta else data
+            if data.dtype != ref.dtype or data.shape != ref.shape or not np.array_equal(data, ref):
+                raise Failed(f"{what}: tick {j}'s {out_id} differs from a direct call")
+
+
+def _host(outputs: dict, prefix: str = "op/") -> dict:
+    return {prefix + k: v.detach().cpu().numpy() for k, v in outputs.items()}
+
+
+def _rel_rms(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float(((got - want) ** 2).sum().sqrt() / max(float((want ** 2).sum().sqrt()), 1e-30))
+
+
+def _class_check(what: str, p16, p32, kept) -> tuple[int, int]:
+    """Classes (argmax of the class probabilities ``p16`` / ``p32``, rows
+    [n, C]) of the ``kept`` rows equal, except where f32's top two lie within
+    NEAR_TIE of each other. Returns (compared, near-tie partings)."""
+    c16, c32 = p16.argmax(-1), p32.argmax(-1)
+    top2 = p32.topk(2, dim=-1).values
+    tie = (top2[:, 0] - top2[:, 1]) < NEAR_TIE
+    differ = (c16 != c32) & kept
+    if bool((differ & ~tie).any()):
+        rows = differ & ~tie
+        raise Failed(f"{what}: {int(rows.sum())} kept detections' classes part from the f32 "
+                     "plain path away from a near-tie")
+    return int(kept.sum()), int(differ.sum())
+
+
+def _timing_line(what: str, ticks, wall: float, n: int, smi: str, unit: str = "frames") -> None:
+    ms = [1e3 * x for x in ticks]
+    print(f"hub {what}: tick wall p50 {_pct(ms, 50):.2f} ms, p99 {_pct(ms, 99):.2f} ms, "
+          f"max {max(ms):.2f} ms; {n / wall:.3f} {unit} a second synchronous ({n} in "
+          f"{wall:.3f} s) [{smi}]", flush=True)
+
+
+def yolo_node(torch, DB, LO, L, smi: str, seed: int, scratch: str, dev: str, size: str,
+              yolos_hf: dict) -> None:
+    """Phase 17 (a): the port's runtime node of the yolo example, ``op`` =
+    ``make_detector``: the self-contained detector (``DORA_MODEL_SIZE``
+    ``size``) over HUB_FRAMES seeded frames, then the YOLOS branch (seeded
+    tensors at ``yolos_hf`` under the checkpoint's names through
+    ``map_params``) over as many frames at its resolution. Each tick's
+    boxes, classes and scores equal the operator's step called directly;
+    the pipelined run equals the synchronous one; the classes of the
+    detections the f32 plain path keeps equal the served (bf16) ones but at
+    near-ties, the heads' logits (the detector's objectness and classes,
+    YOLOS's classes) within VIT_REL_RMS of f32, and the scores' and boxes'
+    errors are stated; none of the 11 kernels and no plain version
+    runs."""
+    import numpy as np
+
+    from dora_tpu_torch.core.descriptor import Descriptor
+    from dora_tpu_torch.models import detection
+    from dora_tpu_torch.models.hf import yolos
+    from dora_tpu_torch.nodehub import ops
+    from dora_tpu_torch.tpu.fuse import FusedGraph
+
+    desc = Descriptor.parse({"nodes": [
+        {"id": "camera", "path": "module:dora_tpu.nodehub.camera", "outputs": ["image"]},
+        {"id": "detector", "path": "module:dora_tpu_torch.runtime",
+         "args": "--operator op=dora_tpu_torch.nodehub.ops:make_detector",
+         "inputs": {"op/image": {"source": "camera/image", "queue_size": 1}},
+         "outputs": ["op/boxes", "op/scores", "op/classes"]},
+        {"id": "plot", "path": "module:dora_tpu.nodehub.plot",
+         "inputs": {"image": "camera/image", "boxes": "detector/op/boxes"}},
+        # the example's plot reads the boxes; a recorder takes the rest here
+        {"id": "recorder", "path": "module:dora_tpu.nodehub.record",
+         "inputs": {"scores": "detector/op/scores", "classes": "detector/op/classes"}}]})
+    knobs = dict(DORA_MODEL_SIZE=size, DORA_HF_CHECKPOINT=None, DORA_CHECKPOINT=None,
+                 DORA_PARAM_DTYPE=None, DORA_DETECT_THRESHOLD=None, DORA_DETECT_TOPK=None)
+    rng = np.random.default_rng(seed)
+
+    # the self-contained detector through make_detector
+    t = time.perf_counter()
+    with _env(**knobs):
+        graph = FusedGraph.build(desc.node("detector"), desc, device=dev)
+    cfg = detection.DetectorConfig.tiny() if size == "tiny" else detection.DetectorConfig()
+    params = graph.operators["op"].init_state
+    frames = [rng.integers(0, 256, size=(cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+              for _ in range(HUB_FRAMES)]
+    first = (torch.from_numpy(frames[0]).to(dev).float() / 255.0)[None]
+    scale = DETECT_LOGIT_STD / float(detection.forward(params, cfg, first)[..., 4:].std())
+    for head in params["heads"].values():
+        head["out"][4:] *= scale
+    torch.cuda.synchronize()
+    print(f"hub (a) detector: make_detector built DetectorConfig (DORA_MODEL_SIZE={size}: "
+          f"{cfg.image_size} x {cfg.image_size}, widths {list(cfg.widths)}, {cfg.num_classes} "
+          f"classes, {cfg.max_detections} detections) in {time.perf_counter() - t:.2f} s; its "
+          f"heads' logit rows x {scale:.1f} (logit std {DETECT_LOGIT_STD} on the first frame) "
+          f"[{smi}]", flush=True)
+    _detector_runs(torch, DB, LO, L, smi, "(a) detector", graph, frames,
+                   lambda img: detection.forward(params, cfg, img), scratch,
+                   lambda p: _detector_probs(torch, cfg, p))
+    # what the fixed-shape postprocess (top-K, K - 1 suppression steps) costs
+    walls = {"forward": [], "postprocess": []}
+    for f in frames:
+        img = (torch.from_numpy(f).to(dev).float() / 255.0)[None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds = detection.forward(params, cfg, img)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        detection.postprocess(cfg, preds)
+        torch.cuda.synchronize()
+        walls["forward"].append(1e3 * (t1 - t0))
+        walls["postprocess"].append(1e3 * (time.perf_counter() - t1))
+    share = _device_busy(torch, lambda: detection.postprocess(cfg, preds),
+                         os.path.join(scratch, f"trace-hub-{os.getpid()}"))
+    print(f"hub (a) detector split: forward p50 {_pct(walls['forward'], 50):.2f} ms, "
+          f"postprocess (top-{cfg.max_detections}, {cfg.max_detections - 1} suppression steps) "
+          f"p50 {_pct(walls['postprocess'], 50):.2f} ms (host clock, each ending in a sync); "
+          f"the postprocess alone under profiling.start_capture: {share} [{smi}]", flush=True)
+
+    # YOLOS through yolos_operator, as make_detector builds it after yolos.load
+    ycfg = yolos.YolosConfig.from_hf(yolos_hf)
+    t = time.perf_counter()
+    tensors = yolos_tensors(torch, ycfg, seed + 1, dev)
+    n_params = sum(v.numel() for v in tensors.values())
+    yparams = yolos.map_params(tensors, ycfg)
+    del tensors
+    with _env(**{**knobs, "DORA_MODEL_SIZE": None}):
+        op = ops.yolos_operator(ycfg, yparams)
+    with _prebuilt({"dora_tpu_torch.nodehub.ops:make_detector": op}):
+        ygraph = FusedGraph.build(desc.node("detector"), desc, device=dev)
+    torch.cuda.synchronize()
+    h, w = ycfg.image_size
+    print(f"hub (a) YOLOS: {ycfg.layers} layers x {ycfg.dim} ({ycfg.heads} heads, ffn "
+          f"{ycfg.ffn}), {ycfg.n_patches} patches + {ycfg.n_det} detection tokens at {h} x {w}, "
+          f"{ycfg.n_labels} labels ({n_params / 1e6:.1f} M), seeded random under the "
+          f"checkpoint's names through map_params in {time.perf_counter() - t:.2f} s [{smi}]",
+          flush=True)
+    yframes = [rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8) for _ in range(HUB_FRAMES)]
+
+    def yolos_forward(img):
+        return yolos.forward(yparams, ycfg, yolos.preprocess(img, ycfg))
+
+    threshold = 0.5  # yolos_operator's default DORA_DETECT_THRESHOLD
+    _detector_runs(torch, DB, LO, L, smi, "(a) YOLOS", ygraph, yframes, yolos_forward, scratch,
+                   lambda out: _yolos_probs(torch, out, threshold))
+
+
+def _detector_probs(torch, cfg, preds):
+    """The self-contained detector's [cells, C] class scores (objectness x
+    class), its [cells, 4] boxes, the [cells] mask of those its
+    postprocess keeps (top-K, over the threshold, not suppressed) and its
+    objectness and class logits."""
+    from dora_tpu_torch.models import detection
+
+    probs = torch.sigmoid(preds[0, :, 4:5]) * torch.sigmoid(preds[0, :, 5:])
+    _, idx = detection.top_k(probs.max(-1).values, cfg.max_detections)
+    kept = torch.zeros(probs.shape[0], dtype=torch.bool, device=probs.device)
+    kept[idx.long()] = detection.postprocess(cfg, preds[0])["scores"] > 0
+    return probs, preds[0, :, :4], kept, preds[0, :, 4:]
+
+
+def _yolos_probs(torch, out, threshold: float):
+    """YOLOS's [n_det, labels] class probabilities, its [n_det, 4] boxes,
+    the mask of the slots it keeps (score at the threshold or over) and its
+    class logits."""
+    logits, boxes = out
+    probs = torch.softmax(logits[0], dim=-1)[:, :-1]
+    return probs, boxes[0], probs.max(-1).values >= threshold, logits
+
+
+def _detector_runs(torch, DB, LO, L, smi, what, graph, frames, forward, scratch, decode):
+    """One detector node over ``frames``: ticks against direct calls, the
+    pipelined run, the f32 plain path, the timings and the busy share."""
+    import numpy as np
+
+    op = graph.operators["op"]
+    params = op.init_state
+    events = [_event("op/image", f) for f in frames]
+    on_dev = [torch.from_numpy(f).to(graph.device) for f in frames]
+    ref = [_host(op.step(params, {"image": img})[1]) for img in on_dev]
+    torch.cuda.synchronize()
+    node, wall, launches, n_plain, ticks = _run_node(torch, DB, LO, graph, events, depth=0,
+                                                     timed=True)
+    _ticks_equal(f"{what} node", node, 3, lambda j: ref[j])
+    _no_kernels(f"the {what} node", launches, n_plain)
+    kept_rows = [int((r["op/scores"] > 0).sum()) for r in ref]
+    print(f"hub {what} node: {len(ticks)} ticks, each tick's boxes, classes and scores equal "
+          f"to the operator's step called directly; detections kept a frame {kept_rows}; none "
+          f"of the 11 kernels and no plain version ran [{smi}]", flush=True)
+    _timing_line(f"{what} node", ticks, wall, len(frames), smi)
+    walls = []
+    for _ in range(2):
+        with _env(DORA_PIPELINE_DEPTH=None, DORA_FETCH_EVERY=None):
+            pnode, pwall, _, _, _ = _run_node(torch, DB, LO, graph, events, None, None)
+        _same_sends(f"{what} node pipelined", pnode.sent, node.sent)
+        walls.append(pwall)
+    print(f"hub {what} node pipelined (default depth): the same sends bit for bit; frames a "
+          f"second {[round(len(frames) / w, 3) for w in walls]} against "
+          f"{len(frames) / wall:.3f} synchronous [{smi}]", flush=True)
+
+    compared = parted = 0
+    sq = {"raw": [0.0, 0.0], "boxes": [0.0, 0.0]}
+    worst = 0.0
+    for i, img in enumerate(on_dev):
+        image = (img.float() / 255.0)[None]
+        p16, b16, _, r16 = decode(forward(image))
+        p32, b32, kept, r32 = decode(_f32(torch, L, lambda: forward(image)))
+        c, pt = _class_check(f"{what} frame {i}", p16.float(), p32.float(), kept)
+        compared, parted = compared + c, parted + pt
+        pairs = [("raw", r16, r32)]
+        if c:
+            s16, s32 = p16.float().max(-1).values[kept], p32.max(-1).values[kept]
+            worst = max(worst, float((s16 - s32).abs().max()))
+            pairs.append(("boxes", b16[kept], b32[kept]))
+        for key, a, b in pairs:
+            sq[key][0] += float(((a.double() - b.double()) ** 2).sum())
+            sq[key][1] += float((b.double() ** 2).sum())
+    if not compared:
+        raise Failed(f"{what}: the f32 plain path kept no detection in {len(frames)} frames, "
+                     "so nothing was compared")
+    rms = {k: (n / max(d, 1e-30)) ** 0.5 for k, (n, d) in sq.items()}
+    print(f"hub {what} agreement: bf16 served against the f32 plain path over {compared} kept "
+          f"detections of {len(frames)} frames: classes equal but {parted} near-tie partings "
+          f"(f32 top two within {NEAR_TIE}); the heads' logits rel RMS {rms['raw']:.3e} "
+          f"(bound {VIT_REL_RMS}); max |dscore| {worst:.3e}; boxes rel RMS {rms['boxes']:.3e} "
+          f"[{smi}]", flush=True)
+    if not rms["raw"] <= VIT_REL_RMS:
+        raise Failed(f"{what}: the heads' logits are {rms['raw']:.3e} (rel RMS) from f32")
+    one = [events[0]]
+    share = _device_busy(torch, lambda: _run_node(torch, DB, LO, graph, one, depth=0),
+                         os.path.join(scratch, f"trace-hub-{os.getpid()}"))
+    print(f"hub {what} device plane: one tick under profiling.start_capture: {share} [{smi}]",
+          flush=True)
+
+
+def translation_nodes(torch, DB, LO, L, smi: str, seed: int, scratch: str, dev: str,
+                      size: str, opus_hf: dict, vits_hf: dict, chars) -> None:
+    """Phase 17 (b): the translation dataflow's nodes over HUB_SENTENCES
+    seeded sentences: the runtime nodes ``make_translator`` into
+    ``make_tts`` (``DORA_MODEL_SIZE`` ``size``), then the port's Opus node
+    (``nodehub.translator.serve``) at ``opus_hf`` greedy and with
+    DORA_SPEC_DECODE's speculation, then ``make_tts``'s VITS branch at
+    ``vits_hf`` (noise_scale 0). Each tick's output equals a direct call;
+    translator tokens part from the f32 plain path only at near-ties;
+    speculative tokens equal greedy ones; VITS's durations equal the f32
+    plain path's (``vits.synthesize``); none of the 11 kernels and no plain
+    version runs."""
+    import numpy as np
+
+    from dora_tpu_torch.core.descriptor import Descriptor
+    from dora_tpu_torch.models import tokenizer, translation, tts
+    from dora_tpu_torch.tpu.fuse import FusedGraph
+
+    sentences = hub_sentences(seed, chars=chars)
+    desc = Descriptor.parse({"nodes": [
+        {"id": "terminal-input", "path": "dynamic", "outputs": ["data"]},
+        {"id": "translator", "path": "module:dora_tpu_torch.runtime",
+         "args": "--operator op=dora_tpu_torch.nodehub.ops:make_translator",
+         "inputs": {"op/text": {"source": "terminal-input/data", "queue_size": 1}},
+         "outputs": ["op/tokens"]},
+        {"id": "tts", "path": "module:dora_tpu_torch.runtime",
+         "args": "--operator op=dora_tpu_torch.nodehub.ops:make_tts",
+         "inputs": {"op/text": {"source": "translator/op/tokens", "queue_size": 1}},
+         "outputs": ["op/audio"]},
+        {"id": "speaker", "path": "module:dora_tpu.nodehub.speaker",
+         "inputs": {"audio": "tts/op/audio"}}]})
+    knobs = dict(DORA_MODEL_SIZE=size, DORA_HF_CHECKPOINT=None, DORA_CHECKPOINT=None,
+                 DORA_PARAM_DTYPE=None, DORA_MAX_NEW_TOKENS=None, DORA_TTS_STYLE=None,
+                 DORA_SPEC_DECODE=None)
+    t = time.perf_counter()
+    with _env(**knobs):
+        tr_graph = FusedGraph.build(desc.node("translator"), desc, device=dev)
+        tts_graph = FusedGraph.build(desc.node("tts"), desc, device=dev)
+    torch.cuda.synchronize()
+    tcfg = (translation.TranslatorConfig.tiny() if size == "tiny"
+            else translation.TranslatorConfig())
+    scfg = tts.TTSConfig.tiny() if size == "tiny" else tts.TTSConfig()
+    tr_op, tts_op = tr_graph.operators["op"], tts_graph.operators["op"]
+    print(f"hub (b) translator + TTS nodes: make_translator ({tcfg.enc_layers} + "
+          f"{tcfg.dec_layers} layers x {tcfg.dim}, vocab {tcfg.vocab}) and make_tts "
+          f"({tcfg.enc_layers} + {scfg.dec_layers} layers x {scfg.dim}, {scfg.max_text} tokens "
+          f"-> {scfg.max_samples} samples) at DORA_MODEL_SIZE={size} in "
+          f"{time.perf_counter() - t:.2f} s; sentences of {[len(s) for s in sentences]} "
+          f"characters [{smi}]", flush=True)
+
+    texts = [np.frombuffer(s.encode(), dtype=np.uint8) for s in sentences]
+    tr_ref = [_host(tr_op.step(tr_op.init_state, {"text": torch.from_numpy(x).to(dev)})[1])
+              for x in texts]
+    node, wall, launches, n_plain, ticks = _run_node(
+        torch, DB, LO, tr_graph, [_event("op/text", x) for x in texts], depth=0, timed=True)
+    _ticks_equal("translator node", node, 1, lambda j: tr_ref[j])
+    _no_kernels("the translator node", launches, n_plain)
+    max_new = tr_ref[0]["op/tokens"].shape[0]
+    _timing_line("(b) translator node", ticks, wall, len(texts) * max_new, smi, "tokens")
+    print(f"hub (b) translator node: {len(ticks)} ticks equal make_translator's step called "
+          f"directly, {1e3 * wall / len(texts):.2f} ms a sentence ({max_new} tokens each); none "
+          f"of the 11 kernels and no plain version ran [{smi}]", flush=True)
+    tokens = [s[1] for s in node.sent]
+    parts = []
+    bos = tokenizer.BOS % tcfg.vocab
+    for j, x in enumerate(texts):
+        src = (torch.from_numpy(x).to(dev).to(torch.int32) % tcfg.vocab)[: tcfg.max_src]
+        src = torch.nn.functional.pad(src, (0, tcfg.max_src - src.shape[0]),
+                                      value=tokenizer.PAD % tcfg.vocab)[None]
+        served = tokens[j].tolist()
+        ref32 = _f32(torch, L, lambda: translation.translate(tr_op.init_state, tcfg, src, bos,
+                                                             max_new))[0].tolist()
+        at = _first_parting(served, ref32, max_new)
+        parts.append(at)
+        if at < max_new:
+            logits = _f32(torch, L, lambda: _translator_logits(
+                torch, L, tr_op.init_state, tcfg, src, bos, served[:at]))
+            _near_tie(f"translator sentence {j}", logits, served[at], ref32[at], at, smi)
+    print(f"hub (b) translator agreement: bf16 served against the f32 plain path, first "
+          f"parting at {parts} of {max_new} [{smi}]", flush=True)
+
+    tts_events = [_event("op/text", tok) for tok in tokens]
+    tts_ref = [_host(tts_op.step(tts_op.init_state, {"text": torch.from_numpy(tok).to(dev)})[1])
+               for tok in tokens]
+    node, wall, launches, n_plain, ticks = _run_node(torch, DB, LO, tts_graph, tts_events,
+                                                     depth=0, timed=True)
+    _ticks_equal("TTS node", node, 1, lambda j: tts_ref[j])
+    _no_kernels("the TTS node", launches, n_plain)
+    _timing_line("(b) TTS node", ticks, wall, len(tokens), smi, "sentences")
+    rms = []
+    for tok, ref in zip(tokens, tts_ref):
+        w32 = _f32(torch, L, lambda: tts_op.step(tts_op.init_state,
+                                                 {"text": torch.from_numpy(tok).to(dev)})[1])
+        rms.append(_rel_rms(torch.from_numpy(ref["op/audio"]), w32["audio"].cpu()))
+    audio_s = len(tokens) * scfg.max_samples / scfg.sample_rate
+    print(f"hub (b) TTS node: {len(ticks)} ticks equal make_tts's step called directly; "
+          f"{audio_s / wall:.2f} audio seconds a wall second ({scfg.max_samples} samples a "
+          f"sentence); bf16 waveform against the f32 plain path rel RMS max {max(rms):.3e} "
+          f"[{smi}]", flush=True)
+    if not all(np.isfinite(r) for r in rms):
+        raise Failed("the TTS node's waveform is not finite")
+    for what, graph, events in (("translator", tr_graph, [_event("op/text", texts[-1])]),
+                                ("TTS", tts_graph, tts_events[-1:])):
+        share = _device_busy(torch, lambda: _run_node(torch, DB, LO, graph, events, depth=0),
+                             os.path.join(scratch, f"trace-hub-{os.getpid()}"))
+        print(f"hub (b) {what} device plane: one tick on the longest sentence under "
+              f"profiling.start_capture: {share} [{smi}]", flush=True)
+    del tr_graph, tts_graph, tr_op, tts_op
+    torch.cuda.empty_cache()
+
+    opus_node(torch, DB, LO, L, smi, seed + 1, scratch, dev, opus_hf, sentences)
+    torch.cuda.empty_cache()
+    vits_node(torch, DB, LO, L, smi, seed + 2, scratch, dev, vits_hf, sentences)
+
+
+def _translator_logits(torch, L, params, cfg, src, bos: int, prefix: list):
+    """The self-contained translator's next-token logits [vocab] after
+    ``prefix``: ``translation.translate``'s loop fed ``prefix``."""
+    from dora_tpu_torch.models import translation
+    from dora_tpu_torch.models.asr import _decoder_forward, _encoder_kv
+
+    dev = src.device
+    dtype = L.compute_dtype(dev)
+    enc_kv = _encoder_kv(params, cfg, translation.encode(params, cfg, src))
+    shape = (1, cfg.heads, cfg.max_tokens, cfg.head_dim)
+    caches = {str(i): {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                       "v": torch.zeros(shape, dtype=dtype, device=dev)}
+              for i in range(cfg.dec_layers)}
+    embed = params["embed"].to(dtype)
+    rope = L.rope_table(cfg.max_tokens, cfg.head_dim, device=dev)
+    slots = torch.arange(cfg.max_tokens, device=dev)
+    h = None
+    for pos, token in enumerate([bos] + prefix):
+        x = embed[torch.tensor([token], device=dev)][:, None, :]
+        h, caches = _decoder_forward(params, cfg, x, enc_kv,
+                                     torch.full((1, 1), pos, device=dev),
+                                     (slots <= pos)[None, None, None, :], caches, pos, rope)
+    return (h[:, -1] @ embed.T).float()[0]
+
+
+def _near_tie(what: str, logits, served: int, ref: int, at: int, smi: str) -> None:
+    """The served and the f32 token are both within NEAR_TIE of the f32
+    logits' maximum."""
+    top = float(logits.max())
+    da, db = top - float(logits[served]), top - float(logits[ref])
+    print(f"hub {what}: parts from the f32 plain path at token {at} ({served} against {ref}): "
+          f"the served token {da:.4e} and the f32 one {db:.4e} below the f32 maximum (bound "
+          f"{NEAR_TIE}) [{smi}]", flush=True)
+    if not (da <= NEAR_TIE and db <= NEAR_TIE):
+        raise Failed(f"{what} parts from the f32 path away from a near-tie")
+
+
+def opus_node(torch, DB, LO, L, smi: str, seed: int, scratch: str, dev: str, opus_hf: dict,
+              sentences: list) -> None:
+    """Phase 17 (b), the Opus node: ``nodehub.translator.serve`` over a
+    scripted node, on Marian at ``opus_hf`` (seeded tensors under the
+    checkpoint's names through ``map_params``, a fabricated tokenizer),
+    greedy and speculative, with the node's defaults (64 new tokens, 64
+    source pieces)."""
+    import pyarrow as pa
+
+    from dora_tpu_torch.models import spec_decode
+    from dora_tpu_torch.models.hf import marian
+    from dora_tpu_torch.nodehub import translator
+
+    max_new, max_src = 64, 64  # the node's defaults
+    cfg = marian.MarianConfig.from_hf(opus_hf, max_tokens=max_new + 1 + spec_decode.spec_headroom())
+    t = time.perf_counter()
+    tensors = marian_tensors(torch, cfg, seed, dev)
+    n_params = sum(v.numel() for v in tensors.values())
+    params = marian.map_params(tensors, cfg)
+    del tensors
+    tok = marian.MarianTokenizer(marian_tokenizer_dir(os.path.join(scratch, "opus-tokenizer"),
+                                                      cfg.vocab))
+    torch.cuda.synchronize()
+    print(f"hub (b) Opus node: Marian {cfg.enc_layers} + {cfg.dec_layers} layers x {cfg.dim} "
+          f"({cfg.heads} heads, ffn {cfg.ffn}, vocab {cfg.vocab}; {n_params / 1e6:.1f} M), "
+          f"seeded random under the checkpoint's names through map_params, a fabricated "
+          f"sentencepiece model and vocab.json, in {time.perf_counter() - t:.2f} s [{smi}]",
+          flush=True)
+    srcs = [translator.encode_source(tok, cfg, s, max_src, dev) for s in sentences]
+    greedy = [marian.translate(params, cfg, s, max_new, src_mask=m)[0].tolist() for s, m in srcs]
+    spec = [marian.translate_speculative(params, cfg, s, max_new, src_mask=m) for s, m in srcs]
+    for j, (toks, passes) in enumerate(spec):
+        if toks[0].tolist() != greedy[j]:
+            raise Failed(f"Opus sentence {j}: speculative tokens differ from greedy ones")
+    passes = sum(p for _, p in spec)
+
+    results = {}
+    for what, speculative in (("greedy", False), ("DORA_SPEC_DECODE=1", True)):
+        fn = translator.translate_fn(cfg, params, tok, max_new, max_src, speculative)
+        node = _OpNode([_event("text", pa.array([s])) for s in sentences])
+        plain_calls = _PlainCalls(DB, LO)
+        _reset_launches(DB, LO)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            translator.serve(node, fn)
+            torch.cuda.synchronize()
+        finally:
+            wall = time.perf_counter() - t
+            launches = _launches(DB, LO)
+            plain_calls.restore()
+        _no_kernels(f"the Opus node ({what})", launches, plain_calls.n)
+        got = [list(s[1]) for s in node.sent]
+        want = [[tok.decode(g[: g.index(cfg.eos_token)] if cfg.eos_token in g else g)]
+                for g in greedy]
+        if got != want:
+            raise Failed(f"the Opus node ({what}) answered {got}, the direct calls {want}")
+        results[what] = wall
+    print(f"hub (b) Opus node: greedy and DORA_SPEC_DECODE=1 each answer every sentence as the "
+          f"direct calls do (speculative tokens equal greedy ones, {max_new} a sentence); "
+          f"{1e3 * results['greedy'] / len(sentences):.2f} ms a sentence greedy, "
+          f"{1e3 * results['DORA_SPEC_DECODE=1'] / len(sentences):.2f} ms speculative; "
+          f"{len(sentences) * max_new / results['greedy']:.1f} tokens a second greedy, "
+          f"{len(sentences) * max_new / results['DORA_SPEC_DECODE=1']:.1f} speculative "
+          f"({len(sentences) * max_new / passes:.3f} tokens a pass); none of the 11 kernels "
+          f"and no plain version ran; translations of {[len(s[1][0]) for s in node.sent]} "
+          f"characters, {len({t for g in greedy for t in g})} distinct tokens [{smi}]",
+          flush=True)
+    parts = []
+    for j, (s, m) in enumerate(srcs):
+        ref32 = _f32(torch, L, lambda: marian.translate(params, cfg, s, max_new,
+                                                        src_mask=m))[0].tolist()
+        at = _first_parting(greedy[j], ref32, max_new)
+        parts.append(at)
+        if at < max_new:
+            real = s[:, : int(m.sum())]
+            dec = torch.tensor([[cfg.decoder_start_token] + greedy[j][:at]], device=dev)
+            logits = _f32(torch, L, lambda: marian.forward(params, cfg, real, dec))[0, -1]
+            _near_tie(f"Opus sentence {j}", logits, greedy[j][at], ref32[at], at, smi)
+    print(f"hub (b) Opus agreement: bf16 greedy against the f32 plain path, first parting at "
+          f"{parts} of {max_new} [{smi}]", flush=True)
+    s, m = srcs[-1]
+    share = _device_busy(torch, lambda: marian.translate(params, cfg, s, max_new, src_mask=m),
+                         os.path.join(scratch, f"trace-hub-{os.getpid()}"))
+    print(f"hub (b) Opus device plane: one greedy translation of the longest sentence under "
+          f"profiling.start_capture: {share} [{smi}]", flush=True)
+
+
+def vits_node(torch, DB, LO, L, smi: str, seed: int, scratch: str, dev: str, vits_hf: dict,
+              sentences: list) -> None:
+    """Phase 17 (b), the VITS node: the runtime node of the translation
+    example's ``tts`` with ``make_tts``'s VITS branch (``vits_operator`` over
+    seeded tensors at ``vits_hf`` through ``map_params``, a fabricated
+    vocabulary, noise_scale 0), a host operator, over the sentences: each
+    tick's audio equals the operator's step called directly; the durations
+    equal the f32 plain path's (``vits.synthesize``'s host durations), the
+    waveform's distance from it stated as rel RMS."""
+    import dataclasses
+
+    import numpy as np
+
+    from dora_tpu_torch.core.descriptor import Descriptor
+    from dora_tpu_torch.models.hf import vits
+    from dora_tpu_torch.nodehub import ops
+    from dora_tpu_torch.tpu.fuse import FusedGraph
+
+    cfg = dataclasses.replace(vits.VitsConfig.from_hf(vits_hf), noise_scale=0.0)
+    t = time.perf_counter()
+    tensors = vits_tensors(torch, cfg, seed, dev)
+    n_params = sum(v.numel() for v in tensors.values())
+    params = vits.map_params(tensors, cfg)
+    del tensors
+    vocab = {c: i + 1 for i, c in enumerate(VITS_CHARS)}
+    op = ops.vits_operator(cfg, params, vocab)
+    desc = Descriptor.parse({"nodes": [
+        {"id": "opus", "path": "module:dora_tpu_torch.nodehub.translator", "outputs": ["text"]},
+        {"id": "tts", "path": "module:dora_tpu_torch.runtime",
+         "args": "--operator op=dora_tpu_torch.nodehub.ops:make_tts",
+         "inputs": {"op/text": {"source": "opus/text", "queue_size": 1}},
+         "outputs": ["op/audio"]},
+        {"id": "speaker", "path": "module:dora_tpu.nodehub.speaker",
+         "inputs": {"audio": "tts/op/audio"}}]})
+    with _prebuilt({"dora_tpu_torch.nodehub.ops:make_tts": op}):
+        graph = FusedGraph.build(desc.node("tts"), desc, device=dev)
+    torch.cuda.synchronize()
+    print(f"hub (b) VITS node: {cfg.layers} layers x {cfg.dim}, stochastic duration "
+          f"{cfg.use_stochastic_duration}, upsample {list(cfg.upsample_rates)} "
+          f"({n_params / 1e6:.1f} M), seeded random under the checkpoint's names through "
+          f"map_params in {time.perf_counter() - t:.2f} s; noise_scale 0 [{smi}]", flush=True)
+    import pyarrow as pa
+
+    events = [_event("op/text", pa.array([s])) for s in sentences]
+    ref = [_host(op.step(params, {"text": torch.from_numpy(
+        np.frombuffer(s.encode(), dtype=np.uint8).copy()).to(dev)})[1]) for s in sentences]
+    node, wall, launches, n_plain, ticks = _run_node(torch, DB, LO, graph, events, depth=0,
+                                                     timed=True)
+    _ticks_equal("VITS node", node, 1, lambda j: ref[j])
+    _no_kernels("the VITS node", launches, n_plain)
+    samples = sum(r["op/audio"].shape[0] for r in ref)
+    _timing_line("(b) VITS node", ticks, wall, len(sentences), smi, "sentences")
+    print(f"hub (b) VITS node: {len(ticks)} ticks equal vits_operator's step called directly; "
+          f"{samples / cfg.sampling_rate / wall:.2f} audio seconds a wall second "
+          f"({samples / cfg.sampling_rate:.2f} s of audio), {1e3 * wall / len(sentences):.2f} ms "
+          f"a sentence [{smi}]", flush=True)
+
+    differ, tf32_differ, tokens, rms = 0, 0, 0, []
+    for s, r in zip(sentences, ref):
+        ids = torch.tensor([ops.vits_text_ids(s.encode(), vocab, cfg.vocab)], device=dev)
+        hidden, _, _ = vits.encode_text(params, cfg, ids)
+        plain = vits.durations(vits.predict_log_duration(params, cfg, hidden), cfg.speaking_rate)
+        served = _served_durations(torch, vits, params, cfg, ids, tf32=False)
+        differ += int((served != plain[0]).sum())
+        tf32_differ += int((_served_durations(torch, vits, params, cfg, ids, tf32=True)
+                            != plain[0]).sum())
+        tokens += served.shape[0]
+        wave = vits.synthesize(params, cfg, ids)[0].cpu()
+        got = torch.from_numpy(r["op/audio"])
+        if got.shape != wave.shape:
+            raise Failed(f"VITS: the served waveform has {got.shape[0]} samples, the f32 plain "
+                         f"path {wave.shape[0]}")
+        rms.append(_rel_rms(got, wave))
+    print(f"hub (b) VITS agreement: durations of {tokens} tokens against the f32 plain path "
+          f"(vits.synthesize's host durations): {differ} differ; with TF32 allowed "
+          f"(torch's default for cuDNN convolutions) {tf32_differ} would; waveform rel RMS max "
+          f"{max(rms):.3e} [{smi}]", flush=True)
+    if differ:
+        raise Failed(f"VITS: {differ} durations differ from the f32 plain path's")
+    share = _device_busy(torch, lambda: _run_node(torch, DB, LO, graph, events[-1:], depth=0),
+                         os.path.join(scratch, f"trace-hub-{os.getpid()}"))
+    print(f"hub (b) VITS device plane: one tick on the longest sentence under "
+          f"profiling.start_capture: {share} [{smi}]", flush=True)
+
+
+def _served_durations(torch, vits, params, cfg, ids, tf32: bool):
+    """The bucketed serving path's per-token durations (its stage 1), with
+    TF32 allowed or not."""
+    import numpy as np
+
+    t = ids.shape[1]
+    padded = torch.zeros((1, vits._bucket(t, vits.TEXT_BUCKETS)), dtype=torch.long,
+                         device=ids.device)
+    padded[0, :t] = ids[0]
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        with torch.no_grad():
+            _, cum, _, _ = vits._duration_stage(params, cfg, padded, t, cfg.speaking_rate)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    cum = cum[:t].cpu().numpy().astype(np.int64)
+    return np.diff(cum, prepend=0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch/CUDA port")
     ap.add_argument("--layers", type=int, default=28, help="model depth (width stays)")
@@ -5451,6 +6348,9 @@ def main(argv=None) -> int:
     ap.add_argument("--operators", action="store_true",
                     help="build, then only phase 16: the operator tier's speech and VLM nodes "
                          "(prints no result line)")
+    ap.add_argument("--hub", action="store_true",
+                    help="build, then only phase 17: the hub models' nodes (detector, YOLOS, "
+                         "translator, TTS, Opus, VITS) (prints no result line)")
     ap.add_argument("--paths", action="store_true",
                     help="build, then only phases 4, 6, 9 and 10, phase 12's main path and the "
                          "VLM's generate, for their times (prints no result line)")
@@ -5528,6 +6428,10 @@ def main(argv=None) -> int:
         if args.operators:
             del params, params4
             serve_operators(torch, DB, LO, L, smi, args.seed + 40, scratch)
+            return 0
+        if args.hub:
+            del params, params4
+            serve_hub(torch, DB, LO, L, smi, args.seed + 50, scratch)
             return 0
         if args.paths:  # phases 4, 6, 9, 10 and 12's main path and the VLM's generate alone
             _, _, slice_times = serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg,
@@ -5651,6 +6555,7 @@ def main(argv=None) -> int:
         serve_hf_vlms(torch, DB, LO, IM, L, qwen2, serve_prompts, args.seed)
         del paths, params
         serve_operators(torch, DB, LO, L, smi, args.seed + 40, scratch)
+        serve_hub(torch, DB, LO, L, smi, args.seed + 50, scratch)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -96,45 +96,33 @@ def log_mel(cfg: ASRConfig, audio: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _cross_block_init(init: L.Init, dim: int, heads: int, ffn: int) -> dict:
+    """A decoder block: the self-attention block's weights, then the
+    cross-attention's RMSNorm weight and four dense projections."""
+    return {**init.block(dim, heads, ffn), "x_norm": init.ones(dim),
+            "x_wq": init.dense(dim, dim), "x_wk": init.dense(dim, dim),
+            "x_wv": init.dense(dim, dim), "x_wo": init.dense(dim, dim)}
+
+
 def init_params(cfg: ASRConfig, *, seed: int = 0, device=None) -> dict:
     """Seeded random f32 parameters on ``device`` (default cuda), with the
     JAX package's shapes and distributions (dense weights uniform in
     +-1/sqrt(d_in), convolutions normal / sqrt(fan-in), positions and the
     embedding normal x 0.02, norms one). The numbers come from a
     ``torch.Generator``; ``params_from_jax`` carries the JAX package's."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def dense(d_in, d_out):
-        scale = 1.0 / math.sqrt(d_in)
-        return torch.rand((d_in, d_out), generator=gen, device=dev) * (2 * scale) - scale
-
-    def normal(*shape, std):
-        return torch.randn(shape, generator=gen, device=dev) * std
-
-    def ones():
-        return torch.ones((cfg.dim,), device=dev)
-
-    def block():
-        d, f = cfg.dim, cfg.ffn
-        return {"attn_norm": ones(), "wq": dense(d, d), "wk": dense(d, d), "wv": dense(d, d),
-                "wo": dense(d, d), "ffn_norm": ones(), "w_gate": dense(d, f),
-                "w_up": dense(d, f), "w_down": dense(f, d)}
-
-    def cross_block():
-        d = cfg.dim
-        return {**block(), "x_norm": ones(), "x_wq": dense(d, d), "x_wk": dense(d, d),
-                "x_wv": dense(d, d), "x_wo": dense(d, d)}
-
+    init = L.Init(seed, device)
+    d = cfg.dim
     return {
-        "conv1": normal(3, cfg.n_mels, cfg.dim, std=1.0 / math.sqrt(3 * cfg.n_mels)),
-        "conv2": normal(3, cfg.dim, cfg.dim, std=1.0 / math.sqrt(3 * cfg.dim)),
-        "enc_pos": normal(cfg.max_frames // 2, cfg.dim, std=0.02),
-        "enc_blocks": {str(i): block() for i in range(cfg.enc_layers)},
-        "enc_norm": ones(),
-        "embed": normal(cfg.vocab, cfg.dim, std=0.02),
-        "dec_blocks": {str(i): cross_block() for i in range(cfg.dec_layers)},
-        "dec_norm": ones(),
+        "conv1": init.normal(3, cfg.n_mels, d, std=1.0 / math.sqrt(3 * cfg.n_mels)),
+        "conv2": init.normal(3, d, d, std=1.0 / math.sqrt(3 * d)),
+        "enc_pos": init.normal(cfg.max_frames // 2, d),
+        "enc_blocks": {str(i): init.block(d, cfg.heads, cfg.ffn)
+                       for i in range(cfg.enc_layers)},
+        "enc_norm": init.ones(d),
+        "embed": init.normal(cfg.vocab, d),
+        "dec_blocks": {str(i): _cross_block_init(init, d, cfg.heads, cfg.ffn)
+                       for i in range(cfg.dec_layers)},
+        "dec_norm": init.ones(d),
     }
 
 

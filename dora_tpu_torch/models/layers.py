@@ -26,6 +26,7 @@ ported: their arguments raise.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
@@ -34,13 +35,66 @@ import torch
 from dora_tpu_torch._device import compute_dtype, resolve_device
 
 __all__ = [
-    "apply_rope", "apply_rope_tables", "attention", "attention_sublayer", "block_forward",
-    "causal_mask", "compute_dtype", "dense", "layer_norm", "matmul", "mlp_sublayer",
-    "resize_image", "rms_norm", "rope_table", "use_flash",
+    "Init", "apply_rope", "apply_rope_tables", "attention", "attention_sublayer",
+    "block_forward", "causal_mask", "compute_dtype", "cudnn_exact", "dense", "layer_norm",
+    "matmul", "mlp_sublayer", "resize_image", "rms_norm", "rope_table", "use_flash",
 ]
 
 #: quantized products with more rows than this take the bf16 sidecar
 MATVEC_MAX_ROWS = 32
+
+
+class Init:
+    """Seeded f32 initializers with the JAX package's shapes and
+    distributions (``dense_init``, ``embed_init``, ``init_block`` of
+    dora_tpu/models/layers.py): dense weights uniform in +-1/sqrt(d_in),
+    embeddings normal x 0.02, norm weights one, drawn in call order from
+    one ``torch.Generator`` on ``device`` (default cuda). The numbers are
+    not the JAX package's; the models' ``params_from_jax`` carry those."""
+
+    def __init__(self, seed: int, device=None):
+        self.device = resolve_device(device)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def uniform(self, shape, scale: float) -> torch.Tensor:
+        w = torch.rand(tuple(shape), generator=self.gen, device=self.device)
+        return w * (2 * scale) - scale
+
+    def dense(self, d_in: int, d_out: int) -> torch.Tensor:
+        return self.uniform((d_in, d_out), 1.0 / math.sqrt(d_in))
+
+    def normal(self, *shape, std: float = 0.02) -> torch.Tensor:
+        return torch.randn(shape, generator=self.gen, device=self.device) * std
+
+    def ones(self, n: int) -> torch.Tensor:
+        return torch.ones((n,), device=self.device)
+
+    def block(self, dim: int, heads: int, ffn: int, kv_heads: int | None = None) -> dict:
+        """The RMSNorm + SwiGLU block's weights (``init_block``)."""
+        hd = dim // heads
+        kv = kv_heads or heads
+        return {"attn_norm": self.ones(dim), "wq": self.dense(dim, heads * hd),
+                "wk": self.dense(dim, kv * hd), "wv": self.dense(dim, kv * hd),
+                "wo": self.dense(heads * hd, dim), "ffn_norm": self.ones(dim),
+                "w_gate": self.dense(dim, ffn), "w_up": self.dense(dim, ffn),
+                "w_down": self.dense(ffn, dim)}
+
+
+@contextlib.contextmanager
+def cudnn_exact(tf32: bool | None = None):
+    """cuDNN's deterministic algorithms while the block runs (a transposed
+    convolution's default one sums with atomics, so two runs on one input
+    can part in the last bits), and with ``tf32`` False no TF32 in cuDNN or
+    cuBLAS; the process's flags restored after. Only the card reads them."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    if tf32 is not None:
+        cudnn.allow_tf32 = matmul.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

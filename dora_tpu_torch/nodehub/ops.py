@@ -1,20 +1,23 @@
 """Operator factories of the model zoo for the port's runtime
-(dora_tpu/nodehub/ops.py): ``make_vlm``, ``make_asr`` and ``make_vad``,
-each a :class:`TorchOperator` whose weights live in its state on the
-device. A dataflow names them as ``--operator <id>=dora_tpu_torch.nodehub.ops:make_*``
+(dora_tpu/nodehub/ops.py): ``make_detector``, ``make_vlm``, ``make_asr``,
+``make_translator``, ``make_tts`` and ``make_vad``, each a
+:class:`TorchOperator` whose weights live in its state on the device. A dataflow names them as ``--operator <id>=dora_tpu_torch.nodehub.ops:make_*``
 arguments of ``module:dora_tpu_torch.runtime``; the runtime calls them with
 ``device=`` (default cuda).
 
 The knobs are the JAX package's: ``DORA_MODEL_SIZE`` ("tiny", else the
 full configuration), ``DORA_HF_CHECKPOINT`` (a safetensors directory of a
 matching family), ``DORA_PARAM_DTYPE``, ``DORA_MAX_NEW_TOKENS``,
-``DORA_PROMPT``, ``DORA_INT8_DECODE`` / ``DORA_INT4_DECODE`` and
-``DORA_SPEC_DECODE``. Two are refused with an error naming them:
+``DORA_PROMPT``, ``DORA_INT8_DECODE`` / ``DORA_INT4_DECODE``,
+``DORA_SPEC_DECODE``, ``DORA_DETECT_THRESHOLD`` / ``DORA_DETECT_TOPK`` and
+``DORA_TTS_STYLE``. Two are refused with an error naming them:
 ``DORA_CHECKPOINT`` (an orbax directory, which the port cannot read) and
 ``DORA_MESH`` (no tensor parallelism in the port yet). The self-contained
 models seed from the port's own generator, so their weights are not the
 JAX package's; parity is held by carrying the JAX parameters over
-(``models/hf/qwen2.params_from_jax``)."""
+(``models/hf/qwen2.params_from_jax``, and the ``params_from_jax`` of
+``models/detection``, ``translation`` and ``tts``, which relay the
+convolutions)."""
 
 from __future__ import annotations
 
@@ -94,6 +97,53 @@ def _quantize_knob() -> bool:
 
 def _max_new(default: str) -> int:
     return int(os.environ.get("DORA_MAX_NEW_TOKENS", default))
+
+
+def make_detector(device=None) -> TorchOperator:
+    """Image [H, W, 3] -> boxes [K, 4] (cxcywh in pixels), scores [K] and
+    classes [K] int32. With DORA_HF_CHECKPOINT at a YOLOS directory, the
+    pretrained detector (the image at the checkpoint's resolution);
+    otherwise the self-contained one (``tiny``, or ``DetectorConfig()``)."""
+    from dora_tpu_torch.models import detection
+
+    hf_path = _hf_checkpoint("yolos")
+    if hf_path:
+        from dora_tpu_torch.models.hf import yolos
+
+        cfg, params = yolos.load(hf_path, device=device)
+        return yolos_operator(cfg, _maybe_cast(params))
+
+    cfg = detection.DetectorConfig.tiny() if _size() == "tiny" else detection.DetectorConfig()
+    params = _maybe_restore(detection.init_params(cfg, seed=0, device=device), "detector")
+
+    def step(state, inputs):
+        out = detection.detect(state, cfg, _normalize(inputs["image"])[None])
+        return state, {k: out[k][0] for k in ("boxes", "scores", "classes")}
+
+    return TorchOperator(step=step, init_state=params)
+
+
+def yolos_operator(cfg, params) -> TorchOperator:
+    """YOLOS's operator over loaded ``params`` (what ``make_detector``
+    builds after ``yolos.load``): ``DORA_DETECT_THRESHOLD`` (default 0.5)
+    and ``DORA_DETECT_TOPK`` (default n_det) rows, the boxes turned from
+    normalized xyxy into the contract's cxcywh in pixels."""
+    from dora_tpu_torch.models.hf import yolos
+
+    threshold = float(os.environ.get("DORA_DETECT_THRESHOLD", "0.5"))
+    top_k = int(os.environ.get("DORA_DETECT_TOPK", str(cfg.n_det)))
+    img_h, img_w = cfg.image_size
+
+    def step(state, inputs):
+        pixels = yolos.preprocess(_normalize(inputs["image"])[None], cfg)
+        out = yolos.detect(state, cfg, pixels, threshold, top_k)
+        x1, y1, x2, y2 = out["boxes"][0].unbind(-1)
+        boxes = torch.stack([(x1 + x2) / 2 * img_w, (y1 + y2) / 2 * img_h,
+                             (x2 - x1) * img_w, (y2 - y1) * img_h], dim=-1)
+        return state, {"boxes": boxes, "scores": out["scores"][0],
+                       "classes": out["classes"][0]}
+
+    return TorchOperator(step=step, init_state=params)
 
 
 def make_vlm(device=None) -> TorchOperator:
@@ -236,6 +286,93 @@ def whisper_operator(cfg, params) -> TorchOperator:
         return state, {"tokens": serve(state, inputs["audio"])[0]}
 
     return TorchOperator(step=hf_step, init_state=params)
+
+
+def make_translator(device=None) -> TorchOperator:
+    """Text (utf-8 bytes or token ids) -> translated token ids [max_new]
+    int32 (the byte codec's ids): the self-contained encoder-decoder
+    (``tiny``, or ``TranslatorConfig()``), the source trimmed or padded with
+    PAD to ``max_src``, DORA_MAX_NEW_TOKENS (default 16) clamped at the
+    cache's ``max_tokens``."""
+    from dora_tpu_torch.models import tokenizer, translation
+
+    cfg = (translation.TranslatorConfig.tiny() if _size() == "tiny"
+           else translation.TranslatorConfig())
+    params = _maybe_restore(translation.init_params(cfg, seed=0, device=device), "translator")
+    max_new = min(_max_new("16"), cfg.max_tokens)
+    bos = tokenizer.BOS % cfg.vocab
+    pad = tokenizer.PAD % cfg.vocab
+
+    def step(state, inputs):
+        src = (inputs["text"].to(torch.int32) % cfg.vocab)[: cfg.max_src]
+        src = torch.nn.functional.pad(src, (0, cfg.max_src - src.shape[0]), value=pad)
+        return state, {"tokens": translation.translate(state, cfg, src[None], bos, max_new)[0]}
+
+    return TorchOperator(step=step, init_state=params)
+
+
+def make_tts(device=None) -> TorchOperator:
+    """Text (utf-8 bytes or token ids) -> waveform samples f32 in [-1, 1].
+    With DORA_HF_CHECKPOINT at a VITS / MMS-TTS directory, the pretrained
+    model (:func:`vits_operator`); otherwise the self-contained stack
+    (``tiny``, or ``TTSConfig()``) in the voice DORA_TTS_STYLE."""
+    from dora_tpu_torch.models import tokenizer, tts
+
+    vits_path = _hf_checkpoint("vits")
+    if vits_path:
+        import json
+
+        from dora_tpu_torch.models.hf import vits
+
+        cfg, params = vits.load(vits_path, device=device)
+        vocab_file = Path(vits_path) / "vocab.json"
+        vocab = json.loads(vocab_file.read_text()) if vocab_file.exists() else None
+        return vits_operator(cfg, params, vocab)
+
+    cfg = tts.TTSConfig.tiny() if _size() == "tiny" else tts.TTSConfig()
+    params = _maybe_restore(tts.init_params(cfg, seed=0, device=device), "tts")
+    style = int(os.environ.get("DORA_TTS_STYLE", "0")) % cfg.n_styles
+    pad = tokenizer.PAD % cfg.vocab
+
+    def step(state, inputs):
+        text = (inputs["text"].to(torch.int32) % cfg.vocab)[: cfg.max_text]
+        text = torch.nn.functional.pad(text, (0, cfg.max_text - text.shape[0]), value=pad)
+        styles = torch.tensor([style], device=text.device)
+        return state, {"audio": tts.synthesize(state, cfg, text[None], styles)[0]}
+
+    return TorchOperator(step=step, init_state=params)
+
+
+def vits_text_ids(raw: bytes, vocab: dict | None, n_vocab: int) -> list[int]:
+    """The VITS convention: lowercase characters through the checkpoint's
+    ``vocab.json`` (bytes modulo the vocabulary without one), pad 0 around
+    each."""
+    text = raw.decode("utf-8", "ignore").lower()
+    if vocab is None:
+        ids = [b % n_vocab for b in text.encode()]
+    else:
+        ids = [vocab[ch] for ch in text if ch in vocab]
+    out = [0]
+    for t in ids:
+        out += [t, 0]
+    return out
+
+
+def vits_operator(cfg, params, vocab: dict | None = None) -> TorchOperator:
+    """VITS's operator over loaded ``params`` (what ``make_tts`` builds
+    after ``vits.load``): the input's bytes (uint8 of each value) as VITS
+    ids, then ``vits.synthesize_bucketed``. A host operator: the length
+    of its output depends on the predicted durations."""
+    import numpy as np
+
+    from dora_tpu_torch.models.hf import vits
+
+    def step(state, inputs):
+        raw = bytes(inputs["text"].cpu().numpy().astype(np.uint8))
+        ids = torch.tensor([vits_text_ids(raw, vocab, cfg.vocab)], dtype=torch.int32)
+        return state, {"audio": vits.synthesize_bucketed(state, cfg, ids)[0]}
+
+    return TorchOperator(step=step, init_state=params, host=True)
 
 
 def make_vad(device=None) -> TorchOperator:

@@ -37,10 +37,15 @@ def test_port_imports_no_jax_and_no_dora_tpu():
         "        'dora_tpu_torch.tpu.api', 'dora_tpu_torch.tpu.bridge', 'dora_tpu_torch.tpu.fuse',\n"
         "        'dora_tpu_torch.core.config', 'dora_tpu_torch.core.descriptor',\n"
         "        'dora_tpu_torch.models.hf.whisper', 'dora_tpu_torch.models.asr',\n"
-        "        'dora_tpu_torch.models.hf.wav2vec2', 'dora_tpu_torch.models.vad'} <= set(names)\n"
+        "        'dora_tpu_torch.models.hf.wav2vec2', 'dora_tpu_torch.models.vad',\n"
+        "        'dora_tpu_torch.models.spm', 'dora_tpu_torch.models.detection',\n"
+        "        'dora_tpu_torch.models.hf.yolos', 'dora_tpu_torch.models.translation',\n"
+        "        'dora_tpu_torch.models.hf.marian', 'dora_tpu_torch.models.tts',\n"
+        "        'dora_tpu_torch.models.hf.vits', 'dora_tpu_torch.nodehub.translator'} <= set(names)\n"
         "from dora_tpu_torch.models import tokenizer, vlm\n"
         "from dora_tpu_torch.nodehub import ops\n"
-        "assert all(callable(getattr(ops, f)) for f in ('make_vlm', 'make_asr', 'make_vad'))\n"
+        "assert all(callable(getattr(ops, f)) for f in ('make_vlm', 'make_asr', 'make_vad',\n"
+        "           'make_detector', 'make_translator', 'make_tts'))\n"
         "from dora_tpu_torch.ops import flash_attention\n"
         "assert callable(tokenizer.BPETokenizer) and callable(ops._hf_tokenizer)\n"
         "assert callable(flash_attention.flash_attention) and callable(vlm.generate_speculative)\n"
@@ -126,6 +131,26 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert compute_dtype("cpu") == torch.float32
     assert compute_dtype("cuda") == torch.bfloat16
+
+
+def test_hub_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The hub models' factories, loaders and initializers default to cuda
+    and refuse without it, before they read anything."""
+    from dora_tpu_torch.models import detection, translation, tts
+    from dora_tpu_torch.models.hf import marian, vits, yolos
+    from dora_tpu_torch.nodehub import ops
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("DORA_MODEL_SIZE", "tiny")
+    monkeypatch.delenv("DORA_HF_CHECKPOINT", raising=False)
+    for fn in (ops.make_detector, ops.make_translator, ops.make_tts,
+               lambda: detection.init_params(detection.DetectorConfig.tiny()),
+               lambda: translation.init_params(translation.TranslatorConfig.tiny()),
+               lambda: tts.init_params(tts.TTSConfig.tiny()),
+               lambda: yolos.load(tmp_path), lambda: marian.load(tmp_path),
+               lambda: vits.load(tmp_path)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn()
 
 
 def test_qwen2_1_5b_shape():

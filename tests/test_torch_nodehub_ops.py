@@ -1,23 +1,27 @@
 """The port's operator factories against dora_tpu's, on the CPU.
 
-``make_vlm``, ``make_asr`` and ``make_vad`` are built in both packages from
-the same environment, and one step (two for the VAD, whose GRU state
-threads from tick to tick) runs on the same seeded input:
+``make_vlm``, ``make_asr``, ``make_vad``, ``make_detector``,
+``make_translator`` and ``make_tts`` are built in both packages from the
+same environment, and one step (two for the VAD, whose GRU state threads
+from tick to tick) runs on the same seeded input:
 
 * the self-contained models (``DORA_MODEL_SIZE`` tiny) seed from each
   package's own generator, so the JAX operator's ``init_state`` is carried
   into the port's operator by ``params_from_jax`` (for the VLM after
-  ``DORA_INT8_DECODE``'s quantization, as the JAX factory builds it);
+  ``DORA_INT8_DECODE``'s quantization, as the JAX factory builds it; the
+  detector's and the TTS's relay their convolutions);
 * the HF branches load the same tiny ``transformers`` checkpoints
-  (Whisper, Wav2Vec2, Qwen2-VL) through ``DORA_HF_CHECKPOINT``.
+  (Whisper, Wav2Vec2, Qwen2-VL, YOLOS, VITS) through ``DORA_HF_CHECKPOINT``.
 
-Tokens are exact; probabilities within 1e-5 of the largest value (f32
-products summed in another order). Each output's dtype and shape are the
-JAX operator's.
+Tokens and classes are exact; probabilities, boxes, scores and waveforms
+within 1e-5 (1e-4 for the detectors' boxes and scores and the waveforms:
+convolutions) of the largest value (f32 products summed in another order).
+Each output's dtype and shape are the JAX operator's.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,7 +35,8 @@ transformers = pytest.importorskip("transformers")
 
 KNOBS = ("DORA_MODEL_SIZE", "DORA_HF_CHECKPOINT", "DORA_INT8_DECODE", "DORA_INT4_DECODE",
          "DORA_SPEC_DECODE", "DORA_MAX_NEW_TOKENS", "DORA_PARAM_DTYPE", "DORA_CHECKPOINT",
-         "DORA_MESH", "DORA_PROMPT", "DORA_FUSED_DECODE", "IMAGE_HEIGHT", "IMAGE_WIDTH")
+         "DORA_MESH", "DORA_PROMPT", "DORA_FUSED_DECODE", "IMAGE_HEIGHT", "IMAGE_WIDTH",
+         "DORA_DETECT_THRESHOLD", "DORA_DETECT_TOPK", "DORA_TTS_STYLE")
 
 
 @pytest.fixture()
@@ -45,14 +50,22 @@ def _np(x):
     return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _step_both(jop, top, inputs: dict | list, carry: bool):
+def _step_both(jop, top, inputs: dict | list, carry, jit: bool = False):
     """Run both operators over the same inputs (a dict: one tick; a list:
-    one tick each); returns the (JAX, port) outputs of each tick."""
+    one tick each); returns the (JAX, port) outputs of each tick. ``carry``
+    (True, or the model's own ``params_from_jax``) carries the JAX
+    operator's state into the port's; ``jit`` runs the JAX step compiled,
+    as the JAX runtime does (op by op, every primitive compiles alone)."""
     jstate = jop.init_state
-    tstate = params_from_jax(jstate, device="cpu") if carry else top.init_state
+    jstep = jax.jit(jop.step) if jit else jop.step
+    if carry:
+        convert = params_from_jax if carry is True else carry
+        tstate = convert(jax.device_get(jstate), device="cpu")
+    else:
+        tstate = top.init_state
     out = []
     for inputs in [inputs] if isinstance(inputs, dict) else inputs:
-        jstate, jout = jop.step(jstate, {k: jnp.asarray(v) for k, v in inputs.items()})
+        jstate, jout = jstep(jstate, {k: jnp.asarray(v) for k, v in inputs.items()})
         tstate, tout = top.step(tstate, {k: torch.from_numpy(v) for k, v in inputs.items()})
         out.append(({k: np.asarray(v) for k, v in jout.items()},
                     {k: _np(v) for k, v in tout.items()}))
@@ -183,3 +196,87 @@ def test_make_vlm_qwen2_vl_matches(env, tmp_path):
     pairs = _step_both(jops.make_vlm(), tops.make_vlm(device="cpu"),
                        {"image": _frame(7, 56, 56)}, carry=False)
     _equal(pairs)
+
+
+@pytest.mark.parametrize("size", ["tiny", "hf"])
+def test_make_detector_matches(env, size, tmp_path):
+    from dora_tpu_torch.models import detection
+
+    if size == "hf":
+        from transformers import YolosConfig, YolosForObjectDetection
+
+        config = YolosConfig(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+                             intermediate_size=64, image_size=[32, 48], patch_size=8,
+                             num_detection_tokens=5, num_labels=7, qkv_bias=True,
+                             attn_implementation="eager")
+        torch.manual_seed(17)
+        YolosForObjectDetection(config).eval().save_pretrained(tmp_path,
+                                                               safe_serialization=True)
+        env.setenv("DORA_HF_CHECKPOINT", str(tmp_path))
+        env.setenv("DORA_DETECT_THRESHOLD", "0.0")
+        env.setenv("DORA_DETECT_TOPK", "4")
+        image, carry, rows = _frame(20, 32, 48), False, 4
+    else:
+        from dora_tpu.models import detection as jdetection
+
+        # init_params' shapes with seeded numpy values: its jax.random draws
+        # compile one by one (18 s); the port's operator gets them carried over
+        init = jdetection.init_params
+        rng = np.random.default_rng(21)
+        env.setattr(jdetection, "init_params", lambda key, cfg: jax.tree.map(
+            lambda s: rng.uniform(-0.5, 0.5, s.shape).astype(np.float32),
+            jax.eval_shape(lambda: init(key, cfg))))
+        image, carry, rows = _frame(21, 64, 64), detection.params_from_jax, 10
+    jop, top = jops.make_detector(), tops.make_detector(device="cpu")
+    assert top.host == jop.host is False
+    pairs = _step_both(jop, top, {"image": image}, carry=carry, jit=True)
+    _equal(pairs, tol=1e-4)
+    tout = pairs[0][1]
+    assert tout["boxes"].shape == (rows, 4) and tout["classes"].dtype == np.int32
+
+
+def test_make_translator_tiny_matches(env):
+    from dora_tpu_torch.models import translation
+
+    env.setenv("DORA_MAX_NEW_TOKENS", "40")  # clamped at the cache's 16
+    text = np.frombuffer("the cat sat on the mat, ünïcødé".encode(), dtype=np.uint8)
+    pairs = _step_both(jops.make_translator(), tops.make_translator(device="cpu"),
+                       [{"text": text}, {"text": np.tile(text, 3)}],
+                       carry=translation.params_from_jax, jit=True)
+    _equal(pairs)
+    assert pairs[0][1]["tokens"].shape == (16,)
+
+
+@pytest.mark.parametrize("style", [None, "3"])
+def test_make_tts_tiny_matches(env, style):
+    from dora_tpu_torch.models import tts
+
+    if style:
+        env.setenv("DORA_TTS_STYLE", style)
+    text = np.random.default_rng(22).integers(0, 300, size=9).astype(np.int32)
+    pairs = _step_both(jops.make_tts(), tops.make_tts(device="cpu"), {"text": text},
+                       carry=tts.params_from_jax, jit=True)
+    _equal(pairs, tol=1e-4)
+
+
+def test_make_tts_vits_matches(env, tmp_path):
+    from transformers import VitsConfig, VitsModel
+
+    config = VitsConfig(
+        vocab_size=40, hidden_size=32, num_hidden_layers=2, num_attention_heads=2, ffn_dim=64,
+        window_size=2, flow_size=16, spectrogram_bins=9, duration_predictor_filter_channels=24,
+        duration_predictor_num_flows=2, duration_predictor_flow_bins=4,
+        depth_separable_num_layers=2, prior_encoder_num_flows=2,
+        prior_encoder_num_wavenet_layers=2, wavenet_kernel_size=3,
+        upsample_initial_channel=16, upsample_rates=[4, 4], upsample_kernel_sizes=[8, 8],
+        resblock_kernel_sizes=[3], resblock_dilation_sizes=[[1, 3]], noise_scale=0.0,
+        noise_scale_duration=0.0)
+    torch.manual_seed(31)
+    VitsModel(config).eval().save_pretrained(tmp_path, safe_serialization=True)
+    env.setenv("DORA_HF_CHECKPOINT", str(tmp_path))
+    jop, top = jops.make_tts(), tops.make_tts(device="cpu")
+    assert top.host and jop.host
+    text = np.frombuffer(b"Hello, World", dtype=np.uint8)
+    pairs = _step_both(jop, top, [{"text": text}, {"text": text[:5]}], carry=False)
+    _equal(pairs, tol=1e-4)
+    assert pairs[0][1]["audio"].shape[0] > pairs[1][1]["audio"].shape[0] > 0

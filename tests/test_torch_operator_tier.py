@@ -480,7 +480,10 @@ def test_event_stream_wake():
 
 @pytest.mark.parametrize("name,node,jax_example", [
     ("speech-to-text.yml", "speech", "examples/speech-to-text/dataflow.yml"),
-    ("vlm.yml", "vlm", "examples/vlm/dataflow.yml")])
+    ("vlm.yml", "vlm", "examples/vlm/dataflow.yml"),
+    ("yolo.yml", "detector", "examples/yolo/dataflow.yml"),
+    ("translation.yml", "translator", "examples/translation/dataflow.yml"),
+    ("translation.yml", "tts", "examples/translation/dataflow.yml")])
 def test_example_dataflows_mirror_the_jax_ones(name, node, jax_example):
     """The port's example dataflows pass the JAX package's check, and their
     runtime node has the JAX runtime node's operators and streams."""
