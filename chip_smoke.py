@@ -206,7 +206,23 @@ Phases, each printed on its own line:
    tokens equal to greedy ones, VITS's durations equal to the f32 plain
    path's (and how many TF32 would move), the waveforms' rel RMS; tick
    wall p50 / p99, frames or tokens a second, ms a sentence, audio seconds
-   a wall second and the device busy share.
+   a wall second and the device busy share;
+18. training and the parallel tier (``train`` lines): (a) ``vlm.loss_fn``
+   and ``make_train_step`` on bench_2b at full width (about 2.2 B f32
+   master weights, Adam at TRAIN_LR, batch TRAIN_BATCH x 256 image + 64
+   text tokens): step 1 through kernel 11 (32 ViT + 28 LM launches, its
+   backward plain PyTorch) against the same step with
+   DORA_FLASH_ATTENTION=0 (loss within TRAIN_LOSS_REL, every leaf's
+   gradient finite, nonzero and at cosine >= TRAIN_GRAD_COS to the
+   flash-off one), then TRAIN_STEPS steps on one seeded batch: launches
+   exact, the loss falling, step ms, tokens a second, peak memory and the
+   device busy share of one more step; (b) ``tts.loss_fn`` at phase 17's
+   bench TTS widths, TTS_STEPS SGD steps, the loss falling; (c) a one-rank
+   NCCL group over a file store: ``vlm.generate_tp`` at tp 1 (its
+   all-reduces through NCCL) equal to ``vlm.generate`` token for token with
+   exact launches, and ring and Ulysses attention at sp 1 equal to the
+   dense einsum in f32 (SP1_REL_TOL). NCCL across cards is not run on this
+   one-card machine. The kernels line adds (a)'s launches to kernel 11's.
 
 Phase 3 also holds the int4 forms of kernels 1-5 and 8-10 against their
 plain versions on phase 12's int4 weights at the main paths' shapes (with
@@ -251,8 +267,8 @@ phase 3, ``--breakdown`` runs only kernel 6's lines and the ``breakdown``,
 and 10, phase 12's main path and the VLM's ``generate`` (prefill chunk, window, spec-on window,
 dense step and its short prompts' TTFT, batch-1 prefill, ``run_loop``
 pass, VLM step and ViT times; the windows and the dense step graphed and
-eager), ``--hf-vlm`` only phase 15, ``--operators`` only phase 16 and
-``--hub`` only phase 17, all
+eager), ``--hf-vlm`` only phase 15, ``--operators`` only phase 16,
+``--hub`` only phase 17 and ``--train`` only phase 18, all
 without the result line.
 
 Phases 4, 6, 8 and 9 build their engines through the normal factories,
@@ -6330,6 +6346,320 @@ def _served_durations(torch, vits, params, cfg, ids, tf32: bool):
     return np.diff(cum, prepend=0)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training and the parallel tier
+# ---------------------------------------------------------------------------
+
+#: phase 18 (a): the bench_2b VLM's batch, text tokens and Adam steps
+TRAIN_BATCH = 2
+TRAIN_TEXT = 64
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-5
+# Step 1 through kernel 11 against the same step with DORA_FLASH_ATTENTION=0
+# (the dense einsum), both in bf16: the kernel keeps an f32 softmax and feeds
+# p to P.V as hi + lo bf16, the einsum rounds p and its backward to bf16
+# (PERF.md, the ViT differs by ~1 % RMS), so the two part by rounding, most
+# in the ViT's wk, whose gradient nearly cancels under near-uniform weights
+# (seen on an H100: cosine 0.9955, median 0.99992; PERF.md). So each leaf's
+# gradient is also held to the f32 step (flash off, compute dtype f32): its
+# relative L2 distance within RMS_MARGIN x the flash-off bf16 path's, or
+# within TRAIN_REL_FLOOR.
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_COS = 0.99
+TRAIN_REL_FLOOR = 1e-2
+#: phase 18 (b): SGD on the TTS at the bench widths of phase 17
+TTS_STEPS = 5
+TTS_LR = 0.05
+#: phase 18 (c): new tokens of generate_tp against generate
+TP_MAX_NEW = 32
+#: ring and Ulysses at sp 1 against the dense einsum, f32 (rel max err)
+SP1_REL_TOL = 1e-5
+
+
+def _train_grads(torch, vlm, cfg, params, batch) -> tuple[float, dict]:
+    """One loss and its gradients; the leaves' .grad cleared after."""
+    leaves = dict(_named_leaves(params))
+    for p in leaves.values():
+        p.grad = None
+    loss = vlm.loss_fn(params, cfg, batch)
+    loss.backward()
+    grads = {k: p.grad for k, p in leaves.items()}
+    for p in leaves.values():
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def _grad_distances(torch, grads, ref) -> dict:
+    """Per leaf: (cosine, relative L2 distance) of ``grads`` to ``ref``."""
+    out = {}
+    for k, g in grads.items():
+        a, b = g.flatten().double(), ref[k].flatten().double()
+        out[k] = (float(torch.nn.functional.cosine_similarity(a, b, dim=0)),
+                  float((a - b).norm() / b.norm()))
+    return out
+
+
+def train_vlm(torch, DB, LO, smi: str, seed: int, scratch: str, dev: str = "cuda",
+              size: str = "bench") -> int:
+    """Phase 18 (a): ``vlm.make_train_step`` on bench_2b (f32 master
+    weights, Adam) at full width. Step 1's loss and gradients through
+    kernel 11 (32 ViT + 28 LM launches, its backward in plain PyTorch)
+    against the same step with DORA_FLASH_ATTENTION=0 and against the f32
+    step; every leaf's gradient finite and nonzero; then TRAIN_STEPS Adam
+    steps on one seeded batch, the launches exact and the loss falling.
+    Returns the steps' launches."""
+    import functools
+
+    from dora_tpu_torch.models import layers as L
+    from dora_tpu_torch.models import vlm
+
+    cfg = vlm.VLMConfig.bench_2b() if size == "bench" else vlm.VLMConfig.tiny()
+    text = TRAIN_TEXT if size == "bench" else 8
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = vlm.init_params(cfg, seed=seed, device=dev)
+    n_params = vlm.param_count(params)
+    for leaf in vlm.param_leaves(params):
+        leaf.requires_grad_(True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    batch = {"images": torch.rand((TRAIN_BATCH, cfg.image_size, cfg.image_size, 3),
+                                  generator=gen, device=dev),
+             "tokens": torch.randint(0, cfg.vocab, (TRAIN_BATCH, text), generator=gen,
+                                     device=dev)}
+    torch.cuda.synchronize()
+    per_step = cfg.vision_layers + cfg.layers
+    print(f"train (a) weights: {size} VLM, {n_params / 1e9:.3f} B f32 parameters (ViT "
+          f"{cfg.vision_layers} x {cfg.vision_dim}, LM {cfg.layers} x {cfg.dim}), batch "
+          f"{TRAIN_BATCH} x ({cfg.n_patches} image + {text} text) tokens, in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+
+    plain = _PlainCalls(DB, LO)
+    try:
+        with _env(DORA_FLASH_ATTENTION=None):
+            _reset_launches(DB, LO)
+            loss_k, grads_k = _train_grads(torch, vlm, cfg, params, batch)
+            launched = _launches(DB, LO)
+        if launched["flash_attention"] != per_step or plain.n:
+            raise Failed(f"train (a): step 1 launched flash_attention "
+                         f"{launched['flash_attention']} times (want {per_step}), plain calls "
+                         f"{plain.n}")
+        others = {k: n for k, n in launched.items() if n and k != "flash_attention"}
+        if others:
+            raise Failed(f"train (a): step 1 launched other kernels: {others}")
+        bad = [k for k, g in grads_k.items()
+               if g is None or not bool(torch.isfinite(g).all()) or not float(g.abs().max()) > 0]
+        if bad:
+            raise Failed(f"train (a): leaves without a finite nonzero gradient: {bad[:8]} "
+                         f"({len(bad)} of {len(grads_k)})")
+        with _env(DORA_FLASH_ATTENTION="0"):
+            _reset_launches(DB, LO)
+            loss_d, grads_d = _train_grads(torch, vlm, cfg, params, batch)
+            loss_32, grads_32 = _f32(torch, L, lambda: _train_grads(torch, vlm, cfg, params,
+                                                                    batch))
+            if _launches(DB, LO)["flash_attention"]:
+                raise Failed("train (a): DORA_FLASH_ATTENTION=0 still launched kernel 11")
+    finally:
+        plain.restore()
+    cos = {k: c for k, (c, _) in _grad_distances(torch, grads_k, grads_d).items()}
+    worst = min(cos, key=cos.get)
+    to32_k = _grad_distances(torch, grads_k, grads_32)
+    to32_d = _grad_distances(torch, grads_d, grads_32)
+    del grads_k, grads_d, grads_32
+    ratio = {k: to32_k[k][1] / max(to32_d[k][1], 1e-30) for k in to32_k}
+    far = [k for k in to32_k if to32_k[k][1] > max(RMS_MARGIN * to32_d[k][1], TRAIN_REL_FLOOR)]
+    top = max(ratio, key=ratio.get)
+    rel = abs(loss_k - loss_d) / abs(loss_d)
+    print(f"train (a) step 1: loss {loss_k:.6f} through kernel 11 ({per_step} launches: "
+          f"{cfg.vision_layers} ViT full + {cfg.layers} LM causal), {loss_d:.6f} with "
+          f"DORA_FLASH_ATTENTION=0: rel {rel:.3e} (bound {TRAIN_LOSS_REL}), f32 {loss_32:.6f}; "
+          f"every one of {len(cos)} leaves' gradients finite and nonzero; per-leaf cosine of "
+          f"the two paths' gradients min {cos[worst]:.6f} at {worst} (bound {TRAIN_GRAD_COS}), "
+          f"median {sorted(cos.values())[len(cos) // 2]:.6f} [{smi}]", flush=True)
+    print(f"train (a) step 1 against f32 (rel L2 of each leaf's gradient): kernel path at "
+          f"{worst} {to32_k[worst][1]:.3e} (cosine {to32_k[worst][0]:.6f}), flash off "
+          f"{to32_d[worst][1]:.3e} ({to32_d[worst][0]:.6f}); largest ratio kernel / flash off "
+          f"{ratio[top]:.3f} at {top} ({to32_k[top][1]:.3e} / {to32_d[top][1]:.3e}); kernel "
+          f"path median {sorted(d for _, d in to32_k.values())[len(to32_k) // 2]:.3e}, max "
+          f"{max(d for _, d in to32_k.values()):.3e}; flash off median "
+          f"{sorted(d for _, d in to32_d.values())[len(to32_d) // 2]:.3e}, max "
+          f"{max(d for _, d in to32_d.values()):.3e}; beyond max({RMS_MARGIN} x flash off, "
+          f"{TRAIN_REL_FLOOR}): {far[:4]} ({len(far)}) [{smi}]", flush=True)
+    if not rel <= TRAIN_LOSS_REL:
+        raise Failed(f"train (a): kernel-path loss {loss_k} against {loss_d} with flash off")
+    if not cos[worst] >= TRAIN_GRAD_COS:
+        raise Failed(f"train (a): gradient of {worst} at cosine {cos[worst]} to the flash-off one")
+    if far:
+        raise Failed(f"train (a): kernel-path gradients farther from f32 than the flash-off "
+                     f"path's allows: {far[:8]}")
+
+    opt = functools.partial(torch.optim.Adam, lr=TRAIN_LR)
+    state = vlm.init_opt_state(opt, params)
+    step = vlm.make_train_step(cfg, opt)
+    losses, ms = [], []
+    _reset_launches(DB, LO)
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, state, loss = step(params, state, batch)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t) * 1e3)
+    launches = _launches(DB, LO)["flash_attention"]
+    if launches != TRAIN_STEPS * per_step:
+        raise Failed(f"train (a): {TRAIN_STEPS} steps launched flash_attention {launches} times "
+                     f"(want {TRAIN_STEPS * per_step})")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    warm = sorted(ms[1:])[len(ms[1:]) // 2]
+    share = _device_busy(torch, lambda: step(params, state, batch),
+                         os.path.join(scratch, f"trace-train-{os.getpid()}"))
+    print(f"train (a) steps: losses {[round(x, 6) for x in losses]}; step ms "
+          f"{[round(x, 1) for x in ms]} (the first builds Adam's state), median of the rest "
+          f"{warm:.1f} ms: {_per_s(TRAIN_BATCH * text, warm)} scored text tokens/s, "
+          f"{_per_s(TRAIN_BATCH * (cfg.n_patches + text), warm)} sequence tokens/s; "
+          f"flash_attention {launches} launches ({per_step} a step); peak memory "
+          f"{peak:.2f} GiB; one more step under profiling.start_capture: {share} [{smi}]",
+          flush=True)
+    if not losses[-1] < losses[0]:
+        raise Failed(f"train (a): the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    del params, state, step, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _per_s(tokens: int, ms: float) -> str:
+    """Tokens a second of a step of ``ms``."""
+    return f"{tokens / (ms / 1e3):.1f}"
+
+
+def train_tts(torch, smi: str, seed: int, dev: str = "cuda", size: str = "bench") -> None:
+    """Phase 18 (b): ``tts.loss_fn`` at the bench widths phase 17 serves,
+    TTS_STEPS SGD steps on one seeded batch; the loss must fall."""
+    import functools
+
+    from dora_tpu_torch.models import tts, vlm
+
+    cfg = tts.TTSConfig() if size == "bench" else tts.TTSConfig.tiny()
+    params = tts.init_params(cfg, seed=seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    batch = {"text": torch.randint(0, cfg.vocab, (2, cfg.max_text), generator=gen, device=dev),
+             "style": torch.randint(0, cfg.n_styles, (2,), generator=gen, device=dev),
+             "mel": torch.randn((2, cfg.max_frames, cfg.n_mels), generator=gen, device=dev),
+             "wave": torch.rand((2, cfg.max_samples), generator=gen, device=dev) - 0.5}
+    opt = vlm.init_opt_state(functools.partial(torch.optim.SGD, lr=TTS_LR), params)
+    losses, ms = [], []
+    for _ in range(TTS_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = tts.loss_fn(params, cfg, batch)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+        ms.append((time.perf_counter() - t) * 1e3)
+    print(f"train (b) tts.loss_fn at {size} widths ({tts.param_count(params) / 1e6:.1f} M "
+          f"parameters, {cfg.enc_layers} + {cfg.dec_layers} layers x {cfg.dim}, batch 2 x "
+          f"{cfg.max_text} ids -> {cfg.max_samples} samples), SGD lr {TTS_LR}: losses "
+          f"{[round(x, 6) for x in losses]}; step ms {[round(x, 1) for x in ms]} [{smi}]",
+          flush=True)
+    if not losses[-1] < losses[0]:
+        raise Failed(f"train (b): the TTS loss did not fall over {TTS_STEPS} steps: {losses}")
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def parallel_one_rank(torch, DB, LO, smi: str, seed: int, scratch: str, dev: str = "cuda",
+                      size: str = "bench") -> None:
+    """Phase 18 (c): a one-rank process group (NCCL on the card, a file
+    store): ``vlm.generate_tp`` at tp 1 (its all-reduces through NCCL) equal
+    to ``vlm.generate`` token for token with exact launches, and ring and
+    Ulysses attention at sp 1 equal to the dense einsum in f32. NCCL across
+    cards is not run: this machine has one card."""
+    import torch.distributed as dist
+
+    from dora_tpu_torch.models import layers as L
+    from dora_tpu_torch.models import vlm
+    from dora_tpu_torch.parallel import fused_tp as FTP
+    from dora_tpu_torch.parallel import make_mesh, ring_attention, ulysses_attention
+
+    store = tempfile.mkdtemp(prefix="store-", dir=scratch)
+    backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(store, "s"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(tp=1)
+        cfg = vlm.VLMConfig.bench_2b() if size == "bench" else vlm.VLMConfig.tiny()
+        qp = vlm.quantize_decode(vlm.init_params(cfg, seed=seed, device=dev))
+        tp_params = FTP.prepare_decode_params(qp, mesh, heads=cfg.heads, kv_heads=cfg.kv_heads,
+                                              head_dim=cfg.head_dim, layers=cfg.layers)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        image = torch.rand((1, cfg.image_size, cfg.image_size, 3), generator=gen, device=dev)
+        prompt = torch.randint(0, cfg.vocab, (1, VLM_PROMPT), generator=gen, device=dev)
+        n = TP_MAX_NEW if size == "bench" else 6
+        with torch.no_grad():
+            _reset_launches(DB, LO)
+            t = time.perf_counter()
+            got = vlm.generate_tp(qp, tp_params, cfg, image, prompt, n, mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launched = _launches(DB, LO)
+            want = vlm.generate(qp, cfg, image, prompt, n)
+        # the prefill's head on its last row; a prefill of at most 32 rows also
+        # takes its four block products through int8_matmul (layers.matmul)
+        rows = cfg.n_patches + VLM_PROMPT
+        need = {"flash_attention": cfg.vision_layers,
+                "int8_matmul": 1 + (4 * cfg.layers if rows <= L.MATVEC_MAX_ROWS else 0),
+                "attention_step": (n - 1) * cfg.layers, "mlp_step": (n - 1) * cfg.layers,
+                "lm_head_argmax": n - 1}
+        ran = {k: v for k, v in launched.items() if v}
+        if ran != need:
+            raise Failed(f"train (c): generate_tp launched {ran}, want {need}")
+        same = got.tolist() == want.tolist()
+        print(f"train (c) {backend} one-rank group: generate_tp at tp 1 ({n} tokens, "
+              f"{wall:.3f} s, the all-reduces through {backend}) "
+              f"{'equals' if same else 'DIFFERS FROM'} vlm.generate token for token; launches "
+              f"{json.dumps(ran)} [{smi}]", flush=True)
+        if not same:
+            raise Failed(f"train (c): generate_tp {got.tolist()} against generate {want.tolist()}")
+        del qp, tp_params
+        torch.cuda.empty_cache()
+        sp_mesh = make_mesh(sp=1)
+        g = torch.Generator(device=dev).manual_seed(seed + 2)
+        shape = (TRAIN_BATCH, cfg.heads, cfg.n_patches + TRAIN_TEXT, cfg.head_dim)
+        q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+        lines = []
+        for causal in (False, True):
+            mask = L.causal_mask(shape[2], shape[2], device=dev) if causal else None
+            dense = L.attention(q, k, v, mask)
+            for fn in (ring_attention, ulysses_attention):
+                _, rel = _rel(fn(q, k, v, sp_mesh, causal=causal), dense)
+                lines.append(f"{fn.__name__} {'causal' if causal else 'full'} {rel:.2e}")
+                if not rel <= SP1_REL_TOL:
+                    raise Failed(f"train (c): {fn.__name__} at sp 1 is {rel:.3e} from dense")
+        print(f"train (c) sp 1 on {tuple(shape)} f32 against the dense einsum (rel max err, "
+              f"bound {SP1_REL_TOL}): {'; '.join(lines)}. NCCL across cards is not verified: "
+              f"this machine has one card [{smi}]", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_train(torch, DB, LO, smi: str, seed: int, scratch: str, dev: str = "cuda",
+                size: str = "bench") -> int:
+    """Phase 18: (a) :func:`train_vlm`, (b) :func:`train_tts`, (c)
+    :func:`parallel_one_rank`. Returns (a)'s kernel 11 launches."""
+    launches = train_vlm(torch, DB, LO, smi, seed, scratch, dev, size)
+    train_tts(torch, smi, seed + 3, dev, size)
+    parallel_one_rank(torch, DB, LO, smi, seed + 5, scratch, dev, size)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch/CUDA port")
     ap.add_argument("--layers", type=int, default=28, help="model depth (width stays)")
@@ -6351,6 +6681,9 @@ def main(argv=None) -> int:
     ap.add_argument("--hub", action="store_true",
                     help="build, then only phase 17: the hub models' nodes (detector, YOLOS, "
                          "translator, TTS, Opus, VITS) (prints no result line)")
+    ap.add_argument("--train", action="store_true",
+                    help="build, then only phase 18: training (bench_2b VLM, TTS) and the "
+                         "parallel tier on a one-rank group (prints no result line)")
     ap.add_argument("--paths", action="store_true",
                     help="build, then only phases 4, 6, 9 and 10, phase 12's main path and the "
                          "VLM's generate, for their times (prints no result line)")
@@ -6432,6 +6765,10 @@ def main(argv=None) -> int:
         if args.hub:
             del params, params4
             serve_hub(torch, DB, LO, L, smi, args.seed + 50, scratch)
+            return 0
+        if args.train:
+            del params, params4
+            serve_train(torch, DB, LO, smi, args.seed + 60, scratch)
             return 0
         if args.paths:  # phases 4, 6, 9, 10 and 12's main path and the VLM's generate alone
             _, _, slice_times = serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg,
@@ -6556,6 +6893,8 @@ def main(argv=None) -> int:
         del paths, params
         serve_operators(torch, DB, LO, L, smi, args.seed + 40, scratch)
         serve_hub(torch, DB, LO, L, smi, args.seed + 50, scratch)
+        by_name["flash_attention"]["launches"] += serve_train(torch, DB, LO, smi,
+                                                              args.seed + 60, scratch)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

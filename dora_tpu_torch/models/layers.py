@@ -20,8 +20,17 @@ the hand-written kernel on the card), which ``use_flash`` turns on by
 default on the card (``DORA_FLASH_ATTENTION`` overrides it either way).
 The block takes both pre-norm layouts pretrained checkpoints use,
 ``norm="rms"`` + ``mlp="swiglu"`` (Qwen2) and ``norm="ln"`` + ``mlp="gelu"``
-with full biases (ViT, Whisper). The ring and ulysses variants are not
-ported: their arguments raise.
+with full biases (ViT, Whisper).
+
+On a mesh (parallel/mesh.py) the unfused float layout trains sharded:
+``tp_rules`` are the Megatron rules ``parallel.shard_params`` applies, and
+a block whose q/k/v/gate/up weights hold this rank's tp columns (wo and
+w_down its rows) runs them column- and row-parallel, through
+``parallel/comm.py``'s copy and reduce pair; a leaf that replicated (its
+dimension does not divide tp) runs whole. With ``ring_axis`` the attention
+runs over a sequence split on that axis, as ring attention
+(parallel/ring.py) or, for ``sp_impl="ulysses"``, Ulysses
+(parallel/ulysses.py).
 """
 
 from __future__ import annotations
@@ -36,8 +45,9 @@ from dora_tpu_torch._device import compute_dtype, resolve_device
 
 __all__ = [
     "Init", "apply_rope", "apply_rope_tables", "attention", "attention_sublayer",
-    "block_forward", "causal_mask", "compute_dtype", "cudnn_exact", "dense", "layer_norm",
-    "matmul", "mlp_sublayer", "resize_image", "rms_norm", "rope_table", "use_flash",
+    "block_forward", "causal_mask", "column", "compute_dtype", "cudnn_exact", "dense",
+    "gathered", "layer_norm", "matmul", "mlp_sublayer", "resize_image", "rms_norm",
+    "rope_table", "row", "tp_rules", "tp_size", "use_flash",
 ]
 
 #: quantized products with more rows than this take the bf16 sidecar
@@ -116,13 +126,6 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (xf * weight.float() + bias.float()).to(dtype)
 
 
-def _not_ported(**variants) -> None:
-    if any(v is not None for v in variants.values()):
-        raise NotImplementedError(
-            "the block runs dense or flash attention on one device; the mesh, ring and "
-            f"ulysses variants are not ported (got {variants})")
-
-
 def _norm(x, params, prefix: str, kind: str, eps: float):
     """The block's pre-norm: RMSNorm (weight only) or, for ``kind`` "ln",
     LayerNorm (weight and ``<prefix>_b`` bias)."""
@@ -161,6 +164,52 @@ def dense(x, params, w: str, b: str):
     if bias is not None:
         out = out + bias.to(x.dtype)
     return out
+
+
+def tp_size(mesh) -> int:
+    return 1 if mesh is None else mesh.size("tp")
+
+
+def column(x, params, w: str, b: str, n_out: int, mesh=None):
+    """``dense(x, params, w, b)`` for a projection to ``n_out`` columns whose
+    weight may hold only this tp rank's block of them (column-parallel).
+    Returns (y, local): with ``local`` y holds this rank's columns."""
+    weight = params[w]
+    if tp_size(mesh) == 1 or weight.shape[-1] == n_out:
+        return dense(x, params, w, b), False
+    from dora_tpu_torch.parallel import comm
+
+    y = matmul(comm.copy_to(x, mesh, "tp"), weight)
+    bias = params.get(b)
+    if bias is not None:  # replicated: this rank's columns of it
+        y = y + comm.split(bias.to(x.dtype), mesh, "tp")
+    return y, True
+
+
+def row(x, local: bool, params, w: str, b: str, n_in: int, mesh=None):
+    """``dense`` back to the model width for an input of ``n_in`` columns, of
+    which x holds this tp rank's block when ``local``; the weight may hold
+    only this rank's block of rows (row-parallel, its partial products
+    summed over tp)."""
+    weight = params[w]
+    if tp_size(mesh) == 1 or weight.shape[0] == n_in:
+        return dense(gathered(x, local, mesh), params, w, b)
+    from dora_tpu_torch.parallel import comm
+
+    if not local:
+        x = comm.split(x, mesh, "tp")
+    out = comm.reduce_from(matmul(x, weight), mesh, "tp")
+    bias = params.get(b)
+    return out if bias is None else out + bias.to(x.dtype)
+
+
+def gathered(y, local: bool, mesh=None):
+    """A :func:`column` output as the full columns on every rank."""
+    if not local:
+        return y
+    from dora_tpu_torch.parallel import comm
+
+    return comm.gather(y, mesh, "tp")
 
 
 def rope_table(max_len: int, head_dim: int, base: float = 10000.0,
@@ -242,17 +291,18 @@ def block_forward(params: dict, x, n_heads: int, *, n_kv_heads: int | None = Non
                   cache: dict | None = None, cache_index: int | None = None,
                   norm: str = "rms", mlp: str = "swiglu", norm_eps: float = 1e-6,
                   head_dim: int | None = None, mesh=None, ring_axis=None, flash=None,
-                  sp_impl=None):
+                  sp_impl=None, ffn: int | None = None):
     """One pre-norm block. Returns (y, new_cache). With ``cache`` k/v are
     written at ``cache_index`` (in place) and attention runs against the
-    whole cache under ``mask``."""
+    whole cache under ``mask``. ``ffn``, the MLP's global hidden width, is
+    needed on a tp mesh only (``mlp_sublayer``)."""
     x, new_cache = attention_sublayer(
         params, x, n_heads, n_kv_heads=n_kv_heads, rope=rope, positions=positions,
         rope_tables=rope_tables, mask=mask, cache=cache, cache_index=cache_index, norm=norm,
         norm_eps=norm_eps, head_dim=head_dim, mesh=mesh, ring_axis=ring_axis, flash=flash,
         sp_impl=sp_impl,
     )
-    x = mlp_sublayer(params, x, norm=norm, mlp=mlp, norm_eps=norm_eps)
+    x = mlp_sublayer(params, x, norm=norm, mlp=mlp, norm_eps=norm_eps, mesh=mesh, ffn=ffn)
     return x, new_cache
 
 
@@ -271,21 +321,34 @@ def attention_sublayer(params, x, n_heads, *, n_kv_heads=None, rope=None,
     as new_cache. ``flash`` ("full" or "causal") runs the no-cache path
     through ops/flash_attention.py instead of the einsum under ``mask``:
     only valid where the mask the caller would pass is exactly that pattern
-    (with a cache it is ignored, as in the reference)."""
-    _not_ported(mesh=mesh, ring_axis=ring_axis, sp_impl=sp_impl)
+    (with a cache it is ignored, as in the reference).
+
+    With a ``mesh`` whose tp axis holds column shards of wq / wk / wv (rows
+    of wo), each rank attends over its own heads when both head counts
+    divide tp, else over all of them; with ``ring_axis`` x holds this rank's
+    block of a sequence split on that axis (``positions`` its global
+    positions) and attention runs as ring attention, or Ulysses for
+    ``sp_impl`` "ulysses", causal when a ``mask`` is given."""
     b, t, dim = x.shape
     n_kv = n_kv_heads or n_heads
     head_dim = head_dim or dim // n_heads
     dtype = x.dtype
 
     h = _norm(x, params, "attn_norm", norm, norm_eps)
+    local = False
     if "wqkv" in params:
         qkv = dense(h, params, "wqkv", "bqkv")
         q, k, v = qkv.split([n_heads * head_dim, n_kv * head_dim, n_kv * head_dim], dim=-1)
     else:
-        q = dense(h, params, "wq", "bq")
-        k = dense(h, params, "wk", "bk")
-        v = dense(h, params, "wv", "bv")
+        (q, lq), (k, lk), (v, lv) = (
+            column(h, params, w, bias, n * head_dim, mesh)
+            for w, bias, n in (("wq", "bq", n_heads), ("wk", "bk", n_kv), ("wv", "bv", n_kv)))
+        tp = tp_size(mesh)
+        local = lq and lk and lv and n_heads % tp == 0 and n_kv % tp == 0
+        if local:  # this rank's heads
+            n_heads, n_kv = n_heads // tp, n_kv // tp
+        else:
+            q, k, v = gathered(q, lq, mesh), gathered(k, lk, mesh), gathered(v, lv, mesh)
     q = q.reshape(b, t, n_heads, head_dim).transpose(1, 2)  # [B, H, T, D]
     k = k.reshape(b, t, n_kv, head_dim).transpose(1, 2)
     v = v.reshape(b, t, n_kv, head_dim).transpose(1, 2)
@@ -315,29 +378,78 @@ def attention_sublayer(params, x, n_heads, *, n_kv_heads=None, rope=None,
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
 
-    if flash is not None and cache is None:
+    if ring_axis is not None and mesh is not None:
+        causal = mask is not None
+        if sp_impl == "ulysses":
+            from dora_tpu_torch.parallel.ulysses import ulysses_attention
+
+            out = ulysses_attention(q, k, v, mesh, causal=causal, axis=ring_axis)
+        elif sp_impl in (None, "ring"):
+            from dora_tpu_torch.parallel.ring import ring_attention
+
+            out = ring_attention(q, k, v, mesh, causal=causal, axis=ring_axis)
+        else:
+            raise ValueError(f"unknown sp_impl {sp_impl!r} (ring | ulysses)")
+    elif flash is not None and cache is None:
         from dora_tpu_torch.ops.flash_attention import flash_attention
 
         out = flash_attention(q, k.to(dtype), v.to(dtype), causal=flash == "causal")
     else:
         out = attention(q, k.to(dtype), v.to(dtype), mask)
     out = out.transpose(1, 2).reshape(b, t, n_heads * head_dim)
-    return x + dense(out, params, "wo", "bo"), new_cache
+    n_in = n_heads * head_dim * (tp_size(mesh) if local else 1)
+    return x + row(out, local, params, "wo", "bo", n_in, mesh), new_cache
 
 
-def mlp_sublayer(params, x, *, norm="rms", mlp="swiglu", norm_eps=1e-6):
+def mlp_sublayer(params, x, *, norm="rms", mlp="swiglu", norm_eps=1e-6, mesh=None,
+                 ffn: int | None = None):
     """Pre-norm feed-forward with residual: SwiGLU, or for ``mlp`` "gelu"
-    the exact (erf) GELU between biased up and down projections."""
+    the exact (erf) GELU between biased up and down projections. On a tp
+    ``mesh`` the up / gate weights may hold this rank's columns of the
+    ``ffn`` hidden units (the global width, which the shapes alone do not
+    tell) and w_down its rows (column- and row-parallel)."""
     h = _norm(x, params, "ffn_norm", norm, norm_eps)
+    if tp_size(mesh) > 1 and ffn is None:
+        raise ValueError("mlp_sublayer on a tp mesh needs the global hidden width ffn")
     if mlp == "gelu":
-        up = torch.nn.functional.gelu(dense(h, params, "w_up", "b_up"))
-        return x + dense(up, params, "w_down", "b_down")
+        up, local = column(h, params, "w_up", "b_up", ffn, mesh)
+        up = torch.nn.functional.gelu(up)
+        return x + row(up, local, params, "w_down", "b_down", ffn, mesh)
     if mlp != "swiglu":
         raise ValueError(f"unknown mlp {mlp!r} (swiglu | gelu)")
     if "w_gateup" in params:  # decode-fused (see quantize_tree)
         gate, up = dense(h, params, "w_gateup", "b_gateup").chunk(2, dim=-1)
         gate = torch.nn.functional.silu(gate)
+        local = False
     else:
-        gate = torch.nn.functional.silu(dense(h, params, "w_gate", "b_gate"))
-        up = dense(h, params, "w_up", "b_up")
-    return x + dense(gate * up, params, "w_down", "b_down")
+        (gate, lg), (up, lu) = (column(h, params, w, bias, ffn, mesh)
+                                for w, bias in (("w_gate", "b_gate"), ("w_up", "b_up")))
+        local = lg and lu
+        if not local:
+            gate, up = gathered(gate, lg, mesh), gathered(up, lu, mesh)
+        gate = torch.nn.functional.silu(gate)
+    return x + row(gate * up, local, params, "w_down", "b_down", ffn, mesh)
+
+
+def tp_rules():
+    """Tensor-parallel rules for ``parallel.shard_params`` (Megatron
+    layout): column-parallel q/k/v/gate/up, row-parallel o/down, the
+    embedding by vocab rows, the head by vocab columns, the vision patch
+    projection by columns. Names are exact leaf names; position tables and
+    norms replicate by default. A spec is a tuple, one entry a dimension."""
+    return [
+        ("wq", (None, "tp")),
+        ("wk", (None, "tp")),
+        ("wv", (None, "tp")),
+        ("wo", ("tp", None)),
+        ("x_wq", (None, "tp")),
+        ("x_wk", (None, "tp")),
+        ("x_wv", (None, "tp")),
+        ("x_wo", ("tp", None)),
+        ("w_gate", (None, "tp")),
+        ("w_up", (None, "tp")),
+        ("w_down", ("tp", None)),
+        ("embed", ("tp", None)),
+        ("lm_head", (None, "tp")),
+        ("patch_proj", (None, "tp")),
+    ]

@@ -7,8 +7,8 @@ x frames_per_token upsample -> frame decoder -> mel head -> a vocoder of
 three transposed convolutions -> waveform. The vocoder runs in NCL with
 torch ``ConvTranspose1d`` weights [in, out, k]; ``params_from_jax`` turns
 the JAX package's LOI kernels (which ``lax.conv_transpose`` correlates
-unflipped over the stride-dilated input) into them, flipped. Training
-(``loss_fn``) is not ported."""
+unflipped over the stride-dilated input) into them, flipped. ``loss_fn``
+is the training loss, the L1 mel plus waveform reconstruction."""
 
 from __future__ import annotations
 
@@ -176,3 +176,16 @@ def synthesize(params, cfg: TTSConfig, text_ids, style_id):
     """[B, max_text] ids (and a style a row) -> [B, max_samples] f32."""
     enc = encode_text(params, cfg, text_ids, style_id)
     return vocode(params, cfg, decode_frames(params, cfg, enc))
+
+
+def loss_fn(params, cfg: TTSConfig, batch):
+    """L1 mel + waveform reconstruction loss (FastSpeech-style training):
+    batch {"text": [B, max_text] ids, "style": [B] ids, "mel": [B, frames,
+    n_mels] f32, "wave": [B, max_samples] f32}; an f32 scalar."""
+    dev = params["embed"].device
+    enc = encode_text(params, cfg, batch["text"], batch["style"])
+    mel = decode_frames(params, cfg, enc)
+    wav = vocode(params, cfg, mel)
+    mel_l1 = torch.mean(torch.abs(mel.float() - torch.as_tensor(batch["mel"], device=dev)))
+    wav_l1 = torch.mean(torch.abs(wav - torch.as_tensor(batch["wave"], device=dev)))
+    return mel_l1 + wav_l1

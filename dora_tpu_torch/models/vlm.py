@@ -32,8 +32,15 @@ check that a model's shapes are ones the attention kernels take.
 CUDA-graph replay over static buffers (``use_graphs`` resolves an engine's
 ``graphs`` argument).
 
-Not ported yet: training (``loss_fn``, ``make_train_step``) and the
-tensor-parallel ``generate_tp``.
+Training: ``loss_fn`` (next-token cross-entropy on the text positions,
+the image prefix never scored; the LM's attention through kernel 11's causal
+form on the card, which ``ops/flash_attention`` differentiates) and
+``make_train_step`` over a ``torch.optim`` optimizer (``init_opt_state``),
+alone or on a (dp, tp, sp) mesh of parallel/mesh.py: the batch split over
+dp, the ``layers.tp_rules`` shards Megatron column / row-parallel with the
+embedding and head split by vocab, the sequence over sp through ring or
+Ulysses attention. ``generate_tp`` decodes on the tp ranks' fused kernels
+(parallel/fused_tp.py).
 """
 
 from __future__ import annotations
@@ -227,21 +234,22 @@ def patchify(images, patch: int):
     return x.reshape(b, gh * gw, patch * patch * c)
 
 
-def encode_image(params, cfg: VLMConfig, images):
+def encode_image(params, cfg: VLMConfig, images, mesh=None):
     """[B, H, W, 3] float -> [B, n_patches, dim] image tokens (LM width), in
     the compute dtype of the parameters' device. The vision blocks attend
     through flash attention when ``layers.use_flash`` is on (the card's
-    default), else through the dense einsum."""
+    default), else through the dense einsum. On a tp ``mesh`` the tower's
+    ``tp_rules`` shards run column / row-parallel."""
     dev = params["embed"].device
     dtype = L.compute_dtype(dev)
     vp = params["vision"]
-    x = patchify(images.to(dev, dtype), cfg.patch_size)
-    x = x @ vp["patch_proj"].to(dtype)
+    x = patchify(torch.as_tensor(images).to(dev, dtype), cfg.patch_size)
+    x = L.gathered(*L.column(x, vp, "patch_proj", None, cfg.vision_dim, mesh), mesh)
     x = x + vp["pos_embed"].to(dtype)[None]
     flash = "full" if L.use_flash(dev) else None
     for i in range(cfg.vision_layers):
         x, _ = L.block_forward(vp["blocks"][str(i)], x, cfg.vision_heads, mask=None,
-                               flash=flash)
+                               flash=flash, mesh=mesh, ffn=cfg.vision_ffn)
     x = L.rms_norm(x, vp["out_norm"])
     return x @ vp["project"].to(dtype)
 
@@ -256,10 +264,12 @@ def _rope(cfg: VLMConfig, device):
 
 
 def _lm_forward(params, cfg: VLMConfig, h, positions, mask, caches=None,
-                cache_index=None, flash=None, rope=None):
+                cache_index=None, flash=None, rope=None, mesh=None, ring_axis=None,
+                sp_impl=None):
     """The LM blocks over h [B, T, dim], then the final norm. With
-    ``caches`` each layer writes its rows at ``cache_index`` in place.
-    Returns (h, caches or {})."""
+    ``caches`` each layer writes its rows at ``cache_index`` in place; with
+    a mesh the blocks run on it (``layers.attention_sublayer``). Returns (h,
+    caches or {})."""
     rope = rope if rope is not None else _rope(cfg, h.device)
     new_caches = {}
     for i in range(cfg.layers):
@@ -267,7 +277,8 @@ def _lm_forward(params, cfg: VLMConfig, h, positions, mask, caches=None,
             params["blocks"][str(i)], h, cfg.heads, n_kv_heads=cfg.kv_heads,
             rope=rope, positions=positions, mask=mask,
             cache=None if caches is None else caches[str(i)],
-            cache_index=cache_index, flash=flash,
+            cache_index=cache_index, flash=flash, mesh=mesh, ring_axis=ring_axis,
+            sp_impl=sp_impl, ffn=cfg.ffn,
         )
         if new_cache is not None:
             new_caches[str(i)] = new_cache
@@ -462,6 +473,51 @@ def generate_speculative(params, cfg: VLMConfig, images, prompt_ids,
         body=spec_decode.fitting_body_passes(cfg.n_patches + t_prompt, max_new_tokens,
                                              seq, k),
     )
+
+
+def generate_tp(params, tp_params, cfg: VLMConfig, images, prompt_ids, max_new_tokens: int,
+                mesh):
+    """Greedy generation with each decode step on the fused kernels of the
+    tp ranks (parallel/fused_tp.py): per-rank kernels, one f32 all-reduce a
+    sublayer and the vocab-split argmax. ``tp_params`` is this rank's
+    ``fused_tp.prepare_decode_params`` tree; every rank of the tp group
+    calls this with the same images and prompt. The prefill runs unfused on
+    ``params`` (once; decode dominates). Batch 1. Returns the tokens of
+    :func:`generate`, [1, max_new_tokens] int32, on every rank."""
+    from dora_tpu_torch.parallel import fused_tp as FTP
+
+    b, t = prompt_ids.shape
+    if b != 1:
+        raise ValueError("generate_tp is batch-1")
+    if cfg.n_patches + t + max_new_tokens > cfg.max_seq:
+        raise ValueError(
+            f"image ({cfg.n_patches}) + prompt ({t}) + max_new_tokens "
+            f"({max_new_tokens}) exceeds max_seq ({cfg.max_seq})")
+    if max_new_tokens == 0:
+        return torch.zeros((b, 0), dtype=torch.int32, device=prompt_ids.device)
+    tp = FTP.tp_degree(mesh)
+    if tp > 1 and not FTP.tp_compatible(tp, heads=cfg.heads, kv_heads=cfg.kv_heads,
+                                        ffn=cfg.ffn, vocab=cfg.vocab):
+        raise ValueError(f"vlm.generate_tp: the model's heads ({cfg.heads} / {cfg.kv_heads}), "
+                         f"ffn ({cfg.ffn}) or vocab ({cfg.vocab}) do not split over tp={tp}")
+    dev = params["embed"].device
+    _refuse_for_generation("vlm.generate_tp", params, cfg, False)
+    refuse_unkernelled("vlm.generate_tp", dev, heads=cfg.heads // tp,
+                       kv_heads=cfg.kv_heads // tp, head_dim=cfg.head_dim, params=params)
+    rope = _rope(cfg, dev)
+    logits, caches, position = prefill(params, cfg, images, prompt_ids, rope)
+    token = torch.argmax(logits, dim=-1).to(torch.int32)
+    caches = FTP.shard_caches(caches, mesh)
+    cos_t, sin_t = rope
+    out = [token]
+    for pos in range(position, position + max_new_tokens - 1):
+        cos, sin = DB.rope_rows(cos_t, sin_t, pos, 1)
+        token, caches = FTP.decode_pass_tp(
+            tp_params, _embed(params, token), caches, pos, cos, sin, heads=cfg.heads,
+            kv_heads=cfg.kv_heads, head_dim=cfg.head_dim, layers=cfg.layers, mesh=mesh,
+        )
+        out.append(token)
+    return torch.stack(out, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -971,3 +1027,181 @@ def spec_window_row_stats(row, k: int, m: int) -> tuple[int, int | None]:
     if int(row[k * m]):
         return emitted, None
     return emitted, (last_live if last_live is not None else 0)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def _embed_rows(params, tokens, cfg: VLMConfig, mesh):
+    """:func:`_embed` of ``tokens``; with the table split over tp by vocab
+    rows, each rank gives the rows it holds and the sum over tp assembles
+    them."""
+    embed = params["embed"]
+    if L.tp_size(mesh) == 1 or embed.shape[0] == cfg.vocab:
+        return _embed(params, tokens)
+    from dora_tpu_torch.parallel import comm
+
+    n = embed.shape[0]
+    local = tokens - mesh.index("tp") * n
+    own = ((local >= 0) & (local < n))[..., None]
+    dtype = L.compute_dtype(embed.device)
+    rows = embed[local.clamp(0, n - 1)].to(dtype) * own.to(dtype)
+    return comm.reduce_from(rows, mesh, "tp")
+
+
+def _nll(params, h, targets, cfg: VLMConfig, mesh):
+    """The f32 negative log-likelihood of ``targets`` under the head's
+    logits of h. With the head split over tp by vocab columns the log-softmax
+    takes its max and its sum over tp (the max as a constant shift, as
+    ``jax.nn.log_softmax`` stops its gradient)."""
+    head = params["lm_head"]
+    if L.tp_size(mesh) == 1 or head.shape[-1] == cfg.vocab:
+        logp = torch.log_softmax(L.matmul(h, head).float(), dim=-1)
+        return -logp.gather(-1, targets[..., None])[..., 0]
+    from dora_tpu_torch.parallel import comm
+
+    logits = L.matmul(comm.copy_to(h, mesh, "tp"), head).float()
+    n = head.shape[-1]
+    m = comm.all_reduce(logits.detach().amax(dim=-1, keepdim=True), mesh, "tp", "max")
+    lse = m[..., 0] + torch.log(comm.reduce_from(torch.exp(logits - m).sum(dim=-1), mesh, "tp"))
+    local = targets - mesh.index("tp") * n
+    own = (local >= 0) & (local < n)
+    picked = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0] * own
+    return lse - comm.reduce_from(picked, mesh, "tp")
+
+
+def loss_fn(params, cfg: VLMConfig, batch, mesh=None, ring_axis=None, sp_impl=None):
+    """Next-token cross-entropy on the text portion, image tokens prefixed.
+
+    batch: {"images": [B, H, W, 3], "tokens": [B, T] int}; predicts the
+    tokens shifted by one, the image prefix never scored (the hidden states
+    at positions P-1 .. P+T-2 predict tokens 0 .. T-1), f32 log-softmax, the
+    mean over B x T. The LM's attention is kernel 11's causal form when
+    ``layers.use_flash`` is on and no ``ring_axis`` is given, as in the JAX
+    package. On a ``mesh`` the batch is this rank's (``make_train_step``
+    splits it over dp) and the parameters its ``tp_rules`` shards; with
+    ``ring_axis`` the sequence (image and text) splits over that axis, each
+    rank scores the positions of its block, and the loss is their sum over
+    the axis (its gradient this rank's share)."""
+    dev = params["embed"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    b, t = tokens.shape
+    img = encode_image(params, cfg, batch["images"], mesh=mesh)
+    h = torch.cat([img, _embed_rows(params, tokens, cfg, mesh)], dim=1)
+    seq = h.shape[1]
+    start, n = 0, seq
+    split = ring_axis is not None and mesh is not None
+    if split:
+        sp = mesh.size(ring_axis)
+        if seq % sp:
+            raise ValueError(f"the sequence ({cfg.n_patches} image + {t} text tokens) does not "
+                             f"split over {ring_axis}={sp}")
+        n = seq // sp
+        start = mesh.index(ring_axis) * n
+        h = h[:, start:start + n]
+    positions = torch.arange(start, start + n, device=dev).expand(b, n)
+    flash = "causal" if L.use_flash(dev) and not ring_axis else None
+    h, _ = _lm_forward(params, cfg, h, positions, L.causal_mask(seq, seq, device=dev),
+                       flash=flash, mesh=mesh, ring_axis=ring_axis, sp_impl=sp_impl)
+    # Score only text positions: hidden states at [P-1 .. P+T-2] predict tokens.
+    p = cfg.n_patches
+    lo, hi = max(p - 1, start), min(p + t - 1, start + n)
+    hi = max(hi, lo)
+    nll = _nll(params, h[:, lo - start:hi - start], tokens[:, lo - p + 1:hi - p + 1], cfg, mesh)
+    loss = nll.sum() / (b * t)
+    if split:
+        from dora_tpu_torch.parallel import comm
+
+        loss = comm.reduce_from(loss, mesh, ring_axis)
+    return loss
+
+
+def param_leaves(params) -> list:
+    """The tensors of a parameter tree, depth first in the containers'
+    order: what ``init_opt_state`` hands the optimizer."""
+    if isinstance(params, dict):
+        return [x for v in params.values() for x in param_leaves(v)]
+    if isinstance(params, (tuple, list)):
+        return [x for v in params for x in param_leaves(v)]
+    return [params]
+
+
+def init_opt_state(optimizer, params):
+    """The port's ``optimizer.init(params)``: ``optimizer`` builds a
+    ``torch.optim`` optimizer over a list of tensors (e.g.
+    ``functools.partial(torch.optim.Adam, lr=1e-3)``, the update of
+    ``optax.adam(1e-3)``; ``torch.optim.SGD`` is ``optax.sgd``'s), and it is
+    built over :func:`param_leaves` of ``params``, which then require grad.
+    That optimizer is the train step's ``opt_state``: its ``state[leaf]``
+    holds what optax's state holds for the leaf (Adam: ``step`` the count,
+    ``exp_avg`` mu, ``exp_avg_sq`` nu), and the step updates the leaves in
+    place."""
+    leaves = param_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    return optimizer(leaves)
+
+
+def _sync_grads(leaves, mesh, ring_axis) -> None:
+    """Sum the leaves' gradients over the sequence axis (each rank holds the
+    share of its block) and average them over dp, in place."""
+    import torch.distributed as dist
+
+    axes = [ax for ax in ((ring_axis,) if ring_axis else ()) + ("dp",)
+            if mesh.group(ax) is not None]
+    for leaf in leaves:
+        if leaf.grad is None:
+            leaf.grad = torch.zeros_like(leaf)
+        for ax in axes:
+            dist.all_reduce(leaf.grad, group=mesh.group(ax))
+        if mesh.size("dp") > 1:
+            leaf.grad /= mesh.size("dp")
+
+
+def make_train_step(cfg: VLMConfig, optimizer, mesh=None, ring_axis=None, sp_impl=None):
+    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
+    loss)``: the loss of :func:`loss_fn`, its gradient by autograd, and one
+    update of ``opt_state`` (:func:`init_opt_state`, or None to build it
+    there from ``optimizer``), which changes the leaves of ``params`` in
+    place; loss is a detached f32 scalar.
+
+    With a mesh: each rank passes the whole batch and its own parameter
+    shards (``parallel.shard_params`` under ``layers.tp_rules``); the step
+    takes the rank's dp block of the batch (and its sp block of the sequence
+    when ``ring_axis`` is set), sums the gradients over sp and averages them
+    over dp, so every shard keeps its shape and gets the update of the whole
+    batch; the loss returned is the whole batch's. ``sp_impl`` picks the
+    sequence-parallel strategy ("ring" | "ulysses"); unset, it resolves from
+    DORA_SP_IMPL here, once."""
+    if sp_impl is None:
+        sp_impl = os.environ.get("DORA_SP_IMPL", "ring")
+
+    def train_step(params, opt_state, batch):
+        leaves = param_leaves(params)
+        if opt_state is None:
+            opt_state = init_opt_state(optimizer, params)
+        held = {id(p) for group in opt_state.param_groups for p in group["params"]}
+        if held != {id(p) for p in leaves}:
+            raise ValueError("opt_state is not an optimizer over these params' leaves "
+                             "(build it with init_opt_state)")
+        if mesh is not None and mesh.size("dp") > 1:
+            dp, at = mesh.size("dp"), mesh.index("dp")
+            if len(batch["tokens"]) % dp:
+                raise ValueError(f"batch of {len(batch['tokens'])} does not split over dp={dp}")
+            batch = {k: torch.as_tensor(v).chunk(dp)[at] for k, v in batch.items()}
+        opt_state.zero_grad(set_to_none=True)
+        loss = loss_fn(params, cfg, batch, mesh=mesh, ring_axis=ring_axis, sp_impl=sp_impl)
+        loss.backward()
+        if mesh is not None:
+            _sync_grads(leaves, mesh, ring_axis)
+        opt_state.step()
+        loss = loss.detach()
+        if mesh is not None and mesh.size("dp") > 1:
+            from dora_tpu_torch.parallel import comm
+
+            loss = comm.all_reduce(loss, mesh, "dp") / mesh.size("dp")
+        return params, opt_state, loss
+
+    return train_step

@@ -12,7 +12,8 @@ matching family), ``DORA_PARAM_DTYPE``, ``DORA_MAX_NEW_TOKENS``,
 ``DORA_SPEC_DECODE``, ``DORA_DETECT_THRESHOLD`` / ``DORA_DETECT_TOPK`` and
 ``DORA_TTS_STYLE``. Two are refused with an error naming them:
 ``DORA_CHECKPOINT`` (an orbax directory, which the port cannot read) and
-``DORA_MESH`` (no tensor parallelism in the port yet). The self-contained
+``DORA_MESH`` (the port runs one process a card; a node over a mesh of
+them is not built yet). The self-contained
 models seed from the port's own generator, so their weights are not the
 JAX package's; parity is held by carrying the JAX parameters over
 (``models/hf/qwen2.params_from_jax``, and the ``params_from_jax`` of

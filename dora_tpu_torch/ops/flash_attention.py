@@ -20,6 +20,16 @@ Two versions, as in ops/decode_block.py:
   projections of ``attention_sublayer`` are not copied, and nothing is
   padded in memory. Nothing falls back: a CUDA tensor the kernel does not
   take raises.
+
+Training differentiates it (the JAX package's kernel has no backward, so
+its gradients are those of the dense path): whenever grad mode is on and an
+input requires grad, :func:`flash_attention` goes through
+:class:`FlashAttention`, a ``torch.autograd.Function`` whose forward is the
+same kernel on the card (the plain version on the CPU) and whose backward,
+:func:`flash_attention_backward_plain`, is the exact softmax-attention
+gradient in plain PyTorch, recomputed from the saved q, k and v with f32
+scores. GQA callers pass k and v already repeated to q's heads (as
+``models/layers`` does), so autograd sums their gradients back per kv head.
 """
 
 from __future__ import annotations
@@ -55,6 +65,14 @@ def kernel_shape_limits(head_dim: int) -> list[str]:
 
 def flash_attention_plain(q, k, v, causal: bool = False):
     """Self-attention over [B, H, T, D] with an f32 softmax; q's dtype out."""
+    p, l = _weights(q, k, causal)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / torch.where(l == 0, 1.0, l)
+    return out.to(q.dtype)
+
+
+def _weights(q, k, causal: bool):
+    """The unnormalized f32 softmax weights of ``q.kT / sqrt(D)`` (masked
+    weights zero) and their row sums."""
     t, d = q.shape[-2], q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
     if causal:
@@ -63,9 +81,24 @@ def flash_attention_plain(q, k, v, causal: bool = False):
         p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
     else:
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / torch.where(l == 0, 1.0, l)
-    return out.to(q.dtype)
+    return p, p.sum(dim=-1, keepdim=True)
+
+
+def flash_attention_backward_plain(q, k, v, grad_out, causal: bool = False):
+    """The gradients (dq, dk, dv) of :func:`flash_attention` at q, k, v for
+    the output's gradient ``grad_out``, in f32 and returned in the inputs'
+    dtypes: with P the softmax, dV = PT.dO, dS = P * (dO.VT - rowsum(P *
+    dO.VT)), dQ = dS.K / sqrt(D), dK = dST.Q / sqrt(D)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p, l = _weights(q, k, causal)
+    p = p / torch.where(l == 0, 1.0, l)  # a row whose every key is masked stays zero
+    g = grad_out.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, v.float())
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _strides(t: torch.Tensor, name: str) -> tuple[int, int, int]:
@@ -105,10 +138,33 @@ def _flash_attention_kernel(q, k, v, causal: bool = False, lib=None):
     return out
 
 
+class FlashAttention(torch.autograd.Function):
+    """Kernel 11 with a gradient: the forward is the kernel on the card (the
+    plain version on the CPU), the backward
+    :func:`flash_attention_backward_plain` from the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        if not q.is_cuda:
+            return flash_attention_plain(q, k, v, causal)
+        return _flash_attention_kernel(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_backward_plain(q, k, v, grad_out, ctx.causal), None)
+
+
 def flash_attention(q, k, v, causal: bool = False):
     """Attention over [B, H, T, D] (self-attention, one length T): the
     softmax in f32, keys j <= i only with ``causal``; returns q's dtype
-    (and, on the card, q's layout)."""
+    (and, on the card, q's layout). Differentiable through
+    :class:`FlashAttention` when grad mode is on and an input requires
+    grad; its forward is the same kernel."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, bool(causal))
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal)
     return _flash_attention_kernel(q, k, v, causal)

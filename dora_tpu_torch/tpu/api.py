@@ -31,8 +31,8 @@ class TorchOperator:
 
     ``input_shapes`` and ``sharding`` keep the fields of the JAX contract:
     the JAX package pins shapes for a compile and places state on a mesh;
-    the port compiles nothing at tick time and has no mesh (``DORA_MESH``
-    is refused), so neither is read. ``host=True`` marks an operator that
+    the port compiles nothing at tick time and runs a node on one card
+    (``DORA_MESH`` is refused), so neither is read. ``host=True`` marks an operator that
     must run outside the pipelined path (data-dependent shapes); as in
     the JAX package, one host operator makes its whole node synchronous."""
 

@@ -223,13 +223,15 @@ def _topo_sort(op_ids: list[str], intra: dict[tuple[str, str], tuple[str, str]])
 
 def mesh_from_env():
     """The JAX package runs a node's fused step over the device mesh that
-    ``DORA_MESH`` names; the port has no mesh yet, so a set ``DORA_MESH``
-    raises rather than being ignored. Returns None when it is unset."""
+    ``DORA_MESH`` names, one process over every local device. The port puts
+    one process on each card (parallel/mesh.py), and a node that spans them
+    is not built yet, so a set ``DORA_MESH`` raises rather than being
+    ignored. Returns None when it is unset."""
     spec = os.environ.get("DORA_MESH", "").strip()
     if spec:
         raise RuntimeError(
-            f"DORA_MESH={spec!r}: the port's operator runtime has no device mesh "
-            "(tensor parallelism is not ported); unset DORA_MESH to run on one card")
+            f"DORA_MESH={spec!r}: the port runs one process a card, and an operator node over "
+            "a mesh of such processes is not built yet; unset DORA_MESH to run on one card")
     return None
 
 

@@ -8,8 +8,10 @@ outputs within 2e-2 (a bf16 step of outputs of order one). The causal first
 row equals v[0] to 1e-6. ``attention_sublayer(flash="full")`` matches the
 JAX package's on a vision block of ``VLMConfig.tiny`` to 1e-5 of its
 largest value, and ``use_flash`` reads ``DORA_FLASH_ATTENTION`` as the JAX
-package does. The kernel itself is checked in
-tests/test_torch_kernels_emulated.py and, on the card, by chip_smoke.py.
+package does. The sublayer's ring / Ulysses branch on a one-rank mesh
+matches the JAX package's to 1e-5 of its largest value. The kernel itself
+is checked in tests/test_torch_kernels_emulated.py and, on the card, by
+chip_smoke.py; its gradient in tests/test_torch_train.py.
 """
 
 from __future__ import annotations
@@ -118,16 +120,58 @@ def test_use_flash_default_and_override(monkeypatch):
         assert TL.use_flash("cpu") is on and TL.use_flash("cuda") is on
 
 
-def test_ring_and_ulysses_still_raise():
+@pytest.mark.parametrize("sp_impl", ["ring", "ulysses", None])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_ring_and_ulysses_branch_matches_jax(sp_impl, causal):
+    """The sublayer's sequence-parallel branch (mesh and ring_axis) on a
+    one-rank mesh, where ring and Ulysses are the dense forms, against the
+    JAX package's on its one-device mesh: an LM block of VLMConfig.tiny
+    (GQA, rope), causal when a mask is given, within 1e-5 of the largest
+    value. Across ranks: tests/test_torch_parallel.py."""
+    from dora_tpu.models import layers as JL
+    from dora_tpu.models import vlm as jvlm
+    from dora_tpu.parallel import make_mesh as jax_mesh
     from dora_tpu_torch.models import layers as TL
     from dora_tpu_torch.models import vlm as tvlm
+    from dora_tpu_torch.parallel import make_mesh
+
+    cfg = jvlm.VLMConfig.tiny()
+    jparams = jvlm.init_params(jax.random.PRNGKey(0), cfg)["blocks"]["1"]
+    tparams = tvlm.params_from_jax(jparams, device="cpu")
+    x = np.random.default_rng(5).standard_normal((2, 12, cfg.dim)).astype(np.float32)
+    jrope, trope = JL.rope_table(12, cfg.head_dim), TL.rope_table(12, cfg.head_dim, device="cpu")
+    jmask, tmask = (JL.causal_mask(12, 12), TL.causal_mask(12, 12, device="cpu")) if causal \
+        else (None, None)
+    want, _ = JL.attention_sublayer(jparams, jnp.asarray(x), cfg.heads, n_kv_heads=cfg.kv_heads,
+                                    rope=jrope, mask=jmask, mesh=jax_mesh(devices=jax.devices()[:1]),
+                                    ring_axis="sp", sp_impl=sp_impl)
+    got, _ = TL.attention_sublayer(tparams, torch.from_numpy(x), cfg.heads,
+                                   n_kv_heads=cfg.kv_heads, rope=trope, mask=tmask,
+                                   mesh=make_mesh(), ring_axis="sp", sp_impl=sp_impl)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def test_ring_and_ulysses_still_raise():
+    """What the sequence-parallel and tp branches refuse, each named: an
+    unknown sp_impl (as the JAX package), heads that do not split over sp
+    for Ulysses, and an MLP on a tp mesh without its global width."""
+    from dora_tpu_torch.models import layers as TL
+    from dora_tpu_torch.models import vlm as tvlm
+    from dora_tpu_torch.parallel import Mesh, make_mesh
 
     cfg = tvlm.VLMConfig.tiny()
     blk = tvlm.init_params(cfg, seed=0, device="cpu")["blocks"]["0"]
     x = torch.zeros(1, 4, cfg.dim)
-    for kw in (dict(ring_axis="sp"), dict(sp_impl="ulysses"), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="dense or flash attention"):
-            TL.attention_sublayer(blk, x, cfg.heads, n_kv_heads=cfg.kv_heads, **kw)
+    with pytest.raises(ValueError, match="unknown sp_impl 'bogus'"):
+        TL.attention_sublayer(blk, x, cfg.heads, n_kv_heads=cfg.kv_heads, mesh=make_mesh(),
+                              ring_axis="sp", sp_impl="bogus")
+    sp8 = Mesh(np.arange(8).reshape(1, 1, 8), 0)
+    with pytest.raises(ValueError, match="heads=4 not divisible by sp=8"):
+        TL.attention_sublayer(blk, x, cfg.heads, n_kv_heads=cfg.kv_heads, mesh=sp8,
+                              ring_axis="sp", sp_impl="ulysses")
+    with pytest.raises(ValueError, match="global hidden width ffn"):
+        TL.mlp_sublayer(blk, x, mesh=Mesh(np.arange(2).reshape(1, 2, 1), 0))
 
 
 def test_kernel_shape_limits():
