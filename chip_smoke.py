@@ -222,7 +222,23 @@ Phases, each printed on its own line:
    all-reduces through NCCL) equal to ``vlm.generate`` token for token with
    exact launches, and ring and Ulysses attention at sp 1 equal to the
    dense einsum in f32 (SP1_REL_TOL). NCCL across cards is not run on this
-   one-card machine. The kernels line adds (a)'s launches to kernel 11's.
+   one-card machine. The kernels line adds (a)'s launches to kernel 11's;
+19. the port's measurement tools (``bench`` lines, dora_tpu_torch/tools/):
+   each leg in its own process, the tool run as ``python -m
+   dora_tpu_torch.tools.<tool>`` runs it (the process imports torch and
+   opens the card while the leg before it runs), on this card at full
+   width and depth: bench_serving's default paged /
+   dense A/B, ``--multistep``, ``--trace-ab`` and ``--quant-ab`` on the
+   seeded Qwen2-1.5B-width model (``DORA_INT8_DECODE=1``), its six stub-
+   engine legs, bench_int8, bench_flash, and bench_vlm's ``model`` (int8,
+   ``DORA_SPEC_DECODE=1``) and ``batch`` modes on bench_2b. Each leg's JSON
+   lines are printed; the run fails on a missing line, a null number (a
+   spec-off cell's acceptance aside), a plain call, or a kernel the leg
+   names with no launch. Where ``--quant-ab``'s int8-KV streams part from
+   its fp streams, both tokens must sit at a near-tie of the f32 plain path
+   on the same prefix (the int8-KV token within NEAR_TIE, the fp one within
+   SPEC_REF_TIE, as phases 7 and 12 hold a second path). The cuts are
+   printed on a ``bench cuts`` line. The kernels line does not change.
 
 Phase 3 also holds the int4 forms of kernels 1-5 and 8-10 against their
 plain versions on phase 12's int4 weights at the main paths' shapes (with
@@ -268,8 +284,8 @@ and 10, phase 12's main path and the VLM's ``generate`` (prefill chunk, window, 
 dense step and its short prompts' TTFT, batch-1 prefill, ``run_loop``
 pass, VLM step and ViT times; the windows and the dense step graphed and
 eager), ``--hf-vlm`` only phase 15, ``--operators`` only phase 16,
-``--hub`` only phase 17 and ``--train`` only phase 18, all
-without the result line.
+``--hub`` only phase 17, ``--train`` only phase 18 and ``--bench`` only
+phase 19, all without the result line.
 
 Phases 4, 6, 8 and 9 build their engines through the normal factories,
 so each decode window (the dense step) is one CUDA-graph replay, and each
@@ -6660,6 +6676,195 @@ def serve_train(torch, DB, LO, smi: str, seed: int, scratch: str, dev: str = "cu
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the port's measurement tools, each leg in its own process
+# ---------------------------------------------------------------------------
+
+#: the paged engine's kernels, the dense engine's, the int8-KV forms (kernels
+#: 3 and 4), the int4-weight forms of kernels 1-4, and speculation's (kernel 5)
+BENCH_PAGED = SPEC_OFF_KERNELS
+BENCH_DENSE = ("int8_matmul", "attention_batch_step", "mlp_step", "lm_head_argmax")
+BENCH_QUANT = BENCH_PAGED + (
+    "attention_paged_chunk_step_int8kv", "attention_paged_batch_step_int8kv",
+    *(f"{n}_int4" for n in BENCH_PAGED),
+    "attention_paged_spec_step", "attention_paged_spec_step_int8kv")
+BENCH_VLM_MODEL = ("flash_attention", "int8_matmul", "attention_step", "attention_chunk_step",
+                   "mlp_step", "lm_head_argmax")
+BENCH_VLM_BATCH = ("attention_batch_step", "mlp_step", "lm_head_argmax")
+#: each leg: (name, tool, arguments, extra env, the line's key (None: a
+#: line per shape or metric), lines, the kernels it must launch)
+_MODEL_ENV = {"DORA_INT8_DECODE": "1"}
+BENCH_LEGS = (
+    ("serving", "bench_serving", [], _MODEL_ENV, "streams4", 1,
+     tuple(dict.fromkeys(BENCH_PAGED + BENCH_DENSE))),
+    ("serving --multistep", "bench_serving", ["--multistep"], _MODEL_ENV, "multistep", 1,
+     BENCH_PAGED),
+    ("serving --trace-ab", "bench_serving", ["--trace-ab"], _MODEL_ENV, "trace_ab", 1,
+     BENCH_PAGED),
+    ("serving --quant-ab", "bench_serving", ["--quant-ab"], _MODEL_ENV, "quant_ab", 1,
+     BENCH_QUANT),
+    ("serving --spec-ab", "bench_serving", ["--spec-ab"], {}, "spec_ab", 1, ()),
+    ("serving --lora-ab", "bench_serving", ["--lora-ab"], {}, "lora_ab", 1, ()),
+    ("serving --profiling-ab", "bench_serving", ["--profiling-ab"], {}, "profiling_ab", 1, ()),
+    ("serving --fleet-digest-ab", "bench_serving", ["--fleet-digest-ab"], {},
+     "fleet_digest_ab", 1, ()),
+    ("serving --qos-soak", "bench_serving", ["--qos-soak"], {}, "qos_soak", 1, ()),
+    ("serving --prefix-ab", "bench_serving", ["--prefix-ab"], {}, "prefix_ab", 1, ()),
+    ("int8", "bench_int8", [], {}, None, 4, ("int8_matmul",)),
+    ("flash", "bench_flash", [], {}, None, 3, ("flash_attention",)),
+    ("vlm model", "bench_vlm", ["model"], {**_MODEL_ENV, "DORA_SPEC_DECODE": "1"}, None, 8,
+     BENCH_VLM_MODEL),
+    ("vlm batch", "bench_vlm", ["batch"], _MODEL_ENV, None, 4, BENCH_VLM_BATCH),
+)
+#: one leg's process may take this long
+BENCH_LEG_TIMEOUT_S = 300
+
+
+def _nulls(obj, path: str = "") -> list[str]:
+    """Paths of the null values in a leg's line. Null by definition: a
+    spec-off cell's acceptance (k0, nothing drafted) and the percentiles of
+    a class that no stream of finished (``n`` 0, e.g. every batch-class
+    stream shed in the QoS soak)."""
+    if isinstance(obj, dict):
+        if obj.get("n") == 0:
+            obj = {k: v for k, v in obj.items() if k not in ("p50", "p99")}
+        return [p for k, v in obj.items() for p in _nulls(v, f"{path}/{k}")]
+    if isinstance(obj, list):
+        return [p for i, v in enumerate(obj) for p in _nulls(v, f"{path}/{i}")]
+    if obj is None and not (path.endswith("/acceptance") and "/k0_" in path):
+        return [path]
+    return []
+
+
+#: a leg's process: the interpreter imports torch and the port and opens the
+#: card, waits for a line on stdin, then runs the tool as ``python -m`` runs
+#: a module; so each leg starts while the one before it runs
+_LEG_MAIN = (
+    "import runpy, sys, torch\n"
+    "import dora_tpu_torch.tools._common, dora_tpu_torch.models.vlm\n"
+    "import dora_tpu_torch.models.hf.qwen2, dora_tpu_torch.nodehub.llm_server\n"
+    "torch.zeros(1, device='cuda')\n"
+    "sys.stdin.readline()\n"
+    "module = 'dora_tpu_torch.tools.' + sys.argv.pop(1)\n"
+    "runpy.run_module(module, run_name='__main__', alter_sys=True)\n"
+)
+
+
+def _start_leg(here: str, tool: str, argv: list, env: dict):
+    return subprocess.Popen([sys.executable, "-c", _LEG_MAIN, tool, *argv], cwd=here,
+                            env={**os.environ, **env}, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish_leg(proc, what: str) -> tuple[list[dict], float]:
+    """Let a started leg run to its end; its JSON lines and its seconds
+    from the go to the end."""
+    t = time.perf_counter()
+    try:
+        out, err = proc.communicate("go\n", timeout=BENCH_LEG_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        proc.kill()
+        proc.communicate()
+        raise Failed(f"bench {what}: no end within {e.timeout} s") from e
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise Failed(f"bench {what} exited {proc.returncode}: {err[-3000:]}")
+    lines = []
+    for text in out.splitlines():
+        with contextlib.suppress(json.JSONDecodeError):
+            obj = json.loads(text)
+            if isinstance(obj, dict):
+                lines.append(obj)
+    return lines, wall
+
+
+def _bench_counters(what: str, bodies: list[dict], need) -> dict:
+    """Sum a leg's launches; fail on a plain call or a named kernel that
+    never launched."""
+    launches: dict = {}
+    plain = 0
+    for body in bodies:
+        if "plain_calls" in body:
+            plain += body["plain_calls"]
+            for n, c in body["launches"].items():
+                launches[n] = launches.get(n, 0) + c
+    if plain:
+        raise Failed(f"bench {what}: {plain} calls of a plain version on the card")
+    missing = [n for n in need if not launches.get(n)]
+    if missing:
+        raise Failed(f"bench {what}: no launch of {', '.join(missing)} ({launches})")
+    return launches
+
+
+def check_quant_partings(torch, DB, LO, IM, L, qwen2, serve_prompts, partings: dict,
+                         seed: int) -> None:
+    """Where ``--quant-ab``'s int8-KV stream first parts from its fp stream,
+    both tokens must be at a near-tie of the f32 plain path on that prefix
+    (the leg's seeded model, rebuilt here)."""
+    if not partings:
+        print("bench quant partings: none (int8-KV streams equal the fp streams)", flush=True)
+        return
+    cfg = qwen2.Qwen2Config.qwen2_1_5b(max_seq=512)
+    params = qwen2.quantize_decode(qwen2.random_params(cfg, seed=seed, std=0.02,
+                                                       device="cuda"), cfg)
+    paths = _Paths(torch, DB, LO, IM, qwen2, L, serve_prompts, params, cfg)
+    for rid, p in sorted(partings.items()):
+        prefix = p["prompt"] + p["before"]
+        paths.check(f"bench quant parting: stream {rid} at token {p['at']}",
+                    paths.after(prefix), (p["kv_int8"], p["fp"]), SPEC_REF_TIE, rms=False)
+    del paths, params
+    torch.cuda.empty_cache()
+
+
+def serve_bench(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str, here: str) -> None:
+    """Phase 19: every leg of the port's measurement tools on this card."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cuts = []
+    qos = os.environ.get("DORA_BENCH_QOS_STREAMS")
+    if qos:
+        cuts.append(f"DORA_BENCH_QOS_STREAMS={qos}")
+    print(f"bench cuts: {', '.join(cuts) or 'none'} ({smi})", flush=True)
+    quant = None
+    procs = [_start_leg(here, *BENCH_LEGS[0][1:4])]
+    try:
+        for i, (what, tool, argv, env, key, n_lines, need) in enumerate(BENCH_LEGS):
+            if i + 1 < len(BENCH_LEGS):
+                procs.append(_start_leg(here, *BENCH_LEGS[i + 1][1:4]))
+            lines, wall = _finish_leg(procs[i], what)
+            quant = _bench_check(what, lines, key, n_lines, need, wall, smi) or quant
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    check_quant_partings(torch, DB, LO, IM, L, qwen2, serve_prompts, quant["first_parting"],
+                         seed=0)
+    print(f"bench: phase 19 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _bench_check(what: str, lines: list[dict], key, n_lines: int, need, wall: float,
+                 smi: str):
+    """Print a leg's lines and hold them to phase 19's rules; the
+    ``--quant-ab`` leg's body, else None."""
+    for line in lines:
+        print(f"bench {what}: {json.dumps(line)}", flush=True)
+    if len(lines) != n_lines or (key is not None and key not in lines[0]):
+        raise Failed(f"bench {what}: {len(lines)} JSON lines, expected {n_lines}"
+                     + (f" with {key!r}" if key else ""))
+    nulls = [p for line in lines for p in _nulls(line)]
+    if nulls:
+        raise Failed(f"bench {what}: null numbers at {', '.join(nulls)}")
+    # a leg's keys sit under its name; the default leg's at the top
+    bodies = [line[key] if key not in (None, "streams4") else line for line in lines]
+    devices = {body.get("device") for body in bodies}
+    if devices != {smi}:
+        raise Failed(f"bench {what}: device {devices}, expected {smi!r}")
+    launches = _bench_counters(what, bodies, need)
+    print(f"bench {what}: ran {wall:.1f} s, launches {launches}", flush=True)
+    return bodies[0] if key == "quant_ab" else None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch/CUDA port")
     ap.add_argument("--layers", type=int, default=28, help="model depth (width stays)")
@@ -6684,6 +6889,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train", action="store_true",
                     help="build, then only phase 18: training (bench_2b VLM, TTS) and the "
                          "parallel tier on a one-rank group (prints no result line)")
+    ap.add_argument("--bench", action="store_true",
+                    help="build, then only phase 19: the port's measurement tools, each leg "
+                         "in its own process (prints no result line)")
     ap.add_argument("--paths", action="store_true",
                     help="build, then only phases 4, 6, 9 and 10, phase 12's main path and the "
                          "VLM's generate, for their times (prints no result line)")
@@ -6769,6 +6977,10 @@ def main(argv=None) -> int:
         if args.train:
             del params, params4
             serve_train(torch, DB, LO, smi, args.seed + 60, scratch)
+            return 0
+        if args.bench:
+            del params, params4
+            serve_bench(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, here)
             return 0
         if args.paths:  # phases 4, 6, 9, 10 and 12's main path and the VLM's generate alone
             _, _, slice_times = serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg,
@@ -6895,6 +7107,7 @@ def main(argv=None) -> int:
         serve_hub(torch, DB, LO, L, smi, args.seed + 50, scratch)
         by_name["flash_attention"]["launches"] += serve_train(torch, DB, LO, smi,
                                                               args.seed + 60, scratch)
+        serve_bench(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, here)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

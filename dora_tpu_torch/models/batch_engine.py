@@ -1274,13 +1274,48 @@ class PagedBatchEngine(_DevicePlane):
                     break
 
 
+class _SleepingWindow:
+    """A window runner that sleeps on the host after the device finished
+    its window: ``tick_sleep_s`` times the engine's live K."""
+
+    def __init__(self, runner, engine):
+        self.runner = runner
+        self.engine = engine
+
+    def __call__(self, *args):
+        out = self.runner(*args)
+        if out[0].is_cuda:
+            torch.cuda.current_stream(out[0].device).synchronize()
+        time.sleep(self.engine.tick_sleep_s * self.engine.window)
+        return out
+
+    def __getattr__(self, name):  # captures, replays, launches of the runner
+        return getattr(self.runner, name)
+
+
+class _StubPagedEngine(PagedBatchEngine):
+    """The stub's engine: every window runner it makes sleeps after its
+    window when ``tick_sleep_s`` is set."""
+
+    def __init__(self, *, tick_sleep_s: float = 0.0, **kwargs):
+        self.tick_sleep_s = tick_sleep_s  # read by _wrap, which __init__ calls
+        super().__init__(**kwargs)
+
+    def _wrap(self, window, spec_k: int):
+        runner = super()._wrap(window, spec_k)
+        if runner is None or not self.tick_sleep_s:
+            return runner
+        return _SleepingWindow(runner, self)
+
+
 def make_stub_paged_engine(*, max_slots: int = 4, max_seq: int = 64, page_size: int = 8,
                            chunk: int = 16, num_pages: int | None = None,
                            eos: int | None = None, window: int = 1, vocab: int = 97,
                            spec_k: int = 0, spec_ngram: int = 2, cycle: int | None = None,
                            prefix_cache: bool = False, prefix_cache_pages: int = 0,
                            flops_per_token: int = 1_000_000, peak_flops: float = 1e12,
-                           lora_max_resident: int = 0, device=None,
+                           lora_max_resident: int = 0, tick_sleep_s: float = 0.0,
+                           chunk_sleep_s: float = 0.0, device=None,
                            graphs: bool | None = None) -> PagedBatchEngine:
     """A weight-free :class:`PagedBatchEngine` over the real window machinery
     (the counterpart of the JAX package's stub, which ``DORA_STUB_ENGINE=1``
@@ -1299,7 +1334,13 @@ def make_stub_paged_engine(*, max_slots: int = 4, max_seq: int = 64, page_size: 
     ``(rule(t) + shift) % vocab``: slot 0's zero shift keeps base streams
     those of the pool-less stub, each tenant gets its own stream.
     ``flops_per_token`` and ``peak_flops`` feed the device plane's ledger.
-    The pools are one int32 placeholder: the rule reads no KV."""
+    The pools are one int32 placeholder: the rule reads no KV.
+
+    ``tick_sleep_s`` stands in for a model's device cost: after each decode
+    window has finished on the device, the host sleeps ``tick_sleep_s * K``
+    (outside the window's graph, so every replay pays it); ``chunk_sleep_s``
+    does the same after each prefill chunk's dispatch. The measurement
+    tools' stub legs use them, as the JAX stub's arguments of those names."""
     from dora_tpu_torch.models.lora_pool import AdapterPool
     from dora_tpu_torch.models.vlm import make_paged_spec_window, make_paged_window
 
@@ -1349,7 +1390,16 @@ def make_stub_paged_engine(*, max_slots: int = 4, max_seq: int = 64, page_size: 
                                           eos=eos, lora=lora_pool is not None)
         return make_paged_window(step_fn, k=k, eos=eos, lora=lora_pool is not None)
 
-    engine = PagedBatchEngine(
+    if chunk_sleep_s:
+        chunk_body = chunk_fn
+
+        def chunk_fn(*args):
+            out = chunk_body(*args)
+            time.sleep(chunk_sleep_s)
+            return out
+
+    engine = _StubPagedEngine(
+        tick_sleep_s=tick_sleep_s,
         init_pool=lambda n: {"0": {"null": torch.zeros((1,), dtype=torch.int32, device=dev)}},
         chunk_prefill=chunk_fn, window_step=window_factory(window, spec_k),
         window_factory=window_factory, max_slots=max_slots, max_seq=max_seq,

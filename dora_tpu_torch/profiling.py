@@ -136,6 +136,25 @@ def detect_peak_flops(device=None) -> float:
     return 0.0
 
 
+#: Peak HBM bytes/s by lower-case device-name substring: NVIDIA's H100 SXM
+#: data sheet figure (3.35 TB/s), not a measurement.
+_PEAK_HBM_BY_NAME = (
+    ("h100 80gb hbm3", 3.35e12),
+    ("h100 sxm", 3.35e12),
+)
+
+
+def detect_peak_hbm_bytes(device=None) -> float:
+    """Peak memory bytes/s for MBU's denominator: the name table on
+    ``torch.cuda.get_device_name`` of ``device`` (default the current
+    card); 0.0 for a CPU device, no card or an unknown card."""
+    dev = torch.device(device) if device is not None else torch.device("cuda")
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return 0.0
+    name = torch.cuda.get_device_name(dev).lower()
+    return next((peak for needle, peak in _PEAK_HBM_BY_NAME if needle in name), 0.0)
+
+
 # ---------------------------------------------------------------------------
 # tier 1: continuous device gauges
 # ---------------------------------------------------------------------------

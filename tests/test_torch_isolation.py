@@ -41,7 +41,9 @@ def test_port_imports_no_jax_and_no_dora_tpu():
         "        'dora_tpu_torch.models.spm', 'dora_tpu_torch.models.detection',\n"
         "        'dora_tpu_torch.models.hf.yolos', 'dora_tpu_torch.models.translation',\n"
         "        'dora_tpu_torch.models.hf.marian', 'dora_tpu_torch.models.tts',\n"
-        "        'dora_tpu_torch.models.hf.vits', 'dora_tpu_torch.nodehub.translator'} <= set(names)\n"
+        "        'dora_tpu_torch.models.hf.vits', 'dora_tpu_torch.nodehub.translator',\n"
+        "        'dora_tpu_torch.tools.bench_serving', 'dora_tpu_torch.tools.bench_int8',\n"
+        "        'dora_tpu_torch.tools.bench_flash', 'dora_tpu_torch.tools.bench_vlm'} <= set(names)\n"
         "from dora_tpu_torch.models import tokenizer, vlm\n"
         "from dora_tpu_torch.nodehub import ops\n"
         "assert all(callable(getattr(ops, f)) for f in ('make_vlm', 'make_asr', 'make_vad',\n"
