@@ -231,14 +231,33 @@ Phases, each printed on its own line:
    dense A/B, ``--multistep``, ``--trace-ab`` and ``--quant-ab`` on the
    seeded Qwen2-1.5B-width model (``DORA_INT8_DECODE=1``), its six stub-
    engine legs, bench_int8, bench_flash, and bench_vlm's ``model`` (int8,
-   ``DORA_SPEC_DECODE=1``) and ``batch`` modes on bench_2b. Each leg's JSON
+   ``DORA_SPEC_DECODE=1``), ``batch`` and ``e2e`` modes on bench_2b (e2e: the
+   camera -> VLM node -> sink dataflow under the port's daemon, E2E_FRAMES
+   frames, the node's launches from its own process). Each leg's JSON
    lines are printed; the run fails on a missing line, a null number (a
    spec-off cell's acceptance aside), a plain call, or a kernel the leg
    names with no launch. Where ``--quant-ab``'s int8-KV streams part from
    its fp streams, both tokens must sit at a near-tie of the f32 plain path
    on the same prefix (the int8-KV token within NEAR_TIE, the fp one within
    SPEC_REF_TIE, as phases 7 and 12 hold a second path). The cuts are
-   printed on a ``bench cuts`` line. The kernels line does not change.
+   printed on a ``bench cuts`` line. The kernels line does not change;
+20. the port's dataflows under the port's own daemon (``dataflow`` lines,
+   ``dora_tpu_torch.daemon.run_dataflow``, no YAML read): (a)
+   dora_tpu_torch/examples/vlm.yml as a dict at bench_2b, int8 (a seeded 20
+   ms camera, the VLM node ticked at 100 ms, its inputs latest-wins, the
+   printer and the recorder), run VLM_FLOW_S after its start barrier, then
+   with ``DORA_SPEC_DECODE=1`` for VLM_SPEC_FLOW_S: every recorded caption
+   equal to ``vlm.generate`` (``generate_speculative``) in this process on
+   the frame its metadata names, the VLM node's launches (its own process,
+   tools/counted.py) those of its ticks with no plain call (kernels 11, 7,
+   9, 1, 2; kernel 10 speculative), frames a second at the recorder and
+   tick-to-sink latency beside phase 16's tick wall; (b) phase 4's requests
+   from a prompt node to ``nodehub.llm_server --random-config`` (phase 4's
+   seeded weights, int8, phase 13's engine) to a sink, over shmem and over
+   tcp, after one warmup request of one token: every stream held to phase
+   4's by the near-tie rule, kernels 1-4 launched in the node with no plain
+   call, TTFT and tokens a second beside phase 13 (a)'s. A failed node fails
+   the phase. The kernels line does not change.
 
 Phase 3 also holds the int4 forms of kernels 1-5 and 8-10 against their
 plain versions on phase 12's int4 weights at the main paths' shapes (with
@@ -284,8 +303,8 @@ and 10, phase 12's main path and the VLM's ``generate`` (prefill chunk, window, 
 dense step and its short prompts' TTFT, batch-1 prefill, ``run_loop``
 pass, VLM step and ViT times; the windows and the dense step graphed and
 eager), ``--hf-vlm`` only phase 15, ``--operators`` only phase 16,
-``--hub`` only phase 17, ``--train`` only phase 18 and ``--bench`` only
-phase 19, all without the result line.
+``--hub`` only phase 17, ``--train`` only phase 18, ``--bench`` only
+phase 19 and ``--dataflow`` only phase 20, all without the result line.
 
 Phases 4, 6, 8 and 9 build their engines through the normal factories,
 so each decode window (the dense step) is one CUDA-graph replay, and each
@@ -4509,6 +4528,8 @@ def serve_node(torch, DB, LO, make_engine, serve_prompts, paths, params, cfg, pr
     gap = metrics.dispatch_gap.counts
     snap = node.snapshots[-1]
     rate_a = metrics.decode_tokens / wall
+    EARLIER["serve_a"] = (f"TTFT p50 {_pct(ttft, 50):.4f} s max {max(ttft):.4f} s, "
+                          f"{rate_a:.1f} tokens/s")
     print(f"serve (a): {len(rids)} requests, {metrics.decode_tokens} tokens in {wall:.3f} s "
           f"({metrics.decode_tokens / wall:.1f} tokens/s end to end); {len(rids) - parted} "
           f"streams equal phase 4's token for token, {parted} part at near-ties; TTFT p50 "
@@ -5144,10 +5165,12 @@ def _run_node(torch, DB, LO, graph, events, depth=None, fetch_every=None, timed=
 
 
 def _same_sends(what: str, a, b) -> None:
-    """Two runs' sends equal bit for bit, in order."""
+    """Two runs' sends equal bit for bit, in order, metadata too but for the
+    runtime's ``tick_ns`` (the wall time each tick was dispatched)."""
     if len(a) != len(b):
         raise Failed(f"{what}: {len(a)} sends against {len(b)}")
     for i, ((ka, va, ma), (kb, vb, mb)) in enumerate(zip(a, b)):
+        ma, mb = ({k: v for k, v in m.items() if k != "tick_ns"} for m in (ma, mb))
         if ka != kb or ma != mb or va.dtype != vb.dtype or va.tobytes() != vb.tobytes():
             raise Failed(f"{what}: send {i} ({ka}) differs")
 
@@ -5448,6 +5471,8 @@ def vlm_node(torch, DB, LO, L, smi: str, seed: int, dev: str, size: str) -> dict
         walls[what].append(pwall)
     ticks_ms = [1e3 * x for x in ticks]
     fps = {k: [round(n / w, 3) for w in v] for k, v in walls.items()}
+    EARLIER["vlm_tick"] = (f"p50 {_pct(ticks_ms, 50):.1f} ms p99 {_pct(ticks_ms, 99):.1f} ms, "
+                           f"{fps['pipelined']} frames a second pipelined")
     print(f"operators (b) VLM node: frames per second (ticks a second) synchronous "
           f"{fps['synchronous']}, pipelined (depth 4) {fps['pipelined']}, every run's tokens "
           f"bit for bit the first's; tick wall p50 {_pct(ticks_ms, 50):.1f} ms, p99 "
@@ -6691,6 +6716,12 @@ BENCH_QUANT = BENCH_PAGED + (
 BENCH_VLM_MODEL = ("flash_attention", "int8_matmul", "attention_step", "attention_chunk_step",
                    "mlp_step", "lm_head_argmax")
 BENCH_VLM_BATCH = ("attention_batch_step", "mlp_step", "lm_head_argmax")
+#: bench_vlm e2e's camera frames (10 s at 20 ms: the VLM node's first tick
+#: takes seconds, and 100 frames end before it is warm)
+E2E_FRAMES = 500
+#: bench_vlm e2e's VLM node, greedy: kernels 11, 7, 9, 1, 2 (in its own process)
+BENCH_VLM_E2E = ("flash_attention", "int8_matmul", "attention_step", "mlp_step",
+                 "lm_head_argmax")
 #: each leg: (name, tool, arguments, extra env, the line's key (None: a
 #: line per shape or metric), lines, the kernels it must launch)
 _MODEL_ENV = {"DORA_INT8_DECODE": "1"}
@@ -6715,6 +6746,8 @@ BENCH_LEGS = (
     ("vlm model", "bench_vlm", ["model"], {**_MODEL_ENV, "DORA_SPEC_DECODE": "1"}, None, 8,
      BENCH_VLM_MODEL),
     ("vlm batch", "bench_vlm", ["batch"], _MODEL_ENV, None, 4, BENCH_VLM_BATCH),
+    ("vlm e2e", "bench_vlm", ["e2e"], {**_MODEL_ENV, "BENCH_FRAMES": str(E2E_FRAMES)}, None, 2,
+     BENCH_VLM_E2E),
 )
 #: one leg's process may take this long
 BENCH_LEG_TIMEOUT_S = 300
@@ -6865,6 +6898,351 @@ def _bench_check(what: str, lines: list[dict], key, n_lines: int, need, wall: fl
     return bodies[0] if key == "quant_ab" else None
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the port's dataflows under the port's own daemon
+# ---------------------------------------------------------------------------
+
+#: numbers of earlier phases that phase 20 prints beside its own
+EARLIER: dict = {}
+#: (a): seconds the VLM dataflow runs after its start barrier, greedy and
+#: with DORA_SPEC_DECODE=1
+VLM_FLOW_S = 12.0
+VLM_SPEC_FLOW_S = 10.0
+#: (a): the camera's frame seed
+VLM_FLOW_SEED = 7
+#: the kernels of the greedy VLM node (kernels 11, 7, 9, 1, 2) and of its
+#: speculative form (kernel 10 instead of 9)
+VLM_GREEDY_KERNELS = ("flash_attention", "int8_matmul", "attention_step", "mlp_step",
+                      "lm_head_argmax")
+VLM_SPEC_KERNELS = ("flash_attention", "int8_matmul", "attention_chunk_step", "mlp_step",
+                    "lm_head_argmax")
+#: one dataflow run may take this long, start and weights included
+FLOW_TIMEOUT_S = 300
+
+#: (b)'s prompt node: a warmup request of one new token first (the node's
+#: process starts its CUDA libraries and loads the kernels on it; one token
+#: is a prefill alone, so the decode window's graph is still captured inside
+#: the measured requests, as in phase 13 (a)), then, once it is answered,
+#: every request at once, their send times written out
+_PROMPT_NODE = """
+import json
+import sys
+import time
+
+import pyarrow as pa
+
+from dora_tpu_torch.node import Node
+
+requests = json.load(open(sys.argv[1]))
+sent = {}
+with Node() as node:
+    node.send_output("prompt", pa.array([" ".join(map(str, range(1, 33)))]),
+                     {"request_id": "warmup", "max_new_tokens": 1})
+    for event in node:
+        if event["type"] == "INPUT" and event["metadata"]["done"]:
+            break
+    for rid, ids, max_new in requests:
+        sent[rid] = time.monotonic()
+        node.send_output("prompt", pa.array([" ".join(map(str, ids))]),
+                         {"request_id": rid, "max_new_tokens": max_new})
+json.dump(sent, open(sys.argv[2], "w"))
+"""
+
+#: (b)'s sink: every response chunk with its arrival time
+_CHUNK_SINK = """
+import json
+import sys
+import time
+
+from dora_tpu_torch.node import Node
+
+chunks = []
+with Node() as node:
+    for event in node:
+        if event["type"] == "INPUT":
+            meta = event["metadata"]
+            if meta["request_id"] != "warmup":
+                chunks.append([time.monotonic(), meta["request_id"], meta["seq"], meta["done"],
+                               meta.get("finish"), event["value"].to_pylist()[0]])
+json.dump(chunks, open(sys.argv[1], "w"))
+"""
+
+
+def _counted_args(counts: str, module_args: str) -> str:
+    """A node's args under tools/counted.py: its launches land in ``counts``."""
+    return f"{counts} {module_args}"
+
+
+def _node_counts(what: str, path: str, need, others_ok=()) -> dict:
+    """A node process's launches and plain calls (tools/counted.py): every
+    kernel of ``need`` launched, none outside ``need`` and ``others_ok``, no
+    plain call, a clean exit."""
+    with open(path) as f:
+        report = json.load(f)
+    launches, plain = report["launches"], report["plain_calls"]
+    print(f"{what} node launches: {json.dumps(launches)}; plain calls {plain}", flush=True)
+    if report["exit"] != 0:
+        raise Failed(f"{what}: the node exited {report['exit']}")
+    if plain:
+        raise Failed(f"{what}: {plain} plain-version call(s) in the node")
+    missing = [n for n in need if not launches.get(n)]
+    if missing:
+        raise Failed(f"{what}: no launch of {', '.join(missing)} in the node ({launches})")
+    stray = [n for n in launches if n not in need and n not in others_ok]
+    if stray:
+        raise Failed(f"{what}: the node launched {stray} off its path")
+    return launches
+
+
+def _flow(desc, work: str, what: str, **kw):
+    """The dataflow through the port's run_dataflow; a failed node fails the
+    phase, with the daemon's report."""
+    from dora_tpu_torch.daemon import run_dataflow
+
+    t = time.perf_counter()
+    result = run_dataflow(desc, working_dir=work, timeout_s=FLOW_TIMEOUT_S, **kw)
+    wall = time.perf_counter() - t
+    if not result.is_ok():
+        raise Failed(f"{what}: dataflow failed: "
+                     + "; ".join(f"{nid}: {err}" for nid, err in result.errors()))
+    return wall
+
+
+def vlm_flow_desc(counts: str, size: str, dev: str) -> dict:
+    """dora_tpu_torch/examples/vlm.yml as a dict (no YAML on the card's
+    machine is needed): the 20 ms camera with seeded frames, the VLM node
+    ticked at 100 ms, its image and tick inputs latest-wins (queue_size 1,
+    so a tick's latency is the node's and not a backlog's), the printer and
+    the recorder; the VLM node under tools/counted.py."""
+    return {"nodes": [
+        {"id": "camera", "path": "module:dora_tpu_torch.nodehub.camera",
+         "inputs": {"tick": "dora/timer/millis/20"}, "outputs": ["image"],
+         "env": {"IMAGE_WIDTH": "224", "IMAGE_HEIGHT": "224", "SEED": str(VLM_FLOW_SEED)}},
+        {"id": "vlm", "path": "module:dora_tpu_torch.tools.counted",
+         "args": _counted_args(counts, "dora_tpu_torch.runtime --operator "
+                               f"op=dora_tpu_torch.nodehub.ops:make_vlm --device {dev}"),
+         "inputs": {"op/image": {"source": "camera/image", "queue_size": 1},
+                    "op/tick": {"source": "dora/timer/millis/100", "queue_size": 1}},
+         "outputs": ["op/tokens"],
+         "env": {"DORA_MODEL_SIZE": size, "DORA_INT8_DECODE": "1"}},
+        {"id": "printer", "path": "module:dora_tpu_torch.nodehub.terminal_print",
+         "inputs": {"tokens": "vlm/op/tokens"}},
+        {"id": "recorder", "path": "module:dora_tpu_torch.nodehub.record",
+         "inputs": {"tokens": "vlm/op/tokens"}, "env": {"RECORD_DIR": "record"}},
+    ]}
+
+
+def _recorded(path: str) -> list[tuple[list, dict, int]]:
+    """The recorder's rows: (tokens, metadata, arrival wall ns)."""
+    import pyarrow.parquet as pq
+
+    return [(row["value"], json.loads(row["metadata"]), row["timestamp_utc_ns"])
+            for row in pq.read_table(path).to_pylist()]
+
+
+def vlm_dataflow(torch, smi: str, scratch: str, dev: str = "cuda", size: str = "bench") -> None:
+    """Phase 20 (a): vlm.yml under the port's daemon, greedy, then with
+    DORA_SPEC_DECODE=1: each caption's metadata names the frame it answers,
+    and its tokens equal ``vlm.generate`` (``generate_speculative``) on that
+    frame in this process; the node's launches exact for its ticks, no
+    plain call; frames a second at the sink and tick-to-sink latency."""
+    from dora_tpu_torch.core.descriptor import Descriptor
+    from dora_tpu_torch.models import tokenizer, vlm
+    from dora_tpu_torch.nodehub.camera import seeded_frame
+
+    cfg = vlm.VLMConfig.bench_2b() if size != "tiny" else vlm.VLMConfig.tiny()
+    t = time.perf_counter()
+    params = vlm.quantize_decode(vlm.init_params(cfg, seed=0, device=dev))  # make_vlm's
+    print(f"dataflow (a): make_vlm's weights rebuilt here for the reference in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    prompt = torch.tensor([[x % cfg.vocab for x in tokenizer.encode("describe")]],
+                          dtype=torch.int32, device=dev)
+    max_new = 16  # make_vlm's default
+    knobs = dict(DORA_INT4_DECODE=None, DORA_INT8_PURE=None, DORA_SPEC_DECODE=None,
+                 DORA_MAX_NEW_TOKENS=None, DORA_PROMPT=None, DORA_CHECKPOINT=None,
+                 DORA_HF_CHECKPOINT=None, DORA_PARAM_DTYPE=None, DORA_MESH=None,
+                 DORA_PIPELINE_DEPTH=None, DORA_FETCH_EVERY=None)
+    for spec, run_s, need in ((False, VLM_FLOW_S, VLM_GREEDY_KERNELS),
+                              (True, VLM_SPEC_FLOW_S, VLM_SPEC_KERNELS)):
+        what = "dataflow (a)" + (" DORA_SPEC_DECODE=1" if spec else "")
+        with tempfile.TemporaryDirectory(prefix="vlm-flow-", dir=scratch) as work:
+            counts = os.path.join(work, "vlm.launches.json")
+            with _env(**{**knobs, "DORA_SPEC_DECODE": "1" if spec else None}):
+                wall = _flow(Descriptor.parse(vlm_flow_desc(counts, size, dev)), work, what,
+                             stop_after_s=run_s)
+            launches = _node_counts(what, counts, need)
+            recorded = os.path.join(work, "record", "tokens.parquet")
+            rows = _recorded(recorded) if os.path.exists(recorded) else []
+        if len(rows) < 3:
+            raise Failed(f"{what}: {len(rows)} captions recorded in {run_s} s")
+        frames = sorted({m["frame"] for _v, m, _t in rows})
+        ref = {}
+        for i in frames:
+            image = (torch.from_numpy(seeded_frame(cfg.image_size, cfg.image_size,
+                                                   VLM_FLOW_SEED, i)).to(dev).float()
+                     / 255.0)[None]
+            if spec:
+                ref[i] = vlm.generate_speculative(params, cfg, image, prompt, max_new)[0][0]
+            else:
+                ref[i] = vlm.generate(params, cfg, image, prompt, max_new)[0]
+            ref[i] = ref[i].cpu().tolist()
+        for j, (tokens, meta, _t) in enumerate(rows):
+            if tokens != ref[meta["frame"]]:
+                raise Failed(f"{what}: caption {j} (frame {meta['frame']}) differs from "
+                             f"this process's {'generate_speculative' if spec else 'generate'}"
+                             f": {tokens} against {ref[meta['frame']]}")
+        # every tick the node ran: kernel 11 launches 32 times an image
+        ticks = launches["flash_attention"] // cfg.vision_layers
+        if ticks < len(rows) or launches["flash_attention"] != ticks * cfg.vision_layers:
+            raise Failed(f"{what}: {launches['flash_attention']} flash launches for "
+                         f"{len(rows)} captions")
+        if not spec:
+            steps = ticks * (max_new - 1)
+            want = {"attention_step": cfg.layers * steps, "mlp_step": cfg.layers * steps,
+                    "lm_head_argmax": steps}
+            got = {n: launches[n] for n in want}
+            if got != want:
+                raise Failed(f"{what}: {ticks} ticks launched {got}, expected {want}")
+        # The first ticks carry the node's warmup and the backlog it leaves:
+        # the rate and latency of the later half of the captions are the
+        # steady state, beside those of every caption after the first.
+        def rate(part):
+            arrive = [a for _v, _m, a in part]
+            lat = [1e-6 * (a - m["tick_ns"]) for _v, m, a in part]
+            return (len(part) - 1) / (1e-9 * (arrive[-1] - arrive[0])), lat
+
+        fps, lat = rate(rows[1:])
+        fps_s, lat_s = rate(rows[len(rows) // 2:])
+        first = 1e-6 * (rows[0][2] - rows[0][1]["tick_ns"])
+        t0 = rows[0][1]["tick_ns"]
+        print(f"{what} captions (frame, tick ms, tick-to-sink ms from the first tick): "
+              + " ".join(f"({m['frame']}, {1e-6 * (m['tick_ns'] - t0):.0f}, "
+                         f"{1e-6 * (a - m['tick_ns']):.0f})" for _v, m, a in rows), flush=True)
+        print(f"{what}: {len(rows)} captions of {ticks} ticks over frames {frames[:8]}"
+              f"{'...' if len(frames) > 8 else ''}, each equal to "
+              f"{'vlm.generate_speculative' if spec else 'vlm.generate'} on its frame here; "
+              f"the later half {fps_s:.3f} frames a second at the recorder, tick-to-sink p50 "
+              f"{_pct(lat_s, 50):.1f} ms p99 {_pct(lat_s, 99):.1f} ms; every caption after the "
+              f"first ({first:.1f} ms from its tick, warmup included) {fps:.3f} frames a second, "
+              f"tick-to-sink p50 "
+              f"{_pct(lat, 50):.1f} ms p99 {_pct(lat, 99):.1f} ms; dataflow wall {wall:.1f} s "
+              f"(start barrier and weights included; ran {run_s} s after it); phase 16's tick "
+              f"wall {EARLIER.get('vlm_tick', 'not run')} [{smi}]", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def serve_flow_desc(counts: str, prompts_json: str, sent_json: str, chunks_json: str,
+                    layers: int, seed: int, max_new: int, comm: str, dev: str) -> dict:
+    """Phase 4's requests from a prompt node to the port's serving node (the
+    seeded Qwen2-1.5B-width weights of phase 4, int8, phase 13's engine) to a
+    sink, over ``comm``."""
+    return {"communication": {"local": comm}, "nodes": [
+        {"id": "prompts", "path": "prompt_node.py", "args": f"{prompts_json} {sent_json}",
+         "inputs": {"response": {"source": "llm/response", "queue_size": 4096}},
+         "outputs": ["prompt"]},
+        {"id": "llm", "path": "module:dora_tpu_torch.tools.counted",
+         "args": _counted_args(counts, "dora_tpu_torch.nodehub.llm_server --random-config "
+                               f"qwen2_1_5b --layers {layers} --seed {seed} --device {dev}"),
+         "inputs": {"text": {"source": "prompts/prompt", "queue_size": 64}},
+         "outputs": ["response"],
+         "env": {"DORA_BATCH_SLOTS": "16", "DORA_PAGE_SIZE": "16", "DORA_PREFILL_CHUNK": "256",
+                 "DORA_MULTISTEP_K": "8", "DORA_MAX_SEQ": "2048", "DORA_INT8_DECODE": "1",
+                 "DORA_MAX_NEW_TOKENS": str(max_new)}},
+        {"id": "sink", "path": "chunk_sink.py", "args": chunks_json,
+         "inputs": {"response": {"source": "llm/response", "queue_size": 4096}}},
+    ]}
+
+
+def serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
+                   scratch: str, layers: int, seed: int, prompts, max_new: int, served=None):
+    """Phase 20 (b): phase 4's requests through the port's serving node behind
+    the port's daemon, over shmem and over tcp: every stream held to phase
+    4's by the near-tie rule, TTFT and tokens a second beside phase 13's,
+    kernels 1-4 launched in the node, no plain call."""
+    from dora_tpu_torch.core.descriptor import Descriptor
+
+    cfg = qwen2.Qwen2Config.qwen2_1_5b(layers=layers, max_seq=2048)
+    params = qwen2.quantize_decode(qwen2.random_params(cfg, seed=seed, std=0.02, device="cuda"),
+                                   cfg)
+    if served is None:  # phase 4's streams (its engine, prefix cache off)
+        engine = qwen2.make_paged_engine(params, cfg, max_slots=16, page_size=16, chunk=256,
+                                         window=8, spec_k=0, prefix_cache=False, device="cuda")
+        served, _ = serve_prompts(engine, prompts, max_new)
+        del engine
+        print("dataflow (b): phase 4's streams served here for the reference", flush=True)
+    paths = _Paths(torch, DB, LO, IM, qwen2, L, serve_prompts, params, cfg)
+    rids = [f"a{i}" for i in range(len(prompts))]
+    for comm in ("shmem", "tcp"):
+        what = f"dataflow (b) {comm}"
+        with tempfile.TemporaryDirectory(prefix="serve-flow-", dir=scratch) as work:
+            files = {k: os.path.join(work, f"{k}.json")
+                     for k in ("counts", "prompts", "sent", "chunks")}
+            with open(files["prompts"], "w") as f:
+                json.dump([[r, p, max_new] for r, p in zip(rids, prompts)], f)
+            with open(os.path.join(work, "prompt_node.py"), "w") as f:
+                f.write(_PROMPT_NODE)
+            with open(os.path.join(work, "chunk_sink.py"), "w") as f:
+                f.write(_CHUNK_SINK)
+            desc = serve_flow_desc(files["counts"], files["prompts"], files["sent"],
+                                   files["chunks"], layers, seed, max_new, comm, "cuda")
+            with _env(**{k: None for k in FRONT_DOOR_KNOBS},
+                      DORA_QOS_PREEMPT=None, DORA_QOS_DEPTH_BATCH=None):
+                wall = _flow(Descriptor.parse(desc), work, what)
+            _node_counts(what, files["counts"], SPEC_OFF_KERNELS)
+            with open(files["sent"]) as f:
+                sent = json.load(f)
+            with open(files["chunks"]) as f:
+                chunks = json.load(f)
+        streams: dict = {r: [] for r in rids}
+        seqs: dict = {r: [] for r in rids}
+        dones: dict = dict.fromkeys(rids, 0)
+        first: dict = {}
+        for t, rid, seq, done, finish, text in chunks:
+            if text:
+                streams[rid].append(int(text))
+            seqs[rid].append(seq)
+            first.setdefault(rid, t)
+            if done:
+                dones[rid] += 1
+                if finish != "length":
+                    raise Failed(f"{what}: request {rid} finished {finish!r}")
+        for rid in rids:
+            if dones[rid] != 1 or seqs[rid] != list(range(len(seqs[rid]))):
+                raise Failed(f"{what}: request {rid}: {dones[rid]} done chunks, seqs "
+                             f"{seqs[rid][:8]}...")
+        parted = 0
+        for i, rid in enumerate(rids):
+            if len(streams[rid]) != max_new:
+                raise Failed(f"{what}: request {rid} has {len(streams[rid])} of {max_new} "
+                             "tokens")
+            parted += _hold_to_phase4(f"{what}: request {i}", paths, prompts[i], streams[rid],
+                                      served[i], max_new) < max_new
+        ttft = [first[r] - sent[r] for r in rids]
+        span = max(t for t, *_ in chunks) - min(sent.values())
+        n_tok = sum(len(s) for s in streams.values())
+        ref = EARLIER.get("serve_a")
+        print(f"{what}: {len(rids)} requests, {n_tok} tokens in {span:.3f} s from the first "
+              f"send to the last chunk ({n_tok / span:.1f} tokens/s end to end); "
+              f"{len(rids) - parted} streams equal phase 4's token for token, {parted} part at "
+              f"near-ties; TTFT p50 {_pct(ttft, 50):.4f} s max {max(ttft):.4f} s; phase 13 (a) "
+              f"over a scripted node: {ref or 'not run'}; dataflow wall {wall:.1f} s (node "
+              f"start and weights included) [{smi}]", flush=True)
+    del paths, params
+    torch.cuda.empty_cache()
+
+
+def serve_dataflows(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
+                    scratch: str, layers: int, seed: int, prompts, max_new: int,
+                    served=None) -> None:
+    """Phase 20: the port's dataflows under the port's daemon."""
+    t0 = time.perf_counter()
+    vlm_dataflow(torch, smi, scratch)
+    serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch,
+                   layers, seed, prompts, max_new, served)
+    print(f"dataflow: phase 20 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch/CUDA port")
     ap.add_argument("--layers", type=int, default=28, help="model depth (width stays)")
@@ -6892,6 +7270,9 @@ def main(argv=None) -> int:
     ap.add_argument("--bench", action="store_true",
                     help="build, then only phase 19: the port's measurement tools, each leg "
                          "in its own process (prints no result line)")
+    ap.add_argument("--dataflow", action="store_true",
+                    help="build, then only phase 20: the port's VLM and serving dataflows "
+                         "under the port's own daemon (prints no result line)")
     ap.add_argument("--paths", action="store_true",
                     help="build, then only phases 4, 6, 9 and 10, phase 12's main path and the "
                          "VLM's generate, for their times (prints no result line)")
@@ -6981,6 +7362,11 @@ def main(argv=None) -> int:
         if args.bench:
             del params, params4
             serve_bench(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, here)
+            return 0
+        if args.dataflow:
+            del params, params4
+            serve_dataflows(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch,
+                            args.layers, args.seed, prompts, args.max_new)
             return 0
         if args.paths:  # phases 4, 6, 9, 10 and 12's main path and the VLM's generate alone
             _, _, slice_times = serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg,
@@ -7108,6 +7494,8 @@ def main(argv=None) -> int:
         by_name["flash_attention"]["launches"] += serve_train(torch, DB, LO, smi,
                                                               args.seed + 60, scratch)
         serve_bench(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, here)
+        serve_dataflows(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch, args.layers,
+                        args.seed, prompts, args.max_new, served)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -7,21 +7,27 @@ first use by ``ops/_build.py``). The module layout mirrors ``dora_tpu``
 (``ops/decode_block.py`` here is the counterpart of
 ``dora_tpu/ops/decode_block.py``, and so on).
 
-It also carries its own serving node (``nodehub/llm_server.py``): a dora
-node that the JAX package's daemon spawns and runs unchanged, speaking its
-wire byte for byte through the port's copies of the node API (``node/``),
-the message codec (``message/``), the clock, the framing and the
-shared-memory layer (``native.py`` over ``csrc/shmem.cpp``), with the
-trace, metrics and fleet planes the node reports through. Its operator
-tier (``runtime/``, ``tpu/``: a runtime node hosting torch operators, the
-counterpart of ``python -m dora_tpu.runtime``) runs the model-zoo factories
-of ``nodehub/ops.py`` (the VLMs, Whisper and the ASR, Wav2Vec2 and the VAD)
-as dataflow operators.
+It also carries its own dataflow runtime, on the host: the descriptor
+(``core/``), a local daemon that spawns a dataflow's nodes, routes their
+messages over tcp, a Unix socket or shared memory, runs their timers and
+restarts them (``daemon/``, ``python -m dora_tpu_torch.cli run``), the node
+API (``node/``), the message codec (``message/``), the clock, the framing,
+the shared-memory layer (``native.py`` over ``csrc/shmem.cpp``) and the
+host nodes of its examples (``nodehub/``: camera, microphone, printer,
+recorder, speaker, plot). The wire is the JAX package's byte for byte, so
+a node of either package runs under either daemon. Its serving node
+(``nodehub/llm_server.py``) and its operator tier (``runtime/``, ``tpu/``: a
+runtime node hosting torch operators, the counterpart of ``python -m
+dora_tpu.runtime``) run the model-zoo factories of ``nodehub/ops.py`` (the
+VLMs, Whisper and the ASR, Wav2Vec2 and the VAD, the detectors, the
+translators and the TTS) as dataflow nodes.
 
 Rules the package keeps:
 
 * it imports ``torch`` and ``numpy`` (``safetensors`` on the checkpoint
-  path), never ``jax`` and never a module of ``dora_tpu``;
+  path), never ``jax`` and never a module of ``dora_tpu``; the daemon, the
+  descriptor and the CLI import neither torch nor jax (torch loads with the first use of
+  :func:`resolve_device`, not with the package);
 * the node's wire adds host-only dependencies, each imported only where
   the node talks to its daemon: ``msgpack`` in ``message/serde.py``'s
   ``encode`` / ``decode``, ``pyarrow`` in ``node/arrow.py`` (loaded by
@@ -35,8 +41,6 @@ Rules the package keeps:
   CUDA tensors it launches its kernel or raises.
 """
 
-from dora_tpu_torch._device import compute_dtype, resolve_device
-
 __version__ = "0.1.0"
 
 #: the node wire's protocol version, dora_tpu's: a daemon refuses a node
@@ -44,3 +48,13 @@ __version__ = "0.1.0"
 PROTOCOL_VERSION = "0.1.0"
 
 __all__ = ["compute_dtype", "resolve_device"]
+
+
+def __getattr__(name: str):
+    # torch loads with the first use of these, not with the package: the
+    # daemon, the CLI and the host nodes run without it
+    if name in __all__:
+        from dora_tpu_torch import _device
+
+        return getattr(_device, name)
+    raise AttributeError(f"module 'dora_tpu_torch' has no attribute {name!r}")

@@ -1,1 +1,2 @@
-"""Constants of the dataflow framework the port's node needs."""
+"""The dataflow graph model (dora_tpu/core/): typed input and communication
+config, the YAML descriptor, validation and well-known constants."""

@@ -1,0 +1,968 @@
+"""The daemon: spawn a dataflow's nodes, route their messages, own the
+timers and the shared-memory drop tokens (dora_tpu/daemon/core.py, its
+local half).
+
+One daemon in one process runs one machine's dataflows to completion: the
+start barrier (every node subscribed before any event flows), output routing
+through bounded per-input queues (inline payloads spliced as wire bytes,
+shared-memory payloads tracked by their drop tokens), timers,
+``InputClosed`` / ``AllInputsClosed`` as producers finish, STOP with a grace
+kill, RELOAD, ``send_stdout_as``, the restart policy with replay of un-acked
+inputs, and the dataflow's result with each node's exit status.
+
+Not here: the coordinator connection and the links between daemons (so
+every node of a dataflow runs on this machine, and there is no attached
+mode), peer-to-peer edges (every edge takes the daemon route), and the
+metrics history, alert, trace and fleet planes (a node's reports to them
+are accepted and dropped). :func:`run_dataflow` is the standalone mode
+(``python -m dora_tpu_torch.cli run``).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import random
+import time
+import uuid as uuid_mod
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any
+
+from dora_tpu_torch import PROTOCOL_VERSION
+from dora_tpu_torch.clock import HLC
+from dora_tpu_torch.core.config import TimerMapping, UserMapping
+from dora_tpu_torch.core.descriptor import CustomNode, Descriptor, new_dataflow_uuid
+from dora_tpu_torch.daemon import spawn as spawn_mod
+from dora_tpu_torch.daemon.connection import NodeConnection, ShmemConnection, serve_stream
+from dora_tpu_torch.daemon.queues import DropQueue, NodeEventQueue
+from dora_tpu_torch.daemon.replay_buffer import ReplayBuffer
+from dora_tpu_torch.ids import DataId, InputId, NodeId, OutputId
+from dora_tpu_torch.message import daemon_to_node as d2n
+from dora_tpu_torch.message import fastroute
+from dora_tpu_torch.message import node_to_daemon as n2d
+from dora_tpu_torch.message.common import (
+    ENCODING_RAW,
+    DataflowResult,
+    InlineData,
+    Metadata,
+    NodeError,
+    NodeErrorCause,
+    NodeExitStatus,
+    NodeResult,
+    SharedMemoryData,
+    TypeInfo,
+)
+from dora_tpu_torch.message.serde import (
+    Timestamped,
+    decode_timestamped,
+    encode,
+    encode_timestamped,
+)
+from dora_tpu_torch.metrics import DataflowMetrics
+from dora_tpu_torch.native import ShmemChannel
+from dora_tpu_torch.transport.framing import ConnectionClosed
+
+logger = logging.getLogger(__name__)
+
+#: stop grace period before leftover nodes are killed
+DEFAULT_GRACE_S = 15.0
+
+#: capacity of a shared-memory node channel: payloads of the zero-copy
+#: threshold or more travel in their own regions, so the channel carries
+#: control messages and inline payloads only
+SHMEM_CHANNEL_CAPACITY = 1 << 20
+
+#: the reply to a JAX node's peer-to-peer announcement
+P2P_REFUSAL = "the port's daemon routes every edge (peer-to-peer edges are not ported)"
+
+
+@dataclass
+class TokenState:
+    """One shared-memory region in flight: who owns it, how many receivers
+    still reference it."""
+
+    owner: str  # node id
+    pending: int = 0
+
+
+@dataclass
+class RunningNode:
+    node_id: str
+    process: Any = None  # asyncio.subprocess.Process | None (dynamic)
+    finished: bool = False
+    dynamic: bool = False
+
+
+@dataclass
+class DataflowState:
+    id: str
+    descriptor: Descriptor
+    working_dir: Path
+    #: OutputId -> receiver InputIds
+    mappings: dict[OutputId, set[InputId]] = field(default_factory=dict)
+    open_outputs: set[OutputId] = field(default_factory=set)
+    #: receiver node -> its user (non-timer) inputs that are still open
+    open_inputs: dict[str, set[str]] = field(default_factory=dict)
+    #: interval_ns -> receiver InputIds
+    timers: dict[int, set[InputId]] = field(default_factory=dict)
+    timer_tasks: list[asyncio.Task] = field(default_factory=list)
+    queues: dict[str, NodeEventQueue] = field(default_factory=dict)
+    drop_queues: dict[str, DropQueue] = field(default_factory=dict)
+    #: shared-memory drop tokens still referenced by receivers
+    tokens: dict[str, TokenState] = field(default_factory=dict)
+    #: per receiver: tokens delivered in a NextEvents batch, not yet acked
+    delivered_tokens: dict[str, set[str]] = field(default_factory=dict)
+    #: (sender, output id) -> (OutputId, [(receiver, input id)]): the wire
+    #: fast path's view of ``mappings`` (fixed after spawn)
+    route_cache: dict[tuple[str, str], Any] = field(default_factory=dict)
+    running_nodes: dict[str, RunningNode] = field(default_factory=dict)
+    node_results: dict[str, NodeResult] = field(default_factory=dict)
+    stderr_rings: dict[str, list[str]] = field(default_factory=dict)
+    #: start barrier
+    pending_nodes: set[str] = field(default_factory=set)
+    started: asyncio.Event = field(default_factory=asyncio.Event)
+    barrier_error: str | None = None
+    #: the node whose exit before subscribing failed the barrier
+    barrier_failed_node: str | None = None
+    #: failure bookkeeping
+    failed_nodes: list[str] = field(default_factory=list)
+    grace_kills: set[str] = field(default_factory=set)
+    stop_sent: bool = False
+    done: asyncio.Future = field(
+        default_factory=lambda: asyncio.get_event_loop().create_future())
+    #: the dataflow's shared-memory node channels
+    shmem_conns: list[Any] = field(default_factory=list)
+    #: node id -> set once its control connection drained; exit handling
+    #: waits on it so in-flight SendMessages are not lost
+    control_done: dict[str, asyncio.Event] = field(default_factory=dict)
+    #: routing counters and send-to-deliver latency
+    metrics: DataflowMetrics = field(default_factory=DataflowMetrics)
+    #: restart policy: node id -> respawns so far
+    respawn_attempts: dict[str, int] = field(default_factory=dict)
+    #: nodes between death and respawn (the finish check waits for them)
+    respawning: set[str] = field(default_factory=set)
+    #: node id -> un-acked delivered inputs, redelivered on respawn
+    replay_buffers: dict[str, ReplayBuffer] = field(default_factory=dict)
+    #: node id -> the task serving its event queue (cancelled on respawn
+    #: before the replay, so a dead incarnation's loop consumes nothing)
+    event_tasks: dict[str, asyncio.Task] = field(default_factory=dict)
+
+
+class Daemon:
+    """The data-plane daemon of this machine."""
+
+    def __init__(self, local_comm: str = "tcp"):
+        self.local_comm = local_comm
+        self.clock = HLC()
+        self.dataflows: dict[str, DataflowState] = {}
+        self._server: asyncio.AbstractServer | None = None
+        self._server_addr: str | None = None
+        self._dynamic_server: asyncio.AbstractServer | None = None
+        self.dynamic_port: int | None = None
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+
+    async def start(self) -> None:
+        """Start the node-channel accept loop (tcp or uds) and the
+        dynamic-node bootstrap listener (on a free port: ``dynamic_port``)."""
+        if self.local_comm == "uds":
+            import tempfile
+
+            d = tempfile.mkdtemp(prefix="dora-tpu-torch-")
+            self._server, self._server_addr = await serve_stream(
+                self._handle_connection, uds_path=str(Path(d) / f"daemon-{id(self):x}.sock"))
+        else:
+            self._server, self._server_addr = await serve_stream(self._handle_connection)
+        self._dynamic_server = await asyncio.start_server(
+            self._handle_dynamic_client, host="127.0.0.1", port=0)
+        self.dynamic_port = self._dynamic_server.sockets[0].getsockname()[1]
+
+    async def close(self) -> None:
+        for server in (self._server, self._dynamic_server):
+            if server is not None:
+                server.close()
+                try:
+                    await server.wait_closed()
+                except Exception:
+                    pass
+        for df in list(self.dataflows.values()):
+            for t in df.timer_tasks:
+                t.cancel()
+            # Node processes never outlive the daemon: the graceful path
+            # (stop and grace kill) has run for a healthy dataflow, so what
+            # is left are stragglers of an aborted one.
+            self._kill_stragglers(df)
+            for conn in df.shmem_conns:
+                conn.close_sync()
+            df.shmem_conns.clear()
+
+    # ------------------------------------------------------------------
+    # dataflow spawn
+    # ------------------------------------------------------------------
+
+    async def spawn_dataflow(self, descriptor: Descriptor, dataflow_id: str | None = None,
+                             working_dir: str | Path | None = None) -> DataflowState:
+        """Build the routing tables and spawn every node but the dynamic ones."""
+        dataflow_id = dataflow_id or new_dataflow_uuid()
+        working_dir = Path(working_dir or Path.cwd()).resolve()
+        df = DataflowState(id=dataflow_id, descriptor=descriptor, working_dir=working_dir)
+        self.dataflows[dataflow_id] = df
+
+        for node in descriptor.nodes:
+            for output in node.outputs:
+                df.open_outputs.add(OutputId(node.id, output))
+        for node in descriptor.nodes:
+            for input_id, inp in node.inputs.items():
+                target = InputId(node.id, input_id)
+                if isinstance(inp.mapping, TimerMapping):
+                    df.timers.setdefault(inp.mapping.interval_ns, set()).add(target)
+                else:
+                    mapping: UserMapping = inp.mapping
+                    df.mappings.setdefault(mapping.output_id, set()).add(target)
+                    df.open_inputs.setdefault(str(node.id), set()).add(str(input_id))
+
+        for node in descriptor.nodes:
+            nid = str(node.id)
+            df.queues[nid] = NodeEventQueue(
+                node_id=nid,
+                queue_sizes={str(iid): inp.queue_size for iid, inp in node.inputs.items()},
+                on_token_unref=lambda token, df=df: self._unref_token(df, token),
+                metrics=df.metrics,
+            )
+            df.drop_queues[nid] = DropQueue()
+            df.control_done[nid] = asyncio.Event()
+            if node.restart is not None:
+                df.replay_buffers[nid] = ReplayBuffer(
+                    nid, spill_dir=working_dir / ".dora-replay" / dataflow_id)
+            dynamic = isinstance(node.kind, CustomNode) and node.kind.is_dynamic
+            df.running_nodes[nid] = RunningNode(node_id=nid, dynamic=dynamic)
+            if not dynamic:
+                df.pending_nodes.add(nid)
+
+        for node in descriptor.nodes:
+            nid = str(node.id)
+            if df.running_nodes[nid].dynamic:
+                continue
+            try:
+                process = await spawn_mod.spawn_node(self, df, node,
+                                                     self._make_node_config(df, nid))
+            except RuntimeError as e:
+                self.handle_node_exit(df, node.id, None, error=str(e))
+                continue
+            df.running_nodes[nid].process = process
+
+        if not df.pending_nodes:
+            self._release_barrier(df)
+        return df
+
+    def _make_node_config(self, df: DataflowState, node_id: str) -> d2n.NodeConfig:
+        node = df.descriptor.node(node_id)
+        run_config = d2n.RunConfig(
+            inputs={str(i): inp.queue_size for i, inp in node.inputs.items()},
+            outputs=[str(o) for o in node.outputs],
+        )
+        if self.local_comm == "shmem":
+            # A random part: a crashed run's leaked segments must never
+            # collide with a new run's (shm_open O_EXCL would fail).
+            prefix = f"dtp-{df.id[:8]}-{uuid_mod.uuid4().hex[:8]}-{node_id}"
+            comm: Any = d2n.ShmemCommunication(
+                control_region_id=f"{prefix}-ctl",
+                events_region_id=f"{prefix}-evt",
+                drop_region_id=f"{prefix}-drop",
+            )
+            for name in (comm.control_region_id, comm.events_region_id, comm.drop_region_id):
+                conn = ShmemConnection(ShmemChannel.create(name, SHMEM_CHANNEL_CAPACITY))
+                df.shmem_conns.append(conn)
+                asyncio.create_task(self._handle_connection(conn))
+        elif self.local_comm == "uds":
+            comm = d2n.UnixDomainCommunication(socket_file=self._server_addr)
+        else:
+            comm = d2n.TcpCommunication(socket_addr=self._server_addr)
+        return d2n.NodeConfig(
+            dataflow_id=df.id,
+            node_id=node_id,
+            run_config=run_config,
+            daemon_communication=comm,
+            dataflow_descriptor=dict(df.descriptor.raw),
+            dynamic=df.running_nodes.get(node_id, RunningNode(node_id)).dynamic,
+        )
+
+    # ------------------------------------------------------------------
+    # start barrier
+    # ------------------------------------------------------------------
+
+    def _node_subscribed(self, df: DataflowState, node_id: str) -> None:
+        if node_id in df.pending_nodes:
+            df.pending_nodes.discard(node_id)
+            if not df.pending_nodes:
+                self._release_barrier(df)
+
+    def _release_barrier(self, df: DataflowState, error: str | None = None,
+                         failed_node: str | None = None) -> None:
+        df.barrier_error = error
+        df.barrier_failed_node = failed_node
+        df.started.set()
+        if error is None:
+            for interval_ns, targets in df.timers.items():
+                df.timer_tasks.append(
+                    asyncio.create_task(self._timer_loop(df, interval_ns, targets)))
+
+    def _poison_barrier(self, df: DataflowState, failed_node: str) -> None:
+        """A node exited before subscribing: the whole start fails."""
+        if not df.started.is_set():
+            self._release_barrier(df, error=f"node {failed_node!r} exited before subscribing",
+                                  failed_node=failed_node)
+
+    # ------------------------------------------------------------------
+    # timers
+    # ------------------------------------------------------------------
+
+    async def _timer_loop(self, df: DataflowState, interval_ns: int, targets: set[InputId]):
+        period = interval_ns / 1e9
+        timer_id = str(TimerMapping(interval_ns=interval_ns).data_id)
+        next_tick = time.monotonic() + period
+        while True:
+            delay = next_tick - time.monotonic()
+            if delay > 0:
+                await asyncio.sleep(delay)
+            next_tick += period
+            metadata = Metadata(type_info=TypeInfo(encoding=ENCODING_RAW, len=0),
+                                parameters={"timer": timer_id})
+            for target in targets:
+                queue = df.queues.get(str(target.node))
+                if queue is None:
+                    continue
+                event = d2n.Input(id=str(target.input), metadata=metadata, data=None)
+                ts = self.clock.new_timestamp()
+                queue.push(Timestamped(inner=event, timestamp=ts), input_id=str(target.input),
+                           send_ns=ts.physical_ns)
+
+    # ------------------------------------------------------------------
+    # routing
+    # ------------------------------------------------------------------
+
+    def send_out(self, df: DataflowState, sender: str, output_id: str, metadata: Metadata,
+                 data: Any, send_ns: int = 0) -> None:
+        """Route one output to every receiver's queue. ``send_ns`` is the
+        sender's HLC physical time (0: unknown, the route time stands in),
+        the start of the send-to-deliver latency."""
+        oid = OutputId(NodeId(sender), DataId(output_id))
+        token = data.drop_token if isinstance(data, SharedMemoryData) else None
+        if oid not in df.open_outputs:
+            if token:
+                self._notify_owner(df, sender, token)
+            return
+        if token is not None:
+            df.tokens[token] = TokenState(owner=sender)
+        df.metrics.count_link(sender, output_id, metadata.type_info.len)
+        for target in df.mappings.get(oid, ()):
+            rnode = str(target.node)
+            queue = df.queues.get(rnode)
+            if queue is None or str(target.input) not in df.open_inputs.get(rnode, set()):
+                continue
+            if token is not None:
+                df.tokens[token].pending += 1
+            event = d2n.Input(id=str(target.input), metadata=metadata, data=data)
+            ts = self.clock.new_timestamp()
+            queue.push(Timestamped(inner=event, timestamp=ts), input_id=str(target.input),
+                       drop_token=token, send_ns=send_ns or ts.physical_ns)
+        # A push into a closed queue (its receiver died) releases the token
+        # at once, so it can be gone here already.
+        token_state = df.tokens.get(token) if token is not None else None
+        if token_state is not None and token_state.pending == 0:
+            del df.tokens[token]
+            self._notify_owner(df, sender, token)
+
+    def send_out_wire(self, df: DataflowState, sender: str, fast: fastroute.FastSend) -> None:
+        """Route a shallow-parsed inline SendMessage by splicing its wire
+        bytes into each receiver's Input event."""
+        key = (sender, fast.output_id)
+        cached = df.route_cache.get(key)
+        if cached is None:
+            oid = OutputId(NodeId(sender), DataId(fast.output_id))
+            cached = (oid, [(str(t.node), str(t.input)) for t in df.mappings.get(oid, ())])
+            df.route_cache[key] = cached
+        oid, receivers = cached
+        if oid not in df.open_outputs:
+            return  # dropped, as send_out drops on a closed output
+        df.metrics.count_link(sender, fast.output_id, fast.payload_len)
+        send_ns = fast.timestamp.physical_ns
+        for rnode, input_id in receivers:
+            queue = df.queues.get(rnode)
+            if queue is None or input_id not in df.open_inputs.get(rnode, set()):
+                continue
+            queue.push(None, input_id=input_id,
+                       wire=fastroute.build_input_event(input_id, fast.body,
+                                                        self.clock.new_timestamp()),
+                       send_ns=send_ns)
+
+    def metrics_snapshot(self, df: DataflowState) -> dict:
+        """The dataflow's routing counters: messages and bytes a link,
+        drop-oldest drops, queue depths, send-to-deliver latency, the wire
+        fast path's hits, respawns and replayed inputs."""
+        depths = {f"{nid}/{i}": c for nid, q in df.queues.items()
+                  for i, c in q.input_counts.items() if c}
+        snap = df.metrics.snapshot(depths)
+        snap["fastroute"]["fallback_reasons"] = dict(fastroute.FALLBACKS)
+        return snap
+
+    def publish_stdout_line(self, df: DataflowState, node_id: NodeId, output: str,
+                            line: str) -> None:
+        """Publish a stdout line as an output (``send_stdout_as``): an Arrow
+        string array in IPC format, as any other Arrow input."""
+        import pyarrow as pa
+
+        from dora_tpu_torch.node.arrow import ipc_serialize
+
+        payload = ipc_serialize(pa.array([line]))
+        metadata = Metadata(type_info=TypeInfo(encoding="arrow-ipc", len=len(payload)),
+                            parameters={})
+        self.send_out(df, str(node_id), output, metadata, InlineData(data=payload))
+
+    # ------------------------------------------------------------------
+    # drop tokens
+    # ------------------------------------------------------------------
+
+    def _unref_token(self, df: DataflowState, token: str) -> None:
+        state = df.tokens.get(token)
+        if state is None:
+            return
+        state.pending -= 1
+        if state.pending <= 0:
+            del df.tokens[token]
+            self._notify_owner(df, state.owner, token)
+
+    def _notify_owner(self, df: DataflowState, owner: str, token: str) -> None:
+        drop_queue = df.drop_queues.get(owner)
+        if drop_queue is not None:
+            drop_queue.push(token)
+
+    def ack_tokens(self, df: DataflowState, node_id: str, tokens: list[str]) -> None:
+        delivered = df.delivered_tokens.get(node_id)
+        for token in tokens:
+            if delivered is not None:
+                delivered.discard(token)
+            self._unref_token(df, token)
+
+    # ------------------------------------------------------------------
+    # output closing, node exit
+    # ------------------------------------------------------------------
+
+    def close_outputs(self, df: DataflowState, node_id: str, outputs: list[str]) -> None:
+        """Close outputs: each receiver gets InputClosed, and AllInputsClosed
+        after its last open input (a node with a timer keeps its stream)."""
+        for output in outputs:
+            oid = OutputId(NodeId(node_id), DataId(output))
+            if oid not in df.open_outputs:
+                continue
+            df.open_outputs.discard(oid)
+            for target in df.mappings.get(oid, ()):
+                self._close_input(df, str(target.node), str(target.input))
+
+    def _close_input(self, df: DataflowState, rnode: str, input_id: str) -> None:
+        open_inputs = df.open_inputs.get(rnode)
+        if open_inputs is None or input_id not in open_inputs:
+            return
+        open_inputs.discard(input_id)
+        queue = df.queues.get(rnode)
+        if queue is None:
+            return
+        queue.push(Timestamped(inner=d2n.InputClosed(id=input_id),
+                               timestamp=self.clock.new_timestamp()))
+        if not open_inputs and not any(str(t.node) == rnode for targets in df.timers.values()
+                                       for t in targets):
+            queue.push(Timestamped(inner=d2n.AllInputsClosed(),
+                                   timestamp=self.clock.new_timestamp()))
+            queue.close()
+
+    def handle_node_exit(self, df: DataflowState, node_id: NodeId | str,
+                         returncode: int | None, error: str | None = None) -> None:
+        nid = str(node_id)
+        running = df.running_nodes.get(nid)
+        if running is None or running.finished:
+            return
+        running.finished = True
+
+        if error is not None:
+            status = NodeExitStatus(success=False, error=error)
+        elif returncode == 0:
+            status = NodeExitStatus(success=True, code=0)
+        elif returncode is not None and returncode < 0:
+            status = NodeExitStatus(success=False, signal=-returncode)
+        else:
+            status = NodeExitStatus(success=False, code=returncode)
+
+        # Restart policy: decided before any failure bookkeeping, which
+        # would cascade the rest of the dataflow, and before the queue
+        # closes, which would end its receivers' streams under us.
+        if not status.success and self._should_respawn(df, nid):
+            attempt = df.respawn_attempts.get(nid, 0) + 1
+            df.respawn_attempts[nid] = attempt
+            df.respawning.add(nid)
+            df.metrics.count_respawn(nid)
+            logger.warning("node %s/%s failed (%s); respawn attempt %d", df.id, nid,
+                           error or f"code {returncode}", attempt)
+            asyncio.create_task(self._respawn_node(df, nid, attempt, status))
+            return
+
+        self._record_exit_result(df, nid, status)
+        if nid in df.pending_nodes:
+            df.pending_nodes.discard(nid)
+            if not status.success:
+                self._poison_barrier(df, nid)
+            elif not df.pending_nodes:
+                self._release_barrier(df)
+        self._release_node(df, nid)
+        # Outputs close once the node's control connection drained:
+        # SendMessages still in the socket at exit must route first.
+        asyncio.create_task(self._finalize_node_exit(df, nid))
+
+    def _release_node(self, df: DataflowState, nid: str) -> None:
+        """Release what a finished node still held: its queued tokens, the
+        tokens delivered to it, its drop queue and replay buffer."""
+        queue = df.queues.get(nid)
+        if queue is not None:
+            queue.release_all_tokens()
+            queue.close()
+        for token in df.delivered_tokens.pop(nid, set()):
+            self._unref_token(df, token)
+        drop_queue = df.drop_queues.get(nid)
+        if drop_queue is not None:
+            drop_queue.close()
+        buffer = df.replay_buffers.get(nid)
+        if buffer is not None:
+            buffer.close()
+
+    def _record_exit_result(self, df: DataflowState, nid: str, status: NodeExitStatus) -> None:
+        """Classify an exit (grace_duration / cascading / other) and record
+        its NodeResult."""
+        if status.success:
+            df.node_results[nid] = NodeResult(error=None)
+            return
+        if nid in df.grace_kills:
+            cause = NodeErrorCause(kind="grace_duration")
+        elif df.failed_nodes:
+            cause = NodeErrorCause(kind="cascading", caused_by_node=df.failed_nodes[0])
+        elif df.barrier_error is not None and nid != df.barrier_failed_node:
+            cause = NodeErrorCause(kind="cascading", caused_by_node=df.barrier_failed_node)
+        else:
+            stderr = "\n".join(df.stderr_rings.get(nid, [])) or None
+            cause = NodeErrorCause(kind="other", stderr=stderr)
+        df.node_results[nid] = NodeResult(error=NodeError(exit_status=status, cause=cause))
+        df.failed_nodes.append(nid)
+
+    def _should_respawn(self, df: DataflowState, nid: str) -> bool:
+        """A failed node respawns only while the dataflow is otherwise
+        healthy: started cleanly, no stop sent, not grace-killed, no other
+        node failed, restart budget left."""
+        node = df.descriptor.node(nid)
+        if node.restart is None:
+            return False
+        if df.stop_sent or nid in df.grace_kills or df.done.done():
+            return False
+        if not df.started.is_set() or df.barrier_error is not None or df.failed_nodes:
+            return False
+        return df.respawn_attempts.get(nid, 0) < node.restart.max_attempts
+
+    async def _respawn_node(self, df: DataflowState, nid: str, attempt: int,
+                            status: NodeExitStatus) -> None:
+        """Back off, put the un-acked inputs back at the front of the node's
+        queue, spawn a new incarnation. A dataflow stopped during the back-off
+        records the failure as a plain exit."""
+        node = df.descriptor.node(nid)
+        policy = node.restart
+        delay = min(policy.backoff_base_s * (2 ** (attempt - 1)), policy.backoff_max_s)
+        await asyncio.sleep(delay * (0.75 + 0.5 * random.random()))
+
+        if df.stop_sent or df.done.done():
+            df.respawning.discard(nid)
+            self._record_exit_result(df, nid, status)
+            self._release_node(df, nid)
+            await self._finalize_node_exit(df, nid)
+            return
+
+        df.control_done[nid] = asyncio.Event()
+        # The dead incarnation's events loop may be parked in next_batch; the
+        # replay below would wake it and hand the entries to a dead
+        # connection. Cancel it first (next_batch consumes nothing then).
+        stale = df.event_tasks.pop(nid, None)
+        if stale is not None and not stale.done():
+            stale.cancel()
+            try:
+                await stale
+            except (asyncio.CancelledError, Exception):
+                pass
+
+        buffer = df.replay_buffers.get(nid)
+        if buffer is not None and len(buffer):
+            entries = buffer.drain()
+            queue = df.queues.get(nid)
+            if queue is not None:
+                queue.requeue_front(entries)
+            df.metrics.count_replayed(nid, len(entries))
+            logger.info("node %s/%s: replaying %d un-acked input(s) on respawn", df.id, nid,
+                        len(entries))
+
+        df.running_nodes[nid] = RunningNode(node_id=nid, dynamic=df.running_nodes[nid].dynamic)
+        df.respawning.discard(nid)
+        try:
+            process = await spawn_mod.spawn_node(self, df, node, self._make_node_config(df, nid))
+        except RuntimeError as e:
+            self.handle_node_exit(df, nid, None, error=str(e))
+            return
+        df.running_nodes[nid].process = process
+
+    async def _finalize_node_exit(self, df: DataflowState, nid: str) -> None:
+        done = df.control_done.get(nid)
+        if done is not None and not done.is_set():
+            try:
+                await asyncio.wait_for(done.wait(), timeout=2)
+            except asyncio.TimeoutError:
+                pass
+        self.close_outputs(df, nid, [str(o) for o in df.descriptor.node(nid).outputs])
+        self._check_dataflow_finished(df)
+
+    def _check_dataflow_finished(self, df: DataflowState) -> None:
+        if any((not r.finished or r.node_id in df.respawning) and not r.dynamic
+               for r in df.running_nodes.values()):
+            return
+        for t in df.timer_tasks:
+            t.cancel()
+        df.timer_tasks.clear()
+        for queue in df.queues.values():
+            queue.release_all_tokens()
+            queue.close()
+        for dq in df.drop_queues.values():
+            dq.close()
+        for buffer in df.replay_buffers.values():
+            buffer.close()
+        # Deferred close (never block the loop); Daemon.close() still
+        # unlinks synchronously before the process exits.
+        for conn in df.shmem_conns:
+            conn.close()
+        result = DataflowResult(
+            uuid=df.id,
+            node_results={nid: df.node_results.get(nid, NodeResult(error=None))
+                          for nid, r in df.running_nodes.items()
+                          if not r.dynamic or nid in df.node_results},
+        )
+        if not df.done.done():
+            df.done.set_result(result)
+
+    # ------------------------------------------------------------------
+    # stop, reload
+    # ------------------------------------------------------------------
+
+    def stop_dataflow(self, df: DataflowState, grace_s: float | None = None) -> None:
+        """STOP to every running node; whatever still runs after the grace
+        period is killed."""
+        if df.stop_sent:
+            return
+        df.stop_sent = True
+        if not df.started.is_set():
+            self._release_barrier(df, error="dataflow stopped before start")
+        for nid, queue in df.queues.items():
+            running = df.running_nodes.get(nid)
+            if running is not None and running.finished:
+                continue
+            queue.push(Timestamped(inner=d2n.Stop(), timestamp=self.clock.new_timestamp()))
+            queue.close()
+        asyncio.create_task(self._grace_kill(df, grace_s or DEFAULT_GRACE_S))
+
+    async def _grace_kill(self, df: DataflowState, grace_s: float) -> None:
+        await asyncio.sleep(grace_s)
+        self._kill_stragglers(df, record_grace=True)
+
+    @staticmethod
+    def _kill_stragglers(df: DataflowState, record_grace: bool = False) -> None:
+        for nid, running in df.running_nodes.items():
+            if running.finished or running.process is None:
+                continue
+            if record_grace:
+                df.grace_kills.add(nid)
+            try:
+                running.process.kill()
+            except ProcessLookupError:
+                pass
+
+    def reload_node(self, df: DataflowState, node_id: str, operator_id: str | None) -> None:
+        """Queue a RELOAD event for one node (an operator of it, or all)."""
+        queue = df.queues.get(node_id)
+        if queue is not None:
+            queue.push(Timestamped(inner=d2n.Reload(operator_id=operator_id),
+                                   timestamp=self.clock.new_timestamp()))
+
+    # ------------------------------------------------------------------
+    # node-channel listeners
+    # ------------------------------------------------------------------
+
+    async def _handle_connection(self, conn: NodeConnection) -> None:
+        try:
+            frame = await conn.recv()
+            if frame is None:
+                return
+            register = decode_timestamped(frame, self.clock).inner
+            if not isinstance(register, n2d.Register):
+                await self._reply(conn, d2n.ReplyResult(error="expected Register"))
+                return
+            error = self._check_register(register)
+            await self._reply(conn, d2n.ReplyResult(error=error))
+            if error is not None:
+                return
+            df = self.dataflows[register.dataflow_id]
+            if register.channel == n2d.CHANNEL_CONTROL:
+                await self._control_loop(df, register.node_id, conn)
+            elif register.channel == n2d.CHANNEL_EVENTS:
+                await self._events_loop(df, register.node_id, conn)
+            elif register.channel == n2d.CHANNEL_DROP:
+                await self._drop_loop(df, register.node_id, conn)
+        except (ConnectionError, ConnectionClosed):
+            pass  # the node went away mid-reply; its exit watcher reports it
+        except Exception:
+            logger.exception("node connection failed")
+        finally:
+            conn.close()
+
+    def _check_register(self, register: n2d.Register) -> str | None:
+        if PROTOCOL_VERSION.split(".")[:2] != register.protocol_version.split(".")[:2]:
+            return (f"incompatible protocol version {register.protocol_version} "
+                    f"(daemon speaks {PROTOCOL_VERSION})")
+        df = self.dataflows.get(register.dataflow_id)
+        if df is None:
+            return f"unknown dataflow {register.dataflow_id!r}"
+        if register.node_id not in df.queues:
+            return f"unknown node {register.node_id!r} on this machine"
+        return None
+
+    async def _reply(self, conn: NodeConnection, msg: Any) -> None:
+        await conn.send(encode_timestamped(msg, self.clock))
+
+    async def _control_loop(self, df: DataflowState, node_id: str, conn) -> None:
+        try:
+            while True:
+                frame = await conn.recv()
+                if frame is None:
+                    return
+                # Inline SendMessage frames route as wire bytes; anything
+                # the fast path cannot prove routable is decoded below.
+                fast = fastroute.parse_send_message(frame)
+                if fast is not None:
+                    # clock first: the routed events' timestamps follow the sender's
+                    self.clock.update_with_timestamp(fast.timestamp)
+                    self.send_out_wire(df, node_id, fast)
+                    df.metrics.fastroute_hits += 1
+                    continue
+                tsd = decode_timestamped(frame, self.clock)
+                await self._control_request(df, node_id, conn, tsd.inner,
+                                            tsd.timestamp.physical_ns)
+        finally:
+            done = df.control_done.get(node_id)
+            if done is not None:
+                done.set()
+
+    async def _control_request(self, df: DataflowState, node_id: str, conn, msg,
+                               send_ns: int) -> None:
+        if isinstance(msg, n2d.SendMessage):
+            df.metrics.fastroute_fallbacks += 1
+            self.send_out(df, node_id, msg.output_id, msg.metadata, msg.data, send_ns=send_ns)
+        elif isinstance(msg, n2d.ReportDropTokens):
+            self.ack_tokens(df, node_id, msg.drop_tokens)
+        elif isinstance(msg, (n2d.ReportTrace, n2d.ReportServing, n2d.ReportEngineState,
+                              n2d.ReportProfile)):
+            pass  # the planes that read these (trace, metrics, fleet) are not ported
+        elif isinstance(msg, n2d.P2PAnnounce):
+            await self._reply(conn, d2n.ReplyResult(error=P2P_REFUSAL))
+        elif isinstance(msg, n2d.CloseOutputs):
+            self.close_outputs(df, node_id, msg.outputs)
+            await self._reply(conn, d2n.ReplyResult())
+        elif isinstance(msg, n2d.OutputsDone):
+            # The send_stdout_as output is published by the stdout pump; it
+            # closes when the node's exit is finalized, after the pump
+            # drained, so the node's last lines are not lost.
+            node = df.descriptor.node(node_id)
+            self.close_outputs(df, node_id, [str(o) for o in node.outputs
+                                             if str(o) != node.send_stdout_as])
+            await self._reply(conn, d2n.ReplyResult())
+        else:
+            await self._reply(conn, d2n.ReplyResult(
+                error=f"unexpected control request {type(msg).__name__}"))
+
+    async def _events_loop(self, df: DataflowState, node_id: str, conn) -> None:
+        frame = await conn.recv()
+        if frame is None:
+            return
+        msg = decode_timestamped(frame, self.clock).inner
+        if not isinstance(msg, n2d.Subscribe):
+            await self._reply(conn, d2n.ReplyResult(error="expected Subscribe"))
+            return
+        # The start barrier: the reply waits until every node subscribed.
+        self._node_subscribed(df, node_id)
+        await df.started.wait()
+        await self._reply(conn, d2n.ReplyResult(error=df.barrier_error))
+        if df.barrier_error is not None:
+            return
+
+        queue = df.queues[node_id]
+        delivered = df.delivered_tokens.setdefault(node_id, set())
+        replay = df.replay_buffers.get(node_id)
+        df.event_tasks[node_id] = asyncio.current_task()
+        first_poll = True
+        while True:
+            frame = await conn.recv()
+            if frame is None:
+                return
+            msg = decode_timestamped(frame, self.clock).inner
+            if isinstance(msg, n2d.NextEvent):
+                self.ack_tokens(df, node_id, msg.drop_tokens)
+                if replay is not None and not first_poll:
+                    # A poll acks the batch before it, on this connection
+                    # only: a new incarnation's first poll consumed nothing.
+                    replay.ack()
+                first_poll = False
+                batch = await queue.next_batch()
+                if replay is not None:
+                    replay.remember(batch)
+                wires = []
+                deliver_ns = time.time_ns()
+                for entry in batch:
+                    if entry.drop_token is not None:
+                        delivered.add(entry.drop_token)
+                    if entry.send_ns and entry.input_id is not None:
+                        df.metrics.observe_latency(node_id, entry.input_id,
+                                                   (deliver_ns - entry.send_ns) / 1000.0)
+                    wires.append(entry.wire if entry.wire is not None else encode(entry.event))
+                await conn.send(fastroute.build_next_events_frame(
+                    wires, self.clock.new_timestamp()))
+            elif isinstance(msg, n2d.EventStreamDropped):
+                queue.release_all_tokens()
+                queue.close()
+                await self._reply(conn, d2n.ReplyResult())
+            else:
+                await self._reply(conn, d2n.ReplyResult(
+                    error=f"unexpected event request {type(msg).__name__}"))
+
+    async def _drop_loop(self, df: DataflowState, node_id: str, conn) -> None:
+        frame = await conn.recv()
+        if frame is None:
+            return
+        msg = decode_timestamped(frame, self.clock).inner
+        if not isinstance(msg, n2d.SubscribeDrop):
+            await self._reply(conn, d2n.ReplyResult(error="expected SubscribeDrop"))
+            return
+        await self._reply(conn, d2n.ReplyResult())
+        drop_queue = df.drop_queues[node_id]
+        while True:
+            frame = await conn.recv()
+            if frame is None:
+                return
+            msg = decode_timestamped(frame, self.clock).inner
+            if isinstance(msg, n2d.NextDropEvents):
+                tokens = await drop_queue.next_batch()
+                await self._reply(conn, d2n.DropEvents(drop_tokens=tokens))
+            elif isinstance(msg, n2d.ReportDropTokens):
+                self.ack_tokens(df, node_id, msg.drop_tokens)
+            else:
+                await self._reply(conn, d2n.ReplyResult(
+                    error=f"unexpected drop request {type(msg).__name__}"))
+
+    # ------------------------------------------------------------------
+    # dynamic-node bootstrap
+    # ------------------------------------------------------------------
+
+    async def _handle_dynamic_client(self, reader, writer) -> None:
+        from dora_tpu_torch.transport.framing import recv_frame_async, send_frame_async
+
+        try:
+            msg = decode_timestamped(await recv_frame_async(reader), self.clock).inner
+            if not isinstance(msg, n2d.NodeConfigRequest):
+                reply = d2n.NodeConfigReply(error="expected NodeConfigRequest")
+            else:
+                reply = self._dynamic_node_config(msg.node_id)
+            await send_frame_async(writer, encode_timestamped(reply, self.clock))
+        except Exception:
+            pass
+        finally:
+            try:
+                writer.close()
+            except Exception:
+                pass
+
+    def _dynamic_node_config(self, node_id: str) -> d2n.NodeConfigReply:
+        matches = [df for df in self.dataflows.values()
+                   if (r := df.running_nodes.get(node_id)) is not None and r.dynamic
+                   and not r.finished]
+        if not matches:
+            return d2n.NodeConfigReply(
+                error=f"no running dataflow has a dynamic node {node_id!r}")
+        if len(matches) > 1:
+            return d2n.NodeConfigReply(
+                error=f"multiple running dataflows have a dynamic node {node_id!r}; "
+                      "cannot disambiguate")
+        return d2n.NodeConfigReply(node_config=self._make_node_config(matches[0], node_id))
+
+
+# ---------------------------------------------------------------------------
+# standalone mode
+# ---------------------------------------------------------------------------
+
+
+async def run_dataflow_async(dataflow: str | Path | Descriptor,
+                             working_dir: str | Path | None = None,
+                             local_comm: str | None = None,
+                             timeout_s: float | None = None,
+                             stop_after_s: float | None = None) -> DataflowResult:
+    """Run one dataflow to completion with an in-process daemon.
+
+    ``dataflow`` is a YAML path or a parsed :class:`Descriptor`.
+    ``local_comm`` None takes the descriptor's ``communication: {local:
+    tcp | uds | shmem}`` (tcp without one); a string overrides it.
+    ``stop_after_s`` sends STOP that long after the start barrier opened (a
+    dataflow with timers runs until stopped); ``timeout_s`` gives up."""
+    if isinstance(dataflow, Descriptor):
+        descriptor = dataflow
+        working_dir = Path(working_dir or Path.cwd())
+    else:
+        path = Path(dataflow)
+        descriptor = Descriptor.read(path)
+        working_dir = Path(working_dir or path.parent)
+    descriptor.check(working_dir)
+    if len(descriptor.machines()) > 1:
+        raise NotImplementedError(
+            f"the dataflow deploys nodes on machines {sorted(descriptor.machines())}; the "
+            "port's daemon runs one machine (the coordinator and the links between daemons "
+            "are not ported)")
+    if local_comm is None:
+        local_comm = descriptor.communication.local.kind
+
+    daemon = Daemon(local_comm=local_comm)
+    await daemon.start()
+    try:
+        df = await daemon.spawn_dataflow(descriptor, working_dir=working_dir)
+        if any(r.dynamic for r in df.running_nodes.values()):
+            logger.warning("dataflow %s: dynamic nodes connect to 127.0.0.1:%d "
+                           "(DORA_DAEMON_ADDR)", df.id, daemon.dynamic_port)
+        if stop_after_s is not None:
+            asyncio.create_task(_stop_after(daemon, df, stop_after_s))
+        if timeout_s is not None:
+            return await asyncio.wait_for(asyncio.shield(df.done), timeout_s)
+        return await df.done
+    finally:
+        await daemon.close()
+
+
+async def _stop_after(daemon: Daemon, df: DataflowState, seconds: float) -> None:
+    await df.started.wait()
+    try:
+        await asyncio.wait_for(asyncio.shield(df.done), seconds)
+    except asyncio.TimeoutError:
+        daemon.stop_dataflow(df)
+
+
+def run_dataflow(dataflow: str | Path | Descriptor, working_dir: str | Path | None = None,
+                 local_comm: str | None = None, timeout_s: float | None = None,
+                 stop_after_s: float | None = None) -> DataflowResult:
+    return asyncio.run(run_dataflow_async(dataflow, working_dir, local_comm, timeout_s,
+                                          stop_after_s))

@@ -2,10 +2,11 @@
 its daemon, in the codec of dora_tpu/message (msgpack, a tagged-union
 envelope, every top-level message inside a ``Timestamped`` HLC envelope).
 
-Only the channel pair a node speaks is copied (``node_to_daemon``,
-``daemon_to_node`` and the shared ``common`` types); the daemon and
-coordinator pairs stay in the JAX package, whose daemon runs the port's
-node unchanged."""
+The node <-> daemon pair is copied (``node_to_daemon``, ``daemon_to_node``,
+the shared ``common`` types, and the daemon's wire fast path
+``fastroute``), so either package's node runs under either daemon; the
+coordinator's messages stay in the JAX package (no coordinator is
+ported)."""
 
 from dora_tpu_torch.message.serde import (  # noqa: F401
     Timestamped,

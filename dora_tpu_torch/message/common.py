@@ -1,7 +1,8 @@
-"""Wire types shared by the node's two message directions: payload typing
-and metadata, inline and shared-memory payloads, drop tokens, and the
-fleet plane's engine digest. The port's copy of the part of
-dora_tpu/message/common.py a node sends or receives.
+"""Wire types shared by the node and daemon message directions: payload
+typing and metadata, inline and shared-memory payloads, drop tokens, node
+and dataflow results, and the fleet plane's engine digest. The port's copy
+of the part of dora_tpu/message/common.py its node and its local daemon
+use.
 
 Payloads travel in Arrow IPC stream format, inline or in a shared-memory
 region; receivers acknowledge a region through its drop token."""
@@ -91,3 +92,70 @@ class EngineStateDigest:
     prefixes: list[list[Any]]  # [chain: str, token_len: int, pages: int]
     seq: int
     unix_ts: float
+
+
+@message
+class NodeExitStatus:
+    """How a node process ended: success, exit code, or signal."""
+
+    success: bool
+    code: int | None = None
+    signal: int | None = None
+    error: str | None = None
+
+
+@message
+class NodeErrorCause:
+    """Classification of a node failure.
+
+    kind: "grace_duration" (killed after the stop grace period) |
+          "cascading" (failed because ``caused_by_node`` failed first) |
+          "other" (its own failure; ``stderr`` holds the last lines).
+    """
+
+    kind: str
+    caused_by_node: str | None = None
+    stderr: str | None = None
+
+
+@message
+class NodeError:
+    exit_status: NodeExitStatus
+    cause: NodeErrorCause
+
+    def __str__(self) -> str:
+        s = self.exit_status
+        how = (
+            "was killed after the stop grace period"
+            if self.cause.kind == "grace_duration"
+            else f"failed because node {self.cause.caused_by_node!r} failed"
+            if self.cause.kind == "cascading"
+            else f"exited with code {s.code}"
+            if s.code is not None
+            else f"was killed by signal {s.signal}"
+            if s.signal is not None
+            else f"failed: {s.error}"
+        )
+        msg = f"node {how}"
+        if self.cause.stderr:
+            msg += "\n  last stderr:\n    " + "\n    ".join(self.cause.stderr.splitlines())
+        return msg
+
+
+@message
+class NodeResult:
+    """Success or failure of one node of a finished dataflow."""
+
+    error: NodeError | None = None
+
+
+@message
+class DataflowResult:
+    uuid: str
+    node_results: dict[str, NodeResult]  # node_id -> result
+
+    def is_ok(self) -> bool:
+        return all(r.error is None for r in self.node_results.values())
+
+    def errors(self) -> list[tuple[str, NodeError]]:
+        return [(nid, r.error) for nid, r in sorted(self.node_results.items()) if r.error]

@@ -1,6 +1,7 @@
-"""node -> daemon requests: the port's copy of the classes of
-dora_tpu/message/node_to_daemon.py its node sends, with the
-reply-expectation matrix (the fire-and-forget kinds get no reply)."""
+"""node -> daemon requests: the port's copy of
+dora_tpu/message/node_to_daemon.py (what its node sends, and what its
+daemon receives from any node), with the reply-expectation matrix (the
+fire-and-forget kinds get no reply)."""
 
 from __future__ import annotations
 
@@ -45,6 +46,13 @@ class SendMessage:
     output_id: str
     metadata: Metadata
     data: Any  # InlineData | SharedMemoryData | None
+
+
+@message
+class CloseOutputs:
+    """Close some outputs before the node ends."""
+
+    outputs: list[str]
 
 
 @message
@@ -103,10 +111,24 @@ class NextDropEvents:
 
 
 @message
+class EventStreamDropped:
+    """The node closed its event stream; the daemon stops queueing inputs."""
+
+
+@message
 class NodeConfigRequest:
     """Dynamic-node bootstrap: sent to the daemon's local listen port."""
 
     node_id: str
+
+
+@message
+class P2PAnnounce:
+    """Peer-to-peer listeners a JAX node announces before subscribing (input
+    id -> shared-memory channel). The port's daemon refuses it, so the node
+    keeps every edge on the daemon route."""
+
+    listeners: dict[str, str]
 
 
 def expects_reply(request: Any) -> bool:

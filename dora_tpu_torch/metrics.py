@@ -1,5 +1,7 @@
-"""Serving metrics of the node: the port's copy of the part of
-dora_tpu/metrics.py that ``serve()`` uses.
+"""Metrics of the dataflow plane: the daemon's per-dataflow counters
+(``DataflowMetrics``: messages and bytes a link, drop-oldest drops,
+send-to-deliver latency, respawns) and the serving node's
+(``ServingMetrics``), the port's copy of dora_tpu/metrics.py.
 
 ``ServingMetrics`` lives in the serving node's process and ships to its
 daemon as a fire-and-forget ``ReportServing`` snapshot, in the JAX package's
@@ -64,6 +66,88 @@ def percentile_from_counts(counts: list[int], p: float) -> float | None:
         if seen >= rank:
             return bucket_upper_us(i)
     return bucket_upper_us(len(counts) - 1)
+
+
+class DataflowMetrics:
+    """Hot-path counters for one dataflow (daemon side)."""
+
+    __slots__ = (
+        "links",
+        "drops",
+        "latency",
+        "fastroute_hits",
+        "fastroute_fallbacks",
+        "respawns",
+        "replayed_inputs",
+    )
+
+    def __init__(self):
+        #: (sender, output) -> [msgs, bytes]
+        self.links: dict[tuple[str, str], list] = {}
+        #: (node, input) -> dropped-oldest count
+        self.drops: dict[tuple[str, str], int] = {}
+        #: (node, input) -> send→deliver Histogram
+        self.latency: dict[tuple[str, str], Histogram] = {}
+        self.fastroute_hits = 0
+        self.fastroute_fallbacks = 0
+        #: node -> times the daemon respawned it (restart policy)
+        self.respawns: dict[str, int] = {}
+        #: node -> un-acked inputs requeued to it across respawns
+        self.replayed_inputs: dict[str, int] = {}
+
+    # -- hot-path feeders ---------------------------------------------------
+
+    def count_link(self, sender: str, output: str, nbytes: int) -> None:
+        entry = self.links.get((sender, output))
+        if entry is None:
+            entry = self.links[(sender, output)] = [0, 0]
+        entry[0] += 1
+        entry[1] += nbytes
+
+    def count_drop(self, node: str, input_id: str) -> None:
+        key = (node, input_id)
+        self.drops[key] = self.drops.get(key, 0) + 1
+
+    def observe_latency(self, node: str, input_id: str, us: float) -> None:
+        hist = self.latency.get((node, input_id))
+        if hist is None:
+            hist = self.latency[(node, input_id)] = Histogram()
+        hist.observe(us)
+
+    def count_respawn(self, node: str) -> None:
+        self.respawns[node] = self.respawns.get(node, 0) + 1
+
+    def count_replayed(self, node: str, n: int) -> None:
+        if n > 0:
+            self.replayed_inputs[node] = self.replayed_inputs.get(node, 0) + n
+
+    # -- export -------------------------------------------------------------
+
+    def snapshot(self, queue_depths: dict[str, int] | None = None) -> dict:
+        hits, falls = self.fastroute_hits, self.fastroute_fallbacks
+        routed = hits + falls
+        out = {
+            "links": {
+                f"{s}/{o}": {"msgs": v[0], "bytes": v[1]}
+                for (s, o), v in self.links.items()
+            },
+            "drops": {f"{n}/{i}": c for (n, i), c in self.drops.items()},
+            "queue_depth": dict(queue_depths or {}),
+            "fastroute": {
+                "hits": hits,
+                "fallbacks": falls,
+                "hit_ratio": round(hits / routed, 4) if routed else None,
+            },
+            "latency_us": {
+                f"{n}/{i}": h.snapshot() for (n, i), h in self.latency.items()
+            },
+        }
+        if self.respawns or self.replayed_inputs:
+            out["recovery"] = {
+                "respawns": dict(self.respawns),
+                "replayed_inputs": dict(self.replayed_inputs),
+            }
+        return out
 
 
 class ServingMetrics:

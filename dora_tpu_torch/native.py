@@ -1,9 +1,9 @@
 """ctypes bindings to the shared-memory layer (``csrc/shmem.cpp``).
 
-The port's copy of the node half of dora_tpu/native.py: named regions (the
-zero-copy payload path for outputs and inputs of ``ZERO_COPY_THRESHOLD``
-bytes or more) and the client side of the request-reply channel a daemon
-offers as ``ShmemCommunication``. ``csrc/shmem.cpp`` is a copy of the JAX
+The port's copy of dora_tpu/native.py: named regions (the zero-copy payload
+path for outputs and inputs of ``ZERO_COPY_THRESHOLD`` bytes or more) and
+both sides of the request-reply channel a daemon offers as
+``ShmemCommunication`` (the daemon creates and serves it, the node opens it). ``csrc/shmem.cpp`` is a copy of the JAX
 package's ``native/shmem.cpp``, so both sides map the same layout.
 
 The library is built with ``g++`` at first use into ``dora_tpu_torch/_build/``,
@@ -72,9 +72,11 @@ def _load() -> ctypes.CDLL:
             ("dtp_region_ptr", P, [P]),
             ("dtp_region_size", U64, [P]),
             ("dtp_region_close", None, [P, I]),
+            ("dtp_channel_create", P, [ctypes.c_char_p, U32]),
             ("dtp_channel_open", P, [ctypes.c_char_p]),
             ("dtp_channel_capacity", U32, [P]),
             ("dtp_channel_send", I, [P, ctypes.c_char_p, U64, I]),
+            ("dtp_channel_try_send", I, [P, ctypes.c_char_p, U64, I]),
             ("dtp_channel_recv", I64, [P, P, U64, I64, I]),
             ("dtp_channel_disconnect", None, [P]),
             ("dtp_channel_close", None, [P, I]),
@@ -158,16 +160,24 @@ class ShmemRegion:
 
 
 class ShmemChannel:
-    """The client side of a synchronous request-reply channel inside one
-    shared-memory segment the daemon created: requests and replies
-    alternate, sharing the payload area."""
+    """A synchronous request-reply channel inside one shared-memory segment:
+    the daemon is the server (``create``), the node the client (``open``);
+    requests and replies alternate, sharing the payload area."""
 
-    def __init__(self, handle: int, name: str):
+    def __init__(self, handle: int, name: str, is_server: bool = False):
         self._h = handle
         self.name = name
+        self.is_server = is_server
         self._lib = _load()
         self.capacity = self._lib.dtp_channel_capacity(handle)
         self._recv_buf = ctypes.create_string_buffer(self.capacity)
+
+    @classmethod
+    def create(cls, name: str, capacity: int = 1 << 20) -> "ShmemChannel":
+        h = _load().dtp_channel_create(name.encode(), capacity)
+        if not h:
+            raise ShmemError(f"failed to create shmem channel {name!r}")
+        return cls(h, name, is_server=True)
 
     @classmethod
     def open(cls, name: str) -> "ShmemChannel":
@@ -179,11 +189,25 @@ class ShmemChannel:
     def send(self, data: bytes) -> None:
         if not self._h:
             raise ShmemError(f"channel {self.name} is closed")
-        rc = self._lib.dtp_channel_send(self._h, data, len(data), 0)
+        self._check_send_rc(self._lib.dtp_channel_send(self._h, data, len(data),
+                                                       int(self.is_server)), len(data))
+
+    def try_send(self, data: bytes) -> bool:
+        """Send without blocking; False while the previous message in this
+        direction is still unconsumed."""
+        if not self._h:
+            raise ShmemError(f"channel {self.name} is closed")
+        rc = self._lib.dtp_channel_try_send(self._h, data, len(data), int(self.is_server))
+        if rc == -1:
+            return False
+        self._check_send_rc(rc, len(data))
+        return True
+
+    def _check_send_rc(self, rc: int, size: int) -> None:
         if rc == -2:
             raise Disconnected(f"channel {self.name} disconnected")
         if rc == -3:
-            raise ShmemError(f"message of {len(data)} B exceeds channel capacity {self.capacity}")
+            raise ShmemError(f"message of {size} B exceeds channel capacity {self.capacity}")
         if rc != 0:
             raise ShmemError(f"send failed with {rc}")
 
@@ -192,7 +216,8 @@ class ShmemChannel:
         if not self._h:
             raise ShmemError(f"channel {self.name} is closed")
         timeout_ms = -1 if timeout is None else max(0, int(timeout * 1000))
-        n = self._lib.dtp_channel_recv(self._h, self._recv_buf, self.capacity, timeout_ms, 0)
+        n = self._lib.dtp_channel_recv(self._h, self._recv_buf, self.capacity, timeout_ms,
+                                       int(self.is_server))
         if n >= 0:
             return ctypes.string_at(self._recv_buf, n)
         if n == -1:
@@ -205,8 +230,11 @@ class ShmemChannel:
         if self._h:
             self._lib.dtp_channel_disconnect(self._h)
 
-    def close(self) -> None:
+    def close(self, unlink: bool | None = None) -> None:
+        """Unmap (and unlink: the server's default)."""
         if self._h:
-            self._lib.dtp_channel_close(self._h, 0)
+            self._lib.dtp_channel_close(
+                self._h, 1 if (self.is_server if unlink is None else unlink) else 0)
             self._h = 0
             self._recv_buf = None
+

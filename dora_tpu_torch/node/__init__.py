@@ -1,6 +1,6 @@
-"""The node API of the port: ``Node``, a dataflow node that the JAX package's
-daemon spawns and runs unchanged (dora_tpu/node/__init__.py's wire, byte for
-byte).
+"""The node API of the port: ``Node``, a dataflow node that the port's daemon
+or the JAX package's spawns and runs (dora_tpu/node/__init__.py's wire, byte
+for byte).
 
 Construct it from the environment (a spawned node reads the base64 wire
 ``NodeConfig`` in ``DORA_NODE_CONFIG``) or by node id (a dynamic node asks

@@ -1,5 +1,5 @@
 """LLM serving node of the port: a continuous-batching responder for the
-OpenAI gateway, run as a dora node by the JAX package's daemon.
+OpenAI gateway, run as a dora node by the port's daemon or the JAX package's.
 
 Counterpart of dora_tpu/nodehub/llm_server.py. Every ``text`` input that
 carries a ``request_id`` is admitted into an engine slot; each engine step
@@ -33,8 +33,11 @@ kernels' plain versions)::
       env: {DORA_HF_CHECKPOINT: /path/to/qwen2}
 
 The node needs ``DORA_HF_CHECKPOINT`` (a Qwen2-family safetensors
-directory) or ``DORA_STUB_ENGINE=1`` (the weight-free stub engine, tokens
-rendered as `` t<id>``). The node's wire needs msgpack and, for Arrow
+directory), ``DORA_STUB_ENGINE=1`` (the weight-free stub engine, tokens
+rendered as `` t<id>``), or ``--random-config <name>`` (seeded random
+weights, ``--seed``, ``--layers`` to cut depth; with no tokenizer a request
+is its token ids written out, ``"12 7 3"``, and each chunk a token id,
+`` <id>``). The node's wire needs msgpack and, for Arrow
 payloads, pyarrow: ``dora_tpu_torch.node`` imports them when the node runs,
 never this module.
 
@@ -1292,6 +1295,25 @@ def _stub_main(device: str) -> None:
           max_new_cap=int(os.environ.get("DORA_MAX_NEW_TOKENS", "8")))
 
 
+def _serve_random(device: str, config: str, seed: int, layers: int | None) -> None:
+    """The dataflow node on seeded random weights at a named config: a
+    request's text is its token ids, a chunk is one token id."""
+    from dora_tpu_torch.metrics import ServingMetrics
+    from dora_tpu_torch.models.hf import qwen2
+    from dora_tpu_torch.node import Node
+
+    kw = {} if layers is None else {"layers": layers}
+    cfg = qwen2.CONFIGS[config](max_seq=int(os.environ.get("DORA_MAX_SEQ", "2048")), **kw)
+    if not os.environ.get("DORA_INT8_DECODE") and not os.environ.get("DORA_INT4_DECODE"):
+        os.environ["DORA_INT8_DECODE"] = "1"
+    params = qwen2.quantize_decode(qwen2.random_params(cfg, seed=seed, device=device), cfg)
+    engine = make_engine(params, cfg, device=device)
+    serve(Node(), engine, ServingMetrics(engine="paged" if hasattr(engine, "free_pages")
+                                         else "dense"),
+          encode=lambda text: [int(t) for t in text.split()], decode_one=lambda t: f" {t}",
+          max_new_cap=int(os.environ.get("DORA_MAX_NEW_TOKENS", "32")))
+
+
 def _serve_node(device: str) -> None:
     """The dataflow node: ``serve(Node(), ...)`` on the engine
     :func:`make_engine` builds over ``DORA_HF_CHECKPOINT`` (the JAX
@@ -1340,20 +1362,25 @@ def main(argv=None) -> int:
     ap.add_argument("--max-new", type=int,
                     default=int(os.environ.get("DORA_MAX_NEW_TOKENS", "32")))
     ap.add_argument("--random-config", choices=sorted(qwen2.CONFIGS),
-                    help="with --prompts: seeded random weights at this config")
+                    help="seeded random weights at this config (requests and chunks as "
+                         "token ids when run as the node)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="with --random-config: cut the depth to this many layers")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     if args.prompts is None:
         if args.random_config:
-            ap.error("--random-config takes --prompts; the node serves DORA_HF_CHECKPOINT")
-        _serve_node(args.device)
+            _serve_random(args.device, args.random_config, args.seed, args.layers)
+        else:
+            _serve_node(args.device)
         return 0
     max_seq = int(os.environ.get("DORA_MAX_SEQ", "2048"))
     eos = None
     if args.random_config:
-        cfg = qwen2.CONFIGS[args.random_config](max_seq=max_seq)
+        kw = {} if args.layers is None else {"layers": args.layers}
+        cfg = qwen2.CONFIGS[args.random_config](max_seq=max_seq, **kw)
         params = qwen2.random_params(cfg, seed=args.seed, device=args.device)
     else:
         from dora_tpu_torch.nodehub.ops import _hf_tokenizer

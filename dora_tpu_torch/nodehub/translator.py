@@ -1,5 +1,5 @@
 """The pretrained translation node of the port (Opus-MT / Marian), run as a
-dora node by the JAX package's daemon (dora_tpu/nodehub/translator.py).
+dora node by either package's daemon (dora_tpu/nodehub/translator.py).
 
 Text in, translated text out through a Marian checkpoint: the port's
 sentencepiece segmenter on the host, encode and greedy decode on the

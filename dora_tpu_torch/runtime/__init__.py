@@ -2,7 +2,7 @@
 fused into one step per tick (dora_tpu/runtime/__init__.py's loop, for
 torch operators).
 
-The JAX daemon spawns it as a custom node::
+A daemon (the port's or the JAX package's) spawns it as a custom node::
 
     - id: speech
       path: module:dora_tpu_torch.runtime
@@ -22,17 +22,41 @@ operator. Python and shared-library operators are not hosted.
 
 The operators load before the node subscribes, so the start barrier holds
 upstream producers until the weights are in place.
+
+Each output's metadata carries, beside the tensor's ``shape`` and
+``dtype``, the parameters of the events its tick read (the trigger's
+first, then each input's latest, the first value of a key winning) and
+``tick_ns``, the wall time the tick was dispatched: a consumer knows which
+frame a caption answers and how long the answer took.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import time
+from collections import deque
 from pathlib import Path
 
+from dora_tpu_torch.telemetry import OTEL_CTX_KEY
+from dora_tpu_torch.tpu.bridge import DTYPE_KEY, SHAPE_KEY
 from dora_tpu_torch.tpu.fuse import FusedExecutor, FusedGraph, parse_runtime_args
 
 logger = logging.getLogger(__name__)
+
+#: metadata keys of an input that do not pass through to the outputs
+_OWN_KEYS = (SHAPE_KEY, DTYPE_KEY, OTEL_CTX_KEY)
+
+
+def _tick_params(trigger: str, latest: dict, tick_ns: int) -> dict:
+    """The parameters a tick's outputs carry: ``tick_ns``, then the
+    trigger's and each input's latest metadata (the first value wins)."""
+    params = {"tick_ns": tick_ns}
+    for event_id in [trigger] + sorted(latest):
+        for key, value in latest[event_id].items():
+            if key not in _OWN_KEYS:
+                params.setdefault(key, value)
+    return params
 
 
 def serve(node, executor: FusedExecutor) -> int:
@@ -48,11 +72,16 @@ def serve(node, executor: FusedExecutor) -> int:
     if pipelined:
         executor.on_fetch_done = node.wake
     open_external = set(graph.external_inputs)
+    #: each event id's latest metadata, and the params of each tick not yet
+    #: emitted, oldest first
+    latest: dict[str, dict] = {}
+    params: deque[dict] = deque()
 
     def emit(batches) -> None:
         for outputs in batches:
+            tick = params.popleft()
             for out_id, (arr, meta) in outputs.items():
-                node.send_output(out_id, arr, meta)
+                node.send_output(out_id, arr, {**tick, **meta})
 
     try:
         while True:
@@ -67,13 +96,19 @@ def serve(node, executor: FusedExecutor) -> int:
                 continue
             kind = event["type"]
             if kind == "INPUT":
+                latest[event["id"]] = event["metadata"] or {}
+                ticks, tick_ns = executor.ticks, time.time_ns()
                 if pipelined:
                     executor.on_event_async(event["id"], event["value"], event["metadata"])
+                    if executor.ticks != ticks:
+                        params.append(_tick_params(event["id"], latest, tick_ns))
                     emit(executor.harvest())
                 else:
                     outputs = executor.on_event(event["id"], event["value"],
                                                 event["metadata"])
-                    if outputs:
+                    if executor.ticks != ticks:
+                        params.append(_tick_params(event["id"], latest, tick_ns))
+                    if outputs is not None:
                         emit([outputs])
             elif kind == "INPUT_CLOSED":
                 open_external.discard(event["id"])

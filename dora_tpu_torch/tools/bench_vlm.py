@@ -18,9 +18,13 @@ launches and plain-version calls over the mode:
   stream for every row) at batches 1, 4 and 8, int8 weights unless
   ``DORA_INT4_DECODE``; each batch's decode is the port's own step loop,
   timed on the host clock ending in a synchronize.
-* ``e2e``: the camera -> VLM dataflow through the JAX package's daemon
-  (``dora_tpu.daemon.run_dataflow``), which the port may not import: it
-  raises, naming that.
+* ``e2e``: the camera -> VLM -> counting sink dataflow through the port's
+  own daemon (``dora_tpu_torch.daemon.run_dataflow``): ``BENCH_FRAMES``
+  seeded frames (100) at 20 ms, at the model's image size, the VLM (``--size``) in the port's runtime
+  node with ``BENCH_MAX_NEW`` new tokens a frame (4), its image sampled
+  latest-wins. Frames a second at the sink after five warmup outputs, the
+  p50 gap, the best 50-output window, and the launch line of the VLM node's
+  process (``tools/counted.py``).
 
 MFU counts analytic matmul FLOPs (weights 2 m n a token, attention 4 T dim a
 layer; embedding gathers and norms left out: a lower bound). Times are CUDA
@@ -250,10 +254,79 @@ def bench_batch(dev, device: str, size: str = "bench", batches=(1, 4, 8), steps:
     return results
 
 
-E2E_REFUSAL = (
-    "bench_vlm e2e: the camera -> VLM dataflow runs under the JAX package's daemon "
-    "(dora_tpu.daemon.run_dataflow), which the port may not import; run the port's VLM node "
-    "(dora_tpu_torch/examples/vlm.yml) under that daemon instead")
+#: the sink of the e2e dataflow: stamps each output, writes fps.json at the end
+E2E_SINK = """
+import json
+import statistics
+import time
+
+from dora_tpu_torch.node import Node
+
+stamps = []
+with Node() as node:
+    for event in node:
+        if event["type"] == "INPUT":
+            stamps.append(time.perf_counter())
+assert len(stamps) >= 2, f"only {len(stamps)} outputs"
+# steady state: the first outputs straddle the node's warmup
+warmup = min(5, len(stamps) - 2)
+window = stamps[warmup:]
+fps = (len(window) - 1) / (window[-1] - window[0])
+gaps = [b - a for a, b in zip(window, window[1:])]
+peak, w = fps, 50
+for i in range(max(0, len(window) - w)):
+    peak = max(peak, (w - 1) / (window[i + w - 1] - window[i]))
+with open("fps.json", "w") as f:
+    json.dump({"fps": fps, "outputs": len(stamps), "measured_outputs": len(window),
+               "p50_gap_ms": statistics.median(gaps) * 1e3, "peak_window_fps": peak,
+               "fps_incl_warmup": (len(stamps) - 1) / (stamps[-1] - stamps[0])}, f)
+"""
+
+#: serving levers passed through to the VLM node when set
+E2E_KNOBS = ("DORA_INT8_DECODE", "DORA_INT8_PURE", "DORA_INT4_DECODE", "DORA_PIPELINE_DEPTH",
+             "DORA_FETCH_EVERY", "DORA_SPEC_DECODE")
+
+
+def bench_e2e(tmp, dev, device: str, size: str, max_new: int = 4, frames: int = 100) -> dict:
+    """camera -> VLM node -> counting sink through the port's daemon."""
+    from pathlib import Path
+
+    from dora_tpu_torch.core.descriptor import Descriptor
+    from dora_tpu_torch.daemon import run_dataflow
+    from dora_tpu_torch.models import vlm
+
+    side = str((vlm.VLMConfig.tiny() if size == "tiny" else vlm.VLMConfig.bench_2b()).image_size)
+    tmp = Path(tmp)
+    (tmp / "fps_sink.py").write_text(E2E_SINK)
+    counts = tmp / "vlm.launches.json"
+    desc = Descriptor.parse({"nodes": [
+        {"id": "camera", "path": "module:dora_tpu_torch.nodehub.camera",
+         "inputs": {"tick": "dora/timer/millis/20"}, "outputs": ["image"],
+         "env": {"IMAGE_WIDTH": side, "IMAGE_HEIGHT": side, "MAX_FRAMES": str(frames),
+                 "SEED": "0"}},
+        {"id": "vlm", "path": "module:dora_tpu_torch.tools.counted",
+         "args": f"{counts} dora_tpu_torch.runtime "
+                 f"--operator op=dora_tpu_torch.nodehub.ops:make_vlm --device {dev.type}",
+         "inputs": {"op/image": {"source": "camera/image", "queue_size": 1}},
+         "outputs": ["op/tokens"],
+         "env": {"DORA_MODEL_SIZE": size, "DORA_MAX_NEW_TOKENS": str(max_new),
+                 **{k: os.environ[k] for k in E2E_KNOBS if k in os.environ}}},
+        {"id": "sink", "path": "fps_sink.py", "inputs": {"tokens": "vlm/op/tokens"}},
+    ]})
+    result = run_dataflow(desc, working_dir=tmp, timeout_s=1800)
+    if not result.is_ok():
+        raise RuntimeError(f"e2e bench failed: {result.errors()}")
+    data = json.loads((tmp / "fps.json").read_text())
+    _emit(f"camera->vlm-{size} end-to-end FPS ({max_new} new tokens/frame)", data["fps"], "fps",
+          outputs=data["outputs"], measured_outputs=data["measured_outputs"],
+          p50_gap_ms=round(data["p50_gap_ms"], 1),
+          peak_window_fps=round(data["peak_window_fps"], 1),
+          fps_incl_warmup=round(data["fps_incl_warmup"], 3), device=device)
+    report = json.loads(counts.read_text())
+    _emit(f"camera->vlm-{size} e2e kernel launches", sum(report["launches"].values()),
+          "launches", device=device, launches=report["launches"],
+          plain_calls=report["plain_calls"])
+    return data
 
 
 def main(argv=None) -> int:
@@ -266,11 +339,16 @@ def main(argv=None) -> int:
     ap.add_argument("--size", default="bench", choices=("bench", "tiny"),
                     help="VLMConfig.bench_2b (default) or the test-size tiny config")
     args = ap.parse_args(argv)
-    if args.mode == "e2e":
-        raise NotImplementedError(E2E_REFUSAL)
     dev = resolve_device(args.device)
     device = device_field(dev)
-    if args.mode == "model":
+    if args.mode == "e2e":
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="dora-vlm-bench-") as tmp:
+            bench_e2e(tmp, dev, device, args.size,
+                      max_new=int(os.environ.get("BENCH_MAX_NEW", "4")),
+                      frames=int(os.environ.get("BENCH_FRAMES", "100")))
+    elif args.mode == "model":
         bench_model(dev, device, args.size, max_new=int(os.environ.get("BENCH_MAX_NEW", "64")))
     else:
         bench_batch(dev, device, args.size)

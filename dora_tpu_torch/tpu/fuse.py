@@ -32,7 +32,7 @@ from typing import Any
 import torch
 
 from dora_tpu_torch.core.config import Input, TimerMapping, UserMapping
-from dora_tpu_torch.core.descriptor import Descriptor, NodeSpec
+from dora_tpu_torch.core.descriptor import Descriptor, ResolvedNode
 from dora_tpu_torch.tpu.api import TorchOperator, load_torch_operator
 
 logger = logging.getLogger(__name__)
@@ -75,7 +75,7 @@ def parse_runtime_args(args) -> tuple[dict[str, str], str | None]:
     return sources, ns.device
 
 
-def operator_definitions(node: NodeSpec, sources: dict[str, str]) -> dict[str, OperatorDefinition]:
+def operator_definitions(node: ResolvedNode, sources: dict[str, str]) -> dict[str, OperatorDefinition]:
     """The operators of ``node``: each stream id must be ``<op>/<name>`` of
     an operator that ``sources`` names."""
     inputs: dict[str, dict[str, Input]] = {op: {} for op in sources}
@@ -119,7 +119,7 @@ class FusedGraph:
         return self.timer_inputs or self.external_inputs
 
     @classmethod
-    def build(cls, node: NodeSpec, descriptor: Descriptor | None = None, working_dir=None,
+    def build(cls, node: ResolvedNode, descriptor: Descriptor | None = None, working_dir=None,
               sources: dict[str, str] | None = None, device=None) -> "FusedGraph":
         """The graph of the port's runtime node ``node``. ``sources`` and
         ``device`` default to what the node's own ``args`` give; ``device``
@@ -310,6 +310,8 @@ class FusedExecutor:
                 max_workers=self.pipeline_depth + 1,
                 thread_name_prefix=f"dora-fetch-{graph.node_id}")
         self._first_tick = True
+        #: ticks dispatched so far
+        self.ticks = 0
         self._required = graph.external_inputs - graph.timer_inputs
 
     def observe(self, event_id: str, value, metadata: dict | None) -> None:
@@ -323,6 +325,7 @@ class FusedExecutor:
         return all(k in self.latest for k in self._required)
 
     def _step(self) -> dict:
+        self.ticks += 1
         t0 = time.perf_counter()
         with torch.no_grad():
             self.states, outputs = self.graph.step_fn(self.states, dict(self.latest))

@@ -11,8 +11,10 @@ inputs the plain path equals the JAX package's Pallas ``int8_matmul`` and
 within the tolerances tests/test_torch_int8_matmul.py and
 tests/test_torch_flash_attention.py state, and bench_flash's f32 parity
 reference equals the JAX tool's. The analytic FLOP counts equal the root
-bench_vlm.py's. ``bench_vlm e2e`` raises, naming the JAX daemon, and
-without ``--device cpu`` every entry point raises here. Timing fields are
+bench_vlm.py's. ``bench_vlm e2e`` hands its dataflow (port nodes only) to
+the port's own daemon (its run on the CPU is in
+tests/test_torch_dataflow_e2e.py), and without ``--device cpu`` every entry
+point raises here. Timing fields are
 never compared.
 """
 
@@ -192,9 +194,29 @@ def test_vlm_flops_match_the_jax_tool(size):
         assert BV.lm_attention_flops(tcfg, context) == jb.lm_attention_flops(jcfg, context)
 
 
-def test_vlm_e2e_names_the_daemon():
-    with pytest.raises(NotImplementedError, match="daemon"):
-        BV.main(["e2e", "--device", "cpu"])
+def test_vlm_e2e_names_the_daemon(monkeypatch):
+    """e2e runs camera -> VLM node -> sink through dora_tpu_torch.daemon, every
+    node a module of the port, and fails when a node fails."""
+    from dora_tpu_torch import daemon
+    from dora_tpu_torch.message.common import (DataflowResult, NodeError, NodeErrorCause,
+                                               NodeExitStatus, NodeResult)
+
+    seen = []
+
+    def run(desc, **kw):
+        seen.append(desc)
+        err = NodeError(exit_status=NodeExitStatus(success=False, code=1),
+                        cause=NodeErrorCause(kind="other"))
+        return DataflowResult(uuid="u", node_results={"vlm": NodeResult(error=err)})
+
+    monkeypatch.setattr(daemon, "run_dataflow", run)
+    with pytest.raises(RuntimeError, match="e2e bench failed"):
+        BV.main(["e2e", "--device", "cpu", "--size", "tiny"])
+    (desc,) = seen
+    assert [str(n.id) for n in desc.nodes] == ["camera", "vlm", "sink"]
+    assert desc.node("camera").source == "module:dora_tpu_torch.nodehub.camera"
+    assert "dora_tpu_torch.runtime --operator op=dora_tpu_torch.nodehub.ops:make_vlm" in \
+        desc.node("vlm").args
 
 
 @pytest.mark.parametrize("main,argv", [
@@ -202,6 +224,7 @@ def test_vlm_e2e_names_the_daemon():
     (BF.main, ["--seq", "16"]),
     (BV.main, ["model", "--size", "tiny"]),
     (BV.main, ["batch", "--size", "tiny"]),
+    (BV.main, ["e2e", "--size", "tiny"]),
 ])
 def test_no_cpu_fallback(main, argv):
     if torch.cuda.is_available():

@@ -43,7 +43,16 @@ def test_port_imports_no_jax_and_no_dora_tpu():
         "        'dora_tpu_torch.models.hf.marian', 'dora_tpu_torch.models.tts',\n"
         "        'dora_tpu_torch.models.hf.vits', 'dora_tpu_torch.nodehub.translator',\n"
         "        'dora_tpu_torch.tools.bench_serving', 'dora_tpu_torch.tools.bench_int8',\n"
-        "        'dora_tpu_torch.tools.bench_flash', 'dora_tpu_torch.tools.bench_vlm'} <= set(names)\n"
+        "        'dora_tpu_torch.tools.bench_flash', 'dora_tpu_torch.tools.bench_vlm',\n"
+        "        'dora_tpu_torch.ids', 'dora_tpu_torch.core.validate', 'dora_tpu_torch.daemon',\n"
+        "        'dora_tpu_torch.daemon.core', 'dora_tpu_torch.daemon.queues',\n"
+        "        'dora_tpu_torch.daemon.spawn', 'dora_tpu_torch.daemon.connection',\n"
+        "        'dora_tpu_torch.daemon.replay_buffer', 'dora_tpu_torch.message.fastroute',\n"
+        "        'dora_tpu_torch.cli', 'dora_tpu_torch.cli.main', 'dora_tpu_torch.tools.counted',\n"
+        "        'dora_tpu_torch.nodehub.camera', 'dora_tpu_torch.nodehub.microphone',\n"
+        "        'dora_tpu_torch.nodehub.terminal_print', 'dora_tpu_torch.nodehub.terminal_input',\n"
+        "        'dora_tpu_torch.nodehub.record', 'dora_tpu_torch.nodehub.speaker',\n"
+        "        'dora_tpu_torch.nodehub.plot'} <= set(names)\n"
         "from dora_tpu_torch.models import tokenizer, vlm\n"
         "from dora_tpu_torch.nodehub import ops\n"
         "assert all(callable(getattr(ops, f)) for f in ('make_vlm', 'make_asr', 'make_vad',\n"
@@ -109,6 +118,37 @@ def test_serving_node_loads_no_wire_packages_until_it_talks():
     res = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_daemon_and_cli_import_neither_torch_nor_jax():
+    """The daemon, the descriptor, validation and the CLI never touch the
+    card: importing them (and checking a dataflow) loads neither torch nor
+    jax, nor anything of dora_tpu."""
+    code = (
+        "import sys\n"
+        "import dora_tpu_torch.daemon, dora_tpu_torch.daemon.core, dora_tpu_torch.cli.main\n"
+        "import dora_tpu_torch.core.validate, dora_tpu_torch.ids\n"
+        "from dora_tpu_torch.core.descriptor import Descriptor\n"
+        "Descriptor.read('dora_tpu_torch/examples/vlm.yml').check('.')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('torch', 'jax', 'jaxlib', 'dora_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_port_examples_name_no_jax_module():
+    import glob
+    import re
+
+    paths = glob.glob(os.path.join(_REPO, "dora_tpu_torch", "examples", "*.yml"))
+    assert len(paths) == 4
+    for path in paths:
+        with open(path) as f:
+            assert not re.search(r"\bdora_tpu\.", f.read()), path
 
 
 def test_default_device_entry_points_raise_without_cuda(monkeypatch):

@@ -47,6 +47,9 @@ def _samples(common, d2n, n2d, serde, ts_cls):
         adapters=["t0"], prefixes=[["c0ffee", 32, 2]], seq=5, unix_ts=1.7e9)
     run = d2n.RunConfig(inputs={"text": 10}, outputs=["response"])
     ts = ts_cls(TS, "a" * 32)
+    status = common.NodeExitStatus(success=False, code=3)
+    cause = common.NodeErrorCause(kind="other", stderr="boom")
+    error = common.NodeError(exit_status=status, cause=cause)
     return {
         "TypeInfo": meta.type_info,
         "Metadata": meta,
@@ -98,6 +101,16 @@ def _samples(common, d2n, n2d, serde, ts_cls):
         "NextDropEvents": n2d.NextDropEvents(),
         "NodeConfigRequest": n2d.NodeConfigRequest(node_id="llm"),
         "Timestamped": serde.Timestamped(inner=n2d.Subscribe(), timestamp=ts),
+        # what the port's daemon also receives and reports
+        "CloseOutputs": n2d.CloseOutputs(outputs=["response"]),
+        "EventStreamDropped": n2d.EventStreamDropped(),
+        "P2PAnnounce": n2d.P2PAnnounce(listeners={"text": "dtp-p2p-0"}),
+        "NodeExitStatus": status,
+        "NodeErrorCause": cause,
+        "NodeError": error,
+        "NodeResult": common.NodeResult(error=error),
+        "DataflowResult": common.DataflowResult(uuid="df", node_results={
+            "llm": common.NodeResult(error=error), "sink": common.NodeResult()}),
     }
 
 
@@ -106,7 +119,8 @@ PORT = _samples(tc, td2n, tn2d, tserde, Timestamp)
 
 
 def test_every_node_message_class_is_covered():
-    """The samples name every @message class of the port's node wire."""
+    """The samples name every @message class of the port's node wire (and of
+    what its daemon receives and reports)."""
     port_classes = {name for name, cls in tserde._REGISTRY.items()}
     assert port_classes == set(PORT), port_classes ^ set(PORT)
 
