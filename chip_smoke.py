@@ -258,6 +258,23 @@ Phases, each printed on its own line:
    4's by the near-tie rule, kernels 1-4 launched in the node with no plain
    call, TTFT and tokens a second beside phase 13 (a)'s. A failed node fails
    the phase. The kernels line does not change.
+21. the cluster tier (``cluster`` lines): ``up --machine-id A`` and ``up
+   --machine-id B`` (the port's CLI: a coordinator on the default ports and
+   two daemons, detached, their pid files under a scratch
+   ``DORA_TPU_STATE_DIR``); (a) ``multiple-daemons.yml`` across A and B
+   through ``start --attach``, then ``logs receiver`` (the receiver's
+   assertions); (b) ``llm-server.yml``: the port's gateway (concurrent) on A,
+   ``llm_server --random-config qwen2_1_5b`` on B on the card (phase 4's
+   seeded int8 weights, phase 13's engine, phase 20 (b)'s env), started with
+   ``start`` and listed by ``list``; after one streamed request of one token,
+   phase 4's 16 prompts posted at once over HTTP as streamed requests, every
+   token crossing the daemons' link: each stream held to phase 4's by the
+   near-tie rule, TTFT at the HTTP client and tokens a second beside phase
+   20 (b)'s; (c) ``migrate`` through the CLI while four long streams are live:
+   their handoff file must appear in the directory, naming them, then
+   ``stop``; the node's launches (tools/counted.py) kernels 1-4 and no plain
+   call; last ``destroy``, after which no process of the cluster is left.
+   The kernels line does not change.
 
 Phase 3 also holds the int4 forms of kernels 1-5 and 8-10 against their
 plain versions on phase 12's int4 weights at the main paths' shapes (with
@@ -304,7 +321,8 @@ dense step and its short prompts' TTFT, batch-1 prefill, ``run_loop``
 pass, VLM step and ViT times; the windows and the dense step graphed and
 eager), ``--hf-vlm`` only phase 15, ``--operators`` only phase 16,
 ``--hub`` only phase 17, ``--train`` only phase 18, ``--bench`` only
-phase 19 and ``--dataflow`` only phase 20, all without the result line.
+phase 19, ``--dataflow`` only phase 20 and ``--cluster`` only phase 20 (b)
+and phase 21, all without the result line.
 
 Phases 4, 6, 8 and 9 build their engines through the normal factories,
 so each decode window (the dense step) is one CUDA-graph replay, and each
@@ -7159,7 +7177,8 @@ def serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
     """Phase 20 (b): phase 4's requests through the port's serving node behind
     the port's daemon, over shmem and over tcp: every stream held to phase
     4's by the near-tie rule, TTFT and tokens a second beside phase 13's,
-    kernels 1-4 launched in the node, no plain call."""
+    kernels 1-4 launched in the node, no plain call. Returns phase 4's
+    streams (served here when not given)."""
     from dora_tpu_torch.core.descriptor import Descriptor
 
     cfg = qwen2.Qwen2Config.qwen2_1_5b(layers=layers, max_seq=2048)
@@ -7222,6 +7241,8 @@ def serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
         span = max(t for t, *_ in chunks) - min(sent.values())
         n_tok = sum(len(s) for s in streams.values())
         ref = EARLIER.get("serve_a")
+        EARLIER.setdefault("flow_b", {})[comm] = (
+            f"TTFT p50 {_pct(ttft, 50):.4f} s max {max(ttft):.4f} s, {n_tok / span:.1f} tokens/s")
         print(f"{what}: {len(rids)} requests, {n_tok} tokens in {span:.3f} s from the first "
               f"send to the last chunk ({n_tok / span:.1f} tokens/s end to end); "
               f"{len(rids) - parted} streams equal phase 4's token for token, {parted} part at "
@@ -7230,6 +7251,7 @@ def serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
               f"start and weights included) [{smi}]", flush=True)
     del paths, params
     torch.cuda.empty_cache()
+    return served
 
 
 def serve_dataflows(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
@@ -7241,6 +7263,331 @@ def serve_dataflows(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
     serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch,
                    layers, seed, prompts, max_new, served)
     print(f"dataflow: phase 20 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the cluster tier
+# ---------------------------------------------------------------------------
+
+#: (c): the shortest prompts, streamed this long so that they are live when
+#: the node drains them
+MIGRATE_STREAMS = 4
+MIGRATE_MAX_NEW = 1024
+#: (c): chunks each of those streams must have brought before ``migrate``
+MIGRATE_AFTER_CHUNKS = 4
+#: the longest a CLI command, the start of the serving node and a request wait
+CLUSTER_CMD_S = 120
+CLUSTER_START_S = 300
+
+
+def _cluster_cli(here: str, state: str, *argv, timeout: float = CLUSTER_CMD_S):
+    """One command of the port's CLI in its own process, as a user runs it;
+    a non-zero exit fails the phase with its output."""
+    env = dict(os.environ, DORA_TPU_STATE_DIR=state,
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "dora_tpu_torch.cli", *argv], cwd=here,
+                          env=env, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise Failed(f"cluster: `{' '.join(argv)}` exited {proc.returncode}: "
+                     f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def llm_flow_desc(counts: str, gateway_port: int, layers: int, seed: int, dev: str) -> dict:
+    """dora_tpu_torch/examples/llm-server.yml with phase 20 (b)'s serving node:
+    the gateway (concurrent) on machine A, ``llm_server --random-config
+    qwen2_1_5b`` (phase 4's weights, phase 13's engine) on B under
+    tools/counted.py; streams up to MIGRATE_MAX_NEW tokens."""
+    return {"nodes": [
+        {"id": "api", "path": "module:dora_tpu_torch.nodehub.openai_server",
+         "outputs": ["text"], "inputs": {"response": {"source": "llm/response",
+                                                      "queue_size": 4096}},
+         "env": {"PORT": str(gateway_port), "DORA_OPENAI_CONCURRENT": "1",
+                 "RESPONSE_TIMEOUT": str(CLUSTER_START_S)},
+         "deploy": {"machine": "A"}},
+        {"id": "llm", "path": "module:dora_tpu_torch.tools.counted",
+         "args": _counted_args(counts, "dora_tpu_torch.nodehub.llm_server --random-config "
+                               f"qwen2_1_5b --layers {layers} --seed {seed} --device {dev}"),
+         "inputs": {"text": {"source": "api/text", "queue_size": 64}},
+         "outputs": ["response"],
+         "env": {"DORA_BATCH_SLOTS": "16", "DORA_PAGE_SIZE": "16", "DORA_PREFILL_CHUNK": "256",
+                 "DORA_MULTISTEP_K": "8", "DORA_MAX_SEQ": "2048", "DORA_INT8_DECODE": "1",
+                 "DORA_MAX_NEW_TOKENS": str(MIGRATE_MAX_NEW)},
+         "deploy": {"machine": "B"}},
+    ]}
+
+
+class _Stream:
+    """One streamed chat completion over HTTP, read as it arrives: the time it
+    was sent, each content delta with its arrival time, the finish reason."""
+
+    def __init__(self, port: int, ids, max_new: int):
+        self.port, self.ids, self.max_new = port, ids, max_new
+        self.sent = self.finish = self.error = None
+        self.deltas: list[tuple[float, str]] = []
+
+    def run(self) -> None:
+        import http.client
+
+        body = json.dumps({"stream": True, "max_tokens": self.max_new, "messages": [
+            {"role": "user", "content": " ".join(map(str, self.ids))}]})
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=CLUSTER_START_S)
+            self.sent = time.monotonic()
+            conn.request("POST", "/v1/chat/completions", body,
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            if resp.status != 200:
+                self.error = f"HTTP {resp.status}: {resp.read()[:200]!r}"
+                return
+            while line := resp.readline():
+                if not line.startswith(b"data: ") or line.strip() == b"data: [DONE]":
+                    continue
+                choice = json.loads(line[6:])["choices"][0]
+                text = choice["delta"].get("content")
+                if text:
+                    self.deltas.append((time.monotonic(), text))
+                if choice["finish_reason"] is not None:
+                    self.finish = choice["finish_reason"]
+            conn.close()
+        except Exception as e:  # noqa: BLE001 (reported by the caller)
+            self.error = f"{type(e).__name__}: {e}"
+
+    @property
+    def tokens(self) -> list[int]:
+        return [int(t) for _t, text in self.deltas for t in text.split()]
+
+
+def _streams(port: int, prompts, max_new: int) -> tuple[list[_Stream], list]:
+    """The requests, sent at once, each on its own thread."""
+    import threading
+
+    streams = [_Stream(port, p, max_new) for p in prompts]
+    threads = [threading.Thread(target=s.run, daemon=True) for s in streams]
+    for t in threads:
+        t.start()
+    return streams, threads
+
+
+def _wait_gateway(port: int, deadline: float) -> None:
+    import urllib.request
+
+    while True:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/models", timeout=5):
+                return
+        except OSError:
+            if time.monotonic() > deadline:
+                raise Failed(f"cluster (b): the gateway never answered on port {port}")
+            time.sleep(0.2)
+
+
+def _cluster_pids(state: str) -> dict[str, int]:
+    """The cluster's processes that ``up`` started, by pid file."""
+    if not os.path.isdir(state):
+        return {}
+    out = {}
+    for name in os.listdir(state):
+        if name.endswith(".pid"):
+            with open(os.path.join(state, name)) as f:
+                out[name] = int(f.read().strip() or 0)
+    return out
+
+
+def _alive(pids: dict[str, int], deadline: float) -> list[str]:
+    """Those of ``pids`` still running at ``deadline`` (a zombie counts as
+    ended)."""
+    def running(pid: int) -> bool:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+        except (OSError, IndexError):
+            return False
+
+    while (left := [n for n, pid in pids.items() if running(pid)]) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    return left
+
+
+def _cluster_logs(work: str, state: str) -> None:
+    """The tails of the cluster's logs and the dataflows' node logs, on a
+    failure."""
+    logs = [os.path.join(state, n) for n in sorted(os.listdir(state)) if n.endswith(".log")] \
+        if os.path.isdir(state) else []
+    out = os.path.join(work, "out")
+    for run in sorted(os.listdir(out)) if os.path.isdir(out) else []:
+        logs += [os.path.join(out, run, n) for n in sorted(os.listdir(os.path.join(out, run)))]
+    for path in logs:
+        with open(path, errors="replace") as f:
+            tail = f.read()[-3000:]
+        print(f"cluster: {os.path.relpath(path, work)}:\n{tail}", file=sys.stderr, flush=True)
+
+
+def serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str, scratch: str,
+                  here: str, layers: int, seed: int, prompts, max_new: int, served,
+                  dev: str = "cuda") -> None:
+    """Phase 21: the port's cluster tier, from ``up`` to HTTP, on one card."""
+    from dora_tpu_torch.cli.control import ControlConnection
+    from dora_tpu_torch.message import coordinator as cm
+
+    t0 = time.perf_counter()
+    cfg = qwen2.Qwen2Config.qwen2_1_5b(layers=layers, max_seq=2048)
+    params = qwen2.quantize_decode(qwen2.random_params(cfg, seed=seed, std=0.02, device=dev),
+                                   cfg)
+    paths = _Paths(torch, DB, LO, IM, qwen2, L, serve_prompts, params, cfg)
+    with tempfile.TemporaryDirectory(prefix="cluster-", dir=scratch) as work:
+        state = os.path.join(work, "state")
+        try:
+            # (a) two machines on this host, then the two-machine example
+            t = time.perf_counter()
+            for machine in ("A", "B"):
+                _cluster_cli(here, state, "up", "--machine-id", machine)
+            with ControlConnection() as c:
+                machines = c.request(cm.ConnectedMachines()).machines
+            if machines != ["A", "B"]:
+                raise Failed(f"cluster (a): registered machines {machines}, not A and B")
+            t_up = time.perf_counter() - t
+            example = os.path.join(work, "multiple-daemons.yml")
+            with open(os.path.join(here, "dora_tpu_torch/examples/multiple-daemons.yml")) as f:
+                text = f.read()
+            with open(example, "w") as f:
+                f.write(text)
+            t = time.perf_counter()
+            out = _cluster_cli(here, state, "start", example, "--name", "multi", "--attach")
+            t_multi = time.perf_counter() - t
+            uuid = out.splitlines()[0].strip()
+            if f"dataflow {uuid} finished successfully" not in out:
+                raise Failed(f"cluster (a): start --attach printed {out[-1000:]}")
+            logs = _cluster_cli(here, state, "logs", "receiver", "--uuid", uuid)
+            if "asserted 3 inputs OK" not in logs:
+                raise Failed(f"cluster (a): the receiver's log is {logs[-500:]!r}")
+            print(f"cluster (a): `up` A and B registered in {t_up:.2f} s; multiple-daemons.yml "
+                  f"across them ({uuid}) finished in {t_multi:.2f} s through `start --attach`; "
+                  f"`logs receiver`: {logs.strip()!r}", flush=True)
+
+            # (b) the serving node behind the gateway, on two machines
+            import yaml
+
+            counts = os.path.join(work, "llm.launches.json")
+            gateway = _free_port()
+            flow = os.path.join(work, "llm-server.yml")
+            with open(flow, "w") as f:
+                yaml.safe_dump(llm_flow_desc(counts, gateway, layers, seed, dev), f)
+            t = time.perf_counter()
+            serve_uuid = _cluster_cli(here, state, "start", flow, "--name", "serve").strip()
+            listed = _cluster_cli(here, state, "list")
+            if listed.split() != [serve_uuid, "serve"]:
+                raise Failed(f"cluster (b): `list` printed {listed!r}")
+            _wait_gateway(gateway, time.monotonic() + CLUSTER_START_S)
+            t_start = time.perf_counter() - t
+            warm, threads = _streams(gateway, [list(range(1, 33))], 1)
+            threads[0].join(CLUSTER_START_S)
+            if warm[0].error or warm[0].finish != "length" or len(warm[0].tokens) != 1:
+                raise Failed(f"cluster (b): the warmup request ended {warm[0].error or warm[0].finish}"
+                             f" with {warm[0].tokens}")
+            streams, threads = _streams(gateway, prompts, max_new)
+            for th in threads:
+                th.join(CLUSTER_START_S)
+            parted = 0
+            for i, st in enumerate(streams):
+                if st.error or st.finish != "length" or len(st.tokens) != max_new:
+                    raise Failed(f"cluster (b): request {i} ended {st.error or st.finish} with "
+                                 f"{len(st.tokens)} of {max_new} tokens")
+                parted += _hold_to_phase4(f"cluster (b): request {i}", paths, prompts[i],
+                                          st.tokens, served[i], max_new) < max_new
+            ttft = [st.deltas[0][0] - st.sent for st in streams]
+            span = max(st.deltas[-1][0] for st in streams) - min(st.sent for st in streams)
+            n_tok = sum(len(st.tokens) for st in streams)
+            earlier = EARLIER.get("flow_b", {})
+            print(f"cluster (b): {len(streams)} streamed requests through the gateway on A to "
+                  f"the node on B, {n_tok} tokens in {span:.3f} s from the first send to the last "
+                  f"delta ({n_tok / span:.1f} tokens/s at the HTTP client); "
+                  f"{len(streams) - parted} streams equal phase 4's token for token, {parted} "
+                  f"part at near-ties; TTFT p50 {_pct(ttft, 50):.4f} s max {max(ttft):.4f} s; "
+                  f"phase 20 (b) this run: shmem {earlier.get('shmem', 'not run')}, tcp "
+                  f"{earlier.get('tcp', 'not run')}; `start` to the gateway's first answer "
+                  f"{t_start:.1f} s (node start and weights included) [{smi}]", flush=True)
+
+            # (c) migrate while streams are live
+            handoff = os.path.join(work, "handoff")
+            order = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))[:MIGRATE_STREAMS]
+            live, threads = _streams(gateway, [prompts[i] for i in order], MIGRATE_MAX_NEW)
+            deadline = time.monotonic() + CLUSTER_START_S
+            while min(len(st.deltas) for st in live) < MIGRATE_AFTER_CHUNKS:
+                if time.monotonic() > deadline or any(st.error for st in live):
+                    raise Failed(f"cluster (c): streams before migrate: "
+                                 f"{[(len(st.deltas), st.error) for st in live]}")
+                time.sleep(0.01)
+            t = time.perf_counter()
+            out = _cluster_cli(here, state, "migrate", "llm", "--handoff-dir", handoff,
+                               "--name", "serve")
+            deadline = time.monotonic() + CLUSTER_CMD_S
+            while not (files := [n for n in (os.listdir(handoff) if os.path.isdir(handoff)
+                                             else []) if n.endswith(".json")]):
+                if time.monotonic() > deadline:
+                    raise Failed(f"cluster (c): no handoff file in {handoff} after `migrate`")
+                time.sleep(0.05)
+            t_drain = time.perf_counter() - t
+            with open(os.path.join(handoff, files[0])) as f:
+                handed = json.load(f)
+            moved = [m["request_id"] for m in handed["engine"]["slots"]] + \
+                [b[0] for b in handed["backlog"]]
+            if len(moved) != MIGRATE_STREAMS or len(handed["wire_ids"]) != MIGRATE_STREAMS:
+                raise Failed(f"cluster (c): the handoff file holds {moved}, "
+                             f"{handed['wire_ids']}; {MIGRATE_STREAMS} live streams were sent")
+            got = [len(st.tokens) for st in live]
+            print(f"cluster (c): `migrate llm` ({out.strip()}) with {MIGRATE_STREAMS} streams "
+                  f"live at {got} tokens: {files[0]} holds {len(moved)} drained streams "
+                  f"(wire ids {sorted(handed['wire_ids'].values())}), {t_drain:.3f} s from the "
+                  f"command to the file [{smi}]", flush=True)
+            # the node reports its serving counters once a second: its
+            # migrated_out shows the drain through `metrics`
+            deadline = time.monotonic() + 10
+            while True:
+                metrics = json.loads(_cluster_cli(here, state, "metrics", "--name", "serve",
+                                                  "--json"))
+                serving = (metrics.get("serving") or {}).get("llm", {})
+                if (serving.get("migrated_out") or 0) >= MIGRATE_STREAMS:
+                    break
+                if time.monotonic() > deadline:
+                    raise Failed(f"cluster (c): `metrics` shows migrated_out "
+                                 f"{serving.get('migrated_out')} 10 s after the drain")
+                time.sleep(0.5)
+            out = _cluster_cli(here, state, "stop", "--name", "serve", "--grace-duration", "30")
+            if "finished successfully" not in out:
+                raise Failed(f"cluster (c): `stop` printed {out[-1000:]}")
+            for th in threads:
+                th.join(CLUSTER_CMD_S)
+            link = metrics["links"].get("llm/response", {})
+            print(f"cluster (c): `metrics` before stop: llm/response {link.get('msgs')} messages "
+                  f"(sent on B, arrived on A), serving requests {serving.get('requests')} "
+                  f"migrated_out {serving.get('migrated_out')}", flush=True)
+            _node_counts("cluster (b)-(c)", counts, SPEC_OFF_KERNELS)
+        except Failed:
+            _cluster_logs(work, state)
+            raise
+        finally:
+            pids = _cluster_pids(state)
+            try:
+                _cluster_cli(here, state, "destroy", timeout=CLUSTER_CMD_S)
+            except (Failed, subprocess.TimeoutExpired) as e:
+                print(f"cluster: destroy: {e}", file=sys.stderr, flush=True)
+            left = _alive(pids, time.monotonic() + 30)
+        if left or _cluster_pids(state):
+            raise Failed(f"cluster: processes {left} or pid files "
+                         f"{sorted(_cluster_pids(state))} left after `destroy`")
+    del paths, params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    print(f"cluster: phase 21 in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main(argv=None) -> int:
@@ -7273,6 +7620,10 @@ def main(argv=None) -> int:
     ap.add_argument("--dataflow", action="store_true",
                     help="build, then only phase 20: the port's VLM and serving dataflows "
                          "under the port's own daemon (prints no result line)")
+    ap.add_argument("--cluster", action="store_true",
+                    help="build, then only phase 20 (b) and phase 21: the serving dataflow under "
+                         "the port's daemon, then the cluster tier from `up` to HTTP (prints no "
+                         "result line)")
     ap.add_argument("--paths", action="store_true",
                     help="build, then only phases 4, 6, 9 and 10, phase 12's main path and the "
                          "VLM's generate, for their times (prints no result line)")
@@ -7367,6 +7718,13 @@ def main(argv=None) -> int:
             del params, params4
             serve_dataflows(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch,
                             args.layers, args.seed, prompts, args.max_new)
+            return 0
+        if args.cluster:
+            del params, params4
+            served = serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch,
+                                    args.layers, args.seed, prompts, args.max_new)
+            serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch, here,
+                          args.layers, args.seed, prompts, args.max_new, served)
             return 0
         if args.paths:  # phases 4, 6, 9, 10 and 12's main path and the VLM's generate alone
             _, _, slice_times = serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg,
@@ -7496,6 +7854,8 @@ def main(argv=None) -> int:
         serve_bench(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, here)
         serve_dataflows(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch, args.layers,
                         args.seed, prompts, args.max_new, served)
+        serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch, here,
+                      args.layers, args.seed, prompts, args.max_new, served)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

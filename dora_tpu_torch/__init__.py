@@ -8,14 +8,18 @@ first use by ``ops/_build.py``). The module layout mirrors ``dora_tpu``
 ``dora_tpu/ops/decode_block.py``, and so on).
 
 It also carries its own dataflow runtime, on the host: the descriptor
-(``core/``), a local daemon that spawns a dataflow's nodes, routes their
+(``core/``), a daemon that spawns a dataflow's nodes, routes their
 messages over tcp, a Unix socket or shared memory, runs their timers and
-restarts them (``daemon/``, ``python -m dora_tpu_torch.cli run``), the node
+restarts them (``daemon/``, ``python -m dora_tpu_torch.cli run``), the
+cluster tier (``coordinator/``, the daemon's attached mode and its links
+between machines, the CLI's ``up`` / ``start`` / ``stop`` / ``list`` /
+``logs`` / ``metrics`` / ``migrate`` / ``destroy``), the node
 API (``node/``), the message codec (``message/``), the clock, the framing,
 the shared-memory layer (``native.py`` over ``csrc/shmem.cpp``) and the
 host nodes of its examples (``nodehub/``: camera, microphone, printer,
-recorder, speaker, plot). The wire is the JAX package's byte for byte, so
-a node of either package runs under either daemon. Its serving node
+recorder, speaker, plot; the OpenAI gateway and the text decoder). The wire
+is the JAX package's byte for byte, so a node of either package runs under
+either daemon, and a coordinator of either package runs daemons of both. Its serving node
 (``nodehub/llm_server.py``) and its operator tier (``runtime/``, ``tpu/``: a
 runtime node hosting torch operators, the counterpart of ``python -m
 dora_tpu.runtime``) run the model-zoo factories of ``nodehub/ops.py`` (the

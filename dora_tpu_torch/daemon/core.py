@@ -1,21 +1,30 @@
-"""The daemon: spawn a dataflow's nodes, route their messages, own the
-timers and the shared-memory drop tokens (dora_tpu/daemon/core.py, its
-local half).
+"""The daemon: spawn a machine's nodes of a dataflow, route their messages,
+own the timers and the shared-memory drop tokens (dora_tpu/daemon/core.py).
 
-One daemon in one process runs one machine's dataflows to completion: the
-start barrier (every node subscribed before any event flows), output routing
-through bounded per-input queues (inline payloads spliced as wire bytes,
-shared-memory payloads tracked by their drop tokens), timers,
+One daemon in one process runs one machine's part of its dataflows to
+completion: the start barrier (every node subscribed before any event flows),
+output routing through bounded per-input queues (inline payloads spliced as
+wire bytes, shared-memory payloads tracked by their drop tokens), timers,
 ``InputClosed`` / ``AllInputsClosed`` as producers finish, STOP with a grace
-kill, RELOAD, ``send_stdout_as``, the restart policy with replay of un-acked
-inputs, and the dataflow's result with each node's exit status.
+kill, RELOAD, MIGRATE, ``send_stdout_as``, the restart policy with replay of
+un-acked inputs, and the dataflow's result with each node's exit status.
 
-Not here: the coordinator connection and the links between daemons (so
-every node of a dataflow runs on this machine, and there is no attached
-mode), peer-to-peer edges (every edge takes the daemon route), and the
-metrics history, alert, trace and fleet planes (a node's reports to them
-are accepted and dropped). :func:`run_dataflow` is the standalone mode
-(``python -m dora_tpu_torch.cli run``).
+A dataflow may span machines. Attached to a coordinator
+(``coordinator_conn.run_attached``), the daemon runs the nodes whose
+``deploy.machine`` is its ``machine_id``, reports its part of the start
+barrier and its result through ``coordinator_notify``, forwards its node's
+log lines through ``log_sink``, and sends outputs and closed inputs meant for
+another machine through ``inter_daemon_send`` (``inter_daemon.py``): a
+shared-memory payload is copied to bytes first, since shared memory never
+crosses machines, and a frame spliced on the wire fast path is never
+forwarded. :func:`run_dataflow` is the standalone mode (``python -m
+dora_tpu_torch.cli run``, or ``daemon --run-dataflow``): every node runs on
+this machine, whatever its ``deploy.machine``.
+
+Not here: peer-to-peer edges (every edge takes the daemon route), and the
+metrics history, alert, trace and profile planes (a node's reports to them
+are accepted and dropped); a node's serving snapshot and fleet digest are
+kept for ``metrics_snapshot`` and ``fleet_snapshot``.
 """
 
 from __future__ import annotations
@@ -27,9 +36,9 @@ import time
 import uuid as uuid_mod
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
-from dora_tpu_torch import PROTOCOL_VERSION
+from dora_tpu_torch import PROTOCOL_VERSION, fleet
 from dora_tpu_torch.clock import HLC
 from dora_tpu_torch.core.config import TimerMapping, UserMapping
 from dora_tpu_torch.core.descriptor import CustomNode, Descriptor, new_dataflow_uuid
@@ -45,6 +54,7 @@ from dora_tpu_torch.message.common import (
     ENCODING_RAW,
     DataflowResult,
     InlineData,
+    LogMessage,
     Metadata,
     NodeError,
     NodeErrorCause,
@@ -60,7 +70,7 @@ from dora_tpu_torch.message.serde import (
     encode_timestamped,
 )
 from dora_tpu_torch.metrics import DataflowMetrics
-from dora_tpu_torch.native import ShmemChannel
+from dora_tpu_torch.native import ShmemChannel, ShmemRegion
 from dora_tpu_torch.transport.framing import ConnectionClosed
 
 logger = logging.getLogger(__name__)
@@ -99,7 +109,9 @@ class DataflowState:
     id: str
     descriptor: Descriptor
     working_dir: Path
-    #: OutputId -> receiver InputIds
+    #: the node ids this machine runs
+    local_nodes: set[str]
+    #: OutputId -> receiver InputIds, on this machine and on others
     mappings: dict[OutputId, set[InputId]] = field(default_factory=dict)
     open_outputs: set[OutputId] = field(default_factory=set)
     #: receiver node -> its user (non-timer) inputs that are still open
@@ -147,19 +159,38 @@ class DataflowState:
     #: node id -> the task serving its event queue (cancelled on respawn
     #: before the replay, so a dead incarnation's loop consumes nothing)
     event_tasks: dict[str, asyncio.Task] = field(default_factory=dict)
+    #: machine id -> its daemon's inter-daemon address "host:port"
+    machine_listen_ports: dict[str, str] = field(default_factory=dict)
+    #: node id -> the latest serving snapshot it reported (ReportServing)
+    node_serving: dict[str, dict] = field(default_factory=dict)
+    #: node id -> {"digest": dict, "recv_wall_ns": int}, its latest
+    #: ReportEngineState with the time it arrived
+    node_fleet: dict[str, dict] = field(default_factory=dict)
+
+    def node_machine(self, node_id: str) -> str:
+        return self.descriptor.node(node_id).deploy.machine or ""
 
 
 class Daemon:
     """The data-plane daemon of this machine."""
 
-    def __init__(self, local_comm: str = "tcp"):
+    def __init__(self, local_comm: str = "tcp", machine_id: str = ""):
         self.local_comm = local_comm
+        self.machine_id = machine_id
         self.clock = HLC()
         self.dataflows: dict[str, DataflowState] = {}
         self._server: asyncio.AbstractServer | None = None
         self._server_addr: str | None = None
         self._dynamic_server: asyncio.AbstractServer | None = None
         self.dynamic_port: int | None = None
+        #: attached mode: send an output (or closed inputs) to another
+        #: machine: ``(df, machine, output_id, metadata, payload, closed=None)``
+        self.inter_daemon_send: Callable[..., Any] | None = None
+        #: attached mode: ``(kind, df, payload)``, kind "ready" (payload: the
+        #: nodes that exited before subscribing) or "finished" (the result)
+        self.coordinator_notify: Callable[..., Any] | None = None
+        #: attached mode: every node log line as a ``LogMessage``
+        self.log_sink: Callable[..., Any] | None = None
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -199,16 +230,35 @@ class Daemon:
                 conn.close_sync()
             df.shmem_conns.clear()
 
+    async def run(self, coordinator_addr: str, machine_id: str = "",
+                  register_timeout_s: float = 30.0) -> None:
+        """Attached mode: register with the coordinator at ``coordinator_addr``
+        (its daemon port) as ``machine_id`` and serve its events until it
+        destroys the cluster."""
+        from dora_tpu_torch.daemon.coordinator_conn import run_attached
+
+        await run_attached(self, coordinator_addr, machine_id, register_timeout_s)
+
     # ------------------------------------------------------------------
     # dataflow spawn
     # ------------------------------------------------------------------
 
     async def spawn_dataflow(self, descriptor: Descriptor, dataflow_id: str | None = None,
-                             working_dir: str | Path | None = None) -> DataflowState:
-        """Build the routing tables and spawn every node but the dynamic ones."""
+                             working_dir: str | Path | None = None,
+                             local_nodes: set[str] | None = None,
+                             machine_listen_ports: dict[str, str] | None = None
+                             ) -> DataflowState:
+        """Build the routing tables and spawn this machine's nodes but the
+        dynamic ones. ``local_nodes`` None: the nodes whose
+        ``deploy.machine`` is this daemon's ``machine_id``."""
         dataflow_id = dataflow_id or new_dataflow_uuid()
         working_dir = Path(working_dir or Path.cwd()).resolve()
-        df = DataflowState(id=dataflow_id, descriptor=descriptor, working_dir=working_dir)
+        if local_nodes is None:
+            local_nodes = {str(n.id) for n in descriptor.nodes
+                           if (n.deploy.machine or "") == self.machine_id}
+        df = DataflowState(id=dataflow_id, descriptor=descriptor, working_dir=working_dir,
+                           local_nodes=set(local_nodes),
+                           machine_listen_ports=dict(machine_listen_ports or {}))
         self.dataflows[dataflow_id] = df
 
         for node in descriptor.nodes:
@@ -226,6 +276,8 @@ class Daemon:
 
         for node in descriptor.nodes:
             nid = str(node.id)
+            if nid not in df.local_nodes:
+                continue
             df.queues[nid] = NodeEventQueue(
                 node_id=nid,
                 queue_sizes={str(iid): inp.queue_size for iid, inp in node.inputs.items()},
@@ -244,7 +296,7 @@ class Daemon:
 
         for node in descriptor.nodes:
             nid = str(node.id)
-            if df.running_nodes[nid].dynamic:
+            if nid not in df.local_nodes or df.running_nodes[nid].dynamic:
                 continue
             try:
                 process = await spawn_mod.spawn_node(self, df, node,
@@ -298,7 +350,26 @@ class Daemon:
         if node_id in df.pending_nodes:
             df.pending_nodes.discard(node_id)
             if not df.pending_nodes:
-                self._release_barrier(df)
+                self._local_nodes_ready(df, [])
+
+    def _local_nodes_ready(self, df: DataflowState, exited: list[str]) -> None:
+        """Every node of this machine subscribed (or ``exited`` before it).
+        Across machines the coordinator gathers every machine's report and
+        answers with AllNodesReady; on one machine the barrier opens here."""
+        if self._is_multi_machine(df):
+            self.coordinator_notify("ready", df, exited)
+        if exited:
+            self.poison_barrier(df, exited[0])
+        elif not self._is_multi_machine(df):
+            self._release_barrier(df)
+
+    def _is_multi_machine(self, df: DataflowState) -> bool:
+        return self.coordinator_notify is not None and len(df.descriptor.machines()) > 1
+
+    def release_barrier(self, df: DataflowState) -> None:
+        """The coordinator's AllNodesReady: every machine's nodes subscribed."""
+        if not df.started.is_set():
+            self._release_barrier(df)
 
     def _release_barrier(self, df: DataflowState, error: str | None = None,
                          failed_node: str | None = None) -> None:
@@ -310,7 +381,7 @@ class Daemon:
                 df.timer_tasks.append(
                     asyncio.create_task(self._timer_loop(df, interval_ns, targets)))
 
-    def _poison_barrier(self, df: DataflowState, failed_node: str) -> None:
+    def poison_barrier(self, df: DataflowState, failed_node: str) -> None:
         """A node exited before subscribing: the whole start fails."""
         if not df.started.is_set():
             self._release_barrier(df, error=f"node {failed_node!r} exited before subscribing",
@@ -346,9 +417,10 @@ class Daemon:
 
     def send_out(self, df: DataflowState, sender: str, output_id: str, metadata: Metadata,
                  data: Any, send_ns: int = 0) -> None:
-        """Route one output to every receiver's queue. ``send_ns`` is the
-        sender's HLC physical time (0: unknown, the route time stands in),
-        the start of the send-to-deliver latency."""
+        """Route one output to every receiver's queue on this machine and to
+        the daemons of the others. ``send_ns`` is the sender's HLC physical
+        time (0: unknown, the route time stands in), the start of the
+        send-to-deliver latency."""
         oid = OutputId(NodeId(sender), DataId(output_id))
         token = data.drop_token if isinstance(data, SharedMemoryData) else None
         if oid not in df.open_outputs:
@@ -358,8 +430,12 @@ class Daemon:
         if token is not None:
             df.tokens[token] = TokenState(owner=sender)
         df.metrics.count_link(sender, output_id, metadata.type_info.len)
+        remote_machines: set[str] = set()
         for target in df.mappings.get(oid, ()):
             rnode = str(target.node)
+            if rnode not in df.local_nodes:
+                remote_machines.add(df.node_machine(rnode))
+                continue
             queue = df.queues.get(rnode)
             if queue is None or str(target.input) not in df.open_inputs.get(rnode, set()):
                 continue
@@ -369,6 +445,12 @@ class Daemon:
             ts = self.clock.new_timestamp()
             queue.push(Timestamped(inner=event, timestamp=ts), input_id=str(target.input),
                        drop_token=token, send_ns=send_ns or ts.physical_ns)
+        if remote_machines and self.inter_daemon_send is not None:
+            # Shared memory never crosses machines: the payload is copied to
+            # bytes here, before the token can be released below.
+            payload = self._payload_bytes(data)
+            for machine in sorted(remote_machines):
+                self.inter_daemon_send(df, machine, str(oid), metadata, payload)
         # A push into a closed queue (its receiver died) releases the token
         # at once, so it can be gone here already.
         token_state = df.tokens.get(token) if token is not None else None
@@ -376,18 +458,37 @@ class Daemon:
             del df.tokens[token]
             self._notify_owner(df, sender, token)
 
-    def send_out_wire(self, df: DataflowState, sender: str, fast: fastroute.FastSend) -> None:
+    @staticmethod
+    def _payload_bytes(data: Any) -> bytes | None:
+        if data is None:
+            return None
+        if isinstance(data, InlineData):
+            return bytes(data.data)
+        region = ShmemRegion.open(data.shmem_id)
+        try:
+            with memoryview(region) as view:
+                return bytes(view[:data.len])
+        finally:
+            region.close(unlink=False, force=True)
+
+    def send_out_wire(self, df: DataflowState, sender: str, fast: fastroute.FastSend) -> bool:
         """Route a shallow-parsed inline SendMessage by splicing its wire
-        bytes into each receiver's Input event."""
+        bytes into each receiver's Input event. Returns False, having routed
+        nothing, when a receiver is on another machine: forwarding needs the
+        decoded message, so the caller routes the frame through
+        :meth:`send_out`."""
         key = (sender, fast.output_id)
         cached = df.route_cache.get(key)
         if cached is None:
             oid = OutputId(NodeId(sender), DataId(fast.output_id))
-            cached = (oid, [(str(t.node), str(t.input)) for t in df.mappings.get(oid, ())])
+            receivers = [(str(t.node), str(t.input)) for t in df.mappings.get(oid, ())]
+            cached = (oid, receivers, all(r in df.local_nodes for r, _ in receivers))
             df.route_cache[key] = cached
-        oid, receivers = cached
+        oid, receivers, all_local = cached
         if oid not in df.open_outputs:
-            return  # dropped, as send_out drops on a closed output
+            return True  # dropped, as send_out drops on a closed output
+        if not all_local:
+            return False
         df.metrics.count_link(sender, fast.output_id, fast.payload_len)
         send_ns = fast.timestamp.physical_ns
         for rnode, input_id in receivers:
@@ -398,6 +499,27 @@ class Daemon:
                        wire=fastroute.build_input_event(input_id, fast.body,
                                                         self.clock.new_timestamp()),
                        send_ns=send_ns)
+        return True
+
+    def deliver_remote_output(self, df: DataflowState, output_id: str, metadata: Metadata,
+                              payload: bytes | None) -> None:
+        """An output another machine's daemon forwarded, to this machine's
+        receivers. Its latency starts at its arrival here: two machines'
+        clocks are not comparable."""
+        oid = OutputId.parse(output_id)
+        data = InlineData(data=payload) if payload is not None else None
+        df.metrics.count_link(str(oid.node), str(oid.output), metadata.type_info.len)
+        for target in df.mappings.get(oid, ()):
+            rnode = str(target.node)
+            if rnode not in df.local_nodes:
+                continue
+            queue = df.queues.get(rnode)
+            if queue is None or str(target.input) not in df.open_inputs.get(rnode, set()):
+                continue
+            event = d2n.Input(id=str(target.input), metadata=metadata, data=data)
+            ts = self.clock.new_timestamp()
+            queue.push(Timestamped(inner=event, timestamp=ts), input_id=str(target.input),
+                       send_ns=ts.physical_ns)
 
     def metrics_snapshot(self, df: DataflowState) -> dict:
         """The dataflow's routing counters: messages and bytes a link,
@@ -407,7 +529,29 @@ class Daemon:
                   for i, c in q.input_counts.items() if c}
         snap = df.metrics.snapshot(depths)
         snap["fastroute"]["fallback_reasons"] = dict(fastroute.FALLBACKS)
+        if df.node_serving:
+            snap["serving"] = {nid: dict(s) for nid, s in df.node_serving.items()}
+        if df.node_fleet:
+            now_ns = time.time_ns()
+            snap["fleet"] = {nid: fleet.fleet_gauges(e["digest"], (now_ns - e["recv_wall_ns"]) / 1e9)
+                             for nid, e in df.node_fleet.items()}
         return snap
+
+    def fleet_snapshot(self, df: DataflowState) -> dict:
+        """This machine's fleet snapshot, the payload of a FleetRequest's
+        reply: each replica's latest digest with its arrival stamp, and this
+        machine's wall and HLC clocks read back to back, so that the merge
+        (``fleet.merge_fleet_snapshots``) puts every machine's stamps on one
+        axis."""
+        if not df.node_fleet:
+            return {}
+        return {
+            "machine_id": self.machine_id,
+            "hlc_ns": self.clock.new_timestamp().physical_ns,
+            "wall_ns": time.time_ns(),
+            "replicas": {nid: {**e["digest"], "recv_wall_ns": e["recv_wall_ns"]}
+                         for nid, e in df.node_fleet.items()},
+        }
 
     def publish_stdout_line(self, df: DataflowState, node_id: NodeId, output: str,
                             line: str) -> None:
@@ -453,14 +597,30 @@ class Daemon:
 
     def close_outputs(self, df: DataflowState, node_id: str, outputs: list[str]) -> None:
         """Close outputs: each receiver gets InputClosed, and AllInputsClosed
-        after its last open input (a node with a timer keeps its stream)."""
+        after its last open input (a node with a timer keeps its stream); the
+        daemons of other machines get their receivers' InputsClosed."""
+        remote_closed: dict[str, list[str]] = {}
         for output in outputs:
             oid = OutputId(NodeId(node_id), DataId(output))
             if oid not in df.open_outputs:
                 continue
             df.open_outputs.discard(oid)
             for target in df.mappings.get(oid, ()):
-                self._close_input(df, str(target.node), str(target.input))
+                rnode = str(target.node)
+                if rnode not in df.local_nodes:
+                    remote_closed.setdefault(df.node_machine(rnode), []).append(str(target))
+                    continue
+                self._close_input(df, rnode, str(target.input))
+        if remote_closed and self.inter_daemon_send is not None:
+            for machine, inputs in sorted(remote_closed.items()):
+                self.inter_daemon_send(df, machine, None, None, None, closed=inputs)
+
+    def close_remote_inputs(self, df: DataflowState, inputs: list[str]) -> None:
+        """InputsClosed that another machine's daemon forwarded
+        ("<node>/<input>" each)."""
+        for s in inputs:
+            node, _, input_id = s.partition("/")
+            self._close_input(df, node, input_id)
 
     def _close_input(self, df: DataflowState, rnode: str, input_id: str) -> None:
         open_inputs = df.open_inputs.get(rnode)
@@ -512,9 +672,9 @@ class Daemon:
         if nid in df.pending_nodes:
             df.pending_nodes.discard(nid)
             if not status.success:
-                self._poison_barrier(df, nid)
+                self._local_nodes_ready(df, [nid])
             elif not df.pending_nodes:
-                self._release_barrier(df)
+                self._local_nodes_ready(df, [])
         self._release_node(df, nid)
         # Outputs close once the node's control connection drained:
         # SendMessages still in the socket at exit must route first.
@@ -651,9 +811,11 @@ class Daemon:
         )
         if not df.done.done():
             df.done.set_result(result)
+        if self.coordinator_notify is not None:
+            self.coordinator_notify("finished", df, result)
 
     # ------------------------------------------------------------------
-    # stop, reload
+    # stop, reload, migrate
     # ------------------------------------------------------------------
 
     def stop_dataflow(self, df: DataflowState, grace_s: float | None = None) -> None:
@@ -694,6 +856,20 @@ class Daemon:
         if queue is not None:
             queue.push(Timestamped(inner=d2n.Reload(operator_id=operator_id),
                                    timestamp=self.clock.new_timestamp()))
+
+    def migrate_node(self, df: DataflowState, node_id: str, handoff_dir: str) -> None:
+        """Queue a MIGRATE event for a serving node: it drains its live
+        streams into ``handoff_dir`` at its next window boundary."""
+        queue = df.queues.get(node_id)
+        if queue is not None:
+            queue.push(Timestamped(inner=d2n.Migrate(handoff_dir=handoff_dir),
+                                   timestamp=self.clock.new_timestamp()))
+
+    def on_node_log(self, df: DataflowState, node_id: str, level: str, text: str) -> None:
+        """A node's log line (stdout or stderr), to ``log_sink`` if set."""
+        if self.log_sink is not None:
+            self.log_sink(LogMessage(dataflow_id=df.id, level=level, message=text,
+                                     node_id=node_id, machine_id=self.machine_id))
 
     # ------------------------------------------------------------------
     # node-channel listeners
@@ -752,9 +928,10 @@ class Daemon:
                 if fast is not None:
                     # clock first: the routed events' timestamps follow the sender's
                     self.clock.update_with_timestamp(fast.timestamp)
-                    self.send_out_wire(df, node_id, fast)
-                    df.metrics.fastroute_hits += 1
-                    continue
+                    if self.send_out_wire(df, node_id, fast):
+                        df.metrics.fastroute_hits += 1
+                        continue
+                    # a receiver on another machine: decoded and routed below
                 tsd = decode_timestamped(frame, self.clock)
                 await self._control_request(df, node_id, conn, tsd.inner,
                                             tsd.timestamp.physical_ns)
@@ -770,9 +947,13 @@ class Daemon:
             self.send_out(df, node_id, msg.output_id, msg.metadata, msg.data, send_ns=send_ns)
         elif isinstance(msg, n2d.ReportDropTokens):
             self.ack_tokens(df, node_id, msg.drop_tokens)
-        elif isinstance(msg, (n2d.ReportTrace, n2d.ReportServing, n2d.ReportEngineState,
-                              n2d.ReportProfile)):
-            pass  # the planes that read these (trace, metrics, fleet) are not ported
+        elif isinstance(msg, n2d.ReportServing):
+            df.node_serving[node_id] = msg.snapshot
+        elif isinstance(msg, n2d.ReportEngineState):
+            df.node_fleet[node_id] = {"digest": fleet.digest_as_dict(msg.digest),
+                                      "recv_wall_ns": time.time_ns()}
+        elif isinstance(msg, (n2d.ReportTrace, n2d.ReportProfile)):
+            pass  # the planes that read these (trace, profile) are not ported
         elif isinstance(msg, n2d.P2PAnnounce):
             await self._reply(conn, d2n.ReplyResult(error=P2P_REFUSAL))
         elif isinstance(msg, n2d.CloseOutputs):
@@ -914,7 +1095,8 @@ async def run_dataflow_async(dataflow: str | Path | Descriptor,
                              local_comm: str | None = None,
                              timeout_s: float | None = None,
                              stop_after_s: float | None = None) -> DataflowResult:
-    """Run one dataflow to completion with an in-process daemon.
+    """Run one dataflow to completion with an in-process daemon, every node
+    on this machine whatever its ``deploy.machine``.
 
     ``dataflow`` is a YAML path or a parsed :class:`Descriptor`.
     ``local_comm`` None takes the descriptor's ``communication: {local:
@@ -929,18 +1111,14 @@ async def run_dataflow_async(dataflow: str | Path | Descriptor,
         descriptor = Descriptor.read(path)
         working_dir = Path(working_dir or path.parent)
     descriptor.check(working_dir)
-    if len(descriptor.machines()) > 1:
-        raise NotImplementedError(
-            f"the dataflow deploys nodes on machines {sorted(descriptor.machines())}; the "
-            "port's daemon runs one machine (the coordinator and the links between daemons "
-            "are not ported)")
     if local_comm is None:
         local_comm = descriptor.communication.local.kind
 
     daemon = Daemon(local_comm=local_comm)
     await daemon.start()
     try:
-        df = await daemon.spawn_dataflow(descriptor, working_dir=working_dir)
+        df = await daemon.spawn_dataflow(descriptor, working_dir=working_dir,
+                                         local_nodes={str(n.id) for n in descriptor.nodes})
         if any(r.dynamic for r in df.running_nodes.values()):
             logger.warning("dataflow %s: dynamic nodes connect to 127.0.0.1:%d "
                            "(DORA_DAEMON_ADDR)", df.id, daemon.dynamic_port)

@@ -2,8 +2,9 @@
 source (``shell``, ``module:``, a ``.py`` file, an executable), inject
 ``DORA_NODE_CONFIG``, pipe stdout and stderr to
 ``out/<dataflow>/log_<node>.txt``, keep the last stderr lines for the
-failure report, re-publish stdout as an output under ``send_stdout_as``,
-and watch for the process's exit.
+failure report, hand every line to the daemon's ``on_node_log`` (the
+coordinator's log stream), re-publish stdout as an output under
+``send_stdout_as``, and watch for the process's exit.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from pathlib import Path
 from typing import TYPE_CHECKING
 
 from dora_tpu_torch.core.descriptor import SHELL_SOURCE, CustomNode, ResolvedNode
+from dora_tpu_torch.message.common import parse_level_prefix
 from dora_tpu_torch.message.daemon_to_node import NodeConfig
 from dora_tpu_torch.message.serde import encode
 
@@ -148,6 +150,9 @@ async def _pump_stream(daemon, df, node, stream, log_file, *, is_stderr: bool):
             ring = df.stderr_rings.setdefault(str(node.id), [])
             ring.append(text)
             del ring[:-STDERR_RING_LINES]
+        # a level prefix on the line wins over its stream's default
+        level = parse_level_prefix(text) or ("error" if is_stderr else "info")
+        daemon.on_node_log(df, str(node.id), level, text)
         if not is_stderr and send_as:
             daemon.publish_stdout_line(df, node.id, send_as, text)
 

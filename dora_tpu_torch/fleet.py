@@ -6,8 +6,9 @@ Every serving node publishes an ``EngineStateDigest`` on the
 digest of the radix prefix cache, page and HBM occupancy, the
 ``fits()``-derived free-stream capacity, the resident adapters and a
 fingerprint of the config axes that make two replicas interchangeable. The
-daemon keeps the latest per node; aggregation and placement scoring stay
-in the JAX package's control plane.
+daemon keeps the latest per node (``digest_as_dict``, ``fleet_gauges``) and
+the coordinator merges the machines' (``merge_fleet_snapshots``); placement
+scoring stays in the JAX package's control plane.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import hashlib
 import os
 import time
+from typing import Any
 
 from dora_tpu_torch.message.common import EngineStateDigest
 
@@ -228,3 +230,80 @@ class DigestPublisher:
                 f"free_streams={digest.free_streams}",
             )
         return True
+
+
+# ---------------------------------------------------------------------------
+# the daemon and coordinator side
+# ---------------------------------------------------------------------------
+
+
+def digest_as_dict(digest) -> dict[str, Any]:
+    """The wire dataclass as the plain dict the daemon stores and the
+    snapshot/merge plumbing ships (control-plane payloads are dicts so
+    old CLIs tolerate new fields)."""
+    import dataclasses
+
+    return dataclasses.asdict(digest)
+
+
+def fleet_gauges(digest: dict, age_s: float) -> dict[str, Any]:
+    """The per-replica gauge block spliced into the daemon's metrics
+    snapshot (``snap["fleet"][node]``) — what the history ring flattens
+    to ``fleet:<node>:*`` series, the alert pack watches, and prom
+    exports as ``dora_fleet_*``."""
+    total = int(digest.get("total_pages", 0) or 0)
+    used = int(digest.get("used_pages", 0) or 0)
+    return {
+        "digest_age_s": round(max(0.0, age_s), 3),
+        "free_streams": int(digest.get("free_streams", 0) or 0),
+        "used_pages": used,
+        "total_pages": total,
+        "occupancy": round(used / total, 4) if total else 0.0,
+        "prefix_pages": int(digest.get("prefix_pages", 0) or 0),
+        "seq": int(digest.get("seq", 0) or 0),
+    }
+
+
+# ---------------------------------------------------------------------------
+# merge (coordinator side)
+# ---------------------------------------------------------------------------
+
+
+def merge_fleet_snapshots(snapshots: list[dict]) -> dict[str, Any]:
+    """Merge per-daemon fleet snapshots (Daemon.fleet_snapshot) into
+    one cluster view.
+
+    Each snapshot stamps its machine's wall and HLC clocks back to
+    back; the difference is that machine's offset from the cluster HLC
+    axis, so per-replica receive stamps land on one comparable ``t_ns``
+    axis regardless of wall-clock skew (the metrics_history idiom).
+    Digest ages are computed against the *local* wall pair — same
+    clock, skew-free — so a skewed machine never reads as stale."""
+    replicas: dict[str, dict] = {}
+    machines: list[str] = []
+    cluster_now = 0
+    for snap in snapshots:
+        if not isinstance(snap, dict) or not snap:
+            continue
+        offset = int(snap.get("hlc_ns", 0)) - int(snap.get("wall_ns", 0))
+        cluster_now = max(cluster_now, int(snap.get("wall_ns", 0)) + offset)
+        machine = str(snap.get("machine_id", ""))
+        if machine not in machines:
+            machines.append(machine)
+        wall_ns = int(snap.get("wall_ns", 0))
+        for node, entry in (snap.get("replicas") or {}).items():
+            recv_ns = int(entry.get("recv_wall_ns", 0))
+            merged = {
+                k: v for k, v in entry.items() if k != "recv_wall_ns"
+            }
+            merged["machine"] = machine
+            merged["t_ns"] = recv_ns + offset
+            merged["age_s"] = round(max(0, wall_ns - recv_ns) / 1e9, 3)
+            prev = replicas.get(node)
+            if prev is None or merged["t_ns"] >= prev["t_ns"]:
+                replicas[node] = merged
+    return {
+        "replicas": replicas,
+        "machines": sorted(machines),
+        "t_ns": cluster_now,
+    }

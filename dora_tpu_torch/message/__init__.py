@@ -4,9 +4,9 @@ envelope, every top-level message inside a ``Timestamped`` HLC envelope).
 
 The node <-> daemon pair is copied (``node_to_daemon``, ``daemon_to_node``,
 the shared ``common`` types, and the daemon's wire fast path
-``fastroute``), so either package's node runs under either daemon; the
-coordinator's messages stay in the JAX package (no coordinator is
-ported)."""
+``fastroute``), so either package's node runs under either daemon; so are
+the control plane's (``coordinator``: CLI, coordinator, daemon and the links
+between daemons), so either package's cluster tier talks to the other's."""
 
 from dora_tpu_torch.message.serde import (  # noqa: F401
     Timestamped,

@@ -159,3 +159,53 @@ class DataflowResult:
 
     def errors(self) -> list[tuple[str, NodeError]]:
         return [(nid, r.error) for nid, r in sorted(self.node_results.items()) if r.error]
+
+
+LOG_LEVELS = ("trace", "debug", "info", "warn", "error")
+
+
+@message
+class LogMessage:
+    """A log line travelling daemon -> coordinator -> CLI subscribers."""
+
+    dataflow_id: str
+    level: str
+    message: str
+    node_id: str | None = None
+    target: str | None = None
+    machine_id: str | None = None
+
+
+def log_level_at_least(level: str, minimum: str) -> bool:
+    try:
+        return LOG_LEVELS.index(level) >= LOG_LEVELS.index(minimum)
+    except ValueError:
+        return True
+
+
+#: level words parse_level_prefix accepts -> the canonical level
+_LEVEL_WORDS = {
+    "trace": "trace",
+    "debug": "debug",
+    "info": "info",
+    "warn": "warn",
+    "warning": "warn",
+    "error": "error",
+    "err": "error",
+    "critical": "error",
+    "fatal": "error",
+}
+
+
+def parse_level_prefix(text: str) -> str | None:
+    """A log line's severity from its first tokens (``ERROR: boom``,
+    ``[warn] slow``, ``2026-01-01 00:00:00,123 WARNING retrying``), or None
+    when none is recognisable (callers keep their stream's default)."""
+    for token in text.split(None, 3)[:3]:
+        word = token.strip("[]()<>:,-|").lower()
+        if len(word) < 3:
+            continue
+        level = _LEVEL_WORDS.get(word)
+        if level is not None:
+            return level
+    return None

@@ -1,7 +1,8 @@
 """Metrics of the dataflow plane: the daemon's per-dataflow counters
 (``DataflowMetrics``: messages and bytes a link, drop-oldest drops,
 send-to-deliver latency, respawns) and the serving node's
-(``ServingMetrics``), the port's copy of dora_tpu/metrics.py.
+(``ServingMetrics``), and the coordinator's merge of the daemons'
+snapshots (``merge_snapshots``): the port's copy of dora_tpu/metrics.py.
 
 ``ServingMetrics`` lives in the serving node's process and ships to its
 daemon as a fire-and-forget ``ReportServing`` snapshot, in the JAX package's
@@ -423,3 +424,143 @@ class ServingMetrics:
             "adapter_streams": dict(self.adapter_streams),
             "adapter_stalls": self.adapter_stalls,
         }
+
+
+# ---------------------------------------------------------------------------
+# merge (coordinator side)
+# ---------------------------------------------------------------------------
+
+
+def merge_snapshots(snapshots: list[dict]) -> dict:
+    """Aggregate per-daemon snapshots into one cluster view (coordinator).
+
+    Counters add; queue depths union (each input queue lives on exactly
+    one machine); histogram bucket counts add and percentiles recompute
+    from the merged buckets."""
+    links: dict[str, dict] = {}
+    drops: dict[str, int] = {}
+    depth: dict[str, int] = {}
+    hits = falls = 0
+    lat_counts: dict[str, list[int]] = {}
+    lat_sum: dict[str, float] = {}
+    serving: dict[str, dict] = {}
+    respawns: dict[str, int] = {}
+    replayed: dict[str, int] = {}
+    slo: dict[str, dict] = {}
+    logs: dict[str, dict] = {}
+    trace_drops: dict[str, int] = {}
+    alert_statuses: list[dict] = []
+    for snap in snapshots:
+        if not snap:
+            continue
+        # Each serving node lives on exactly one machine: union. Same
+        # for the SLO burn block — objectives attach to a node, and the
+        # node's daemon evaluates them against its own history ring —
+        # and the per-node log counters. Alert engines run per daemon;
+        # their statuses merge instance-wise (a JAX daemon's; the port's has no alert engine).
+        serving.update(snap.get("serving", {}))
+        slo.update(snap.get("slo", {}))
+        logs.update(snap.get("logs", {}))
+        for node, c in (snap.get("trace") or {}).get("drops", {}).items():
+            trace_drops[node] = trace_drops.get(node, 0) + c
+        if snap.get("alerts"):
+            alert_statuses.append(snap["alerts"])
+        recovery = snap.get("recovery") or {}
+        for key, c in recovery.get("respawns", {}).items():
+            respawns[key] = respawns.get(key, 0) + c
+        for key, c in recovery.get("replayed_inputs", {}).items():
+            replayed[key] = replayed.get(key, 0) + c
+        for key, v in snap.get("links", {}).items():
+            entry = links.setdefault(key, {"msgs": 0, "bytes": 0})
+            entry["msgs"] += v.get("msgs", 0)
+            entry["bytes"] += v.get("bytes", 0)
+        for key, c in snap.get("drops", {}).items():
+            drops[key] = drops.get(key, 0) + c
+        depth.update(snap.get("queue_depth", {}))
+        fr = snap.get("fastroute", {})
+        hits += fr.get("hits", 0)
+        falls += fr.get("fallbacks", 0)
+        for key, h in snap.get("latency_us", {}).items():
+            counts = lat_counts.setdefault(key, [0] * HISTOGRAM_BUCKETS)
+            for i, c in enumerate(h.get("counts", [])[:HISTOGRAM_BUCKETS]):
+                counts[i] += c
+            lat_sum[key] = lat_sum.get(key, 0.0) + h.get("sum_us", 0.0)
+    routed = hits + falls
+    latency = {}
+    for key, counts in lat_counts.items():
+        entry = {
+            "count": sum(counts),
+            "sum_us": round(lat_sum[key], 1),
+            "counts": counts,
+        }
+        for p in (50, 90, 99):
+            entry[f"p{p}_us"] = percentile_from_counts(counts, p)
+        latency[key] = entry
+    out = {
+        "links": links,
+        "drops": drops,
+        "queue_depth": depth,
+        "fastroute": {
+            "hits": hits,
+            "fallbacks": falls,
+            "hit_ratio": round(hits / routed, 4) if routed else None,
+        },
+        "latency_us": latency,
+    }
+    if serving:
+        out["serving"] = serving
+    if slo:
+        out["slo"] = slo
+    if logs:
+        out["logs"] = logs
+    if trace_drops:
+        out["trace"] = {"drops": trace_drops}
+    if alert_statuses:
+        out["alerts"] = _merge_alert_status(alert_statuses)
+    if respawns or replayed:
+        out["recovery"] = {
+            "respawns": respawns,
+            "replayed_inputs": replayed,
+        }
+    return out
+
+
+def _merge_alert_status(statuses: list[dict]) -> dict:
+    """Union per-machine engine statuses into one cluster view. Alert
+    instances are node-scoped series keys, so each lives on exactly one
+    machine (the slo-block discipline); counts and ledgers sum."""
+    rules: dict[str, dict] = {}
+    firing = pending = 0
+    transitions = {"pending": 0, "firing": 0, "resolved": 0}
+    firing_total: dict[str, int] = {}
+    resolved_total: dict[str, int] = {}
+    for status in statuses:
+        if not status:
+            continue
+        firing += status.get("firing", 0)
+        pending += status.get("pending", 0)
+        for phase, n in (status.get("transitions") or {}).items():
+            transitions[phase] = transitions.get(phase, 0) + n
+        for name, n in (status.get("firing_total") or {}).items():
+            firing_total[name] = firing_total.get(name, 0) + n
+        for name, n in (status.get("resolved_total") or {}).items():
+            resolved_total[name] = resolved_total.get(name, 0) + n
+        for name, entry in (status.get("rules") or {}).items():
+            merged = rules.setdefault(
+                name,
+                {
+                    "severity": entry.get("severity", "warning"),
+                    "labels": dict(entry.get("labels") or {}),
+                    "threshold": entry.get("threshold"),
+                    "instances": {},
+                },
+            )
+            merged["instances"].update(entry.get("instances") or {})
+    return {
+        "rules": rules,
+        "firing": firing,
+        "pending": pending,
+        "transitions": transitions,
+        "firing_total": firing_total,
+        "resolved_total": resolved_total,
+    }
