@@ -275,6 +275,44 @@ Phases, each printed on its own line:
    ``stop``; the node's launches (tools/counted.py) kernels 1-4 and no plain
    call; last ``destroy``, after which no process of the cluster is left.
    The kernels line does not change.
+22. the observability planes (``phase 22`` lines), on phase 21's cluster:
+   ``up`` gives the coordinator ``DORA_PROM_PORT`` and the daemons
+   ``DORA_TRACING=1``, ``DORA_METRICS_HISTORY_S=1`` and the JSONL alert sink,
+   and ``llm-server.yml`` carries an ``alerts:`` block with OBSERVE_RULE
+   (decode tokens over 10 a second) over the default pack. (b) ``alerts
+   --json``, polled while phase 21 (b)'s 16 streams run and after: the rule
+   firing, then resolved; the sink holds one firing and one resolved record
+   of it, the firing inside the streams' window; no rule of the default
+   pack fires. (e) ``GET /metrics`` on the coordinator: no finding of
+   ``prom.validate_exposition``, ``dora_serving_requests_total`` of the node
+   equal to the requests sent. (c) ``trace --out``: no finding of
+   ``tracing.validate_chrome_trace``, send / route / deliver / recv spans on
+   both machines, one queued -> admitted -> prefill_chunk -> decode_window ->
+   finish chain on the node's engine track a request, the dev_compute
+   spans over the streams within DEV_COMPUTE_TOL of the node's
+   ``device_compute_ns`` over them (read with ``metrics --json`` before and
+   after), the dropped events printed; (d) first, the node's first
+   capture while it is idle (``profile llm --seconds 2``: it pays the
+   profiler's one-time set-up on the node's capture thread), a directory
+   with its trace and the capture thread's step timings. Then, while (c)'s
+   four streams decode: (a) ``top --once --json``: both machines' samples, at most 1.5
+   intervals apart over (b)'s window, the ring's decode tokens over it
+   within HISTORY_RATE_TOL of the HTTP client's tokens a second, the node's
+   device busy share over a report interval inside the four streams'
+   decode at least UTIL_MIN; (d) ``profile llm --seconds 2``: a
+   directory with ``torch.profiler``'s ``trace.json`` (a synthetic marker
+   fails) and the capture thread's start, stop and export seconds, the
+   streams decoding over the whole time the profiler ran, the
+   capture's CUDA kernels cut into launches, kernels 1-4 each with its
+   launches and device ms, no library product or attention kernel (a
+   plain version). After the stop, (b)'s gate over the whole phase: no
+   rule of the default pack fired (the node starts, stops and writes the
+   capture on a thread of its own, so ``fleet-digest-stale`` must not
+   fire), with the oldest the node's fleet digest got. (f) tokens a second
+   and TTFT p50 of phase 20 (b) over tcp without ``DORA_TRACING=1`` and,
+   under ``--observe``, with it (its third leg), beside phase 21 (b)'s,
+   traced. The kernels line gives kernels 1-4 the observed node's
+   launches over phases 21 (b)-(c) as ``observed_launches``.
 
 Phase 3 also holds the int4 forms of kernels 1-5 and 8-10 against their
 plain versions on phase 12's int4 weights at the main paths' shapes (with
@@ -321,8 +359,9 @@ dense step and its short prompts' TTFT, batch-1 prefill, ``run_loop``
 pass, VLM step and ViT times; the windows and the dense step graphed and
 eager), ``--hf-vlm`` only phase 15, ``--operators`` only phase 16,
 ``--hub`` only phase 17, ``--train`` only phase 18, ``--bench`` only
-phase 19, ``--dataflow`` only phase 20 and ``--cluster`` only phase 20 (b)
-and phase 21, all without the result line.
+phase 19, ``--dataflow`` only phase 20, ``--cluster`` only phase 20 (b)
+and phase 21, and ``--observe`` only phase 20 (b) with its traced leg,
+phase 21 and phase 22, all without the result line.
 
 Phases 4, 6, 8 and 9 build their engines through the normal factories,
 so each decode window (the dense step) is one CUDA-graph replay, and each
@@ -7012,6 +7051,17 @@ def _node_counts(what: str, path: str, need, others_ok=()) -> dict:
     return launches
 
 
+def _flow_logs(work: str, tail: int = 6) -> str:
+    """The last lines of each node's log of a dataflow run in ``work``."""
+    out = []
+    for root, _dirs, files in os.walk(os.path.join(work, "out")):
+        for name in sorted(n for n in files if n.startswith("log_")):
+            with open(os.path.join(root, name), errors="replace") as f:
+                lines = f.read().splitlines()[-tail:]
+            out.append(f"{name}: {lines}")
+    return "; ".join(out) or "no node log"
+
+
 def _flow(desc, work: str, what: str, **kw):
     """The dataflow through the port's run_dataflow; a failed node fails the
     phase, with the daemon's report."""
@@ -7173,12 +7223,15 @@ def serve_flow_desc(counts: str, prompts_json: str, sent_json: str, chunks_json:
 
 
 def serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
-                   scratch: str, layers: int, seed: int, prompts, max_new: int, served=None):
+                   scratch: str, layers: int, seed: int, prompts, max_new: int, served=None,
+                   trace_cost: bool = False):
     """Phase 20 (b): phase 4's requests through the port's serving node behind
-    the port's daemon, over shmem and over tcp: every stream held to phase
-    4's by the near-tie rule, TTFT and tokens a second beside phase 13's,
-    kernels 1-4 launched in the node, no plain call. Returns phase 4's
-    streams (served here when not given)."""
+    the port's daemon, over shmem and over tcp (and, with ``trace_cost``, over
+    tcp again with DORA_TRACING=1 in the daemon and the nodes, for phase 22
+    (f)): every stream held to phase 4's by the near-tie rule, TTFT and
+    tokens a second beside phase 13's, kernels 1-4 launched in the node, no
+    plain call. Returns phase 4's streams (served here when not given)."""
+    from dora_tpu_torch import telemetry
     from dora_tpu_torch.core.descriptor import Descriptor
 
     cfg = qwen2.Qwen2Config.qwen2_1_5b(layers=layers, max_seq=2048)
@@ -7192,8 +7245,10 @@ def serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
         print("dataflow (b): phase 4's streams served here for the reference", flush=True)
     paths = _Paths(torch, DB, LO, IM, qwen2, L, serve_prompts, params, cfg)
     rids = [f"a{i}" for i in range(len(prompts))]
-    for comm in ("shmem", "tcp"):
-        what = f"dataflow (b) {comm}"
+    legs = [("shmem", None), ("tcp", None)] + ([("tcp", "1")] if trace_cost else [])
+    for comm, tracing in legs:
+        leg = comm + (" traced" if tracing else "")
+        what = f"dataflow (b) {leg}"
         with tempfile.TemporaryDirectory(prefix="serve-flow-", dir=scratch) as work:
             files = {k: os.path.join(work, f"{k}.json")
                      for k in ("counts", "prompts", "sent", "chunks")}
@@ -7206,13 +7261,18 @@ def serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
             desc = serve_flow_desc(files["counts"], files["prompts"], files["sent"],
                                    files["chunks"], layers, seed, max_new, comm, "cuda")
             with _env(**{k: None for k in FRONT_DOOR_KNOBS},
-                      DORA_QOS_PREEMPT=None, DORA_QOS_DEPTH_BATCH=None):
-                wall = _flow(Descriptor.parse(desc), work, what)
+                      DORA_QOS_PREEMPT=None, DORA_QOS_DEPTH_BATCH=None, DORA_TRACING=tracing):
+                try:
+                    wall = _flow(Descriptor.parse(desc), work, what)
+                finally:  # the in-process daemon switched this process's recorder
+                    telemetry.TRACING.configure_from_env()
+                    telemetry.FLIGHT.configure_from_env()
             _node_counts(what, files["counts"], SPEC_OFF_KERNELS)
             with open(files["sent"]) as f:
                 sent = json.load(f)
             with open(files["chunks"]) as f:
                 chunks = json.load(f)
+            logs = _flow_logs(work)
         streams: dict = {r: [] for r in rids}
         seqs: dict = {r: [] for r in rids}
         dones: dict = dict.fromkeys(rids, 0)
@@ -7229,7 +7289,8 @@ def serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
         for rid in rids:
             if dones[rid] != 1 or seqs[rid] != list(range(len(seqs[rid]))):
                 raise Failed(f"{what}: request {rid}: {dones[rid]} done chunks, seqs "
-                             f"{seqs[rid][:8]}...")
+                             f"{seqs[rid][:8]}...; requests with a done chunk "
+                             f"{sorted(r for r in rids if dones[r])}; {logs}")
         parted = 0
         for i, rid in enumerate(rids):
             if len(streams[rid]) != max_new:
@@ -7241,7 +7302,7 @@ def serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
         span = max(t for t, *_ in chunks) - min(sent.values())
         n_tok = sum(len(s) for s in streams.values())
         ref = EARLIER.get("serve_a")
-        EARLIER.setdefault("flow_b", {})[comm] = (
+        EARLIER.setdefault("flow_b", {})[leg] = (
             f"TTFT p50 {_pct(ttft, 50):.4f} s max {max(ttft):.4f} s, {n_tok / span:.1f} tokens/s")
         print(f"{what}: {len(rids)} requests, {n_tok} tokens in {span:.3f} s from the first "
               f"send to the last chunk ({n_tok / span:.1f} tokens/s end to end); "
@@ -7256,12 +7317,12 @@ def serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
 
 def serve_dataflows(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
                     scratch: str, layers: int, seed: int, prompts, max_new: int,
-                    served=None) -> None:
+                    served=None, trace_cost: bool = False) -> None:
     """Phase 20: the port's dataflows under the port's daemon."""
     t0 = time.perf_counter()
     vlm_dataflow(torch, smi, scratch)
     serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch,
-                   layers, seed, prompts, max_new, served)
+                   layers, seed, prompts, max_new, served, trace_cost=trace_cost)
     print(f"dataflow: phase 20 in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -7270,9 +7331,10 @@ def serve_dataflows(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
 # ---------------------------------------------------------------------------
 
 #: (c): the shortest prompts, streamed this long so that they are live when
-#: the node drains them
+#: the node drains them (and, with phase 22, through its history read and
+#: its profile capture first)
 MIGRATE_STREAMS = 4
-MIGRATE_MAX_NEW = 1024
+MIGRATE_MAX_NEW = 1700
 #: (c): chunks each of those streams must have brought before ``migrate``
 MIGRATE_AFTER_CHUNKS = 4
 #: the longest a CLI command, the start of the serving node and a request wait
@@ -7280,10 +7342,12 @@ CLUSTER_CMD_S = 120
 CLUSTER_START_S = 300
 
 
-def _cluster_cli(here: str, state: str, *argv, timeout: float = CLUSTER_CMD_S):
-    """One command of the port's CLI in its own process, as a user runs it;
-    a non-zero exit fails the phase with its output."""
-    env = dict(os.environ, DORA_TPU_STATE_DIR=state,
+def _cluster_cli(here: str, state: str, *argv, timeout: float = CLUSTER_CMD_S,
+                 env: dict | None = None):
+    """One command of the port's CLI in its own process, as a user runs it
+    (``env`` added to this process's environment); a non-zero exit fails the
+    phase with its output."""
+    env = dict(os.environ, **(env or {}), DORA_TPU_STATE_DIR=state,
                PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-m", "dora_tpu_torch.cli", *argv], cwd=here,
                           env=env, capture_output=True, text=True, timeout=timeout)
@@ -7301,12 +7365,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def llm_flow_desc(counts: str, gateway_port: int, layers: int, seed: int, dev: str) -> dict:
+def llm_flow_desc(counts: str, gateway_port: int, layers: int, seed: int, dev: str,
+                  alerts: dict | None = None) -> dict:
     """dora_tpu_torch/examples/llm-server.yml with phase 20 (b)'s serving node:
     the gateway (concurrent) on machine A, ``llm_server --random-config
     qwen2_1_5b`` (phase 4's weights, phase 13's engine) on B under
-    tools/counted.py; streams up to MIGRATE_MAX_NEW tokens."""
-    return {"nodes": [
+    tools/counted.py; streams up to MIGRATE_MAX_NEW tokens; ``alerts`` its
+    ``alerts:`` block."""
+    return {**({"alerts": alerts} if alerts else {}), "nodes": [
         {"id": "api", "path": "module:dora_tpu_torch.nodehub.openai_server",
          "outputs": ["text"], "inputs": {"response": {"source": "llm/response",
                                                       "queue_size": 4096}},
@@ -7431,10 +7497,517 @@ def _cluster_logs(work: str, state: str) -> None:
         print(f"cluster: {os.path.relpath(path, work)}:\n{tail}", file=sys.stderr, flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the observability planes, on phase 21's cluster
+# ---------------------------------------------------------------------------
+
+#: the history ring's cadence on the cluster's daemons (DORA_METRICS_HISTORY_S)
+OBSERVE_HISTORY_S = 1.0
+#: the daemons' flight-recorder slots: every message of (b) is a few events
+#: on each daemon, which must all stay in the ring until the trace is read
+OBSERVE_RING = 65536
+#: the rule (b) must see fire while the streams decode and resolve after
+OBSERVE_RULE = {"name": "serving-busy", "kind": "rate", "selector": "srv:*:decode_tokens",
+                "op": ">", "threshold": 10, "window_s": 2, "severity": "info"}
+OBSERVE_INSTANCE = "srv:llm:decode_tokens"
+#: how long after the streams the rule may take to resolve (its window, the
+#: node's report and the sampler's tick)
+ALERT_RESOLVE_S = 15.0
+#: (a): the ring's decode-token rate over the streams' window, against the
+#: HTTP client's tokens a second
+HISTORY_RATE_TOL = 0.15
+#: (c): the dev_compute spans' sum over the streams' window, against the
+#: node's device_compute_ns over it
+DEV_COMPUTE_TOL = 0.10
+#: (a): the busy share is read from the first sample of the ring taken this
+#: long after the four streams were seen decoding: the node reports once a
+#: second over the second before, and the ring holds its last report, so
+#: the report interval such a sample holds lies inside the decode
+UTIL_AFTER_S = 2.5
+#: (a): how long ``top`` is asked again for such a sample
+UTIL_WAIT_S = 8.0
+#: (a): the least busy share of that interval: half of phase 4's graphed
+#: K = 8 window (0.90 of its untraced wall, PERF.md PR 24), since the node
+#: also emits and polls between windows
+UTIL_MIN = 0.45
+#: (d): the capture's seconds, and a short request sent this long after the
+#: command, so that its prefill (kernel 4) runs inside the capture
+PROFILE_S = 2.0
+PROFILE_PREFILL_AFTER_S = 1.0
+PROFILE_PREFILL_NEW = 8
+#: (d): each of kernels 1-4 by the CUDA kernel that only it launches on the
+#: main path (its launches open with rmsnorm_rows, which starts a segment):
+#: the SwiGLU of kernel 1 (fused, or split over K), kernel 2's reduction,
+#: the combine of the paged sweep that folds each decode row's own key
+#: (kernel 3) or not (kernel 4)
+PROFILE_MARKERS = (
+    ("mlp_step", lambda base: base.startswith(("gateup_swiglu", "silu_mul"))),
+    ("lm_head_argmax", lambda base: base.startswith("head_reduce")),
+    ("attention_paged_batch_step",
+     lambda base: base.startswith("sweep_combine<") and base.endswith("true>")),
+    ("attention_paged_chunk_step",
+     lambda base: base.startswith("sweep_combine<") and base.endswith("false>")),
+)
+#: a library product or attention kernel: what the plain versions launch
+LIBRARY_KERNEL = ("gemm", "gemv", "cutlass", "cublas", "xmma", "flash", "fmha", "attention",
+                  "softmax")
+
+
+def _our_kernel_names(here: str) -> set[str]:
+    """The ``__global__`` functions of the port's CUDA sources."""
+    import glob
+    import re
+
+    names = set()
+    for path in glob.glob(os.path.join(here, "dora_tpu_torch", "csrc", "*.c*")):
+        with open(path) as f:
+            names |= set(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", f.read()))
+    return names
+
+
+def profile_kernels(trace_path: str, ours: set[str]) -> tuple[dict, dict]:
+    """The CUDA kernel events of a ``torch.profiler`` Chrome trace, in stream
+    order, cut into wrapper launches (each port kernel opens with
+    ``rmsnorm_rows``) and each launch named by PROFILE_MARKERS: kernel ->
+    [launches, device ms]; and the other kernels by name -> [count, ms]."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("cat") == "kernel" and "dur" in e]
+    events.sort(key=lambda e: e["ts"])
+    per: dict = {name: [0, 0.0] for name, _ in PROFILE_MARKERS}
+    others: dict = {}
+    segment: list = []
+
+    def close():
+        for name, is_marker in PROFILE_MARKERS:
+            if any(is_marker(base) for base, _ in segment):
+                per[name][0] += 1
+                per[name][1] += sum(us for _, us in segment) / 1e3
+                break
+        segment.clear()
+
+    for e in events:
+        base = e["name"].split("(")[0].replace("void ", "").strip()
+        short = base.split("<")[0].strip()
+        if short not in ours:
+            entry = others.setdefault(short, [0, 0.0])
+            entry[0] += 1
+            entry[1] += e["dur"] / 1e3
+            continue
+        if short == "rmsnorm_rows" and segment:
+            close()
+        segment.append((base, e["dur"]))
+    close()
+    return per, others
+
+
+class Observer:
+    """Phase 22: the observability planes on phase 21's cluster, through the
+    port's CLI as a user runs it (``top``, ``alerts``, ``metrics``,
+    ``trace``, ``profile``) and the coordinator's Prometheus endpoint."""
+
+    def __init__(self, here: str, state: str, work: str, smi: str):
+        self.here, self.state, self.work, self.smi = here, state, work, smi
+        self.prom_port = _free_port()
+        self.sink = os.path.join(work, "alerts.jsonl")
+        #: a monotonic time plus this is the wall clock (the daemons' stamps)
+        self.wall_of = time.time() - time.monotonic()
+        self.polls: list = []
+        #: moments of the phase on the monotonic clock, named for finish()
+        self.marks: dict[str, float] = {}
+
+    def cluster_env(self) -> dict:
+        """The settings ``up`` gives the coordinator and the daemons."""
+        return {"DORA_PROM_PORT": str(self.prom_port), "DORA_TRACING": "1",
+                "DORA_METRICS_HISTORY_S": str(OBSERVE_HISTORY_S), "DORA_ALERT_SINK": "jsonl",
+                "DORA_ALERT_SINK_FILE": self.sink,
+                "DORA_FLIGHT_RECORDER_SIZE": str(OBSERVE_RING),
+                "DORA_PROFILE_DIR": os.path.join(self.work, "profiles")}
+
+    def _cli(self, *argv) -> str:
+        return _cluster_cli(self.here, self.state, *argv)
+
+    def _serving(self) -> dict:
+        metrics = json.loads(self._cli("metrics", "--name", "serve", "--json"))
+        return (metrics.get("serving") or {}).get("llm", {})
+
+    def _alert(self) -> tuple[str, int, dict]:
+        """The phase's rule as ``alerts --json`` shows it: state, incidents,
+        the whole status."""
+        status = json.loads(self._cli("alerts", "--name", "serve", "--json"))
+        inst = ((status.get("rules") or {}).get(OBSERVE_RULE["name"], {})
+                .get("instances") or {}).get(OBSERVE_INSTANCE, {})
+        state = inst.get("state", "absent")
+        self.polls.append((time.monotonic(), state))
+        return state, int(inst.get("incidents", 0)), status
+
+    def before_streams(self) -> None:
+        """After (b)'s warmup: the node's next report, then its device-plane
+        counter, the start of (c)'s comparison."""
+        time.sleep(1.2)
+        self.dev_before = self._serving().get("device_compute_ns") or 0
+
+    def during_streams(self, threads) -> None:
+        """``alerts --json`` over and over while (b)'s streams run."""
+        while any(th.is_alive() for th in threads):
+            self._alert()
+        for th in threads:
+            th.join(CLUSTER_START_S)
+
+    def after_streams(self, streams) -> None:
+        """(b) the rule's resolution and its sink, (e) the scrape, (c) the
+        trace; kept for (a): the streams' window."""
+        t0 = min(st.sent for st in streams)
+        t1 = max(st.deltas[-1][0] for st in streams)
+        self.window = (t0, t1)
+        self.marks.update({"(b)'s streams sent": t0, "(b)'s last delta": t1})
+        self.n_tok = sum(len(st.tokens) for st in streams)
+        self.n_requests = len(streams) + 1  # and the warmup
+        deadline = time.monotonic() + ALERT_RESOLVE_S
+        while True:
+            state, incidents, status = self._alert()
+            if state == "ok" and incidents >= 1:
+                break
+            if time.monotonic() > deadline:
+                raise Failed(f"phase 22 (b): {OBSERVE_RULE['name']} is {state!r} with "
+                             f"{incidents} incidents {ALERT_RESOLVE_S} s after the streams")
+            time.sleep(0.2)
+        firing_polls = [t for t, st in self.polls if st == "firing"]
+        if not firing_polls:
+            raise Failed(f"phase 22 (b): `alerts --json` never showed {OBSERVE_RULE['name']} "
+                         f"firing ({len(self.polls)} polls: {[st for _, st in self.polls]})")
+        with open(self.sink) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        mine = [r["phase"] for r in records if r["rule"] == OBSERVE_RULE["name"]]
+        if mine.count("firing") != 1 or mine.count("resolved") != 1:
+            raise Failed(f"phase 22 (b): the JSONL sink holds {mine} for "
+                         f"{OBSERVE_RULE['name']}, not one firing and one resolved")
+        fired = next(r for r in records if r["rule"] == OBSERVE_RULE["name"]
+                     and r["phase"] == "firing")
+        w0, w1 = (t + self.wall_of for t in self.window)
+        if not w0 <= fired["unix_s"] <= w1:
+            raise Failed(f"phase 22 (b): {OBSERVE_RULE['name']} fired at "
+                         f"{fired['unix_s'] - w0:+.3f} s of streams that ran {w1 - w0:.3f} s")
+        pack = sorted(({r["rule"] for r in records if r["phase"] == "firing"}
+                       | set(status.get("firing_total") or {})) - {OBSERVE_RULE["name"]})
+        if pack:
+            raise Failed(f"phase 22 (b): default-pack rules fired: {pack}")
+        resolved = next(r for r in records if r["rule"] == OBSERVE_RULE["name"]
+                        and r["phase"] == "resolved")
+        print(f"phase 22 (b): {OBSERVE_RULE['name']} ({OBSERVE_RULE['kind']} of "
+              f"{OBSERVE_RULE['selector']} {OBSERVE_RULE['op']} {OBSERVE_RULE['threshold']}/s "
+              f"over {OBSERVE_RULE['window_s']} s) firing {fired['unix_s'] - w0:.3f} s into "
+              f"streams of {w1 - w0:.3f} s (value {fired['value']}), resolved "
+              f"{resolved['unix_s'] - w1:.3f} s after the last delta; `alerts --json` polled "
+              f"{len(self.polls)} times, firing in {len(firing_polls)}; the JSONL sink: "
+              f"{len(records)} records, {mine}, others "
+              f"{[(r['rule'], r['phase']) for r in records if r['rule'] != OBSERVE_RULE['name']]}; "
+              f"no default-pack rule fired [{self.smi}]",
+              flush=True)
+        self.scrape()
+        self.trace()
+        self.first_capture()
+
+    def scrape(self) -> None:
+        """(e) ``GET /metrics`` on the coordinator."""
+        import re
+        import urllib.request
+
+        from dora_tpu_torch import prom
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.prom_port}/metrics",
+                                    timeout=30) as r:
+            ctype, text = r.headers.get("Content-Type"), r.read().decode()
+        problems = prom.validate_exposition(text)
+        if problems:
+            raise Failed(f"phase 22 (e): the exposition has {len(problems)} findings: "
+                         f"{problems[:5]}")
+        m = re.search(r'^dora_serving_requests_total\{dataflow="serve",node="llm"\} (\S+)$',
+                      text, re.M)
+        got = float(m.group(1)) if m else None
+        if got != self.n_requests:
+            raise Failed(f"phase 22 (e): dora_serving_requests_total is {got}, and phase 21 "
+                         f"sent {self.n_requests} requests")
+        families = {line.split()[2] for line in text.splitlines() if line.startswith("# TYPE")}
+        print(f"phase 22 (e): GET /metrics on port {self.prom_port} ({ctype}): "
+              f"{len(text.splitlines())} lines, {len(families)} families, no finding; "
+              f"dora_serving_requests_total{{node='llm'}} {got:g} = the requests sent",
+              flush=True)
+
+    def trace(self) -> None:
+        """(c) ``trace --out``: the Chrome trace's validity, the message spans
+        on both machines, one request chain on the engine track for each of
+        (b)'s requests, and the dev_compute spans against the node's device
+        plane over the streams' window."""
+        from dora_tpu_torch import tracing
+
+        path = os.path.join(self.work, "trace.json")
+        t = time.perf_counter()
+        self._cli("trace", "--name", "serve", "--out", path)
+        t_trace = time.perf_counter() - t
+        with open(path) as f:
+            trace = json.load(f)
+        problems = tracing.validate_chrome_trace(trace)
+        if problems:
+            raise Failed(f"phase 22 (c): the trace has {len(problems)} findings: {problems[:5]}")
+        events = trace["traceEvents"]
+        tracks = {e["pid"]: e["args"]["name"] for e in events
+                  if e["ph"] == "M" and e["name"] == "process_name"}
+        spans: dict = {}
+        for e in events:
+            if e["ph"] == "X":
+                spans.setdefault(tracks[e["pid"]].split("/")[0], set()).add(e["name"].split()[0])
+        for machine in ("A", "B"):
+            missing = {"send", "route", "deliver", "recv"} - spans.get(machine, set())
+            if missing:
+                raise Failed(f"phase 22 (c): no {sorted(missing)} span on machine {machine}'s "
+                             f"tracks ({sorted(spans.get(machine, ()))})")
+        llm = [pid for pid, name in tracks.items() if name == "B/llm"]
+        engine = [e for e in events if e["ph"] == "X" and e["pid"] in llm
+                  and e.get("cat") == "serving"]
+        chains: dict = {}
+        for e in engine:
+            tid = (e.get("args") or {}).get("trace_id")
+            if tid:
+                chains.setdefault(tid, []).append(e)
+        links = ("queued", "admitted", "prefill_chunk", "decode_window", "finish")
+        full = {}
+        for tid, chain in chains.items():
+            chain.sort(key=lambda e: e["ts"])
+            kinds = [e["name"].split()[0] for e in chain]
+            if set(links) <= set(kinds):
+                first = [kinds.index(k) for k in links]
+                if first != sorted(first) or kinds[-1] != "finish":
+                    raise Failed(f"phase 22 (c): request chain {tid} runs {kinds}")
+                full[tid] = chain
+        if len(full) != self.n_requests - 1:
+            raise Failed(f"phase 22 (c): {len(full)} queued -> admitted -> prefill_chunk -> "
+                         f"decode_window -> finish chains on the node's engine track, for "
+                         f"{self.n_requests - 1} requests ({len(chains)} trace ids there)")
+        start = min(c[0]["ts"] for c in full.values())
+        end = max(c[-1]["ts"] + c[-1]["dur"] for c in full.values())
+        dev = [e for e in engine if e["name"].startswith("dev_compute")
+               and start - 5e4 <= e["ts"] and e["ts"] + e["dur"] <= end + 5e4]
+        span_ms = sum(e["dur"] for e in dev) / 1e3
+        node_ms = ((self._serving().get("device_compute_ns") or 0) - self.dev_before) / 1e6
+        truncated = [e["name"] for e in events if e["name"].startswith("trace truncated")]
+        print(f"phase 22 (c): `trace --out` in {t_trace:.2f} s: {len(events)} events on "
+              f"{len(tracks)} tracks, no finding; send/route/deliver/recv on A and B; "
+              f"{len(full)} request chains on B/llm's engine track; {len(dev)} dev_compute "
+              f"spans {span_ms:.1f} ms over the streams against the node's device_compute_ns "
+              f"{node_ms:.1f} ms ({(span_ms - node_ms) / max(node_ms, 1e-9) * 100:+.2f} %); "
+              f"dropped events: {truncated or 0} [{self.smi}]", flush=True)
+        if node_ms <= 0 or abs(span_ms - node_ms) > DEV_COMPUTE_TOL * node_ms:
+            raise Failed(f"phase 22 (c): dev_compute spans sum {span_ms:.1f} ms, the node's "
+                         f"device plane {node_ms:.1f} ms over the streams' window")
+
+    def live(self, streams, gateway: int, prompt) -> None:
+        """(a) ``top --once --json`` and (d) ``profile llm`` while the four
+        streams of (c) decode (and ``prompt`` is prefilled, for kernel 4)."""
+        t_live = time.monotonic()
+        after_ns = (t_live + UTIL_AFTER_S + self.wall_of) * 1e9
+        busy_key = "srv:llm:device_busy_fraction"
+        while True:
+            top = json.loads(self._cli("top", "--name", "serve", "--once", "--json"))
+            inside = [s for s in top.get("samples") or []
+                      if s["t_ns"] >= after_ns and busy_key in s["gauges"]]
+            if inside:
+                break
+            if time.monotonic() > t_live + UTIL_WAIT_S:
+                raise Failed(f"phase 22 (a): no sample of {busy_key} in the ring "
+                             f"{UTIL_AFTER_S} s after the four streams decoded, "
+                             f"{UTIL_WAIT_S} s on")
+            time.sleep(0.3)
+        util = inside[0]["gauges"][busy_key]
+        at = inside[0]["t_ns"] / 1e9 - self.wall_of - t_live
+        util_now = (top.get("util") or {}).get("llm", {}).get("device_busy_fraction")
+        interval = top.get("interval_s") or OBSERVE_HISTORY_S
+        w0, w1 = ((t + self.wall_of) * 1e9 for t in self.window)
+        samples = top.get("samples") or []
+        cover = []
+        for machine in ("A", "B"):
+            ts = sorted(s["t_ns"] for s in samples if s["machine"] == machine
+                        and w0 - 1.5e9 * interval <= s["t_ns"] <= w1 + 1.5e9 * interval)
+            gaps = [(b - a) / 1e9 for a, b in zip(ts, ts[1:])]
+            if (not ts or ts[0] > w0 + 1.5e9 * interval or ts[-1] < w1 - 1.5e9 * interval
+                    or max(gaps, default=0) > 1.5 * interval):
+                raise Failed(f"phase 22 (a): machine {machine}'s history over the streams' "
+                             f"{(w1 - w0) / 1e9:.2f} s window: {len(ts)} samples, gaps "
+                             f"{[round(g, 3) for g in gaps]}")
+            cover.append(f"{machine} {len(ts)} samples (largest gap {max(gaps, default=0):.3f} s)")
+        tok = sum(s["counters"].get(OBSERVE_INSTANCE, 0) for s in samples
+                  if w0 < s["t_ns"] <= w1 + 2.5e9 * interval)
+        span = (w1 - w0) / 1e9
+        ring_rate, client_rate = tok / span, self.n_tok / span
+        print(f"phase 22 (a): `top --once --json`: machines {top.get('machines')}, "
+              f"{len(samples)} samples; over the streams' window {'; '.join(cover)}; the ring's "
+              f"decode tokens {tok:g} over {span:.3f} s = {ring_rate:.1f} tokens/s against the "
+              f"HTTP client's {client_rate:.1f} ({(ring_rate / client_rate - 1) * 100:+.2f} %); "
+              f"rates.tokens_per_s {top.get('rates', {}).get('tokens_per_s')}; busy share "
+              f"{util} over the report interval before {at:.2f} s into the four streams' "
+              f"decode (the util block now {util_now}) [{self.smi}]",
+              flush=True)
+        if abs(ring_rate - client_rate) > HISTORY_RATE_TOL * client_rate:
+            raise Failed(f"phase 22 (a): the ring's {ring_rate:.1f} decode tokens/s against the "
+                         f"client's {client_rate:.1f}")
+        if util is None or not UTIL_MIN <= util <= 1 or util_now is None:
+            raise Failed(f"phase 22 (a): the device busy share over a report interval of the "
+                         f"four streams' decode is {util} (at least {UTIL_MIN}); the util "
+                         f"block's {util_now}")
+        self.profile(streams, gateway, prompt)
+
+    def _capture(self, out: str, what: str) -> tuple[str, str, dict]:
+        """The artifact ``profile`` printed: a directory with the Chrome trace
+        and the capture thread's step timings (a synthetic marker fails)."""
+        artifact = out.strip().splitlines()[-1]
+        trace_path = os.path.join(artifact, "trace.json")
+        timings_path = os.path.join(artifact, "capture.json")
+        if not os.path.isdir(artifact) or not os.path.isfile(trace_path):
+            reason = ""
+            if os.path.isfile(artifact):
+                with open(artifact) as f:
+                    reason = f.read()[:500]
+            raise Failed(f"phase 22 (d): {what} is {artifact!r}, not a directory with a "
+                         f"torch.profiler trace.json {reason}")
+        if not os.path.isfile(timings_path):
+            raise Failed(f"phase 22 (d): no capture.json beside {what}'s trace in {artifact}")
+        with open(timings_path) as f:
+            return artifact, trace_path, json.load(f)
+
+    def _mark(self, what: str, steps: dict) -> None:
+        """The moments of a capture, on the monotonic clock, for finish()."""
+        started = steps["started_unix"] - self.wall_of
+        stopped = steps["stopped_unix"] - self.wall_of
+        self.marks[f"{what}'s profiler started"] = started
+        self.marks[f"{what}'s profiler stopped"] = stopped
+        self.marks[f"{what} exported"] = stopped + steps.get("stop_s", 0) + steps.get(
+            "export_s", 0)
+
+    @staticmethod
+    def _steps(steps: dict) -> str:
+        return (f"the node's capture thread: start {steps['start_s']:.3f} s, stop "
+                f"{steps.get('stop_s', 0):.3f} s, export {steps.get('export_s', 0):.3f} s, "
+                f"profiling {steps['stopped_unix'] - steps['started_unix']:.3f} s "
+                f"({'+'.join(steps['options'])})")
+
+    def first_capture(self) -> None:
+        """(d), first: the node process's first capture, with the node idle
+        after (b): it pays the profiler's one-time set-up (Kineto's and
+        CUPTI's) on the capture thread, and must still answer within the
+        coordinator's wait."""
+        t = time.monotonic()
+        self.marks["the first capture asked"] = t
+        out = self._cli("profile", "llm", "--name", "serve", "--seconds", str(PROFILE_S))
+        t_reply = time.monotonic() - t
+        artifact, trace_path, steps = self._capture(out, "the first capture")
+        self._mark("the first capture", steps)
+        print(f"phase 22 (d): the node's first capture, idle: `profile llm --seconds "
+              f"{PROFILE_S:g}` answered in {t_reply:.2f} s with {artifact} "
+              f"({os.path.getsize(trace_path) / 1e6:.2f} MB trace.json); "
+              f"{self._steps(steps)} [{self.smi}]", flush=True)
+
+    def profile(self, streams, gateway: int, prompt) -> None:
+        """(d) a ``torch.profiler`` capture of the node while the streams
+        decode and one more request is prefilled: kernels 1-4 under their
+        CUDA names, no plain version; the streams decoded over the whole
+        time the profiler ran."""
+        import threading
+
+        reply: dict = {}
+
+        def ask():
+            try:
+                reply["out"] = self._cli("profile", "llm", "--name", "serve", "--seconds",
+                                         str(PROFILE_S))
+            except Exception as e:  # noqa: BLE001 (raised below, in this thread)
+                reply["error"] = e
+
+        t = time.monotonic()
+        self.marks["the second capture asked"] = t
+        asker = threading.Thread(target=ask, daemon=True)
+        asker.start()
+        time.sleep(PROFILE_PREFILL_AFTER_S)
+        extra, extra_threads = _streams(gateway, [prompt], PROFILE_PREFILL_NEW)
+        for th in extra_threads + [asker]:
+            th.join(CLUSTER_CMD_S)
+        t_reply = time.monotonic() - t
+        if "error" in reply:
+            raise reply["error"]
+        if extra[0].error or len(extra[0].tokens) != PROFILE_PREFILL_NEW:
+            raise Failed(f"phase 22 (d): the request sent during the capture ended "
+                         f"{extra[0].error or extra[0].finish} with {extra[0].tokens}")
+        artifact, trace_path, steps = self._capture(reply["out"], "the capture")
+        self._mark("the second capture", steps)
+        t0, t1 = (steps[k] - self.wall_of for k in ("started_unix", "stopped_unix"))
+        short = [i for i, st in enumerate(streams)
+                 if not st.deltas or st.deltas[0][0] > t0 or st.deltas[-1][0] < t1]
+        if short:
+            raise Failed(f"phase 22 (d): streams {short} did not decode over the "
+                         f"{t1 - t0:.3f} s the profiler ran ({self._steps(steps)})")
+        t2 = t1 + steps["stop_s"] + steps["export_s"]
+        # the four streams' longest wait for a delta: before the capture,
+        # while the profiler ran, and while it stopped and exported
+        stalls = [max((b[0] - a[0] for st in streams for a, b in zip(st.deltas, st.deltas[1:])
+                       if lo <= b[0] and a[0] <= hi), default=0.0)
+                  for lo, hi in ((t - 2.0, t), (t0, t1), (t1, t2))]
+        per, others = profile_kernels(trace_path, _our_kernel_names(self.here))
+        lib = {n: c for n, c in others.items() if any(w in n.lower() for w in LIBRARY_KERNEL)}
+        top_others = sorted(others.items(), key=lambda kv: -kv[1][1])[:6]
+        print(f"phase 22 (d): `profile llm --seconds {PROFILE_S:g}` answered in {t_reply:.2f} s "
+              f"with {artifact} ({os.path.getsize(trace_path) / 1e6:.1f} MB trace.json); "
+              f"{self._steps(steps)}; the four streams' longest wait for a delta "
+              f"{stalls[0]:.3f} s in the 2 s before the command, {stalls[1]:.3f} s while the "
+              f"profiler ran, {stalls[2]:.3f} s while it stopped and exported; "
+              + "; ".join(f"{name} {n} launches {ms:.2f} device ms" for name, (n, ms)
+                          in per.items())
+              + f"; other kernels: {[(n, c, round(ms, 2)) for n, (c, ms) in top_others]} "
+              f"[{self.smi}]", flush=True)
+        missing = [name for name, (n, _) in per.items() if not n]
+        if missing:
+            raise Failed(f"phase 22 (d): no launch of {missing} in the capture")
+        if lib:
+            raise Failed(f"phase 22 (d): library kernels in the capture (a plain version ran): "
+                         f"{lib}")
+
+    def finish(self, rate_21: str) -> None:
+        """After the stop: (b)'s gate over the whole phase, no rule of the
+        default pack fired (the JSONL sink, and the longest the node's fleet
+        digest went unpublished); (f) the cost of tracing: phase 20 (b) over
+        tcp without DORA_TRACING=1 and, with ``--observe``, with it (the
+        same node and requests, this run), and phase 21 (b) with it."""
+        with open(self.sink) as f:
+            pack = sorted({r["rule"] for r in map(json.loads, filter(str.strip, f))
+                           if r["phase"] == "firing"} - {OBSERVE_RULE["name"]})
+        top = json.loads(self._cli("top", "--name", "serve", "--once", "--json"))
+        ages = sorted((s["gauges"]["fleet:llm:digest_age_s"], s["t_ns"] / 1e9 - self.wall_of)
+                      for s in top["samples"] if "fleet:llm:digest_age_s" in s["gauges"])
+        age, when = ages[-1] if ages else (None, None)
+        where = "no sample"
+        if when is not None:
+            before = [(t, m) for m, t in self.marks.items() if t <= when]
+            where = (f"{when - max(before)[0]:.2f} s after {max(before)[1]}" if before
+                     else "before (b)'s streams")
+        print(f"phase 22 (b)-(d): default-pack rules that fired over the phase: "
+              f"{pack or 'none'}; the node's fleet digest at most {age} s old in the ring, "
+              f"{where} [{self.smi}]", flush=True)
+        if pack:
+            raise Failed(f"phase 22 (b): default-pack rules fired: {pack} (the node's fleet "
+                         f"digest at most {age} s old)")
+        earlier = EARLIER.get("flow_b", {})
+        print(f"phase 22 (f): tracing off / on, phase 20 (b) tcp: "
+              f"{earlier.get('tcp', 'not run')} / "
+              f"{earlier.get('tcp traced', 'not run (--observe)')}; "
+              f"phase 21 (b) through the gateway with DORA_TRACING=1: {rate_21} [{self.smi}]",
+              flush=True)
+
+
 def serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str, scratch: str,
                   here: str, layers: int, seed: int, prompts, max_new: int, served,
-                  dev: str = "cuda") -> None:
-    """Phase 21: the port's cluster tier, from ``up`` to HTTP, on one card."""
+                  dev: str = "cuda", observe: bool = False) -> dict:
+    """Phase 21: the port's cluster tier, from ``up`` to HTTP, on one card;
+    with ``observe``, phase 22 on the same cluster (an ``Observer``). Returns
+    the serving node's launches over (b) and (c)."""
     from dora_tpu_torch.cli.control import ControlConnection
     from dora_tpu_torch.message import coordinator as cm
 
@@ -7445,11 +8018,13 @@ def serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str, scratch:
     paths = _Paths(torch, DB, LO, IM, qwen2, L, serve_prompts, params, cfg)
     with tempfile.TemporaryDirectory(prefix="cluster-", dir=scratch) as work:
         state = os.path.join(work, "state")
+        obs = Observer(here, state, work, smi) if observe else None
         try:
             # (a) two machines on this host, then the two-machine example
             t = time.perf_counter()
             for machine in ("A", "B"):
-                _cluster_cli(here, state, "up", "--machine-id", machine)
+                _cluster_cli(here, state, "up", "--machine-id", machine,
+                             env=obs.cluster_env() if obs else None)
             with ControlConnection() as c:
                 machines = c.request(cm.ConnectedMachines()).machines
             if machines != ["A", "B"]:
@@ -7480,7 +8055,8 @@ def serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str, scratch:
             gateway = _free_port()
             flow = os.path.join(work, "llm-server.yml")
             with open(flow, "w") as f:
-                yaml.safe_dump(llm_flow_desc(counts, gateway, layers, seed, dev), f)
+                yaml.safe_dump(llm_flow_desc(counts, gateway, layers, seed, dev,
+                                             {"rules": [OBSERVE_RULE]} if obs else None), f)
             t = time.perf_counter()
             serve_uuid = _cluster_cli(here, state, "start", flow, "--name", "serve").strip()
             listed = _cluster_cli(here, state, "list")
@@ -7493,7 +8069,11 @@ def serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str, scratch:
             if warm[0].error or warm[0].finish != "length" or len(warm[0].tokens) != 1:
                 raise Failed(f"cluster (b): the warmup request ended {warm[0].error or warm[0].finish}"
                              f" with {warm[0].tokens}")
+            if obs:
+                obs.before_streams()
             streams, threads = _streams(gateway, prompts, max_new)
+            if obs:
+                obs.during_streams(threads)
             for th in threads:
                 th.join(CLUSTER_START_S)
             parted = 0
@@ -7507,6 +8087,8 @@ def serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str, scratch:
             span = max(st.deltas[-1][0] for st in streams) - min(st.sent for st in streams)
             n_tok = sum(len(st.tokens) for st in streams)
             earlier = EARLIER.get("flow_b", {})
+            rate_21 = (f"TTFT p50 {_pct(ttft, 50):.4f} s max {max(ttft):.4f} s, "
+                       f"{n_tok / span:.1f} tokens/s")
             print(f"cluster (b): {len(streams)} streamed requests through the gateway on A to "
                   f"the node on B, {n_tok} tokens in {span:.3f} s from the first send to the last "
                   f"delta ({n_tok / span:.1f} tokens/s at the HTTP client); "
@@ -7515,6 +8097,9 @@ def serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str, scratch:
                   f"phase 20 (b) this run: shmem {earlier.get('shmem', 'not run')}, tcp "
                   f"{earlier.get('tcp', 'not run')}; `start` to the gateway's first answer "
                   f"{t_start:.1f} s (node start and weights included) [{smi}]", flush=True)
+
+            if obs:
+                obs.after_streams(streams)
 
             # (c) migrate while streams are live
             handoff = os.path.join(work, "handoff")
@@ -7526,6 +8111,8 @@ def serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str, scratch:
                     raise Failed(f"cluster (c): streams before migrate: "
                                  f"{[(len(st.deltas), st.error) for st in live]}")
                 time.sleep(0.01)
+            if obs:
+                obs.live(live, gateway, prompts[order[-1]])
             t = time.perf_counter()
             out = _cluster_cli(here, state, "migrate", "llm", "--handoff-dir", handoff,
                                "--name", "serve")
@@ -7570,7 +8157,9 @@ def serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str, scratch:
             print(f"cluster (c): `metrics` before stop: llm/response {link.get('msgs')} messages "
                   f"(sent on B, arrived on A), serving requests {serving.get('requests')} "
                   f"migrated_out {serving.get('migrated_out')}", flush=True)
-            _node_counts("cluster (b)-(c)", counts, SPEC_OFF_KERNELS)
+            launches = _node_counts("cluster (b)-(c)", counts, SPEC_OFF_KERNELS)
+            if obs:
+                obs.finish(rate_21)
         except Failed:
             _cluster_logs(work, state)
             raise
@@ -7587,7 +8176,9 @@ def serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str, scratch:
     del paths, params
     if dev == "cuda":
         torch.cuda.empty_cache()
-    print(f"cluster: phase 21 in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"cluster: phase 21{' and 22' if observe else ''} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -7623,6 +8214,10 @@ def main(argv=None) -> int:
     ap.add_argument("--cluster", action="store_true",
                     help="build, then only phase 20 (b) and phase 21: the serving dataflow under "
                          "the port's daemon, then the cluster tier from `up` to HTTP (prints no "
+                         "result line)")
+    ap.add_argument("--observe", action="store_true",
+                    help="build, then only phase 20 (b) (with its traced leg), phase 21 and "
+                         "phase 22: the observability planes on phase 21's cluster (prints no "
                          "result line)")
     ap.add_argument("--paths", action="store_true",
                     help="build, then only phases 4, 6, 9 and 10, phase 12's main path and the "
@@ -7719,12 +8314,14 @@ def main(argv=None) -> int:
             serve_dataflows(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch,
                             args.layers, args.seed, prompts, args.max_new)
             return 0
-        if args.cluster:
+        if args.cluster or args.observe:
             del params, params4
             served = serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch,
-                                    args.layers, args.seed, prompts, args.max_new)
+                                    args.layers, args.seed, prompts, args.max_new,
+                                    trace_cost=args.observe)
             serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch, here,
-                          args.layers, args.seed, prompts, args.max_new, served)
+                          args.layers, args.seed, prompts, args.max_new, served,
+                          observe=args.observe)
             return 0
         if args.paths:  # phases 4, 6, 9, 10 and 12's main path and the VLM's generate alone
             _, _, slice_times = serve_slice(torch, DB, LO, qwen2, serve_prompts, params, cfg,
@@ -7854,8 +8451,11 @@ def main(argv=None) -> int:
         serve_bench(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, here)
         serve_dataflows(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch, args.layers,
                         args.seed, prompts, args.max_new, served)
-        serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch, here,
-                      args.layers, args.seed, prompts, args.max_new, served)
+        observed = serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch,
+                                 here, args.layers, args.seed, prompts, args.max_new, served,
+                                 observe=True)
+        for n in SPEC_OFF_KERNELS:  # the node that phase 22 observes, in its own process
+            by_name[n]["observed_launches"] = observed[n]
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

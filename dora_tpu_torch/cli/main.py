@@ -1,18 +1,23 @@
 """The port's CLI (dora_tpu/cli/main.py, its cluster and local commands).
 
-Local: ``check`` validates a dataflow YAML; ``run`` (or ``daemon
---run-dataflow``) runs it to completion under the port's daemon in this
-process, every node on this machine, and exits non-zero when a node failed.
+Local: ``check`` validates a dataflow YAML and lints its alert rules
+(``analysis.alertcheck``); ``run`` (or ``daemon --run-dataflow``) runs it to
+completion under the port's daemon in this process, every node on this
+machine, and exits non-zero when a node failed.
 
 Cluster: ``up`` starts a coordinator and a daemon as detached processes
 (``python -m dora_tpu_torch.cli coordinator`` / ``daemon``, their pid and log
 files under ``DORA_TPU_STATE_DIR``, default ``/tmp/dora-tpu``) on the default
 ports; ``coordinator`` and ``daemon --coordinator-addr --machine-id`` start
 one of them in the foreground. ``start [--name] [--attach]``, ``stop``,
-``list``, ``logs``, ``metrics`` (the merged snapshot as JSON), ``migrate``
-and ``destroy`` talk to the coordinator's control port
-(``--coordinator-addr``, default ``127.0.0.1:6012``). A JAX coordinator
-answers them as the port's does: the control wire is the same.
+``list``, ``logs``, ``migrate`` and ``destroy`` talk to the coordinator's
+control port (``--coordinator-addr``, default ``127.0.0.1:6012``), and so do
+the observability views: ``metrics [--watch] [--json]`` (the merged snapshot
+as a table, rates from the history ring), ``top [--once] [--json]`` (the
+dashboard over the history ring), ``alerts``, ``fleet``, ``trace [--out]
+[--check]`` (the merged timeline as a Chrome trace) and ``profile NODE
+[--seconds] [--stop]`` (a device profile capture of a serving node). A JAX
+coordinator answers them as the port's does: the control wire is the same.
 """
 
 from __future__ import annotations
@@ -64,6 +69,10 @@ def _control(args):
 
 
 def cmd_check(args) -> int:
+    import json
+
+    from dora_tpu_torch.analysis import errors
+    from dora_tpu_torch.analysis.alertcheck import check_alerts
     from dora_tpu_torch.core.descriptor import Descriptor
     from dora_tpu_torch.core.validate import ValidationError
 
@@ -73,8 +82,15 @@ def cmd_check(args) -> int:
     except (ValidationError, ValueError) as e:
         print(f"{args.dataflow}: {e}", file=sys.stderr)
         return 1
-    print(f"{args.dataflow}: OK ({len(descriptor.nodes)} nodes)")
-    return 0
+    findings = check_alerts(descriptor)
+    if args.json:
+        print(json.dumps([f.to_dict() for f in findings], indent=2))
+    else:
+        for f in findings:
+            print(f.render())
+        if not errors(findings):
+            print(f"{args.dataflow}: OK ({len(descriptor.nodes)} nodes)")
+    return 1 if errors(findings) else 0
 
 
 def cmd_run(args) -> int:
@@ -297,18 +313,183 @@ def cmd_list(args) -> int:
     return 0
 
 
+def _query(c, request):
+    """One control request; an ``Error`` reply goes to stderr and gives None."""
+    try:
+        return c.request(request)
+    except RuntimeError as e:
+        print(e, file=sys.stderr)
+        return None
+
+
+def _refresh(text: str) -> None:
+    print("\x1b[2J\x1b[H" + text, end="", flush=True)
+
+
 def cmd_metrics(args) -> int:
-    """A dataflow's merged metrics snapshot (per-link counters, latency
-    percentiles, serving and fleet blocks), as JSON."""
+    """A dataflow's merged metrics (per-link counters, latency percentiles,
+    serving, fleet, SLO and alert blocks) as a table; ``--watch`` refreshes
+    it with rates from the daemons' history rings (from two snapshots over
+    the measured interval where the history is off); ``--json`` prints the
+    snapshot."""
+    import json
+
+    from dora_tpu_torch.cli.metrics_view import render_metrics
+
+    with _control(args) as c:
+        prev = None
+        history: list[dict] = []
+        last_at: float | None = None
+        while True:
+            reply = _query(c, cm.QueryMetrics(dataflow_uuid=args.uuid, name=args.name))
+            now = time.monotonic()
+            if reply is None:
+                return 1
+            if args.json:
+                print(json.dumps(reply.metrics, indent=2, sort_keys=True))
+                return 0
+            rates = None
+            if args.watch:
+                hist = _query(c, cm.QueryMetricsHistory(dataflow_uuid=args.uuid, name=args.name))
+                if hist is not None and hist.history.get("samples"):
+                    rates = hist.history.get("rates")
+            elapsed = now - last_at if last_at is not None else None
+            text = render_metrics(
+                reply.dataflow_uuid, reply.metrics, prev=prev,
+                interval=(elapsed if elapsed is not None else args.interval) if args.watch
+                else None,
+                history=history if args.watch else None, rates=rates)
+            if not args.watch:
+                print(text, end="")
+                return 0
+            _refresh(text)
+            prev = reply.metrics
+            history.append(reply.metrics)
+            del history[:-48]  # the sparklines' window
+            last_at = now
+            time.sleep(args.interval)
+
+
+def cmd_top(args) -> int:
+    """The cluster dashboard: nodes, queues, serving, recovery, pages, SLO
+    burn, fleet and alerts, with rates and sparklines from the history ring;
+    ``--json`` prints the merged history with the fleet block."""
+    import json
+
+    from dora_tpu_torch.cli.top_view import render_top
+
+    with _control(args) as c:
+        while True:
+            reply = _query(c, cm.QueryMetrics(dataflow_uuid=args.uuid, name=args.name))
+            if reply is None:
+                return 1
+            hist = _query(c, cm.QueryMetricsHistory(dataflow_uuid=args.uuid, name=args.name))
+            if hist is None:
+                return 1
+            if args.json:
+                payload = dict(hist.history)
+                payload["fleet"] = reply.metrics.get("fleet", {})
+                print(json.dumps(payload, indent=2, sort_keys=True))
+                return 0
+            text = render_top(reply.dataflow_uuid, reply.metrics, hist.history)
+            if args.once:
+                print(text, end="")
+                return 0
+            _refresh(text)
+            time.sleep(args.interval)
+
+
+def _view(args, request, field_name: str, render) -> int:
+    """A merged view as a table, refreshed with ``--watch``, or as JSON."""
     import json
 
     with _control(args) as c:
-        try:
-            reply = c.request(cm.QueryMetrics(dataflow_uuid=args.uuid, name=args.name))
-        except RuntimeError as e:
-            print(e, file=sys.stderr)
+        while True:
+            reply = _query(c, request)
+            if reply is None:
+                return 1
+            value = getattr(reply, field_name)
+            if args.json:
+                print(json.dumps(value, indent=2, sort_keys=True))
+                return 0
+            text = render(reply.dataflow_uuid, value)
+            if not args.watch:
+                print(text, end="")
+                return 0
+            _refresh(text)
+            time.sleep(args.interval)
+
+
+def cmd_alerts(args) -> int:
+    """The dataflow's alert status: each rule's instances, pending and firing
+    first, merged over the machines (archived dataflows too)."""
+    from dora_tpu_torch.cli.alerts_view import render_alerts
+
+    return _view(args, cm.QueryAlerts(dataflow_uuid=args.uuid, name=args.name), "alerts",
+                 render_alerts)
+
+
+def cmd_fleet(args) -> int:
+    """Every serving replica's latest engine-state digest (prefix cache,
+    free-stream capacity, occupancy, config fingerprint), merged over the
+    machines."""
+    from dora_tpu_torch.cli.fleet_view import render_fleet
+
+    return _view(args, cm.QueryFleet(dataflow_uuid=args.uuid, name=args.name), "fleet",
+                 render_fleet)
+
+
+def cmd_trace(args) -> int:
+    """The dataflow's merged, clock-aligned timeline as Chrome trace JSON
+    (for Perfetto or chrome://tracing); ``--check`` runs the exporter's
+    offline self-check instead."""
+    import json
+
+    from dora_tpu_torch.tracing import self_check, to_chrome_trace, validate_chrome_trace
+
+    if args.check:
+        problems = self_check()
+        for problem in problems:
+            print(problem, file=sys.stderr)
+        if problems:
             return 1
-    print(json.dumps(reply.metrics, indent=2, sort_keys=True))
+        print("trace export schema: OK")
+        return 0
+    with _control(args) as c:
+        reply = _query(c, cm.QueryTrace(dataflow_uuid=args.uuid, name=args.name))
+    if reply is None:
+        return 1
+    trace = to_chrome_trace(reply.trace)
+    for problem in validate_chrome_trace(trace):
+        print(f"warning: {problem}", file=sys.stderr)
+    text = json.dumps(trace)
+    if args.out:
+        Path(args.out).write_text(text)
+        print(f"wrote {args.out} ({len(trace['traceEvents'])} events) — load in Perfetto "
+              "(ui.perfetto.dev) or chrome://tracing")
+    else:
+        print(text)
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """A device profile capture (``torch.profiler``) on a serving node for
+    ``--seconds``, or ``--stop`` the one running; prints the artifact: the
+    capture's directory, or a JSON marker that says why there is none."""
+    with _control(args) as c:
+        if args.stop:
+            request = cm.StopProfile(dataflow_uuid=args.uuid, node_id=args.node, name=args.name)
+        else:
+            request = cm.StartProfile(dataflow_uuid=args.uuid, node_id=args.node,
+                                      seconds=args.seconds, name=args.name)
+        reply = _query(c, request)
+    if reply is None:
+        return 1
+    if reply.error:
+        print(f"profile on {reply.node_id} of {reply.uuid} failed: {reply.error}",
+              file=sys.stderr)
+        return 1
+    print(reply.artifact)
     return 0
 
 
@@ -362,8 +543,9 @@ def build_parser() -> argparse.ArgumentParser:
                        help="node channel transport; default: the YAML's "
                             "communication.local, else tcp")
 
-    p = sub.add_parser("check", help="validate a dataflow YAML")
+    p = sub.add_parser("check", help="validate a dataflow YAML and lint its alert rules")
     p.add_argument("dataflow")
+    p.add_argument("--json", action="store_true", help="the findings as JSON")
     p.set_defaults(fn=cmd_check)
 
     p = sub.add_parser("run", help="run one dataflow to completion on this machine")
@@ -404,13 +586,65 @@ def build_parser() -> argparse.ArgumentParser:
     coordinator_addr(p)
     p.set_defaults(fn=cmd_list)
 
-    p = sub.add_parser("metrics", help="print a dataflow's merged metrics snapshot as JSON")
-    p.add_argument("--uuid", default=None)
-    p.add_argument("--name", default=None)
-    p.add_argument("--json", action="store_true",
-                   help="the raw merged snapshot (the only form the port prints)")
+    def target(p):
+        p.add_argument("--uuid", default=None)
+        p.add_argument("--name", default=None)
+
+    def refresh(p, watch: str | None = "--watch"):
+        if watch:
+            p.add_argument(watch, action="store_true", help="refresh top-style")
+        p.add_argument("--interval", type=float, default=2.0, help="refresh seconds")
+
+    p = sub.add_parser("metrics", help="show a dataflow's routing, latency and serving metrics")
+    target(p)
+    refresh(p)
+    p.add_argument("--json", action="store_true", help="print the raw merged snapshot")
     coordinator_addr(p)
     p.set_defaults(fn=cmd_metrics)
+
+    p = sub.add_parser("top", help="live cluster dashboard (rates and sparklines from the "
+                                   "history ring)")
+    target(p)
+    refresh(p, watch=None)
+    p.add_argument("--once", action="store_true", help="render one frame and exit")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw merged history instead of the dashboard")
+    coordinator_addr(p)
+    p.set_defaults(fn=cmd_top)
+
+    p = sub.add_parser("alerts", help="show a dataflow's alert status (pending / firing per "
+                                      "rule)")
+    target(p)
+    refresh(p)
+    p.add_argument("--json", action="store_true", help="print the raw merged status")
+    coordinator_addr(p)
+    p.set_defaults(fn=cmd_alerts)
+
+    p = sub.add_parser("fleet", help="show every serving replica's engine-state digest")
+    target(p)
+    refresh(p)
+    p.add_argument("--json", action="store_true", help="print the raw merged view")
+    coordinator_addr(p)
+    p.set_defaults(fn=cmd_fleet)
+
+    p = sub.add_parser("trace", help="export a dataflow's message timeline (Chrome trace / "
+                                     "Perfetto)")
+    target(p)
+    p.add_argument("--out", default=None, help="write the JSON here (default: stdout)")
+    p.add_argument("--check", action="store_true",
+                   help="offline schema self-check of the trace exporter (no cluster)")
+    coordinator_addr(p)
+    p.set_defaults(fn=cmd_trace)
+
+    p = sub.add_parser("profile", help="capture a device profile on a serving node")
+    p.add_argument("node", help="node id of the serving engine to profile")
+    p.add_argument("--seconds", type=float, default=5.0,
+                   help="capture duration before the node stops and reports (default 5)")
+    p.add_argument("--stop", action="store_true",
+                   help="stop an in-flight capture early and fetch its artifact")
+    target(p)
+    coordinator_addr(p)
+    p.set_defaults(fn=cmd_profile)
 
     p = sub.add_parser("migrate", help="drain a serving node's live streams into a handoff dir")
     p.add_argument("node", help="node id of the serving engine to drain")

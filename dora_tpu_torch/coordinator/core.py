@@ -4,18 +4,20 @@ Two listeners: daemons register on one (``daemon_port``), the CLI sends its
 control requests on the other (``control_port``). A heartbeat goes to every
 daemon each 3 s; a daemon silent for 15 s is warned of, for 30 s dropped.
 
-Not here: the metrics history, alert, trace and profile planes and the
-Prometheus scrape (``DORA_PROM_PORT``) with its OTLP push
-(``init_cluster_metrics_export``). Their control requests
-(``QueryMetricsHistory``, ``QueryAlerts``, ``QueryTrace``,
-``StartProfile`` / ``StopProfile``) are answered at once with ``Error``,
-whose message names the missing plane (``cm.MISSING_PLANES``).
+The per-dataflow queries (metrics, the metrics history, alerts, fleet
+digests, the trace) fan out to every machine of the dataflow and merge the
+parts; a profile request goes to the node's machine and waits for the
+node's capture. With ``DORA_PROM_PORT`` set (0: a free port, ``prom_port``)
+the coordinator serves every dataflow's merged metrics at ``GET /metrics``
+in the Prometheus text format (``prom.py``). Not here: the JAX package's
+OTLP push (``init_cluster_metrics_export``).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -25,6 +27,7 @@ from dora_tpu_torch.clock import HLC
 from dora_tpu_torch.core.descriptor import CustomNode, Descriptor, new_dataflow_uuid
 from dora_tpu_torch.fleet import merge_fleet_snapshots
 from dora_tpu_torch.message import coordinator as cm
+from dora_tpu_torch.alerts import merge_alert_status
 from dora_tpu_torch.message.common import (
     DataflowResult,
     LogMessage,
@@ -33,6 +36,8 @@ from dora_tpu_torch.message.common import (
 )
 from dora_tpu_torch.message.serde import decode_timestamped, encode_timestamped
 from dora_tpu_torch.metrics import merge_snapshots
+from dora_tpu_torch.metrics_history import merge_history_snapshots
+from dora_tpu_torch.tracing import merge_trace_snapshots
 from dora_tpu_torch.transport.framing import (
     ConnectionClosed,
     recv_frame_async,
@@ -46,6 +51,30 @@ HEARTBEAT_WARN_S = 15.0
 HEARTBEAT_DROP_S = 30.0
 #: how long close() waits for the listeners' connections to end
 CLOSE_WAIT_S = 5.0
+#: how long a query waits for every machine's part
+QUERY_WAIT_S = 10.0
+#: how long the scrape waits for one dataflow's metrics (an archived one's
+#: daemons may be gone)
+SCRAPE_WAIT_S = 3.0
+#: a profile start waits for the capture's seconds and this, as JAX's
+#: does (the node's report cadence and its capture thread's stop and
+#: export); a stop this
+PROFILE_REPLY_S = 15.0
+PROFILE_STOP_S = 10.0
+
+#: the per-dataflow queries: request class, the reply class from a daemon
+#: and its payload field, and the merge of the machines' parts
+_QUERIES = {
+    "metrics": (cm.MetricsRequest, cm.MetricsReplyFromDaemon, "metrics", merge_snapshots),
+    "history": (cm.MetricsHistoryRequest, cm.MetricsHistoryReplyFromDaemon, "history",
+                merge_history_snapshots),
+    "alerts": (cm.AlertsRequest, cm.AlertsReplyFromDaemon, "alerts",
+               lambda parts: merge_alert_status([p for p in parts if p])),
+    "fleet": (cm.FleetRequest, cm.FleetReplyFromDaemon, "fleet", merge_fleet_snapshots),
+    "trace": (cm.TraceRequest, cm.TraceReplyFromDaemon, "trace", merge_trace_snapshots),
+}
+_QUERY_OF_REPLY = {reply: (plane, field_name)
+                   for plane, (_req, reply, field_name, _merge) in _QUERIES.items()}
 
 
 @dataclass
@@ -99,10 +128,16 @@ class Coordinator:
         self._destroyed = asyncio.Event()
         #: correlation for log-file requests: (dataflow_id, node_id) -> future
         self._log_waiters: dict[tuple[str, str], asyncio.Future] = {}
-        #: correlation for metrics and fleet requests: (dataflow_id, machine)
-        #: -> future
-        self._metrics_waiters: dict[tuple[str, str], asyncio.Future] = {}
-        self._fleet_waiters: dict[tuple[str, str], asyncio.Future] = {}
+        #: correlation for the per-dataflow queries: plane ->
+        #: (dataflow_id, machine) -> future
+        self._query_waiters: dict[str, dict[tuple[str, str], asyncio.Future]] = {
+            plane: {} for plane in _QUERIES}
+        #: correlation for profile captures: (dataflow_id, node_id) -> future
+        #: of (artifact, error)
+        self._profile_waiters: dict[tuple[str, str], asyncio.Future] = {}
+        #: the Prometheus endpoint (DORA_PROM_PORT)
+        self._prom_server: asyncio.AbstractServer | None = None
+        self.prom_port: int | None = None
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -118,6 +153,11 @@ class Coordinator:
         )
         self.control_port = self._control_server.sockets[0].getsockname()[1]
         self._heartbeat_task = asyncio.create_task(self._heartbeat_loop())
+        prom_port = os.environ.get("DORA_PROM_PORT", "")
+        if prom_port != "":
+            self._prom_server = await asyncio.start_server(
+                self._handle_prom_scrape, host="0.0.0.0", port=int(prom_port))
+            self.prom_port = self._prom_server.sockets[0].getsockname()[1]
 
     async def close(self) -> None:
         if self._heartbeat_task is not None:
@@ -132,7 +172,7 @@ class Coordinator:
                 writer.close()
             except Exception:
                 pass
-        for server in (self._daemon_server, self._control_server):
+        for server in (self._daemon_server, self._control_server, self._prom_server):
             if server is not None:
                 server.close()
                 try:
@@ -247,19 +287,15 @@ class Coordinator:
             self._publish_log(event.log)
         elif isinstance(event, cm.LogsReplyFromDaemon):
             self.deliver_logs_reply(event.dataflow_id, event.node_id, event.logs)
-        elif isinstance(event, cm.MetricsReplyFromDaemon):
-            fut = self._metrics_waiters.get((event.dataflow_id, event.machine_id))
+        elif type(event) in _QUERY_OF_REPLY:
+            plane, field_name = _QUERY_OF_REPLY[type(event)]
+            fut = self._query_waiters[plane].get((event.dataflow_id, event.machine_id))
             if fut is not None and not fut.done():
-                fut.set_result(event.metrics)
-        elif isinstance(event, cm.FleetReplyFromDaemon):
-            fut = self._fleet_waiters.get(
-                (event.dataflow_id, event.machine_id)
-            )
+                fut.set_result(getattr(event, field_name))
+        elif isinstance(event, cm.ProfileReplyFromDaemon):
+            fut = self._profile_waiters.get((event.dataflow_id, event.node_id))
             if fut is not None and not fut.done():
-                fut.set_result(event.fleet)
-        elif isinstance(event, (cm.TraceReplyFromDaemon, cm.MetricsHistoryReplyFromDaemon,
-                                cm.AlertsReplyFromDaemon, cm.ProfileReplyFromDaemon)):
-            pass  # never asked for: the port has none of these planes
+                fut.set_result((event.artifact, event.error))
         else:
             logger.warning("unexpected daemon event %s", type(event).__name__)
 
@@ -443,59 +479,122 @@ class Coordinator:
         if fut is not None and not fut.done():
             fut.set_result(logs)
 
-    async def request_metrics(self, uuid: str) -> dict:
-        """Fan a MetricsRequest out to every involved daemon and merge the
-        per-machine snapshots (``metrics.merge_snapshots``). Works for
-        archived dataflows too: daemons keep a finished dataflow's state."""
+    async def query(self, uuid: str, plane: str) -> dict:
+        """Fan one plane's request out to every machine of the dataflow and
+        merge their parts (``_QUERIES``: the metrics, the history rings on one
+        clock-aligned timeline, the alert statuses, the fleet digests, the
+        trace). Works for archived dataflows too: daemons keep a finished
+        dataflow's state, its ring, alert engine and trace buffers included.
+        A machine that does not answer in QUERY_WAIT_S is left out."""
+        request, _reply, _field, merge = _QUERIES[plane]
         df = self.running.get(uuid)
         if df is None and uuid in self.archived:
             df = self.archived[uuid][0]
         if df is None:
             raise KeyError(f"unknown dataflow {uuid!r}")
+        waiters = self._query_waiters[plane]
         loop = asyncio.get_running_loop()
         futs = []
         for machine in sorted(df.machines):
             fut = loop.create_future()
-            self._metrics_waiters[(uuid, machine)] = fut
-            self._daemon_send(machine, cm.MetricsRequest(dataflow_id=uuid))
+            waiters[(uuid, machine)] = fut
+            self._daemon_send(machine, request(dataflow_id=uuid))
             futs.append(fut)
         try:
-            snapshots = await asyncio.wait_for(
-                asyncio.gather(*futs, return_exceptions=True), timeout=10
-            )
+            parts = await asyncio.wait_for(asyncio.gather(*futs, return_exceptions=True),
+                                           timeout=QUERY_WAIT_S)
         finally:
             for machine in df.machines:
-                self._metrics_waiters.pop((uuid, machine), None)
-        return merge_snapshots([s for s in snapshots if isinstance(s, dict)])
+                waiters.pop((uuid, machine), None)
+        return merge([p for p in parts if isinstance(p, dict)])
 
-    async def request_fleet(self, uuid: str) -> dict:
-        """Fan a FleetRequest out to every involved daemon and merge
-        the per-machine digest snapshots into one clock-aligned fleet
-        view (``fleet.merge_fleet_snapshots``). Works for archived
-        dataflows too: daemons keep a finished dataflow's state, its last
-        digests included."""
+    async def profile(self, request) -> Any:
+        """StartProfile / StopProfile: a PROFILE event to the node's machine,
+        then the node's capture (``ProfileReplyFromDaemon``). A start waits
+        for the capture's seconds and PROFILE_REPLY_S (the node reports at
+        its report cadence), a stop PROFILE_STOP_S."""
+        target = request.dataflow_uuid or request.name
+        if target is not None:
+            uuid = self.resolve_name(target)
+        else:
+            uuid = self._query_target(None, None)
+            if isinstance(uuid, cm.Error):
+                return uuid
         df = self.running.get(uuid)
-        if df is None and uuid in self.archived:
-            df = self.archived[uuid][0]
         if df is None:
-            raise KeyError(f"unknown dataflow {uuid!r}")
-        loop = asyncio.get_running_loop()
-        futs = []
-        for machine in sorted(df.machines):
-            fut = loop.create_future()
-            self._fleet_waiters[(uuid, machine)] = fut
-            self._daemon_send(machine, cm.FleetRequest(dataflow_id=uuid))
-            futs.append(fut)
+            return cm.Error(message=f"dataflow {uuid!r} is not running")
+        node = df.descriptor.node(request.node_id)
+        machine = node.deploy.machine or next(iter(df.machines))
+        starting = isinstance(request, cm.StartProfile)
+        seconds = request.seconds if starting else 0.0
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._profile_waiters[(df.uuid, request.node_id)] = fut
+        self._daemon_send(machine, cm.ProfileDataflowNode(
+            dataflow_id=df.uuid, node_id=request.node_id,
+            action="start" if starting else "stop", seconds=seconds))
+        timeout = seconds + PROFILE_REPLY_S if starting else PROFILE_STOP_S
         try:
-            snapshots = await asyncio.wait_for(
-                asyncio.gather(*futs, return_exceptions=True), timeout=10
-            )
+            artifact, error = await asyncio.wait_for(fut, timeout=timeout)
+        except asyncio.TimeoutError:
+            return cm.Error(message=f"profile reply from {request.node_id!r} "
+                                    f"timed out after {timeout:.0f}s")
         finally:
-            for machine in df.machines:
-                self._fleet_waiters.pop((uuid, machine), None)
-        return merge_fleet_snapshots(
-            [s for s in snapshots if isinstance(s, dict)]
-        )
+            self._profile_waiters.pop((df.uuid, request.node_id), None)
+        return cm.ProfileReply(uuid=df.uuid, node_id=request.node_id, artifact=artifact,
+                               error=error)
+
+    # ------------------------------------------------------------------
+    # Prometheus exposition (DORA_PROM_PORT)
+    # ------------------------------------------------------------------
+
+    async def prom_snapshots(self) -> dict[str, dict]:
+        """The merged metrics of every running and archived dataflow, keyed
+        by its exposition label (its name, else its uuid). A dataflow whose
+        daemons do not answer in SCRAPE_WAIT_S is left out."""
+        targets = [(u, df.name) for u, df in self.running.items()]
+        targets += [(u, df.name) for u, (df, _) in self.archived.items()
+                    if u not in self.running]
+        out: dict[str, dict] = {}
+        for uuid, name in targets:
+            label = name or uuid
+            if label in out:
+                label = uuid  # a name used by two runs: the uuid tells them apart
+            try:
+                out[label] = await asyncio.wait_for(self.query(uuid, "metrics"),
+                                                    timeout=SCRAPE_WAIT_S)
+            except Exception:
+                continue
+        return out
+
+    async def _handle_prom_scrape(self, reader, writer) -> None:
+        """``GET /metrics`` (or ``/``) over HTTP/1.1, one response a
+        connection; anything else is a 404."""
+        from dora_tpu_torch import prom
+
+        try:
+            request_line = await reader.readline()
+            while True:  # the headers
+                line = await reader.readline()
+                if line in (b"\r\n", b"\n", b""):
+                    break
+            parts = request_line.decode("latin1").split()
+            path = parts[1].split("?")[0] if len(parts) > 1 else "/"
+            if len(parts) > 1 and parts[0] == "GET" and path in ("/metrics", "/"):
+                payload = prom.render_exposition(await self.prom_snapshots()).encode()
+                status, ctype = "200 OK", prom.CONTENT_TYPE
+            else:
+                payload, status, ctype = b"not found\n", "404 Not Found", "text/plain"
+            writer.write(f"HTTP/1.1 {status}\r\nContent-Type: {ctype}\r\n"
+                         f"Content-Length: {len(payload)}\r\nConnection: close\r\n\r\n"
+                         .encode() + payload)
+            await writer.drain()
+        except Exception:
+            logger.exception("prometheus scrape failed")
+        finally:
+            try:
+                writer.close()
+            except Exception:
+                pass
 
     # ------------------------------------------------------------------
     # log streaming
@@ -640,25 +739,19 @@ class Coordinator:
                 node_id=request.node_id,
                 handoff_dir=request.handoff_dir,
             )
-        missing = _MISSING_PLANE_OF.get(type(request))
-        if missing is not None:
-            return cm.Error(message=cm.MISSING_PLANES[missing])
+        if isinstance(request, (cm.StartProfile, cm.StopProfile)):
+            return await self.profile(request)
         if isinstance(request, cm.Logs):
             uuid = self.resolve_name(request.uuid or request.name)
             logs = await self.request_logs(uuid, request.node)
             return cm.LogsReply(logs=logs)
-        if isinstance(request, cm.QueryMetrics):
+        query = _CONTROL_QUERIES.get(type(request))
+        if query is not None:
+            plane, reply = query
             uuid = self._query_target(request.dataflow_uuid, request.name)
             if isinstance(uuid, cm.Error):
                 return uuid
-            metrics = await self.request_metrics(uuid)
-            return cm.MetricsReply(dataflow_uuid=uuid, metrics=metrics)
-        if isinstance(request, cm.QueryFleet):
-            uuid = self._query_target(request.dataflow_uuid, request.name)
-            if isinstance(uuid, cm.Error):
-                return uuid
-            fleet = await self.request_fleet(uuid)
-            return cm.FleetReply(dataflow_uuid=uuid, fleet=fleet)
+            return reply(uuid, await self.query(uuid, plane))
         if isinstance(request, cm.ListDataflows):
             entries = [
                 cm.DataflowListEntry(uuid=u, name=df.name)
@@ -686,13 +779,14 @@ class Coordinator:
         return cm.Error(message=f"unknown control request {type(request).__name__}")
 
 
-#: the control requests of the planes the port does not have
-_MISSING_PLANE_OF = {
-    cm.QueryTrace: "trace",
-    cm.QueryMetricsHistory: "history",
-    cm.QueryAlerts: "alerts",
-    cm.StartProfile: "profile",
-    cm.StopProfile: "profile",
+#: the CLI's per-dataflow queries: request class -> (plane, its reply)
+_CONTROL_QUERIES = {
+    cm.QueryMetrics: ("metrics", lambda u, v: cm.MetricsReply(dataflow_uuid=u, metrics=v)),
+    cm.QueryMetricsHistory: ("history",
+                             lambda u, v: cm.MetricsHistoryReply(dataflow_uuid=u, history=v)),
+    cm.QueryAlerts: ("alerts", lambda u, v: cm.AlertsReply(dataflow_uuid=u, alerts=v)),
+    cm.QueryFleet: ("fleet", lambda u, v: cm.FleetReply(dataflow_uuid=u, fleet=v)),
+    cm.QueryTrace: ("trace", lambda u, v: cm.TraceReply(dataflow_uuid=u, trace=v)),
 }
 
 

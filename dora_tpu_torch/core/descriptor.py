@@ -471,9 +471,7 @@ class Descriptor:
 
     nodes: tuple[ResolvedNode, ...]
     communication: CommunicationConfig = field(default_factory=CommunicationConfig)
-    #: the ``alerts:`` block as written; the port has no alert plane, so
-    #: :meth:`check` refuses a descriptor that carries one
-    alerts: Mapping[str, Any] | None = None
+    alerts: "AlertsPolicy | None" = None
     raw: dict[str, Any] = field(default_factory=dict, compare=False)
 
     # -- constructors -------------------------------------------------------
@@ -505,10 +503,17 @@ class Descriptor:
         dupes = {i for i in ids if ids.count(i) > 1}
         if dupes:
             raise ValueError(f"duplicate node ids: {sorted(dupes)}")
+        # alerts.py pulls in the metrics and history modules, which a
+        # descriptor without an ``alerts:`` block does not need.
+        alerts = None
+        if raw.get("alerts") is not None:
+            from dora_tpu_torch.alerts import AlertsPolicy
+
+            alerts = AlertsPolicy.parse(raw.get("alerts"))
         return cls(
             nodes=nodes,
             communication=CommunicationConfig.parse(raw.get("communication")),
-            alerts=raw.get("alerts"),
+            alerts=alerts,
             raw=dict(raw),
         )
 

@@ -30,9 +30,6 @@ def check_dataflow(descriptor: Descriptor, working_dir: str | Path | None = None
     """Raise ValidationError on the first problem found."""
     working_dir = Path(working_dir) if working_dir else None
 
-    if descriptor.alerts is not None:
-        raise ValidationError(
-            "the dataflow has an 'alerts:' block, and the port has no alert plane")
     declared_outputs = descriptor.output_ids()
     node_ids = {n.id for n in descriptor.nodes}
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import asyncio
 import threading
+import time
 from typing import Awaitable, Callable
 
 from dora_tpu_torch.native import Disconnected, ShmemChannel
@@ -67,6 +68,8 @@ class ShmemConnection(NodeConnection):
     """
 
     RECV_TICK_S = 0.5
+    #: how long a send waits before it tries an occupied reply slot again
+    SEND_RETRY_S = 0.0002
 
     def __init__(self, channel: ShmemChannel):
         self.channel = channel
@@ -100,21 +103,35 @@ class ShmemConnection(NodeConnection):
         # Fast path: under request-reply discipline the requester is parked
         # in recv, so the reply slot is free — send inline (memcpy + futex
         # wake, a few µs) instead of paying an executor-thread hop. Fall
-        # back to a blocking send off-loop only if the slot is occupied
+        # back to retrying off-loop only if the slot is occupied
         # (pipelined fire-and-forget peer or stuck client).
         try:
-            if self.channel.try_send(payload):
+            if self._try_send(payload):
                 return
             loop = asyncio.get_running_loop()
-            await loop.run_in_executor(None, self.channel.send, payload)
+            await loop.run_in_executor(None, self._send_retrying, payload)
         except Disconnected:
             raise ConnectionClosed("shmem peer disconnected") from None
+
+    def _try_send(self, payload: bytes) -> bool:
+        """One non-blocking send under the close lock: an event batch can
+        come due after close() (a queue's wait ends as the node goes), and
+        its send must not touch the native handle while the deferred
+        helper frees it."""
+        with self._close_lock:
+            if self._closing or self._channel_closed:
+                raise ConnectionClosed("shmem channel closed")
+            return self.channel.try_send(payload)
+
+    def _send_retrying(self, payload: bytes) -> None:
+        while not self._try_send(payload):
+            time.sleep(self.SEND_RETRY_S)
 
     def close(self) -> None:
         """Disconnect and free the channel. The native handle is freed only
         after the pump thread exits (freeing under a blocked recv would be a
-        use-after-free); reply sends always complete before the listener
-        calls close(), so no send can race the free either."""
+        use-after-free); a send checks, under the same lock, that the
+        channel is not closing, so no send can race the free either."""
         if self._closing:
             return
         self._closing = True

@@ -4,8 +4,9 @@
 ``run_attached`` registers the daemon under its machine id, with the port
 of its inter-daemon listener, then serves the coordinator's events: spawn
 this machine's nodes of a dataflow, release or fail the start barrier
-across machines, stop, reload, migrate, and answer for logs, metrics and
-fleet digests. The daemon sends a heartbeat every 5 s and drops a
+across machines, stop, reload, migrate, profile, and answer for logs,
+metrics, the metrics history, alerts, the trace and fleet digests; a node's
+finished profile capture goes up as ``ProfileReplyFromDaemon``. The daemon sends a heartbeat every 5 s and drops a
 connection the coordinator has left silent for 20 s.
 
 A dropped connection is not fatal: the dataflows keep running and the
@@ -14,11 +15,6 @@ daemon registers again, with exponential backoff and jitter, for up to
 machine is still listed when it is back. The outbox outlives a connection:
 what was queued while disconnected (a result, log lines) goes out after the
 new registration.
-
-The port has no trace, metrics history, alert or profile plane: a JAX
-coordinator's requests for them are answered with a part that holds only
-``{"error": ...}`` naming the plane (``cm.MISSING_PLANES``), which its merges
-read as no data; a profile request with its reply's ``error``.
 """
 
 from __future__ import annotations
@@ -35,6 +31,7 @@ from dora_tpu_torch.daemon import inter_daemon
 from dora_tpu_torch.daemon.spawn import log_file_path
 from dora_tpu_torch.message import coordinator as cm
 from dora_tpu_torch.message.serde import decode_timestamped, encode_timestamped
+from dora_tpu_torch.telemetry import FLIGHT
 from dora_tpu_torch.transport.framing import (
     ConnectionClosed,
     recv_frame_async,
@@ -80,6 +77,9 @@ async def run_attached(daemon: "Daemon", coordinator_addr: str, machine_id: str,
 
     daemon.coordinator_notify = notify
     daemon.log_sink = lambda log: outbox.put_nowait(cm.DaemonLog(log=log))
+    daemon.profile_sink = lambda df_id, node_id, artifact, error: outbox.put_nowait(
+        cm.ProfileReplyFromDaemon(dataflow_id=df_id, node_id=node_id, artifact=artifact,
+                                  error=error))
     #: the sends in flight to other machines (each peer's lock keeps their order)
     sending: set[asyncio.Task] = set()
 
@@ -119,6 +119,8 @@ async def run_attached(daemon: "Daemon", coordinator_addr: str, machine_id: str,
                 return
             if not first:
                 logger.info("registered with the coordinator again")
+                if FLIGHT.enabled:
+                    FLIGHT.record("daemon_reconnect", machine_id, 0)
             first = False
             if await _serve_connection(daemon, reader, writer, outbox, machine_id):
                 return
@@ -181,20 +183,18 @@ def _reply_for(daemon: "Daemon", event, machine_id: str):
         return cm.FleetReplyFromDaemon(
             dataflow_id=event.dataflow_id, machine_id=machine_id,
             fleet=daemon.fleet_snapshot(df) if df is not None else {})
-    # the planes the port does not have: a part that names what is missing
     if isinstance(event, cm.TraceRequest):
-        return cm.TraceReplyFromDaemon(dataflow_id=event.dataflow_id, machine_id=machine_id,
-                                       trace={"error": cm.MISSING_PLANES["trace"]})
+        return cm.TraceReplyFromDaemon(
+            dataflow_id=event.dataflow_id, machine_id=machine_id,
+            trace=daemon.trace_snapshot(df) if df is not None else {})
     if isinstance(event, cm.MetricsHistoryRequest):
         return cm.MetricsHistoryReplyFromDaemon(
             dataflow_id=event.dataflow_id, machine_id=machine_id,
-            history={"error": cm.MISSING_PLANES["history"]})
+            history=daemon.history_snapshot(df) if df is not None else {})
     if isinstance(event, cm.AlertsRequest):
-        return cm.AlertsReplyFromDaemon(dataflow_id=event.dataflow_id, machine_id=machine_id,
-                                        alerts={"error": cm.MISSING_PLANES["alerts"]})
-    if isinstance(event, cm.ProfileDataflowNode):
-        return cm.ProfileReplyFromDaemon(dataflow_id=event.dataflow_id, node_id=event.node_id,
-                                         artifact="", error=cm.MISSING_PLANES["profile"])
+        return cm.AlertsReplyFromDaemon(
+            dataflow_id=event.dataflow_id, machine_id=machine_id,
+            alerts=daemon.alerts_snapshot(df) if df is not None else {})
     return None
 
 
@@ -257,6 +257,9 @@ async def _serve_connection(daemon: "Daemon", reader, writer, outbox: asyncio.Qu
             elif isinstance(event, cm.MigrateDataflowNode):
                 if df is not None:
                     daemon.migrate_node(df, event.node_id, event.handoff_dir)
+            elif isinstance(event, cm.ProfileDataflowNode):
+                if df is not None:
+                    daemon.profile_node(df, event.node_id, event.action, event.seconds)
             else:
                 logger.warning("unexpected coordinator event %s", type(event).__name__)
     except (ConnectionClosed, ConnectionError, OSError):

@@ -21,10 +21,15 @@ forwarded. :func:`run_dataflow` is the standalone mode (``python -m
 dora_tpu_torch.cli run``, or ``daemon --run-dataflow``): every node runs on
 this machine, whatever its ``deploy.machine``.
 
-Not here: peer-to-peer edges (every edge takes the daemon route), and the
-metrics history, alert, trace and profile planes (a node's reports to them
-are accepted and dropped); a node's serving snapshot and fleet digest are
-kept for ``metrics_snapshot`` and ``fleet_snapshot``.
+The observability planes, per dataflow: a node's serving snapshot and fleet
+digest are kept for ``metrics_snapshot`` and ``fleet_snapshot``; the metrics
+history ring (``metrics_history``, sampled every ``DORA_METRICS_HISTORY_S``)
+and its alert engine (``alerts``) for ``history_snapshot`` and
+``alerts_snapshot``; the nodes' ``ReportTrace`` chunks, beside this daemon's
+own flight-recorder ring (its ``t_route`` / ``t_deliver`` spans with
+``DORA_TRACING=1``), for ``trace_snapshot``; a node's ``ReportProfile`` goes
+to ``profile_sink``. Not here: peer-to-peer edges (every edge takes the
+daemon route).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from pathlib import Path
 from typing import Any, Callable
 
 from dora_tpu_torch import PROTOCOL_VERSION, fleet
+from dora_tpu_torch.alerts import AlertEngine, engine_for
 from dora_tpu_torch.clock import HLC
 from dora_tpu_torch.core.config import TimerMapping, UserMapping
 from dora_tpu_torch.core.descriptor import CustomNode, Descriptor, new_dataflow_uuid
@@ -70,7 +76,9 @@ from dora_tpu_torch.message.serde import (
     encode_timestamped,
 )
 from dora_tpu_torch.metrics import DataflowMetrics
+from dora_tpu_torch.metrics_history import MetricsHistoryRing, history_interval_s
 from dora_tpu_torch.native import ShmemChannel, ShmemRegion
+from dora_tpu_torch.telemetry import FLIGHT, OTEL_CTX_KEY, TRACING
 from dora_tpu_torch.transport.framing import ConnectionClosed
 
 logger = logging.getLogger(__name__)
@@ -85,6 +93,22 @@ SHMEM_CHANNEL_CAPACITY = 1 << 20
 
 #: the reply to a JAX node's peer-to-peer announcement
 P2P_REFUSAL = "the port's daemon routes every edge (peer-to-peer edges are not ported)"
+
+#: trace plane: buffered ReportTrace events a node, oldest dropped first
+MAX_NODE_TRACE_EVENTS = 20_000
+
+
+def _extend_trace_buffer(df, node_id: str, events: list) -> None:
+    """Append a node's ReportTrace chunk to its bounded buffer. What the cap
+    trims is counted (``node_trace_drops``) and rides the trace snapshot, so
+    a trace says how many events this second truncation point lost (the
+    ring's own wrap losses arrive as ``trace_truncated`` events)."""
+    buf = df.node_traces.setdefault(node_id, [])
+    buf.extend(events)
+    if len(buf) > MAX_NODE_TRACE_EVENTS:
+        trim = len(buf) - MAX_NODE_TRACE_EVENTS
+        df.node_trace_drops[node_id] = df.node_trace_drops.get(node_id, 0) + trim
+        del buf[:trim]
 
 
 @dataclass
@@ -166,6 +190,21 @@ class DataflowState:
     #: node id -> {"digest": dict, "recv_wall_ns": int}, its latest
     #: ReportEngineState with the time it arrived
     node_fleet: dict[str, dict] = field(default_factory=dict)
+    #: trace plane: node id -> the flight-recorder events it shipped
+    #: (ReportTrace; at most MAX_NODE_TRACE_EVENTS)
+    node_traces: dict[str, list] = field(default_factory=dict)
+    #: trace plane: node id -> events the buffer's cap trimmed
+    node_trace_drops: dict[str, int] = field(default_factory=dict)
+    #: the delta-encoded metrics history (None when DORA_METRICS_HISTORY_S
+    #: <= 0), kept after the finish so an archived run stays queryable
+    history: MetricsHistoryRing | None = None
+    #: the sampler task feeding ``history`` (cancelled at the finish)
+    history_task: asyncio.Task | None = None
+    #: the alert rules evaluated on each history sample (None when history
+    #: is off or DORA_ALERTS=0), kept after the finish like the ring
+    alerts: AlertEngine | None = None
+    #: node id -> [ERROR lines, WARN lines] of its log (``on_node_log``)
+    log_counts: dict[str, list[int]] = field(default_factory=dict)
 
     def node_machine(self, node_id: str) -> str:
         return self.descriptor.node(node_id).deploy.machine or ""
@@ -177,6 +216,9 @@ class Daemon:
     def __init__(self, local_comm: str = "tcp", machine_id: str = ""):
         self.local_comm = local_comm
         self.machine_id = machine_id
+        # the knobs may be set after this module was imported (tests, tools)
+        FLIGHT.configure_from_env()
+        TRACING.configure_from_env()
         self.clock = HLC()
         self.dataflows: dict[str, DataflowState] = {}
         self._server: asyncio.AbstractServer | None = None
@@ -191,6 +233,10 @@ class Daemon:
         self.coordinator_notify: Callable[..., Any] | None = None
         #: attached mode: every node log line as a ``LogMessage``
         self.log_sink: Callable[..., Any] | None = None
+        #: attached mode: a node's finished profile capture,
+        #: ``(dataflow_id, node_id, artifact, error)``, for the coordinator's
+        #: waiting StartProfile / StopProfile
+        self.profile_sink: Callable[..., Any] | None = None
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -222,6 +268,9 @@ class Daemon:
         for df in list(self.dataflows.values()):
             for t in df.timer_tasks:
                 t.cancel()
+            if df.history_task is not None:
+                df.history_task.cancel()
+                df.history_task = None
             # Node processes never outlive the daemon: the graceful path
             # (stop and grace kill) has run for a healthy dataflow, so what
             # is left are stragglers of an aborted one.
@@ -260,6 +309,18 @@ class Daemon:
                            local_nodes=set(local_nodes),
                            machine_listen_ports=dict(machine_listen_ports or {}))
         self.dataflows[dataflow_id] = df
+
+        # The history ring and its sampler (DORA_METRICS_HISTORY_S <= 0: off),
+        # SLO targets from the nodes' ``slo:`` blocks; the alert engine (the
+        # default pack merged under the ``alerts:`` block, sinks from
+        # DORA_ALERT_SINK) evaluates on the same tick.
+        interval = history_interval_s()
+        if interval > 0:
+            slo_targets = {str(n.id): n.slo.as_targets() for n in descriptor.nodes
+                           if n.slo is not None}
+            df.history = MetricsHistoryRing(interval_s=interval, slo_targets=slo_targets)
+            df.alerts = engine_for(descriptor.alerts, interval_s=interval)
+            df.history_task = asyncio.create_task(self._history_sampler(df))
 
         for node in descriptor.nodes:
             for output in node.outputs:
@@ -429,7 +490,14 @@ class Daemon:
             return
         if token is not None:
             df.tokens[token] = TokenState(owner=sender)
-        df.metrics.count_link(sender, output_id, metadata.type_info.len)
+        nbytes = metadata.type_info.len
+        df.metrics.count_link(sender, output_id, nbytes)
+        if FLIGHT.enabled:
+            FLIGHT.record("route", f"{sender}/{output_id}", nbytes)
+        if TRACING.active:
+            FLIGHT.record("t_route", f"{sender}/{output_id}",
+                          str(metadata.parameters.get(OTEL_CTX_KEY, "")),
+                          max(0, time.time_ns() - send_ns) if send_ns else 0)
         remote_machines: set[str] = set()
         for target in df.mappings.get(oid, ()):
             rnode = str(target.node)
@@ -482,15 +550,21 @@ class Daemon:
         if cached is None:
             oid = OutputId(NodeId(sender), DataId(fast.output_id))
             receivers = [(str(t.node), str(t.input)) for t in df.mappings.get(oid, ())]
-            cached = (oid, receivers, all(r in df.local_nodes for r, _ in receivers))
+            cached = (oid, receivers, all(r in df.local_nodes for r, _ in receivers),
+                      f"{sender}/{fast.output_id}")  # the flight label, built once
             df.route_cache[key] = cached
-        oid, receivers, all_local = cached
+        oid, receivers, all_local, label = cached
         if oid not in df.open_outputs:
             return True  # dropped, as send_out drops on a closed output
         if not all_local:
             return False
         df.metrics.count_link(sender, fast.output_id, fast.payload_len)
+        if FLIGHT.enabled:
+            FLIGHT.record("fastroute_hit", label, fast.payload_len)
         send_ns = fast.timestamp.physical_ns
+        if TRACING.active:
+            # the context parse_send_message read off the wire
+            FLIGHT.record("t_route", label, fast.ctx, max(0, time.time_ns() - send_ns))
         for rnode, input_id in receivers:
             queue = df.queues.get(rnode)
             if queue is None or input_id not in df.open_inputs.get(rnode, set()):
@@ -508,7 +582,10 @@ class Daemon:
         clocks are not comparable."""
         oid = OutputId.parse(output_id)
         data = InlineData(data=payload) if payload is not None else None
-        df.metrics.count_link(str(oid.node), str(oid.output), metadata.type_info.len)
+        nbytes = metadata.type_info.len
+        df.metrics.count_link(str(oid.node), str(oid.output), nbytes)
+        if FLIGHT.enabled:
+            FLIGHT.record("route_remote", output_id, nbytes)
         for target in df.mappings.get(oid, ()):
             rnode = str(target.node)
             if rnode not in df.local_nodes:
@@ -522,9 +599,10 @@ class Daemon:
                        send_ns=ts.physical_ns)
 
     def metrics_snapshot(self, df: DataflowState) -> dict:
-        """The dataflow's routing counters: messages and bytes a link,
+        """The dataflow's routing counters (messages and bytes a link,
         drop-oldest drops, queue depths, send-to-deliver latency, the wire
-        fast path's hits, respawns and replayed inputs."""
+        fast path's hits, respawns and replayed inputs), the nodes' serving
+        and fleet blocks, and the SLO, log, trace-drop and alert blocks."""
         depths = {f"{nid}/{i}": c for nid, q in df.queues.items()
                   for i, c in q.input_counts.items() if c}
         snap = df.metrics.snapshot(depths)
@@ -535,7 +613,87 @@ class Daemon:
             now_ns = time.time_ns()
             snap["fleet"] = {nid: fleet.fleet_gauges(e["digest"], (now_ns - e["recv_wall_ns"]) / 1e9)
                              for nid, e in df.node_fleet.items()}
+        if df.history is not None and df.history.slo_targets:
+            snap["slo"] = df.history.slo_status()
+        if df.log_counts:
+            snap["logs"] = {nid: {"errors": c[0], "warns": c[1]}
+                            for nid, c in df.log_counts.items()}
+        if df.node_trace_drops:
+            snap["trace"] = {"drops": dict(df.node_trace_drops)}
+        if df.alerts is not None:
+            snap["alerts"] = df.alerts.status()
         return snap
+
+    async def _history_sampler(self, df: DataflowState) -> None:
+        """Feed the dataflow's history ring on its cadence. A sample that
+        raises is logged and the next one is taken."""
+        interval = df.history.interval_s
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                self.sample_history(df)
+            except Exception:
+                logger.exception("history sample failed (%s)", df.id)
+
+    def sample_history(self, df: DataflowState) -> None:
+        """Take one history sample now (the sampler's tick, the final flush):
+        SLO violations and alert transitions become flight instants on this
+        daemon's trace track."""
+        if df.history is None:
+            return
+        snap = self.metrics_snapshot(df)
+        wall_ns = time.time_ns()
+        hlc_ns = self.clock.new_timestamp().physical_ns
+        for node, objective, observed, target in df.history.sample(snap, wall_ns, hlc_ns):
+            FLIGHT.record("slo_violation", f"{node}:{objective}",
+                          f"observed={observed} target={target}", None)
+        if df.alerts is not None:
+            for ev in df.alerts.evaluate_ring(df.history, wall_ns):
+                FLIGHT.record(f"alert_{ev['phase']}", f"{ev['rule']}:{ev['instance']}",
+                              f"value={ev['value']} threshold={ev['threshold']}", None)
+
+    def history_snapshot(self, df: DataflowState) -> dict:
+        """This machine's history ring, the payload of a
+        MetricsHistoryRequest's reply, with its wall and HLC clocks read back
+        to back, so that the merge (``metrics_history.merge_history_snapshots``)
+        puts every machine's samples on one axis."""
+        if df.history is None:
+            return {}
+        out = df.history.snapshot()
+        out["machine_id"] = self.machine_id
+        out["hlc_ns"] = self.clock.new_timestamp().physical_ns
+        out["wall_ns"] = time.time_ns()
+        return out
+
+    def alerts_snapshot(self, df: DataflowState) -> dict:
+        """This machine's alert status, the payload of an AlertsRequest's
+        reply (states, not samples: no clocks to align)."""
+        if df.alerts is None:
+            return {}
+        out = df.alerts.status()
+        out["machine_id"] = self.machine_id
+        return out
+
+    def trace_snapshot(self, df: DataflowState) -> dict:
+        """This machine's trace, the payload of a TraceRequest's reply: the
+        events each node shipped, this daemon's own ring (process-wide, so
+        shared by concurrent dataflows), the events the buffers' cap trimmed,
+        and the wall and HLC clocks read back to back, so that the merge
+        (``tracing.merge_trace_snapshots``) aligns every machine."""
+        processes: dict[str, list] = {nid: [list(e) for e in events]
+                                      for nid, events in df.node_traces.items()}
+        daemon_events = [list(e) for e in FLIGHT.events()]
+        if daemon_events:
+            processes["(daemon)"] = daemon_events
+        out = {
+            "machine": self.machine_id,
+            "wall_ns": time.time_ns(),
+            "hlc_ns": self.clock.new_timestamp().physical_ns,
+            "processes": processes,
+        }
+        if df.node_trace_drops:
+            out["dropped_events"] = dict(df.node_trace_drops)
+        return out
 
     def fleet_snapshot(self, df: DataflowState) -> dict:
         """This machine's fleet snapshot, the payload of a FleetRequest's
@@ -663,6 +821,8 @@ class Daemon:
             df.respawn_attempts[nid] = attempt
             df.respawning.add(nid)
             df.metrics.count_respawn(nid)
+            if FLIGHT.enabled:
+                FLIGHT.record("node_respawn", nid, attempt)
             logger.warning("node %s/%s failed (%s); respawn attempt %d", df.id, nid,
                            error or f"code {returncode}", attempt)
             asyncio.create_task(self._respawn_node(df, nid, attempt, status))
@@ -763,6 +923,8 @@ class Daemon:
             if queue is not None:
                 queue.requeue_front(entries)
             df.metrics.count_replayed(nid, len(entries))
+            if FLIGHT.enabled:
+                FLIGHT.record("replay_inputs", nid, len(entries))
             logger.info("node %s/%s: replaying %d un-acked input(s) on respawn", df.id, nid,
                         len(entries))
 
@@ -792,6 +954,14 @@ class Daemon:
         for t in df.timer_tasks:
             t.cancel()
         df.timer_tasks.clear()
+        if df.history_task is not None:
+            df.history_task.cancel()
+            df.history_task = None
+            # the final sample: the ring serves the archived run's tail
+            try:
+                self.sample_history(df)
+            except Exception:
+                logger.exception("final history sample failed (%s)", df.id)
         for queue in df.queues.values():
             queue.release_all_tokens()
             queue.close()
@@ -865,8 +1035,24 @@ class Daemon:
             queue.push(Timestamped(inner=d2n.Migrate(handoff_dir=handoff_dir),
                                    timestamp=self.clock.new_timestamp()))
 
+    def profile_node(self, df: DataflowState, node_id: str, action: str,
+                     seconds: float) -> None:
+        """Queue a PROFILE event for a serving node: ``action`` "start" a
+        capture of ``seconds``, or "stop" the one running."""
+        queue = df.queues.get(node_id)
+        if queue is not None:
+            queue.push(Timestamped(inner=d2n.Profile(action=action, seconds=seconds),
+                                   timestamp=self.clock.new_timestamp()))
+
     def on_node_log(self, df: DataflowState, node_id: str, level: str, text: str) -> None:
-        """A node's log line (stdout or stderr), to ``log_sink`` if set."""
+        """A node's log line (stdout or stderr): ERROR and WARN lines are
+        counted for the metrics (the ``log-errors`` rule reads them), and the
+        line goes to ``log_sink`` if set."""
+        if level in ("error", "warn"):
+            counts = df.log_counts.get(node_id)
+            if counts is None:
+                counts = df.log_counts[node_id] = [0, 0]
+            counts[0 if level == "error" else 1] += 1
         if self.log_sink is not None:
             self.log_sink(LogMessage(dataflow_id=df.id, level=level, message=text,
                                      node_id=node_id, machine_id=self.machine_id))
@@ -952,8 +1138,11 @@ class Daemon:
         elif isinstance(msg, n2d.ReportEngineState):
             df.node_fleet[node_id] = {"digest": fleet.digest_as_dict(msg.digest),
                                       "recv_wall_ns": time.time_ns()}
-        elif isinstance(msg, (n2d.ReportTrace, n2d.ReportProfile)):
-            pass  # the planes that read these (trace, profile) are not ported
+        elif isinstance(msg, n2d.ReportTrace):
+            _extend_trace_buffer(df, node_id, msg.events)
+        elif isinstance(msg, n2d.ReportProfile):
+            if self.profile_sink is not None:
+                self.profile_sink(df.id, node_id, msg.artifact, msg.error)
         elif isinstance(msg, n2d.P2PAnnounce):
             await self._reply(conn, d2n.ReplyResult(error=P2P_REFUSAL))
         elif isinstance(msg, n2d.CloseOutputs):
@@ -1014,6 +1203,11 @@ class Daemon:
                     if entry.send_ns and entry.input_id is not None:
                         df.metrics.observe_latency(node_id, entry.input_id,
                                                    (deliver_ns - entry.send_ns) / 1000.0)
+                        if TRACING.active:
+                            # queue wait included; no context (the wire path
+                            # never decodes metadata at delivery)
+                            FLIGHT.record("t_deliver", f"{node_id}/{entry.input_id}", None,
+                                          max(0, deliver_ns - entry.send_ns))
                     wires.append(entry.wire if entry.wire is not None else encode(entry.event))
                 await conn.send(fastroute.build_next_events_frame(
                     wires, self.clock.new_timestamp()))

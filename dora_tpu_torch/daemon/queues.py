@@ -15,6 +15,7 @@ from typing import Any, Callable
 
 from dora_tpu_torch.core.config import DEFAULT_QUEUE_SIZE
 from dora_tpu_torch.message.serde import Timestamped
+from dora_tpu_torch.telemetry import FLIGHT
 
 logger = logging.getLogger(__name__)
 
@@ -47,6 +48,14 @@ class NodeEventQueue:
     closed: bool = False  # no more events will ever arrive
     #: DataflowMetrics hook; None = unmetered (tests)
     metrics: Any = None
+    #: input id -> its "node/input" flight-recorder label, built once
+    flight_labels: dict[str, str] = field(default_factory=dict)
+
+    def _flight_label(self, input_id: str) -> str:
+        label = self.flight_labels.get(input_id)
+        if label is None:
+            label = self.flight_labels[input_id] = f"{self.node_id}/{input_id}"
+        return label
 
     def push(self, event: Timestamped | None, input_id: str | None = None,
              drop_token: str | None = None, wire: bytes | None = None,
@@ -61,6 +70,9 @@ class NodeEventQueue:
             if count >= bound:
                 self._drop_oldest(input_id)
             self.input_counts[input_id] = self.input_counts.get(input_id, 0) + 1
+            if FLIGHT.enabled:
+                FLIGHT.record("enqueue", self._flight_label(input_id),
+                              self.input_counts[input_id])
         self.entries.append(QueueEntry(event, input_id, drop_token, wire,
                                        send_ns))
         self._wake()
@@ -77,6 +89,9 @@ class NodeEventQueue:
                 # names the victim.
                 logger.debug("queue overflow: dropped oldest event of %s/%s (depth %d)",
                              self.node_id, input_id, self.input_counts[input_id])
+                if FLIGHT.enabled:
+                    FLIGHT.record("drop_oldest", self._flight_label(input_id),
+                                  self.input_counts[input_id])
                 if self.metrics is not None:
                     self.metrics.count_drop(self.node_id, input_id)
                 return

@@ -26,6 +26,8 @@ DEFAULT_DIGEST_INTERVAL_S = 2.0
 #: cached prefixes shipped per digest (bound the wire, not the tree)
 TOP_PREFIXES_ENV = "DORA_FLEET_TOP_PREFIXES"
 DEFAULT_TOP_PREFIXES = 32
+#: a digest older than STALE_FACTOR cadences carries no placement signal
+STALE_FACTOR = 3.0
 
 
 def digest_interval_s() -> float:
@@ -35,6 +37,13 @@ def digest_interval_s() -> float:
         )
     except ValueError:
         return DEFAULT_DIGEST_INTERVAL_S
+
+
+def stale_after_s(interval_s: float | None = None) -> float:
+    """Age past which a digest carries no placement signal (and the
+    default alert pack considers the exporter wedged)."""
+    base = digest_interval_s() if interval_s is None else interval_s
+    return STALE_FACTOR * base
 
 
 def digest_top_n() -> int:

@@ -3,10 +3,7 @@
 
 Each class is registered with the port's serde under the JAX class's name and
 fields, so it encodes to the same bytes: a coordinator, a daemon or a CLI of
-either package talks to those of the other. The port's coordinator answers
-the requests of the planes it does not have (trace, metrics history,
-alerts, profiles) with ``Error``; their messages are here all the same, so
-that a JAX peer's are decoded."""
+either package talks to those of the other."""
 
 from __future__ import annotations
 
@@ -249,19 +246,19 @@ class MetricsReply:
 @message
 class TraceReply:
     dataflow_uuid: str
-    trace: dict[str, Any]  # merged timeline (no trace plane in the port)
+    trace: dict[str, Any]  # merged timeline (tracing.merge_trace_snapshots)
 
 
 @message
 class MetricsHistoryReply:
     dataflow_uuid: str
-    history: dict[str, Any]  # merged series (no history plane in the port)
+    history: dict[str, Any]  # merged series (metrics_history.merge_history_snapshots)
 
 
 @message
 class AlertsReply:
     dataflow_uuid: str
-    alerts: dict[str, Any]  # merged status (no alert plane in the port)
+    alerts: dict[str, Any]  # merged status (alerts.merge_alert_status)
 
 
 @message
@@ -497,14 +494,3 @@ class InterDaemonOutput:
 class InterDaemonInputsClosed:
     dataflow_id: str
     inputs: list[str]  # "<node>/<input>"
-
-
-#: what the port's coordinator and daemon answer for the planes the port
-#: does not have, by plane: the coordinator as ``Error(message=...)``, a
-#: daemon as ``{"error": ...}`` in its per-machine part
-MISSING_PLANES = {
-    "trace": "the port has no trace plane (QueryTrace is not ported)",
-    "history": "the port has no metrics history plane (QueryMetricsHistory is not ported)",
-    "alerts": "the port has no alert plane (QueryAlerts is not ported)",
-    "profile": "the port has no profile plane (StartProfile / StopProfile are not ported)",
-}

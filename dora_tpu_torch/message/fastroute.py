@@ -5,7 +5,8 @@ its metadata and data as objects.
 * :func:`parse_send_message` shallow-parses the frame with
   ``msgpack.Unpacker``: the envelope, the output id and the sender's
   timestamp, and the byte span of the ``metadata`` and ``data`` fields
-  (skipped, never decoded).
+  (skipped, never decoded; with tracing on, the metadata's trace context is
+  read out of it).
 * :func:`build_input_event` splices that span into a ``Timestamped(Input)``
   wire image (msgpack is context-free, so the embedded value is byte-equal
   to a standalone one).
@@ -22,6 +23,7 @@ from __future__ import annotations
 import msgpack
 
 from dora_tpu_torch.clock import Timestamp
+from dora_tpu_torch.telemetry import OTEL_CTX_KEY, TRACING
 
 #: process-wide tally of fallbacks by reason (the per-dataflow hit and
 #: fallback counts are in the daemon's metrics)
@@ -68,10 +70,10 @@ def _array_header(n: int) -> bytes:
 class FastSend:
     """A shallow-parsed ``Timestamped(SendMessage)`` frame."""
 
-    __slots__ = ("output_id", "body", "timestamp", "payload_len")
+    __slots__ = ("output_id", "body", "timestamp", "payload_len", "ctx")
 
     def __init__(self, output_id: str, body: bytes, timestamp: Timestamp,
-                 payload_len: int = 0):
+                 payload_len: int = 0, ctx: str = ""):
         self.output_id = output_id
         #: wire bytes spanning ``"metadata": <...>, "data": <...>`` —
         #: exactly the tail an Input event's field map needs
@@ -79,6 +81,9 @@ class FastSend:
         self.timestamp = timestamp
         #: inline payload bytes (metrics: routed bytes per link)
         self.payload_len = payload_len
+        #: serialized trace context from metadata (tracing on only) —
+        #: the body bytes still splice through verbatim
+        self.ctx = ctx
 
 
 def parse_send_message(frame) -> FastSend | None:
@@ -108,7 +113,18 @@ def parse_send_message(frame) -> FastSend | None:
         body_start = u.tell()
         if u.unpack() != "metadata":
             return _fallback("field-order")
-        u.skip()  # metadata subtree: bytes reused verbatim, never built
+        ctx = ""
+        if TRACING.active:
+            # Trace plane: lift the context out of metadata. The consumed
+            # byte span is the one skip() would consume, so the body still
+            # splices through verbatim.
+            meta = u.unpack()
+            try:
+                ctx = meta["f"]["parameters"].get(OTEL_CTX_KEY) or ""
+            except (TypeError, KeyError, AttributeError):
+                ctx = ""
+        else:
+            u.skip()  # metadata subtree: bytes reused verbatim, never built
         if u.unpack() != "data":
             return _fallback("field-order")
         # The data value must be built (cheap: nil, or one C-level bin
@@ -137,7 +153,7 @@ def parse_send_message(frame) -> FastSend | None:
         return _fallback("parse-error")
     return FastSend(
         str(output_id), bytes(frame[body_start:body_end]), timestamp,
-        payload_len,
+        payload_len, str(ctx),
     )
 
 

@@ -457,7 +457,7 @@ def merge_snapshots(snapshots: list[dict]) -> dict:
         # for the SLO burn block — objectives attach to a node, and the
         # node's daemon evaluates them against its own history ring —
         # and the per-node log counters. Alert engines run per daemon;
-        # their statuses merge instance-wise (a JAX daemon's; the port's has no alert engine).
+        # their statuses merge instance-wise (dora_tpu_torch.alerts).
         serving.update(snap.get("serving", {}))
         slo.update(snap.get("slo", {}))
         logs.update(snap.get("logs", {}))
@@ -516,51 +516,12 @@ def merge_snapshots(snapshots: list[dict]) -> dict:
     if trace_drops:
         out["trace"] = {"drops": trace_drops}
     if alert_statuses:
-        out["alerts"] = _merge_alert_status(alert_statuses)
+        from dora_tpu_torch.alerts import merge_alert_status
+
+        out["alerts"] = merge_alert_status(alert_statuses)
     if respawns or replayed:
         out["recovery"] = {
             "respawns": respawns,
             "replayed_inputs": replayed,
         }
     return out
-
-
-def _merge_alert_status(statuses: list[dict]) -> dict:
-    """Union per-machine engine statuses into one cluster view. Alert
-    instances are node-scoped series keys, so each lives on exactly one
-    machine (the slo-block discipline); counts and ledgers sum."""
-    rules: dict[str, dict] = {}
-    firing = pending = 0
-    transitions = {"pending": 0, "firing": 0, "resolved": 0}
-    firing_total: dict[str, int] = {}
-    resolved_total: dict[str, int] = {}
-    for status in statuses:
-        if not status:
-            continue
-        firing += status.get("firing", 0)
-        pending += status.get("pending", 0)
-        for phase, n in (status.get("transitions") or {}).items():
-            transitions[phase] = transitions.get(phase, 0) + n
-        for name, n in (status.get("firing_total") or {}).items():
-            firing_total[name] = firing_total.get(name, 0) + n
-        for name, n in (status.get("resolved_total") or {}).items():
-            resolved_total[name] = resolved_total.get(name, 0) + n
-        for name, entry in (status.get("rules") or {}).items():
-            merged = rules.setdefault(
-                name,
-                {
-                    "severity": entry.get("severity", "warning"),
-                    "labels": dict(entry.get("labels") or {}),
-                    "threshold": entry.get("threshold"),
-                    "instances": {},
-                },
-            )
-            merged["instances"].update(entry.get("instances") or {})
-    return {
-        "rules": rules,
-        "firing": firing,
-        "pending": pending,
-        "transitions": transitions,
-        "firing_total": firing_total,
-        "resolved_total": resolved_total,
-    }

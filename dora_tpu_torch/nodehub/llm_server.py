@@ -463,8 +463,9 @@ def _run_loop(node, engine, backlog, metrics, handle_input, emit, report,
             report(now)
             report_last = now
         elif fleet_tick is not None:
-            # Digests may run faster than the 1 Hz report (report() ticks
-            # the publisher too).
+            # Between reports: digests may run faster than the 1 Hz report
+            # (report() ticks the publisher too), and a profile capture's
+            # progress is followed.
             fleet_tick(now)
 
 
@@ -871,9 +872,11 @@ def serve(node, engine, metrics, *, encode, decode_one, eos=None, max_new_cap=32
     monitor = (profiling.DeviceMonitor(getattr(engine, "device", None))
                if profiling.monitor_enabled() else None)
     util_prev = {"busy_ns": 0, "flops": 0, "t": clock()}
-    #: on-demand deep capture: start arms a deadline checked at report
-    #: cadence; stop (or the deadline) reports the artifact to the daemon
-    profile_state: dict = {"active": False, "dir": "", "deadline": 0.0, "start_error": None}
+    #: on-demand deep capture on a thread of its own (profiling.Capture):
+    #: each loop iteration arms the deadline once the profiler runs, asks
+    #: the capture to stop at it, and reports the artifact once it is
+    #: written. An explicit stop waits for it, as JAX's does.
+    profile_state: dict = {"capture": None, "seconds": 0.0, "deadline": None}
 
     def _report_profile(artifact: str, error: str | None) -> None:
         try:
@@ -882,28 +885,36 @@ def serve(node, engine, metrics, *, encode, decode_one, eos=None, max_new_cap=32
             pass  # captures are best-effort: serving never blocks on them
 
     def _finish_profile() -> None:
-        artifact = profiling.stop_capture(profile_state["dir"], profile_state["start_error"])
-        profile_state["active"] = False
-        profile_state["start_error"] = None
+        artifact = profile_state["capture"].wait()
+        profile_state.update(capture=None, deadline=None)
         tracer.instant("profile_stop", "(engine)", artifact)
         _report_profile(artifact, None)
+
+    def _tick_profile(now: float) -> None:
+        capture = profile_state["capture"]
+        if capture is None:
+            return
+        if profile_state["deadline"] is None and capture.started.is_set():
+            profile_state["deadline"] = now + profile_state["seconds"]
+        if profile_state["deadline"] is not None and now >= profile_state["deadline"]:
+            capture.stop()
+        if capture.done.is_set():
+            _finish_profile()
 
     def handle_profile(event) -> None:
         md = event.get("metadata") or {}
         action = md.get("action", "")
         if action == "start":
-            if profile_state["active"]:
+            if profile_state["capture"] is not None:
                 _report_profile("", "capture already active")
                 return
             out_dir = os.path.join(profiling.profile_dir(),
                                    f"capture-{os.getpid()}-{int(time.time())}")
-            profile_state["dir"] = out_dir
-            profile_state["start_error"] = profiling.start_capture(out_dir)
-            profile_state["active"] = True
-            profile_state["deadline"] = clock() + float(md.get("seconds") or 0.0)
+            profile_state.update(capture=profiling.Capture(out_dir), deadline=None,
+                                 seconds=float(md.get("seconds") or 0.0))
             tracer.instant("profile_start", "(engine)", out_dir)
         elif action == "stop":
-            if profile_state["active"]:
+            if profile_state["capture"] is not None:
                 _finish_profile()
             else:
                 _report_profile("", "no capture active")
@@ -911,6 +922,13 @@ def serve(node, engine, metrics, *, encode, decode_one, eos=None, max_new_cap=32
     fleet_pub = fleet.DigestPublisher(
         node, engine, tracer=tracer, clock=clock,
         hbm=lambda: (metrics.hbm_used_bytes or 0, metrics.hbm_limit_bytes or 0))
+
+    def loop_tick(now: float) -> None:
+        """Each loop iteration between reports: a capture's progress, and
+        the fleet digest (which may run faster than the 1 Hz report)."""
+        _tick_profile(now)
+        if fleet_pub.enabled:
+            fleet_pub.tick(now)
 
     def report(now: float) -> None:
         metrics.slots_active = engine.active
@@ -966,8 +984,7 @@ def serve(node, engine, metrics, *, encode, decode_one, eos=None, max_new_cap=32
                 metrics.mfu = min(1.0, (d_flops / dt) / peak) if peak > 0 else None
             util_prev.update(busy_ns=metrics.device_compute_ns, flops=metrics.useful_flops,
                              t=now)
-        if profile_state["active"] and now >= profile_state["deadline"]:
-            _finish_profile()
+        _tick_profile(now)
         check_slo(now)
         autotune(now)
         try:
@@ -1245,7 +1262,7 @@ def serve(node, engine, metrics, *, encode, decode_one, eos=None, max_new_cap=32
                   handle_migrate=handle_migrate if can_ckpt else None,
                   handle_profile=handle_profile, on_engine_error=on_engine_error,
                   keep_alive=bool(migrate_dir),
-                  fleet_tick=fleet_pub.tick if fleet_pub.enabled else None)
+                  fleet_tick=loop_tick)
         clean = True
     finally:
         try:

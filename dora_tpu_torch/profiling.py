@@ -201,6 +201,8 @@ class DeviceMonitor:
 #: capture directory -> its running profiler. The profiler is process-wide
 #: (one at a time), as jax.profiler's trace is.
 _CAPTURES: dict[str, torch.profiler.profile] = {}
+#: capture directory -> the experimental options its profiler runs with
+_OPTIONS: dict[str, list[str]] = {}
 
 
 def profile_dir() -> str:
@@ -208,16 +210,43 @@ def profile_dir() -> str:
     return os.environ.get("DORA_PROFILE_DIR", "") or "/tmp/dora-tpu-profiles"
 
 
-def start_capture(out_dir: str) -> str | None:
+def _experimental_config(all_threads: bool):
+    """Kineto's experimental config for a capture: with ``all_threads`` the
+    host ops of every thread are recorded (the profiler's state is otherwise
+    the starting thread's own) and, where this torch has it, ``trace_only``
+    skips building Python event objects at stop (the capture is only ever
+    exported). With the options it was given; None where this torch has
+    neither option."""
+    if not all_threads:
+        return None, []
+    from torch._C._profiler import _ExperimentalConfig
+
+    for kw in ({"profile_all_threads": True, "trace_only": True},
+               {"profile_all_threads": True}):
+        try:
+            return _ExperimentalConfig(**kw), sorted(kw)
+        except TypeError:
+            continue
+    return None, []
+
+
+def start_capture(out_dir: str, all_threads: bool = False) -> str | None:
     """Start a ``torch.profiler`` trace (CPU activity, and CUDA where a card
-    is present) for ``out_dir``. Returns an error string when the profiler
-    cannot start (the caller then gets a synthetic artifact at stop time),
-    else None."""
+    is present) for ``out_dir``; with ``all_threads``, the host ops of every
+    thread (a :class:`Capture` starts it on a thread of its own). Returns an
+    error string when the profiler cannot start (the caller then gets a
+    synthetic artifact at stop time), else None."""
     os.makedirs(out_dir, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=activities)
+    config, options = _experimental_config(all_threads)
+    if all_threads and config is None:
+        return "this torch cannot profile every thread (profile_all_threads)"
+    _OPTIONS[out_dir] = options
+    # a new profiler each capture, with acc_events off: its stop only
+    # disables Kineto, and no Python event is built unless asked for
+    prof = torch.profiler.profile(activities=activities, experimental_config=config)
     try:
         prof.start()
     except RuntimeError as exc:  # another profiler is running
@@ -226,11 +255,13 @@ def start_capture(out_dir: str) -> str | None:
     return None
 
 
-def stop_capture(out_dir: str, start_error: str | None = None) -> str:
+def stop_capture(out_dir: str, start_error: str | None = None,
+                 timings: dict | None = None) -> str:
     """Stop the capture and return the artifact path (always a real path):
     ``out_dir`` holding the Chrome trace ``trace.json``, or, where the
     profiler never started, failed to stop or wrote nothing, a synthetic
-    JSON marker whose ``reason`` says why."""
+    JSON marker whose ``reason`` says why. ``timings``, where given, gets
+    the seconds of the stop (``stop_s``) and of the export (``export_s``)."""
     error = start_error
     if error is None:
         prof = _CAPTURES.pop(out_dir, None)
@@ -238,8 +269,12 @@ def stop_capture(out_dir: str, start_error: str | None = None) -> str:
             error = f"no capture was started for {out_dir}"
         else:
             try:
+                t = time.perf_counter()
                 prof.stop()
+                t_stop = time.perf_counter()
                 prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+                if timings is not None:
+                    timings.update(stop_s=t_stop - t, export_s=time.perf_counter() - t_stop)
             except RuntimeError as exc:
                 error = f"{type(exc).__name__}: {exc}"
     os.makedirs(out_dir, exist_ok=True)
@@ -263,3 +298,62 @@ def _has_capture_files(out_dir: str) -> bool:
         if files:
             return True
     return False
+
+
+#: the file beside a :class:`Capture`'s trace that holds its step timings
+CAPTURE_TIMINGS = "capture.json"
+
+
+class Capture:
+    """One capture on a thread of its own, so that the profiler's start
+    (Kineto's and CUPTI's set-up, seconds on its first use in a process),
+    stop and export do not run on the caller's loop. Host ops are recorded
+    on every thread. ``started`` once the profiler runs (or failed to
+    start), ``stop()`` asks it to end, ``done`` once the artifact is
+    written; ``artifact`` is then :func:`stop_capture`'s path and
+    ``timings`` the seconds each step took, when the profiler ran (unix
+    seconds) and its options (also written beside the trace, as
+    :data:`CAPTURE_TIMINGS`)."""
+
+    def __init__(self, out_dir: str):
+        import threading
+
+        self.out_dir = out_dir
+        self.artifact: str | None = None
+        self.timings: dict[str, float] = {}
+        self.started = threading.Event()
+        self.done = threading.Event()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="dora-profile", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        t = time.perf_counter()
+        error = None
+        try:
+            error = start_capture(self.out_dir, all_threads=True)
+        except Exception as exc:  # noqa: BLE001 (the marker says why)
+            error = f"{type(exc).__name__}: {exc}"
+        self.timings["start_s"] = time.perf_counter() - t
+        self.timings["started_unix"] = time.time()
+        self.timings["options"] = _OPTIONS.pop(self.out_dir, [])
+        self.started.set()
+        self._stop.wait()
+        self.timings["stopped_unix"] = time.time()
+        try:
+            self.artifact = stop_capture(self.out_dir, error, self.timings)
+        except Exception as exc:  # noqa: BLE001
+            self.artifact = stop_capture(self.out_dir, f"{type(exc).__name__}: {exc}")
+        if self.artifact == self.out_dir:
+            with open(os.path.join(self.out_dir, CAPTURE_TIMINGS), "w") as f:
+                json.dump(self.timings, f)
+        self.done.set()
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def wait(self) -> str:
+        """Stop, wait for the artifact and return it."""
+        self.stop()
+        self.done.wait()
+        return self.artifact

@@ -1,11 +1,12 @@
-"""Trace plane of the serving node: the port's copy of the part of
-dora_tpu/telemetry.py that the node and ``serve()`` use.
+"""Trace plane: the port's copy of the part of dora_tpu/telemetry.py that
+the node, ``serve()``, the daemon and the trace merge use.
 
 A trace context rides in message metadata under ``open_telemetry_context``
 as a ``k:v;`` string. ``TRACING`` (``DORA_TRACING=1``) gates every
 trace-plane action behind one attribute load; ``FLIGHT`` is the
 process-wide flight-recorder ring that holds span records until the node
-ships them to its daemon; ``ServingTracer`` records the request-lifecycle
+ships them to its daemon (the daemon records its own ``t_route`` /
+``t_deliver`` spans and alert instants there); ``ServingTracer`` records the request-lifecycle
 spans of the serving loop and the engine through that ring.
 
 The reference's XLA compile listener has no counterpart here: the serving
@@ -99,6 +100,16 @@ def child_context(parent_ctx: str = "") -> str:
     if trace_id is None:
         trace_id = next_trace_id()
     return f"traceparent:00-{trace_id}-{next_span_id()}-01;"
+
+
+def trace_id_of(ctx: str) -> str | None:
+    """The 32-hex trace id inside a serialized context, or None."""
+    if not ctx:
+        return None
+    parent = parse_otel_context(ctx).get("traceparent")
+    if parent and parent.count("-") == 3:
+        return parent.split("-")[1]
+    return None
 
 
 class FlightRecorder:

@@ -14,9 +14,10 @@ JAX package's, on the CPU.
   ``metrics``, ``destroy``) against either coordinator, every process on a
   free port (never the default ones, which ``up`` keeps: its command lines
   are checked here, and it runs on the card).
-* ``migrate`` reaches a node as a MIGRATE event with its handoff directory.
-* The planes the port has no (trace, metrics history, alerts, profiles) are
-  answered with an error that names them.
+* ``migrate`` reaches a node as a MIGRATE event with its handoff directory,
+  a profile request as a PROFILE event whose report comes back as the
+  reply; the trace, metrics history and alert planes answer, on the port's
+  coordinator and on a JAX coordinator over port daemons.
 * ``multiple-daemons.yml`` standalone, every node on this machine, under
   both daemons.
 
@@ -430,7 +431,7 @@ def test_up_builds_the_port_processes_on_the_default_ports():
 
 
 # ---------------------------------------------------------------------------
-# migrate, and the planes the port does not have
+# migrate, profiles and the observability planes
 # ---------------------------------------------------------------------------
 
 MIGRATE_NODE = """
@@ -441,6 +442,9 @@ from dora_tpu_torch.node import Node
 
 with Node() as node:
     for event in node:
+        if event["type"] == "PROFILE":
+            action = event["metadata"]["action"]
+            node.report_profile(f"capture-{action}", None if action == "start" else "no capture")
         if event["type"] == "MIGRATE":
             json.dump({"type": event["type"], "metadata": event["metadata"]},
                       open(sys.argv[1], "w"))
@@ -448,7 +452,7 @@ with Node() as node:
 """
 
 
-def test_migrate_reaches_the_node_and_missing_planes_are_named(tmp_path):
+def test_migrate_reaches_the_node_and_every_plane_answers(tmp_path):
     (tmp_path / "serving.py").write_text(MIGRATE_NODE)
     spec = {"nodes": [{"id": "llm", "path": "serving.py", "args": str(tmp_path / "got.json"),
                        "deploy": {"machine": "B"}}]}
@@ -462,42 +466,63 @@ def test_migrate_reaches_the_node_and_missing_planes_are_named(tmp_path):
             start = await coord.handle_control_request(
                 pcm.Start(dataflow=spec, name="serve", local_working_dir=str(tmp_path)))
             ctl = f"127.0.0.1:{coord.control_port}"
+            replies = {}
+            for request in (pcm.StartProfile(dataflow_uuid=None, node_id="llm", seconds=0.1,
+                                             name="serve"),
+                            pcm.StopProfile(dataflow_uuid=None, node_id="llm", name="serve")):
+                replies[type(request).__name__] = await asyncio.wait_for(
+                    coord.handle_control_request(request), 20)
             rc = await asyncio.to_thread(cli.main, [
                 "migrate", "llm", "--handoff-dir", str(tmp_path / "handoff"), "--name", "serve",
                 "--coordinator-addr", ctl])
             assert rc == 0
             result = await _wait_finished(coord, pcm, start.uuid)
             assert result.is_ok(), result.errors()
-            refused = {}
             for request in (pcm.QueryTrace(name="serve"), pcm.QueryMetricsHistory(name="serve"),
                             pcm.QueryAlerts(name="serve"),
-                            pcm.StartProfile(dataflow_uuid=None, node_id="llm", name="serve"),
-                            pcm.StopProfile(dataflow_uuid=None, node_id="llm", name="serve")):
+                            pcm.StartProfile(dataflow_uuid=None, node_id="llm", name="serve")):
                 reply = await asyncio.wait_for(coord.handle_control_request(request), 5)
-                refused[type(request).__name__] = reply
+                replies["after " + type(request).__name__] = reply
             fleet = await coord.handle_control_request(pcm.QueryFleet(name="serve"))
             await coord.handle_control_request(pcm.Destroy())
             await asyncio.wait_for(task, 20)
         finally:
             task.cancel()
             await coord.close()
-        return refused, fleet
+        return replies, fleet
 
-    refused, fleet = asyncio.run(main())
+    replies, fleet = asyncio.run(main())
     got = json.loads((tmp_path / "got.json").read_text())
     assert got == {"type": "MIGRATE", "metadata": {"handoff_dir": str(tmp_path / "handoff")}}
-    planes = {"QueryTrace": "trace plane", "QueryMetricsHistory": "metrics history plane",
-              "QueryAlerts": "alert plane", "StartProfile": "profile plane",
-              "StopProfile": "profile plane"}
-    for name, plane in planes.items():
-        assert isinstance(refused[name], pcm.Error) and plane in refused[name].message, refused
+    start, stop = replies["StartProfile"], replies["StopProfile"]
+    assert isinstance(start, pcm.ProfileReply) and (start.node_id, start.artifact,
+                                                    start.error) == ("llm", "capture-start", None)
+    assert isinstance(stop, pcm.ProfileReply) and (stop.artifact, stop.error) == (
+        "capture-stop", "no capture")
+    trace = replies["after QueryTrace"]
+    assert isinstance(trace, pcm.TraceReply)
+    assert {p["machine"] for p in trace.trace["processes"]} <= {"B"}  # tracing off: no spans
+    history = replies["after QueryMetricsHistory"]
+    assert isinstance(history, pcm.MetricsHistoryReply) and history.history["machines"] == ["B"]
+    assert history.history["samples"], "the finish takes a last sample"
+    alerts = replies["after QueryAlerts"]
+    assert isinstance(alerts, pcm.AlertsReply) and alerts.alerts["firing"] == 0
+    assert set(alerts.alerts) >= {"rules", "transitions", "firing_total", "resolved_total"}
+    # the dataflow finished: a profile has no node to go to
+    late = replies["after StartProfile"]
+    assert isinstance(late, pcm.Error) and "is not running" in late.message
     assert isinstance(fleet, pcm.FleetReply) and fleet.fleet["replicas"] == {}
 
 
-def test_port_daemons_answer_a_jax_coordinator_for_the_missing_planes(tmp_path):
+def test_port_daemons_answer_a_jax_coordinator_for_every_plane(tmp_path, monkeypatch):
     """A JAX coordinator's trace, history and alert queries over port daemons
-    get replies, not a hang: each machine's part names its missing plane,
-    which the JAX merges read as no data."""
+    get each machine's part, which the JAX merges read: the history of both
+    machines (the finish's last sample), the alert status, the trace of the
+    nodes' and daemons' rings with DORA_TRACING=1."""
+    from dora_tpu import telemetry as jtel
+    from dora_tpu_torch import telemetry as ptel
+
+    monkeypatch.setenv("DORA_TRACING", "1")
     (tmp_path / "sink.py").write_text(SINK.format(pkg="dora_tpu_torch"))
     spec = _lifecycle_spec("dora_tpu_torch", tmp_path)
 
@@ -521,9 +546,22 @@ def test_port_daemons_answer_a_jax_coordinator_for_the_missing_planes(tmp_path):
             await coord.close()
         return replies
 
-    trace, history, alerts = asyncio.run(main())
+    saved = [(m.TRACING, m.TRACING.active, m.FLIGHT, m.FLIGHT.enabled) for m in (jtel, ptel)]
+    try:
+        trace, history, alerts = asyncio.run(main())
+    finally:
+        for tracing, active, flight, enabled in saved:
+            tracing.active, flight.enabled = active, enabled
+            flight.clear()
     assert isinstance(trace, jcm.TraceReply) and isinstance(history, jcm.MetricsHistoryReply)
     assert isinstance(alerts, jcm.AlertsReply) and alerts.alerts["firing"] == 0
+    assert history.history["machines"] == ["A", "B"]
+    assert {k for s in history.history["samples"] for k in s["counters"]} >= {
+        "link:sender/data:msgs"}
+    tracks = {(p["machine"], p["process"]) for p in trace.trace["processes"]}
+    assert {("A", "sender"), ("B", "receiver"), ("B", "sink"), ("A", "(daemon)")} <= tracks
+    kinds = {e[2] for p in trace.trace["processes"] for e in p["events"]}
+    assert {"t_send", "t_route", "t_deliver", "t_recv"} <= kinds
 
 
 # ---------------------------------------------------------------------------

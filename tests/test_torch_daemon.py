@@ -385,6 +385,29 @@ def test_event_queue_drops_the_oldest_and_releases_its_token():
     assert asyncio.run(q.next_batch()) == []
 
 
+def test_shmem_send_after_close_is_a_closed_connection():
+    """A send on a shmem connection that was closed (an event batch that
+    comes due as its node goes) raises ConnectionClosed, as a disconnected
+    peer does, and checks the closing under the lock that guards the
+    channel's free."""
+    import os
+    import uuid
+
+    from dora_tpu_torch.daemon.connection import ShmemConnection
+    from dora_tpu_torch.native import ShmemChannel
+    from dora_tpu_torch.transport.framing import ConnectionClosed
+
+    async def run():
+        name = f"dtp-closed-{os.getpid()}-{uuid.uuid4().hex[:8]}"
+        conn = ShmemConnection(ShmemChannel.create(name, 4096))
+        await conn.send(b"reply")  # the slot is free: sent inline
+        conn.close_sync()
+        with pytest.raises(ConnectionClosed):
+            await conn.send(b"late")
+
+    asyncio.run(run())
+
+
 RELOADED = """
 import json
 import sys

@@ -104,11 +104,27 @@ def test_operator_nodes_are_refused_by_name(tmp_path, kind, source, reason):
         desc.check(tmp_path)
 
 
-def test_alerts_block_is_refused():
-    desc = td.Descriptor.parse({"nodes": [{"id": "a", "path": "python"}],
-                                "alerts": {"rules": []}})
-    with pytest.raises(ValidationError, match="no alert plane"):
-        desc.check()
+def test_alerts_block_is_parsed_as_jax_parses_it():
+    """An ``alerts:`` block parses into the JAX package's policy (the same
+    rules, field for field), and ``check`` accepts it, as JAX's does."""
+    import dataclasses
+
+    raw = {"nodes": [{"id": "a", "path": "python"}],
+           "alerts": {"disable": ["queue-depth"], "rules": [
+               {"name": "busy", "kind": "rate", "selector": "srv:*:decode_tokens", "op": ">",
+                "threshold": 10, "window_s": 2, "labels": {"team": "serving"}},
+               {"name": "hbm-ceiling", "kind": "gauge_ratio",
+                "selector": "srv:*:hbm_used_bytes", "denominator": "srv:*:hbm_limit_bytes",
+                "op": ">", "threshold": 0.8}]}}
+    desc = td.Descriptor.parse(raw)
+    want = jd.Descriptor.parse(raw)
+    assert dataclasses.asdict(desc.alerts) == dataclasses.asdict(want.alerts)
+    assert type(desc.alerts).__module__ == "dora_tpu_torch.alerts"
+    desc.check()
+    want.check()
+    assert td.Descriptor.parse({"nodes": [{"id": "a", "path": "python"}]}).alerts is None
+    with pytest.raises(ValueError, match="unknown alerts keys"):
+        td.Descriptor.parse({**raw, "alerts": {"rule": []}})
 
 
 def _node(**kw):
