@@ -313,6 +313,25 @@ Phases, each printed on its own line:
    under ``--observe``, with it (its third leg), beside phase 21 (b)'s,
    traced. The kernels line gives kernels 1-4 the observed node's
    launches over phases 21 (b)-(c) as ``observed_launches``.
+23. operator nodes and peer-to-peer edges (``phase 23`` lines), under the
+   port's daemon with peer-to-peer edges on (as phases 20-22 run since
+   then): (a) ``dora_tpu_torch/examples/vlm-recorder.yml``, its VLM an
+   ``operator: torch:`` node of ``make_vlm`` at bench_2b on int8 weights
+   (the source swapped for a file that wraps ``make_vlm`` in the node's
+   kernel counters), RECORDER_FRAMES seeded 224 x 224 frames, a recorder of
+   the tokens beside it: every caption equal to ``vlm.generate`` on its
+   frame in this process, kernels 11, 7, 9, 1 and 2 launched in the node
+   with no plain call, the sharegpt dataset and the HTML replay written and
+   parsed (their PNGs the camera's frames), the daemon's peer-to-peer edges
+   printed; (b) phase 20 (b)'s leg with peer-to-peer edges on and with
+   ``DORA_P2P=0``, on, off, off, on over shmem and again over tcp, then
+   with ``DORA_P2P=0`` over tcp until it ran P2P_OFF_TCP_RUNS times (a
+   lost request fails the leg with every node's log tail; a leg with
+   peer-to-peer on fails unless the daemon paired the serving edges), TTFT
+   p50 and tokens a second of each leg and of each route; (c) ``examples/c-dataflow``, unchanged, copied
+   with ``native/`` into a scratch directory, through the port CLI's
+   ``build`` and ``run``: the C sink's lines are the running sums of the C
+   node's values (glibc's ``srand(42)``, ``rand() % 100``).
 
 Phase 3 also holds the int4 forms of kernels 1-5 and 8-10 against their
 plain versions on phase 12's int4 weights at the main paths' shapes (with
@@ -360,8 +379,9 @@ pass, VLM step and ViT times; the windows and the dense step graphed and
 eager), ``--hf-vlm`` only phase 15, ``--operators`` only phase 16,
 ``--hub`` only phase 17, ``--train`` only phase 18, ``--bench`` only
 phase 19, ``--dataflow`` only phase 20, ``--cluster`` only phase 20 (b)
-and phase 21, and ``--observe`` only phase 20 (b) with its traced leg,
-phase 21 and phase 22, all without the result line.
+and phase 21, ``--observe`` only phase 20 (b) with its traced leg, phase 21
+and phase 22, and ``--operators-dataflow`` only phase 23, all without the
+result line.
 
 Phases 4, 6, 8 and 9 build their engines through the normal factories,
 so each decode window (the dense step) is one CUDA-graph replay, and each
@@ -388,9 +408,13 @@ that line; so does a machine without CUDA or a directory without the port.
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import json
+import logging
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -7200,6 +7224,30 @@ def vlm_dataflow(torch, smi: str, scratch: str, dev: str = "cuda", size: str = "
     torch.cuda.empty_cache()
 
 
+class _EdgeLog(logging.Handler):
+    """The daemon's log line naming a dataflow's peer-to-peer edges."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list[str] = []
+
+    def emit(self, record):
+        if "peer-to-peer edges" in record.getMessage():
+            self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        log = logging.getLogger("dora_tpu_torch.daemon.core")
+        self._level = log.level
+        log.setLevel(logging.INFO)
+        log.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        log = logging.getLogger("dora_tpu_torch.daemon.core")
+        log.removeHandler(self)
+        log.setLevel(self._level)
+
+
 def serve_flow_desc(counts: str, prompts_json: str, sent_json: str, chunks_json: str,
                     layers: int, seed: int, max_new: int, comm: str, dev: str) -> dict:
     """Phase 4's requests from a prompt node to the port's serving node (the
@@ -7224,13 +7272,19 @@ def serve_flow_desc(counts: str, prompts_json: str, sent_json: str, chunks_json:
 
 def serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
                    scratch: str, layers: int, seed: int, prompts, max_new: int, served=None,
-                   trace_cost: bool = False):
+                   trace_cost: bool = False, legs=None):
     """Phase 20 (b): phase 4's requests through the port's serving node behind
-    the port's daemon, over shmem and over tcp (and, with ``trace_cost``, over
-    tcp again with DORA_TRACING=1 in the daemon and the nodes, for phase 22
-    (f)): every stream held to phase 4's by the near-tie rule, TTFT and
-    tokens a second beside phase 13's, kernels 1-4 launched in the node, no
-    plain call. Returns phase 4's streams (served here when not given)."""
+    the port's daemon, over shmem and over tcp, peer-to-peer edges on (the
+    default; and, with ``trace_cost``, over tcp again with DORA_TRACING=1 in
+    the daemon and the nodes, for phase 22 (f)): every stream held to phase
+    4's by the near-tie rule, TTFT and tokens a second beside phase 13's,
+    kernels 1-4 launched in the node, no plain call. ``legs`` replaces the
+    legs with (comm, DORA_TRACING, DORA_P2P) triples (phase 23 (b)). A
+    request that never gets its done chunk fails the leg with every node's
+    log tail; a leg with peer-to-peer edges on fails unless the daemon paired
+    SERVING_EDGES and no node left them to its route, a leg with DORA_P2P=0
+    fails if it paired any. Returns phase 4's streams (served here when not
+    given)."""
     from dora_tpu_torch import telemetry
     from dora_tpu_torch.core.descriptor import Descriptor
 
@@ -7245,9 +7299,15 @@ def serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
         print("dataflow (b): phase 4's streams served here for the reference", flush=True)
     paths = _Paths(torch, DB, LO, IM, qwen2, L, serve_prompts, params, cfg)
     rids = [f"a{i}" for i in range(len(prompts))]
-    legs = [("shmem", None), ("tcp", None)] + ([("tcp", "1")] if trace_cost else [])
-    for comm, tracing in legs:
-        leg = comm + (" traced" if tracing else "")
+    if legs is None:
+        legs = [("shmem", None, None), ("tcp", None, None)] + (
+            [("tcp", "1", None)] if trace_cost else [])
+    repeat: dict = {}
+    for comm, tracing, p2p in legs:
+        leg = comm + (" traced" if tracing else "") + (f" DORA_P2P={p2p}" if p2p else "")
+        repeat[leg] = repeat.get(leg, 0) + 1
+        if repeat[leg] > 1:
+            leg += f" #{repeat[leg]}"
         what = f"dataflow (b) {leg}"
         with tempfile.TemporaryDirectory(prefix="serve-flow-", dir=scratch) as work:
             files = {k: os.path.join(work, f"{k}.json")
@@ -7261,12 +7321,14 @@ def serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
             desc = serve_flow_desc(files["counts"], files["prompts"], files["sent"],
                                    files["chunks"], layers, seed, max_new, comm, "cuda")
             with _env(**{k: None for k in FRONT_DOOR_KNOBS},
-                      DORA_QOS_PREEMPT=None, DORA_QOS_DEPTH_BATCH=None, DORA_TRACING=tracing):
+                      DORA_QOS_PREEMPT=None, DORA_QOS_DEPTH_BATCH=None, DORA_TRACING=tracing,
+                      DORA_P2P=p2p), _EdgeLog() as edges:
                 try:
                     wall = _flow(Descriptor.parse(desc), work, what)
                 finally:  # the in-process daemon switched this process's recorder
                     telemetry.TRACING.configure_from_env()
                     telemetry.FLIGHT.configure_from_env()
+            _serving_edges(what, edges.lines, p2p != "0", work)
             _node_counts(what, files["counts"], SPEC_OFF_KERNELS)
             with open(files["sent"]) as f:
                 sent = json.load(f)
@@ -7304,6 +7366,7 @@ def serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
         ref = EARLIER.get("serve_a")
         EARLIER.setdefault("flow_b", {})[leg] = (
             f"TTFT p50 {_pct(ttft, 50):.4f} s max {max(ttft):.4f} s, {n_tok / span:.1f} tokens/s")
+        EARLIER.setdefault("flow_b_num", {})[leg] = (_pct(ttft, 50), n_tok / span)
         print(f"{what}: {len(rids)} requests, {n_tok} tokens in {span:.3f} s from the first "
               f"send to the last chunk ({n_tok / span:.1f} tokens/s end to end); "
               f"{len(rids) - parted} streams equal phase 4's token for token, {parted} part at "
@@ -7313,6 +7376,34 @@ def serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
     del paths, params
     torch.cuda.empty_cache()
     return served
+
+
+#: (b)'s edges that take the peer-to-peer route unless DORA_P2P=0
+SERVING_EDGES = ("llm/response -> prompts/response", "llm/response -> sink/response",
+                 "prompts/prompt -> llm/text")
+#: what a node logs when it leaves peer-to-peer edges to the daemon's route
+P2P_ABANDONED = ("peer-to-peer edges off", "no peer-to-peer edges out")
+
+
+def _serving_edges(what: str, lines: list, p2p: bool, work: str) -> None:
+    """The serving leg took the route it was asked for: with peer-to-peer
+    on, the daemon paired SERVING_EDGES and no node left them to the daemon;
+    with DORA_P2P=0, the daemon paired nothing."""
+    if not p2p:
+        if lines:
+            raise Failed(f"{what}: DORA_P2P=0, yet the daemon paired {lines}")
+        return
+    paired = lines[-1] if lines else ""
+    missing = [e for e in SERVING_EDGES if repr(e) not in paired]
+    abandoned = []
+    for root, _dirs, files in os.walk(os.path.join(work, "out")):
+        for name in sorted(n for n in files if n.startswith("log_")):
+            with open(os.path.join(root, name), errors="replace") as f:
+                abandoned += [f"{name}: {line}" for line in f.read().splitlines()
+                              if any(m in line for m in P2P_ABANDONED)]
+    if missing or abandoned:
+        raise Failed(f"{what}: peer-to-peer edges not in use: unpaired {missing} (the daemon: "
+                     f"{lines or 'no edge line'}); {abandoned}")
 
 
 def serve_dataflows(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str,
@@ -8181,6 +8272,244 @@ def serve_cluster(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str, scratch:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 23: operator nodes and peer-to-peer edges
+# ---------------------------------------------------------------------------
+
+#: (a): frames the camera of vlm-recorder.yml sends (seeded, VLM_FLOW_SEED)
+RECORDER_FRAMES = 10
+#: (b): runs of the tcp leg with DORA_P2P=0
+P2P_OFF_TCP_RUNS = 5
+#: (c): the values the C node sends (its srand(42) and rand() % 100)
+C_FLOW_VALUES = 20
+
+#: (a): the VLM operator's source: make_vlm, with the node's kernel launches
+#: and plain calls (tools/_common.KernelCounters) written when it exits
+_COUNTED_VLM = """
+import atexit
+import json
+
+from dora_tpu_torch.nodehub.ops import make_vlm
+from dora_tpu_torch.tools._common import KernelCounters
+
+
+def make(device=None):
+    counters = KernelCounters().__enter__()
+    atexit.register(lambda: json.dump({{**counters.report(), "exit": 0}}, open({out!r}, "w")))
+    return make_vlm(device=device)
+"""
+
+
+def recorder_dataflow(torch, smi: str, scratch: str, here: str, dev: str = "cuda",
+                      size: str = "bench") -> None:
+    """Phase 23 (a): dora_tpu_torch/examples/vlm-recorder.yml (its VLM an
+    ``operator: torch:`` node of ``make_vlm`` at bench_2b on int8 weights,
+    the operator's file counting the node's launches) through the port's
+    ``run_dataflow`` with peer-to-peer edges on, RECORDER_FRAMES seeded
+    frames, and a recorder of the tokens beside it: every caption equals
+    ``vlm.generate`` on the frame it names, kernels 11, 7, 9, 1 and 2
+    launched in the node with no plain call, the sharegpt dataset and the
+    HTML replay written and parsed (their PNGs read back as the frames), the
+    daemon's peer-to-peer edges printed."""
+    import numpy as np
+    import yaml
+
+    from dora_tpu_torch.core.descriptor import Descriptor
+    from dora_tpu_torch.models import tokenizer, vlm
+    from dora_tpu_torch.nodehub.camera import seeded_frame
+    from dora_tpu_torch.nodehub.imaging import decode_png
+
+    cfg = vlm.VLMConfig.bench_2b() if size != "tiny" else vlm.VLMConfig.tiny()
+    what = "phase 23 (a) vlm-recorder"
+    with open(os.path.join(here, "dora_tpu_torch", "examples", "vlm-recorder.yml")) as f:
+        raw = yaml.safe_load(f)
+    with tempfile.TemporaryDirectory(prefix="vlm-recorder-", dir=scratch) as work:
+        counts = os.path.join(work, "vlm.launches.json")
+        with open(os.path.join(work, "counted_vlm.py"), "w") as f:
+            f.write(_COUNTED_VLM.format(out=counts))
+        nodes = {n["id"]: n for n in raw["nodes"]}
+        nodes["camera"]["env"].update(IMAGE_WIDTH=str(cfg.image_size),
+                                      IMAGE_HEIGHT=str(cfg.image_size),
+                                      SEED=str(VLM_FLOW_SEED), MAX_FRAMES=str(RECORDER_FRAMES))
+        op = nodes["vlm"]["operator"]
+        if op["torch"] != "dora_tpu_torch.nodehub.ops:make_vlm":
+            raise Failed(f"{what}: the example's VLM is {op['torch']!r}")
+        op["torch"] = ("counted_vlm.py:make" if dev == "cuda"
+                       else {"source": "counted_vlm.py:make", "device": dev})
+        nodes["vlm"]["env"] = {"DORA_MODEL_SIZE": size, "DORA_INT8_DECODE": "1"}
+        raw["nodes"].append({"id": "tokens", "path": "module:dora_tpu_torch.nodehub.record",
+                             "inputs": {"tokens": "vlm/op/tokens"},
+                             "env": {"RECORD_DIR": "record"}})
+        knobs = dict(DORA_INT4_DECODE=None, DORA_INT8_PURE=None, DORA_SPEC_DECODE=None,
+                     DORA_MAX_NEW_TOKENS=None, DORA_PROMPT=None, DORA_CHECKPOINT=None,
+                     DORA_HF_CHECKPOINT=None, DORA_PARAM_DTYPE=None, DORA_MESH=None,
+                     DORA_PIPELINE_DEPTH=None, DORA_FETCH_EVERY=None, DORA_TOKENIZER=None,
+                     DORA_P2P=None)
+        with _env(**knobs), _EdgeLog() as edges:
+            wall = _flow(Descriptor.parse(raw), work, what)
+        launches = _node_counts(what, counts, VLM_GREEDY_KERNELS)
+        data = os.path.join(work, "llama-factory-out", "data")
+        try:
+            rows = _recorded(os.path.join(work, "record", "tokens.parquet"))
+            with open(os.path.join(data, "dora_demo.json")) as f:
+                records = [json.loads(line) for line in f]
+            with open(os.path.join(data, "dataset_info.json")) as f:
+                info = json.load(f)
+            pngs = []
+            for r in records:
+                for p in r["images"]:
+                    with open(os.path.join(data, p), "rb") as f:
+                        pngs.append(decode_png(f.read()))
+            with open(os.path.join(work, "rerun-out", "replay.html")) as f:
+                html = f.read()
+        except (OSError, ValueError, KeyError) as e:
+            raise Failed(f"{what}: {type(e).__name__}: {e}; {_flow_logs(work, tail=12)}")
+    print(f"{what}: daemon: {'; '.join(edges.lines) or 'no peer-to-peer edge line'}",
+          flush=True)
+    if not edges.lines or "camera/image -> recorder/image" not in edges.lines[-1]:
+        raise Failed(f"{what}: the camera's edges were not paired: {edges.lines}")
+    if len(rows) < 2:
+        raise Failed(f"{what}: {len(rows)} captions of {RECORDER_FRAMES} frames")
+    t = time.perf_counter()
+    params = vlm.quantize_decode(vlm.init_params(cfg, seed=0, device=dev))  # make_vlm's
+    prompt = torch.tensor([[x % cfg.vocab for x in tokenizer.encode("describe")]],
+                          dtype=torch.int32, device=dev)
+    ref = {}
+    for j, (tokens, meta, _t) in enumerate(rows):
+        i = meta["frame"]
+        if i not in ref:
+            image = (torch.from_numpy(seeded_frame(cfg.image_size, cfg.image_size,
+                                                   VLM_FLOW_SEED, i)).to(dev).float()
+                     / 255.0)[None]
+            ref[i] = vlm.generate(params, cfg, image, prompt, 16)[0].cpu().tolist()
+        if tokens != ref[i]:
+            raise Failed(f"{what}: caption {j} (frame {i}) differs from this process's "
+                         f"vlm.generate: {tokens} against {ref[i]}")
+    del params
+    torch.cuda.empty_cache()
+    ticks = launches["flash_attention"] // cfg.vision_layers
+    steps = ticks * 15
+    want = {"flash_attention": ticks * cfg.vision_layers, "attention_step": cfg.layers * steps,
+            "mlp_step": cfg.layers * steps, "lm_head_argmax": steps}
+    got = {n: launches[n] for n in want}
+    if ticks != len(rows) or got != want:
+        raise Failed(f"{what}: {len(rows)} captions, {ticks} ticks launched {got}, expected "
+                     f"{want}")
+    answers = sorted(r["messages"][1]["content"] for r in records)
+    if answers != sorted(tokenizer.decode(v) for v, _m, _t in rows):
+        raise Failed(f"{what}: the dataset's answers are not the captions: {answers[:3]}")
+    if info.get("dora_demo", {}).get("formatting") != "sharegpt":
+        raise Failed(f"{what}: dataset_info.json {info}")
+    def script_json(name: str):
+        return json.loads(re.search(rf"const {name} = (.*);\n", html).group(1)
+                          .replace("<\\/", "</"))
+
+    frames, texts = script_json("FRAMES"), script_json("TEXTS")
+    shown = [decode_png(base64.b64decode(f["png"])) for f in frames]
+    known = [seeded_frame(cfg.image_size, cfg.image_size, VLM_FLOW_SEED, i)[..., ::-1]
+             for i in range(RECORDER_FRAMES)]
+    if (len(frames) != RECORDER_FRAMES or len(texts) != len(rows)
+            or not all(np.array_equal(a, b) for a, b in zip(shown, known))
+            or not all(any(np.array_equal(p, k) for k in known) for p in pngs)):
+        raise Failed(f"{what}: the replay holds {len(frames)} frames and {len(texts)} texts, "
+                     f"the dataset {len(pngs)} PNGs, not the camera's frames and the captions")
+    print(f"{what}: {len(rows)} captions of {RECORDER_FRAMES} frames (queue_size 1 drops the "
+          f"rest), each equal to vlm.generate on its frame here; node launches "
+          f"{json.dumps(got)} + int8_matmul {launches['int8_matmul']}, no plain call; "
+          f"{len(records)} sharegpt pairs, {len(pngs)} PNGs (the camera's frames), the HTML "
+          f"replay {len(frames)} frames and {len(texts)} captions; dataflow wall {wall:.1f} s "
+          f"(weights, start and the run; reference {time.perf_counter() - t:.1f} s) [{smi}]",
+          flush=True)
+
+
+def p2p_serving(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str, scratch: str,
+                layers: int, seed: int, prompts, max_new: int, served=None) -> None:
+    """Phase 23 (b): phase 20 (b)'s serving leg with peer-to-peer edges on
+    and with DORA_P2P=0, over shmem and over tcp, in the order on, off, off,
+    on for each transport (so neither route always runs first), then the tcp
+    leg with DORA_P2P=0 until it ran P2P_OFF_TCP_RUNS times: every stream
+    held to phase 4's, a lost request fails the leg with every node's log
+    tail; TTFT p50 and tokens a second of each leg, and each route's mean,
+    per transport."""
+    legs = []
+    for comm in ("shmem", "tcp"):
+        legs += [(comm, None, None), (comm, None, "0"), (comm, None, "0"), (comm, None, None)]
+    legs += [("tcp", None, "0")] * (P2P_OFF_TCP_RUNS - 2)
+    EARLIER.pop("flow_b_num", None)  # phase 20 (b)'s legs ran at another time
+    serve_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch, layers, seed,
+                   prompts, max_new, served, legs=legs)
+    nums = EARLIER["flow_b_num"]
+    for comm in ("shmem", "tcp"):
+        on = [nums[comm], nums[f"{comm} #2"]]
+        off = [nums[f"{comm} DORA_P2P=0"], nums[f"{comm} DORA_P2P=0 #2"]]
+        mean = [(sum(t for t, _r in v) / 2, sum(r for _t, r in v) / 2) for v in (on, off)]
+        print(f"phase 23 (b) {comm}, legs on / off / off / on: TTFT p50 "
+              + " / ".join(f"{t:.4f}" for t, _r in (on[0], *off, on[1])) + " s, tokens/s "
+              + " / ".join(f"{r:.1f}" for _t, r in (on[0], *off, on[1]))
+              + f"; mean peer-to-peer {mean[0][0]:.4f} s, {mean[0][1]:.1f} tokens/s, "
+              f"DORA_P2P=0 {mean[1][0]:.4f} s, {mean[1][1]:.1f} tokens/s, peer-to-peer "
+              f"{100 * (mean[0][1] / mean[1][1] - 1):+.1f} % tokens/s [{smi}]", flush=True)
+    runs = [v for k, v in nums.items() if k.startswith("tcp DORA_P2P=0")]
+    print(f"phase 23 (b): {len(runs)} tcp legs with DORA_P2P=0 delivered every request; "
+          "TTFT p50 " + ", ".join(f"{t:.4f}" for t, _r in runs) + " s; tokens/s "
+          + ", ".join(f"{r:.1f}" for _t, r in runs) + f" [{smi}]", flush=True)
+
+
+def c_dataflow(smi: str, scratch: str, here: str) -> None:
+    """Phase 23 (c): examples/c-dataflow, unchanged, copied with native/ into
+    a scratch directory, through the port CLI's ``build`` and ``run``: its
+    C sink prints the running sums of the C node's values (glibc's
+    srand(42), rand() % 100) as the C operator in the port's runtime
+    formats them."""
+    import ctypes
+
+    what = "phase 23 (c) c-dataflow"
+    libc = ctypes.CDLL(None)
+    libc.srand(42)
+    total, want = 0, []
+    for i in range(1, C_FLOW_VALUES + 1):
+        total += libc.rand() % 100
+        want.append(f"c sink: sum={total} after {i}")
+    with tempfile.TemporaryDirectory(prefix="c-flow-", dir=scratch) as work:
+        example = os.path.join(work, "examples", "c-dataflow")
+        shutil.copytree(os.path.join(here, "examples", "c-dataflow"), example,
+                        ignore=shutil.ignore_patterns("out", "*.o", "*.so", "c_node", "c_sink"))
+        shutil.copytree(os.path.join(here, "native"), os.path.join(work, "native"),
+                        ignore=shutil.ignore_patterns("build*", "*.so"))
+        env = dict(os.environ, PYTHONPATH=here)
+        t = time.perf_counter()
+        walls = []
+        for argv in (["build"], ["run", "--timeout", "120"]):
+            res = subprocess.run([sys.executable, "-m", "dora_tpu_torch.cli", argv[0],
+                                  "dataflow.yml", *argv[1:]], cwd=example, env=env,
+                                 capture_output=True, text=True, timeout=240)
+            walls.append(time.perf_counter() - t)
+            if res.returncode != 0:
+                raise Failed(f"{what}: {argv[0]} exited {res.returncode}: {res.stdout[-1500:]} "
+                             f"{res.stderr[-1500:]}")
+        logs = [os.path.join(root, n) for root, _d, files in os.walk(os.path.join(example, "out"))
+                for n in files if n == "log_c_sink.txt"]
+        with open(logs[0]) as f:
+            lines = [line for line in f.read().splitlines() if line.startswith("c sink: ")]
+    if lines != want:
+        raise Failed(f"{what}: the sink printed {lines[-3:]} ({len(lines)} lines), expected "
+                     f"{want[-3:]}")
+    print(f"{what}: build {walls[0]:.1f} s, run {walls[1] - walls[0]:.1f} s; the C sink's "
+          f"{len(lines)} lines equal the C node's sums ({lines[-1]}) [{smi}]", flush=True)
+
+
+def operators_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi: str, scratch: str,
+                       here: str, layers: int, seed: int, prompts, max_new: int,
+                       served=None) -> None:
+    """Phase 23: operator nodes and peer-to-peer edges under the port's daemon."""
+    t0 = time.perf_counter()
+    recorder_dataflow(torch, smi, scratch, here)
+    p2p_serving(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch, layers, seed,
+                prompts, max_new, served)
+    c_dataflow(smi, scratch, here)
+    print(f"phase 23 in {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch/CUDA port")
     ap.add_argument("--layers", type=int, default=28, help="model depth (width stays)")
@@ -8219,6 +8548,10 @@ def main(argv=None) -> int:
                     help="build, then only phase 20 (b) (with its traced leg), phase 21 and "
                          "phase 22: the observability planes on phase 21's cluster (prints no "
                          "result line)")
+    ap.add_argument("--operators-dataflow", action="store_true",
+                    help="build, then only phase 23: vlm-recorder.yml in the operator form, "
+                         "the serving leg with peer-to-peer edges on and off, and "
+                         "examples/c-dataflow (prints no result line)")
     ap.add_argument("--paths", action="store_true",
                     help="build, then only phases 4, 6, 9 and 10, phase 12's main path and the "
                          "VLM's generate, for their times (prints no result line)")
@@ -8313,6 +8646,11 @@ def main(argv=None) -> int:
             del params, params4
             serve_dataflows(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch,
                             args.layers, args.seed, prompts, args.max_new)
+            return 0
+        if args.operators_dataflow:
+            del params, params4
+            operators_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch, here,
+                               args.layers, args.seed, prompts, args.max_new)
             return 0
         if args.cluster or args.observe:
             del params, params4
@@ -8456,6 +8794,8 @@ def main(argv=None) -> int:
                                  observe=True)
         for n in SPEC_OFF_KERNELS:  # the node that phase 22 observes, in its own process
             by_name[n]["observed_launches"] = observed[n]
+        operators_dataflow(torch, DB, LO, IM, L, qwen2, serve_prompts, smi, scratch, here,
+                           args.layers, args.seed, prompts, args.max_new, served)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

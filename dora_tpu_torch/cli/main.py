@@ -1,15 +1,17 @@
 """The port's CLI (dora_tpu/cli/main.py, its cluster and local commands).
 
 Local: ``check`` validates a dataflow YAML and lints its alert rules
-(``analysis.alertcheck``); ``run`` (or ``daemon --run-dataflow``) runs it to
-completion under the port's daemon in this process, every node on this
-machine, and exits non-zero when a node failed.
+(``analysis.alertcheck``); ``build`` runs its nodes' and operators' ``build:``
+commands from the YAML's directory; ``run`` (or ``daemon --run-dataflow``)
+runs it to completion under the port's daemon in this process, every node on
+this machine, and exits non-zero when a node failed.
 
 Cluster: ``up`` starts a coordinator and a daemon as detached processes
 (``python -m dora_tpu_torch.cli coordinator`` / ``daemon``, their pid and log
 files under ``DORA_TPU_STATE_DIR``, default ``/tmp/dora-tpu``) on the default
 ports; ``coordinator`` and ``daemon --coordinator-addr --machine-id`` start
-one of them in the foreground. ``start [--name] [--attach]``, ``stop``,
+one of them in the foreground. ``start [--name] [--attach [--hot-reload]]``
+(``--hot-reload`` reloads a Python operator whose file changed), ``stop``,
 ``list``, ``logs``, ``migrate`` and ``destroy`` talk to the coordinator's
 control port (``--coordinator-addr``, default ``127.0.0.1:6012``), and so do
 the observability views: ``metrics [--watch] [--json]`` (the merged snapshot
@@ -91,6 +93,28 @@ def cmd_check(args) -> int:
         if not errors(findings):
             print(f"{args.dataflow}: OK ({len(descriptor.nodes)} nodes)")
     return 1 if errors(findings) else 0
+
+
+def cmd_build(args) -> int:
+    """Run each node's and operator's ``build:`` command, in order, from the
+    dataflow's directory; stop at the first that fails."""
+    from dora_tpu_torch.core.descriptor import CustomNode, Descriptor, RuntimeNode
+
+    descriptor = Descriptor.read(args.dataflow)
+    working_dir = Path(args.dataflow).resolve().parent
+    for node in descriptor.nodes:
+        builds = []
+        if isinstance(node.kind, CustomNode) and node.kind.build:
+            builds.append(node.kind.build)
+        elif isinstance(node.kind, RuntimeNode):
+            builds += [op.build for op in node.kind.operators if op.build]
+        for build in builds:
+            print(f"[{node.id}] {build}", flush=True)
+            rc = subprocess.run(build, shell=True, cwd=working_dir).returncode
+            if rc != 0:
+                print(f"build of node {node.id!r} failed with {rc}", file=sys.stderr)
+                return rc
+    return 0
 
 
 def cmd_run(args) -> int:
@@ -247,14 +271,21 @@ def cmd_start(args) -> int:
 
 def _attach(c, uuid: str, args) -> int:
     """Ask the coordinator each ``ATTACH_POLL_S`` whether the dataflow
-    finished, printing its live log lines from a second connection; ctrl-c
-    stops it."""
+    finished, printing its live log lines from a second connection; with
+    ``--hot-reload``, a Python operator whose file changed is reloaded;
+    ctrl-c stops it."""
     stream_stop = _start_log_stream(args, uuid)
+    watcher = (HotReloadWatcher(args.dataflow, str(Path(args.dataflow).resolve().parent))
+               if getattr(args, "hot_reload", False) else None)
     try:
         while True:
             reply = c.request(cm.Check(dataflow_uuid=uuid))
             if isinstance(reply, cm.DataflowStopped):
                 return _print_result(reply.result)
+            for node_id, operator_id in watcher.changed() if watcher is not None else ():
+                print(f"reloading {node_id}/{operator_id}", flush=True)
+                c.request(cm.ReloadRequest(dataflow_id=uuid, node_id=node_id,
+                                           operator_id=operator_id))
             time.sleep(ATTACH_POLL_S)
     except KeyboardInterrupt:
         print("\nstopping dataflow...")
@@ -263,6 +294,43 @@ def _attach(c, uuid: str, args) -> int:
     finally:
         if stream_stop is not None:
             stream_stop()
+
+
+class HotReloadWatcher:
+    """Polls the files of a dataflow's Python operators for a newer mtime.
+    Python operators only, as in the JAX CLI: a custom node owns its
+    process, so swapping its code would be a restart; the runtime keeps a
+    Python operator's state across its reload."""
+
+    def __init__(self, dataflow_path: str, working_dir: str | None):
+        from dora_tpu_torch.core.descriptor import Descriptor, PythonSource, RuntimeNode
+
+        self.entries: list[tuple[Path, str, str, float]] = []
+        base = Path(working_dir or Path(dataflow_path).parent)
+        for node in Descriptor.read(dataflow_path).nodes:
+            if not isinstance(node.kind, RuntimeNode):
+                continue
+            for op in node.kind.operators:
+                if isinstance(op.source, PythonSource):
+                    path = Path(op.source.source)
+                    if not path.is_absolute():
+                        path = base / path
+                    if path.exists():
+                        self.entries.append((path, str(node.id), str(op.id),
+                                             path.stat().st_mtime))
+
+    def changed(self) -> list[tuple[str, str]]:
+        """(node id, operator id) of each file modified since the last call."""
+        out = []
+        for i, (path, node_id, op_id, mtime) in enumerate(self.entries):
+            try:
+                now = path.stat().st_mtime
+            except OSError:
+                continue
+            if now > mtime:
+                self.entries[i] = (path, node_id, op_id, now)
+                out.append((node_id, op_id))
+        return out
 
 
 def _start_log_stream(args, uuid: str):
@@ -548,6 +616,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true", help="the findings as JSON")
     p.set_defaults(fn=cmd_check)
 
+    p = sub.add_parser("build", help="run the build: commands of a dataflow's nodes and "
+                                     "operators")
+    p.add_argument("dataflow")
+    p.set_defaults(fn=cmd_build)
+
     p = sub.add_parser("run", help="run one dataflow to completion on this machine")
     p.add_argument("dataflow")
     local_comm(p)
@@ -572,6 +645,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--name", default=None)
     p.add_argument("--attach", action="store_true",
                    help="wait for the end, printing the nodes' log lines")
+    p.add_argument("--hot-reload", action="store_true",
+                   help="with --attach: reload a Python operator whose file changed")
     coordinator_addr(p)
     p.set_defaults(fn=cmd_start)
 

@@ -5,10 +5,12 @@ Four node kinds, resolved into one ``ResolvedNode`` list: ``path:`` and
 ``custom:`` nodes (an executable, a ``.py`` file, ``module:<name>``,
 ``shell`` or ``dynamic``), ``operators:`` and the ``operator:`` shorthand
 (a runtime node hosting operators, their streams namespaced
-``<operator>/<name>``). Operator sources are parsed as the JAX package
-parses them (``python``, ``shared-library``, ``jax``, ``wasm``), and
-:meth:`Descriptor.check` refuses each one: the port's runtime is the custom
-node ``module:dora_tpu_torch.runtime --operator <id>=<factory>``.
+``<operator>/<name>``, run by ``python -m dora_tpu_torch.runtime``).
+Operator sources: ``python``, ``shared-library`` and ``wasm`` as the JAX
+package parses them, and ``torch: <module>:<factory>``, the port's name for
+the JAX package's ``jax:`` source (operators fused into the runtime's
+step). A ``jax:`` source is parsed, and :meth:`Descriptor.check` refuses it
+naming ``torch:``.
 
 PyYAML is imported only by :meth:`Descriptor.read`; :meth:`Descriptor.parse`
 takes the parsed mapping.
@@ -61,18 +63,34 @@ class WasmSource:
 
 
 @dataclass(frozen=True)
-class JaxSource:
-    """A JAX operator of the JAX package's runtime: ``module.path:factory``
-    or ``file.py:factory``."""
+class TorchSource:
+    """A torch operator of the port's runtime, fused into its step:
+    ``module.path:factory`` or ``file.py:factory`` (the factory takes
+    ``device=`` and returns a ``tpu.api.TorchOperator``). ``device``, the
+    mapping form ``{source: ..., device: cpu}``, is the operator form's
+    counterpart of the custom runtime node's ``--device``: tests set it to
+    put the step on the CPU; None (the string form) is cuda."""
 
     source: str
+    device: str | None = None
 
     def split(self) -> tuple[str, str]:
         mod, sep, fn = self.source.partition(":")
         return (mod, fn if sep else "make_operator")
 
 
-OperatorSource = PythonSource | SharedLibrarySource | JaxSource | WasmSource
+@dataclass(frozen=True)
+class JaxSource:
+    """A JAX operator of the JAX package's runtime (``jax:``); the port's
+    check refuses it, naming ``torch:``."""
+
+    source: str
+
+
+OperatorSource = PythonSource | SharedLibrarySource | TorchSource | JaxSource | WasmSource
+
+#: operator source keys, in the order of their checks
+OPERATOR_KINDS = ("python", "shared-library", "torch", "jax", "wasm")
 
 
 @dataclass(frozen=True)
@@ -91,13 +109,11 @@ class OperatorDefinition:
         op_id = value.get("id", default_id)
         if op_id is None:
             raise ValueError(f"operator missing 'id': {value!r}")
-        sources = [
-            k for k in ("python", "shared-library", "jax", "wasm") if k in value
-        ]
+        sources = [k for k in OPERATOR_KINDS if k in value]
         if len(sources) != 1:
             raise ValueError(
                 f"operator {op_id!r} must have exactly one of "
-                f"python/shared-library/jax/wasm, got {sources}"
+                f"{'/'.join(OPERATOR_KINDS)}, got {sources}"
             )
         kind = sources[0]
         raw = value[kind]
@@ -112,6 +128,11 @@ class OperatorDefinition:
             source = SharedLibrarySource(source=str(raw))
         elif kind == "wasm":
             source = WasmSource(source=str(raw))
+        elif kind == "torch":
+            if isinstance(raw, Mapping):
+                source = TorchSource(source=str(raw["source"]), device=raw.get("device"))
+            else:
+                source = TorchSource(source=str(raw))
         else:
             source = JaxSource(source=str(raw))
         return cls(
@@ -415,6 +436,25 @@ class ResolvedNode:
         return frozenset(
             DataId(f"{op.id}/{o}") for op in self.kind.operators for o in op.outputs
         )
+
+    def fused_internal_inputs(self) -> frozenset[DataId]:
+        """Inputs of a runtime node fed inside it by its fused torch step
+        (both ends torch operators of this node): tensors on the device,
+        never routed by the daemon, the source output never published."""
+        if not isinstance(self.kind, RuntimeNode):
+            return frozenset()
+        torch_ops = {str(op.id) for op in self.kind.operators
+                     if isinstance(op.source, TorchSource)}
+        internal = set()
+        for op in self.kind.operators:
+            if str(op.id) not in torch_ops:
+                continue
+            for input_id, inp in op.inputs.items():
+                m = inp.mapping
+                if (getattr(m, "source", None) == str(self.id)
+                        and str(m.output).partition("/")[0] in torch_ops):
+                    internal.add(DataId(f"{op.id}/{input_id}"))
+        return frozenset(internal)
 
     @property
     def source(self) -> str | None:

@@ -1,8 +1,8 @@
-"""Dataflow validation (dora_tpu/core/validate.py): every custom node's
-source resolves, every input names an existing node and one of its declared
-outputs. Operator nodes are refused by name: the port's runtime is a custom
-node (``module:dora_tpu_torch.runtime --operator <id>=<factory>``), and it
-hosts no Python, shared-library, JAX or WASM operator."""
+"""Dataflow validation (dora_tpu/core/validate.py): every custom node's and
+operator's source resolves, every input names an existing node and one of
+its declared outputs. The port's runtime hosts ``python``,
+``shared-library`` and ``torch`` operators; a ``jax:`` operator is refused
+naming ``torch:``, its counterpart, and a ``wasm:`` one as unsupported."""
 
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from dora_tpu_torch.core.descriptor import (
     PythonSource,
     RuntimeNode,
     SharedLibrarySource,
+    TorchSource,
 )
 
 
@@ -40,7 +41,7 @@ def check_dataflow(descriptor: Descriptor, working_dir: str | Path | None = None
         else:
             assert isinstance(node.kind, RuntimeNode)
             for op in node.kind.operators:
-                _refuse_operator(node.id, op.id, op.source)
+                _check_operator_source(node.id, op.id, op.source, working_dir)
 
         # 2. every input refers to an existing node + declared output
         for input_id, inp in node.inputs.items():
@@ -80,16 +81,47 @@ def _check_custom_source(node_id, kind: CustomNode, working_dir: Path | None) ->
     raise ValidationError(f"node {node_id!r}: source {source!r} not found")
 
 
-def _refuse_operator(node_id, op_id, source) -> None:
+def adjust_shared_library_path(path: Path) -> Path:
+    """'op' -> 'libop.so' / 'op.so' when the bare name does not exist."""
+    if path.exists():
+        return path
+    for candidate in (path.with_name(f"lib{path.name}.so"), path.with_name(f"{path.name}.so")):
+        if candidate.exists():
+            return candidate
+    return path
+
+
+def _check_operator_source(node_id, op_id, source, working_dir: Path | None) -> None:
     if isinstance(source, (PythonSource, SharedLibrarySource)):
-        kind = "python" if isinstance(source, PythonSource) else "shared-library"
+        src = source.source
+        if "://" in src:
+            raise ValidationError(
+                f"operator {node_id}/{op_id}: source {src!r} is a URL, and the port's daemon "
+                "downloads nothing")
+        path = Path(src)
+        if working_dir and not path.is_absolute():
+            path = working_dir / path
+        if isinstance(source, SharedLibrarySource):
+            path = adjust_shared_library_path(path)
+        if not path.exists():
+            raise ValidationError(f"operator {node_id}/{op_id}: source {src!r} not found")
+        if isinstance(source, PythonSource) and path.suffix != ".py":
+            raise ValidationError(
+                f"operator {node_id}/{op_id}: python source must be a .py file")
+    elif isinstance(source, TorchSource):
+        mod, _fn = source.split()
+        if mod.endswith(".py"):
+            path = Path(mod)
+            if working_dir and not path.is_absolute():
+                path = working_dir / path
+            if not path.exists():
+                raise ValidationError(
+                    f"operator {node_id}/{op_id}: torch source file {mod!r} not found")
+        # a module path resolves when the runtime imports it
+    elif isinstance(source, JaxSource):
         raise ValidationError(
-            f"operator {node_id}/{op_id}: the port's runtime hosts no {kind} operators "
-            "(callback operators are not ported)")
-    if isinstance(source, JaxSource):
-        raise ValidationError(
-            f"operator {node_id}/{op_id}: a jax operator belongs to the JAX package's "
-            "runtime; the port's runtime is the custom node "
-            "'module:dora_tpu_torch.runtime --operator <id>=<module:factory>'")
-    raise ValidationError(
-        f"operator {node_id}/{op_id}: WASM operators are not supported")
+            f"operator {node_id}/{op_id}: 'jax: {source.source}' is the JAX package's "
+            "operator; the port's runtime fuses torch operators: write "
+            f"'torch: <module>:<factory>' (e.g. torch: dora_tpu_torch.nodehub.ops:make_vlm)")
+    else:
+        raise ValidationError(f"operator {node_id}/{op_id}: WASM operators are not supported")

@@ -28,14 +28,17 @@ and its alert engine (``alerts``) for ``history_snapshot`` and
 ``alerts_snapshot``; the nodes' ``ReportTrace`` chunks, beside this daemon's
 own flight-recorder ring (its ``t_route`` / ``t_deliver`` spans with
 ``DORA_TRACING=1``), for ``trace_snapshot``; a node's ``ReportProfile`` goes
-to ``profile_sink``. Not here: peer-to-peer edges (every edge takes the
-daemon route).
+to ``profile_sink``. These counters and spans see only the edges the
+daemon routes: a peer-to-peer edge (paired at barrier release between two
+announced local nodes, ``node/p2p.py``) carries its messages past it.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
+import os
 import random
 import time
 import uuid as uuid_mod
@@ -68,6 +71,7 @@ from dora_tpu_torch.message.common import (
     NodeResult,
     SharedMemoryData,
     TypeInfo,
+    new_drop_token,
 )
 from dora_tpu_torch.message.serde import (
     Timestamped,
@@ -77,7 +81,7 @@ from dora_tpu_torch.message.serde import (
 )
 from dora_tpu_torch.metrics import DataflowMetrics
 from dora_tpu_torch.metrics_history import MetricsHistoryRing, history_interval_s
-from dora_tpu_torch.native import ShmemChannel, ShmemRegion
+from dora_tpu_torch.native import ShmemChannel, ShmemError, ShmemRegion, unlink_region
 from dora_tpu_torch.telemetry import FLIGHT, OTEL_CTX_KEY, TRACING
 from dora_tpu_torch.transport.framing import ConnectionClosed
 
@@ -90,9 +94,6 @@ DEFAULT_GRACE_S = 15.0
 #: threshold or more travel in their own regions, so the channel carries
 #: control messages and inline payloads only
 SHMEM_CHANNEL_CAPACITY = 1 << 20
-
-#: the reply to a JAX node's peer-to-peer announcement
-P2P_REFUSAL = "the port's daemon routes every edge (peer-to-peer edges are not ported)"
 
 #: trace plane: buffered ReportTrace events a node, oldest dropped first
 MAX_NODE_TRACE_EVENTS = 20_000
@@ -116,8 +117,12 @@ class TokenState:
     """One shared-memory region in flight: who owns it, how many receivers
     still reference it."""
 
-    owner: str  # node id
+    owner: str  # node id, or CUSTODY
     pending: int = 0
+
+
+#: the owner of a region the daemon copied a finished sender's payload into
+CUSTODY = ""
 
 
 @dataclass
@@ -205,6 +210,14 @@ class DataflowState:
     alerts: AlertEngine | None = None
     #: node id -> [ERROR lines, WARN lines] of its log (``on_node_log``)
     log_counts: dict[str, list[int]] = field(default_factory=dict)
+    #: node id -> {input id: channel name} it announced (P2PAnnounce)
+    p2p_listeners: dict[str, dict[str, str]] = field(default_factory=dict)
+    #: (sender, output, receiver, input) edges paired peer-to-peer at
+    #: barrier release; the routing skips them
+    p2p_edges: set = field(default_factory=set)
+    #: token -> a region of the daemon's own holding a finished sender's
+    #: payload for the receivers that have not read it yet
+    custody: dict[str, ShmemRegion] = field(default_factory=dict)
 
     def node_machine(self, node_id: str) -> str:
         return self.descriptor.node(node_id).deploy.machine or ""
@@ -326,7 +339,12 @@ class Daemon:
             for output in node.outputs:
                 df.open_outputs.add(OutputId(node.id, output))
         for node in descriptor.nodes:
+            fused_internal = node.fused_internal_inputs()
             for input_id, inp in node.inputs.items():
+                if input_id in fused_internal:
+                    # two fused torch operators of one node: a tensor inside
+                    # the node's step, not a routed input
+                    continue
                 target = InputId(node.id, input_id)
                 if isinstance(inp.mapping, TimerMapping):
                     df.timers.setdefault(inp.mapping.interval_ns, set()).add(target)
@@ -436,11 +454,56 @@ class Daemon:
                          failed_node: str | None = None) -> None:
         df.barrier_error = error
         df.barrier_failed_node = failed_node
+        if error is None:
+            self._compute_p2p(df)
         df.started.set()
         if error is None:
             for interval_ns, targets in df.timers.items():
                 df.timer_tasks.append(
                     asyncio.create_task(self._timer_loop(df, interval_ns, targets)))
+
+    def _compute_p2p(self, df: DataflowState) -> None:
+        """Pair the peer-to-peer edges: both ends on this machine and
+        announced, the receiver serving that input and without a
+        ``restart`` policy (its crash replay needs the daemon to hold the
+        in-flight inputs), and the output produced by the node itself (a
+        ``send_stdout_as`` output is the daemon's stdout pump's). The
+        routing skips the paired edges."""
+        if os.environ.get("DORA_P2P", "1") in ("", "0"):
+            return
+        for oid, targets in df.mappings.items():
+            sender = str(oid.node)
+            if sender not in df.local_nodes or sender not in df.p2p_listeners:
+                continue
+            if df.descriptor.node(sender).send_stdout_as == str(oid.output):
+                continue
+            for target in targets:
+                rnode = str(target.node)
+                listeners = df.p2p_listeners.get(rnode)
+                if (rnode in df.local_nodes and listeners is not None
+                        and str(target.input) in listeners
+                        and df.descriptor.node(rnode).restart is None):
+                    df.p2p_edges.add((sender, str(oid.output), rnode, str(target.input)))
+        logger.info("dataflow %s: peer-to-peer edges %s", df.id,
+                    sorted(f"{s}/{o} -> {r}/{i}" for s, o, r, i in df.p2p_edges))
+
+    def _p2p_edges_reply(self, df: DataflowState, node_id: str) -> d2n.P2PEdgesReply:
+        outputs: dict[str, Any] = {}
+        for oid, targets in df.mappings.items():
+            if str(oid.node) != node_id:
+                continue
+            edges = []
+            daemon_route = False
+            for target in targets:
+                rnode = str(target.node)
+                if (node_id, str(oid.output), rnode, str(target.input)) in df.p2p_edges:
+                    edges.append(d2n.P2PEdge(channel=df.p2p_listeners[rnode][str(target.input)],
+                                             input_id=str(target.input), receiver=rnode))
+                else:
+                    daemon_route = True
+            if edges:
+                outputs[str(oid.output)] = d2n.P2POutput(edges=edges, daemon_route=daemon_route)
+        return d2n.P2PEdgesReply(outputs=outputs)
 
     def poison_barrier(self, df: DataflowState, failed_node: str) -> None:
         """A node exited before subscribing: the whole start fails."""
@@ -501,6 +564,8 @@ class Daemon:
         remote_machines: set[str] = set()
         for target in df.mappings.get(oid, ()):
             rnode = str(target.node)
+            if (sender, output_id, rnode, str(target.input)) in df.p2p_edges:
+                continue  # the sender published this edge peer-to-peer
             if rnode not in df.local_nodes:
                 remote_machines.add(df.node_machine(rnode))
                 continue
@@ -566,6 +631,8 @@ class Daemon:
             # the context parse_send_message read off the wire
             FLIGHT.record("t_route", label, fast.ctx, max(0, time.time_ns() - send_ns))
         for rnode, input_id in receivers:
+            if (sender, fast.output_id, rnode, input_id) in df.p2p_edges:
+                continue  # the sender published this edge peer-to-peer
             queue = df.queues.get(rnode)
             if queue is None or input_id not in df.open_inputs.get(rnode, set()):
                 continue
@@ -738,9 +805,54 @@ class Daemon:
             self._notify_owner(df, state.owner, token)
 
     def _notify_owner(self, df: DataflowState, owner: str, token: str) -> None:
+        if owner == CUSTODY:
+            region = df.custody.pop(token, None)
+            if region is not None:
+                region.close(unlink=True, force=True)
+            return
         drop_queue = df.drop_queues.get(owner)
         if drop_queue is not None:
             drop_queue.push(token)
+
+    def take_custody(self, df: DataflowState, sender: str) -> None:
+        """The sender has sent its last output (OutputsDone) and waits at
+        most its ``DROP_TOKEN_WAIT_S`` for its regions before it unlinks
+        them, while a busy receiver may not read its queue for longer. So
+        each of its shared-memory payloads still queued here is copied into
+        a region of the daemon's own, which lives until its receivers
+        release it, and the sender's region is released now."""
+        copies: dict[str, SharedMemoryData | None] = {}
+        for queue in df.queues.values():
+            for entry in queue.entries:
+                token = entry.drop_token
+                state = df.tokens.get(token) if token is not None else None
+                if state is None or state.owner != sender or entry.event is None:
+                    continue
+                if token not in copies:
+                    copies[token] = self._custody_copy(df, entry.event.inner.data)
+                copy = copies[token]
+                if copy is None:
+                    continue  # the sender's region is gone already: as before
+                entry.event = Timestamped(inner=dataclasses.replace(entry.event.inner, data=copy),
+                                          timestamp=entry.event.timestamp)
+                entry.drop_token = copy.drop_token
+                df.tokens[copy.drop_token].pending += 1
+                self._unref_token(df, token)
+
+    def _custody_copy(self, df: DataflowState, data: SharedMemoryData) -> SharedMemoryData | None:
+        """``data``'s bytes in a new region of the daemon's own (owner
+        CUSTODY, no receiver yet); None when the region cannot be read."""
+        try:
+            payload = self._payload_bytes(data)
+        except ShmemError:
+            return None
+        region = ShmemRegion.create(f"dtp-{uuid_mod.uuid4().hex[:16]}", max(data.len, 1))
+        with memoryview(region) as view:
+            view[:data.len] = payload
+        copy = SharedMemoryData(shmem_id=region.name, len=data.len, drop_token=new_drop_token())
+        df.custody[copy.drop_token] = region
+        df.tokens[copy.drop_token] = TokenState(owner=CUSTODY)
+        return copy
 
     def ack_tokens(self, df: DataflowState, node_id: str, tokens: list[str]) -> None:
         delivered = df.delivered_tokens.get(node_id)
@@ -965,6 +1077,9 @@ class Daemon:
         for queue in df.queues.values():
             queue.release_all_tokens()
             queue.close()
+        for region in df.custody.values():
+            region.close(unlink=True, force=True)
+        df.custody.clear()
         for dq in df.drop_queues.values():
             dq.close()
         for buffer in df.replay_buffers.values():
@@ -973,6 +1088,13 @@ class Daemon:
         # unlinks synchronously before the process exits.
         for conn in df.shmem_conns:
             conn.close()
+        # announced edge channels a SIGKILLed node may have left (nodes
+        # unlink their own on close)
+        for listeners in df.p2p_listeners.values():
+            for name in listeners.values():
+                for victim in (name, name + "-a"):  # data and ack channels
+                    unlink_region(victim)
+        df.p2p_listeners.clear()
         result = DataflowResult(
             uuid=df.id,
             node_results={nid: df.node_results.get(nid, NodeResult(error=None))
@@ -1144,11 +1266,15 @@ class Daemon:
             if self.profile_sink is not None:
                 self.profile_sink(df.id, node_id, msg.artifact, msg.error)
         elif isinstance(msg, n2d.P2PAnnounce):
-            await self._reply(conn, d2n.ReplyResult(error=P2P_REFUSAL))
+            df.p2p_listeners[node_id] = dict(msg.listeners)
+            await self._reply(conn, d2n.ReplyResult())
+        elif isinstance(msg, n2d.P2PEdgesRequest):
+            await self._reply(conn, self._p2p_edges_reply(df, node_id))
         elif isinstance(msg, n2d.CloseOutputs):
             self.close_outputs(df, node_id, msg.outputs)
             await self._reply(conn, d2n.ReplyResult())
         elif isinstance(msg, n2d.OutputsDone):
+            self.take_custody(df, node_id)
             # The send_stdout_as output is published by the stdout pump; it
             # closes when the node's exit is finalized, after the pump
             # drained, so the node's last lines are not lost.

@@ -46,12 +46,11 @@ def resolve_command(node: ResolvedNode, working_dir: Path) -> list[str] | str:
 
     - ``path: shell`` runs ``args`` through the shell;
     - ``module:<name>`` and ``*.py`` sources run under this interpreter;
+    - a runtime node (operators) runs the port's operator runtime;
     - anything else is an executable path or $PATH name.
-
-    Operator nodes have no host here (``Descriptor.check`` refuses them).
     """
     if not isinstance(node.kind, CustomNode):
-        raise RuntimeError(f"node {node.id!r}: the port's daemon runs no operator node")
+        return [sys.executable, "-m", "dora_tpu_torch.runtime"]
     custom: CustomNode = node.kind
     source = custom.source
     args = shlex.split(custom.args) if custom.args else []

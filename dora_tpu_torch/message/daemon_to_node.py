@@ -1,7 +1,6 @@
 """daemon -> node replies, events and the node's bootstrap config: the
 port's copy of the classes of dora_tpu/message/daemon_to_node.py a node
-receives. Peer-to-peer replies are left out: the port's node announces no
-peer-to-peer listeners, so every edge takes the daemon route."""
+receives, the peer-to-peer edge assignments included."""
 
 from __future__ import annotations
 
@@ -38,6 +37,35 @@ class DropEvents:
     free for the owning node to reuse (empty only on stream close)."""
 
     drop_tokens: list[str]
+
+
+@message
+class P2PEdge:
+    """One peer-to-peer assignment of a sender's output: publish straight
+    into ``channel`` (the receiver's shared-memory server) as input
+    ``input_id`` of ``receiver``."""
+
+    channel: str
+    input_id: str
+    receiver: str
+
+
+@message
+class P2POutput:
+    """All peer-to-peer edges of one output, and whether the daemon must
+    still be sent the output (receivers off peer-to-peer, or on other
+    machines)."""
+
+    edges: list[Any]  # list[P2PEdge]
+    daemon_route: bool
+
+
+@message
+class P2PEdgesReply:
+    """Reply to P2PEdgesRequest: output id -> P2POutput. An output not in
+    the map goes through the daemon alone."""
+
+    outputs: dict[str, Any]  # output id -> P2POutput
 
 
 @message

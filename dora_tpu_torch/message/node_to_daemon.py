@@ -124,11 +124,19 @@ class NodeConfigRequest:
 
 @message
 class P2PAnnounce:
-    """Peer-to-peer listeners a JAX node announces before subscribing (input
-    id -> shared-memory channel). The port's daemon refuses it, so the node
-    keeps every edge on the daemon route."""
+    """Peer-to-peer listeners a node announces before subscribing: input id
+    -> the shared-memory channel the node already serves for it. The
+    announcement also marks the node as a peer-to-peer sender; at barrier
+    release the daemon pairs the edges of announced endpoints and stops
+    routing those edges itself."""
 
     listeners: dict[str, str]
+
+
+@message
+class P2PEdgesRequest:
+    """After the start barrier: which of my outputs go peer-to-peer, and
+    where. Reply: daemon_to_node.P2PEdgesReply."""
 
 
 def expects_reply(request: Any) -> bool:

@@ -171,6 +171,25 @@ def encode_timestamped(msg: Any, clock) -> bytes:
     return encode(Timestamped(inner=msg, timestamp=clock.new_timestamp()))
 
 
+def encode_timestamped_inputs(input_ids, metadata: Any, data: Any, clock) -> dict[str, bytes]:
+    """``encode_timestamped(Input(id, metadata, data), clock)`` for each id
+    of ``input_ids``, under one timestamp: the metadata and the payload go
+    through the encoder once, and only the id differs between the frames."""
+    import msgpack
+
+    from dora_tpu_torch.message.daemon_to_node import Input
+
+    wire = _encode_value(Timestamped(inner=Input(id="", metadata=metadata, data=data),
+                                     timestamp=clock.new_timestamp()))
+    fields = wire["f"]["inner"]["f"]
+    frames = {}
+    for input_id in input_ids:
+        if input_id not in frames:
+            fields["id"] = str(input_id)
+            frames[input_id] = msgpack.packb(wire, use_bin_type=True)
+    return frames
+
+
 def decode_timestamped(data: bytes | memoryview, clock=None) -> Timestamped:
     msg = decode(data)
     if not isinstance(msg, Timestamped):

@@ -72,6 +72,7 @@ def _load() -> ctypes.CDLL:
             ("dtp_region_ptr", P, [P]),
             ("dtp_region_size", U64, [P]),
             ("dtp_region_close", None, [P, I]),
+            ("dtp_region_unlink", I, [ctypes.c_char_p]),
             ("dtp_channel_create", P, [ctypes.c_char_p, U32]),
             ("dtp_channel_open", P, [ctypes.c_char_p]),
             ("dtp_channel_capacity", U32, [P]),
@@ -238,3 +239,9 @@ class ShmemChannel:
             self._h = 0
             self._recv_buf = None
 
+
+
+def unlink_region(name: str) -> None:
+    """Remove a region's (or channel's) name; its mappings stay valid. A
+    name that does not exist is no error."""
+    _load().dtp_region_unlink(name.encode())

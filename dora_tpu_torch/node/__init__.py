@@ -6,8 +6,10 @@ Construct it from the environment (a spawned node reads the base64 wire
 ``NodeConfig`` in ``DORA_NODE_CONFIG``) or by node id (a dynamic node asks
 the daemon's local listen port); iterate events; publish with
 ``send_output``, in shared memory for payloads of ``ZERO_COPY_THRESHOLD``
-bytes or more. The node announces no peer-to-peer listeners, so the daemon
-routes every edge of it, as it does a dynamic node's.
+bytes or more. Unless ``DORA_P2P=0`` or the node is dynamic, it announces
+peer-to-peer listeners before subscribing and publishes the edges the daemon
+pairs straight into the receivers' channels (node/p2p.py); the daemon
+routes the rest.
 
 msgpack (the wire codec) is imported when the node first talks to its
 daemon; pyarrow only when a payload is Arrow::
@@ -23,6 +25,7 @@ daemon; pyarrow only when a payload is Arrow::
 from __future__ import annotations
 
 import base64
+import logging
 import os
 import socket
 import threading
@@ -51,6 +54,8 @@ from dora_tpu_torch.native import ShmemRegion
 from dora_tpu_torch.node.channels import DaemonChannel, DaemonError
 from dora_tpu_torch.node.events import Event, EventStream
 from dora_tpu_torch.transport.framing import recv_frame, send_frame
+
+logger = logging.getLogger(__name__)
 
 #: the env var a spawning daemon puts the node's config in
 NODE_CONFIG_ENV = "DORA_NODE_CONFIG"
@@ -146,6 +151,27 @@ class Node:
         self._regions_lock = threading.Lock()
         self._regions_in_use: dict[str, ShmemRegion] = {}  # token -> region
         self._regions_free: list[ShmemRegion] = []
+        #: token -> acks still expected (peer-to-peer fan-out; default 1)
+        self._token_refs: dict[str, int] = {}
+        #: receiver side: a token delivered peer-to-peer -> its edge server
+        self._p2p_token_routes: dict[str, Any] = {}
+
+        # Peer-to-peer edges: the channels exist and are announced BEFORE
+        # subscribing, so the daemon pairs the edges at the barrier. A
+        # dynamic node attaches after the barrier and keeps the daemon route.
+        self._p2p = None
+        if not config.dynamic and os.environ.get("DORA_P2P", "1") not in ("", "0"):
+            try:
+                from dora_tpu_torch.node.p2p import P2PEndpoint
+
+                self._p2p = P2PEndpoint(self)
+                self._control.request_ok(n2d.P2PAnnounce(listeners=self._p2p.listeners))
+            except Exception as e:
+                logger.warning("node %s: peer-to-peer edges off, every edge takes the "
+                               "daemon route: %s: %s", config.node_id, type(e).__name__, e)
+                if self._p2p is not None:
+                    self._p2p.close()
+                self._p2p = None
 
         drop_channel = DaemonChannel.connect(comm, n2d.CHANNEL_DROP, config.dataflow_id,
                                              config.node_id, self._clock)
@@ -169,6 +195,18 @@ class Node:
         # Blocks until every node of the dataflow subscribed (start barrier).
         events_channel.request_ok(n2d.Subscribe())
         self._events = EventStream(events_channel, on_ack=self._queue_ack)
+        if self._p2p is not None:
+            # after the barrier: serve the inbound edges, learn the outbound
+            self._p2p.start(self._events)
+            try:
+                reply = self._control.request(n2d.P2PEdgesRequest())
+            except Exception as e:
+                reply = e
+            if isinstance(reply, d2n.P2PEdgesReply):
+                self._p2p.set_outbound(reply)
+            else:
+                logger.warning("node %s: no peer-to-peer edges out, every output takes the "
+                               "daemon route: the edge request got %r", config.node_id, reply)
         self._closed = False
 
     @staticmethod
@@ -258,7 +296,8 @@ class Node:
                       message_data)
 
     def _publish(self, output_id: str, metadata: Metadata, data: Any) -> None:
-        """Route one output through the daemon. With tracing on, a child
+        """Publish one output on its peer-to-peer edges, then through the
+        daemon where a receiver still needs it. With tracing on, a child
         trace context goes into the metadata and the publish is recorded as
         a ``t_send`` span."""
         if not self._tracing.active:
@@ -280,6 +319,8 @@ class Node:
         counts[1] += metadata.type_info.len
         if self._flight.enabled:
             self._flight.record("send", output_id, metadata.type_info.len)
+        if self._p2p is not None and not self._p2p.publish(output_id, metadata, data):
+            return
         msg = n2d.SendMessage(output_id=output_id, metadata=metadata, data=data)
         if self._coalesce and (data is None or isinstance(data, InlineData)):
             # Inline outputs only: a shared-memory payload's drop token must
@@ -357,6 +398,12 @@ class Node:
         return region, token
 
     def _queue_ack(self, token: str) -> None:
+        # a token delivered peer-to-peer acks back over its edge (the
+        # daemon never saw it)
+        edge = self._p2p_token_routes.pop(token, None)
+        if edge is not None:
+            edge.queue_ack(token)
+            return
         with self._ack_cond:
             self._pending_acks.append(token)
             self._ack_cond.notify()
@@ -400,9 +447,21 @@ class Node:
             except Exception:
                 return
 
+    def _set_token_refs(self, token: str, refs: int) -> None:
+        """The acks ``token``'s region waits for before its reuse (one a
+        direct receiver, and the daemon's)."""
+        with self._regions_lock:
+            if refs > 1:
+                self._token_refs[token] = refs
+
     def _reclaim_regions(self, tokens: list[str]) -> None:
         with self._regions_lock:
             for token in tokens:
+                refs = self._token_refs.get(token)
+                if refs is not None and refs > 1:
+                    self._token_refs[token] = refs - 1
+                    continue
+                self._token_refs.pop(token, None)
                 region = self._regions_in_use.pop(token, None)
                 if region is None:
                     continue
@@ -436,18 +495,30 @@ class Node:
             self._ack_closing = True
             self._ack_cond.notify()
         self._ack_thread.join(timeout=2)
+        if self._p2p is not None:
+            # the last frame of each edge goes out before the daemon's
+            # InputClosed can reach its receiver
+            self._p2p.drain_outboxes(DROP_TOKEN_WAIT_S)
         try:
             if self._tracing.active:
                 self._queue_trace_report()
             self._control.request_ok(n2d.OutputsDone())
         except Exception:
             pass
+        if self._p2p is not None:
+            self._p2p.flush_acks()  # bring the receivers' acks home
         deadline = time.monotonic() + DROP_TOKEN_WAIT_S
+        last_flush = time.monotonic()
         while time.monotonic() < deadline:
             with self._regions_lock:
                 if not self._regions_in_use:
                     break
+            if self._p2p is not None and time.monotonic() - last_flush > 0.5:
+                self._p2p.flush_acks()
+                last_flush = time.monotonic()
             time.sleep(0.05)
+        if self._p2p is not None:
+            self._p2p.close()
         self._drop_stream.close()
         try:
             self._control.close()

@@ -36,8 +36,12 @@ two is the rejected tail.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
+import sys
+import threading
 import time
 
 import torch
@@ -295,7 +299,7 @@ def stop_capture(out_dir: str, start_error: str | None = None,
 
 def _has_capture_files(out_dir: str) -> bool:
     for _root, _dirs, files in os.walk(out_dir):
-        if files:
+        if set(files) - {KINETO_LOG}:
             return True
     return False
 
@@ -303,11 +307,57 @@ def _has_capture_files(out_dir: str) -> bool:
 #: the file beside a :class:`Capture`'s trace that holds its step timings
 CAPTURE_TIMINGS = "capture.json"
 
+#: the file in a capture's directory that Kineto's own stderr lines go to
+KINETO_LOG = "kineto.log"
+
+#: a line of Kineto's: the registration error a profiler started off the
+#: thread that imported torch prints, and its glog-style lines
+#: ("USDT:2026-10-18 23:16:54 15952:15960 SyncActivityProfilerHandler.cpp:52] ...")
+_KINETO_LINE = re.compile(rb"^(ERROR: External init callback must run in same thread"
+                          rb"|[A-Z]+:\d{4}-\d\d-\d\d \d\d:\d\d:\d\d \d+:\d+ \w+\.cpp:\d+\])")
+
+_stderr_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def kineto_lines_aside(path: str):
+    """While the block runs, the process's stderr (fd 2) passes through a
+    pipe: Kineto's lines (:data:`_KINETO_LINE`) go to ``path``, every other
+    line to stderr as before. Kineto writes them from C++ straight to fd 2
+    while a capture starts and stops, where a node's daemon would count them
+    as the node's error lines."""
+    with _stderr_lock:
+        sys.stderr.flush()
+        saved = os.dup(2)
+        read_fd, write_fd = os.pipe()
+        os.dup2(write_fd, 2)
+        os.close(write_fd)
+
+        def pump() -> None:
+            with os.fdopen(read_fd, "rb") as pipe, open(path, "ab") as aside:
+                for line in pipe:
+                    if _KINETO_LINE.match(line):
+                        aside.write(line)
+                    else:
+                        os.write(saved, line)
+
+        thread = threading.Thread(target=pump, name="dora-kineto-lines", daemon=True)
+        thread.start()
+        try:
+            yield
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)  # closes the pipe's last write end: the pump ends
+            thread.join(timeout=5)
+            os.close(saved)
+
 
 class Capture:
     """One capture on a thread of its own, so that the profiler's start
     (Kineto's and CUPTI's set-up, seconds on its first use in a process),
-    stop and export do not run on the caller's loop. Host ops are recorded
+    stop and export do not run on the caller's loop. Kineto's own stderr
+    lines of the start and the stop go to :data:`KINETO_LOG` in the
+    capture's directory (:func:`kineto_lines_aside`). Host ops are recorded
     on every thread. ``started`` once the profiler runs (or failed to
     start), ``stop()`` asks it to end, ``done`` once the artifact is
     written; ``artifact`` is then :func:`stop_capture`'s path and
@@ -330,8 +380,11 @@ class Capture:
     def _run(self) -> None:
         t = time.perf_counter()
         error = None
+        os.makedirs(self.out_dir, exist_ok=True)
+        kineto_log = os.path.join(self.out_dir, KINETO_LOG)
         try:
-            error = start_capture(self.out_dir, all_threads=True)
+            with kineto_lines_aside(kineto_log):
+                error = start_capture(self.out_dir, all_threads=True)
         except Exception as exc:  # noqa: BLE001 (the marker says why)
             error = f"{type(exc).__name__}: {exc}"
         self.timings["start_s"] = time.perf_counter() - t
@@ -341,7 +394,8 @@ class Capture:
         self._stop.wait()
         self.timings["stopped_unix"] = time.time()
         try:
-            self.artifact = stop_capture(self.out_dir, error, self.timings)
+            with kineto_lines_aside(kineto_log):
+                self.artifact = stop_capture(self.out_dir, error, self.timings)
         except Exception as exc:  # noqa: BLE001
             self.artifact = stop_capture(self.out_dir, f"{type(exc).__name__}: {exc}")
         if self.artifact == self.out_dir:

@@ -121,16 +121,32 @@ class FusedGraph:
     @classmethod
     def build(cls, node: ResolvedNode, descriptor: Descriptor | None = None, working_dir=None,
               sources: dict[str, str] | None = None, device=None) -> "FusedGraph":
-        """The graph of the port's runtime node ``node``. ``sources`` and
-        ``device`` default to what the node's own ``args`` give; ``device``
-        None is cuda. Without ``descriptor`` every output is external."""
+        """The graph of the port's runtime node ``node``: the torch
+        operators of an operator node, or the custom node's ``--operator``
+        sources (``sources`` and ``device`` default to what its ``args``
+        give). ``device`` None is the operators' own, else cuda. Without
+        ``descriptor`` every output is external."""
         from dora_tpu_torch._device import resolve_device
+        from dora_tpu_torch.core.descriptor import RuntimeNode, TorchSource
 
-        if sources is None:
-            sources, arg_device = parse_runtime_args(node.args)
-            device = device if device is not None else arg_device
+        if isinstance(node.kind, RuntimeNode):
+            # the descriptor's operator form: the node's torch operators
+            ops = [op for op in node.kind.operators if isinstance(op.source, TorchSource)]
+            devices = {op.source.device for op in ops}
+            if len(devices) > 1:
+                raise ValueError(f"node {node.id!r}: its torch operators name different "
+                                 f"devices {sorted(map(str, devices))}; one step runs on one")
+            device = device if device is not None else next(iter(devices), None)
+            defs = {str(op.id): OperatorDefinition(str(op.id), op.source.source,
+                                                   {str(k): v for k, v in op.inputs.items()},
+                                                   frozenset(map(str, op.outputs)))
+                    for op in ops}
+        else:
+            if sources is None:
+                sources, arg_device = parse_runtime_args(node.args)
+                device = device if device is not None else arg_device
+            defs = operator_definitions(node, sources)
         dev = resolve_device(device)
-        defs = operator_definitions(node, sources)
 
         intra: dict[tuple[str, str], tuple[str, str]] = {}
         external_inputs: set[str] = set()

@@ -12,9 +12,9 @@ under the JAX one. The queue-size case holds the port's daemon to what
 drop-oldest guarantees (the newest value arrives, no more is queued than
 ``queue_size``), not to a timing.
 
-The JAX runs take the daemon route (``DORA_P2P=0``): the port's daemon
-refuses peer-to-peer edges, so every edge of both runs goes through a
-daemon. Each dataflow has a time limit of its own; no case asserts a time.
+Both sides take the daemon route (``DORA_P2P=0``), so every edge of both
+runs goes through a daemon; tests/test_torch_p2p.py holds the
+peer-to-peer edges. Each dataflow has a time limit of its own; no case asserts a time.
 """
 
 from __future__ import annotations
@@ -316,8 +316,8 @@ def test_nodes_of_either_package_under_either_daemon(tmp_path, monkeypatch, daem
     """JAX nodes under the port's daemon, and the port's nodes under the JAX
     one, give the records of each package's nodes under its own daemon
     (a sender of one package to a sink of the other, over shmem). Under the
-    port's daemon the JAX nodes announce peer-to-peer listeners, are
-    refused, and take the daemon route."""
+    port's daemon the nodes announce peer-to-peer listeners and their edge
+    is paired."""
     if daemon == "port":
         monkeypatch.setenv("DORA_P2P", "1")
     data = "[[1, 2], list(range(3000)), [5]]"
@@ -505,7 +505,8 @@ def test_cli_check_and_run_with_stop_after(tmp_path):
     res = cli("check", str(good))
     assert res.returncode == 0 and "OK (1 nodes)" in res.stdout, res.stderr
     res = cli("check", str(bad))
-    assert res.returncode == 1 and "operator v/op: a jax operator" in res.stderr
+    assert res.returncode == 1 and "operator v/op: 'jax: m:f'" in res.stderr
+    assert "torch: <module>:<factory>" in res.stderr
     res = cli("run", str(good), "--stop-after", "0.5")
     assert res.returncode == 0 and "finished successfully" in res.stdout, res.stderr
     (log,) = (tmp_path / "out").glob("*/log_t.txt")

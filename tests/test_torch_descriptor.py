@@ -4,11 +4,11 @@ malformed fixtures.
 
 On each example: the same node ids, kinds, inputs (mapping and queue size),
 outputs, timers, env, restart policies and communication. ``check`` gives
-JAX's outcome, except where the port refuses by design: a node hosting
-operators (python, shared-library, jax, wasm) is refused naming the operator
-and the reason, since the port's runtime is the custom node
-``module:dora_tpu_torch.runtime``. A malformed fixture raises the JAX error
-class with the JAX message text."""
+JAX's outcome, except where the port refuses by design: a ``jax:``
+operator is refused naming ``torch:``, the port's counterpart, and a
+``wasm:`` one as unsupported. The port's own examples may hold ``torch:``
+operators, which the JAX package reads as its ``jax:`` ones. A malformed
+fixture raises the JAX error class with the JAX message text."""
 
 from __future__ import annotations
 
@@ -30,14 +30,15 @@ PORT_EXAMPLES = sorted(str(p.relative_to(REPO))
 
 
 def _shape(desc) -> dict:
-    """What the daemon builds its routes and spawns from, as plain data."""
+    """What the daemon builds its routes and spawns from, as plain data (a
+    port ``torch:`` source reads as the JAX ``jax:`` one)."""
     out = {}
     for n in desc.nodes:
         kind = type(n.kind).__name__
         ops = None
         if kind == "RuntimeNode":
-            ops = [(str(op.id), type(op.source).__name__, op.source.source)
-                   for op in n.kind.operators]
+            ops = [(str(op.id), type(op.source).__name__.replace("TorchSource", "JaxSource"),
+                    op.source.source) for op in n.kind.operators]
         out[str(n.id)] = {
             "kind": kind, "operators": ops,
             "source": getattr(n.kind, "source", None), "args": getattr(n.kind, "args", None),
@@ -59,40 +60,59 @@ def _outcome(desc, working_dir) -> tuple:
     return ("ok", None)
 
 
+def _torch_as_jax(raw):
+    """The descriptor with each ``torch:`` operator source as ``jax:``."""
+    if isinstance(raw, dict):
+        return {("jax" if k == "torch" else k): _torch_as_jax(v) for k, v in raw.items()}
+    if isinstance(raw, list):
+        return [_torch_as_jax(v) for v in raw]
+    return raw
+
+
 @pytest.mark.parametrize("path", EXAMPLES + PORT_EXAMPLES)
 def test_examples_parse_and_check_as_jax(path):
     full = REPO / path
-    jdesc = jd.Descriptor.read(full)
+    jdesc = jd.Descriptor.parse(_torch_as_jax(yaml.safe_load(full.read_text())))
     tdesc = td.Descriptor.read(full)
     assert _shape(tdesc) == _shape(jdesc)
     want = _outcome(jdesc, full.parent)
     got = _outcome(tdesc, full.parent)
-    runtime = [(n, op) for n in tdesc.nodes if isinstance(n.kind, td.RuntimeNode)
-               for op in n.kind.operators]
-    if want[0] != "ok" and not (runtime and str(runtime[0][0].id) in want[1]):
-        assert got == want  # JAX refuses for a reason the port shares
-    elif runtime:
-        node, op = runtime[0]
+    refused = [(n, op) for n in tdesc.nodes if isinstance(n.kind, td.RuntimeNode)
+               for op in n.kind.operators
+               if isinstance(op.source, (td.JaxSource, td.WasmSource))]
+    if refused and not (want[0] != "ok" and str(refused[0][0].id) not in want[1]):
+        node, op = refused[0]
         assert got[0] == "ValidationError" and got[1].startswith(f"operator {node.id}/{op.id}:")
+        if isinstance(op.source, td.JaxSource):
+            assert "torch:" in got[1]
     else:
-        assert got == want == ("ok", None)
+        assert got == want  # the JAX outcome, refusals with their texts included
 
 
 def test_port_examples_name_only_port_modules():
-    """Every node of the port's examples is a port module (or a dynamic node)."""
+    """Every node of the port's examples is a port module, a dynamic node,
+    or an operator node of the port's torch factories."""
     for path in PORT_EXAMPLES:
         for node in td.Descriptor.read(REPO / path).nodes:
+            if isinstance(node.kind, td.RuntimeNode):
+                for op in node.kind.operators:
+                    assert isinstance(op.source, td.TorchSource), (path, node.id, op.id)
+                    assert op.source.source.startswith("dora_tpu_torch."), (path, op.source)
+                continue
             assert node.source == "dynamic" or node.source.startswith("module:dora_tpu_torch."), \
                 (path, node.id, node.source)
 
 
 @pytest.mark.parametrize("kind,source,reason", [
-    ("jax", "dora_tpu.nodehub.ops:make_vlm", "a jax operator belongs to the JAX package"),
-    ("python", "op.py", "hosts no python operators"),
-    ("shared-library", "libop", "hosts no shared-library operators"),
+    ("jax", "dora_tpu.nodehub.ops:make_vlm", "is the JAX package's operator.*torch: <module>"),
+    ("python", "op.txt", "python source must be a .py file"),
+    ("shared-library", "libop", "source 'libop' not found"),
 ])
 def test_operator_nodes_are_refused_by_name(tmp_path, kind, source, reason):
-    (tmp_path / "op.py").write_text("")
+    """What the port's check refuses of an operator node, by name: a
+    ``jax:`` source (naming ``torch:``), a Python operator that is not a
+    .py file, a library that does not exist."""
+    (tmp_path / "op.txt").write_text("")
     raw = {"nodes": [
         {"id": "cam", "path": "module:dora_tpu_torch.nodehub.camera", "outputs": ["image"]},
         {"id": "vlm", "operators": [{"id": "cap", kind: source, "inputs": {"image": "cam/image"},
@@ -177,7 +197,8 @@ def test_malformed_raises_as_jax(case):
     with pytest.raises(Exception) as terr:
         td.Descriptor.parse(raw)
     assert type(terr.value).__name__ == type(jerr.value).__name__
-    assert str(terr.value) == str(jerr.value)
+    # the port's list of operator sources adds its own, torch
+    assert str(terr.value).replace("/torch/", "/") == str(jerr.value)
 
 
 CHECK_FAILS = {

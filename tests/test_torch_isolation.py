@@ -145,7 +145,7 @@ def test_port_examples_name_no_jax_module():
     import re
 
     paths = glob.glob(os.path.join(_REPO, "dora_tpu_torch", "examples", "*.yml"))
-    assert len(paths) == 7
+    assert len(paths) == 9  # with vlm-recorder.yml and rerun-viewer.yml
     for path in paths:
         with open(path) as f:
             assert not re.search(r"\bdora_tpu\.", f.read()), path

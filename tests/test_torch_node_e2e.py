@@ -8,8 +8,9 @@ its prompt on the tiny random Qwen2 (the counterpart of
 tests/test_openai_concurrent.py's end-to-end test), and with
 ``DORA_STUB_ENGINE=1`` the JAX stub engine's stream. A relay node written
 on ``dora_tpu_torch.node`` passes inline and shared-memory payloads between
-JAX nodes over each daemon transport, and the daemon pairs no
-peer-to-peer edge with it. No timing is asserted; each run has its own
+JAX nodes over each daemon transport with ``DORA_P2P=0`` in its env, and
+the daemon pairs no peer-to-peer edge with it (tests/test_torch_p2p.py
+pairs the port's nodes). No timing is asserted; each run has its own
 limit.
 """
 
@@ -249,7 +250,8 @@ def test_port_relay_node_over_every_transport_takes_the_daemon_route(tmp_path, c
         "nodes": [
             {"id": "sender", "path": "sender.py", "outputs": ["data"]},
             # queues long enough that drop-oldest never fires
-            {"id": "relay", "path": "relay.py",
+            # the daemon route for the relay: peer-to-peer off on its side
+            {"id": "relay", "path": "relay.py", "env": {"DORA_P2P": "0"},
              "inputs": {"in": {"source": "sender/data", "queue_size": 64}},
              "outputs": ["out"]},
             {"id": "sink", "path": "sink.py",

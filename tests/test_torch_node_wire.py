@@ -105,6 +105,13 @@ def _samples(common, d2n, n2d, serde, ts_cls):
         "CloseOutputs": n2d.CloseOutputs(outputs=["response"]),
         "EventStreamDropped": n2d.EventStreamDropped(),
         "P2PAnnounce": n2d.P2PAnnounce(listeners={"text": "dtp-p2p-0"}),
+        "P2PEdgesRequest": n2d.P2PEdgesRequest(),
+        "P2PEdge": d2n.P2PEdge(channel="dtp-p2p-0", input_id="text", receiver="llm"),
+        "P2POutput": d2n.P2POutput(edges=[d2n.P2PEdge(channel="dtp-p2p-0", input_id="text",
+                                                      receiver="llm")], daemon_route=True),
+        "P2PEdgesReply": d2n.P2PEdgesReply(outputs={"response": d2n.P2POutput(
+            edges=[d2n.P2PEdge(channel="dtp-p2p-1", input_id="in", receiver="sink")],
+            daemon_route=False)}),
         "NodeExitStatus": status,
         "NodeErrorCause": cause,
         "NodeError": error,
@@ -155,6 +162,41 @@ def test_timestamped_envelope_and_expects_reply_match_jax():
     assert back.inner == PORT["NextEvent"]
     # the receiving clock moved past the sender's timestamp
     assert clock.new_timestamp().time > back.timestamp.time
+
+
+@pytest.mark.parametrize("data", ["inline", "shmem", "none"])
+def test_input_frames_encoded_once_equal_jax_frames_per_edge(data):
+    """A peer-to-peer publish encodes its metadata and payload once for all
+    of an output's edges: each frame equals the JAX package's
+    Timestamped(Input) for that edge's input id, byte for byte."""
+    from dora_tpu_torch.clock import HLC
+
+    class Clock:
+        def __init__(self, ts):
+            self.ts = ts
+
+        def new_timestamp(self):
+            return self.ts
+
+    meta = tc.Metadata(type_info=tc.TypeInfo(encoding=tc.ENCODING_RAW, len=3),
+                       parameters={"seq": 4, "t": "escaped", "done": False})
+    jmeta = jc.Metadata(type_info=jc.TypeInfo(encoding=jc.ENCODING_RAW, len=3),
+                        parameters={"seq": 4, "t": "escaped", "done": False})
+    payload, jpayload = {
+        "inline": (tc.InlineData(data=b"abc"), jc.InlineData(data=b"abc")),
+        "shmem": (tc.SharedMemoryData(shmem_id="dtp-x", len=3, drop_token="tok"),
+                  jc.SharedMemoryData(shmem_id="dtp-x", len=3, drop_token="tok")),
+        "none": (None, None)}[data]
+    ts = HLC().new_timestamp()
+    jts = JaxTimestamp(time=ts.time, id=ts.id)
+    frames = tserde.encode_timestamped_inputs(["response", "text", "response"], meta, payload,
+                                              Clock(ts))
+    assert sorted(frames) == ["response", "text"]
+    for input_id, frame in frames.items():
+        assert frame == jserde.encode_timestamped(
+            jd2n.Input(id=input_id, metadata=jmeta, data=jpayload), Clock(jts))
+        assert tserde.decode_timestamped(frame).inner == td2n.Input(
+            id=input_id, metadata=meta, data=payload)
 
 
 def test_arrow_payload_of_a_text_equals_jax():

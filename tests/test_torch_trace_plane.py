@@ -464,15 +464,10 @@ def _hold_to_jax(got: dict, want: dict) -> None:
     assert got["got"] == want["got"] and all(v[0] == 200 for v in got["got"].values())
     shape, want_shape = _shape(got), _shape(want)
     assert shape["machines"] == want_shape["machines"] == ["A", "B"]
-    # the port's node reports the JAX node's series. One difference, open:
-    # torch.profiler's Kineto writes its own lines to the node's stderr
-    # during a capture (a start / stop line, and one error line when the
-    # capture thread is not the thread that imported torch), which the
-    # daemon counts as the node's error lines: the llm node's log counters
-    # appear in the port's run alone (the JAX run takes no profile).
-    profiler_logs = {"logerr:llm", "logwarn:llm"}
-    assert shape["keys"]["counters"] - want_shape["keys"]["counters"] <= profiler_logs
-    assert want_shape["keys"]["counters"] <= shape["keys"]["counters"]
+    # the port's node reports the JAX node's series; Kineto's own lines of
+    # the node's profile capture go to the capture's kineto.log, not to the
+    # node's log, so its error and warning counters stay as JAX's
+    assert shape["keys"]["counters"] == want_shape["keys"]["counters"]
     assert shape["keys"]["hist"] == want_shape["keys"]["hist"]
     assert shape["keys"]["gauges"] >= {k for k in want_shape["keys"]["gauges"]
                                        if not k.startswith("srv:llm:hbm_")}
